@@ -1,0 +1,145 @@
+"""Command-line entry point of the PyTorch port.
+
+Usage:
+    python -m fdes_tpu_torch.cli <config.toml> [--mode forward|hrtem]
+                                 [--set section.key=value ...] [--device cuda|cpu]
+
+Counterpart of ``fdes_tpu.cli`` for the modes ported so far: parse the
+config, build the simulation state on the device, run the mode, and write
+.npy outputs plus ``timing.json`` (setup and rollout wall seconds) under
+``output_dir``.  Modes and settings that are not ported yet (stem, stem4d,
+invert, frozen phonons, the streamed build, meshes) exit with code 2 and
+say so.  Runs on ``cuda`` unless ``--device cpu`` is given.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import os
+import sys
+import time
+
+import torch
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def main(argv: list[str] | None = None) -> int:
+    ap = argparse.ArgumentParser(prog="fdes-tpu-torch", description=__doc__)
+    ap.add_argument("config", help="TOML/JSON config file")
+    ap.add_argument("--mode", default=None, help="override config mode")
+    ap.add_argument(
+        "--set",
+        dest="overrides",
+        action="append",
+        default=[],
+        metavar="KEY=VAL",
+        help="dotted config override, e.g. --set sim.nslices=64",
+    )
+    ap.add_argument(
+        "--device", default="cuda", help="torch device (default cuda; cpu to run on the CPU)"
+    )
+    args = ap.parse_args(argv)
+
+    # The accuracy tier must not run on TF32 (hopper-kernels guide §6).
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    from .config import apply_overrides, load_config
+    from .pipeline import resolve_device, setup, unported_settings
+
+    cfg = apply_overrides(load_config(args.config), args.overrides)
+    if args.mode:
+        cfg = dataclasses.replace(cfg, mode=args.mode)
+    bad = unported_settings(cfg)
+    if bad:
+        print("not yet ported to fdes_tpu_torch: " + "; ".join(bad), file=sys.stderr)
+        return 2
+    device = resolve_device(args.device)
+
+    from . import io
+    from .propagate import make_slice_step, multislice
+
+    t0 = time.perf_counter()
+    sim = setup(cfg, device=device)
+    _sync(device)
+    t_setup = time.perf_counter() - t0
+    slice_step = make_slice_step(cfg.sim.engine)
+    os.makedirs(cfg.output_dir, exist_ok=True)
+    out = lambda name: os.path.join(cfg.output_dir, name)  # noqa: E731
+    nwaves = sim.psi0_stack.shape[0] if sim.psi0_stack is not None else 1
+    rollouts = 1
+
+    t1 = time.perf_counter()
+    if cfg.mode == "forward":
+        if sim.psi0_stack is not None:
+            psi0, prop = sim.psi0_stack, sim.prop_stack  # one batched rollout
+        else:
+            psi0, prop = sim.psi0, sim.propagator
+        psi = multislice(psi0, sim.v_stack, prop, sim.sigma, slice_step=slice_step)
+        outputs = {"exit_wave.npy": psi, "potential.npy": sim.v_stack}
+        if cfg.sim.thickness_every > 0:
+            from .propagate import multislice_thickness_series
+
+            rollouts = 2
+            series = multislice_thickness_series(
+                psi0, sim.v_stack, prop, sim.sigma,
+                every=cfg.sim.thickness_every, slice_step=slice_step,
+            )
+            if sim.psi0_stack is not None:
+                series = series.transpose(0, 1)  # per-tilt: (T, S // every, ...)
+            outputs["thickness_series.npy"] = series
+    else:  # hrtem
+        from .forward import hrtem_defocus_series, hrtem_tilt_series
+        from .imaging import add_dose_noise, apply_mtf, gaussian_mtf
+        from .pipeline import to_device
+
+        if sim.psi0_stack is not None:
+            imgs = hrtem_tilt_series(
+                sim.v_stack, sim.psi0_stack, sim.prop_stack, sim.sigma,
+                sim.ctf_stack[0], weights=sim.ctf_weights, slice_step=slice_step,
+            )
+        else:
+            imgs = hrtem_defocus_series(
+                sim.v_stack, sim.psi0, sim.propagator, sim.sigma, sim.ctf_stack,
+                weights=sim.ctf_weights, slice_step=slice_step,
+            )
+        det = cfg.detector
+        if det.mtf_sigma_px > 0:
+            mtf = to_device(gaussian_mtf(sim.grid.shape, det.mtf_sigma_px), sim.rdtype, device)
+            imgs = apply_mtf(imgs, mtf)
+        if det.apply_noise and det.dose_per_px > 0:
+            gen = torch.Generator(device=device).manual_seed(cfg.seed)
+            imgs = add_dose_noise(gen, imgs, det.dose_per_px)
+        outputs = {"images.npy": imgs}
+    _sync(device)
+    t_run = time.perf_counter() - t1
+
+    for name, arr in outputs.items():
+        io.write_npy(out(name), arr)
+    slice_props = sim.v_stack.shape[0] * nwaves * rollouts
+    timing = {
+        "device": str(device),
+        "device_name": torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu",
+        "engine": cfg.sim.engine,
+        "setup_s": t_setup,
+        "run_s": t_run,
+        "slice_props": slice_props,
+        "slice_props_per_s": slice_props / t_run if t_run > 0 else None,
+    }
+    with open(out("timing.json"), "w") as fh:
+        json.dump(timing, fh)
+    print(
+        f"{cfg.mode}: setup {t_setup:.3f}s, run {t_run:.3f}s on {timing['device_name']} "
+        f"-> {cfg.output_dir}/"
+    )
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

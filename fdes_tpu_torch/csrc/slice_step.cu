@@ -1,0 +1,212 @@
+// Elementwise stages of the multislice slice step, for Hopper (sm_90a).
+//
+//   psi <- IFFT[ P * FFT[ t * psi ] ],  t = exp(i*sigma*V)  or, for the
+//   absorptive (optical) potential V = Vr + i*Va, t = exp(i*sigma*Vr - sigma*Va).
+//
+// The FFTs stay in cuFFT (torch.fft), as the TPU engine leaves them to XLA.
+// The kernels here are the transmit multiply, its absorptive variant, and the
+// complex multiply used for the Fresnel propagator.
+//
+// Layout: PyTorch's interleaved complex (float2 for complex64, double2 for
+// complex128), C-contiguous.  psi is (batch, plane): any leading dimensions
+// flattened into `batch`, the broadcast operand (V, or P) is one `plane`.
+// Each thread walks a grid-stride loop over the plane, reads the broadcast
+// operand once, computes the transmission once, and applies it to every batch
+// entry: 8- or 16-byte loads, neighbouring threads on neighbouring addresses.
+//
+// Accuracy: sigma*V reaches several radians (sigma ~ 6.5e-4 rad/(V*A) at
+// 300 kV; projected-potential peaks run to thousands of V*A), where the fast
+// intrinsics __sinf/__cosf lose accuracy.  Full-precision sincosf/sincos and
+// expf/exp are called, and the library is built without --use_fast_math.
+//
+// Every entry point launches on the caller's stream, allocates nothing, does
+// not synchronise, and returns cudaGetLastError() so that a refused launch is
+// reported by the Python wrapper.
+
+#include <cuda_runtime.h>
+
+#include <cstdint>
+
+namespace {
+
+template <typename R>
+struct Complex;
+template <>
+struct Complex<float> {
+  using T = float2;
+};
+template <>
+struct Complex<double> {
+  using T = double2;
+};
+
+__device__ __forceinline__ void sin_cos(float x, float* s, float* c) { sincosf(x, s, c); }
+__device__ __forceinline__ void sin_cos(double x, double* s, double* c) { sincos(x, s, c); }
+__device__ __forceinline__ float exp_full(float x) { return expf(x); }
+__device__ __forceinline__ double exp_full(double x) { return exp(x); }
+
+// p * (c + i s)
+template <typename C, typename R>
+__device__ __forceinline__ C rotate(C p, R c, R s) {
+  C o;
+  o.x = p.x * c - p.y * s;
+  o.y = p.x * s + p.y * c;
+  return o;
+}
+
+constexpr int kThreads = 256;
+
+int blocks_for(int64_t plane) {
+  // Enough blocks to fill 132 SMs several times over; the grid-stride loop
+  // covers the rest.
+  const int64_t cap = 132 * 16;
+  int64_t b = (plane + kThreads - 1) / kThreads;
+  if (b < 1) b = 1;
+  return static_cast<int>(b < cap ? b : cap);
+}
+
+// Replaces fdes_tpu/pallas/slice_step.py::_transmit_fwd_kernel (via
+// _transmit_fwd).  Bound: bytes.  Per 512^2 c64 plane it moves V + psi in +
+// psi out = 5 MiB, ~1.6 us at 3.35 TB/s; at the config-2 shape a launch costs
+// about as much, so launch overhead is what the card sees.  Making it fast is
+// later work: folding the transmit into cuFFT's load callback, or a CUDA graph
+// over the slice loop.
+template <typename R>
+__global__ void transmit_kernel(const typename Complex<R>::T* __restrict__ psi,
+                                const R* __restrict__ v,
+                                typename Complex<R>::T* __restrict__ out, R sigma,
+                                int64_t plane, int64_t batch) {
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
+  for (int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x; i < plane;
+       i += stride) {
+    R s, c;
+    sin_cos(sigma * v[i], &s, &c);
+    for (int64_t b = 0; b < batch; ++b) {
+      const int64_t k = b * plane + i;
+      out[k] = rotate(psi[k], c, s);
+    }
+  }
+}
+
+// Replaces fdes_tpu/pallas/slice_step.py::_transmit_abs_fwd_kernel (via
+// _transmit_abs_fwd).  Bound: bytes.  Per 512^2 c64 plane it moves Vr + Va +
+// psi in + psi out = 6 MiB, ~1.9 us at 3.35 TB/s; launch overhead dominates at
+// config 2.  Making it fast is later work: folding into cuFFT's load callback,
+// or a CUDA graph over the slice loop.
+template <typename R>
+__global__ void transmit_abs_kernel(const typename Complex<R>::T* __restrict__ psi,
+                                    const R* __restrict__ v_re, const R* __restrict__ v_abs,
+                                    typename Complex<R>::T* __restrict__ out, R sigma,
+                                    int64_t plane, int64_t batch) {
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
+  for (int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x; i < plane;
+       i += stride) {
+    R s, c;
+    sin_cos(sigma * v_re[i], &s, &c);
+    const R damp = exp_full(-sigma * v_abs[i]);
+    c *= damp;
+    s *= damp;
+    for (int64_t b = 0; b < batch; ++b) {
+      const int64_t k = b * plane + i;
+      out[k] = rotate(psi[k], c, s);
+    }
+  }
+}
+
+// Replaces fdes_tpu/pallas/slice_step.py::_cmul_kernel (via _cmul): a * b, or
+// a * conj(b).  Bound: bytes.  Per 512^2 c64 plane it moves a + b + out =
+// 6 MiB, ~1.9 us at 3.35 TB/s; launch overhead dominates at config 2.  Making
+// it fast is later work: folding the Fresnel multiply into cuFFT's callbacks,
+// or a CUDA graph over the slice loop.
+template <typename R>
+__global__ void cmul_kernel(const typename Complex<R>::T* __restrict__ a,
+                            const typename Complex<R>::T* __restrict__ b,
+                            typename Complex<R>::T* __restrict__ out, int conj_b,
+                            int64_t plane, int64_t batch) {
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
+  for (int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x; i < plane;
+       i += stride) {
+    const typename Complex<R>::T bv = b[i];
+    const R bi = conj_b ? -bv.y : bv.y;
+    for (int64_t j = 0; j < batch; ++j) {
+      const int64_t k = j * plane + i;
+      out[k] = rotate(a[k], bv.x, bi);
+    }
+  }
+}
+
+template <typename R>
+int launch_transmit(int device, const void* psi, const void* v, void* out, double sigma,
+                    int64_t plane, int64_t batch, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  using C = typename Complex<R>::T;
+  transmit_kernel<R><<<blocks_for(plane), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const C*>(psi), static_cast<const R*>(v), static_cast<C*>(out),
+      static_cast<R>(sigma), plane, batch);
+  return cudaGetLastError();
+}
+
+template <typename R>
+int launch_transmit_abs(int device, const void* psi, const void* v_re, const void* v_abs,
+                        void* out, double sigma, int64_t plane, int64_t batch, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  using C = typename Complex<R>::T;
+  transmit_abs_kernel<R><<<blocks_for(plane), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const C*>(psi), static_cast<const R*>(v_re), static_cast<const R*>(v_abs),
+      static_cast<C*>(out), static_cast<R>(sigma), plane, batch);
+  return cudaGetLastError();
+}
+
+template <typename R>
+int launch_cmul(int device, const void* a, const void* b, void* out, int conj_b, int64_t plane,
+                int64_t batch, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  using C = typename Complex<R>::T;
+  cmul_kernel<R><<<blocks_for(plane), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const C*>(a), static_cast<const C*>(b), static_cast<C*>(out), conj_b, plane,
+      batch);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+const char* fdes_error_string(int err) {
+  return cudaGetErrorString(static_cast<cudaError_t>(err));
+}
+
+int fdes_transmit_c64(int device, const void* psi, const void* v, void* out, double sigma,
+                      int64_t plane, int64_t batch, void* stream) {
+  return launch_transmit<float>(device, psi, v, out, sigma, plane, batch, stream);
+}
+
+int fdes_transmit_c128(int device, const void* psi, const void* v, void* out, double sigma,
+                       int64_t plane, int64_t batch, void* stream) {
+  return launch_transmit<double>(device, psi, v, out, sigma, plane, batch, stream);
+}
+
+int fdes_transmit_abs_c64(int device, const void* psi, const void* v_re, const void* v_abs,
+                          void* out, double sigma, int64_t plane, int64_t batch, void* stream) {
+  return launch_transmit_abs<float>(device, psi, v_re, v_abs, out, sigma, plane, batch, stream);
+}
+
+int fdes_transmit_abs_c128(int device, const void* psi, const void* v_re, const void* v_abs,
+                           void* out, double sigma, int64_t plane, int64_t batch, void* stream) {
+  return launch_transmit_abs<double>(device, psi, v_re, v_abs, out, sigma, plane, batch, stream);
+}
+
+int fdes_cmul_c64(int device, const void* a, const void* b, void* out, int conj_b, int64_t plane,
+                  int64_t batch, void* stream) {
+  return launch_cmul<float>(device, a, b, out, conj_b, plane, batch, stream);
+}
+
+int fdes_cmul_c128(int device, const void* a, const void* b, void* out, int conj_b,
+                   int64_t plane, int64_t batch, void* stream) {
+  return launch_cmul<double>(device, a, b, out, conj_b, plane, batch, stream);
+}
+
+}  // extern "C"

@@ -1,0 +1,268 @@
+"""Config -> device-ready simulation state (SURVEY.md §3.5 init path).
+
+Counterpart of ``fdes_tpu.pipeline``.  ``setup(cfg, device=...)`` turns a
+Config into a ``Sim`` bundle of host-built constants (grid, propagator, CTF
+stack) and device tensors (potential stack), shared by the CLI and the
+scripts.  ``sim_from_arrays`` builds the same bundle from NumPy arrays, so a
+run can start from state computed elsewhere (the JAX package's ``Sim``, a
+saved potential).
+
+Entry points run on ``cuda`` unless the caller asks for the CPU; asking for
+``cuda`` where there is none raises instead of carrying on on the CPU.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from . import constants
+from .config import Config, MeshParams
+from .grids import Grid, fresnel_propagator
+from .optics import Aberrations, ctf_quadrature_series, ctf_series
+from .potential import build_potential
+from .probe import plane_wave
+from .scattering import ScatteringTable, load_kirkland_table
+from .specimen import Specimen, SlicedAtoms, load_xyz, make_si110_supercell, slice_specimen
+
+
+@dataclasses.dataclass
+class Sim:
+    """Device-ready state for one simulation run."""
+
+    grid: Grid
+    wavelength_A: float
+    sigma: float
+    cdtype: torch.dtype
+    rdtype: torch.dtype
+    device: torch.device
+    v_stack: torch.Tensor  # (S, ny, nx) V*Å; complex when absorptive
+    propagator: torch.Tensor  # (ny, nx) complex
+    psi0: torch.Tensor  # (ny, nx) complex incident wave
+    ctf_stack: torch.Tensor  # (D, ny, nx) complex; (D, K, ny, nx) explicit
+    #: (K,) quadrature weights when optics.coherence == "explicit"; None for
+    #: the closed-form envelope model
+    ctf_weights: torch.Tensor | None = None
+    psi0_stack: torch.Tensor | None = None  # (T, ny, nx) tilt-series waves
+    prop_stack: torch.Tensor | None = None  # (T, ny, nx) tilt-series propagators
+    cfg: Config | None = None
+    specimen: Specimen | None = None
+    sliced: SlicedAtoms | None = None
+    aberrations: Aberrations | None = None
+    table: ScatteringTable | None = None
+
+
+def resolve_device(device: torch.device | str) -> torch.device:
+    """torch.device, raising if CUDA is asked for and absent."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device {str(device)!r} requested but CUDA is not available; "
+            "pass device='cpu' (--device cpu) to run on the CPU"
+        )
+    return dev
+
+
+def _dtypes(name: str) -> tuple[torch.dtype, torch.dtype]:
+    if name in ("complex64", "c64"):
+        return torch.complex64, torch.float32
+    if name in ("complex128", "c128"):
+        return torch.complex128, torch.float64
+    raise ValueError(f"unsupported dtype {name!r}")
+
+
+def load_specimen(cfg: Config) -> Specimen:
+    sp = cfg.specimen
+    if sp.atoms_path:
+        return load_xyz(sp.atoms_path, sp.box_A, bfactor=sp.bfactor_A2)
+    return make_si110_supercell(reps=sp.reps, bfactor=sp.bfactor_A2)
+
+
+def make_table(cfg: Config) -> ScatteringTable:
+    """ScatteringTable from SpecimenParams (wentzel/moliere/kirkland)."""
+    sp = cfg.specimen
+    if sp.scattering == "kirkland":
+        if not sp.scattering_path:
+            raise ValueError(
+                "specimen.scattering='kirkland' needs specimen.scattering_path "
+                "(an fparams.dat-layout table; docs/SCATTERING.md)"
+            )
+        return load_kirkland_table(sp.scattering_path)
+    if sp.scattering in ("wentzel", "moliere"):
+        return ScatteringTable(kind=sp.scattering)
+    raise ValueError(
+        f"specimen.scattering must be wentzel|moliere|kirkland, got "
+        f"{sp.scattering!r}"
+    )
+
+
+def unported_settings(cfg: Config) -> list[str]:
+    """Settings of ``cfg`` that fdes_tpu_torch does not run yet, each with
+    the ROADMAP.md item that brings it (empty when the run is supported)."""
+    out = []
+    if cfg.mode not in ("forward", "hrtem"):
+        out.append(f"mode {cfg.mode!r} (ROADMAP.md Queue 1 items 6 and 8)")
+    if cfg.sim.streamed:
+        out.append("sim.streamed (ROADMAP.md Queue 1 item 9)")
+    if cfg.sim.phonon_configs > 0:
+        out.append("sim.phonon_configs > 0 (ROADMAP.md Queue 1 item 9)")
+    if cfg.mesh != MeshParams():
+        out.append("a [mesh] setting (ROADMAP.md Queue 1 item 11)")
+    return out
+
+
+def to_device(a: np.ndarray, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    """Host array -> device tensor, cast on the host (f64 phases cast once)."""
+    np_dtype = {
+        torch.complex64: np.complex64, torch.complex128: np.complex128,
+        torch.float32: np.float32, torch.float64: np.float64,
+    }[dtype]
+    return torch.as_tensor(np.ascontiguousarray(np.asarray(a).astype(np_dtype)), device=device)
+
+
+def setup(cfg: Config, device: torch.device | str = "cuda") -> Sim:
+    """Build the simulation state of ``cfg`` on ``device``."""
+    dev = resolve_device(device)
+    bad = [s for s in unported_settings(cfg) if not s.startswith("mode ")]
+    if bad:
+        raise NotImplementedError(
+            "not ported to fdes_tpu_torch yet: " + "; ".join(bad)
+        )
+    cdt, rdt = _dtypes(cfg.sim.dtype)
+    spec = load_specimen(cfg)
+    fy = cfg.sim.fov_y_A or float(spec.box[1])
+    fx = cfg.sim.fov_x_A or float(spec.box[0])
+    if fy <= 0 or fx <= 0:
+        raise ValueError(
+            "field of view is zero: set sim.fov_y_A/fov_x_A or specimen.box_A "
+            f"(got fov=({fy}, {fx}); atoms_path={cfg.specimen.atoms_path!r})"
+        )
+    grid = Grid(ny=cfg.sim.ny, nx=cfg.sim.nx, py=fy / cfg.sim.ny, px=fx / cfg.sim.nx)
+    dz = cfg.sim.dz_A or None
+    if dz is None and float(spec.box[2]) <= 0:
+        raise ValueError(
+            "slice thickness is zero: set sim.dz_A or a positive specimen "
+            "box_A[2]"
+        )
+    sliced = slice_specimen(spec, cfg.sim.nslices, dz=dz)
+
+    lam = constants.wavelength_A(cfg.sim.voltage_V)
+    sigma = constants.interaction_sigma(cfg.sim.voltage_V)
+
+    table = make_table(cfg)
+    v_stack = build_potential(sliced, grid, table=table, dtype=rdt, device=dev)
+    if cfg.sim.absorptive_factor > 0.0:
+        # absorptive (optical) potential: the imaginary part damps the wave
+        v_stack = v_stack + 1j * cfg.sim.absorptive_factor * v_stack.abs()
+    bandlimit = cfg.sim.bandlimit or None
+    prop = to_device(
+        fresnel_propagator(
+            grid, lam, sliced.dz,
+            tilt_xy_rad=(cfg.sim.tilt_x_rad, cfg.sim.tilt_y_rad),
+            bandlimit=bandlimit,
+        ),
+        cdt, dev,
+    )
+    psi0 = plane_wave(grid, lam, dtype=cdt, device=dev)
+
+    o = cfg.optics
+    ab = Aberrations(
+        defocus=o.defoci_A[0], cs=o.cs_A, c5=o.c5_A,
+        a1=o.a1_A, a1_angle=o.a1_angle_rad, b2=o.b2_A, b2_angle=o.b2_angle_rad,
+        a2=o.a2_A, a2_angle=o.a2_angle_rad, s3=o.s3_A, s3_angle=o.s3_angle_rad,
+        a3=o.a3_A, a3_angle=o.a3_angle_rad,
+    )
+    defoci = np.asarray(o.defoci_A, dtype=np.float64)
+    ctf_weights = None
+    if o.coherence == "explicit":
+        quads, weights = ctf_quadrature_series(
+            grid, lam, defoci, base=ab,
+            aperture_semiangle_rad=o.aperture_rad,
+            defocus_spread_A=o.defocus_spread_A,
+            source_semiangle_rad=o.source_semiangle_rad,
+            n_defocus=o.quad_defocus, n_tilt=o.quad_tilt,
+        )
+        ctfs = to_device(quads, cdt, dev)
+        ctf_weights = to_device(weights, rdt, dev)
+    elif o.coherence == "envelope":
+        ctfs = to_device(
+            ctf_series(
+                grid, lam, defoci, base=ab,
+                aperture_semiangle_rad=o.aperture_rad,
+                defocus_spread_A=o.defocus_spread_A,
+                source_semiangle_rad=o.source_semiangle_rad,
+            ),
+            cdt, dev,
+        )
+    else:
+        raise ValueError(
+            f"optics.coherence must be 'envelope' or 'explicit', got "
+            f"{o.coherence!r}"
+        )
+    psi0_stack = prop_stack = None
+    if cfg.sim.tilt_series_rad:
+        # Specimen-tilt convention: the beam stays along z (untilted plane
+        # wave) and each tilt enters ONLY as the propagator shear term; the
+        # relative tilt is what carries the projection information.
+        tilts = [tuple(t) for t in cfg.sim.tilt_series_rad]
+        psi0_stack = torch.stack([plane_wave(grid, lam, dtype=cdt, device=dev) for _ in tilts])
+        prop_stack = to_device(
+            np.stack(
+                [
+                    fresnel_propagator(grid, lam, sliced.dz, tilt_xy_rad=t, bandlimit=bandlimit)
+                    for t in tilts
+                ]
+            ),
+            cdt, dev,
+        )
+    return Sim(
+        grid=grid, wavelength_A=lam, sigma=sigma, cdtype=cdt, rdtype=rdt,
+        device=dev, v_stack=v_stack, propagator=prop, psi0=psi0,
+        ctf_stack=ctfs, ctf_weights=ctf_weights, psi0_stack=psi0_stack,
+        prop_stack=prop_stack, cfg=cfg, specimen=spec, sliced=sliced,
+        aberrations=ab, table=table,
+    )
+
+
+def sim_from_arrays(
+    arrays: dict[str, np.ndarray],
+    *,
+    sigma: float,
+    wavelength_A: float,
+    grid: Grid,
+    device: torch.device | str = "cuda",
+) -> Sim:
+    """A ``Sim`` from NumPy arrays: the state carried across packages.
+
+    Keys: ``v_stack``, ``propagator``, ``psi0``, ``ctf_stack``, and
+    optionally ``ctf_weights``, ``psi0_stack`` and ``prop_stack`` — the
+    fields of the JAX package's ``Sim`` after ``np.asarray``.  The complex
+    working dtype is psi0's; V keeps its own (real, or complex absorptive).
+    """
+    dev = resolve_device(device)
+    psi0 = np.asarray(arrays["psi0"])
+    if psi0.dtype not in (np.complex64, np.complex128):
+        raise TypeError(f"psi0 must be complex64 or complex128, got {psi0.dtype}")
+    cdt, rdt = _dtypes(str(psi0.dtype))
+    v = np.asarray(arrays["v_stack"])
+    if np.iscomplexobj(v):
+        v_t = to_device(v, cdt, dev)
+    else:
+        v_t = to_device(v, rdt, dev)
+
+    def opt(key, dtype):
+        a = arrays.get(key)
+        return None if a is None else to_device(a, dtype, dev)
+
+    return Sim(
+        grid=grid, wavelength_A=float(wavelength_A), sigma=float(sigma),
+        cdtype=cdt, rdtype=rdt, device=dev, v_stack=v_t,
+        propagator=to_device(arrays["propagator"], cdt, dev),
+        psi0=to_device(psi0, cdt, dev),
+        ctf_stack=to_device(arrays["ctf_stack"], cdt, dev),
+        ctf_weights=opt("ctf_weights", rdt),
+        psi0_stack=opt("psi0_stack", cdt),
+        prop_stack=opt("prop_stack", cdt),
+    )

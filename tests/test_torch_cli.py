@@ -1,0 +1,239 @@
+"""The port's CLI and pipeline against fdes_tpu's on the same config files."""
+
+import os
+import subprocess
+import sys
+
+import jax
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from fdes_tpu import forward as jfwd  # noqa: E402
+from fdes_tpu import pipeline as jpipe  # noqa: E402
+from fdes_tpu.config import load_config as jload  # noqa: E402
+from fdes_tpu_torch import cli as tcli  # noqa: E402
+from fdes_tpu_torch import forward as tfwd  # noqa: E402
+from fdes_tpu_torch import pipeline as tpipe  # noqa: E402
+from fdes_tpu_torch.config import load_config as tload  # noqa: E402
+from fdes_tpu_torch.grids import Grid  # noqa: E402
+from fdes_tpu_torch.imaging import add_dose_noise  # noqa: E402
+from fdes_tpu_torch.propagate import make_slice_step  # noqa: E402
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+JAX_ENV = dict(
+    os.environ,
+    JAX_PLATFORMS="cpu",
+    XLA_FLAGS="--xla_force_host_platform_device_count=1",
+    PYTHONPATH=REPO,
+)
+GATE = 1e-5  # rel-norm, complex64 on both sides
+
+
+def _rel(a, b):
+    return np.linalg.norm(a - b) / np.linalg.norm(b)
+
+
+def _cfg(path, mode="hrtem", extra_sim=""):
+    path.write_text(
+        f"""
+mode = "{mode}"
+[sim]
+ny = 128
+nx = 128
+nslices = 8
+{extra_sim}
+[specimen]
+reps = [2, 2, 2]
+[optics]
+defoci_A = [-200.0, 0.0, 200.0]
+cs_A = 1.2e7
+aperture_rad = 20e-3
+"""
+    )
+    return str(path)
+
+
+def _run_jax_cli(cfg, out, *extra):
+    r = subprocess.run(
+        [sys.executable, "-m", "fdes_tpu.cli", cfg, "--set", f"output_dir={out}",
+         "--set", "sim.engine=xla", *extra],
+        env=JAX_ENV, capture_output=True, text=True, timeout=600, cwd=os.path.dirname(out),
+    )
+    assert r.returncode == 0, r.stderr[-3000:]
+
+
+def _run_port_cli(cfg, out, *extra):
+    rc = tcli.main([cfg, "--device", "cpu", "--set", f"output_dir={out}",
+                    "--set", "sim.engine=pallas", *extra])
+    assert rc == 0
+
+
+@pytest.mark.parametrize(
+    "case,outputs",
+    [
+        ("hrtem", ["images.npy"]),
+        ("hrtem_mtf", ["images.npy"]),
+        ("forward", ["exit_wave.npy", "potential.npy", "thickness_series.npy"]),
+        ("forward_absorptive", ["exit_wave.npy", "potential.npy"]),
+    ],
+)
+def test_cli_outputs_equal_jax(tmp_path, case, outputs):
+    mode = "hrtem" if case.startswith("hrtem") else "forward"
+    extra = {
+        "hrtem": (),
+        "hrtem_mtf": ("--set", "detector.mtf_sigma_px=0.7"),
+        "forward": ("--set", "sim.thickness_every=4"),
+        "forward_absorptive": ("--set", "sim.absorptive_factor=0.1"),
+    }[case]
+    cfg = _cfg(tmp_path / "c.toml", mode)
+    _run_jax_cli(cfg, str(tmp_path / "jax"), *extra)
+    _run_port_cli(cfg, str(tmp_path / "port"), *extra)
+    for name in outputs:
+        got = np.load(tmp_path / "port" / name)
+        want = np.load(tmp_path / "jax" / name)
+        assert got.shape == want.shape and got.dtype == want.dtype, name
+        assert _rel(got, want) <= GATE, name
+    assert (tmp_path / "port" / "timing.json").exists()
+
+
+def _jax_sim_arrays(cfg_path, **over):
+    import dataclasses
+
+    cfg = jload(cfg_path)
+    cfg = dataclasses.replace(cfg, sim=dataclasses.replace(cfg.sim, **over))
+    sim = jpipe.setup(cfg)
+    keys = ("v_stack", "propagator", "psi0", "ctf_stack", "ctf_weights", "psi0_stack",
+            "prop_stack")
+    arrays = {k: np.asarray(getattr(sim, k)) for k in keys if getattr(sim, k) is not None}
+    return sim, arrays
+
+
+def test_sim_from_arrays_reproduces_jax_images(tmp_path):
+    sim, arrays = _jax_sim_arrays(_cfg(tmp_path / "c.toml"))
+    g = sim.grid
+    tsim = tpipe.sim_from_arrays(
+        arrays, sigma=sim.sigma, wavelength_A=sim.wavelength_A,
+        grid=Grid(g.ny, g.nx, g.py, g.px), device="cpu",
+    )
+    assert tsim.cdtype == torch.complex64 and tsim.v_stack.dtype == torch.float32
+    got = tfwd.hrtem_defocus_series(
+        tsim.v_stack, tsim.psi0, tsim.propagator, tsim.sigma, tsim.ctf_stack,
+        slice_step=make_slice_step("pallas"),
+    )
+    want = jfwd.hrtem_defocus_series(
+        sim.v_stack, sim.psi0, sim.propagator, sim.sigma, sim.ctf_stack
+    )
+    assert _rel(got.numpy(), np.asarray(want)) <= GATE
+
+
+def test_tilt_series_equals_jax(tmp_path):
+    tilts = ((0.0, 0.0), (3e-3, 0.0), (0.0, -2e-3))
+    sim, arrays = _jax_sim_arrays(_cfg(tmp_path / "c.toml"), tilt_series_rad=tilts)
+    g = sim.grid
+    tsim = tpipe.sim_from_arrays(
+        arrays, sigma=sim.sigma, wavelength_A=sim.wavelength_A,
+        grid=Grid(g.ny, g.nx, g.py, g.px), device="cpu",
+    )
+    want = np.asarray(jfwd.hrtem_tilt_series(
+        sim.v_stack, sim.psi0_stack, sim.prop_stack, sim.sigma, sim.ctf_stack[0]
+    ))
+    for sequential in (False, True):
+        got = tfwd.hrtem_tilt_series(
+            tsim.v_stack, tsim.psi0_stack, tsim.prop_stack, tsim.sigma, tsim.ctf_stack[0],
+            slice_step=make_slice_step("pallas"), sequential=sequential,
+        )
+        assert got.shape == want.shape
+        assert _rel(got.numpy(), want) <= GATE
+
+
+def test_explicit_coherence_equals_jax(tmp_path):
+    cfg = _cfg(tmp_path / "c.toml")
+    text = open(cfg).read().replace(
+        "aperture_rad = 20e-3",
+        'aperture_rad = 20e-3\ncoherence = "explicit"\ndefocus_spread_A = 30.0\n'
+        "source_semiangle_rad = 0.5e-3\nquad_defocus = 3\nquad_tilt = 2",
+    )
+    open(cfg, "w").write(text)
+    sim, arrays = _jax_sim_arrays(cfg)
+    tsim = tpipe.setup(tload(cfg), device="cpu")
+    np.testing.assert_allclose(tsim.ctf_stack.numpy(), arrays["ctf_stack"], rtol=0, atol=1e-6)
+    got = tfwd.hrtem_defocus_series(
+        tsim.v_stack, tsim.psi0, tsim.propagator, tsim.sigma, tsim.ctf_stack,
+        weights=tsim.ctf_weights, slice_step=make_slice_step("pallas"),
+    )
+    want = jfwd.hrtem_defocus_series(
+        sim.v_stack, sim.psi0, sim.propagator, sim.sigma, sim.ctf_stack,
+        weights=sim.ctf_weights,
+    )
+    assert got.shape == (3, 128, 128)
+    assert _rel(got.numpy(), np.asarray(want)) <= GATE
+
+
+def test_setup_on_cuda_raises_without_cuda(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present")
+    cfg = tload(_cfg(tmp_path / "c.toml"))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        tpipe.setup(cfg, device="cuda")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        tcli.main([str(tmp_path / "c.toml"), "--set", f"output_dir={tmp_path}/o"])
+
+
+@pytest.mark.parametrize(
+    "extra",
+    [
+        ("--mode", "stem"),
+        ("--mode", "stem4d"),
+        ("--mode", "invert"),
+        ("--set", "sim.phonon_configs=2"),
+        ("--set", "sim.streamed=true", "--mode", "forward"),
+        ("--set", 'mesh.axis_names=["grid"]', "--set", "mesh.shape=[1]"),
+    ],
+)
+def test_unported_modes_and_settings_exit_2(tmp_path, capsys, extra):
+    cfg = _cfg(tmp_path / "c.toml")
+    rc = tcli.main([cfg, "--device", "cpu", "--set", f"output_dir={tmp_path}/o", *extra])
+    assert rc == 2
+    assert "not yet ported" in capsys.readouterr().err
+    assert not (tmp_path / "o").exists()
+
+
+def test_setup_rejects_unported_settings(tmp_path):
+    import dataclasses
+
+    cfg = tload(_cfg(tmp_path / "c.toml"))
+    bad = dataclasses.replace(cfg, sim=dataclasses.replace(cfg.sim, streamed=True))
+    with pytest.raises(NotImplementedError, match="sim.streamed"):
+        tpipe.setup(bad, device="cpu")
+
+
+def test_dose_noise_statistics():
+    """Poisson noise by its statistics: the torch and JAX generators differ."""
+    lam_img = torch.full((256, 256), 0.8, dtype=torch.float32)
+    dose = 50.0
+    gen = torch.Generator().manual_seed(3)
+    noisy = add_dose_noise(gen, lam_img, dose)
+    counts = (noisy * dose).double()
+    n = counts.numel()
+    mean, var = float(counts.mean()), float(counts.var())
+    expect = 0.8 * dose
+    assert abs(mean - expect) <= 3 * np.sqrt(expect / n)
+    # the variance of the sample variance of a Poisson(l) is ~ (2 l^2 + l) / n
+    assert abs(var - expect) <= 3 * np.sqrt((2 * expect**2 + expect) / n)
+    assert torch.equal(noisy, add_dose_noise(torch.Generator().manual_seed(3), lam_img, dose))
+    assert noisy.dtype == torch.float32 and bool((noisy >= 0).all())
+    # the JAX path draws from the same distribution
+    jnoisy = np.asarray(
+        jax.random.poisson(jax.random.key(3), np.full((256, 256), expect))
+    )
+    assert abs(jnoisy.mean() - expect) <= 3 * np.sqrt(expect / n)
+
+
+def test_cli_noise_and_tilt_hrtem_run(tmp_path):
+    cfg = _cfg(tmp_path / "c.toml", extra_sim="tilt_series_rad = [[0.0, 0.0], [0.002, 0.0]]")
+    _run_port_cli(cfg, str(tmp_path / "o"), "--set", "detector.apply_noise=true",
+                  "--set", "detector.dose_per_px=100.0")
+    imgs = np.load(tmp_path / "o" / "images.npy")
+    assert imgs.shape == (2, 128, 128) and np.all(np.isfinite(imgs)) and np.all(imgs >= 0)

@@ -1,0 +1,141 @@
+"""The port's multislice against the f64 golden and fdes_tpu.propagate."""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from fdes_tpu import propagate as jprop  # noqa: E402
+from fdes_tpu.constants import interaction_sigma, wavelength_A  # noqa: E402
+from fdes_tpu.golden import golden_multislice  # noqa: E402
+from fdes_tpu.grids import fresnel_propagator  # noqa: E402
+from fdes_tpu.pallas.slice_step import pallas_slice_step as jax_pallas_step  # noqa: E402
+from fdes_tpu.potential import build_potential  # noqa: E402
+from fdes_tpu_torch import propagate as tprop  # noqa: E402
+
+KV = 300e3
+SIGMA = interaction_sigma(KV)
+LAM = wavelength_A(KV)
+REAL = {np.complex64: np.float32, np.complex128: np.float64}
+# rel-norm tolerance against fdes_tpu at the working precision: the same
+# rollout through two FFT libraries
+TOL = {np.complex64: 1e-5, np.complex128: 1e-12}
+
+
+def _rel(a, b):
+    a, b = np.asarray(a), np.asarray(b)
+    return np.linalg.norm(a - b) / np.linalg.norm(b)
+
+
+@pytest.fixture(scope="module")
+def config1_potential(si110_config1):
+    _, grid, sliced = si110_config1
+    return np.array(build_potential(sliced, grid, dtype=jnp.float64))
+
+
+@pytest.mark.parametrize("engine", ["xla", "pallas"])
+def test_config1_exit_wave_c64_gate(si110_config1, config1_potential, engine):
+    """The gate of tests/test_multislice.py: config-1 c64 exit wave within
+    1e-5 of the f64 golden pipeline."""
+    _, grid, sliced = si110_config1
+    gold = golden_multislice(
+        np.ones(grid.shape, np.complex128), config1_potential, grid, KV, sliced.dz
+    )
+    prop = torch.as_tensor(fresnel_propagator(grid, LAM, sliced.dz).astype(np.complex64))
+    psi = tprop.multislice(
+        torch.ones(grid.shape, dtype=torch.complex64),
+        torch.as_tensor(config1_potential.astype(np.float32)), prop, SIGMA,
+        slice_step=tprop.make_slice_step(engine),
+    )
+    assert psi.dtype == torch.complex64
+    rel = _rel(psi.numpy(), gold)
+    assert rel < 1e-5, f"config-1 c64 exit-wave rel-err {rel:.2e} exceeds 1e-5"
+
+
+@pytest.fixture(scope="module")
+def small_inputs(si110_small):
+    _, grid, sliced = si110_small
+    v = np.array(build_potential(sliced, grid, dtype=jnp.float64))
+    prop = fresnel_propagator(grid, LAM, sliced.dz)
+    return v, prop
+
+
+@pytest.mark.parametrize("absorptive", [False, True])
+@pytest.mark.parametrize("cdt", [np.complex64, np.complex128])
+@pytest.mark.parametrize("engine", ["xla", "pallas"])
+def test_multislice_equals_jax(small_inputs, engine, cdt, absorptive):
+    v, prop = small_inputs
+    if absorptive:
+        v = v + 1j * 0.1 * np.abs(v)
+    vdt = cdt if absorptive else REAL[cdt]
+    psi0 = np.ones(v.shape[1:], cdt)
+    jstep = None
+    if engine == "pallas":
+        def jstep(p, vs, pr, s):
+            return jax_pallas_step(p, vs, pr, s, interpret=True)
+    want = jprop.multislice(
+        jnp.asarray(psi0), jnp.asarray(v.astype(vdt)), jnp.asarray(prop.astype(cdt)), SIGMA,
+        slice_step=jstep,
+    )
+    got = tprop.multislice(
+        torch.as_tensor(psi0), torch.as_tensor(v.astype(vdt)),
+        torch.as_tensor(prop.astype(cdt)), SIGMA, slice_step=tprop.make_slice_step(engine),
+    )
+    assert got.dtype == torch.as_tensor(psi0).dtype
+    assert _rel(got.numpy(), want) <= TOL[cdt]
+
+
+@pytest.mark.parametrize("engine", ["xla", "pallas"])
+def test_thickness_series_equals_prefix_rollouts_and_jax(small_inputs, engine):
+    v, prop = small_inputs
+    psi0 = torch.ones(v.shape[1:], dtype=torch.complex128)
+    vt, pt = torch.as_tensor(v), torch.as_tensor(prop)
+    step = tprop.make_slice_step(engine)
+    series = tprop.multislice_thickness_series(psi0, vt, pt, SIGMA, every=2, slice_step=step)
+    assert tuple(series.shape) == (4, *v.shape[1:])
+    for k in range(4):
+        prefix = tprop.multislice(psi0, vt[: 2 * (k + 1)], pt, SIGMA, slice_step=step)
+        assert torch.equal(series[k], prefix)
+    want = jprop.multislice_thickness_series(
+        jnp.asarray(psi0.numpy()), jnp.asarray(v), jnp.asarray(prop), SIGMA, every=2
+    )
+    assert _rel(series.numpy(), want) <= 1e-12
+    with pytest.raises(ValueError):
+        tprop.multislice_thickness_series(psi0, vt, pt, SIGMA, every=3)
+
+
+def test_batched_tilt_rollout_equals_one_by_one(small_inputs, si110_small):
+    _, grid, sliced = si110_small
+    v, _ = small_inputs
+    tilts = [(0.0, 0.0), (2e-3, 0.0), (0.0, -3e-3)]
+    props = torch.as_tensor(np.stack(
+        [fresnel_propagator(grid, LAM, sliced.dz, tilt_xy_rad=t) for t in tilts]
+    ).astype(np.complex64))
+    psi0 = torch.ones((3, *grid.shape), dtype=torch.complex64)
+    vt = torch.as_tensor(v.astype(np.float32))
+    step = tprop.make_slice_step("pallas")
+    batched = tprop.multislice(psi0, vt, props, SIGMA, slice_step=step)
+    for i in range(3):
+        one = tprop.multislice(psi0[i], vt, props[i], SIGMA, slice_step=step)
+        assert _rel(batched[i].numpy(), one.numpy()) <= 1e-6
+
+
+def test_remat_chunk_rejected_until_training(small_inputs):
+    v, prop = small_inputs
+    with pytest.raises(NotImplementedError, match="training"):
+        tprop.multislice(torch.ones(v.shape[1:], dtype=torch.complex128),
+                         torch.as_tensor(v), torch.as_tensor(prop), SIGMA, remat_chunk=2)
+
+
+def test_make_slice_step_kinds():
+    from fdes_tpu_torch.kernels.slice_step import pallas_slice_step
+
+    assert tprop.make_slice_step("xla") is None
+    for kind in ("pallas", "auto", "auto_fast"):
+        assert tprop.make_slice_step(kind) is pallas_slice_step
+    for kind in ("mxu", "mxu_fast", "radix", "fused", "fscan", "fscan_fast", "panel"):
+        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+            tprop.make_slice_step(kind)
+    with pytest.raises(ValueError):
+        tprop.make_slice_step("nope")
