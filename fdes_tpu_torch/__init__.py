@@ -1,10 +1,12 @@
 """fdes_tpu_torch — the PyTorch/CUDA port of fdes_tpu for NVIDIA Hopper.
 
 Multislice simulation of TEM measurements (exit waves, HRTEM defocus and
-tilt series) in PyTorch, with the slice step's elementwise kernels written
-in CUDA C++ for sm_90a (``kernels/``, ``csrc/``).  The JAX package
-``fdes_tpu`` is the reference; this package imports none of it and no JAX.
-ROADMAP.md lists what is ported and what is still to come.
+tilt series) and the inverse (the potential recovered from a defocus or
+tilt series by gradient descent: ``loss``, ``reconstruct``) in PyTorch, with
+the slice step's elementwise kernels and their adjoints written in CUDA C++
+for sm_90a (``kernels/``, ``csrc/``).  The JAX package ``fdes_tpu`` is the
+reference; this package imports none of it and no JAX.  ROADMAP.md lists
+what is ported and what is still to come.
 """
 
 from .config import Config, load_config
@@ -12,11 +14,18 @@ from .constants import interaction_sigma, lorentz_gamma, wavelength_A
 from .forward import hrtem_defocus_series, hrtem_tilt_series
 from .grids import Grid, fresnel_propagator
 from .imaging import hrtem_image, hrtem_incoherent, hrtem_series
+from .loss import make_loss
 from .optics import Aberrations, ctf, ctf_series
 from .pipeline import Sim, setup, sim_from_arrays
 from .potential import build_potential
 from .probe import plane_wave
-from .propagate import make_slice_step, multislice, multislice_thickness_series, transmit
+from .propagate import (
+    make_slice_step,
+    multislice,
+    multislice_thickness_series,
+    pick_remat_chunk,
+    transmit,
+)
 from .scattering import ScatteringTable
 from .specimen import Specimen, SlicedAtoms, make_si110_supercell, slice_specimen
 
@@ -42,10 +51,12 @@ __all__ = [
     "interaction_sigma",
     "load_config",
     "lorentz_gamma",
+    "make_loss",
     "make_si110_supercell",
     "make_slice_step",
     "multislice",
     "multislice_thickness_series",
+    "pick_remat_chunk",
     "plane_wave",
     "setup",
     "sim_from_arrays",

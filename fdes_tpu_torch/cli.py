@@ -1,15 +1,20 @@
 """Command-line entry point of the PyTorch port.
 
 Usage:
-    python -m fdes_tpu_torch.cli <config.toml> [--mode forward|hrtem]
-                                 [--set section.key=value ...] [--device cuda|cpu]
+    python -m fdes_tpu_torch.cli <config.toml> [--mode forward|hrtem|invert]
+                                 [--set section.key=value ...] [--resume]
+                                 [--device cuda|cpu]
 
 Counterpart of ``fdes_tpu.cli`` for the modes ported so far: parse the
 config, build the simulation state on the device, run the mode, and write
-.npy outputs plus ``timing.json`` (setup and rollout wall seconds) under
-``output_dir``.  Modes and settings that are not ported yet (stem, stem4d,
-invert, frozen phonons, the streamed build, meshes) exit with code 2 and
-say so.  Runs on ``cuda`` unless ``--device cpu`` is given.
+.npy outputs plus ``timing.json`` under ``output_dir``.  ``forward`` and
+``hrtem`` simulate; ``invert`` reconstructs the potential from a defocus or
+tilt series (``observed_path``, or a self-test series synthesised from the
+config's specimen) and writes ``reconstructed.npy``, ``metrics.jsonl`` and
+``checkpoint.npz``; ``--resume`` continues from that checkpoint.  Modes and
+settings that are not ported yet (stem, stem4d, the stem4d inverse, frozen
+phonons, the streamed build, meshes) exit with code 2 and say so.  Runs on
+``cuda`` unless ``--device cpu`` is given.
 """
 
 from __future__ import annotations
@@ -41,6 +46,7 @@ def main(argv: list[str] | None = None) -> int:
         metavar="KEY=VAL",
         help="dotted config override, e.g. --set sim.nslices=64",
     )
+    ap.add_argument("--resume", action="store_true", help="resume reconstruction")
     ap.add_argument(
         "--device", default="cuda", help="torch device (default cuda; cpu to run on the CPU)"
     )
@@ -56,9 +62,14 @@ def main(argv: list[str] | None = None) -> int:
     cfg = apply_overrides(load_config(args.config), args.overrides)
     if args.mode:
         cfg = dataclasses.replace(cfg, mode=args.mode)
+    if args.resume:
+        cfg = dataclasses.replace(cfg, recon=dataclasses.replace(cfg.recon, resume=True))
     bad = unported_settings(cfg)
     if bad:
         print("not yet ported to fdes_tpu_torch: " + "; ".join(bad), file=sys.stderr)
+        return 2
+    if cfg.mode == "invert" and cfg.recon.modality != "auto":
+        print(f"unknown recon.modality {cfg.recon.modality!r}", file=sys.stderr)
         return 2
     device = resolve_device(args.device)
 
@@ -94,6 +105,18 @@ def main(argv: list[str] | None = None) -> int:
             if sim.psi0_stack is not None:
                 series = series.transpose(0, 1)  # per-tilt: (T, S // every, ...)
             outputs["thickness_series.npy"] = series
+    elif cfg.mode == "invert":
+        res = _invert(cfg, sim, slice_step, out)
+        outputs = {"reconstructed.npy": res.v}
+        if res.losses.size:
+            print(
+                f"invert: {res.iterations} iters, final loss {res.losses[-1]:.6g}, "
+                f"{len(res.losses) / max(res.wall_s, 1e-9):.2f} it/s wall "
+                f"({1.0 / max(res.median_step_s, 1e-9):.1f} it/s steady-state)"
+            )
+        else:
+            print("invert: checkpoint already at target iterations; nothing to do "
+                  "(raise recon.iterations to continue)")
     else:  # hrtem
         from .forward import hrtem_defocus_series, hrtem_tilt_series
         from .imaging import add_dose_noise, apply_mtf, gaussian_mtf
@@ -122,16 +145,22 @@ def main(argv: list[str] | None = None) -> int:
 
     for name, arr in outputs.items():
         io.write_npy(out(name), arr)
-    slice_props = sim.v_stack.shape[0] * nwaves * rollouts
     timing = {
         "device": str(device),
         "device_name": torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu",
         "engine": cfg.sim.engine,
         "setup_s": t_setup,
         "run_s": t_run,
-        "slice_props": slice_props,
-        "slice_props_per_s": slice_props / t_run if t_run > 0 else None,
     }
+    if cfg.mode == "invert":
+        n_run = len(res.losses)
+        timing["iterations"] = n_run
+        timing["iters_per_s"] = n_run / res.wall_s if n_run and res.wall_s > 0 else None
+        timing["median_step_s"] = res.median_step_s
+    else:
+        slice_props = sim.v_stack.shape[0] * nwaves * rollouts
+        timing["slice_props"] = slice_props
+        timing["slice_props_per_s"] = slice_props / t_run if t_run > 0 else None
     with open(out("timing.json"), "w") as fh:
         json.dump(timing, fh)
     print(
@@ -139,6 +168,63 @@ def main(argv: list[str] | None = None) -> int:
         f"-> {cfg.output_dir}/"
     )
     return 0
+
+
+def _invert(cfg, sim, slice_step, out):
+    """Mode invert: reconstruct V from a defocus or tilt series, starting
+    from zeros (counterpart of the non-sharded branch of fdes_tpu.cli)."""
+    import numpy as np
+
+    from .forward import hrtem_defocus_series, hrtem_tilt_series
+    from .loss import make_loss
+    from .pipeline import to_device
+    from .propagate import pick_remat_chunk
+    from .reconstruct import make_optimizer, positive_projection, reconstruct
+
+    chunk = cfg.recon.remat_chunk or pick_remat_chunk(cfg.sim.nslices)
+    if sim.psi0_stack is not None:  # tilt series (the reference's tomography)
+        fwd_args = (sim.psi0_stack, sim.prop_stack, sim.ctf_stack[0], sim.ctf_weights)
+
+        def fwd(v, psi0_stack, prop_stack, ctf0, weights):
+            return hrtem_tilt_series(
+                v, psi0_stack, prop_stack, sim.sigma, ctf0, weights=weights,
+                remat_chunk=chunk, slice_step=slice_step,
+            )
+    else:
+        fwd_args = (sim.psi0, sim.propagator, sim.ctf_stack, sim.ctf_weights)
+
+        def fwd(v, psi0, propagator, ctf_stack, weights):
+            return hrtem_defocus_series(
+                v, psi0, propagator, sim.sigma, ctf_stack, weights=weights,
+                remat_chunk=chunk, slice_step=slice_step,
+            )
+
+    if cfg.observed_path:
+        i_obs = to_device(np.load(cfg.observed_path), sim.rdtype, sim.device)
+    else:
+        # self-test: invert a series synthesised from the config's specimen
+        real_v = sim.v_stack.real if sim.v_stack.is_complex() else sim.v_stack
+        with torch.no_grad():
+            i_obs = fwd(real_v, *fwd_args)
+        if cfg.recon.loss == "poisson":
+            # poisson_nll consumes counts, not intensities
+            i_obs = cfg.recon.dose * i_obs
+    loss_fn = make_loss(
+        fwd, None, l2_weight=cfg.recon.l2_weight, tv_weight=cfg.recon.tv_weight,
+        kind=cfg.recon.loss, dose=cfg.recon.dose,
+    )
+    return reconstruct(
+        loss_fn,
+        torch.zeros_like(sim.v_stack),
+        loss_args=(i_obs, *fwd_args),
+        iterations=cfg.recon.iterations,
+        optimizer=make_optimizer(cfg.recon.optimizer, cfg.recon.lr),
+        checkpoint_path=cfg.recon.checkpoint_path or out("checkpoint.npz"),
+        checkpoint_every=cfg.recon.checkpoint_every,
+        resume=cfg.recon.resume,
+        metrics_path=cfg.recon.metrics_path or out("metrics.jsonl"),
+        project=positive_projection if cfg.recon.positivity else None,
+    )
 
 
 if __name__ == "__main__":

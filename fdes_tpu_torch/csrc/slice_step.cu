@@ -4,8 +4,16 @@
 //   absorptive (optical) potential V = Vr + i*Va, t = exp(i*sigma*Vr - sigma*Va).
 //
 // The FFTs stay in cuFFT (torch.fft), as the TPU engine leaves them to XLA.
-// The kernels here are the transmit multiply, its absorptive variant, and the
-// complex multiply used for the Fresnel propagator.
+// The kernels here are the transmit multiply, its absorptive variant, the
+// complex multiply used for the Fresnel propagator (and, with conj(b), for its
+// adjoint), and the two transmit adjoints.
+//
+// Adjoint convention: PyTorch's.  For a real loss L, the incoming gradient g
+// of a complex output is dL/dRe + i dL/dIm (the conjugate of JAX's bilinear
+// cotangent), so for out = t * psi
+//   dpsi = g * conj(t),   dV = sigma * Im(g * conj(t*psi)),
+//   and for the absorptive t = exp(i*sigma*Vr - sigma*Va):
+//   dVr = sigma * Im(g * conj(t*psi)),   dVa = -sigma * Re(g * conj(t*psi)).
 //
 // Layout: PyTorch's interleaved complex (float2 for complex64, double2 for
 // complex128), C-contiguous.  psi is (batch, plane): any leading dimensions
@@ -13,6 +21,8 @@
 // Each thread walks a grid-stride loop over the plane, reads the broadcast
 // operand once, computes the transmission once, and applies it to every batch
 // entry: 8- or 16-byte loads, neighbouring threads on neighbouring addresses.
+// The adjoints sum dV over the batch in that same loop, in registers: each
+// pixel's sum belongs to one thread, so no atomics are needed.
 //
 // Accuracy: sigma*V reaches several radians (sigma ~ 6.5e-4 rad/(V*A) at
 // 300 kV; projected-potential peaks run to thousands of V*A), where the fast
@@ -135,6 +145,82 @@ __global__ void cmul_kernel(const typename Complex<R>::T* __restrict__ a,
   }
 }
 
+// g * conj(c + i s)
+template <typename C, typename R>
+__device__ __forceinline__ C rotate_conj(C g, R c, R s) {
+  C o;
+  o.x = g.x * c + g.y * s;
+  o.y = g.y * c - g.x * s;
+  return o;
+}
+
+// Replaces fdes_tpu/pallas/slice_step.py::_transmit_bwd_kernel (via
+// _pallas_transmit_bwd), re-derived for PyTorch's adjoint convention (top of
+// file).  With u = t*psi (recomputed: cheaper than saving it through the
+// FFTs), Im(g * conj(u)) = g.y*u.x - g.x*u.y.  Bound: bytes.  Per 512^2 c64
+// plane it moves V + psi + g in, dpsi + dV out = 8 MiB, ~2.5 us at 3.35 TB/s;
+// at the config-3 shape a launch costs about as much.  Making it fast is later
+// work: a CUDA graph over the backward loop, or fusing into cuFFT callbacks.
+template <typename R>
+__global__ void transmit_bwd_kernel(const typename Complex<R>::T* __restrict__ psi,
+                                    const R* __restrict__ v,
+                                    const typename Complex<R>::T* __restrict__ g,
+                                    typename Complex<R>::T* __restrict__ dpsi,
+                                    R* __restrict__ dv, R sigma, int64_t plane,
+                                    int64_t batch) {
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
+  for (int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x; i < plane;
+       i += stride) {
+    R s, c;
+    sin_cos(sigma * v[i], &s, &c);
+    R acc = 0;
+    for (int64_t b = 0; b < batch; ++b) {
+      const int64_t k = b * plane + i;
+      const typename Complex<R>::T gk = g[k];
+      const typename Complex<R>::T u = rotate(psi[k], c, s);
+      dpsi[k] = rotate_conj(gk, c, s);
+      acc += gk.y * u.x - gk.x * u.y;
+    }
+    dv[i] = sigma * acc;
+  }
+}
+
+// Replaces fdes_tpu/pallas/slice_step.py::_transmit_abs_bwd_kernel (via
+// _pallas_transmit_abs_bwd), re-derived for PyTorch's convention.  With
+// u = t*psi: dVr = sigma*Im(g*conj(u)), dVa = -sigma*Re(g*conj(u)) =
+// -sigma*(g.x*u.x + g.y*u.y).  Bound: bytes.  Per 512^2 c64 plane it moves
+// Vr + Va + psi + g in, dpsi + dVr + dVa out = 10 MiB, ~3.1 us at 3.35 TB/s;
+// launch overhead is of the same size.
+template <typename R>
+__global__ void transmit_abs_bwd_kernel(const typename Complex<R>::T* __restrict__ psi,
+                                        const R* __restrict__ v_re, const R* __restrict__ v_abs,
+                                        const typename Complex<R>::T* __restrict__ g,
+                                        typename Complex<R>::T* __restrict__ dpsi,
+                                        R* __restrict__ dv_re, R* __restrict__ dv_abs, R sigma,
+                                        int64_t plane, int64_t batch) {
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
+  for (int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x; i < plane;
+       i += stride) {
+    R s, c;
+    sin_cos(sigma * v_re[i], &s, &c);
+    const R damp = exp_full(-sigma * v_abs[i]);
+    c *= damp;
+    s *= damp;
+    R acc_im = 0;
+    R acc_re = 0;
+    for (int64_t b = 0; b < batch; ++b) {
+      const int64_t k = b * plane + i;
+      const typename Complex<R>::T gk = g[k];
+      const typename Complex<R>::T u = rotate(psi[k], c, s);
+      dpsi[k] = rotate_conj(gk, c, s);
+      acc_im += gk.y * u.x - gk.x * u.y;
+      acc_re += gk.x * u.x + gk.y * u.y;
+    }
+    dv_re[i] = sigma * acc_im;
+    dv_abs[i] = -sigma * acc_re;
+  }
+}
+
 template <typename R>
 int launch_transmit(int device, const void* psi, const void* v, void* out, double sigma,
                     int64_t plane, int64_t batch, void* stream) {
@@ -168,6 +254,33 @@ int launch_cmul(int device, const void* a, const void* b, void* out, int conj_b,
   cmul_kernel<R><<<blocks_for(plane), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const C*>(a), static_cast<const C*>(b), static_cast<C*>(out), conj_b, plane,
       batch);
+  return cudaGetLastError();
+}
+
+template <typename R>
+int launch_transmit_bwd(int device, const void* psi, const void* v, const void* g, void* dpsi,
+                        void* dv, double sigma, int64_t plane, int64_t batch, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  using C = typename Complex<R>::T;
+  transmit_bwd_kernel<R><<<blocks_for(plane), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const C*>(psi), static_cast<const R*>(v), static_cast<const C*>(g),
+      static_cast<C*>(dpsi), static_cast<R*>(dv), static_cast<R>(sigma), plane, batch);
+  return cudaGetLastError();
+}
+
+template <typename R>
+int launch_transmit_abs_bwd(int device, const void* psi, const void* v_re, const void* v_abs,
+                            const void* g, void* dpsi, void* dv_re, void* dv_abs, double sigma,
+                            int64_t plane, int64_t batch, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  using C = typename Complex<R>::T;
+  transmit_abs_bwd_kernel<R>
+      <<<blocks_for(plane), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+          static_cast<const C*>(psi), static_cast<const R*>(v_re), static_cast<const R*>(v_abs),
+          static_cast<const C*>(g), static_cast<C*>(dpsi), static_cast<R*>(dv_re),
+          static_cast<R*>(dv_abs), static_cast<R>(sigma), plane, batch);
   return cudaGetLastError();
 }
 
@@ -207,6 +320,30 @@ int fdes_cmul_c64(int device, const void* a, const void* b, void* out, int conj_
 int fdes_cmul_c128(int device, const void* a, const void* b, void* out, int conj_b,
                    int64_t plane, int64_t batch, void* stream) {
   return launch_cmul<double>(device, a, b, out, conj_b, plane, batch, stream);
+}
+
+int fdes_transmit_bwd_c64(int device, const void* psi, const void* v, const void* g, void* dpsi,
+                          void* dv, double sigma, int64_t plane, int64_t batch, void* stream) {
+  return launch_transmit_bwd<float>(device, psi, v, g, dpsi, dv, sigma, plane, batch, stream);
+}
+
+int fdes_transmit_bwd_c128(int device, const void* psi, const void* v, const void* g, void* dpsi,
+                           void* dv, double sigma, int64_t plane, int64_t batch, void* stream) {
+  return launch_transmit_bwd<double>(device, psi, v, g, dpsi, dv, sigma, plane, batch, stream);
+}
+
+int fdes_transmit_abs_bwd_c64(int device, const void* psi, const void* v_re, const void* v_abs,
+                              const void* g, void* dpsi, void* dv_re, void* dv_abs, double sigma,
+                              int64_t plane, int64_t batch, void* stream) {
+  return launch_transmit_abs_bwd<float>(device, psi, v_re, v_abs, g, dpsi, dv_re, dv_abs, sigma,
+                                        plane, batch, stream);
+}
+
+int fdes_transmit_abs_bwd_c128(int device, const void* psi, const void* v_re, const void* v_abs,
+                               const void* g, void* dpsi, void* dv_re, void* dv_abs, double sigma,
+                               int64_t plane, int64_t batch, void* stream) {
+  return launch_transmit_abs_bwd<double>(device, psi, v_re, v_abs, g, dpsi, dv_re, dv_abs, sigma,
+                                         plane, batch, stream);
 }
 
 }  // extern "C"

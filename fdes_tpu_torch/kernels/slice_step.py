@@ -9,19 +9,36 @@ Pallas kernels around the library FFT; here they are CUDA C++ kernels
 * ``transmit_abs(psi, v_re, v_abs, sigma)``: psi * exp(1j*sigma*Vr -
   sigma*Va), the absorptive channel (replaces ``_transmit_abs_fwd_kernel``);
 * ``cmul(a, b, conj_b=False)``: a * b or a * conj(b), the Fresnel multiply
-  (replaces ``_cmul_kernel``).
+  and its adjoint (replaces ``_cmul_kernel``);
+* ``transmit_bwd(psi, v, g, sigma)``: (dpsi, dV) of the transmit
+  (replaces ``_transmit_bwd_kernel``);
+* ``transmit_abs_bwd(psi, v_re, v_abs, g, sigma)``: (dpsi, dVr, dVa) of the
+  absorptive transmit (replaces ``_transmit_abs_bwd_kernel``).
 
-Each wrapper takes complex64 or complex128 ``psi``/``a`` with any leading
-batch dimensions (..., ny, nx); V and b are broadcast over them (they match
-the trailing dimensions).  V is cast to psi's real dtype, as the TPU wrapper
-does.  A tensor on the CPU goes to the plain PyTorch version beside each
-wrapper (``transmit_ref`` and so on); a CUDA tensor goes to the kernel or the
-wrapper raises.  Each wrapper counts its kernel launches in
-``<wrapper>.launches``.
+Each wrapper takes complex64 or complex128 ``psi``/``a`` (and ``g``) with any
+leading batch dimensions (..., ny, nx); V and b are broadcast over them (they
+match the trailing dimensions), and a gradient of V is summed over them.  V
+is cast to psi's real dtype, as the TPU wrapper does.  A tensor on the CPU
+goes to the plain PyTorch version beside each wrapper (``transmit_ref`` and
+so on); a CUDA tensor goes to the kernel or the wrapper raises.  Each wrapper
+counts its kernel launches in ``<wrapper>.launches``.
 
-The engine ``pallas_slice_step`` is forward-only until the training slice
-brings the backward kernels: its backward raises instead of handing back a
-silent zero or None gradient.
+Gradients follow PyTorch's convention for complex tensors: for a real loss,
+the gradient of a complex z is dL/dRe(z) + i dL/dIm(z), the conjugate of the
+cotangent JAX hands a ``custom_vjp``.  The TPU kernels' formulas
+(``fdes_tpu/pallas/slice_step.py:19-25``) are therefore re-derived, not
+copied: for out = t * psi with upstream gradient g,
+
+    dpsi = g * conj(t),   dV = sigma * Im(g * conj(t * psi)),
+    dVa = -sigma * Re(g * conj(t * psi))     (absorptive t = e^{i s Vr - s Va}),
+
+which gives the same dV as ``jax.grad`` and the conjugate of its dpsi.
+
+The engine ``pallas_slice_step`` is one ``torch.autograd.Function`` per
+elementwise stage, with the FFTs between them left to PyTorch's autograd:
+forward and backward both run on the kernels.  The propagator gets no
+gradient, so the engine raises when it requires one instead of handing back
+a silent zero.
 """
 
 from __future__ import annotations
@@ -40,6 +57,13 @@ _ARGTYPES = {
         ctypes.c_int, _P, _P, _P, _P, ctypes.c_double, ctypes.c_int64, ctypes.c_int64, _P
     ],
     "cmul": [ctypes.c_int, _P, _P, _P, ctypes.c_int, ctypes.c_int64, ctypes.c_int64, _P],
+    "transmit_bwd": [
+        ctypes.c_int, _P, _P, _P, _P, _P, ctypes.c_double, ctypes.c_int64, ctypes.c_int64, _P
+    ],
+    "transmit_abs_bwd": [
+        ctypes.c_int, _P, _P, _P, _P, _P, _P, _P, ctypes.c_double, ctypes.c_int64,
+        ctypes.c_int64, _P,
+    ],
 }
 _entries: dict[str, object] = {}
 
@@ -85,12 +109,25 @@ def _check(z: torch.Tensor, others: dict[str, torch.Tensor], what: str) -> tuple
         shape = t.shape
     if z.is_cuda:
         for name, t in {"psi": z, **others}.items():
-            if not t.is_contiguous():
-                raise ValueError(f"{what}: {name} must be contiguous")
+            _check_dense(t, name, what)
     plane = 1
     for d in shape:
         plane *= d
     return plane, (z.numel() // plane if plane else 0)
+
+
+def _check_dense(t: torch.Tensor, name: str, what: str) -> None:
+    """A kernel reads t's memory as it lies: it must be contiguous and not a
+    lazy conjugate or negative view, whose memory holds other values."""
+    if not t.is_contiguous():
+        raise ValueError(f"{what}: {name} must be contiguous")
+    if t.is_conj() or t.is_neg():
+        raise ValueError(f"{what}: {name} is a lazy conj/neg view; call resolve_conj()")
+
+
+def _dense(g: torch.Tensor) -> torch.Tensor:
+    """An upstream gradient as the kernels read it (see _check_dense)."""
+    return g.resolve_conj().resolve_neg().contiguous()
 
 
 def _real_operand(v: torch.Tensor, psi: torch.Tensor, name: str, what: str) -> torch.Tensor:
@@ -121,6 +158,43 @@ def transmit_abs_ref(
 def cmul_ref(a: torch.Tensor, b: torch.Tensor, conj_b: bool = False) -> torch.Tensor:
     """a * b, or a * conj(b), in plain PyTorch."""
     return a * (b.conj() if conj_b else b)
+
+
+def _sum_batch(x: torch.Tensor, ndim: int) -> torch.Tensor:
+    """Sum x over its leading dimensions down to its trailing ``ndim``."""
+    if x.ndim == ndim:
+        return x
+    return x.sum(dim=tuple(range(x.ndim - ndim)))
+
+
+def transmit_bwd_ref(
+    psi: torch.Tensor, v: torch.Tensor, g: torch.Tensor, sigma: float
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """(dpsi, dV) of psi * exp(1j*sigma*V) in plain PyTorch, for upstream
+    gradient g: dpsi = g*conj(t), dV = sigma*Im(g*conj(t*psi)) summed over
+    psi's leading dimensions."""
+    phase = v.to(psi.real.dtype) * sigma
+    t = torch.complex(torch.cos(phase), torch.sin(phase))
+    dv = sigma * (g * (t * psi).conj()).imag
+    return g * t.conj(), _sum_batch(dv, v.ndim)
+
+
+def transmit_abs_bwd_ref(
+    psi: torch.Tensor, v_re: torch.Tensor, v_abs: torch.Tensor, g: torch.Tensor, sigma: float
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(dpsi, dVr, dVa) of psi * exp(1j*sigma*Vr - sigma*Va) in plain PyTorch:
+    dVr = sigma*Im(w), dVa = -sigma*Re(w), w = g*conj(t*psi), summed over
+    psi's leading dimensions."""
+    rdt = psi.real.dtype
+    phase = v_re.to(rdt) * sigma
+    damp = torch.exp(v_abs.to(rdt) * -sigma)
+    t = torch.complex(damp * torch.cos(phase), damp * torch.sin(phase))
+    w = g * (t * psi).conj()
+    return (
+        g * t.conj(),
+        _sum_batch(sigma * w.imag, v_re.ndim),
+        _sum_batch(-sigma * w.real, v_re.ndim),
+    )
 
 
 # ---- kernel wrappers -------------------------------------------------------
@@ -178,10 +252,65 @@ def cmul(a: torch.Tensor, b: torch.Tensor, conj_b: bool = False) -> torch.Tensor
     return out
 
 
+def _check_grad(g: torch.Tensor, psi: torch.Tensor, what: str) -> None:
+    if g.dtype != psi.dtype or g.shape != psi.shape or g.device != psi.device:
+        raise ValueError(
+            f"{what}: g is {g.dtype} {tuple(g.shape)} on {g.device}, psi is "
+            f"{psi.dtype} {tuple(psi.shape)} on {psi.device}"
+        )
+    if g.is_cuda:
+        _check_dense(g, "g", what)
+
+
+def transmit_bwd(
+    psi: torch.Tensor, v: torch.Tensor, g: torch.Tensor, sigma: float
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """(dpsi, dV) of the transmit for upstream gradient g: the transmit_bwd
+    kernel on CUDA, plain on CPU.  dV is summed over psi's batch."""
+    v = _real_operand(v, psi, "v", "transmit_bwd")
+    plane, batch = _check(psi, {"v": v}, "transmit_bwd")
+    _check_grad(g, psi, "transmit_bwd")
+    if not psi.is_cuda:
+        return transmit_bwd_ref(psi, v, g, sigma)
+    dpsi, dv = torch.empty_like(psi), torch.empty_like(v)
+    if plane:
+        _launch(
+            "transmit_bwd", psi, psi.data_ptr(), v.data_ptr(), g.data_ptr(), dpsi.data_ptr(),
+            dv.data_ptr(), float(sigma), plane, batch,
+        )
+        transmit_bwd.launches += 1
+    return dpsi, dv
+
+
+def transmit_abs_bwd(
+    psi: torch.Tensor, v_re: torch.Tensor, v_abs: torch.Tensor, g: torch.Tensor, sigma: float
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(dpsi, dVr, dVa) of the absorptive transmit for upstream gradient g:
+    the transmit_abs_bwd kernel on CUDA.  dVr and dVa are summed over psi's
+    batch."""
+    v_re = _real_operand(v_re, psi, "v_re", "transmit_abs_bwd")
+    v_abs = _real_operand(v_abs, psi, "v_abs", "transmit_abs_bwd")
+    plane, batch = _check(psi, {"v_re": v_re, "v_abs": v_abs}, "transmit_abs_bwd")
+    _check_grad(g, psi, "transmit_abs_bwd")
+    if not psi.is_cuda:
+        return transmit_abs_bwd_ref(psi, v_re, v_abs, g, sigma)
+    dpsi, dv_re, dv_abs = torch.empty_like(psi), torch.empty_like(v_re), torch.empty_like(v_abs)
+    if plane:
+        _launch(
+            "transmit_abs_bwd", psi, psi.data_ptr(), v_re.data_ptr(), v_abs.data_ptr(),
+            g.data_ptr(), dpsi.data_ptr(), dv_re.data_ptr(), dv_abs.data_ptr(), float(sigma),
+            plane, batch,
+        )
+        transmit_abs_bwd.launches += 1
+    return dpsi, dv_re, dv_abs
+
+
 transmit.launches = 0
 transmit_abs.launches = 0
 cmul.launches = 0
-WRAPPERS = (transmit, transmit_abs, cmul)
+transmit_bwd.launches = 0
+transmit_abs_bwd.launches = 0
+WRAPPERS = (transmit, transmit_abs, cmul, transmit_bwd, transmit_abs_bwd)
 
 
 def reset_launches() -> None:
@@ -192,27 +321,59 @@ def reset_launches() -> None:
 # ---- the engine ------------------------------------------------------------
 
 
-class _PallasSliceStep(torch.autograd.Function):
-    """Forward-only slice step; the backward kernels come with training."""
+class _Transmit(torch.autograd.Function):
+    """psi * exp(1j*sigma*V), V real: the transmit kernel and its adjoint."""
 
     @staticmethod
-    def forward(ctx, psi, v_slice, propagator, sigma):
-        if v_slice.is_complex():
-            psi = transmit_abs(
-                psi, v_slice.real.contiguous(), v_slice.imag.contiguous(), sigma
-            )
-        else:
-            psi = transmit(psi, v_slice, sigma)
-        psi_hat = torch.fft.fft2(psi)
-        psi_hat = cmul(psi_hat, propagator.to(psi_hat.dtype))
-        return torch.fft.ifft2(psi_hat)
+    def forward(ctx, psi, v, sigma):
+        ctx.sigma = sigma
+        ctx.save_for_backward(psi, v)
+        return transmit(psi, v, sigma)
 
     @staticmethod
-    def backward(ctx, grad):
-        raise NotImplementedError(
-            "engine 'pallas' is forward-only: the slice_step backward kernels "
-            "come with the training slice (ROADMAP.md Queue 2 A2/A5)"
-        )
+    def backward(ctx, g):
+        psi, v = ctx.saved_tensors
+        dpsi, dv = transmit_bwd(psi, v, _dense(g), ctx.sigma)
+        return dpsi, dv.to(v.dtype), None
+
+
+class _TransmitAbs(torch.autograd.Function):
+    """psi * exp(1j*sigma*Re V - sigma*Im V), V complex (absorptive).
+
+    The gradient of the complex V is dVr + i dVa, PyTorch's convention for a
+    complex tensor (the conjugate of what ``jax.grad`` returns).
+    """
+
+    @staticmethod
+    def forward(ctx, psi, v, sigma):
+        v_re, v_abs = v.real.contiguous(), v.imag.contiguous()
+        ctx.sigma, ctx.v_dtype = sigma, v.dtype
+        ctx.save_for_backward(psi, v_re, v_abs)
+        return transmit_abs(psi, v_re, v_abs, sigma)
+
+    @staticmethod
+    def backward(ctx, g):
+        psi, v_re, v_abs = ctx.saved_tensors
+        dpsi, dv_re, dv_abs = transmit_abs_bwd(psi, v_re, v_abs, _dense(g), ctx.sigma)
+        return dpsi, torch.complex(dv_re, dv_abs).to(ctx.v_dtype), None
+
+
+class _PropagatorMultiply(torch.autograd.Function):
+    """psi_hat * P: the cmul kernel, and g * conj(P) for the adjoint.
+
+    P is a constant of the model; it gets no gradient, so asking for one
+    raises rather than handing back a silent zero.
+    """
+
+    @staticmethod
+    def forward(ctx, psi_hat, propagator):
+        ctx.save_for_backward(propagator)
+        return cmul(psi_hat, propagator)
+
+    @staticmethod
+    def backward(ctx, g):
+        (propagator,) = ctx.saved_tensors
+        return cmul(_dense(g), propagator, conj_b=True), None
 
 
 def pallas_slice_step(
@@ -222,6 +383,19 @@ def pallas_slice_step(
 
     psi <- IFFT[ P * FFT[ t * psi ] ]: the transmit kernel (the absorptive
     one for complex V, whose imaginary part is the optical potential), cuFFT,
-    the cmul kernel, cuFFT.
+    the cmul kernel, cuFFT.  Differentiable in psi and V; the backward runs
+    transmit_bwd (or transmit_abs_bwd) and cmul with conj(P).  Raises when
+    the propagator requires a gradient: the engine gives it none.
     """
-    return _PallasSliceStep.apply(psi, v_slice, propagator, sigma)
+    if propagator.requires_grad and torch.is_grad_enabled():
+        raise NotImplementedError(
+            "engine 'pallas' gives the propagator no gradient; detach it, or use "
+            "engine 'xla' to differentiate with respect to P"
+        )
+    if v_slice.is_complex():
+        psi = _TransmitAbs.apply(psi, v_slice, sigma)
+    else:
+        psi = _Transmit.apply(psi, v_slice, sigma)
+    psi_hat = torch.fft.fft2(psi)
+    psi_hat = _PropagatorMultiply.apply(psi_hat, propagator.to(psi_hat.dtype))
+    return torch.fft.ifft2(psi_hat)

@@ -102,8 +102,10 @@ def unported_settings(cfg: Config) -> list[str]:
     """Settings of ``cfg`` that fdes_tpu_torch does not run yet, each with
     the ROADMAP.md item that brings it (empty when the run is supported)."""
     out = []
-    if cfg.mode not in ("forward", "hrtem"):
-        out.append(f"mode {cfg.mode!r} (ROADMAP.md Queue 1 items 6 and 8)")
+    if cfg.mode not in ("forward", "hrtem", "invert"):
+        out.append(f"mode {cfg.mode!r} (ROADMAP.md Queue 1 item 8)")
+    if cfg.mode == "invert" and cfg.recon.modality == "stem4d":
+        out.append("recon.modality 'stem4d' (ROADMAP.md Queue 1 item 8)")
     if cfg.sim.streamed:
         out.append("sim.streamed (ROADMAP.md Queue 1 item 9)")
     if cfg.sim.phonon_configs > 0:

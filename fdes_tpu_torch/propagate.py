@@ -1,19 +1,23 @@
 """Multislice propagation engine — the hot loop (SURVEY.md C8, §3.1).
 
-Counterpart of ``fdes_tpu.propagate``, forward only.  The slice loop is a
-Python loop over the potential stack: each step is
+Counterpart of ``fdes_tpu.propagate`` for the per-slice engines.  The slice
+loop is a Python loop over the potential stack: each step is
 psi <- IFFT(P * FFT(exp(1j*sigma*V) * psi)), either in plain PyTorch
 (engine ``"xla"``) or through the CUDA kernels around cuFFT (engine
-``"pallas"``, kernels/slice_step.py).  psi may carry leading batch
+``"pallas"``, kernels/slice_step.py).  Both differentiate with respect to
+psi0 and V; ``remat_chunk`` bounds the adjoint's memory by recomputing
+chunks of slices in the backward pass.  psi may carry leading batch
 dimensions (a tilt series), with V broadcast over them and P either shared
 or one per batch entry.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Callable
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from .kernels.slice_step import pallas_slice_step, transmit_abs_ref, transmit_ref
 
@@ -64,7 +68,7 @@ def make_slice_step(kind: str = "xla") -> Callable[..., torch.Tensor] | None:
     'xla'    — plain PyTorch: cos/sin transmit, torch.fft, complex multiply
                (returns None: multislice's default step);
     'pallas' — the CUDA kernels around cuFFT (kernels/slice_step.py),
-               forward only;
+               grad-capable: the backward runs the adjoint kernels;
     'auto', 'auto_fast' — 'pallas'.  The JAX package's auto tiers encode
                TPU measurements; the port picks by its own H100
                measurements once it has more than one engine to pick from.
@@ -86,6 +90,18 @@ def make_slice_step(kind: str = "xla") -> Callable[..., torch.Tensor] | None:
     raise ValueError(f"unknown slice-step kind {kind!r}")
 
 
+def pick_remat_chunk(nslices: int) -> int:
+    """Divisor of nslices nearest sqrt(nslices) (sqrt-S remat policy)."""
+    if nslices <= 4:
+        return nslices
+    target = math.sqrt(nslices)
+    best = 1
+    for d in range(1, nslices + 1):
+        if nslices % d == 0 and abs(d - target) < abs(best - target):
+            best = d
+    return best
+
+
 def multislice(
     psi0: torch.Tensor,
     v_stack: torch.Tensor,
@@ -100,17 +116,27 @@ def multislice(
     psi0: (..., ny, nx) complex; v_stack: (S, ny, nx) real (or complex,
     absorptive) projected potentials in V*Å; propagator: (ny, nx), or one per
     leading batch entry of psi0, complex band-limited Fresnel factor for the
-    (uniform) slice spacing.
+    (uniform) slice spacing.  remat_chunk: 0/None = no rematerialisation
+    (O(S) adjoint memory); otherwise it must divide S, and each chunk of that
+    many slices is a ``torch.utils.checkpoint`` that the backward pass runs
+    again instead of keeping its waves (pick_remat_chunk gives the sqrt-S
+    choice).
     """
-    if remat_chunk:
-        raise NotImplementedError(
-            "remat_chunk bounds adjoint memory and comes with the training "
-            "slice (ROADMAP.md Queue 1 item 3); the forward rollout needs none"
-        )
     step = slice_step or default_slice_step
+
+    def run(psi, v_chunk):
+        for j in range(v_chunk.shape[0]):
+            psi = step(psi, v_chunk[j], propagator, sigma)
+        return psi
+
+    s = v_stack.shape[0]
+    if not remat_chunk or remat_chunk >= s:
+        return run(psi0, v_stack)
+    if s % remat_chunk != 0:
+        raise ValueError(f"remat_chunk {remat_chunk} must divide nslices {s}")
     psi = psi0
-    for j in range(v_stack.shape[0]):
-        psi = step(psi, v_stack[j], propagator, sigma)
+    for j in range(0, s, remat_chunk):
+        psi = checkpoint(run, psi, v_stack[j : j + remat_chunk], use_reentrant=False)
     return psi
 
 

@@ -1,0 +1,345 @@
+"""Inverse reconstruction engine (SURVEY.md C13/C14, L6, §3.2).
+
+Counterpart of ``fdes_tpu.reconstruct``.  Each iteration evaluates the loss
+and its gradient with respect to the potential stack (autograd through the
+multislice: the adjoint kernels on engine "pallas") and takes one
+``torch.optim`` step, optionally followed by a projection (positivity).
+
+The host does not wait for the device each iteration: the loss and gradient
+norm stay on the device and are fetched in chunks of ``metrics_every``
+iterations, as in the JAX package.  (``torch.optim.LBFGS`` is the exception:
+its line search reads the loss on the host at every evaluation.)
+
+Checkpoint/resume (SURVEY.md §5): every ``checkpoint_every`` iterations V,
+the optimizer's ``state_dict()`` and the iteration count go into one .npz,
+written to a temporary file and renamed into place, so a crash leaves the
+previous checkpoint whole; ``resume`` restarts from it.
+
+The optimizers are ``torch.optim``'s, set to the optax defaults the JAX
+package uses.  For a real V they take the same steps; for a complex
+(absorptive) V they do not: optax's adam keeps one second moment |g|^2 per
+complex entry, ``torch.optim.Adam`` one per real and imaginary part.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+import functools
+import io
+import json
+import os
+import time
+from typing import Any, Callable
+
+import numpy as np
+import torch
+
+
+@dataclasses.dataclass
+class ReconResult:
+    """Terminal state of a reconstruction run."""
+
+    v: np.ndarray
+    losses: np.ndarray
+    iterations: int
+    wall_s: float
+    #: median per-step wall (s) over the metric chunks after the first — the
+    #: steady-state rate; ``wall_s`` also carries one-time costs (cuFFT
+    #: plans, the final checkpoint and result transfers)
+    median_step_s: float = 0.0
+
+
+class LBFGS(torch.optim.Optimizer):
+    """L-BFGS with the update rule of ``optax.lbfgs`` (``scale_by_lbfgs``).
+
+    One ``step(closure)`` is one iteration: the two-loop product of the last
+    10 curvature pairs with the gradient, the identity scaled by y.s / y.y
+    of the newest pair (by min(1, 1/|g|) at the first step), and a
+    strong-Wolfe line search of at most 20 evaluations from a unit step
+    (PyTorch's own, ``torch.optim.lbfgs._strong_wolfe``): optax.lbfgs's
+    defaults.  A pair is
+    the change of the parameters and of the gradient between two steps, so
+    a projection applied between steps is part of it; it is kept whenever
+    y.s != 0, as optax keeps it.  ``torch.optim.LBFGS`` drops
+    pairs with y.s <= 1e-10, an absolute cut that a potential in V*Å (where
+    gradients are ~1e-8) crosses long before it is recovered: the tilt-series
+    gate then stalls at 1.3e-3.  Complex parameters are optimised as pairs of
+    reals.
+    """
+
+    HISTORY_SIZE = 10
+    MAX_LS = 20
+
+    def __init__(self, params):
+        super().__init__(params, {})
+
+    def _params(self) -> list[torch.Tensor]:
+        return [p for g in self.param_groups for p in g["params"]]
+
+    def _flat_grad(self) -> torch.Tensor:
+        return torch.cat([torch.view_as_real(p.grad).reshape(-1) if p.is_complex()
+                          else p.grad.reshape(-1) for p in self._params()])
+
+    def _flat_params(self) -> torch.Tensor:
+        return torch.cat([torch.view_as_real(p).reshape(-1) if p.is_complex() else p.reshape(-1)
+                          for p in self._params()])
+
+    def _add(self, t: float, d: torch.Tensor) -> None:
+        i = 0
+        for p in self._params():
+            pr = torch.view_as_real(p) if p.is_complex() else p
+            n = pr.numel()
+            pr.add_(d[i : i + n].view_as(pr), alpha=t)
+            i += n
+
+    @torch.no_grad()
+    def step(self, closure):
+        from torch.optim.lbfgs import _strong_wolfe
+
+        closure = torch.enable_grad()(closure)
+        state = self.state[self._params()[0]]
+        orig_loss = closure()
+        g, x = self._flat_grad(), self._flat_params()
+        mem = state.setdefault("memory", [])  # [(s, y, 1/y.s)], oldest first
+        if "x" in state:
+            s, y = x - state["x"], g - state["g"]
+            ys = float(y.dot(s))
+            if ys != 0.0:
+                mem.append((s, y, 1.0 / ys))
+                del mem[: -self.HISTORY_SIZE]
+        q = g.neg()
+        alphas = []
+        for s, y, rho in reversed(mem):
+            a = rho * float(s.dot(q))
+            q.add_(y, alpha=-a)
+            alphas.append(a)
+        if mem:
+            s, y, _ = mem[-1]
+            q.mul_(float(y.dot(s)) / float(y.dot(y)))
+        else:
+            gnorm = float(g.norm())
+            q.mul_(1.0 / gnorm if gnorm > 1.0 else 1.0)
+        for (s, y, rho), a in zip(mem, reversed(alphas)):
+            q.add_(s, alpha=a - rho * float(y.dot(q)))
+        d = q
+
+        x0 = [p.detach().clone() for p in self._params()]
+
+        def evaluate(x, t, d):
+            self._add(t, d)
+            loss = float(closure())
+            grad = self._flat_grad()
+            for p, xp in zip(self._params(), x):
+                p.copy_(xp)
+            return loss, grad
+
+        _, _, t, _ = _strong_wolfe(
+            evaluate, x0, 1.0, d, float(orig_loss), g, g.dot(d), max_ls=self.MAX_LS
+        )
+        self._add(t, d)
+        state["x"], state["g"] = x, g
+        return orig_loss
+
+
+#: optax's defaults where torch.optim's differ: adamw's weight decay is 1e-4
+#: in optax and 1e-2 in torch.
+_OPTIMIZERS: dict[str, Callable[..., Callable]] = {
+    "sgd": lambda lr, **kw: functools.partial(torch.optim.SGD, lr=lr, **kw),
+    "momentum": lambda lr, **kw: functools.partial(
+        torch.optim.SGD, lr=lr, momentum=0.9, dampening=0.0, **kw
+    ),
+    "adam": lambda lr, **kw: functools.partial(torch.optim.Adam, lr=lr, eps=1e-8, **kw),
+    "adamw": lambda lr, **kw: functools.partial(
+        torch.optim.AdamW, lr=lr, eps=1e-8, **{"weight_decay": 1e-4, **kw}
+    ),
+    # the line search sets the step, so lr is ignored, as in the JAX package
+    "lbfgs": lambda lr, **kw: functools.partial(LBFGS, **kw),
+}
+
+
+def make_optimizer(
+    name: str = "adam", lr: float = 1.0, **kwargs
+) -> Callable[[list[torch.Tensor]], torch.optim.Optimizer]:
+    """Named optimizer for the CLI/config layer (SURVEY.md C14).
+
+    Returns a factory: called with the list of parameters, it builds the
+    ``torch.optim`` optimizer.  ``kwargs`` go to its constructor.
+    """
+    if name not in _OPTIMIZERS:
+        raise ValueError(f"unknown optimizer {name!r}; options: {sorted(_OPTIMIZERS)}")
+    return _OPTIMIZERS[name](lr, **kwargs)
+
+
+def positive_projection(v: torch.Tensor) -> torch.Tensor:
+    """Project the potential onto V >= 0 (elementwise; complex potentials
+    clip both channels — the absorptive part is nonnegative too)."""
+    if v.is_complex():
+        return torch.complex(v.real.clamp_min(0.0), v.imag.clamp_min(0.0))
+    return v.clamp_min(0.0)
+
+
+def save_checkpoint(path: str, v: torch.Tensor, opt_state: dict, iteration: int) -> None:
+    """Write V, an optimizer ``state_dict()`` and the iteration to one .npz.
+
+    The file appears whole or not at all: it is written under a temporary
+    name and renamed into place.
+    """
+    buf = io.BytesIO()
+    torch.save(opt_state, buf)
+    tmp = path + ".tmp.npz"
+    np.savez(
+        tmp,
+        iteration=iteration,
+        v=v.detach().cpu().numpy(),
+        opt_state=np.frombuffer(buf.getvalue(), dtype=np.uint8),
+    )
+    os.replace(tmp, path)
+
+
+def load_checkpoint(
+    path: str, map_location: torch.device | str | None = None
+) -> tuple[torch.Tensor, dict, int]:
+    """Restore (v, opt_state, iteration) written by save_checkpoint; raises
+    FileNotFoundError if absent.  The optimizer state is read with
+    ``weights_only=True``: tensors, numbers and containers only."""
+    with np.load(path) as z:
+        v = torch.as_tensor(z["v"], device=map_location)
+        blob = z["opt_state"].tobytes()
+        iteration = int(z["iteration"])
+    opt_state = torch.load(io.BytesIO(blob), map_location=map_location, weights_only=True)
+    return v, opt_state, iteration
+
+
+class MetricsWriter:
+    """Append-only JSONL metrics (SURVEY.md §5 metrics row).
+
+    Values must already be host scalars — the writer never forces a device
+    sync of its own.
+    """
+
+    def __init__(self, path: str | None):
+        self.path = path or None
+        if self.path:
+            os.makedirs(os.path.dirname(self.path) or ".", exist_ok=True)
+            self._fh = open(self.path, "a", buffering=1)
+
+    def write(self, **kv: Any) -> None:
+        if self.path:
+            self._fh.write(json.dumps(kv) + "\n")
+
+    def close(self) -> None:
+        if self.path:
+            self._fh.close()
+
+
+def reconstruct(
+    loss_fn: Callable[..., torch.Tensor],
+    v0: torch.Tensor,
+    *,
+    loss_args: tuple = (),
+    iterations: int = 100,
+    optimizer: Callable[[list[torch.Tensor]], torch.optim.Optimizer] | None = None,
+    checkpoint_path: str | None = None,
+    checkpoint_every: int = 50,
+    resume: bool = False,
+    metrics_path: str | None = None,
+    metrics_every: int = 16,
+    callback: Callable[[int, float, torch.Tensor], None] | None = None,
+    project: Callable[[torch.Tensor], torch.Tensor] | None = None,
+) -> ReconResult:
+    """Gradient-descent reconstruction of the potential stack.
+
+    loss_fn(v, *loss_args): scalar loss of the (S, ny, nx) potential (see
+    loss.make_loss).  optimizer: a make_optimizer factory (default adam,
+    lr 1).  V lives on v0's device and dtype.
+
+    project: optional constraint projection applied to V after each update
+    (projected gradient descent), e.g. positive_projection.
+
+    callback contract: ``callback(it, loss, v)`` fires at metric FLUSH time
+    (every ``metrics_every`` iterations), and every call in a flushed chunk
+    receives the CURRENT v — the latest iterate, not the iterate of ``it``.
+    That is the price of fetching the metrics in chunks; a callback that
+    needs v at each iteration sets metrics_every=1 and pays a sync each.
+    """
+    v = v0.detach().clone().requires_grad_(True)
+    opt = (optimizer or make_optimizer("adam", 1.0))([v])
+
+    start = 0
+    if resume and checkpoint_path and os.path.exists(checkpoint_path):
+        v_ck, opt_state, start = load_checkpoint(checkpoint_path, map_location=v.device)
+        with torch.no_grad():
+            v.copy_(v_ck)
+        opt.load_state_dict(opt_state)
+
+    metrics = MetricsWriter(metrics_path)
+    losses: list[float] = []
+    pending: list[tuple[int, torch.Tensor, torch.Tensor]] = []
+    step_walls: list[float] = []
+    t0 = chunk_t0 = time.perf_counter()
+
+    def flush(callbacks: bool = True) -> None:
+        nonlocal chunk_t0
+        if not pending:
+            return
+        # one device->host transfer for the whole chunk
+        values = torch.stack([x for _, lv, gn in pending for x in (lv, gn)]).cpu()
+        values = values.reshape(-1, 2).tolist()
+        its = [it for it, _, _ in pending]
+        pending.clear()
+        dt = (time.perf_counter() - chunk_t0) / len(its)
+        step_walls.append(dt)
+        for it, (lv, gn) in zip(its, values):
+            losses.append(lv)
+            metrics.write(iter=it, loss=lv, grad_norm=gn, step_s=dt)
+        if callbacks and callback is not None:
+            for it, (lv, _) in zip(its, values):
+                callback(it, lv, v.detach())
+        chunk_t0 = time.perf_counter()
+
+    def step() -> tuple[torch.Tensor, torch.Tensor]:
+        first: list[tuple[torch.Tensor, torch.Tensor]] = []
+
+        def closure():
+            opt.zero_grad()
+            loss = loss_fn(v, *loss_args)
+            loss.backward()
+            if not first:  # LBFGS evaluates again in its line search
+                first.append((loss.detach(), torch.linalg.vector_norm(v.grad.detach())))
+            return loss
+
+        opt.step(closure)
+        if project is not None:
+            with torch.no_grad():
+                v.copy_(project(v))
+        return first[0]
+
+    try:
+        for it in range(start, iterations):
+            loss, gnorm = step()
+            pending.append((it, loss, gnorm))
+            if len(pending) >= max(metrics_every, 1):
+                flush()
+            if checkpoint_path and (it + 1) % checkpoint_every == 0:
+                flush()  # metrics and callbacks precede their checkpoint
+                save_checkpoint(checkpoint_path, v, opt.state_dict(), it + 1)
+        flush()
+    except BaseException:
+        # keep the metrics of the iterations that ran; the original error
+        # propagates, so a failing fetch here must not replace it
+        with contextlib.suppress(Exception):
+            flush(callbacks=False)
+        raise
+    finally:
+        metrics.close()
+    if checkpoint_path:
+        save_checkpoint(checkpoint_path, v, opt.state_dict(), iterations)
+    walls = step_walls[1:] if len(step_walls) > 1 else step_walls
+    return ReconResult(
+        v=v.detach().cpu().numpy(),
+        losses=np.asarray(losses),
+        iterations=iterations,
+        wall_s=time.perf_counter() - t0,
+        median_step_s=float(np.median(walls)) if walls else 0.0,
+    )

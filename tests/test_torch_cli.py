@@ -1,5 +1,6 @@
 """The port's CLI and pipeline against fdes_tpu's on the same config files."""
 
+import json
 import os
 import subprocess
 import sys
@@ -186,7 +187,7 @@ def test_setup_on_cuda_raises_without_cuda(tmp_path):
     [
         ("--mode", "stem"),
         ("--mode", "stem4d"),
-        ("--mode", "invert"),
+        ("--mode", "invert", "--set", "recon.modality=stem4d"),
         ("--set", "sim.phonon_configs=2"),
         ("--set", "sim.streamed=true", "--mode", "forward"),
         ("--set", 'mesh.axis_names=["grid"]', "--set", "mesh.shape=[1]"),
@@ -198,6 +199,56 @@ def test_unported_modes_and_settings_exit_2(tmp_path, capsys, extra):
     assert rc == 2
     assert "not yet ported" in capsys.readouterr().err
     assert not (tmp_path / "o").exists()
+
+
+INVERT = ("--mode", "invert", "--set", "sim.ny=32", "--set", "sim.nx=32", "--set",
+          "sim.nslices=4", "--set", "recon.optimizer=sgd", "--set", "recon.lr=2000.0")
+
+
+def test_cli_invert_equals_jax(tmp_path):
+    """--mode invert on a 32^2, 4-slice config, 3 sgd iterations: the JAX
+    CLI's reconstruction, losses and metrics lines."""
+    cfg = _cfg(tmp_path / "c.toml")
+    extra = (*INVERT, "--set", "recon.iterations=3")
+    _run_jax_cli(cfg, str(tmp_path / "jax"), *extra)
+    _run_port_cli(cfg, str(tmp_path / "port"), *extra)
+    got = np.load(tmp_path / "port" / "reconstructed.npy")
+    want = np.load(tmp_path / "jax" / "reconstructed.npy")
+    assert got.shape == want.shape == (4, 32, 32) and got.dtype == want.dtype == np.float32
+    assert np.abs(want).max() > 1.0  # V moved
+    assert _rel(got, want) <= GATE
+    rows = {}
+    for side in ("port", "jax"):
+        with open(tmp_path / side / "metrics.jsonl") as fh:
+            rows[side] = [json.loads(line) for line in fh]
+    assert [r.keys() for r in rows["port"]] == [r.keys() for r in rows["jax"]]
+    assert [r["iter"] for r in rows["port"]] == [0, 1, 2]
+    np.testing.assert_allclose([r["loss"] for r in rows["port"]],
+                               [r["loss"] for r in rows["jax"]], rtol=GATE)
+    with open(tmp_path / "port" / "timing.json") as fh:
+        timing = json.load(fh)
+    assert timing["iterations"] == 3 and timing["iters_per_s"] > 0
+    assert {"median_step_s", "setup_s", "device_name"} <= set(timing)
+    assert (tmp_path / "port" / "checkpoint.npz").exists()
+
+
+def test_cli_invert_resume_continues(tmp_path, capsys):
+    """--resume continues from checkpoint.npz: 2 iterations, then resume to
+    3, equals 3 in one run; at the target it has nothing left to do."""
+    cfg = _cfg(tmp_path / "c.toml")
+    _run_port_cli(cfg, str(tmp_path / "full"), *INVERT, "--set", "recon.iterations=3")
+    _run_port_cli(cfg, str(tmp_path / "part"), *INVERT, "--set", "recon.iterations=2")
+    _run_port_cli(cfg, str(tmp_path / "part"), *INVERT, "--set", "recon.iterations=3",
+                  "--resume")
+    np.testing.assert_allclose(np.load(tmp_path / "part" / "reconstructed.npy"),
+                               np.load(tmp_path / "full" / "reconstructed.npy"),
+                               rtol=1e-6, atol=1e-6)
+    with open(tmp_path / "part" / "metrics.jsonl") as fh:
+        assert [json.loads(line)["iter"] for line in fh] == [0, 1, 2]
+    capsys.readouterr()
+    _run_port_cli(cfg, str(tmp_path / "part"), *INVERT, "--set", "recon.iterations=3",
+                  "--resume")
+    assert "nothing to do" in capsys.readouterr().out
 
 
 def test_setup_rejects_unported_settings(tmp_path):

@@ -1,5 +1,8 @@
-"""The port's multislice against the f64 golden and fdes_tpu.propagate."""
+"""The port's multislice against the f64 golden and fdes_tpu.propagate,
+values and gradients (PyTorch's gradient of a complex tensor is the
+conjugate of what jax.grad returns)."""
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -121,11 +124,61 @@ def test_batched_tilt_rollout_equals_one_by_one(small_inputs, si110_small):
         assert _rel(batched[i].numpy(), one.numpy()) <= 1e-6
 
 
+def _grads(v, prop, psi0, engine, remat_chunk):
+    """d/dV and d/dpsi0 of sum |exit wave|^2 * w through the port."""
+    v_t = torch.as_tensor(v).requires_grad_(True)
+    p_t = torch.as_tensor(psi0).requires_grad_(True)
+    out = tprop.multislice(p_t, v_t, torch.as_tensor(prop), SIGMA, remat_chunk=remat_chunk,
+                           slice_step=tprop.make_slice_step(engine))
+    w = torch.linspace(0.5, 1.5, out.numel(), dtype=torch.float64).reshape(out.shape)
+    (out.abs() ** 2 * w).sum().backward()
+    return v_t.grad, p_t.grad
+
+
 def test_remat_chunk_rejected_until_training(small_inputs):
+    """remat_chunk 1, 2 and S give the no-remat gradient on both engines; a
+    chunk that does not divide S is rejected."""
     v, prop = small_inputs
-    with pytest.raises(NotImplementedError, match="training"):
-        tprop.multislice(torch.ones(v.shape[1:], dtype=torch.complex128),
-                         torch.as_tensor(v), torch.as_tensor(prop), SIGMA, remat_chunk=2)
+    psi0 = np.ones(v.shape[1:], np.complex128)
+    for engine in ("xla", "pallas"):
+        want = _grads(v, prop, psi0, engine, None)
+        for chunk in (1, 2, v.shape[0]):
+            got = _grads(v, prop, psi0, engine, chunk)
+            for a, b in zip(got, want):
+                assert _rel(a.numpy(), b.numpy()) <= 1e-12
+    with pytest.raises(ValueError, match="divide"):
+        _grads(v, prop, psi0, "pallas", 3)
+
+
+@pytest.mark.parametrize("absorptive", [False, True])
+@pytest.mark.parametrize("engine", ["xla", "pallas"])
+def test_multislice_grad_equals_jax(small_inputs, si110_small, engine, absorptive):
+    """A tilt batch of waves through one V: dV equals jax.grad's, dpsi0 (and
+    a complex V's gradient) its conjugate, at remat 2."""
+    _, grid, sliced = si110_small
+    v, _ = small_inputs
+    if absorptive:
+        v = v + 1j * 0.1 * np.abs(v)
+    tilts = [(0.0, 0.0), (2e-3, -1e-3)]
+    props = np.stack([fresnel_propagator(grid, LAM, sliced.dz, tilt_xy_rad=t) for t in tilts])
+    rng = np.random.default_rng(5)
+    psi0 = np.exp(1j * rng.uniform(0, 0.3, size=(2, *grid.shape)))
+    got_v, got_p = _grads(v, props, psi0, engine, 2)
+
+    def loss(vv, pp):
+        out = jax.vmap(lambda p0, pr: jprop.multislice(p0, vv, pr, SIGMA, remat_chunk=2))(
+            pp, jnp.asarray(props))
+        w = jnp.linspace(0.5, 1.5, out.size).reshape(out.shape)
+        return jnp.sum(jnp.abs(out) ** 2 * w)
+
+    want_v, want_p = jax.grad(loss, argnums=(0, 1))(jnp.asarray(v), jnp.asarray(psi0))
+    assert _rel(got_v.numpy(), np.conj(want_v) if absorptive else want_v) <= 1e-10
+    assert _rel(got_p.numpy(), np.conj(want_p)) <= 1e-10
+
+
+@pytest.mark.parametrize("nslices", [1, 2, 4, 7, 12, 16, 64, 100])
+def test_pick_remat_chunk_equals_jax(nslices):
+    assert tprop.pick_remat_chunk(nslices) == jprop.pick_remat_chunk(nslices)
 
 
 def test_make_slice_step_kinds():
