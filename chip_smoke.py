@@ -10,31 +10,64 @@ Phases, each printing one JSON line:
              sm_90a into fdes_tpu_torch/_build/ (one nvcc per source, all
              started together).
 2. kernels — hold each kernel against its plain PyTorch version on the card
-             at 512^2 and (8, 512, 512), in complex64 and complex128 (the
-             batched case checks the adjoints' batch-summed dV), and time it
-             (CUDA events) beside its plain version, its byte/operation bound
-             and, where one exists, a single PyTorch call computing the same
-             function.
+             and time it (CUDA events) beside its plain version, its
+             byte/operation bound and, where one exists, a single PyTorch call
+             computing the same function.  The slice step's five elementwise
+             kernels at 512^2 and (8, 512, 512), in complex64 and complex128
+             (the batched case checks the adjoints' batch-summed dV); the
+             fused step and its adjoint at 512^2 and (8, 512, 512) complex64;
+             the whole-loop scan at (16 waves, 8 slices, 512^2), at 128^2 and
+             1024^2 (2 waves, 3 slices, shared and per-wave V and P), and at
+             the STEM raster's own shape (16 probes, 128 slices, 512^2), there
+             also against a complex128 rollout and beside the same rollout as
+             128 calls of the fused step; the kernels one call of each wrapper
+             launches are counted with torch.profiler.  ``--only kernels_fused``
+             (or ``kernels_slice``) runs one of the two groups alone.
 3. golden  — the port's multislice (engine "pallas", complex64) against the
              frozen f64 golden pack (golden/si110_golden_pack.npz): exit wave
-             and three HRTEM images at relative error <= 1e-5.
+             and three HRTEM images at relative error <= 1e-5; and the
+             config-1 exit wave (Si[110] 4x3x3, 256^2, 16 slices; the pack's
+             64^2 is below the fused kernels' sizes) on engines "fscan" and
+             "fused" against an independent float64 NumPy multislice, <= 1e-5.
 4. hrtem   — the main path at full width: ``fdes_tpu_torch.cli.main`` on
              examples/si110_hrtem.toml (512^2, 64 slices, 8 defoci, engine
-             "auto" = "pallas"), launches counted, against the plain-torch
-             engine ("xla") at <= 1e-5.
+             "pallas"), launches counted, against the plain-torch engine
+             ("xla") at <= 1e-5; the same on the defaults ("auto" resolves to
+             "fscan": one whole-loop launch, asserted) and a two-tilt forward
+             run with a thickness series on the defaults, each against "xla"
+             at <= 1e-5; then the 64-slice rollout alone on "pallas", "xla",
+             "fscan" and "fused", wall and device time.
 5. absorptive — the same CLI in forward mode with an absorptive potential:
-             the absorptive transmit kernel, against "xla" at <= 1e-5.
+             the absorptive transmit kernel, against "xla" at <= 1e-5, on
+             "pallas" and on the defaults (the whole-loop engine sends a
+             complex potential through the same kernels, asserted).
 6. grad    — the config-3 loss (make_loss over hrtem_defocus_series, 512^2,
              64 slices, 8 defoci, complex64) and dL/dV at V = 0.5 V_true:
-             engine "pallas" against "xla", remat_chunk 8 against none, and the
-             absorptive potential (the absorptive adjoint kernel), each at
-             <= 1e-5, with the launches of one gradient evaluation asserted and
-             its wall and device time measured.
+             engines "pallas" and "fused" against "xla", remat_chunk 8 against
+             none, and the absorptive potential (the absorptive adjoint
+             kernel), each at <= 1e-5, with the launches of one gradient
+             evaluation asserted and its wall and device time measured.
 7. invert  — the inverse at full width: ``fdes_tpu_torch.cli.main --mode
              invert`` on examples/si110_hrtem.toml (config 3), 20 iterations on
-             engine "auto" (= "pallas") and on "xla": first losses equal at
-             <= 1e-5, every loss finite, the last below the first, and
-             reconstructed.npy (64, 512, 512) and finite.
+             engines "pallas", "xla" and "fused": launches asserted, first
+             losses equal at <= 1e-5, every loss finite, the last below the
+             first, and reconstructed.npy (64, 512, 512) and finite.
+8. stem    — the STEM raster at full width: ``fdes_tpu_torch.cli.main`` on
+             examples/si110_stem.toml (config 4: 512^2, 128 slices, 32x32 =
+             1,024 probes, BF + ADF) on engine "fscan" at probe chunk 16 (one
+             whole-loop kernel launch per chunk, asserted, and no FFT library
+             kernel inside the rollout), then "pallas" and "xla" at chunk 16
+             and "fscan" at chunk 64, twice in turns, and once on the defaults
+             ("auto" resolves to "fscan", chunk 0 to 64); signals "fscan" against
+             "xla", and against a complex128 raster of the first 16 probes, per
+             detector at <= 1e-4 (two float32 rollouts of 128 slices);
+             slice-propagations per second and the device's idle share per
+             engine.
+9. stem4d  — a 4x4 scan in mode stem4d (cbed.npy, "fscan" against "xla") and
+             in mode stem with stem.compute_com=true (stem_com.npy).
+10. engines — wall time of a 32-slice rollout and of one gradient evaluation
+             per engine at 128^2 to 1024^2, one wave and 16: the rows that
+             ``make_slice_step("auto")`` picks its engine from.
 
 Then it prints the kernel table as one JSON line, the card's name and power
 limit (nvidia-smi), and as the last line
@@ -57,14 +90,34 @@ import numpy as np
 import torch
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
-PHASES = ("build", "kernels", "golden", "hrtem", "absorptive", "grad", "invert")
+PHASES = ("build", "kernels", "golden", "hrtem", "absorptive", "grad", "invert", "stem",
+          "stem4d", "engines")
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 PEAK_OPS_PER_S = {torch.float32: 67e12, torch.float64: 34e12}  # non-tensor-core FP32 / FP64
 KERNEL_TOL = {torch.complex64: 2e-6, torch.complex128: 1e-12}  # max|k - ref| / max|ref|
 GATE = 1e-5  # relative-norm gate of the repo's exit-wave and image checks
 TIMED = 60
 CONFIG = os.path.join(ROOT, "examples", "si110_hrtem.toml")
+CONFIG_STEM = os.path.join(ROOT, "examples", "si110_stem.toml")
 INVERT_ITERS = 20
+# The fused kernels against their plain versions (max|k - ref| / max|ref|,
+# complex64): both sides round in float32 through 2 * log2(N^2) butterfly
+# stages per slice, in different orders (radix-2 in shared memory here, cuFFT
+# there), ~1e-6 for one step; over S slices the differences add like a random
+# walk.
+FUSED_TOL = 2e-6
+
+
+def scan_tol(nslices: int) -> float:
+    return FUSED_TOL * max(1.0, nslices) ** 0.5
+
+
+# A complex64 rollout of 128 slices at 512^2 against the complex128 one
+# (relative norm).  The repo's 1e-5 gate is held at config 1's 16 slices;
+# float32 round-off grows like the square root of the slice count, 2.8e-5 at
+# 128, and the plain cuFFT rollout itself stands at about that distance.  The
+# kernel is held to 5e-5 and to 1.5 times the plain rollout's own distance.
+LONG_ROLLOUT_TOL = 5e-5
 
 
 def emit(obj) -> None:
@@ -100,10 +153,22 @@ def all_finite(got) -> bool:
                for t in got)
 
 
-def launch_counts() -> dict:
+def wrappers() -> tuple:
+    """Every kernel wrapper of the port, in the kernel table's order."""
+    from fdes_tpu_torch.kernels import fused_scan as fsc
+    from fdes_tpu_torch.kernels import fused_step as fs
     from fdes_tpu_torch.kernels import slice_step as ks
 
-    return {w.__name__: w.launches for w in ks.WRAPPERS}
+    return (*ks.WRAPPERS, *fs.WRAPPERS, fsc.fused_scan)
+
+
+def launch_counts() -> dict:
+    return {w.__name__: w.launches for w in wrappers()}
+
+
+def reset_launches() -> None:
+    for w in wrappers():
+        w.launches = 0
 
 
 def time_launches(fn, n: int = TIMED, warmup: int = 5) -> float:
@@ -252,6 +317,186 @@ def phase_kernels(sigma: float) -> tuple[dict, dict]:
     return {"phase": "kernels", "checks": checks}, rows
 
 
+def device_kernels(fn) -> dict[str, int]:
+    """The CUDA kernels that one call of fn launched, by name with their
+    counts, from torch.profiler."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof, torch.no_grad():
+        fn()
+        torch.cuda.synchronize()
+    names: dict[str, int] = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            names[e.name] = names.get(e.name, 0) + 1
+    return names
+
+
+def own_kernels(fn) -> dict[str, int]:
+    """The kernels of csrc/fused_step.cu among those one call of fn launched."""
+    out: dict[str, int] = {}
+    for full, count in device_kernels(fn).items():
+        for own in ("row_pass_kernel", "col_pass_kernel", "bwd_tail_kernel", "scan_kernel"):
+            if own in full:
+                out[own] = out.get(own, 0) + count
+    return out
+
+
+def fft2_ops(n: int) -> float:
+    """Real operations of one complex 2-D FFT of an n x n plane (5 N log2 N
+    for N = n^2 points, the radix-2 count)."""
+    return 5.0 * n * n * 2 * np.log2(n)
+
+
+def phase_kernels_fused() -> tuple[dict, dict]:
+    """The fused step, its adjoint and the whole-loop scan against their
+    plain versions; returns (phase line, table rows)."""
+    from fdes_tpu_torch.config import load_config
+    from fdes_tpu_torch.kernels import fused_scan as fsc
+    from fdes_tpu_torch.kernels import fused_step as fs
+    from fdes_tpu_torch.pipeline import setup, stem_setup
+    from fdes_tpu_torch.probe import probe_from_stencil
+
+    rng = np.random.default_rng(1)
+    f32 = torch.float32
+
+    def cplx(*shape):
+        z = rng.standard_normal(shape) + 1j * rng.standard_normal(shape)
+        return torch.as_tensor(z.astype(np.complex64), device="cuda")
+
+    def check(name, shape, got, want, tol, **more):
+        torch.cuda.synchronize()
+        abs_err, rel = max_errors(got, want)
+        ok = rel <= tol and all_finite(got)
+        checks.append({"kernel": name, "dtype": "complex64", "shape": list(shape),
+                       "max_abs_err": abs_err, "max_rel_err": rel, "tol": tol, "ok": ok, **more})
+        if not ok:
+            raise AssertionError(f"kernel {name} {shape} {more}: rel err {rel:.3e} > {tol:.1e}")
+        return abs_err, rel
+
+    # the STEM raster's own state: config 4's potential, propagator and probes
+    sim = setup(load_config(CONFIG_STEM), device="cuda")
+    stencil, qy, qx, positions, _ = stem_setup(sim)
+    sigma, prop, v_stack = sim.sigma, sim.propagator, sim.v_stack
+    n, s = v_stack.shape[-1], v_stack.shape[0]
+    v = v_stack[int(v_stack.amax(dim=(1, 2)).argmax())].contiguous()
+    probes = probe_from_stencil(stencil, qy, qx, positions[:64])  # the first 64 of the scan
+    checks, rows = [], {}
+
+    # ---- the step and its adjoint, one wave and a batch (dV summed over it)
+    prepared = fs.prepare_propagator(prop)
+    for shape in ((n, n), (8, n, n)):
+        psi, g = cplx(*shape), cplx(*shape)
+        step_err = check("fused_step", shape, fs.fused_step(psi, v, prop, sigma),
+                         fs.fused_slice_step_ref(psi, v, prop, sigma), FUSED_TOL)
+        bwd_err = check("fused_step_bwd", shape, fs.fused_step_bwd(psi, v, g, prop, sigma),
+                        fs.fused_step_bwd_ref(psi, v, g, prop, sigma), FUSED_TOL)
+        if len(shape) == 3:  # one propagator per wave (a tilt series)
+            props = prop * torch.polar(torch.ones(shape, device="cuda"),
+                                       torch.as_tensor(rng.uniform(0, 6.28, shape), device="cuda",
+                                                       dtype=f32))
+            check("fused_step", shape, fs.fused_step(psi, v, props, sigma),
+                  fs.fused_slice_step_ref(psi, v, props, sigma), FUSED_TOL, per_wave_p=True)
+            continue
+        plane = n * n
+        for name, err, kern, ref, nbytes, ops in (
+            ("fused_step", step_err,
+             lambda: fs.fused_step(psi, v, prop, sigma, prepared=prepared),
+             lambda: fs.fused_slice_step_ref(psi, v, prop, sigma),
+             plane * (8 + 4 + 8 + 8), 2 * fft2_ops(n) + (9 + 6) * plane),
+            ("fused_step_bwd", bwd_err,
+             lambda: fs.fused_step_bwd(psi, v, g, prop, sigma, prepared=prepared),
+             lambda: fs.fused_step_bwd_ref(psi, v, g, prop, sigma),
+             plane * (8 + 4 + 8 + 8 + 8 + 4), 2 * fft2_ops(n) + (6 + 20) * plane),
+        ):
+            t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / PEAK_OPS_PER_S[f32] * 1e3
+            rows[name] = {
+                "name": name, "route": "cuda", "source": "fdes_tpu_torch/csrc/fused_step.cu",
+                "replaces": {"fused_step": "fdes_tpu/pallas/fused_step.py:297",
+                             "fused_step_bwd": "fdes_tpu/pallas/fused_step.py:314"}[name],
+                "launches": None, "max_abs_err": err[0], "max_rel_err": err[1],
+                "ms": time_launches(kern), "plain_ms": time_launches(ref),
+                "bound_ms": max(t_bytes, t_ops),
+                "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                "library_ms": None, "shape": list(shape), "dtype": "complex64",
+                "bytes": nbytes, "operations": ops,
+                "kernels_per_call": own_kernels(kern),
+            }
+            if sum(rows[name]["kernels_per_call"].values()) != 3:
+                raise AssertionError(f"{name}: one call launched {rows[name]['kernels_per_call']}")
+
+    # ---- the scan: small cases at every size, shared and per-wave V and P
+    for m, b, ns in ((128, 2, 3), (1024, 2, 3), (256, 2, 3), (n, 16, 8)):
+        for per_wave in (False, True):
+            if per_wave and b > 2:
+                continue
+            lead = (b,) if per_wave else ()
+            if m == n:
+                psi0, vs, pr = probes[:b], v_stack[:ns], prop
+            else:
+                psi0 = cplx(b, m, m)
+                vs = torch.as_tensor(rng.uniform(0, 2000, (*lead, ns, m, m)), device="cuda",
+                                     dtype=f32)
+                pr = torch.polar(torch.ones((*lead, m, m), device="cuda"),
+                                 torch.as_tensor(rng.uniform(0, 6.28, (*lead, m, m)),
+                                                 device="cuda", dtype=f32))
+            check("fused_scan", (b, ns, m, m), fsc.fused_scan(psi0, vs, pr, sigma),
+                  fsc.fused_scan_ref(psi0, vs, pr, sigma), scan_tol(ns),
+                  per_wave_v_and_p=per_wave)
+
+    # ---- the scan at the raster's shape: 16 probes through all 128 slices
+    psi0 = probes[:16].contiguous()
+    got = fsc.fused_scan(psi0, v_stack, prop, sigma)
+    plain = fsc.fused_scan_ref(psi0, v_stack, prop, sigma)
+    err = check("fused_scan", (16, s, n, n), got, plain, scan_tol(s))
+    exact = fsc.fused_scan_ref(psi0.to(torch.complex128), v_stack.double(),
+                               prop.to(torch.complex128), sigma)
+    f64_err = {"kernel_vs_c128": rel_norm(got, exact), "plain_vs_c128": rel_norm(plain, exact),
+               "tol": LONG_ROLLOUT_TOL}
+    if not f64_err["kernel_vs_c128"] <= min(LONG_ROLLOUT_TOL, 1.5 * f64_err["plain_vs_c128"]):
+        raise AssertionError(f"fused_scan against the complex128 rollout: {f64_err}")
+    del exact
+    plane = n * n
+    nbytes = 16 * plane * 8 * 2 + s * plane * 4 + plane * 8
+    ops = 16 * s * (2 * fft2_ops(n) + (9 + 6) * plane)
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / PEAK_OPS_PER_S[f32] * 1e3
+
+    def scan(p0, vv=v_stack):
+        return lambda: fsc.fused_scan(p0, vv, prop, sigma)
+
+    def step_by_step():  # the same rollout as S calls of the fused step
+        psi = psi0
+        for v_slice in v_stack:
+            psi = fs.fused_step(psi, v_slice, prop, sigma, prepared=prepared)
+        return psi
+
+    check("fused_step_loop", (16, s, n, n), step_by_step(), plain, scan_tol(s))
+
+    rows["fused_scan"] = {
+        "name": "fused_scan", "route": "cuda", "source": "fdes_tpu_torch/csrc/fused_step.cu",
+        "replaces": "fdes_tpu/pallas/fused_scan.py:56",
+        "launches": None, "max_abs_err": err[0], "max_rel_err": err[1],
+        "ms": time_launches(scan(psi0), n=10, warmup=2),
+        "plain_ms": time_launches(lambda: fsc.fused_scan_ref(psi0, v_stack, prop, sigma),
+                                  n=5, warmup=1),
+        "bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "library_ms": None, "shape": [16, s, n, n], "dtype": "complex64",
+        "bytes": nbytes, "operations": ops, "rel_norm_vs_complex128": f64_err,
+        "kernel": fsc.scan_kernel_info(n), "kernels_per_call": own_kernels(scan(psi0)),
+        # the same rollout as S calls of fused_step (3 S launches, one rollout
+        # per sleep: the launch queue holds about a thousand), and other batches
+        "ms_as_fused_step_loop": statistics.median(
+            time_launches(step_by_step, n=1, warmup=0) for _ in range(5)),
+        "ms_64_waves": time_launches(scan(probes), n=5, warmup=1),
+        "ms_1_wave_64_slices": time_launches(scan(psi0[:1], v_stack[:64]), n=10, warmup=2),
+    }
+    if rows["fused_scan"]["kernels_per_call"] != {"scan_kernel": 1}:
+        raise AssertionError(f"fused_scan: one call launched {rows['fused_scan']['kernels_per_call']}")
+    return {"phase": "kernels_fused", "checks": checks, "fused_scan_vs_complex128": f64_err}, rows
+
+
 def phase_golden() -> dict:
     from fdes_tpu_torch.constants import interaction_sigma, wavelength_A
     from fdes_tpu_torch.grids import Grid, fresnel_propagator
@@ -285,17 +530,55 @@ def phase_golden() -> dict:
     imgs = hrtem_image(psi, torch.as_tensor(ctf.astype(np.complex64), device="cuda"))
     img_err = rel_norm(imgs, torch.as_tensor(img_gold, device="cuda"))
     line = {"phase": "golden", "exit_wave_rel_err": exit_err, "images_rel_err": img_err,
-            "gate": GATE}
-    if not (exit_err <= GATE and img_err <= GATE):
+            "gate": GATE, "config1_exit_wave_rel_err": config1_golden(kv)}
+    errs = (exit_err, img_err, *line["config1_exit_wave_rel_err"].values())
+    if not all(e <= GATE for e in errs):
         raise AssertionError(f"golden gate failed: {line}")
     return line
 
 
-def run_cli(tmp: str, tag: str, *extra: str) -> tuple[str, dict]:
+def config1_golden(kv: float) -> dict:
+    """Config 1 (Si[110] 4x3x3, 256^2, 16 slices, plane wave) in complex64 on
+    the engines that compute their own FFT, against a float64 NumPy multislice
+    with its own propagator (phase -pi lambda q^2 dz, band limit at 2/3 of the
+    Nyquist frequency) on the float64 potential: relative norm per engine."""
+    from fdes_tpu_torch.constants import interaction_sigma, wavelength_A
+    from fdes_tpu_torch.grids import Grid, fresnel_propagator
+    from fdes_tpu_torch.potential import build_potential
+    from fdes_tpu_torch.probe import plane_wave
+    from fdes_tpu_torch.propagate import make_slice_step, multislice
+    from fdes_tpu_torch.specimen import make_si110_supercell, slice_specimen
+
+    sigma, lam = interaction_sigma(kv), wavelength_A(kv)
+    spec = make_si110_supercell(reps=(4, 3, 3))
+    lx, ly, _ = spec.box
+    grid = Grid(ny=256, nx=256, py=ly / 256, px=lx / 256)
+    sliced = slice_specimen(spec, nslices=16)
+    v64 = build_potential(sliced, grid, dtype=torch.float64, device="cuda")
+    qy = np.fft.fftfreq(grid.ny, d=grid.py)[:, None]
+    qx = np.fft.fftfreq(grid.nx, d=grid.px)[None, :]
+    q2 = qy * qy + qx * qx
+    qlim = (2.0 / 3.0) * min(0.5 / grid.py, 0.5 / grid.px)
+    prop64 = np.exp(-1j * np.pi * lam * q2 * sliced.dz) * (q2 <= qlim * qlim)
+    gold = np.ones(grid.shape, np.complex128)
+    for v_slice in v64.cpu().numpy():
+        gold = np.fft.ifft2(np.fft.fft2(np.exp(1j * sigma * v_slice) * gold) * prop64)
+    prop = torch.as_tensor(fresnel_propagator(grid, lam, sliced.dz).astype(np.complex64),
+                           device="cuda")
+    psi0 = plane_wave(grid, lam, dtype=torch.complex64, device="cuda")
+    out = {}
+    for engine in ("fscan", "fused"):
+        step = make_slice_step(engine, shape=grid.shape, grad=False)
+        psi = multislice(psi0, v64.float(), prop, sigma, slice_step=step)
+        out[engine] = rel_norm(psi, torch.as_tensor(gold, device="cuda"))
+    return out
+
+
+def run_cli(tmp: str, tag: str, *extra: str, config: str = CONFIG) -> tuple[str, dict]:
     from fdes_tpu_torch.cli import main
 
     out = os.path.join(tmp, tag)
-    rc = main([CONFIG, "--set", f"output_dir={out}", *extra])
+    rc = main([config, "--set", f"output_dir={out}", *extra])
     if rc != 0:
         raise AssertionError(f"cli.main {extra} exited {rc}")
     with open(os.path.join(out, "timing.json")) as fh:
@@ -328,7 +611,7 @@ def rollout_times(sim, engine: str, reps: int = 5) -> dict:
     """
     from fdes_tpu_torch.propagate import make_slice_step, multislice
 
-    step = make_slice_step(engine)
+    step = make_slice_step(engine, shape=sim.grid.shape, dtype=sim.cdtype, grad=False)
 
     def run():
         return multislice(sim.psi0, sim.v_stack, sim.propagator, sim.sigma, slice_step=step)
@@ -339,14 +622,54 @@ def rollout_times(sim, engine: str, reps: int = 5) -> dict:
             "slice_props_per_s": sim.v_stack.shape[0] / (wall / 1e3)}
 
 
+def hrtem_on_defaults(tmp: str, imgs_x: np.ndarray) -> dict:
+    """What a user gets without naming an engine (``auto`` resolves to the
+    whole-loop engine): the defocus series, and a two-tilt forward run with a
+    thickness series (one propagator per wave, one launch per 16 slices),
+    each against the plain engine at the gate."""
+    zero = dict.fromkeys(launch_counts(), 0)
+    reset_launches()
+    out, timing = run_cli(tmp, "hrtem_auto")
+    launches = launch_counts()
+    imgs = np.load(os.path.join(out, "images.npy"))
+    res = {"images": {"engine": timing["engine"], "engine_kind": timing["engine_kind"],
+                      "launches": launches, "run_s": timing["run_s"],
+                      "rel_err_vs_xla": float(np.linalg.norm(imgs - imgs_x)
+                                              / np.linalg.norm(imgs_x))}}
+    if (timing["engine"], timing["engine_kind"]) != ("auto", "fscan") or launches != {
+            **zero, "fused_scan": 1}:
+        raise AssertionError(f"hrtem on the defaults: {res}")
+    tilts = ("--mode", "forward", "--set", "sim.tilt_series_rad=[[0.0,0.0],[0.002,-0.001]]",
+             "--set", "sim.thickness_every=16")
+    reset_launches()
+    out, timing = run_cli(tmp, "tilt_auto", *tilts)
+    launches = launch_counts()
+    out_x, _ = run_cli(tmp, "tilt_xla", *tilts, "--set", "sim.engine=xla")
+    res["tilt_forward"] = {"engine_kind": timing["engine_kind"], "launches": launches}
+    for name, shape in (("exit_wave.npy", (2, 512, 512)),
+                        ("thickness_series.npy", (2, 4, 512, 512))):
+        a, b = np.load(os.path.join(out, name)), np.load(os.path.join(out_x, name))
+        if a.shape != shape or not np.isfinite(a).all():
+            raise AssertionError(f"{name} on the defaults: {a.shape} not finite {shape}")
+        res["tilt_forward"][name] = float(np.linalg.norm(a - b) / np.linalg.norm(b))
+    # the rollout, then the series: one launch per 16 of the 64 slices
+    if timing["engine_kind"] != "fscan" or launches != {**zero, "fused_scan": 1 + 4}:
+        raise AssertionError(f"tilt forward on the defaults: {res}")
+    errs = (res["images"]["rel_err_vs_xla"], res["tilt_forward"]["exit_wave.npy"],
+            res["tilt_forward"]["thickness_series.npy"])
+    if not all(e <= GATE for e in errs):
+        raise AssertionError(f"the defaults against xla: {res}")
+    return res
+
+
 def phase_hrtem(tmp: str, gpu: str) -> tuple[dict, dict]:
     from fdes_tpu_torch.config import load_config
-    from fdes_tpu_torch.kernels import slice_step as ks
     from fdes_tpu_torch.pipeline import setup
 
-    _, cold = run_cli(tmp, "warmup")  # first run: cuFFT plans, allocator
-    ks.reset_launches()
-    out, timing = run_cli(tmp, "pallas")
+    pallas = ("--set", "sim.engine=pallas")
+    _, cold = run_cli(tmp, "warmup", *pallas)  # first run: cuFFT plans, allocator
+    reset_launches()
+    out, timing = run_cli(tmp, "pallas", *pallas)
     launches = launch_counts()
     imgs = np.load(os.path.join(out, "images.npy"))
     out_x, timing_x = run_cli(tmp, "xla", "--set", "sim.engine=xla")
@@ -356,9 +679,13 @@ def phase_hrtem(tmp: str, gpu: str) -> tuple[dict, dict]:
         "phase": "hrtem", "config": "examples/si110_hrtem.toml", "shape": list(imgs.shape),
         "launches": launches, "rel_err_vs_xla": err, "gate": GATE,
         "pallas_cold": cold, "pallas": timing, "xla": timing_x, "gpu": gpu,
+        "defaults": hrtem_on_defaults(tmp, imgs_x),
     }
     sim = setup(load_config(CONFIG), device="cuda")
-    line["rollout"] = [rollout_times(sim, e) for e in ("pallas", "xla", "pallas", "xla")]
+    line["rollout"] = [
+        rollout_times(sim, e)
+        for e in ("pallas", "xla", "fscan", "fused", "fused", "fscan", "xla", "pallas")
+    ]
     if launches["transmit"] != 64 or launches["cmul"] != 64 or launches["transmit_abs"] != 0:
         raise AssertionError(f"main path launches {launches}, expected 64 transmit + 64 cmul")
     if imgs.shape != (8, 512, 512) or not np.isfinite(imgs).all() or not (imgs > 0).all():
@@ -369,14 +696,13 @@ def phase_hrtem(tmp: str, gpu: str) -> tuple[dict, dict]:
 
 
 def phase_absorptive(tmp: str, gpu: str) -> tuple[dict, dict]:
-    from fdes_tpu_torch.kernels import slice_step as ks
-
-    args = ("--mode", "forward", "--set", "sim.absorptive_factor=0.1")
-    ks.reset_launches()
+    args = ("--mode", "forward", "--set", "sim.absorptive_factor=0.1",
+            "--set", "sim.engine=pallas")
+    reset_launches()
     out, timing = run_cli(tmp, "abs_pallas", *args)
     launches = launch_counts()
     psi = np.load(os.path.join(out, "exit_wave.npy"))
-    out_x, timing_x = run_cli(tmp, "abs_xla", *args, "--set", "sim.engine=xla")
+    out_x, timing_x = run_cli(tmp, "abs_xla", *args[:-2], "--set", "sim.engine=xla")
     psi_x = np.load(os.path.join(out_x, "exit_wave.npy"))
     err = float(np.linalg.norm(psi - psi_x) / np.linalg.norm(psi_x))
     line = {
@@ -384,6 +710,19 @@ def phase_absorptive(tmp: str, gpu: str) -> tuple[dict, dict]:
         "launches": launches, "rel_err_vs_xla": err, "gate": GATE,
         "pallas": timing, "xla": timing_x, "gpu": gpu,
     }
+    # on the defaults the whole-loop engine sends a complex potential slice by
+    # slice through the same kernels
+    reset_launches()
+    out_a, timing_a = run_cli(tmp, "abs_auto", *args[:-2])
+    psi_a = np.load(os.path.join(out_a, "exit_wave.npy"))
+    line["defaults"] = {
+        "engine": timing_a["engine"], "engine_kind": timing_a["engine_kind"],
+        "launches": launch_counts(), "run_s": timing_a["run_s"],
+        "rel_err_vs_xla": float(np.linalg.norm(psi_a - psi_x) / np.linalg.norm(psi_x)),
+    }
+    if (timing_a["engine"], timing_a["engine_kind"]) != ("auto", "fscan") or line["defaults"][
+            "launches"] != launches or not line["defaults"]["rel_err_vs_xla"] <= GATE:
+        raise AssertionError(f"absorptive on the defaults: {line['defaults']}")
     if launches["transmit_abs"] != 64 or launches["cmul"] != 64 or launches["transmit"] != 0:
         raise AssertionError(f"absorptive launches {launches}, expected 64 transmit_abs + 64 cmul")
     if psi.shape != (512, 512) or psi.dtype != np.complex64 or not np.isfinite(psi).all():
@@ -423,12 +762,11 @@ def grad_times(fn, engine: str, reps: int = 3) -> dict:
             "device_idle_share_events": max(0.0, 1.0 - dev / wall)}
 
 
-def phase_grad(gpu: str) -> tuple[dict, dict, dict]:
-    """dL/dV of the config-3 loss on both engines, with and without remat,
-    real and absorptive V; returns (line, launches, absorptive launches)."""
+def phase_grad(gpu: str) -> tuple[dict, dict]:
+    """dL/dV of the config-3 loss on the engines that differentiate, with and
+    without remat, real and absorptive V; returns (line, launches by case)."""
     from fdes_tpu_torch.config import load_config
     from fdes_tpu_torch.forward import hrtem_defocus_series
-    from fdes_tpu_torch.kernels import slice_step as ks
     from fdes_tpu_torch.loss import make_loss
     from fdes_tpu_torch.pipeline import setup
     from fdes_tpu_torch.propagate import make_slice_step, pick_remat_chunk
@@ -438,7 +776,7 @@ def phase_grad(gpu: str) -> tuple[dict, dict, dict]:
     chunk = pick_remat_chunk(s)
 
     def fwd_for(engine, remat):
-        step = make_slice_step(engine)
+        step = make_slice_step(engine, shape=sim.grid.shape, dtype=sim.cdtype, grad=True)
         return lambda v: hrtem_defocus_series(
             v, sim.psi0, sim.propagator, sim.sigma, sim.ctf_stack, remat_chunk=remat,
             slice_step=step,
@@ -460,14 +798,16 @@ def phase_grad(gpu: str) -> tuple[dict, dict, dict]:
 
         return run
 
-    zero = dict.fromkeys(("transmit", "transmit_abs", "cmul", "transmit_bwd",
-                          "transmit_abs_bwd"), 0)
+    zero = dict.fromkeys(launch_counts(), 0)
     cases = {  # label: (engine, remat, V, expected launches of one evaluation)
         "pallas_remat": ("pallas", chunk, v_real,
                          {**zero, "transmit": 2 * s, "cmul": 3 * s, "transmit_bwd": s}),
         "pallas": ("pallas", None, v_real,
                    {**zero, "transmit": s, "cmul": 2 * s, "transmit_bwd": s}),
         "xla_remat": ("xla", chunk, v_real, zero),
+        # forward and recompute on the fused step, backward on its adjoint
+        "fused_remat": ("fused", chunk, v_real,
+                        {**zero, "fused_step": 2 * s, "fused_step_bwd": s}),
         "abs_pallas_remat": ("pallas", chunk, v_abs,
                              {**zero, "transmit_abs": 2 * s, "cmul": 3 * s,
                               "transmit_abs_bwd": s}),
@@ -475,7 +815,7 @@ def phase_grad(gpu: str) -> tuple[dict, dict, dict]:
     }
     out, launches = {}, {}
     for label, (engine, remat, v, expect) in cases.items():
-        ks.reset_launches()
+        reset_launches()
         loss, g = grad_fn(engine, remat, v)()
         torch.cuda.synchronize()
         launches[label] = launch_counts()
@@ -487,6 +827,8 @@ def phase_grad(gpu: str) -> tuple[dict, dict, dict]:
     errs = {
         "pallas_vs_xla": rel_norm(out["pallas_remat"][1], out["xla_remat"][1]),
         "remat_vs_none": rel_norm(out["pallas_remat"][1], out["pallas"][1]),
+        "fused_vs_xla": rel_norm(out["fused_remat"][1], out["xla_remat"][1]),
+        "loss_fused_vs_xla": rel_norm(out["fused_remat"][0], out["xla_remat"][0]),
         "abs_pallas_vs_xla": rel_norm(out["abs_pallas_remat"][1], out["abs_xla_remat"][1]),
         "loss_pallas_vs_xla": rel_norm(out["pallas_remat"][0], out["xla_remat"][0]),
     }
@@ -499,9 +841,10 @@ def phase_grad(gpu: str) -> tuple[dict, dict, dict]:
     if bad:
         raise AssertionError(f"grad gates failed: {bad}")
     line["times"] = [
-        grad_times(grad_fn(e, chunk, v_real), e) for e in ("pallas", "xla", "pallas", "xla")
+        grad_times(grad_fn(e, chunk, v_real), e)
+        for e in ("pallas", "xla", "fused", "fused", "xla", "pallas")
     ]
-    return line, launches["pallas_remat"], launches["abs_pallas_remat"]
+    return line, launches
 
 
 def read_losses(out: str) -> list[float]:
@@ -514,51 +857,281 @@ def read_losses(out: str) -> list[float]:
 
 def phase_invert(tmp: str, gpu: str, grad_busy_ms: dict) -> tuple[dict, dict]:
     from fdes_tpu_torch.config import load_config
-    from fdes_tpu_torch.kernels import slice_step as ks
     from fdes_tpu_torch.propagate import pick_remat_chunk
 
     cfg = load_config(CONFIG)
-    args = ("--mode", "invert", "--set", f"recon.iterations={INVERT_ITERS}")
-    ks.reset_launches()
+    args = ("--mode", "invert", "--set", f"recon.iterations={INVERT_ITERS}",
+            "--set", "sim.engine=pallas")
+    reset_launches()
     out, timing = run_cli(tmp, "inv_pallas", *args)
     launches = launch_counts()
-    out_x, timing_x = run_cli(tmp, "inv_xla", *args, "--set", "sim.engine=xla")
-    losses, losses_x = read_losses(out), read_losses(out_x)
+    out_x, timing_x = run_cli(tmp, "inv_xla", *args[:-2], "--set", "sim.engine=xla")
+    reset_launches()
+    out_f, timing_f = run_cli(tmp, "inv_fused", *args[:-2], "--set", "sim.engine=fused")
+    launches_f = launch_counts()
+    losses, losses_x, losses_f = read_losses(out), read_losses(out_x), read_losses(out_f)
     v_rec = np.load(os.path.join(out, "reconstructed.npy"))
     v_rec_x = np.load(os.path.join(out_x, "reconstructed.npy"))
     s, n = v_rec.shape[0], INVERT_ITERS
     chunk = pick_remat_chunk(s)
     # the self-test series (one forward), then per iteration a forward, the
     # recompute of every remat chunk, and the backward
-    expect = {"transmit": s + n * 2 * s, "transmit_abs": 0, "cmul": s + n * 3 * s,
-              "transmit_bwd": n * s, "transmit_abs_bwd": 0}
+    expect = {**dict.fromkeys(launch_counts(), 0), "transmit": s + n * 2 * s,
+              "cmul": s + n * 3 * s, "transmit_bwd": n * s}
+    expect_f = {**dict.fromkeys(launch_counts(), 0), "fused_step": s + n * 2 * s,
+                "fused_step_bwd": n * s}
     first_err = abs(losses[0] - losses_x[0]) / abs(losses_x[0])
+    first_err_f = abs(losses_f[0] - losses_x[0]) / abs(losses_x[0])
     line = {
         "phase": "invert", "config": "examples/si110_hrtem.toml", "iterations": n,
-        "remat_chunk": chunk, "launches": launches,
-        "losses": {"pallas": losses, "xla": losses_x},
-        "first_loss_rel_err": first_err, "gate": GATE,
+        "remat_chunk": chunk, "launches": launches, "launches_fused": launches_f,
+        "losses": {"pallas": losses, "xla": losses_x, "fused": losses_f},
+        "first_loss_rel_err": first_err, "first_loss_rel_err_fused": first_err_f, "gate": GATE,
         "reconstruction_rel_diff_pallas_vs_xla": float(
             np.linalg.norm(v_rec - v_rec_x) / np.linalg.norm(v_rec_x)),
-        "pallas": timing, "xla": timing_x,
+        "pallas": timing, "xla": timing_x, "fused": timing_f,
         # the busy time of one gradient evaluation (phase grad) against the
         # steady-state wall of one iteration
         "device_idle_share": {
             e: max(0.0, 1.0 - grad_busy_ms[e] / (t["median_step_s"] * 1e3))
-            for e, t in (("pallas", timing), ("xla", timing_x)) if e in grad_busy_ms
+            for e, t in (("pallas", timing), ("xla", timing_x), ("fused", timing_f))
+            if e in grad_busy_ms
         },
         "gpu": gpu,
     }
-    if launches != expect:
-        raise AssertionError(f"invert launches {launches}, expected {expect}")
-    if first_err > GATE:
-        raise AssertionError(f"invert first loss pallas vs xla rel err {first_err:.3e}")
-    for name, ls, v in (("pallas", losses, v_rec), ("xla", losses_x, v_rec_x)):
+    if launches != expect or launches_f != expect_f:
+        raise AssertionError(f"invert launches {launches} and {launches_f}, expected {expect} "
+                             f"and {expect_f}")
+    if first_err > GATE or first_err_f > GATE:
+        raise AssertionError(f"invert first loss vs xla: pallas {first_err:.3e}, fused "
+                             f"{first_err_f:.3e}")
+    v_rec_f = np.load(os.path.join(out_f, "reconstructed.npy"))
+    for name, ls, v in (("pallas", losses, v_rec), ("xla", losses_x, v_rec_x),
+                        ("fused", losses_f, v_rec_f)):
         if not (np.isfinite(ls).all() and ls[-1] < ls[0]):
             raise AssertionError(f"invert {name}: losses not finite and falling: {ls}")
         if v.shape != (cfg.sim.nslices, cfg.sim.ny, cfg.sim.nx) or not np.isfinite(v).all():
             raise AssertionError(f"invert {name}: reconstructed.npy {v.shape} not finite")
     return line, launches
+
+
+def stem_chunk_profile(engine: str, chunk: int) -> dict:
+    """One chunk of the config-4 raster (probe synthesis, rollout, detector
+    readout) under torch.profiler: device busy ms, kernel count, and the
+    kernels of the rollout alone by name."""
+    from fdes_tpu_torch.config import load_config
+    from fdes_tpu_torch.forward import stem_raster
+    from fdes_tpu_torch.pipeline import setup, stem_setup
+    from fdes_tpu_torch.probe import probe_from_stencil
+    from fdes_tpu_torch.propagate import make_slice_step, multislice
+
+    sim = setup(load_config(CONFIG_STEM), device="cuda")
+    stencil, qy, qx, positions, masks = stem_setup(sim)
+    step = make_slice_step(engine, shape=sim.grid.shape, dtype=sim.cdtype, grad=False,
+                           batch=chunk)
+    pos = positions[:chunk]
+
+    def one_chunk():
+        with torch.no_grad():
+            return stem_raster(sim.v_stack, stencil, qy, qx, pos, sim.propagator, sim.sigma,
+                               masks, slice_step=step)
+
+    one_chunk()
+    busy, n_kernels = device_busy_ms(one_chunk)
+    psi0 = probe_from_stencil(stencil, qy, qx, pos)
+    names = device_kernels(
+        lambda: multislice(psi0, sim.v_stack, sim.propagator, sim.sigma, slice_step=step))
+    return {"engine": engine, "chunk": chunk, "device_busy_ms_per_chunk": busy,
+            "kernels_per_chunk": n_kernels, "rollout_kernels": names}
+
+
+def stem_first_chunk_c128() -> np.ndarray:
+    """Signals (ndet, 16) of the first 16 probes of the config-4 raster in
+    complex128 through the plain engine: what both float32 rasters are near."""
+    from fdes_tpu_torch.config import apply_overrides, load_config
+    from fdes_tpu_torch.forward import stem_raster
+    from fdes_tpu_torch.pipeline import setup, stem_setup
+
+    cfg = apply_overrides(load_config(CONFIG_STEM), ["sim.dtype=complex128"])
+    sim = setup(cfg, device="cuda")
+    stencil, qy, qx, positions, masks = stem_setup(sim)
+    with torch.no_grad():
+        sig = stem_raster(sim.v_stack, stencil, qy, qx, positions[:16], sim.propagator,
+                          sim.sigma, masks)
+    return sig.cpu().numpy()
+
+
+def phase_stem(tmp: str, gpu: str) -> tuple[dict, dict]:
+    """Config 4 through cli.main on fscan, pallas and xla; returns (line,
+    launches of the fscan run at chunk 16)."""
+    def run(tag, engine, chunk, *extra):
+        return run_cli(tmp, tag, "--set", f"sim.engine={engine}", "--set",
+                       f"stem.probe_chunk={chunk}", *extra, config=CONFIG_STEM)
+
+    run("stem_warm", "fscan", 16, "--set", "stem.scan_ny=4", "--set", "stem.scan_nx=4")
+    reset_launches()
+    out, timing = run("stem_fscan", "fscan", 16)
+    launches = launch_counts()
+    sig = np.load(os.path.join(out, "stem.npy"))
+    probes = timing["probes"]
+    runs = [{"engine": "fscan", "chunk": 16, **timing}]
+    sig_x = None
+    for tag, engine, chunk in (("stem_pallas", "pallas", 16), ("stem_xla", "xla", 16),
+                               ("stem_fscan64", "fscan", 64), ("stem_xla_b", "xla", 16),
+                               ("stem_pallas_b", "pallas", 16), ("stem_fscan64_b", "fscan", 64),
+                               ("stem_fscan_b", "fscan", 16)):
+        o, t = run(tag, engine, chunk)
+        runs.append({"engine": engine, "chunk": chunk, **t})
+        if tag == "stem_xla":
+            sig_x = np.load(os.path.join(o, "stem.npy"))
+        elif tag == "stem_fscan64":
+            sig_64 = np.load(os.path.join(o, "stem.npy"))
+    # what a user gets without naming an engine or a chunk: the same raster
+    o, t_auto = run("stem_auto", "auto", 0)
+    runs.append({"engine": "auto", "chunk": t_auto["probe_chunk"], **t_auto})
+    if (t_auto["engine_kind"], t_auto["probe_chunk"]) != ("fscan", 64) or not np.array_equal(
+            np.load(os.path.join(o, "stem.npy")), sig_64):
+        raise AssertionError(f"stem on engine auto: {t_auto}")
+
+    def per_detector(a, b):
+        return {f"detector_{d}": float(np.linalg.norm(a[d] - b[d]) / np.linalg.norm(b[d]))
+                for d in range(a.shape[0])}
+
+    # a signal is a sum of intensities, and an intensity doubles its wave's
+    # relative error: two float32 rollouts of 128 slices may differ by this
+    tol = 2 * LONG_ROLLOUT_TOL
+    errs = per_detector(sig, sig_x)
+    exact = stem_first_chunk_c128()
+    first = (slice(None), 0, slice(0, 16))  # the first 16 probes: row 0 of the scan
+    errs_exact = {"fscan": per_detector(sig[first], exact), "xla": per_detector(sig_x[first], exact)}
+    profiles = [stem_chunk_profile(e, c) for e, c in (("fscan", 16), ("pallas", 16), ("xla", 16),
+                                                      ("fscan", 64))]
+    for prof in profiles:
+        same = [r for r in runs if (r["engine"], r["chunk"]) == (prof["engine"], prof["chunk"])]
+        busy = prof["device_busy_ms_per_chunk"] * probes / prof["chunk"]
+        prof["device_busy_ms_per_raster"] = busy
+        prof["device_idle_share"] = [max(0.0, 1.0 - busy / (r["run_s"] * 1e3)) for r in same]
+    line = {
+        "phase": "stem", "config": "examples/si110_stem.toml", "shape": list(sig.shape),
+        "probes": probes, "scan": "32x32 of config 4's 4096 probes, on every engine",
+        "launches": launches, "rel_err_fscan_vs_xla": errs, "tol": tol,
+        "rel_err_vs_complex128_first_16_probes": errs_exact,
+        "chunk64_vs_chunk16": float(np.linalg.norm(sig_64 - sig) / np.linalg.norm(sig)),
+        "total_signal_max": float(sig.sum(axis=0).max()),
+        "runs": runs, "profiles": profiles, "gpu": gpu,
+    }
+    expect = {**dict.fromkeys(launches, 0), "fused_scan": probes // 16}
+    if launches != expect:
+        raise AssertionError(f"stem launches {launches}, expected {expect}")
+    fft = [k for k in profiles[0]["rollout_kernels"] if "fft" in k.lower()]
+    if fft or not any("scan_kernel" in k for k in profiles[0]["rollout_kernels"]):
+        raise AssertionError(f"fscan rollout kernels: {profiles[0]['rollout_kernels']}")
+    if sig.shape != (2, 32, 32) or not np.isfinite(sig).all() or not (sig >= 0).all():
+        raise AssertionError(f"stem.npy {sig.shape} not finite and non-negative")
+    # a unit-power probe: the detectors' fractions sum to at most 1
+    if not 0.0 < line["total_signal_max"] <= 1.0 + 1e-4:
+        raise AssertionError(f"stem signals sum to {line['total_signal_max']}")
+    bad = {k: e for k, e in {**errs, **{f"exact_{k}": e for k, e in errs_exact["fscan"].items()}}.items()
+           if not e <= tol}
+    if bad or not line["chunk64_vs_chunk16"] <= GATE:
+        raise AssertionError(f"stem gates failed: {bad}, chunks {line['chunk64_vs_chunk16']}")
+    return line, launches
+
+
+def phase_stem4d(tmp: str, gpu: str) -> dict:
+    """A 4x4 scan: cbed.npy of mode stem4d, and stem_com.npy of mode stem
+    with stem.compute_com, fscan against xla."""
+    scan = ("--set", "stem.scan_ny=4", "--set", "stem.scan_nx=4", "--set", "stem.probe_chunk=16")
+    out = {}
+    reset_launches()
+    for engine in ("fscan", "xla"):
+        o, _ = run_cli(tmp, f"s4d_{engine}", "--mode", "stem4d", "--set", f"sim.engine={engine}",
+                       *scan, config=CONFIG_STEM)
+        c, _ = run_cli(tmp, f"com_{engine}", "--set", "stem.compute_com=true", "--set",
+                       f"sim.engine={engine}", *scan, config=CONFIG_STEM)
+        out[engine] = (np.load(os.path.join(o, "cbed.npy")),
+                       np.load(os.path.join(c, "stem_com.npy")))
+    launches = launch_counts()
+    (cbed, com), (cbed_x, com_x) = out["fscan"], out["xla"]
+    # an intensity doubles its wave's relative error, and each of the two
+    # float32 rollouts of 128 slices may stand LONG_ROLLOUT_TOL from the exact
+    # one
+    cbed_tol = 2 * LONG_ROLLOUT_TOL
+    # the first moment is a small difference of large sums over the pattern:
+    # held against the largest frequency on the grid, not against itself
+    com_err = float(np.abs(com - com_x).max())
+    line = {
+        "phase": "stem4d", "config": "examples/si110_stem.toml", "scan": "4x4",
+        "cbed_shape": list(cbed.shape), "cbed_rel_err_fscan_vs_xla":
+            float(np.linalg.norm(cbed - cbed_x) / np.linalg.norm(cbed_x)),
+        "cbed_tol": cbed_tol, "com_shape": list(com.shape), "com_max_abs_err_per_A": com_err,
+        "com_max_abs_per_A": float(np.abs(com_x).max()), "com_tol_per_A": 1e-5,
+        "launches": launches, "gpu": gpu,
+    }
+    if launches["fused_scan"] != 3:  # one chunk each: cbed, signals, first moments
+        raise AssertionError(f"stem4d launches {launches}, expected 3 of fused_scan")
+    if cbed.shape != (4, 4, 512, 512) or com.shape != (4, 4, 2):
+        raise AssertionError(f"cbed.npy {cbed.shape}, stem_com.npy {com.shape}")
+    if not (np.isfinite(cbed).all() and np.isfinite(com).all()):
+        raise AssertionError("stem4d outputs not finite")
+    if not (line["cbed_rel_err_fscan_vs_xla"] <= cbed_tol and com_err <= 1e-5):
+        raise AssertionError(f"stem4d gates failed: {line}")
+    return line
+
+
+def phase_engines(gpu: str) -> dict:
+    """Wall ms (host clock around a synchronised call, median of 3, each
+    engine measured twice in turns) of a 32-slice rollout and of one gradient
+    evaluation with respect to V, per grid size, batch of waves and engine:
+    the rows that make_slice_step's ``auto`` kinds are chosen from."""
+    from fdes_tpu_torch.constants import interaction_sigma, wavelength_A
+    from fdes_tpu_torch.grids import Grid, fresnel_propagator
+    from fdes_tpu_torch.propagate import make_slice_step, multislice
+
+    rng = np.random.default_rng(2)
+    sigma, lam, nslices = interaction_sigma(300e3), wavelength_A(300e3), 32
+    rows = []
+    for n in (128, 256, 512, 1024):
+        prop = torch.as_tensor(
+            fresnel_propagator(Grid(ny=n, nx=n, py=0.1, px=0.1), lam, 2.0).astype(np.complex64),
+            device="cuda")
+        v = torch.as_tensor(rng.uniform(0, 1000, (nslices, n, n)), device="cuda",
+                            dtype=torch.float32)
+        for batch in (1, 16):
+            shape = (n, n) if batch == 1 else (batch, n, n)
+            psi0 = torch.polar(torch.ones(shape, device="cuda"),
+                               torch.as_tensor(rng.uniform(0, 1, shape), device="cuda",
+                                               dtype=torch.float32))
+            w = torch.linspace(0.5, 1.5, psi0.numel(), device="cuda").reshape(shape)
+            for grad in (False, True):
+                engines = ("fused", "pallas", "xla") if grad else ("fscan", "fused", "pallas",
+                                                                  "xla")
+                times = {e: [] for e in engines}
+                for order in (engines, engines[::-1]):
+                    for e in order:
+                        step = make_slice_step(e, shape=(n, n), grad=grad, batch=batch)
+
+                        def run():
+                            if not grad:
+                                with torch.no_grad():
+                                    return multislice(psi0, v, prop, sigma, slice_step=step)
+                            vv = v.detach().requires_grad_(True)
+                            out = multislice(psi0, vv, prop, sigma, slice_step=step)
+                            (out.abs() ** 2 * w).sum().backward()
+                            return vv.grad
+
+                        run()
+                        torch.cuda.synchronize()
+                        walls = []
+                        for _ in range(3):
+                            t0 = time.perf_counter()
+                            run()
+                            torch.cuda.synchronize()
+                            walls.append((time.perf_counter() - t0) * 1e3)
+                        times[e].append(statistics.median(walls))
+                rows.append({"n": n, "batch": batch, "grad": grad, "slices": nslices,
+                             "wall_ms": times, "fastest": min(times, key=lambda e: min(times[e]))})
+    return {"phase": "engines", "rows": rows, "gpu": gpu}
 
 
 #: the phases whose main-path run gives each kernel's launches, first found first
@@ -568,13 +1141,17 @@ ROW_PHASES = {
     "transmit_abs": ("absorptive", "grad_absorptive"),
     "transmit_bwd": ("invert", "grad"),
     "transmit_abs_bwd": ("grad_absorptive",),
+    "fused_step": ("grad_fused",),
+    "fused_step_bwd": ("grad_fused",),
+    "fused_scan": ("stem",),
 }
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--only", default=",".join(PHASES),
-                    help="comma-separated subset of " + ",".join(PHASES))
+                    help="comma-separated subset of " + ",".join(PHASES)
+                    + " (kernels_slice, kernels_fused: one group of kernel checks)")
     args = ap.parse_args(argv)
     phases = args.only.split(",")
     if not torch.cuda.is_available():
@@ -590,8 +1167,13 @@ def main(argv=None) -> int:
     if "build" in phases:
         emit(phase_build())
     rows = {}
-    if "kernels" in phases:
+    if "kernels" in phases or "kernels_slice" in phases:
         line, rows = phase_kernels(interaction_sigma(300e3))
+        line["gpu"] = gpu
+        emit(line)
+    if "kernels" in phases or "kernels_fused" in phases:
+        line, fused_rows = phase_kernels_fused()
+        rows.update(fused_rows)
         line["gpu"] = gpu
         emit(line)
     if "golden" in phases:
@@ -606,19 +1188,33 @@ def main(argv=None) -> int:
             line, path_launches["absorptive"] = phase_absorptive(tmp, gpu)
             emit(line)
         if "grad" in phases:
-            line, path_launches["grad"], path_launches["grad_absorptive"] = phase_grad(gpu)
+            line, by_case = phase_grad(gpu)
+            path_launches.update(grad=by_case["pallas_remat"], grad_fused=by_case["fused_remat"],
+                                 grad_absorptive=by_case["abs_pallas_remat"])
             grad_busy_ms = {e: statistics.median(t["device_busy_ms"] for t in line["times"]
-                                                 if t["engine"] == e) for e in ("pallas", "xla")}
+                                                 if t["engine"] == e)
+                            for e in ("pallas", "xla", "fused")}
             emit(line)
         if "invert" in phases:
             line, path_launches["invert"] = phase_invert(tmp, gpu, grad_busy_ms)
             emit(line)
+        if "stem" in phases:
+            line, path_launches["stem"] = phase_stem(tmp, gpu)
+            emit(line)
+        if "stem4d" in phases:
+            emit(phase_stem4d(tmp, gpu))
+    if "engines" in phases:
+        emit(phase_engines(gpu))
     for name, row in rows.items():
         row["launches_by_phase"] = {ph: c[name] for ph, c in path_launches.items()}
         for ph in ROW_PHASES[name]:
             if ph in path_launches:
                 row["launches"], row["launches_phase"] = path_launches[ph][name], ph
                 break
+    if set(PHASES) <= set(phases):
+        idle = [name for name, row in rows.items() if not row["launches"]]
+        if idle:
+            raise AssertionError(f"kernels never launched on their path: {idle}")
     emit({"seconds": time.perf_counter() - t0})
     if rows:
         emit({"kernels": list(rows.values())})

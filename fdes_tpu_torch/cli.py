@@ -1,20 +1,24 @@
 """Command-line entry point of the PyTorch port.
 
 Usage:
-    python -m fdes_tpu_torch.cli <config.toml> [--mode forward|hrtem|invert]
+    python -m fdes_tpu_torch.cli <config.toml> [--mode forward|hrtem|stem|stem4d|invert]
                                  [--set section.key=value ...] [--resume]
                                  [--device cuda|cpu]
 
 Counterpart of ``fdes_tpu.cli`` for the modes ported so far: parse the
 config, build the simulation state on the device, run the mode, and write
 .npy outputs plus ``timing.json`` under ``output_dir``.  ``forward`` and
-``hrtem`` simulate; ``invert`` reconstructs the potential from a defocus or
-tilt series (``observed_path``, or a self-test series synthesised from the
-config's specimen) and writes ``reconstructed.npy``, ``metrics.jsonl`` and
-``checkpoint.npz``; ``--resume`` continues from that checkpoint.  Modes and
-settings that are not ported yet (stem, stem4d, the stem4d inverse, frozen
-phonons, the streamed build, meshes) exit with code 2 and say so.  Runs on
-``cuda`` unless ``--device cpu`` is given.
+``hrtem`` simulate; ``stem`` rasters a focused probe over the scan and writes
+the detector signals (``stem.npy``, and ``stem_com.npy`` with
+``stem.compute_com``), ``stem4d`` the full diffraction pattern per probe
+(``cbed.npy``); ``invert`` reconstructs the potential from a defocus or
+tilt series, or with ``recon.modality = "stem4d"`` from the diffraction
+patterns of a scan (``observed_path``, or a self-test series synthesised from
+the config's specimen) and writes ``reconstructed.npy``, ``metrics.jsonl`` and
+``checkpoint.npz``; ``--resume`` continues from that checkpoint.  Settings
+that are not ported yet (PRISM, frozen phonons, the streamed build,
+meshes) exit with code 2 and say so.  Runs on ``cuda``
+unless ``--device cpu`` is given.
 """
 
 from __future__ import annotations
@@ -68,22 +72,43 @@ def main(argv: list[str] | None = None) -> int:
     if bad:
         print("not yet ported to fdes_tpu_torch: " + "; ".join(bad), file=sys.stderr)
         return 2
-    if cfg.mode == "invert" and cfg.recon.modality != "auto":
+    if cfg.mode == "invert" and cfg.recon.modality not in ("auto", "stem4d"):
         print(f"unknown recon.modality {cfg.recon.modality!r}", file=sys.stderr)
+        return 2
+    stem = cfg.mode in ("stem", "stem4d")
+    if stem and cfg.stem.method != "multislice":
+        print(f"unknown stem.method {cfg.stem.method!r}", file=sys.stderr)
         return 2
     device = resolve_device(args.device)
 
     from . import io
-    from .propagate import make_slice_step, multislice
+    from .propagate import make_slice_step, multislice, pick_probe_chunk
 
     t0 = time.perf_counter()
     sim = setup(cfg, device=device)
+    # the engine's batch hint is the number of waves in one rollout: the
+    # resolved probe chunk of a raster, the tilts of a tilt series
+    n_scan = cfg.stem.scan_ny * cfg.stem.scan_nx
+    probe_chunk = cfg.stem.probe_chunk or pick_probe_chunk(n_scan)
+    if stem:
+        nwaves = n_scan
+        batch_hint = min(probe_chunk, n_scan)
+    else:
+        nwaves = batch_hint = sim.psi0_stack.shape[0] if sim.psi0_stack is not None else 1
+    slice_step = make_slice_step(
+        cfg.sim.engine, shape=sim.grid.shape, dtype=sim.cdtype,
+        grad=(cfg.mode == "invert"), batch=batch_hint,
+    )
+    if stem:
+        from .pipeline import stem_setup
+
+        stencil, qy, qx, positions, masks = stem_setup(sim)
+        raster_args = (sim.v_stack, stencil, qy, qx, positions, sim.propagator, sim.sigma)
+        raster_kw = {"probe_chunk": probe_chunk, "slice_step": slice_step}
     _sync(device)
     t_setup = time.perf_counter() - t0
-    slice_step = make_slice_step(cfg.sim.engine)
     os.makedirs(cfg.output_dir, exist_ok=True)
     out = lambda name: os.path.join(cfg.output_dir, name)  # noqa: E731
-    nwaves = sim.psi0_stack.shape[0] if sim.psi0_stack is not None else 1
     rollouts = 1
 
     t1 = time.perf_counter()
@@ -106,7 +131,7 @@ def main(argv: list[str] | None = None) -> int:
                 series = series.transpose(0, 1)  # per-tilt: (T, S // every, ...)
             outputs["thickness_series.npy"] = series
     elif cfg.mode == "invert":
-        res = _invert(cfg, sim, slice_step, out)
+        res = _invert(cfg, sim, slice_step, out, probe_chunk)
         outputs = {"reconstructed.npy": res.v}
         if res.losses.size:
             print(
@@ -117,6 +142,24 @@ def main(argv: list[str] | None = None) -> int:
         else:
             print("invert: checkpoint already at target iterations; nothing to do "
                   "(raise recon.iterations to continue)")
+    elif cfg.mode == "stem":
+        from .forward import stem_com_raster, stem_raster
+
+        with torch.no_grad():
+            sig = stem_raster(*raster_args, masks, **raster_kw)
+            outputs = {"stem.npy": sig.reshape(-1, cfg.stem.scan_ny, cfg.stem.scan_nx)}
+            if cfg.stem.compute_com:
+                rollouts = 2  # the first-moment raster is a second pass over the scan
+                com = stem_com_raster(*raster_args, **raster_kw)
+                outputs["stem_com.npy"] = com.reshape(cfg.stem.scan_ny, cfg.stem.scan_nx, 2)
+    elif cfg.mode == "stem4d":
+        from .forward import stem_raster_4d
+
+        with torch.no_grad():
+            cbed = stem_raster_4d(*raster_args, **raster_kw)
+        outputs = {
+            "cbed.npy": cbed.reshape(cfg.stem.scan_ny, cfg.stem.scan_nx, *sim.grid.shape)
+        }
     else:  # hrtem
         from .forward import hrtem_defocus_series, hrtem_tilt_series
         from .imaging import add_dose_noise, apply_mtf, gaussian_mtf
@@ -149,6 +192,7 @@ def main(argv: list[str] | None = None) -> int:
         "device": str(device),
         "device_name": torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu",
         "engine": cfg.sim.engine,
+        "engine_kind": getattr(slice_step, "kind", None),
         "setup_s": t_setup,
         "run_s": t_run,
     }
@@ -160,6 +204,8 @@ def main(argv: list[str] | None = None) -> int:
     else:
         slice_props = sim.v_stack.shape[0] * nwaves * rollouts
         timing["slice_props"] = slice_props
+        if stem:
+            timing["probes"], timing["probe_chunk"] = n_scan, batch_hint
         timing["slice_props_per_s"] = slice_props / t_run if t_run > 0 else None
     with open(out("timing.json"), "w") as fh:
         json.dump(timing, fh)
@@ -170,19 +216,30 @@ def main(argv: list[str] | None = None) -> int:
     return 0
 
 
-def _invert(cfg, sim, slice_step, out):
-    """Mode invert: reconstruct V from a defocus or tilt series, starting
-    from zeros (counterpart of the non-sharded branch of fdes_tpu.cli)."""
+def _invert(cfg, sim, slice_step, out, probe_chunk):
+    """Mode invert: reconstruct V from a defocus series, a tilt series or
+    (``recon.modality = "stem4d"``) the diffraction patterns of a STEM scan,
+    starting from zeros (counterpart of the non-sharded branch of
+    fdes_tpu.cli)."""
     import numpy as np
 
-    from .forward import hrtem_defocus_series, hrtem_tilt_series
+    from .forward import hrtem_defocus_series, hrtem_tilt_series, stem_raster_4d
     from .loss import make_loss
-    from .pipeline import to_device
+    from .pipeline import stem_setup, to_device
     from .propagate import pick_remat_chunk
     from .reconstruct import make_optimizer, positive_projection, reconstruct
 
     chunk = cfg.recon.remat_chunk or pick_remat_chunk(cfg.sim.nslices)
-    if sim.psi0_stack is not None:  # tilt series (the reference's tomography)
+    if cfg.recon.modality == "stem4d":  # ptychography-style, from CBED stacks
+        stencil, qy, qx, positions, _ = stem_setup(sim)
+        fwd_args = (stencil, qy, qx, positions, sim.propagator)
+
+        def fwd(v, stencil, qy, qx, positions, propagator):
+            return stem_raster_4d(
+                v, stencil, qy, qx, positions, propagator, sim.sigma,
+                probe_chunk=probe_chunk, remat_chunk=chunk, slice_step=slice_step,
+            )
+    elif sim.psi0_stack is not None:  # tilt series (the reference's tomography)
         fwd_args = (sim.psi0_stack, sim.prop_stack, sim.ctf_stack[0], sim.ctf_weights)
 
         def fwd(v, psi0_stack, prop_stack, ctf0, weights):
@@ -200,7 +257,10 @@ def _invert(cfg, sim, slice_step, out):
             )
 
     if cfg.observed_path:
-        i_obs = to_device(np.load(cfg.observed_path), sim.rdtype, sim.device)
+        obs = np.load(cfg.observed_path)
+        if obs.ndim == 4:  # a (scan_ny, scan_nx, ny, nx) CBED export
+            obs = obs.reshape(-1, *obs.shape[-2:])
+        i_obs = to_device(obs, sim.rdtype, sim.device)
     else:
         # self-test: invert a series synthesised from the config's specimen
         real_v = sim.v_stack.real if sim.v_stack.is_complex() else sim.v_stack

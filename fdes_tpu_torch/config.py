@@ -106,9 +106,8 @@ class StemParams:
     detectors: tuple[tuple[float, float], ...] = ((50e-3, 200e-3),)  # (inner, outer) rad
     dpc_nseg: int = 0  # >0: segment detectors[0] into this many DPC sectors
     compute_com: bool = False  # also record the iCOM first-moment raster
-    #: probe positions per vmapped rollout batch; 0 = the MEASURED optimum
-    #: per grid size (propagate.pick_probe_chunk: 16-wave chunks at
-    #: <=512^2, unbatched at >=1024^2, 256 for PRISM)
+    #: probe positions per rollout batch; 0 = propagate.pick_probe_chunk's
+    #: choice (a divisor of the scan's size up to its measured target)
     probe_chunk: int = 0
     method: str = "multislice"  # multislice (exact) | prism (S-matrix)
     prism_interp: int = 1  # PRISM f: 1 = exact, f>1 subsamples beams ~f^2

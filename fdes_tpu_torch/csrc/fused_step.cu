@@ -1,0 +1,593 @@
+// The fused slice step and the whole-loop scan, for Hopper (sm_90a), with the
+// 2-D FFT computed in the kernels' own bodies (no cuFFT).
+//
+//   one step:   psi <- IFFT2[ P * FFT2[ t * psi ] ],  t = exp(i*sigma*V), V real
+//   the scan:   that step for slices j = 0..S-1 of a potential stack, for B
+//               waves, in one cooperative launch.
+//
+// Replaces fdes_tpu/pallas/fused_step.py::_fwd_kernel and ::_bwd_kernel (the
+// step and its adjoint) and fdes_tpu/pallas/fused_scan.py::_scan_kernel (the
+// whole loop).  The TPU kernels hold whole planes in VMEM (tens of MiB) and
+// transform them with 128-point matrix products; a 512^2 complex64 plane
+// (2 MiB) fits in no SM's shared memory, so here a plane is transformed in two
+// kinds of pass over tiles of 4096 elements (32 KB of shared memory):
+//
+//   row pass     a tile is 4096/N whole rows; 1-D transforms along x;
+//   column pass  a tile is a panel of 4096/N adjacent columns, all N rows;
+//                1-D transforms along y, with the propagator multiply between
+//                the forward and the inverse transform.
+//
+// Between the two kinds of pass a plane goes through global memory (L2 holds
+// 16 waves of 512^2).  The scan fuses the inverse x transform of slice j-1
+// with the transmit and the forward x transform of slice j into one row pass,
+// so a slice costs two plane round trips, and one final row pass gives the
+// exit wave.  Blocks of the scan walk over (wave, tile) pairs and meet at a
+// grid-wide barrier (cooperative groups) after every pass.
+//
+// The 1-D transform is radix 2 in shared memory: the forward one is decimation
+// in frequency (natural order in, bit-reversed out), the inverse one decimation
+// in time with conjugate twiddles (bit-reversed in, natural out), stage for
+// stage the inverse of the forward one up to the factor 2 per stage.  So the
+// spectrum lives in bit-reversed order in both axes and is never reordered:
+// the caller hands the propagator in that order (P_br[a][b] =
+// P[bitrev(a)][bitrev(b)], a gather made once per call), and the kernel applies
+// the 1/N^2 of the inverse transform with the propagator multiply.  Up to three
+// stages are fused in registers between two block barriers (8 elements per
+// thread), and the tile is padded by one element in 16 against bank conflicts.
+// Twiddles exp(-2*pi*i*k/N) come from sincospif on arguments that are exact in
+// float32, once per block; the library is built without --use_fast_math.
+//
+// The adjoint (PyTorch's convention: g is dL/dRe + i dL/dIm of the output):
+//   bar_s = IFFT2[ conj(P) * FFT2[ g ] ]   (the same passes with conj(P)),
+//   dpsi = bar_s * conj(t),   dV = sigma * Im(bar_s * conj(t * psi)),
+// dV summed over the waves that share V, in registers, by the block that owns
+// the rows: no atomics.
+//
+// Bounds at 512^2 complex64 (H100 SXM: 3.35 TB/s, 67 TFLOP/s FP32): one step
+// moves psi in, V, P, psi out = 7 MiB, 2.2 us by bytes, against 0.75 us for
+// its ~50 MFLOP, so the step is bound by bytes.  In the scan only V_j is new
+// per slice (1 MiB, shared by the waves), so a wave-slice is bound by its
+// operations, 0.75 us.  This first version is far from either (measured on an
+// H100 80GB HBM3 at 700 W by chip_smoke.py: 29 us per step at one wave, 7.4 us
+// per wave-slice in a 16-wave scan): radix-2 stages through shared memory,
+// panels of 8 columns (64-byte rows) and two round trips through L2 per slice.
+// Tensor-core DFT stages, TMA loads and clusters are later work.
+//
+// Layout: PyTorch's interleaved complex64 (float2), C-contiguous, 16-byte
+// aligned; N in {128, 256, 512, 1024}.  Every entry point launches on the
+// caller's stream, allocates nothing, does not synchronise, and returns the
+// first CUDA error (0 if none), so that a refused launch is reported by the
+// Python wrapper.
+
+#include <cooperative_groups.h>
+#include <cuda_runtime.h>
+
+#include <cstdint>
+
+namespace cg = cooperative_groups;
+
+namespace {
+
+constexpr int kThreads = 256;
+constexpr int kTile = 4096;                    // complex elements per tile
+constexpr int kTilePadded = kTile + kTile / 16;
+constexpr int kMaxTwiddles = 512;              // N/2 at N = 1024
+constexpr int kMaxBlocks = 132 * 8;            // ordinary launches: grid-stride over tiles
+
+__device__ __forceinline__ int pad(int i) { return i + (i >> 4); }
+
+__device__ __forceinline__ float2 cadd(float2 a, float2 b) {
+  return make_float2(a.x + b.x, a.y + b.y);
+}
+__device__ __forceinline__ float2 csub(float2 a, float2 b) {
+  return make_float2(a.x - b.x, a.y - b.y);
+}
+// a * b
+__device__ __forceinline__ float2 cmul(float2 a, float2 b) {
+  return make_float2(a.x * b.x - a.y * b.y, a.x * b.y + a.y * b.x);
+}
+// a * conj(b)
+__device__ __forceinline__ float2 cmul_conj(float2 a, float2 b) {
+  return make_float2(a.x * b.x + a.y * b.y, a.y * b.x - a.x * b.y);
+}
+// p * exp(i * phase)
+__device__ __forceinline__ float2 transmit(float2 p, float phase) {
+  float s, c;
+  sincosf(phase, &s, &c);
+  return make_float2(p.x * c - p.y * s, p.x * s + p.y * c);
+}
+
+// tw[k] = exp(-2*pi*i*k/N), k < N/2.
+template <int LOG2N>
+__device__ void init_twiddles(float2* tw) {
+  constexpr int N = 1 << LOG2N;
+  for (int k = threadIdx.x; k < N / 2; k += kThreads) {
+    float s, c;
+    sincospif(-2.0f * static_cast<float>(k) / static_cast<float>(N), &s, &c);
+    tw[k] = make_float2(c, s);
+  }
+}
+
+// K fused radix-2 stages on every transform of the tile.
+//
+// ROWS: element k of transform q lies at tile[pad(q * N + k)] (q < 4096/N);
+// columns: at tile[pad(k * Q + q)], Q = 4096/N transforms side by side.
+// A work item holds the 2^K elements base + j * g, g = 1 << lg the smallest
+// half size of the group.  Forward (decimation in frequency): half sizes
+// g << (K-1), ..., 2g, g, in that order, a' = a + b, b' = (a - b) * w.
+// Inverse (decimation in time): g, 2g, ..., g << (K-1), t = b * conj(w),
+// a' = a + t, b' = a - t.  w = exp(-2*pi*i*jj/(2*hs)) for the pair whose lower
+// element lies at offset jj in its half of size hs.
+template <int LOG2N, int K, bool ROWS, bool INVERSE>
+__device__ __forceinline__ void stage_group(float2* tile, const float2* tw, int lg) {
+  constexpr int N = 1 << LOG2N;
+  constexpr int Q = kTile / N;
+  constexpr int R = 1 << K;
+  constexpr int kItems = kTile >> K;
+  constexpr int kItemsPerTransform = N >> K;
+  const int g = 1 << lg;
+  for (int u = threadIdx.x; u < kItems; u += kThreads) {
+    int q, w;
+    if (ROWS) {
+      q = u / kItemsPerTransform;
+      w = u % kItemsPerTransform;
+    } else {
+      q = u % Q;
+      w = u / Q;
+    }
+    const int r = w & (g - 1);
+    const int base = ((w >> lg) << (lg + K)) + r;
+    float2 x[R];
+    int at[R];
+#pragma unroll
+    for (int j = 0; j < R; ++j) {
+      const int k = base + j * g;
+      at[j] = pad(ROWS ? q * N + k : k * Q + q);
+      x[j] = tile[at[j]];
+    }
+#pragma unroll
+    for (int s = 0; s < K; ++s) {
+      const int ld = INVERSE ? s : K - 1 - s;  // log2 of the pair distance in registers
+      const int d = 1 << ld;
+      const int tshift = LOG2N - 1 - lg - ld;  // twiddle index step N / (2 * hs)
+#pragma unroll
+      for (int j = 0; j < R; ++j) {
+        if (j & d) continue;
+        const int jj = r + (j & (d - 1)) * g;
+        const float2 wv = tw[jj << tshift];
+        const float2 a = x[j];
+        const float2 b = x[j + d];
+        if (INVERSE) {
+          const float2 t = cmul_conj(b, wv);
+          x[j] = cadd(a, t);
+          x[j + d] = csub(a, t);
+        } else {
+          x[j] = cadd(a, b);
+          x[j + d] = cmul(csub(a, b), wv);
+        }
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < R; ++j) tile[at[j]] = x[j];
+  }
+}
+
+// Forward transforms of the tile: natural order in, bit-reversed order out.
+template <int LOG2N, bool ROWS>
+__device__ void fft_forward(float2* tile, const float2* tw) {
+  int lg = LOG2N;
+  while (lg >= 3) {
+    lg -= 3;
+    stage_group<LOG2N, 3, ROWS, false>(tile, tw, lg);
+    __syncthreads();
+  }
+  if (lg == 2) {
+    stage_group<LOG2N, 2, ROWS, false>(tile, tw, 0);
+    __syncthreads();
+  } else if (lg == 1) {
+    stage_group<LOG2N, 1, ROWS, false>(tile, tw, 0);
+    __syncthreads();
+  }
+}
+
+// Unscaled inverse transforms: bit-reversed order in, natural order out; the
+// forward stages undone last to first, so inverse(forward(x)) = N * x.
+template <int LOG2N, bool ROWS>
+__device__ void fft_inverse(float2* tile, const float2* tw) {
+  constexpr int kRem = LOG2N % 3;
+  int lg = 0;
+  if (kRem == 2) {
+    stage_group<LOG2N, 2, ROWS, true>(tile, tw, 0);
+    __syncthreads();
+    lg = 2;
+  } else if (kRem == 1) {
+    stage_group<LOG2N, 1, ROWS, true>(tile, tw, 0);
+    __syncthreads();
+    lg = 1;
+  }
+  while (lg < LOG2N) {
+    stage_group<LOG2N, 3, ROWS, true>(tile, tw, lg);
+    __syncthreads();
+    lg += 3;
+  }
+}
+
+__device__ __forceinline__ void load_pair(const float2* p, float2* a, float2* b) {
+  const float4 z = *reinterpret_cast<const float4*>(p);
+  *a = make_float2(z.x, z.y);
+  *b = make_float2(z.z, z.w);
+}
+__device__ __forceinline__ void store_pair(float2* p, float2 a, float2 b) {
+  *reinterpret_cast<float4*>(p) = make_float4(a.x, a.y, b.x, b.y);
+}
+
+// One row tile: 4096 contiguous elements (4096/N rows) at src, written to dst
+// (dst may be src).  inverse: undo the x transform of the previous step first.
+// v != nullptr: multiply by exp(i*sigma*v) (v points at the tile's 4096
+// potentials).  forward: transform along x.  src may have been written by
+// other blocks before the last barrier, so it is read with plain loads.
+template <int LOG2N>
+__device__ void row_tile(float2* tile, const float2* tw, const float2* src, float2* dst,
+                         const float* __restrict__ v, float sigma, bool inverse, bool forward) {
+  const bool transmit_on_load = v != nullptr && !inverse;
+  for (int i = threadIdx.x; i < kTile / 2; i += kThreads) {
+    float2 a, b;
+    load_pair(src + 2 * i, &a, &b);
+    if (transmit_on_load) {
+      const float2 vv = *reinterpret_cast<const float2*>(v + 2 * i);
+      a = transmit(a, sigma * vv.x);
+      b = transmit(b, sigma * vv.y);
+    }
+    tile[pad(2 * i)] = a;
+    tile[pad(2 * i + 1)] = b;
+  }
+  __syncthreads();
+  if (inverse) {
+    fft_inverse<LOG2N, true>(tile, tw);
+    if (v != nullptr) {
+      for (int i = threadIdx.x; i < kTile / 2; i += kThreads) {
+        const float2 vv = *reinterpret_cast<const float2*>(v + 2 * i);
+        tile[pad(2 * i)] = transmit(tile[pad(2 * i)], sigma * vv.x);
+        tile[pad(2 * i + 1)] = transmit(tile[pad(2 * i + 1)], sigma * vv.y);
+      }
+      __syncthreads();
+    }
+  }
+  if (forward) fft_forward<LOG2N, true>(tile, tw);
+  for (int i = threadIdx.x; i < kTile / 2; i += kThreads) {
+    store_pair(dst + 2 * i, tile[pad(2 * i)], tile[pad(2 * i + 1)]);
+  }
+  __syncthreads();  // the next tile reuses the shared memory
+}
+
+// One column tile: the panel of 4096/N columns from column c0 of one wave's
+// plane, in place: forward y transform, times the propagator (bit-reversed
+// order, conjugated for the adjoint) over N^2, inverse y transform.
+template <int LOG2N>
+__device__ void col_tile(float2* tile, const float2* tw, float2* plane, int c0,
+                         const float2* __restrict__ prop, bool conj_p) {
+  constexpr int N = 1 << LOG2N;
+  constexpr int C = kTile / N;
+  for (int i = threadIdx.x; i < kTile / 2; i += kThreads) {
+    const int e = 2 * i;
+    float2 a, b;
+    load_pair(plane + static_cast<int64_t>(e / C) * N + c0 + e % C, &a, &b);
+    tile[pad(e)] = a;
+    tile[pad(e + 1)] = b;
+  }
+  __syncthreads();
+  fft_forward<LOG2N, false>(tile, tw);
+  const float scale = 1.0f / (static_cast<float>(N) * static_cast<float>(N));
+  const float sign = conj_p ? -scale : scale;
+  for (int i = threadIdx.x; i < kTile / 2; i += kThreads) {
+    const int e = 2 * i;
+    const float4 p =
+        *reinterpret_cast<const float4*>(prop + static_cast<int64_t>(e / C) * N + c0 + e % C);
+    tile[pad(e)] = cmul(tile[pad(e)], make_float2(p.x * scale, p.y * sign));
+    tile[pad(e + 1)] = cmul(tile[pad(e + 1)], make_float2(p.z * scale, p.w * sign));
+  }
+  __syncthreads();
+  fft_inverse<LOG2N, false>(tile, tw);
+  for (int i = threadIdx.x; i < kTile / 2; i += kThreads) {
+    const int e = 2 * i;
+    store_pair(plane + static_cast<int64_t>(e / C) * N + c0 + e % C, tile[pad(e)],
+               tile[pad(e + 1)]);
+  }
+  __syncthreads();
+}
+
+// Row pass over every tile of nwaves planes.  v: nullptr, or the potentials
+// of one plane, shared by the waves.
+template <int LOG2N>
+__global__ void __launch_bounds__(kThreads)
+row_pass_kernel(const float2* src, float2* dst, const float* __restrict__ v, float sigma,
+                int inverse, int forward, int64_t nwaves) {
+  __shared__ float2 tile[kTilePadded];
+  __shared__ float2 tw[kMaxTwiddles];
+  constexpr int64_t kTilesPerWave = (int64_t{1} << (2 * LOG2N)) / kTile;
+  init_twiddles<LOG2N>(tw);
+  __syncthreads();
+  for (int64_t t = blockIdx.x; t < nwaves * kTilesPerWave; t += gridDim.x) {
+    const float* vt = v == nullptr ? nullptr : v + (t % kTilesPerWave) * kTile;
+    row_tile<LOG2N>(tile, tw, src + t * kTile, dst + t * kTile, vt, sigma, inverse != 0,
+                    forward != 0);
+  }
+}
+
+// Column pass over every panel of nwaves planes, in place.  prop: the
+// bit-reversed propagator of wave 0, p_wave_stride elements to the next
+// wave's (0 when shared).
+template <int LOG2N>
+__global__ void __launch_bounds__(kThreads)
+col_pass_kernel(float2* buf, const float2* __restrict__ prop, int64_t p_wave_stride, int conj_p,
+                int64_t nwaves) {
+  __shared__ float2 tile[kTilePadded];
+  __shared__ float2 tw[kMaxTwiddles];
+  constexpr int64_t kPlane = int64_t{1} << (2 * LOG2N);
+  constexpr int64_t kTilesPerWave = kPlane / kTile;
+  constexpr int C = kTile >> LOG2N;
+  init_twiddles<LOG2N>(tw);
+  __syncthreads();
+  for (int64_t t = blockIdx.x; t < nwaves * kTilesPerWave; t += gridDim.x) {
+    const int64_t b = t / kTilesPerWave;
+    const int c0 = static_cast<int>(t % kTilesPerWave) * C;
+    col_tile<LOG2N>(tile, tw, buf + b * kPlane, c0, prop + b * p_wave_stride, conj_p != 0);
+  }
+}
+
+struct ScanArgs {
+  const float2* psi0;   // (B, N, N)
+  float2* out;          // (B, N, N): the carried wave, then the exit wave
+  const float* v;       // (S, N, N), or (B, S, N, N) with v_wave_stride = S*N*N
+  const float2* prop;   // (N, N) bit-reversed, or (B, N, N) with p_wave_stride = N*N
+  int64_t v_wave_stride;
+  int64_t p_wave_stride;
+  int64_t nwaves;
+  int nslices;
+  float sigma;
+};
+
+// The whole slice loop in one cooperative launch.  Per slice j: row pass
+// [inverse x of slice j-1 | transmit with V_j | forward x], barrier, column
+// pass [forward y | * P | inverse y], barrier; then one row pass [inverse x].
+// Every block runs the same number of barriers.
+template <int LOG2N>
+__global__ void __launch_bounds__(kThreads) scan_kernel(ScanArgs a) {
+  __shared__ float2 tile[kTilePadded];
+  __shared__ float2 tw[kMaxTwiddles];
+  cg::grid_group grid = cg::this_grid();
+  constexpr int64_t kPlane = int64_t{1} << (2 * LOG2N);
+  constexpr int64_t kTilesPerWave = kPlane / kTile;
+  constexpr int C = kTile >> LOG2N;
+  const int64_t ntiles = a.nwaves * kTilesPerWave;
+  init_twiddles<LOG2N>(tw);
+  __syncthreads();
+  for (int j = 0; j <= a.nslices; ++j) {
+    for (int64_t t = blockIdx.x; t < ntiles; t += gridDim.x) {
+      const int64_t b = t / kTilesPerWave;
+      const int64_t r = t % kTilesPerWave;
+      const float2* src = (j == 0 ? a.psi0 : a.out) + t * kTile;
+      const float* vt =
+          j < a.nslices ? a.v + b * a.v_wave_stride + j * kPlane + r * kTile : nullptr;
+      row_tile<LOG2N>(tile, tw, src, a.out + t * kTile, vt, a.sigma, j > 0, j < a.nslices);
+    }
+    if (j == a.nslices) break;
+    grid.sync();
+    for (int64_t t = blockIdx.x; t < ntiles; t += gridDim.x) {
+      const int64_t b = t / kTilesPerWave;
+      const int c0 = static_cast<int>(t % kTilesPerWave) * C;
+      col_tile<LOG2N>(tile, tw, a.out + b * kPlane, c0, a.prop + b * a.p_wave_stride, false);
+    }
+    grid.sync();
+  }
+}
+
+// The tail of the step's adjoint.  bar holds, per wave, the x spectrum of
+// bar_s (after the row and column passes on g with conj(P)); this pass undoes
+// the x transform and forms dpsi = bar_s * conj(t) (written over bar) and
+// dV = sigma * Im(bar_s * conj(t * psi)) summed over the waves.  A block owns
+// a row tile for every wave, so the sum stays in its registers.
+template <int LOG2N>
+__global__ void __launch_bounds__(kThreads)
+bwd_tail_kernel(float2* bar, const float2* __restrict__ psi, const float* __restrict__ v,
+                float* __restrict__ dv, float sigma, int64_t nwaves) {
+  __shared__ float2 tile[kTilePadded];
+  __shared__ float2 tw[kMaxTwiddles];
+  constexpr int64_t kTilesPerWave = (int64_t{1} << (2 * LOG2N)) / kTile;
+  constexpr int kPerThread = kTile / 2 / kThreads;  // pairs per thread
+  init_twiddles<LOG2N>(tw);
+  __syncthreads();
+  for (int64_t r = blockIdx.x; r < kTilesPerWave; r += gridDim.x) {
+    float2 acc[kPerThread];
+#pragma unroll
+    for (int m = 0; m < kPerThread; ++m) acc[m] = make_float2(0.0f, 0.0f);
+    for (int64_t b = 0; b < nwaves; ++b) {
+      float2* bt = bar + (b * kTilesPerWave + r) * kTile;
+      const float2* pt = psi + (b * kTilesPerWave + r) * kTile;
+      for (int i = threadIdx.x; i < kTile / 2; i += kThreads) {
+        float2 x, y;
+        load_pair(bt + 2 * i, &x, &y);
+        tile[pad(2 * i)] = x;
+        tile[pad(2 * i + 1)] = y;
+      }
+      __syncthreads();
+      fft_inverse<LOG2N, true>(tile, tw);
+#pragma unroll
+      for (int m = 0; m < kPerThread; ++m) {
+        const int i = threadIdx.x + m * kThreads;
+        const float2 vv = *reinterpret_cast<const float2*>(v + r * kTile + 2 * i);
+        float2 p0, p1;
+        load_pair(pt + 2 * i, &p0, &p1);
+        const float2 s0 = tile[pad(2 * i)];
+        const float2 s1 = tile[pad(2 * i + 1)];
+        float sn, cs;
+        sincosf(sigma * vv.x, &sn, &cs);
+        const float2 t0 = make_float2(cs, sn);
+        const float2 u0 = cmul(p0, t0);
+        sincosf(sigma * vv.y, &sn, &cs);
+        const float2 t1 = make_float2(cs, sn);
+        const float2 u1 = cmul(p1, t1);
+        store_pair(bt + 2 * i, cmul_conj(s0, t0), cmul_conj(s1, t1));
+        acc[m].x += s0.y * u0.x - s0.x * u0.y;  // Im(s * conj(u))
+        acc[m].y += s1.y * u1.x - s1.x * u1.y;
+      }
+      __syncthreads();
+    }
+#pragma unroll
+    for (int m = 0; m < kPerThread; ++m) {
+      const int i = threadIdx.x + m * kThreads;
+      *reinterpret_cast<float2*>(dv + r * kTile + 2 * i) =
+          make_float2(sigma * acc[m].x, sigma * acc[m].y);
+    }
+  }
+}
+
+int blocks_for(int64_t ntiles) {
+  return static_cast<int>(ntiles < kMaxBlocks ? ntiles : kMaxBlocks);
+}
+
+template <int LOG2N>
+int launch_step(const float2* psi, const float* v, const float2* prop, float2* out, float sigma,
+                int64_t nwaves, int64_t p_wave_stride, cudaStream_t stream) {
+  constexpr int64_t kTilesPerWave = (int64_t{1} << (2 * LOG2N)) / kTile;
+  const int blocks = blocks_for(nwaves * kTilesPerWave);
+  row_pass_kernel<LOG2N><<<blocks, kThreads, 0, stream>>>(psi, out, v, sigma, 0, 1, nwaves);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  col_pass_kernel<LOG2N><<<blocks, kThreads, 0, stream>>>(out, prop, p_wave_stride, 0, nwaves);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  row_pass_kernel<LOG2N><<<blocks, kThreads, 0, stream>>>(out, out, nullptr, sigma, 1, 0, nwaves);
+  return cudaGetLastError();
+}
+
+template <int LOG2N>
+int launch_step_bwd(const float2* psi, const float* v, const float2* g, const float2* prop,
+                    float2* dpsi, float* dv, float sigma, int64_t nwaves, int64_t p_wave_stride,
+                    cudaStream_t stream) {
+  constexpr int64_t kTilesPerWave = (int64_t{1} << (2 * LOG2N)) / kTile;
+  const int blocks = blocks_for(nwaves * kTilesPerWave);
+  row_pass_kernel<LOG2N><<<blocks, kThreads, 0, stream>>>(g, dpsi, nullptr, sigma, 0, 1, nwaves);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  col_pass_kernel<LOG2N><<<blocks, kThreads, 0, stream>>>(dpsi, prop, p_wave_stride, 1, nwaves);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  bwd_tail_kernel<LOG2N><<<blocks_for(kTilesPerWave), kThreads, 0, stream>>>(dpsi, psi, v, dv,
+                                                                            sigma, nwaves);
+  return cudaGetLastError();
+}
+
+// Blocks of scan_kernel that can be resident at once on this device.
+template <int LOG2N>
+int resident_blocks(int device, int* blocks) {
+  int per_sm = 0;
+  cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, scan_kernel<LOG2N>,
+                                                                 kThreads, 0);
+  if (err != cudaSuccess) return err;
+  int sms = 0;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return err;
+  *blocks = per_sm * sms;
+  return cudaSuccess;
+}
+
+template <int LOG2N>
+int launch_scan(int device, ScanArgs a, cudaStream_t stream) {
+  constexpr int64_t kTilesPerWave = (int64_t{1} << (2 * LOG2N)) / kTile;
+  const int64_t ntiles = a.nwaves * kTilesPerWave;
+  int resident = 0;
+  int err = resident_blocks<LOG2N>(device, &resident);
+  if (err != cudaSuccess) return err;
+  if (resident < 1) return cudaErrorLaunchOutOfResources;
+  const int blocks = static_cast<int>(ntiles < resident ? ntiles : resident);
+  void* args[] = {&a};
+  return cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(scan_kernel<LOG2N>),
+                                     dim3(blocks), dim3(kThreads), args, 0, stream);
+}
+
+template <int LOG2N>
+int kernel_info(int device, int* out) {
+  cudaFuncAttributes attr;
+  cudaError_t err = cudaFuncGetAttributes(&attr, scan_kernel<LOG2N>);
+  if (err != cudaSuccess) return err;
+  out[0] = attr.numRegs;
+  out[1] = static_cast<int>(attr.sharedSizeBytes);
+  out[2] = static_cast<int>(attr.localSizeBytes);
+  return resident_blocks<LOG2N>(device, &out[3]);
+}
+
+}  // namespace
+
+#define FDES_DISPATCH_N(n, call)                 \
+  switch (n) {                                   \
+    case 128: { constexpr int L = 7; return call; }   \
+    case 256: { constexpr int L = 8; return call; }   \
+    case 512: { constexpr int L = 9; return call; }   \
+    case 1024: { constexpr int L = 10; return call; } \
+    default: return cudaErrorInvalidValue;       \
+  }
+
+extern "C" {
+
+const char* fdes_error_string(int err) {
+  return cudaGetErrorString(static_cast<cudaError_t>(err));
+}
+
+// psi (nwaves, n, n) -> out, one slice step; v (n, n) shared by the waves;
+// prop bit-reversed, (n, n) (p_wave_stride 0) or one per wave (n*n).
+int fdes_fused_step_c64(int device, int n, const void* psi, const void* v, const void* prop,
+                        void* out, double sigma, int64_t nwaves, int64_t p_wave_stride,
+                        void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  FDES_DISPATCH_N(n, launch_step<L>(static_cast<const float2*>(psi), static_cast<const float*>(v),
+                                    static_cast<const float2*>(prop), static_cast<float2*>(out),
+                                    static_cast<float>(sigma), nwaves, p_wave_stride,
+                                    static_cast<cudaStream_t>(stream)))
+}
+
+// The step's adjoint: g (nwaves, n, n) -> dpsi (nwaves, n, n), dv (n, n)
+// summed over the waves.
+int fdes_fused_step_bwd_c64(int device, int n, const void* psi, const void* v, const void* g,
+                            const void* prop, void* dpsi, void* dv, double sigma,
+                            int64_t nwaves, int64_t p_wave_stride, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  FDES_DISPATCH_N(
+      n, launch_step_bwd<L>(static_cast<const float2*>(psi), static_cast<const float*>(v),
+                            static_cast<const float2*>(g), static_cast<const float2*>(prop),
+                            static_cast<float2*>(dpsi), static_cast<float*>(dv),
+                            static_cast<float>(sigma), nwaves, p_wave_stride,
+                            static_cast<cudaStream_t>(stream)))
+}
+
+// The whole loop: psi0 (nwaves, n, n) through nslices slices -> out, in one
+// cooperative launch.
+int fdes_fused_scan_c64(int device, int n, const void* psi0, const void* v, const void* prop,
+                        void* out, double sigma, int64_t nwaves, int nslices,
+                        int64_t v_wave_stride, int64_t p_wave_stride, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  ScanArgs a;
+  a.psi0 = static_cast<const float2*>(psi0);
+  a.out = static_cast<float2*>(out);
+  a.v = static_cast<const float*>(v);
+  a.prop = static_cast<const float2*>(prop);
+  a.v_wave_stride = v_wave_stride;
+  a.p_wave_stride = p_wave_stride;
+  a.nwaves = nwaves;
+  a.nslices = nslices;
+  a.sigma = static_cast<float>(sigma);
+  FDES_DISPATCH_N(n, launch_scan<L>(device, a, static_cast<cudaStream_t>(stream)))
+}
+
+// out[0..3] = registers per thread, static shared bytes, local bytes per
+// thread, and resident blocks on the device, of the scan kernel for size n.
+int fdes_fused_scan_info(int device, int n, int* out) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  FDES_DISPATCH_N(n, kernel_info<L>(device, out))
+}
+
+}  // extern "C"

@@ -1,0 +1,209 @@
+"""The whole slice loop in one kernel launch, and the engines ``"fscan*"``.
+
+Counterpart of ``fdes_tpu/pallas/fused_scan.py``.  ``fused_scan(psi0,
+v_stack, propagator, sigma)`` carries B waves through all S slices of a
+potential stack in one cooperative launch of ``csrc/fused_step.cu``'s
+``scan_kernel`` (replaces ``_scan_kernel``): the slice loop runs inside the
+kernel, the blocks meet at a grid-wide barrier after each row and column
+pass, the waves stay in the output tensor (in L2 for a chunk of probes), and
+V is the only stream from device memory.  The transform is computed in the
+kernel; no cuFFT runs in the loop.
+
+Batching, as the TPU kernel's ``_run_batched``: psi0 is (n, n) or (B, n, n);
+v_stack (S, n, n) shared by the waves or (B, S, n, n) one stack per wave
+(phonon configurations); the propagator (n, n) shared or (B, n, n) one per
+wave (a tilt series).  A (n, n) psi0 is broadcast over the B of a per-wave V
+or P.  complex64, n in {128, 256, 512, 1024}.
+
+A tensor on the CPU goes to the plain PyTorch version (``fused_scan_ref``:
+transmit and ``torch.fft`` in a loop, the same batching rules); a CUDA
+tensor goes to the kernel or the wrapper raises; complex128 on the card
+raises ``TypeError``.  ``fused_scan.launches`` counts the calls that reached
+the card (one cooperative launch each).
+
+The engine is forward-only.  The kernel keeps no wave of the loop's inside,
+so it cannot serve a backward pass, and a raw kernel's output carries no
+graph: a loss on it would see a zero gradient and say nothing.
+``whole_scan`` therefore raises when autograd is recording and an input
+requires a gradient.  The whole-loop adjoint is the counterpart of
+``fdes_tpu/pallas/adjoint_scan.py`` (ROADMAP.md Queue 2 D9-D12).
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from . import fused_step as fs
+from .slice_step import _check_dense, pallas_slice_step, transmit_ref
+
+
+def _batching(psi0, v_stack, propagator, what):
+    """(n, B, v_batched, p_batched) of a scan's operands, validated."""
+    if psi0.ndim not in (2, 3):
+        raise ValueError(f"{what}: psi0 must be (n, n) or (B, n, n), got {tuple(psi0.shape)}")
+    n = psi0.shape[-1]
+    fs.check_size(psi0.shape[-2], n, what)
+    if v_stack.ndim not in (3, 4) or tuple(v_stack.shape[-2:]) != (n, n):
+        raise ValueError(
+            f"{what}: v_stack must be (S, {n}, {n}) or (B, S, {n}, {n}), got "
+            f"{tuple(v_stack.shape)}"
+        )
+    if propagator.ndim not in (2, 3) or tuple(propagator.shape[-2:]) != (n, n):
+        raise ValueError(
+            f"{what}: propagator must be ({n}, {n}) or (B, {n}, {n}), got "
+            f"{tuple(propagator.shape)}"
+        )
+    v_batched, p_batched = v_stack.ndim == 4, propagator.ndim == 3
+    sizes = {
+        t.shape[0]
+        for t, batched in ((psi0, psi0.ndim == 3), (v_stack, v_batched), (propagator, p_batched))
+        if batched
+    }
+    if len(sizes) > 1:
+        raise ValueError(
+            f"{what}: batch sizes differ: psi0 {tuple(psi0.shape)}, v_stack "
+            f"{tuple(v_stack.shape)}, propagator {tuple(propagator.shape)}"
+        )
+    return n, (sizes.pop() if sizes else 1), v_batched, p_batched
+
+
+def fused_scan_ref(
+    psi0: torch.Tensor, v_stack: torch.Tensor, propagator: torch.Tensor, sigma: float
+) -> torch.Tensor:
+    """The whole loop in plain PyTorch: per slice psi <- IFFT2(P * FFT2(t psi)),
+    with the kernel's batching rules.  Returns psi0's shape, or (B, n, n)
+    when a per-wave V or P broadcasts a single psi0."""
+    _, b, v_batched, _ = _batching(psi0, v_stack, propagator, "fused_scan_ref")
+    psi = psi0
+    if psi.ndim == 2 and (v_batched or propagator.ndim == 3):
+        psi = psi.expand(b, *psi.shape)
+    prop = propagator.to(psi.dtype)
+    for j in range(v_stack.shape[-3]):
+        v = v_stack[:, j] if v_batched else v_stack[j]
+        psi = torch.fft.ifft2(torch.fft.fft2(transmit_ref(psi, v, sigma)) * prop)
+    return psi
+
+
+def fused_scan(
+    psi0: torch.Tensor, v_stack: torch.Tensor, propagator: torch.Tensor, sigma: float
+) -> torch.Tensor:
+    """All S slices for all B waves in one call: the scan kernel on CUDA,
+    plain on the CPU.  Forward only: the result carries no graph."""
+    n, b, v_batched, p_batched = _batching(psi0, v_stack, propagator, "fused_scan")
+    if v_stack.is_complex():
+        raise TypeError("fused_scan: v_stack must be real; the engine routes a complex "
+                        "(absorptive) potential through the per-slice kernels")
+    if not psi0.is_cuda:
+        return fused_scan_ref(psi0, v_stack, propagator, sigma)
+    if psi0.dtype != torch.complex64:
+        raise TypeError(f"fused_scan: the CUDA kernel takes complex64, got {psi0.dtype}")
+    nslices = v_stack.shape[-3]
+    batched_out = psi0.ndim == 3 or v_batched or p_batched
+    psi = psi0 if psi0.ndim == 3 else psi0.expand(b, n, n)
+    if not psi.is_contiguous() and psi0.ndim == 2:
+        psi = psi.contiguous()  # a single wave broadcast over per-wave V or P
+    v32 = v_stack.to(torch.float32)
+    pp = fs.prepare_propagator(propagator)
+    for name, t in (("psi0", psi), ("v_stack", v32), ("propagator", pp)):
+        if t.device != psi0.device:
+            raise ValueError(f"fused_scan: {name} on {t.device}, psi0 on {psi0.device}")
+        _check_dense(t, name, "fused_scan")
+        if t.data_ptr() % 16:
+            raise ValueError(f"fused_scan: {name} must be 16-byte aligned")
+    out = torch.empty_like(psi)
+    if nslices == 0:
+        out.copy_(psi)
+    elif b:
+        fs.launch(
+            "fdes_fused_scan_c64", psi0.device, n, psi.data_ptr(), v32.data_ptr(), pp.data_ptr(),
+            out.data_ptr(), float(sigma), b, nslices,
+            nslices * n * n if v_batched else 0, n * n if p_batched else 0,
+        )
+        fused_scan.launches += 1
+    return out if batched_out else out[0]
+
+
+fused_scan.launches = 0
+
+
+def scan_kernel_info(n: int, device: torch.device | str = "cuda") -> dict:
+    """Registers, shared and local memory and resident blocks of the scan
+    kernel for axis size n, as the CUDA runtime reports them."""
+    dev = torch.device(device)
+    if dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    out = (ctypes.c_int * 4)()
+    fs.launch("fdes_fused_scan_info", dev, n, ctypes.cast(out, ctypes.c_void_p))
+    return {"registers": out[0], "shared_bytes": out[1], "local_bytes": out[2],
+            "resident_blocks": out[3]}
+
+
+class WholeScanEngine:
+    """What ``make_slice_step`` returns for whole-loop engines:
+    ``propagate.multislice`` dispatches to ``.whole_scan(psi0, v, prop,
+    sigma)`` instead of looping over a per-slice step.  The engine cannot be
+    called per slice: the point is that the loop lives inside one kernel."""
+
+    #: True for an engine that carries the whole-loop adjoint; none does yet
+    grad_capable = False
+
+    def __init__(self, whole_scan, kind: str):
+        self.whole_scan = whole_scan
+        self.kind = kind
+
+    def __call__(self, *args, **kwargs):
+        raise TypeError(
+            f"engine {self.kind!r} fuses the whole slice loop; use "
+            "propagate.multislice (which dispatches to .whole_scan) instead "
+            "of calling it as a per-slice step"
+        )
+
+
+def make_fused_scan(
+    ny: int, nx: int, dtype: torch.dtype = torch.complex64, kind: str = "fscan",
+    grad: bool = False,
+) -> WholeScanEngine:
+    """A ``WholeScanEngine`` running the whole multislice loop in one kernel.
+
+    psi0 may be (n, n) or (B, n, n); a batch of probes, a per-wave potential
+    stack and a per-wave propagator all land on the kernel's batch axis.
+    Forward only (``grad=True`` raises): ``whole_scan`` raises when autograd
+    is recording and an input requires a gradient.  A complex (absorptive) V
+    goes slice by slice through ``pallas_slice_step``, the kernels around
+    cuFFT, as the per-slice fused engine does.
+    """
+    fs.check_size(ny, nx, "the fused scan")
+    if grad:
+        raise NotImplementedError(
+            f"engine {kind!r} is forward-only in fdes_tpu_torch: the whole-loop adjoint "
+            "is not ported yet (ROADMAP.md Queue 2 D9-D12, adjoint_scan); use engine "
+            "'pallas' or 'fused' for gradients"
+        )
+
+    def whole_scan(psi0, v_stack, propagator, sigma):
+        if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (psi0, v_stack, propagator)
+        ):
+            raise RuntimeError(
+                f"engine {kind!r} is forward-only: its result carries no graph, so a "
+                "gradient through it would be silently zero; run it under "
+                "torch.no_grad() or on detached tensors, or use engine 'pallas' or "
+                "'fused' (ROADMAP.md Queue 2 D9-D12 ports the whole-loop adjoint)"
+            )
+        psi0 = psi0.to(dtype)
+        propagator = propagator.to(dtype)
+        if v_stack.is_complex():
+            if v_stack.ndim != 3:
+                raise ValueError(
+                    f"engine {kind!r}: a complex (absorptive) potential must be one "
+                    f"(S, n, n) stack shared by the waves, got {tuple(v_stack.shape)}"
+                )
+            psi = psi0
+            for v_slice in v_stack:
+                psi = pallas_slice_step(psi, v_slice, propagator, sigma)
+            return psi
+        return fused_scan(psi0, v_stack, propagator, float(sigma))
+
+    return WholeScanEngine(whole_scan, kind)

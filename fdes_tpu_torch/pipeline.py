@@ -5,7 +5,9 @@ Config into a ``Sim`` bundle of host-built constants (grid, propagator, CTF
 stack) and device tensors (potential stack), shared by the CLI and the
 scripts.  ``sim_from_arrays`` builds the same bundle from NumPy arrays, so a
 run can start from state computed elsewhere (the JAX package's ``Sim``, a
-saved potential).
+saved potential).  ``stem_setup`` adds the STEM state (probe stencil, scan
+positions, detector masks) and ``stem_from_arrays`` is its sibling for
+arrays computed elsewhere.
 
 Entry points run on ``cuda`` unless the caller asks for the CPU; asking for
 ``cuda`` where there is none raises instead of carrying on on the CPU.
@@ -20,10 +22,11 @@ import torch
 
 from . import constants
 from .config import Config, MeshParams
+from .detector import annular_mask, segmented_masks
 from .grids import Grid, fresnel_propagator
 from .optics import Aberrations, ctf_quadrature_series, ctf_series
 from .potential import build_potential
-from .probe import plane_wave
+from .probe import plane_wave, probe_stencil
 from .scattering import ScatteringTable, load_kirkland_table
 from .specimen import Specimen, SlicedAtoms, load_xyz, make_si110_supercell, slice_specimen
 
@@ -102,10 +105,10 @@ def unported_settings(cfg: Config) -> list[str]:
     """Settings of ``cfg`` that fdes_tpu_torch does not run yet, each with
     the ROADMAP.md item that brings it (empty when the run is supported)."""
     out = []
-    if cfg.mode not in ("forward", "hrtem", "invert"):
-        out.append(f"mode {cfg.mode!r} (ROADMAP.md Queue 1 item 8)")
-    if cfg.mode == "invert" and cfg.recon.modality == "stem4d":
-        out.append("recon.modality 'stem4d' (ROADMAP.md Queue 1 item 8)")
+    if cfg.mode not in ("forward", "hrtem", "stem", "stem4d", "invert"):
+        out.append(f"mode {cfg.mode!r} (no such mode)")
+    if cfg.mode in ("stem", "stem4d") and cfg.stem.method == "prism":
+        out.append("stem.method 'prism' (ROADMAP.md Queue 1 item 8)")
     if cfg.sim.streamed:
         out.append("sim.streamed (ROADMAP.md Queue 1 item 9)")
     if cfg.sim.phonon_configs > 0:
@@ -267,4 +270,57 @@ def sim_from_arrays(
         ctf_weights=opt("ctf_weights", rdt),
         psi0_stack=opt("psi0_stack", cdt),
         prop_stack=opt("prop_stack", cdt),
+    )
+
+
+def stem_setup(sim: Sim):
+    """Probe stencil, scan positions and detector masks for STEM mode:
+    (stencil (ny, nx) complex, qy (ny, 1), qx (1, nx), positions (npos, 2) in
+    Å, row-major over the scan, masks (ndet, ny, nx)), on ``sim.device``."""
+    st = sim.cfg.stem
+    ly = st.scan_ly_A or sim.grid.extent[0]
+    lx = st.scan_lx_A or sim.grid.extent[1]
+    ys = st.scan_y0_A + (np.arange(st.scan_ny) + 0.5) * ly / st.scan_ny
+    xs = st.scan_x0_A + (np.arange(st.scan_nx) + 0.5) * lx / st.scan_nx
+    gy, gx = np.meshgrid(ys, xs, indexing="ij")
+    mask_list = [annular_mask(sim.grid, sim.wavelength_A, i, o) for i, o in st.detectors]
+    if st.dpc_nseg > 0:
+        inner, outer = st.detectors[0]
+        mask_list.extend(
+            segmented_masks(sim.grid, sim.wavelength_A, inner, outer, nseg=st.dpc_nseg)
+        )
+    return stem_from_arrays(
+        {
+            "stencil": probe_stencil(
+                sim.grid, sim.wavelength_A, st.semiangle_rad, sim.aberrations
+            ),
+            "qy": sim.grid.qy()[:, None],
+            "qx": sim.grid.qx()[None, :],
+            "positions": np.stack([gy.ravel(), gx.ravel()], axis=-1),
+            "masks": np.stack(mask_list),
+        },
+        cdtype=sim.cdtype, device=sim.device,
+    )
+
+
+def stem_from_arrays(
+    arrays: dict[str, np.ndarray],
+    *,
+    cdtype: torch.dtype = torch.complex64,
+    device: torch.device | str = "cuda",
+):
+    """``stem_setup``'s tuple from NumPy arrays: the STEM state carried across
+    packages (the JAX package's ``stem_setup(sim)`` after ``np.asarray``).
+
+    Keys: ``stencil``, ``qy``, ``qx``, ``positions``, ``masks``.  Cast on the
+    host to ``cdtype`` and its real type.
+    """
+    dev = resolve_device(device)
+    rdt = torch.float32 if cdtype == torch.complex64 else torch.float64
+    return (
+        to_device(arrays["stencil"], cdtype, dev),
+        to_device(arrays["qy"], rdt, dev),
+        to_device(arrays["qx"], rdt, dev),
+        to_device(arrays["positions"], rdt, dev),
+        to_device(arrays["masks"], rdt, dev),
     )

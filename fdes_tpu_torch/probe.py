@@ -1,8 +1,9 @@
-"""Incident waves (SURVEY.md C9): the plane wave of HRTEM.
+"""Incident waves: the tilted plane wave and the STEM probe (SURVEY.md C9).
 
-The counterpart of ``fdes_tpu.probe.plane_wave``.  The STEM probe
-(``probe_stencil``/``probe_from_stencil``) comes with the STEM slice
-(ROADMAP.md Queue 1 item 8).
+Counterpart of ``fdes_tpu.probe``.  The q-space probe stencil (aperture *
+aberration phase, defocus included) is a host-side f64 constant; only the
+per-probe position phase ramp is computed on the device, for a whole batch
+of positions at once.
 """
 
 from __future__ import annotations
@@ -11,6 +12,7 @@ import numpy as np
 import torch
 
 from .grids import Grid
+from .optics import Aberrations, aperture, chi
 
 
 def plane_wave(
@@ -40,3 +42,46 @@ def plane_wave(
     y, x = grid.xy_grids()
     phase = 2.0 * np.pi * (x * kx / lx + y * ky / ly)
     return torch.as_tensor(np.exp(1j * phase), device=device).to(dtype)
+
+
+def probe_stencil(
+    grid: Grid,
+    wavelength_A: float,
+    semiangle_rad: float,
+    ab: Aberrations = Aberrations(),
+) -> np.ndarray:
+    """q-space STEM probe stencil A(q)*exp(-1j*chi(q)), unit real-space power.
+
+    Normalised so that sum_r |IFFT[stencil]|^2 == 1 exactly (Parseval:
+    sum_q |stencil|^2 == ny*nx).  complex128 on the host; shifting the probe
+    only multiplies by a unit-modulus phase so normalisation is position-
+    independent.
+    """
+    amp = aperture(grid, wavelength_A, semiangle_rad)
+    st = amp * np.exp(-1j * chi(grid, wavelength_A, ab))
+    power = np.sum(np.abs(st) ** 2)
+    if power == 0.0:
+        raise ValueError("probe aperture excludes all grid frequencies")
+    return st * np.sqrt(grid.ny * grid.nx / power)
+
+
+def probe_from_stencil(
+    stencil: torch.Tensor,
+    qy: torch.Tensor,
+    qx: torch.Tensor,
+    pos_yx_A: torch.Tensor,
+    dtype: torch.dtype = torch.complex64,
+) -> torch.Tensor:
+    """Real-space probes at positions (y, x) Å.
+
+    psi_0 = IFFT[stencil * exp(-2*pi*1j*(qy*y + qx*x))].
+    qy, qx: broadcastable (ny, 1) and (1, nx) frequency grids (1/Å).
+    pos_yx_A: (2,) for one probe, or (B, 2) for a batch: the result is
+    (ny, nx) or (B, ny, nx).
+    """
+    rdt = torch.float32 if dtype == torch.complex64 else torch.float64
+    pos = pos_yx_A.to(rdt)
+    y, x = pos[..., 0, None, None], pos[..., 1, None, None]
+    phase = -2.0 * torch.pi * (qy.to(rdt) * y + qx.to(rdt) * x)
+    shift = torch.complex(torch.cos(phase), torch.sin(phase))
+    return torch.fft.ifft2(stencil.to(dtype) * shift)

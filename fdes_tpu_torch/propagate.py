@@ -1,14 +1,17 @@
 """Multislice propagation engine — the hot loop (SURVEY.md C8, §3.1).
 
-Counterpart of ``fdes_tpu.propagate`` for the per-slice engines.  The slice
-loop is a Python loop over the potential stack: each step is
-psi <- IFFT(P * FFT(exp(1j*sigma*V) * psi)), either in plain PyTorch
-(engine ``"xla"``) or through the CUDA kernels around cuFFT (engine
-``"pallas"``, kernels/slice_step.py).  Both differentiate with respect to
-psi0 and V; ``remat_chunk`` bounds the adjoint's memory by recomputing
-chunks of slices in the backward pass.  psi may carry leading batch
-dimensions (a tilt series), with V broadcast over them and P either shared
-or one per batch entry.
+Counterpart of ``fdes_tpu.propagate``.  Each slice step is
+psi <- IFFT(P * FFT(exp(1j*sigma*V) * psi)).  The per-slice engines run it
+in a Python loop over the potential stack: in plain PyTorch (``"xla"``),
+through the CUDA kernels around cuFFT (``"pallas"``, kernels/slice_step.py),
+or as one fused step that computes its own FFT (``"fused"``,
+kernels/fused_step.py).  They differentiate with respect to psi0 and V;
+``remat_chunk`` bounds the adjoint's memory by recomputing chunks of slices
+in the backward pass.  The whole-loop engines (``"fscan*"``,
+kernels/fused_scan.py) run all slices of a batch of waves in one kernel
+launch and are forward-only.  psi may carry leading batch dimensions (a
+tilt series, a chunk of probes), with V broadcast over them and P either
+shared or one per batch entry.
 """
 
 from __future__ import annotations
@@ -52,42 +55,126 @@ _NOT_PORTED = {
     "mxu4_fast": "Queue 1 item 10 (dft.py four-step DFT engines)",
     "radix": "Queue 1 item 10 (radix.py mixed-radix FFT engines)",
     "radix_fast": "Queue 1 item 10 (radix.py mixed-radix FFT engines)",
-    "fused": "Queue 2 B6/B7 (fused_step kernels)",
-    "fused_fast": "Queue 2 B6/B7 (fused_step kernels)",
-    "fscan": "Queue 2 C8 (fused_scan whole-loop kernel)",
-    "fscan_fast": "Queue 2 C8 (fused_scan whole-loop kernel)",
-    "fscan_draft": "Queue 2 C8 (fused_scan whole-loop kernel)",
     "panel": "Queue 2 E13-E17 (panel_scan kernels)",
     "panel_fast": "Queue 2 E13-E17 (panel_scan kernels)",
 }
 
 
-def make_slice_step(kind: str = "xla") -> Callable[..., torch.Tensor] | None:
+def _resolve_auto(
+    shape: tuple[int, int], grad: bool, dtype: torch.dtype = torch.complex64
+) -> str:
+    """The engine ``auto``/``auto_fast`` stand for (the port has one float32
+    tier, so the two agree), from wall times on one NVIDIA H100 80GB HBM3 at
+    700 W (chip_smoke.py phase engines: a 32-slice rollout and one gradient
+    evaluation at 128^2, 256^2, 512^2 and 1024^2, one wave and 16; PERF.md
+    section 5):
+
+    * forward on a square grid the whole-loop kernel takes: ``fscan``, the
+      fastest in every row but 1024^2 x 16 waves, where ``fused`` led it by
+      3 % (0.7-1.1 ms against 3.4-6.8 ms on ``pallas``/``xla`` for one wave
+      up to 512^2; 4.0-4.2 against 6.0-8.2 ms at 512^2 x 16);
+    * gradients on those grids: ``fused``, the fastest in every row (6.5-13.6
+      ms against 13.9-23.5 ms at 512^2; 45 against 52-63 ms at 1024^2 x 16);
+    * any other grid, and complex128 (the fused kernels are complex64):
+      ``pallas``, the only kernel engine that takes them.
+
+    The number of waves in a rollout did not change the order in any
+    measured row, so it does not enter yet.
+    """
+    from .kernels.fused_step import SIZES
+
+    ny, nx = shape
+    if dtype == torch.complex64 and ny == nx and ny in SIZES:
+        return "fused" if grad else "fscan"
+    return "pallas"
+
+
+def make_slice_step(
+    kind: str = "xla",
+    shape: tuple[int, int] | None = None,
+    dtype: torch.dtype | None = None,
+    grad: bool = True,
+    batch: int = 1,
+) -> Callable[..., torch.Tensor] | None:
     """Select the slice-step implementation.
 
     'xla'    — plain PyTorch: cos/sin transmit, torch.fft, complex multiply
                (returns None: multislice's default step);
     'pallas' — the CUDA kernels around cuFFT (kernels/slice_step.py),
                grad-capable: the backward runs the adjoint kernels;
-    'auto', 'auto_fast' — 'pallas'.  The JAX package's auto tiers encode
-               TPU measurements; the port picks by its own H100
-               measurements once it has more than one engine to pick from.
+    'fused'  — the whole slice step in CUDA kernels that compute the FFT
+               themselves (kernels/fused_step.py), grad-capable; square
+               128/256/512/1024 grids, needs ``shape``;
+    'fscan'  — the WHOLE slice loop for a batch of waves in one cooperative
+               kernel launch (kernels/fused_scan.py); FORWARD-ONLY: pass
+               ``grad=False`` (``grad=True`` raises), same grids;
+    'fused_fast', 'fscan_fast', 'fscan_draft' — the JAX package's faster,
+               less exact tiers of those two.  The port's kernels compute in
+               float32 throughout, so these kinds run the same kernels as
+               'fused' and 'fscan': more exact than the tier asks for;
+    'auto', 'auto_fast' — the engine measured fastest for ``shape`` and
+               ``grad`` on the H100 (_resolve_auto).  ``batch``, the number
+               of waves in one rollout (a probe chunk, a tilt series), is
+               taken for the callers of the JAX package's signature; no
+               measured row depends on it yet.
 
-    Every other kind of the JAX package raises NotImplementedError naming
-    the ROADMAP.md item that ports it.
+    ``shape`` is (ny, nx), needed by the fused, fscan and auto kinds;
+    ``dtype`` the complex working type (default complex64).  Every other
+    kind of the JAX package raises NotImplementedError naming the ROADMAP.md
+    item that ports it.
     """
     if kind in ("auto", "auto_fast"):
-        kind = "pallas"
+        if shape is None:
+            raise ValueError(f"kind={kind!r} needs shape=(ny, nx)")
+        kind = _resolve_auto(tuple(shape), grad, dtype or torch.complex64)
     if kind == "xla":
         return None
     if kind == "pallas":
         return pallas_slice_step
+    if kind in ("fused", "fused_fast"):
+        if shape is None:
+            raise ValueError(f"kind={kind!r} needs shape=(ny, nx)")
+        from .kernels.fused_step import make_fused_slice_step
+
+        return make_fused_slice_step(*shape, dtype=dtype or torch.complex64)
+    if kind in ("fscan", "fscan_fast", "fscan_draft"):
+        if shape is None:
+            raise ValueError(f"kind={kind!r} needs shape=(ny, nx)")
+        from .kernels.fused_scan import make_fused_scan
+
+        return make_fused_scan(*shape, dtype=dtype or torch.complex64, kind=kind, grad=grad)
     if kind in _NOT_PORTED:
         raise NotImplementedError(
             f"slice-step engine {kind!r} is not ported to fdes_tpu_torch yet "
             f"(ROADMAP.md {_NOT_PORTED[kind]})"
         )
     raise ValueError(f"unknown slice-step kind {kind!r}")
+
+
+#: probes per rollout of a STEM raster (pick_probe_chunk's target)
+PROBE_CHUNK_TARGET = 64
+
+
+def pick_probe_chunk(npos: int, method: str = "multislice") -> int:
+    """Probe batch for STEM rollouts: a DIVISOR of npos (stem_raster requires
+    divisibility) no larger than PROBE_CHUNK_TARGET, npos itself when it is
+    smaller.
+
+    The target comes from the config-4 raster (512^2, 128 slices, 1,024
+    probes) on one NVIDIA H100 80GB HBM3 at 700 W: engine ``fscan`` ran it
+    in 0.90 s at chunk 64 against 0.99 s at chunk 16 (PERF.md section 5,
+    chip_smoke.py phase stem).  Other grid sizes and larger chunks are not
+    measured yet, so the grid's shape does not enter and the CLI warns of no
+    chunk.
+    """
+    if method != "multislice":
+        raise NotImplementedError(
+            f"stem.method {method!r} is not ported to fdes_tpu_torch yet "
+            "(ROADMAP.md Queue 1 item 8)"
+        )
+    if npos <= PROBE_CHUNK_TARGET:
+        return npos
+    return max(d for d in range(1, PROBE_CHUNK_TARGET + 1) if npos % d == 0)
 
 
 def pick_remat_chunk(nslices: int) -> int:
@@ -120,9 +207,21 @@ def multislice(
     (O(S) adjoint memory); otherwise it must divide S, and each chunk of that
     many slices is a ``torch.utils.checkpoint`` that the backward pass runs
     again instead of keeping its waves (pick_remat_chunk gives the sqrt-S
-    choice).
+    choice).  A whole-loop engine (``make_slice_step("fscan", ...)``) runs the
+    loop in one kernel launch instead and takes no remat_chunk.
     """
     step = slice_step or default_slice_step
+    if hasattr(step, "whole_scan"):
+        # whole-loop engine (kernels/fused_scan.py): the slice loop lives
+        # inside one kernel.  A forward-only one keeps no wave to recompute
+        # from, so it rejects remat_chunk loudly.
+        if remat_chunk and not getattr(step, "grad_capable", False):
+            raise ValueError(
+                f"engine {getattr(step, 'kind', 'fscan')!r} is forward-only; "
+                "remat_chunk (adjoint memory) needs a per-slice engine or a "
+                "grad-capable whole-loop engine (make_slice_step grad=True)"
+            )
+        return step.whole_scan(psi0, v_stack, propagator, sigma)
 
     def run(psi, v_chunk):
         for j in range(v_chunk.shape[0]):
@@ -160,6 +259,12 @@ def multislice_thickness_series(
         raise ValueError(f"every {every} must divide nslices {s}")
     psi = psi0
     out = []
+    if hasattr(step, "whole_scan"):
+        # whole-loop engine: one kernel launch per ``every``-slice chunk
+        for j in range(0, s, every):
+            psi = step.whole_scan(psi, v_stack[j : j + every], propagator, sigma)
+            out.append(psi)
+        return torch.stack(out)
     for j in range(s):
         psi = step(psi, v_stack[j], propagator, sigma)
         if (j + 1) % every == 0:

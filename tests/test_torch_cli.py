@@ -78,11 +78,22 @@ def _run_port_cli(cfg, out, *extra):
         ("hrtem_mtf", ["images.npy"]),
         ("forward", ["exit_wave.npy", "potential.npy", "thickness_series.npy"]),
         ("forward_absorptive", ["exit_wave.npy", "potential.npy"]),
+        ("stem", ["stem.npy", "stem_com.npy"]),
+        ("stem_fscan", ["stem.npy"]),
+        ("stem4d", ["cbed.npy"]),
     ],
 )
 def test_cli_outputs_equal_jax(tmp_path, case, outputs):
-    mode = "hrtem" if case.startswith("hrtem") else "forward"
+    mode = case.split("_")[0]
+    scan = ("--set", "stem.scan_ny=3", "--set", "stem.scan_nx=2", "--set", "stem.probe_chunk=3",
+            "--set", "stem.detectors=[[0.0, 0.02], [0.05, 0.2]]")
+    small = ("--set", "sim.ny=64", "--set", "sim.nx=64")
     extra = {
+        # 64^2 on the per-slice kernels; 128^2 on the whole-loop engine, with
+        # the default probe chunk and DPC segments
+        "stem": (*scan, *small, "--set", "stem.compute_com=true"),
+        "stem_fscan": (*scan[:4], "--set", "stem.dpc_nseg=4", "--set", "sim.engine=fscan"),
+        "stem4d": (*scan, *small),
         "hrtem": (),
         "hrtem_mtf": ("--set", "detector.mtf_sigma_px=0.7"),
         "forward": ("--set", "sim.thickness_every=4"),
@@ -95,8 +106,20 @@ def test_cli_outputs_equal_jax(tmp_path, case, outputs):
         got = np.load(tmp_path / "port" / name)
         want = np.load(tmp_path / "jax" / name)
         assert got.shape == want.shape and got.dtype == want.dtype, name
-        assert _rel(got, want) <= GATE, name
-    assert (tmp_path / "port" / "timing.json").exists()
+        if name == "stem_com.npy":
+            # a first moment is a small difference of large float32 sums over
+            # frequencies up to ~5 1/A: absolute, at their round-off
+            assert np.abs(got - want).max() <= 1e-6, name
+        else:
+            assert _rel(got, want) <= GATE, name
+    with open(tmp_path / "port" / "timing.json") as fh:
+        timing = json.load(fh)
+    if mode.startswith("stem"):
+        # slice-propagations: slices x probes, once more for the first-moment raster
+        rasters = 2 if "stem_com.npy" in outputs else 1
+        assert timing["slice_props"] == 8 * 6 * rasters and timing["probes"] == 6
+        assert timing["probe_chunk"] == (6 if case == "stem_fscan" else 3)
+        assert timing["engine_kind"] == ("fscan" if case == "stem_fscan" else None)
 
 
 def _jax_sim_arrays(cfg_path, **over):
@@ -185,9 +208,9 @@ def test_setup_on_cuda_raises_without_cuda(tmp_path):
 @pytest.mark.parametrize(
     "extra",
     [
-        ("--mode", "stem"),
-        ("--mode", "stem4d"),
-        ("--mode", "invert", "--set", "recon.modality=stem4d"),
+        ("--mode", "stem", "--set", "stem.method=prism"),
+        ("--mode", "stem4d", "--set", "stem.method=prism"),
+        ("--mode", "invert", "--set", "sim.phonon_configs=1"),
         ("--set", "sim.phonon_configs=2"),
         ("--set", "sim.streamed=true", "--mode", "forward"),
         ("--set", 'mesh.axis_names=["grid"]', "--set", "mesh.shape=[1]"),
@@ -232,6 +255,37 @@ def test_cli_invert_equals_jax(tmp_path):
     assert (tmp_path / "port" / "checkpoint.npz").exists()
 
 
+def test_cli_invert_stem4d_equals_jax(tmp_path):
+    """recon.modality = "stem4d": three sgd iterations on the diffraction
+    patterns of a 2x2 scan equal the JAX CLI's; a 4-D cbed.npy export is
+    accepted as the observed data."""
+    cfg = _cfg(tmp_path / "c.toml")
+    scan = ("--set", "sim.ny=64", "--set", "sim.nx=64", "--set", "sim.nslices=4",
+            "--set", "stem.scan_ny=2", "--set", "stem.scan_nx=2", "--set", "stem.probe_chunk=2")
+    # the patterns are normalised to unit total power, so the loss is ~1e-5
+    # and a step that moves V needs a large rate
+    extra = (*scan, "--mode", "invert", "--set", "recon.modality=stem4d", "--set",
+             "recon.optimizer=sgd", "--set", "recon.lr=1e7", "--set", "recon.iterations=3")
+    _run_jax_cli(cfg, str(tmp_path / "jax"), *extra)
+    _run_port_cli(cfg, str(tmp_path / "port"), *extra)
+    got = np.load(tmp_path / "port" / "reconstructed.npy")
+    want = np.load(tmp_path / "jax" / "reconstructed.npy")
+    assert got.shape == want.shape == (4, 64, 64)
+    assert np.abs(want).max() > 1e-3  # V moved
+    assert _rel(got, want) <= 1e-4  # float32 gradients of a ~1e-5 loss, times 1e7
+
+    def losses(side):
+        with open(tmp_path / side / "metrics.jsonl") as fh:
+            return [json.loads(line)["loss"] for line in fh]
+
+    np.testing.assert_allclose(losses("port"), losses("jax"), rtol=GATE)
+    _run_port_cli(cfg, str(tmp_path / "cbed"), *scan, "--mode", "stem4d")
+    assert np.load(tmp_path / "cbed" / "cbed.npy").shape == (2, 2, 64, 64)
+    _run_port_cli(cfg, str(tmp_path / "obs"), *extra, "--set",
+                  f"observed_path={tmp_path}/cbed/cbed.npy")
+    np.testing.assert_allclose(losses("obs"), losses("port"), rtol=1e-6)
+
+
 def test_cli_invert_resume_continues(tmp_path, capsys):
     """--resume continues from checkpoint.npz: 2 iterations, then resume to
     3, equals 3 in one run; at the target it has nothing left to do."""
@@ -249,6 +303,27 @@ def test_cli_invert_resume_continues(tmp_path, capsys):
     _run_port_cli(cfg, str(tmp_path / "part"), *INVERT, "--set", "recon.iterations=3",
                   "--resume")
     assert "nothing to do" in capsys.readouterr().out
+
+
+@pytest.mark.parametrize(
+    "extra,message",
+    [
+        (("--mode", "stem", "--set", "stem.method=bloch"), "unknown stem.method"),
+        (("--mode", "tomo"), "no such mode"),
+        (("--mode", "stem", "--set", "sim.engine=fscan"), None),  # 64^2 would do too:
+    ],
+)
+def test_cli_stem_refusals(tmp_path, capsys, extra, message):
+    """An unknown STEM method or mode exits 2; the whole-loop engine on a grid
+    it does not take raises the engine's own error."""
+    cfg = _cfg(tmp_path / "c.toml")
+    args = [cfg, "--device", "cpu", "--set", f"output_dir={tmp_path}/o", *extra]
+    if message is None:
+        with pytest.raises(ValueError, match="supports axis sizes"):
+            tcli.main([*args, "--set", "sim.ny=64", "--set", "sim.nx=64"])
+        return
+    assert tcli.main(args) == 2
+    assert message in capsys.readouterr().err
 
 
 def test_setup_rejects_unported_settings(tmp_path):

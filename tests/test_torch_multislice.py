@@ -185,10 +185,15 @@ def test_make_slice_step_kinds():
     from fdes_tpu_torch.kernels.slice_step import pallas_slice_step
 
     assert tprop.make_slice_step("xla") is None
-    for kind in ("pallas", "auto", "auto_fast"):
-        assert tprop.make_slice_step(kind) is pallas_slice_step
-    for kind in ("mxu", "mxu_fast", "radix", "fused", "fscan", "fscan_fast", "panel"):
+    assert tprop.make_slice_step("pallas") is pallas_slice_step
+    for kind in ("auto", "auto_fast"):  # a grid the fused kernels do not take
+        assert tprop.make_slice_step(kind, shape=(96, 96)) is pallas_slice_step
+    for kind in ("mxu", "mxu_fast", "mxu4", "radix", "radix_fast", "panel", "panel_fast"):
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             tprop.make_slice_step(kind)
+    for kind in ("fused", "fused_fast"):
+        assert callable(tprop.make_slice_step(kind, shape=(128, 128)))
+    for kind in ("fscan", "fscan_fast", "fscan_draft"):
+        assert hasattr(tprop.make_slice_step(kind, shape=(128, 128), grad=False), "whole_scan")
     with pytest.raises(ValueError):
         tprop.make_slice_step("nope")
