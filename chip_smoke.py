@@ -21,8 +21,13 @@ Phases, each printing one JSON line:
              the STEM raster's own shape (16 probes, 128 slices, 512^2), there
              also against a complex128 rollout and beside the same rollout as
              128 calls of the fused step; the kernels one call of each wrapper
-             launches are counted with torch.profiler.  ``--only kernels_fused``
-             (or ``kernels_slice``) runs one of the two groups alone.
+             launches are counted with torch.profiler.  The whole-loop
+             adjoint's four kernels (store pair and segment pair) at 128^2 and
+             1024^2 (2 waves, 4 slices), at 512^2 (1 and 8 waves, 8 slices),
+             each with a shared and a per-wave propagator, and at config 3's
+             own shape (1 wave, 64 slices, 512^2), dV bitwise equal over two
+             runs.  ``--only kernels_slice`` (or ``kernels_fused``,
+             ``kernels_adjoint``) runs one of the three groups alone.
 3. golden  — the port's multislice (engine "pallas", complex64) against the
              frozen f64 golden pack (golden/si110_golden_pack.npz): exit wave
              and three HRTEM images at relative error <= 1e-5; and the
@@ -46,12 +51,20 @@ Phases, each printing one JSON line:
              engines "pallas" and "fused" against "xla", remat_chunk 8 against
              none, and the absorptive potential (the absorptive adjoint
              kernel), each at <= 1e-5, with the launches of one gradient
-             evaluation asserted and its wall and device time measured.
+             evaluation asserted and its wall and device time measured; and
+             engine "fscan", the whole-loop adjoint: one store-forward and one
+             backward launch per evaluation (asserted, with and without
+             remat_chunk), and past its store budget the checkpointed segment
+             pair, one launch each.
 7. invert  — the inverse at full width: ``fdes_tpu_torch.cli.main --mode
              invert`` on examples/si110_hrtem.toml (config 3), 20 iterations on
-             engines "pallas", "xla" and "fused": launches asserted, first
-             losses equal at <= 1e-5, every loss finite, the last below the
-             first, and reconstructed.npy (64, 512, 512) and finite.
+             engines "pallas", "xla", "fused" and "fscan" (one whole-loop
+             launch for the self-test series, then 20 x (1 + 1)): launches
+             asserted, first losses equal at <= 1e-5, every loss finite, the
+             last below the first, and reconstructed.npy (64, 512, 512) and
+             finite; then three iterations each of a two-tilt inverse and of a
+             4x4 stem4d inverse (config 4's potential, two chunks of 8 probes)
+             on "fscan" against "xla".
 8. stem    — the STEM raster at full width: ``fdes_tpu_torch.cli.main`` on
              examples/si110_stem.toml (config 4: 512^2, 128 slices, 32x32 =
              1,024 probes, BF + ADF) on engine "fscan" at probe chunk 16 (one
@@ -67,7 +80,10 @@ Phases, each printing one JSON line:
              in mode stem with stem.compute_com=true (stem_com.npy).
 10. engines — wall time of a 32-slice rollout and of one gradient evaluation
              per engine at 128^2 to 1024^2, one wave and 16: the rows that
-             ``make_slice_step("auto")`` picks its engine from.
+             ``make_slice_step("auto")`` picks its engine from; and the two
+             whole-loop adjoints (stored s_j against checkpointed segments)
+             at 512^2 over 64-512 slices and 1-64 waves, wall and peak memory:
+             the rows the store budget is set from.
 
 Then it prints the kernel table as one JSON line, the card's name and power
 limit (nvidia-smi), and as the last line
@@ -155,11 +171,12 @@ def all_finite(got) -> bool:
 
 def wrappers() -> tuple:
     """Every kernel wrapper of the port, in the kernel table's order."""
+    from fdes_tpu_torch.kernels import adjoint_scan as adj
     from fdes_tpu_torch.kernels import fused_scan as fsc
     from fdes_tpu_torch.kernels import fused_step as fs
     from fdes_tpu_torch.kernels import slice_step as ks
 
-    return (*ks.WRAPPERS, *fs.WRAPPERS, fsc.fused_scan)
+    return (*ks.WRAPPERS, *fs.WRAPPERS, fsc.fused_scan, *adj.WRAPPERS)
 
 
 def launch_counts() -> dict:
@@ -317,31 +334,64 @@ def phase_kernels(sigma: float) -> tuple[dict, dict]:
     return {"phase": "kernels", "checks": checks}, rows
 
 
-def device_kernels(fn) -> dict[str, int]:
-    """The CUDA kernels that one call of fn launched, by name with their
-    counts, from torch.profiler."""
+def profiled_kernels(fn, attempts: int = 3) -> list[tuple[str, float]]:
+    """(name, microseconds) of every CUDA kernel of one call of fn, from
+    torch.profiler.  The profiler now and then loses events of a cycle (seen
+    on the H100: none at all once, 35 of 40 once) and never invents one, so
+    fn is profiled ``attempts`` times and the profile with the most events
+    counts."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof, torch.no_grad():
-        fn()
+    best: list[tuple[str, float]] = []
+    for _ in range(attempts):
         torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        kernels = [(e.name, e.time_range.elapsed_us()) for e in prof.events()
+                   if e.device_type == DeviceType.CUDA]
+        if len(kernels) > len(best):
+            best = kernels
+    return best
+
+
+def device_kernels(fn) -> dict[str, int]:
+    """The CUDA kernels that one call of fn (under no_grad) launched, by name
+    with their counts."""
+    def run():
+        with torch.no_grad():
+            fn()
+
     names: dict[str, int] = {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            names[e.name] = names.get(e.name, 0) + 1
+    for name, _ in profiled_kernels(run):
+        names[name] = names.get(name, 0) + 1
     return names
 
 
+OWN_KERNELS = ("row_pass_kernel", "col_pass_kernel", "bwd_tail_kernel", "scan_kernel",
+               "scan_store_kernel", "scan_bwd_store_kernel", "scan_ck_kernel",
+               "scan_bwd_ck_kernel")
+
+
 def own_kernels(fn) -> dict[str, int]:
-    """The kernels of csrc/fused_step.cu among those one call of fn launched."""
+    """The kernels of csrc/fused_step.cu and csrc/adjoint_scan.cu among those
+    one call of fn launched."""
     out: dict[str, int] = {}
     for full, count in device_kernels(fn).items():
-        for own in ("row_pass_kernel", "col_pass_kernel", "bwd_tail_kernel", "scan_kernel"):
-            if own in full:
+        for own in OWN_KERNELS:
+            if f"::{own}<" in full:
                 out[own] = out.get(own, 0) + count
     return out
+
+
+def expect_own_kernels(name: str, fn, want: dict[str, int]) -> dict[str, int]:
+    """own_kernels(fn), held to ``want``; the failure names every kernel seen."""
+    got = own_kernels(fn)
+    if got != want:
+        raise AssertionError(f"{name}: one call launched {got}, expected {want}; all kernels: "
+                             f"{device_kernels(fn)}")
+    return got
 
 
 def fft2_ops(n: int) -> float:
@@ -422,10 +472,11 @@ def phase_kernels_fused() -> tuple[dict, dict]:
                 "bound_by": "bytes" if t_bytes >= t_ops else "operations",
                 "library_ms": None, "shape": list(shape), "dtype": "complex64",
                 "bytes": nbytes, "operations": ops,
-                "kernels_per_call": own_kernels(kern),
+                "kernels_per_call": expect_own_kernels(
+                    name, kern,
+                    {"row_pass_kernel": 2, "col_pass_kernel": 1} if name == "fused_step" else
+                    {"row_pass_kernel": 1, "col_pass_kernel": 1, "bwd_tail_kernel": 1}),
             }
-            if sum(rows[name]["kernels_per_call"].values()) != 3:
-                raise AssertionError(f"{name}: one call launched {rows[name]['kernels_per_call']}")
 
     # ---- the scan: small cases at every size, shared and per-wave V and P
     for m, b, ns in ((128, 2, 3), (1024, 2, 3), (256, 2, 3), (n, 16, 8)):
@@ -484,7 +535,8 @@ def phase_kernels_fused() -> tuple[dict, dict]:
         "bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations",
         "library_ms": None, "shape": [16, s, n, n], "dtype": "complex64",
         "bytes": nbytes, "operations": ops, "rel_norm_vs_complex128": f64_err,
-        "kernel": fsc.scan_kernel_info(n), "kernels_per_call": own_kernels(scan(psi0)),
+        "kernel": fsc.scan_kernel_info(n),
+        "kernels_per_call": expect_own_kernels("fused_scan", scan(psi0), {"scan_kernel": 1}),
         # the same rollout as S calls of fused_step (3 S launches, one rollout
         # per sleep: the launch queue holds about a thousand), and other batches
         "ms_as_fused_step_loop": statistics.median(
@@ -492,9 +544,148 @@ def phase_kernels_fused() -> tuple[dict, dict]:
         "ms_64_waves": time_launches(scan(probes), n=5, warmup=1),
         "ms_1_wave_64_slices": time_launches(scan(psi0[:1], v_stack[:64]), n=10, warmup=2),
     }
-    if rows["fused_scan"]["kernels_per_call"] != {"scan_kernel": 1}:
-        raise AssertionError(f"fused_scan: one call launched {rows['fused_scan']['kernels_per_call']}")
     return {"phase": "kernels_fused", "checks": checks, "fused_scan_vs_complex128": f64_err}, rows
+
+
+def phase_kernels_adjoint() -> tuple[dict, dict]:
+    """The whole-loop adjoint's four kernels against their plain versions;
+    returns (phase line, table rows).  The rows' shape is config 3's own: one
+    512^2 wave through 64 slices."""
+    from fdes_tpu_torch.config import load_config
+    from fdes_tpu_torch.kernels import adjoint_scan as adj
+    from fdes_tpu_torch.pipeline import setup
+
+    rng = np.random.default_rng(4)
+    f32 = torch.float32
+    checks, rows = [], {}
+
+    def cplx(*shape):
+        z = rng.standard_normal(shape) + 1j * rng.standard_normal(shape)
+        return torch.as_tensor(z.astype(np.complex64), device="cuda")
+
+    def pair(seg):
+        """(forward, backward, their plain versions) for the store pair
+        (seg 0) or the segment pair."""
+        if seg == 0:
+            return (adj.fused_scan_store, adj.fused_scan_bwd_store, adj.fused_scan_store_ref,
+                    adj.fused_scan_bwd_store_ref, ())
+        return (adj.fused_scan_ck, adj.fused_scan_bwd_ck, adj.fused_scan_ck_ref,
+                adj.fused_scan_bwd_ck_ref, (seg,))
+
+    def check_case(psi0, vs, pr, g, sigma, seg, **more):
+        """Both kernels of a pair at one shape: exit waves, kept waves, dV and
+        dpsi0 against the plain versions, dV bitwise equal over two runs."""
+        fwd, bwd, fwd_ref, bwd_ref, extra = pair(seg)
+        b, ns, m = psi0.shape[0], vs.shape[0], psi0.shape[-1]
+        tol = scan_tol(ns)
+        got, want = fwd(psi0, vs, pr, sigma, *extra), fwd_ref(psi0, vs, pr, sigma, *extra)
+        # the backward kernel and its plain version on the same kept waves
+        # (the plain forward's): its own round-off alone
+        back = bwd(want[1], vs, pr, g, sigma, *extra)
+        again = bwd(want[1], vs, pr, g, sigma, *extra)
+        back_want = bwd_ref(want[1], vs, pr, g, sigma, *extra)
+        torch.cuda.synchronize()
+        errs = {}
+        for name, a, w in ((fwd.__name__, got, want), (bwd.__name__, back, back_want)):
+            errs[name] = max_errors(a, w)
+            ok = errs[name][1] <= tol and all_finite(a)
+            checks.append({"kernel": name, "dtype": "complex64", "shape": [b, ns, m, m],
+                           "seg": seg, "max_abs_err": errs[name][0],
+                           "max_rel_err": errs[name][1], "tol": tol, "ok": ok, **more})
+            if not ok:
+                raise AssertionError(f"kernel {name} {(b, ns, m, m)} seg {seg} {more}: rel err "
+                                     f"{errs[name][1]:.3e} > {tol:.1e}")
+        if not torch.equal(back[0], again[0]):
+            raise AssertionError(f"{bwd.__name__} {(b, ns, m, m)} seg {seg}: dV differs between "
+                                 "two runs on the same inputs")
+        checks[-1]["dv_bitwise_equal_over_two_runs"] = True
+        return errs
+
+    def random_case(m, b, ns, per_wave_p):
+        lead = (b,) if per_wave_p else ()
+        vs = torch.as_tensor(rng.uniform(0, 2000, (ns, m, m)), device="cuda", dtype=f32)
+        pr = torch.polar(torch.ones((*lead, m, m), device="cuda"),
+                         torch.as_tensor(rng.uniform(0, 6.28, (*lead, m, m)), device="cuda",
+                                         dtype=f32))
+        return cplx(b, m, m), vs, pr, cplx(b, m, m)
+
+    sim = setup(load_config(CONFIG), device="cuda")  # config 3's potential and propagator
+    sigma = sim.sigma
+    for m, b, ns, segs in ((128, 2, 4, (0, 2)), (1024, 2, 4, (0, 2)), (512, 1, 8, (0, 4)),
+                           (512, 8, 8, (0, 4))):
+        for per_wave_p in (False, True):
+            case = random_case(m, b, ns, per_wave_p)
+            for seg in segs:
+                check_case(*case, sigma, seg, per_wave_p=per_wave_p)
+
+    # ---- config 3's own shape: one wave, 64 slices, 512^2
+    v_stack, prop = sim.v_stack, sim.propagator
+    n, s = v_stack.shape[-1], v_stack.shape[0]
+    psi0, g = sim.psi0.reshape(1, n, n).contiguous(), cplx(1, n, n)
+    seg = adj.pick_seg(s, n)
+    errs = {**check_case(psi0, v_stack, prop, g, sigma, 0),
+            **check_case(psi0, v_stack, prop, g, sigma, seg)}
+    plane = n * n
+    _, kept_s = adj.fused_scan_store(psi0, v_stack, prop, sigma)
+    _, kept_ck = adj.fused_scan_ck(psi0, v_stack, prop, sigma, seg)
+    fwd_ops = s * (2 * fft2_ops(n) + (9 + 6) * plane)
+    bwd_ops = s * (2 * fft2_ops(n) + (6 + 20) * plane)
+    io_fwd = plane * 8 * 2 + s * plane * 4 + plane * 8          # psi0, exit wave, V, P
+    io_bwd = plane * 8 * 2 + 2 * s * plane * 4 + plane * 8      # g, dpsi0, V, dV, P
+    cases = {  # name: (kernel, plain, bytes, operations, kernel's name, TPU kernel)
+        "fused_scan_store": (
+            lambda: adj.fused_scan_store(psi0, v_stack, prop, sigma),
+            lambda: adj.fused_scan_store_ref(psi0, v_stack, prop, sigma),
+            io_fwd + s * plane * 8, fwd_ops, "scan_store_kernel",
+            "fdes_tpu/pallas/adjoint_scan.py:230"),
+        "fused_scan_bwd_store": (
+            lambda: adj.fused_scan_bwd_store(kept_s, v_stack, prop, g, sigma),
+            lambda: adj.fused_scan_bwd_store_ref(kept_s, v_stack, prop, g, sigma),
+            io_bwd + s * plane * 8, bwd_ops, "scan_bwd_store_kernel",
+            "fdes_tpu/pallas/adjoint_scan.py:262"),
+        "fused_scan_ck": (
+            lambda: adj.fused_scan_ck(psi0, v_stack, prop, sigma, seg),
+            lambda: adj.fused_scan_ck_ref(psi0, v_stack, prop, sigma, seg),
+            io_fwd + (s // seg) * plane * 8, fwd_ops, "scan_ck_kernel",
+            "fdes_tpu/pallas/adjoint_scan.py:105"),
+        "fused_scan_bwd_ck": (
+            lambda: adj.fused_scan_bwd_ck(kept_ck, v_stack, prop, g, sigma, seg),
+            lambda: adj.fused_scan_bwd_ck_ref(kept_ck, v_stack, prop, g, sigma, seg),
+            io_bwd + (s // seg) * plane * 8, fwd_ops + bwd_ops, "scan_bwd_ck_kernel",
+            "fdes_tpu/pallas/adjoint_scan.py:136"),
+    }
+    for name, (kern, ref, nbytes, ops, kernel, replaces) in cases.items():
+        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / PEAK_OPS_PER_S[f32] * 1e3
+        rows[name] = {
+            "name": name, "route": "cuda", "source": "fdes_tpu_torch/csrc/adjoint_scan.cu",
+            "replaces": replaces, "launches": None,
+            "max_abs_err": errs[name][0], "max_rel_err": errs[name][1],
+            "ms": time_launches(kern, n=10, warmup=2),
+            "plain_ms": time_launches(ref, n=5, warmup=1),
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms": None, "shape": [1, s, n, n], "dtype": "complex64",
+            "seg": seg if "ck" in name else 0, "bytes": nbytes, "operations": ops,
+            "kernel": adj.adjoint_kernel_info(n, kernel),
+            "kernels_per_call": expect_own_kernels(name, kern, {kernel: 1}),
+        }
+
+    # ---- eight waves through the same stack: the dV sum in one group of waves
+    # per row tile against partial sums over wave groups
+    psi8, g8 = cplx(8, n, n), cplx(8, n, n)
+    _, kept8 = adj.fused_scan_store(psi8, v_stack, prop, sigma)
+    auto = adj.wave_groups(8, n, "scan_bwd_store_kernel", psi8.device)
+    groups = [
+        {"groups": k, "ms": time_launches(
+            lambda k=k: adj.fused_scan_bwd_store(kept8, v_stack, prop, g8, sigma, groups=k),
+            n=5, warmup=1)}
+        for k in (1, auto, auto, 1)
+    ]
+    rows["fused_scan_store"]["ms_8_waves"] = time_launches(
+        lambda: adj.fused_scan_store(psi8, v_stack, prop, sigma), n=5, warmup=1)
+    rows["fused_scan_bwd_store"]["ms_8_waves_by_wave_groups"] = groups
+    rows["fused_scan_bwd_store"]["wave_groups_8_waves"] = auto
+    return {"phase": "kernels_adjoint", "checks": checks}, rows
 
 
 def phase_golden() -> dict:
@@ -733,17 +924,10 @@ def phase_absorptive(tmp: str, gpu: str) -> tuple[dict, dict]:
 
 
 def device_busy_ms(fn) -> tuple[float, int]:
-    """(summed duration in ms, count) of the CUDA kernels of one call of fn,
-    from torch.profiler: the device's busy time, free of host gaps."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    return sum(e.time_range.elapsed_us() for e in kernels) / 1e3, len(kernels)
+    """(summed duration in ms, count) of the CUDA kernels of one call of fn:
+    the device's busy time, free of host gaps."""
+    kernels = profiled_kernels(fn)
+    return sum(us for _, us in kernels) / 1e3, len(kernels)
 
 
 def grad_times(fn, engine: str, reps: int = 3) -> dict:
@@ -767,6 +951,7 @@ def phase_grad(gpu: str) -> tuple[dict, dict]:
     without remat, real and absorptive V; returns (line, launches by case)."""
     from fdes_tpu_torch.config import load_config
     from fdes_tpu_torch.forward import hrtem_defocus_series
+    from fdes_tpu_torch.kernels import adjoint_scan as adj
     from fdes_tpu_torch.loss import make_loss
     from fdes_tpu_torch.pipeline import setup
     from fdes_tpu_torch.propagate import make_slice_step, pick_remat_chunk
@@ -774,6 +959,7 @@ def phase_grad(gpu: str) -> tuple[dict, dict]:
     sim = setup(load_config(CONFIG), device="cuda")
     s = sim.v_stack.shape[0]
     chunk = pick_remat_chunk(s)
+    store_cap = adj.STORE_CAP_BYTES
 
     def fwd_for(engine, remat):
         step = make_slice_step(engine, shape=sim.grid.shape, dtype=sim.cdtype, grad=True)
@@ -788,12 +974,19 @@ def phase_grad(gpu: str) -> tuple[dict, dict]:
     v_abs = torch.complex(v_real, 0.1 * v_real.abs())
 
     def grad_fn(engine, remat, v):
-        loss_fn = make_loss(fwd_for(engine, remat), i_obs)
+        # "fscan_seg": the whole-loop engine past its store budget, which sends
+        # it through the checkpointed segment kernels
+        segments = engine == "fscan_seg"
+        loss_fn = make_loss(fwd_for("fscan" if segments else engine, remat), i_obs)
 
         def run():
-            vv = v.detach().clone().requires_grad_(True)
-            loss = loss_fn(vv)
-            loss.backward()
+            adj.STORE_CAP_BYTES = 0 if segments else store_cap
+            try:
+                vv = v.detach().clone().requires_grad_(True)
+                loss = loss_fn(vv)
+                loss.backward()
+            finally:
+                adj.STORE_CAP_BYTES = store_cap
             return loss.detach(), vv.grad
 
         return run
@@ -812,6 +1005,14 @@ def phase_grad(gpu: str) -> tuple[dict, dict]:
                              {**zero, "transmit_abs": 2 * s, "cmul": 3 * s,
                               "transmit_abs_bwd": s}),
         "abs_xla_remat": ("xla", chunk, v_abs, zero),
+        # the whole-loop adjoint: one store-forward and one backward launch,
+        # with remat_chunk given (and ignored) or not
+        "fscan": ("fscan", None, v_real,
+                  {**zero, "fused_scan_store": 1, "fused_scan_bwd_store": 1}),
+        "fscan_remat": ("fscan", chunk, v_real,
+                        {**zero, "fused_scan_store": 1, "fused_scan_bwd_store": 1}),
+        "fscan_seg": ("fscan_seg", None, v_real,
+                      {**zero, "fused_scan_ck": 1, "fused_scan_bwd_ck": 1}),
     }
     out, launches = {}, {}
     for label, (engine, remat, v, expect) in cases.items():
@@ -831,6 +1032,11 @@ def phase_grad(gpu: str) -> tuple[dict, dict]:
         "loss_fused_vs_xla": rel_norm(out["fused_remat"][0], out["xla_remat"][0]),
         "abs_pallas_vs_xla": rel_norm(out["abs_pallas_remat"][1], out["abs_xla_remat"][1]),
         "loss_pallas_vs_xla": rel_norm(out["pallas_remat"][0], out["xla_remat"][0]),
+        "fscan_vs_xla": rel_norm(out["fscan"][1], out["xla_remat"][1]),
+        "loss_fscan_vs_xla": rel_norm(out["fscan"][0], out["xla_remat"][0]),
+        "fscan_remat_vs_fscan": rel_norm(out["fscan_remat"][1], out["fscan"][1]),
+        "fscan_seg_vs_xla": rel_norm(out["fscan_seg"][1], out["xla_remat"][1]),
+        "loss_fscan_seg_vs_xla": rel_norm(out["fscan_seg"][0], out["xla_remat"][0]),
     }
     line = {
         "phase": "grad", "config": "examples/si110_hrtem.toml", "v": "0.5 * V_true",
@@ -840,9 +1046,11 @@ def phase_grad(gpu: str) -> tuple[dict, dict]:
     bad = {k: e for k, e in errs.items() if not e <= GATE}
     if bad:
         raise AssertionError(f"grad gates failed: {bad}")
+    line["segment_length"] = adj.pick_seg(s, sim.grid.shape[0])
     line["times"] = [
         grad_times(grad_fn(e, chunk, v_real), e)
-        for e in ("pallas", "xla", "fused", "fused", "xla", "pallas")
+        for e in ("pallas", "xla", "fused", "fscan", "fscan_seg", "fscan_seg", "fscan", "fused",
+                  "xla", "pallas")
     ]
     return line, launches
 
@@ -856,63 +1064,120 @@ def read_losses(out: str) -> list[float]:
 
 
 def phase_invert(tmp: str, gpu: str, grad_busy_ms: dict) -> tuple[dict, dict]:
+    """Config 3 through cli.main --mode invert on the four engines that
+    differentiate; returns (line, launches by engine)."""
     from fdes_tpu_torch.config import load_config
     from fdes_tpu_torch.propagate import pick_remat_chunk
 
     cfg = load_config(CONFIG)
-    args = ("--mode", "invert", "--set", f"recon.iterations={INVERT_ITERS}",
-            "--set", "sim.engine=pallas")
-    reset_launches()
-    out, timing = run_cli(tmp, "inv_pallas", *args)
-    launches = launch_counts()
-    out_x, timing_x = run_cli(tmp, "inv_xla", *args[:-2], "--set", "sim.engine=xla")
-    reset_launches()
-    out_f, timing_f = run_cli(tmp, "inv_fused", *args[:-2], "--set", "sim.engine=fused")
-    launches_f = launch_counts()
-    losses, losses_x, losses_f = read_losses(out), read_losses(out_x), read_losses(out_f)
-    v_rec = np.load(os.path.join(out, "reconstructed.npy"))
-    v_rec_x = np.load(os.path.join(out_x, "reconstructed.npy"))
-    s, n = v_rec.shape[0], INVERT_ITERS
+    args = ("--mode", "invert", "--set", f"recon.iterations={INVERT_ITERS}")
+    engines = ("pallas", "xla", "fused", "fscan")
+    outs, timings, launches, losses, v_rec = {}, {}, {}, {}, {}
+    for e in engines:
+        reset_launches()
+        outs[e], timings[e] = run_cli(tmp, f"inv_{e}", *args, "--set", f"sim.engine={e}")
+        launches[e] = launch_counts()
+        losses[e] = read_losses(outs[e])
+        v_rec[e] = np.load(os.path.join(outs[e], "reconstructed.npy"))
+    s, n = v_rec["pallas"].shape[0], INVERT_ITERS
     chunk = pick_remat_chunk(s)
-    # the self-test series (one forward), then per iteration a forward, the
-    # recompute of every remat chunk, and the backward
-    expect = {**dict.fromkeys(launch_counts(), 0), "transmit": s + n * 2 * s,
-              "cmul": s + n * 3 * s, "transmit_bwd": n * s}
-    expect_f = {**dict.fromkeys(launch_counts(), 0), "fused_step": s + n * 2 * s,
-                "fused_step_bwd": n * s}
-    first_err = abs(losses[0] - losses_x[0]) / abs(losses_x[0])
-    first_err_f = abs(losses_f[0] - losses_x[0]) / abs(losses_x[0])
+    zero = dict.fromkeys(launch_counts(), 0)
+    expect = {
+        # the self-test series (one forward), then per iteration a forward, the
+        # recompute of every remat chunk, and the backward
+        "pallas": {**zero, "transmit": s + n * 2 * s, "cmul": s + n * 3 * s,
+                   "transmit_bwd": n * s},
+        "xla": zero,
+        "fused": {**zero, "fused_step": s + n * 2 * s, "fused_step_bwd": n * s},
+        # the self-test series in one launch (nothing asks for a gradient),
+        # then per iteration one store-forward and one backward launch
+        "fscan": {**zero, "fused_scan": 1, "fused_scan_store": n, "fused_scan_bwd_store": n},
+    }
+    first_err = {e: abs(losses[e][0] - losses["xla"][0]) / abs(losses["xla"][0])
+                 for e in engines}
     line = {
         "phase": "invert", "config": "examples/si110_hrtem.toml", "iterations": n,
-        "remat_chunk": chunk, "launches": launches, "launches_fused": launches_f,
-        "losses": {"pallas": losses, "xla": losses_x, "fused": losses_f},
-        "first_loss_rel_err": first_err, "first_loss_rel_err_fused": first_err_f, "gate": GATE,
-        "reconstruction_rel_diff_pallas_vs_xla": float(
-            np.linalg.norm(v_rec - v_rec_x) / np.linalg.norm(v_rec_x)),
-        "pallas": timing, "xla": timing_x, "fused": timing_f,
+        "remat_chunk": chunk, "launches": launches, "losses": losses,
+        "first_loss_rel_err_vs_xla": first_err, "gate": GATE,
+        "reconstruction_rel_diff_vs_xla": {
+            e: float(np.linalg.norm(v_rec[e] - v_rec["xla"]) / np.linalg.norm(v_rec["xla"]))
+            for e in engines},
+        "timing": timings,
         # the busy time of one gradient evaluation (phase grad) against the
         # steady-state wall of one iteration
         "device_idle_share": {
-            e: max(0.0, 1.0 - grad_busy_ms[e] / (t["median_step_s"] * 1e3))
-            for e, t in (("pallas", timing), ("xla", timing_x), ("fused", timing_f))
-            if e in grad_busy_ms
+            e: max(0.0, 1.0 - grad_busy_ms[e] / (timings[e]["median_step_s"] * 1e3))
+            for e in engines if e in grad_busy_ms
         },
         "gpu": gpu,
     }
-    if launches != expect or launches_f != expect_f:
-        raise AssertionError(f"invert launches {launches} and {launches_f}, expected {expect} "
-                             f"and {expect_f}")
-    if first_err > GATE or first_err_f > GATE:
-        raise AssertionError(f"invert first loss vs xla: pallas {first_err:.3e}, fused "
-                             f"{first_err_f:.3e}")
-    v_rec_f = np.load(os.path.join(out_f, "reconstructed.npy"))
-    for name, ls, v in (("pallas", losses, v_rec), ("xla", losses_x, v_rec_x),
-                        ("fused", losses_f, v_rec_f)):
+    if launches != expect:
+        raise AssertionError(f"invert launches {launches}, expected {expect}")
+    if timings["fscan"]["engine_kind"] != "fscan":
+        raise AssertionError(f"invert on fscan: timing.json names {timings['fscan']}")
+    if not all(err <= GATE for err in first_err.values()):
+        raise AssertionError(f"invert first loss vs xla: {first_err}")
+    for e in engines:
+        ls, v = losses[e], v_rec[e]
         if not (np.isfinite(ls).all() and ls[-1] < ls[0]):
-            raise AssertionError(f"invert {name}: losses not finite and falling: {ls}")
+            raise AssertionError(f"invert {e}: losses not finite and falling: {ls}")
         if v.shape != (cfg.sim.nslices, cfg.sim.ny, cfg.sim.nx) or not np.isfinite(v).all():
-            raise AssertionError(f"invert {name}: reconstructed.npy {v.shape} not finite")
+            raise AssertionError(f"invert {e}: reconstructed.npy {v.shape} not finite")
+    line["other_modalities"] = invert_other_modalities(tmp)
     return line, launches
+
+
+def invert_other_modalities(tmp: str) -> dict:
+    """The whole-loop adjoint under the inverse's other two shapes, three
+    iterations each, fscan against xla: a two-tilt series (one propagator per
+    wave) and a 4x4 4D-STEM scan in two chunks of 8 probes (config 4's
+    potential, 128 slices)."""
+    iters = 3
+    cases = {
+        "tilt": ((CONFIG, "--set", "sim.tilt_series_rad=[[0.0,0.0],[0.002,-0.001]]"),
+                 # one batched rollout of both tilts per evaluation
+                 {"fused_scan": 1, "fused_scan_store": iters, "fused_scan_bwd_store": iters},
+                 GATE),
+        "stem4d": ((CONFIG_STEM, "--set", "recon.modality=stem4d", "--set", "stem.scan_ny=4",
+                    "--set", "stem.scan_nx=4", "--set", "stem.probe_chunk=8"),
+                   # two chunks of probes per evaluation
+                   {"fused_scan": 2, "fused_scan_store": 2 * iters,
+                    "fused_scan_bwd_store": 2 * iters},
+                   # sums of squared differences of intensities after 128 slices
+                   2 * LONG_ROLLOUT_TOL),
+    }
+    res = {}
+    for name, ((config, *extra), expect, tol) in cases.items():
+        args = ("--mode", "invert", "--set", f"recon.iterations={iters}", *extra)
+        reset_launches()
+        out, timing = run_cli(tmp, f"inv_{name}_fscan", *args, "--set", "sim.engine=fscan",
+                              config=config)
+        launches = launch_counts()
+        out_x, timing_x = run_cli(tmp, f"inv_{name}_xla", *args, "--set", "sim.engine=xla",
+                                  config=config)
+        loss = {}
+        for e, o in (("fscan", out), ("xla", out_x)):
+            with open(os.path.join(o, "metrics.jsonl")) as fh:
+                loss[e] = [json.loads(row)["loss"] for row in fh]
+        v, v_x = (np.load(os.path.join(o, "reconstructed.npy")) for o in (out, out_x))
+        res[name] = {
+            "iterations": iters, "launches": {k: c for k, c in launches.items() if c},
+            "losses": loss, "tol": tol,
+            "loss_rel_err_vs_xla": [abs(a - b) / abs(b) for a, b in zip(loss["fscan"],
+                                                                        loss["xla"])],
+            "reconstruction_rel_diff_vs_xla": float(np.linalg.norm(v - v_x)
+                                                    / np.linalg.norm(v_x)),
+            "median_step_s": {"fscan": timing["median_step_s"],
+                              "xla": timing_x["median_step_s"]},
+        }
+        if launches != {**dict.fromkeys(launches, 0), **expect}:
+            raise AssertionError(f"invert {name} on fscan: launches {launches}, expected {expect}")
+        if not (len(loss["fscan"]) == iters and np.isfinite(loss["fscan"]).all()
+                and loss["fscan"][-1] < loss["fscan"][0] and np.isfinite(v).all()):
+            raise AssertionError(f"invert {name} on fscan: {res[name]}")
+        if not res[name]["loss_rel_err_vs_xla"][0] <= tol:
+            raise AssertionError(f"invert {name}: first loss fscan vs xla {res[name]}")
+    return res
 
 
 def stem_chunk_profile(engine: str, chunk: int) -> dict:
@@ -1104,8 +1369,7 @@ def phase_engines(gpu: str) -> dict:
                                                dtype=torch.float32))
             w = torch.linspace(0.5, 1.5, psi0.numel(), device="cuda").reshape(shape)
             for grad in (False, True):
-                engines = ("fused", "pallas", "xla") if grad else ("fscan", "fused", "pallas",
-                                                                  "xla")
+                engines = ("fscan", "fused", "pallas", "xla")
                 times = {e: [] for e in engines}
                 for order in (engines, engines[::-1]):
                     for e in order:
@@ -1131,7 +1395,64 @@ def phase_engines(gpu: str) -> dict:
                         times[e].append(statistics.median(walls))
                 rows.append({"n": n, "batch": batch, "grad": grad, "slices": nslices,
                              "wall_ms": times, "fastest": min(times, key=lambda e: min(times[e]))})
-    return {"phase": "engines", "rows": rows, "gpu": gpu}
+    return {"phase": "engines", "rows": rows, "store_vs_segments": store_vs_segments(),
+            "gpu": gpu}
+
+
+def store_vs_segments() -> list[dict]:
+    """The two whole-loop adjoints side by side at 512^2, over horizons of 64
+    to 512 slices and 1 to 64 waves, up to 32 GiB of stored s_j: wall ms of a
+    synchronised forward + backward (median of 3, each pair measured twice in
+    turns) and peak device memory.  The rows that adjoint_scan.STORE_CAP_BYTES
+    is set from."""
+    from fdes_tpu_torch.constants import interaction_sigma, wavelength_A
+    from fdes_tpu_torch.grids import Grid, fresnel_propagator
+    from fdes_tpu_torch.kernels import adjoint_scan as adj
+
+    rng = np.random.default_rng(5)
+    n, sigma, lam = 512, interaction_sigma(300e3), wavelength_A(300e3)
+    prop = torch.as_tensor(
+        fresnel_propagator(Grid(ny=n, nx=n, py=0.1, px=0.1), lam, 2.0).astype(np.complex64),
+        device="cuda")
+    v_all = torch.as_tensor(rng.uniform(0, 1000, (512, n, n)), device="cuda",
+                            dtype=torch.float32)
+
+    def pair(psi0, g, v, seg):
+        if seg == 0:
+            _, kept = adj.fused_scan_store(psi0, v, prop, sigma)
+            return adj.fused_scan_bwd_store(kept, v, prop, g, sigma)
+        _, kept = adj.fused_scan_ck(psi0, v, prop, sigma, seg)
+        return adj.fused_scan_bwd_ck(kept, v, prop, g, sigma, seg)
+
+    rows = []
+    for nslices, batch in ((64, 1), (64, 16), (64, 64), (128, 1), (128, 16), (128, 64),
+                           (256, 16), (256, 64), (512, 1), (512, 16), (512, 32)):
+        v = v_all[:nslices]
+        phase = torch.as_tensor(rng.uniform(0, 1, (batch, n, n)), device="cuda",
+                                dtype=torch.float32)
+        psi0 = torch.polar(torch.ones_like(phase), phase)
+        g = torch.polar(torch.ones_like(phase), 2 * phase)
+        seg = adj.pick_seg(nslices, n)
+        row = {"n": n, "slices": nslices, "waves": batch, "seg": seg,
+               "stored_bytes": batch * nslices * n * n * 8, "wall_ms": {"store": [], "seg": []},
+               "peak_bytes": {}}
+        for label in ("store", "seg", "seg", "store"):
+            k = 0 if label == "store" else seg
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            pair(psi0, g, v, k)
+            torch.cuda.synchronize()
+            row["peak_bytes"][label] = torch.cuda.max_memory_allocated()
+            walls = []
+            for _ in range(3):
+                t0 = time.perf_counter()
+                pair(psi0, g, v, k)
+                torch.cuda.synchronize()
+                walls.append((time.perf_counter() - t0) * 1e3)
+            row["wall_ms"][label].append(statistics.median(walls))
+        row["faster"] = min(row["wall_ms"], key=lambda k: min(row["wall_ms"][k]))
+        rows.append(row)
+    return rows
 
 
 #: the phases whose main-path run gives each kernel's launches, first found first
@@ -1144,6 +1465,10 @@ ROW_PHASES = {
     "fused_step": ("grad_fused",),
     "fused_step_bwd": ("grad_fused",),
     "fused_scan": ("stem",),
+    "fused_scan_store": ("invert_fscan", "grad_fscan"),
+    "fused_scan_bwd_store": ("invert_fscan", "grad_fscan"),
+    "fused_scan_ck": ("grad_fscan_seg",),
+    "fused_scan_bwd_ck": ("grad_fscan_seg",),
 }
 
 
@@ -1151,7 +1476,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--only", default=",".join(PHASES),
                     help="comma-separated subset of " + ",".join(PHASES)
-                    + " (kernels_slice, kernels_fused: one group of kernel checks)")
+                    + " (kernels_slice, kernels_fused, kernels_adjoint: one group of kernel "
+                    "checks)")
     args = ap.parse_args(argv)
     phases = args.only.split(",")
     if not torch.cuda.is_available():
@@ -1171,11 +1497,13 @@ def main(argv=None) -> int:
         line, rows = phase_kernels(interaction_sigma(300e3))
         line["gpu"] = gpu
         emit(line)
-    if "kernels" in phases or "kernels_fused" in phases:
-        line, fused_rows = phase_kernels_fused()
-        rows.update(fused_rows)
-        line["gpu"] = gpu
-        emit(line)
+    for group, fn in (("kernels_fused", phase_kernels_fused),
+                      ("kernels_adjoint", phase_kernels_adjoint)):
+        if "kernels" in phases or group in phases:
+            line, group_rows = fn()
+            rows.update(group_rows)
+            line["gpu"] = gpu
+            emit(line)
     if "golden" in phases:
         emit(phase_golden())
     path_launches = {}  # phase -> launches of its main-path run
@@ -1190,13 +1518,15 @@ def main(argv=None) -> int:
         if "grad" in phases:
             line, by_case = phase_grad(gpu)
             path_launches.update(grad=by_case["pallas_remat"], grad_fused=by_case["fused_remat"],
-                                 grad_absorptive=by_case["abs_pallas_remat"])
+                                 grad_absorptive=by_case["abs_pallas_remat"],
+                                 grad_fscan=by_case["fscan"], grad_fscan_seg=by_case["fscan_seg"])
             grad_busy_ms = {e: statistics.median(t["device_busy_ms"] for t in line["times"]
                                                  if t["engine"] == e)
-                            for e in ("pallas", "xla", "fused")}
+                            for e in ("pallas", "xla", "fused", "fscan")}
             emit(line)
         if "invert" in phases:
-            line, path_launches["invert"] = phase_invert(tmp, gpu, grad_busy_ms)
+            line, by_engine = phase_invert(tmp, gpu, grad_busy_ms)
+            path_launches.update(invert=by_engine["pallas"], invert_fscan=by_engine["fscan"])
             emit(line)
         if "stem" in phases:
             line, path_launches["stem"] = phase_stem(tmp, gpu)

@@ -2,9 +2,10 @@
 
 Multislice simulation of TEM measurements (exit waves, HRTEM defocus and
 tilt series) and the inverse (the potential recovered from a defocus or
-tilt series by gradient descent: ``loss``, ``reconstruct``) in PyTorch, with
-the slice step's elementwise kernels and their adjoints written in CUDA C++
-for sm_90a (``kernels/``, ``csrc/``).  The JAX package ``fdes_tpu`` is the
+tilt series by gradient descent: ``loss``, ``reconstruct``, ``calibrate``)
+in PyTorch, with the slice step, the whole slice loop and their adjoints
+written in CUDA C++ for sm_90a (``kernels/``, ``csrc/``).  The JAX package
+``fdes_tpu`` is the
 reference; this package imports none of it and no JAX.  ROADMAP.md lists
 what is ported and what is still to come.
 """

@@ -53,248 +53,18 @@
 // panels of 8 columns (64-byte rows) and two round trips through L2 per slice.
 // Tensor-core DFT stages, TMA loads and clusters are later work.
 //
+// The transform, the tiles and the two tile passes live in fused_fft.cuh, which
+// adjoint_scan.cu (the whole-loop adjoint) shares.
+//
 // Layout: PyTorch's interleaved complex64 (float2), C-contiguous, 16-byte
 // aligned; N in {128, 256, 512, 1024}.  Every entry point launches on the
 // caller's stream, allocates nothing, does not synchronise, and returns the
 // first CUDA error (0 if none), so that a refused launch is reported by the
 // Python wrapper.
 
-#include <cooperative_groups.h>
-#include <cuda_runtime.h>
-
-#include <cstdint>
-
-namespace cg = cooperative_groups;
+#include "fused_fft.cuh"
 
 namespace {
-
-constexpr int kThreads = 256;
-constexpr int kTile = 4096;                    // complex elements per tile
-constexpr int kTilePadded = kTile + kTile / 16;
-constexpr int kMaxTwiddles = 512;              // N/2 at N = 1024
-constexpr int kMaxBlocks = 132 * 8;            // ordinary launches: grid-stride over tiles
-
-__device__ __forceinline__ int pad(int i) { return i + (i >> 4); }
-
-__device__ __forceinline__ float2 cadd(float2 a, float2 b) {
-  return make_float2(a.x + b.x, a.y + b.y);
-}
-__device__ __forceinline__ float2 csub(float2 a, float2 b) {
-  return make_float2(a.x - b.x, a.y - b.y);
-}
-// a * b
-__device__ __forceinline__ float2 cmul(float2 a, float2 b) {
-  return make_float2(a.x * b.x - a.y * b.y, a.x * b.y + a.y * b.x);
-}
-// a * conj(b)
-__device__ __forceinline__ float2 cmul_conj(float2 a, float2 b) {
-  return make_float2(a.x * b.x + a.y * b.y, a.y * b.x - a.x * b.y);
-}
-// p * exp(i * phase)
-__device__ __forceinline__ float2 transmit(float2 p, float phase) {
-  float s, c;
-  sincosf(phase, &s, &c);
-  return make_float2(p.x * c - p.y * s, p.x * s + p.y * c);
-}
-
-// tw[k] = exp(-2*pi*i*k/N), k < N/2.
-template <int LOG2N>
-__device__ void init_twiddles(float2* tw) {
-  constexpr int N = 1 << LOG2N;
-  for (int k = threadIdx.x; k < N / 2; k += kThreads) {
-    float s, c;
-    sincospif(-2.0f * static_cast<float>(k) / static_cast<float>(N), &s, &c);
-    tw[k] = make_float2(c, s);
-  }
-}
-
-// K fused radix-2 stages on every transform of the tile.
-//
-// ROWS: element k of transform q lies at tile[pad(q * N + k)] (q < 4096/N);
-// columns: at tile[pad(k * Q + q)], Q = 4096/N transforms side by side.
-// A work item holds the 2^K elements base + j * g, g = 1 << lg the smallest
-// half size of the group.  Forward (decimation in frequency): half sizes
-// g << (K-1), ..., 2g, g, in that order, a' = a + b, b' = (a - b) * w.
-// Inverse (decimation in time): g, 2g, ..., g << (K-1), t = b * conj(w),
-// a' = a + t, b' = a - t.  w = exp(-2*pi*i*jj/(2*hs)) for the pair whose lower
-// element lies at offset jj in its half of size hs.
-template <int LOG2N, int K, bool ROWS, bool INVERSE>
-__device__ __forceinline__ void stage_group(float2* tile, const float2* tw, int lg) {
-  constexpr int N = 1 << LOG2N;
-  constexpr int Q = kTile / N;
-  constexpr int R = 1 << K;
-  constexpr int kItems = kTile >> K;
-  constexpr int kItemsPerTransform = N >> K;
-  const int g = 1 << lg;
-  for (int u = threadIdx.x; u < kItems; u += kThreads) {
-    int q, w;
-    if (ROWS) {
-      q = u / kItemsPerTransform;
-      w = u % kItemsPerTransform;
-    } else {
-      q = u % Q;
-      w = u / Q;
-    }
-    const int r = w & (g - 1);
-    const int base = ((w >> lg) << (lg + K)) + r;
-    float2 x[R];
-    int at[R];
-#pragma unroll
-    for (int j = 0; j < R; ++j) {
-      const int k = base + j * g;
-      at[j] = pad(ROWS ? q * N + k : k * Q + q);
-      x[j] = tile[at[j]];
-    }
-#pragma unroll
-    for (int s = 0; s < K; ++s) {
-      const int ld = INVERSE ? s : K - 1 - s;  // log2 of the pair distance in registers
-      const int d = 1 << ld;
-      const int tshift = LOG2N - 1 - lg - ld;  // twiddle index step N / (2 * hs)
-#pragma unroll
-      for (int j = 0; j < R; ++j) {
-        if (j & d) continue;
-        const int jj = r + (j & (d - 1)) * g;
-        const float2 wv = tw[jj << tshift];
-        const float2 a = x[j];
-        const float2 b = x[j + d];
-        if (INVERSE) {
-          const float2 t = cmul_conj(b, wv);
-          x[j] = cadd(a, t);
-          x[j + d] = csub(a, t);
-        } else {
-          x[j] = cadd(a, b);
-          x[j + d] = cmul(csub(a, b), wv);
-        }
-      }
-    }
-#pragma unroll
-    for (int j = 0; j < R; ++j) tile[at[j]] = x[j];
-  }
-}
-
-// Forward transforms of the tile: natural order in, bit-reversed order out.
-template <int LOG2N, bool ROWS>
-__device__ void fft_forward(float2* tile, const float2* tw) {
-  int lg = LOG2N;
-  while (lg >= 3) {
-    lg -= 3;
-    stage_group<LOG2N, 3, ROWS, false>(tile, tw, lg);
-    __syncthreads();
-  }
-  if (lg == 2) {
-    stage_group<LOG2N, 2, ROWS, false>(tile, tw, 0);
-    __syncthreads();
-  } else if (lg == 1) {
-    stage_group<LOG2N, 1, ROWS, false>(tile, tw, 0);
-    __syncthreads();
-  }
-}
-
-// Unscaled inverse transforms: bit-reversed order in, natural order out; the
-// forward stages undone last to first, so inverse(forward(x)) = N * x.
-template <int LOG2N, bool ROWS>
-__device__ void fft_inverse(float2* tile, const float2* tw) {
-  constexpr int kRem = LOG2N % 3;
-  int lg = 0;
-  if (kRem == 2) {
-    stage_group<LOG2N, 2, ROWS, true>(tile, tw, 0);
-    __syncthreads();
-    lg = 2;
-  } else if (kRem == 1) {
-    stage_group<LOG2N, 1, ROWS, true>(tile, tw, 0);
-    __syncthreads();
-    lg = 1;
-  }
-  while (lg < LOG2N) {
-    stage_group<LOG2N, 3, ROWS, true>(tile, tw, lg);
-    __syncthreads();
-    lg += 3;
-  }
-}
-
-__device__ __forceinline__ void load_pair(const float2* p, float2* a, float2* b) {
-  const float4 z = *reinterpret_cast<const float4*>(p);
-  *a = make_float2(z.x, z.y);
-  *b = make_float2(z.z, z.w);
-}
-__device__ __forceinline__ void store_pair(float2* p, float2 a, float2 b) {
-  *reinterpret_cast<float4*>(p) = make_float4(a.x, a.y, b.x, b.y);
-}
-
-// One row tile: 4096 contiguous elements (4096/N rows) at src, written to dst
-// (dst may be src).  inverse: undo the x transform of the previous step first.
-// v != nullptr: multiply by exp(i*sigma*v) (v points at the tile's 4096
-// potentials).  forward: transform along x.  src may have been written by
-// other blocks before the last barrier, so it is read with plain loads.
-template <int LOG2N>
-__device__ void row_tile(float2* tile, const float2* tw, const float2* src, float2* dst,
-                         const float* __restrict__ v, float sigma, bool inverse, bool forward) {
-  const bool transmit_on_load = v != nullptr && !inverse;
-  for (int i = threadIdx.x; i < kTile / 2; i += kThreads) {
-    float2 a, b;
-    load_pair(src + 2 * i, &a, &b);
-    if (transmit_on_load) {
-      const float2 vv = *reinterpret_cast<const float2*>(v + 2 * i);
-      a = transmit(a, sigma * vv.x);
-      b = transmit(b, sigma * vv.y);
-    }
-    tile[pad(2 * i)] = a;
-    tile[pad(2 * i + 1)] = b;
-  }
-  __syncthreads();
-  if (inverse) {
-    fft_inverse<LOG2N, true>(tile, tw);
-    if (v != nullptr) {
-      for (int i = threadIdx.x; i < kTile / 2; i += kThreads) {
-        const float2 vv = *reinterpret_cast<const float2*>(v + 2 * i);
-        tile[pad(2 * i)] = transmit(tile[pad(2 * i)], sigma * vv.x);
-        tile[pad(2 * i + 1)] = transmit(tile[pad(2 * i + 1)], sigma * vv.y);
-      }
-      __syncthreads();
-    }
-  }
-  if (forward) fft_forward<LOG2N, true>(tile, tw);
-  for (int i = threadIdx.x; i < kTile / 2; i += kThreads) {
-    store_pair(dst + 2 * i, tile[pad(2 * i)], tile[pad(2 * i + 1)]);
-  }
-  __syncthreads();  // the next tile reuses the shared memory
-}
-
-// One column tile: the panel of 4096/N columns from column c0 of one wave's
-// plane, in place: forward y transform, times the propagator (bit-reversed
-// order, conjugated for the adjoint) over N^2, inverse y transform.
-template <int LOG2N>
-__device__ void col_tile(float2* tile, const float2* tw, float2* plane, int c0,
-                         const float2* __restrict__ prop, bool conj_p) {
-  constexpr int N = 1 << LOG2N;
-  constexpr int C = kTile / N;
-  for (int i = threadIdx.x; i < kTile / 2; i += kThreads) {
-    const int e = 2 * i;
-    float2 a, b;
-    load_pair(plane + static_cast<int64_t>(e / C) * N + c0 + e % C, &a, &b);
-    tile[pad(e)] = a;
-    tile[pad(e + 1)] = b;
-  }
-  __syncthreads();
-  fft_forward<LOG2N, false>(tile, tw);
-  const float scale = 1.0f / (static_cast<float>(N) * static_cast<float>(N));
-  const float sign = conj_p ? -scale : scale;
-  for (int i = threadIdx.x; i < kTile / 2; i += kThreads) {
-    const int e = 2 * i;
-    const float4 p =
-        *reinterpret_cast<const float4*>(prop + static_cast<int64_t>(e / C) * N + c0 + e % C);
-    tile[pad(e)] = cmul(tile[pad(e)], make_float2(p.x * scale, p.y * sign));
-    tile[pad(e + 1)] = cmul(tile[pad(e + 1)], make_float2(p.z * scale, p.w * sign));
-  }
-  __syncthreads();
-  fft_inverse<LOG2N, false>(tile, tw);
-  for (int i = threadIdx.x; i < kTile / 2; i += kThreads) {
-    const int e = 2 * i;
-    store_pair(plane + static_cast<int64_t>(e / C) * N + c0 + e % C, tile[pad(e)],
-               tile[pad(e + 1)]);
-  }
-  __syncthreads();
-}
 
 // Row pass over every tile of nwaves planes.  v: nullptr, or the potentials
 // of one plane, shared by the waves.
@@ -481,15 +251,7 @@ int launch_step_bwd(const float2* psi, const float* v, const float2* g, const fl
 // Blocks of scan_kernel that can be resident at once on this device.
 template <int LOG2N>
 int resident_blocks(int device, int* blocks) {
-  int per_sm = 0;
-  cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, scan_kernel<LOG2N>,
-                                                                 kThreads, 0);
-  if (err != cudaSuccess) return err;
-  int sms = 0;
-  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  if (err != cudaSuccess) return err;
-  *blocks = per_sm * sms;
-  return cudaSuccess;
+  return resident_blocks_of(reinterpret_cast<const void*>(scan_kernel<LOG2N>), device, blocks);
 }
 
 template <int LOG2N>
@@ -518,15 +280,6 @@ int kernel_info(int device, int* out) {
 }
 
 }  // namespace
-
-#define FDES_DISPATCH_N(n, call)                 \
-  switch (n) {                                   \
-    case 128: { constexpr int L = 7; return call; }   \
-    case 256: { constexpr int L = 8; return call; }   \
-    case 512: { constexpr int L = 9; return call; }   \
-    case 1024: { constexpr int L = 10; return call; } \
-    default: return cudaErrorInvalidValue;       \
-  }
 
 extern "C" {
 

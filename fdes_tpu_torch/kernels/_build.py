@@ -5,8 +5,9 @@ one shared library with a plain C interface, loaded through ``ctypes``.  No
 PyTorch header is included, so a build takes seconds, not minutes.
 
 The libraries go to ``fdes_tpu_torch/_build/`` (ignored by git), named by a
-hash of the source and the flags, so an edited source rebuilds and an
-unchanged one is reused.  Nothing builds at import time: the first call of a
+hash of the source, of every header under ``csrc/`` (``*.cuh``: device code
+that several sources share) and of the flags, so an edited source or header
+rebuilds and an unchanged one is reused.  Nothing builds at import time: the first call of a
 kernel wrapper on a CUDA tensor builds its library; ``build_all`` builds
 every source at once, one ``nvcc`` process per source, all started together.
 
@@ -46,8 +47,10 @@ def nvcc_path() -> str:
 
 
 def _target(name: str) -> Path:
-    src = SRC_DIR / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256((SRC_DIR / f"{name}.cu").read_bytes())
+    for header in sorted(SRC_DIR.glob("*.cuh")):
+        digest.update(header.name.encode() + header.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
 

@@ -21,12 +21,15 @@ tensor goes to the kernel or the wrapper raises; complex128 on the card
 raises ``TypeError``.  ``fused_scan.launches`` counts the calls that reached
 the card (one cooperative launch each).
 
-The engine is forward-only.  The kernel keeps no wave of the loop's inside,
-so it cannot serve a backward pass, and a raw kernel's output carries no
-graph: a loss on it would see a zero gradient and say nothing.
-``whole_scan`` therefore raises when autograd is recording and an input
-requires a gradient.  The whole-loop adjoint is the counterpart of
-``fdes_tpu/pallas/adjoint_scan.py`` (ROADMAP.md Queue 2 D9-D12).
+The raw kernel keeps no wave of the loop's inside and its output carries no
+graph, so ``fused_scan`` itself is forward-only.  The engine comes in two
+forms.  ``make_fused_scan(grad=True)`` differentiates: its ``whole_scan`` is
+``kernels/adjoint_scan.scan_diff_apply``, which runs this kernel when nothing
+asks for a gradient and the whole-loop adjoint (one store-forward and one
+backward launch) when psi0 or V does.  ``make_fused_scan(grad=False)`` is the
+forward-only form for callers that never differentiate: a loss on its output
+would see a zero gradient and say nothing, so its ``whole_scan`` raises when
+autograd is recording and an input requires a gradient.
 """
 
 from __future__ import annotations
@@ -146,12 +149,11 @@ class WholeScanEngine:
     sigma)`` instead of looping over a per-slice step.  The engine cannot be
     called per slice: the point is that the loop lives inside one kernel."""
 
-    #: True for an engine that carries the whole-loop adjoint; none does yet
-    grad_capable = False
-
-    def __init__(self, whole_scan, kind: str):
+    def __init__(self, whole_scan, kind: str, grad_capable: bool = False):
         self.whole_scan = whole_scan
         self.kind = kind
+        #: True for an engine that carries the whole-loop adjoint
+        self.grad_capable = grad_capable
 
     def __call__(self, *args, **kwargs):
         raise TypeError(
@@ -169,28 +171,31 @@ def make_fused_scan(
 
     psi0 may be (n, n) or (B, n, n); a batch of probes, a per-wave potential
     stack and a per-wave propagator all land on the kernel's batch axis.
-    Forward only (``grad=True`` raises): ``whole_scan`` raises when autograd
-    is recording and an input requires a gradient.  A complex (absorptive) V
-    goes slice by slice through ``pallas_slice_step``, the kernels around
-    cuFFT, as the per-slice fused engine does.
+
+    ``grad=True``: the engine differentiates with respect to psi0 and a real
+    V through the whole-loop adjoint (``adjoint_scan.scan_diff_apply``: one
+    launch forward, one backward; the plain ``fused_scan`` when nothing
+    requires a gradient).  A propagator that requires a gradient raises, as
+    does a gradient through a per-wave V.  ``grad=False``: forward only, for
+    callers that never differentiate; ``whole_scan`` then raises when
+    autograd is recording and an input requires a gradient, because the raw
+    kernel's output carries no graph.
+
+    A complex (absorptive) V goes slice by slice through
+    ``pallas_slice_step``, the kernels around cuFFT, which differentiates, as
+    the per-slice fused engine does.
     """
     fs.check_size(ny, nx, "the fused scan")
-    if grad:
-        raise NotImplementedError(
-            f"engine {kind!r} is forward-only in fdes_tpu_torch: the whole-loop adjoint "
-            "is not ported yet (ROADMAP.md Queue 2 D9-D12, adjoint_scan); use engine "
-            "'pallas' or 'fused' for gradients"
-        )
 
     def whole_scan(psi0, v_stack, propagator, sigma):
-        if torch.is_grad_enabled() and any(
+        if not grad and torch.is_grad_enabled() and any(
             t.requires_grad for t in (psi0, v_stack, propagator)
         ):
             raise RuntimeError(
-                f"engine {kind!r} is forward-only: its result carries no graph, so a "
-                "gradient through it would be silently zero; run it under "
-                "torch.no_grad() or on detached tensors, or use engine 'pallas' or "
-                "'fused' (ROADMAP.md Queue 2 D9-D12 ports the whole-loop adjoint)"
+                f"engine {kind!r} was made with grad=False and is forward-only: its result "
+                "carries no graph, so a gradient through it would be silently zero; make "
+                "it with make_slice_step(..., grad=True) for the whole-loop adjoint, or "
+                "run it under torch.no_grad() or on detached tensors"
             )
         psi0 = psi0.to(dtype)
         propagator = propagator.to(dtype)
@@ -204,6 +209,10 @@ def make_fused_scan(
             for v_slice in v_stack:
                 psi = pallas_slice_step(psi, v_slice, propagator, sigma)
             return psi
+        if grad:
+            from .adjoint_scan import scan_diff_apply
+
+            return scan_diff_apply(psi0, v_stack, propagator, float(sigma))
         return fused_scan(psi0, v_stack, propagator, float(sigma))
 
-    return WholeScanEngine(whole_scan, kind)
+    return WholeScanEngine(whole_scan, kind, grad_capable=grad)

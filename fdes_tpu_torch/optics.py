@@ -17,8 +17,8 @@ cast, SURVEY.md §7 precision risk) and returned as NumPy; callers cast to the
 device dtype.  Defocus enters separately in ``ctf`` so a defocus SERIES is
 one stacked host array (SURVEY.md C10/C11), a batch dimension in imaging.py.
 
-A copy of the NumPy part of ``fdes_tpu.optics``; the differentiable
-``ctf_traced`` belongs to the calibration slice (ROADMAP.md Queue 1 item 7).
+A copy of the NumPy part of ``fdes_tpu.optics``, and ``ctf_traced``, the
+differentiable CTF on torch tensors (calibrate.py fits the optics with it).
 """
 
 from __future__ import annotations
@@ -257,6 +257,62 @@ def ctf_quadrature_series(
         stacks.append(c)
         weights = w
     return np.stack(stacks), weights
+
+
+def ctf_traced(
+    qy,
+    qx,
+    wavelength_A: float,
+    defocus,
+    cs=0.0,
+    c5=0.0,
+    a1=0.0,
+    a1_angle=0.0,
+    aperture_mask=None,
+    b2=0.0,
+    b2_angle=0.0,
+    a2=0.0,
+    a2_angle=0.0,
+    s3=0.0,
+    s3_angle=0.0,
+    a3=0.0,
+    a3_angle=0.0,
+):
+    """Differentiable CTF: aberration coefficients as torch scalars.
+
+    The host-built `ctf`/`ctf_series` treat aberrations as constants; this
+    variant keeps the coefficients in the autograd graph, so a gradient can
+    refine the optics jointly with the potential (aberration
+    self-calibration).  qy, qx: broadcastable frequency grids (1/Å) as torch
+    tensors; each coefficient a Python float or a 0-d tensor on their device;
+    aperture_mask: optional fixed (ny, nx) amplitude (hard apertures are not
+    usefully differentiable).  Returns complex CTF(q) = A*exp(-1j*chi), of
+    the complex type matching qy's.
+    """
+    import torch
+
+    q2 = qy * qy + qx * qx
+    lam = wavelength_A
+    phase = math.pi * lam * defocus * q2
+    phase = phase + 0.5 * math.pi * cs * lam**3 * q2 * q2
+    phase = phase + (math.pi / 3.0) * c5 * lam**5 * q2 * q2 * q2
+    phi = torch.atan2(qy, qx)
+    phase = phase + math.pi * lam * a1 * q2 * torch.cos(2.0 * (phi - a1_angle))
+    q3 = q2 * torch.sqrt(q2)
+    phase = phase + (2.0 * math.pi / 3.0) * lam**2 * b2 * q3 * torch.cos(phi - b2_angle)
+    phase = phase + (2.0 * math.pi / 3.0) * lam**2 * a2 * q3 * torch.cos(
+        3.0 * (phi - a2_angle)
+    )
+    phase = phase + 0.5 * math.pi * lam**3 * s3 * q2 * q2 * torch.cos(
+        2.0 * (phi - s3_angle)
+    )
+    phase = phase + 0.5 * math.pi * lam**3 * a3 * q2 * q2 * torch.cos(
+        4.0 * (phi - a3_angle)
+    )
+    out = torch.complex(torch.cos(phase), -torch.sin(phase))
+    if aperture_mask is not None:
+        out = out * aperture_mask.to(out.dtype)
+    return out
 
 
 def ctf_series(

@@ -9,9 +9,12 @@ kernels/fused_step.py).  They differentiate with respect to psi0 and V;
 ``remat_chunk`` bounds the adjoint's memory by recomputing chunks of slices
 in the backward pass.  The whole-loop engines (``"fscan*"``,
 kernels/fused_scan.py) run all slices of a batch of waves in one kernel
-launch and are forward-only.  psi may carry leading batch dimensions (a
-tilt series, a chunk of probes), with V broadcast over them and P either
-shared or one per batch entry.
+launch; made with ``grad=True`` they differentiate through the whole-loop
+adjoint (kernels/adjoint_scan.py: one more launch for the backward pass,
+its memory bounded by checkpointed segments inside the kernel, so they
+take and ignore ``remat_chunk``).  psi may carry leading batch dimensions
+(a tilt series, a chunk of probes), with V broadcast over them and P
+either shared or one per batch entry.
 """
 
 from __future__ import annotations
@@ -71,10 +74,12 @@ def _resolve_auto(
 
     * forward on a square grid the whole-loop kernel takes: ``fscan``, the
       fastest in every row but 1024^2 x 16 waves, where ``fused`` led it by
-      3 % (0.7-1.1 ms against 3.4-6.8 ms on ``pallas``/``xla`` for one wave
-      up to 512^2; 4.0-4.2 against 6.0-8.2 ms at 512^2 x 16);
-    * gradients on those grids: ``fused``, the fastest in every row (6.5-13.6
-      ms against 13.9-23.5 ms at 512^2; 45 against 52-63 ms at 1024^2 x 16);
+      up to 3 % (0.7-1.1 ms against 3.4-6.8 ms on ``pallas``/``xla`` for one
+      wave up to 512^2; 4.0-4.2 against 6.0-8.2 ms at 512^2 x 16);
+    * gradients on those grids: ``fscan`` too, the whole-loop adjoint, the
+      fastest in all eight rows (one wave: 2.2-3.8 ms against 9.0-14.5 ms on
+      ``fused`` and 16.5-26.9 ms on ``pallas``/``xla``; 512^2 x 16: 9.2
+      against 14.3; 1024^2 x 16: 40.4 against 46.3 ms);
     * any other grid, and complex128 (the fused kernels are complex64):
       ``pallas``, the only kernel engine that takes them.
 
@@ -85,7 +90,7 @@ def _resolve_auto(
 
     ny, nx = shape
     if dtype == torch.complex64 and ny == nx and ny in SIZES:
-        return "fused" if grad else "fscan"
+        return "fscan"
     return "pallas"
 
 
@@ -106,8 +111,13 @@ def make_slice_step(
                themselves (kernels/fused_step.py), grad-capable; square
                128/256/512/1024 grids, needs ``shape``;
     'fscan'  — the WHOLE slice loop for a batch of waves in one cooperative
-               kernel launch (kernels/fused_scan.py); FORWARD-ONLY: pass
-               ``grad=False`` (``grad=True`` raises), same grids;
+               kernel launch (kernels/fused_scan.py), same grids.  With
+               ``grad=True`` (the default) it differentiates through the
+               whole-loop adjoint (kernels/adjoint_scan.py): one launch
+               forward and one backward per gradient evaluation, and the
+               plain scan when nothing requires a gradient.  With
+               ``grad=False`` it is forward only and raises on an input that
+               requires a gradient;
     'fused_fast', 'fscan_fast', 'fscan_draft' — the JAX package's faster,
                less exact tiers of those two.  The port's kernels compute in
                float32 throughout, so these kinds run the same kernels as
@@ -208,13 +218,16 @@ def multislice(
     many slices is a ``torch.utils.checkpoint`` that the backward pass runs
     again instead of keeping its waves (pick_remat_chunk gives the sqrt-S
     choice).  A whole-loop engine (``make_slice_step("fscan", ...)``) runs the
-    loop in one kernel launch instead and takes no remat_chunk.
+    loop in one kernel launch instead: a grad-capable one accepts and ignores
+    remat_chunk (its adjoint bounds its own memory, by checkpointed segments
+    inside the kernel), a forward-only one rejects it.
     """
     step = slice_step or default_slice_step
     if hasattr(step, "whole_scan"):
         # whole-loop engine (kernels/fused_scan.py): the slice loop lives
-        # inside one kernel.  A forward-only one keeps no wave to recompute
-        # from, so it rejects remat_chunk loudly.
+        # inside one kernel.  A grad-capable one ignores remat_chunk (the
+        # whole-loop adjoint checkpoints by itself); a forward-only one keeps
+        # no wave to recompute from, so it rejects remat_chunk loudly.
         if remat_chunk and not getattr(step, "grad_capable", False):
             raise ValueError(
                 f"engine {getattr(step, 'kind', 'fscan')!r} is forward-only; "

@@ -286,6 +286,65 @@ def test_cli_invert_stem4d_equals_jax(tmp_path):
     np.testing.assert_allclose(losses("obs"), losses("port"), rtol=1e-6)
 
 
+@pytest.mark.parametrize("case", ["defocus", "tilt", "stem4d"])
+def test_cli_invert_on_fscan_equals_xla(tmp_path, case):
+    """--mode invert with sim.engine=fscan (128^2, 4 slices, 3 sgd iterations)
+    reaches the whole-loop adjoint: one store-forward and one backward per
+    rollout of an evaluation, the plain scan for the self-test series;
+    timing.json names the engine; losses and reconstruction equal engine
+    xla's."""
+    from fdes_tpu_torch.kernels import adjoint_scan as adj
+    from fdes_tpu_torch.kernels import fused_scan as fsc
+
+    cfg = _cfg(tmp_path / "c.toml")
+    extra = {
+        "defocus": ("--set", "recon.lr=2000.0"),
+        "tilt": ("--set", "recon.lr=2000.0", "--set",
+                 "sim.tilt_series_rad=[[0.0,0.0],[0.002,-0.001]]"),
+        # two chunks of two probes per evaluation
+        "stem4d": ("--set", "recon.modality=stem4d", "--set", "recon.lr=1e7", "--set",
+                   "stem.scan_ny=2", "--set", "stem.scan_nx=2", "--set", "stem.probe_chunk=2"),
+    }[case]
+    args = ("--mode", "invert", "--set", "sim.nslices=4", "--set", "recon.optimizer=sgd",
+            "--set", "recon.iterations=3", *extra)
+    calls = {"fused_scan": 0, "fused_scan_store": 0, "fused_scan_bwd_store": 0}
+    real = {"fused_scan": adj.fused_scan, "fused_scan_store": adj.fused_scan_store,
+            "fused_scan_bwd_store": adj.fused_scan_bwd_store}
+
+    def counted(name):
+        def call(*a, **k):
+            calls[name] += 1
+            return real[name](*a, **k)
+        return call
+
+    for name in real:
+        setattr(adj, name, counted(name))
+    try:
+        _run_port_cli(cfg, str(tmp_path / "fscan"), *args, "--set", "sim.engine=fscan")
+    finally:
+        for name, fn in real.items():
+            setattr(adj, name, fn)
+    rollouts = 2 if case == "stem4d" else 1
+    assert calls == {"fused_scan": rollouts, "fused_scan_store": 3 * rollouts,
+                     "fused_scan_bwd_store": 3 * rollouts}
+    assert adj.fused_scan is fsc.fused_scan
+    _run_port_cli(cfg, str(tmp_path / "xla"), *args, "--set", "sim.engine=xla")
+
+    def losses(side):
+        with open(tmp_path / side / "metrics.jsonl") as fh:
+            return [json.loads(line)["loss"] for line in fh]
+
+    np.testing.assert_allclose(losses("fscan"), losses("xla"), rtol=GATE)
+    assert losses("fscan")[-1] < losses("fscan")[0]
+    got = np.load(tmp_path / "fscan" / "reconstructed.npy")
+    want = np.load(tmp_path / "xla" / "reconstructed.npy")
+    assert got.shape == (4, 128, 128) and np.abs(want).max() > 1e-3  # V moved
+    assert _rel(got, want) <= (1e-4 if case == "stem4d" else GATE)
+    with open(tmp_path / "fscan" / "timing.json") as fh:
+        timing = json.load(fh)
+    assert timing["engine"] == timing["engine_kind"] == "fscan" and timing["iterations"] == 3
+
+
 def test_cli_invert_resume_continues(tmp_path, capsys):
     """--resume continues from checkpoint.npz: 2 iterations, then resume to
     3, equals 3 in one run; at the target it has nothing left to do."""

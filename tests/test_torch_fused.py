@@ -303,17 +303,30 @@ def test_fused_step_bwd_equals_autograd_and_function(fields, batch, per_wave_p):
 
 
 @pytest.mark.parametrize("kind", ["fscan", "fscan_fast", "fscan_draft"])
-def test_fscan_grad_true_raises(kind):
-    with pytest.raises(NotImplementedError, match="D9-D12"):
-        tprop.make_slice_step(kind, shape=(N, N), grad=True)
-    with pytest.raises(NotImplementedError, match="D9-D12"):
-        tprop.make_slice_step(kind, shape=(N, N))  # grad defaults to True, as in fdes_tpu
+def test_fscan_grad_true_raises(fields, kind):
+    """grad=True (the default, as in fdes_tpu) gives the grad-capable engine
+    on the whole-loop adjoint.  What raises under it is what the adjoint does
+    not differentiate: a propagator that requires a gradient, and a per-wave
+    potential under a gradient.  Nothing hands back a silent zero."""
+    psi, v, prop = fields
+    for step in (tprop.make_slice_step(kind, shape=(N, N), grad=True),
+                 tprop.make_slice_step(kind, shape=(N, N))):
+        assert isinstance(step, fsc.WholeScanEngine) and step.grad_capable and step.kind == kind
+    vs = _t(np.stack([v, v]))
+    with pytest.raises(NotImplementedError, match="propagator no gradient"):
+        step.whole_scan(_t(psi), vs, _t(prop).requires_grad_(True), SIGMA)
+    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
+        step.whole_scan(_t(psi), torch.stack([vs, vs]).requires_grad_(True), _t(prop), SIGMA)
+    v_t = vs.clone().requires_grad_(True)
+    step.whole_scan(_t(psi), v_t, _t(prop), SIGMA).abs().pow(2).sum().backward()
+    assert float(v_t.grad.abs().max()) > 0
 
 
 @pytest.mark.parametrize("which", ["psi0", "v_stack", "propagator"])
 def test_fscan_refuses_a_gradient_requiring_input(fields, which):
-    """A forward-only engine's result carries no graph: it raises instead of
-    handing a loss a silent zero gradient; under no_grad it runs."""
+    """An engine made with grad=False is forward-only and its result carries
+    no graph: it raises instead of handing a loss a silent zero gradient;
+    under no_grad it runs."""
     psi, v, prop = fields
     args = {"psi0": _t(psi), "v_stack": _t(np.stack([v, v])), "propagator": _t(prop)}
     args[which].requires_grad_(True)
@@ -382,17 +395,19 @@ def test_fused_scan_rejects_bad_operands(fields):
 
 def test_auto_resolves_by_shape_grad_and_batch():
     """auto/auto_fast: on a grid the fused kernels take, a forward rollout
-    goes to the whole-loop engine and a gradient to the fused step; other
-    grids go to the kernels around the library FFT."""
+    and a gradient both go to the whole-loop engine (the gradient to its
+    grad-capable form); other grids go to the kernels around the library
+    FFT."""
     from fdes_tpu_torch.kernels.slice_step import pallas_slice_step
 
     for kind in ("auto", "auto_fast"):
         step = tprop.make_slice_step(kind, shape=(512, 512), grad=False, batch=16)
         assert isinstance(step, fsc.WholeScanEngine) and step.kind == "fscan"
-        assert tprop._resolve_auto((512, 512), True) == "fused"
+        assert not step.grad_capable
+        assert tprop._resolve_auto((512, 512), True) == "fscan"
         grad_step = tprop.make_slice_step(kind, shape=(256, 256), grad=True)
-        assert callable(grad_step) and grad_step is not pallas_slice_step
-        assert not hasattr(grad_step, "whole_scan")
+        assert isinstance(grad_step, fsc.WholeScanEngine) and grad_step.grad_capable
+        assert grad_step.kind == "fscan"
         assert tprop.make_slice_step(kind, shape=(96, 96), grad=False) is pallas_slice_step
         assert tprop.make_slice_step(kind, shape=(512, 512), dtype=torch.complex128,
                                      grad=False) is pallas_slice_step

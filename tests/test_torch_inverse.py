@@ -82,7 +82,8 @@ def problem():
 def _series(kind, engine, remat=None, lib="torch"):
     """(v, psi0, prop, ctf) -> images of the defocus or tilt series."""
     if lib == "torch":
-        step = make_slice_step(engine)
+        # the whole-loop engine is made for a grid: problem128's
+        step = make_slice_step(engine, shape=(128, 128) if engine == "fscan" else None)
         if kind == "defocus":
             return lambda v, p0, pr, c: tfwd.hrtem_defocus_series(
                 v, p0, pr[0], SIGMA, c, remat_chunk=remat, slice_step=step)
@@ -132,6 +133,62 @@ def test_series_loss_grad_equals_jax(problem, kind, engine, cdt, absorptive):
         jnp.asarray(v.astype(vdt)), p0, *args)
     assert _rel(got_v, np.conj(want_v) if absorptive else want_v) <= TOL[cdt]
     assert _rel(got_p, np.conj(want_p)) <= TOL[cdt]
+
+
+@pytest.fixture(scope="module")
+def problem128():
+    """``problem`` at 128^2, the smallest grid the whole-loop engine takes."""
+    rng = np.random.default_rng(22)
+    n, s = 128, 4
+    grid = Grid(ny=n, nx=n, py=0.35, px=0.35)
+    v_true = rng.normal(size=(s, n, n)) * 300.0
+    ctfs = ctf_series(grid, LAM, np.array([-150.0, 50.0, 250.0]), aperture_semiangle_rad=25e-3)
+    tilts = [(0.0, 0.0), (3e-3, 0.0), (0.0, -2e-3)]
+    props = np.stack([fresnel_propagator(grid, LAM, 1.9, tilt_xy_rad=t) for t in tilts])
+    psi0 = np.exp(1j * rng.uniform(0, 0.2, size=(n, n)))
+    i_obs = {
+        kind: np.asarray(_series(kind, "xla", lib="jax")(
+            jnp.asarray(v_true), jnp.asarray(psi0), jnp.asarray(props), jnp.asarray(ctfs)))
+        for kind in ("defocus", "tilt")
+    }
+    return dict(v_true=v_true, ctfs=ctfs, props=props, psi0=psi0, i_obs=i_obs)
+
+
+@pytest.mark.parametrize("kind", ["defocus", "tilt", "tilt-sequential"])
+def test_series_loss_grad_on_fscan_equals_xla_and_jax(problem128, kind):
+    """The config-3 loss (and the tilt series', batched and one tilt after
+    another) on the whole-loop adjoint, remat_chunk given and ignored: dL/dV
+    and dL/dpsi0 of engine xla, of the same engine in complex128, and of
+    jax.grad, in complex64."""
+    cdt = np.complex64
+    series = kind.split("-")[0]
+    if kind == "tilt-sequential":
+        step = make_slice_step("fscan", shape=(128, 128), grad=True)
+
+        def fwd(v, p0, pr, c):
+            return tfwd.hrtem_tilt_series(v, p0.expand(pr.shape[0], *p0.shape), pr, SIGMA, c[0],
+                                          remat_chunk=2, slice_step=step, sequential=True)
+
+        prop, ctfs = (torch.as_tensor(problem128[k].astype(cdt)) for k in ("props", "ctfs"))
+        v_t = torch.as_tensor((0.5 * problem128["v_true"]).astype(np.float32)).requires_grad_(True)
+        p_t = torch.as_tensor(problem128["psi0"].astype(cdt)).requires_grad_(True)
+        i_obs = torch.as_tensor(problem128["i_obs"]["tilt"].astype(np.float32))
+        tloss.make_loss(fwd, i_obs)(v_t, p_t, prop, ctfs).backward()
+        got_v, got_p = v_t.grad.numpy(), p_t.grad.numpy()
+    else:
+        _, got_v, got_p = _torch_grads(problem128, series, "fscan", cdt, False, remat=2)
+    v, xla_v, xla_p = _torch_grads(problem128, series, "xla", cdt, False)
+    _, exact_v, exact_p = _torch_grads(problem128, series, "xla", np.complex128, False)
+    fwd_j = _series(series, "xla", lib="jax")
+    want_v, want_p = jax.grad(
+        jloss.make_loss(fwd_j, jnp.asarray(problem128["i_obs"][series].astype(np.float32))),
+        argnums=(0, 1))(
+        jnp.asarray(v.astype(np.float32)), jnp.asarray(problem128["psi0"].astype(cdt)),
+        jnp.asarray(problem128["props"].astype(cdt)), jnp.asarray(problem128["ctfs"].astype(cdt)))
+    for got, refs in ((got_v, (xla_v, exact_v, want_v)),
+                      (got_p, (xla_p, exact_p, np.conj(want_p)))):
+        for ref in refs:
+            assert _rel(got, ref) <= TOL[cdt]
 
 
 @pytest.mark.parametrize("kind", ["defocus", "tilt"])
