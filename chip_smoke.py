@@ -26,8 +26,14 @@ Phases, each printing one JSON line:
              1024^2 (2 waves, 4 slices), at 512^2 (1 and 8 waves, 8 slices),
              each with a shared and a per-wave propagator, and at config 3's
              own shape (1 wave, 64 slices, 512^2), dV bitwise equal over two
-             runs.  ``--only kernels_slice`` (or ``kernels_fused``,
-             ``kernels_adjoint``) runs one of the three groups alone.
+             runs.  The panel scan's seven passes at 256^2 and 2048^2 (1 and
+             2 waves, shared and per-wave P) and 4096^2 (1 wave), the rollout
+             at 2048^2 x 8 slices (real and absorptive V) and 256^2 x 3 (2
+             waves, per-wave P), each pass timed at 2048^2 and 4096^2, and
+             the cooperative scans' shared memory and resident blocks held to
+             what they were before the panel kernels shared their header.  ``--only kernels_slice`` (or
+             ``kernels_fused``, ``kernels_adjoint``, ``kernels_panel``) runs
+             one of the four groups alone.
 3. golden  — the port's multislice (engine "pallas", complex64) against the
              frozen f64 golden pack (golden/si110_golden_pack.npz): exit wave
              and three HRTEM images at relative error <= 1e-5; and the
@@ -78,15 +84,27 @@ Phases, each printing one JSON line:
              engine.
 9. stem4d  — a 4x4 scan in mode stem4d (cbed.npy, "fscan" against "xla") and
              in mode stem with stem.compute_com=true (stem_com.npy).
-10. engines — wall time of a 32-slice rollout and of one gradient evaluation
-             per engine at 128^2 to 1024^2, one wave and 16: the rows that
+10. c5      — config 5 at full width: ``fdes_tpu_torch.cli.main`` in mode
+             hrtem on examples/si110_hrtem.toml at 2048^2, 512 slices,
+             Si[110] 24x16x64, 8 defoci, on engines "panel" (one panel_scan
+             call, 1,025 launches, asserted; no FFT library kernel in the
+             rollout), "xla", "pallas" and the defaults, with setup, run,
+             device busy time and peak memory per engine; the exit wave
+             against a complex128 rollout, the images against "xla"; then a
+             4-tilt series and the absorptive series (first defocus only)
+             and a 2x2 STEM raster at 64 slices, "panel" against "xla".
+11. engines — wall time of a 32-slice rollout and of one gradient evaluation
+             per engine at 128^2 to 1024^2, one wave and 16, and of a forward
+             rollout on "panel", "pallas" and "xla" at 2048^2 (1 and 4 waves)
+             and 4096^2: the rows that
              ``make_slice_step("auto")`` picks its engine from; and the two
              whole-loop adjoints (stored s_j against checkpointed segments)
              at 512^2 over 64-512 slices and 1-64 waves, wall and peak memory:
              the rows the store budget is set from.
 
-Then it prints the kernel table as one JSON line, the card's name and power
-limit (nvidia-smi), and as the last line
+Each phase line carries its wall seconds.  Then it prints the kernel table
+as one JSON line, the card's name and power limit (nvidia-smi), and as the
+last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Any failure raises and exits non-zero; without CUDA it exits 1 at once.
 """
@@ -107,7 +125,7 @@ import torch
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 PHASES = ("build", "kernels", "golden", "hrtem", "absorptive", "grad", "invert", "stem",
-          "stem4d", "engines")
+          "stem4d", "c5", "engines")
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 PEAK_OPS_PER_S = {torch.float32: 67e12, torch.float64: 34e12}  # non-tensor-core FP32 / FP64
 KERNEL_TOL = {torch.complex64: 2e-6, torch.complex128: 1e-12}  # max|k - ref| / max|ref|
@@ -170,13 +188,15 @@ def all_finite(got) -> bool:
 
 
 def wrappers() -> tuple:
-    """Every kernel wrapper of the port, in the kernel table's order."""
+    """Every kernel wrapper of the port, in the kernel table's order, and
+    panel_scan, which launches the panel passes of a whole rollout."""
     from fdes_tpu_torch.kernels import adjoint_scan as adj
     from fdes_tpu_torch.kernels import fused_scan as fsc
     from fdes_tpu_torch.kernels import fused_step as fs
+    from fdes_tpu_torch.kernels import panel_scan as ps
     from fdes_tpu_torch.kernels import slice_step as ks
 
-    return (*ks.WRAPPERS, *fs.WRAPPERS, fsc.fused_scan, *adj.WRAPPERS)
+    return (*ks.WRAPPERS, *fs.WRAPPERS, fsc.fused_scan, *adj.WRAPPERS, *ps.WRAPPERS, ps.panel_scan)
 
 
 def launch_counts() -> dict:
@@ -337,9 +357,9 @@ def phase_kernels(sigma: float) -> tuple[dict, dict]:
 def profiled_kernels(fn, attempts: int = 3) -> list[tuple[str, float]]:
     """(name, microseconds) of every CUDA kernel of one call of fn, from
     torch.profiler.  The profiler now and then loses events of a cycle (seen
-    on the H100: none at all once, 35 of 40 once) and never invents one, so
-    fn is profiled ``attempts`` times and the profile with the most events
-    counts."""
+    on the H100: none at all, 35 of 40, the first 3 of 1,036) and never
+    invents one, so fn is profiled ``attempts`` times and the profile with
+    the most events counts."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -347,10 +367,15 @@ def profiled_kernels(fn, attempts: int = 3) -> list[tuple[str, float]]:
     for _ in range(attempts):
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            # it loses the first kernels of a trace most often: lead with
+            # throwaway sleep kernels, left out of the result
+            for _ in range(8):
+                torch.cuda._sleep(100_000)
+            torch.cuda.synchronize()
             fn()
             torch.cuda.synchronize()
         kernels = [(e.name, e.time_range.elapsed_us()) for e in prof.events()
-                   if e.device_type == DeviceType.CUDA]
+                   if e.device_type == DeviceType.CUDA and "spin_kernel" not in e.name]
         if len(kernels) > len(best):
             best = kernels
     return best
@@ -371,27 +396,36 @@ def device_kernels(fn) -> dict[str, int]:
 
 OWN_KERNELS = ("row_pass_kernel", "col_pass_kernel", "bwd_tail_kernel", "scan_kernel",
                "scan_store_kernel", "scan_bwd_store_kernel", "scan_ck_kernel",
-               "scan_bwd_ck_kernel")
+               "scan_bwd_ck_kernel", "panel_row_kernel", "panel_col_kernel")
 
 
-def own_kernels(fn) -> dict[str, int]:
-    """The kernels of csrc/fused_step.cu and csrc/adjoint_scan.cu among those
-    one call of fn launched."""
+def own_kernels(kernels: dict[str, int]) -> dict[str, int]:
+    """The kernels of csrc/fused_step.cu, csrc/adjoint_scan.cu and
+    csrc/panel_scan.cu among ``kernels`` (device_kernels' result)."""
     out: dict[str, int] = {}
-    for full, count in device_kernels(fn).items():
+    for full, count in kernels.items():
         for own in OWN_KERNELS:
             if f"::{own}<" in full:
                 out[own] = out.get(own, 0) + count
     return out
 
 
-def expect_own_kernels(name: str, fn, want: dict[str, int]) -> dict[str, int]:
-    """own_kernels(fn), held to ``want``; the failure names every kernel seen."""
-    got = own_kernels(fn)
-    if got != want:
-        raise AssertionError(f"{name}: one call launched {got}, expected {want}; all kernels: "
-                             f"{device_kernels(fn)}")
-    return got
+def expect_own_kernels(name: str, fn, want: dict[str, int],
+                       everything: bool = False) -> dict[str, int]:
+    """The port's own kernels of one call of fn, held to ``want`` (with
+    ``everything``, every kernel of that call); the failure names every
+    kernel seen.  The profiler now and then loses every event of many
+    profiles in a row (seen on the H100 with one-kernel calls of the panel
+    passes, ten profiles once), and never invents one, so a short count is
+    tried again, up to ten times, after a pause."""
+    for _ in range(10):
+        kernels = device_kernels(fn)
+        got = own_kernels(kernels)
+        if got == want:
+            return kernels if everything else got
+        time.sleep(0.5)
+    raise AssertionError(f"{name}: one call launched {got}, expected {want}; all kernels: "
+                         f"{kernels}")
 
 
 def fft2_ops(n: int) -> float:
@@ -686,6 +720,175 @@ def phase_kernels_adjoint() -> tuple[dict, dict]:
     rows["fused_scan_bwd_store"]["ms_8_waves_by_wave_groups"] = groups
     rows["fused_scan_bwd_store"]["wave_groups_8_waves"] = auto
     return {"phase": "kernels_adjoint", "checks": checks}, rows
+
+
+def phase_kernels_panel() -> tuple[dict, dict]:
+    """The panel passes (rows 13-19) against their plain versions at 256^2,
+    2048^2 (one wave and two, shared and per-wave P) and 4096^2 (one wave),
+    the rollout at 2048^2 x 8 slices; per-pass times at 2048^2 and 4096^2
+    (one wave) beside their bounds; returns (phase line, table rows)."""
+    from fdes_tpu_torch.kernels import adjoint_scan as adj
+    from fdes_tpu_torch.kernels import fused_scan as fsc
+    from fdes_tpu_torch.kernels import panel_scan as ps
+
+    gen = torch.Generator(device="cuda").manual_seed(6)  # inputs made on the card
+    f32 = torch.float32
+    sigma = 6.5e-4  # rad/(V A) at 300 kV, phases sigma * V of up to 1.3 rad
+    checks, rows = [], {}
+
+    def cplx(*shape):
+        return torch.randn(shape, generator=gen, device="cuda", dtype=torch.complex64)
+
+    def real(*shape, top=2000.0):
+        return top * torch.rand(shape, generator=gen, device="cuda", dtype=f32)
+
+    def phases(*shape):
+        return torch.polar(torch.ones(shape, device="cuda"), real(*shape, top=6.28))
+
+    def check(name, shape, got, want, tol, **more):
+        torch.cuda.synchronize()
+        abs_err, rel = max_errors(got, want)
+        ok = rel <= tol and all_finite(got)
+        checks.append({"kernel": name, "dtype": "complex64", "shape": list(shape),
+                       "max_abs_err": abs_err, "max_rel_err": rel, "tol": tol, "ok": ok, **more})
+        if not ok:
+            raise AssertionError(f"kernel {name} {shape} {more}: rel err {rel:.3e} > {tol:.1e}")
+        return abs_err, rel
+
+    def passes(n, lead, per_wave_p):
+        """{name: (kernel, plain)} of the seven passes on one set of inputs,
+        and the column pass's kernel alone (the propagator gathered once)."""
+        psi, a = cplx(*lead, n, n), cplx(*lead, n, n)
+        vs, vi = real(3, n, n), real(3, n, n, top=200.0)
+        pr = phases(*(lead if per_wave_p else ()), n, n)
+        pp = ps.prepare_propagator(pr)
+        return {
+            "panel_init": (lambda: ps.panel_init(vs[0], psi, sigma),
+                           lambda: ps.panel_init_ref(vs[0], psi, sigma)),
+            "panel_colpass": (lambda: ps.panel_colpass(a, pr),
+                              lambda: ps.panel_colpass_ref(a, pr)),
+            "panel_rowpass_stack": (lambda: ps.panel_rowpass_stack(2, vs, a, sigma),
+                                    lambda: ps.panel_rowpass_stack_ref(2, vs, a, sigma)),
+            "panel_rowpass": (lambda: ps.panel_rowpass(vs[1], a, sigma),
+                              lambda: ps.panel_rowpass_ref(vs[1], a, sigma)),
+            "panel_final": (lambda: ps.panel_final(a), lambda: ps.panel_final_ref(a)),
+            "panel_init_abs": (lambda: ps.panel_init_abs(vs[0], vi[0], psi, sigma),
+                               lambda: ps.panel_init_abs_ref(vs[0], vi[0], psi, sigma)),
+            "panel_rowpass_stack_abs": (
+                lambda: ps.panel_rowpass_stack_abs(1, vs, vi, a, sigma),
+                lambda: ps.panel_rowpass_stack_abs_ref(1, vs, vi, a, sigma)),
+        }, lambda: ps._colpass(a, pp)
+
+    errs = {}
+    for n, lead, per_wave_p in ((256, (), False), (256, (2,), False), (256, (2,), True),
+                                (2048, (), False), (2048, (2,), False), (2048, (2,), True),
+                                (4096, (), False)):
+        cases, _ = passes(n, lead, per_wave_p)
+        for name, (kern, ref) in cases.items():
+            err = check(name, (*lead, n, n), kern(), ref(), FUSED_TOL, per_wave_p=per_wave_p)
+            if not lead and n == 2048:
+                errs[name] = err
+        del cases
+
+    # ---- the rollout: 2048^2 x 8 slices, real and absorptive V; 256^2 x 3
+    # slices with two waves and a per-wave propagator
+    n = 2048
+    psi0 = torch.polar(torch.ones((n, n), device="cuda"), real(n, n, top=1.0))
+    vs, prop = real(8, n, n), phases(n, n)
+    for v in (vs, torch.complex(vs, 0.1 * vs)):
+        check("panel_scan", (8, n, n), ps.panel_scan(psi0, v, prop, sigma),
+              ps.panel_scan_ref(psi0, v, prop, sigma), scan_tol(8), absorptive=v.is_complex())
+    psi_b, pr_b, v_b = cplx(2, 256, 256), phases(2, 256, 256), real(3, 256, 256)
+    check("panel_scan", (2, 3, 256, 256), ps.panel_scan(psi_b, v_b, pr_b, sigma),
+          ps.panel_scan_ref(psi_b, v_b, pr_b, sigma), scan_tol(3), per_wave_p=True)
+    rollout_kernels = expect_own_kernels(
+        "panel_scan", lambda: ps.panel_scan(psi0, vs, prop, sigma),
+        {"panel_row_kernel": 9, "panel_col_kernel": 8})
+    del psi0, vs, prop
+
+    # ---- per-pass times at 2048^2 and 4096^2, one wave
+    replaces = {
+        "panel_init": "fdes_tpu/pallas/panel_scan.py:82",
+        "panel_colpass": "fdes_tpu/pallas/panel_scan.py:247",
+        "panel_rowpass_stack": "fdes_tpu/pallas/panel_scan.py:125",
+        "panel_rowpass": "fdes_tpu/pallas/panel_scan.py:101",
+        "panel_final": "fdes_tpu/pallas/panel_scan.py:194",
+        "panel_init_abs": "fdes_tpu/pallas/panel_scan.py:150",
+        "panel_rowpass_stack_abs": "fdes_tpu/pallas/panel_scan.py:171",
+    }
+    times, info = {}, {}
+    for n in (2048, 4096):
+        cases, colpass_kernel = passes(n, (), False)
+        # the column pass's time is its kernel's: the propagator is gathered
+        # into the kernels' order before the timed calls
+        cases["panel_colpass"] = (colpass_kernel, cases["panel_colpass"][1])
+        plane, fx = n * n, 5.0 * n * n * np.log2(n)  # one 1-D transform of every row or column
+        cost = {  # name: (bytes, operations): each input read once, each output written once
+            "panel_init": (plane * (8 + 4 + 8), fx + 9 * plane),
+            "panel_colpass": (plane * (8 + 8 + 8), 2 * fx + 6 * plane),
+            "panel_rowpass_stack": (plane * (8 + 4 + 8), 2 * fx + 9 * plane),
+            "panel_rowpass": (plane * (8 + 4 + 8), 2 * fx + 9 * plane),
+            "panel_final": (plane * (8 + 8), fx),
+            "panel_init_abs": (plane * (8 + 4 + 4 + 8), fx + 13 * plane),
+            "panel_rowpass_stack_abs": (plane * (8 + 4 + 4 + 8), 2 * fx + 13 * plane),
+        }
+        for name, (kern, ref) in cases.items():
+            nbytes, ops = cost[name]
+            t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / PEAK_OPS_PER_S[f32] * 1e3
+            times[(name, n)] = {
+                "ms": time_launches(kern, n=20, warmup=3),
+                "plain_ms": time_launches(ref, n=10, warmup=2),
+                "bound_ms": max(t_bytes, t_ops),
+                "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                "bytes": nbytes, "operations": ops,
+                "kernels_per_call": expect_own_kernels(
+                    name, kern,
+                    {"panel_col_kernel" if name == "panel_colpass" else "panel_row_kernel": 1}),
+            }
+        info[n] = {k: ps.panel_kernel_info(n, k) for k in ("row", "col")}
+        del cases, colpass_kernel
+    for name in replaces:
+        t, t4 = times[(name, 2048)], times[(name, 4096)]
+        rows[name] = {
+            "name": name, "route": "cuda", "source": "fdes_tpu_torch/csrc/panel_scan.cu",
+            "replaces": replaces[name], "launches": None,
+            "max_abs_err": errs[name][0], "max_rel_err": errs[name][1],
+            "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"], "library_ms": None, "shape": [2048, 2048],
+            "dtype": "complex64", "bytes": t["bytes"], "operations": t["operations"],
+            "at_4096": {k: t4[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
+            "kernels_per_call": t["kernels_per_call"],
+            "kernel": info[2048]["col" if name == "panel_colpass" else "row"],
+        }
+    line = {"phase": "kernels_panel", "checks": checks, "rollout_kernels_per_call": rollout_kernels,
+            "panel_kernel_info": info,
+            "scan_kernel_info": {n: fsc.scan_kernel_info(n) for n in (512, 1024)},
+            "adjoint_kernel_info": {k: adj.adjoint_kernel_info(512, k) for k in SCAN_FOOTPRINT
+                                    if k != "scan_kernel"}}
+    # the panel kernels share fused_fft.cuh with the cooperative scans, whose
+    # static shared memory and registers set how many of their blocks are
+    # resident at once: these may not shrink
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    footprints = [("scan_kernel", n, i) for n, i in line["scan_kernel_info"].items()]
+    footprints += [(k, 512, i) for k, i in line["adjoint_kernel_info"].items()]
+    for kernel, n, got in footprints:
+        shared, per_sm = SCAN_FOOTPRINT[kernel]
+        if got["shared_bytes"] > shared or got["resident_blocks"] < per_sm * sms:
+            raise AssertionError(f"{kernel} at {n}^2 grew: {got}, expected at most {shared} B "
+                                 f"and {per_sm} blocks per SM")
+    return line, rows
+
+
+#: static shared bytes and resident blocks per SM of the cooperative scans
+#: (csrc/fused_step.cu, csrc/adjoint_scan.cu) before the panel kernels joined
+#: fused_fft.cuh (chip_smoke.py kernels_fused/kernels_adjoint, H100 80GB HBM3)
+SCAN_FOOTPRINT = {
+    "scan_kernel": (38912, 3),
+    "scan_store_kernel": (38912, 3),
+    "scan_bwd_store_kernel": (38912, 2),
+    "scan_ck_kernel": (38912, 3),
+    "scan_bwd_ck_kernel": (38912, 2),
+}
 
 
 def phase_golden() -> dict:
@@ -1204,10 +1407,16 @@ def stem_chunk_profile(engine: str, chunk: int) -> dict:
     one_chunk()
     busy, n_kernels = device_busy_ms(one_chunk)
     psi0 = probe_from_stencil(stencil, qy, qx, pos)
-    names = device_kernels(
-        lambda: multislice(psi0, sim.v_stack, sim.propagator, sim.sigma, slice_step=step))
-    return {"engine": engine, "chunk": chunk, "device_busy_ms_per_chunk": busy,
-            "kernels_per_chunk": n_kernels, "rollout_kernels": names}
+
+    def rollout():
+        return multislice(psi0, sim.v_stack, sim.propagator, sim.sigma, slice_step=step)
+
+    out = {"engine": engine, "chunk": chunk, "device_busy_ms_per_chunk": busy,
+           "kernels_per_chunk": n_kernels, "rollout_kernels": device_kernels(rollout)}
+    if engine == "fscan":  # one whole-loop launch per chunk
+        out["own_rollout_kernels"] = expect_own_kernels(f"stem rollout, chunk {chunk}", rollout,
+                                                        {"scan_kernel": 1})
+    return out
 
 
 def stem_first_chunk_c128() -> np.ndarray:
@@ -1288,8 +1497,7 @@ def phase_stem(tmp: str, gpu: str) -> tuple[dict, dict]:
     expect = {**dict.fromkeys(launches, 0), "fused_scan": probes // 16}
     if launches != expect:
         raise AssertionError(f"stem launches {launches}, expected {expect}")
-    fft = [k for k in profiles[0]["rollout_kernels"] if "fft" in k.lower()]
-    if fft or not any("scan_kernel" in k for k in profiles[0]["rollout_kernels"]):
+    if any("fft" in k.lower() for k in profiles[0]["rollout_kernels"]):
         raise AssertionError(f"fscan rollout kernels: {profiles[0]['rollout_kernels']}")
     if sig.shape != (2, 32, 32) or not np.isfinite(sig).all() or not (sig >= 0).all():
         raise AssertionError(f"stem.npy {sig.shape} not finite and non-negative")
@@ -1344,6 +1552,151 @@ def phase_stem4d(tmp: str, gpu: str) -> dict:
     return line
 
 
+#: config 5 (BASELINE.json configs[4]): the config-2 file at 2048^2 x 512
+#: slices on the specimen of benchmarks/r5_c5_streamed.py (Si[110] 24x16x64,
+#: 393,216 atoms), 8 defoci
+C5 = ("--set", "sim.ny=2048", "--set", "sim.nx=2048", "--set", "sim.nslices=512",
+      "--set", "specimen.reps=[24,16,64]")
+# Config 5's other shapes are held at 64 slices: intensities, twice a wave's
+# relative error, of two float32 rollouts.
+C5_VARIANT_TOL = 2 * LONG_ROLLOUT_TOL
+
+
+def c5_expected_launches(zero: dict, nslices: int, absorptive: bool = False) -> dict:
+    """The panel wrappers' counts of one rollout of nslices slices."""
+    init, row = (("panel_init_abs", "panel_rowpass_stack_abs") if absorptive
+                 else ("panel_init", "panel_rowpass_stack"))
+    return {**zero, "panel_scan": 1, init: 1, "panel_colpass": nslices, row: nslices - 1,
+            "panel_final": 1}
+
+
+def phase_c5(tmp: str, gpu: str) -> tuple[dict, dict]:
+    """Config 5 through cli.main in mode hrtem on engines panel, xla, pallas
+    and the defaults; the exit wave against a complex128 rollout; then a
+    4-tilt series, a 2x2 STEM raster and the absorptive series at 64 slices,
+    panel against xla.  Returns (line, launches of the panel runs)."""
+    from fdes_tpu_torch.config import apply_overrides, load_config
+    from fdes_tpu_torch.forward import hrtem_defocus_series
+    from fdes_tpu_torch.pipeline import setup
+    from fdes_tpu_torch.propagate import make_slice_step, multislice
+
+    zero = dict.fromkeys(launch_counts(), 0)
+    nslices = 512
+    # first, the panel library and cuFFT's plans at 2048^2 (two slices per
+    # engine), so that no timed run pays for them
+    n = 2048
+    warm = torch.ones((2, n, n), device="cuda")
+    for e in ("panel", "xla", "pallas"):
+        with torch.no_grad():
+            multislice(warm[0].to(torch.complex64), warm, warm[0].to(torch.complex64), 1e-3,
+                       slice_step=make_slice_step(e, shape=(n, n), grad=False))
+    del warm
+    runs, imgs, launches = {}, {}, {}
+    for engine in ("panel", "xla", "pallas", "auto"):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        out, timing = run_cli(tmp, f"c5_{engine}", *C5, "--set", f"sim.engine={engine}")
+        launches[engine] = launch_counts()
+        timing["peak_bytes"] = torch.cuda.max_memory_allocated()
+        timing["launches"] = {k: c for k, c in launches[engine].items() if c}
+        imgs[engine] = np.load(os.path.join(out, "images.npy"))
+        runs[engine] = timing
+    # the defaults: auto resolves to panel at 2048^2 (a forward run)
+    for e in ("panel", "auto"):
+        if launches[e] != c5_expected_launches(zero, nslices):
+            raise AssertionError(f"c5 on {e}: launches {launches[e]}")
+        if runs[e]["engine_kind"] != "panel":
+            raise AssertionError(f"c5 on {e}: timing.json {runs[e]}")
+    if not np.array_equal(imgs["auto"], imgs["panel"]):
+        raise AssertionError("c5: images on the defaults differ from those on panel")
+    for e, im in imgs.items():
+        if im.shape != (8, 2048, 2048) or not np.isfinite(im).all() or not (im > 0).all():
+            raise AssertionError(f"c5 {e}: images.npy {im.shape} not finite and positive")
+
+    # the exit wave on panel and xla against complex128 (the same float32 V)
+    cfg = apply_overrides(load_config(CONFIG), [a for a in C5 if a != "--set"])
+    sim = setup(cfg, device="cuda")
+    c128 = torch.complex128
+    steps = {e: make_slice_step(e, shape=sim.grid.shape, grad=False)
+             for e in ("panel", "xla", "pallas")}
+    with torch.no_grad():
+        waves = {e: multislice(sim.psi0, sim.v_stack, sim.propagator, sim.sigma,
+                               slice_step=steps[e])
+                 for e in ("panel", "xla")}
+        exact = multislice(sim.psi0.to(c128), sim.v_stack.double(), sim.propagator.to(c128),
+                           sim.sigma)
+    dist = {e: rel_norm(w, exact) for e, w in waves.items()}
+    del exact
+    wave_tol = min(1e-4, 1.5 * dist["xla"])
+    img_tol = 2e-4  # intensities of two float32 rollouts: twice the wave's 1e-4 cap
+    img_err = {e: float(np.linalg.norm(imgs[e] - imgs["xla"]) / np.linalg.norm(imgs["xla"]))
+               for e in ("panel", "pallas")}
+
+    def rollout():
+        return multislice(sim.psi0, sim.v_stack, sim.propagator, sim.sigma,
+                          slice_step=steps["panel"])
+
+    # one C call, 2S + 1 launches of the panel kernels, and no FFT library
+    # kernel (counted where the profiler caught every launch)
+    rollout_kernels = expect_own_kernels(
+        "c5 panel rollout", rollout,
+        {"panel_row_kernel": nslices + 1, "panel_col_kernel": nslices}, everything=True)
+    for e in ("panel", "xla", "pallas"):
+        busy, n_kernels = device_busy_ms(
+            lambda e=e: hrtem_defocus_series(sim.v_stack, sim.psi0, sim.propagator, sim.sigma,
+                                             sim.ctf_stack, slice_step=steps[e]))
+        runs[e]["device_busy_ms"] = busy
+        runs[e]["kernels"] = n_kernels
+        runs[e]["device_idle_share"] = max(0.0, 1.0 - busy / (runs[e]["run_s"] * 1e3))
+    del sim, waves
+    line = {
+        "phase": "c5", "config": "examples/si110_hrtem.toml " + " ".join(C5[1::2]),
+        "runs": runs, "rel_norm_vs_complex128": dist, "wave_tol": wave_tol,
+        "images_rel_err_vs_xla": img_err, "img_tol": img_tol,
+        "rollout_kernels": rollout_kernels, "gpu": gpu,
+    }
+    if any("fft" in k.lower() for k in rollout_kernels):
+        raise AssertionError(f"c5 panel rollout kernels: {rollout_kernels}")
+    if not dist["panel"] <= wave_tol:
+        raise AssertionError(f"c5 panel exit wave vs complex128: {dist}, tol {wave_tol:.2e}")
+    if not all(err <= img_tol for err in img_err.values()):
+        raise AssertionError(f"c5 images vs xla: {img_err}, tol {img_tol:.1e}")
+
+    # ---- config 5's other shapes at 64 slices, panel against xla; the tilt
+    # and absorptive series at the first defocus alone (a tilt series images
+    # at that one; the host's CTF stack is most of a run's setup)
+    c5_64 = (*C5[:4], "--set", "sim.nslices=64", *C5[6:])
+    one_defocus = ("--set", "optics.defoci_A=[-400.0]")
+    variants = {  # name: (config file, extra settings, output, absorptive)
+        "tilt4": (CONFIG, ("--set", "sim.tilt_series_rad=[[0.0,0.0],[0.002,-0.001],"
+                           "[-0.001,0.002],[0.001,0.001]]", *one_defocus), "images.npy", False),
+        "stem2x2": (CONFIG_STEM, ("--set", "stem.scan_ny=2", "--set", "stem.scan_nx=2",
+                                  "--set", "stem.probe_chunk=4"), "stem.npy", False),
+        "absorptive": (CONFIG, ("--set", "sim.absorptive_factor=0.1", *one_defocus),
+                       "images.npy", True),
+    }
+    line["variants"] = {}
+    for name, (config, extra, output, absorptive) in variants.items():
+        reset_launches()
+        out, timing = run_cli(tmp, f"c5_{name}_panel", *c5_64, *extra, "--set",
+                              "sim.engine=panel", config=config)
+        launches[name] = launch_counts()
+        out_x, timing_x = run_cli(tmp, f"c5_{name}_xla", *c5_64, *extra, "--set",
+                                  "sim.engine=xla", config=config)
+        a, b = np.load(os.path.join(out, output)), np.load(os.path.join(out_x, output))
+        err = float(np.linalg.norm(a - b) / np.linalg.norm(b))
+        line["variants"][name] = {"shape": list(a.shape), "rel_err_vs_xla": err,
+                                  "tol": C5_VARIANT_TOL, "engine_kind": timing["engine_kind"],
+                                  "run_s": {"panel": timing["run_s"], "xla": timing_x["run_s"]}}
+        if launches[name] != c5_expected_launches(zero, 64, absorptive):
+            raise AssertionError(f"c5 {name} on panel: launches {launches[name]}")
+        if (timing["engine_kind"] != "panel" or not np.isfinite(a).all()
+                or not err <= C5_VARIANT_TOL):
+            raise AssertionError(f"c5 {name}: {line['variants'][name]}")
+    return line, launches
+
+
 def phase_engines(gpu: str) -> dict:
     """Wall ms (host clock around a synchronised call, median of 3, each
     engine measured twice in turns) of a 32-slice rollout and of one gradient
@@ -1395,8 +1748,51 @@ def phase_engines(gpu: str) -> dict:
                         times[e].append(statistics.median(walls))
                 rows.append({"n": n, "batch": batch, "grad": grad, "slices": nslices,
                              "wall_ms": times, "fastest": min(times, key=lambda e: min(times[e]))})
+    rows += panel_engine_rows(sigma, lam, nslices)
     return {"phase": "engines", "rows": rows, "store_vs_segments": store_vs_segments(),
             "gpu": gpu}
+
+
+def panel_engine_rows(sigma: float, lam: float, nslices: int) -> list[dict]:
+    """Wall ms of a forward rollout of nslices slices on panel, pallas and xla
+    at 2048^2 (one wave and four) and 4096^2 (one wave), measured as the rows
+    of phase_engines: the rows ``auto`` reads on those grids."""
+    from fdes_tpu_torch.grids import Grid, fresnel_propagator
+    from fdes_tpu_torch.propagate import make_slice_step, multislice
+
+    gen = torch.Generator(device="cuda").manual_seed(2)  # inputs made on the card
+    rows = []
+    for n, batch in ((2048, 1), (2048, 4), (4096, 1)):
+        prop = torch.as_tensor(
+            fresnel_propagator(Grid(ny=n, nx=n, py=0.05, px=0.05), lam, 2.0).astype(np.complex64),
+            device="cuda")
+        v = 1000 * torch.rand((nslices, n, n), generator=gen, device="cuda")
+        shape = (n, n) if batch == 1 else (batch, n, n)
+        psi0 = torch.polar(torch.ones(shape, device="cuda"),
+                           torch.rand(shape, generator=gen, device="cuda"))
+        engines = ("panel", "pallas", "xla")
+        times = {e: [] for e in engines}
+        for order in (engines, engines[::-1]):
+            for e in order:
+                step = make_slice_step(e, shape=(n, n), grad=False, batch=batch)
+
+                def run():
+                    with torch.no_grad():
+                        return multislice(psi0, v, prop, sigma, slice_step=step)
+
+                run()
+                torch.cuda.synchronize()
+                walls = []
+                for _ in range(3):
+                    t0 = time.perf_counter()
+                    run()
+                    torch.cuda.synchronize()
+                    walls.append((time.perf_counter() - t0) * 1e3)
+                times[e].append(statistics.median(walls))
+        rows.append({"n": n, "batch": batch, "grad": False, "slices": nslices, "wall_ms": times,
+                     "fastest": min(times, key=lambda e: min(times[e]))})
+        del v, psi0, prop
+    return rows
 
 
 def store_vs_segments() -> list[dict]:
@@ -1469,15 +1865,36 @@ ROW_PHASES = {
     "fused_scan_bwd_store": ("invert_fscan", "grad_fscan"),
     "fused_scan_ck": ("grad_fscan_seg",),
     "fused_scan_bwd_ck": ("grad_fscan_seg",),
+    "panel_init": ("c5",),
+    "panel_colpass": ("c5",),
+    "panel_rowpass_stack": ("c5",),
+    "panel_rowpass": ("c5",),
+    "panel_final": ("c5",),
+    "panel_init_abs": ("c5_absorptive",),
+    "panel_rowpass_stack_abs": ("c5_absorptive",),
 }
+#: kernels on no path, exempt from the check that each kernel of a path was
+#: launched there: _row_mid_kernel has no caller in fdes_tpu (a building
+#: block; the rollout reads V from the stack), so panel_rowpass is checked and
+#: timed in kernels_panel, and its count on the c5 path is read like any other
+OFF_PATH = ("panel_rowpass",)
+
+
+def timed(fn, *args):
+    """fn(*args), its phase line (the result, or its first element) given the
+    phase's wall seconds."""
+    t0 = time.perf_counter()
+    out = fn(*args)
+    (out[0] if isinstance(out, tuple) else out)["seconds"] = time.perf_counter() - t0
+    return out
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--only", default=",".join(PHASES),
                     help="comma-separated subset of " + ",".join(PHASES)
-                    + " (kernels_slice, kernels_fused, kernels_adjoint: one group of kernel "
-                    "checks)")
+                    + " (kernels_slice, kernels_fused, kernels_adjoint, kernels_panel: one "
+                    "group of kernel checks)")
     args = ap.parse_args(argv)
     phases = args.only.split(",")
     if not torch.cuda.is_available():
@@ -1494,29 +1911,30 @@ def main(argv=None) -> int:
         emit(phase_build())
     rows = {}
     if "kernels" in phases or "kernels_slice" in phases:
-        line, rows = phase_kernels(interaction_sigma(300e3))
+        line, rows = timed(phase_kernels, interaction_sigma(300e3))
         line["gpu"] = gpu
         emit(line)
     for group, fn in (("kernels_fused", phase_kernels_fused),
-                      ("kernels_adjoint", phase_kernels_adjoint)):
+                      ("kernels_adjoint", phase_kernels_adjoint),
+                      ("kernels_panel", phase_kernels_panel)):
         if "kernels" in phases or group in phases:
-            line, group_rows = fn()
+            line, group_rows = timed(fn)
             rows.update(group_rows)
             line["gpu"] = gpu
             emit(line)
     if "golden" in phases:
-        emit(phase_golden())
+        emit(timed(phase_golden))
     path_launches = {}  # phase -> launches of its main-path run
     grad_busy_ms = {}  # engine -> device busy ms of one config-3 gradient evaluation
     with tempfile.TemporaryDirectory() as tmp:
         if "hrtem" in phases:
-            line, path_launches["hrtem"] = phase_hrtem(tmp, gpu)
+            line, path_launches["hrtem"] = timed(phase_hrtem, tmp, gpu)
             emit(line)
         if "absorptive" in phases:
-            line, path_launches["absorptive"] = phase_absorptive(tmp, gpu)
+            line, path_launches["absorptive"] = timed(phase_absorptive, tmp, gpu)
             emit(line)
         if "grad" in phases:
-            line, by_case = phase_grad(gpu)
+            line, by_case = timed(phase_grad, gpu)
             path_launches.update(grad=by_case["pallas_remat"], grad_fused=by_case["fused_remat"],
                                  grad_absorptive=by_case["abs_pallas_remat"],
                                  grad_fscan=by_case["fscan"], grad_fscan_seg=by_case["fscan_seg"])
@@ -1525,16 +1943,20 @@ def main(argv=None) -> int:
                             for e in ("pallas", "xla", "fused", "fscan")}
             emit(line)
         if "invert" in phases:
-            line, by_engine = phase_invert(tmp, gpu, grad_busy_ms)
+            line, by_engine = timed(phase_invert, tmp, gpu, grad_busy_ms)
             path_launches.update(invert=by_engine["pallas"], invert_fscan=by_engine["fscan"])
             emit(line)
         if "stem" in phases:
-            line, path_launches["stem"] = phase_stem(tmp, gpu)
+            line, path_launches["stem"] = timed(phase_stem, tmp, gpu)
             emit(line)
         if "stem4d" in phases:
-            emit(phase_stem4d(tmp, gpu))
+            emit(timed(phase_stem4d, tmp, gpu))
+        if "c5" in phases:
+            line, by_run = timed(phase_c5, tmp, gpu)
+            path_launches.update(c5=by_run["panel"], c5_absorptive=by_run["absorptive"])
+            emit(line)
     if "engines" in phases:
-        emit(phase_engines(gpu))
+        emit(timed(phase_engines, gpu))
     for name, row in rows.items():
         row["launches_by_phase"] = {ph: c[name] for ph, c in path_launches.items()}
         for ph in ROW_PHASES[name]:
@@ -1542,7 +1964,8 @@ def main(argv=None) -> int:
                 row["launches"], row["launches_phase"] = path_launches[ph][name], ph
                 break
     if set(PHASES) <= set(phases):
-        idle = [name for name, row in rows.items() if not row["launches"]]
+        idle = [name for name, row in rows.items()
+                if name not in OFF_PATH and not row["launches"]]
         if idle:
             raise AssertionError(f"kernels never launched on their path: {idle}")
     emit({"seconds": time.perf_counter() - t0})

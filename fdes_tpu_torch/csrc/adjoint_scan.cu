@@ -106,7 +106,8 @@ __device__ void forward_sweep(cg::grid_group& grid, float2* tile, const float2* 
     for (int64_t t = blockIdx.x; t < ntiles; t += gridDim.x) {
       const int64_t b = t / kTilesPerWave;
       const int c0 = static_cast<int>(t % kTilesPerWave) * C;
-      col_tile<LOG2N>(tile, tw, work + b * kPlane, c0, a.prop + b * a.p_wave_stride, false);
+      float2* plane = work + b * kPlane;
+      col_tile<LOG2N>(tile, tw, plane, plane, c0, a.prop + b * a.p_wave_stride, false);
     }
     grid.sync();
   }
@@ -201,7 +202,8 @@ __device__ void reverse_sweep(cg::grid_group& grid, float2* tile, const float2* 
     for (int64_t t = blockIdx.x; t < ntiles; t += gridDim.x) {
       const int64_t b = t / kTilesPerWave;
       const int c0 = static_cast<int>(t % kTilesPerWave) * C;
-      col_tile<LOG2N>(tile, tw, bar + b * kPlane, c0, a.prop + b * a.p_wave_stride, true);
+      float2* plane = bar + b * kPlane;
+      col_tile<LOG2N>(tile, tw, plane, plane, c0, a.prop + b * a.p_wave_stride, true);
     }
     if (partial && k < nsl - 1) {
       reduce_partials<LOG2N>(ga.part, dv + (v0 + k + 1) * kPlane, ga.ngroups);

@@ -1,6 +1,7 @@
 // The row-pass / column-pass FFT pipeline shared by the fused kernels, for
 // Hopper (sm_90a): included by fused_step.cu (the step, its adjoint, the
-// whole-loop scan) and adjoint_scan.cu (the whole-loop adjoint).
+// whole-loop scan), adjoint_scan.cu (the whole-loop adjoint) and
+// panel_scan.cu (the panel passes for 256^2 to 4096^2).
 //
 // A plane of N x N complex64 is transformed in two kinds of pass over tiles of
 // 4096 elements (32 KB of shared memory): a row tile is 4096/N whole rows (1-D
@@ -29,7 +30,12 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kTile = 4096;                    // complex elements per tile
 constexpr int kTilePadded = kTile + kTile / 16;
-constexpr int kMaxTwiddles = 512;              // N/2 at N = 1024
+constexpr int kMaxTwiddles = 512;              // N/2 at N = 1024, the kernels of n <= 1024
+// Twiddles of an N-point transform, N/2: the panel kernels hold exactly this
+// many, in dynamic shared memory (2,048 = 16 KB at N = 4096), so that the
+// static tables of the kernels above keep their size.
+template <int LOG2N>
+constexpr int kTwiddlesOf = 1 << (LOG2N - 1);
 constexpr int kMaxBlocks = 132 * 8;            // ordinary launches: grid-stride over tiles
 
 __device__ __forceinline__ int pad(int i) { return i + (i >> 4); }
@@ -54,6 +60,30 @@ __device__ __forceinline__ float2 transmit(float2 p, float phase) {
   sincosf(phase, &s, &c);
   return make_float2(p.x * c - p.y * s, p.x * s + p.y * c);
 }
+// p * exp(i * phase) * exp(-damp): full-precision sincosf and expf
+__device__ __forceinline__ float2 transmit(float2 p, float phase, float damp) {
+  float s, c;
+  sincosf(phase, &s, &c);
+  const float d = expf(-damp);
+  s *= d;
+  c *= d;
+  return make_float2(p.x * c - p.y * s, p.x * s + p.y * c);
+}
+// a, b (elements 2i, 2i + 1) times exp(i sigma v), damped by exp(-sigma vi)
+// when ABS; v and vi point at element 2i's potentials.
+template <bool ABS>
+__device__ __forceinline__ void transmit_pair(float2* a, float2* b, const float* __restrict__ v,
+                                              const float* __restrict__ vi, float sigma) {
+  const float2 vv = *reinterpret_cast<const float2*>(v);
+  if constexpr (ABS) {
+    const float2 ww = *reinterpret_cast<const float2*>(vi);
+    *a = transmit(*a, sigma * vv.x, sigma * ww.x);
+    *b = transmit(*b, sigma * vv.y, sigma * ww.y);
+  } else {
+    *a = transmit(*a, sigma * vv.x);
+    *b = transmit(*b, sigma * vv.y);
+  }
+}
 
 // tw[k] = exp(-2*pi*i*k/N), k < N/2.
 template <int LOG2N>
@@ -68,20 +98,21 @@ __device__ void init_twiddles(float2* tw) {
 
 // K fused radix-2 stages on every transform of the tile.
 //
-// ROWS: element k of transform q lies at tile[pad(q * N + k)] (q < 4096/N);
-// columns: at tile[pad(k * Q + q)], Q = 4096/N transforms side by side.
+// ROWS: element k of transform q lies at tile[pad(q * N + k)] (q < TILE/N);
+// columns: at tile[pad(k * Q + q)], Q = TILE/N transforms side by side.
+// TILE is kTile but for column tiles wider than one tile (col_tile's C).
 // A work item holds the 2^K elements base + j * g, g = 1 << lg the smallest
 // half size of the group.  Forward (decimation in frequency): half sizes
 // g << (K-1), ..., 2g, g, in that order, a' = a + b, b' = (a - b) * w.
 // Inverse (decimation in time): g, 2g, ..., g << (K-1), t = b * conj(w),
 // a' = a + t, b' = a - t.  w = exp(-2*pi*i*jj/(2*hs)) for the pair whose lower
 // element lies at offset jj in its half of size hs.
-template <int LOG2N, int K, bool ROWS, bool INVERSE>
+template <int LOG2N, int K, bool ROWS, bool INVERSE, int TILE = kTile>
 __device__ __forceinline__ void stage_group(float2* tile, const float2* tw, int lg) {
   constexpr int N = 1 << LOG2N;
-  constexpr int Q = kTile / N;
+  constexpr int Q = TILE / N;
   constexpr int R = 1 << K;
-  constexpr int kItems = kTile >> K;
+  constexpr int kItems = TILE >> K;
   constexpr int kItemsPerTransform = N >> K;
   const int g = 1 << lg;
   for (int u = threadIdx.x; u < kItems; u += kThreads) {
@@ -131,40 +162,40 @@ __device__ __forceinline__ void stage_group(float2* tile, const float2* tw, int 
 }
 
 // Forward transforms of the tile: natural order in, bit-reversed order out.
-template <int LOG2N, bool ROWS>
+template <int LOG2N, bool ROWS, int TILE = kTile>
 __device__ void fft_forward(float2* tile, const float2* tw) {
   int lg = LOG2N;
   while (lg >= 3) {
     lg -= 3;
-    stage_group<LOG2N, 3, ROWS, false>(tile, tw, lg);
+    stage_group<LOG2N, 3, ROWS, false, TILE>(tile, tw, lg);
     __syncthreads();
   }
   if (lg == 2) {
-    stage_group<LOG2N, 2, ROWS, false>(tile, tw, 0);
+    stage_group<LOG2N, 2, ROWS, false, TILE>(tile, tw, 0);
     __syncthreads();
   } else if (lg == 1) {
-    stage_group<LOG2N, 1, ROWS, false>(tile, tw, 0);
+    stage_group<LOG2N, 1, ROWS, false, TILE>(tile, tw, 0);
     __syncthreads();
   }
 }
 
 // Unscaled inverse transforms: bit-reversed order in, natural order out; the
 // forward stages undone last to first, so inverse(forward(x)) = N * x.
-template <int LOG2N, bool ROWS>
+template <int LOG2N, bool ROWS, int TILE = kTile>
 __device__ void fft_inverse(float2* tile, const float2* tw) {
   constexpr int kRem = LOG2N % 3;
   int lg = 0;
   if (kRem == 2) {
-    stage_group<LOG2N, 2, ROWS, true>(tile, tw, 0);
+    stage_group<LOG2N, 2, ROWS, true, TILE>(tile, tw, 0);
     __syncthreads();
     lg = 2;
   } else if (kRem == 1) {
-    stage_group<LOG2N, 1, ROWS, true>(tile, tw, 0);
+    stage_group<LOG2N, 1, ROWS, true, TILE>(tile, tw, 0);
     __syncthreads();
     lg = 1;
   }
   while (lg < LOG2N) {
-    stage_group<LOG2N, 3, ROWS, true>(tile, tw, lg);
+    stage_group<LOG2N, 3, ROWS, true, TILE>(tile, tw, lg);
     __syncthreads();
     lg += 3;
   }
@@ -182,28 +213,27 @@ __device__ __forceinline__ void store_pair(float2* p, float2 a, float2 b) {
 // One row tile: 4096 contiguous elements (4096/N rows) at src, written to dst
 // (dst may be src).  inverse: undo the x transform of the previous step first.
 // v != nullptr: multiply by exp(i*sigma*v) (v points at the tile's 4096
-// potentials).  forward: transform along x.  src may have been written by
-// other blocks before the last barrier, so it is read with plain loads.
+// potentials), damped by exp(-sigma*vi) when ABS (an absorptive potential v +
+// i vi, vi at the tile's imaginary parts).  forward: transform along x.  src
+// may have been written by other blocks before the last barrier, so it is
+// read with plain loads.
 //
 // STORES (the forward pass under differentiation): the tile is in natural
 // order between the inverse and the forward x transform, and only there;
 // pre != nullptr receives it before the transmit (a checkpoint of psi_j),
 // post != nullptr after it (s_j = t_j * psi_j), and dst == nullptr skips the
 // final store.
-template <int LOG2N, bool STORES = false>
+template <int LOG2N, bool STORES = false, bool ABS = false>
 __device__ void row_tile(float2* tile, const float2* tw, const float2* src, float2* dst,
                          const float* __restrict__ v, float sigma, bool inverse, bool forward,
-                         float2* pre = nullptr, float2* post = nullptr) {
+                         float2* pre = nullptr, float2* post = nullptr,
+                         const float* __restrict__ vi = nullptr) {
   const bool transmit_on_load = v != nullptr && !inverse;
   for (int i = threadIdx.x; i < kTile / 2; i += kThreads) {
     float2 a, b;
     load_pair(src + 2 * i, &a, &b);
     if (STORES && !inverse && pre != nullptr) store_pair(pre + 2 * i, a, b);
-    if (transmit_on_load) {
-      const float2 vv = *reinterpret_cast<const float2*>(v + 2 * i);
-      a = transmit(a, sigma * vv.x);
-      b = transmit(b, sigma * vv.y);
-    }
+    if (transmit_on_load) transmit_pair<ABS>(&a, &b, v + 2 * i, vi + 2 * i, sigma);
     if (STORES && !inverse && post != nullptr) store_pair(post + 2 * i, a, b);
     tile[pad(2 * i)] = a;
     tile[pad(2 * i + 1)] = b;
@@ -217,9 +247,7 @@ __device__ void row_tile(float2* tile, const float2* tw, const float2* src, floa
         float2 b = tile[pad(2 * i + 1)];
         if (STORES && pre != nullptr) store_pair(pre + 2 * i, a, b);
         if (v != nullptr) {
-          const float2 vv = *reinterpret_cast<const float2*>(v + 2 * i);
-          a = transmit(a, sigma * vv.x);
-          b = transmit(b, sigma * vv.y);
+          transmit_pair<ABS>(&a, &b, v + 2 * i, vi + 2 * i, sigma);
           tile[pad(2 * i)] = a;
           tile[pad(2 * i + 1)] = b;
         }
@@ -237,26 +265,31 @@ __device__ void row_tile(float2* tile, const float2* tw, const float2* src, floa
   __syncthreads();  // the next tile reuses the shared memory
 }
 
-// One column tile: the panel of 4096/N columns from column c0 of one wave's
-// plane, in place: forward y transform, times the propagator (bit-reversed
-// order, conjugated for the adjoint) over N^2, inverse y transform.
-template <int LOG2N>
-__device__ void col_tile(float2* tile, const float2* tw, float2* plane, int c0,
+// One column tile: the panel of C adjacent columns from column c0 of one
+// wave's plane src, all N rows (C * N elements: one 4096-element tile for
+// the default C, more for the panel scan's wider panels in dynamic shared
+// memory), written to dst (dst may be src): forward y transform, times the
+// propagator (bit-reversed order, conjugated for the adjoint) over N^2,
+// inverse y transform.  Each row of the panel is loaded and stored as pairs
+// of adjacent columns, so C >= 2 (at N = 4096 one tile is a single column).
+template <int LOG2N, int C = kTile / (1 << LOG2N)>
+__device__ void col_tile(float2* tile, const float2* tw, const float2* src, float2* dst, int c0,
                          const float2* __restrict__ prop, bool conj_p) {
   constexpr int N = 1 << LOG2N;
-  constexpr int C = kTile / N;
-  for (int i = threadIdx.x; i < kTile / 2; i += kThreads) {
+  constexpr int TILE = C * N;
+  static_assert(C >= 2, "a column panel is at least two columns wide");
+  for (int i = threadIdx.x; i < TILE / 2; i += kThreads) {
     const int e = 2 * i;
     float2 a, b;
-    load_pair(plane + static_cast<int64_t>(e / C) * N + c0 + e % C, &a, &b);
+    load_pair(src + static_cast<int64_t>(e / C) * N + c0 + e % C, &a, &b);
     tile[pad(e)] = a;
     tile[pad(e + 1)] = b;
   }
   __syncthreads();
-  fft_forward<LOG2N, false>(tile, tw);
+  fft_forward<LOG2N, false, TILE>(tile, tw);
   const float scale = 1.0f / (static_cast<float>(N) * static_cast<float>(N));
   const float sign = conj_p ? -scale : scale;
-  for (int i = threadIdx.x; i < kTile / 2; i += kThreads) {
+  for (int i = threadIdx.x; i < TILE / 2; i += kThreads) {
     const int e = 2 * i;
     const float4 p =
         *reinterpret_cast<const float4*>(prop + static_cast<int64_t>(e / C) * N + c0 + e % C);
@@ -264,13 +297,13 @@ __device__ void col_tile(float2* tile, const float2* tw, float2* plane, int c0,
     tile[pad(e + 1)] = cmul(tile[pad(e + 1)], make_float2(p.z * scale, p.w * sign));
   }
   __syncthreads();
-  fft_inverse<LOG2N, false>(tile, tw);
-  for (int i = threadIdx.x; i < kTile / 2; i += kThreads) {
+  fft_inverse<LOG2N, false, TILE>(tile, tw);
+  for (int i = threadIdx.x; i < TILE / 2; i += kThreads) {
     const int e = 2 * i;
-    store_pair(plane + static_cast<int64_t>(e / C) * N + c0 + e % C, tile[pad(e)],
+    store_pair(dst + static_cast<int64_t>(e / C) * N + c0 + e % C, tile[pad(e)],
                tile[pad(e + 1)]);
   }
-  __syncthreads();
+  __syncthreads();  // the next tile reuses the shared memory
 }
 
 // Blocks of a cooperative kernel (kThreads threads, static shared memory only)
@@ -294,5 +327,17 @@ inline int resident_blocks_of(const void* kernel, int device, int* blocks) {
     case 256: { constexpr int L = 8; return call; }   \
     case 512: { constexpr int L = 9; return call; }   \
     case 1024: { constexpr int L = 10; return call; } \
+    default: return cudaErrorInvalidValue;       \
+  }
+
+// The panel scan's sizes: 256^2 to 4096^2 (its own kernels; the macro above
+// keeps refusing n > 1024 for the others).
+#define FDES_DISPATCH_PANEL_N(n, call)           \
+  switch (n) {                                   \
+    case 256: { constexpr int L = 8; return call; }   \
+    case 512: { constexpr int L = 9; return call; }   \
+    case 1024: { constexpr int L = 10; return call; } \
+    case 2048: { constexpr int L = 11; return call; } \
+    case 4096: { constexpr int L = 12; return call; } \
     default: return cudaErrorInvalidValue;       \
   }

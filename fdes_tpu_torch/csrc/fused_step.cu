@@ -101,7 +101,8 @@ col_pass_kernel(float2* buf, const float2* __restrict__ prop, int64_t p_wave_str
   for (int64_t t = blockIdx.x; t < nwaves * kTilesPerWave; t += gridDim.x) {
     const int64_t b = t / kTilesPerWave;
     const int c0 = static_cast<int>(t % kTilesPerWave) * C;
-    col_tile<LOG2N>(tile, tw, buf + b * kPlane, c0, prop + b * p_wave_stride, conj_p != 0);
+    float2* plane = buf + b * kPlane;
+    col_tile<LOG2N>(tile, tw, plane, plane, c0, prop + b * p_wave_stride, conj_p != 0);
   }
 }
 
@@ -146,7 +147,8 @@ __global__ void __launch_bounds__(kThreads) scan_kernel(ScanArgs a) {
     for (int64_t t = blockIdx.x; t < ntiles; t += gridDim.x) {
       const int64_t b = t / kTilesPerWave;
       const int c0 = static_cast<int>(t % kTilesPerWave) * C;
-      col_tile<LOG2N>(tile, tw, a.out + b * kPlane, c0, a.prop + b * a.p_wave_stride, false);
+      float2* plane = a.out + b * kPlane;
+      col_tile<LOG2N>(tile, tw, plane, plane, c0, a.prop + b * a.p_wave_stride, false);
     }
     grid.sync();
   }

@@ -42,12 +42,13 @@ from . import fused_step as fs
 from .slice_step import _check_dense, pallas_slice_step, transmit_ref
 
 
-def _batching(psi0, v_stack, propagator, what):
-    """(n, B, v_batched, p_batched) of a scan's operands, validated."""
+def _batching(psi0, v_stack, propagator, what, check_size=fs.check_size):
+    """(n, B, v_batched, p_batched) of a scan's operands, validated; the grid
+    by ``check_size`` (the sizes of the kernel that will run)."""
     if psi0.ndim not in (2, 3):
         raise ValueError(f"{what}: psi0 must be (n, n) or (B, n, n), got {tuple(psi0.shape)}")
     n = psi0.shape[-1]
-    fs.check_size(psi0.shape[-2], n, what)
+    check_size(psi0.shape[-2], n, what)
     if v_stack.ndim not in (3, 4) or tuple(v_stack.shape[-2:]) != (n, n):
         raise ValueError(
             f"{what}: v_stack must be (S, {n}, {n}) or (B, S, {n}, {n}), got "

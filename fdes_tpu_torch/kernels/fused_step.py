@@ -97,8 +97,9 @@ def check_size(ny: int, nx: int, what: str) -> None:
         raise ValueError(f"{what} needs a square grid, got ({ny}, {nx})")
     if ny > 1024:
         raise ValueError(
-            f"{what} transforms whole planes of at most 1024^2, got {ny}^2; use a "
-            "per-slice engine ('pallas', 'xla') there"
+            f"{what} transforms whole planes of at most 1024^2, got {ny}^2; use the "
+            "panel engine ('panel', up to 4096^2) or a per-slice engine ('pallas', 'xla') "
+            "there"
         )
     if ny not in SIZES:
         raise ValueError(f"{what} supports axis sizes {SIZES}, got {ny}")

@@ -12,7 +12,10 @@ kernels/fused_scan.py) run all slices of a batch of waves in one kernel
 launch; made with ``grad=True`` they differentiate through the whole-loop
 adjoint (kernels/adjoint_scan.py: one more launch for the backward pass,
 its memory bounded by checkpointed segments inside the kernel, so they
-take and ignore ``remat_chunk``).  psi may carry leading batch dimensions
+take and ignore ``remat_chunk``).  The panel engines (``"panel*"``,
+kernels/panel_scan.py) run the loop of a batch of waves as row and column
+passes over planes in device memory, one C call per rollout, on grids up
+to 4096^2; they are forward-only.  psi may carry leading batch dimensions
 (a tilt series, a chunk of probes), with V broadcast over them and P
 either shared or one per batch entry.
 """
@@ -58,8 +61,6 @@ _NOT_PORTED = {
     "mxu4_fast": "Queue 1 item 10 (dft.py four-step DFT engines)",
     "radix": "Queue 1 item 10 (radix.py mixed-radix FFT engines)",
     "radix_fast": "Queue 1 item 10 (radix.py mixed-radix FFT engines)",
-    "panel": "Queue 2 E13-E17 (panel_scan kernels)",
-    "panel_fast": "Queue 2 E13-E17 (panel_scan kernels)",
 }
 
 
@@ -69,8 +70,8 @@ def _resolve_auto(
     """The engine ``auto``/``auto_fast`` stand for (the port has one float32
     tier, so the two agree), from wall times on one NVIDIA H100 80GB HBM3 at
     700 W (chip_smoke.py phase engines: a 32-slice rollout and one gradient
-    evaluation at 128^2, 256^2, 512^2 and 1024^2, one wave and 16; PERF.md
-    section 5):
+    evaluation at 128^2, 256^2, 512^2 and 1024^2, one wave and 16, and a
+    32-slice rollout at 2048^2 and 4096^2; phase c5; PERF.md section 5):
 
     * forward on a square grid the whole-loop kernel takes: ``fscan``, the
       fastest in every row but 1024^2 x 16 waves, where ``fused`` led it by
@@ -80,8 +81,17 @@ def _resolve_auto(
       fastest in all eight rows (one wave: 2.2-3.8 ms against 9.0-14.5 ms on
       ``fused`` and 16.5-26.9 ms on ``pallas``/``xla``; 512^2 x 16: 9.2
       against 14.3; 1024^2 x 16: 40.4 against 46.3 ms);
-    * any other grid, and complex128 (the fused kernels are complex64):
-      ``pallas``, the only kernel engine that takes them.
+    * forward on square 2048^2 and 4096^2 grids: ``panel``, the fastest in
+      the three rows measured there, in every measurement (a 32-slice
+      rollout: 5.7-6.4 ms against 6.6-9.6 on ``pallas`` and 8.5-8.8 on
+      ``xla`` at 2048^2 x 1 wave; 19.8-20.3 against 24.2-25.0 and 28.0-28.6
+      at 2048^2 x 4; 24.7-25.0 against 27.3-28.0 and 34.9-35.5 at 4096^2 x
+      1), and on config 5 through the CLI (2048^2, 512 slices: 0.087-0.089 s
+      against 0.115-0.168 and 0.136-0.138);
+    * gradients there: ``pallas``, since the panel engine is forward-only
+      (its gradient is ROADMAP.md Queue 2 F);
+    * any other grid, and complex128 (the fused and panel kernels are
+      complex64): ``pallas``, the only kernel engine that takes them.
 
     The number of waves in a rollout did not change the order in any
     measured row, so it does not enter yet.
@@ -91,6 +101,8 @@ def _resolve_auto(
     ny, nx = shape
     if dtype == torch.complex64 and ny == nx and ny in SIZES:
         return "fscan"
+    if dtype == torch.complex64 and ny == nx and ny in (2048, 4096) and not grad:
+        return "panel"
     return "pallas"
 
 
@@ -118,17 +130,26 @@ def make_slice_step(
                plain scan when nothing requires a gradient.  With
                ``grad=False`` it is forward only and raises on an input that
                requires a gradient;
-    'fused_fast', 'fscan_fast', 'fscan_draft' — the JAX package's faster,
-               less exact tiers of those two.  The port's kernels compute in
-               float32 throughout, so these kinds run the same kernels as
-               'fused' and 'fscan': more exact than the tier asks for;
+    'panel'  — the slice loop as row and column passes over planes in device
+               memory, one ordinary kernel launch each, 2S + 1 per rollout
+               issued from C (kernels/panel_scan.py), for square
+               256/512/1024/2048/4096 grids: the engine of 2048^2 and 4096^2.
+               Forward only, whatever ``grad`` says: the panel gradient is
+               ROADMAP.md Queue 2 F, so it raises on an input that requires
+               a gradient;
+    'fused_fast', 'fscan_fast', 'fscan_draft', 'panel_fast' — the JAX
+               package's faster, less exact tiers of those three.  The port's
+               kernels compute in float32 throughout, so these kinds run the
+               same kernels as 'fused', 'fscan' and 'panel': more exact than
+               the tier asks for;
     'auto', 'auto_fast' — the engine measured fastest for ``shape`` and
-               ``grad`` on the H100 (_resolve_auto).  ``batch``, the number
+               ``grad`` on the H100 (_resolve_auto: ``fscan`` up to 1024^2,
+               ``panel`` forward at 2048^2 and 4096^2, else ``pallas``).  ``batch``, the number
                of waves in one rollout (a probe chunk, a tilt series), is
                taken for the callers of the JAX package's signature; no
                measured row depends on it yet.
 
-    ``shape`` is (ny, nx), needed by the fused, fscan and auto kinds;
+    ``shape`` is (ny, nx), needed by the fused, fscan, panel and auto kinds;
     ``dtype`` the complex working type (default complex64).  Every other
     kind of the JAX package raises NotImplementedError naming the ROADMAP.md
     item that ports it.
@@ -153,6 +174,12 @@ def make_slice_step(
         from .kernels.fused_scan import make_fused_scan
 
         return make_fused_scan(*shape, dtype=dtype or torch.complex64, kind=kind, grad=grad)
+    if kind in ("panel", "panel_fast"):
+        if shape is None:
+            raise ValueError(f"kind={kind!r} needs shape=(ny, nx)")
+        from .kernels.panel_scan import make_panel_scan
+
+        return make_panel_scan(*shape, dtype=dtype or torch.complex64, kind=kind)
     if kind in _NOT_PORTED:
         raise NotImplementedError(
             f"slice-step engine {kind!r} is not ported to fdes_tpu_torch yet "

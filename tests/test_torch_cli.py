@@ -214,6 +214,8 @@ def test_setup_on_cuda_raises_without_cuda(tmp_path):
         ("--set", "sim.phonon_configs=2"),
         ("--set", "sim.streamed=true", "--mode", "forward"),
         ("--set", 'mesh.axis_names=["grid"]', "--set", "mesh.shape=[1]"),
+        ("--mode", "invert", "--set", "sim.engine=panel"),
+        ("--mode", "invert", "--set", "sim.engine=panel_fast"),
     ],
 )
 def test_unported_modes_and_settings_exit_2(tmp_path, capsys, extra):
@@ -343,6 +345,37 @@ def test_cli_invert_on_fscan_equals_xla(tmp_path, case):
     with open(tmp_path / "fscan" / "timing.json") as fh:
         timing = json.load(fh)
     assert timing["engine"] == timing["engine_kind"] == "fscan" and timing["iterations"] == 3
+
+
+def test_cli_hrtem_on_panel_equals_xla(tmp_path):
+    """Mode hrtem on sim.engine=panel at 256^2, 4 slices: one panel_scan call
+    for the rollout (its plain passes here), timing.json names the engine,
+    and the images equal engine xla's."""
+    from fdes_tpu_torch.kernels import panel_scan as ps
+
+    cfg = _cfg(tmp_path / "c.toml")
+    args = ("--set", "sim.ny=256", "--set", "sim.nx=256", "--set", "sim.nslices=4")
+    calls = []
+    real = ps.panel_scan
+
+    def counted(*a, **k):
+        calls.append(a[1].shape)
+        return real(*a, **k)
+
+    ps.panel_scan = counted
+    try:
+        _run_port_cli(cfg, str(tmp_path / "panel"), *args, "--set", "sim.engine=panel")
+    finally:
+        ps.panel_scan = real
+    assert calls == [(4, 256, 256)]
+    _run_port_cli(cfg, str(tmp_path / "xla"), *args, "--set", "sim.engine=xla")
+    got = np.load(tmp_path / "panel" / "images.npy")
+    want = np.load(tmp_path / "xla" / "images.npy")
+    assert got.shape == (3, 256, 256)
+    assert _rel(got, want) <= GATE
+    with open(tmp_path / "panel" / "timing.json") as fh:
+        timing = json.load(fh)
+    assert timing["engine"] == timing["engine_kind"] == "panel"
 
 
 def test_cli_invert_resume_continues(tmp_path, capsys):

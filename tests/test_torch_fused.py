@@ -396,8 +396,9 @@ def test_fused_scan_rejects_bad_operands(fields):
 def test_auto_resolves_by_shape_grad_and_batch():
     """auto/auto_fast: on a grid the fused kernels take, a forward rollout
     and a gradient both go to the whole-loop engine (the gradient to its
-    grad-capable form); other grids go to the kernels around the library
-    FFT."""
+    grad-capable form); at 2048^2 and 4096^2 a forward rollout goes to the
+    panel engine and a gradient to the kernels around the library FFT (the
+    panel engine is forward-only); other grids go to the latter too."""
     from fdes_tpu_torch.kernels.slice_step import pallas_slice_step
 
     for kind in ("auto", "auto_fast"):
@@ -412,6 +413,15 @@ def test_auto_resolves_by_shape_grad_and_batch():
         assert tprop.make_slice_step(kind, shape=(512, 512), dtype=torch.complex128,
                                      grad=False) is pallas_slice_step
         assert tprop.make_slice_step(kind, shape=(256, 512), grad=False) is pallas_slice_step
+        for n in (2048, 4096):
+            for batch in (1, 4):
+                step = tprop.make_slice_step(kind, shape=(n, n), grad=False, batch=batch)
+                assert isinstance(step, fsc.WholeScanEngine) and step.kind == "panel"
+                assert not step.grad_capable
+            assert tprop.make_slice_step(kind, shape=(n, n), grad=True) is pallas_slice_step
+            assert tprop.make_slice_step(kind, shape=(n, n), dtype=torch.complex128,
+                                         grad=False) is pallas_slice_step
+        assert tprop.make_slice_step(kind, shape=(8192, 8192), grad=False) is pallas_slice_step
 
 
 # ---- on the card -------------------------------------------------------------

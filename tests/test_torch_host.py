@@ -175,6 +175,7 @@ sys.modules["jax"] = None
 sys.modules["fdes_tpu"] = None
 import fdes_tpu_torch
 names = [m.name for m in pkgutil.walk_packages(fdes_tpu_torch.__path__, "fdes_tpu_torch.")]
+assert "fdes_tpu_torch.kernels.panel_scan" in names, names
 for name in names:
     importlib.import_module(name)
 assert not any(k == "jax" or k.startswith(("jax.", "fdes_tpu.")) for k in sys.modules if sys.modules[k] is not None)

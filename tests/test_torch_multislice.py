@@ -188,9 +188,12 @@ def test_make_slice_step_kinds():
     assert tprop.make_slice_step("pallas") is pallas_slice_step
     for kind in ("auto", "auto_fast"):  # a grid the fused kernels do not take
         assert tprop.make_slice_step(kind, shape=(96, 96)) is pallas_slice_step
-    for kind in ("mxu", "mxu_fast", "mxu4", "radix", "radix_fast", "panel", "panel_fast"):
+    for kind in ("mxu", "mxu_fast", "mxu4", "radix", "radix_fast"):
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             tprop.make_slice_step(kind)
+    for kind in ("panel", "panel_fast"):
+        step = tprop.make_slice_step(kind, shape=(256, 256))
+        assert hasattr(step, "whole_scan") and step.kind == kind and not step.grad_capable
     for kind in ("fused", "fused_fast"):
         assert callable(tprop.make_slice_step(kind, shape=(128, 128)))
     for kind in ("fscan", "fscan_fast", "fscan_draft"):
