@@ -31,9 +31,13 @@ Phases, each printing one JSON line:
              at 2048^2 x 8 slices (real and absorptive V) and 256^2 x 3 (2
              waves, per-wave P), each pass timed at 2048^2 and 4096^2, and
              the cooperative scans' shared memory and resident blocks held to
-             what they were before the panel kernels shared their header.  ``--only kernels_slice`` (or
-             ``kernels_fused``, ``kernels_adjoint``, ``kernels_panel``) runs
-             one of the four groups alone.
+             what they were before the panel kernels shared their header.
+             The panel gradient's seven passes at the same shapes, its store
+             pair at 2048^2 x 8 slices and 256^2 x 2 waves x 3 slices (dV
+             bitwise equal over two runs), each pass timed at 2048^2 and
+             4096^2.  ``--only kernels_slice`` (or ``kernels_fused``,
+             ``kernels_adjoint``, ``kernels_panel``, ``kernels_panel_grad``)
+             runs one of the five groups alone.
 3. golden  — the port's multislice (engine "pallas", complex64) against the
              frozen f64 golden pack (golden/si110_golden_pack.npz): exit wave
              and three HRTEM images at relative error <= 1e-5; and the
@@ -93,10 +97,20 @@ Phases, each printing one JSON line:
              against a complex128 rollout, the images against "xla"; then a
              4-tilt series and the absorptive series (first defocus only)
              and a 2x2 STEM raster at 64 slices, "panel" against "xla".
-11. engines — wall time of a 32-slice rollout and of one gradient evaluation
-             per engine at 128^2 to 1024^2, one wave and 16, and of a forward
-             rollout on "panel", "pallas" and "xla" at 2048^2 (1 and 4 waves)
-             and 4096^2: the rows that
+11. c5_invert — config 5's inverse at full width: ``fdes_tpu_torch.cli.main
+             --mode invert`` at 2048^2, 512 slices, 8 defoci, 20 adam
+             iterations on engine "panel" (one panel_scan for the self-test
+             series, then 2,050 panel passes per iteration, asserted) and one
+             on "xla", first losses held to each other; it/s, setup, peak
+             memory; one gradient of the config-5 loss on "panel" against
+             "xla"'s (loss and dV), its device busy time, the rollout's
+             gradient free of FFT library kernels (its kernels counted at 64
+             slices); the per-slice route (the store cap patched) against the
+             store route at 64 slices.
+12. engines — wall time of a 32-slice rollout and of one gradient evaluation
+             per engine at 128^2 to 1024^2, one wave and 16, and on "panel",
+             "pallas" and "xla" at 2048^2 (1 and 4 waves) and 4096^2: the
+             rows that
              ``make_slice_step("auto")`` picks its engine from; and the two
              whole-loop adjoints (stored s_j against checkpointed segments)
              at 512^2 over 64-512 slices and 1-64 waves, wall and peak memory:
@@ -114,6 +128,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -125,7 +140,7 @@ import torch
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 PHASES = ("build", "kernels", "golden", "hrtem", "absorptive", "grad", "invert", "stem",
-          "stem4d", "c5", "engines")
+          "stem4d", "c5", "c5_invert", "engines")
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 PEAK_OPS_PER_S = {torch.float32: 67e12, torch.float64: 34e12}  # non-tensor-core FP32 / FP64
 KERNEL_TOL = {torch.complex64: 2e-6, torch.complex128: 1e-12}  # max|k - ref| / max|ref|
@@ -189,14 +204,15 @@ def all_finite(got) -> bool:
 
 def wrappers() -> tuple:
     """Every kernel wrapper of the port, in the kernel table's order, and
-    panel_scan, which launches the panel passes of a whole rollout."""
+    panel_scan, panel_scan_store and panel_scan_bwd_store, which launch the
+    panel passes of a whole loop."""
     from fdes_tpu_torch.kernels import adjoint_scan as adj
     from fdes_tpu_torch.kernels import fused_scan as fsc
     from fdes_tpu_torch.kernels import fused_step as fs
     from fdes_tpu_torch.kernels import panel_scan as ps
     from fdes_tpu_torch.kernels import slice_step as ks
 
-    return (*ks.WRAPPERS, *fs.WRAPPERS, fsc.fused_scan, *adj.WRAPPERS, *ps.WRAPPERS, ps.panel_scan)
+    return (*ks.WRAPPERS, *fs.WRAPPERS, fsc.fused_scan, *adj.WRAPPERS, *ps.WRAPPERS, *ps.LOOPS)
 
 
 def launch_counts() -> dict:
@@ -366,6 +382,7 @@ def profiled_kernels(fn, attempts: int = 3) -> list[tuple[str, float]]:
     best: list[tuple[str, float]] = []
     for _ in range(attempts):
         torch.cuda.synchronize()
+        torch.cuda.empty_cache()  # leave the profiler's own buffers room on a full card
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             # it loses the first kernels of a trace most often: lead with
             # throwaway sleep kernels, left out of the result
@@ -396,7 +413,8 @@ def device_kernels(fn) -> dict[str, int]:
 
 OWN_KERNELS = ("row_pass_kernel", "col_pass_kernel", "bwd_tail_kernel", "scan_kernel",
                "scan_store_kernel", "scan_bwd_store_kernel", "scan_ck_kernel",
-               "scan_bwd_ck_kernel", "panel_row_kernel", "panel_col_kernel")
+               "scan_bwd_ck_kernel", "panel_row_kernel", "panel_col_kernel",
+               "panel_bwd_row_kernel")
 
 
 def own_kernels(kernels: dict[str, int]) -> dict[str, int]:
@@ -424,8 +442,8 @@ def expect_own_kernels(name: str, fn, want: dict[str, int],
         if got == want:
             return kernels if everything else got
         time.sleep(0.5)
-    raise AssertionError(f"{name}: one call launched {got}, expected {want}; all kernels: "
-                         f"{kernels}")
+    raise AssertionError(f"{name}: all kernels of one call: {kernels}; one call launched "
+                         f"{got}, expected {want}")
 
 
 def fft2_ops(n: int) -> float:
@@ -722,6 +740,108 @@ def phase_kernels_adjoint() -> tuple[dict, dict]:
     return {"phase": "kernels_adjoint", "checks": checks}, rows
 
 
+class CardInputs:
+    """Random inputs made on the card from a seed: complex64 planes, float32
+    potentials in [0, top), unit-modulus phase planes (propagators)."""
+
+    def __init__(self, seed: int):
+        self.gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def cplx(self, *shape):
+        return torch.randn(shape, generator=self.gen, device="cuda", dtype=torch.complex64)
+
+    def real(self, *shape, top=2000.0):
+        return top * torch.rand(shape, generator=self.gen, device="cuda", dtype=torch.float32)
+
+    def phases(self, *shape):
+        return torch.polar(torch.ones(shape, device="cuda"), self.real(*shape, top=6.28))
+
+
+def check_kernel(checks: list, name, shape, got, want, tol, **more) -> tuple[float, float]:
+    """Hold a complex64 kernel's outputs to its plain version's (max_errors
+    within tol, finite), append the check to ``checks``, raise if it fails."""
+    torch.cuda.synchronize()
+    abs_err, rel = max_errors(got, want)
+    ok = rel <= tol and all_finite(got)
+    checks.append({"kernel": name, "dtype": "complex64", "shape": list(shape),
+                   "max_abs_err": abs_err, "max_rel_err": rel, "tol": tol, "ok": ok, **more})
+    if not ok:
+        raise AssertionError(f"kernel {name} {shape} {more}: rel err {rel:.3e} > {tol:.1e}")
+    return abs_err, rel
+
+
+#: (n, leading batch shape, one propagator per wave) of the panel pass checks
+PANEL_SHAPES = ((256, (), False), (256, (2,), False), (256, (2,), True), (2048, (), False),
+                (2048, (2,), False), (2048, (2,), True), (4096, (), False))
+#: the info key (panel_kernel_info) of each kernel family
+PANEL_INFO_KEY = {"panel_row_kernel": "row", "panel_col_kernel": "col",
+                  "panel_bwd_row_kernel": "bwd_row"}
+
+
+def panel_pass_rows(checks: list, passes, cost, replaces: dict,
+                    kernel_of: dict) -> tuple[dict, dict]:
+    """The panel passes ``passes(n, lead, per_wave_p)`` returns ({name:
+    (kernel, plain)}, the column pass's kernel alone on a prepared P) held
+    to their plain versions at PANEL_SHAPES, then each timed at 2048^2 and
+    4096^2 (one wave; the column pass without P's gather, as the rollout
+    runs it) beside its bound from ``cost(n)`` ({name: (bytes,
+    operations)}); ``kernel_of``: the kernel family of each name not of
+    panel_row_kernel.  Returns (table rows, kernel info by n)."""
+    from fdes_tpu_torch.kernels import panel_scan as ps
+
+    f32 = torch.float32
+    errs = {}
+    for n, lead, per_wave_p in PANEL_SHAPES:
+        cases, _ = passes(n, lead, per_wave_p)
+        for name, (kern, ref) in cases.items():
+            err = check_kernel(checks, name, (*lead, n, n), kern(), ref(), FUSED_TOL,
+                               per_wave_p=per_wave_p)
+            if not lead and n == 2048:
+                errs[name] = err
+        del cases
+    family = {name: kernel_of.get(name, "panel_row_kernel") for name in replaces}
+    times, info = {}, {}
+    for n in (2048, 4096):
+        cases, col_kernel = passes(n, (), False)
+        col = next(name for name in cases if family[name] == "panel_col_kernel")
+        cases[col] = (col_kernel, cases[col][1])
+        for name, (kern, ref) in cases.items():
+            nbytes, ops = cost(n)[name]
+            t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / PEAK_OPS_PER_S[f32] * 1e3
+            times[(name, n)] = {
+                "ms": time_launches(kern, n=20, warmup=3),
+                "plain_ms": time_launches(ref, n=10, warmup=2),
+                "bound_ms": max(t_bytes, t_ops),
+                "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                "bytes": nbytes, "operations": ops,
+                "kernels_per_call": expect_own_kernels(name, kern, {family[name]: 1}),
+            }
+        info[n] = {k: ps.panel_kernel_info(n, k) for k in sorted(set(
+            PANEL_INFO_KEY[f] for f in family.values()))}
+        del cases, col_kernel
+    rows = {}
+    for name in replaces:
+        t, t4 = times[(name, 2048)], times[(name, 4096)]
+        rows[name] = {
+            "name": name, "route": "cuda", "source": "fdes_tpu_torch/csrc/panel_scan.cu",
+            "replaces": replaces[name], "launches": None,
+            "max_abs_err": errs[name][0], "max_rel_err": errs[name][1],
+            "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"], "library_ms": None, "shape": [2048, 2048],
+            "dtype": "complex64", "bytes": t["bytes"], "operations": t["operations"],
+            "at_4096": {k: t4[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
+            "kernels_per_call": t["kernels_per_call"],
+            "kernel": info[2048][PANEL_INFO_KEY[family[name]]],
+        }
+    return rows, info
+
+
+def panel_cost(n: int) -> tuple[int, float]:
+    """(bytes of one complex64 plane, operations of one 1-D transform of every
+    row or column) at n^2."""
+    return n * n, 5.0 * n * n * np.log2(n)
+
+
 def phase_kernels_panel() -> tuple[dict, dict]:
     """The panel passes (rows 13-19) against their plain versions at 256^2,
     2048^2 (one wave and two, shared and per-wave P) and 4096^2 (one wave),
@@ -731,36 +851,16 @@ def phase_kernels_panel() -> tuple[dict, dict]:
     from fdes_tpu_torch.kernels import fused_scan as fsc
     from fdes_tpu_torch.kernels import panel_scan as ps
 
-    gen = torch.Generator(device="cuda").manual_seed(6)  # inputs made on the card
-    f32 = torch.float32
+    card = CardInputs(6)
     sigma = 6.5e-4  # rad/(V A) at 300 kV, phases sigma * V of up to 1.3 rad
-    checks, rows = [], {}
-
-    def cplx(*shape):
-        return torch.randn(shape, generator=gen, device="cuda", dtype=torch.complex64)
-
-    def real(*shape, top=2000.0):
-        return top * torch.rand(shape, generator=gen, device="cuda", dtype=f32)
-
-    def phases(*shape):
-        return torch.polar(torch.ones(shape, device="cuda"), real(*shape, top=6.28))
-
-    def check(name, shape, got, want, tol, **more):
-        torch.cuda.synchronize()
-        abs_err, rel = max_errors(got, want)
-        ok = rel <= tol and all_finite(got)
-        checks.append({"kernel": name, "dtype": "complex64", "shape": list(shape),
-                       "max_abs_err": abs_err, "max_rel_err": rel, "tol": tol, "ok": ok, **more})
-        if not ok:
-            raise AssertionError(f"kernel {name} {shape} {more}: rel err {rel:.3e} > {tol:.1e}")
-        return abs_err, rel
+    checks = []
 
     def passes(n, lead, per_wave_p):
         """{name: (kernel, plain)} of the seven passes on one set of inputs,
         and the column pass's kernel alone (the propagator gathered once)."""
-        psi, a = cplx(*lead, n, n), cplx(*lead, n, n)
-        vs, vi = real(3, n, n), real(3, n, n, top=200.0)
-        pr = phases(*(lead if per_wave_p else ()), n, n)
+        psi, a = card.cplx(*lead, n, n), card.cplx(*lead, n, n)
+        vs, vi = card.real(3, n, n), card.real(3, n, n, top=200.0)
+        pr = card.phases(*(lead if per_wave_p else ()), n, n)
         pp = ps.prepare_propagator(pr)
         return {
             "panel_init": (lambda: ps.panel_init(vs[0], psi, sigma),
@@ -779,34 +879,18 @@ def phase_kernels_panel() -> tuple[dict, dict]:
                 lambda: ps.panel_rowpass_stack_abs_ref(1, vs, vi, a, sigma)),
         }, lambda: ps._colpass(a, pp)
 
-    errs = {}
-    for n, lead, per_wave_p in ((256, (), False), (256, (2,), False), (256, (2,), True),
-                                (2048, (), False), (2048, (2,), False), (2048, (2,), True),
-                                (4096, (), False)):
-        cases, _ = passes(n, lead, per_wave_p)
-        for name, (kern, ref) in cases.items():
-            err = check(name, (*lead, n, n), kern(), ref(), FUSED_TOL, per_wave_p=per_wave_p)
-            if not lead and n == 2048:
-                errs[name] = err
-        del cases
+    def cost(n):  # name: (bytes, operations): each input read once, each output written once
+        plane, fx = panel_cost(n)
+        return {
+            "panel_init": (plane * (8 + 4 + 8), fx + 9 * plane),
+            "panel_colpass": (plane * (8 + 8 + 8), 2 * fx + 6 * plane),
+            "panel_rowpass_stack": (plane * (8 + 4 + 8), 2 * fx + 9 * plane),
+            "panel_rowpass": (plane * (8 + 4 + 8), 2 * fx + 9 * plane),
+            "panel_final": (plane * (8 + 8), fx),
+            "panel_init_abs": (plane * (8 + 4 + 4 + 8), fx + 13 * plane),
+            "panel_rowpass_stack_abs": (plane * (8 + 4 + 4 + 8), 2 * fx + 13 * plane),
+        }
 
-    # ---- the rollout: 2048^2 x 8 slices, real and absorptive V; 256^2 x 3
-    # slices with two waves and a per-wave propagator
-    n = 2048
-    psi0 = torch.polar(torch.ones((n, n), device="cuda"), real(n, n, top=1.0))
-    vs, prop = real(8, n, n), phases(n, n)
-    for v in (vs, torch.complex(vs, 0.1 * vs)):
-        check("panel_scan", (8, n, n), ps.panel_scan(psi0, v, prop, sigma),
-              ps.panel_scan_ref(psi0, v, prop, sigma), scan_tol(8), absorptive=v.is_complex())
-    psi_b, pr_b, v_b = cplx(2, 256, 256), phases(2, 256, 256), real(3, 256, 256)
-    check("panel_scan", (2, 3, 256, 256), ps.panel_scan(psi_b, v_b, pr_b, sigma),
-          ps.panel_scan_ref(psi_b, v_b, pr_b, sigma), scan_tol(3), per_wave_p=True)
-    rollout_kernels = expect_own_kernels(
-        "panel_scan", lambda: ps.panel_scan(psi0, vs, prop, sigma),
-        {"panel_row_kernel": 9, "panel_col_kernel": 8})
-    del psi0, vs, prop
-
-    # ---- per-pass times at 2048^2 and 4096^2, one wave
     replaces = {
         "panel_init": "fdes_tpu/pallas/panel_scan.py:82",
         "panel_colpass": "fdes_tpu/pallas/panel_scan.py:247",
@@ -816,50 +900,26 @@ def phase_kernels_panel() -> tuple[dict, dict]:
         "panel_init_abs": "fdes_tpu/pallas/panel_scan.py:150",
         "panel_rowpass_stack_abs": "fdes_tpu/pallas/panel_scan.py:171",
     }
-    times, info = {}, {}
-    for n in (2048, 4096):
-        cases, colpass_kernel = passes(n, (), False)
-        # the column pass's time is its kernel's: the propagator is gathered
-        # into the kernels' order before the timed calls
-        cases["panel_colpass"] = (colpass_kernel, cases["panel_colpass"][1])
-        plane, fx = n * n, 5.0 * n * n * np.log2(n)  # one 1-D transform of every row or column
-        cost = {  # name: (bytes, operations): each input read once, each output written once
-            "panel_init": (plane * (8 + 4 + 8), fx + 9 * plane),
-            "panel_colpass": (plane * (8 + 8 + 8), 2 * fx + 6 * plane),
-            "panel_rowpass_stack": (plane * (8 + 4 + 8), 2 * fx + 9 * plane),
-            "panel_rowpass": (plane * (8 + 4 + 8), 2 * fx + 9 * plane),
-            "panel_final": (plane * (8 + 8), fx),
-            "panel_init_abs": (plane * (8 + 4 + 4 + 8), fx + 13 * plane),
-            "panel_rowpass_stack_abs": (plane * (8 + 4 + 4 + 8), 2 * fx + 13 * plane),
-        }
-        for name, (kern, ref) in cases.items():
-            nbytes, ops = cost[name]
-            t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / PEAK_OPS_PER_S[f32] * 1e3
-            times[(name, n)] = {
-                "ms": time_launches(kern, n=20, warmup=3),
-                "plain_ms": time_launches(ref, n=10, warmup=2),
-                "bound_ms": max(t_bytes, t_ops),
-                "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-                "bytes": nbytes, "operations": ops,
-                "kernels_per_call": expect_own_kernels(
-                    name, kern,
-                    {"panel_col_kernel" if name == "panel_colpass" else "panel_row_kernel": 1}),
-            }
-        info[n] = {k: ps.panel_kernel_info(n, k) for k in ("row", "col")}
-        del cases, colpass_kernel
-    for name in replaces:
-        t, t4 = times[(name, 2048)], times[(name, 4096)]
-        rows[name] = {
-            "name": name, "route": "cuda", "source": "fdes_tpu_torch/csrc/panel_scan.cu",
-            "replaces": replaces[name], "launches": None,
-            "max_abs_err": errs[name][0], "max_rel_err": errs[name][1],
-            "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
-            "bound_by": t["bound_by"], "library_ms": None, "shape": [2048, 2048],
-            "dtype": "complex64", "bytes": t["bytes"], "operations": t["operations"],
-            "at_4096": {k: t4[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
-            "kernels_per_call": t["kernels_per_call"],
-            "kernel": info[2048]["col" if name == "panel_colpass" else "row"],
-        }
+    rows, info = panel_pass_rows(checks, passes, cost, replaces,
+                                 {"panel_colpass": "panel_col_kernel"})
+
+    # ---- the rollout: 2048^2 x 8 slices, real and absorptive V; 256^2 x 3
+    # slices with two waves and a per-wave propagator
+    n = 2048
+    psi0 = torch.polar(torch.ones((n, n), device="cuda"), card.real(n, n, top=1.0))
+    vs, prop = card.real(8, n, n), card.phases(n, n)
+    for v in (vs, torch.complex(vs, 0.1 * vs)):
+        check_kernel(checks, "panel_scan", (8, n, n), ps.panel_scan(psi0, v, prop, sigma),
+                     ps.panel_scan_ref(psi0, v, prop, sigma), scan_tol(8),
+                     absorptive=v.is_complex())
+    psi_b, pr_b, v_b = card.cplx(2, 256, 256), card.phases(2, 256, 256), card.real(3, 256, 256)
+    check_kernel(checks, "panel_scan", (2, 3, 256, 256), ps.panel_scan(psi_b, v_b, pr_b, sigma),
+                 ps.panel_scan_ref(psi_b, v_b, pr_b, sigma), scan_tol(3), per_wave_p=True)
+    rollout_kernels = expect_own_kernels(
+        "panel_scan", lambda: ps.panel_scan(psi0, vs, prop, sigma),
+        {"panel_row_kernel": 9, "panel_col_kernel": 8})
+    del psi0, vs, prop
+
     line = {"phase": "kernels_panel", "checks": checks, "rollout_kernels_per_call": rollout_kernels,
             "panel_kernel_info": info,
             "scan_kernel_info": {n: fsc.scan_kernel_info(n) for n in (512, 1024)},
@@ -876,6 +936,105 @@ def phase_kernels_panel() -> tuple[dict, dict]:
         if got["shared_bytes"] > shared or got["resident_blocks"] < per_sm * sms:
             raise AssertionError(f"{kernel} at {n}^2 grew: {got}, expected at most {shared} B "
                                  f"and {per_sm} blocks per SM")
+    return line, rows
+
+
+def phase_kernels_panel_grad() -> tuple[dict, dict]:
+    """The panel gradient's passes (rows 20-26) against their plain versions
+    at 256^2, 2048^2 (one wave and two, shared and per-wave P) and 4096^2
+    (one wave); the store pair against the plain recursion on an 8-slice
+    rollout at 2048^2 (one wave) and a 3-slice one at 256^2 (two waves,
+    per-wave P), dV and dpsi0 bitwise equal over two runs; per-pass times at
+    2048^2 and 4096^2 (one wave) beside their bounds; returns (phase line,
+    table rows)."""
+    from fdes_tpu_torch.kernels import panel_scan as ps
+
+    card = CardInputs(7)
+    sigma = 6.5e-4  # rad/(V A) at 300 kV, phases sigma * V of up to 1.3 rad
+    checks = []
+
+    def passes(n, lead, per_wave_p):
+        """{name: (kernel, plain)} of the seven passes on one set of inputs
+        (dV and dpsi or s are held together), and the conjugate column
+        pass's kernel alone (the propagator gathered once)."""
+        psi, a, s0 = card.cplx(*lead, n, n), card.cplx(*lead, n, n), card.cplx(*lead, n, n)
+        vs, s = card.real(3, n, n), card.cplx(*lead, 3, n, n)
+        pr = card.phases(*(lead if per_wave_p else ()), n, n)
+        pp = ps.prepare_propagator(pr)
+        return {
+            "panel_rowfwd": (lambda: ps.panel_rowfwd(a), lambda: ps.panel_rowfwd_ref(a)),
+            "panel_bwd_tail": (lambda: ps.panel_bwd_tail(vs[1], psi, a, sigma),
+                               lambda: ps.panel_bwd_tail_ref(vs[1], psi, a, sigma)),
+            "panel_init_store": (lambda: ps.panel_init_store(vs[0], psi, sigma),
+                                 lambda: ps.panel_init_store_ref(vs[0], psi, sigma)),
+            "panel_rowpass_stack_store": (
+                lambda: ps.panel_rowpass_stack_store(2, vs, a, sigma),
+                lambda: ps.panel_rowpass_stack_store_ref(2, vs, a, sigma)),
+            "panel_col_bwd": (lambda: ps.panel_col_bwd(a, pr),
+                              lambda: ps.panel_col_bwd_ref(a, pr)),
+            "panel_row_bwd_loop": (lambda: ps.panel_row_bwd_loop(2, vs, s, a, sigma),
+                                   lambda: ps.panel_row_bwd_loop_ref(2, vs, s, a, sigma)),
+            "panel_row_bwd_last": (lambda: ps.panel_row_bwd_last(vs[0], s0, a, sigma),
+                                   lambda: ps.panel_row_bwd_last_ref(vs[0], s0, a, sigma)),
+        }, lambda: ps._colpass(a, pp, conj=True)
+
+    def cost(n):  # name: (bytes, operations): each input read once, each output written once
+        plane, fx = panel_cost(n)
+        return {
+            "panel_rowfwd": (plane * (8 + 8), fx),
+            "panel_bwd_tail": (plane * (8 + 8 + 4 + 8 + 4), fx + 22 * plane),
+            "panel_init_store": (plane * (8 + 4 + 8 + 8), fx + 9 * plane),
+            "panel_rowpass_stack_store": (plane * (8 + 4 + 8 + 8), 2 * fx + 9 * plane),
+            "panel_col_bwd": (plane * (8 + 8 + 8), 2 * fx + 6 * plane),
+            "panel_row_bwd_loop": (plane * (8 + 8 + 4 + 8 + 4), 2 * fx + 13 * plane),
+            "panel_row_bwd_last": (plane * (8 + 8 + 4 + 8 + 4), fx + 13 * plane),
+        }
+
+    replaces = {
+        "panel_rowfwd": "fdes_tpu/pallas/panel_scan.py:206",
+        "panel_bwd_tail": "fdes_tpu/pallas/panel_scan.py:219",
+        "panel_init_store": "fdes_tpu/pallas/panel_scan.py:582",
+        "panel_rowpass_stack_store": "fdes_tpu/pallas/panel_scan.py:603",
+        "panel_col_bwd": "fdes_tpu/pallas/panel_scan.py:626",
+        "panel_row_bwd_loop": "fdes_tpu/pallas/panel_scan.py:650",
+        "panel_row_bwd_last": "fdes_tpu/pallas/panel_scan.py:679",
+    }
+    bwd = "panel_bwd_row_kernel"
+    rows, info = panel_pass_rows(
+        checks, passes, cost, replaces,
+        {"panel_col_bwd": "panel_col_kernel", "panel_bwd_tail": bwd, "panel_row_bwd_loop": bwd,
+         "panel_row_bwd_last": bwd})
+
+    # ---- the store pair: 2048^2 x 8 slices, one wave; 256^2 x 3, two waves
+    # with a per-wave propagator; dV and dpsi0 the same bits in two runs
+    bitwise = {}
+    for n, b, nslices, per_wave_p in ((2048, 1, 8, False), (256, 2, 3, True)):
+        psi0 = torch.polar(torch.ones((b, n, n), device="cuda"), card.real(b, n, n, top=1.0))
+        vs, g = card.real(nslices, n, n), card.cplx(b, n, n)
+        prop = card.phases(*((b,) if per_wave_p else ()), n, n)
+        out, s = ps.panel_scan_store(psi0, vs, prop, sigma)
+        check_kernel(checks, "panel_scan_store", (b, nslices, n, n), (out, s),
+                     ps.panel_scan_store_ref(psi0, vs, prop, sigma), scan_tol(nslices),
+                     per_wave_p=per_wave_p)
+        got = ps.panel_scan_bwd_store(s, vs, prop, g, sigma)
+        check_kernel(checks, "panel_scan_bwd_store", (b, nslices, n, n), got,
+                     ps.panel_scan_bwd_store_ref(s, vs, prop, g, sigma), scan_tol(nslices),
+                     per_wave_p=per_wave_p)
+        again = ps.panel_scan_bwd_store(s, vs, prop, g, sigma)
+        bitwise[f"{b}x{nslices}x{n}"] = all(torch.equal(x, y) for x, y in zip(got, again))
+        if n == 2048:
+            store_kernels = expect_own_kernels(
+                "panel_scan_store", lambda: ps.panel_scan_store(psi0, vs, prop, sigma),
+                {"panel_row_kernel": nslices + 1, "panel_col_kernel": nslices})
+            bwd_kernels = expect_own_kernels(
+                "panel_scan_bwd_store", lambda: ps.panel_scan_bwd_store(s, vs, prop, g, sigma),
+                {"panel_row_kernel": 1, "panel_col_kernel": nslices, bwd: nslices})
+        del psi0, vs, g, prop, out, s, got, again
+    if not all(bitwise.values()):
+        raise AssertionError(f"panel_scan_bwd_store: two runs differ: {bitwise}")
+    line = {"phase": "kernels_panel_grad", "checks": checks, "dv_bitwise_equal": bitwise,
+            "store_kernels_per_call": store_kernels, "bwd_kernels_per_call": bwd_kernels,
+            "panel_kernel_info": info}
     return line, rows
 
 
@@ -1258,10 +1417,10 @@ def phase_grad(gpu: str) -> tuple[dict, dict]:
     return line, launches
 
 
-def read_losses(out: str) -> list[float]:
+def read_losses(out: str, iterations: int = INVERT_ITERS) -> list[float]:
     with open(os.path.join(out, "metrics.jsonl")) as fh:
         rows = [json.loads(line) for line in fh]
-    if [r["iter"] for r in rows] != list(range(INVERT_ITERS)):
+    if [r["iter"] for r in rows] != list(range(iterations)):
         raise AssertionError(f"{out}/metrics.jsonl iterations {[r['iter'] for r in rows]}")
     return [r["loss"] for r in rows]
 
@@ -1301,7 +1460,7 @@ def phase_invert(tmp: str, gpu: str, grad_busy_ms: dict) -> tuple[dict, dict]:
     line = {
         "phase": "invert", "config": "examples/si110_hrtem.toml", "iterations": n,
         "remat_chunk": chunk, "launches": launches, "losses": losses,
-        "first_loss_rel_err_vs_xla": first_err, "gate": GATE,
+        "first_loss_rel_err_vs_xla": first_err, "tol": C5_GRAD_TOL,
         "reconstruction_rel_diff_vs_xla": {
             e: float(np.linalg.norm(v_rec[e] - v_rec["xla"]) / np.linalg.norm(v_rec["xla"]))
             for e in engines},
@@ -1697,6 +1856,187 @@ def phase_c5(tmp: str, gpu: str) -> tuple[dict, dict]:
     return line, launches
 
 
+C5_SLICES = 512
+# Config 5's losses and dV on panel against xla's (relative): two float32
+# rollouts of 512 slices, each ~3e-5 from complex128, whose images stand
+# ~4e-5 apart (phase c5, held to 2e-4 there); the loss squares the residual
+# and the self-test series each engine synthesises differs by as much, so
+# the 1e-5 of config 1's 16 slices is out of reach (first loss 7.3e-5 on the
+# H100); held to the images' 2e-4.
+C5_GRAD_TOL = 2e-4
+
+
+def c5_invert_expected(zero: dict, nslices: int, iterations: int) -> dict:
+    """The panel wrappers' counts of config 5's inverse on panel: the
+    self-test series (one panel_scan), then per iteration the store pair."""
+    return {**zero, "panel_scan": 1, "panel_init": 1, "panel_rowpass_stack": nslices - 1,
+            "panel_colpass": nslices * (1 + iterations), "panel_final": 1 + iterations,
+            "panel_scan_store": iterations, "panel_init_store": iterations,
+            "panel_rowpass_stack_store": iterations * (nslices - 1),
+            "panel_scan_bwd_store": iterations, "panel_rowfwd": iterations,
+            "panel_col_bwd": iterations * nslices,
+            "panel_row_bwd_loop": iterations * (nslices - 1), "panel_row_bwd_last": iterations}
+
+
+def rel_norm_by_slice(a: torch.Tensor, b: torch.Tensor) -> float:
+    """rel_norm of two (S, n, n) stacks, a slice at a time in float64 (a
+    float64 copy of a config-5 stack is 16 GiB)."""
+    num = den = 0.0
+    for x, y in zip(a, b):
+        num += float(torch.linalg.vector_norm((x - y).double()) ** 2)
+        den += float(torch.linalg.vector_norm(y.double()) ** 2)
+    return (num / den) ** 0.5
+
+
+def phase_c5_invert(tmp: str, gpu: str) -> tuple[dict, dict]:
+    """Config 5's inverse through cli.main --mode invert on panel (2048^2,
+    512 slices, 8 defoci, INVERT_ITERS adam iterations) and one iteration on
+    xla: launches asserted, first losses against each other; then one
+    gradient of the config-5 loss on panel against xla's, its device busy
+    time, the rollout's gradient free of FFT library kernels (its kernels
+    counted at 64 slices), and the per-slice route (the store cap patched to
+    0) against the store route at 64 slices.  Returns (line, launches of the
+    store and per-slice runs)."""
+    from fdes_tpu_torch.config import apply_overrides, load_config
+    from fdes_tpu_torch.forward import hrtem_defocus_series
+    from fdes_tpu_torch.kernels import adjoint_scan as adj
+    from fdes_tpu_torch.loss import make_loss
+    from fdes_tpu_torch.pipeline import setup
+    from fdes_tpu_torch.propagate import make_slice_step, multislice, pick_remat_chunk
+
+    zero = dict.fromkeys(launch_counts(), 0)
+    s, iters = C5_SLICES, INVERT_ITERS
+    runs, launches, losses = {}, {}, {}
+    for engine, n_it in (("panel", iters), ("xla", 1)):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        out, timing = run_cli(tmp, f"c5inv_{engine}", *C5, "--mode", "invert", "--set",
+                              f"recon.iterations={n_it}", "--set", f"sim.engine={engine}")
+        launches[engine] = launch_counts()
+        timing["peak_bytes"] = torch.cuda.max_memory_allocated()
+        losses[engine] = read_losses(out, n_it)
+        v_rec = np.load(os.path.join(out, "reconstructed.npy"), mmap_mode="r")
+        if v_rec.shape != (s, 2048, 2048) or not np.isfinite(v_rec).all():
+            raise AssertionError(f"c5 invert {engine}: reconstructed.npy {v_rec.shape} not finite")
+        del v_rec
+        shutil.rmtree(out)  # V, Adam's moments and the reconstruction: 32 GiB on disk
+        runs[engine] = timing
+    expect = c5_invert_expected(zero, s, iters)
+    if launches["panel"] != expect:
+        raise AssertionError(f"c5 invert launches {launches['panel']}, expected {expect}")
+    if launches["xla"] != zero or runs["panel"]["engine_kind"] != "panel":
+        raise AssertionError(f"c5 invert: xla launched {launches['xla']}; {runs['panel']}")
+    ls = losses["panel"]
+    if not (np.isfinite(ls).all() and ls[-1] < ls[0]):
+        raise AssertionError(f"c5 invert on panel: losses not finite and falling: {ls}")
+    first_err = abs(ls[0] - losses["xla"][0]) / abs(losses["xla"][0])
+    if not first_err <= C5_GRAD_TOL:
+        raise AssertionError(f"c5 invert first loss panel vs xla: {first_err:.3e}")
+    grad_passes = sum(c for k, c in launches["panel"].items() if k in (
+        "panel_init_store", "panel_colpass", "panel_rowpass_stack_store", "panel_final",
+        "panel_rowfwd", "panel_col_bwd", "panel_row_bwd_loop", "panel_row_bwd_last"))
+    grad_passes -= s + 1  # the self-test series' column and final passes
+
+    # ---- one gradient of the config-5 loss at V = V_true / 2, panel against xla
+    cfg = apply_overrides(load_config(CONFIG), [a for a in C5 if a != "--set"])
+    sim = setup(cfg, device="cuda")
+    steps = {e: make_slice_step(e, shape=sim.grid.shape, grad=True) for e in ("panel", "xla")}
+    chunk = pick_remat_chunk(s)
+
+    def fwd(engine):
+        return lambda v: hrtem_defocus_series(v, sim.psi0, sim.propagator, sim.sigma,
+                                              sim.ctf_stack, remat_chunk=chunk,
+                                              slice_step=steps[engine])
+
+    def grad(engine, v, i_obs):
+        def run():
+            vv = v.detach().requires_grad_(True)
+            loss = make_loss(fwd(engine), i_obs)(vv)
+            loss.backward()
+            return loss.detach(), vv.grad
+        return run
+
+    with torch.no_grad():
+        i_obs = fwd("panel")(sim.v_stack)
+    v_half = 0.5 * sim.v_stack
+    loss_p, dv_p = grad("panel", v_half, i_obs)()
+    loss_x, dv_x = grad("xla", v_half, i_obs)()
+    grad_err = rel_norm_by_slice(dv_p, dv_x)
+    loss_err = abs(float(loss_p) - float(loss_x)) / abs(float(loss_x))
+    finite = all_finite((loss_p, dv_p)) and float(dv_p.abs().max()) > 0
+    del dv_p, dv_x
+    busy, n_kernels = device_busy_ms(grad("panel", v_half, i_obs))
+
+    def rollout_grad(nslices):
+        def run():  # device_kernels runs fn under no_grad
+            with torch.enable_grad():
+                vv = v_half[:nslices].detach().requires_grad_(True)
+                out = multislice(sim.psi0, vv, sim.propagator, sim.sigma,
+                                 slice_step=steps["panel"])
+                (out.abs() ** 2).sum().backward()
+        return run
+
+    # No FFT library kernel in the rollout's gradient at 512 slices; its
+    # kernel counts held exactly at 64 (2S + 1 passes forward, 2S + 1
+    # backward).  A profile of the 512-slice gradient's ~2,070 kernels now
+    # and then lacks its first few dozen, and never holds an extra one; the
+    # 512-slice pass counts are the wrappers' (above).
+    rollout_kernels = device_kernels(rollout_grad(s))
+    rollout_kernels_64 = expect_own_kernels(
+        "c5 panel gradient, 64 slices", rollout_grad(64),
+        {"panel_row_kernel": 66, "panel_col_kernel": 128, "panel_bwd_row_kernel": 64},
+        everything=True)
+
+    # ---- the per-slice route (past the store cap) against the store route, 64 slices
+    with torch.no_grad():
+        obs64 = fwd("panel")(sim.v_stack[:64])
+    loss_s, dv_s = grad("panel", v_half[:64], obs64)()
+    cap = adj.STORE_CAP_BYTES
+    adj.STORE_CAP_BYTES = 0
+    try:
+        reset_launches()
+        loss_r, dv_r = grad("panel", v_half[:64], obs64)()
+        torch.cuda.synchronize()
+        launches["per_slice"] = launch_counts()
+    finally:
+        adj.STORE_CAP_BYTES = cap
+    per_slice_expect = {**zero, "panel_init": 128, "panel_colpass": 128, "panel_final": 128,
+                        "panel_rowfwd": 64, "panel_col_bwd": 64, "panel_bwd_tail": 64}
+    per_slice_err = {"dv": rel_norm(dv_r, dv_s),
+                     "loss": abs(float(loss_r) - float(loss_s)) / abs(float(loss_s))}
+    del sim, v_half, i_obs, obs64, dv_s, dv_r
+    timing = runs["panel"]
+    line = {
+        "phase": "c5_invert", "config": "examples/si110_hrtem.toml " + " ".join(C5[1::2])
+        + " --mode invert", "iterations": iters, "runs": runs, "losses": losses,
+        "first_loss_rel_err_vs_xla": first_err, "tol": C5_GRAD_TOL,
+        "panel_passes_per_iteration": grad_passes / iters,
+        "iters_per_s_steady": 1.0 / timing["median_step_s"],
+        "iters_per_s_loop": timing["iters_per_s"],
+        "grad_loss_rel_err_vs_xla": loss_err, "grad_dv_rel_err_vs_xla": grad_err,
+        "grad_device_busy_ms": busy, "grad_kernels": n_kernels,
+        "device_idle_share": max(0.0, 1.0 - busy / (timing["median_step_s"] * 1e3)),
+        "peak_gib": timing["peak_bytes"] / 2**30,
+        "rollout_grad_own_kernels": own_kernels(rollout_kernels),
+        "rollout_grad_kernels_64": rollout_kernels_64,
+        "per_slice_vs_store_64": per_slice_err, "per_slice_launches": {
+            k: c for k, c in launches["per_slice"].items() if c},
+        "gpu": gpu,
+    }
+    if grad_passes != iters * (4 * s + 2):
+        raise AssertionError(f"c5 invert: {grad_passes} panel passes in {iters} iterations")
+    if any("fft" in k.lower() for k in (*rollout_kernels, *rollout_kernels_64)):
+        raise AssertionError(f"c5 panel gradient kernels: {rollout_kernels}")
+    if not (finite and loss_err <= C5_GRAD_TOL and grad_err <= C5_GRAD_TOL):
+        raise AssertionError(f"c5 gradient panel vs xla: loss {loss_err:.3e}, dV {grad_err:.3e}")
+    if launches["per_slice"] != per_slice_expect:
+        raise AssertionError(f"c5 per-slice route launches {launches['per_slice']}")
+    if not all(e <= GATE for e in per_slice_err.values()):
+        raise AssertionError(f"c5 per-slice route vs store route: {per_slice_err}")
+    return line, launches
+
+
 def phase_engines(gpu: str) -> dict:
     """Wall ms (host clock around a synchronised call, median of 3, each
     engine measured twice in turns) of a 32-slice rollout and of one gradient
@@ -1754,9 +2094,10 @@ def phase_engines(gpu: str) -> dict:
 
 
 def panel_engine_rows(sigma: float, lam: float, nslices: int) -> list[dict]:
-    """Wall ms of a forward rollout of nslices slices on panel, pallas and xla
-    at 2048^2 (one wave and four) and 4096^2 (one wave), measured as the rows
-    of phase_engines: the rows ``auto`` reads on those grids."""
+    """Wall ms of a forward rollout of nslices slices and of one gradient
+    evaluation on panel, pallas and xla at 2048^2 (one wave and four) and
+    4096^2 (one wave), measured as the rows of phase_engines: the rows
+    ``auto`` reads on those grids."""
     from fdes_tpu_torch.grids import Grid, fresnel_propagator
     from fdes_tpu_torch.propagate import make_slice_step, multislice
 
@@ -1770,28 +2111,35 @@ def panel_engine_rows(sigma: float, lam: float, nslices: int) -> list[dict]:
         shape = (n, n) if batch == 1 else (batch, n, n)
         psi0 = torch.polar(torch.ones(shape, device="cuda"),
                            torch.rand(shape, generator=gen, device="cuda"))
-        engines = ("panel", "pallas", "xla")
-        times = {e: [] for e in engines}
-        for order in (engines, engines[::-1]):
-            for e in order:
-                step = make_slice_step(e, shape=(n, n), grad=False, batch=batch)
+        w = torch.linspace(0.5, 1.5, psi0.numel(), device="cuda").reshape(shape)
+        for grad in (False, True):
+            engines = ("panel", "pallas", "xla")
+            times = {e: [] for e in engines}
+            for order in (engines, engines[::-1]):
+                for e in order:
+                    step = make_slice_step(e, shape=(n, n), grad=grad, batch=batch)
 
-                def run():
-                    with torch.no_grad():
-                        return multislice(psi0, v, prop, sigma, slice_step=step)
+                    def run():
+                        if not grad:
+                            with torch.no_grad():
+                                return multislice(psi0, v, prop, sigma, slice_step=step)
+                        vv = v.detach().requires_grad_(True)
+                        out = multislice(psi0, vv, prop, sigma, slice_step=step)
+                        (out.abs() ** 2 * w).sum().backward()
+                        return vv.grad
 
-                run()
-                torch.cuda.synchronize()
-                walls = []
-                for _ in range(3):
-                    t0 = time.perf_counter()
                     run()
                     torch.cuda.synchronize()
-                    walls.append((time.perf_counter() - t0) * 1e3)
-                times[e].append(statistics.median(walls))
-        rows.append({"n": n, "batch": batch, "grad": False, "slices": nslices, "wall_ms": times,
-                     "fastest": min(times, key=lambda e: min(times[e]))})
-        del v, psi0, prop
+                    walls = []
+                    for _ in range(3):
+                        t0 = time.perf_counter()
+                        run()
+                        torch.cuda.synchronize()
+                        walls.append((time.perf_counter() - t0) * 1e3)
+                    times[e].append(statistics.median(walls))
+            rows.append({"n": n, "batch": batch, "grad": grad, "slices": nslices,
+                         "wall_ms": times, "fastest": min(times, key=lambda e: min(times[e]))})
+        del v, psi0, prop, w
     return rows
 
 
@@ -1872,6 +2220,13 @@ ROW_PHASES = {
     "panel_final": ("c5",),
     "panel_init_abs": ("c5_absorptive",),
     "panel_rowpass_stack_abs": ("c5_absorptive",),
+    "panel_rowfwd": ("c5_invert", "c5_invert_per_slice"),
+    "panel_bwd_tail": ("c5_invert_per_slice",),
+    "panel_init_store": ("c5_invert",),
+    "panel_rowpass_stack_store": ("c5_invert",),
+    "panel_col_bwd": ("c5_invert", "c5_invert_per_slice"),
+    "panel_row_bwd_loop": ("c5_invert",),
+    "panel_row_bwd_last": ("c5_invert",),
 }
 #: kernels on no path, exempt from the check that each kernel of a path was
 #: launched there: _row_mid_kernel has no caller in fdes_tpu (a building
@@ -1893,8 +2248,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--only", default=",".join(PHASES),
                     help="comma-separated subset of " + ",".join(PHASES)
-                    + " (kernels_slice, kernels_fused, kernels_adjoint, kernels_panel: one "
-                    "group of kernel checks)")
+                    + " (kernels_slice, kernels_fused, kernels_adjoint, kernels_panel, "
+                    "kernels_panel_grad: one group of kernel checks)")
     args = ap.parse_args(argv)
     phases = args.only.split(",")
     if not torch.cuda.is_available():
@@ -1916,7 +2271,8 @@ def main(argv=None) -> int:
         emit(line)
     for group, fn in (("kernels_fused", phase_kernels_fused),
                       ("kernels_adjoint", phase_kernels_adjoint),
-                      ("kernels_panel", phase_kernels_panel)):
+                      ("kernels_panel", phase_kernels_panel),
+                      ("kernels_panel_grad", phase_kernels_panel_grad)):
         if "kernels" in phases or group in phases:
             line, group_rows = timed(fn)
             rows.update(group_rows)
@@ -1954,6 +2310,11 @@ def main(argv=None) -> int:
         if "c5" in phases:
             line, by_run = timed(phase_c5, tmp, gpu)
             path_launches.update(c5=by_run["panel"], c5_absorptive=by_run["absorptive"])
+            emit(line)
+        if "c5_invert" in phases:
+            line, by_run = timed(phase_c5_invert, tmp, gpu)
+            path_launches.update(c5_invert=by_run["panel"],
+                                 c5_invert_per_slice=by_run["per_slice"])
             emit(line)
     if "engines" in phases:
         emit(timed(phase_engines, gpu))

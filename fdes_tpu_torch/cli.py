@@ -17,8 +17,7 @@ patterns of a scan (``observed_path``, or a self-test series synthesised from
 the config's specimen) and writes ``reconstructed.npy``, ``metrics.jsonl`` and
 ``checkpoint.npz``; ``--resume`` continues from that checkpoint.  Settings
 that are not ported yet (``stem.method = "prism"``, ``sim.phonon_configs``,
-``sim.streamed``, a ``[mesh]``, and ``--mode invert`` on ``sim.engine``
-``panel``/``panel_fast``) exit with code 2 and say so.  Runs on ``cuda``
+``sim.streamed`` and a ``[mesh]``) exit with code 2 and say so.  Runs on ``cuda``
 unless ``--device cpu`` is given.
 """
 

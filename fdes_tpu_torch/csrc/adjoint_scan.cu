@@ -57,8 +57,6 @@
 
 namespace {
 
-constexpr int kPairsPerThread = kTile / 2 / kThreads;
-
 struct SweepArgs {
   const float* v;       // (S, N, N)
   const float2* prop;   // bit-reversed, (N, N) or (B, N, N)
@@ -111,46 +109,6 @@ __device__ void forward_sweep(cg::grid_group& grid, float2* tile, const float2* 
     }
     grid.sync();
   }
-}
-
-// One wave's row tile of the reverse loop, in place at bar: undo the x
-// transform (the tile then holds bar_s), add Im(bar_s * conj(s)) to acc, scale
-// by conj(t), and transform along x again for the next slice's column pass
-// (forward), or leave dpsi.
-template <int LOG2N>
-__device__ void bwd_row_tile(float2* tile, const float2* tw, float2* bar, const float2* s,
-                             const float* __restrict__ v, float sigma, bool forward,
-                             float2 (&acc)[kPairsPerThread]) {
-  for (int i = threadIdx.x; i < kTile / 2; i += kThreads) {
-    float2 x, y;
-    load_pair(bar + 2 * i, &x, &y);
-    tile[pad(2 * i)] = x;
-    tile[pad(2 * i + 1)] = y;
-  }
-  __syncthreads();
-  fft_inverse<LOG2N, true>(tile, tw);
-#pragma unroll
-  for (int m = 0; m < kPairsPerThread; ++m) {
-    const int i = threadIdx.x + m * kThreads;
-    const float2 vv = *reinterpret_cast<const float2*>(v + 2 * i);
-    float2 u0, u1;
-    load_pair(s + 2 * i, &u0, &u1);
-    const float2 b0 = tile[pad(2 * i)];
-    const float2 b1 = tile[pad(2 * i + 1)];
-    float sn, cs;
-    sincosf(sigma * vv.x, &sn, &cs);
-    tile[pad(2 * i)] = cmul_conj(b0, make_float2(cs, sn));
-    sincosf(sigma * vv.y, &sn, &cs);
-    tile[pad(2 * i + 1)] = cmul_conj(b1, make_float2(cs, sn));
-    acc[m].x += b0.y * u0.x - b0.x * u0.y;  // Im(bar_s * conj(s))
-    acc[m].y += b1.y * u1.x - b1.x * u1.y;
-  }
-  __syncthreads();
-  if (forward) fft_forward<LOG2N, true>(tile, tw);
-  for (int i = threadIdx.x; i < kTile / 2; i += kThreads) {
-    store_pair(bar + 2 * i, tile[pad(2 * i)], tile[pad(2 * i + 1)]);
-  }
-  __syncthreads();
 }
 
 // dv = the sum of the ngroups partial planes at part, in the order 0, 1, ...
@@ -220,9 +178,9 @@ __device__ void reverse_sweep(cg::grid_group& grid, float2* tile, const float2* 
 #pragma unroll
       for (int m = 0; m < kPairsPerThread; ++m) acc[m] = make_float2(0.0f, 0.0f);
       for (int64_t b = b0; b < b1; ++b) {
-        bwd_row_tile<LOG2N>(tile, tw, bar + (b * kTilesPerWave + r) * kTile,
-                            s + b * s_wave_stride + k * kPlane + r * kTile, vk + r * kTile,
-                            a.sigma, k > 0, acc);
+        float2* tb = bar + (b * kTilesPerWave + r) * kTile;
+        bwd_row_tile<LOG2N>(tile, tw, tb, tb, s + b * s_wave_stride + k * kPlane + r * kTile,
+                            vk + r * kTile, a.sigma, k > 0, acc);
       }
       float* o = out + (partial ? gi * kPlane : 0) + r * kTile;
 #pragma unroll

@@ -1,7 +1,8 @@
 // The row-pass / column-pass FFT pipeline shared by the fused kernels, for
 // Hopper (sm_90a): included by fused_step.cu (the step, its adjoint, the
 // whole-loop scan), adjoint_scan.cu (the whole-loop adjoint) and
-// panel_scan.cu (the panel passes for 256^2 to 4096^2).
+// panel_scan.cu (the panel passes for 256^2 to 4096^2 and their adjoints;
+// bwd_row_tile, the adjoint of a row pass, serves the last two).
 //
 // A plane of N x N complex64 is transformed in two kinds of pass over tiles of
 // 4096 elements (32 KB of shared memory): a row tile is 4096/N whole rows (1-D
@@ -304,6 +305,54 @@ __device__ void col_tile(float2* tile, const float2* tw, const float2* src, floa
                tile[pad(e + 1)]);
   }
   __syncthreads();  // the next tile reuses the shared memory
+}
+
+// Pairs of tile elements per thread: a dV accumulator holds this many float2.
+constexpr int kPairsPerThread = kTile / 2 / kThreads;
+
+// One wave's row tile of a reverse loop (the adjoint of a row pass), from src
+// to dst (dst may be src): undo the x transform (the tile then holds bar_s),
+// add Im(bar_s * conj(s)) to acc, scale by conj(t), t = exp(i sigma v), and
+// transform along x again for the next slice's column pass (forward), or
+// leave dpsi in natural order.  s points at the tile's s = t * psi of the
+// forward pass; FROM_PSI: at the tile's psi instead, and s is formed here
+// (the per-slice adjoint keeps psi, not s).
+template <int LOG2N, bool FROM_PSI = false>
+__device__ void bwd_row_tile(float2* tile, const float2* tw, const float2* src, float2* dst,
+                             const float2* s, const float* __restrict__ v, float sigma,
+                             bool forward, float2 (&acc)[kPairsPerThread]) {
+  for (int i = threadIdx.x; i < kTile / 2; i += kThreads) {
+    float2 x, y;
+    load_pair(src + 2 * i, &x, &y);
+    tile[pad(2 * i)] = x;
+    tile[pad(2 * i + 1)] = y;
+  }
+  __syncthreads();
+  fft_inverse<LOG2N, true>(tile, tw);
+#pragma unroll
+  for (int m = 0; m < kPairsPerThread; ++m) {
+    const int i = threadIdx.x + m * kThreads;
+    const float2 vv = *reinterpret_cast<const float2*>(v + 2 * i);
+    float2 u0, u1;
+    load_pair(s + 2 * i, &u0, &u1);
+    const float2 b0 = tile[pad(2 * i)];
+    const float2 b1 = tile[pad(2 * i + 1)];
+    float sn, cs;
+    sincosf(sigma * vv.x, &sn, &cs);
+    if (FROM_PSI) u0 = cmul(u0, make_float2(cs, sn));
+    tile[pad(2 * i)] = cmul_conj(b0, make_float2(cs, sn));
+    sincosf(sigma * vv.y, &sn, &cs);
+    if (FROM_PSI) u1 = cmul(u1, make_float2(cs, sn));
+    tile[pad(2 * i + 1)] = cmul_conj(b1, make_float2(cs, sn));
+    acc[m].x += b0.y * u0.x - b0.x * u0.y;  // Im(bar_s * conj(s))
+    acc[m].y += b1.y * u1.x - b1.x * u1.y;
+  }
+  __syncthreads();
+  if (forward) fft_forward<LOG2N, true>(tile, tw);
+  for (int i = threadIdx.x; i < kTile / 2; i += kThreads) {
+    store_pair(dst + 2 * i, tile[pad(2 * i)], tile[pad(2 * i + 1)]);
+  }
+  __syncthreads();
 }
 
 // Blocks of a cooperative kernel (kThreads threads, static shared memory only)

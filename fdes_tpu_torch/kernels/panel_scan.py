@@ -1,10 +1,11 @@
 """The panel scan: the multislice loop on 256^2 to 4096^2 grids as row and
-column passes over planes in device memory, and the engines ``"panel*"``.
+column passes over planes in device memory, its gradient, and the engines
+``"panel*"``.
 
-Counterpart of the forward half of ``fdes_tpu/pallas/panel_scan.py``.  The
-field stays x-transformed between slices (a_j = Fx(t_j psi_j)): a rollout
-is an init row pass, per slice a column pass and a row pass, and a final
-row pass, each an ordinary launch of ``csrc/panel_scan.cu``:
+Counterpart of ``fdes_tpu/pallas/panel_scan.py`` (its streamed build aside).
+The field stays x-transformed between slices (a_j = Fx(t_j psi_j)): a
+rollout is an init row pass, per slice a column pass and a row pass, and a
+final row pass, each an ordinary launch of ``csrc/panel_scan.cu``:
 
 * ``panel_init(v0, psi, sigma)`` -> a = Fx(t_0 psi)  (replaces ``_row_init_kernel``);
 * ``panel_colpass(a, propagator)`` -> b = Fy^H(P / n^2 * Fy(a))  (``_col_kernel``);
@@ -18,26 +19,55 @@ row pass, each an ordinary launch of ``csrc/panel_scan.cu``:
 * ``panel_scan(psi0, v_stack, propagator, sigma)``: the whole rollout, all
   2S + 1 passes issued from C in one call (``_run_single``/``_run_single_abs``).
 
+The gradient (PyTorch's convention: g = dL/dRe + i dL/dIm of the exit wave,
+the conjugate of the cotangent JAX hands a ``custom_vjp``).  Fx^H is the
+conjugate transpose of Fx and the column pass with conj(P) that of the
+column pass, so the reverse loop runs each pass's conjugate transpose, with
+bar = Fx(g) at the start and, per slice j = S-1 .. 0,
+
+    bar   = Fy^H(conj(P) / n^2 * Fy(bar))
+    bar_s = Fx^H(bar),  dV_j = sigma * Im(bar_s * conj(s_j))   summed over the waves
+    bar   = Fx(bar_s * conj(t_j));  after slice 0, dpsi0 = bar_s * conj(t_0)
+
+with s_j = t_j psi_j kept by the forward.  Its passes:
+
+* ``panel_rowfwd(g)`` -> Fx(g), the seed  (``_row_fwd_kernel``);
+* ``panel_init_store``, ``panel_rowpass_stack_store``: the init and stack row
+  passes that also return s_j  (``_row_init_store_kernel``, ``_row_mid_store_kernel``);
+* ``panel_col_bwd(bar, propagator)``: the column pass with conj(P)
+  (``_col_bwd_kernel``);
+* ``panel_row_bwd_loop(j, v_stack, s, bar, sigma)`` -> (Fx(bar_s conj(t_j)),
+  dV_j)  (``_row_bwd_loop_kernel``);
+* ``panel_row_bwd_last(v0, s0, bar, sigma)`` -> (dpsi0, dV_0)  (``_row_bwd_last_kernel``);
+* ``panel_bwd_tail(v, psi, bar, sigma)`` -> (dpsi, dV): the last pass of one
+  slice's adjoint, s = t psi formed from psi  (``_row_bwd_tail_kernel``);
+* ``panel_scan_store`` -> (exit waves, s (B, S, n, n)) and
+  ``panel_scan_bwd_store`` -> (dV, dpsi0): the forward and reverse loops,
+  2S + 1 passes each, issued from C (``_panel_loop_fwd``, ``_panel_loop_bwd``).
+
+``panel_diff_apply`` differentiates the loop: the store pair while the s
+stack (B*S*n*n*8 bytes) fits ``adjoint_scan.STORE_CAP_BYTES``, past it
+``panel_slice_step`` per slice (forward init, column, final; backward seed,
+conjugate column, tail) under ``torch.utils.checkpoint``.
+
 Layout between passes, the kernels' own: Fx is the forward x transform
 with its spectrum in bit-reversed order (a[..., k] = FFT_x[..., bitrev(k)]),
 Fx^H, Fy^H the unscaled inverse transforms, and the 1/n^2 rides on the
-column pass, so b = Fx(psi_next) / n.  At the boundary psi, V and the
+column pass, so b = Fx(psi_next) / n.  At the boundary psi, V, s, dV and the
 propagator are in natural order; ``prepare_propagator`` gathers P in
 bit-reversed order in both axes, once per call.
 
 psi is complex64 (n, n) or (B, n, n), V real (or, in the absorptive passes,
 two float32 planes) and shared by the waves, the propagator (n, n) or one per
-wave (B, n, n) (a tilt series); n in SIZES.  A tensor on the CPU goes to the
-plain PyTorch version (``<wrapper>_ref``: ``torch.fft`` in the same layout,
-any complex dtype); a CUDA tensor goes to the kernel or the wrapper raises;
-complex128 on the card raises ``TypeError``.  ``<wrapper>.launches`` counts
-the kernel launches a wrapper made on the card: one per call of a pass
-wrapper, and ``panel_scan`` adds its rollout's passes to the pass wrappers'
-counts (1 init, S column, S - 1 row, 1 final) and counts its own calls.
-
-The engine (``make_panel_scan``) is forward-only: a gradient through the
-panel passes is ROADMAP.md Queue 2 F, so ``whole_scan`` raises when autograd
-records and an input requires a gradient, instead of handing back a zero.
+wave (B, n, n) (a tilt series); n in SIZES.  dV is float32, summed over the
+waves in a fixed order: two calls give the same bits.  A tensor on the CPU
+goes to the plain PyTorch version (``<wrapper>_ref``: ``torch.fft`` in the
+same layout, any complex dtype); a CUDA tensor goes to the kernel or the
+wrapper raises; complex128 on the card raises ``TypeError``.
+``<wrapper>.launches`` counts the kernel launches a wrapper made on the card:
+one per call of a pass wrapper; ``panel_scan``, ``panel_scan_store`` and
+``panel_scan_bwd_store`` add their loops' passes to the pass wrappers' counts
+and count their own calls.
 """
 
 from __future__ import annotations
@@ -46,11 +76,13 @@ import ctypes
 import functools
 
 import torch
+from torch.autograd.function import once_differentiable
+from torch.utils.checkpoint import checkpoint
 
 from . import _build
 from . import fused_step as fs
 from .fused_scan import WholeScanEngine, _batching
-from .slice_step import _check_dense, transmit_abs_ref, transmit_ref
+from .slice_step import _check_dense, _dense, pallas_slice_step, transmit_abs_ref, transmit_ref
 
 SIZES = (256, 512, 1024, 2048, 4096)
 LIB = "panel_scan"
@@ -59,16 +91,22 @@ _I64 = ctypes.c_int64
 _INT = ctypes.c_int
 _D = ctypes.c_double
 _ARGTYPES = {
-    "fdes_panel_init_c64": [_INT, _INT, _P, _P, _P, _D, _I64, _P],
+    "fdes_panel_init_c64": [_INT, _INT, _P, _P, _P, _P, _I64, _D, _I64, _P],
     "fdes_panel_init_abs_c64": [_INT, _INT, _P, _P, _P, _P, _D, _I64, _P],
-    "fdes_panel_colpass_c64": [_INT, _INT, _P, _P, _P, _I64, _I64, _P],
-    "fdes_panel_rowpass_stack_c64": [_INT, _INT, _I64, _P, _P, _P, _D, _I64, _P],
-    "fdes_panel_rowpass_c64": [_INT, _INT, _P, _P, _P, _D, _I64, _P],
+    "fdes_panel_colpass_c64": [_INT, _INT, _P, _P, _P, _I64, _INT, _I64, _P],
+    "fdes_panel_rowpass_stack_c64": [_INT, _INT, _I64, _P, _P, _P, _P, _I64, _D, _I64, _P],
     "fdes_panel_rowpass_stack_abs_c64": [_INT, _INT, _I64, _P, _P, _P, _P, _D, _I64, _P],
-    "fdes_panel_final_c64": [_INT, _INT, _P, _P, _I64, _P],
+    "fdes_panel_final_c64": [_INT, _INT, _P, _P, _INT, _I64, _P],
+    "fdes_panel_bwd_row_c64": [_INT, _INT, _INT, _P, _P, _P, _I64, _P, _P, _D, _I64, _P],
     "fdes_panel_scan_c64": [_INT, _INT, _P, _P, _P, _P, _P, _D, _I64, _INT, _I64, _P],
+    "fdes_panel_scan_store_c64": [_INT, _INT, _P, _P, _P, _P, _P, _D, _I64, _INT, _I64, _P],
+    "fdes_panel_scan_bwd_store_c64": [
+        _INT, _INT, _P, _P, _P, _P, _P, _P, _D, _I64, _INT, _I64, _P,
+    ],
     "fdes_panel_kernel_info": [_INT, _INT, _INT, _P],
 }
+#: modes of fdes_panel_bwd_row_c64 (csrc/panel_scan.cu BwdMode)
+_BWD_LOOP, _BWD_LAST, _BWD_TAIL = 0, 1, 2
 _entries: dict[str, object] = {}
 
 
@@ -93,15 +131,16 @@ def _launch(name: str, device: torch.device, *args) -> None:
 
 def panel_kernel_info(n: int, kernel: str = "row", device: torch.device | str = "cuda") -> dict:
     """Registers, dynamic shared memory, local memory and resident blocks of
-    the row kernel (``kernel`` "row") or of the column kernel ("col"), for
-    axis size n, as the CUDA runtime reports them."""
-    column = {"row": 0, "col": 1}[kernel]
+    the row kernel (``kernel`` "row"), the column kernel ("col") or the
+    backward row kernel ("bwd_row"), for axis size n, as the CUDA runtime
+    reports them."""
+    which = {"row": 0, "col": 1, "bwd_row": 2}[kernel]
     dev = torch.device(device)
     if dev.index is None:
         dev = torch.device("cuda", torch.cuda.current_device())
     out = (_INT * 4)()
     lib, fn = _entry("fdes_panel_kernel_info")
-    _build.check(lib, fn(dev.index, n, column, ctypes.cast(out, _P)), "fdes_panel_kernel_info")
+    _build.check(lib, fn(dev.index, n, which, ctypes.cast(out, _P)), "fdes_panel_kernel_info")
     return {"registers": out[0], "shared_bytes": out[1], "local_bytes": out[2],
             "resident_blocks": out[3]}
 
@@ -187,6 +226,68 @@ def panel_final_ref(b: torch.Tensor) -> torch.Tensor:
     return _fx_inv(b)
 
 
+def panel_rowfwd_ref(g: torch.Tensor) -> torch.Tensor:
+    """Fx(g), the reverse loop's seed (the conjugate transpose of the final
+    pass), in plain PyTorch."""
+    return _fx(g)
+
+
+def panel_init_store_ref(
+    v0: torch.Tensor, psi: torch.Tensor, sigma: float
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """(a = Fx(s_0), s_0 = t_0 psi) in plain PyTorch."""
+    s = transmit_ref(psi, v0, sigma)
+    return _fx(s), s
+
+
+def panel_rowpass_stack_store_ref(
+    j: int, v_stack: torch.Tensor, b: torch.Tensor, sigma: float
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """(a = Fx(s_j), s_j = t_j Fx^H(b)) in plain PyTorch."""
+    s = transmit_ref(_fx_inv(b), v_stack[j], sigma)
+    return _fx(s), s
+
+
+def panel_col_bwd_ref(bar: torch.Tensor, propagator: torch.Tensor) -> torch.Tensor:
+    """Fy^H(conj(P) / n^2 * Fy(bar)) in plain PyTorch: the column pass with
+    the conjugate propagator, its conjugate transpose."""
+    return panel_colpass_ref(bar, propagator.conj())
+
+
+def _bwd_row_ref(bar, s, v, sigma):
+    """(bar_s * conj(t), sigma * Im(bar_s * conj(s)) summed over the waves),
+    bar_s = Fx^H(bar): the body of the three backward row passes."""
+    bar_s = _fx_inv(bar)
+    n = bar.shape[-1]
+    dv = (sigma * (bar_s * s.conj()).imag).reshape(-1, n, n).sum(dim=0)
+    phase = v.to(bar_s.real.dtype) * sigma
+    return bar_s * torch.complex(torch.cos(phase), -torch.sin(phase)), dv
+
+
+def panel_row_bwd_loop_ref(
+    j: int, v_stack: torch.Tensor, s: torch.Tensor, bar: torch.Tensor, sigma: float
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """(Fx(bar_s * conj(t_j)), dV_j) in plain PyTorch; s the (S, n, n) or
+    (B, S, n, n) stack of the forward."""
+    out, dv = _bwd_row_ref(bar, s[..., j, :, :], v_stack[j], sigma)
+    return _fx(out), dv
+
+
+def panel_row_bwd_last_ref(
+    v0: torch.Tensor, s0: torch.Tensor, bar: torch.Tensor, sigma: float
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """(dpsi0 = bar_s * conj(t_0), dV_0) in plain PyTorch."""
+    return _bwd_row_ref(bar, s0, v0, sigma)
+
+
+def panel_bwd_tail_ref(
+    v: torch.Tensor, psi: torch.Tensor, bar: torch.Tensor, sigma: float
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """(dpsi, dV) of one slice's adjoint past its conjugate column pass, s =
+    t psi formed from the slice's incoming psi, in plain PyTorch."""
+    return _bwd_row_ref(bar, transmit_ref(psi, v, sigma), v, sigma)
+
+
 def panel_scan_ref(
     psi0: torch.Tensor, v_stack: torch.Tensor, propagator: torch.Tensor, sigma: float
 ) -> torch.Tensor:
@@ -203,6 +304,36 @@ def panel_scan_ref(
         for j in range(1, v_stack.shape[0]):
             a = panel_rowpass_stack_ref(j, v_stack, panel_colpass_ref(a, propagator), sigma)
     return panel_final_ref(panel_colpass_ref(a, propagator))
+
+
+def panel_scan_store_ref(
+    psi0: torch.Tensor, v_stack: torch.Tensor, propagator: torch.Tensor, sigma: float
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """(exit waves (B, n, n), s (B, S, n, n)): the rollout of the plain store
+    passes."""
+    a, s0 = panel_init_store_ref(v_stack[0], psi0, sigma)
+    kept = [s0]
+    for j in range(1, v_stack.shape[0]):
+        a, s = panel_rowpass_stack_store_ref(j, v_stack, panel_colpass_ref(a, propagator), sigma)
+        kept.append(s)
+    return panel_final_ref(panel_colpass_ref(a, propagator)), torch.stack(kept, dim=1)
+
+
+def panel_scan_bwd_store_ref(
+    s: torch.Tensor, v_stack: torch.Tensor, propagator: torch.Tensor, g: torch.Tensor,
+    sigma: float,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """(dV (S, n, n) summed over the waves, dpsi0 (B, n, n)) from the stored
+    s and the exit waves' gradient g: the reverse loop of the plain passes,
+    the module docstring's recursion."""
+    dv = torch.empty(v_stack.shape, dtype=g.real.dtype, device=g.device)
+    bar = panel_rowfwd_ref(g)
+    for j in range(v_stack.shape[0] - 1, 0, -1):
+        bar, dv[j] = panel_row_bwd_loop_ref(j, v_stack, s, panel_col_bwd_ref(bar, propagator),
+                                            sigma)
+    dpsi, dv[0] = panel_row_bwd_last_ref(v_stack[0], s[:, 0],
+                                         panel_col_bwd_ref(bar, propagator), sigma)
+    return dv, dpsi
 
 
 # ---- kernel wrappers -------------------------------------------------------
@@ -240,8 +371,24 @@ def _wave(z: torch.Tensor, name: str, what: str) -> tuple[torch.Tensor, int]:
     return z.reshape(-1, n, n), n
 
 
+def _like(z: torch.Tensor, shape: tuple, device: torch.device, name: str, what: str):
+    """A complex64 operand of ``shape`` on ``device`` (a kept s or psi),
+    validated as _wave validates a wave."""
+    if tuple(z.shape) != shape:
+        raise ValueError(f"{what}: {name} must be {shape}, got {tuple(z.shape)}")
+    if z.device != device:
+        raise ValueError(f"{what}: {name} on {z.device}, the wave on {device}")
+    if z.dtype != torch.complex64:
+        raise TypeError(f"{what}: the CUDA kernel takes complex64, got {name} {z.dtype}")
+    _check_dense(z, name, what)
+    if z.data_ptr() % 16:
+        raise ValueError(f"{what}: {name} must be 16-byte aligned")
+    return z
+
+
 def _real(v: torch.Tensor, shape: tuple, device: torch.device, name: str, what: str):
-    """A float32 potential (plane or stack) of ``shape`` on ``device``."""
+    """A float32 potential (plane or stack) of ``shape`` on ``device``: V
+    itself when it is float32 and contiguous (no copy of a large stack)."""
     if v.is_complex() or tuple(v.shape) != shape:
         raise ValueError(f"{what}: {name} must be a real {shape} potential, got {v.dtype} "
                          f"{tuple(v.shape)}")
@@ -259,17 +406,31 @@ def _slice_index(j: int, v_stack: torch.Tensor, what: str) -> int:
     return int(j)
 
 
+def _init(what, counter, v0, psi, sigma, store):
+    flat, n = _wave(psi, "psi", what)
+    v = _real(v0, (n, n), psi.device, "v0", what)
+    out = torch.empty_like(flat)
+    s = torch.empty_like(flat) if store else None
+    _launch("fdes_panel_init_c64", psi.device, n, flat.data_ptr(), v.data_ptr(), out.data_ptr(),
+            None if s is None else s.data_ptr(), n * n, float(sigma), flat.shape[0])
+    counter.launches += 1
+    return out.reshape(psi.shape), None if s is None else s.reshape(psi.shape)
+
+
 def panel_init(v0: torch.Tensor, psi: torch.Tensor, sigma: float) -> torch.Tensor:
     """a = Fx(t_0 psi): the kernel on CUDA, plain on the CPU."""
     if not psi.is_cuda:
         return panel_init_ref(v0, psi, sigma)
-    flat, n = _wave(psi, "psi", "panel_init")
-    v = _real(v0, (n, n), psi.device, "v0", "panel_init")
-    out = torch.empty_like(flat)
-    _launch("fdes_panel_init_c64", psi.device, n, flat.data_ptr(), v.data_ptr(), out.data_ptr(),
-            float(sigma), flat.shape[0])
-    panel_init.launches += 1
-    return out.reshape(psi.shape)
+    return _init("panel_init", panel_init, v0, psi, sigma, False)[0]
+
+
+def panel_init_store(
+    v0: torch.Tensor, psi: torch.Tensor, sigma: float
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """(a = Fx(s_0), s_0 = t_0 psi): the kernel on CUDA, plain on the CPU."""
+    if not psi.is_cuda:
+        return panel_init_store_ref(v0, psi, sigma)
+    return _init("panel_init_store", panel_init_store, v0, psi, sigma, True)
 
 
 def panel_init_abs(
@@ -289,29 +450,58 @@ def panel_init_abs(
     return out.reshape(psi.shape)
 
 
+def _check_propagator(what: str, a: torch.Tensor, propagator: torch.Tensor) -> None:
+    n = a.shape[-1]
+    if tuple(propagator.shape) not in ((n, n), tuple(a.shape)):
+        raise ValueError(f"{what}: propagator {tuple(propagator.shape)} is neither "
+                         f"({n}, {n}) nor a's {tuple(a.shape)}")
+    if propagator.device != a.device:
+        raise ValueError(f"{what}: propagator on {propagator.device}, a on {a.device}")
+
+
 def panel_colpass(a: torch.Tensor, propagator: torch.Tensor) -> torch.Tensor:
     """b = Fy^H(P / n^2 * Fy(a)): the kernel on CUDA, plain on the CPU."""
     if not a.is_cuda:
         return panel_colpass_ref(a, propagator)
-    n = a.shape[-1]
-    if tuple(propagator.shape) not in ((n, n), tuple(a.shape)):
-        raise ValueError(f"panel_colpass: propagator {tuple(propagator.shape)} is neither "
-                         f"({n}, {n}) nor a's {tuple(a.shape)}")
-    if propagator.device != a.device:
-        raise ValueError(f"panel_colpass: propagator on {propagator.device}, a on {a.device}")
+    _check_propagator("panel_colpass", a, propagator)
     return _colpass(a, prepare_propagator(propagator))
 
 
-def _colpass(a: torch.Tensor, prepared: torch.Tensor) -> torch.Tensor:
-    """The column pass's launch, with the propagator already prepared
-    (prepare_propagator): (n, n), or one per wave of a (B, n, n) ``a``."""
-    flat, n = _wave(a, "a", "panel_colpass")
+def panel_col_bwd(bar: torch.Tensor, propagator: torch.Tensor) -> torch.Tensor:
+    """Fy^H(conj(P) / n^2 * Fy(bar)): the kernel on CUDA, plain on the CPU."""
+    if not bar.is_cuda:
+        return panel_col_bwd_ref(bar, propagator)
+    _check_propagator("panel_col_bwd", bar, propagator)
+    return _colpass(bar, prepare_propagator(propagator), conj=True)
+
+
+def _colpass(a: torch.Tensor, prepared: torch.Tensor, conj: bool = False) -> torch.Tensor:
+    """The column pass's launch (with conj(P) when ``conj``: panel_col_bwd),
+    the propagator already prepared (prepare_propagator): (n, n), or one per
+    wave of a (B, n, n) ``a``."""
+    what = "panel_col_bwd" if conj else "panel_colpass"
+    flat, n = _wave(a, "a", what)
     p_stride = n * n if prepared.ndim == 3 and a.ndim == 3 else 0
     out = torch.empty_like(flat)
     _launch("fdes_panel_colpass_c64", a.device, n, flat.data_ptr(), prepared.data_ptr(),
-            out.data_ptr(), p_stride, flat.shape[0])
-    panel_colpass.launches += 1
+            out.data_ptr(), p_stride, int(conj), flat.shape[0])
+    (panel_col_bwd if conj else panel_colpass).launches += 1
     return out.reshape(a.shape)
+
+
+def _rowpass(what, counter, v_stack, j, b, sigma, store):
+    """A stack row pass's launch (V_j of the stack, or j = 0 of one plane
+    viewed as a stack of one); with ``store`` also s_j."""
+    flat, n = _wave(b, "b", what)
+    vs = _real(v_stack, (v_stack.shape[0], n, n), b.device, "v_stack", what)
+    j = _slice_index(j, vs, what)
+    out = torch.empty_like(flat)
+    s = torch.empty_like(flat) if store else None
+    _launch("fdes_panel_rowpass_stack_c64", b.device, n, j, vs.data_ptr(), flat.data_ptr(),
+            out.data_ptr(), None if s is None else s.data_ptr(), n * n, float(sigma),
+            flat.shape[0])
+    counter.launches += 1
+    return out.reshape(b.shape), None if s is None else s.reshape(b.shape)
 
 
 def panel_rowpass_stack(
@@ -321,14 +511,18 @@ def panel_rowpass_stack(
     CUDA, plain on the CPU."""
     if not b.is_cuda:
         return panel_rowpass_stack_ref(j, v_stack, b, sigma)
-    flat, n = _wave(b, "b", "panel_rowpass_stack")
-    vs = _real(v_stack, (v_stack.shape[0], n, n), b.device, "v_stack", "panel_rowpass_stack")
-    j = _slice_index(j, vs, "panel_rowpass_stack")
-    out = torch.empty_like(flat)
-    _launch("fdes_panel_rowpass_stack_c64", b.device, n, j, vs.data_ptr(), flat.data_ptr(),
-            out.data_ptr(), float(sigma), flat.shape[0])
-    panel_rowpass_stack.launches += 1
-    return out.reshape(b.shape)
+    return _rowpass("panel_rowpass_stack", panel_rowpass_stack, v_stack, j, b, sigma, False)[0]
+
+
+def panel_rowpass_stack_store(
+    j: int, v_stack: torch.Tensor, b: torch.Tensor, sigma: float
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """(a = Fx(s_j), s_j = t_j Fx^H(b)), V_j read from the stack: the kernel
+    on CUDA, plain on the CPU."""
+    if not b.is_cuda:
+        return panel_rowpass_stack_store_ref(j, v_stack, b, sigma)
+    return _rowpass("panel_rowpass_stack_store", panel_rowpass_stack_store, v_stack, j, b, sigma,
+                    True)
 
 
 def panel_rowpass(v: torch.Tensor, b: torch.Tensor, sigma: float) -> torch.Tensor:
@@ -336,13 +530,7 @@ def panel_rowpass(v: torch.Tensor, b: torch.Tensor, sigma: float) -> torch.Tenso
     the CPU."""
     if not b.is_cuda:
         return panel_rowpass_ref(v, b, sigma)
-    flat, n = _wave(b, "b", "panel_rowpass")
-    vv = _real(v, (n, n), b.device, "v", "panel_rowpass")
-    out = torch.empty_like(flat)
-    _launch("fdes_panel_rowpass_c64", b.device, n, vv.data_ptr(), flat.data_ptr(),
-            out.data_ptr(), float(sigma), flat.shape[0])
-    panel_rowpass.launches += 1
-    return out.reshape(b.shape)
+    return _rowpass("panel_rowpass", panel_rowpass, v[None], 0, b, sigma, False)[0]
 
 
 def panel_rowpass_stack_abs(
@@ -365,15 +553,117 @@ def panel_rowpass_stack_abs(
     return out.reshape(b.shape)
 
 
+def _xpass(what, counter, b, forward):
+    flat, n = _wave(b, "b", what)
+    out = torch.empty_like(flat)
+    _launch("fdes_panel_final_c64", b.device, n, flat.data_ptr(), out.data_ptr(), int(forward),
+            flat.shape[0])
+    counter.launches += 1
+    return out.reshape(b.shape)
+
+
 def panel_final(b: torch.Tensor) -> torch.Tensor:
     """psi = Fx^H(b): the kernel on CUDA, plain on the CPU."""
     if not b.is_cuda:
         return panel_final_ref(b)
-    flat, n = _wave(b, "b", "panel_final")
+    return _xpass("panel_final", panel_final, b, False)
+
+
+def panel_rowfwd(g: torch.Tensor) -> torch.Tensor:
+    """Fx(g): the kernel on CUDA, plain on the CPU."""
+    if not g.is_cuda:
+        return panel_rowfwd_ref(g)
+    return _xpass("panel_rowfwd", panel_rowfwd, g, True)
+
+
+def _bwd_row(what, counter, mode, bar, s, s_wave_stride, v, sigma):
+    """A backward row pass's launch: (out, dV (n, n)); s points at wave 0's s
+    (or psi) plane, s_wave_stride elements before the next wave's."""
+    flat, n = _wave(bar, "bar", what)
+    vv = _real(v, (n, n), bar.device, "v", what)
     out = torch.empty_like(flat)
-    _launch("fdes_panel_final_c64", b.device, n, flat.data_ptr(), out.data_ptr(), flat.shape[0])
-    panel_final.launches += 1
-    return out.reshape(b.shape)
+    dv = torch.empty((n, n), dtype=torch.float32, device=bar.device)
+    _launch("fdes_panel_bwd_row_c64", bar.device, n, mode, flat.data_ptr(), out.data_ptr(),
+            s.data_ptr(), s_wave_stride, vv.data_ptr(), dv.data_ptr(), float(sigma),
+            flat.shape[0])
+    counter.launches += 1
+    return out.reshape(bar.shape), dv
+
+
+def panel_row_bwd_loop(
+    j: int, v_stack: torch.Tensor, s: torch.Tensor, bar: torch.Tensor, sigma: float
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """(Fx(bar_s * conj(t_j)), dV_j), bar_s = Fx^H(bar), s the (S, n, n) (or,
+    for (B, n, n) waves, (B, S, n, n)) stack of the forward: the kernel on
+    CUDA, plain on the CPU."""
+    if not bar.is_cuda:
+        return panel_row_bwd_loop_ref(j, v_stack, s, bar, sigma)
+    what = "panel_row_bwd_loop"
+    nslices, n = v_stack.shape[0], bar.shape[-1]
+    s = _like(s, (*bar.shape[:-2], nslices, n, n), bar.device, "s", what)
+    j = _slice_index(j, v_stack, what)
+    return _bwd_row(what, panel_row_bwd_loop, _BWD_LOOP, bar, s.reshape(-1, nslices, n, n)[0, j],
+                    nslices * n * n, v_stack[j], sigma)
+
+
+def panel_row_bwd_last(
+    v0: torch.Tensor, s0: torch.Tensor, bar: torch.Tensor, sigma: float
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """(dpsi0 = bar_s * conj(t_0), dV_0), s0 of bar's shape: the kernel on
+    CUDA, plain on the CPU."""
+    if not bar.is_cuda:
+        return panel_row_bwd_last_ref(v0, s0, bar, sigma)
+    n = bar.shape[-1]
+    s0 = _like(s0, tuple(bar.shape), bar.device, "s0", "panel_row_bwd_last")
+    return _bwd_row("panel_row_bwd_last", panel_row_bwd_last, _BWD_LAST, bar, s0, n * n, v0,
+                    sigma)
+
+
+def panel_bwd_tail(
+    v: torch.Tensor, psi: torch.Tensor, bar: torch.Tensor, sigma: float
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """(dpsi = bar_s * conj(t), dV), s = t psi formed from psi (bar's shape):
+    the kernel on CUDA, plain on the CPU."""
+    if not bar.is_cuda:
+        return panel_bwd_tail_ref(v, psi, bar, sigma)
+    n = bar.shape[-1]
+    psi = _like(psi, tuple(bar.shape), bar.device, "psi", "panel_bwd_tail")
+    return _bwd_row("panel_bwd_tail", panel_bwd_tail, _BWD_TAIL, bar, psi, n * n, v, sigma)
+
+
+def _check_loop(what, psi, v_stack, propagator) -> int:
+    """B of a whole-loop store or backward call, validated: the waves
+    (B, n, n), V one (S, n, n) stack."""
+    if psi.ndim != 3:
+        raise ValueError(f"{what}: the waves must be (B, n, n), got {tuple(psi.shape)}")
+    return _broadcast(psi, v_stack, propagator, what)[1]
+
+
+def _loop_operands(what, psi, v_stack, propagator, prepared):
+    """(n, B, S, V float32, the prepared propagator, its stride between
+    waves) of a whole-loop call on the card; psi (B, n, n)."""
+    b = _check_loop(what, psi, v_stack, propagator)
+    n = _wave(psi, "waves", what)[1]
+    if v_stack.is_complex():
+        raise TypeError(f"{what}: v_stack must be real; the engine routes a complex "
+                        "(absorptive) potential through the per-slice kernels")
+    nslices = v_stack.shape[0]
+    v32 = _real(v_stack, (nslices, n, n), psi.device, "v_stack", what)
+    if propagator.device != psi.device:
+        raise ValueError(f"{what}: propagator on {propagator.device}, the waves on {psi.device}")
+    pp = prepare_propagator(propagator) if prepared is None else prepared
+    if pp.dtype != torch.complex64 or pp.shape != propagator.shape:
+        raise ValueError(f"{what}: prepared propagator {pp.dtype} {tuple(pp.shape)} does not "
+                         f"match the propagator {tuple(propagator.shape)}")
+    return n, b, nslices, v32, pp, (n * n if pp.ndim == 3 else 0)
+
+
+def _count_loop(nslices, first, col, row, last):
+    """Add one loop's passes to the pass wrappers' counts."""
+    first.launches += 1
+    col.launches += nslices
+    row.launches += nslices - 1
+    last.launches += 1
 
 
 def panel_scan(
@@ -404,54 +694,264 @@ def panel_scan(
             None if vi is None else vi.data_ptr(), pp.data_ptr(), out.data_ptr(), float(sigma),
             b, s, n * n if pp.ndim == 3 else 0)
     panel_scan.launches += 1
-    (panel_init_abs if absorptive else panel_init).launches += 1
-    panel_colpass.launches += s
-    (panel_rowpass_stack_abs if absorptive else panel_rowpass_stack).launches += s - 1
-    panel_final.launches += 1
+    if absorptive:
+        _count_loop(s, panel_init_abs, panel_colpass, panel_rowpass_stack_abs, panel_final)
+    else:
+        _count_loop(s, panel_init, panel_colpass, panel_rowpass_stack, panel_final)
     return out if batched else out[0]
 
 
+def panel_scan_store(
+    psi0: torch.Tensor, v_stack: torch.Tensor, propagator: torch.Tensor, sigma: float,
+    *, prepared: torch.Tensor | None = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """(exit waves (B, n, n), s (B, S, n, n)) of the rollout of the B waves
+    psi0 (B, n, n) through a real (S, n, n) V: the 2S + 1 store passes issued
+    from C in one call on CUDA, plain on the CPU.  No graph:
+    ``panel_diff_apply`` is the differentiable form."""
+    if not psi0.is_cuda:
+        _check_loop("panel_scan_store", psi0, v_stack, propagator)
+        return panel_scan_store_ref(psi0, v_stack, propagator, sigma)
+    n, b, nslices, v32, pp, p_stride = _loop_operands("panel_scan_store", psi0, v_stack,
+                                                      propagator, prepared)
+    out = torch.empty_like(psi0)
+    s = torch.empty((b, nslices, n, n), dtype=psi0.dtype, device=psi0.device)
+    _launch("fdes_panel_scan_store_c64", psi0.device, n, psi0.data_ptr(), v32.data_ptr(),
+            pp.data_ptr(), out.data_ptr(), s.data_ptr(), float(sigma), b, nslices, p_stride)
+    panel_scan_store.launches += 1
+    _count_loop(nslices, panel_init_store, panel_colpass, panel_rowpass_stack_store, panel_final)
+    return out, s
+
+
+def panel_scan_bwd_store(
+    s: torch.Tensor, v_stack: torch.Tensor, propagator: torch.Tensor, g: torch.Tensor,
+    sigma: float, *, prepared: torch.Tensor | None = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """(dV (S, n, n) float32 summed over the waves, dpsi0 (B, n, n)) of the
+    whole loop for the exit waves' gradient g (B, n, n), from the s of
+    ``panel_scan_store``: the 2S + 1 backward passes issued from C in one
+    call on CUDA, plain on the CPU."""
+    if not g.is_cuda:
+        _check_loop("panel_scan_bwd_store", g, v_stack, propagator)
+        return panel_scan_bwd_store_ref(s, v_stack, propagator, g, sigma)
+    what = "panel_scan_bwd_store"
+    n, b, nslices, v32, pp, p_stride = _loop_operands(what, g, v_stack, propagator, prepared)
+    s = _like(s, (b, nslices, n, n), g.device, "s", what)
+    dpsi = torch.empty_like(g)
+    dv = torch.empty((nslices, n, n), dtype=torch.float32, device=g.device)
+    _launch("fdes_panel_scan_bwd_store_c64", g.device, n, s.data_ptr(), v32.data_ptr(),
+            pp.data_ptr(), g.data_ptr(), dpsi.data_ptr(), dv.data_ptr(), float(sigma), b,
+            nslices, p_stride)
+    panel_scan_bwd_store.launches += 1
+    _count_loop(nslices, panel_rowfwd, panel_col_bwd, panel_row_bwd_loop, panel_row_bwd_last)
+    return dv, dpsi
+
+
 WRAPPERS = (panel_init, panel_colpass, panel_rowpass_stack, panel_rowpass, panel_final,
-            panel_init_abs, panel_rowpass_stack_abs)
+            panel_init_abs, panel_rowpass_stack_abs, panel_rowfwd, panel_bwd_tail,
+            panel_init_store, panel_rowpass_stack_store, panel_col_bwd, panel_row_bwd_loop,
+            panel_row_bwd_last)
+#: the whole-loop calls, which count their calls and add their passes above
+LOOPS = (panel_scan, panel_scan_store, panel_scan_bwd_store)
 
 
 def reset_launches() -> None:
-    for w in (*WRAPPERS, panel_scan):
+    for w in (*WRAPPERS, *LOOPS):
         w.launches = 0
 
 
 reset_launches()
 
 
+# ---- the differentiable loop -----------------------------------------------
+
+
+class _PanelScanDiff(torch.autograd.Function):
+    """The whole loop and its adjoint over the stored s: 2S + 1 panel passes
+    each way, issued from C."""
+
+    @staticmethod
+    def forward(ctx, psi_b, v_stack, propagator, sigma):
+        prepared = prepare_propagator(propagator) if psi_b.is_cuda else None
+        out, s = panel_scan_store(psi_b, v_stack, propagator, sigma, prepared=prepared)
+        ctx.sigma = sigma
+        ctx.save_for_backward(s, v_stack, propagator, prepared)
+        return out
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        s, v_stack, propagator, prepared = ctx.saved_tensors
+        dv, dpsi = panel_scan_bwd_store(s, v_stack, propagator, _dense(g), ctx.sigma,
+                                        prepared=prepared)
+        need_psi, need_v = ctx.needs_input_grad[:2]
+        return (dpsi if need_psi else None, dv.to(v_stack.dtype) if need_v else None, None,
+                None)
+
+
+def _col(a, propagator, prepared, conj=False):
+    """The column pass (with conj(P) when ``conj``) on a prepared propagator
+    on the card, plain on the CPU."""
+    if not a.is_cuda:
+        return (panel_col_bwd_ref if conj else panel_colpass_ref)(a, propagator)
+    return _colpass(a, prepared, conj)
+
+
+class _PanelStep(torch.autograd.Function):
+    """One slice as three panel passes (init, column, final) and its adjoint
+    as three (seed, conjugate column, tail)."""
+
+    @staticmethod
+    def forward(ctx, psi, v_slice, propagator, prepared, sigma):
+        out = panel_final(_col(panel_init(v_slice, psi, sigma), propagator, prepared))
+        ctx.sigma = sigma
+        ctx.save_for_backward(psi, v_slice, propagator, prepared)
+        return out
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        psi, v_slice, propagator, prepared = ctx.saved_tensors
+        bar = _col(panel_rowfwd(_dense(g)), propagator, prepared, conj=True)
+        dpsi, dv = panel_bwd_tail(v_slice, psi, bar, ctx.sigma)
+        need_psi, need_v = ctx.needs_input_grad[:2]
+        return (dpsi if need_psi else None, dv.to(v_slice.dtype) if need_v else None, None, None,
+                None)
+
+
+def panel_slice_step(
+    psi: torch.Tensor, v_slice: torch.Tensor, propagator: torch.Tensor, sigma: float,
+    prepared: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """One multislice step psi (B, n, n) -> IFFT2(P FFT2(t psi)) as three
+    panel passes, differentiable in psi and a real V plane: three more passes
+    backward.  ``prepared``: prepare_propagator(propagator), made once by a
+    caller that steps through many slices (on the card)."""
+    if prepared is None and psi.is_cuda:
+        prepared = prepare_propagator(propagator)
+    return _PanelStep.apply(psi, v_slice, propagator, prepared, float(sigma))
+
+
+def _per_slice(psi_b, v_stack, propagator, sigma):
+    """The loop as panel_slice_step per slice, under torch.utils.checkpoint
+    in chunks of pick_remat_chunk(S) slices (the adjoint keeps one wave per
+    chunk and one chunk's slices at a time)."""
+    from ..propagate import pick_remat_chunk
+
+    prepared = prepare_propagator(propagator) if psi_b.is_cuda else None
+
+    def run(psi, v_chunk):
+        for v in v_chunk:
+            psi = panel_slice_step(psi, v, propagator, sigma, prepared)
+        return psi
+
+    nslices = v_stack.shape[0]
+    chunk = pick_remat_chunk(nslices)
+    psi = psi_b
+    for j in range(0, nslices, chunk):
+        psi = checkpoint(run, psi, v_stack[j : j + chunk], use_reentrant=False)
+    return psi
+
+
+def panel_diff_apply(
+    psi0: torch.Tensor, v_stack: torch.Tensor, propagator: torch.Tensor, sigma: float
+) -> torch.Tensor:
+    """The whole multislice loop as panel passes, differentiable in psi0 and
+    a real V: 2S + 1 passes forward and 2S + 1 backward per gradient
+    evaluation on CUDA (the store pair), the plain passes on the CPU.
+
+    psi0 (n, n) or (B, n, n); v_stack (S, n, n) real; the propagator (n, n)
+    or (B, n, n).  The store pair keeps s (B*S*n*n*8 bytes); past
+    ``adjoint_scan.STORE_CAP_BYTES`` the loop runs slice by slice through
+    ``panel_slice_step`` under ``torch.utils.checkpoint`` (chunks of
+    pick_remat_chunk(S) slices), as the JAX engine does past its own cap.
+    The B waves run in one launch per pass either way.  When autograd is not
+    recording, or neither psi0 nor V requires a gradient, this is
+    ``panel_scan``: 2S + 1 launches and nothing kept.  The propagator gets
+    no gradient: one that requires it raises, as does a gradient through a
+    per-wave (B, S, n, n) V.
+    """
+    from . import adjoint_scan
+
+    recording = torch.is_grad_enabled()
+    if recording and propagator.requires_grad:
+        raise NotImplementedError(
+            "the panel gradient gives the propagator no gradient; detach it, or use engine "
+            "'xla' to differentiate with respect to P"
+        )
+    if not (recording and (psi0.requires_grad or v_stack.requires_grad)):
+        return panel_scan(psi0, v_stack, propagator, float(sigma))
+    n, b, v_batched, _ = _batching(psi0, v_stack, propagator, "panel_diff_apply", check_size)
+    if v_batched:
+        raise NotImplementedError(
+            "the panel gradient takes one (S, n, n) potential shared by the waves; a "
+            "gradient through a per-wave (B, S, n, n) stack comes with frozen phonons "
+            "(ROADMAP.md Queue 1 item 9)"
+        )
+    if v_stack.is_complex():
+        raise TypeError("panel_diff_apply: v_stack must be real; the engine routes a complex "
+                        "(absorptive) potential through the per-slice kernels")
+    psi_b, _, batched_out = _broadcast(psi0, v_stack, propagator, "panel_diff_apply")
+    psi_b = (psi_b if psi_b.ndim == 3 else psi_b[None]).contiguous()
+    if b * v_stack.shape[0] * n * n * 8 <= adjoint_scan.STORE_CAP_BYTES:
+        out = _PanelScanDiff.apply(psi_b, v_stack, propagator, float(sigma))
+    else:
+        out = _per_slice(psi_b, v_stack, propagator, float(sigma))
+    return out if batched_out else out[0]
+
+
 # ---- the engine ------------------------------------------------------------
 
 
 def make_panel_scan(
-    ny: int, nx: int, dtype: torch.dtype = torch.complex64, kind: str = "panel"
+    ny: int, nx: int, dtype: torch.dtype = torch.complex64, kind: str = "panel",
+    grad: bool = False,
 ) -> WholeScanEngine:
-    """A ``WholeScanEngine`` running the multislice loop as panel passes
-    (``panel_scan``), forward only.
+    """A ``WholeScanEngine`` running the multislice loop as panel passes.
 
     psi0 (n, n) or (B, n, n), one propagator or one per wave; V real or
     complex (absorptive), one (S, n, n) stack shared by the waves.  The B
     waves run in one launch per pass (the JAX engine maps over them one at a
     time), with the same result per wave.  ``panel_fast`` runs the same
-    float32 kernels.  The panel gradient (ROADMAP.md Queue 2 F) is not
-    ported, so the engine is not grad-capable and ``whole_scan`` raises
-    ``NotImplementedError`` when autograd records and psi0, V or the
-    propagator requires a gradient.
+    float32 kernels.
+
+    ``grad=True``: the engine differentiates with respect to psi0 and a real
+    V (``panel_diff_apply``: the store pair, or past its memory cap the
+    per-slice adjoint under checkpoints; ``panel_scan`` when nothing
+    requires a gradient), and takes and ignores ``remat_chunk``.  A complex
+    (absorptive) V under a gradient goes slice by slice through
+    ``pallas_slice_step``, the kernels around cuFFT, as on ``fscan``.
+    ``grad=False``: forward only; ``whole_scan`` then raises when autograd
+    is recording and an input requires a gradient, because the rollout's
+    output carries no graph.
     """
     check_size(ny, nx, f"engine {kind!r}")
 
     def whole_scan(psi0, v_stack, propagator, sigma):
-        if torch.is_grad_enabled() and any(
+        if not grad and torch.is_grad_enabled() and any(
             t.requires_grad for t in (psi0, v_stack, propagator)
         ):
-            raise NotImplementedError(
-                f"engine {kind!r} is forward-only: the panel gradient is not ported yet "
-                "(ROADMAP.md Queue 2 F); run it under torch.no_grad() or on detached "
-                "tensors, or use engine 'pallas' or 'xla' to differentiate"
+            raise RuntimeError(
+                f"engine {kind!r} was made with grad=False and is forward-only: its result "
+                "carries no graph, so a gradient through it would be silently zero; make "
+                "it with make_slice_step(..., grad=True) for the panel gradient, or run it "
+                "under torch.no_grad() or on detached tensors"
             )
-        return panel_scan(psi0.to(dtype), v_stack, propagator.to(dtype), float(sigma))
+        psi0 = psi0.to(dtype)
+        propagator = propagator.to(dtype)
+        if (grad and v_stack.is_complex() and torch.is_grad_enabled()
+                and (psi0.requires_grad or v_stack.requires_grad)):
+            if v_stack.ndim != 3:
+                raise ValueError(
+                    f"engine {kind!r}: a complex (absorptive) potential must be one "
+                    f"(S, n, n) stack shared by the waves, got {tuple(v_stack.shape)}"
+                )
+            psi = psi0
+            for v_slice in v_stack:
+                psi = pallas_slice_step(psi, v_slice, propagator, sigma)
+            return psi
+        if grad:
+            return panel_diff_apply(psi0, v_stack, propagator, float(sigma))
+        return panel_scan(psi0, v_stack, propagator, float(sigma))
 
-    return WholeScanEngine(whole_scan, kind, grad_capable=False)
+    return WholeScanEngine(whole_scan, kind, grad_capable=grad)

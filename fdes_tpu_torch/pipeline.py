@@ -115,9 +115,6 @@ def unported_settings(cfg: Config) -> list[str]:
         out.append("sim.phonon_configs > 0 (ROADMAP.md Queue 1 item 9)")
     if cfg.mesh != MeshParams():
         out.append("a [mesh] setting (ROADMAP.md Queue 1 item 11)")
-    if cfg.mode == "invert" and cfg.sim.engine in ("panel", "panel_fast"):
-        out.append(f"mode 'invert' on sim.engine {cfg.sim.engine!r}: the panel gradient "
-                   "(ROADMAP.md Queue 2 F)")
     return out
 
 

@@ -15,7 +15,10 @@ its memory bounded by checkpointed segments inside the kernel, so they
 take and ignore ``remat_chunk``).  The panel engines (``"panel*"``,
 kernels/panel_scan.py) run the loop of a batch of waves as row and column
 passes over planes in device memory, one C call per rollout, on grids up
-to 4096^2; they are forward-only.  psi may carry leading batch dimensions
+to 4096^2; made with ``grad=True`` they differentiate through the panel
+gradient (one more C call for the backward pass, over the s_j the forward
+stored; past the store's memory cap, per slice under checkpoints), and take
+and ignore ``remat_chunk`` too.  psi may carry leading batch dimensions
 (a tilt series, a chunk of probes), with V broadcast over them and P
 either shared or one per batch entry.
 """
@@ -64,14 +67,13 @@ _NOT_PORTED = {
 }
 
 
-def _resolve_auto(
-    shape: tuple[int, int], grad: bool, dtype: torch.dtype = torch.complex64
-) -> str:
+def _resolve_auto(shape: tuple[int, int], dtype: torch.dtype = torch.complex64) -> str:
     """The engine ``auto``/``auto_fast`` stand for (the port has one float32
     tier, so the two agree), from wall times on one NVIDIA H100 80GB HBM3 at
     700 W (chip_smoke.py phase engines: a 32-slice rollout and one gradient
-    evaluation at 128^2, 256^2, 512^2 and 1024^2, one wave and 16, and a
-    32-slice rollout at 2048^2 and 4096^2; phase c5; PERF.md section 5):
+    evaluation at 128^2, 256^2, 512^2 and 1024^2, one wave and 16, and at
+    2048^2 (one wave and four) and 4096^2 (one wave); phases c5 and
+    c5_invert; PERF.md section 5):
 
     * forward on a square grid the whole-loop kernel takes: ``fscan``, the
       fastest in every row but 1024^2 x 16 waves, where ``fused`` led it by
@@ -88,20 +90,26 @@ def _resolve_auto(
       at 2048^2 x 4; 24.7-25.0 against 27.3-28.0 and 34.9-35.5 at 4096^2 x
       1), and on config 5 through the CLI (2048^2, 512 slices: 0.087-0.089 s
       against 0.115-0.168 and 0.136-0.138);
-    * gradients there: ``pallas``, since the panel engine is forward-only
-      (its gradient is ROADMAP.md Queue 2 F);
+    * gradients there: ``panel`` too, the panel gradient (the store pair),
+      the fastest in the three rows measured there (one gradient evaluation
+      of 32 slices: 12.4 ms against 36.3-37.1 on ``pallas`` and 44.9-45.0 on
+      ``xla`` at 2048^2 x 1 wave; 42.0 against 72.8 and 91.2 at 2048^2 x 4;
+      52.2-52.3 against 144.3-144.4 and 176.8-176.9 at 4096^2 x 1), and on
+      config 5's loss (one gradient 0.25 s a step against ~1.1 s on
+      ``xla``);
     * any other grid, and complex128 (the fused and panel kernels are
       complex64): ``pallas``, the only kernel engine that takes them.
 
-    The number of waves in a rollout did not change the order in any
-    measured row, so it does not enter yet.
+    Neither the number of waves in a rollout nor whether it is
+    differentiated changed the order in any measured row, so neither enters
+    yet.
     """
     from .kernels.fused_step import SIZES
 
     ny, nx = shape
     if dtype == torch.complex64 and ny == nx and ny in SIZES:
         return "fscan"
-    if dtype == torch.complex64 and ny == nx and ny in (2048, 4096) and not grad:
+    if dtype == torch.complex64 and ny == nx and ny in (2048, 4096):
         return "panel"
     return "pallas"
 
@@ -134,9 +142,10 @@ def make_slice_step(
                memory, one ordinary kernel launch each, 2S + 1 per rollout
                issued from C (kernels/panel_scan.py), for square
                256/512/1024/2048/4096 grids: the engine of 2048^2 and 4096^2.
-               Forward only, whatever ``grad`` says: the panel gradient is
-               ROADMAP.md Queue 2 F, so it raises on an input that requires
-               a gradient;
+               With ``grad=True`` it differentiates through the panel
+               gradient (panel_scan.panel_diff_apply: 2S + 1 passes more for
+               the backward, over the stored s_j); with ``grad=False`` it is
+               forward only and raises on an input that requires a gradient;
     'fused_fast', 'fscan_fast', 'fscan_draft', 'panel_fast' — the JAX
                package's faster, less exact tiers of those three.  The port's
                kernels compute in float32 throughout, so these kinds run the
@@ -144,7 +153,7 @@ def make_slice_step(
                the tier asks for;
     'auto', 'auto_fast' — the engine measured fastest for ``shape`` and
                ``grad`` on the H100 (_resolve_auto: ``fscan`` up to 1024^2,
-               ``panel`` forward at 2048^2 and 4096^2, else ``pallas``).  ``batch``, the number
+               ``panel`` at 2048^2 and 4096^2, else ``pallas``).  ``batch``, the number
                of waves in one rollout (a probe chunk, a tilt series), is
                taken for the callers of the JAX package's signature; no
                measured row depends on it yet.
@@ -157,7 +166,7 @@ def make_slice_step(
     if kind in ("auto", "auto_fast"):
         if shape is None:
             raise ValueError(f"kind={kind!r} needs shape=(ny, nx)")
-        kind = _resolve_auto(tuple(shape), grad, dtype or torch.complex64)
+        kind = _resolve_auto(tuple(shape), dtype or torch.complex64)
     if kind == "xla":
         return None
     if kind == "pallas":
@@ -179,7 +188,7 @@ def make_slice_step(
             raise ValueError(f"kind={kind!r} needs shape=(ny, nx)")
         from .kernels.panel_scan import make_panel_scan
 
-        return make_panel_scan(*shape, dtype=dtype or torch.complex64, kind=kind)
+        return make_panel_scan(*shape, dtype=dtype or torch.complex64, kind=kind, grad=grad)
     if kind in _NOT_PORTED:
         raise NotImplementedError(
             f"slice-step engine {kind!r} is not ported to fdes_tpu_torch yet "
@@ -244,16 +253,18 @@ def multislice(
     (O(S) adjoint memory); otherwise it must divide S, and each chunk of that
     many slices is a ``torch.utils.checkpoint`` that the backward pass runs
     again instead of keeping its waves (pick_remat_chunk gives the sqrt-S
-    choice).  A whole-loop engine (``make_slice_step("fscan", ...)``) runs the
-    loop in one kernel launch instead: a grad-capable one accepts and ignores
-    remat_chunk (its adjoint bounds its own memory, by checkpointed segments
-    inside the kernel), a forward-only one rejects it.
+    choice).  A whole-loop engine (``make_slice_step("fscan", ...)``,
+    ``"panel"``) runs the loop in one kernel launch or one C call instead: a
+    grad-capable one accepts and ignores remat_chunk (its adjoint bounds its
+    own memory: checkpointed segments inside the kernel, or per-slice
+    checkpoints past the panel store's cap), a forward-only one rejects it.
     """
     step = slice_step or default_slice_step
     if hasattr(step, "whole_scan"):
-        # whole-loop engine (kernels/fused_scan.py): the slice loop lives
-        # inside one kernel.  A grad-capable one ignores remat_chunk (the
-        # whole-loop adjoint checkpoints by itself); a forward-only one keeps
+        # whole-loop engine (kernels/fused_scan.py, kernels/panel_scan.py):
+        # the slice loop lives inside one kernel or one C call.  A
+        # grad-capable one ignores remat_chunk (its adjoint checkpoints by
+        # itself); a forward-only one keeps
         # no wave to recompute from, so it rejects remat_chunk loudly.
         if remat_chunk and not getattr(step, "grad_capable", False):
             raise ValueError(

@@ -214,8 +214,6 @@ def test_setup_on_cuda_raises_without_cuda(tmp_path):
         ("--set", "sim.phonon_configs=2"),
         ("--set", "sim.streamed=true", "--mode", "forward"),
         ("--set", 'mesh.axis_names=["grid"]', "--set", "mesh.shape=[1]"),
-        ("--mode", "invert", "--set", "sim.engine=panel"),
-        ("--mode", "invert", "--set", "sim.engine=panel_fast"),
     ],
 )
 def test_unported_modes_and_settings_exit_2(tmp_path, capsys, extra):
@@ -255,6 +253,33 @@ def test_cli_invert_equals_jax(tmp_path):
     assert timing["iterations"] == 3 and timing["iters_per_s"] > 0
     assert {"median_step_s", "setup_s", "device_name"} <= set(timing)
     assert (tmp_path / "port" / "checkpoint.npz").exists()
+
+
+@pytest.mark.parametrize("engine", ["panel", "panel_fast"])
+def test_cli_invert_on_panel_equals_xla(tmp_path, engine):
+    """--mode invert on the panel engine (its gradient: the store pair's
+    plain passes here) at 256^2, 4 slices, 3 sgd iterations: the losses and
+    the reconstruction of the same run on engine xla (autograd through
+    torch.fft)."""
+    cfg = _cfg(tmp_path / "c.toml")
+    extra = ("--mode", "invert", "--set", "sim.ny=256", "--set", "sim.nx=256", "--set",
+             "sim.nslices=4", "--set", "recon.optimizer=sgd", "--set", "recon.lr=2000.0",
+             "--set", "recon.iterations=3")
+    out = {}
+    for e in (engine, "xla"):
+        out[e] = tmp_path / e
+        _run_port_cli(cfg, str(out[e]), *extra, "--set", f"sim.engine={e}")
+    got, want = (np.load(out[e] / "reconstructed.npy") for e in (engine, "xla"))
+    assert got.shape == want.shape == (4, 256, 256) and np.abs(want).max() > 1.0
+    assert _rel(got, want) <= GATE
+    losses = {}
+    for e in (engine, "xla"):
+        with open(out[e] / "metrics.jsonl") as fh:
+            losses[e] = [json.loads(line)["loss"] for line in fh]
+    assert len(losses[engine]) == 3
+    np.testing.assert_allclose(losses[engine], losses["xla"], rtol=GATE)
+    with open(out[engine] / "timing.json") as fh:
+        assert json.load(fh)["engine_kind"] == engine
 
 
 def test_cli_invert_stem4d_equals_jax(tmp_path):

@@ -396,16 +396,16 @@ def test_fused_scan_rejects_bad_operands(fields):
 def test_auto_resolves_by_shape_grad_and_batch():
     """auto/auto_fast: on a grid the fused kernels take, a forward rollout
     and a gradient both go to the whole-loop engine (the gradient to its
-    grad-capable form); at 2048^2 and 4096^2 a forward rollout goes to the
-    panel engine and a gradient to the kernels around the library FFT (the
-    panel engine is forward-only); other grids go to the latter too."""
+    grad-capable form); at 2048^2 and 4096^2 both go to the panel engine
+    (a gradient to its grad-capable form); other grids go to the kernels
+    around the library FFT."""
     from fdes_tpu_torch.kernels.slice_step import pallas_slice_step
 
     for kind in ("auto", "auto_fast"):
         step = tprop.make_slice_step(kind, shape=(512, 512), grad=False, batch=16)
         assert isinstance(step, fsc.WholeScanEngine) and step.kind == "fscan"
         assert not step.grad_capable
-        assert tprop._resolve_auto((512, 512), True) == "fscan"
+        assert tprop._resolve_auto((512, 512)) == "fscan"
         grad_step = tprop.make_slice_step(kind, shape=(256, 256), grad=True)
         assert isinstance(grad_step, fsc.WholeScanEngine) and grad_step.grad_capable
         assert grad_step.kind == "fscan"
@@ -418,7 +418,9 @@ def test_auto_resolves_by_shape_grad_and_batch():
                 step = tprop.make_slice_step(kind, shape=(n, n), grad=False, batch=batch)
                 assert isinstance(step, fsc.WholeScanEngine) and step.kind == "panel"
                 assert not step.grad_capable
-            assert tprop.make_slice_step(kind, shape=(n, n), grad=True) is pallas_slice_step
+            grad_step = tprop.make_slice_step(kind, shape=(n, n), grad=True)
+            assert isinstance(grad_step, fsc.WholeScanEngine) and grad_step.grad_capable
+            assert grad_step.kind == "panel"
             assert tprop.make_slice_step(kind, shape=(n, n), dtype=torch.complex128,
                                          grad=False) is pallas_slice_step
         assert tprop.make_slice_step(kind, shape=(8192, 8192), grad=False) is pallas_slice_step

@@ -193,6 +193,8 @@ def test_make_slice_step_kinds():
             tprop.make_slice_step(kind)
     for kind in ("panel", "panel_fast"):
         step = tprop.make_slice_step(kind, shape=(256, 256))
+        assert hasattr(step, "whole_scan") and step.kind == kind and step.grad_capable
+        step = tprop.make_slice_step(kind, shape=(256, 256), grad=False)
         assert hasattr(step, "whole_scan") and step.kind == kind and not step.grad_capable
     for kind in ("fused", "fused_fast"):
         assert callable(tprop.make_slice_step(kind, shape=(128, 128)))

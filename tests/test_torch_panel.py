@@ -310,19 +310,31 @@ def test_prepare_propagator_is_bit_reversed_in_both_axes(fields):
 @pytest.mark.parametrize("kind", ["panel", "panel_fast"])
 @pytest.mark.parametrize("grad", [True, False])
 def test_panel_is_forward_only_whatever_grad_says(fields, kind, grad):
-    """make_slice_step('panel', grad=True) (the default) gives the forward
-    engine: not grad-capable; a gradient-requiring input raises naming the
-    ROADMAP item instead of handing back a zero gradient; under no_grad it
-    runs."""
+    """make_slice_step('panel', grad=False) gives the forward-only engine: not
+    grad-capable, and a gradient-requiring input raises instead of handing
+    back a zero gradient.  grad=True (the default) gives the grad-capable
+    engine, whose gradient with respect to psi0 and V is autograd's through
+    the plain loop (tests/test_torch_panel_grad.py holds it against JAX).
+    Under no_grad both run the forward rollout."""
     f = fields
     step = tprop.make_slice_step(kind, shape=(N, N), grad=grad)
     assert isinstance(step, fsc.WholeScanEngine) and step.kind == kind
-    assert not step.grad_capable
+    assert step.grad_capable == grad
     args = [_t(f["psi"]), _t(f["v"][:1]), _t(f["prop"])]
-    for i in range(3):
-        req = [a.clone().requires_grad_(k == i) for k, a in enumerate(args)]
-        with pytest.raises(NotImplementedError, match="Queue 2 F"):
-            tprop.multislice(*req, SIGMA, slice_step=step)
+    if grad:
+        psi, v = (a.clone().requires_grad_(True) for a in args[:2])
+        out = tprop.multislice(psi, v, args[2], SIGMA, slice_step=step)
+        (out.abs() ** 2).sum().backward()
+        psi_x, v_x = (a.clone().requires_grad_(True) for a in args[:2])
+        (tprop.multislice(psi_x, v_x, args[2], SIGMA).abs() ** 2).sum().backward()
+        for got, want in ((v.grad, v_x.grad), (psi.grad, psi_x.grad)):
+            np.testing.assert_allclose(got.numpy(), want.numpy(),
+                                       atol=TOL * float(want.abs().max()))
+    else:
+        for i in range(3):
+            req = [a.clone().requires_grad_(k == i) for k, a in enumerate(args)]
+            with pytest.raises(RuntimeError, match="forward-only"):
+                tprop.multislice(*req, SIGMA, slice_step=step)
     out = tprop.multislice(*args, SIGMA, slice_step=step)  # nothing requires a gradient
     assert not out.requires_grad and out.shape == (N, N)
 
@@ -332,7 +344,8 @@ def test_panel_refuses_remat_per_slice_calls_and_per_wave_v(fields):
     step = tprop.make_slice_step("panel", shape=(N, N))
     psi, v, prop = _t(f["psi"]), _t(f["v"]), _t(f["prop"])
     with pytest.raises(ValueError, match="forward-only"):
-        tprop.multislice(psi, v, prop, SIGMA, remat_chunk=1, slice_step=step)
+        tprop.multislice(psi, v, prop, SIGMA, remat_chunk=1,
+                         slice_step=tprop.make_slice_step("panel", shape=(N, N), grad=False))
     with pytest.raises(TypeError, match="whole slice loop"):
         step(psi, v[0], prop, SIGMA)
     with torch.no_grad():
@@ -372,7 +385,7 @@ def test_wrapper_counts_stay_zero_on_the_cpu(fields):
     with torch.no_grad():
         ps.panel_scan(_t(f["psi"]), _t(f["v"]), _t(f["prop"]), SIGMA)
         ps.panel_final(_t(f["psi"]))
-    assert all(w.launches == 0 for w in (*ps.WRAPPERS, ps.panel_scan))
+    assert all(w.launches == 0 for w in (*ps.WRAPPERS, *ps.LOOPS))
 
 
 # ---- on the card -------------------------------------------------------------
