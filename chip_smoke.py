@@ -35,9 +35,15 @@ Phases, each printing one JSON line:
              The panel gradient's seven passes at the same shapes, its store
              pair at 2048^2 x 8 slices and 256^2 x 2 waves x 3 slices (dV
              bitwise equal over two runs), each pass timed at 2048^2 and
-             4096^2.  ``--only kernels_slice`` (or ``kernels_fused``,
-             ``kernels_adjoint``, ``kernels_panel``, ``kernels_panel_grad``)
-             runs one of the five groups alone.
+             4096^2.  The streamed build's three passes at 256^2, 2048^2
+             and 4096^2 (one species and two; the fused row pass with one
+             wave and two), the whole streamed rollout of two species at
+             2048^2 x 8 slices against its plain passes and against the
+             per-slice streamed body, each pass timed at 2048^2 and 4096^2
+             beside the cuFFT build of one slice.  ``--only kernels_slice``
+             (or ``kernels_fused``, ``kernels_adjoint``, ``kernels_panel``,
+             ``kernels_panel_grad``, ``kernels_panel_stream``) runs one of
+             the six groups alone.
 3. golden  — the port's multislice (engine "pallas", complex64) against the
              frozen f64 golden pack (golden/si110_golden_pack.npz): exit wave
              and three HRTEM images at relative error <= 1e-5; and the
@@ -107,7 +113,23 @@ Phases, each printing one JSON line:
              gradient free of FFT library kernels (its kernels counted at 64
              slices); the per-slice route (the store cap patched) against the
              store route at 64 slices.
-12. engines — wall time of a 32-slice rollout and of one gradient evaluation
+12. c5_streamed — config 5 with the potential streamed: ``fdes_tpu_torch.cli.main
+             --mode forward --set sim.streamed=true`` at 2048^2, 512 slices
+             (one defocus: forward mode reads no CTF) on "panel" (2,050
+             panel passes, asserted; no FFT library kernel in the rollout,
+             its kernels counted exactly at 32 slices), "auto" (resolves to
+             "panel") and "xla" (the per-slice streamed body), each below
+             4 GiB of device memory; the exit wave against the materialised
+             complex128 rollout (c5's tolerance) and against "xla"'s; setup,
+             run, device busy time, idle share and peak memory; then
+             4096^2 x 512 slices on "panel" and "xla" (a stack of 32 GiB
+             that is never built) and a 4-tilt series at 2048^2 x 64 slices.
+13. phonon — frozen phonons through the CLI: config 2 in mode hrtem with 4
+             configurations on the defaults ("auto" resolves to "fscan": 4
+             whole-loop launches, asserted) against "xla" at <= 1e-5, and a
+             2x2 STEM raster of config 4 with 2 configurations on "fscan"
+             against "xla".
+14. engines — wall time of a 32-slice rollout and of one gradient evaluation
              per engine at 128^2 to 1024^2, one wave and 16, and on "panel",
              "pallas" and "xla" at 2048^2 (1 and 4 waves) and 4096^2: the
              rows that
@@ -140,7 +162,7 @@ import torch
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 PHASES = ("build", "kernels", "golden", "hrtem", "absorptive", "grad", "invert", "stem",
-          "stem4d", "c5", "c5_invert", "engines")
+          "stem4d", "c5", "c5_invert", "c5_streamed", "phonon", "engines")
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 PEAK_OPS_PER_S = {torch.float32: 67e12, torch.float64: 34e12}  # non-tensor-core FP32 / FP64
 KERNEL_TOL = {torch.complex64: 2e-6, torch.complex128: 1e-12}  # max|k - ref| / max|ref|
@@ -414,7 +436,8 @@ def device_kernels(fn) -> dict[str, int]:
 OWN_KERNELS = ("row_pass_kernel", "col_pass_kernel", "bwd_tail_kernel", "scan_kernel",
                "scan_store_kernel", "scan_bwd_store_kernel", "scan_ck_kernel",
                "scan_bwd_ck_kernel", "panel_row_kernel", "panel_col_kernel",
-               "panel_bwd_row_kernel")
+               "panel_bwd_row_kernel", "panel_g_row_kernel", "panel_build_col_kernel",
+               "panel_vfused_row_kernel")
 
 
 def own_kernels(kernels: dict[str, int]) -> dict[str, int]:
@@ -1035,6 +1058,168 @@ def phase_kernels_panel_grad() -> tuple[dict, dict]:
     line = {"phase": "kernels_panel_grad", "checks": checks, "dv_bitwise_equal": bitwise,
             "store_kernels_per_call": store_kernels, "bwd_kernels_per_call": bwd_kernels,
             "panel_kernel_info": info}
+    return line, rows
+
+
+def streamed_specimen(n: int, nslices: int, natoms: int, seed: int = 3):
+    """Random atoms of two species (Si, Ga) over an n^2 field at 0.05 A a
+    pixel, binned into nslices slices 2 A thick, as the streamed build reads
+    them: (atoms on the card, full-grid factors on the card (float64), grid,
+    propagator (complex64, on the card))."""
+    from fdes_tpu_torch.constants import wavelength_A
+    from fdes_tpu_torch.grids import Grid, fresnel_propagator
+    from fdes_tpu_torch.potential import pad_atoms_per_slice, species_factors_full
+    from fdes_tpu_torch.specimen import SlicedAtoms
+
+    rng = np.random.default_rng(seed)
+    grid = Grid(ny=n, nx=n, py=0.05, px=0.05)
+    sliced = SlicedAtoms(
+        x=rng.uniform(0, n * grid.px, natoms), y=rng.uniform(0, n * grid.py, natoms),
+        slice_idx=rng.integers(0, nslices, natoms).astype(np.int32),
+        species_idx=rng.integers(0, 2, natoms).astype(np.int32), weight=np.ones(natoms),
+        species=((14, 0.45), (31, 0.6)), nslices=nslices, dz=2.0)
+    x, y, sp, w, _ = pad_atoms_per_slice(sliced, np.float32)
+    atoms = tuple(torch.as_tensor(a, device="cuda") for a in (x, y, sp, w))
+    ff = torch.as_tensor(species_factors_full(grid, sliced.species), device="cuda")
+    prop = torch.as_tensor(fresnel_propagator(grid, wavelength_A(300e3), sliced.dz)
+                           .astype(np.complex64), device="cuda")
+    return atoms, ff, grid, prop
+
+
+def phase_kernels_panel_stream() -> tuple[dict, dict]:
+    """The streamed build's passes (rows 27-29) against their plain versions
+    at 256^2, 2048^2 and 4096^2, one species and two (row 29 with one wave
+    and two); the whole panel_streamed (two species) at 2048^2 x 8 slices
+    against panel_streamed_ref and multislice_streamed on xla, its kernels
+    counted; per-pass times at 2048^2 and 4096^2 (one species, one wave)
+    beside their bounds, and the cuFFT build of one slice (slice_potential:
+    scatter, rfft2, product, irfft2) beside them; returns (phase line,
+    table rows)."""
+    from fdes_tpu_torch.kernels import panel_scan as ps
+    from fdes_tpu_torch.potential import slice_potential
+    from fdes_tpu_torch.propagate import multislice_streamed
+
+    card = CardInputs(8)
+    sigma = 6.5e-4  # rad/(V A) at 300 kV, phases sigma * V of up to 1.3 rad
+    checks, f32 = [], torch.float32
+
+    def passes(n, nsp, nwaves):
+        """{name: (kernel, plain)} of rows 27-29 on one set of inputs."""
+        g, gx, fp = card.real(nsp, n, n, top=1.0), card.cplx(nsp, n, n), card.real(nsp, n, n)
+        vx = ps.panel_g_rowpass_ref(card.real(n, n)) / n  # V's x spectrum, V in [0, 2000)
+        b = card.cplx(*((nwaves,) if nwaves > 1 else ()), n, n)
+        return {
+            "panel_g_rowpass": (lambda: ps.panel_g_rowpass(g), lambda: ps.panel_g_rowpass_ref(g)),
+            "panel_build_colpass": (lambda: ps.panel_build_colpass(gx, fp),
+                                    lambda: ps.panel_build_colpass_ref(gx, fp)),
+            "panel_vfused_rowpass": (lambda: ps.panel_vfused_rowpass(vx, b, sigma),
+                                     lambda: ps.panel_vfused_rowpass_ref(vx, b, sigma)),
+        }
+
+    errs = {}
+    for n in (256, 2048, 4096):
+        for nsp, nwaves in ((1, 1), (2, 2)):
+            cases = passes(n, nsp, nwaves)
+            for name, (kern, ref) in cases.items():
+                lead = nwaves if name == "panel_vfused_rowpass" else nsp
+                err = check_kernel(checks, name, (lead, n, n), kern(), ref(), FUSED_TOL,
+                                   nspecies=nsp, nwaves=nwaves)
+                if n == 2048 and nsp == 1:
+                    errs[name] = err
+            del cases
+
+    def cost(n):  # name: (bytes, operations), one species and one wave
+        plane, fx = panel_cost(n)
+        return {
+            "panel_g_rowpass": (plane * (4 + 8), fx),
+            "panel_build_colpass": (plane * (8 + 4 + 8), 2 * fx + 2 * plane),
+            "panel_vfused_rowpass": (plane * (8 + 8 + 8), 3 * fx + 9 * plane),
+        }
+
+    kernel_of = {"panel_g_rowpass": "panel_g_row_kernel",
+                 "panel_build_colpass": "panel_build_col_kernel",
+                 "panel_vfused_rowpass": "panel_vfused_row_kernel"}
+    info_key = {"panel_g_rowpass": "g_row", "panel_build_colpass": "build_col",
+                "panel_vfused_rowpass": "vfused_row"}
+    times, info, cufft_build = {}, {}, {}
+    for n in (2048, 4096):
+        cases = passes(n, 1, 1)
+        for name, (kern, ref) in cases.items():
+            nbytes, ops = cost(n)[name]
+            t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / PEAK_OPS_PER_S[f32] * 1e3
+            times[(name, n)] = {
+                "ms": time_launches(kern, n=20, warmup=3),
+                "plain_ms": time_launches(ref, n=10, warmup=2),
+                "bound_ms": max(t_bytes, t_ops),
+                "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                "bytes": nbytes, "operations": ops,
+                "kernels_per_call": expect_own_kernels(name, kern, {kernel_of[name]: 1}),
+            }
+        info[n] = {k: ps.panel_kernel_info(n, k) for k in info_key.values()}
+        del cases
+        # the cuFFT build of one slice of ~2,000 atoms of two species, for comparison
+        atoms, ff, grid, _ = streamed_specimen(n, 1, 2000)
+        ff_r = ff[..., : n // 2 + 1].float()
+        cufft_build[n] = time_launches(
+            lambda: slice_potential(*(a[0] for a in atoms), ff_r, shape=grid.shape,
+                                    pixel=(grid.py, grid.px)), n=10, warmup=2)
+        del atoms, ff, ff_r
+
+    # ---- the whole streamed rollout: 2048^2 x 8 slices, two species
+    n, nslices = 2048, 8
+    atoms, ff, grid, prop = streamed_specimen(n, nslices, 8000)
+    psi0 = torch.ones((n, n), dtype=torch.complex64, device="cuda")
+    kw = {"shape": grid.shape, "pixel": (grid.py, grid.px)}
+    reset_launches()
+    got = ps.panel_streamed(psi0, atoms, ff, prop, sigma, **kw)
+    counted = {k: c for k, c in launch_counts().items() if c}
+    want_counts = {"panel_streamed": 1, "panel_g_rowpass": nslices,
+                   "panel_build_colpass": nslices, "panel_colpass": nslices,
+                   "panel_vfused_rowpass": nslices - 1, "panel_final": 2, "panel_init": 1}
+    if counted != want_counts:
+        raise AssertionError(f"panel_streamed launches {counted}, expected {want_counts}")
+    check_kernel(checks, "panel_streamed", (nslices, n, n), got,
+                 ps.panel_streamed_ref(psi0, atoms, ff, prop, sigma, **kw), scan_tol(nslices),
+                 nspecies=2)
+    with torch.no_grad():
+        xla = multislice_streamed(psi0, atoms, ff, prop, sigma, **kw)
+    vs_xla = rel_norm(got, xla)
+    checks.append({"kernel": "panel_streamed", "against": "multislice_streamed xla",
+                   "rel_norm": vs_xla, "tol": GATE, "ok": vs_xla <= GATE})
+    if not vs_xla <= GATE:
+        raise AssertionError(f"panel_streamed vs xla's streamed rollout: {vs_xla:.3e}")
+    streamed_kernels = expect_own_kernels(
+        "panel_streamed", lambda: ps.panel_streamed(psi0, atoms, ff, prop, sigma, **kw),
+        {"panel_row_kernel": 3, "panel_col_kernel": nslices, "panel_g_row_kernel": nslices,
+         "panel_build_col_kernel": nslices, "panel_vfused_row_kernel": nslices - 1},
+        everything=True)
+    if any("fft" in k.lower() for k in streamed_kernels):
+        raise AssertionError(f"panel_streamed kernels: {streamed_kernels}")
+    del atoms, ff, prop, psi0, got, xla
+
+    replaces = {
+        "panel_g_rowpass": "fdes_tpu/pallas/panel_scan.py:1045",
+        "panel_build_colpass": "fdes_tpu/pallas/panel_scan.py:1058",
+        "panel_vfused_rowpass": "fdes_tpu/pallas/panel_scan.py:1086",
+    }
+    rows = {}
+    for name in replaces:
+        t, t4 = times[(name, 2048)], times[(name, 4096)]
+        rows[name] = {
+            "name": name, "route": "cuda", "source": "fdes_tpu_torch/csrc/panel_scan.cu",
+            "replaces": replaces[name], "launches": None,
+            "max_abs_err": errs[name][0], "max_rel_err": errs[name][1],
+            "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"], "library_ms": None, "shape": [2048, 2048],
+            "dtype": "complex64", "bytes": t["bytes"], "operations": t["operations"],
+            "at_4096": {k: t4[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
+            "kernels_per_call": t["kernels_per_call"],
+            "kernel": info[2048][info_key[name]],
+        }
+    line = {"phase": "kernels_panel_stream", "checks": checks, "panel_kernel_info": info,
+            "streamed_kernels_per_call": streamed_kernels,
+            # not one PyTorch call, so a note beside the rows, not their library column
+            "cufft_slice_build_ms": cufft_build}
     return line, rows
 
 
@@ -2037,6 +2222,215 @@ def phase_c5_invert(tmp: str, gpu: str) -> tuple[dict, dict]:
     return line, launches
 
 
+#: config 5 in mode forward with the potential streamed: exit wave only, so
+#: one defocus (forward mode reads no CTF; the host builds the stack anyway)
+C5_STREAMED = (*C5, "--mode", "forward", "--set", "sim.streamed=true",
+               "--set", "optics.defoci_A=[0.0]")
+# the streamed runs hold no (S, n, n) stack: the materialised build peaks at
+# 40 GiB at 2048^2 (phase c5); a streamed run holds a few planes
+C5_STREAMED_PEAK = 4 * 2**30
+# two float32 rollouts of 512 slices (PERF.md section 2): exit waves
+C5_STREAMED_TOL = 2e-4
+
+
+def c5_streamed_expected(zero: dict, nslices: int) -> dict:
+    """The panel wrappers' counts of one streamed rollout of nslices slices:
+    per slice the g row pass, the build column pass and the column pass,
+    the fused row pass for every slice after the first; slice 0's V by
+    panel_final, panel_init, and the closing panel_final."""
+    return {**zero, "panel_streamed": 1, "panel_g_rowpass": nslices,
+            "panel_build_colpass": nslices, "panel_colpass": nslices,
+            "panel_vfused_rowpass": nslices - 1, "panel_final": 2, "panel_init": 1}
+
+
+def streamed_cli_run(tmp: str, tag: str, *extra: str) -> tuple[np.ndarray, dict, dict]:
+    """One streamed forward run through cli.main: (exit wave, timing.json with
+    the peak device bytes and the launches, the launch counts)."""
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    out, timing = run_cli(tmp, tag, *extra)
+    counts = launch_counts()
+    timing["peak_bytes"] = torch.cuda.max_memory_allocated()
+    timing["peak_gib"] = timing["peak_bytes"] / 2**30
+    timing["launches"] = {k: c for k, c in counts.items() if c}
+    wave = np.load(os.path.join(out, "exit_wave.npy"))
+    if sorted(os.listdir(out)) != ["exit_wave.npy", "timing.json"]:
+        raise AssertionError(f"{tag}: a streamed run writes exit_wave.npy only: {os.listdir(out)}")
+    shutil.rmtree(out)
+    if not np.isfinite(wave).all():
+        raise AssertionError(f"{tag}: exit wave not finite")
+    return wave, timing, counts
+
+
+def phase_c5_streamed(tmp: str, gpu: str) -> tuple[dict, dict]:
+    """Config 5 through cli.main --mode forward with sim.streamed=true:
+    2048^2 x 512 slices on panel (2,050 panel passes, asserted), auto
+    (resolves to panel) and xla, each below C5_STREAMED_PEAK; the exit wave
+    against the materialised complex128 rollout (c5's tolerance) and against
+    xla's; the rollout's kernels (exact at 32 slices, no FFT library kernel
+    at 512) and device busy time; then 4096^2 x 512 slices on panel and xla
+    (the size whose stack does not fit), and a 4-tilt series at 2048^2 x 64
+    slices, panel against xla.  Returns (line, launches of the 2048^2 panel
+    run)."""
+    from fdes_tpu_torch.config import apply_overrides, load_config
+    from fdes_tpu_torch.pipeline import setup, streamed_inputs
+    from fdes_tpu_torch.propagate import make_slice_step, multislice, multislice_streamed
+
+    zero = dict.fromkeys(launch_counts(), 0)
+    nslices = C5_SLICES
+    # first, the streamed kernels at 2048^2 and 4096^2 and cuFFT's plans (two
+    # slices per engine), so that no timed run pays for loading them
+    for n in (2048, 4096):
+        atoms, ff, grid, prop = streamed_specimen(n, 2, 100)
+        psi = torch.ones((n, n), dtype=torch.complex64, device="cuda")
+        for e in ("panel", "xla"):
+            with torch.no_grad():
+                multislice_streamed(psi, atoms, ff, prop, 1e-3, shape=grid.shape,
+                                    pixel=(grid.py, grid.px),
+                                    slice_step=make_slice_step(e, shape=grid.shape, grad=False))
+        del atoms, ff, prop, psi
+    runs, waves, counts = {}, {}, {}
+    for engine in ("panel", "auto", "xla"):
+        waves[engine], runs[engine], counts[engine] = streamed_cli_run(
+            tmp, f"c5s_{engine}", *C5_STREAMED, "--set", f"sim.engine={engine}")
+    for e in ("panel", "auto"):
+        if counts[e] != c5_streamed_expected(zero, nslices):
+            raise AssertionError(f"c5_streamed on {e}: launches {runs[e]['launches']}")
+        if runs[e]["engine_kind"] != "panel":
+            raise AssertionError(f"c5_streamed on {e}: timing.json {runs[e]}")
+    w = {e: torch.as_tensor(a, device="cuda") for e, a in waves.items()}
+    err = {"auto_vs_panel": rel_norm(w["auto"], w["panel"]),
+           "panel_vs_xla": rel_norm(w["panel"], w["xla"])}
+
+    # the rollout alone: its kernels and device busy time
+    c5_settings = [a for a in C5 if a != "--set"]
+    cfg = apply_overrides(load_config(CONFIG), [*c5_settings, "mode=forward", "sim.streamed=true",
+                                                "optics.defoci_A=[0.0]"])
+    sim = setup(cfg, device="cuda")
+    atoms, ff = streamed_inputs(sim)
+    step = make_slice_step("panel", shape=sim.grid.shape, grad=False)
+    kw = {"shape": sim.grid.shape, "pixel": (sim.grid.py, sim.grid.px), "slice_step": step}
+
+    def rollout(nsl=nslices):
+        return multislice_streamed(sim.psi0, tuple(a[:nsl] for a in atoms), ff, sim.propagator,
+                                   sim.sigma, **kw)
+
+    # counted exactly on a 32-slice rollout (~230 kernels): the profiler
+    # drops events of long traces; the 512-slice profile is read for names
+    kernels_32 = expect_own_kernels(
+        "c5_streamed rollout (32 slices)", lambda: rollout(32),
+        {"panel_row_kernel": 3, "panel_col_kernel": 32, "panel_g_row_kernel": 32,
+         "panel_build_col_kernel": 32, "panel_vfused_row_kernel": 31}, everything=True)
+    kernels_512 = device_kernels(rollout)
+    if any("fft" in k.lower() for k in (*kernels_32, *kernels_512)):
+        raise AssertionError(f"c5_streamed rollout kernels: {kernels_512}")
+    for e in ("panel", "xla"):
+        step_e = make_slice_step(e, shape=sim.grid.shape, grad=False)
+        busy, n_kernels = device_busy_ms(
+            lambda s=step_e: multislice_streamed(sim.psi0, atoms, ff, sim.propagator, sim.sigma,
+                                                 shape=sim.grid.shape,
+                                                 pixel=(sim.grid.py, sim.grid.px), slice_step=s))
+        runs[e]["device_busy_ms"] = busy
+        runs[e]["kernels"] = n_kernels
+        runs[e]["device_idle_share"] = max(0.0, 1.0 - busy / (runs[e]["run_s"] * 1e3))
+    del sim, atoms, ff
+
+    # the materialised complex128 rollout of the same specimen, grid and slices
+    cfg_m = apply_overrides(load_config(CONFIG), [*c5_settings, "optics.defoci_A=[0.0]"])
+    sim_m = setup(cfg_m, device="cuda")
+    c128 = torch.complex128
+    with torch.no_grad():
+        plain = multislice(sim_m.psi0, sim_m.v_stack, sim_m.propagator, sim_m.sigma)
+        exact = multislice(sim_m.psi0.to(c128), sim_m.v_stack.double(),
+                           sim_m.propagator.to(c128), sim_m.sigma)
+    dist = {"plain_materialised": rel_norm(plain, exact),
+            **{e: rel_norm(w[e], exact) for e in ("panel", "xla")}}
+    del sim_m, plain, exact, w
+    wave_tol = min(1e-4, 1.5 * dist["plain_materialised"])
+
+    # ---- 4096^2 x 512 slices, the same specimen at the finer pixel
+    c5_4096 = ("--set", "sim.ny=4096", "--set", "sim.nx=4096", *C5_STREAMED[4:])
+    big = {}
+    for e in ("panel", "xla"):
+        wave, big[e], cnt = streamed_cli_run(tmp, f"c5s4096_{e}", *c5_4096, "--set",
+                                             f"sim.engine={e}")
+        waves[f"4096_{e}"] = wave
+        if e == "panel" and cnt != c5_streamed_expected(zero, nslices):
+            raise AssertionError(f"c5_streamed 4096^2 on panel: launches {big[e]['launches']}")
+    err["4096_panel_vs_xla"] = rel_norm(torch.as_tensor(waves.pop("4096_panel"), device="cuda"),
+                                        torch.as_tensor(waves.pop("4096_xla"), device="cuda"))
+
+    # ---- a 4-tilt series at 2048^2 x 64 slices: B waves, V built once a slice
+    tilt = (*C5_STREAMED[:4], "--set", "sim.nslices=64", *C5_STREAMED[6:], "--set",
+            "sim.tilt_series_rad=[[0.0,0.0],[0.002,-0.001],[-0.001,0.002],[0.001,0.001]]")
+    tilts = {}
+    for e in ("panel", "xla"):
+        waves[f"tilt_{e}"], tilts[e], cnt = streamed_cli_run(tmp, f"c5s_tilt_{e}", *tilt,
+                                                             "--set", f"sim.engine={e}")
+        if e == "panel" and cnt != c5_streamed_expected(zero, 64):
+            raise AssertionError(f"c5_streamed tilt on panel: launches {tilts[e]['launches']}")
+    err["tilt4_panel_vs_xla"] = rel_norm(torch.as_tensor(waves["tilt_panel"], device="cuda"),
+                                         torch.as_tensor(waves["tilt_xla"], device="cuda"))
+    line = {
+        "phase": "c5_streamed",
+        "config": "examples/si110_hrtem.toml " + " ".join(C5_STREAMED[1::2]),
+        "runs": runs, "runs_4096": big, "runs_tilt4": tilts, "rel_err": err,
+        "rel_norm_vs_complex128": dist, "wave_tol": wave_tol, "tol_vs_xla": C5_STREAMED_TOL,
+        "variant_tol": C5_VARIANT_TOL, "peak_limit_bytes": C5_STREAMED_PEAK,
+        "rollout_kernels_32": own_kernels(kernels_32),
+        "rollout_kernels_512": own_kernels(kernels_512), "gpu": gpu,
+    }
+    if waves["tilt_panel"].shape != (4, 2048, 2048) or waves["panel"].shape != (2048, 2048):
+        raise AssertionError(f"c5_streamed exit waves {waves['panel'].shape}, "
+                             f"{waves['tilt_panel'].shape}")
+    peaks = {**{e: r["peak_bytes"] for e, r in runs.items()},
+             "4096_panel": big["panel"]["peak_bytes"]}
+    if not all(p < C5_STREAMED_PEAK for p in peaks.values()):
+        raise AssertionError(f"c5_streamed peaks {peaks} not below {C5_STREAMED_PEAK}")
+    if not dist["panel"] <= wave_tol:
+        raise AssertionError(f"c5_streamed panel vs complex128: {dist}, tol {wave_tol:.2e}")
+    if not (err["auto_vs_panel"] <= GATE and err["panel_vs_xla"] <= C5_STREAMED_TOL
+            and err["4096_panel_vs_xla"] <= C5_STREAMED_TOL
+            and err["tilt4_panel_vs_xla"] <= C5_VARIANT_TOL):
+        raise AssertionError(f"c5_streamed exit waves: {err}")
+    return line, counts["panel"]
+
+
+def phase_phonon(tmp: str, gpu: str) -> dict:
+    """Frozen phonons through cli.main: config 2 in mode hrtem with 4
+    configurations on the defaults (auto resolves to fscan: one whole-loop
+    launch per configuration, asserted) against xla; a 2x2 STEM raster of
+    config 4 with 2 configurations on fscan against xla."""
+    cases = {  # name: (config, engines, settings, output, fused_scan launches, tolerance)
+        "hrtem": (CONFIG, ("auto", "xla"), ("--set", "sim.phonon_configs=4"), "images.npy", 4,
+                  GATE),
+        # 128 float32 slices: the raster's tolerance (phase stem)
+        "stem": (CONFIG_STEM, ("fscan", "xla"),
+                 ("--set", "sim.phonon_configs=2", "--set", "stem.scan_ny=2", "--set",
+                  "stem.scan_nx=2", "--set", "stem.probe_chunk=4"), "stem.npy", 2, 1e-4),
+    }
+    line = {"phase": "phonon", "gpu": gpu}
+    for name, (config, engines, extra, output, want, tol) in cases.items():
+        got, timing = {}, {}
+        for e in engines:
+            reset_launches()
+            out, timing[e] = run_cli(tmp, f"phonon_{name}_{e}", *extra, "--set",
+                                     f"sim.engine={e}", config=config)
+            timing[e]["launches"] = {k: c for k, c in launch_counts().items() if c}
+            got[e] = np.load(os.path.join(out, output))
+        a, b = got[engines[0]], got["xla"]
+        err = float(np.linalg.norm(a - b) / np.linalg.norm(b))
+        line[name] = {"shape": list(a.shape), "rel_err_vs_xla": err, "tol": tol,
+                      "timing": timing}
+        if timing[engines[0]]["launches"].get("fused_scan") != want:
+            raise AssertionError(f"phonon {name}: launches {timing[engines[0]]['launches']}, "
+                                 f"expected {want} of fused_scan")
+        if not (np.isfinite(a).all() and err <= tol):
+            raise AssertionError(f"phonon {name}: {line[name]}")
+    return line
+
+
 def phase_engines(gpu: str) -> dict:
     """Wall ms (host clock around a synchronised call, median of 3, each
     engine measured twice in turns) of a 32-slice rollout and of one gradient
@@ -2227,6 +2621,9 @@ ROW_PHASES = {
     "panel_col_bwd": ("c5_invert", "c5_invert_per_slice"),
     "panel_row_bwd_loop": ("c5_invert",),
     "panel_row_bwd_last": ("c5_invert",),
+    "panel_g_rowpass": ("c5_streamed",),
+    "panel_build_colpass": ("c5_streamed",),
+    "panel_vfused_rowpass": ("c5_streamed",),
 }
 #: kernels on no path, exempt from the check that each kernel of a path was
 #: launched there: _row_mid_kernel has no caller in fdes_tpu (a building
@@ -2249,7 +2646,7 @@ def main(argv=None) -> int:
     ap.add_argument("--only", default=",".join(PHASES),
                     help="comma-separated subset of " + ",".join(PHASES)
                     + " (kernels_slice, kernels_fused, kernels_adjoint, kernels_panel, "
-                    "kernels_panel_grad: one group of kernel checks)")
+                    "kernels_panel_grad, kernels_panel_stream: one group of kernel checks)")
     args = ap.parse_args(argv)
     phases = args.only.split(",")
     if not torch.cuda.is_available():
@@ -2272,7 +2669,8 @@ def main(argv=None) -> int:
     for group, fn in (("kernels_fused", phase_kernels_fused),
                       ("kernels_adjoint", phase_kernels_adjoint),
                       ("kernels_panel", phase_kernels_panel),
-                      ("kernels_panel_grad", phase_kernels_panel_grad)):
+                      ("kernels_panel_grad", phase_kernels_panel_grad),
+                      ("kernels_panel_stream", phase_kernels_panel_stream)):
         if "kernels" in phases or group in phases:
             line, group_rows = timed(fn)
             rows.update(group_rows)
@@ -2316,6 +2714,11 @@ def main(argv=None) -> int:
             path_launches.update(c5_invert=by_run["panel"],
                                  c5_invert_per_slice=by_run["per_slice"])
             emit(line)
+        if "c5_streamed" in phases:
+            line, path_launches["c5_streamed"] = timed(phase_c5_streamed, tmp, gpu)
+            emit(line)
+        if "phonon" in phases:
+            emit(timed(phase_phonon, tmp, gpu))
     if "engines" in phases:
         emit(timed(phase_engines, gpu))
     for name, row in rows.items():

@@ -1,13 +1,14 @@
 """fdes_tpu_torch — the PyTorch/CUDA port of fdes_tpu for NVIDIA Hopper.
 
 Multislice simulation of TEM measurements (exit waves, HRTEM defocus and
-tilt series) and the inverse (the potential recovered from a defocus or
-tilt series by gradient descent: ``loss``, ``reconstruct``, ``calibrate``)
-in PyTorch, with the slice step, the whole slice loop and their adjoints
+tilt series, STEM rasters, with the potential materialised or built slice
+by slice inside the rollout, and frozen-phonon averages) and the inverse
+(the potential recovered from a defocus or tilt series by gradient descent:
+``loss``, ``reconstruct``, ``calibrate``) in PyTorch, with the slice step,
+the whole slice loop, the streamed potential build and their adjoints
 written in CUDA C++ for sm_90a (``kernels/``, ``csrc/``).  The JAX package
-``fdes_tpu`` is the
-reference; this package imports none of it and no JAX.  ROADMAP.md lists
-what is ported and what is still to come.
+``fdes_tpu`` is the reference; this package imports none of it and no JAX.
+ROADMAP.md lists what is ported and what is still to come.
 """
 
 from .config import Config, load_config
@@ -17,12 +18,14 @@ from .grids import Grid, fresnel_propagator
 from .imaging import hrtem_image, hrtem_incoherent, hrtem_series
 from .loss import make_loss
 from .optics import Aberrations, ctf, ctf_series
+from .phonon import phonon_average, phonon_configs, phonon_sliced
 from .pipeline import Sim, setup, sim_from_arrays
-from .potential import build_potential
+from .potential import build_potential, build_potential_exact
 from .probe import plane_wave
 from .propagate import (
     make_slice_step,
     multislice,
+    multislice_streamed,
     multislice_thickness_series,
     pick_remat_chunk,
     transmit,
@@ -41,6 +44,7 @@ __all__ = [
     "SlicedAtoms",
     "Specimen",
     "build_potential",
+    "build_potential_exact",
     "ctf",
     "ctf_series",
     "fresnel_propagator",
@@ -56,7 +60,11 @@ __all__ = [
     "make_si110_supercell",
     "make_slice_step",
     "multislice",
+    "multislice_streamed",
     "multislice_thickness_series",
+    "phonon_average",
+    "phonon_configs",
+    "phonon_sliced",
     "pick_remat_chunk",
     "plane_wave",
     "setup",

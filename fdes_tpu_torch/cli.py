@@ -15,10 +15,13 @@ the detector signals (``stem.npy``, and ``stem_com.npy`` with
 tilt series, or with ``recon.modality = "stem4d"`` from the diffraction
 patterns of a scan (``observed_path``, or a self-test series synthesised from
 the config's specimen) and writes ``reconstructed.npy``, ``metrics.jsonl`` and
-``checkpoint.npz``; ``--resume`` continues from that checkpoint.  Settings
-that are not ported yet (``stem.method = "prism"``, ``sim.phonon_configs``,
-``sim.streamed`` and a ``[mesh]``) exit with code 2 and say so.  Runs on ``cuda``
-unless ``--device cpu`` is given.
+``checkpoint.npz``; ``--resume`` continues from that checkpoint.
+``sim.streamed`` (mode forward) builds the potential slice by slice inside
+the rollout and writes ``exit_wave.npy`` only; ``sim.phonon_configs`` > 0
+averages the intensities of hrtem, stem and stem4d over that many
+frozen-phonon configurations.  Settings that are not ported yet
+(``stem.method = "prism"`` and a ``[mesh]``) exit with code 2 and say so.
+Runs on ``cuda`` unless ``--device cpu`` is given.
 """
 
 from __future__ import annotations
@@ -29,6 +32,7 @@ import json
 import os
 import sys
 import time
+import warnings
 
 import torch
 
@@ -103,8 +107,19 @@ def main(argv: list[str] | None = None) -> int:
         from .pipeline import stem_setup
 
         stencil, qy, qx, positions, masks = stem_setup(sim)
-        raster_args = (sim.v_stack, stencil, qy, qx, positions, sim.propagator, sim.sigma)
+        raster_args = (stencil, qy, qx, positions, sim.propagator, sim.sigma)
         raster_kw = {"probe_chunk": probe_chunk, "slice_step": slice_step}
+    streamed = cfg.mode == "forward" and cfg.sim.streamed
+    if streamed:
+        from .pipeline import streamed_inputs
+
+        atoms, ff = streamed_inputs(sim)
+        slice_step = _streamed_step(cfg, sim, slice_step)
+    phonons = cfg.sim.phonon_configs > 0
+    if phonons and cfg.mode in ("forward", "invert"):
+        warnings.warn(
+            f"sim.phonon_configs applies to modes hrtem, stem and stem4d; mode {cfg.mode!r} "
+            "runs the Debye-Waller potential, as fdes_tpu does", stacklevel=2)
     _sync(device)
     t_setup = time.perf_counter() - t0
     os.makedirs(cfg.output_dir, exist_ok=True)
@@ -112,7 +127,17 @@ def main(argv: list[str] | None = None) -> int:
     rollouts = 1
 
     t1 = time.perf_counter()
-    if cfg.mode == "forward":
+    if streamed:
+        from .propagate import multislice_streamed
+
+        if sim.psi0_stack is not None:
+            psi0, prop = sim.psi0_stack, sim.prop_stack  # one batched rollout, V built once
+        else:
+            psi0, prop = sim.psi0, sim.propagator
+        psi = multislice_streamed(psi0, atoms, ff, prop, sim.sigma, shape=sim.grid.shape,
+                                  pixel=(sim.grid.py, sim.grid.px), slice_step=slice_step)
+        outputs = {"exit_wave.npy": psi}
+    elif cfg.mode == "forward":
         if sim.psi0_stack is not None:
             psi0, prop = sim.psi0_stack, sim.prop_stack  # one batched rollout
         else:
@@ -146,17 +171,19 @@ def main(argv: list[str] | None = None) -> int:
         from .forward import stem_com_raster, stem_raster
 
         with torch.no_grad():
-            sig = stem_raster(*raster_args, masks, **raster_kw)
+            sig = _phonon_mean(cfg, sim, lambda v: stem_raster(v, *raster_args, masks,
+                                                               **raster_kw))
             outputs = {"stem.npy": sig.reshape(-1, cfg.stem.scan_ny, cfg.stem.scan_nx)}
             if cfg.stem.compute_com:
                 rollouts = 2  # the first-moment raster is a second pass over the scan
-                com = stem_com_raster(*raster_args, **raster_kw)
+                com = _phonon_mean(cfg, sim, lambda v: stem_com_raster(v, *raster_args,
+                                                                       **raster_kw))
                 outputs["stem_com.npy"] = com.reshape(cfg.stem.scan_ny, cfg.stem.scan_nx, 2)
     elif cfg.mode == "stem4d":
         from .forward import stem_raster_4d
 
         with torch.no_grad():
-            cbed = stem_raster_4d(*raster_args, **raster_kw)
+            cbed = _phonon_mean(cfg, sim, lambda v: stem_raster_4d(v, *raster_args, **raster_kw))
         outputs = {
             "cbed.npy": cbed.reshape(cfg.stem.scan_ny, cfg.stem.scan_nx, *sim.grid.shape)
         }
@@ -166,15 +193,15 @@ def main(argv: list[str] | None = None) -> int:
         from .pipeline import to_device
 
         if sim.psi0_stack is not None:
-            imgs = hrtem_tilt_series(
-                sim.v_stack, sim.psi0_stack, sim.prop_stack, sim.sigma,
+            imgs = _phonon_mean(cfg, sim, lambda v: hrtem_tilt_series(
+                v, sim.psi0_stack, sim.prop_stack, sim.sigma,
                 sim.ctf_stack[0], weights=sim.ctf_weights, slice_step=slice_step,
-            )
+            ))
         else:
-            imgs = hrtem_defocus_series(
-                sim.v_stack, sim.psi0, sim.propagator, sim.sigma, sim.ctf_stack,
+            imgs = _phonon_mean(cfg, sim, lambda v: hrtem_defocus_series(
+                v, sim.psi0, sim.propagator, sim.sigma, sim.ctf_stack,
                 weights=sim.ctf_weights, slice_step=slice_step,
-            )
+            ))
         det = cfg.detector
         if det.mtf_sigma_px > 0:
             mtf = to_device(gaussian_mtf(sim.grid.shape, det.mtf_sigma_px), sim.rdtype, device)
@@ -202,7 +229,9 @@ def main(argv: list[str] | None = None) -> int:
         timing["iters_per_s"] = n_run / res.wall_s if n_run and res.wall_s > 0 else None
         timing["median_step_s"] = res.median_step_s
     else:
-        slice_props = sim.v_stack.shape[0] * nwaves * rollouts
+        # a frozen-phonon mean runs every rollout once per configuration
+        configs = cfg.sim.phonon_configs if phonons and cfg.mode != "forward" else 1
+        slice_props = sim.sliced.nslices * nwaves * rollouts * configs
         timing["slice_props"] = slice_props
         if stem:
             timing["probes"], timing["probe_chunk"] = n_scan, batch_hint
@@ -214,6 +243,49 @@ def main(argv: list[str] | None = None) -> int:
         f"-> {cfg.output_dir}/"
     )
     return 0
+
+
+def _streamed_step(cfg, sim, slice_step):
+    """The engine of a streamed forward run.  ``auto`` resolves as it does
+    for a stack (``panel`` at 2048^2 and 4096^2), except where it would pick
+    the whole-loop kernel ``fscan``, which reads a materialised stack: there
+    it resolves to the per-slice ``fused`` where that engine takes the grid,
+    else ``pallas``, the faster per-slice engines of the H100 forward rows
+    (PERF.md section 5).  The JAX package falls back to its XLA body there.
+    An explicit ``fscan*`` raises in multislice_streamed, as in fdes_tpu."""
+    from .kernels.fused_step import SIZES
+    from .propagate import make_slice_step
+
+    kind = getattr(slice_step, "kind", None)
+    if cfg.sim.engine not in ("auto", "auto_fast") or kind is None or kind.startswith("panel"):
+        return slice_step
+    ny, nx = sim.grid.shape
+    fused = sim.cdtype == torch.complex64 and ny == nx and ny in SIZES
+    return make_slice_step("fused" if fused else "pallas", shape=sim.grid.shape,
+                           dtype=sim.cdtype, grad=False)
+
+
+def _phonon_mean(cfg, sim, fn):
+    """fn(V) of the config's potential, or with ``sim.phonon_configs`` > 0 its
+    mean over the frozen-phonon configurations (phonon.phonon_sliced, drawn
+    from ``cfg.seed``), one potential stack at a time: built, run, added to
+    the running sum and freed (the JAX package builds all C stacks and maps
+    over them).  An absorptive factor applies to each stack."""
+    if cfg.sim.phonon_configs <= 0:
+        return fn(sim.v_stack)
+    from .phonon import phonon_average, phonon_sliced
+    from .potential import build_potential
+
+    def one(sliced):
+        v = build_potential(sliced, sim.grid, table=sim.table, dtype=sim.rdtype,
+                            device=sim.device)
+        if cfg.sim.absorptive_factor > 0.0:
+            v = v + 1j * cfg.sim.absorptive_factor * v.abs()
+        return fn(v)
+
+    configs = phonon_sliced(sim.specimen, cfg.sim.phonon_configs, cfg.sim.nslices,
+                            dz=cfg.sim.dz_A or None, seed=cfg.seed)
+    return phonon_average(one, configs)
 
 
 def _invert(cfg, sim, slice_step, out, probe_chunk):

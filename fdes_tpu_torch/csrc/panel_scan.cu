@@ -18,11 +18,15 @@
 //   panel_col_kernel<L> (conj_p true)       _col_bwd_kernel            (:626)
 //   panel_bwd_row_kernel<L, kBwdLoop>       _row_bwd_loop_kernel       (:650)
 //   panel_bwd_row_kernel<L, kBwdLast>       _row_bwd_last_kernel       (:679)
+//   panel_g_row_kernel<L>                   _row_g_kernel              (:1045)
+//   panel_build_col_kernel<L>               _col_build_kernel          (:1058)
+//   panel_vfused_row_kernel<L>              _row_vfused_kernel         (:1086)
 // and the whole loops _run_single / _run_single_abs (the rollout),
 // _panel_loop_fwd and _panel_loop_bwd (the store-s gradient) as
 // fdes_panel_scan_c64, fdes_panel_scan_store_c64 and
 // fdes_panel_scan_bwd_store_c64, which issue every pass of a loop from C on
-// the caller's stream.
+// the caller's stream.  The streamed rollout (panel_streamed) is a Python
+// loop over slices: its scatter of atoms is tensor code between the passes.
 //
 // The field stays x-transformed between slices (panel_scan.py:16-34): with
 // a_j = Fx(t_j psi_j), the x spectrum in bit-reversed order,
@@ -74,6 +78,27 @@
 // the B waves in order, summing dV in registers (as adjoint_scan.cu's
 // backward does within a wave group): no atomics, two runs give the same
 // bits.  No grid-wide barrier: the stream orders the passes.
+//
+// The streamed build (panel_streamed): V_j never exists as a stack.  From
+// the real per-species delta planes g_s of slice j (the scatter of its atoms)
+//
+//   row 27     G_s  = Fx(g_s)                                  g row pass, all species
+//   row 28     Vx   = Fy^H(sum_s F_s * Fy(G_s))                build column pass
+//   row 29     a    = Fx(t_j Fx^H(b)), V_j = Re(Fx^H(Vx))      fused row pass
+//
+// with F_s the real form factor of species s on the full grid, gathered as
+// F_s[bitrev y][bitrev x] (the layout of Fy(Fx(.)), as the propagator) and
+// scaled by 1/(py px N^2), so that V_j is slice_potential's.  Row 28 keeps the
+// running sum of the species' products in its output plane in device memory,
+// which the block alone owns for its panel (in spectral order; the last
+// species' product is added in shared memory before the one inverse
+// transform): no second tile in shared memory, which would halve the blocks
+// resident at 2048^2 and does not fit beside a 4096-point panel of 4
+// columns (2 x 136 KB), and no narrower panel; nsp = 1 (Si) moves no extra
+// byte, each further species 16 bytes a pixel.  Row 29 transforms V's row
+// tile, keeps its real part in shared memory (4 B a point) and carries the
+// tile of each wave through the inverse transform, transmit and forward
+// transform, so V is transformed once per tile for all the waves.
 //
 // Bounds (H100 SXM: 3.35 TB/s, 67 TFLOP/s FP32): at 2048^2 a complex64
 // plane is 32 MiB and the planes do not stay in the 50 MB L2 between
@@ -217,6 +242,142 @@ panel_bwd_row_kernel(const float2* src, float2* dst, const float2* s, int64_t s_
   }
 }
 
+// Row 27: the forward x transform of nplanes real (N, N) planes g (the
+// species' delta planes of one slice) into complex dst, x in bit-reversed
+// order; the imaginary parts are never loaded.
+template <int LOG2N>
+__global__ void __launch_bounds__(kThreads)
+panel_g_row_kernel(const float* __restrict__ g, float2* dst, int64_t nplanes) {
+  extern __shared__ float2 smem[];
+  float2* tile = smem;
+  float2* tw = smem + kTilePadded;
+  init_twiddles<LOG2N>(tw);
+  __syncthreads();
+  for (int64_t t = blockIdx.x; t < nplanes * kTilesPerWave<LOG2N>; t += gridDim.x) {
+    const float* src = g + t * kTile;
+    for (int i = threadIdx.x; i < kTile / 2; i += kThreads) {
+      const float2 z = *reinterpret_cast<const float2*>(src + 2 * i);
+      tile[pad(2 * i)] = make_float2(z.x, 0.0f);
+      tile[pad(2 * i + 1)] = make_float2(z.y, 0.0f);
+    }
+    __syncthreads();
+    fft_forward<LOG2N, true>(tile, tw);
+    float2* out = dst + t * kTile;
+    for (int i = threadIdx.x; i < kTile / 2; i += kThreads) {
+      store_pair(out + 2 * i, tile[pad(2 * i)], tile[pad(2 * i + 1)]);
+    }
+    __syncthreads();  // the next tile reuses the shared memory
+  }
+}
+
+// Row 28: per panel of kPanelCols columns, for each of the nsp species
+// planes gx (nsp, N, N) the forward y transform times the species' real
+// factor panel fp (nsp, N, N, in the order the transform leaves), summed
+// over the species; then one inverse y transform into dst (N, N).  The sum
+// of species 0 .. nsp - 2 waits in dst (the block's own columns; each thread
+// reads back the elements it wrote).
+template <int LOG2N>
+__global__ void __launch_bounds__(kThreads)
+panel_build_col_kernel(const float2* __restrict__ gx, const float* __restrict__ fp, float2* dst,
+                       int nsp) {
+  extern __shared__ float2 smem[];
+  constexpr int N = 1 << LOG2N;
+  constexpr int C = kPanelCols<LOG2N>;
+  constexpr int TILE = C * N;
+  constexpr int64_t kPlane = int64_t{1} << (2 * LOG2N);
+  float2* tile = smem;
+  float2* tw = smem + C * N * 17 / 16;
+  init_twiddles<LOG2N>(tw);
+  __syncthreads();
+  for (int64_t t = blockIdx.x; t < N / C; t += gridDim.x) {
+    const int c0 = static_cast<int>(t) * C;
+    for (int sp = 0; sp < nsp; ++sp) {
+      const float2* src = gx + sp * kPlane;
+      for (int i = threadIdx.x; i < TILE / 2; i += kThreads) {
+        const int e = 2 * i;
+        float2 a, b;
+        load_pair(src + static_cast<int64_t>(e / C) * N + c0 + e % C, &a, &b);
+        tile[pad(e)] = a;
+        tile[pad(e + 1)] = b;
+      }
+      __syncthreads();
+      fft_forward<LOG2N, false, TILE>(tile, tw);
+      const float* f = fp + sp * kPlane;
+      for (int i = threadIdx.x; i < TILE / 2; i += kThreads) {
+        const int e = 2 * i;
+        const int64_t at = static_cast<int64_t>(e / C) * N + c0 + e % C;
+        const float2 w = *reinterpret_cast<const float2*>(f + at);
+        float2 a = tile[pad(e)];
+        float2 b = tile[pad(e + 1)];
+        a = make_float2(a.x * w.x, a.y * w.x);
+        b = make_float2(b.x * w.y, b.y * w.y);
+        if (sp > 0) {
+          float2 pa, pb;
+          load_pair(dst + at, &pa, &pb);
+          a = cadd(a, pa);
+          b = cadd(b, pb);
+        }
+        if (sp < nsp - 1) {
+          store_pair(dst + at, a, b);
+        } else {
+          tile[pad(e)] = a;
+          tile[pad(e + 1)] = b;
+        }
+      }
+      __syncthreads();
+    }
+    fft_inverse<LOG2N, false, TILE>(tile, tw);
+    for (int i = threadIdx.x; i < TILE / 2; i += kThreads) {
+      const int e = 2 * i;
+      store_pair(dst + static_cast<int64_t>(e / C) * N + c0 + e % C, tile[pad(e)],
+                 tile[pad(e + 1)]);
+    }
+    __syncthreads();  // the next panel reuses the shared memory
+  }
+}
+
+template <int LOG2N>
+constexpr size_t vfused_smem_bytes() {
+  return row_smem_bytes<LOG2N>() + sizeof(float) * kTile;
+}
+
+// Row 29: per row tile, V = Re(Fx^H(vx)) of the tile into shared memory
+// (vx (N, N): V in x spectrum, natural y, from row 28), then for each of the
+// nwaves waves a = Fx(exp(i sigma V) Fx^H(b)) (row_tile, src to dst; dst
+// may be src).
+template <int LOG2N>
+__global__ void __launch_bounds__(kThreads)
+panel_vfused_row_kernel(const float2* __restrict__ vx, const float2* src, float2* dst,
+                        float sigma, int64_t nwaves) {
+  extern __shared__ float2 smem[];
+  constexpr int64_t kPlane = int64_t{1} << (2 * LOG2N);
+  float2* tile = smem;
+  float2* tw = smem + kTilePadded;
+  float* v = reinterpret_cast<float*>(tw + kTwiddlesOf<LOG2N>);
+  init_twiddles<LOG2N>(tw);
+  __syncthreads();
+  for (int64_t t = blockIdx.x; t < kTilesPerWave<LOG2N>; t += gridDim.x) {
+    const int64_t r = t * kTile;
+    for (int i = threadIdx.x; i < kTile / 2; i += kThreads) {
+      float2 a, b;
+      load_pair(vx + r + 2 * i, &a, &b);
+      tile[pad(2 * i)] = a;
+      tile[pad(2 * i + 1)] = b;
+    }
+    __syncthreads();
+    fft_inverse<LOG2N, true>(tile, tw);
+    for (int i = threadIdx.x; i < kTile / 2; i += kThreads) {
+      *reinterpret_cast<float2*>(v + 2 * i) =
+          make_float2(tile[pad(2 * i)].x, tile[pad(2 * i + 1)].x);
+    }
+    __syncthreads();
+    for (int64_t b = 0; b < nwaves; ++b) {
+      row_tile<LOG2N>(tile, tw, src + b * kPlane + r, dst + b * kPlane + r, v, sigma, true,
+                      true);
+    }
+  }
+}
+
 // Launch a pass over ntiles tiles (grid-stride, at most kMaxBlocks blocks)
 // with `bytes` of dynamic shared memory.
 template <typename Kernel, typename... Args>
@@ -342,6 +503,12 @@ int kernel_info(int device, int which, int* out) {
       return info_of(panel_col_kernel<LOG2N>, col_smem_bytes<LOG2N>(), device, out);
     case 2:
       return info_of(panel_bwd_row_kernel<LOG2N, kBwdLoop>, row_smem_bytes<LOG2N>(), device, out);
+    case 3:
+      return info_of(panel_g_row_kernel<LOG2N>, row_smem_bytes<LOG2N>(), device, out);
+    case 4:
+      return info_of(panel_build_col_kernel<LOG2N>, col_smem_bytes<LOG2N>(), device, out);
+    case 5:
+      return info_of(panel_vfused_row_kernel<LOG2N>, vfused_smem_bytes<LOG2N>(), device, out);
     default:
       return cudaErrorInvalidValue;
   }
@@ -502,9 +669,42 @@ int fdes_panel_scan_bwd_store_c64(int device, int n, const void* s, const void* 
                                               nwaves, nslices, p_wave_stride, st(stream)))
 }
 
+// Row 27: g (nplanes, n, n) float32 -> Fx(g) (nplanes, n, n) complex.
+int fdes_panel_g_rowpass_c64(int device, int n, const void* g, void* out, int64_t nplanes,
+                             void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  FDES_DISPATCH_PANEL_N(n, launch(panel_g_row_kernel<L>, nplanes * kTilesPerWave<L>,
+                                  row_smem_bytes<L>(), st(stream), f1(g), o2(out), nplanes))
+}
+
+// Row 28: gx (nsp, n, n) -> out (n, n) = Fy^H(sum_s fp_s * Fy(gx_s)), fp the
+// (nsp, n, n) real factor panels; out must not overlap gx or fp.
+int fdes_panel_build_colpass_c64(int device, int n, const void* gx, const void* fp, void* out,
+                                 int nsp, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  if (nsp < 1) return cudaErrorInvalidValue;
+  FDES_DISPATCH_PANEL_N(n, launch(panel_build_col_kernel<L>, (1 << L) / kPanelCols<L>,
+                                  col_smem_bytes<L>(), st(stream), c2(gx), f1(fp), o2(out), nsp))
+}
+
+// Row 29: b (nwaves, n, n) -> out = Fx(exp(i sigma V) Fx^H(b)) (out may be
+// b), V = Re(Fx^H(vx)) of the (n, n) plane vx, shared by the waves.
+int fdes_panel_vfused_rowpass_c64(int device, int n, const void* vx, const void* b, void* out,
+                                  double sigma, int64_t nwaves, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  FDES_DISPATCH_PANEL_N(n, launch(panel_vfused_row_kernel<L>, kTilesPerWave<L>,
+                                  vfused_smem_bytes<L>(), st(stream), c2(vx), c2(b), o2(out),
+                                  static_cast<float>(sigma), nwaves))
+}
+
 // out[0..3] = registers per thread, dynamic shared bytes, local bytes per
 // thread and blocks resident at once on the device, of the row kernel
-// (which 0), the column kernel (1) or the backward row kernel (2), for size n.
+// (which 0), the column kernel (1), the backward row kernel (2), the g row
+// kernel (3), the build column kernel (4) or the fused row kernel (5), for
+// size n.
 int fdes_panel_kernel_info(int device, int n, int which, int* out) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;

@@ -428,7 +428,8 @@ def scan_diff_apply(
     recording, or neither psi0 nor V requires a gradient, this is
     ``fused_scan``: one launch and nothing kept.  The propagator gets no
     gradient: one that requires it raises.  A per-wave (B, S, n, n) V under a
-    gradient raises (its caller, frozen phonons, is not ported yet).
+    gradient raises: the CLI's frozen-phonon mean runs one stack at a time and
+    never differentiates, and JAX reaches that case only through ``vmap``.
     """
     recording = torch.is_grad_enabled()
     if recording and propagator.requires_grad:
@@ -442,8 +443,9 @@ def scan_diff_apply(
     if v_batched:
         raise NotImplementedError(
             "the whole-loop adjoint takes one (S, n, n) potential shared by the waves; a "
-            "gradient through a per-wave (B, S, n, n) stack comes with frozen phonons "
-            "(ROADMAP.md Queue 1 item 9)"
+            "gradient through a per-wave (B, S, n, n) stack is refused (ROADMAP.md Queue 3, "
+            "differs on purpose: a per-wave V under a gradient); differentiate each wave's "
+            "rollout on its own"
         )
     if v_stack.is_complex():
         raise TypeError("scan_diff_apply: v_stack must be real; the engine routes a complex "

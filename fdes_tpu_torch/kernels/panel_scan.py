@@ -1,11 +1,11 @@
 """The panel scan: the multislice loop on 256^2 to 4096^2 grids as row and
-column passes over planes in device memory, its gradient, and the engines
-``"panel*"``.
+column passes over planes in device memory, its gradient, the streamed
+potential build, and the engines ``"panel*"``.
 
-Counterpart of ``fdes_tpu/pallas/panel_scan.py`` (its streamed build aside).
-The field stays x-transformed between slices (a_j = Fx(t_j psi_j)): a
-rollout is an init row pass, per slice a column pass and a row pass, and a
-final row pass, each an ordinary launch of ``csrc/panel_scan.cu``:
+Counterpart of ``fdes_tpu/pallas/panel_scan.py``.  The field stays
+x-transformed between slices (a_j = Fx(t_j psi_j)): a rollout is an init row
+pass, per slice a column pass and a row pass, and a final row pass, each an
+ordinary launch of ``csrc/panel_scan.cu``:
 
 * ``panel_init(v0, psi, sigma)`` -> a = Fx(t_0 psi)  (replaces ``_row_init_kernel``);
 * ``panel_colpass(a, propagator)`` -> b = Fy^H(P / n^2 * Fy(a))  (``_col_kernel``);
@@ -44,6 +44,23 @@ with s_j = t_j psi_j kept by the forward.  Its passes:
 * ``panel_scan_store`` -> (exit waves, s (B, S, n, n)) and
   ``panel_scan_bwd_store`` -> (dV, dpsi0): the forward and reverse loops,
   2S + 1 passes each, issued from C (``_panel_loop_fwd``, ``_panel_loop_bwd``).
+
+The streamed build (``panel_streamed``, forward only): V is built slice by
+slice between the passes and the (S, n, n) stack never exists.  Per slice
+the atoms are scattered as per-species delta planes g_s (tensor code), then
+
+* ``panel_g_rowpass(g)`` -> Fx(g_s) for all species in one launch  (``_row_g_kernel``);
+* ``panel_build_colpass(gx, factors)`` -> Vx = Fy^H(sum_s F_s Fy(gx_s)), V in
+  x spectrum  (``_col_build_kernel``); ``prepare_factors`` gathers the
+  full-grid form factors F_s as the transforms leave the spectrum and scales
+  them by 1/(py px n^2);
+* ``panel_vfused_rowpass(vx, b, sigma)`` -> Fx(t Fx^H(b)), V = Re(Fx^H(vx))
+  built in the same launch  (``_row_vfused_kernel``).
+
+Slice 0's V goes through ``panel_final`` and ``panel_init``; a rollout of S
+slices is S launches each of the g row pass, the build column pass and the
+column pass, S - 1 fused row passes and three more (2 ``panel_final``, 1
+``panel_init``).
 
 ``panel_diff_apply`` differentiates the loop: the store pair while the s
 stack (B*S*n*n*8 bytes) fits ``adjoint_scan.STORE_CAP_BYTES``, past it
@@ -103,6 +120,9 @@ _ARGTYPES = {
     "fdes_panel_scan_bwd_store_c64": [
         _INT, _INT, _P, _P, _P, _P, _P, _P, _D, _I64, _INT, _I64, _P,
     ],
+    "fdes_panel_g_rowpass_c64": [_INT, _INT, _P, _P, _I64, _P],
+    "fdes_panel_build_colpass_c64": [_INT, _INT, _P, _P, _P, _INT, _P],
+    "fdes_panel_vfused_rowpass_c64": [_INT, _INT, _P, _P, _P, _D, _I64, _P],
     "fdes_panel_kernel_info": [_INT, _INT, _INT, _P],
 }
 #: modes of fdes_panel_bwd_row_c64 (csrc/panel_scan.cu BwdMode)
@@ -131,10 +151,12 @@ def _launch(name: str, device: torch.device, *args) -> None:
 
 def panel_kernel_info(n: int, kernel: str = "row", device: torch.device | str = "cuda") -> dict:
     """Registers, dynamic shared memory, local memory and resident blocks of
-    the row kernel (``kernel`` "row"), the column kernel ("col") or the
-    backward row kernel ("bwd_row"), for axis size n, as the CUDA runtime
-    reports them."""
-    which = {"row": 0, "col": 1, "bwd_row": 2}[kernel]
+    the row kernel (``kernel`` "row"), the column kernel ("col"), the
+    backward row kernel ("bwd_row") or the streamed build's kernels
+    ("g_row", "build_col", "vfused_row"), for axis size n, as the CUDA
+    runtime reports them."""
+    which = {"row": 0, "col": 1, "bwd_row": 2, "g_row": 3, "build_col": 4,
+             "vfused_row": 5}[kernel]
     dev = torch.device(device)
     if dev.index is None:
         dev = torch.device("cuda", torch.cuda.current_device())
@@ -161,6 +183,26 @@ def prepare_propagator(propagator: torch.Tensor) -> torch.Tensor:
     check_size(propagator.shape[-2], n, "the panel scan")
     idx = fs.bit_reversal(n, propagator.device)
     return propagator.to(torch.complex64)[..., idx[:, None], idx[None, :]].contiguous()
+
+
+def prepare_factors(
+    ff_full: torch.Tensor, pixel: tuple[float, float], dtype: torch.dtype = torch.float32
+) -> torch.Tensor:
+    """The (nsp, n, n) full-grid form factors (``potential.species_factors_full``,
+    natural fft2 order) as the build column pass reads them: ``dtype``
+    (float32 for the kernel), contiguous, F[..., bitrev(a), bitrev(b)] at
+    [..., a, b] (the order Fy(Fx(.)) leaves the spectrum in), times
+    1/(py px n^2) (the pixel area of the irfft2 build and the two unscaled
+    inverse transforms), computed in float64 and cast once."""
+    n = ff_full.shape[-1]
+    check_size(ff_full.shape[-2], n, "the streamed panel build")
+    if ff_full.is_complex() or ff_full.ndim != 3:
+        raise ValueError(f"the streamed panel build takes real (nsp, n, n) factors, got "
+                         f"{ff_full.dtype} {tuple(ff_full.shape)}")
+    idx = fs.bit_reversal(n, ff_full.device)
+    scale = 1.0 / (pixel[0] * pixel[1] * n * n)
+    return (ff_full.to(torch.float64)[:, idx[:, None], idx[None, :]] * scale).to(
+        dtype).contiguous()
 
 
 # ---- plain versions --------------------------------------------------------
@@ -288,6 +330,26 @@ def panel_bwd_tail_ref(
     return _bwd_row_ref(bar, transmit_ref(psi, v, sigma), v, sigma)
 
 
+def panel_g_rowpass_ref(g: torch.Tensor) -> torch.Tensor:
+    """Fx(g) of real (nsp, n, n) planes in plain PyTorch (complex64 for
+    float32 planes, complex128 for float64)."""
+    return _fx(g.to(torch.complex64 if g.dtype == torch.float32 else torch.complex128))
+
+
+def panel_build_colpass_ref(gx: torch.Tensor, factors: torch.Tensor) -> torch.Tensor:
+    """Fy^H(sum_s F_s * Fy(gx_s)) in plain PyTorch: gx (nsp, n, n) in the
+    bit-reversed x spectrum, ``factors`` prepare_factors' panel (its rows
+    taken back to natural y order here)."""
+    n = gx.shape[-1]
+    f = factors.to(gx.real.dtype)[:, _perm(n, gx.device), :]
+    return torch.fft.ifft(torch.sum(torch.fft.fft(gx, dim=-2) * f, dim=0), dim=-2) * n
+
+
+def panel_vfused_rowpass_ref(vx: torch.Tensor, b: torch.Tensor, sigma: float) -> torch.Tensor:
+    """Fx(t Fx^H(b)), t = exp(i sigma V), V = Re(Fx^H(vx)), in plain PyTorch."""
+    return _fx(transmit_ref(_fx_inv(b), _fx_inv(vx.to(b.dtype)).real, sigma))
+
+
 def panel_scan_ref(
     psi0: torch.Tensor, v_stack: torch.Tensor, propagator: torch.Tensor, sigma: float
 ) -> torch.Tensor:
@@ -357,10 +419,14 @@ def _broadcast(psi0, v_stack, propagator, what):
     return psi, b, psi0.ndim == 3 or p_batched
 
 
-def _wave(z: torch.Tensor, name: str, what: str) -> tuple[torch.Tensor, int]:
-    """z as (B, n, n) for the card, validated; and n."""
-    if z.dtype != torch.complex64:
-        raise TypeError(f"{what}: the CUDA kernel takes complex64, got {z.dtype}")
+def _wave(
+    z: torch.Tensor, name: str, what: str, dtype: torch.dtype = torch.complex64
+) -> tuple[torch.Tensor, int]:
+    """z as (B, n, n) for the card, validated (complex64 waves, or the
+    float32 planes of ``dtype``); and n."""
+    if z.dtype != dtype:
+        raise TypeError(f"{what}: the CUDA kernel takes {str(dtype).removeprefix('torch.')}, "
+                        f"got {z.dtype}")
     if z.ndim not in (2, 3):
         raise ValueError(f"{what}: {name} must be (n, n) or (B, n, n), got {tuple(z.shape)}")
     n = z.shape[-1]
@@ -747,12 +813,172 @@ def panel_scan_bwd_store(
     return dv, dpsi
 
 
+def panel_g_rowpass(g: torch.Tensor) -> torch.Tensor:
+    """Fx(g) of real (nsp, n, n) (or (n, n)) planes, complex64 of g's shape:
+    the kernel on CUDA (one launch for all planes), plain on the CPU."""
+    if not g.is_cuda:
+        return panel_g_rowpass_ref(g)
+    flat, n = _wave(g, "g", "panel_g_rowpass", torch.float32)
+    out = torch.empty(flat.shape, dtype=torch.complex64, device=g.device)
+    _launch("fdes_panel_g_rowpass_c64", g.device, n, flat.data_ptr(), out.data_ptr(),
+            flat.shape[0])
+    panel_g_rowpass.launches += 1
+    return out.reshape(g.shape)
+
+
+def panel_build_colpass(gx: torch.Tensor, factors: torch.Tensor) -> torch.Tensor:
+    """Vx = Fy^H(sum_s F_s * Fy(gx_s)) (n, n) of gx (nsp, n, n), ``factors``
+    from prepare_factors: the kernel on CUDA, plain on the CPU."""
+    if not gx.is_cuda:
+        return panel_build_colpass_ref(gx, factors)
+    what = "panel_build_colpass"
+    if gx.ndim != 3:
+        raise ValueError(f"{what}: gx must be (nsp, n, n), got {tuple(gx.shape)}")
+    flat, n = _wave(gx, "gx", what)
+    fp = _real(factors, tuple(gx.shape), gx.device, "factors", what)
+    out = torch.empty((n, n), dtype=torch.complex64, device=gx.device)
+    _launch("fdes_panel_build_colpass_c64", gx.device, n, flat.data_ptr(), fp.data_ptr(),
+            out.data_ptr(), flat.shape[0])
+    panel_build_colpass.launches += 1
+    return out
+
+
+def panel_vfused_rowpass(vx: torch.Tensor, b: torch.Tensor, sigma: float) -> torch.Tensor:
+    """a = Fx(t Fx^H(b)), t = exp(i sigma V), V = Re(Fx^H(vx)) of the (n, n)
+    plane vx shared by the waves b ((n, n) or (B, n, n)): the kernel on CUDA,
+    plain on the CPU."""
+    if not b.is_cuda:
+        return panel_vfused_rowpass_ref(vx, b, sigma)
+    what = "panel_vfused_rowpass"
+    flat, n = _wave(b, "b", what)
+    v = _like(vx, (n, n), b.device, "vx", what)
+    out = torch.empty_like(flat)
+    _launch("fdes_panel_vfused_rowpass_c64", b.device, n, v.data_ptr(), flat.data_ptr(),
+            out.data_ptr(), float(sigma), flat.shape[0])
+    panel_vfused_rowpass.launches += 1
+    return out.reshape(b.shape)
+
+
+# ---- the streamed build ------------------------------------------------------
+
+
+def _streamed(psi0, atoms_xyspw, ff_full, propagator, sigma, shape, pixel, plain):
+    """The streamed rollout of panel_streamed (``plain``: its plain passes,
+    also on the card)."""
+    from ..potential import bilinear_corners
+
+    what = "panel_streamed_ref" if plain else "panel_streamed"
+    if tuple(shape) != tuple(psi0.shape[-2:]):
+        raise ValueError(f"{what}: shape {tuple(shape)} is not psi0's {tuple(psi0.shape)}")
+    n = psi0.shape[-1]
+    if ff_full.ndim != 3 or tuple(ff_full.shape[1:]) != (n, n):
+        raise ValueError(
+            f"{what}: ff must be the full-grid (nsp, {n}, {n}) factors "
+            f"(potential.species_factors_full), got {tuple(ff_full.shape)}"
+        )
+    # the batching rules of panel_scan: a (1, n, n) stand-in for the V that
+    # is built per slice and shared by the waves
+    psi = _broadcast(psi0, ff_full[:1], propagator, what)[0]
+    device, rdt = psi0.device, psi0.real.dtype
+    x, y, sp, w = (torch.as_tensor(a, device=device) for a in atoms_xyspw)
+    if x.ndim != 2 or x.shape[0] == 0:
+        raise ValueError(f"{what}: the atoms must be padded (S, M) arrays with S >= 1, got "
+                         f"{tuple(x.shape)}")
+    nsp = ff_full.shape[0]
+    # float32 for the kernels, the working dtype for the plain passes
+    factors = prepare_factors(ff_full, pixel,
+                              dtype=torch.float32 if psi0.is_cuda and not plain else rdt)
+    # every slice's flat corner indices and weights at once; per slice the
+    # reused delta planes are zeroed and added into
+    idx, val = bilinear_corners(x, y, sp, w, shape=tuple(shape), pixel=pixel, rdt=rdt)
+    g = torch.zeros(nsp * n * n, dtype=rdt, device=device)
+    if plain:
+        g_row, build, vfused = (panel_g_rowpass_ref, panel_build_colpass_ref,
+                                panel_vfused_rowpass_ref)
+        init, final = panel_init_ref, panel_final_ref
+
+        def col(a):
+            return panel_colpass_ref(a, propagator)
+    else:
+        g_row, build, vfused = panel_g_rowpass, panel_build_colpass, panel_vfused_rowpass
+        init, final = panel_init, panel_final
+        prepared = prepare_propagator(propagator) if psi0.is_cuda else None
+
+        def col(a):
+            return _col(a, propagator, prepared)
+
+    def build_vx(j):
+        g.zero_()
+        g.index_add_(0, idx[j], val[j])
+        return build(g_row(g.view(nsp, n, n)), factors)
+
+    v0 = final(build_vx(0)).real.contiguous()
+    a = init(v0, psi.contiguous(), sigma)
+    for j in range(1, x.shape[0]):
+        a = vfused(build_vx(j), col(a), sigma)
+    return final(col(a))
+
+
+def panel_streamed(
+    psi0: torch.Tensor,
+    atoms_xyspw: tuple,
+    ff_full: torch.Tensor,
+    propagator: torch.Tensor,
+    sigma: float,
+    *,
+    shape: tuple[int, int],
+    pixel: tuple[float, float],
+) -> torch.Tensor:
+    """The multislice loop with the potential built slice by slice between
+    the panel passes (the streamed build): the (S, n, n) stack never exists.
+
+    psi0 (n, n) or (B, n, n); atoms_xyspw the padded (S, M) x, y, species
+    index and weight of ``potential.pad_atoms_per_slice``; ff_full the
+    full-grid (nsp, n, n) factors (``potential.species_factors_full``; the
+    rfft2 half-grid is refused rather than rebuilt by symmetry); the
+    propagator (n, n) or one per wave (B, n, n), each slice's V built once for
+    all the waves.  Per slice: the scatter (``zero_`` and ``index_add_`` on
+    reused delta planes; the corners of every slice computed once per call),
+    then the g row pass, the build column pass, the column pass and the fused
+    row pass, each one launch on the card (plain passes on the CPU).
+    Forward only: it raises when autograd records and psi0, the propagator or
+    the factors require a gradient.
+    """
+    if torch.is_grad_enabled() and any(
+        t.requires_grad for t in (psi0, propagator, ff_full)
+    ):
+        raise RuntimeError(
+            "panel_streamed is forward-only: its result carries no graph; run it under "
+            "torch.no_grad() or on detached tensors, or differentiate with respect to psi0 "
+            "through a per-slice engine ('xla', 'pallas', 'fused')"
+        )
+    if psi0.is_cuda:
+        panel_streamed.launches += 1  # its calls; the passes count their launches
+    return _streamed(psi0, atoms_xyspw, ff_full, propagator, float(sigma), shape, pixel, False)
+
+
+def panel_streamed_ref(
+    psi0: torch.Tensor,
+    atoms_xyspw: tuple,
+    ff_full: torch.Tensor,
+    propagator: torch.Tensor,
+    sigma: float,
+    *,
+    shape: tuple[int, int],
+    pixel: tuple[float, float],
+) -> torch.Tensor:
+    """panel_streamed as the chain of the plain passes, on any device (the
+    factors in psi0's real dtype)."""
+    return _streamed(psi0, atoms_xyspw, ff_full, propagator, float(sigma), shape, pixel, True)
+
+
 WRAPPERS = (panel_init, panel_colpass, panel_rowpass_stack, panel_rowpass, panel_final,
             panel_init_abs, panel_rowpass_stack_abs, panel_rowfwd, panel_bwd_tail,
             panel_init_store, panel_rowpass_stack_store, panel_col_bwd, panel_row_bwd_loop,
-            panel_row_bwd_last)
+            panel_row_bwd_last, panel_g_rowpass, panel_build_colpass, panel_vfused_rowpass)
 #: the whole-loop calls, which count their calls and add their passes above
-LOOPS = (panel_scan, panel_scan_store, panel_scan_bwd_store)
+#: (panel_streamed: its passes count themselves, one launch per wrapper call)
+LOOPS = (panel_scan, panel_scan_store, panel_scan_bwd_store, panel_streamed)
 
 
 def reset_launches() -> None:
@@ -885,8 +1111,9 @@ def panel_diff_apply(
     if v_batched:
         raise NotImplementedError(
             "the panel gradient takes one (S, n, n) potential shared by the waves; a "
-            "gradient through a per-wave (B, S, n, n) stack comes with frozen phonons "
-            "(ROADMAP.md Queue 1 item 9)"
+            "gradient through a per-wave (B, S, n, n) stack is refused (ROADMAP.md Queue 3, "
+            "differs on purpose: a per-wave V under a gradient); differentiate each wave's "
+            "rollout on its own"
         )
     if v_stack.is_complex():
         raise TypeError("panel_diff_apply: v_stack must be real; the engine routes a complex "

@@ -3,11 +3,14 @@
 Counterpart of ``fdes_tpu.pipeline``.  ``setup(cfg, device=...)`` turns a
 Config into a ``Sim`` bundle of host-built constants (grid, propagator, CTF
 stack) and device tensors (potential stack), shared by the CLI and the
-scripts.  ``sim_from_arrays`` builds the same bundle from NumPy arrays, so a
-run can start from state computed elsewhere (the JAX package's ``Sim``, a
-saved potential).  ``stem_setup`` adds the STEM state (probe stencil, scan
-positions, detector masks) and ``stem_from_arrays`` is its sibling for
-arrays computed elsewhere.
+scripts; with ``sim.streamed`` it builds no potential stack, and
+``streamed_inputs`` gives the per-slice build's inputs (padded atoms and
+factors) instead.  ``sim_from_arrays`` builds the same bundle from NumPy
+arrays, so a run can start from state computed elsewhere (the JAX package's
+``Sim``, a saved potential, or the padded atoms of a streamed run).
+``stem_setup`` adds the STEM state (probe stencil, scan positions, detector
+masks) and ``stem_from_arrays`` is its sibling for arrays computed
+elsewhere.
 
 Entry points run on ``cuda`` unless the caller asks for the CPU; asking for
 ``cuda`` where there is none raises instead of carrying on on the CPU.
@@ -25,7 +28,7 @@ from .config import Config, MeshParams
 from .detector import annular_mask, segmented_masks
 from .grids import Grid, fresnel_propagator
 from .optics import Aberrations, ctf_quadrature_series, ctf_series
-from .potential import build_potential
+from .potential import build_potential, pad_atoms_per_slice, species_factors_full
 from .probe import plane_wave, probe_stencil
 from .scattering import ScatteringTable, load_kirkland_table
 from .specimen import Specimen, SlicedAtoms, load_xyz, make_si110_supercell, slice_specimen
@@ -41,7 +44,7 @@ class Sim:
     cdtype: torch.dtype
     rdtype: torch.dtype
     device: torch.device
-    v_stack: torch.Tensor  # (S, ny, nx) V*Å; complex when absorptive
+    v_stack: torch.Tensor | None  # (S, ny, nx) V*Å; complex when absorptive; None streamed
     propagator: torch.Tensor  # (ny, nx) complex
     psi0: torch.Tensor  # (ny, nx) complex incident wave
     ctf_stack: torch.Tensor  # (D, ny, nx) complex; (D, K, ny, nx) explicit
@@ -55,6 +58,10 @@ class Sim:
     sliced: SlicedAtoms | None = None
     aberrations: Aberrations | None = None
     table: ScatteringTable | None = None
+    #: the streamed build's inputs when given as arrays (sim_from_arrays):
+    #: padded (S, M) x, y, species index, weight, and the species factors
+    atoms: tuple[torch.Tensor, ...] | None = None
+    ff: torch.Tensor | None = None
 
 
 def resolve_device(device: torch.device | str) -> torch.device:
@@ -109,10 +116,6 @@ def unported_settings(cfg: Config) -> list[str]:
         out.append(f"mode {cfg.mode!r} (no such mode)")
     if cfg.mode in ("stem", "stem4d") and cfg.stem.method == "prism":
         out.append("stem.method 'prism' (ROADMAP.md Queue 1 item 8)")
-    if cfg.sim.streamed:
-        out.append("sim.streamed (ROADMAP.md Queue 1 item 9)")
-    if cfg.sim.phonon_configs > 0:
-        out.append("sim.phonon_configs > 0 (ROADMAP.md Queue 1 item 9)")
     if cfg.mesh != MeshParams():
         out.append("a [mesh] setting (ROADMAP.md Queue 1 item 11)")
     return out
@@ -157,10 +160,26 @@ def setup(cfg: Config, device: torch.device | str = "cuda") -> Sim:
     sigma = constants.interaction_sigma(cfg.sim.voltage_V)
 
     table = make_table(cfg)
-    v_stack = build_potential(sliced, grid, table=table, dtype=rdt, device=dev)
-    if cfg.sim.absorptive_factor > 0.0:
-        # absorptive (optical) potential: the imaginary part damps the wave
-        v_stack = v_stack + 1j * cfg.sim.absorptive_factor * v_stack.abs()
+    if cfg.sim.streamed:
+        # the potential is built slice by slice inside the rollout
+        # (propagate.multislice_streamed) and the stack never exists; only
+        # the forward mode can stream (in the inverse the stack is the
+        # optimisation variable)
+        if cfg.mode != "forward":
+            raise ValueError(f"sim.streamed supports mode='forward' only (got {cfg.mode!r})")
+        for bad, name in (
+            (cfg.sim.absorptive_factor > 0.0, "sim.absorptive_factor"),
+            (cfg.sim.phonon_configs > 0, "sim.phonon_configs"),
+            (cfg.sim.thickness_every > 0, "sim.thickness_every"),
+        ):
+            if bad:
+                raise ValueError(f"sim.streamed is incompatible with {name}")
+        v_stack = None
+    else:
+        v_stack = build_potential(sliced, grid, table=table, dtype=rdt, device=dev)
+        if cfg.sim.absorptive_factor > 0.0:
+            # absorptive (optical) potential: the imaginary part damps the wave
+            v_stack = v_stack + 1j * cfg.sim.absorptive_factor * v_stack.abs()
     bandlimit = cfg.sim.bandlimit or None
     prop = to_device(
         fresnel_propagator(
@@ -245,21 +264,35 @@ def sim_from_arrays(
     optionally ``ctf_weights``, ``psi0_stack`` and ``prop_stack`` — the
     fields of the JAX package's ``Sim`` after ``np.asarray``.  The complex
     working dtype is psi0's; V keeps its own (real, or complex absorptive).
+    A streamed run gives, in place of ``v_stack``, the padded (S, M) atoms
+    ``x``, ``y``, ``sp``, ``w`` (``potential.pad_atoms_per_slice``) and the
+    species factors ``ff_full`` (nsp, ny, nx) or ``ff_r`` (nsp, ny,
+    nx//2 + 1; the panel engine needs the full grid), which
+    ``streamed_inputs`` then returns.
     """
     dev = resolve_device(device)
     psi0 = np.asarray(arrays["psi0"])
     if psi0.dtype not in (np.complex64, np.complex128):
         raise TypeError(f"psi0 must be complex64 or complex128, got {psi0.dtype}")
     cdt, rdt = _dtypes(str(psi0.dtype))
-    v = np.asarray(arrays["v_stack"])
-    if np.iscomplexobj(v):
-        v_t = to_device(v, cdt, dev)
-    else:
-        v_t = to_device(v, rdt, dev)
 
     def opt(key, dtype):
         a = arrays.get(key)
         return None if a is None else to_device(a, dtype, dev)
+
+    v_t = atoms = ff = None
+    if "v_stack" in arrays:
+        v = np.asarray(arrays["v_stack"])
+        v_t = to_device(v, cdt if np.iscomplexobj(v) else rdt, dev)
+    else:
+        if not ({"x", "y", "sp", "w"} <= arrays.keys()
+                and ("ff_full" in arrays or "ff_r" in arrays)):
+            raise KeyError("sim_from_arrays needs v_stack, or the padded atoms x, y, sp, w "
+                           "with ff_full or ff_r")
+        atoms = (opt("x", rdt), opt("y", rdt),
+                 torch.as_tensor(np.asarray(arrays["sp"], np.int32), device=dev), opt("w", rdt))
+        ff = torch.as_tensor(np.asarray(arrays["ff_full" if "ff_full" in arrays else "ff_r"]),
+                             device=dev)
 
     return Sim(
         grid=grid, wavelength_A=float(wavelength_A), sigma=float(sigma),
@@ -270,7 +303,26 @@ def sim_from_arrays(
         ctf_weights=opt("ctf_weights", rdt),
         psi0_stack=opt("psi0_stack", cdt),
         prop_stack=opt("prop_stack", cdt),
+        atoms=atoms, ff=ff,
     )
+
+
+def streamed_inputs(sim: Sim) -> tuple[tuple[torch.Tensor, ...], torch.Tensor]:
+    """The streamed build's inputs on ``sim.device``: the padded (S, M) x, y,
+    species index and weight of ``sim.sliced`` (pad_atoms_per_slice, in
+    ``sim.rdtype``) and the full-grid species factors (nsp, ny, nx) in
+    float64 (species_factors_full; the rollout casts them once to its working
+    dtype); or those that ``sim_from_arrays`` was given.
+    ``propagate.multislice_streamed`` reads them on every engine."""
+    if sim.atoms is not None:
+        return sim.atoms, sim.ff
+    np_rdt = np.float32 if sim.rdtype == torch.float32 else np.float64
+    x, y, sp, w, _ = pad_atoms_per_slice(sim.sliced, np_rdt)
+    atoms = (to_device(x, sim.rdtype, sim.device), to_device(y, sim.rdtype, sim.device),
+             torch.as_tensor(sp, device=sim.device), to_device(w, sim.rdtype, sim.device))
+    ff = torch.as_tensor(species_factors_full(sim.grid, sim.sliced.species, sim.table),
+                         device=sim.device)
+    return atoms, ff
 
 
 def stem_setup(sim: Sim):

@@ -1,6 +1,9 @@
 """FFT-based projected potential (SURVEY.md C5, §3.3).
 
-The counterpart of ``fdes_tpu.potential``'s batched build.  This is the
+The counterpart of ``fdes_tpu.potential``: the batched build
+(``build_potential``), the per-slice build the streamed rollout runs
+(``pad_atoms_per_slice``, ``scatter_slice_deltas``, ``slice_potential``)
+and the exact-phase build (``build_potential_exact``).  This is the
 reference paper's headline algorithm (Van den Broek, Jiang & Koch,
 Ultramicroscopy 158 (2015)): instead of summing every atom's potential over
 every pixel (O(atoms * N^2)), scatter atoms as weighted deltas onto the
@@ -16,8 +19,10 @@ potential factor, and inverse-FFT — O(N^2 log N + atoms) per slice.
 * Sub-pixel placement is bilinear interpolation of the delta onto its four
   neighbouring pixels with periodic wrap.
 
-The JAX package computes this outside any Pallas kernel, so it stays plain
-tensor code here.  Units: the returned stack is the PROJECTED potential per
+The JAX package computes all of this outside any Pallas kernel, so it stays
+plain tensor code here (the panel engine's streamed build,
+``kernels/panel_scan.panel_streamed``, runs its transforms in kernels of its
+own and only the scatter here).  Units: the returned stack is the PROJECTED potential per
 slice in V*Å, so the slice phase is simply sigma * V (constants.py).
 """
 
@@ -47,6 +52,59 @@ def species_factors_rfft(
     return species_form_factors(rfft_q2(grid), list(species), table)
 
 
+def species_factors_full(
+    grid: Grid,
+    species: tuple[tuple[int, float], ...],
+    table: ScatteringTable | None = None,
+) -> np.ndarray:
+    """(nspecies, ny, nx) float64 Fourier factors on the FULL fft2 grid (host).
+
+    The panel engine's streamed build multiplies whole spectra (complex
+    transforms in both axes), so it reads these rather than the rfft2
+    half-grid of species_factors_rfft; their first nx//2 + 1 columns are
+    those factors."""
+    return species_form_factors(grid.q2(), list(species), table)
+
+
+def bilinear_corners(
+    x: torch.Tensor,
+    y: torch.Tensor,
+    plane: torch.Tensor,
+    weight: torch.Tensor,
+    *,
+    shape: tuple[int, int],
+    pixel: tuple[float, float],
+    rdt: torch.dtype,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """(flat indices into a stack of (ny, nx) planes, weights) of the four
+    bilinear corners of every atom, periodic wrap; ``plane`` is each atom's
+    plane in the stack (its species, or slice * nspecies + species).  The
+    four corners are concatenated along the last axis, so (..., M) atoms
+    give (..., 4M) of each.  Positions are divided by the pixel in ``rdt``,
+    as fdes_tpu.potential's scatters do."""
+    ny, nx = shape
+    py, px = pixel
+    fy = y.to(rdt) / torch.tensor(py, dtype=rdt)
+    fx = x.to(rdt) / torch.tensor(px, dtype=rdt)
+    iy0 = torch.floor(fy)
+    ix0 = torch.floor(fx)
+    wy1 = fy - iy0
+    wx1 = fx - ix0
+    iy0 = iy0.to(torch.int64)
+    ix0 = ix0.to(torch.int64)
+    w = weight.to(rdt)
+    plane = plane.to(torch.int64)
+    idxs = []
+    vals = []
+    for dy, dx in ((0, 0), (0, 1), (1, 0), (1, 1)):
+        iy = torch.remainder(iy0 + dy, ny)
+        ix = torch.remainder(ix0 + dx, nx)
+        cw = (wy1 if dy else 1.0 - wy1) * (wx1 if dx else 1.0 - wx1)
+        idxs.append((plane * ny + iy) * nx + ix)
+        vals.append(w * cw)
+    return torch.cat(idxs, dim=-1), torch.cat(vals, dim=-1)
+
+
 def scatter_deltas(
     x: torch.Tensor,
     y: torch.Tensor,
@@ -64,28 +122,10 @@ def scatter_deltas(
     x, y, weight: (n,) in the working real dtype, which the result takes.
     """
     ny, nx = shape
-    py, px = pixel
-    dtype = x.dtype
-    fy = y / torch.tensor(py, dtype=dtype)
-    fx = x / torch.tensor(px, dtype=dtype)
-    iy0 = torch.floor(fy)
-    ix0 = torch.floor(fx)
-    wy1 = fy - iy0
-    wx1 = fx - ix0
-    iy0 = iy0.to(torch.int64)
-    ix0 = ix0.to(torch.int64)
     plane = slice_idx.to(torch.int64) * nspecies + species_idx.to(torch.int64)
-
-    idxs = []
-    vals = []
-    for dy, dx in ((0, 0), (0, 1), (1, 0), (1, 1)):
-        iy = torch.remainder(iy0 + dy, ny)
-        ix = torch.remainder(ix0 + dx, nx)
-        cw = (wy1 if dy else 1.0 - wy1) * (wx1 if dx else 1.0 - wx1)
-        idxs.append((plane * ny + iy) * nx + ix)
-        vals.append(weight * cw)
-    g = torch.zeros(nslices * nspecies * ny * nx, dtype=dtype, device=x.device)
-    g.index_add_(0, torch.cat(idxs), torch.cat(vals))
+    idx, val = bilinear_corners(x, y, plane, weight, shape=shape, pixel=pixel, rdt=x.dtype)
+    g = torch.zeros(nslices * nspecies * ny * nx, dtype=x.dtype, device=x.device)
+    g.index_add_(0, idx, val)
     return g.reshape(nslices, nspecies, ny, nx)
 
 
@@ -156,3 +196,120 @@ def build_potential(
         pixel=(grid.py, grid.px),
         slice_chunk=slice_chunk,
     )
+
+
+def pad_atoms_per_slice(sliced: SlicedAtoms, dtype=np.float32):
+    """Rearrange flat atoms into per-slice padded arrays (S, max_atoms).
+
+    The streamed rollout (propagate.multislice_streamed) builds one slice at
+    a time from a fixed per-slice atom count: atoms are padded to the max
+    over slices with zero weight.  Returns (x, y, species_idx, weight) host
+    arrays plus max_atoms, the same arrays as fdes_tpu's.
+    """
+    s = sliced.nslices
+    counts = np.bincount(sliced.slice_idx, minlength=s)
+    m = int(counts.max()) if counts.size else 0
+    x = np.zeros((s, m), dtype)
+    y = np.zeros((s, m), dtype)
+    sp = np.zeros((s, m), np.int32)
+    w = np.zeros((s, m), dtype)
+    # stable sort by slice; each atom's column is its rank within its slice
+    order = np.argsort(sliced.slice_idx, kind="stable")
+    j = sliced.slice_idx[order]
+    starts = np.concatenate(([0], np.cumsum(counts)[:-1]))
+    k = np.arange(j.shape[0], dtype=np.int64) - starts[j]
+    x[j, k] = sliced.x[order]
+    y[j, k] = sliced.y[order]
+    sp[j, k] = sliced.species_idx[order]
+    w[j, k] = sliced.weight[order]
+    return x, y, sp, w, m
+
+
+def scatter_slice_deltas(
+    x: torch.Tensor,
+    y: torch.Tensor,
+    species_idx: torch.Tensor,
+    weight: torch.Tensor,
+    *,
+    nspecies: int,
+    shape: tuple[int, int],
+    pixel: tuple[float, float],
+    rdt: torch.dtype,
+) -> torch.Tensor:
+    """Bilinear periodic scatter of ONE slice's (padded) atoms onto
+    per-species (nspecies, ny, nx) delta grids in ``rdt``: the front half of
+    slice_potential, and the scatter of the panel engine's streamed build."""
+    ny, nx = shape
+    idx, val = bilinear_corners(x, y, species_idx, weight, shape=shape, pixel=pixel, rdt=rdt)
+    g = torch.zeros(nspecies * ny * nx, dtype=rdt, device=x.device)
+    g.index_add_(0, idx, val)
+    return g.reshape(nspecies, ny, nx)
+
+
+def slice_potential(
+    x: torch.Tensor,
+    y: torch.Tensor,
+    species_idx: torch.Tensor,
+    weight: torch.Tensor,
+    ff_r: torch.Tensor,
+    *,
+    shape: tuple[int, int],
+    pixel: tuple[float, float],
+) -> torch.Tensor:
+    """One slice's projected potential (ny, nx) from its (padded) atoms: the
+    scatter and rfft2 pipeline of the batched build for ONE slice, so that
+    the (S, ny, nx) stack never exists (the streamed rollout).  ff_r: the
+    (nspecies, ny, nx//2 + 1) factors; their dtype is the working one."""
+    ny, nx = shape
+    py, px = pixel
+    rdt = ff_r.dtype
+    g = scatter_slice_deltas(x, y, species_idx, weight, nspecies=ff_r.shape[0], shape=shape,
+                             pixel=pixel, rdt=rdt)
+    gq = torch.fft.rfft2(g)
+    vq = torch.sum(gq * ff_r.to(gq.dtype), dim=0)
+    return torch.fft.irfft2(vq, s=(ny, nx)) * torch.tensor(1.0 / (py * px), dtype=rdt)
+
+
+def build_potential_exact(
+    sliced: SlicedAtoms,
+    grid: Grid,
+    table: ScatteringTable | None = None,
+    dtype: torch.dtype = torch.float32,
+    device: torch.device | str | None = None,
+) -> torch.Tensor:
+    """EXACT-phase projected potential (S, ny, nx), no interpolation.
+
+    The per-atom Fourier phase sum F(q) = sum_a w_a exp(-2 pi i (qy y_a +
+    qx x_a)) is separable: with Ay[j, a] = exp(-2 pi i qy_j y_a) and
+    Bx[a, k] = exp(-2 pi i x_a qx_k) it is the product Ay diag(w) Bx, per
+    slice and species, here one ``torch.einsum`` in the working precision (a
+    plain matrix product, as the JAX package leaves it to XLA).  O(atoms N^2)
+    operations: for sub-pixel fidelity at high q, where the default scatter
+    and FFT build interpolates.  The phases q r are reduced mod 1 cycle in
+    the working precision before the trig.  Matrix products of a float32
+    call follow ``torch.backends.cuda.matmul.allow_tf32`` on the card; the
+    CLI turns TF32 off.
+    """
+    rdt = np.float32 if dtype == torch.float32 else np.float64
+    cdt = torch.complex64 if dtype == torch.float32 else torch.complex128
+    x, y, sp, w, _ = pad_atoms_per_slice(sliced, rdt)
+    nsp = len(sliced.species)
+
+    def put(a):
+        return torch.as_tensor(np.ascontiguousarray(a), device=device)
+
+    ff = put(species_form_factors(grid.q2(), list(sliced.species), table).astype(rdt))
+    qy, qx = put(grid.qy().astype(rdt)), put(grid.qx().astype(rdt))
+    xs, ys, sps, ws = put(x), put(y), put(sp), put(w)
+
+    def ramp(prod):  # exp(-2 pi i prod), prod in cycles, range-reduced
+        ang = (-2.0 * np.pi) * (prod - torch.round(prod))
+        return torch.complex(torch.cos(ang), torch.sin(ang))
+
+    ay = ramp(qy[None, :, None] * ys[:, None, :])  # (S, ny, M)
+    bx = ramp(xs[:, :, None] * qx[None, None, :])  # (S, M, nx)
+    species = torch.arange(nsp, device=sps.device)
+    wsp = ((sps[:, None, :] == species[None, :, None]).to(dtype) * ws[:, None, :]).to(cdt)
+    f = torch.einsum("sym,spm,smx->spyx", ay, wsp, bx)  # per-species structure factors
+    vq = torch.sum(f * ff.to(cdt)[None], dim=1)
+    return torch.fft.ifft2(vq).real * torch.tensor(1.0 / grid.pixel_area, dtype=dtype)

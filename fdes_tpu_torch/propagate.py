@@ -20,7 +20,8 @@ gradient (one more C call for the backward pass, over the s_j the forward
 stored; past the store's memory cap, per slice under checkpoints), and take
 and ignore ``remat_chunk`` too.  psi may carry leading batch dimensions
 (a tilt series, a chunk of probes), with V broadcast over them and P
-either shared or one per batch entry.
+either shared or one per batch entry.  ``multislice_streamed`` builds V one
+slice at a time inside the loop instead of reading a stack.
 """
 
 from __future__ import annotations
@@ -53,6 +54,81 @@ def default_slice_step(
     """One multislice step: ψ <- IFFT(P * FFT(exp(1j σ V) ψ))."""
     psi = transmit(psi, v_slice, sigma)
     return torch.fft.ifft2(torch.fft.fft2(psi) * propagator.to(psi.dtype))
+
+
+def multislice_streamed(
+    psi0: torch.Tensor,
+    atoms_xyspw: tuple,
+    ff: torch.Tensor,
+    propagator: torch.Tensor,
+    sigma: float,
+    *,
+    shape: tuple[int, int],
+    pixel: tuple[float, float],
+    remat_chunk: int | None = None,
+    slice_step: Callable[..., torch.Tensor] | None = None,
+) -> torch.Tensor:
+    """Multislice with the potential built slice by slice inside the loop:
+    the (S, ny, nx) stack never exists (8 GiB at 2048^2 x 512 slices, 32 GiB
+    at 4096^2), at the price of a build per slice.  Forward tool: in the
+    inverse the stack is the optimisation variable itself.
+
+    atoms_xyspw: the padded (S, M) x, y, species index and weight of
+    ``potential.pad_atoms_per_slice``, as tensors on psi0's device.  ff: the
+    species factors, either on the rfft2 half-grid (nsp, ny, nx//2 + 1)
+    (``potential.species_factors_rfft``) or on the full grid (nsp, ny, nx)
+    (``species_factors_full``, whose first nx//2 + 1 columns are the former),
+    in any real dtype: the build works in psi0's real dtype.
+
+    Per-slice engines (``xla``, ``pallas``, ``fused``) run in the loop over
+    slices, each slice built by ``potential.slice_potential``; they
+    differentiate with respect to psi0, and ``remat_chunk`` (dividing S)
+    recomputes chunks of slices in the backward pass
+    (``torch.utils.checkpoint``).  The panel engines (``panel*``) go to
+    ``kernels/panel_scan.panel_streamed``, whose build runs in panel passes
+    of its own: it needs the full-grid factors, is forward only, and refuses
+    a ``remat_chunk`` (the JAX package drops it there without a word).  The
+    whole-loop kernels ``fscan*`` read a materialised stack and raise.
+    """
+    from .potential import slice_potential
+
+    x, y, sp, w = atoms_xyspw
+    nx = shape[1]
+    if slice_step is not None and hasattr(slice_step, "whole_scan"):
+        kind = getattr(slice_step, "kind", "fscan")
+        if kind.startswith("panel"):
+            if remat_chunk:
+                raise ValueError(
+                    f"engine {kind!r} streams the build in its own passes and is forward-only; "
+                    "remat_chunk (adjoint memory) needs a per-slice engine"
+                )
+            from .kernels.panel_scan import panel_streamed
+
+            return panel_streamed(psi0, atoms_xyspw, ff, propagator, sigma, shape=shape,
+                                  pixel=pixel)
+        raise ValueError(
+            f"engine {kind!r} streams a materialised (S, ny, nx) V stack into its kernel — it "
+            "cannot compose with the streamed on-the-fly potential build.  Use a per-slice "
+            "engine ('fused'/'xla') or the panel engine at pod grids."
+        )
+    step = slice_step or default_slice_step
+    ff_r = (ff[..., : nx // 2 + 1] if ff.shape[-1] == nx else ff).to(psi0.real.dtype)
+
+    def run(psi, j0, j1):
+        for j in range(j0, j1):
+            v = slice_potential(x[j], y[j], sp[j], w[j], ff_r, shape=shape, pixel=pixel)
+            psi = step(psi, v, propagator, sigma)
+        return psi
+
+    s = x.shape[0]
+    if not remat_chunk or remat_chunk >= s:
+        return run(psi0, 0, s)
+    if s % remat_chunk != 0:
+        raise ValueError(f"remat_chunk {remat_chunk} must divide nslices {s}")
+    psi = psi0
+    for j in range(0, s, remat_chunk):
+        psi = checkpoint(run, psi, j, j + remat_chunk, use_reentrant=False)
+    return psi
 
 
 #: Engines of the JAX package that are not ported yet, with the ROADMAP.md

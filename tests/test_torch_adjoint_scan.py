@@ -304,9 +304,9 @@ def test_per_wave_potential_under_a_gradient_raises(fields):
     psi, v_stack, prop = fields
     step = tprop.make_slice_step("fscan", shape=(N, N), grad=True)
     v_b = _t(np.stack([v_stack[:2], 0.9 * v_stack[:2]]))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
+    with pytest.raises(NotImplementedError, match="a per-wave V under a gradient"):
         tprop.multislice(_t(psi), v_b.requires_grad_(True), _t(prop), SIGMA, slice_step=step)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
+    with pytest.raises(NotImplementedError, match="a per-wave V under a gradient"):
         tprop.multislice(_t(psi).requires_grad_(True), v_b.detach(), _t(prop), SIGMA,
                          slice_step=step)
     out = tprop.multislice(_t(psi), v_b.detach(), _t(prop), SIGMA, slice_step=step)

@@ -210,9 +210,12 @@ def test_setup_on_cuda_raises_without_cuda(tmp_path):
     [
         ("--mode", "stem", "--set", "stem.method=prism"),
         ("--mode", "stem4d", "--set", "stem.method=prism"),
-        ("--mode", "invert", "--set", "sim.phonon_configs=1"),
-        ("--set", "sim.phonon_configs=2"),
-        ("--set", "sim.streamed=true", "--mode", "forward"),
+        # PRISM's phonon mean comes with PRISM (Queue 1 item 8)
+        ("--mode", "stem", "--set", "stem.method=prism", "--set", "sim.phonon_configs=2"),
+        ("--mode", "stem4d", "--set", "stem.method=prism", "--set", "sim.phonon_configs=1"),
+        # the grid-sharded streamed forward comes with sharding (Queue 1 item 11)
+        ("--set", "sim.streamed=true", "--mode", "forward", "--set", 'mesh.axis_names=["grid"]',
+         "--set", "mesh.shape=[1]"),
         ("--set", 'mesh.axis_names=["grid"]', "--set", "mesh.shape=[1]"),
     ],
 )
@@ -447,9 +450,138 @@ def test_setup_rejects_unported_settings(tmp_path):
     import dataclasses
 
     cfg = tload(_cfg(tmp_path / "c.toml"))
-    bad = dataclasses.replace(cfg, sim=dataclasses.replace(cfg.sim, streamed=True))
-    with pytest.raises(NotImplementedError, match="sim.streamed"):
+    bad = dataclasses.replace(cfg, mesh=dataclasses.replace(cfg.mesh, axis_names=("grid",),
+                                                            shape=(1,)))
+    with pytest.raises(NotImplementedError, match="mesh"):
         tpipe.setup(bad, device="cpu")
+
+
+@pytest.mark.parametrize(
+    "mode,sim_over,match",
+    [
+        ("hrtem", {}, "mode='forward' only"),
+        ("invert", {}, "mode='forward' only"),
+        ("forward", {"absorptive_factor": 0.1}, "sim.absorptive_factor"),
+        ("forward", {"phonon_configs": 2}, "sim.phonon_configs"),
+        ("forward", {"thickness_every": 4}, "sim.thickness_every"),
+    ],
+)
+def test_streamed_refusals_like_jax(tmp_path, mode, sim_over, match):
+    """sim.streamed raises fdes_tpu's ValueErrors in setup and through the
+    CLI: a mode other than forward, an absorptive factor, phonons, a
+    thickness series."""
+    import dataclasses
+
+    cfg = tload(_cfg(tmp_path / "c.toml", mode))
+    bad = dataclasses.replace(cfg, sim=dataclasses.replace(cfg.sim, streamed=True, **sim_over))
+    with pytest.raises(ValueError, match=match):
+        tpipe.setup(bad, device="cpu")
+    jcfg = jload(_cfg(tmp_path / "c.toml", mode))
+    with pytest.raises(ValueError, match=match):
+        jpipe.setup(dataclasses.replace(
+            jcfg, sim=dataclasses.replace(jcfg.sim, streamed=True, **sim_over)))
+    extra = [f"--set=sim.{k}={v}" for k, v in sim_over.items()]
+    with pytest.raises(ValueError, match=match):
+        tcli.main([_cfg(tmp_path / "c.toml", mode), "--device", "cpu", "--set",
+                   f"output_dir={tmp_path}/o", "--set", "sim.streamed=true", *extra])
+
+
+STREAMED = ("--mode", "forward", "--set", "sim.streamed=true", "--set", "sim.ny=256", "--set",
+            "sim.nx=256", "--set", "sim.nslices=4")
+
+
+@pytest.mark.parametrize("engine", ["panel", "auto"])
+def test_cli_streamed_forward_equals_jax(tmp_path, engine):
+    """--mode forward with sim.streamed=true at 256^2, 4 slices: exit_wave.npy
+    alone, against the JAX CLI's streamed run (on its XLA body); panel and
+    auto (which resolves to panel at 2048^2 and 4096^2 only: here fused)."""
+    cfg = _cfg(tmp_path / "c.toml")
+    _run_jax_cli(cfg, str(tmp_path / "jax"), *STREAMED)
+    assert tcli.main([cfg, "--device", "cpu", "--set", f"output_dir={tmp_path}/port",
+                      *STREAMED, "--set", f"sim.engine={engine}"]) == 0
+    assert sorted(os.listdir(tmp_path / "port")) == ["exit_wave.npy", "timing.json"]
+    got = np.load(tmp_path / "port" / "exit_wave.npy")
+    want = np.load(tmp_path / "jax" / "exit_wave.npy")
+    assert got.shape == want.shape == (256, 256) and got.dtype == want.dtype
+    assert _rel(got, want) <= GATE
+    with open(tmp_path / "port" / "timing.json") as fh:
+        timing = json.load(fh)
+    assert timing["slice_props"] == 4
+    assert timing["engine_kind"] == ("panel" if engine == "panel" else None)
+
+
+def test_cli_streamed_tilt_series_one_batched_rollout(tmp_path):
+    """A streamed tilt series runs as one batched rollout (V built once a
+    slice for the two waves): each wave equals its own streamed run."""
+    cfg = _cfg(tmp_path / "c.toml")
+    tilts = "[[0.0, 0.0], [0.003, -0.002]]"
+    assert tcli.main([cfg, "--device", "cpu", "--set", f"output_dir={tmp_path}/b", *STREAMED,
+                      "--set", "sim.engine=panel", "--set", f"sim.tilt_series_rad={tilts}"]) == 0
+    both = np.load(tmp_path / "b" / "exit_wave.npy")
+    assert both.shape == (2, 256, 256)
+    assert tcli.main([cfg, "--device", "cpu", "--set", f"output_dir={tmp_path}/one", *STREAMED,
+                      "--set", "sim.engine=xla", "--set", "sim.tilt_x_rad=0.003",
+                      "--set", "sim.tilt_y_rad=-0.002"]) == 0
+    assert _rel(both[1], np.load(tmp_path / "one" / "exit_wave.npy")) <= GATE
+
+
+@pytest.mark.parametrize("mode", ["hrtem", "stem"])
+def test_cli_phonon_mean_equals_jax(tmp_path, mode):
+    """sim.phonon_configs=2: the mean of the images (hrtem, 128^2) or of the
+    detector signals (stem, 64^2, 2x2 scan) over two frozen-phonon
+    configurations drawn from the config's seed, against the JAX CLI's."""
+    cfg = _cfg(tmp_path / "c.toml", mode)
+    extra = ("--set", "sim.phonon_configs=2")
+    if mode == "stem":
+        extra += ("--set", "sim.ny=64", "--set", "sim.nx=64", "--set", "stem.scan_ny=2",
+                  "--set", "stem.scan_nx=2", "--set", "stem.detectors=[[0.0, 0.02], [0.05, 0.2]]")
+    _run_jax_cli(cfg, str(tmp_path / "jax"), *extra)
+    _run_port_cli(cfg, str(tmp_path / "port"), *extra)
+    name = "images.npy" if mode == "hrtem" else "stem.npy"
+    got, want = np.load(tmp_path / "port" / name), np.load(tmp_path / "jax" / name)
+    assert got.shape == want.shape and _rel(got, want) <= GATE
+    _run_port_cli(cfg, str(tmp_path / "static"), *extra[2:])
+    assert _rel(np.load(tmp_path / "static" / name), want) > 10 * GATE  # the configs were used
+    with open(tmp_path / "port" / "timing.json") as fh:
+        assert json.load(fh)["slice_props"] == 8 * (1 if mode == "hrtem" else 4) * 2
+
+
+def test_cli_phonons_in_forward_mode_warn(tmp_path):
+    """fdes_tpu runs forward (and invert) on the Debye-Waller potential
+    whatever sim.phonon_configs says; the port does the same and says so."""
+    cfg = _cfg(tmp_path / "c.toml", "forward")
+    with pytest.warns(UserWarning, match="phonon_configs applies to modes"):
+        _run_port_cli(cfg, str(tmp_path / "p"), "--set", "sim.phonon_configs=2")
+    _run_port_cli(cfg, str(tmp_path / "s"))
+    np.testing.assert_array_equal(np.load(tmp_path / "p" / "exit_wave.npy"),
+                                  np.load(tmp_path / "s" / "exit_wave.npy"))
+
+
+def test_sim_from_arrays_takes_streamed_atoms(tmp_path):
+    """The streamed state carried across packages: the JAX package's padded
+    atoms and full-grid factors in place of v_stack."""
+    from fdes_tpu.potential import pad_atoms_per_slice, species_factors_full
+    from fdes_tpu_torch.propagate import multislice, multislice_streamed
+
+    sim, arrays = _jax_sim_arrays(_cfg(tmp_path / "c.toml"))
+    x, y, sp, w, _ = pad_atoms_per_slice(sim.sliced, np.float32)
+    streamed = {k: v for k, v in arrays.items() if k != "v_stack"}
+    streamed.update(x=x, y=y, sp=sp, w=w,
+                    ff_full=species_factors_full(sim.grid, sim.sliced.species, sim.table))
+    g = sim.grid
+    tgrid = Grid(g.ny, g.nx, g.py, g.px)
+    tsim = tpipe.sim_from_arrays(streamed, sigma=sim.sigma, wavelength_A=sim.wavelength_A,
+                                 grid=tgrid, device="cpu")
+    assert tsim.v_stack is None
+    atoms, ff = tpipe.streamed_inputs(tsim)
+    got = multislice_streamed(tsim.psi0, atoms, ff, tsim.propagator, tsim.sigma,
+                              shape=tgrid.shape, pixel=(tgrid.py, tgrid.px))
+    want = multislice(tsim.psi0, torch.tensor(arrays["v_stack"]), tsim.propagator, tsim.sigma)
+    assert _rel(got.numpy(), want.numpy()) <= GATE
+    with pytest.raises(KeyError, match="padded atoms"):
+        tpipe.sim_from_arrays({k: v for k, v in streamed.items() if k != "ff_full"},
+                              sigma=sim.sigma, wavelength_A=sim.wavelength_A, grid=tgrid,
+                              device="cpu")
 
 
 def test_dose_noise_statistics():

@@ -315,7 +315,7 @@ def test_fscan_grad_true_raises(fields, kind):
     vs = _t(np.stack([v, v]))
     with pytest.raises(NotImplementedError, match="propagator no gradient"):
         step.whole_scan(_t(psi), vs, _t(prop).requires_grad_(True), SIGMA)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
+    with pytest.raises(NotImplementedError, match="a per-wave V under a gradient"):
         step.whole_scan(_t(psi), torch.stack([vs, vs]).requires_grad_(True), _t(prop), SIGMA)
     v_t = vs.clone().requires_grad_(True)
     step.whole_scan(_t(psi), v_t, _t(prop), SIGMA).abs().pow(2).sum().backward()

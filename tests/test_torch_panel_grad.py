@@ -326,14 +326,14 @@ def test_engine_batch_equals_per_wave_gradients(fields, monkeypatch, route):
 def test_refusals(fields):
     """A propagator that requires a gradient raises (the panel gradient gives
     P none); a per-wave (B, S, n, n) V under a gradient raises naming the
-    ROADMAP item that brings it; the plain store pair takes (B, n, n) waves."""
+    ROADMAP.md Queue 3 entry on it; the plain store pair takes (B, n, n) waves."""
     f = fields
     step = tprop.make_slice_step("panel", shape=(N, N), grad=True)
     psi, v = _t(f["psi"]), _t(f["v"])
     with pytest.raises(NotImplementedError, match="propagator"):
         tprop.multislice(psi, v.requires_grad_(True), _t(f["prop"]).requires_grad_(True), SIGMA,
                          slice_step=step)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
+    with pytest.raises(NotImplementedError, match="a per-wave V under a gradient"):
         tprop.multislice(_t(f["psi_b"]), torch.stack([v, v]).requires_grad_(True),
                          _t(f["prop"]), SIGMA, slice_step=step)
     with pytest.raises(ValueError, match=r"\(B, n, n\)"):

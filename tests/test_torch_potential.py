@@ -79,3 +79,79 @@ def test_scatter_deltas_equals_jax(si110_small):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0, atol=1e-13)
     # every atom's unit weight lands on the grid
     assert abs(float(got.sum()) - float(sliced.weight.sum())) < 1e-9
+
+
+# ---- the per-slice build of the streamed rollout, and the exact build -------
+
+
+@pytest.mark.parametrize("np_dtype", [np.float32, np.float64])
+def test_pad_atoms_per_slice_equals_jax_bit_for_bit(si110_config1, np_dtype):
+    _, _, sliced = si110_config1
+    got = tpot.pad_atoms_per_slice(sliced, np_dtype)
+    want = jpot.pad_atoms_per_slice(sliced, np_dtype)
+    assert got[4] == want[4] and got[0].shape == (16, want[4])
+    for g, w in zip(got[:4], want[:4]):
+        assert g.dtype == w.dtype
+        np.testing.assert_array_equal(g, w)
+
+
+def test_species_factors_full_equal_jax(si110_small):
+    _, grid, sliced = si110_small
+    full = tpot.species_factors_full(_tgrid(grid), sliced.species)
+    np.testing.assert_array_equal(full, jpot.species_factors_full(grid, sliced.species))
+    # the rfft2 half-grid is its first nx//2 + 1 columns
+    np.testing.assert_array_equal(full[..., : grid.nx // 2 + 1],
+                                  tpot.species_factors_rfft(_tgrid(grid), sliced.species))
+
+
+@pytest.mark.parametrize("j", [0, 5])
+def test_slice_build_equals_jax(si110_small, j):
+    """scatter_slice_deltas and slice_potential of one padded slice, float64,
+    against fdes_tpu's; the slice equals that slice of the batched build."""
+    _, grid, sliced = si110_small
+    x, y, sp, w, _ = jpot.pad_atoms_per_slice(sliced, np.float64)
+    kw = dict(shape=grid.shape, pixel=(grid.py, grid.px))
+    got = tpot.scatter_slice_deltas(torch.as_tensor(x[j]), torch.as_tensor(y[j]),
+                                    torch.as_tensor(sp[j]), torch.as_tensor(w[j]), nspecies=1,
+                                    rdt=torch.float64, **kw)
+    want = jpot.scatter_slice_deltas(jnp.asarray(x[j]), jnp.asarray(y[j]), jnp.asarray(sp[j]),
+                                     jnp.asarray(w[j]), nspecies=1, rdt=np.dtype(np.float64),
+                                     **kw)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0, atol=1e-13)
+    ff = jpot.species_factors_rfft(grid, sliced.species)
+    v = tpot.slice_potential(torch.as_tensor(x[j]), torch.as_tensor(y[j]), torch.as_tensor(sp[j]),
+                             torch.as_tensor(w[j]), torch.as_tensor(ff), **kw)
+    v_jax = jpot.slice_potential(jnp.asarray(x[j]), jnp.asarray(y[j]), jnp.asarray(sp[j]),
+                                 jnp.asarray(w[j]), jnp.asarray(ff), **kw)
+    assert v.dtype == torch.float64 and _rel_max(v.numpy(), v_jax) <= 1e-12
+    batched = tpot.build_potential(sliced, _tgrid(grid), dtype=torch.float64)[j]
+    assert _rel_max(v.numpy(), batched.numpy()) <= 1e-12
+
+
+def test_build_potential_exact_equals_jax_and_golden(si110_small):
+    """The analog of tests/test_potential.py:234-271: the exact-phase build
+    (float64) against fdes_tpu's and the exact-phase golden, and closer to
+    the golden than the bilinear build at high q."""
+    from fdes_tpu.golden import golden_potential_exact
+    from fdes_tpu.specimen import make_si110_supercell, slice_specimen
+
+    _, grid, sliced = si110_small
+    got = tpot.build_potential_exact(sliced, _tgrid(grid), dtype=torch.float64).numpy()
+    want = np.asarray(jpot.build_potential_exact(sliced, grid, dtype=jnp.float64))
+    assert got.shape == (8, 64, 64)
+    assert np.linalg.norm(got - want) / np.linalg.norm(want) <= 1e-12
+    gold = golden_potential_exact(sliced, grid)
+    assert np.linalg.norm(got - gold) / np.linalg.norm(gold) <= 1e-12
+    # off-grid atoms: the Si[110] fixture's sites sit near pixel centres
+    spec = make_si110_supercell(reps=(2, 2, 2), jitter=0.11, seed=5)
+    lx, ly, _ = spec.box
+    g2 = Grid(64, 64, ly / 64, lx / 64)
+    sl2 = slice_specimen(spec, 8)
+    gold = golden_potential_exact(sl2, g2)
+    err_exact = np.linalg.norm(tpot.build_potential_exact(sl2, g2, dtype=torch.float64).numpy()
+                               - gold)
+    err_bilinear = np.linalg.norm(tpot.build_potential(sl2, g2, dtype=torch.float64).numpy()
+                                  - gold)
+    assert err_exact < err_bilinear * 1e-4
+    f32 = tpot.build_potential_exact(sliced, _tgrid(grid))
+    assert f32.dtype == torch.float32 and _rel_max(f32.numpy(), want) <= 1e-5
