@@ -15,13 +15,21 @@ Phases, each printing one JSON line:
              computing the same function.  The slice step's five elementwise
              kernels at 512^2 and (8, 512, 512), in complex64 and complex128
              (the batched case checks the adjoints' batch-summed dV); the
-             fused step and its adjoint at 512^2 and (8, 512, 512) complex64;
-             the whole-loop scan at (16 waves, 8 slices, 512^2), at 128^2 and
-             1024^2 (2 waves, 3 slices, shared and per-wave V and P), and at
-             the STEM raster's own shape (16 probes, 128 slices, 512^2), there
-             also against a complex128 rollout and beside the same rollout as
-             128 calls of the fused step; the kernels one call of each wrapper
-             launches are counted with torch.profiler.  The whole-loop
+             Fresnel multiply also on odd planes (511^2), batches of 1, 3 and
+             16 and both values of conj_b, and timed in turns with torch.mul;
+             the fused step and its adjoint at 512^2 and (8, 512, 512)
+             complex64; the whole-loop scan (scan_kernel) at (16 waves, 8
+             slices, 512^2), at 128^2 and 1024^2 (2 waves, 3 slices, shared
+             and per-wave V and P); the cluster kernel at 128^2, 256^2 and
+             512^2 with 1, 3, 16 and 64 waves, shared and per-wave V and P,
+             and a refused cluster launch raising; both at the STEM raster's
+             own shape (16 probes, 128 slices, 512^2), there also against a
+             complex128 rollout and beside the same rollout as 128 calls of
+             the fused step; both kernels timed in turns at the rows of
+             fused_scan's route table and at config 2's and config 4's shapes
+             (each row names the faster and whether the table picks it); the
+             kernels one call of each wrapper launches are counted with
+             torch.profiler.  The whole-loop
              adjoint's four kernels (store pair and segment pair) at 128^2 and
              1024^2 (2 waves, 4 slices), at 512^2 (1 and 8 waves, 8 slices),
              each with a shared and a per-wave propagator, and at config 3's
@@ -54,7 +62,8 @@ Phases, each printing one JSON line:
              examples/si110_hrtem.toml (512^2, 64 slices, 8 defoci, engine
              "pallas"), launches counted, against the plain-torch engine
              ("xla") at <= 1e-5; the same on the defaults ("auto" resolves to
-             "fscan": one whole-loop launch, asserted) and a two-tilt forward
+             "fscan": one whole-loop launch on the kernel the route table
+             picks for one wave, asserted and reported) and a two-tilt forward
              run with a thickness series on the defaults, each against "xla"
              at <= 1e-5; then the 64-slice rollout alone on "pallas", "xla",
              "fscan" and "fused", wall and device time.
@@ -84,10 +93,12 @@ Phases, each printing one JSON line:
 8. stem    — the STEM raster at full width: ``fdes_tpu_torch.cli.main`` on
              examples/si110_stem.toml (config 4: 512^2, 128 slices, 32x32 =
              1,024 probes, BF + ADF) on engine "fscan" at probe chunk 16 (one
-             whole-loop kernel launch per chunk, asserted, and no FFT library
-             kernel inside the rollout), then "pallas" and "xla" at chunk 16
-             and "fscan" at chunk 64, twice in turns, and once on the defaults
-             ("auto" resolves to "fscan", chunk 0 to 64); signals "fscan" against
+             whole-loop kernel launch per chunk on the routed kernel, asserted,
+             and no FFT library kernel inside the rollout), then "pallas" and
+             "xla" at chunk 16 and "fscan" at chunks 64 and 128, twice in
+             turns, and once on the defaults ("auto" resolves to "fscan", chunk
+             0 to pick_probe_chunk's); the route of each chunk reported;
+             signals "fscan" against
              "xla", and against a complex128 raster of the first 16 probes, per
              detector at <= 1e-4 (two float32 rollouts of 128 slices);
              slice-propagations per second and the device's idle share per
@@ -234,7 +245,8 @@ def wrappers() -> tuple:
     from fdes_tpu_torch.kernels import panel_scan as ps
     from fdes_tpu_torch.kernels import slice_step as ks
 
-    return (*ks.WRAPPERS, *fs.WRAPPERS, fsc.fused_scan, *adj.WRAPPERS, *ps.WRAPPERS, *ps.LOOPS)
+    return (*ks.WRAPPERS, *fs.WRAPPERS, fsc.fused_scan, fsc.cluster_scan, *adj.WRAPPERS,
+            *ps.WRAPPERS, *ps.LOOPS)
 
 
 def launch_counts() -> dict:
@@ -265,6 +277,17 @@ def time_launches(fn, n: int = TIMED, warmup: int = 5) -> float:
         end.record()
     torch.cuda.synchronize()
     return statistics.median(s.elapsed_time(e) for s, e in ev)
+
+
+def interleaved_ms(fns: dict, rounds: int = 3, **kw) -> tuple[dict, dict]:
+    """(median ms, every reading) of each function of ``fns`` by
+    time_launches, the functions timed in turns, ``rounds`` times: two
+    versions compared within one call, each round in the same order."""
+    times = {k: [] for k in fns}
+    for _ in range(rounds):
+        for k, fn in fns.items():
+            times[k].append(time_launches(fn, **kw))
+    return {k: statistics.median(v) for k, v in times.items()}, times
 
 
 # ---- phases ----------------------------------------------------------------
@@ -383,13 +406,52 @@ def phase_kernels(sigma: float) -> tuple[dict, dict]:
                         "plain_ms": time_launches(ref),
                         "bound_ms": max(t_bytes, t_ops),
                         "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-                        "library_ms": time_launches(lib) if lib is not None else None,
+                        "library_ms": None,
                         "shape": list(shape),
                         "dtype": "complex64",
                         "bytes": nbytes,
                         "operations": ops,
                     }
-    return {"phase": "kernels", "checks": checks}, rows
+    cmul_line = cmul_checks(checks, rng, rows["cmul"], lambda shp: cplx_of(rng, shp))
+    return {"phase": "kernels", "checks": checks, "cmul": cmul_line}, rows
+
+
+def cplx_of(rng, shape) -> torch.Tensor:
+    z = rng.standard_normal(shape) + 1j * rng.standard_normal(shape)
+    return torch.as_tensor(z.astype(np.complex64), device="cuda")
+
+
+#: the Fresnel multiply against its plain version (max |k - ref| / max |ref|)
+CMUL_TOL = 1e-6
+
+
+def cmul_checks(checks: list, rng, row: dict, cplx) -> dict:
+    """Row 3 beyond the table's shape: odd planes (the 8-byte route),
+    batches of 1, 3 and 16, both values of conj_b, against cmul_ref; and its
+    times against torch.mul at 512^2 and those batches, the two in turns
+    (the row's ms and library_ms are the 512^2 pair)."""
+    from fdes_tpu_torch.kernels import slice_step as ks
+
+    times = {}
+    for shape in ((511, 511), (3, 511, 511), (512, 512), (3, 512, 512), (16, 512, 512)):
+        a, b = cplx(shape), cplx(shape[-2:])
+        for conj_b in (False, True):
+            got, want = ks.cmul(a, b, conj_b=conj_b), ks.cmul_ref(a, b, conj_b=conj_b)
+            torch.cuda.synchronize()
+            abs_err, rel = max_errors(got, want)
+            ok = rel <= CMUL_TOL and all_finite(got)
+            checks.append({"kernel": "cmul", "dtype": "complex64", "shape": list(shape),
+                           "conj_b": conj_b, "max_abs_err": abs_err, "max_rel_err": rel,
+                           "tol": CMUL_TOL, "ok": ok})
+            if not ok:
+                raise AssertionError(f"cmul {shape} conj_b={conj_b}: rel err {rel:.3e}")
+        med, every = interleaved_ms({"cmul": lambda: ks.cmul(a, b),
+                                     "torch.mul": lambda: torch.mul(a, b)})
+        times["x".join(map(str, shape))] = {"median_ms": med, "ms": every}
+    pair = times["512x512"]["median_ms"]
+    row["ms"], row["library_ms"] = pair["cmul"], pair["torch.mul"]
+    row["timed_in_turns_with_torch_mul"] = times
+    return times
 
 
 def profiled_kernels(fn, attempts: int = 3) -> list[tuple[str, float]]:
@@ -434,8 +496,8 @@ def device_kernels(fn) -> dict[str, int]:
 
 
 OWN_KERNELS = ("row_pass_kernel", "col_pass_kernel", "bwd_tail_kernel", "scan_kernel",
-               "scan_store_kernel", "scan_bwd_store_kernel", "scan_ck_kernel",
-               "scan_bwd_ck_kernel", "panel_row_kernel", "panel_col_kernel",
+               "cluster_scan_kernel", "scan_store_kernel", "scan_bwd_store_kernel",
+               "scan_ck_kernel", "scan_bwd_ck_kernel", "panel_row_kernel", "panel_col_kernel",
                "panel_bwd_row_kernel", "panel_g_row_kernel", "panel_build_col_kernel",
                "panel_vfused_row_kernel")
 
@@ -572,25 +634,55 @@ def phase_kernels_fused() -> tuple[dict, dict]:
                   fsc.fused_scan_ref(psi0, vs, pr, sigma), scan_tol(ns),
                   per_wave_v_and_p=per_wave)
 
+    # ---- the cluster kernel: every size it takes, 1 to 64 waves (G is 7 at
+    # 512^2, so 3, 16 and 64 leave clusters a wave short), shared and
+    # per-wave V and P
+    for m in fsc.CLUSTER_CTAS:
+        for b in (1, 3, 16, 64):
+            for per_wave in (False, True):
+                lead, ns = ((b,) if per_wave else ()), 4
+                psi0 = cplx(b, m, m)
+                vs = torch.as_tensor(rng.uniform(0, 2000, (*lead, ns, m, m)), device="cuda",
+                                     dtype=f32)
+                pr = torch.polar(torch.ones((*lead, m, m), device="cuda"),
+                                 torch.as_tensor(rng.uniform(0, 6.28, (*lead, m, m)),
+                                                 device="cuda", dtype=f32))
+                check("cluster_scan", (b, ns, m, m), fsc.cluster_scan(psi0, vs, pr, sigma),
+                      fsc.fused_scan_ref(psi0, vs, pr, sigma), scan_tol(ns),
+                      per_wave_v_and_p=per_wave)
+    # a launch the card refuses raises: no other kernel runs in its place
+    scratch = torch.empty_like(probes[:1])
+    try:
+        fs.launch("fdes_cluster_scan_c64", scratch.device, 512, *[scratch.data_ptr()] * 4, sigma,
+                  1, 1, 0, 0, 0)
+        refused = False
+    except RuntimeError as exc:
+        refused = "cudaErrorInvalidValue" in str(exc) or "invalid argument" in str(exc)
+    if not refused:
+        raise AssertionError("a cluster launch of zero clusters did not raise")
+
     # ---- the scan at the raster's shape: 16 probes through all 128 slices
     psi0 = probes[:16].contiguous()
-    got = fsc.fused_scan(psi0, v_stack, prop, sigma)
+    got = fsc.fused_scan(psi0, v_stack, prop, sigma, route="scan")
+    got_c = fsc.cluster_scan(psi0, v_stack, prop, sigma)
     plain = fsc.fused_scan_ref(psi0, v_stack, prop, sigma)
     err = check("fused_scan", (16, s, n, n), got, plain, scan_tol(s))
+    err_c = check("cluster_scan", (16, s, n, n), got_c, plain, scan_tol(s))
     exact = fsc.fused_scan_ref(psi0.to(torch.complex128), v_stack.double(),
                                prop.to(torch.complex128), sigma)
     f64_err = {"kernel_vs_c128": rel_norm(got, exact), "plain_vs_c128": rel_norm(plain, exact),
-               "tol": LONG_ROLLOUT_TOL}
-    if not f64_err["kernel_vs_c128"] <= min(LONG_ROLLOUT_TOL, 1.5 * f64_err["plain_vs_c128"]):
-        raise AssertionError(f"fused_scan against the complex128 rollout: {f64_err}")
+               "cluster_vs_c128": rel_norm(got_c, exact), "tol": LONG_ROLLOUT_TOL}
+    long_tol = min(LONG_ROLLOUT_TOL, 1.5 * f64_err["plain_vs_c128"])
+    if not max(f64_err["kernel_vs_c128"], f64_err["cluster_vs_c128"]) <= long_tol:
+        raise AssertionError(f"the scans against the complex128 rollout: {f64_err}")
     del exact
     plane = n * n
     nbytes = 16 * plane * 8 * 2 + s * plane * 4 + plane * 8
     ops = 16 * s * (2 * fft2_ops(n) + (9 + 6) * plane)
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / PEAK_OPS_PER_S[f32] * 1e3
 
-    def scan(p0, vv=v_stack):
-        return lambda: fsc.fused_scan(p0, vv, prop, sigma)
+    def scan(p0, vv=v_stack, route="scan"):
+        return lambda: fsc.fused_scan(p0, vv, prop, sigma, route=route)
 
     def step_by_step():  # the same rollout as S calls of the fused step
         psi = psi0
@@ -619,7 +711,65 @@ def phase_kernels_fused() -> tuple[dict, dict]:
         "ms_64_waves": time_launches(scan(probes), n=5, warmup=1),
         "ms_1_wave_64_slices": time_launches(scan(psi0[:1], v_stack[:64]), n=10, warmup=2),
     }
-    return {"phase": "kernels_fused", "checks": checks, "fused_scan_vs_complex128": f64_err}, rows
+    info = fsc.cluster_kernel_info(n)
+    rows["cluster_scan"] = {
+        **rows["fused_scan"], "name": "cluster_scan", "max_abs_err": err_c[0],
+        "max_rel_err": err_c[1], "ms": time_launches(scan(psi0, route="cluster"), n=10, warmup=2),
+        "kernel": info,
+        "kernels_per_call": expect_own_kernels("cluster_scan", scan(psi0, route="cluster"),
+                                               {"cluster_scan_kernel": 1}),
+        "ms_as_fused_step_loop": None,
+        "ms_64_waves": time_launches(scan(probes, route="cluster"), n=5, warmup=1),
+        "ms_1_wave_64_slices": time_launches(scan(psi0[:1], v_stack[:64], "cluster"), n=10,
+                                             warmup=2),
+    }
+    route_rows = scan_route_rows(probes, v_stack, prop, sigma, rng)
+    line = {"phase": "kernels_fused", "checks": checks, "fused_scan_vs_complex128": f64_err,
+            "cluster_kernel": {m: fsc.cluster_kernel_info(m) for m in fsc.CLUSTER_CTAS},
+            "scan_kernel": {m: fsc.scan_kernel_info(m) for m in fs.SIZES},
+            "route_rows": route_rows,
+            "route_is_the_faster": all(r["route_is_the_faster"] for r in route_rows)}
+    return line, rows
+
+
+def scan_route_rows(probes, v_stack, prop, sigma, rng) -> list[dict]:
+    """Both whole-loop kernels timed in turns (scan, cluster, cluster, scan
+    twice, then scan, cluster: five medians each) at the rows of fused_scan's
+    route table (128^2, 256^2 and 512^2, 1 to 64 waves, 32 random slices)
+    and at the main path's shapes at 512^2 (config 2's rollout, 1 wave x 64
+    slices; config 4's chunk of 64 probes x 128 slices, on its own
+    potential).  Each row names the faster kernel and whether the table
+    picks it."""
+    from fdes_tpu_torch.kernels import fused_scan as fsc
+
+    cases = []
+    for m, table in fsc.SCAN_ROUTE.items():
+        vs = torch.as_tensor(rng.uniform(0, 2000, (32, m, m)), device="cuda",
+                             dtype=torch.float32)
+        pr = torch.polar(torch.ones((m, m), device="cuda"),
+                         torch.as_tensor(rng.uniform(0, 6.28, (m, m)), device="cuda",
+                                         dtype=torch.float32))
+        for b in sorted(table):
+            z = rng.standard_normal((b, m, m)) + 1j * rng.standard_normal((b, m, m))
+            cases.append((f"{m}x{b}x32", torch.as_tensor(z.astype(np.complex64), device="cuda"),
+                          vs, pr))
+    cases += [("config2_1x64", probes[:1].contiguous(), v_stack[:64], prop),
+              ("config4_64x128", probes, v_stack, prop)]
+    rows = []
+    for name, psi0, vs, pr in cases:
+        b, m = psi0.shape[0], psi0.shape[-1]
+        fns = {r: (lambda r=r: fsc.fused_scan(psi0, vs, pr, sigma, route=r))
+               for r in ("scan", "cluster")}
+        times = {"scan": [], "cluster": []}
+        for r in ("scan", "cluster", "cluster", "scan") * 2 + ("scan", "cluster"):
+            times[r].append(time_launches(fns[r], n=5, warmup=2))
+        faster = min(times, key=lambda r: statistics.median(times[r]))
+        route = fsc.scan_route(m, b, vs.shape[-3])
+        rows.append({"case": name, "n": m, "waves": b, "slices": vs.shape[-3], "ms": times,
+                     "us_per_wave_slice": {r: statistics.median(t) * 1e3 / (b * vs.shape[-3])
+                                           for r, t in times.items()},
+                     "faster": faster, "route": route, "route_is_the_faster": route == faster})
+    return rows
 
 
 def phase_kernels_adjoint() -> tuple[dict, dict]:
@@ -1323,6 +1473,18 @@ def run_cli(tmp: str, tag: str, *extra: str, config: str = CONFIG) -> tuple[str,
         return out, json.load(fh)
 
 
+def scan_wrapper(b: int, n: int = 512) -> str:
+    """The wrapper whose count a whole-loop rollout of b waves at n^2 adds
+    to: the kernel fused_scan's route table picks for it."""
+    from fdes_tpu_torch.kernels.fused_scan import scan_route
+
+    return "cluster_scan" if scan_route(n, b) == "cluster" else "fused_scan"
+
+
+def scan_kernel_name(b: int, n: int = 512) -> str:
+    return {"cluster_scan": "cluster_scan_kernel", "fused_scan": "scan_kernel"}[scan_wrapper(b, n)]
+
+
 def wall_and_device_ms(fn, reps: int) -> tuple[float, float]:
     """Median wall ms (host clock around a synchronised call) and device ms
     (CUDA events, the call enqueued behind a sleep kernel) of one call."""
@@ -1374,8 +1536,9 @@ def hrtem_on_defaults(tmp: str, imgs_x: np.ndarray) -> dict:
                       "launches": launches, "run_s": timing["run_s"],
                       "rel_err_vs_xla": float(np.linalg.norm(imgs - imgs_x)
                                               / np.linalg.norm(imgs_x))}}
+    res["images"]["route"] = scan_wrapper(1)
     if (timing["engine"], timing["engine_kind"]) != ("auto", "fscan") or launches != {
-            **zero, "fused_scan": 1}:
+            **zero, scan_wrapper(1): 1}:
         raise AssertionError(f"hrtem on the defaults: {res}")
     tilts = ("--mode", "forward", "--set", "sim.tilt_series_rad=[[0.0,0.0],[0.002,-0.001]]",
              "--set", "sim.thickness_every=16")
@@ -1383,7 +1546,8 @@ def hrtem_on_defaults(tmp: str, imgs_x: np.ndarray) -> dict:
     out, timing = run_cli(tmp, "tilt_auto", *tilts)
     launches = launch_counts()
     out_x, _ = run_cli(tmp, "tilt_xla", *tilts, "--set", "sim.engine=xla")
-    res["tilt_forward"] = {"engine_kind": timing["engine_kind"], "launches": launches}
+    res["tilt_forward"] = {"engine_kind": timing["engine_kind"], "launches": launches,
+                           "route": scan_wrapper(2)}
     for name, shape in (("exit_wave.npy", (2, 512, 512)),
                         ("thickness_series.npy", (2, 4, 512, 512))):
         a, b = np.load(os.path.join(out, name)), np.load(os.path.join(out_x, name))
@@ -1391,7 +1555,7 @@ def hrtem_on_defaults(tmp: str, imgs_x: np.ndarray) -> dict:
             raise AssertionError(f"{name} on the defaults: {a.shape} not finite {shape}")
         res["tilt_forward"][name] = float(np.linalg.norm(a - b) / np.linalg.norm(b))
     # the rollout, then the series: one launch per 16 of the 64 slices
-    if timing["engine_kind"] != "fscan" or launches != {**zero, "fused_scan": 1 + 4}:
+    if timing["engine_kind"] != "fscan" or launches != {**zero, scan_wrapper(2): 1 + 4}:
         raise AssertionError(f"tilt forward on the defaults: {res}")
     errs = (res["images"]["rel_err_vs_xla"], res["tilt_forward"]["exit_wave.npy"],
             res["tilt_forward"]["thickness_series.npy"])
@@ -1638,7 +1802,8 @@ def phase_invert(tmp: str, gpu: str, grad_busy_ms: dict) -> tuple[dict, dict]:
         "fused": {**zero, "fused_step": s + n * 2 * s, "fused_step_bwd": n * s},
         # the self-test series in one launch (nothing asks for a gradient),
         # then per iteration one store-forward and one backward launch
-        "fscan": {**zero, "fused_scan": 1, "fused_scan_store": n, "fused_scan_bwd_store": n},
+        "fscan": {**zero, scan_wrapper(1): 1, "fused_scan_store": n,
+                  "fused_scan_bwd_store": n},
     }
     first_err = {e: abs(losses[e][0] - losses["xla"][0]) / abs(losses["xla"][0])
                  for e in engines}
@@ -1683,12 +1848,13 @@ def invert_other_modalities(tmp: str) -> dict:
     cases = {
         "tilt": ((CONFIG, "--set", "sim.tilt_series_rad=[[0.0,0.0],[0.002,-0.001]]"),
                  # one batched rollout of both tilts per evaluation
-                 {"fused_scan": 1, "fused_scan_store": iters, "fused_scan_bwd_store": iters},
+                 {scan_wrapper(2): 1, "fused_scan_store": iters,
+                  "fused_scan_bwd_store": iters},
                  GATE),
         "stem4d": ((CONFIG_STEM, "--set", "recon.modality=stem4d", "--set", "stem.scan_ny=4",
                     "--set", "stem.scan_nx=4", "--set", "stem.probe_chunk=8"),
                    # two chunks of probes per evaluation
-                   {"fused_scan": 2, "fused_scan_store": 2 * iters,
+                   {scan_wrapper(8): 2, "fused_scan_store": 2 * iters,
                     "fused_scan_bwd_store": 2 * iters},
                    # sums of squared differences of intensities after 128 slices
                    2 * LONG_ROLLOUT_TOL),
@@ -1759,7 +1925,7 @@ def stem_chunk_profile(engine: str, chunk: int) -> dict:
            "kernels_per_chunk": n_kernels, "rollout_kernels": device_kernels(rollout)}
     if engine == "fscan":  # one whole-loop launch per chunk
         out["own_rollout_kernels"] = expect_own_kernels(f"stem rollout, chunk {chunk}", rollout,
-                                                        {"scan_kernel": 1})
+                                                        {scan_kernel_name(chunk): 1})
     return out
 
 
@@ -1782,6 +1948,8 @@ def stem_first_chunk_c128() -> np.ndarray:
 def phase_stem(tmp: str, gpu: str) -> tuple[dict, dict]:
     """Config 4 through cli.main on fscan, pallas and xla; returns (line,
     launches of the fscan run at chunk 16)."""
+    from fdes_tpu_torch.propagate import pick_probe_chunk
+
     def run(tag, engine, chunk, *extra):
         return run_cli(tmp, tag, "--set", f"sim.engine={engine}", "--set",
                        f"stem.probe_chunk={chunk}", *extra, config=CONFIG_STEM)
@@ -1795,21 +1963,32 @@ def phase_stem(tmp: str, gpu: str) -> tuple[dict, dict]:
     runs = [{"engine": "fscan", "chunk": 16, **timing}]
     sig_x = None
     for tag, engine, chunk in (("stem_pallas", "pallas", 16), ("stem_xla", "xla", 16),
-                               ("stem_fscan64", "fscan", 64), ("stem_xla_b", "xla", 16),
-                               ("stem_pallas_b", "pallas", 16), ("stem_fscan64_b", "fscan", 64),
-                               ("stem_fscan_b", "fscan", 16)):
+                               ("stem_fscan64", "fscan", 64), ("stem_fscan128", "fscan", 128),
+                               ("stem_xla_b", "xla", 16), ("stem_pallas_b", "pallas", 16),
+                               ("stem_fscan128_b", "fscan", 128),
+                               ("stem_fscan64_b", "fscan", 64), ("stem_fscan_b", "fscan", 16)):
         o, t = run(tag, engine, chunk)
         runs.append({"engine": engine, "chunk": chunk, **t})
+        if engine == "fscan":
+            runs[-1]["route"] = scan_wrapper(chunk)
         if tag == "stem_xla":
             sig_x = np.load(os.path.join(o, "stem.npy"))
         elif tag == "stem_fscan64":
             sig_64 = np.load(os.path.join(o, "stem.npy"))
+        elif tag == "stem_fscan128":
+            sig_128 = np.load(os.path.join(o, "stem.npy"))
     # what a user gets without naming an engine or a chunk: the same raster
+    reset_launches()
     o, t_auto = run("stem_auto", "auto", 0)
-    runs.append({"engine": "auto", "chunk": t_auto["probe_chunk"], **t_auto})
-    if (t_auto["engine_kind"], t_auto["probe_chunk"]) != ("fscan", 64) or not np.array_equal(
-            np.load(os.path.join(o, "stem.npy")), sig_64):
-        raise AssertionError(f"stem on engine auto: {t_auto}")
+    launches_auto = launch_counts()
+    runs.append({"engine": "auto", "chunk": t_auto["probe_chunk"], **t_auto,
+                 "route": scan_wrapper(t_auto["probe_chunk"])})
+    auto_chunk = pick_probe_chunk(probes)
+    same = {64: sig_64, 128: sig_128, 16: sig}[auto_chunk]
+    if (t_auto["engine_kind"], t_auto["probe_chunk"]) != ("fscan", auto_chunk) or not (
+            np.array_equal(np.load(os.path.join(o, "stem.npy")), same)) or launches_auto != {
+            **dict.fromkeys(launches_auto, 0), scan_wrapper(auto_chunk): probes // auto_chunk}:
+        raise AssertionError(f"stem on engine auto: {t_auto}, launches {launches_auto}")
 
     def per_detector(a, b):
         return {f"detector_{d}": float(np.linalg.norm(a[d] - b[d]) / np.linalg.norm(b[d]))
@@ -1823,7 +2002,7 @@ def phase_stem(tmp: str, gpu: str) -> tuple[dict, dict]:
     first = (slice(None), 0, slice(0, 16))  # the first 16 probes: row 0 of the scan
     errs_exact = {"fscan": per_detector(sig[first], exact), "xla": per_detector(sig_x[first], exact)}
     profiles = [stem_chunk_profile(e, c) for e, c in (("fscan", 16), ("pallas", 16), ("xla", 16),
-                                                      ("fscan", 64))]
+                                                      ("fscan", 64), ("fscan", 128))]
     for prof in profiles:
         same = [r for r in runs if (r["engine"], r["chunk"]) == (prof["engine"], prof["chunk"])]
         busy = prof["device_busy_ms_per_chunk"] * probes / prof["chunk"]
@@ -1832,13 +2011,16 @@ def phase_stem(tmp: str, gpu: str) -> tuple[dict, dict]:
     line = {
         "phase": "stem", "config": "examples/si110_stem.toml", "shape": list(sig.shape),
         "probes": probes, "scan": "32x32 of config 4's 4096 probes, on every engine",
-        "launches": launches, "rel_err_fscan_vs_xla": errs, "tol": tol,
+        "launches": launches, "launches_auto": launches_auto,
+        "rel_err_fscan_vs_xla": errs, "tol": tol,
         "rel_err_vs_complex128_first_16_probes": errs_exact,
         "chunk64_vs_chunk16": float(np.linalg.norm(sig_64 - sig) / np.linalg.norm(sig)),
+        "chunk128_vs_chunk16": float(np.linalg.norm(sig_128 - sig) / np.linalg.norm(sig)),
+        "route_by_chunk": {c: scan_wrapper(c) for c in (16, 64, 128)},
         "total_signal_max": float(sig.sum(axis=0).max()),
         "runs": runs, "profiles": profiles, "gpu": gpu,
     }
-    expect = {**dict.fromkeys(launches, 0), "fused_scan": probes // 16}
+    expect = {**dict.fromkeys(launches, 0), scan_wrapper(16): probes // 16}
     if launches != expect:
         raise AssertionError(f"stem launches {launches}, expected {expect}")
     if any("fft" in k.lower() for k in profiles[0]["rollout_kernels"]):
@@ -1850,8 +2032,13 @@ def phase_stem(tmp: str, gpu: str) -> tuple[dict, dict]:
         raise AssertionError(f"stem signals sum to {line['total_signal_max']}")
     bad = {k: e for k, e in {**errs, **{f"exact_{k}": e for k, e in errs_exact["fscan"].items()}}.items()
            if not e <= tol}
-    if bad or not line["chunk64_vs_chunk16"] <= GATE:
-        raise AssertionError(f"stem gates failed: {bad}, chunks {line['chunk64_vs_chunk16']}")
+    # the same kernel at another chunk gives the same rollouts; two kernels
+    # give two float32 rollouts, held as fscan is against xla
+    chunk_tol = {c: GATE if scan_wrapper(c) == scan_wrapper(16) else tol for c in (64, 128)}
+    line["chunk_tol"] = chunk_tol
+    if bad or not all(line[f"chunk{c}_vs_chunk16"] <= chunk_tol[c] for c in (64, 128)):
+        raise AssertionError(f"stem gates failed: {bad}, chunks {line['chunk64_vs_chunk16']}, "
+                             f"{line['chunk128_vs_chunk16']} against {chunk_tol}")
     return line, launches
 
 
@@ -1885,8 +2072,9 @@ def phase_stem4d(tmp: str, gpu: str) -> dict:
         "com_max_abs_per_A": float(np.abs(com_x).max()), "com_tol_per_A": 1e-5,
         "launches": launches, "gpu": gpu,
     }
-    if launches["fused_scan"] != 3:  # one chunk each: cbed, signals, first moments
-        raise AssertionError(f"stem4d launches {launches}, expected 3 of fused_scan")
+    line["route"] = scan_wrapper(16)
+    if launches[scan_wrapper(16)] != 3:  # one chunk each: cbed, signals, first moments
+        raise AssertionError(f"stem4d launches {launches}, expected 3 of {scan_wrapper(16)}")
     if cbed.shape != (4, 4, 512, 512) or com.shape != (4, 4, 2):
         raise AssertionError(f"cbed.npy {cbed.shape}, stem_com.npy {com.shape}")
     if not (np.isfinite(cbed).all() and np.isfinite(com).all()):
@@ -2402,13 +2590,13 @@ def phase_phonon(tmp: str, gpu: str) -> dict:
     configurations on the defaults (auto resolves to fscan: one whole-loop
     launch per configuration, asserted) against xla; a 2x2 STEM raster of
     config 4 with 2 configurations on fscan against xla."""
-    cases = {  # name: (config, engines, settings, output, fused_scan launches, tolerance)
-        "hrtem": (CONFIG, ("auto", "xla"), ("--set", "sim.phonon_configs=4"), "images.npy", 4,
-                  GATE),
+    cases = {  # name: (config, engines, settings, output, (waves, rollouts), tolerance)
+        "hrtem": (CONFIG, ("auto", "xla"), ("--set", "sim.phonon_configs=4"), "images.npy",
+                  (1, 4), GATE),
         # 128 float32 slices: the raster's tolerance (phase stem)
         "stem": (CONFIG_STEM, ("fscan", "xla"),
                  ("--set", "sim.phonon_configs=2", "--set", "stem.scan_ny=2", "--set",
-                  "stem.scan_nx=2", "--set", "stem.probe_chunk=4"), "stem.npy", 2, 1e-4),
+                  "stem.scan_nx=2", "--set", "stem.probe_chunk=4"), "stem.npy", (4, 2), 1e-4),
     }
     line = {"phase": "phonon", "gpu": gpu}
     for name, (config, engines, extra, output, want, tol) in cases.items():
@@ -2423,9 +2611,11 @@ def phase_phonon(tmp: str, gpu: str) -> dict:
         err = float(np.linalg.norm(a - b) / np.linalg.norm(b))
         line[name] = {"shape": list(a.shape), "rel_err_vs_xla": err, "tol": tol,
                       "timing": timing}
-        if timing[engines[0]]["launches"].get("fused_scan") != want:
+        wrapper = scan_wrapper(want[0])
+        line[name]["route"] = wrapper
+        if timing[engines[0]]["launches"].get(wrapper) != want[1]:
             raise AssertionError(f"phonon {name}: launches {timing[engines[0]]['launches']}, "
-                                 f"expected {want} of fused_scan")
+                                 f"expected {want[1]} of {wrapper}")
         if not (np.isfinite(a).all() and err <= tol):
             raise AssertionError(f"phonon {name}: {line[name]}")
     return line
@@ -2602,7 +2792,9 @@ ROW_PHASES = {
     "transmit_abs_bwd": ("grad_absorptive",),
     "fused_step": ("grad_fused",),
     "fused_step_bwd": ("grad_fused",),
-    "fused_scan": ("stem",),
+    # the whole-loop forward runs one of two kernels, by the route table
+    "fused_scan": ("stem", "stem_auto", "hrtem_auto"),
+    "cluster_scan": ("stem", "stem_auto", "hrtem_auto"),
     "fused_scan_store": ("invert_fscan", "grad_fscan"),
     "fused_scan_bwd_store": ("invert_fscan", "grad_fscan"),
     "fused_scan_ck": ("grad_fscan_seg",),
@@ -2683,6 +2875,7 @@ def main(argv=None) -> int:
     with tempfile.TemporaryDirectory() as tmp:
         if "hrtem" in phases:
             line, path_launches["hrtem"] = timed(phase_hrtem, tmp, gpu)
+            path_launches["hrtem_auto"] = line["defaults"]["images"]["launches"]
             emit(line)
         if "absorptive" in phases:
             line, path_launches["absorptive"] = timed(phase_absorptive, tmp, gpu)
@@ -2702,6 +2895,7 @@ def main(argv=None) -> int:
             emit(line)
         if "stem" in phases:
             line, path_launches["stem"] = timed(phase_stem, tmp, gpu)
+            path_launches["stem_auto"] = line["launches_auto"]
             emit(line)
         if "stem4d" in phases:
             emit(timed(phase_stem4d, tmp, gpu))
@@ -2723,10 +2917,11 @@ def main(argv=None) -> int:
         emit(timed(phase_engines, gpu))
     for name, row in rows.items():
         row["launches_by_phase"] = {ph: c[name] for ph, c in path_launches.items()}
-        for ph in ROW_PHASES[name]:
-            if ph in path_launches:
-                row["launches"], row["launches_phase"] = path_launches[ph][name], ph
-                break
+        # the first of the kernel's phases that launched it, else the first run
+        ran = [ph for ph in ROW_PHASES[name] if ph in path_launches]
+        ph = next((ph for ph in ran if path_launches[ph][name]), ran[0] if ran else None)
+        if ph is not None:
+            row["launches"], row["launches_phase"] = path_launches[ph][name], ph
     if set(PHASES) <= set(phases):
         idle = [name for name, row in rows.items()
                 if name not in OFF_PATH and not row["launches"]]

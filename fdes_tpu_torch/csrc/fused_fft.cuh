@@ -12,7 +12,10 @@
 // decimation in frequency (natural order in, bit-reversed out), inverse
 // decimation in time (bit-reversed in, natural out), so the spectrum stays in
 // bit-reversed order in both axes and the caller hands the propagator in that
-// order.  fused_step.cu's head comment has the whole design.
+// order.  fused_step.cu's head comment has the whole design.  The end of the
+// file holds the in-cluster transform of fused_step.cu's cluster_scan_kernel,
+// which keeps a whole 128^2 to 512^2 plane in a thread-block cluster's shared
+// memory instead of passing it through global memory between tiles.
 //
 // Everything here lives in an unnamed namespace: each library that includes
 // the header compiles its own copy.
@@ -97,6 +100,57 @@ __device__ void init_twiddles(float2* tw) {
   }
 }
 
+// The staged twiddle table of a transform of up to N points, N - 1 entries:
+// for each half size hs = 1, 2, 4, ..., N/2 the run tw[hs - 1 + jj] =
+// exp(-2*pi*i*jj/(2*hs)), jj < hs.  The plain table (init_twiddles) holds
+// only the N-point twiddles, which the smaller half sizes read at a stride of
+// a power of two: in row transforms, where neighbouring threads differ in jj,
+// those reads fall on one shared-memory bank.  In the staged table they lie
+// side by side.  Its last run is the plain table, and its runs serve every
+// transform of up to N points.
+template <int LOG2N, int THREADS>
+__device__ void init_staged_twiddles(float2* tw) {
+  constexpr int N = 1 << LOG2N;
+  for (int i = threadIdx.x; i < N - 1; i += THREADS) {
+    const int hs = 1 << (31 - __clz(i + 1));
+    float s, c;
+    sincospif(-static_cast<float>(i + 1 - hs) / static_cast<float>(hs), &s, &c);
+    tw[i] = make_float2(c, s);
+  }
+}
+
+// K radix-2 stages on the 2^K elements x of one work item (stage_group),
+// whose lowest lies at offset r in its half of size g = 1 << lg; tw is the
+// plain table, or with STAGED the staged one.
+template <int LOG2N, int K, bool INVERSE, bool STAGED = false>
+__device__ __forceinline__ void group_butterflies(float2 (&x)[1 << K], const float2* tw, int lg,
+                                                  int r) {
+  constexpr int R = 1 << K;
+  const int g = 1 << lg;
+#pragma unroll
+  for (int s = 0; s < K; ++s) {
+    const int ld = INVERSE ? s : K - 1 - s;  // log2 of the pair distance in registers
+    const int d = 1 << ld;
+    const int tshift = LOG2N - 1 - lg - ld;  // twiddle index step N / (2 * hs)
+#pragma unroll
+    for (int j = 0; j < R; ++j) {
+      if (j & d) continue;
+      const int jj = r + (j & (d - 1)) * g;
+      const float2 wv = STAGED ? tw[(g << ld) - 1 + jj] : tw[jj << tshift];
+      const float2 a = x[j];
+      const float2 b = x[j + d];
+      if (INVERSE) {
+        const float2 t = cmul_conj(b, wv);
+        x[j] = cadd(a, t);
+        x[j + d] = csub(a, t);
+      } else {
+        x[j] = cadd(a, b);
+        x[j + d] = cmul(csub(a, b), wv);
+      }
+    }
+  }
+}
+
 // K fused radix-2 stages on every transform of the tile.
 //
 // ROWS: element k of transform q lies at tile[pad(q * N + k)] (q < TILE/N);
@@ -108,15 +162,26 @@ __device__ void init_twiddles(float2* tw) {
 // Inverse (decimation in time): g, 2g, ..., g << (K-1), t = b * conj(w),
 // a' = a + t, b' = a - t.  w = exp(-2*pi*i*jj/(2*hs)) for the pair whose lower
 // element lies at offset jj in its half of size hs.
-template <int LOG2N, int K, bool ROWS, bool INVERSE, int TILE = kTile>
-__device__ __forceinline__ void stage_group(float2* tile, const float2* tw, int lg) {
+//
+// THREADS (here and in fft_forward, fft_inverse): the block's threads; the
+// tile passes run kThreads, the cluster kernel kClusterThreads.
+//
+// TRANSMIT (INVERSE rows, the last group of an inverse transform): then each
+// element times exp(i sigma v[q N + k]) and the same group forward, the
+// first group of the next forward transform: one pass for three.  STAGED: tw
+// is the staged twiddle table (init_staged_twiddles).
+template <int LOG2N, int K, bool ROWS, bool INVERSE, int TILE = kTile, int THREADS = kThreads,
+          bool TRANSMIT = false, bool STAGED = false>
+__device__ __forceinline__ void stage_group(float2* tile, const float2* tw, int lg,
+                                            const float* v = nullptr, float sigma = 0.0f) {
+  static_assert(!TRANSMIT || (ROWS && INVERSE), "the transmit sits between two row groups");
   constexpr int N = 1 << LOG2N;
   constexpr int Q = TILE / N;
   constexpr int R = 1 << K;
   constexpr int kItems = TILE >> K;
   constexpr int kItemsPerTransform = N >> K;
   const int g = 1 << lg;
-  for (int u = threadIdx.x; u < kItems; u += kThreads) {
+  for (int u = threadIdx.x; u < kItems; u += THREADS) {
     int q, w;
     if (ROWS) {
       q = u / kItemsPerTransform;
@@ -135,68 +200,62 @@ __device__ __forceinline__ void stage_group(float2* tile, const float2* tw, int 
       at[j] = pad(ROWS ? q * N + k : k * Q + q);
       x[j] = tile[at[j]];
     }
+    group_butterflies<LOG2N, K, INVERSE, STAGED>(x, tw, lg, r);
+    if constexpr (TRANSMIT) {
 #pragma unroll
-    for (int s = 0; s < K; ++s) {
-      const int ld = INVERSE ? s : K - 1 - s;  // log2 of the pair distance in registers
-      const int d = 1 << ld;
-      const int tshift = LOG2N - 1 - lg - ld;  // twiddle index step N / (2 * hs)
+      for (int j = 0; j < R; ++j) x[j] = transmit(x[j], sigma * v[q * N + base + j * g]);
+      group_butterflies<LOG2N, K, false, STAGED>(x, tw, lg, r);
 #pragma unroll
-      for (int j = 0; j < R; ++j) {
-        if (j & d) continue;
-        const int jj = r + (j & (d - 1)) * g;
-        const float2 wv = tw[jj << tshift];
-        const float2 a = x[j];
-        const float2 b = x[j + d];
-        if (INVERSE) {
-          const float2 t = cmul_conj(b, wv);
-          x[j] = cadd(a, t);
-          x[j + d] = csub(a, t);
-        } else {
-          x[j] = cadd(a, b);
-          x[j + d] = cmul(csub(a, b), wv);
-        }
-      }
+      for (int j = 0; j < R; ++j) tile[pad(q * N + base + j * g)] = x[j];  // at[] recomputed
+    } else {
+#pragma unroll
+      for (int j = 0; j < R; ++j) tile[at[j]] = x[j];
     }
-#pragma unroll
-    for (int j = 0; j < R; ++j) tile[at[j]] = x[j];
   }
 }
 
 // Forward transforms of the tile: natural order in, bit-reversed order out.
-template <int LOG2N, bool ROWS, int TILE = kTile>
+// FIRST = false: without the first group of three stages (done by a
+// TRANSMIT stage_group).
+template <int LOG2N, bool ROWS, int TILE = kTile, int THREADS = kThreads, bool FIRST = true,
+          bool STAGED = false>
 __device__ void fft_forward(float2* tile, const float2* tw) {
   int lg = LOG2N;
+  if (!FIRST) lg -= 3;
   while (lg >= 3) {
     lg -= 3;
-    stage_group<LOG2N, 3, ROWS, false, TILE>(tile, tw, lg);
+    stage_group<LOG2N, 3, ROWS, false, TILE, THREADS, false, STAGED>(tile, tw, lg);
     __syncthreads();
   }
   if (lg == 2) {
-    stage_group<LOG2N, 2, ROWS, false, TILE>(tile, tw, 0);
+    stage_group<LOG2N, 2, ROWS, false, TILE, THREADS, false, STAGED>(tile, tw, 0);
     __syncthreads();
   } else if (lg == 1) {
-    stage_group<LOG2N, 1, ROWS, false, TILE>(tile, tw, 0);
+    stage_group<LOG2N, 1, ROWS, false, TILE, THREADS, false, STAGED>(tile, tw, 0);
     __syncthreads();
   }
 }
 
 // Unscaled inverse transforms: bit-reversed order in, natural order out; the
-// forward stages undone last to first, so inverse(forward(x)) = N * x.
-template <int LOG2N, bool ROWS, int TILE = kTile>
+// forward stages undone last to first, so inverse(forward(x)) = N * x.  LAST
+// = false: without the last group of three stages (lg = LOG2N - 3, the
+// group a forward transform starts with).
+template <int LOG2N, bool ROWS, int TILE = kTile, int THREADS = kThreads, bool LAST = true,
+          bool STAGED = false>
 __device__ void fft_inverse(float2* tile, const float2* tw) {
   constexpr int kRem = LOG2N % 3;
   int lg = 0;
   if (kRem == 2) {
-    stage_group<LOG2N, 2, ROWS, true, TILE>(tile, tw, 0);
+    stage_group<LOG2N, 2, ROWS, true, TILE, THREADS, false, STAGED>(tile, tw, 0);
     __syncthreads();
     lg = 2;
   } else if (kRem == 1) {
-    stage_group<LOG2N, 1, ROWS, true, TILE>(tile, tw, 0);
+    stage_group<LOG2N, 1, ROWS, true, TILE, THREADS, false, STAGED>(tile, tw, 0);
     __syncthreads();
     lg = 1;
   }
-  while (lg < LOG2N) {
-    stage_group<LOG2N, 3, ROWS, true, TILE>(tile, tw, lg);
+  while (lg < (LAST ? LOG2N : LOG2N - 3)) {
+    stage_group<LOG2N, 3, ROWS, true, TILE, THREADS, false, STAGED>(tile, tw, lg);
     __syncthreads();
     lg += 3;
   }
@@ -355,6 +414,182 @@ __device__ void bwd_row_tile(float2* tile, const float2* tw, const float2* src, 
   __syncthreads();
 }
 
+// ---- the in-cluster 2-D transform ------------------------------------------
+//
+// One wave's whole N x N plane held in the shared memory of a thread-block
+// cluster of C CTAs (sm_90 distributed shared memory), so that a slice loop
+// never takes the plane through global memory.  CTA c (its rank in the
+// cluster) holds the R = N/C rows y = C r + c, row r at tile[pad(r N + x)]:
+// 16,384 elements (136 KiB padded) at every size.  With w_M = exp(-2 pi i/M)
+// and k = k_b + R k_a (k_b < R, k_a < C), the y transform of a column is
+//
+//   X[k_b + R k_a] = sum_c w_C^(c k_a) w_N^(c k_b) sum_r w_R^(r k_b) psi[C r + c]
+//
+// so a CTA transforms its rows along x and its own R rows along y (both in
+// its shared memory, radix 2 as the tile passes), and one cross step per
+// slice finishes the y transform: the (k_b, x) pairs are split among the C
+// CTAs; the owner of a pair reads its C values, one from each CTA
+// (map_shared_rank), applies the twiddles w_N^(c k_b), does the C-point DFT
+// in registers, multiplies by P / N^2, does the C-point inverse DFT, undoes
+// the twiddles, and writes the C values back where it read them.  Then each
+// CTA undoes its R-point and x transforms locally.  The plane crosses the
+// cluster once each way per slice, between two cluster barriers.
+//
+// Spectral order: the x and R-point transforms are decimation in frequency
+// (bit-reversed out), the C-point one too (in registers), so position
+// (r', x') of register slot j holds k_x = bitrev_N(x'), k_b = bitrev_R(r'),
+// k_a = bitrev_C(j).  The caller gathers P into that order once per call:
+// prop[j R N + r' N + x'] = P[bitrev_R(r') + R bitrev_C(j)][bitrev_N(x')].
+// Cluster sizes: 1 at 128^2 (no distributed shared memory), 4 at 256^2, 16
+// at 512^2 (a non-portable size); 1024^2 (8 MiB) fits no cluster.
+constexpr int kClusterThreads = 512;
+
+template <int LOG2N>
+struct Cluster {
+  static_assert(LOG2N >= 7 && LOG2N <= 9, "the cluster transform takes 128^2 to 512^2");
+  static constexpr int N = 1 << LOG2N;
+  static constexpr int LOG2C = LOG2N == 7 ? 0 : (LOG2N == 8 ? 2 : 4);
+  static constexpr int C = 1 << LOG2C;
+  static constexpr int LOG2R = LOG2N - LOG2C;
+  static constexpr int R = 1 << LOG2R;
+  static constexpr int kElems = R * N;                 // a CTA's share of the plane
+  static constexpr int kPadded = kElems + kElems / 16;
+  static constexpr int kOwnedPairs = (R / C) * N;      // cross-step pairs per CTA
+  // tile, the staged twiddles (N - 1, and one to keep 16-byte alignment),
+  // then the CTA's rows of one slice's V (kElems floats, 64 KiB): 204 KiB at
+  // 512^2
+  static constexpr size_t kVOffset = sizeof(float2) * (kPadded + N);
+  static constexpr size_t kSmemBytes = kVOffset + sizeof(float) * kElems;
+  static_assert(kVOffset % 16 == 0, "the V rows take 16-byte asynchronous copies");
+};
+
+// 16-byte asynchronous copy from global to shared memory (sm_80+ cp.async),
+// and the wait for all of this thread's copies.
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst), "l"(gmem) : "memory");
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// Start copying the CTA's rows of one slice's potentials (v: the plane) to
+// vrows (row r at vrows[r N + x]); cp_async_wait_all and a block barrier
+// make them visible.
+template <int LOG2N>
+__device__ void cluster_prefetch_v(float* vrows, const float* __restrict__ v, int rank) {
+  using S = Cluster<LOG2N>;
+  for (int i = threadIdx.x; i < S::kElems / 4; i += kClusterThreads) {
+    const int e = 4 * i;
+    cp_async16(vrows + e,
+               v + static_cast<int64_t>(S::C * (e >> LOG2N) + rank) * S::N + (e & (S::N - 1)));
+  }
+}
+
+// w_N^m for 0 <= m < N from the plain table (N/2 entries).
+template <int LOG2N>
+__device__ __forceinline__ float2 twiddle_n(const float2* tw, int m) {
+  constexpr int kHalf = 1 << (LOG2N - 1);
+  const float2 t = tw[m & (kHalf - 1)];
+  return m & kHalf ? make_float2(-t.x, -t.y) : t;
+}
+
+// The CTA's rows of a plane (src: its first element) into the tile, times
+// exp(i sigma v) (vrows: the rows' potentials, cluster_prefetch_v's layout).
+template <int LOG2N>
+__device__ void cluster_load_rows(float2* tile, const float2* src, const float* vrows,
+                                  float sigma, int rank) {
+  using S = Cluster<LOG2N>;
+  for (int i = threadIdx.x; i < S::kElems / 2; i += kClusterThreads) {
+    const int e = 2 * i;
+    const int64_t g = static_cast<int64_t>(S::C * (e >> LOG2N) + rank) * S::N + (e & (S::N - 1));
+    float2 a, b;
+    load_pair(src + g, &a, &b);
+    transmit_pair<false>(&a, &b, vrows + e, nullptr, sigma);
+    tile[pad(e)] = a;
+    tile[pad(e + 1)] = b;
+  }
+}
+
+// The tile to the CTA's rows of a plane (dst: its first element).
+template <int LOG2N>
+__device__ void cluster_store_rows(const float2* tile, float2* dst, int rank) {
+  using S = Cluster<LOG2N>;
+  for (int i = threadIdx.x; i < S::kElems / 2; i += kClusterThreads) {
+    const int e = 2 * i;
+    const int64_t g = static_cast<int64_t>(S::C * (e >> LOG2N) + rank) * S::N + (e & (S::N - 1));
+    store_pair(dst + g, tile[pad(e)], tile[pad(e + 1)]);
+  }
+}
+
+// C-point transform of z in registers: forward decimation in frequency
+// (natural in, bit-reversed out), or the inverse decimation in time
+// (bit-reversed in, natural out, unscaled), twiddles from the staged table.
+template <int LOG2C, bool INVERSE>
+__device__ __forceinline__ void register_fft(float2 (&z)[1 << LOG2C], const float2* tw) {
+  constexpr int C = 1 << LOG2C;
+#pragma unroll
+  for (int s = 0; s < LOG2C; ++s) {
+    const int lh = INVERSE ? s : LOG2C - 1 - s;  // log2 of the half size
+    const int h = 1 << lh;
+#pragma unroll
+    for (int j = 0; j < C; ++j) {
+      if (j & h) continue;
+      const float2 w = tw[h - 1 + (j & (h - 1))];  // w_(2h)^(j mod h)
+      const float2 a = z[j];
+      const float2 b = z[j + h];
+      if (INVERSE) {
+        const float2 t = cmul_conj(b, w);
+        z[j] = cadd(a, t);
+        z[j + h] = csub(a, t);
+      } else {
+        z[j] = cadd(a, b);
+        z[j + h] = cmul(csub(a, b), w);
+      }
+    }
+  }
+}
+
+// The cross step, between two cluster barriers: this CTA's pairs (rows r'
+// rank R/C to (rank + 1) R/C - 1 of every CTA's tile) through the C-point
+// DFT, P / N^2 (prop: the gathered propagator of this wave) and the inverse.
+// tw: the staged twiddle table.
+template <int LOG2N>
+__device__ void cluster_cross(float2* tile, const float2* tw, const float2* __restrict__ prop,
+                              int rank) {
+  using S = Cluster<LOG2N>;
+  const float2* tw_n = tw + S::N / 2 - 1;  // the plain N-point run
+  cg::cluster_group cluster = cg::this_cluster();
+  const float scale = 1.0f / (static_cast<float>(S::N) * static_cast<float>(S::N));
+  // a thread's pairs are independent: with few values a pair (C <= 4),
+  // several pairs' loads are in flight together
+  constexpr int kPerThread = S::kOwnedPairs / kClusterThreads;
+  constexpr int kUnroll = S::C == 1 ? 8 : (S::C == 4 ? 2 : 1);
+#pragma unroll kUnroll
+  for (int it = 0; it < kPerThread; ++it) {
+    const int e = rank * S::kOwnedPairs + threadIdx.x + it * kClusterThreads;  // r' N + x'
+    const int kb = S::LOG2R == 0 ? 0 : static_cast<int>(__brev(e >> LOG2N) >> (32 - S::LOG2R));
+    float2 pv[S::C];
+    float2 z[S::C];
+#pragma unroll
+    for (int j = 0; j < S::C; ++j) pv[j] = prop[j * S::kElems + e];
+#pragma unroll
+    for (int k = 0; k < S::C; ++k) {
+      z[k] = cluster.map_shared_rank(tile, k)[pad(e)];
+      if (k > 0) z[k] = cmul(z[k], twiddle_n<LOG2N>(tw_n, k * kb));
+    }
+    register_fft<S::LOG2C, false>(z, tw);
+#pragma unroll
+    for (int j = 0; j < S::C; ++j) z[j] = cmul(z[j], make_float2(pv[j].x * scale, pv[j].y * scale));
+    register_fft<S::LOG2C, true>(z, tw);
+#pragma unroll
+    for (int k = 0; k < S::C; ++k) {
+      if (k > 0) z[k] = cmul_conj(z[k], twiddle_n<LOG2N>(tw_n, k * kb));
+      cluster.map_shared_rank(tile, k)[pad(e)] = z[k];
+    }
+  }
+}
+
 // Blocks of a cooperative kernel (kThreads threads, static shared memory only)
 // that can be resident at once on this device.
 inline int resident_blocks_of(const void* kernel, int device, int* blocks) {
@@ -388,5 +623,14 @@ inline int resident_blocks_of(const void* kernel, int device, int* blocks) {
     case 1024: { constexpr int L = 10; return call; } \
     case 2048: { constexpr int L = 11; return call; } \
     case 4096: { constexpr int L = 12; return call; } \
+    default: return cudaErrorInvalidValue;       \
+  }
+
+// The cluster scan's sizes: 128^2 to 512^2.
+#define FDES_DISPATCH_CLUSTER_N(n, call)         \
+  switch (n) {                                   \
+    case 128: { constexpr int L = 7; return call; }   \
+    case 256: { constexpr int L = 8; return call; }   \
+    case 512: { constexpr int L = 9; return call; }   \
     default: return cudaErrorInvalidValue;       \
   }

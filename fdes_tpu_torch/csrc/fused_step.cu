@@ -47,20 +47,29 @@
 // moves psi in, V, P, psi out = 7 MiB, 2.2 us by bytes, against 0.75 us for
 // its ~50 MFLOP, so the step is bound by bytes.  In the scan only V_j is new
 // per slice (1 MiB, shared by the waves), so a wave-slice is bound by its
-// operations, 0.75 us.  This first version is far from either (measured on an
-// H100 80GB HBM3 at 700 W by chip_smoke.py: 29 us per step at one wave, 7.4 us
-// per wave-slice in a 16-wave scan): radix-2 stages through shared memory,
-// panels of 8 columns (64-byte rows) and two round trips through L2 per slice.
-// Tensor-core DFT stages, TMA loads and clusters are later work.
+// operations, 0.75 us.  scan_kernel is far from either (measured on an H100
+// 80GB HBM3 at 700 W by chip_smoke.py: 29 us per step at one wave, 7.4 us per
+// wave-slice in a 16-wave scan): radix-2 stages through shared memory, panels
+// of 8 columns (64-byte rows), two round trips through L2 per slice and two
+// grid-wide barriers per slice.
 //
-// The transform, the tiles and the two tile passes live in fused_fft.cuh, which
-// adjoint_scan.cu (the whole-loop adjoint) shares.
+// cluster_scan_kernel (128^2 to 512^2) removes the round trips and the grid
+// barriers: one thread-block cluster carries one wave through all S slices
+// with the plane in the cluster's shared memory (the in-cluster transform of
+// fused_fft.cuh), clusters never wait on each other, and per wave-slice only
+// V_j (1 MiB) and P (2 MiB, from L2) are read.  One wave runs on C SMs (16 at
+// 512^2), so its own bound is 132/16 times the card's; the card's bound needs
+// as many waves as resident clusters.  The Python wrapper picks between the
+// two kernels by (N, B) from a table of measured rows.
+//
+// The transforms, the tiles and the two tile passes live in fused_fft.cuh,
+// which adjoint_scan.cu (the whole-loop adjoint) shares.
 //
 // Layout: PyTorch's interleaved complex64 (float2), C-contiguous, 16-byte
-// aligned; N in {128, 256, 512, 1024}.  Every entry point launches on the
-// caller's stream, allocates nothing, does not synchronise, and returns the
-// first CUDA error (0 if none), so that a refused launch is reported by the
-// Python wrapper.
+// aligned; N in {128, 256, 512, 1024} ({128, 256, 512} for the cluster
+// scan).  Every entry point launches on the caller's stream, allocates
+// nothing, does not synchronise, and returns the first CUDA error (0 if
+// none), so that a refused launch is reported by the Python wrapper.
 
 #include "fused_fft.cuh"
 
@@ -151,6 +160,63 @@ __global__ void __launch_bounds__(kThreads) scan_kernel(ScanArgs a) {
       col_tile<LOG2N>(tile, tw, plane, plane, c0, a.prop + b * a.p_wave_stride, false);
     }
     grid.sync();
+  }
+}
+
+// The whole slice loop with each wave's plane resident in one cluster's
+// shared memory.  Cluster k carries waves k, k + G, k + 2G, ... (G clusters
+// in the grid).  Per slice j: [inverse x of slice j-1 | transmit with V_j |
+// forward x | forward R-point y], cluster barrier, the cross step (C-point
+// DFTs and P), cluster barrier, [inverse R-point y]; after the last slice
+// the inverse x and one store of the exit wave.  The inverse x transform's
+// last group of three radix-2 stages, the transmit and the forward one's
+// first group are one pass over the tile.  V_(j+1)'s rows are copied to
+// shared memory (cp.async) while slice j runs, so the transmit never waits
+// on device memory.  A CTA touches another's shared memory only between the
+// two barriers of a slice, so none leaves while its tile may still be read.
+// nslices >= 1.
+template <int LOG2N>
+__global__ void __launch_bounds__(kClusterThreads, 1) cluster_scan_kernel(ScanArgs a) {
+  using S = Cluster<LOG2N>;
+  constexpr int E = S::kElems;
+  constexpr int T = kClusterThreads;
+  extern __shared__ float4 cluster_smem[];
+  float2* tile = reinterpret_cast<float2*>(cluster_smem);
+  float2* tw = tile + S::kPadded;  // staged: serves the N-, R- and C-point transforms
+  float* vrows = reinterpret_cast<float*>(reinterpret_cast<char*>(cluster_smem) + S::kVOffset);
+  constexpr int64_t kPlane = int64_t{1} << (2 * LOG2N);
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int64_t nclusters = gridDim.x / S::C;
+  init_staged_twiddles<LOG2N, T>(tw);
+  for (int64_t w = blockIdx.x / S::C; w < a.nwaves; w += nclusters) {
+    const float* vw = a.v + w * a.v_wave_stride;
+    cluster_prefetch_v<LOG2N>(vrows, vw, rank);
+    for (int j = 0; j < a.nslices; ++j) {
+      if (j > 0) fft_inverse<LOG2N, true, E, T, false, true>(tile, tw);
+      cp_async_wait_all();
+      __syncthreads();  // V_j's rows (and, at the start, the twiddles) are in
+      if (j == 0) {
+        cluster_load_rows<LOG2N>(tile, a.psi0 + w * kPlane, vrows, a.sigma, rank);
+      } else {
+        stage_group<LOG2N, 3, true, true, E, T, true, true>(tile, tw, LOG2N - 3, vrows, a.sigma);
+      }
+      __syncthreads();
+      if (j + 1 < a.nslices) cluster_prefetch_v<LOG2N>(vrows, vw + (j + 1) * kPlane, rank);
+      if (j == 0) {
+        fft_forward<LOG2N, true, E, T, true, true>(tile, tw);
+      } else {
+        fft_forward<LOG2N, true, E, T, false, true>(tile, tw);
+      }
+      fft_forward<S::LOG2R, false, E, T, true, true>(tile, tw);
+      cluster.sync();
+      cluster_cross<LOG2N>(tile, tw, a.prop + w * a.p_wave_stride, rank);
+      cluster.sync();
+      fft_inverse<S::LOG2R, false, E, T, true, true>(tile, tw);
+    }
+    fft_inverse<LOG2N, true, E, T, true, true>(tile, tw);
+    cluster_store_rows<LOG2N>(tile, a.out + w * kPlane, rank);
+    __syncthreads();  // the next wave's load reuses the tile
   }
 }
 
@@ -270,6 +336,66 @@ int launch_scan(int device, ScanArgs a, cudaStream_t stream) {
                                      dim3(blocks), dim3(kThreads), args, 0, stream);
 }
 
+// The cluster kernel's launch configuration for `clusters` clusters; the
+// attributes it needs above 48 KB of shared memory and above 8 CTAs a cluster.
+template <int LOG2N>
+cudaError_t cluster_config(cudaLaunchConfig_t* cfg, cudaLaunchAttribute* attr, int64_t clusters,
+                           cudaStream_t stream) {
+  using S = Cluster<LOG2N>;
+  cudaError_t err = cudaFuncSetAttribute(cluster_scan_kernel<LOG2N>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(S::kSmemBytes));
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(cluster_scan_kernel<LOG2N>,
+                             cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  if (err != cudaSuccess) return err;
+  *cfg = cudaLaunchConfig_t{};
+  cfg->gridDim = dim3(static_cast<unsigned>(clusters * S::C));
+  cfg->blockDim = dim3(kClusterThreads);
+  cfg->dynamicSmemBytes = S::kSmemBytes;
+  cfg->stream = stream;
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = S::C;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cfg->attrs = attr;
+  cfg->numAttrs = 1;
+  return cudaSuccess;
+}
+
+// An ordinary launch of min(clusters, nwaves) clusters (clusters: what
+// cudaOccupancyMaxActiveClusters reported, queried by the caller).  A launch
+// the card refuses returns its error; nothing else runs in its place.
+template <int LOG2N>
+int launch_cluster_scan(ScanArgs a, int clusters, cudaStream_t stream) {
+  if (clusters < 1 || a.nslices < 1 || a.nwaves < 1) return cudaErrorInvalidValue;
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  cudaError_t err = cluster_config<LOG2N>(&cfg, &attr, a.nwaves < clusters ? a.nwaves : clusters,
+                                          stream);
+  if (err != cudaSuccess) return err;
+  err = cudaLaunchKernelEx(&cfg, cluster_scan_kernel<LOG2N>, a);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
+template <int LOG2N>
+int cluster_info(int* out) {
+  cudaFuncAttributes attr;
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute cluster_dim;
+  cudaError_t err = cluster_config<LOG2N>(&cfg, &cluster_dim, 1, nullptr);
+  if (err != cudaSuccess) return err;
+  err = cudaFuncGetAttributes(&attr, cluster_scan_kernel<LOG2N>);
+  if (err != cudaSuccess) return err;
+  out[0] = attr.numRegs;
+  out[1] = static_cast<int>(attr.sharedSizeBytes);
+  out[2] = static_cast<int>(attr.localSizeBytes);
+  out[3] = static_cast<int>(Cluster<LOG2N>::kSmemBytes);
+  out[4] = Cluster<LOG2N>::C;
+  return cudaOccupancyMaxActiveClusters(&out[5], cluster_scan_kernel<LOG2N>, &cfg);
+}
+
 template <int LOG2N>
 int kernel_info(int device, int* out) {
   cudaFuncAttributes attr;
@@ -335,6 +461,39 @@ int fdes_fused_scan_c64(int device, int n, const void* psi0, const void* v, cons
   a.nslices = nslices;
   a.sigma = static_cast<float>(sigma);
   FDES_DISPATCH_N(n, launch_scan<L>(device, a, static_cast<cudaStream_t>(stream)))
+}
+
+// The whole loop on cluster_scan_kernel: as fdes_fused_scan_c64, with prop
+// gathered into the cluster order (fused_fft.cuh) and `clusters` the
+// resident clusters that fdes_cluster_scan_info reported.
+int fdes_cluster_scan_c64(int device, int n, const void* psi0, const void* v, const void* prop,
+                          void* out, double sigma, int64_t nwaves, int nslices,
+                          int64_t v_wave_stride, int64_t p_wave_stride, int clusters,
+                          void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  ScanArgs a;
+  a.psi0 = static_cast<const float2*>(psi0);
+  a.out = static_cast<float2*>(out);
+  a.v = static_cast<const float*>(v);
+  a.prop = static_cast<const float2*>(prop);
+  a.v_wave_stride = v_wave_stride;
+  a.p_wave_stride = p_wave_stride;
+  a.nwaves = nwaves;
+  a.nslices = nslices;
+  a.sigma = static_cast<float>(sigma);
+  FDES_DISPATCH_CLUSTER_N(n, launch_cluster_scan<L>(a, clusters,
+                                                    static_cast<cudaStream_t>(stream)))
+}
+
+// out[0..5] = registers per thread, static shared bytes, local bytes per
+// thread, dynamic shared bytes per CTA, CTAs per cluster, and the clusters
+// that can be resident at once (cudaOccupancyMaxActiveClusters) of the
+// cluster kernel for size n.
+int fdes_cluster_scan_info(int device, int n, int* out) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  FDES_DISPATCH_CLUSTER_N(n, cluster_info<L>(out))
 }
 
 // out[0..3] = registers per thread, static shared bytes, local bytes per

@@ -124,25 +124,98 @@ __global__ void transmit_abs_kernel(const typename Complex<R>::T* __restrict__ p
 }
 
 // Replaces fdes_tpu/pallas/slice_step.py::_cmul_kernel (via _cmul): a * b, or
-// a * conj(b).  Bound: bytes.  Per 512^2 c64 plane it moves a + b + out =
-// 6 MiB, ~1.9 us at 3.35 TB/s; launch overhead dominates at config 2.  Making
-// it fast is later work: folding the Fresnel multiply into cuFFT's callbacks,
-// or a CUDA graph over the slice loop.
+// a * conj(b), b one plane broadcast over the batch.  Bound: bytes.  Per
+// 512^2 c64 plane it moves a + b + out = 6 MiB, 1.88 us at 3.35 TB/s.  The
+// first version (8-byte accesses, the batch walked one plane after another,
+// about two loads in flight a thread) lost to torch.mul.  This one: 16-byte
+// accesses (W complex a vector: two complex64, one complex128), a block row
+// (blockIdx.y) per group of kCmulUnroll planes whose loads of a are all issued
+// before their products, b's vector in registers across the group.  Blocks
+// start in order along the plane, so the card streams a few planes at a time:
+// a grid of resident blocks striding over the plane with the whole batch in
+// each thread (measured on the H100, chip_smoke.py) walked every plane at once
+// and lost to torch.mul by 8 % at 16 planes.  An odd complex64 plane, or an
+// operand not 16-byte aligned, takes the W = 1 instantiation (8-byte
+// accesses).
+template <typename R, int W>
+struct Vec;
+template <>
+struct Vec<float, 2> {
+  using T = float4;
+};
+template <>
+struct Vec<float, 1> {
+  using T = float2;
+};
+template <>
+struct Vec<double, 1> {
+  using T = double2;
+};
+
+// The k-th complex of a vector.
 template <typename R>
-__global__ void cmul_kernel(const typename Complex<R>::T* __restrict__ a,
-                            const typename Complex<R>::T* __restrict__ b,
-                            typename Complex<R>::T* __restrict__ out, int conj_b,
-                            int64_t plane, int64_t batch) {
-  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
-  for (int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x; i < plane;
-       i += stride) {
-    const typename Complex<R>::T bv = b[i];
-    const R bi = conj_b ? -bv.y : bv.y;
-    for (int64_t j = 0; j < batch; ++j) {
-      const int64_t k = j * plane + i;
-      out[k] = rotate(a[k], bv.x, bi);
+__device__ __forceinline__ typename Complex<R>::T lane(float4 v, int k) {
+  return k == 0 ? make_float2(v.x, v.y) : make_float2(v.z, v.w);
+}
+template <typename R, typename V>
+__device__ __forceinline__ typename Complex<R>::T lane(V v, int) {
+  return v;
+}
+__device__ __forceinline__ float4 pack(const float2 (&c)[2]) {
+  return make_float4(c[0].x, c[0].y, c[1].x, c[1].y);
+}
+template <typename C>
+__device__ __forceinline__ C pack(const C (&c)[1]) {
+  return c[0];
+}
+
+constexpr int kCmulUnroll = 4;  // planes of a whose loads are in flight together
+
+template <typename R, int W>
+__global__ void __launch_bounds__(kThreads)
+cmul_kernel(const typename Vec<R, W>::T* __restrict__ a, const typename Vec<R, W>::T* __restrict__ b,
+            typename Vec<R, W>::T* __restrict__ out, int conj_b, int64_t nvec, int64_t batch) {
+  using C = typename Complex<R>::T;
+  using V = typename Vec<R, W>::T;
+  const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (i >= nvec) return;
+  const V bv = b[i];
+  C bc[W];
+#pragma unroll
+  for (int k = 0; k < W; ++k) {
+    bc[k] = lane<R>(bv, k);
+    if (conj_b) bc[k].y = -bc[k].y;
+  }
+  for (int64_t j0 = static_cast<int64_t>(blockIdx.y) * kCmulUnroll; j0 < batch;
+       j0 += static_cast<int64_t>(gridDim.y) * kCmulUnroll) {
+    V av[kCmulUnroll];
+#pragma unroll
+    for (int u = 0; u < kCmulUnroll; ++u) {
+      if (j0 + u < batch) av[u] = a[(j0 + u) * nvec + i];
+    }
+#pragma unroll
+    for (int u = 0; u < kCmulUnroll; ++u) {
+      if (j0 + u >= batch) break;
+      C o[W];
+#pragma unroll
+      for (int k = 0; k < W; ++k) o[k] = rotate(lane<R>(av[u], k), bc[k].x, bc[k].y);
+      out[(j0 + u) * nvec + i] = pack(o);
     }
   }
+}
+
+template <typename R, int W>
+int launch_cmul_vec(const void* a, const void* b, void* out, int conj_b, int64_t plane,
+                    int64_t batch, cudaStream_t stream) {
+  using V = typename Vec<R, W>::T;
+  const int64_t nvec = plane / W;
+  const int64_t groups = (batch + kCmulUnroll - 1) / kCmulUnroll;
+  const dim3 grid(static_cast<unsigned>((nvec + kThreads - 1) / kThreads),
+                  static_cast<unsigned>(groups < 65535 ? groups : 65535));  // gridDim.y's limit
+  cmul_kernel<R, W><<<grid, kThreads, 0, stream>>>(static_cast<const V*>(a),
+                                                   static_cast<const V*>(b), static_cast<V*>(out),
+                                                   conj_b, nvec, batch);
+  return cudaGetLastError();
 }
 
 // g * conj(c + i s)
@@ -250,11 +323,15 @@ int launch_cmul(int device, const void* a, const void* b, void* out, int conj_b,
                 int64_t batch, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
-  using C = typename Complex<R>::T;
-  cmul_kernel<R><<<blocks_for(plane), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const C*>(a), static_cast<const C*>(b), static_cast<C*>(out), conj_b, plane,
-      batch);
-  return cudaGetLastError();
+  const auto s = static_cast<cudaStream_t>(stream);
+  const bool aligned = ((reinterpret_cast<uintptr_t>(a) | reinterpret_cast<uintptr_t>(b) |
+                         reinterpret_cast<uintptr_t>(out)) % 16) == 0;
+  // complex64: two elements a 16-byte vector where the plane is even and
+  // every operand aligned, else one; complex128: one element, 16 bytes
+  if (sizeof(R) == 4 && plane % 2 == 0 && aligned) {
+    return launch_cmul_vec<R, sizeof(R) == 4 ? 2 : 1>(a, b, out, conj_b, plane, batch, s);
+  }
+  return launch_cmul_vec<R, 1>(a, b, out, conj_b, plane, batch, s);
 }
 
 template <typename R>

@@ -69,6 +69,11 @@ _ARGTYPES = {
         _I64, _I64, _P,
     ],
     "fdes_fused_scan_info": [ctypes.c_int, ctypes.c_int, _P],
+    "fdes_cluster_scan_c64": [
+        ctypes.c_int, ctypes.c_int, _P, _P, _P, _P, ctypes.c_double, _I64, ctypes.c_int,
+        _I64, _I64, ctypes.c_int, _P,
+    ],
+    "fdes_cluster_scan_info": [ctypes.c_int, ctypes.c_int, _P],
 }
 _entries: dict[str, object] = {}
 
@@ -83,7 +88,7 @@ def launch(name: str, device: torch.device, *args) -> None:
         fn.argtypes = _ARGTYPES[name]
         fn.restype = ctypes.c_int
         _entries[name] = fn
-    if name == "fdes_fused_scan_info":
+    if name.endswith("_info"):
         status = fn(device.index, *args)
     else:
         status = fn(device.index, *args, torch.cuda.current_stream(device).cuda_stream)

@@ -206,8 +206,10 @@ def make_slice_step(
     'fused'  — the whole slice step in CUDA kernels that compute the FFT
                themselves (kernels/fused_step.py), grad-capable; square
                128/256/512/1024 grids, needs ``shape``;
-    'fscan'  — the WHOLE slice loop for a batch of waves in one cooperative
-               kernel launch (kernels/fused_scan.py), same grids.  With
+    'fscan'  — the WHOLE slice loop for a batch of waves in one kernel
+               launch (kernels/fused_scan.py: the cooperative scan, or
+               one thread-block cluster a wave, by fused_scan.scan_route),
+               same grids.  With
                ``grad=True`` (the default) it differentiates through the
                whole-loop adjoint (kernels/adjoint_scan.py): one launch
                forward and one backward per gradient evaluation, and the
@@ -274,7 +276,7 @@ def make_slice_step(
 
 
 #: probes per rollout of a STEM raster (pick_probe_chunk's target)
-PROBE_CHUNK_TARGET = 64
+PROBE_CHUNK_TARGET = 128
 
 
 def pick_probe_chunk(npos: int, method: str = "multislice") -> int:
@@ -283,11 +285,16 @@ def pick_probe_chunk(npos: int, method: str = "multislice") -> int:
     smaller.
 
     The target comes from the config-4 raster (512^2, 128 slices, 1,024
-    probes) on one NVIDIA H100 80GB HBM3 at 700 W: engine ``fscan`` ran it
-    in 0.90 s at chunk 64 against 0.99 s at chunk 16 (PERF.md section 5,
+    probes) on one NVIDIA H100 80GB HBM3 at 700 W, on the kernel the
+    whole-loop route picks there (the cluster kernel, whose resident
+    clusters carry 7 waves at a time, so a chunk of 128 leaves less of its
+    last round idle than one of 64): 0.736-0.740 s at chunk 128 against
+    0.780-0.783 s at 64 and 0.939-0.953 s at 16, in turns (PERF.md section 5,
     chip_smoke.py phase stem).  Other grid sizes and larger chunks are not
-    measured yet, so the grid's shape does not enter and the CLI warns of no
-    chunk.
+    measured, so the grid's shape does not enter and the CLI warns of no
+    chunk.  The chunk also batches a stem4d inverse, whose whole-loop
+    adjoint then stores 128 probes' waves of every slice (32 GiB at config
+    4's shape, adjoint_scan.STORE_CAP_BYTES).
     """
     if method != "multislice":
         raise NotImplementedError(
