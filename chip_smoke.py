@@ -29,12 +29,21 @@ Phases, each printing one JSON line:
              fused_scan's route table and at config 2's and config 4's shapes
              (each row names the faster and whether the table picks it); the
              kernels one call of each wrapper launches are counted with
-             torch.profiler.  The whole-loop
-             adjoint's four kernels (store pair and segment pair) at 128^2 and
-             1024^2 (2 waves, 4 slices), at 512^2 (1 and 8 waves, 8 slices),
-             each with a shared and a per-wave propagator, and at config 3's
-             own shape (1 wave, 64 slices, 512^2), dV bitwise equal over two
-             runs.  The panel scan's seven passes at 256^2 and 2048^2 (1 and
+             torch.profiler.  The whole-loop adjoint's six kernels: the
+             store pair's two routes ("tile", the kernels of PR 4, and
+             "wide", one 1-D transform a pair of warps) and the segment
+             pair, at 128^2 and 1024^2 (2 waves, 4 slices), at 512^2 (1 and
+             8 waves, 8 slices), the wide kernels at 128^2 to 1024^2 with 1,
+             3 and 8 waves (4 slices), each with a shared and a per-wave
+             propagator, and at config 3's own shape (1 wave, 64 slices,
+             512^2), dV bitwise equal over two runs; both routes timed in
+             turns there, at 8, 16 and 64 waves of that stack, at one wave
+             of 256^2 x 16 slices and at the rows of the route table
+             adjoint_scan.STORE_ROUTE (each row names the faster of each
+             kernel and whether the table picks it); the wide kernels'
+             registers and memory; the grid barrier alone (cg and an arrive
+             counter) at the wide kernels' grid and its share of a slice.
+             The panel scan's seven passes at 256^2 and 2048^2 (1 and
              2 waves, shared and per-wave P) and 4096^2 (1 wave), the rollout
              at 2048^2 x 8 slices (real and absorptive V) and 256^2 x 3 (2
              waves, per-wave P), each pass timed at 2048^2 and 4096^2, and
@@ -78,13 +87,16 @@ Phases, each printing one JSON line:
              kernel), each at <= 1e-5, with the launches of one gradient
              evaluation asserted and its wall and device time measured; and
              engine "fscan", the whole-loop adjoint: one store-forward and one
-             backward launch per evaluation (asserted, with and without
-             remat_chunk), and past its store budget the checkpointed segment
-             pair, one launch each.
+             backward launch per evaluation on the kernels STORE_ROUTE picks
+             for one wave (asserted by wrapper counts, with and without
+             remat_chunk, and by profile), and past its store budget the
+             checkpointed segment pair, one launch each.
 7. invert  — the inverse at full width: ``fdes_tpu_torch.cli.main --mode
              invert`` on examples/si110_hrtem.toml (config 3), 20 iterations on
-             engines "pallas", "xla", "fused" and "fscan" (one whole-loop
-             launch for the self-test series, then 20 x (1 + 1)): launches
+             engines "pallas", "xla", "fused" and "fscan" and on the defaults
+             ("auto" resolves to "fscan"; one whole-loop launch for the
+             self-test series, then 20 x (1 + 1) on the store pair's routed
+             kernels, and the route reported): launches
              asserted, first losses equal at <= 1e-5, every loss finite, the
              last below the first, and reconstructed.npy (64, 512, 512) and
              finite; then three iterations each of a two-tilt inverse and of a
@@ -159,6 +171,7 @@ Any failure raises and exits non-zero; without CUDA it exits 1 at once.
 from __future__ import annotations
 
 import argparse
+import functools
 import json
 import os
 import shutil
@@ -454,31 +467,41 @@ def cmul_checks(checks: list, rng, row: dict, cplx) -> dict:
     return times
 
 
+#: Throwaway sleep kernels that open each profile (profiled_kernels).
+LEAD_IN = 32
+
+
 def profiled_kernels(fn, attempts: int = 3) -> list[tuple[str, float]]:
     """(name, microseconds) of every CUDA kernel of one call of fn, from
     torch.profiler.  The profiler now and then loses events of a cycle (seen
-    on the H100: none at all, 35 of 40, the first 3 of 1,036) and never
-    invents one, so fn is profiled ``attempts`` times and the profile with
-    the most events counts."""
+    on the H100: none at all, 35 of 40, the first 3 of 1,036, and in one run
+    every profile's first dozen events, through the first of 1,025 panel
+    launches) and never invents one.  Its losses fall on the first events of
+    a trace most often, so each profile opens with LEAD_IN throwaway sleep
+    kernels, left out of the result, and a profile that recorded none of
+    them may have lost fn's first kernels too: fn is profiled ``attempts``
+    times, and the fullest profile that kept some of its lead-in counts (the
+    fullest of all when none did)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     best: list[tuple[str, float]] = []
+    best_rank = (False, -1)
     for _ in range(attempts):
         torch.cuda.synchronize()
         torch.cuda.empty_cache()  # leave the profiler's own buffers room on a full card
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            # it loses the first kernels of a trace most often: lead with
-            # throwaway sleep kernels, left out of the result
-            for _ in range(8):
+            for _ in range(LEAD_IN):
                 torch.cuda._sleep(100_000)
             torch.cuda.synchronize()
             fn()
             torch.cuda.synchronize()
-        kernels = [(e.name, e.time_range.elapsed_us()) for e in prof.events()
-                   if e.device_type == DeviceType.CUDA and "spin_kernel" not in e.name]
-        if len(kernels) > len(best):
-            best = kernels
+        events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        kernels = [(e.name, e.time_range.elapsed_us()) for e in events
+                   if "spin_kernel" not in e.name]
+        rank = (len(kernels) < len(events), len(kernels))  # (kept some lead-in, size)
+        if rank > best_rank:
+            best, best_rank = kernels, rank
     return best
 
 
@@ -497,6 +520,7 @@ def device_kernels(fn) -> dict[str, int]:
 
 OWN_KERNELS = ("row_pass_kernel", "col_pass_kernel", "bwd_tail_kernel", "scan_kernel",
                "cluster_scan_kernel", "scan_store_kernel", "scan_bwd_store_kernel",
+               "wide_scan_store_kernel", "wide_scan_bwd_store_kernel",
                "scan_ck_kernel", "scan_bwd_ck_kernel", "panel_row_kernel", "panel_col_kernel",
                "panel_bwd_row_kernel", "panel_g_row_kernel", "panel_build_col_kernel",
                "panel_vfused_row_kernel")
@@ -772,10 +796,24 @@ def scan_route_rows(probes, v_stack, prop, sigma, rng) -> list[dict]:
     return rows
 
 
+#: The store pair's two wrappers (forward, backward) by route, each named by
+#: the launch count it adds to: "tile" the kernels of PR 4, "wide" those of
+#: the wide transform.
+STORE_PAIRS = {"tile": ("fused_scan_store", "fused_scan_bwd_store"),
+               "wide": ("wide_scan_store", "wide_scan_bwd_store")}
+STORE_KERNELS = {"fused_scan_store": "scan_store_kernel",
+                 "fused_scan_bwd_store": "scan_bwd_store_kernel",
+                 "wide_scan_store": "wide_scan_store_kernel",
+                 "wide_scan_bwd_store": "wide_scan_bwd_store_kernel"}
+
+
 def phase_kernels_adjoint() -> tuple[dict, dict]:
-    """The whole-loop adjoint's four kernels against their plain versions;
+    """The whole-loop adjoint's six kernels against their plain versions;
     returns (phase line, table rows).  The rows' shape is config 3's own: one
-    512^2 wave through 64 slices."""
+    512^2 wave through 64 slices; there the store pair's two routes are
+    timed in turns.  Then both routes in turns at the rows of
+    adjoint_scan.STORE_ROUTE and at 8, 16 and 64 waves of config 3's stack,
+    the wide kernels' registers and memory, and the grid barrier alone."""
     from fdes_tpu_torch.config import load_config
     from fdes_tpu_torch.kernels import adjoint_scan as adj
     from fdes_tpu_torch.pipeline import setup
@@ -788,19 +826,22 @@ def phase_kernels_adjoint() -> tuple[dict, dict]:
         z = rng.standard_normal(shape) + 1j * rng.standard_normal(shape)
         return torch.as_tensor(z.astype(np.complex64), device="cuda")
 
-    def pair(seg):
-        """(forward, backward, their plain versions) for the store pair
-        (seg 0) or the segment pair."""
+    def pair(seg, route="tile"):
+        """(forward, backward, their plain versions, extra arguments, the two
+        wrappers' names) for the store pair on ``route`` (seg 0) or the
+        segment pair."""
         if seg == 0:
-            return (adj.fused_scan_store, adj.fused_scan_bwd_store, adj.fused_scan_store_ref,
-                    adj.fused_scan_bwd_store_ref, ())
+            return (functools.partial(adj.fused_scan_store, route=route),
+                    functools.partial(adj.fused_scan_bwd_store, route=route),
+                    adj.fused_scan_store_ref, adj.fused_scan_bwd_store_ref, (),
+                    STORE_PAIRS[route])
         return (adj.fused_scan_ck, adj.fused_scan_bwd_ck, adj.fused_scan_ck_ref,
-                adj.fused_scan_bwd_ck_ref, (seg,))
+                adj.fused_scan_bwd_ck_ref, (seg,), ("fused_scan_ck", "fused_scan_bwd_ck"))
 
-    def check_case(psi0, vs, pr, g, sigma, seg, **more):
+    def check_case(psi0, vs, pr, g, sigma, seg, route="tile", **more):
         """Both kernels of a pair at one shape: exit waves, kept waves, dV and
         dpsi0 against the plain versions, dV bitwise equal over two runs."""
-        fwd, bwd, fwd_ref, bwd_ref, extra = pair(seg)
+        fwd, bwd, fwd_ref, bwd_ref, extra, names = pair(seg, route)
         b, ns, m = psi0.shape[0], vs.shape[0], psi0.shape[-1]
         tol = scan_tol(ns)
         got, want = fwd(psi0, vs, pr, sigma, *extra), fwd_ref(psi0, vs, pr, sigma, *extra)
@@ -811,7 +852,7 @@ def phase_kernels_adjoint() -> tuple[dict, dict]:
         back_want = bwd_ref(want[1], vs, pr, g, sigma, *extra)
         torch.cuda.synchronize()
         errs = {}
-        for name, a, w in ((fwd.__name__, got, want), (bwd.__name__, back, back_want)):
+        for name, a, w in ((names[0], got, want), (names[1], back, back_want)):
             errs[name] = max_errors(a, w)
             ok = errs[name][1] <= tol and all_finite(a)
             checks.append({"kernel": name, "dtype": "complex64", "shape": [b, ns, m, m],
@@ -821,7 +862,7 @@ def phase_kernels_adjoint() -> tuple[dict, dict]:
                 raise AssertionError(f"kernel {name} {(b, ns, m, m)} seg {seg} {more}: rel err "
                                      f"{errs[name][1]:.3e} > {tol:.1e}")
         if not torch.equal(back[0], again[0]):
-            raise AssertionError(f"{bwd.__name__} {(b, ns, m, m)} seg {seg}: dV differs between "
+            raise AssertionError(f"{names[1]} {(b, ns, m, m)} seg {seg}: dV differs between "
                                  "two runs on the same inputs")
         checks[-1]["dv_bitwise_equal_over_two_runs"] = True
         return errs
@@ -842,6 +883,13 @@ def phase_kernels_adjoint() -> tuple[dict, dict]:
             case = random_case(m, b, ns, per_wave_p)
             for seg in segs:
                 check_case(*case, sigma, seg, per_wave_p=per_wave_p)
+    # the wide kernels at every size and at 1, 3 and 8 waves (STORE_ROUTE's
+    # rows up to 8; one wave group, and several)
+    for m in sorted(adj.STORE_ROUTE):
+        for b in (1, 3, 8):
+            for per_wave_p in (False, True):
+                check_case(*random_case(m, b, 4, per_wave_p), sigma, 0, route="wide",
+                           per_wave_p=per_wave_p)
 
     # ---- config 3's own shape: one wave, 64 slices, 512^2
     v_stack, prop = sim.v_stack, sim.propagator
@@ -849,43 +897,57 @@ def phase_kernels_adjoint() -> tuple[dict, dict]:
     psi0, g = sim.psi0.reshape(1, n, n).contiguous(), cplx(1, n, n)
     seg = adj.pick_seg(s, n)
     errs = {**check_case(psi0, v_stack, prop, g, sigma, 0),
+            **check_case(psi0, v_stack, prop, g, sigma, 0, route="wide"),
             **check_case(psi0, v_stack, prop, g, sigma, seg)}
     plane = n * n
-    _, kept_s = adj.fused_scan_store(psi0, v_stack, prop, sigma)
+    _, kept_s = adj.fused_scan_store_ref(psi0, v_stack, prop, sigma)
     _, kept_ck = adj.fused_scan_ck(psi0, v_stack, prop, sigma, seg)
     fwd_ops = s * (2 * fft2_ops(n) + (9 + 6) * plane)
     bwd_ops = s * (2 * fft2_ops(n) + (6 + 20) * plane)
     io_fwd = plane * 8 * 2 + s * plane * 4 + plane * 8          # psi0, exit wave, V, P
     io_bwd = plane * 8 * 2 + 2 * s * plane * 4 + plane * 8      # g, dpsi0, V, dV, P
-    cases = {  # name: (kernel, plain, bytes, operations, kernel's name, TPU kernel)
-        "fused_scan_store": (
-            lambda: adj.fused_scan_store(psi0, v_stack, prop, sigma),
-            lambda: adj.fused_scan_store_ref(psi0, v_stack, prop, sigma),
-            io_fwd + s * plane * 8, fwd_ops, "scan_store_kernel",
-            "fdes_tpu/pallas/adjoint_scan.py:230"),
-        "fused_scan_bwd_store": (
-            lambda: adj.fused_scan_bwd_store(kept_s, v_stack, prop, g, sigma),
-            lambda: adj.fused_scan_bwd_store_ref(kept_s, v_stack, prop, g, sigma),
-            io_bwd + s * plane * 8, bwd_ops, "scan_bwd_store_kernel",
-            "fdes_tpu/pallas/adjoint_scan.py:262"),
+    store_fwd = (lambda: adj.fused_scan_store_ref(psi0, v_stack, prop, sigma),
+                 io_fwd + s * plane * 8, fwd_ops, "fdes_tpu/pallas/adjoint_scan.py:230")
+    store_bwd = (lambda: adj.fused_scan_bwd_store_ref(kept_s, v_stack, prop, g, sigma),
+                 io_bwd + s * plane * 8, bwd_ops, "fdes_tpu/pallas/adjoint_scan.py:262")
+    # P gathered once, as scan_diff_apply hands it to both launches: the
+    # gather and its host-to-device index copies are not the kernel's time
+    pp = adj.fs.prepare_propagator(prop)
+    cases = {  # name: (kernel, plain, bytes, operations, TPU kernel)
+        **{STORE_PAIRS[r][0]: (lambda r=r: adj.fused_scan_store(psi0, v_stack, prop, sigma,
+                                                                 prepared=pp, route=r),
+                               *store_fwd)
+           for r in STORE_PAIRS},
+        **{STORE_PAIRS[r][1]: (lambda r=r: adj.fused_scan_bwd_store(
+            kept_s, v_stack, prop, g, sigma, prepared=pp, route=r), *store_bwd)
+           for r in STORE_PAIRS},
         "fused_scan_ck": (
-            lambda: adj.fused_scan_ck(psi0, v_stack, prop, sigma, seg),
+            lambda: adj.fused_scan_ck(psi0, v_stack, prop, sigma, seg, prepared=pp),
             lambda: adj.fused_scan_ck_ref(psi0, v_stack, prop, sigma, seg),
-            io_fwd + (s // seg) * plane * 8, fwd_ops, "scan_ck_kernel",
-            "fdes_tpu/pallas/adjoint_scan.py:105"),
+            io_fwd + (s // seg) * plane * 8, fwd_ops, "fdes_tpu/pallas/adjoint_scan.py:105"),
         "fused_scan_bwd_ck": (
-            lambda: adj.fused_scan_bwd_ck(kept_ck, v_stack, prop, g, sigma, seg),
+            lambda: adj.fused_scan_bwd_ck(kept_ck, v_stack, prop, g, sigma, seg, prepared=pp),
             lambda: adj.fused_scan_bwd_ck_ref(kept_ck, v_stack, prop, g, sigma, seg),
-            io_bwd + (s // seg) * plane * 8, fwd_ops + bwd_ops, "scan_bwd_ck_kernel",
+            io_bwd + (s // seg) * plane * 8, fwd_ops + bwd_ops,
             "fdes_tpu/pallas/adjoint_scan.py:136"),
     }
-    for name, (kern, ref, nbytes, ops, kernel, replaces) in cases.items():
+    kernel_names = {**STORE_KERNELS, "fused_scan_ck": "scan_ck_kernel",
+                    "fused_scan_bwd_ck": "scan_bwd_ck_kernel"}
+    # the store pair's two routes in turns
+    turns = {}
+    for k in (0, 1):
+        tile, wide = STORE_PAIRS["tile"][k], STORE_PAIRS["wide"][k]
+        turns.update(interleaved_ms({tile: cases[tile][0], wide: cases[wide][0]}, n=10,
+                                    warmup=2)[1])
+    for name, (kern, ref, nbytes, ops, replaces) in cases.items():
         t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / PEAK_OPS_PER_S[f32] * 1e3
+        kernel = kernel_names[name]
         rows[name] = {
             "name": name, "route": "cuda", "source": "fdes_tpu_torch/csrc/adjoint_scan.cu",
             "replaces": replaces, "launches": None,
             "max_abs_err": errs[name][0], "max_rel_err": errs[name][1],
-            "ms": time_launches(kern, n=10, warmup=2),
+            "ms": (statistics.median(turns[name]) if name in turns
+                   else time_launches(kern, n=10, warmup=2)),
             "plain_ms": time_launches(ref, n=5, warmup=1),
             "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
@@ -894,23 +956,145 @@ def phase_kernels_adjoint() -> tuple[dict, dict]:
             "kernel": adj.adjoint_kernel_info(n, kernel),
             "kernels_per_call": expect_own_kernels(name, kern, {kernel: 1}),
         }
+        if name in turns:
+            rows[name]["ms_in_turns"] = turns[name]
+            rows[name]["store_route"] = next(r for r, p in STORE_PAIRS.items() if name in p)
 
     # ---- eight waves through the same stack: the dV sum in one group of waves
     # per row tile against partial sums over wave groups
     psi8, g8 = cplx(8, n, n), cplx(8, n, n)
-    _, kept8 = adj.fused_scan_store(psi8, v_stack, prop, sigma)
+    _, kept8 = adj.fused_scan_store(psi8, v_stack, prop, sigma, route="tile")
     auto = adj.wave_groups(8, n, "scan_bwd_store_kernel", psi8.device)
     groups = [
         {"groups": k, "ms": time_launches(
-            lambda k=k: adj.fused_scan_bwd_store(kept8, v_stack, prop, g8, sigma, groups=k),
+            lambda k=k: adj.fused_scan_bwd_store(kept8, v_stack, prop, g8, sigma, prepared=pp,
+                                                 groups=k, route="tile"),
             n=5, warmup=1)}
         for k in (1, auto, auto, 1)
     ]
     rows["fused_scan_store"]["ms_8_waves"] = time_launches(
-        lambda: adj.fused_scan_store(psi8, v_stack, prop, sigma), n=5, warmup=1)
+        lambda: adj.fused_scan_store(psi8, v_stack, prop, sigma, prepared=pp, route="tile"),
+        n=5, warmup=1)
     rows["fused_scan_bwd_store"]["ms_8_waves_by_wave_groups"] = groups
     rows["fused_scan_bwd_store"]["wave_groups_8_waves"] = auto
-    return {"phase": "kernels_adjoint", "checks": checks}, rows
+    del kept8, kept_s, kept_ck
+    # a launch the library refuses (no slices) raises through the wrapper's
+    # check, and nothing is counted or run in its place
+    before = launch_counts()
+    try:
+        adj._launch("fdes_wide_scan_store_c64", psi0.device, n, *(psi0.data_ptr(),) * 5,
+                    float(sigma), 1, 0, 0)
+    except RuntimeError as exc:
+        refused = str(exc)
+    else:
+        raise AssertionError("a refused wide_scan_store launch did not raise")
+    if launch_counts() != before:
+        raise AssertionError("a refused wide_scan_store launch was counted")
+    line = {"phase": "kernels_adjoint", "checks": checks, "refused_launch_raises": refused,
+            "store_turns": store_turns(v_stack, prop, sigma, rng),
+            "store_route_rows": store_route_rows(sigma, rng),
+            "wide_kernel_info": {m: {k: adj.adjoint_kernel_info(m, STORE_KERNELS[k])
+                                     for k in STORE_PAIRS["wide"]}
+                                 for m in sorted(adj.STORE_ROUTE)},
+            "barrier": barrier_times(n, s, rows)}
+    return line, rows
+
+
+def store_pair_turns(psi0, v, prop, g, sigma, reps: int = 3) -> dict:
+    """Both routes of each kernel of the store pair on the same inputs, in
+    turns (interleaved_ms), ``reps`` calls a reading: {kernel: {route: [ms,
+    ms, ms]}}, the backward on the wide forward's s."""
+    from fdes_tpu_torch.kernels import adjoint_scan as adj
+
+    prepared = adj.fs.prepare_propagator(prop)
+    _, kept = adj.fused_scan_store(psi0, v, prop, sigma, prepared=prepared, route="wide")
+    out = {
+        "store": interleaved_ms({r: (lambda r=r: adj.fused_scan_store(
+            psi0, v, prop, sigma, prepared=prepared, route=r)) for r in adj.ROUTES},
+            n=reps, warmup=1)[1],
+        "bwd_store": interleaved_ms({r: (lambda r=r: adj.fused_scan_bwd_store(
+            kept, v, prop, g, sigma, prepared=prepared, route=r)) for r in adj.ROUTES},
+            n=reps, warmup=1)[1],
+    }
+    del kept
+    torch.cuda.empty_cache()
+    return out
+
+
+def store_turns(v_stack, prop, sigma, rng) -> list[dict]:
+    """The store pair's routes in turns at config 3's stack (64 slices of
+    512^2) with 1, 8, 16 and 64 waves, and at one wave of 256^2 x 16 slices."""
+    rows = []
+    for b, vs, pr in ((1, v_stack, prop), (8, v_stack, prop), (16, v_stack, prop),
+                      (64, v_stack, prop), (1, None, None)):
+        m = 256 if vs is None else v_stack.shape[-1]
+        if vs is None:
+            vs = torch.as_tensor(rng.uniform(0, 2000, (16, m, m)), device="cuda",
+                                 dtype=torch.float32)
+            pr = torch.polar(torch.ones((m, m), device="cuda"),
+                             torch.as_tensor(rng.uniform(0, 6.28, (m, m)), device="cuda",
+                                             dtype=torch.float32))
+        z = rng.standard_normal((2, b, m, m)) + 1j * rng.standard_normal((2, b, m, m))
+        psi0, g = torch.as_tensor(z.astype(np.complex64), device="cuda").unbind(0)
+        ms = store_pair_turns(psi0.contiguous(), vs, pr, g.contiguous(), sigma)
+        rows.append({"shape": [b, vs.shape[0], m, m], "ms": ms,
+                     "faster": {k: min(t, key=lambda r: statistics.median(t[r]))
+                                for k, t in ms.items()}})
+    return rows
+
+
+def store_route_rows(sigma, rng, nslices: int = 16) -> list[dict]:
+    """Both routes of the store pair in turns at the rows of
+    adjoint_scan.STORE_ROUTE (128^2 to 1024^2, 1 to 64 waves, 16 random
+    slices); each row names the faster of each kernel and whether the table
+    picks it."""
+    from fdes_tpu_torch.kernels import adjoint_scan as adj
+
+    rows = []
+    for m, table in adj.STORE_ROUTE.items():
+        vs = torch.as_tensor(rng.uniform(0, 2000, (nslices, m, m)), device="cuda",
+                             dtype=torch.float32)
+        pr = torch.polar(torch.ones((m, m), device="cuda"),
+                         torch.as_tensor(rng.uniform(0, 6.28, (m, m)), device="cuda",
+                                         dtype=torch.float32))
+        for b in sorted(table):
+            z = rng.standard_normal((2, b, m, m)) + 1j * rng.standard_normal((2, b, m, m))
+            psi0, g = torch.as_tensor(z.astype(np.complex64), device="cuda").unbind(0)
+            ms = store_pair_turns(psi0.contiguous(), vs, pr, g.contiguous(), sigma)
+            faster = {k: min(t, key=lambda r: statistics.median(t[r])) for k, t in ms.items()}
+            route = {k: adj.store_route(m, b, k) for k in ms}
+            rows.append({"n": m, "waves": b, "slices": nslices, "ms": ms, "faster": faster,
+                         "route": route,
+                         "route_is_the_faster": all(route[k] == faster[k] for k in ms)})
+    return rows
+
+
+def barrier_times(n: int, nslices: int, rows: dict) -> dict:
+    """The grid barrier alone (adjoint_scan.grid_barrier: 128 barriers in one
+    launch, less the same launch with none, over 128) at the wide kernels'
+    grid for config 3 (one 512^2 wave) and at every resident block, by
+    cg::grid_group::sync and by the arrive counter, in turns; and the share
+    of a slice of config 3's wide kernels that its two barriers take."""
+    from fdes_tpu_torch.kernels import adjoint_scan as adj
+
+    rounds = 128
+    out = {"rounds": rounds}
+    grids = {"config3": adj.wide_grid_blocks(n, 1, "wide_scan_store_kernel"),
+             "resident": adj.adjoint_kernel_info(n, "wide_scan_store_kernel")[
+                 "resident_blocks"]}
+    for label, blocks in grids.items():
+        fns = {f"{kind}_{r}": (lambda kind=kind, r=r: adj.grid_barrier(blocks, r, kind == "light"))
+               for kind in ("cg", "light") for r in (0, rounds)}
+        med, t = interleaved_ms(fns, n=10, warmup=2)
+        out[label] = {"blocks": blocks, "ms": t,
+                      **{f"us_per_sync_{kind}": (med[f"{kind}_{rounds}"] - med[f"{kind}_0"])
+                         * 1e3 / rounds for kind in ("cg", "light")}}
+    sync_us = out["config3"]["us_per_sync_cg"]
+    for name in STORE_PAIRS["wide"]:
+        slice_us = rows[name]["ms"] * 1e3 / nslices
+        out[f"{name}_us_per_slice"] = slice_us
+        out[f"{name}_barrier_share"] = 2 * sync_us / slice_us
+    return out
 
 
 class CardInputs:
@@ -1481,6 +1665,17 @@ def scan_wrapper(b: int, n: int = 512) -> str:
     return "cluster_scan" if scan_route(n, b) == "cluster" else "fused_scan"
 
 
+def store_wrappers(b: int, n: int = 512, calls: int = 1) -> dict[str, int]:
+    """The launch counts that ``calls`` store-pair gradients of b waves at n^2
+    add: one forward and one backward each, on the wrappers of the kernels
+    adjoint_scan's route table picks."""
+    from fdes_tpu_torch.kernels.adjoint_scan import store_route
+
+    fwd, bwd = (STORE_PAIRS[store_route(n, b, k)][i] for i, k in enumerate(("store",
+                                                                             "bwd_store")))
+    return {fwd: calls, bwd: calls}
+
+
 def scan_kernel_name(b: int, n: int = 512) -> str:
     return {"cluster_scan": "cluster_scan_kernel", "fused_scan": "scan_kernel"}[scan_wrapper(b, n)]
 
@@ -1718,10 +1913,8 @@ def phase_grad(gpu: str) -> tuple[dict, dict]:
         "abs_xla_remat": ("xla", chunk, v_abs, zero),
         # the whole-loop adjoint: one store-forward and one backward launch,
         # with remat_chunk given (and ignored) or not
-        "fscan": ("fscan", None, v_real,
-                  {**zero, "fused_scan_store": 1, "fused_scan_bwd_store": 1}),
-        "fscan_remat": ("fscan", chunk, v_real,
-                        {**zero, "fused_scan_store": 1, "fused_scan_bwd_store": 1}),
+        "fscan": ("fscan", None, v_real, {**zero, **store_wrappers(1)}),
+        "fscan_remat": ("fscan", chunk, v_real, {**zero, **store_wrappers(1)}),
         "fscan_seg": ("fscan_seg", None, v_real,
                       {**zero, "fused_scan_ck": 1, "fused_scan_bwd_ck": 1}),
     }
@@ -1751,6 +1944,9 @@ def phase_grad(gpu: str) -> tuple[dict, dict]:
     }
     line = {
         "phase": "grad", "config": "examples/si110_hrtem.toml", "v": "0.5 * V_true",
+        # the kernels of the store pair that config 3's one wave takes
+        "store_route": {k: adj.store_route(sim.grid.shape[0], 1, k)
+                        for k in ("store", "bwd_store")},
         "remat_chunk": chunk, "losses": {k: float(v[0]) for k, v in out.items()},
         "rel_err": errs, "gate": GATE, "launches_per_eval": launches, "gpu": gpu,
     }
@@ -1758,6 +1954,16 @@ def phase_grad(gpu: str) -> tuple[dict, dict]:
     if bad:
         raise AssertionError(f"grad gates failed: {bad}")
     line["segment_length"] = adj.pick_seg(s, sim.grid.shape[0])
+    # the port's own kernels in one fscan evaluation: the store pair's two
+    # launches, on the kernels the route table names
+    seen: dict[str, int] = {}
+    for name, _ in profiled_kernels(grad_fn("fscan", None, v_real)):
+        seen[name] = seen.get(name, 0) + 1
+    want = {STORE_KERNELS[w]: c for w, c in store_wrappers(1).items()}
+    line["fscan_own_kernels_per_eval"] = own_kernels(seen)
+    if line["fscan_own_kernels_per_eval"] != want:
+        raise AssertionError(f"grad fscan: own kernels {line['fscan_own_kernels_per_eval']} of "
+                             f"one evaluation, expected {want}; all: {seen}")
     line["times"] = [
         grad_times(grad_fn(e, chunk, v_real), e)
         for e in ("pallas", "xla", "fused", "fscan", "fscan_seg", "fscan_seg", "fscan", "fused",
@@ -1776,17 +1982,19 @@ def read_losses(out: str, iterations: int = INVERT_ITERS) -> list[float]:
 
 def phase_invert(tmp: str, gpu: str, grad_busy_ms: dict) -> tuple[dict, dict]:
     """Config 3 through cli.main --mode invert on the four engines that
-    differentiate; returns (line, launches by engine)."""
+    differentiate and on the defaults ("auto", which resolves to "fscan");
+    returns (line, launches by engine)."""
     from fdes_tpu_torch.config import load_config
     from fdes_tpu_torch.propagate import pick_remat_chunk
 
     cfg = load_config(CONFIG)
     args = ("--mode", "invert", "--set", f"recon.iterations={INVERT_ITERS}")
-    engines = ("pallas", "xla", "fused", "fscan")
+    engines = ("pallas", "xla", "fused", "fscan", "auto")
     outs, timings, launches, losses, v_rec = {}, {}, {}, {}, {}
     for e in engines:
         reset_launches()
-        outs[e], timings[e] = run_cli(tmp, f"inv_{e}", *args, "--set", f"sim.engine={e}")
+        engine = () if e == "auto" else ("--set", f"sim.engine={e}")  # auto: the file's default
+        outs[e], timings[e] = run_cli(tmp, f"inv_{e}", *args, *engine)
         launches[e] = launch_counts()
         losses[e] = read_losses(outs[e])
         v_rec[e] = np.load(os.path.join(outs[e], "reconstructed.npy"))
@@ -1802,13 +2010,16 @@ def phase_invert(tmp: str, gpu: str, grad_busy_ms: dict) -> tuple[dict, dict]:
         "fused": {**zero, "fused_step": s + n * 2 * s, "fused_step_bwd": n * s},
         # the self-test series in one launch (nothing asks for a gradient),
         # then per iteration one store-forward and one backward launch
-        "fscan": {**zero, scan_wrapper(1): 1, "fused_scan_store": n,
-                  "fused_scan_bwd_store": n},
+        "fscan": {**zero, scan_wrapper(1): 1, **store_wrappers(1, calls=n)},
     }
+    expect["auto"] = expect["fscan"]
     first_err = {e: abs(losses[e][0] - losses["xla"][0]) / abs(losses["xla"][0])
                  for e in engines}
+    from fdes_tpu_torch.kernels.adjoint_scan import store_route
+
     line = {
         "phase": "invert", "config": "examples/si110_hrtem.toml", "iterations": n,
+        "store_route_fscan": {k: store_route(cfg.sim.nx, 1, k) for k in ("store", "bwd_store")},
         "remat_chunk": chunk, "launches": launches, "losses": losses,
         "first_loss_rel_err_vs_xla": first_err, "tol": C5_GRAD_TOL,
         "reconstruction_rel_diff_vs_xla": {
@@ -1825,8 +2036,9 @@ def phase_invert(tmp: str, gpu: str, grad_busy_ms: dict) -> tuple[dict, dict]:
     }
     if launches != expect:
         raise AssertionError(f"invert launches {launches}, expected {expect}")
-    if timings["fscan"]["engine_kind"] != "fscan":
-        raise AssertionError(f"invert on fscan: timing.json names {timings['fscan']}")
+    for e in ("fscan", "auto"):
+        if (timings[e]["engine"], timings[e]["engine_kind"]) != (e, "fscan"):
+            raise AssertionError(f"invert on {e}: timing.json names {timings[e]}")
     if not all(err <= GATE for err in first_err.values()):
         raise AssertionError(f"invert first loss vs xla: {first_err}")
     for e in engines:
@@ -1848,14 +2060,12 @@ def invert_other_modalities(tmp: str) -> dict:
     cases = {
         "tilt": ((CONFIG, "--set", "sim.tilt_series_rad=[[0.0,0.0],[0.002,-0.001]]"),
                  # one batched rollout of both tilts per evaluation
-                 {scan_wrapper(2): 1, "fused_scan_store": iters,
-                  "fused_scan_bwd_store": iters},
+                 {scan_wrapper(2): 1, **store_wrappers(2, calls=iters)},
                  GATE),
         "stem4d": ((CONFIG_STEM, "--set", "recon.modality=stem4d", "--set", "stem.scan_ny=4",
                     "--set", "stem.scan_nx=4", "--set", "stem.probe_chunk=8"),
                    # two chunks of probes per evaluation
-                   {scan_wrapper(8): 2, "fused_scan_store": 2 * iters,
-                    "fused_scan_bwd_store": 2 * iters},
+                   {scan_wrapper(8): 2, **store_wrappers(8, calls=2 * iters)},
                    # sums of squared differences of intensities after 128 slices
                    2 * LONG_ROLLOUT_TOL),
     }
@@ -2795,8 +3005,11 @@ ROW_PHASES = {
     # the whole-loop forward runs one of two kernels, by the route table
     "fused_scan": ("stem", "stem_auto", "hrtem_auto"),
     "cluster_scan": ("stem", "stem_auto", "hrtem_auto"),
-    "fused_scan_store": ("invert_fscan", "grad_fscan"),
-    "fused_scan_bwd_store": ("invert_fscan", "grad_fscan"),
+    # the store pair runs one of two kernels each, by the route table
+    "fused_scan_store": ("invert_auto", "invert_fscan", "grad_fscan"),
+    "fused_scan_bwd_store": ("invert_auto", "invert_fscan", "grad_fscan"),
+    "wide_scan_store": ("invert_auto", "invert_fscan", "grad_fscan"),
+    "wide_scan_bwd_store": ("invert_auto", "invert_fscan", "grad_fscan"),
     "fused_scan_ck": ("grad_fscan_seg",),
     "fused_scan_bwd_ck": ("grad_fscan_seg",),
     "panel_init": ("c5",),
@@ -2822,6 +3035,17 @@ ROW_PHASES = {
 #: block; the rollout reads V from the stack), so panel_rowpass is checked and
 #: timed in kernels_panel, and its count on the c5 path is read like any other
 OFF_PATH = ("panel_rowpass",)
+
+
+def unrouted_store_kernels() -> tuple[str, ...]:
+    """The store pair's wrappers whose kernel adjoint_scan.STORE_ROUTE picks
+    at no shape of the main path's gradients (config 3's one wave, and the
+    inverse's two-tilt and 8-probe shapes at 512^2): on no path of this run,
+    exempt like OFF_PATH; their rows keep their times."""
+    routed = {}
+    for b in (1, 2, 8):
+        routed.update(store_wrappers(b))
+    return tuple(w for pair in STORE_PAIRS.values() for w in pair if w not in routed)
 
 
 def timed(fn, *args):
@@ -2891,7 +3115,8 @@ def main(argv=None) -> int:
             emit(line)
         if "invert" in phases:
             line, by_engine = timed(phase_invert, tmp, gpu, grad_busy_ms)
-            path_launches.update(invert=by_engine["pallas"], invert_fscan=by_engine["fscan"])
+            path_launches.update(invert=by_engine["pallas"], invert_fscan=by_engine["fscan"],
+                                 invert_auto=by_engine["auto"])
             emit(line)
         if "stem" in phases:
             line, path_launches["stem"] = timed(phase_stem, tmp, gpu)
@@ -2923,8 +3148,9 @@ def main(argv=None) -> int:
         if ph is not None:
             row["launches"], row["launches_phase"] = path_launches[ph][name], ph
     if set(PHASES) <= set(phases):
+        off_path = OFF_PATH + unrouted_store_kernels()
         idle = [name for name, row in rows.items()
-                if name not in OFF_PATH and not row["launches"]]
+                if name not in off_path and not row["launches"]]
         if idle:
             raise AssertionError(f"kernels never launched on their path: {idle}")
     emit({"seconds": time.perf_counter() - t0})

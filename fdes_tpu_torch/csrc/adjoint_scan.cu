@@ -1,6 +1,7 @@
-// The whole-loop adjoint of the multislice scan, for Hopper (sm_90a): four
-// cooperative kernels that compute their own 2-D FFT (no cuFFT), built from the
-// row and column tile passes of fused_fft.cuh.
+// The whole-loop adjoint of the multislice scan, for Hopper (sm_90a): six
+// cooperative kernels that compute their own 2-D FFT (no cuFFT), and one
+// that times grid barriers alone (grid_barrier_kernel, on no path).  Four
+// are built from the row and column tile passes of fused_fft.cuh:
 //
 //   scan_store_kernel     the forward loop of fused_step.cu's scan_kernel that
 //                         also stores s_j = t_j * psi_j of every slice
@@ -12,6 +13,43 @@
 //   scan_bwd_ck_kernel    per segment, last to first: recompute the segment's
 //                         s_k from its checkpoint, then the reverse loop over
 //                         them (replaces ::_bwd_scan_kernel).
+//
+// Two compute the store pair's functions again on the wide transform of
+// fused_fft.cuh (one 1-D transform a pair of warps), so that one wave fills
+// the card:
+//
+//   wide_scan_store_kernel     scan_store_kernel's function (also replaces
+//                              ::_sfwd_kernel);
+//   wide_scan_bwd_store_kernel scan_bwd_store_kernel's (also replaces
+//                              ::_bwd_store_kernel).
+//
+// kernels/adjoint_scan.STORE_ROUTE picks "tile" or "wide" for each of the
+// pair by (n, waves) from H100 rows, before the launch.  What held the tile
+// kernels back at config 3's one wave of 512^2, and what the wide kernels do
+// about it:
+//  1. Half the card idle: a 4,096-element tile a block of 256 threads gives
+//     64 blocks a 512^2 wave.  Here a row item is one row a pair of warps
+//     and a column item four columns a block of four pairs: one wave is 512
+//     row pairs and 128 column items, spread over min(resident, B N / 4)
+//     blocks (128 at 512^2, one an SM, as the card places them; row u goes
+//     to block u % G first), so ~8 warps of every SM work in each pass.
+//  2. Block barriers inside each transform (three radix-2 stages between
+//     two __syncthreads): a wide transform has none.  Its stages run in
+//     registers (pair distance 32 to N/4), through __shfl_xor_sync (below
+//     32) and, for the first forward and last inverse stage, through the
+//     pair's shared buffer between two 64-thread named barriers.  The row
+//     pass fuses inverse x, transmit, the s store and forward x in
+//     registers, and s, dV and the rows go to memory as 256 contiguous bytes
+//     a warp instruction straight from registers; V, P and s are loaded
+//     with the row or panel they meet (loaded beside sincosf, one load
+//     waited for the other).  A column item has three block barriers (load,
+//     store, reuse) around four pair transforms.
+//  3. Bank conflicts of the plain twiddle table at power-of-two strides: the
+//     staged table (init_staged_twiddles), read side by side by the lanes.
+//  4. Two grid barriers a slice stay (the plane crosses the grid once each
+//     way); grid_barrier_kernel times them alone at the same grid size.
+// The spectral order is the tile kernels' own (bit-reversed in both axes),
+// so prepare_propagator's P serves both routes.
 //
 // The adjoint, in PyTorch's convention (g = dL/dRe + i dL/dIm of the exit
 // wave), per slice j = S-1 .. 0 with bar = g at the start:
@@ -44,6 +82,8 @@
 // pixel and slice; at 512^2 that is 2 MiB = 0.63 us per wave-slice against
 // 0.75 us of operations, so the store pair sits where bytes and operations
 // meet; the segment pair moves 1/K of that and recomputes every slice once.
+// At config 3's shape (1 wave x 64 slices x 512^2) the bound is the bytes:
+// 62.0 us for the store forward, 82.0 us for its backward, on either route.
 // Times on the card: chip_smoke.py (group kernels_adjoint), quoted in PERF.md.
 //
 // Layout and conventions as fused_step.cu: interleaved complex64, C-contiguous,
@@ -272,6 +312,203 @@ __global__ void __launch_bounds__(kThreads) scan_bwd_ck_kernel(BwdArgs a) {
   }
 }
 
+// ---- the wide kernels: rows 9 and 10 redesigned ------------------------------
+//
+// Row items are one row a pair of warps, column items four columns a block
+// (fused_fft.cuh, "the wide transform").  Item u of a row pass goes to block
+// u % G, pair (u / G) % 4 of the G blocks, so that the rows of one wave
+// spread over every block before any block takes a second row per pair.
+
+// One row of the forward sweep in a pair: src (the bit-reversed x spectrum
+// when inverse, else natural psi0) -> inverse x -> times t = exp(i sigma v),
+// stored to s -> forward x -> dst.  v == nullptr: the last row pass (the exit
+// wave, natural order, into dst).
+template <int LOG2N>
+__device__ __forceinline__ void wide_fwd_row(const float2* tw, const float2* src, float2* dst,
+                                             float2* s, const float* __restrict__ v, float sigma,
+                                             bool inverse, const WidePlace& t) {
+  using W = Wide<LOG2N>;
+  float2 x[W::R];
+  float vv[W::R];
+  wide_load_row<LOG2N>(x, src, t);
+  if (v != nullptr) {
+    // in flight with the row: loaded beside sincosf (a branch each), one
+    // load would wait for the other
+#pragma unroll
+    for (int m = 0; m < W::R; ++m) vv[m] = __ldg(v + W::H * t.w + t.lane + 32 * m);
+  }
+  if (inverse) wide_fft_inverse<LOG2N>(x, tw, t);
+  if (v != nullptr) {
+#pragma unroll
+    for (int m = 0; m < W::R; ++m) x[m] = transmit(x[m], sigma * vv[m]);
+    wide_store_row<LOG2N>(x, s, t);
+    wide_fft_forward<LOG2N>(x, tw, t);
+  }
+  wide_store_row<LOG2N>(x, dst, t);
+}
+
+// One wave's row of the reverse sweep in a pair: src (the bit-reversed x
+// spectrum of bar) -> inverse x: bar_s; acc += Im(bar_s * conj(s)); times
+// conj(t), t = exp(i sigma v) (vv: this thread's potentials of the row) ->
+// forward x (forward), or natural (dpsi0) -> dst.  Register m of the thread
+// holds element (N/2) w + l + 32 m of the row throughout.
+template <int LOG2N>
+__device__ __forceinline__ void wide_bwd_row(const float2* tw, const float2* src, float2* dst,
+                                             const float2* s, const float (&vv)[Wide<LOG2N>::R],
+                                             float sigma, bool forward,
+                                             float (&acc)[Wide<LOG2N>::R], const WidePlace& t) {
+  using W = Wide<LOG2N>;
+  float2 x[W::R];
+  float2 u[W::R];  // s, in flight with the row
+  wide_load_row<LOG2N>(x, src, t);
+  wide_load_row<LOG2N>(u, s, t);
+  wide_fft_inverse<LOG2N>(x, tw, t);
+#pragma unroll
+  for (int m = 0; m < W::R; ++m) {
+    acc[m] += x[m].y * u[m].x - x[m].x * u[m].y;
+    float sn, cs;
+    sincosf(sigma * vv[m], &sn, &cs);
+    x[m] = cmul_conj(x[m], make_float2(cs, sn));
+  }
+  if (forward) wide_fft_forward<LOG2N>(x, tw, t);
+  wide_store_row<LOG2N>(x, dst, t);
+}
+
+// The store forward (row 9): scan_store_kernel's function, S slices of two
+// passes and two grid barriers, then the last inverse row pass.
+template <int LOG2N>
+__global__ void __launch_bounds__(kThreads) wide_scan_store_kernel(FwdArgs a) {
+  using W = Wide<LOG2N>;
+  constexpr int N = W::N;
+  constexpr int64_t kPlane = int64_t{1} << (2 * LOG2N);
+  __shared__ float2 tile[W::kCols * W::kColStride];
+  __shared__ float2 tw[N];  // the staged table: N - 1 entries
+  cg::grid_group grid = cg::this_grid();
+  init_staged_twiddles<LOG2N, kThreads>(tw);
+  __syncthreads();
+  const SweepArgs& sw = a.sweep;
+  const WidePlace t = wide_place(tile, W::kColStride);
+  const int64_t rows = sw.nwaves * N;
+  const int64_t items = sw.nwaves * (N / W::kCols);
+  const int64_t first = blockIdx.x + static_cast<int64_t>(threadIdx.x >> 6) * gridDim.x;
+  const int64_t step = static_cast<int64_t>(gridDim.x) * kWidePairs;
+  for (int k = 0; k <= a.nslices; ++k) {
+    const bool last = k == a.nslices;
+    for (int64_t u = first; u < rows; u += step) {  // u = b N + y
+      const int64_t b = u >> LOG2N;
+      const int64_t y = u & (N - 1);
+      float2* s = last ? nullptr : a.keep + (b * a.nslices + k) * kPlane + y * N;
+      const float* v = last ? nullptr : sw.v + k * kPlane + y * N;
+      wide_fwd_row<LOG2N>(tw, (k == 0 ? a.psi0 : a.out) + u * N, a.out + u * N, s, v, sw.sigma,
+                          k > 0, t);
+    }
+    if (last) break;
+    grid.sync();
+    for (int64_t i = blockIdx.x; i < items; i += gridDim.x) {
+      const int64_t b = i / (N / W::kCols);
+      const int c0 = static_cast<int>(i % (N / W::kCols)) * W::kCols;
+      wide_col_item<LOG2N>(tile, tw, a.out + b * kPlane, c0, sw.prop + b * sw.p_wave_stride,
+                           false, t);
+    }
+    grid.sync();
+  }
+}
+
+// The reverse loop over the stored s (row 10): scan_bwd_store_kernel's
+// function.  A pair carries one row through the waves of its wave group and
+// sums their dV in registers; with G > 1 groups each writes a partial plane,
+// added in the order 0, 1, ... after the next barrier (reverse_sweep's rule).
+template <int LOG2N>
+__global__ void __launch_bounds__(kThreads) wide_scan_bwd_store_kernel(BwdArgs a) {
+  using W = Wide<LOG2N>;
+  constexpr int N = W::N;
+  constexpr int64_t kPlane = int64_t{1} << (2 * LOG2N);
+  __shared__ float2 tile[W::kCols * W::kColStride];
+  __shared__ float2 tw[N];
+  cg::grid_group grid = cg::this_grid();
+  init_staged_twiddles<LOG2N, kThreads>(tw);
+  __syncthreads();
+  const SweepArgs& sw = a.sweep;
+  const GroupArgs& ga = a.groups;
+  const WidePlace t = wide_place(tile, W::kColStride);
+  const int64_t rows = sw.nwaves * N;
+  const int64_t items = sw.nwaves * (N / W::kCols);
+  const int64_t first = blockIdx.x + static_cast<int64_t>(threadIdx.x >> 6) * gridDim.x;
+  const int64_t step = static_cast<int64_t>(gridDim.x) * kWidePairs;
+  for (int64_t u = first; u < rows; u += step) {  // bar = forward x of g
+    float2 x[W::R];
+    wide_load_row<LOG2N>(x, a.g + u * N, t);
+    wide_fft_forward<LOG2N>(x, tw, t);
+    wide_store_row<LOG2N>(x, a.dpsi + u * N, t);
+  }
+  grid.sync();
+  const bool partial = ga.ngroups > 1;
+  const int64_t group_rows = static_cast<int64_t>(ga.ngroups) * N;
+  for (int k = a.nslices - 1; k >= 0; --k) {
+    for (int64_t i = blockIdx.x; i < items; i += gridDim.x) {
+      const int64_t b = i / (N / W::kCols);
+      const int c0 = static_cast<int>(i % (N / W::kCols)) * W::kCols;
+      wide_col_item<LOG2N>(tile, tw, a.dpsi + b * kPlane, c0, sw.prop + b * sw.p_wave_stride,
+                           true, t);
+    }
+    if (partial && k < a.nslices - 1) {
+      reduce_partials<LOG2N>(ga.part, a.dv + (k + 1) * kPlane, ga.ngroups);
+    }
+    grid.sync();
+    const float* vk = sw.v + k * kPlane;
+    float* out = partial ? ga.part : a.dv + k * kPlane;
+    for (int64_t u = first; u < group_rows; u += step) {  // u = group N + y
+      const int64_t gi = u >> LOG2N;
+      const int64_t y = u & (N - 1);
+      const int64_t b0 = gi * ga.per_group;
+      const int64_t b1 = b0 + ga.per_group < sw.nwaves ? b0 + ga.per_group : sw.nwaves;
+      float acc[W::R];
+      float vv[W::R];  // the row's potentials, loaded once for the group's waves
+#pragma unroll
+      for (int m = 0; m < W::R; ++m) {
+        acc[m] = 0.0f;
+        vv[m] = __ldg(vk + y * N + W::H * t.w + t.lane + 32 * m);
+      }
+      for (int64_t b = b0; b < b1; ++b) {
+        float2* row = a.dpsi + (b * N + y) * N;
+        wide_bwd_row<LOG2N>(tw, row, row, a.keep + (b * a.nslices + k) * kPlane + y * N, vv,
+                            sw.sigma, k > 0, acc, t);
+      }
+      float* o = out + (partial ? gi * kPlane : 0) + y * N;
+#pragma unroll
+      for (int m = 0; m < W::R; ++m) o[W::H * t.w + t.lane + 32 * m] = sw.sigma * acc[m];
+    }
+    grid.sync();
+  }
+  if (partial) reduce_partials<LOG2N>(ga.part, a.dv, ga.ngroups);
+}
+
+// The grid barriers alone, for measurements (on no path): `rounds` barriers
+// over the grid, by cg::grid_group::sync, or (light) by an arrive counter
+// (one word of device memory the caller zeroes: a release add per block)
+// and an acquire spin until it reaches the round's count.
+__global__ void __launch_bounds__(kThreads) grid_barrier_kernel(unsigned int* counter,
+                                                                    int rounds, int light) {
+  if (!light) {
+    cg::grid_group grid = cg::this_grid();
+    for (int i = 0; i < rounds; ++i) grid.sync();
+    return;
+  }
+  unsigned int target = 0;
+  for (int i = 0; i < rounds; ++i) {
+    target += gridDim.x;
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      asm volatile("red.release.gpu.global.add.u32 [%0], 1;" ::"l"(counter) : "memory");
+      unsigned int seen = 0;
+      do {
+        asm volatile("ld.acquire.gpu.global.u32 %0, [%1];" : "=r"(seen) : "l"(counter) : "memory");
+      } while (seen < target);
+    }
+    __syncthreads();
+  }
+}
+
 template <typename Args>
 int launch_cooperative(const void* kernel, int device, Args a, int64_t nwaves,
                        int64_t tiles_per_wave, cudaStream_t stream) {
@@ -301,16 +538,33 @@ int launch_bwd(int device, BwdArgs a, bool checkpoints, cudaStream_t stream) {
                             (int64_t{1} << (2 * LOG2N)) / kTile, stream);
 }
 
+// A wide kernel over B waves: every resident block, at most one a column
+// item (B N / 4: the row items then take four a block).
+template <int LOG2N>
+int launch_wide_fwd(int device, FwdArgs a, cudaStream_t stream) {
+  return launch_cooperative(reinterpret_cast<const void*>(wide_scan_store_kernel<LOG2N>), device,
+                            a, a.sweep.nwaves, (1 << LOG2N) / kWidePairs, stream);
+}
+
+template <int LOG2N>
+int launch_wide_bwd(int device, BwdArgs a, cudaStream_t stream) {
+  return launch_cooperative(reinterpret_cast<const void*>(wide_scan_bwd_store_kernel<LOG2N>),
+                            device, a, a.sweep.nwaves, (1 << LOG2N) / kWidePairs, stream);
+}
+
 // out[0..3] = registers per thread, static shared bytes, local bytes per
 // thread and resident blocks of kernel `which` (0 store, 1 backward over the
-// store, 2 checkpoints, 3 backward over the checkpoints).
+// store, 2 checkpoints, 3 backward over the checkpoints, 4 and 5 the wide
+// kernels of the store pair).
 template <int LOG2N>
 int kernel_info(int device, int which, int* out) {
   const void* kernels[] = {reinterpret_cast<const void*>(scan_store_kernel<LOG2N>),
                            reinterpret_cast<const void*>(scan_bwd_store_kernel<LOG2N>),
                            reinterpret_cast<const void*>(scan_ck_kernel<LOG2N>),
-                           reinterpret_cast<const void*>(scan_bwd_ck_kernel<LOG2N>)};
-  if (which < 0 || which > 3) return cudaErrorInvalidValue;
+                           reinterpret_cast<const void*>(scan_bwd_ck_kernel<LOG2N>),
+                           reinterpret_cast<const void*>(wide_scan_store_kernel<LOG2N>),
+                           reinterpret_cast<const void*>(wide_scan_bwd_store_kernel<LOG2N>)};
+  if (which < 0 || which > 5) return cudaErrorInvalidValue;
   cudaFuncAttributes attr;
   cudaError_t err = cudaFuncGetAttributes(&attr, kernels[which]);
   if (err != cudaSuccess) return err;
@@ -386,6 +640,64 @@ int fdes_scan_bwd_c64(int device, int n, const void* keep, const void* v, const 
   a.nslices = nslices;
   a.seg = seg > 0 ? seg : 1;
   FDES_DISPATCH_N(n, launch_bwd<L>(device, a, seg > 0, static_cast<cudaStream_t>(stream)))
+}
+
+// The store pair on the wide kernels: the forward as fdes_scan_fwd_keep_c64
+// with seg 0 (keep = s), the backward as fdes_scan_bwd_c64 with seg 0.
+int fdes_wide_scan_store_c64(int device, int n, const void* psi0, const void* v, const void* prop,
+                             void* out, void* keep, double sigma, int64_t nwaves, int nslices,
+                             int64_t p_wave_stride, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  if (nslices < 1 || nwaves < 1) return cudaErrorInvalidValue;
+  FwdArgs a;
+  a.sweep = sweep_args(v, prop, p_wave_stride, nwaves, sigma);
+  a.psi0 = static_cast<const float2*>(psi0);
+  a.out = static_cast<float2*>(out);
+  a.keep = static_cast<float2*>(keep);
+  a.nslices = nslices;
+  a.seg = 1;
+  FDES_DISPATCH_N(n, launch_wide_fwd<L>(device, a, static_cast<cudaStream_t>(stream)))
+}
+
+int fdes_wide_scan_bwd_store_c64(int device, int n, const void* keep, const void* v,
+                                 const void* prop, const void* g, void* dpsi, void* dv,
+                                 void* part, double sigma, int64_t nwaves, int nslices,
+                                 int ngroups, int64_t p_wave_stride, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  if (nslices < 1 || nwaves < 1 || ngroups < 1 || ngroups > nwaves) {
+    return cudaErrorInvalidValue;
+  }
+  BwdArgs a;
+  a.sweep = sweep_args(v, prop, p_wave_stride, nwaves, sigma);
+  a.groups.part = static_cast<float*>(part);
+  a.groups.per_group = static_cast<int>((nwaves + ngroups - 1) / ngroups);
+  a.groups.ngroups = static_cast<int>((nwaves + a.groups.per_group - 1) / a.groups.per_group);
+  a.keep = static_cast<const float2*>(keep);
+  a.g = static_cast<const float2*>(g);
+  a.dpsi = static_cast<float2*>(dpsi);
+  a.dv = static_cast<float*>(dv);
+  a.work = nullptr;
+  a.sbuf = nullptr;
+  a.nslices = nslices;
+  a.seg = 1;
+  FDES_DISPATCH_N(n, launch_wide_bwd<L>(device, a, static_cast<cudaStream_t>(stream)))
+}
+
+// `rounds` grid barriers over `blocks` blocks of the wide kernels' size, by
+// cg::grid_group::sync (light == 0) or by the counter at `counter` (one
+// zeroed unsigned int), in one cooperative launch.
+int fdes_grid_barrier(int device, int blocks, int rounds, int light, void* counter,
+                      void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  if (blocks < 1 || rounds < 0) return cudaErrorInvalidValue;
+  unsigned int* c = static_cast<unsigned int*>(counter);
+  void* args[] = {&c, &rounds, &light};
+  return cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(grid_barrier_kernel),
+                                     dim3(blocks), dim3(kThreads), args, 0,
+                                     static_cast<cudaStream_t>(stream));
 }
 
 int fdes_adjoint_scan_info(int device, int n, int which, int* out) {

@@ -590,6 +590,240 @@ __device__ void cluster_cross(float2* tile, const float2* tw, const float2* __re
   }
 }
 
+// ---- the wide transform ----------------------------------------------------
+//
+// One N-point transform held by a pair of warps, with no block barrier
+// inside it: warp w of the pair, lane l, register m hold element k = l + 32 m
+// + (N/2) w (R = N/64 registers: 2, 4, 8, 16 at N = 128 to 1024).  The
+// radix-2 stage of half size N/2 pairs the two warps: each writes its N/2
+// values to the pair's buffer in shared memory and reads the other's, between
+// two 64-thread named barriers (bar.sync, one id a pair), each thread
+// computing its own half of the butterflies.  The stages of pair distance 32
+// to N/4 pair two registers of one lane; the five below pair lane l with lane
+// l ^ h through __shfl_xor_sync.  Twiddles come from the staged table
+// (init_staged_twiddles), where the lanes of a register stage read side by
+// side.  The order is the tile passes' own: forward decimation in frequency
+// (natural in, position p = l + 32 m + (N/2) w holds frequency
+// bitrev_N(p)), inverse decimation in time (bit-reversed in, natural out,
+// unscaled), so the spectrum stays bit-reversed in both axes and the
+// propagator of prepare_propagator serves.  A transform of one warp (32
+// values a lane at N = 1024) ran 1.3 to 1.8 times as long on the H100 at one
+// wave; two warps a transform give one 512^2 wave eight busy warps an SM.
+//
+// A row item is one row a pair, loaded and stored straight from registers
+// (256 contiguous bytes a warp instruction).  A column item is four adjacent
+// columns of one wave's plane, a block of four pairs: the block loads the N
+// x 4 panel with 16-byte accesses into shared memory, one padded column
+// after the other (kColStride), behind one block barrier, and each pair
+// transforms one column (y = l + 32 m + (N/2) w) in registers, the column's
+// own place in the tile serving as the pair's exchange buffer.
+// A block of kThreads threads (eight warps) holds kWidePairs transforms at once.
+constexpr int kWidePairs = kThreads / 64;
+
+template <int LOG2N>
+struct Wide {
+  static_assert(LOG2N >= 7 && LOG2N <= 10, "the wide transform takes 128 to 1024 points");
+  static constexpr int N = 1 << LOG2N;
+  static constexpr int H = N / 2;                  // elements a warp holds
+  static constexpr int R = N / 64;                 // registers a lane
+  static constexpr int kCols = kWidePairs;         // columns of a column item
+  static constexpr int kColStride = N + 4;         // conflict-free 8-byte stores of the load
+};
+
+// A thread's place in its pair: lane, warp of the pair (0 lower, 1 upper),
+// the pair's named barrier and its exchange buffer (N elements).
+struct WidePlace {
+  int lane;
+  int w;
+  int bar;
+  float2* buf;
+};
+
+__device__ __forceinline__ WidePlace wide_place(float2* tile, int col_stride) {
+  const int pair = threadIdx.x >> 6;
+  return {static_cast<int>(threadIdx.x & 31), static_cast<int>((threadIdx.x >> 5) & 1), 1 + pair,
+          tile + pair * col_stride};
+}
+
+__device__ __forceinline__ void pair_sync(int bar) {
+  asm volatile("bar.sync %0, 64;" ::"r"(bar) : "memory");
+}
+
+// y = the other warp's x, element for element, through the pair's buffer.
+template <int LOG2N>
+__device__ __forceinline__ void wide_exchange(float2 (&y)[Wide<LOG2N>::R],
+                                              const float2 (&x)[Wide<LOG2N>::R],
+                                              const WidePlace& t) {
+  using W = Wide<LOG2N>;
+  pair_sync(t.bar);  // the buffer's last readers are done
+#pragma unroll
+  for (int m = 0; m < W::R; ++m) t.buf[W::H * t.w + t.lane + 32 * m] = x[m];
+  pair_sync(t.bar);
+#pragma unroll
+  for (int m = 0; m < W::R; ++m) y[m] = t.buf[W::H * (1 - t.w) + t.lane + 32 * m];
+}
+
+// Forward N-point transform of x, natural in, bit-reversed out.
+template <int LOG2N>
+__device__ __forceinline__ void wide_fft_forward(float2 (&x)[Wide<LOG2N>::R], const float2* tw,
+                                                 const WidePlace& t) {
+  using W = Wide<LOG2N>;
+  constexpr int R = W::R;
+  const int lane = t.lane;
+  {  // half size N/2: the two warps; lower a + b, upper (a - b) * w
+    float2 y[R];
+    wide_exchange<LOG2N>(y, x, t);
+    const float sign = t.w ? -1.0f : 1.0f;
+#pragma unroll
+    for (int m = 0; m < R; ++m) {
+      const float2 d = make_float2(fmaf(sign, x[m].x, y[m].x), fmaf(sign, x[m].y, y[m].y));
+      x[m] = t.w ? cmul(d, tw[W::H - 1 + lane + 32 * m]) : d;
+    }
+  }
+#pragma unroll
+  for (int b = LOG2N - 2; b >= 5; --b) {  // half size 2^b: registers m, m + d
+    const int d = 1 << (b - 5);
+#pragma unroll
+    for (int m = 0; m < R; ++m) {
+      if (m & d) continue;
+      const float2 w = tw[(1 << b) - 1 + lane + 32 * (m & (d - 1))];
+      const float2 a = x[m];
+      const float2 c = x[m + d];
+      x[m] = cadd(a, c);
+      x[m + d] = cmul(csub(a, c), w);
+    }
+  }
+#pragma unroll
+  for (int b = 4; b >= 0; --b) {  // half size h = 2^b: lanes l, l ^ h
+    const int h = 1 << b;
+    const bool upper = lane & h;
+    // lower: a + b; upper: (a - b) * w, a the partner's value
+    const float2 w = upper ? tw[h - 1 + (lane & (h - 1))] : make_float2(1.0f, 0.0f);
+    const float sign = upper ? -1.0f : 1.0f;
+#pragma unroll
+    for (int m = 0; m < R; ++m) {
+      const float px = __shfl_xor_sync(0xffffffffu, x[m].x, h);
+      const float py = __shfl_xor_sync(0xffffffffu, x[m].y, h);
+      x[m] = cmul(make_float2(fmaf(sign, x[m].x, px), fmaf(sign, x[m].y, py)), w);
+    }
+  }
+}
+
+// Unscaled inverse of wide_fft_forward: bit-reversed in, natural out.
+template <int LOG2N>
+__device__ __forceinline__ void wide_fft_inverse(float2 (&x)[Wide<LOG2N>::R], const float2* tw,
+                                                 const WidePlace& t) {
+  using W = Wide<LOG2N>;
+  constexpr int R = W::R;
+  const int lane = t.lane;
+#pragma unroll
+  for (int b = 0; b <= 4; ++b) {  // half size h = 2^b: lanes l, l ^ h
+    const int h = 1 << b;
+    const bool upper = lane & h;
+    // t = b * conj(w) formed on the upper lane before the exchange; then
+    // lower: a + t, upper: a - t
+    const float2 tv = tw[h - 1 + (lane & (h - 1))];
+    const float2 w = upper ? make_float2(tv.x, -tv.y) : make_float2(1.0f, 0.0f);
+    const float sign = upper ? -1.0f : 1.0f;
+#pragma unroll
+    for (int m = 0; m < R; ++m) {
+      const float2 y = cmul(x[m], w);
+      const float px = __shfl_xor_sync(0xffffffffu, y.x, h);
+      const float py = __shfl_xor_sync(0xffffffffu, y.y, h);
+      x[m] = make_float2(fmaf(sign, y.x, px), fmaf(sign, y.y, py));
+    }
+  }
+#pragma unroll
+  for (int b = 5; b < LOG2N - 1; ++b) {  // half size 2^b: registers m, m + d
+    const int d = 1 << (b - 5);
+#pragma unroll
+    for (int m = 0; m < R; ++m) {
+      if (m & d) continue;
+      const float2 w = tw[(1 << b) - 1 + lane + 32 * (m & (d - 1))];
+      const float2 a = x[m];
+      const float2 u = cmul_conj(x[m + d], w);
+      x[m] = cadd(a, u);
+      x[m + d] = csub(a, u);
+    }
+  }
+  {  // half size N/2: the upper warp forms b * conj(w) before the exchange
+    if (t.w) {
+#pragma unroll
+      for (int m = 0; m < R; ++m) x[m] = cmul_conj(x[m], tw[W::H - 1 + lane + 32 * m]);
+    }
+    float2 y[R];
+    wide_exchange<LOG2N>(y, x, t);
+    const float sign = t.w ? -1.0f : 1.0f;
+#pragma unroll
+    for (int m = 0; m < R; ++m) {
+      x[m] = make_float2(fmaf(sign, x[m].x, y[m].x), fmaf(sign, x[m].y, y[m].y));
+    }
+  }
+}
+
+// One row (N elements at p) into / out of a pair's registers.
+template <int LOG2N>
+__device__ __forceinline__ void wide_load_row(float2 (&x)[Wide<LOG2N>::R], const float2* p,
+                                              const WidePlace& t) {
+#pragma unroll
+  for (int m = 0; m < Wide<LOG2N>::R; ++m) x[m] = p[Wide<LOG2N>::H * t.w + t.lane + 32 * m];
+}
+template <int LOG2N>
+__device__ __forceinline__ void wide_store_row(const float2 (&x)[Wide<LOG2N>::R], float2* p,
+                                               const WidePlace& t) {
+#pragma unroll
+  for (int m = 0; m < Wide<LOG2N>::R; ++m) p[Wide<LOG2N>::H * t.w + t.lane + 32 * m] = x[m];
+}
+
+// One column item: columns c0 .. c0 + 3 of the plane (in place), forward y
+// transform, times the propagator (bit-reversed, conjugated for the
+// adjoint) over N^2, inverse y transform.  All threads of the block call
+// it; tile holds kCols * kColStride elements, pair j's column at j *
+// kColStride (t.buf).
+template <int LOG2N>
+__device__ void wide_col_item(float2* tile, const float2* tw, float2* plane, int c0,
+                              const float2* __restrict__ prop, bool conj_p, const WidePlace& t) {
+  using W = Wide<LOG2N>;
+  constexpr int N = W::N;
+  const int col = threadIdx.x >> 6;
+  // this thread's values of P, in flight with the panel's loads: a load that
+  // waits until after the forward transform costs a second round trip
+  const float2* pc = prop + c0 + col;
+  float2 p[W::R];
+#pragma unroll
+  for (int m = 0; m < W::R; ++m) {
+    p[m] = __ldg(pc + static_cast<int64_t>(W::H * t.w + t.lane + 32 * m) * N);
+  }
+  // thread i: row i / 2, columns 2 (i % 2) and 2 (i % 2) + 1 of the item
+  for (int i = threadIdx.x; i < 2 * N; i += kThreads) {
+    const int y = i >> 1;
+    const int c = 2 * (i & 1);
+    float2 a, b;
+    load_pair(plane + static_cast<int64_t>(y) * N + c0 + c, &a, &b);
+    tile[c * W::kColStride + y] = a;
+    tile[(c + 1) * W::kColStride + y] = b;
+  }
+  __syncthreads();
+  float2 x[W::R];
+  wide_load_row<LOG2N>(x, t.buf, t);
+  wide_fft_forward<LOG2N>(x, tw, t);
+  const float scale = 1.0f / (static_cast<float>(N) * static_cast<float>(N));
+  const float sign = conj_p ? -scale : scale;
+#pragma unroll
+  for (int m = 0; m < W::R; ++m) x[m] = cmul(x[m], make_float2(p[m].x * scale, p[m].y * sign));
+  wide_fft_inverse<LOG2N>(x, tw, t);
+  pair_sync(t.bar);  // the exchange's last reads are done
+  wide_store_row<LOG2N>(x, t.buf, t);
+  __syncthreads();
+  for (int i = threadIdx.x; i < 2 * N; i += kThreads) {
+    const int y = i >> 1;
+    const int c = 2 * (i & 1);
+    store_pair(plane + static_cast<int64_t>(y) * N + c0 + c, tile[c * W::kColStride + y],
+               tile[(c + 1) * W::kColStride + y]);
+  }
+  __syncthreads();  // the next item reuses the tile
+}
+
 // Blocks of a cooperative kernel (kThreads threads, static shared memory only)
 // that can be resident at once on this device.
 inline int resident_blocks_of(const void* kernel, int device, int* blocks) {

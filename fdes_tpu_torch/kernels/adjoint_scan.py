@@ -17,6 +17,18 @@ version beside it:
   dpsi0): per segment, last to first, the s_k recomputed from the checkpoint
   and the reverse loop over them (replaces ``_bwd_scan_kernel``).
 
+The store pair runs on one of two kernels each, picked before the launch by
+``store_route(n, B, kernel)`` from ``STORE_ROUTE``, a table of rows measured
+on the H100: "tile" (``scan_store_kernel``, ``scan_bwd_store_kernel``: the
+tile passes of ``csrc/fused_fft.cuh``, 4,096 elements a block) or "wide"
+(``wide_scan_store_kernel``, ``wide_scan_bwd_store_kernel``: one 1-D
+transform a pair of warps, so that one wave fills the card).  ``route=``
+names one for measurements; it is checked, and a launch the card refuses
+raises with nothing run in its place.  ``fused_scan_store.launches`` and
+``fused_scan_bwd_store.launches`` count the tile kernels' launches,
+``wide_scan_store.launches`` and ``wide_scan_bwd_store.launches`` the wide
+kernels'.
+
 psi0 and g are (B, n, n) complex64, v_stack (S, n, n) real and shared by the
 waves, the propagator (n, n) or one per wave (B, n, n) (a tilt series), in
 natural order; n in {128, 256, 512, 1024}.  dV is (S, n, n) float32 summed
@@ -71,6 +83,12 @@ _ARGTYPES = {
         _INT, _INT, _P, _P, _P, _P, _P, _P, _P, _P, _P, ctypes.c_double, _I64, _INT, _INT, _INT,
         _I64, _P,
     ],
+    "fdes_wide_scan_store_c64": [_INT, _INT, _P, _P, _P, _P, _P, ctypes.c_double, _I64, _INT,
+                                 _I64, _P],
+    "fdes_wide_scan_bwd_store_c64": [
+        _INT, _INT, _P, _P, _P, _P, _P, _P, _P, ctypes.c_double, _I64, _INT, _INT, _I64, _P,
+    ],
+    "fdes_grid_barrier": [_INT, _INT, _INT, _INT, _P, _P],
     "fdes_adjoint_scan_info": [_INT, _INT, _INT, _P],
 }
 _entries: dict[str, object] = {}
@@ -86,7 +104,33 @@ _entries: dict[str, object] = {}
 #: dV, the optimizer's state and the caller's other tensors.
 STORE_CAP_BYTES = 32 * 1024**3
 
-KERNELS = ("scan_store_kernel", "scan_bwd_store_kernel", "scan_ck_kernel", "scan_bwd_ck_kernel")
+KERNELS = ("scan_store_kernel", "scan_bwd_store_kernel", "scan_ck_kernel", "scan_bwd_ck_kernel",
+           "wide_scan_store_kernel", "wide_scan_bwd_store_kernel")
+
+#: Pairs of warps a block of the wide kernels (csrc/fused_fft.cuh,
+#: kWidePairs): a row item is one row a pair, a column item
+#: ``PAIRS_PER_BLOCK`` columns a block.
+PAIRS_PER_BLOCK = 4
+
+#: The kernel each of the store pair runs on, by grid and waves a launch:
+#: "tile" (``scan_store_kernel`` / ``scan_bwd_store_kernel``, 4,096-element
+#: tiles a block) or "wide" (``wide_scan_store_kernel`` /
+#: ``wide_scan_bwd_store_kernel``, one 1-D transform a pair of warps), as
+#: {waves: (forward, backward)}: the faster of both kernels timed in turns on
+#: an NVIDIA H100 80GB HBM3 at 700 W, 16 random slices a row (chip_smoke.py
+#: kernels_adjoint, ``store_route_rows``; PERF.md section 5).  A launch of B
+#: waves takes the row of the largest measured count not above B.  The wide
+#: kernels give one wave B n / 4 column items and B n row pairs, the tile
+#: kernels B n^2 / 4096 tiles; at 64 waves both fill the card and stand within
+#: a few per cent of each other.
+_W, _T = "wide", "tile"
+STORE_ROUTE = {
+    128: {1: (_W, _W), 3: (_W, _W), 8: (_W, _W), 16: (_W, _W), 64: (_T, _T)},
+    256: {1: (_W, _W), 3: (_W, _W), 8: (_W, _W), 16: (_W, _W), 64: (_W, _T)},
+    512: {1: (_W, _W), 3: (_W, _W), 8: (_W, _W), 16: (_W, _W), 64: (_T, _W)},
+    1024: {1: (_W, _W), 3: (_W, _W), 8: (_W, _W), 16: (_W, _W), 64: (_W, _W)},
+}
+ROUTES = ("tile", "wide")
 
 
 def _entry(name: str):
@@ -125,17 +169,66 @@ def adjoint_kernel_info(n: int, kernel: str, device: torch.device | str = "cuda"
 _resident: dict[tuple, int] = {}
 
 
-def wave_groups(b: int, n: int, kernel: str, device: torch.device) -> int:
-    """Wave groups of a backward kernel's row passes: one block carries a row
-    tile through the waves of its group and sums their dV in registers, so
-    the groups are as many as fill the resident blocks, at most one per wave.
-    A function of (b, n, kernel, card) alone: the order of the dV sum is
-    fixed."""
+def _resident_blocks(n: int, kernel: str, device: torch.device) -> int:
     key = (n, kernel, device.index)
     if key not in _resident:
         _resident[key] = adjoint_kernel_info(n, kernel, device)["resident_blocks"]
-    tiles_per_wave = n * n // 4096
-    return max(1, min(b, _resident[key] // tiles_per_wave))
+    return _resident[key]
+
+
+def wave_groups(b: int, n: int, kernel: str, device: torch.device) -> int:
+    """Wave groups of a backward kernel's row passes: one block (a tile
+    kernel's row tile) or one pair of warps (a wide kernel's row) carries its
+    row item through the waves of its group and sums their dV in registers,
+    so the groups are as many as fill the resident blocks or pairs, at most
+    one per wave.  A function of (b, n, kernel, card) alone: the order of the
+    dV sum is fixed."""
+    resident = _resident_blocks(n, kernel, device)
+    if kernel.startswith("wide_"):
+        slots, items_per_wave = resident * PAIRS_PER_BLOCK, n
+    else:
+        slots, items_per_wave = resident, n * n // 4096
+    return max(1, min(b, slots // items_per_wave))
+
+
+def wide_grid_blocks(n: int, b: int, kernel: str, device: torch.device | str = "cuda") -> int:
+    """Blocks of one launch of a wide kernel for B waves of n^2: every
+    resident block, at most one a column item (csrc/adjoint_scan.cu,
+    launch_wide)."""
+    dev = torch.device(device)
+    if dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    return min(_resident_blocks(n, kernel, dev), b * n // PAIRS_PER_BLOCK)
+
+
+def store_route(n: int, b: int, kernel: str) -> str:
+    """The route ("tile" or "wide") of ``kernel`` ("store": the forward,
+    "bwd_store": its backward) for B waves of an n x n grid, from
+    STORE_ROUTE: a function of (n, b) alone."""
+    if kernel not in ("store", "bwd_store"):
+        raise ValueError(f"store_route: kernel must be 'store' or 'bwd_store', got {kernel!r}")
+    rows = STORE_ROUTE[n]
+    return rows[max((k for k in rows if k <= b), default=min(rows))][kernel == "bwd_store"]
+
+
+def _check_route(what: str, route: str | None) -> None:
+    if route not in (None, *ROUTES):
+        raise ValueError(f"{what}: route must be one of {ROUTES}, got {route!r}")
+
+
+def grid_barrier(blocks: int, rounds: int, light: bool = False,
+                 device: torch.device | str = "cuda") -> None:
+    """``rounds`` grid barriers over ``blocks`` blocks of the wide kernels'
+    size in one cooperative launch, nothing else: cg::grid_group::sync, or
+    (light) an arrive counter and an acquire spin.  A measurement kernel, on
+    no path (chip_smoke.py times it)."""
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        raise ValueError("grid_barrier runs on a CUDA card only")
+    if dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    counter = torch.zeros(1, dtype=torch.int32, device=dev)
+    _launch("fdes_grid_barrier", dev, blocks, rounds, int(light), counter.data_ptr())
 
 
 def pick_seg(nslices: int, n: int | None = None) -> int:
@@ -263,31 +356,47 @@ def _operands(what, psi, v_stack, propagator, prepared, seg, **more):
     return n, b, nslices, v32, pp, (n * n if p_batched else 0)
 
 
-def _forward_keep(what, counter, psi0, v_stack, propagator, sigma, seg, prepared):
+def _forward_keep(what, counter, psi0, v_stack, propagator, sigma, seg, prepared, route=None):
     n, b, nslices, v32, pp, p_stride = _operands(what, psi0, v_stack, propagator, prepared, seg)
     out = torch.empty_like(psi0)
     keep = torch.empty((b, nslices // seg if seg else nslices, n, n), dtype=psi0.dtype,
                        device=psi0.device)
-    _launch(
-        "fdes_scan_fwd_keep_c64", psi0.device, n, psi0.data_ptr(), v32.data_ptr(), pp.data_ptr(),
-        out.data_ptr(), keep.data_ptr(), float(sigma), b, nslices, seg, p_stride,
-    )
-    counter.launches += 1
+    pointers = (psi0.data_ptr(), v32.data_ptr(), pp.data_ptr(), out.data_ptr(), keep.data_ptr())
+    if not seg and (route or store_route(n, b, "store")) == "wide":
+        _launch("fdes_wide_scan_store_c64", psi0.device, n, *pointers, float(sigma), b, nslices,
+                p_stride)
+        wide_scan_store.launches += 1
+    else:
+        _launch("fdes_scan_fwd_keep_c64", psi0.device, n, *pointers, float(sigma), b, nslices,
+                seg, p_stride)
+        counter.launches += 1
     return out, keep
 
 
 def fused_scan_store(
     psi0: torch.Tensor, v_stack: torch.Tensor, propagator: torch.Tensor, sigma: float,
-    *, prepared: torch.Tensor | None = None,
+    *, prepared: torch.Tensor | None = None, route: str | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """All S slices for all B waves in one launch, keeping s_j of every
-    slice: (exit waves, s (B, S, n, n)).  The kernel on CUDA, plain on the
-    CPU.  No graph: ``scan_diff_apply`` is the differentiable form."""
+    slice: (exit waves, s (B, S, n, n)).  On CUDA the kernel that
+    ``store_route`` picks (``route`` names one instead: "tile" or "wide"),
+    plain on the CPU.  No graph: ``scan_diff_apply`` is the differentiable
+    form."""
+    _check_route("fused_scan_store", route)
     if not psi0.is_cuda:
         _operands("fused_scan_store", psi0, v_stack, propagator, None, 0)
         return fused_scan_store_ref(psi0, v_stack, propagator, sigma)
     return _forward_keep("fused_scan_store", fused_scan_store, psi0, v_stack, propagator, sigma,
-                         0, prepared)
+                         0, prepared, route)
+
+
+def wide_scan_store(
+    psi0: torch.Tensor, v_stack: torch.Tensor, propagator: torch.Tensor, sigma: float,
+    *, prepared: torch.Tensor | None = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """``fused_scan_store`` on ``wide_scan_store_kernel`` whatever the route
+    table says; plain on the CPU."""
+    return fused_scan_store(psi0, v_stack, propagator, sigma, prepared=prepared, route="wide")
 
 
 def fused_scan_ck(
@@ -306,30 +415,40 @@ def fused_scan_ck(
                          prepared)
 
 
-def _backward(what, counter, kernel, keep, v_stack, propagator, g, sigma, seg, prepared, groups):
+def _backward(what, counter, kernel, keep, v_stack, propagator, g, sigma, seg, prepared, groups,
+              route=None):
     n, b, nslices, v32, pp, p_stride = _operands(what, g, v_stack, propagator, prepared, seg,
                                                  kept=keep)
     kept_planes = nslices // seg if seg else nslices
     if keep.dtype != g.dtype or tuple(keep.shape) != (b, kept_planes, n, n):
         raise ValueError(f"{what}: the kept waves are {keep.dtype} {tuple(keep.shape)}, expected "
                          f"{g.dtype} {(b, kept_planes, n, n)}")
+    wide = not seg and (route or store_route(n, b, "bwd_store")) == "wide"
+    if wide:
+        counter, kernel = wide_scan_bwd_store, "wide_scan_bwd_store_kernel"
     if groups is None:
         groups = wave_groups(b, n, kernel, g.device)
     if not 1 <= groups <= b:
         raise ValueError(f"{what}: wave groups must be in 1..{b}, got {groups}")
     dev = g.device
     dpsi = torch.empty_like(g)
-    # every tile of every slice is written by the launch
+    # every row of every slice is written by the launch
     dv = torch.empty((nslices, n, n), dtype=torch.float32, device=dev)
     part = torch.empty((groups, n, n), dtype=torch.float32, device=dev) if groups > 1 else None
     work = torch.empty_like(g) if seg else None
     sbuf = torch.empty((b, seg, n, n), dtype=g.dtype, device=dev) if seg else None
-    _launch(
-        "fdes_scan_bwd_c64", dev, n, keep.data_ptr(), v32.data_ptr(), pp.data_ptr(),
-        g.data_ptr(), dpsi.data_ptr(), dv.data_ptr(),
-        *(t.data_ptr() if t is not None else None for t in (part, work, sbuf)),
-        float(sigma), b, nslices, seg, groups, p_stride,
-    )
+    pointers = (keep.data_ptr(), v32.data_ptr(), pp.data_ptr(), g.data_ptr(), dpsi.data_ptr(),
+                dv.data_ptr())
+    if wide:
+        _launch("fdes_wide_scan_bwd_store_c64", dev, n, *pointers,
+                part.data_ptr() if part is not None else None, float(sigma), b, nslices, groups,
+                p_stride)
+    else:
+        _launch(
+            "fdes_scan_bwd_c64", dev, n, *pointers,
+            *(t.data_ptr() if t is not None else None for t in (part, work, sbuf)),
+            float(sigma), b, nslices, seg, groups, p_stride,
+        )
     counter.launches += 1
     return dv, dpsi
 
@@ -345,16 +464,30 @@ def _check_backward_cpu(what, keep, v_stack, propagator, g, seg):
 def fused_scan_bwd_store(
     s: torch.Tensor, v_stack: torch.Tensor, propagator: torch.Tensor, g: torch.Tensor,
     sigma: float, *, prepared: torch.Tensor | None = None, groups: int | None = None,
+    route: str | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """(dV (S, n, n) float32 summed over the waves, dpsi0 (B, n, n)) of the
     whole loop for the exit waves' gradient g, from the s of
-    ``fused_scan_store``, in one launch.  ``groups`` overrides the number of
-    wave groups (``wave_groups``), for measurements."""
+    ``fused_scan_store``, in one launch of the kernel that ``store_route``
+    picks (``route`` names one instead: "tile" or "wide").  ``groups``
+    overrides the number of wave groups (``wave_groups``), for
+    measurements."""
+    _check_route("fused_scan_bwd_store", route)
     if not g.is_cuda:
         _check_backward_cpu("fused_scan_bwd_store", s, v_stack, propagator, g, 0)
         return fused_scan_bwd_store_ref(s, v_stack, propagator, g, sigma)
     return _backward("fused_scan_bwd_store", fused_scan_bwd_store, "scan_bwd_store_kernel", s,
-                     v_stack, propagator, g, sigma, 0, prepared, groups)
+                     v_stack, propagator, g, sigma, 0, prepared, groups, route)
+
+
+def wide_scan_bwd_store(
+    s: torch.Tensor, v_stack: torch.Tensor, propagator: torch.Tensor, g: torch.Tensor,
+    sigma: float, *, prepared: torch.Tensor | None = None, groups: int | None = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """``fused_scan_bwd_store`` on ``wide_scan_bwd_store_kernel`` whatever the
+    route table says; plain on the CPU."""
+    return fused_scan_bwd_store(s, v_stack, propagator, g, sigma, prepared=prepared,
+                                groups=groups, route="wide")
 
 
 def fused_scan_bwd_ck(
@@ -373,7 +506,8 @@ def fused_scan_bwd_ck(
                      propagator, g, sigma, seg, prepared, groups)
 
 
-WRAPPERS = (fused_scan_store, fused_scan_bwd_store, fused_scan_ck, fused_scan_bwd_ck)
+WRAPPERS = (fused_scan_store, fused_scan_bwd_store, fused_scan_ck, fused_scan_bwd_ck,
+            wide_scan_store, wide_scan_bwd_store)
 for _w in WRAPPERS:
     _w.launches = 0
 
