@@ -52,7 +52,12 @@ Phases, each printing one JSON line:
              The panel gradient's seven passes at the same shapes, its store
              pair at 2048^2 x 8 slices and 256^2 x 2 waves x 3 slices (dV
              bitwise equal over two runs), each pass timed at 2048^2 and
-             4096^2.  The streamed build's three passes at 256^2, 2048^2
+             4096^2.  The wide column pass and the three wide backward row
+             passes beside their tile kernels at the same shapes, and every
+             kernel of each of the two passes timed in turns (three readings)
+             at each row of kernels/panel_scan.PANEL_ROUTE, 256^2 to 4096^2 x
+             1-8 waves, the wide ones held to the plain versions there (each
+             row names the faster and whether the table picks it).  The streamed build's three passes at 256^2, 2048^2
              and 4096^2 (one species and two; the fused row pass with one
              wave and two), the whole streamed rollout of two species at
              2048^2 x 8 slices against its plain passes and against the
@@ -123,16 +128,19 @@ Phases, each printing one JSON line:
              call, 1,025 launches, asserted; no FFT library kernel in the
              rollout), "xla", "pallas" and the defaults, with setup, run,
              device busy time and peak memory per engine; the exit wave
-             against a complex128 rollout, the images against "xla"; then a
-             4-tilt series and the absorptive series (first defocus only)
-             and a 2x2 STEM raster at 64 slices, "panel" against "xla".
+             against a complex128 rollout, the images against "xla"; the
+             series' device busy time with every panel pass on the tile
+             kernels and on PANEL_ROUTE's, in turns; then a 4-tilt series and
+             the absorptive series (first defocus only) and a 2x2 STEM raster
+             at 64 slices, "panel" against "xla".
 11. c5_invert — config 5's inverse at full width: ``fdes_tpu_torch.cli.main
              --mode invert`` at 2048^2, 512 slices, 8 defoci, 20 adam
              iterations on engine "panel" (one panel_scan for the self-test
              series, then 2,050 panel passes per iteration, asserted) and one
              on "xla", first losses held to each other; it/s, setup, peak
              memory; one gradient of the config-5 loss on "panel" against
-             "xla"'s (loss and dV), its device busy time, the rollout's
+             "xla"'s (loss and dV), its device busy time (also on the tile
+             kernels against PANEL_ROUTE's, in turns), the rollout's
              gradient free of FFT library kernels (its kernels counted at 64
              slices); the per-slice route (the store cap patched) against the
              store route at 64 slices.
@@ -171,6 +179,7 @@ Any failure raises and exits non-zero; without CUDA it exits 1 at once.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import functools
 import json
 import os
@@ -263,12 +272,23 @@ def wrappers() -> tuple:
 
 
 def launch_counts() -> dict:
-    return {w.__name__: w.launches for w in wrappers()}
+    """Launches of every wrapper; a panel pass that PANEL_ROUTE routes counts
+    by kernel, as "<wrapper>[tile]" and "<wrapper>[wide]"."""
+    out = {}
+    for w in wrappers():
+        by_route = getattr(w, "launches_by_route", None)
+        if by_route is None:
+            out[w.__name__] = w.launches
+        else:
+            out.update({f"{w.__name__}[{r}]": c for r, c in by_route.items()})
+    return out
 
 
 def reset_launches() -> None:
     for w in wrappers():
         w.launches = 0
+        if hasattr(w, "launches_by_route"):
+            w.launches_by_route = dict.fromkeys(w.launches_by_route, 0)
 
 
 def time_launches(fn, n: int = TIMED, warmup: int = 5) -> float:
@@ -523,7 +543,7 @@ OWN_KERNELS = ("row_pass_kernel", "col_pass_kernel", "bwd_tail_kernel", "scan_ke
                "wide_scan_store_kernel", "wide_scan_bwd_store_kernel",
                "scan_ck_kernel", "scan_bwd_ck_kernel", "panel_row_kernel", "panel_col_kernel",
                "panel_bwd_row_kernel", "panel_g_row_kernel", "panel_build_col_kernel",
-               "panel_vfused_row_kernel")
+               "panel_vfused_row_kernel", "panel_wide_col_kernel", "panel_wide_bwd_row_kernel")
 
 
 def own_kernels(kernels: dict[str, int]) -> dict[str, int]:
@@ -1132,24 +1152,136 @@ PANEL_SHAPES = ((256, (), False), (256, (2,), False), (256, (2,), True), (2048, 
                 (2048, (2,), False), (2048, (2,), True), (4096, (), False))
 #: the info key (panel_kernel_info) of each kernel family
 PANEL_INFO_KEY = {"panel_row_kernel": "row", "panel_col_kernel": "col",
-                  "panel_bwd_row_kernel": "bwd_row"}
+                  "panel_bwd_row_kernel": "bwd_row", "panel_wide_col_kernel": "wide_col",
+                  "panel_wide_bwd_row_kernel": "wide_bwd_row"}
+
+
+def panel_routed(n: int, b: int) -> dict[str, str]:
+    """The launch-count keys (launch_counts) and kernels of the column and
+    backward row passes that kernels/panel_scan.PANEL_ROUTE picks for B waves
+    at n^2."""
+    from fdes_tpu_torch.kernels import panel_scan as ps
+
+    col, row = ps.panel_route(n, b, "col"), ps.panel_route(n, b, "bwd_row")
+    wide = {"tile": "", "wide": "wide_"}
+    return {"colpass": f"panel_colpass[{col}]", "col_bwd": f"panel_col_bwd[{col}]",
+            "col_kernel": f"panel_{wide[col]}col_kernel",
+            "row_bwd_loop": f"panel_row_bwd_loop[{row}]",
+            "row_bwd_last": f"panel_row_bwd_last[{row}]", "bwd_tail": f"panel_bwd_tail[{row}]",
+            "bwd_kernel": f"panel_{wide[row]}bwd_row_kernel"}
+
+
+#: the (n, waves) of each panel pass on the main paths whose launches a run
+#: records: the column pass in config 5's run, inverse and streamed rollouts
+#: at 2048^2 and the streamed one at 4096^2; its conjugate and the backward
+#: row passes in config 5's inverse
+PANEL_PATH_SHAPES = {"colpass": ((2048, 1), (4096, 1)), "col_bwd": ((2048, 1),),
+                     "row_bwd_loop": ((2048, 1),), "row_bwd_last": ((2048, 1),),
+                     "bwd_tail": ((2048, 1),)}
+
+
+def unrouted_panel_kernels() -> tuple[str, ...]:
+    """The routed passes' kernels ("<wrapper>[route]") that PANEL_ROUTE picks
+    at no shape of the main paths (PANEL_PATH_SHAPES): on no path of this
+    run, exempt like OFF_PATH; their rows keep their times."""
+    routed = {panel_routed(n, b)[key] for key, shapes in PANEL_PATH_SHAPES.items()
+              for n, b in shapes}
+    every = [f"panel_{p}[{r}]" for p in PANEL_PATH_SHAPES for r in ("tile", "wide")]
+    return tuple(name for name in every if name not in routed)
+
+
+@contextlib.contextmanager
+def panel_route_all(route: str):
+    """PANEL_ROUTE with every entry set to ``route`` for both passes, restored
+    after: the config-5 paths timed on one kernel family against the table."""
+    from fdes_tpu_torch.kernels import panel_scan as ps
+
+    saved = {n: dict(rows) for n, rows in ps.PANEL_ROUTE.items()}
+    try:
+        for rows in ps.PANEL_ROUTE.values():
+            for b in rows:
+                rows[b] = (route, route)
+        yield
+    finally:
+        ps.PANEL_ROUTE.update(saved)
+
+
+def busy_by_route(fn) -> dict[str, list[float]]:
+    """Device busy ms of fn with every panel pass on the tile kernels and on
+    the table's kernels, in turns (tile, table, table, tile)."""
+    out: dict[str, list[float]] = {"tile": [], "table": []}
+    for which in ("tile", "table", "table", "tile"):
+        with panel_route_all("tile") if which == "tile" else contextlib.nullcontext():
+            out[which].append(device_busy_ms(fn)[0])
+    return out
+
+
+#: the wave counts of PANEL_ROUTE's rows
+PANEL_ROUTE_WAVES = (1, 2, 4, 8)
+
+
+def panel_route_rows(kind: str, checks: list, sigma: float) -> list[dict]:
+    """Each kernel of a pass timed in turns (three readings of time_launches
+    each) at every (n, waves) row of PANEL_ROUTE: the column pass (kind
+    "col", on a prepared P shared by the waves) or the backward row pass
+    ("bwd_row", kBwdLoop), on "tile" and "wide"; the wide kernels held to the
+    plain version at each row's shape.  Each row names the faster and whether
+    the table picks it, with the pass's bound beside."""
+    from fdes_tpu_torch.kernels import panel_scan as ps
+
+    card = CardInputs(11)
+    rows = []
+    for n in ps.SIZES:
+        plane, fx = panel_cost(n)
+        for b in PANEL_ROUTE_WAVES:
+            a = card.cplx(b, n, n)
+            if kind == "col":
+                pr = card.phases(n, n)
+                pp = ps.prepare_propagator(pr)
+                ref = ps.panel_colpass_ref(a, pr)
+                fns = {r: (lambda r=r: ps._colpass(a, pp, route=r)) for r in ps.ROUTES}
+                # a and b of each wave, P (shared) once
+                cost = (plane * (b * (8 + 8) + 8), b * (2 * fx + 6 * plane))
+            else:
+                vs, s_b = card.real(2, n, n), card.cplx(b, 2, n, n)
+                ref = ps.panel_row_bwd_loop_ref(1, vs, s_b, a, sigma)
+                fns = {r: (lambda r=r: ps.panel_row_bwd_loop(1, vs, s_b, a, sigma, route=r))
+                       for r in ps.ROUTES}
+                # bar, s and out of each wave, V and dV once
+                cost = (plane * (b * (8 + 8 + 8) + 4 + 4), b * (2 * fx + 13 * plane))
+            for route, fn in fns.items():
+                if route != "tile":
+                    check_kernel(checks, f"{kind} route {route}", (b, n, n), fn(), ref, FUSED_TOL,
+                                 route_row=True)
+            del ref
+            med, readings = interleaved_ms(fns, rounds=3, n=10, warmup=2)
+            t_bytes = cost[0] / HBM_BYTES_PER_S * 1e3
+            t_ops = cost[1] / PEAK_OPS_PER_S[torch.float32] * 1e3
+            faster = min(med, key=med.get)
+            rows.append({"n": n, "waves": b, "ms": med, "readings": readings, "faster": faster,
+                         "table": ps.panel_route(n, b, kind),
+                         "table_picks_faster": ps.panel_route(n, b, kind) == faster,
+                         "bound_ms": max(t_bytes, t_ops),
+                         "bound_by": "bytes" if t_bytes >= t_ops else "operations"})
+            del a, fns
+            torch.cuda.empty_cache()
+    return rows
 
 
 def panel_pass_rows(checks: list, passes, cost, replaces: dict,
                     kernel_of: dict) -> tuple[dict, dict]:
     """The panel passes ``passes(n, lead, per_wave_p)`` returns ({name:
-    (kernel, plain)}, the column pass's kernel alone on a prepared P) held
-    to their plain versions at PANEL_SHAPES, then each timed at 2048^2 and
-    4096^2 (one wave; the column pass without P's gather, as the rollout
-    runs it) beside its bound from ``cost(n)`` ({name: (bytes,
-    operations)}); ``kernel_of``: the kernel family of each name not of
-    panel_row_kernel.  Returns (table rows, kernel info by n)."""
+    (kernel, plain)}; the column passes on a prepared P, as the rollout runs
+    them) held to their plain versions at PANEL_SHAPES, then each timed at
+    2048^2 and 4096^2 (one wave) beside its bound from ``cost(n)`` ({name:
+    (bytes, operations)}); ``kernel_of``: the kernel family of each name not
+    of panel_row_kernel.  Returns (table rows, kernel info by n)."""
     from fdes_tpu_torch.kernels import panel_scan as ps
 
     f32 = torch.float32
     errs = {}
     for n, lead, per_wave_p in PANEL_SHAPES:
-        cases, _ = passes(n, lead, per_wave_p)
+        cases = passes(n, lead, per_wave_p)
         for name, (kern, ref) in cases.items():
             err = check_kernel(checks, name, (*lead, n, n), kern(), ref(), FUSED_TOL,
                                per_wave_p=per_wave_p)
@@ -1159,9 +1291,7 @@ def panel_pass_rows(checks: list, passes, cost, replaces: dict,
     family = {name: kernel_of.get(name, "panel_row_kernel") for name in replaces}
     times, info = {}, {}
     for n in (2048, 4096):
-        cases, col_kernel = passes(n, (), False)
-        col = next(name for name in cases if family[name] == "panel_col_kernel")
-        cases[col] = (col_kernel, cases[col][1])
+        cases = passes(n, (), False)
         for name, (kern, ref) in cases.items():
             nbytes, ops = cost(n)[name]
             t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / PEAK_OPS_PER_S[f32] * 1e3
@@ -1175,7 +1305,7 @@ def panel_pass_rows(checks: list, passes, cost, replaces: dict,
             }
         info[n] = {k: ps.panel_kernel_info(n, k) for k in sorted(set(
             PANEL_INFO_KEY[f] for f in family.values()))}
-        del cases, col_kernel
+        del cases
     rows = {}
     for name in replaces:
         t, t4 = times[(name, 2048)], times[(name, 4096)]
@@ -1213,8 +1343,9 @@ def phase_kernels_panel() -> tuple[dict, dict]:
     checks = []
 
     def passes(n, lead, per_wave_p):
-        """{name: (kernel, plain)} of the seven passes on one set of inputs,
-        and the column pass's kernel alone (the propagator gathered once)."""
+        """{name: (kernel, plain)} of the seven passes and the wide column
+        pass on one set of inputs (the column passes on P gathered once, each
+        on its own kernel)."""
         psi, a = card.cplx(*lead, n, n), card.cplx(*lead, n, n)
         vs, vi = card.real(3, n, n), card.real(3, n, n, top=200.0)
         pr = card.phases(*(lead if per_wave_p else ()), n, n)
@@ -1222,8 +1353,8 @@ def phase_kernels_panel() -> tuple[dict, dict]:
         return {
             "panel_init": (lambda: ps.panel_init(vs[0], psi, sigma),
                            lambda: ps.panel_init_ref(vs[0], psi, sigma)),
-            "panel_colpass": (lambda: ps.panel_colpass(a, pr),
-                              lambda: ps.panel_colpass_ref(a, pr)),
+            **{f"panel_colpass[{r}]": (lambda r=r: ps._colpass(a, pp, route=r),
+                                       lambda: ps.panel_colpass_ref(a, pr)) for r in ps.ROUTES},
             "panel_rowpass_stack": (lambda: ps.panel_rowpass_stack(2, vs, a, sigma),
                                     lambda: ps.panel_rowpass_stack_ref(2, vs, a, sigma)),
             "panel_rowpass": (lambda: ps.panel_rowpass(vs[1], a, sigma),
@@ -1234,13 +1365,14 @@ def phase_kernels_panel() -> tuple[dict, dict]:
             "panel_rowpass_stack_abs": (
                 lambda: ps.panel_rowpass_stack_abs(1, vs, vi, a, sigma),
                 lambda: ps.panel_rowpass_stack_abs_ref(1, vs, vi, a, sigma)),
-        }, lambda: ps._colpass(a, pp)
+        }
 
     def cost(n):  # name: (bytes, operations): each input read once, each output written once
         plane, fx = panel_cost(n)
         return {
             "panel_init": (plane * (8 + 4 + 8), fx + 9 * plane),
-            "panel_colpass": (plane * (8 + 8 + 8), 2 * fx + 6 * plane),
+            **dict.fromkeys(("panel_colpass[tile]", "panel_colpass[wide]"),
+                            (plane * (8 + 8 + 8), 2 * fx + 6 * plane)),
             "panel_rowpass_stack": (plane * (8 + 4 + 8), 2 * fx + 9 * plane),
             "panel_rowpass": (plane * (8 + 4 + 8), 2 * fx + 9 * plane),
             "panel_final": (plane * (8 + 8), fx),
@@ -1250,7 +1382,8 @@ def phase_kernels_panel() -> tuple[dict, dict]:
 
     replaces = {
         "panel_init": "fdes_tpu/pallas/panel_scan.py:82",
-        "panel_colpass": "fdes_tpu/pallas/panel_scan.py:247",
+        "panel_colpass[tile]": "fdes_tpu/pallas/panel_scan.py:247",
+        "panel_colpass[wide]": "fdes_tpu/pallas/panel_scan.py:247",
         "panel_rowpass_stack": "fdes_tpu/pallas/panel_scan.py:125",
         "panel_rowpass": "fdes_tpu/pallas/panel_scan.py:101",
         "panel_final": "fdes_tpu/pallas/panel_scan.py:194",
@@ -1258,7 +1391,9 @@ def phase_kernels_panel() -> tuple[dict, dict]:
         "panel_rowpass_stack_abs": "fdes_tpu/pallas/panel_scan.py:171",
     }
     rows, info = panel_pass_rows(checks, passes, cost, replaces,
-                                 {"panel_colpass": "panel_col_kernel"})
+                                 {"panel_colpass[tile]": "panel_col_kernel",
+                                  "panel_colpass[wide]": "panel_wide_col_kernel"})
+    route_rows = panel_route_rows("col", checks, sigma)
 
     # ---- the rollout: 2048^2 x 8 slices, real and absorptive V; 256^2 x 3
     # slices with two waves and a per-wave propagator
@@ -1274,11 +1409,11 @@ def phase_kernels_panel() -> tuple[dict, dict]:
                  ps.panel_scan_ref(psi_b, v_b, pr_b, sigma), scan_tol(3), per_wave_p=True)
     rollout_kernels = expect_own_kernels(
         "panel_scan", lambda: ps.panel_scan(psi0, vs, prop, sigma),
-        {"panel_row_kernel": 9, "panel_col_kernel": 8})
+        {"panel_row_kernel": 9, panel_routed(n, 1)["col_kernel"]: 8})
     del psi0, vs, prop
 
     line = {"phase": "kernels_panel", "checks": checks, "rollout_kernels_per_call": rollout_kernels,
-            "panel_kernel_info": info,
+            "panel_kernel_info": info, "route_rows": route_rows,
             "scan_kernel_info": {n: fsc.scan_kernel_info(n) for n in (512, 1024)},
             "adjoint_kernel_info": {k: adj.adjoint_kernel_info(512, k) for k in SCAN_FOOTPRINT
                                     if k != "scan_kernel"}}
@@ -1311,56 +1446,72 @@ def phase_kernels_panel_grad() -> tuple[dict, dict]:
     checks = []
 
     def passes(n, lead, per_wave_p):
-        """{name: (kernel, plain)} of the seven passes on one set of inputs
-        (dV and dpsi or s are held together), and the conjugate column
-        pass's kernel alone (the propagator gathered once)."""
+        """{name: (kernel, plain)} of the seven passes and the wide kernels'
+        four on one set of inputs (dV and dpsi or s are held together; the
+        conjugate column passes on P gathered once), each pass of the column
+        and backward row families on its own kernel."""
         psi, a, s0 = card.cplx(*lead, n, n), card.cplx(*lead, n, n), card.cplx(*lead, n, n)
         vs, s = card.real(3, n, n), card.cplx(*lead, 3, n, n)
         pr = card.phases(*(lead if per_wave_p else ()), n, n)
         pp = ps.prepare_propagator(pr)
-        return {
+        cases = {
             "panel_rowfwd": (lambda: ps.panel_rowfwd(a), lambda: ps.panel_rowfwd_ref(a)),
-            "panel_bwd_tail": (lambda: ps.panel_bwd_tail(vs[1], psi, a, sigma),
-                               lambda: ps.panel_bwd_tail_ref(vs[1], psi, a, sigma)),
             "panel_init_store": (lambda: ps.panel_init_store(vs[0], psi, sigma),
                                  lambda: ps.panel_init_store_ref(vs[0], psi, sigma)),
             "panel_rowpass_stack_store": (
                 lambda: ps.panel_rowpass_stack_store(2, vs, a, sigma),
                 lambda: ps.panel_rowpass_stack_store_ref(2, vs, a, sigma)),
-            "panel_col_bwd": (lambda: ps.panel_col_bwd(a, pr),
-                              lambda: ps.panel_col_bwd_ref(a, pr)),
-            "panel_row_bwd_loop": (lambda: ps.panel_row_bwd_loop(2, vs, s, a, sigma),
-                                   lambda: ps.panel_row_bwd_loop_ref(2, vs, s, a, sigma)),
-            "panel_row_bwd_last": (lambda: ps.panel_row_bwd_last(vs[0], s0, a, sigma),
-                                   lambda: ps.panel_row_bwd_last_ref(vs[0], s0, a, sigma)),
-        }, lambda: ps._colpass(a, pp, conj=True)
+        }
+        for r in ps.ROUTES:
+            cases.update({
+                f"panel_bwd_tail[{r}]": (
+                    lambda r=r: ps.panel_bwd_tail(vs[1], psi, a, sigma, route=r),
+                    lambda: ps.panel_bwd_tail_ref(vs[1], psi, a, sigma)),
+                f"panel_col_bwd[{r}]": (lambda r=r: ps._colpass(a, pp, True, route=r),
+                                        lambda: ps.panel_col_bwd_ref(a, pr)),
+                f"panel_row_bwd_loop[{r}]": (
+                    lambda r=r: ps.panel_row_bwd_loop(2, vs, s, a, sigma, route=r),
+                    lambda: ps.panel_row_bwd_loop_ref(2, vs, s, a, sigma)),
+                f"panel_row_bwd_last[{r}]": (
+                    lambda r=r: ps.panel_row_bwd_last(vs[0], s0, a, sigma, route=r),
+                    lambda: ps.panel_row_bwd_last_ref(vs[0], s0, a, sigma)),
+            })
+        return cases
 
     def cost(n):  # name: (bytes, operations): each input read once, each output written once
         plane, fx = panel_cost(n)
-        return {
+        out = {
             "panel_rowfwd": (plane * (8 + 8), fx),
-            "panel_bwd_tail": (plane * (8 + 8 + 4 + 8 + 4), fx + 22 * plane),
             "panel_init_store": (plane * (8 + 4 + 8 + 8), fx + 9 * plane),
             "panel_rowpass_stack_store": (plane * (8 + 4 + 8 + 8), 2 * fx + 9 * plane),
-            "panel_col_bwd": (plane * (8 + 8 + 8), 2 * fx + 6 * plane),
-            "panel_row_bwd_loop": (plane * (8 + 8 + 4 + 8 + 4), 2 * fx + 13 * plane),
-            "panel_row_bwd_last": (plane * (8 + 8 + 4 + 8 + 4), fx + 13 * plane),
         }
+        for r in ("tile", "wide"):
+            out.update({
+                f"panel_bwd_tail[{r}]": (plane * (8 + 8 + 4 + 8 + 4), fx + 22 * plane),
+                f"panel_col_bwd[{r}]": (plane * (8 + 8 + 8), 2 * fx + 6 * plane),
+                f"panel_row_bwd_loop[{r}]": (plane * (8 + 8 + 4 + 8 + 4), 2 * fx + 13 * plane),
+                f"panel_row_bwd_last[{r}]": (plane * (8 + 8 + 4 + 8 + 4), fx + 13 * plane),
+            })
+        return out
 
     replaces = {
         "panel_rowfwd": "fdes_tpu/pallas/panel_scan.py:206",
-        "panel_bwd_tail": "fdes_tpu/pallas/panel_scan.py:219",
         "panel_init_store": "fdes_tpu/pallas/panel_scan.py:582",
         "panel_rowpass_stack_store": "fdes_tpu/pallas/panel_scan.py:603",
-        "panel_col_bwd": "fdes_tpu/pallas/panel_scan.py:626",
-        "panel_row_bwd_loop": "fdes_tpu/pallas/panel_scan.py:650",
-        "panel_row_bwd_last": "fdes_tpu/pallas/panel_scan.py:679",
     }
-    bwd = "panel_bwd_row_kernel"
-    rows, info = panel_pass_rows(
-        checks, passes, cost, replaces,
-        {"panel_col_bwd": "panel_col_kernel", "panel_bwd_tail": bwd, "panel_row_bwd_loop": bwd,
-         "panel_row_bwd_last": bwd})
+    kernel_of = {}
+    for r, w in (("tile", ""), ("wide", "wide_")):
+        replaces.update({
+            f"panel_bwd_tail[{r}]": "fdes_tpu/pallas/panel_scan.py:219",
+            f"panel_col_bwd[{r}]": "fdes_tpu/pallas/panel_scan.py:626",
+            f"panel_row_bwd_loop[{r}]": "fdes_tpu/pallas/panel_scan.py:650",
+            f"panel_row_bwd_last[{r}]": "fdes_tpu/pallas/panel_scan.py:679",
+        })
+        kernel_of.update({f"panel_col_bwd[{r}]": f"panel_{w}col_kernel",
+                          **{f"panel_{p}[{r}]": f"panel_{w}bwd_row_kernel"
+                             for p in ("bwd_tail", "row_bwd_loop", "row_bwd_last")}})
+    rows, info = panel_pass_rows(checks, passes, cost, replaces, kernel_of)
+    route_rows = panel_route_rows("bwd_row", checks, sigma)
 
     # ---- the store pair: 2048^2 x 8 slices, one wave; 256^2 x 3, two waves
     # with a per-wave propagator; dV and dpsi0 the same bits in two runs
@@ -1380,18 +1531,20 @@ def phase_kernels_panel_grad() -> tuple[dict, dict]:
         again = ps.panel_scan_bwd_store(s, vs, prop, g, sigma)
         bitwise[f"{b}x{nslices}x{n}"] = all(torch.equal(x, y) for x, y in zip(got, again))
         if n == 2048:
+            routed = panel_routed(n, b)
             store_kernels = expect_own_kernels(
                 "panel_scan_store", lambda: ps.panel_scan_store(psi0, vs, prop, sigma),
-                {"panel_row_kernel": nslices + 1, "panel_col_kernel": nslices})
+                {"panel_row_kernel": nslices + 1, routed["col_kernel"]: nslices})
             bwd_kernels = expect_own_kernels(
                 "panel_scan_bwd_store", lambda: ps.panel_scan_bwd_store(s, vs, prop, g, sigma),
-                {"panel_row_kernel": 1, "panel_col_kernel": nslices, bwd: nslices})
+                {"panel_row_kernel": 1, routed["col_kernel"]: nslices,
+                 routed["bwd_kernel"]: nslices})
         del psi0, vs, g, prop, out, s, got, again
     if not all(bitwise.values()):
         raise AssertionError(f"panel_scan_bwd_store: two runs differ: {bitwise}")
     line = {"phase": "kernels_panel_grad", "checks": checks, "dv_bitwise_equal": bitwise,
             "store_kernels_per_call": store_kernels, "bwd_kernels_per_call": bwd_kernels,
-            "panel_kernel_info": info}
+            "panel_kernel_info": info, "route_rows": route_rows}
     return line, rows
 
 
@@ -1507,8 +1660,9 @@ def phase_kernels_panel_stream() -> tuple[dict, dict]:
     reset_launches()
     got = ps.panel_streamed(psi0, atoms, ff, prop, sigma, **kw)
     counted = {k: c for k, c in launch_counts().items() if c}
+    routed = panel_routed(n, 1)
     want_counts = {"panel_streamed": 1, "panel_g_rowpass": nslices,
-                   "panel_build_colpass": nslices, "panel_colpass": nslices,
+                   "panel_build_colpass": nslices, routed["colpass"]: nslices,
                    "panel_vfused_rowpass": nslices - 1, "panel_final": 2, "panel_init": 1}
     if counted != want_counts:
         raise AssertionError(f"panel_streamed launches {counted}, expected {want_counts}")
@@ -1524,7 +1678,7 @@ def phase_kernels_panel_stream() -> tuple[dict, dict]:
         raise AssertionError(f"panel_streamed vs xla's streamed rollout: {vs_xla:.3e}")
     streamed_kernels = expect_own_kernels(
         "panel_streamed", lambda: ps.panel_streamed(psi0, atoms, ff, prop, sigma, **kw),
-        {"panel_row_kernel": 3, "panel_col_kernel": nslices, "panel_g_row_kernel": nslices,
+        {"panel_row_kernel": 3, routed["col_kernel"]: nslices, "panel_g_row_kernel": nslices,
          "panel_build_col_kernel": nslices, "panel_vfused_row_kernel": nslices - 1},
         everything=True)
     if any("fft" in k.lower() for k in streamed_kernels):
@@ -2304,12 +2458,14 @@ C5 = ("--set", "sim.ny=2048", "--set", "sim.nx=2048", "--set", "sim.nslices=512"
 C5_VARIANT_TOL = 2 * LONG_ROLLOUT_TOL
 
 
-def c5_expected_launches(zero: dict, nslices: int, absorptive: bool = False) -> dict:
-    """The panel wrappers' counts of one rollout of nslices slices."""
+def c5_expected_launches(zero: dict, nslices: int, absorptive: bool = False,
+                         waves: int = 1) -> dict:
+    """The panel wrappers' counts of one rollout of nslices slices of B
+    waves at 2048^2 (the column passes on the kernel PANEL_ROUTE picks)."""
     init, row = (("panel_init_abs", "panel_rowpass_stack_abs") if absorptive
                  else ("panel_init", "panel_rowpass_stack"))
-    return {**zero, "panel_scan": 1, init: 1, "panel_colpass": nslices, row: nslices - 1,
-            "panel_final": 1}
+    return {**zero, "panel_scan": 1, init: 1, panel_routed(2048, waves)["colpass"]: nslices,
+            row: nslices - 1, "panel_final": 1}
 
 
 def phase_c5(tmp: str, gpu: str) -> tuple[dict, dict]:
@@ -2383,7 +2539,8 @@ def phase_c5(tmp: str, gpu: str) -> tuple[dict, dict]:
     # kernel (counted where the profiler caught every launch)
     rollout_kernels = expect_own_kernels(
         "c5 panel rollout", rollout,
-        {"panel_row_kernel": nslices + 1, "panel_col_kernel": nslices}, everything=True)
+        {"panel_row_kernel": nslices + 1, panel_routed(n, 1)["col_kernel"]: nslices},
+        everything=True)
     for e in ("panel", "xla", "pallas"):
         busy, n_kernels = device_busy_ms(
             lambda e=e: hrtem_defocus_series(sim.v_stack, sim.psi0, sim.propagator, sim.sigma,
@@ -2391,12 +2548,18 @@ def phase_c5(tmp: str, gpu: str) -> tuple[dict, dict]:
         runs[e]["device_busy_ms"] = busy
         runs[e]["kernels"] = n_kernels
         runs[e]["device_idle_share"] = max(0.0, 1.0 - busy / (runs[e]["run_s"] * 1e3))
+    # the series' busy time with every column pass on the tile kernel and on
+    # the table's, in turns
+    series_busy_by_route = busy_by_route(
+        lambda: hrtem_defocus_series(sim.v_stack, sim.psi0, sim.propagator, sim.sigma,
+                                     sim.ctf_stack, slice_step=steps["panel"]))
     del sim, waves
     line = {
         "phase": "c5", "config": "examples/si110_hrtem.toml " + " ".join(C5[1::2]),
         "runs": runs, "rel_norm_vs_complex128": dist, "wave_tol": wave_tol,
         "images_rel_err_vs_xla": img_err, "img_tol": img_tol,
-        "rollout_kernels": rollout_kernels, "gpu": gpu,
+        "rollout_kernels": rollout_kernels, "series_busy_ms_by_route": series_busy_by_route,
+        "gpu": gpu,
     }
     if any("fft" in k.lower() for k in rollout_kernels):
         raise AssertionError(f"c5 panel rollout kernels: {rollout_kernels}")
@@ -2410,16 +2573,17 @@ def phase_c5(tmp: str, gpu: str) -> tuple[dict, dict]:
     # at that one; the host's CTF stack is most of a run's setup)
     c5_64 = (*C5[:4], "--set", "sim.nslices=64", *C5[6:])
     one_defocus = ("--set", "optics.defoci_A=[-400.0]")
-    variants = {  # name: (config file, extra settings, output, absorptive)
+    variants = {  # name: (config file, extra settings, output, absorptive, waves)
         "tilt4": (CONFIG, ("--set", "sim.tilt_series_rad=[[0.0,0.0],[0.002,-0.001],"
-                           "[-0.001,0.002],[0.001,0.001]]", *one_defocus), "images.npy", False),
+                           "[-0.001,0.002],[0.001,0.001]]", *one_defocus), "images.npy", False,
+                  4),
         "stem2x2": (CONFIG_STEM, ("--set", "stem.scan_ny=2", "--set", "stem.scan_nx=2",
-                                  "--set", "stem.probe_chunk=4"), "stem.npy", False),
+                                  "--set", "stem.probe_chunk=4"), "stem.npy", False, 4),
         "absorptive": (CONFIG, ("--set", "sim.absorptive_factor=0.1", *one_defocus),
-                       "images.npy", True),
+                       "images.npy", True, 1),
     }
     line["variants"] = {}
-    for name, (config, extra, output, absorptive) in variants.items():
+    for name, (config, extra, output, absorptive, nwaves) in variants.items():
         reset_launches()
         out, timing = run_cli(tmp, f"c5_{name}_panel", *c5_64, *extra, "--set",
                               "sim.engine=panel", config=config)
@@ -2431,7 +2595,7 @@ def phase_c5(tmp: str, gpu: str) -> tuple[dict, dict]:
         line["variants"][name] = {"shape": list(a.shape), "rel_err_vs_xla": err,
                                   "tol": C5_VARIANT_TOL, "engine_kind": timing["engine_kind"],
                                   "run_s": {"panel": timing["run_s"], "xla": timing_x["run_s"]}}
-        if launches[name] != c5_expected_launches(zero, 64, absorptive):
+        if launches[name] != c5_expected_launches(zero, 64, absorptive, nwaves):
             raise AssertionError(f"c5 {name} on panel: launches {launches[name]}")
         if (timing["engine_kind"] != "panel" or not np.isfinite(a).all()
                 or not err <= C5_VARIANT_TOL):
@@ -2451,14 +2615,17 @@ C5_GRAD_TOL = 2e-4
 
 def c5_invert_expected(zero: dict, nslices: int, iterations: int) -> dict:
     """The panel wrappers' counts of config 5's inverse on panel: the
-    self-test series (one panel_scan), then per iteration the store pair."""
+    self-test series (one panel_scan), then per iteration the store pair,
+    each column and backward row pass on the kernel PANEL_ROUTE picks for one
+    wave at 2048^2."""
+    r = panel_routed(2048, 1)
     return {**zero, "panel_scan": 1, "panel_init": 1, "panel_rowpass_stack": nslices - 1,
-            "panel_colpass": nslices * (1 + iterations), "panel_final": 1 + iterations,
+            r["colpass"]: nslices * (1 + iterations), "panel_final": 1 + iterations,
             "panel_scan_store": iterations, "panel_init_store": iterations,
             "panel_rowpass_stack_store": iterations * (nslices - 1),
             "panel_scan_bwd_store": iterations, "panel_rowfwd": iterations,
-            "panel_col_bwd": iterations * nslices,
-            "panel_row_bwd_loop": iterations * (nslices - 1), "panel_row_bwd_last": iterations}
+            r["col_bwd"]: iterations * nslices,
+            r["row_bwd_loop"]: iterations * (nslices - 1), r["row_bwd_last"]: iterations}
 
 
 def rel_norm_by_slice(a: torch.Tensor, b: torch.Tensor) -> float:
@@ -2516,7 +2683,7 @@ def phase_c5_invert(tmp: str, gpu: str) -> tuple[dict, dict]:
     first_err = abs(ls[0] - losses["xla"][0]) / abs(losses["xla"][0])
     if not first_err <= C5_GRAD_TOL:
         raise AssertionError(f"c5 invert first loss panel vs xla: {first_err:.3e}")
-    grad_passes = sum(c for k, c in launches["panel"].items() if k in (
+    grad_passes = sum(c for k, c in launches["panel"].items() if k.split("[")[0] in (
         "panel_init_store", "panel_colpass", "panel_rowpass_stack_store", "panel_final",
         "panel_rowfwd", "panel_col_bwd", "panel_row_bwd_loop", "panel_row_bwd_last"))
     grad_passes -= s + 1  # the self-test series' column and final passes
@@ -2550,6 +2717,7 @@ def phase_c5_invert(tmp: str, gpu: str) -> tuple[dict, dict]:
     finite = all_finite((loss_p, dv_p)) and float(dv_p.abs().max()) > 0
     del dv_p, dv_x
     busy, n_kernels = device_busy_ms(grad("panel", v_half, i_obs))
+    grad_busy_by_route = busy_by_route(grad("panel", v_half, i_obs))
 
     def rollout_grad(nslices):
         def run():  # device_kernels runs fn under no_grad
@@ -2566,9 +2734,10 @@ def phase_c5_invert(tmp: str, gpu: str) -> tuple[dict, dict]:
     # and then lacks its first few dozen, and never holds an extra one; the
     # 512-slice pass counts are the wrappers' (above).
     rollout_kernels = device_kernels(rollout_grad(s))
+    routed = panel_routed(2048, 1)
     rollout_kernels_64 = expect_own_kernels(
         "c5 panel gradient, 64 slices", rollout_grad(64),
-        {"panel_row_kernel": 66, "panel_col_kernel": 128, "panel_bwd_row_kernel": 64},
+        {"panel_row_kernel": 66, routed["col_kernel"]: 128, routed["bwd_kernel"]: 64},
         everything=True)
 
     # ---- the per-slice route (past the store cap) against the store route, 64 slices
@@ -2584,8 +2753,8 @@ def phase_c5_invert(tmp: str, gpu: str) -> tuple[dict, dict]:
         launches["per_slice"] = launch_counts()
     finally:
         adj.STORE_CAP_BYTES = cap
-    per_slice_expect = {**zero, "panel_init": 128, "panel_colpass": 128, "panel_final": 128,
-                        "panel_rowfwd": 64, "panel_col_bwd": 64, "panel_bwd_tail": 64}
+    per_slice_expect = {**zero, "panel_init": 128, routed["colpass"]: 128, "panel_final": 128,
+                        "panel_rowfwd": 64, routed["col_bwd"]: 64, routed["bwd_tail"]: 64}
     per_slice_err = {"dv": rel_norm(dv_r, dv_s),
                      "loss": abs(float(loss_r) - float(loss_s)) / abs(float(loss_s))}
     del sim, v_half, i_obs, obs64, dv_s, dv_r
@@ -2599,6 +2768,7 @@ def phase_c5_invert(tmp: str, gpu: str) -> tuple[dict, dict]:
         "iters_per_s_loop": timing["iters_per_s"],
         "grad_loss_rel_err_vs_xla": loss_err, "grad_dv_rel_err_vs_xla": grad_err,
         "grad_device_busy_ms": busy, "grad_kernels": n_kernels,
+        "grad_busy_ms_by_route": grad_busy_by_route,
         "device_idle_share": max(0.0, 1.0 - busy / (timing["median_step_s"] * 1e3)),
         "peak_gib": timing["peak_bytes"] / 2**30,
         "rollout_grad_own_kernels": own_kernels(rollout_kernels),
@@ -2631,13 +2801,14 @@ C5_STREAMED_PEAK = 4 * 2**30
 C5_STREAMED_TOL = 2e-4
 
 
-def c5_streamed_expected(zero: dict, nslices: int) -> dict:
-    """The panel wrappers' counts of one streamed rollout of nslices slices:
-    per slice the g row pass, the build column pass and the column pass,
-    the fused row pass for every slice after the first; slice 0's V by
-    panel_final, panel_init, and the closing panel_final."""
+def c5_streamed_expected(zero: dict, nslices: int, n: int = 2048, waves: int = 1) -> dict:
+    """The panel wrappers' counts of one streamed rollout of nslices slices
+    of B waves at n^2: per slice the g row pass, the build column pass and
+    the column pass (on the kernel PANEL_ROUTE picks), the fused row pass for
+    every slice after the first; slice 0's V by panel_final, panel_init, and
+    the closing panel_final."""
     return {**zero, "panel_streamed": 1, "panel_g_rowpass": nslices,
-            "panel_build_colpass": nslices, "panel_colpass": nslices,
+            "panel_build_colpass": nslices, panel_routed(n, waves)["colpass"]: nslices,
             "panel_vfused_rowpass": nslices - 1, "panel_final": 2, "panel_init": 1}
 
 
@@ -2669,8 +2840,8 @@ def phase_c5_streamed(tmp: str, gpu: str) -> tuple[dict, dict]:
     xla's; the rollout's kernels (exact at 32 slices, no FFT library kernel
     at 512) and device busy time; then 4096^2 x 512 slices on panel and xla
     (the size whose stack does not fit), and a 4-tilt series at 2048^2 x 64
-    slices, panel against xla.  Returns (line, launches of the 2048^2 panel
-    run)."""
+    slices, panel against xla.  Returns (line, launches of the 2048^2 and
+    4096^2 panel runs)."""
     from fdes_tpu_torch.config import apply_overrides, load_config
     from fdes_tpu_torch.pipeline import setup, streamed_inputs
     from fdes_tpu_torch.propagate import make_slice_step, multislice, multislice_streamed
@@ -2718,8 +2889,9 @@ def phase_c5_streamed(tmp: str, gpu: str) -> tuple[dict, dict]:
     # drops events of long traces; the 512-slice profile is read for names
     kernels_32 = expect_own_kernels(
         "c5_streamed rollout (32 slices)", lambda: rollout(32),
-        {"panel_row_kernel": 3, "panel_col_kernel": 32, "panel_g_row_kernel": 32,
-         "panel_build_col_kernel": 32, "panel_vfused_row_kernel": 31}, everything=True)
+        {"panel_row_kernel": 3, panel_routed(2048, 1)["col_kernel"]: 32,
+         "panel_g_row_kernel": 32, "panel_build_col_kernel": 32, "panel_vfused_row_kernel": 31},
+        everything=True)
     kernels_512 = device_kernels(rollout)
     if any("fft" in k.lower() for k in (*kernels_32, *kernels_512)):
         raise AssertionError(f"c5_streamed rollout kernels: {kernels_512}")
@@ -2732,6 +2904,7 @@ def phase_c5_streamed(tmp: str, gpu: str) -> tuple[dict, dict]:
         runs[e]["device_busy_ms"] = busy
         runs[e]["kernels"] = n_kernels
         runs[e]["device_idle_share"] = max(0.0, 1.0 - busy / (runs[e]["run_s"] * 1e3))
+    rollout_busy_by_route = busy_by_route(rollout)
     del sim, atoms, ff
 
     # the materialised complex128 rollout of the same specimen, grid and slices
@@ -2754,8 +2927,10 @@ def phase_c5_streamed(tmp: str, gpu: str) -> tuple[dict, dict]:
         wave, big[e], cnt = streamed_cli_run(tmp, f"c5s4096_{e}", *c5_4096, "--set",
                                              f"sim.engine={e}")
         waves[f"4096_{e}"] = wave
-        if e == "panel" and cnt != c5_streamed_expected(zero, nslices):
-            raise AssertionError(f"c5_streamed 4096^2 on panel: launches {big[e]['launches']}")
+        if e == "panel":
+            counts["4096"] = cnt
+            if cnt != c5_streamed_expected(zero, nslices, 4096):
+                raise AssertionError(f"c5_streamed 4096^2 on panel: launches {big[e]['launches']}")
     err["4096_panel_vs_xla"] = rel_norm(torch.as_tensor(waves.pop("4096_panel"), device="cuda"),
                                         torch.as_tensor(waves.pop("4096_xla"), device="cuda"))
 
@@ -2766,7 +2941,7 @@ def phase_c5_streamed(tmp: str, gpu: str) -> tuple[dict, dict]:
     for e in ("panel", "xla"):
         waves[f"tilt_{e}"], tilts[e], cnt = streamed_cli_run(tmp, f"c5s_tilt_{e}", *tilt,
                                                              "--set", f"sim.engine={e}")
-        if e == "panel" and cnt != c5_streamed_expected(zero, 64):
+        if e == "panel" and cnt != c5_streamed_expected(zero, 64, 2048, 4):
             raise AssertionError(f"c5_streamed tilt on panel: launches {tilts[e]['launches']}")
     err["tilt4_panel_vs_xla"] = rel_norm(torch.as_tensor(waves["tilt_panel"], device="cuda"),
                                          torch.as_tensor(waves["tilt_xla"], device="cuda"))
@@ -2777,7 +2952,8 @@ def phase_c5_streamed(tmp: str, gpu: str) -> tuple[dict, dict]:
         "rel_norm_vs_complex128": dist, "wave_tol": wave_tol, "tol_vs_xla": C5_STREAMED_TOL,
         "variant_tol": C5_VARIANT_TOL, "peak_limit_bytes": C5_STREAMED_PEAK,
         "rollout_kernels_32": own_kernels(kernels_32),
-        "rollout_kernels_512": own_kernels(kernels_512), "gpu": gpu,
+        "rollout_kernels_512": own_kernels(kernels_512),
+        "rollout_busy_ms_by_route": rollout_busy_by_route, "gpu": gpu,
     }
     if waves["tilt_panel"].shape != (4, 2048, 2048) or waves["panel"].shape != (2048, 2048):
         raise AssertionError(f"c5_streamed exit waves {waves['panel'].shape}, "
@@ -2792,7 +2968,7 @@ def phase_c5_streamed(tmp: str, gpu: str) -> tuple[dict, dict]:
             and err["4096_panel_vs_xla"] <= C5_STREAMED_TOL
             and err["tilt4_panel_vs_xla"] <= C5_VARIANT_TOL):
         raise AssertionError(f"c5_streamed exit waves: {err}")
-    return line, counts["panel"]
+    return line, {"2048": counts["panel"], "4096": counts["4096"]}
 
 
 def phase_phonon(tmp: str, gpu: str) -> dict:
@@ -3013,22 +3189,25 @@ ROW_PHASES = {
     "fused_scan_ck": ("grad_fscan_seg",),
     "fused_scan_bwd_ck": ("grad_fscan_seg",),
     "panel_init": ("c5",),
-    "panel_colpass": ("c5",),
     "panel_rowpass_stack": ("c5",),
     "panel_rowpass": ("c5",),
     "panel_final": ("c5",),
     "panel_init_abs": ("c5_absorptive",),
     "panel_rowpass_stack_abs": ("c5_absorptive",),
     "panel_rowfwd": ("c5_invert", "c5_invert_per_slice"),
-    "panel_bwd_tail": ("c5_invert_per_slice",),
     "panel_init_store": ("c5_invert",),
     "panel_rowpass_stack_store": ("c5_invert",),
-    "panel_col_bwd": ("c5_invert", "c5_invert_per_slice"),
-    "panel_row_bwd_loop": ("c5_invert",),
-    "panel_row_bwd_last": ("c5_invert",),
     "panel_g_rowpass": ("c5_streamed",),
     "panel_build_colpass": ("c5_streamed",),
     "panel_vfused_rowpass": ("c5_streamed",),
+    # the column and backward row passes run one of two kernels each, by the
+    # route table, counted as "<wrapper>[route]"
+    **{f"{name}[{r}]": phases for name, phases in (
+        ("panel_colpass", ("c5", "c5_invert", "c5_streamed", "c5_streamed_4096")),
+        ("panel_col_bwd", ("c5_invert", "c5_invert_per_slice")),
+        ("panel_row_bwd_loop", ("c5_invert",)),
+        ("panel_row_bwd_last", ("c5_invert",)),
+        ("panel_bwd_tail", ("c5_invert_per_slice",))) for r in ("tile", "wide")},
 }
 #: kernels on no path, exempt from the check that each kernel of a path was
 #: launched there: _row_mid_kernel has no caller in fdes_tpu (a building
@@ -3134,7 +3313,8 @@ def main(argv=None) -> int:
                                  c5_invert_per_slice=by_run["per_slice"])
             emit(line)
         if "c5_streamed" in phases:
-            line, path_launches["c5_streamed"] = timed(phase_c5_streamed, tmp, gpu)
+            line, by_size = timed(phase_c5_streamed, tmp, gpu)
+            path_launches.update(c5_streamed=by_size["2048"], c5_streamed_4096=by_size["4096"])
             emit(line)
         if "phonon" in phases:
             emit(timed(phase_phonon, tmp, gpu))
@@ -3148,7 +3328,7 @@ def main(argv=None) -> int:
         if ph is not None:
             row["launches"], row["launches_phase"] = path_launches[ph][name], ph
     if set(PHASES) <= set(phases):
-        off_path = OFF_PATH + unrouted_store_kernels()
+        off_path = OFF_PATH + unrouted_store_kernels() + unrouted_panel_kernels()
         idle = [name for name, row in rows.items()
                 if name not in off_path and not row["launches"]]
         if idle:

@@ -824,11 +824,13 @@ __device__ void wide_col_item(float2* tile, const float2* tw, float2* plane, int
   __syncthreads();  // the next item reuses the tile
 }
 
-// Blocks of a cooperative kernel (kThreads threads, static shared memory only)
-// that can be resident at once on this device.
-inline int resident_blocks_of(const void* kernel, int device, int* blocks) {
+// Blocks of `kernel` (`threads` a block, `bytes` of dynamic shared memory;
+// a cooperative kernel's defaults) that can be resident at once on this device.
+inline int resident_blocks_of(const void* kernel, int device, int* blocks, int threads = kThreads,
+                              size_t bytes = 0) {
   int per_sm = 0;
-  cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, 0);
+  cudaError_t err =
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, bytes);
   if (err != cudaSuccess) return err;
   int sms = 0;
   err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);

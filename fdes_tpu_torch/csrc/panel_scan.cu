@@ -21,6 +21,12 @@
 //   panel_g_row_kernel<L>                   _row_g_kernel              (:1045)
 //   panel_build_col_kernel<L>               _col_build_kernel          (:1058)
 //   panel_vfused_row_kernel<L>              _row_vfused_kernel         (:1086)
+// and, redesigned for the H100 beside the first kernels of those rows,
+//   panel_wide_col_kernel<L, C>             _col_kernel (:247) and _col_bwd_kernel (:626)
+//   panel_wide_bwd_row_kernel<L, MODE>      _row_bwd_loop_kernel (:650), _row_bwd_last_kernel
+//                                           (:679) and _row_bwd_tail_kernel (:219)
+// (kernels/panel_scan.PANEL_ROUTE picks one kernel of each pair before the
+// launch, by size and waves; the entry points take the choice as `route`),
 // and the whole loops _run_single / _run_single_abs (the rollout),
 // _panel_loop_fwd and _panel_loop_bwd (the store-s gradient) as
 // fdes_panel_scan_c64, fdes_panel_scan_store_c64 and
@@ -113,6 +119,20 @@
 // 95 us at 2048^2): radix-2 stages through shared memory, and a column tile
 // of 4 x 2048 (77 KB) leaves 2 blocks per SM to hide the loads; a backward
 // row pass of one wave has one block per row tile, 1,024 at 2048^2.
+//
+// The wide kernels (below, "the wide kernels") redo the column pass (bound
+// 31 us at 2048^2, 120 us at 4096^2: 24 bytes a pixel) and the backward row
+// pass (40 and 160 us: 32 bytes a pixel) on a transform held in registers.
+// Against what held the tile kernels back: the 8 shared-memory round trips of
+// a panel and its 9 block barriers become 2 exchanges a transform behind the
+// group's own barriers, with the staged twiddle table (conflict-free reads);
+// the column kernel's blocks stay resident (one an SM) and copy the next
+// item into a second stage (cp.async) while they transform this one, and P
+// is loaded with the item, not after the forward transform (but at 4096^2,
+// where registers run out); the backward row kernel loads bar, s and V
+// before the inverse transform, 256 contiguous bytes a warp instruction, and
+// its 256-thread blocks (two row groups at 2048^2) walk over the rows, so a
+// wave fills whole rounds of resident blocks but the last row of a group.
 //
 // Layout: PyTorch's interleaved complex64 (float2), C-contiguous, 16-byte
 // aligned; N in {256, 512, 1024, 2048, 4096}; planes are (nwaves, N, N);
@@ -240,6 +260,367 @@ panel_bwd_row_kernel(const float2* src, float2* dst, const float2* s, int64_t s_
       *reinterpret_cast<float2*>(dv + r + 2 * i) = make_float2(sigma * acc[m].x, sigma * acc[m].y);
     }
   }
+}
+
+// ---- the wide kernels: rows 14/24 and 25 (21, 26) redesigned -----------------
+//
+// The column pass and the backward row pass again, each 1-D transform held in
+// the registers of a group of T = N/R threads (R values a thread: 8 up to 512
+// points, 16 above; T = 32 to 256 threads, one to eight warps) from load to
+// store.  A transform is three rounds of radix-2 stages in registers, each on
+// the bits of the position that the thread's registers hold, with one
+// exchange through the group's buffer in shared memory between rounds that
+// hands each thread the next round's elements, behind named barriers of T
+// threads: no shuffle stage and no block barrier inside a transform.  With L
+// = log2 N, r = log2 R and b = L - 2r (1 to 4), position p lies at
+//
+//   layout 1  thread t, register m: p = t + T m             registers: bits L-r .. L-1
+//   layout 2  t = lo + 2^b hi:      p = hi (N/R) + 2^b m + lo   bits b .. b+r-1
+//   layout 3                        p = R t + m               bits 0 .. r-1
+//
+// The forward transform (decimation in frequency: natural in, bit-reversed
+// out) runs round 1 on bits L-1 .. L-r in layout 1, round 2 on bits b+r-1 ..
+// b in layout 2 and round 3 on bits b-1 .. 0 in layout 3; the inverse
+// (decimation in time: bit-reversed in, natural out, unscaled) undoes them in
+// reverse.  So position p holds frequency bitrev_N(p), the tile kernels'
+// order: either kernel of a pass follows either kernel of the pass before, and
+// prepare_propagator's P serves both.  Twiddles come from the staged table
+// (init_staged_twiddles): a warp's round-1 reads are 32 adjacent entries,
+// round 2's 2^b adjacent ones (broadcast to the lanes that share them), round
+// 3's one entry.  The exchanges pad the buffer, p + 2^b (p >> (L - r))
+// between layouts 1 and 2 and p + (p >> r) between layout 3 and the others,
+// so that 16 lanes' 8-byte accesses fall on 16 bank pairs (layout 1's fall
+// on 8 between layouts 1 and 3 at R = 8).
+//
+// The whole-loop adjoint's transform of a pair of warps (fused_fft.cuh, "the
+// wide transform") runs its five lowest bits through __shfl_xor_sync stages
+// and its highest across the warps through pairwise exchanges; extended to 4
+// and 8 warps at 2048 and 4096 points, its exchanges, shuffles and twiddle
+// reads come to about twice the shared-memory and shuffle traffic of this
+// transform, which the panel kernels take instead.
+template <int LOG2N>
+struct Rounds {
+  static constexpr int L = LOG2N;
+  static constexpr int r = LOG2N <= 9 ? 3 : 4;  // log2 of the values a thread holds
+  static constexpr int R = 1 << r;
+  static constexpr int N = 1 << L;
+  static constexpr int T = N / R;               // threads a transform
+  static constexpr int b = L - 2 * r;           // bits of round 3
+  static constexpr int kBuf = N + N / R;        // a group's padded exchange buffer
+  static_assert(b >= 1 && b <= r && T >= 32, "three rounds of r bits cover 256 to 4096 points");
+};
+
+// A thread's place in its group: its index t (0 .. T - 1), the group's named
+// barrier and its exchange buffer (Rounds::kBuf elements).
+struct Group {
+  int t;
+  int bar;
+  float2* buf;
+};
+
+// Position of register m of thread t in layout 1, 2 or 3.
+template <int LOG2N, int LAYOUT>
+__device__ __forceinline__ int rounds_pos(int t, int m) {
+  using X = Rounds<LOG2N>;
+  if (LAYOUT == 1) return t + X::T * m;
+  if (LAYOUT == 2) return (t >> X::b) * (X::N / X::R) + (m << X::b) + (t & ((1 << X::b) - 1));
+  return X::R * t + m;
+}
+
+// Place of position p in the buffer of an exchange between layouts A and B.
+template <int LOG2N, int A, int B>
+__device__ __forceinline__ int rounds_pad(int p) {
+  using X = Rounds<LOG2N>;
+  if ((A == 1 && B == 2) || (A == 2 && B == 1)) return p + ((p >> (X::L - X::r)) << X::b);
+  return p + (p >> X::r);
+}
+
+template <int LOG2N>
+__device__ __forceinline__ void group_sync(int bar) {
+  asm volatile("bar.sync %0, %1;" ::"r"(bar), "n"(Rounds<LOG2N>::T) : "memory");
+}
+
+// x from layout FROM to layout TO through the group's buffer.
+template <int LOG2N, int FROM, int TO>
+__device__ __forceinline__ void rounds_exchange(float2 (&x)[Rounds<LOG2N>::R], const Group& g) {
+  using X = Rounds<LOG2N>;
+  group_sync<LOG2N>(g.bar);  // the buffer's last readers are done
+#pragma unroll
+  for (int m = 0; m < X::R; ++m) {
+    g.buf[rounds_pad<LOG2N, FROM, TO>(rounds_pos<LOG2N, FROM>(g.t, m))] = x[m];
+  }
+  group_sync<LOG2N>(g.bar);
+#pragma unroll
+  for (int m = 0; m < X::R; ++m) {
+    x[m] = g.buf[rounds_pad<LOG2N, FROM, TO>(rounds_pos<LOG2N, TO>(g.t, m))];
+  }
+}
+
+// The radix-2 stage on register bit j (pairs m, m + d, d = 2^j) of a
+// position bit of half size hs: the pair's offset in its half is base +
+// stride (m mod d), its twiddle tw[hs - 1 + offset].  Forward a' = a + b, b'
+// = (a - b) w; inverse t = b conj(w), a' = a + t, b' = a - t.
+template <int R, bool INVERSE>
+__device__ __forceinline__ void rounds_stage(float2 (&x)[R], const float2* tw, int d, int hs,
+                                             int base, int stride) {
+#pragma unroll
+  for (int m = 0; m < R; ++m) {
+    if (m & d) continue;
+    const float2 w = tw[hs - 1 + base + stride * (m & (d - 1))];
+    const float2 a = x[m];
+    const float2 c = x[m + d];
+    if (INVERSE) {
+      const float2 u = cmul_conj(c, w);
+      x[m] = cadd(a, u);
+      x[m + d] = csub(a, u);
+    } else {
+      x[m] = cadd(a, c);
+      x[m + d] = cmul(csub(a, c), w);
+    }
+  }
+}
+
+// Forward N-point transform of x: layout 1 natural in, layout 3 bit-reversed out.
+template <int LOG2N>
+__device__ __forceinline__ void rounds_forward(float2 (&x)[Rounds<LOG2N>::R], const float2* tw,
+                                               const Group& g) {
+  using X = Rounds<LOG2N>;
+  constexpr int kLo = (1 << X::b) - 1;
+#pragma unroll
+  for (int j = X::r - 1; j >= 0; --j) {  // bit L - r + j: offset t + T (m mod d)
+    rounds_stage<X::R, false>(x, tw, 1 << j, X::T << j, g.t, X::T);
+  }
+  rounds_exchange<LOG2N, 1, 2>(x, g);
+#pragma unroll
+  for (int j = X::r - 1; j >= 0; --j) {  // bit b + j: offset lo + 2^b (m mod d)
+    rounds_stage<X::R, false>(x, tw, 1 << j, 1 << (X::b + j), g.t & kLo, 1 << X::b);
+  }
+  rounds_exchange<LOG2N, 2, 3>(x, g);
+#pragma unroll
+  for (int j = X::b - 1; j >= 0; --j) {  // bit j: offset m mod d
+    rounds_stage<X::R, false>(x, tw, 1 << j, 1 << j, 0, 1);
+  }
+}
+
+// Unscaled inverse of rounds_forward: layout 3 bit-reversed in, layout 1
+// natural out.
+template <int LOG2N>
+__device__ __forceinline__ void rounds_inverse(float2 (&x)[Rounds<LOG2N>::R], const float2* tw,
+                                               const Group& g) {
+  using X = Rounds<LOG2N>;
+  constexpr int kLo = (1 << X::b) - 1;
+#pragma unroll
+  for (int j = 0; j < X::b; ++j) rounds_stage<X::R, true>(x, tw, 1 << j, 1 << j, 0, 1);
+  rounds_exchange<LOG2N, 3, 2>(x, g);
+#pragma unroll
+  for (int j = 0; j < X::r; ++j) {
+    rounds_stage<X::R, true>(x, tw, 1 << j, 1 << (X::b + j), g.t & kLo, 1 << X::b);
+  }
+  rounds_exchange<LOG2N, 2, 1>(x, g);
+#pragma unroll
+  for (int j = 0; j < X::r; ++j) rounds_stage<X::R, true>(x, tw, 1 << j, X::T << j, g.t, X::T);
+}
+
+// Columns of a wide column item: 4 (a row of the item is one 32-byte sector)
+// up to 2048, 2 at 4096, where two staged items of 4 columns (2 x 136 KiB
+// with the groups' padding) do not fit in 227 KB beside the twiddles.
+template <int LOG2N>
+constexpr int kWideCols = LOG2N <= 11 ? 4 : 2;
+
+// Threads of a wide column kernel's block (C groups) and of the wide backward
+// row kernel's (256 / T row groups).
+template <int LOG2N, int C>
+constexpr int kWideColThreads = C * Rounds<LOG2N>::T;
+constexpr int kWideRowThreads = 256;
+
+// Dynamic shared memory of the column kernel: the staged twiddles (N - 1
+// entries and one for 16-byte alignment), then two stages of C groups'
+// padded buffers; a stage holds an item of C x N in its first C N places.
+template <int LOG2N, int C>
+constexpr size_t wide_col_smem_bytes() {
+  return sizeof(float2) * ((1 << LOG2N) + size_t{2} * C * Rounds<LOG2N>::kBuf);
+}
+
+// Place of (row y, column c) of an item of C columns in its stage: row after
+// row, as the rows lie in the plane (16-byte asynchronous copies), the two
+// 16-byte halves of a 4-column row swapped on every other group of four rows,
+// so that 16 lanes reading 16 rows of one column fall on 8 bank pairs, not 4.
+template <int C>
+__device__ __forceinline__ int stage_at(int y, int c) {
+  return C == 4 ? 4 * y + (c ^ (((y >> 2) & 1) << 1)) : C * y + c;
+}
+
+// Start copying item `item` (wave item / (N/C), columns (item mod N/C) C ..
+// + C - 1, every row) of the planes src into a stage, 16 bytes a copy;
+// cp_async_wait_all and a block barrier make it visible.
+template <int LOG2N, int C>
+__device__ __forceinline__ void wide_col_fetch(float2* stage, const float2* src, int64_t item) {
+  constexpr int N = 1 << LOG2N;
+  constexpr int64_t kItems = N / C;
+  constexpr int kChunks = C / 2;  // 16-byte chunks a row
+  const float2* panel =
+      src + (item / kItems) * (int64_t{1} << (2 * LOG2N)) + (item % kItems) * C;
+  for (int i = threadIdx.x; i < N * kChunks; i += kWideColThreads<LOG2N, C>) {
+    const int y = i / kChunks;
+    const int c = 2 * (i % kChunks);
+    cp_async16(stage + stage_at<C>(y, c), panel + static_cast<int64_t>(y) * N + c);
+  }
+}
+
+// Rows 14 and 24 redesigned: the column pass b = Fy^H(P / N^2 * Fy(a)) (or
+// with conj(P), conj_p) over every item of C adjacent columns of nwaves
+// planes, group g of the block transforming column g of the item.  Per item:
+// this thread's values of P (the rows of layout 3) by __ldg, in flight with
+// the item, except at 4096 points, where they would push the 512-thread
+// block past its 128 registers into local memory and are loaded after the
+// forward transform; the item from its stage into the groups' registers
+// (layout 1); the forward y transform, the multiply, the inverse y transform,
+// each group exchanging through its buffer in the stage; the item back to the
+// stage in rows and out with 16-byte stores.  A block walks over items
+// gridDim.x apart (gridDim.x = the resident blocks) and copies the next item
+// into the other of two stages while it transforms this one.  src may be dst:
+// a block reads an item before it writes it, and no other block touches it.
+template <int LOG2N, int C>
+__global__ void __launch_bounds__(kWideColThreads<LOG2N, C>)
+panel_wide_col_kernel(const float2* src, float2* dst, const float2* __restrict__ prop,
+                      int64_t p_wave_stride, bool conj_p, int64_t nwaves) {
+  using X = Rounds<LOG2N>;
+  constexpr int N = X::N;
+  constexpr int R = X::R;
+  constexpr int kBlock = kWideColThreads<LOG2N, C>;
+  constexpr int kStage = C * X::kBuf;
+  constexpr bool kLateP = LOG2N == 12;
+  constexpr int64_t kPlane = int64_t{1} << (2 * LOG2N);
+  constexpr int64_t kItems = N / C;
+  extern __shared__ float4 wide_smem[];
+  float2* tw = reinterpret_cast<float2*>(wide_smem);
+  float2* stages = tw + N;
+  init_staged_twiddles<LOG2N, kBlock>(tw);
+  const int col = threadIdx.x / X::T;
+  Group g{static_cast<int>(threadIdx.x % X::T), 1 + col, nullptr};
+  const int64_t items = nwaves * kItems;
+  const float scale = 1.0f / (static_cast<float>(N) * static_cast<float>(N));
+  const float sign = conj_p ? -scale : scale;
+  int64_t item = blockIdx.x;
+  if (item < items) wide_col_fetch<LOG2N, C>(stages, src, item);
+  for (int k = 0; item < items; item += gridDim.x, ++k) {
+    float2* stage = stages + ((k & 1) ? kStage : 0);
+    const int64_t b = item / kItems;
+    const int c0 = static_cast<int>(item % kItems) * C;
+    const float2* pc = prop + b * p_wave_stride + c0 + col;
+    float2 p[R];
+    if (!kLateP) {  // in flight with the item: a load after the transform waits a round trip
+#pragma unroll
+      for (int m = 0; m < R; ++m) {
+        p[m] = __ldg(pc + static_cast<int64_t>(rounds_pos<LOG2N, 3>(g.t, m)) * N);
+      }
+    }
+    cp_async_wait_all();
+    __syncthreads();  // the item has landed; the other stage's readers are done
+    const int64_t next = item + gridDim.x;
+    if (next < items) wide_col_fetch<LOG2N, C>(stages + ((k & 1) ? 0 : kStage), src, next);
+    float2 x[R];
+#pragma unroll
+    for (int m = 0; m < R; ++m) x[m] = stage[stage_at<C>(rounds_pos<LOG2N, 1>(g.t, m), col)];
+    __syncthreads();  // the item is in registers: the stage holds the groups' buffers
+    g.buf = stage + col * X::kBuf;
+    rounds_forward<LOG2N>(x, tw, g);
+    if (kLateP) {
+#pragma unroll
+      for (int m = 0; m < R; ++m) {
+        p[m] = __ldg(pc + static_cast<int64_t>(rounds_pos<LOG2N, 3>(g.t, m)) * N);
+      }
+    }
+#pragma unroll
+    for (int m = 0; m < R; ++m) x[m] = cmul(x[m], make_float2(p[m].x * scale, p[m].y * sign));
+    rounds_inverse<LOG2N>(x, tw, g);
+    __syncthreads();  // every group's last exchange is read
+#pragma unroll
+    for (int m = 0; m < R; ++m) stage[stage_at<C>(rounds_pos<LOG2N, 1>(g.t, m), col)] = x[m];
+    __syncthreads();
+    float2* out = dst + b * kPlane + c0;
+    for (int i = threadIdx.x; i < N * C / 2; i += kBlock) {
+      const int y = i / (C / 2);
+      const int c = 2 * (i % (C / 2));
+      *reinterpret_cast<float4*>(out + static_cast<int64_t>(y) * N + c) =
+          *reinterpret_cast<const float4*>(stage + stage_at<C>(y, c));
+    }
+  }
+}
+
+// Row 25 redesigned (and with its other modes rows 26 and 21): the backward
+// row pass of bwd_row_tile, one row a group.  A group takes rows gridDim.x
+// apart (rows spread over the blocks first) and carries each through the
+// nwaves waves in order: bar's row, s's row (kBwdTail: psi's) and V's row
+// loaded into registers (layout 1, 256 contiguous bytes a warp instruction of
+// bar and s) before the exchange to layout 3 and the inverse x transform;
+// then Im(bar_s * conj(s)), times conj(t), the forward x transform and the
+// exchange back (kBwdLoop), and the store, all in registers.  The row's dV sum
+// waits in dv between waves (each thread reads back what it wrote), so no
+// register holds it across a transform, and takes sigma after the last wave:
+// the waves in a fixed order, no atomics, the same bits in two runs.
+template <int LOG2N, int MODE>
+__global__ void __launch_bounds__(kWideRowThreads)
+panel_wide_bwd_row_kernel(const float2* src, float2* dst, const float2* s, int64_t s_wave_stride,
+                          const float* __restrict__ v, float* dv, float sigma, int64_t nwaves) {
+  using X = Rounds<LOG2N>;
+  constexpr int N = X::N;
+  constexpr int R = X::R;
+  constexpr int kGroups = kWideRowThreads / X::T;
+  constexpr int64_t kPlane = int64_t{1} << (2 * LOG2N);
+  extern __shared__ float4 wide_smem[];
+  float2* tw = reinterpret_cast<float2*>(wide_smem);
+  init_staged_twiddles<LOG2N, kWideRowThreads>(tw);
+  __syncthreads();
+  const int group = threadIdx.x / X::T;
+  const Group g{static_cast<int>(threadIdx.x % X::T), 1 + group, tw + N + group * X::kBuf};
+  const int64_t step = static_cast<int64_t>(gridDim.x) * kGroups;
+  for (int64_t y = blockIdx.x + static_cast<int64_t>(group) * gridDim.x; y < N; y += step) {
+    const int64_t r = y * N;
+    float* dvr = dv + r;
+    for (int64_t b = 0; b < nwaves; ++b) {
+      float2 x[R];
+      float2 u[R];
+      float vv[R];
+      const float2* xr = src + b * kPlane + r;
+      const float2* sr = s + b * s_wave_stride + r;
+#pragma unroll
+      for (int m = 0; m < R; ++m) {
+        const int p = rounds_pos<LOG2N, 1>(g.t, m);
+        x[m] = xr[p];
+        u[m] = __ldg(sr + p);
+        vv[m] = __ldg(v + r + p);
+      }
+      rounds_exchange<LOG2N, 1, 3>(x, g);
+      rounds_inverse<LOG2N>(x, tw, g);
+#pragma unroll
+      for (int m = 0; m < R; ++m) {
+        const int p = rounds_pos<LOG2N, 1>(g.t, m);
+        float sn, cs;
+        sincosf(sigma * vv[m], &sn, &cs);
+        if (MODE == kBwdTail) u[m] = cmul(u[m], make_float2(cs, sn));
+        float acc = x[m].y * u[m].x - x[m].x * u[m].y;  // Im(bar_s * conj(s))
+        if (b > 0) acc += dvr[p];
+        dvr[p] = b == nwaves - 1 ? sigma * acc : acc;
+        x[m] = cmul_conj(x[m], make_float2(cs, sn));
+      }
+      if (MODE == kBwdLoop) {
+        rounds_forward<LOG2N>(x, tw, g);
+        rounds_exchange<LOG2N, 3, 1>(x, g);
+      }
+      float2* out = dst + b * kPlane + r;
+#pragma unroll
+      for (int m = 0; m < R; ++m) out[rounds_pos<LOG2N, 1>(g.t, m)] = x[m];
+    }
+  }
+}
+
+// Dynamic shared memory of the backward row kernel: the staged twiddles and
+// one padded exchange buffer a row group.
+template <int LOG2N>
+constexpr size_t wide_row_smem_bytes() {
+  using X = Rounds<LOG2N>;
+  return sizeof(float2) * (X::N + (kWideRowThreads / X::T) * X::kBuf);
 }
 
 // Row 27: the forward x transform of nplanes real (N, N) planes g (the
@@ -404,12 +785,99 @@ int launch_col(const float2* src, float2* dst, const float2* prop, int64_t p_wav
                 col_smem_bytes<LOG2N>(), stream, src, dst, prop, p_wave_stride, conj_p, nwaves);
 }
 
+// Blocks of `kernel` (`threads` a block, `bytes` of dynamic shared memory)
+// resident at once on the current device.
+int resident_blocks_here(const void* kernel, int threads, size_t bytes, int* blocks) {
+  int device = 0;
+  const cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return err;
+  return resident_blocks_of(kernel, device, blocks, threads, bytes);
+}
+
+// The wide column pass: one block a resident slot, at most one an item.
 template <int LOG2N>
-int launch_bwd_row(int mode, const float2* src, float2* dst, const float2* s,
+int launch_wide_col(const float2* src, float2* dst, const float2* prop, int64_t p_wave_stride,
+                    bool conj_p, int64_t nwaves, cudaStream_t stream) {
+  constexpr int C = kWideCols<LOG2N>;
+  auto* kernel = panel_wide_col_kernel<LOG2N, C>;
+  constexpr int kBlock = kWideColThreads<LOG2N, C>;
+  constexpr size_t kBytes = wide_col_smem_bytes<LOG2N, C>();
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kBytes);
+  if (err != cudaSuccess) return err;
+  int resident = 0;
+  err = static_cast<cudaError_t>(
+      resident_blocks_here(reinterpret_cast<const void*>(kernel), kBlock, kBytes, &resident));
+  if (err != cudaSuccess) return err;
+  if (resident < 1) return cudaErrorLaunchOutOfResources;
+  const int64_t items = nwaves * ((1 << LOG2N) / C);
+  const int blocks = static_cast<int>(items < resident ? items : resident);
+  kernel<<<blocks, kBlock, kBytes, stream>>>(src, dst, prop, p_wave_stride, conj_p, nwaves);
+  return cudaGetLastError();
+}
+
+// The routes of the column pass and of the backward row pass (PANEL_ROUTE in
+// kernels/panel_scan.py): the tile kernel or the wide kernel.
+enum Route { kRouteTile = 0, kRouteWide = 1 };
+
+template <int LOG2N>
+int launch_col_route(int route, const float2* src, float2* dst, const float2* prop,
+                     int64_t p_wave_stride, bool conj_p, int64_t nwaves, cudaStream_t stream) {
+  switch (route) {
+    case kRouteTile:
+      return launch_col<LOG2N>(src, dst, prop, p_wave_stride, conj_p, nwaves, stream);
+    case kRouteWide:
+      return launch_wide_col<LOG2N>(src, dst, prop, p_wave_stride, conj_p, nwaves, stream);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
+// The wide backward row pass: every resident block, at most one a row group.
+template <int LOG2N, int MODE>
+int launch_wide_bwd_row_m(const float2* src, float2* dst, const float2* s, int64_t s_wave_stride,
+                          const float* v, float* dv, float sigma, int64_t nwaves,
+                          cudaStream_t stream) {
+  auto* kernel = panel_wide_bwd_row_kernel<LOG2N, MODE>;
+  constexpr size_t kBytes = wide_row_smem_bytes<LOG2N>();
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kBytes);
+  if (err != cudaSuccess) return err;
+  int resident = 0;
+  err = static_cast<cudaError_t>(resident_blocks_here(reinterpret_cast<const void*>(kernel),
+                                                      kWideRowThreads, kBytes, &resident));
+  if (err != cudaSuccess) return err;
+  if (resident < 1) return cudaErrorLaunchOutOfResources;
+  constexpr int kGroups = kWideRowThreads / Rounds<LOG2N>::T;
+  constexpr int kItems = ((1 << LOG2N) + kGroups - 1) / kGroups;
+  const int blocks = kItems < resident ? kItems : resident;
+  kernel<<<blocks, kWideRowThreads, kBytes, stream>>>(src, dst, s, s_wave_stride, v, dv, sigma,
+                                                      nwaves);
+  return cudaGetLastError();
+}
+
+template <int LOG2N>
+int launch_bwd_row(int mode, int route, const float2* src, float2* dst, const float2* s,
                    int64_t s_wave_stride, const float* v, float* dv, float sigma, int64_t nwaves,
                    cudaStream_t stream) {
   constexpr int64_t kTiles = kTilesPerWave<LOG2N>;
   constexpr size_t kBytes = row_smem_bytes<LOG2N>();
+  if (route == kRouteWide) {
+    switch (mode) {
+      case kBwdLoop:
+        return launch_wide_bwd_row_m<LOG2N, kBwdLoop>(src, dst, s, s_wave_stride, v, dv, sigma,
+                                                      nwaves, stream);
+      case kBwdLast:
+        return launch_wide_bwd_row_m<LOG2N, kBwdLast>(src, dst, s, s_wave_stride, v, dv, sigma,
+                                                      nwaves, stream);
+      case kBwdTail:
+        return launch_wide_bwd_row_m<LOG2N, kBwdTail>(src, dst, s, s_wave_stride, v, dv, sigma,
+                                                      nwaves, stream);
+      default:
+        return cudaErrorInvalidValue;
+    }
+  }
+  if (route != kRouteTile) return cudaErrorInvalidValue;
   switch (mode) {
     case kBwdLoop:
       return launch(panel_bwd_row_kernel<LOG2N, kBwdLoop>, kTiles, kBytes, stream, src, dst, s,
@@ -428,17 +896,19 @@ int launch_bwd_row(int mode, const float2* src, float2* dst, const float2* s,
 // The whole rollout: init, (S - 1) x [column pass, row pass with V_j],
 // column pass, final; every pass in place on out after the first.  STORE:
 // the row passes also store s_j of wave b at s + b * S * N^2 + j * N^2.
+// col_route: the column passes' kernel (Route).
 template <int LOG2N, bool ABS, bool STORE = false>
 int launch_scan(const float2* psi0, const float* vr, const float* vi, const float2* prop,
                 float2* out, float2* s, float sigma, int64_t nwaves, int nslices,
-                int64_t p_wave_stride, cudaStream_t stream) {
+                int64_t p_wave_stride, int col_route, cudaStream_t stream) {
   constexpr int64_t kPlane = int64_t{1} << (2 * LOG2N);
   constexpr int kFirst = STORE ? kInitStore : kInit;
   constexpr int kNext = STORE ? kMidStore : kMid;
   const int64_t s_stride = STORE ? nslices * kPlane : 0;
   int err = launch_row<LOG2N, kFirst, ABS>(psi0, out, vr, vi, s, s_stride, sigma, nwaves, stream);
   for (int64_t j = 1; err == cudaSuccess && j <= nslices; ++j) {
-    err = launch_col<LOG2N>(out, out, prop, p_wave_stride, false, nwaves, stream);
+    err = launch_col_route<LOG2N>(col_route, out, out, prop, p_wave_stride, false, nwaves,
+                                  stream);
     if (err != cudaSuccess) break;
     if (j < nslices) {
       err = launch_row<LOG2N, kNext, ABS>(out, out, vr + j * kPlane,
@@ -455,17 +925,20 @@ int launch_scan(const float2* psi0, const float* vr, const float* vi, const floa
 
 // The reverse loop over the stored s (nwaves, S, N, N): seed, then per slice
 // j = S-1 .. 0 a column pass with conj(P) and a backward row pass writing
-// dV_j; every pass in place on dpsi, which ends as dpsi0.
+// dV_j; every pass in place on dpsi, which ends as dpsi0.  col_route,
+// row_route: the column and backward row passes' kernels.
 template <int LOG2N>
 int launch_scan_bwd(const float2* s, const float* v, const float2* prop, const float2* g,
                     float2* dpsi, float* dv, float sigma, int64_t nwaves, int nslices,
-                    int64_t p_wave_stride, cudaStream_t stream) {
+                    int64_t p_wave_stride, int col_route, int row_route, cudaStream_t stream) {
   constexpr int64_t kPlane = int64_t{1} << (2 * LOG2N);
   int err = launch_row<LOG2N, kFwd>(g, dpsi, nullptr, nullptr, nullptr, 0, sigma, nwaves, stream);
   for (int64_t j = nslices - 1; err == cudaSuccess && j >= 0; --j) {
-    err = launch_col<LOG2N>(dpsi, dpsi, prop, p_wave_stride, true, nwaves, stream);
+    err = launch_col_route<LOG2N>(col_route, dpsi, dpsi, prop, p_wave_stride, true, nwaves,
+                                  stream);
     if (err != cudaSuccess) break;
-    err = launch_bwd_row<LOG2N>(j > 0 ? kBwdLoop : kBwdLast, dpsi, dpsi, s + j * kPlane,
+    err = launch_bwd_row<LOG2N>(j > 0 ? kBwdLoop : kBwdLast, row_route, dpsi, dpsi,
+                                s + j * kPlane,
                                 nslices * kPlane, v + j * kPlane, dv + j * kPlane, sigma, nwaves,
                                 stream);
   }
@@ -473,25 +946,20 @@ int launch_scan_bwd(const float2* s, const float* v, const float2* prop, const f
 }
 
 // Registers, dynamic shared bytes, local bytes and resident blocks of a
-// kernel launched with `bytes` of dynamic shared memory.
+// kernel launched with `threads` a block and `bytes` of dynamic shared memory.
 template <typename Kernel>
-int info_of(Kernel* kernel, size_t bytes, int device, int* out) {
+int info_of(Kernel* kernel, size_t bytes, int device, int* out, int threads = kThreads) {
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return err;
   cudaFuncAttributes attr;
   err = cudaFuncGetAttributes(&attr, kernel);
   if (err != cudaSuccess) return err;
-  int per_sm = 0;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, bytes);
-  if (err != cudaSuccess) return err;
-  int sms = 0;
-  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
   out[0] = attr.numRegs;
   out[1] = static_cast<int>(bytes);
   out[2] = static_cast<int>(attr.localSizeBytes);
-  out[3] = per_sm * sms;
-  return err;
+  return resident_blocks_of(reinterpret_cast<const void*>(kernel), device, &out[3], threads,
+                            bytes);
 }
 
 template <int LOG2N>
@@ -509,6 +977,13 @@ int kernel_info(int device, int which, int* out) {
       return info_of(panel_build_col_kernel<LOG2N>, col_smem_bytes<LOG2N>(), device, out);
     case 5:
       return info_of(panel_vfused_row_kernel<LOG2N>, vfused_smem_bytes<LOG2N>(), device, out);
+    case 6:
+      return info_of(panel_wide_col_kernel<LOG2N, kWideCols<LOG2N>>,
+                     wide_col_smem_bytes<LOG2N, kWideCols<LOG2N>>(), device, out,
+                     kWideColThreads<LOG2N, kWideCols<LOG2N>>);
+    case 7:
+      return info_of(panel_wide_bwd_row_kernel<LOG2N, kBwdLoop>, wide_row_smem_bytes<LOG2N>(),
+                     device, out, kWideRowThreads);
     default:
       return cudaErrorInvalidValue;
   }
@@ -554,13 +1029,14 @@ int fdes_panel_init_abs_c64(int device, int n, const void* psi, const void* vr0,
 
 // a (nwaves, n, n) -> b = Fy^H(P/n^2 * Fy(a)) (out may be a), or with
 // conj(P) when conj_p; prop bit-reversed, (n, n) (p_wave_stride 0) or one
-// per wave (n*n).
+// per wave (n*n); route: the kernel (Route: 0 tile, 1 wide).
 int fdes_panel_colpass_c64(int device, int n, const void* a, const void* prop, void* out,
-                           int64_t p_wave_stride, int conj_p, int64_t nwaves, void* stream) {
+                           int64_t p_wave_stride, int conj_p, int64_t nwaves, int route,
+                           void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
-  FDES_DISPATCH_PANEL_N(n, launch_col<L>(c2(a), o2(out), c2(prop), p_wave_stride, conj_p != 0,
-                                         nwaves, st(stream)))
+  FDES_DISPATCH_PANEL_N(n, launch_col_route<L>(route, c2(a), o2(out), c2(prop), p_wave_stride,
+                                               conj_p != 0, nwaves, st(stream)))
 }
 
 // b -> a = Fx(t_j Fx^H(b)), V_j = slice j of the (S, n, n) stack (or, with
@@ -611,22 +1087,25 @@ int fdes_panel_final_c64(int device, int n, const void* b, void* out, int forwar
 // A backward row pass (mode 0 kBwdLoop, 1 kBwdLast, 2 kBwdTail): bar
 // (nwaves, n, n) -> out (may be bar), and dv (n, n) = sigma * sum over the
 // waves of Im(bar_s * conj(s)); s (kBwdTail: psi) of wave b at
-// s + b * s_wave_stride; v (n, n) shared by the waves.
+// s + b * s_wave_stride; v (n, n) shared by the waves; route: the kernel
+// (Route: 0 tile, 1 wide).
 int fdes_panel_bwd_row_c64(int device, int n, int mode, const void* bar, void* out, const void* s,
                            int64_t s_wave_stride, const void* v, void* dv, double sigma,
-                           int64_t nwaves, void* stream) {
+                           int64_t nwaves, int route, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
-  FDES_DISPATCH_PANEL_N(n, launch_bwd_row<L>(mode, c2(bar), o2(out), c2(s), s_wave_stride, f1(v),
+  FDES_DISPATCH_PANEL_N(n, launch_bwd_row<L>(mode, route, c2(bar), o2(out), c2(s), s_wave_stride,
+                                             f1(v),
                                              static_cast<float*>(dv), static_cast<float>(sigma),
                                              nwaves, st(stream)))
 }
 
 // The whole rollout of nslices >= 1 slices: psi0 (nwaves, n, n) -> out, V
-// the real (S, n, n) stack vr (vi nullptr) or an absorptive vr + i vi.
+// the real (S, n, n) stack vr (vi nullptr) or an absorptive vr + i vi;
+// col_route: the column passes' kernel (as fdes_panel_colpass_c64's route).
 int fdes_panel_scan_c64(int device, int n, const void* psi0, const void* vr, const void* vi,
                         const void* prop, void* out, double sigma, int64_t nwaves, int nslices,
-                        int64_t p_wave_stride, void* stream) {
+                        int64_t p_wave_stride, int col_route, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   if (nslices < 1) return cudaErrorInvalidValue;
@@ -634,39 +1113,42 @@ int fdes_panel_scan_c64(int device, int n, const void* psi0, const void* vr, con
   if (vi == nullptr) {
     FDES_DISPATCH_PANEL_N(n, (launch_scan<L, false>(c2(psi0), f1(vr), nullptr, c2(prop), o2(out),
                                                    nullptr, f, nwaves, nslices, p_wave_stride,
-                                                   st(stream))))
+                                                   col_route, st(stream))))
   }
   FDES_DISPATCH_PANEL_N(n, (launch_scan<L, true>(c2(psi0), f1(vr), f1(vi), c2(prop), o2(out),
                                                 nullptr, f, nwaves, nslices, p_wave_stride,
-                                                st(stream))))
+                                                col_route, st(stream))))
 }
 
 // The rollout under differentiation (a real V): as fdes_panel_scan_c64, and
 // every s_j into s (nwaves, S, n, n).
 int fdes_panel_scan_store_c64(int device, int n, const void* psi0, const void* v,
                               const void* prop, void* out, void* s, double sigma, int64_t nwaves,
-                              int nslices, int64_t p_wave_stride, void* stream) {
+                              int nslices, int64_t p_wave_stride, int col_route, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   if (nslices < 1) return cudaErrorInvalidValue;
   FDES_DISPATCH_PANEL_N(n, (launch_scan<L, false, true>(c2(psi0), f1(v), nullptr, c2(prop),
                                                        o2(out), o2(s), static_cast<float>(sigma),
                                                        nwaves, nslices, p_wave_stride,
-                                                       st(stream))))
+                                                       col_route, st(stream))))
 }
 
 // The reverse loop: g (nwaves, n, n) -> dpsi (nwaves, n, n) and dv (S, n, n)
-// summed over the waves, from the s (nwaves, S, n, n) of the rollout.
+// summed over the waves, from the s (nwaves, S, n, n) of the rollout;
+// col_route, row_route: the column and backward row passes' kernels.
 int fdes_panel_scan_bwd_store_c64(int device, int n, const void* s, const void* v,
                                   const void* prop, const void* g, void* dpsi, void* dv,
                                   double sigma, int64_t nwaves, int nslices,
-                                  int64_t p_wave_stride, void* stream) {
+                                  int64_t p_wave_stride, int col_route, int row_route,
+                                  void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   if (nslices < 1) return cudaErrorInvalidValue;
   FDES_DISPATCH_PANEL_N(n, launch_scan_bwd<L>(c2(s), f1(v), c2(prop), c2(g), o2(dpsi),
                                               static_cast<float*>(dv), static_cast<float>(sigma),
-                                              nwaves, nslices, p_wave_stride, st(stream)))
+                                              nwaves, nslices, p_wave_stride, col_route,
+                                              row_route, st(stream)))
 }
 
 // Row 27: g (nplanes, n, n) float32 -> Fx(g) (nplanes, n, n) complex.
@@ -703,8 +1185,8 @@ int fdes_panel_vfused_rowpass_c64(int device, int n, const void* vx, const void*
 // out[0..3] = registers per thread, dynamic shared bytes, local bytes per
 // thread and blocks resident at once on the device, of the row kernel
 // (which 0), the column kernel (1), the backward row kernel (2), the g row
-// kernel (3), the build column kernel (4) or the fused row kernel (5), for
-// size n.
+// kernel (3), the build column kernel (4), the fused row kernel (5), the
+// wide column kernel (6) or the wide backward row kernel (7), for size n.
 int fdes_panel_kernel_info(int device, int n, int which, int* out) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;

@@ -62,6 +62,19 @@ slices is S launches each of the g row pass, the build column pass and the
 column pass, S - 1 fused row passes and three more (2 ``panel_final``, 1
 ``panel_init``).
 
+The column pass (and its conjugate) and the backward row passes run on one
+of two kernels each, picked before the launch by ``panel_route(n, B, kind)``
+from ``PANEL_ROUTE``, a table of rows measured on the H100: "tile"
+(``panel_col_kernel``, ``panel_bwd_row_kernel``: tiles through shared
+memory) or "wide" (``panel_wide_col_kernel``, ``panel_wide_bwd_row_kernel``:
+each 1-D transform in the registers of a group of threads, three rounds of
+radix-2 stages between two exchanges).  The whole loops take the choice into
+C with them.  ``_colpass`` and the backward row passes take ``route=`` to
+name a kernel for measurements; it is checked, and a launch the card refuses
+raises with nothing run in its place.  The five wrappers of these passes
+(``ROUTED``) count their launches in ``launches`` and by kernel in
+``launches_by_route`` ({"tile": n, "wide": m}).
+
 ``panel_diff_apply`` differentiates the loop: the store pair while the s
 stack (B*S*n*n*8 bytes) fits ``adjoint_scan.STORE_CAP_BYTES``, past it
 ``panel_slice_step`` per slice (forward init, column, final; backward seed,
@@ -110,15 +123,17 @@ _D = ctypes.c_double
 _ARGTYPES = {
     "fdes_panel_init_c64": [_INT, _INT, _P, _P, _P, _P, _I64, _D, _I64, _P],
     "fdes_panel_init_abs_c64": [_INT, _INT, _P, _P, _P, _P, _D, _I64, _P],
-    "fdes_panel_colpass_c64": [_INT, _INT, _P, _P, _P, _I64, _INT, _I64, _P],
+    "fdes_panel_colpass_c64": [_INT, _INT, _P, _P, _P, _I64, _INT, _I64, _INT, _P],
     "fdes_panel_rowpass_stack_c64": [_INT, _INT, _I64, _P, _P, _P, _P, _I64, _D, _I64, _P],
     "fdes_panel_rowpass_stack_abs_c64": [_INT, _INT, _I64, _P, _P, _P, _P, _D, _I64, _P],
     "fdes_panel_final_c64": [_INT, _INT, _P, _P, _INT, _I64, _P],
-    "fdes_panel_bwd_row_c64": [_INT, _INT, _INT, _P, _P, _P, _I64, _P, _P, _D, _I64, _P],
-    "fdes_panel_scan_c64": [_INT, _INT, _P, _P, _P, _P, _P, _D, _I64, _INT, _I64, _P],
-    "fdes_panel_scan_store_c64": [_INT, _INT, _P, _P, _P, _P, _P, _D, _I64, _INT, _I64, _P],
+    "fdes_panel_bwd_row_c64": [_INT, _INT, _INT, _P, _P, _P, _I64, _P, _P, _D, _I64, _INT, _P],
+    "fdes_panel_scan_c64": [_INT, _INT, _P, _P, _P, _P, _P, _D, _I64, _INT, _I64, _INT, _P],
+    "fdes_panel_scan_store_c64": [
+        _INT, _INT, _P, _P, _P, _P, _P, _D, _I64, _INT, _I64, _INT, _P,
+    ],
     "fdes_panel_scan_bwd_store_c64": [
-        _INT, _INT, _P, _P, _P, _P, _P, _P, _D, _I64, _INT, _I64, _P,
+        _INT, _INT, _P, _P, _P, _P, _P, _P, _D, _I64, _INT, _I64, _INT, _INT, _P,
     ],
     "fdes_panel_g_rowpass_c64": [_INT, _INT, _P, _P, _I64, _P],
     "fdes_panel_build_colpass_c64": [_INT, _INT, _P, _P, _P, _INT, _P],
@@ -128,6 +143,54 @@ _ARGTYPES = {
 #: modes of fdes_panel_bwd_row_c64 (csrc/panel_scan.cu BwdMode)
 _BWD_LOOP, _BWD_LAST, _BWD_TAIL = 0, 1, 2
 _entries: dict[str, object] = {}
+
+#: The kernels of the column pass (rows 14 and 24) and of the backward row
+#: pass (rows 25, 26, 21), by their code in csrc/panel_scan.cu's Route:
+#: "tile" (``panel_col_kernel``, ``panel_bwd_row_kernel``: tiles through
+#: shared memory) or "wide" (``panel_wide_col_kernel``: persistent blocks
+#: copying the next item while they transform this one;
+#: ``panel_wide_bwd_row_kernel``: each 1-D transform in the registers of a
+#: group of warps).
+ROUTES = {"tile": 0, "wide": 1}
+
+#: The route of each pass by grid and waves a launch, {n: {waves: (column
+#: pass, backward row pass)}}: the faster kernel of each pass timed in turns
+#: on an NVIDIA H100 80GB HBM3 at 700 W (chip_smoke.py kernels_panel and
+#: kernels_panel_grad, ``route_rows``; PERF.md section 5).  A launch of B
+#: waves takes the row of the largest measured count not above B.  The wide
+#: column kernel loses at 4096^2, where an item is two columns (half a
+#: 32-byte sector a row) and a block spills, and at 512^2 from four waves.
+_W, _T = "wide", "tile"
+PANEL_ROUTE = {
+    256: {1: (_W, _W), 2: (_W, _W), 4: (_W, _W), 8: (_W, _W)},
+    512: {1: (_W, _W), 2: (_W, _W), 4: (_T, _W), 8: (_T, _W)},
+    1024: {1: (_W, _W), 2: (_W, _W), 4: (_W, _W), 8: (_W, _W)},
+    2048: {1: (_W, _W), 2: (_W, _W), 4: (_W, _W), 8: (_W, _W)},
+    4096: {1: (_T, _W), 2: (_T, _W), 4: (_T, _W), 8: (_T, _W)},
+}
+
+
+def panel_route(n: int, b: int, kind: str) -> str:
+    """The route of ``kind`` ("col": the column pass, "bwd_row": the
+    backward row pass) for B waves of an n x n grid, from PANEL_ROUTE: a
+    function of (n, b) alone."""
+    if kind not in ("col", "bwd_row"):
+        raise ValueError(f"panel_route: kind must be 'col' or 'bwd_row', got {kind!r}")
+    rows = PANEL_ROUTE[n]
+    return rows[max((k for k in rows if k <= b), default=min(rows))][kind == "bwd_row"]
+
+
+def _check_route(what: str, route: str | None) -> None:
+    if route is not None and route not in ROUTES:
+        raise ValueError(f"{what}: route must be one of {tuple(ROUTES)}, got {route!r}")
+
+
+def _route_code(what: str, route: str | None, n: int, b: int, kind: str) -> tuple[str, int]:
+    """(route name, its code in the C entry points) of a pass: ``route``
+    checked, or PANEL_ROUTE's when None."""
+    _check_route(what, route)
+    name = route or panel_route(n, b, kind)
+    return name, ROUTES[name]
 
 
 def _entry(name: str):
@@ -152,11 +215,11 @@ def _launch(name: str, device: torch.device, *args) -> None:
 def panel_kernel_info(n: int, kernel: str = "row", device: torch.device | str = "cuda") -> dict:
     """Registers, dynamic shared memory, local memory and resident blocks of
     the row kernel (``kernel`` "row"), the column kernel ("col"), the
-    backward row kernel ("bwd_row") or the streamed build's kernels
-    ("g_row", "build_col", "vfused_row"), for axis size n, as the CUDA
-    runtime reports them."""
+    backward row kernel ("bwd_row"), the streamed build's kernels ("g_row",
+    "build_col", "vfused_row") or the wide kernels ("wide_col",
+    "wide_bwd_row"), for axis size n, as the CUDA runtime reports them."""
     which = {"row": 0, "col": 1, "bwd_row": 2, "g_row": 3, "build_col": 4,
-             "vfused_row": 5}[kernel]
+             "vfused_row": 5, "wide_col": 6, "wide_bwd_row": 7}[kernel]
     dev = torch.device(device)
     if dev.index is None:
         dev = torch.device("cuda", torch.cuda.current_device())
@@ -526,7 +589,8 @@ def _check_propagator(what: str, a: torch.Tensor, propagator: torch.Tensor) -> N
 
 
 def panel_colpass(a: torch.Tensor, propagator: torch.Tensor) -> torch.Tensor:
-    """b = Fy^H(P / n^2 * Fy(a)): the kernel on CUDA, plain on the CPU."""
+    """b = Fy^H(P / n^2 * Fy(a)): on CUDA the kernel that PANEL_ROUTE picks,
+    plain on the CPU."""
     if not a.is_cuda:
         return panel_colpass_ref(a, propagator)
     _check_propagator("panel_colpass", a, propagator)
@@ -534,24 +598,35 @@ def panel_colpass(a: torch.Tensor, propagator: torch.Tensor) -> torch.Tensor:
 
 
 def panel_col_bwd(bar: torch.Tensor, propagator: torch.Tensor) -> torch.Tensor:
-    """Fy^H(conj(P) / n^2 * Fy(bar)): the kernel on CUDA, plain on the CPU."""
+    """Fy^H(conj(P) / n^2 * Fy(bar)): on CUDA the kernel that PANEL_ROUTE
+    picks, plain on the CPU."""
     if not bar.is_cuda:
         return panel_col_bwd_ref(bar, propagator)
     _check_propagator("panel_col_bwd", bar, propagator)
     return _colpass(bar, prepare_propagator(propagator), conj=True)
 
 
-def _colpass(a: torch.Tensor, prepared: torch.Tensor, conj: bool = False) -> torch.Tensor:
+def _count(wrapper, k: int = 1, route: str | None = None) -> None:
+    """Add k launches to a wrapper's count (a routed pass's by route too)."""
+    wrapper.launches += k
+    if route is not None:
+        wrapper.launches_by_route[route] += k
+
+
+def _colpass(a: torch.Tensor, prepared: torch.Tensor, conj: bool = False,
+             route: str | None = None) -> torch.Tensor:
     """The column pass's launch (with conj(P) when ``conj``: panel_col_bwd),
     the propagator already prepared (prepare_propagator): (n, n), or one per
-    wave of a (B, n, n) ``a``."""
+    wave of a (B, n, n) ``a``.  ``route`` names the kernel (ROUTES, for
+    measurements); None takes PANEL_ROUTE's."""
     what = "panel_col_bwd" if conj else "panel_colpass"
     flat, n = _wave(a, "a", what)
+    route, code = _route_code(what, route, n, flat.shape[0], "col")
     p_stride = n * n if prepared.ndim == 3 and a.ndim == 3 else 0
     out = torch.empty_like(flat)
     _launch("fdes_panel_colpass_c64", a.device, n, flat.data_ptr(), prepared.data_ptr(),
-            out.data_ptr(), p_stride, int(conj), flat.shape[0])
-    (panel_col_bwd if conj else panel_colpass).launches += 1
+            out.data_ptr(), p_stride, int(conj), flat.shape[0], code)
+    _count(panel_col_bwd if conj else panel_colpass, route=route)
     return out.reshape(a.shape)
 
 
@@ -642,59 +717,69 @@ def panel_rowfwd(g: torch.Tensor) -> torch.Tensor:
     return _xpass("panel_rowfwd", panel_rowfwd, g, True)
 
 
-def _bwd_row(what, counter, mode, bar, s, s_wave_stride, v, sigma):
+def _bwd_row(what, counter, mode, bar, s, s_wave_stride, v, sigma, route):
     """A backward row pass's launch: (out, dV (n, n)); s points at wave 0's s
-    (or psi) plane, s_wave_stride elements before the next wave's."""
+    (or psi) plane, s_wave_stride elements before the next wave's.  ``route``
+    names the kernel (ROUTES, for measurements); None takes PANEL_ROUTE's."""
     flat, n = _wave(bar, "bar", what)
+    route, code = _route_code(what, route, n, flat.shape[0], "bwd_row")
     vv = _real(v, (n, n), bar.device, "v", what)
     out = torch.empty_like(flat)
     dv = torch.empty((n, n), dtype=torch.float32, device=bar.device)
     _launch("fdes_panel_bwd_row_c64", bar.device, n, mode, flat.data_ptr(), out.data_ptr(),
             s.data_ptr(), s_wave_stride, vv.data_ptr(), dv.data_ptr(), float(sigma),
-            flat.shape[0])
-    counter.launches += 1
+            flat.shape[0], code)
+    _count(counter, route=route)
     return out.reshape(bar.shape), dv
 
 
 def panel_row_bwd_loop(
-    j: int, v_stack: torch.Tensor, s: torch.Tensor, bar: torch.Tensor, sigma: float
+    j: int, v_stack: torch.Tensor, s: torch.Tensor, bar: torch.Tensor, sigma: float,
+    *, route: str | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """(Fx(bar_s * conj(t_j)), dV_j), bar_s = Fx^H(bar), s the (S, n, n) (or,
-    for (B, n, n) waves, (B, S, n, n)) stack of the forward: the kernel on
-    CUDA, plain on the CPU."""
+    for (B, n, n) waves, (B, S, n, n)) stack of the forward: on CUDA the
+    kernel that PANEL_ROUTE picks (or ``route`` names), plain on the CPU."""
+    what = "panel_row_bwd_loop"
+    _check_route(what, route)
     if not bar.is_cuda:
         return panel_row_bwd_loop_ref(j, v_stack, s, bar, sigma)
-    what = "panel_row_bwd_loop"
     nslices, n = v_stack.shape[0], bar.shape[-1]
     s = _like(s, (*bar.shape[:-2], nslices, n, n), bar.device, "s", what)
     j = _slice_index(j, v_stack, what)
     return _bwd_row(what, panel_row_bwd_loop, _BWD_LOOP, bar, s.reshape(-1, nslices, n, n)[0, j],
-                    nslices * n * n, v_stack[j], sigma)
+                    nslices * n * n, v_stack[j], sigma, route)
 
 
 def panel_row_bwd_last(
-    v0: torch.Tensor, s0: torch.Tensor, bar: torch.Tensor, sigma: float
+    v0: torch.Tensor, s0: torch.Tensor, bar: torch.Tensor, sigma: float,
+    *, route: str | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """(dpsi0 = bar_s * conj(t_0), dV_0), s0 of bar's shape: the kernel on
-    CUDA, plain on the CPU."""
+    """(dpsi0 = bar_s * conj(t_0), dV_0), s0 of bar's shape: on CUDA the
+    kernel that PANEL_ROUTE picks (or ``route`` names), plain on the CPU."""
+    _check_route("panel_row_bwd_last", route)
     if not bar.is_cuda:
         return panel_row_bwd_last_ref(v0, s0, bar, sigma)
     n = bar.shape[-1]
     s0 = _like(s0, tuple(bar.shape), bar.device, "s0", "panel_row_bwd_last")
     return _bwd_row("panel_row_bwd_last", panel_row_bwd_last, _BWD_LAST, bar, s0, n * n, v0,
-                    sigma)
+                    sigma, route)
 
 
 def panel_bwd_tail(
-    v: torch.Tensor, psi: torch.Tensor, bar: torch.Tensor, sigma: float
+    v: torch.Tensor, psi: torch.Tensor, bar: torch.Tensor, sigma: float,
+    *, route: str | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """(dpsi = bar_s * conj(t), dV), s = t psi formed from psi (bar's shape):
-    the kernel on CUDA, plain on the CPU."""
+    on CUDA the kernel that PANEL_ROUTE picks (or ``route`` names), plain on
+    the CPU."""
+    _check_route("panel_bwd_tail", route)
     if not bar.is_cuda:
         return panel_bwd_tail_ref(v, psi, bar, sigma)
     n = bar.shape[-1]
     psi = _like(psi, tuple(bar.shape), bar.device, "psi", "panel_bwd_tail")
-    return _bwd_row("panel_bwd_tail", panel_bwd_tail, _BWD_TAIL, bar, psi, n * n, v, sigma)
+    return _bwd_row("panel_bwd_tail", panel_bwd_tail, _BWD_TAIL, bar, psi, n * n, v, sigma,
+                    route)
 
 
 def _check_loop(what, psi, v_stack, propagator) -> int:
@@ -724,12 +809,13 @@ def _loop_operands(what, psi, v_stack, propagator, prepared):
     return n, b, nslices, v32, pp, (n * n if pp.ndim == 3 else 0)
 
 
-def _count_loop(nslices, first, col, row, last):
-    """Add one loop's passes to the pass wrappers' counts."""
-    first.launches += 1
-    col.launches += nslices
-    row.launches += nslices - 1
-    last.launches += 1
+def _count_loop(nslices, first, col, row, last, col_route, row_route=None):
+    """Add one loop's passes to the pass wrappers' counts: the column passes
+    on col_route, the row passes after the first on row_route when routed."""
+    _count(first)
+    _count(col, nslices, col_route)
+    _count(row, nslices - 1, row_route)
+    _count(last, 1, row_route)
 
 
 def panel_scan(
@@ -756,14 +842,15 @@ def panel_scan(
         raise ValueError(f"panel_scan: propagator on {propagator.device}, psi0 on {psi0.device}")
     pp = prepare_propagator(propagator)
     out = torch.empty_like(flat)
+    col, code = _route_code("panel_scan", None, n, b, "col")
     _launch("fdes_panel_scan_c64", psi0.device, n, flat.data_ptr(), vr.data_ptr(),
             None if vi is None else vi.data_ptr(), pp.data_ptr(), out.data_ptr(), float(sigma),
-            b, s, n * n if pp.ndim == 3 else 0)
+            b, s, n * n if pp.ndim == 3 else 0, code)
     panel_scan.launches += 1
     if absorptive:
-        _count_loop(s, panel_init_abs, panel_colpass, panel_rowpass_stack_abs, panel_final)
+        _count_loop(s, panel_init_abs, panel_colpass, panel_rowpass_stack_abs, panel_final, col)
     else:
-        _count_loop(s, panel_init, panel_colpass, panel_rowpass_stack, panel_final)
+        _count_loop(s, panel_init, panel_colpass, panel_rowpass_stack, panel_final, col)
     return out if batched else out[0]
 
 
@@ -782,10 +869,12 @@ def panel_scan_store(
                                                       propagator, prepared)
     out = torch.empty_like(psi0)
     s = torch.empty((b, nslices, n, n), dtype=psi0.dtype, device=psi0.device)
+    col, code = _route_code("panel_scan_store", None, n, b, "col")
     _launch("fdes_panel_scan_store_c64", psi0.device, n, psi0.data_ptr(), v32.data_ptr(),
-            pp.data_ptr(), out.data_ptr(), s.data_ptr(), float(sigma), b, nslices, p_stride)
+            pp.data_ptr(), out.data_ptr(), s.data_ptr(), float(sigma), b, nslices, p_stride, code)
     panel_scan_store.launches += 1
-    _count_loop(nslices, panel_init_store, panel_colpass, panel_rowpass_stack_store, panel_final)
+    _count_loop(nslices, panel_init_store, panel_colpass, panel_rowpass_stack_store, panel_final,
+                col)
     return out, s
 
 
@@ -805,11 +894,14 @@ def panel_scan_bwd_store(
     s = _like(s, (b, nslices, n, n), g.device, "s", what)
     dpsi = torch.empty_like(g)
     dv = torch.empty((nslices, n, n), dtype=torch.float32, device=g.device)
+    col, col_code = _route_code(what, None, n, b, "col")
+    row, row_code = _route_code(what, None, n, b, "bwd_row")
     _launch("fdes_panel_scan_bwd_store_c64", g.device, n, s.data_ptr(), v32.data_ptr(),
             pp.data_ptr(), g.data_ptr(), dpsi.data_ptr(), dv.data_ptr(), float(sigma), b,
-            nslices, p_stride)
+            nslices, p_stride, col_code, row_code)
     panel_scan_bwd_store.launches += 1
-    _count_loop(nslices, panel_rowfwd, panel_col_bwd, panel_row_bwd_loop, panel_row_bwd_last)
+    _count_loop(nslices, panel_rowfwd, panel_col_bwd, panel_row_bwd_loop, panel_row_bwd_last,
+                col, row)
     return dv, dpsi
 
 
@@ -976,6 +1068,8 @@ WRAPPERS = (panel_init, panel_colpass, panel_rowpass_stack, panel_rowpass, panel
             panel_init_abs, panel_rowpass_stack_abs, panel_rowfwd, panel_bwd_tail,
             panel_init_store, panel_rowpass_stack_store, panel_col_bwd, panel_row_bwd_loop,
             panel_row_bwd_last, panel_g_rowpass, panel_build_colpass, panel_vfused_rowpass)
+#: the pass wrappers whose kernel PANEL_ROUTE picks, with launches_by_route
+ROUTED = (panel_colpass, panel_col_bwd, panel_row_bwd_loop, panel_row_bwd_last, panel_bwd_tail)
 #: the whole-loop calls, which count their calls and add their passes above
 #: (panel_streamed: its passes count themselves, one launch per wrapper call)
 LOOPS = (panel_scan, panel_scan_store, panel_scan_bwd_store, panel_streamed)
@@ -984,6 +1078,8 @@ LOOPS = (panel_scan, panel_scan_store, panel_scan_bwd_store, panel_streamed)
 def reset_launches() -> None:
     for w in (*WRAPPERS, *LOOPS):
         w.launches = 0
+    for w in ROUTED:
+        w.launches_by_route = dict.fromkeys(ROUTES, 0)
 
 
 reset_launches()

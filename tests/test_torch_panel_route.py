@@ -1,0 +1,582 @@
+"""The wide panel kernels (``panel_wide_col_kernel``,
+``panel_wide_bwd_row_kernel`` in csrc/panel_scan.cu, and their three-round
+transform) as a numpy model of their index maps, and the route between them
+and the tile kernels (``kernels/panel_scan.PANEL_ROUTE``).
+
+The model follows the kernels' data: an N-point transform is held by a group
+of T = N/R threads (R = 8 values a thread up to 512 points, 16 above: one
+warp at 256 points to eight at 4096), thread t and register m holding
+position p in one of three layouts (t + T m; hi N/R + 2^b m + lo with t = lo
++ 2^b hi, b = log2 N - 2 log2 R; R t + m).  Each of three rounds runs the
+radix-2 stages of the position bits that the registers hold, in the kernels'
+order, with twiddles read from the staged table as the kernels build it, and
+the group exchanges its values through a padded buffer in shared memory
+between rounds.  A column item is C adjacent columns of a plane, copied 16
+bytes at a time into a staged panel (rows one after the other, the halves of
+a 4-column row swapped on every other group of four rows), read by column
+into the groups' registers and written back the same way; a row item is one
+row a group.  The model is held against ``np.fft`` in float64, and its
+column pass, its conjugate and its backward row pass against the JAX
+package's panel passes in interpret mode.  The kernels themselves are held
+against the plain versions on the card (the last test here, and
+chip_smoke.py's kernels_panel and kernels_panel_grad phases)."""
+
+import re
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from fdes_tpu.constants import interaction_sigma, wavelength_A  # noqa: E402
+from fdes_tpu.grids import Grid, fresnel_propagator  # noqa: E402
+from fdes_tpu_torch.kernels import _build  # noqa: E402
+from fdes_tpu_torch.kernels import fused_step as fs  # noqa: E402
+from fdes_tpu_torch.kernels import panel_scan as ps  # noqa: E402
+
+SIGMA = interaction_sigma(300e3)
+EXACT = 1e-12  # float64: the model against np.fft, max |d| / max |ref|
+ATOL = 2e-5  # times max|.|: the tolerance of tests/test_torch_panel_grad.py
+N_JAX = 256  # the JAX passes' grid, their panel extents patched down
+BASE = 128  # the JAX transform's matmul base (fdes_tpu/pallas/fused_step.py)
+ROW_THREADS = 256  # csrc/panel_scan.cu kWideRowThreads
+
+
+def _shape(n: int) -> tuple[int, int, int, int]:
+    """(L, r, T, b) of an n-point transform (csrc/panel_scan.cu Rounds)."""
+    big = n.bit_length() - 1
+    r = 3 if big <= 9 else 4
+    return big, r, n >> r, big - 2 * r
+
+
+def _cols(n: int) -> int:
+    """Columns of a wide column item (kWideCols)."""
+    return 4 if n <= 2048 else 2
+
+
+def _bitrev(n: int) -> np.ndarray:
+    return fs.bit_reversal(n).numpy()
+
+
+def _cplx(rng, *shape) -> np.ndarray:
+    return rng.normal(size=shape) + 1j * rng.normal(size=shape)
+
+
+# ---- the model -----------------------------------------------------------------
+
+
+def _staged_twiddles(n: int) -> np.ndarray:
+    """init_staged_twiddles: tw[hs - 1 + jj] = exp(-2 pi i jj / (2 hs)) for
+    hs = 1, 2, ..., n/2 and jj < hs (n - 1 entries)."""
+    i = np.arange(n - 1)
+    hs = 1 << np.floor(np.log2(i + 1)).astype(np.int64)
+    return np.exp(-1j * np.pi * (i + 1 - hs) / hs)
+
+
+def _pos(n: int, layout: int, t=None, m=None) -> np.ndarray:
+    """rounds_pos: the position of register m of thread t in a layout,
+    (T, R) over all threads and registers by default."""
+    _, r, tt, b = _shape(n)
+    t = np.arange(tt)[:, None] if t is None else t
+    m = np.arange(1 << r)[None, :] if m is None else m
+    if layout == 1:
+        return t + tt * m
+    if layout == 2:
+        return (t >> b) * (n >> r) + (m << b) + (t & ((1 << b) - 1))
+    return (1 << r) * t + m
+
+
+def _pad(n: int, a: int, b_: int, p):
+    """rounds_pad: the buffer place of position p in an exchange between
+    layouts a and b_."""
+    big, r, _, b = _shape(n)
+    if {a, b_} == {1, 2}:
+        return p + ((p >> (big - r)) << b)
+    return p + (p >> r)
+
+
+def _exchange(n: int, x: np.ndarray, fr: int, to: int) -> np.ndarray:
+    """rounds_exchange on (..., T, R): every thread writes its registers at
+    their padded places, then reads the places of the next layout."""
+    _, r, _, _ = _shape(n)
+    src, dst = _pad(n, fr, to, _pos(n, fr)), _pad(n, fr, to, _pos(n, to))
+    assert len(set(src.ravel().tolist())) == n and int(src.max()) < n + n // (1 << r)
+    buf = np.full((*x.shape[:-2], n + n // (1 << r)), np.nan, dtype=x.dtype)
+    buf[..., src] = x
+    out = buf[..., dst]
+    assert not np.isnan(out).any()  # the next layout reads only what was written
+    return out
+
+
+def _stage(x: np.ndarray, tw: np.ndarray, d: int, hs: int, base, stride: int, inverse: bool):
+    """rounds_stage: register pairs (m, m + d); the twiddle of a pair at
+    tw[hs - 1 + base + stride (m mod d)], base per thread ((T, 1) or 0)."""
+    base = np.asarray(base).reshape(-1)
+    for m in range(x.shape[-1]):
+        if m & d:
+            continue
+        w = tw[hs - 1 + base + stride * (m & (d - 1))]
+        a, c = x[..., m].copy(), x[..., m + d].copy()
+        if inverse:
+            u = c * np.conj(w)
+            x[..., m], x[..., m + d] = a + u, a - u
+        else:
+            x[..., m], x[..., m + d] = a + c, (a - c) * w
+    return x
+
+
+def _forward(n: int, x: np.ndarray) -> np.ndarray:
+    """rounds_forward on (..., T, R): layout 1 natural in, layout 3
+    bit-reversed out (position p holds frequency bitrev_n(p))."""
+    _, r, tt, b = _shape(n)
+    tw, t = _staged_twiddles(n), np.arange(tt)
+    x = x.copy()
+    for j in range(r - 1, -1, -1):
+        x = _stage(x, tw, 1 << j, tt << j, t, tt, False)
+    x = _exchange(n, x, 1, 2)
+    for j in range(r - 1, -1, -1):
+        x = _stage(x, tw, 1 << j, 1 << (b + j), t & ((1 << b) - 1), 1 << b, False)
+    x = _exchange(n, x, 2, 3)
+    for j in range(b - 1, -1, -1):
+        x = _stage(x, tw, 1 << j, 1 << j, 0, 1, False)
+    return x
+
+
+def _inverse(n: int, x: np.ndarray) -> np.ndarray:
+    """rounds_inverse: layout 3 bit-reversed in, layout 1 natural out,
+    unscaled."""
+    _, r, tt, b = _shape(n)
+    tw, t = _staged_twiddles(n), np.arange(tt)
+    x = x.copy()
+    for j in range(b):
+        x = _stage(x, tw, 1 << j, 1 << j, 0, 1, True)
+    x = _exchange(n, x, 3, 2)
+    for j in range(r):
+        x = _stage(x, tw, 1 << j, 1 << (b + j), t & ((1 << b) - 1), 1 << b, True)
+    x = _exchange(n, x, 2, 1)
+    for j in range(r):
+        x = _stage(x, tw, 1 << j, tt << j, t, tt, True)
+    return x
+
+
+def _rows_forward(rows: np.ndarray) -> np.ndarray:
+    """Rows through the group's registers: loaded in layout 1, stored from
+    layout 3 (the bit-reversed spectrum at its positions)."""
+    n = rows.shape[-1]
+    out = np.empty(rows.shape, dtype=complex)
+    out[..., _pos(n, 3)] = _forward(n, rows[..., _pos(n, 1)])
+    return out
+
+
+def _rows_inverse(rows: np.ndarray) -> np.ndarray:
+    n = rows.shape[-1]
+    out = np.empty(rows.shape, dtype=complex)
+    out[..., _pos(n, 1)] = _inverse(n, rows[..., _pos(n, 3)])
+    return out
+
+
+def _stage_at(y, c, cols: int):
+    """stage_at: the place of (row y, column c) in a staged panel of C columns."""
+    y, c = np.asarray(y), np.asarray(c)
+    if cols == 4:
+        return 4 * y + (c ^ (((y >> 2) & 1) << 1))
+    return cols * y + c
+
+
+def _fetch_map(n: int, cols: int):
+    """wide_col_fetch (and the 16-byte stores, the same map): thread index i
+    -> (row, first column of its 16-byte chunk, its place in the stage)."""
+    i = np.arange(n * cols // 2)
+    y, c = i // (cols // 2), 2 * (i % (cols // 2))
+    return y, c, _stage_at(y, c, cols)
+
+
+def _col_pass(plane: np.ndarray, prepared: np.ndarray, conj_p: bool):
+    """panel_wide_col_kernel on (B, n, n) (prepared: (n, n) or one per wave):
+    each item of C columns copied into the stage, group g's column read into
+    its registers (layout 1), transformed (to layout 3), multiplied by P at
+    the rows of layout 3, transformed back, written to the stage and
+    stored."""
+    b, n = plane.shape[0], plane.shape[-1]
+    cols = _cols(n)
+    y, c, at = _fetch_map(n, cols)
+    rows1, rows3 = _pos(n, 1), _pos(n, 3)
+    out = np.empty_like(plane)
+    pp = prepared if prepared.ndim == 3 else np.broadcast_to(prepared, plane.shape)
+    for wave in range(b):
+        for c0 in range(0, n, cols):
+            stage = np.full(cols * n, np.nan, dtype=plane.dtype)
+            stage[at] = plane[wave, y, c0 + c]
+            stage[at + 1] = plane[wave, y, c0 + c + 1]
+            assert not np.isnan(stage).any()
+            x = np.stack([stage[_stage_at(rows1, g, cols)] for g in range(cols)])
+            p = np.stack([pp[wave, rows3, c0 + g] for g in range(cols)]) / (n * n)
+            x = _inverse(n, _forward(n, x) * (p.conj() if conj_p else p))
+            for g in range(cols):
+                stage[_stage_at(rows1, g, cols)] = x[g]
+            out[wave, y, c0 + c] = stage[at]
+            out[wave, y, c0 + c + 1] = stage[at + 1]
+    return out
+
+
+def _bwd_row_pass(bar, s, v, sigma, forward=True, from_psi=False):
+    """panel_wide_bwd_row_kernel: (out, dV) of the waves bar (B, n, n), s
+    (B, n, n) (from_psi: psi), V (n, n): per row the waves in order, the dV
+    sum of the waves before added to each wave's term."""
+    bar_s = _rows_inverse(bar)
+    t = np.exp(1j * sigma * v)
+    s_eff = s * t if from_psi else s
+    acc = 0.0
+    for wave in range(bar.shape[0]):
+        acc = (bar_s[wave] * s_eff[wave].conj()).imag + acc
+    out = bar_s * t.conj()
+    return (_rows_forward(out) if forward else out), sigma * acc
+
+
+# ---- the transform and the layouts against np.fft -------------------------------
+
+
+@pytest.mark.parametrize("n", [256, 512, 1024, 2048, 4096])
+def test_rounds_transform_is_the_dft(n):
+    """The three-round forward transform of rows (one to eight warps a
+    transform) is their DFT at bit-reversed positions, and the inverse takes
+    it back (times n), in float64."""
+    rng = np.random.default_rng(n)
+    rows = _cplx(rng, 3, n)
+    got = _rows_forward(rows)
+    want = np.fft.fft(rows, axis=-1)[..., _bitrev(n)]
+    assert np.abs(got - want).max() <= EXACT * np.abs(want).max()
+    back = _rows_inverse(got)
+    assert np.abs(back - n * rows).max() <= EXACT * n * np.abs(rows).max()
+
+
+@pytest.mark.parametrize("n", [256, 2048, 4096])
+def test_layouts_twiddles_and_banks(n):
+    """16 values a thread past 512 points, 16 at 2048 and 4096 with four and
+    eight warps; each layout covers the n positions once; every twiddle read
+    lies in the staged table, a warp's round-1 reads are 32 adjacent entries
+    and round 2's 2^b; 16 lanes' accesses of an exchange fall on 16 bank
+    pairs, but those of layout 1 between layouts 1 and 3 at R = 8 (2
+    ways)."""
+    big, r, tt, b = _shape(n)
+    assert (tt // 32, 1 << r) == {256: (1, 8), 2048: (4, 16), 4096: (8, 16)}[n]
+    for layout in (1, 2, 3):
+        assert sorted(_pos(n, layout).ravel().tolist()) == list(range(n))
+    t = np.arange(tt)
+    for j in range(r):  # round 1 of the warp of lanes 0..31, register 0
+        idx = (tt << j) - 1 + t[:32]
+        assert int(idx.max()) < n - 1 and len(set(idx.tolist())) == 32
+    for j in range(r):  # round 2
+        idx = (1 << (b + j)) - 1 + (t[:32] & ((1 << b) - 1))
+        assert int(idx.max()) < n - 1 and len(set(idx.tolist())) == min(32, 1 << b)
+    for fr, to in ((1, 2), (2, 3), (1, 3), (3, 1)):
+        for layout in (fr, to):
+            places = _pad(n, fr, to, _pos(n, layout))
+            for m in range(1 << r):
+                for half in range(0, tt, 16):
+                    banks = (places[half: half + 16, m] % 16).tolist()
+                    ways = max(banks.count(k) for k in banks)
+                    assert ways == (2 if (r == 3 and {fr, to} == {1, 3} and layout == 1) else 1)
+
+
+@pytest.mark.parametrize("n", [256, 2048, 4096])
+def test_column_item_covers_its_columns_once(n):
+    """A column item's 16-byte copies and stores cover each (row, column) of
+    its C columns once, the pair of a copy side by side in the stage; the
+    groups' registers read each once; 16 lanes reading one column fall on 8
+    bank pairs at C = 4 (the swizzle; 4 without it) and 8 at C = 2; the
+    groups' padded buffers fit the stage."""
+    cols = _cols(n)
+    y, c, at = _fetch_map(n, cols)
+    cells = sorted(zip(y.tolist(), c.tolist())) + sorted(zip(y.tolist(), (c + 1).tolist()))
+    assert sorted(cells) == [(yy, cc) for yy in range(n) for cc in range(cols)]
+    places = np.concatenate([at, at + 1])
+    assert len(set(places.tolist())) == cols * n and int(places.max()) < cols * n
+    assert np.array_equal(_stage_at(y, c + 1, cols), at + 1) and not (at % 2).any()
+    reads = np.stack([_stage_at(_pos(n, 1), g, cols) for g in range(cols)])
+    assert sorted(reads.ravel().tolist()) == list(range(cols * n))
+    for g in range(cols):
+        for m in range(reads.shape[-1]):
+            for half in range(0, reads.shape[1], 16):
+                assert len(set((reads[g, half: half + 16, m] % 16).tolist())) == 8
+    if cols == 4:
+        plain = 4 * np.arange(16)
+        assert len(set((plain % 16).tolist())) == 4
+    _, r, _, _ = _shape(n)
+    assert cols * (n + n // (1 << r)) >= cols * n
+
+
+@pytest.mark.parametrize("n", [256, 2048, 4096])
+def test_row_item_covers_its_row_once(n):
+    """A row group's registers hold each element of its row once in layout 1,
+    which a warp loads 256 contiguous bytes at a time, and the backward row
+    kernel's 256-thread blocks hold whole groups."""
+    _, _, tt, _ = _shape(n)
+    rows1 = _pos(n, 1)
+    assert sorted(rows1.ravel().tolist()) == list(range(n))
+    for m in range(rows1.shape[1]):
+        assert np.array_equal(np.diff(rows1[:32, m]), np.ones(31, dtype=int))
+    assert ROW_THREADS % tt == 0 and ROW_THREADS // tt >= 1
+
+
+@pytest.mark.parametrize("n", [256, 2048])
+def test_model_passes_are_the_plain_passes(n):
+    """The model's column pass (and its conjugate) and backward row pass
+    against the plain passes in complex128, one wave at 2048^2 and two with
+    per-wave P at 256^2."""
+    rng = np.random.default_rng(n + 1)
+    b = 2 if n == 256 else 1
+    a, s = _cplx(rng, b, n, n), _cplx(rng, b, n, n)
+    v = rng.uniform(0, 2000, (n, n))
+    prop = np.exp(1j * rng.uniform(0, 6.28, (b, n, n) if b > 1 else (n, n)))
+    br = _bitrev(n)
+    prepared = prop[..., br[:, None], br[None, :]]
+    for conj in (False, True):
+        got = _col_pass(a, prepared, conj)
+        ref = (ps.panel_col_bwd_ref if conj else ps.panel_colpass_ref)(
+            torch.as_tensor(a), torch.as_tensor(prop)).numpy()
+        assert np.abs(got - ref).max() <= EXACT * np.abs(ref).max()
+    out, dv = _bwd_row_pass(a, s, v, SIGMA)
+    ref_out, ref_dv = ps.panel_row_bwd_loop_ref(0, torch.as_tensor(v[None]),
+                                                torch.as_tensor(s[:, None]), torch.as_tensor(a),
+                                                SIGMA)
+    assert np.abs(out - ref_out.numpy()).max() <= EXACT * np.abs(ref_out.numpy()).max()
+    assert np.abs(dv - ref_dv.numpy()).max() <= 1e-10 * np.abs(ref_dv.numpy()).max()
+    tail, dv_t = _bwd_row_pass(a, s, v, SIGMA, forward=False, from_psi=True)
+    ref_tail, ref_dv_t = ps.panel_bwd_tail_ref(torch.as_tensor(v), torch.as_tensor(s),
+                                               torch.as_tensor(a), SIGMA)
+    assert np.abs(tail - ref_tail.numpy()).max() <= EXACT * np.abs(ref_tail.numpy()).max()
+    assert np.abs(dv_t - ref_dv_t.numpy()).max() <= 1e-10 * np.abs(ref_dv_t.numpy()).max()
+
+
+# ---- the model's passes against the JAX package ---------------------------------
+
+
+def _jax_order(n: int) -> np.ndarray:
+    """The x spectrum's order between the JAX panel passes: position q * 128 +
+    k1 holds frequency k1 * r + q, r = n / 128 (fused_step._prepared_prop)."""
+    return np.arange(n).reshape(BASE, n // BASE).T.reshape(n)
+
+
+@pytest.fixture(scope="module")
+def jax_passes():
+    """The JAX panel passes at 256^2 in interpret mode, the panel extents
+    patched to 64 rows and 128 columns (as tests/test_torch_panel_grad.py
+    runs them): colpass, col_bwd and row_bwd_loop on one plane."""
+    import fdes_tpu.pallas.panel_scan as jps
+
+    tabs = jps._tables(N_JAX)
+    prec = jax.lax.Precision.HIGHEST
+    mp = pytest.MonkeyPatch()
+    mp.setattr(jps, "_ROWS", 64)
+    mp.setattr(jps, "_COLS", 128)
+
+    def col(a, prop, bwd):
+        pl = jps._prepared_prop(jnp.asarray(prop), N_JAX)
+        fn = jps._panel_col_bwd if bwd else jps.panel_colpass
+        re, im = fn(jnp.asarray(a.real), jnp.asarray(a.imag), jnp.real(pl), jnp.imag(pl), tabs,
+                    prec, True)
+        return np.asarray(re) + 1j * np.asarray(im)
+
+    def row_bwd_loop(bar, s, v):
+        re, im, dv = jps._panel_row_bwd_loop(
+            0, jnp.asarray(v[None]), jnp.asarray(s.real[None]), jnp.asarray(s.imag[None]),
+            jnp.asarray(bar.real), jnp.asarray(bar.imag), tabs, SIGMA, prec, True)
+        return np.asarray(re) + 1j * np.asarray(im), np.asarray(dv)
+
+    yield {"col": col, "row_bwd_loop": row_bwd_loop}
+    mp.undo()
+
+
+@pytest.fixture(scope="module")
+def jax_fields():
+    """complex64-valued inputs at 256^2: two x-spectrum planes in natural
+    order, two s planes, a potential and two tilted propagators."""
+    rng = np.random.default_rng(41)
+    n = N_JAX
+    grid = Grid(ny=n, nx=n, py=0.3, px=0.3)
+    lam = wavelength_A(300e3)
+    props = np.stack([fresnel_propagator(grid, lam, 1.8, tilt_xy_rad=t)
+                      for t in ((0.02, 0.01), (-0.01, 0.03))]).astype(np.complex64)
+    return {"x": _cplx(rng, 2, n, n).astype(np.complex64),
+            "s": _cplx(rng, 2, n, n).astype(np.complex64),
+            "v": (rng.normal(size=(n, n)) * 25.0).astype(np.float32), "props": props}
+
+
+def _close(got, want, tol=ATOL):
+    np.testing.assert_allclose(got, want, atol=tol * np.abs(want).max(), rtol=0)
+
+
+@pytest.mark.parametrize("waves,per_wave_p", [(1, False), (2, False), (2, True)])
+@pytest.mark.parametrize("conj", [False, True])
+def test_model_column_pass_equals_jax(jax_passes, jax_fields, waves, per_wave_p, conj):
+    """The model's column pass (conj: with conj(P), the adjoint) against
+    JAX's panel_colpass (_panel_col_bwd), one plane a call, on the same
+    natural-order x spectrum placed in each package's order (bit-reversed
+    here, JAX's digit order there).  JAX's adjoint is the transpose (its
+    bilinear gradient convention): conj(C^T(conj(a))) is this one's C^H a."""
+    f = jax_fields
+    n = N_JAX
+    x = f["x"][:waves]
+    props = f["props"][:waves] if per_wave_p else np.broadcast_to(f["props"][0], (waves, n, n))
+    br, jo = _bitrev(n), _jax_order(n)
+    want = []
+    for k in range(waves):
+        a = x[k][:, jo]
+        out = (np.conj(jax_passes["col"](np.conj(a), props[k], True)) if conj
+               else jax_passes["col"](a, props[k], False))
+        nat = np.empty_like(out)
+        nat[:, jo] = out
+        want.append(nat[:, br])
+    p = props if per_wave_p else props[0]
+    prepared = p[..., br[:, None], br[None, :]].astype(np.complex128)
+    got = _col_pass(x[..., br].astype(np.complex128), prepared, conj)
+    _close(got, np.stack(want))
+
+
+@pytest.mark.parametrize("waves", [1, 2])
+def test_model_backward_row_pass_equals_jax(jax_passes, jax_fields, waves):
+    """The model's backward row pass (kBwdLoop) against JAX's
+    _panel_row_bwd_loop, a wave at a time, dV summed over the waves.  JAX
+    hands the conjugate cotangent: it gets conj(bar) and returns
+    conj(out); dV is the same."""
+    f = jax_fields
+    n = N_JAX
+    br, jo = _bitrev(n), _jax_order(n)
+    x, s, v = f["x"][:waves], f["s"][:waves], f["v"]
+    want_out, want_dv = [], np.zeros((n, n))
+    for k in range(waves):
+        out, dv = jax_passes["row_bwd_loop"](np.conj(x[k][:, jo]), s[k], v)
+        nat = np.empty_like(out)
+        nat[:, jo] = np.conj(out)
+        want_out.append(nat[:, br])
+        want_dv = want_dv + dv
+    got_out, got_dv = _bwd_row_pass(x[..., br].astype(np.complex128), s.astype(np.complex128),
+                                    v.astype(np.float64), SIGMA)
+    _close(got_out, np.stack(want_out))
+    _close(got_dv, want_dv)
+
+
+# ---- the route ---------------------------------------------------------------
+
+
+def test_panel_route_is_the_table():
+    """PANEL_ROUTE covers the panel sizes and the measured wave counts;
+    panel_route reads it by (n, b) alone: a measured count takes its row, a
+    count between rows the row below, one above the last the last; every
+    entry names a route of the C entry points, whose codes match their
+    enums, and each route's kernel is one the library builds."""
+    assert set(ps.PANEL_ROUTE) == set(ps.SIZES)
+    for n, rows in ps.PANEL_ROUTE.items():
+        measured = sorted(rows)
+        assert measured == [1, 2, 4, 8]
+        for k, kind in enumerate(("col", "bwd_row")):
+            for b in range(1, 20):
+                want = rows[max(m for m in measured if m <= b)][k]
+                assert ps.panel_route(n, b, kind) == want and want in ps.ROUTES
+    with pytest.raises(ValueError, match="kind must be"):
+        ps.panel_route(2048, 1, "row")
+    src = (_build.SRC_DIR / "panel_scan.cu").read_text()
+    enum = re.search(r"enum Route \{ kRouteTile = (\d), kRouteWide = (\d) \}", src)
+    assert enum and [int(g) for g in enum.groups()] == [ps.ROUTES[k] for k in ("tile", "wide")]
+    for kernel in ("panel_col_kernel", "panel_wide_col_kernel", "panel_bwd_row_kernel",
+                   "panel_wide_bwd_row_kernel"):
+        assert re.search(rf"__global__ void __launch_bounds__\([^)]*\)\s*{kernel}\(", src)
+    assert "panel_scan" in _build.sources()
+
+
+def test_route_argument_is_checked():
+    """route= takes "tile" or "wide" and nothing else, on the CPU too."""
+    n = 256
+    a = torch.zeros((1, n, n), dtype=torch.complex64)
+    pp = torch.ones((n, n), dtype=torch.complex64)
+    v = torch.zeros((2, n, n))
+    for bad in ("cluster", "Wide", "", "wide_flat"):
+        with pytest.raises(ValueError, match="route must be"):
+            ps._colpass(a, pp, route=bad)
+        with pytest.raises(ValueError, match="route must be"):
+            ps.panel_row_bwd_loop(1, v, a[:, None].expand(1, 2, n, n), a, SIGMA, route=bad)
+        with pytest.raises(ValueError, match="route must be"):
+            ps.panel_row_bwd_last(v[0], a, a, SIGMA, route=bad)
+        with pytest.raises(ValueError, match="route must be"):
+            ps.panel_bwd_tail(v[0], a, a, SIGMA, route=bad)
+
+
+def test_wide_wrappers_count_their_own_launches():
+    """The routed wrappers (ROUTED, among WRAPPERS) count their launches by
+    kernel as well as in all; on the CPU each, with either route named, is
+    the plain version, and no count moves: only a launch on the card does."""
+    assert all(w in ps.WRAPPERS for w in ps.ROUTED)
+    rng = np.random.default_rng(5)
+    n = 256
+    a = torch.as_tensor(_cplx(rng, n, n).astype(np.complex64))
+    s = torch.as_tensor(_cplx(rng, 2, n, n).astype(np.complex64))
+    v = torch.as_tensor(rng.uniform(0, 2000, (2, n, n)).astype(np.float32))
+    prop = torch.as_tensor(np.exp(1j * rng.uniform(0, 6.28, (n, n))).astype(np.complex64))
+    ps.reset_launches()
+    assert all(w.launches_by_route == {"tile": 0, "wide": 0} for w in ps.ROUTED)
+    pairs = [(ps.panel_colpass(a, prop), ps.panel_colpass_ref(a, prop)),
+             (ps.panel_col_bwd(a, prop), ps.panel_col_bwd_ref(a, prop))]
+    for route in ps.ROUTES:
+        pairs += [
+            (ps.panel_row_bwd_loop(1, v, s, a, SIGMA, route=route),
+             ps.panel_row_bwd_loop_ref(1, v, s, a, SIGMA)),
+            (ps.panel_row_bwd_last(v[0], s[0], a, SIGMA, route=route),
+             ps.panel_row_bwd_last_ref(v[0], s[0], a, SIGMA)),
+            (ps.panel_bwd_tail(v[1], s[1], a, SIGMA, route=route),
+             ps.panel_bwd_tail_ref(v[1], s[1], a, SIGMA)),
+        ]
+    for got, want in pairs:
+        got, want = (got, want) if isinstance(got, tuple) else ((got,), (want,))
+        assert all(torch.equal(x, y) for x, y in zip(got, want))
+    assert all(w.launches == 0 for w in (*ps.WRAPPERS, *ps.LOOPS))
+    assert all(w.launches_by_route == {"tile": 0, "wide": 0} for w in ps.ROUTED)
+
+
+# ---- on the card -------------------------------------------------------------
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the wide panel kernels have no CPU form")
+    return torch.device("cuda")
+
+
+def test_wide_kernels_match_plain_on_card(cuda):
+    """The wide column pass (both conjugations) and the three backward row
+    passes against the plain versions at 256^2 and 2048^2, two waves with
+    per-wave P; dV the same bits in two runs; each launch counted on its
+    wrapper under "wide"."""
+    tol = 2e-6
+    for n in (256, 2048):
+        rng = np.random.default_rng(n)
+        a = torch.as_tensor(_cplx(rng, 2, n, n).astype(np.complex64)).to(cuda)
+        s = torch.as_tensor(_cplx(rng, 2, 3, n, n).astype(np.complex64)).to(cuda)
+        v = torch.as_tensor(rng.uniform(0, 2000, (3, n, n)).astype(np.float32)).to(cuda)
+        prop = torch.polar(torch.ones(2, n, n, device=cuda),
+                           torch.as_tensor(rng.uniform(0, 6.28, (2, n, n)),
+                                           dtype=torch.float32).to(cuda))
+        pp = ps.prepare_propagator(prop)
+        ps.reset_launches()
+        for conj in (False, True):
+            want = (ps.panel_col_bwd_ref if conj else ps.panel_colpass_ref)(a, prop)
+            got = ps._colpass(a, pp, conj, route="wide")
+            assert float((got - want).abs().max()) <= tol * float(want.abs().max())
+        cases = [
+            (lambda: ps.panel_row_bwd_loop(2, v, s, a, SIGMA, route="wide"),
+             ps.panel_row_bwd_loop_ref(2, v, s, a, SIGMA)),
+            (lambda: ps.panel_row_bwd_last(v[0], s[:, 0].contiguous(), a, SIGMA, route="wide"),
+             ps.panel_row_bwd_last_ref(v[0], s[:, 0], a, SIGMA)),
+            (lambda: ps.panel_bwd_tail(v[1], s[:, 1].contiguous(), a, SIGMA, route="wide"),
+             ps.panel_bwd_tail_ref(v[1], s[:, 1], a, SIGMA)),
+        ]
+        for fn, want in cases:
+            got, again = fn(), fn()
+            for x, y in zip(got, want):
+                assert float((x - y).abs().max()) <= 2 * tol * float(y.abs().max())
+            assert all(torch.equal(x, y) for x, y in zip(got, again))
+        assert all(w.launches_by_route == {"tile": 0, "wide": w.launches} for w in ps.ROUTED)
+        assert [w.launches for w in ps.ROUTED] == [1, 1, 2, 2, 2]
