@@ -52,9 +52,10 @@ Phases, each printing one JSON line:
              The panel gradient's seven passes at the same shapes, its store
              pair at 2048^2 x 8 slices and 256^2 x 2 waves x 3 slices (dV
              bitwise equal over two runs), each pass timed at 2048^2 and
-             4096^2.  The wide column pass and the three wide backward row
-             passes beside their tile kernels at the same shapes, and every
-             kernel of each of the two passes timed in turns (three readings)
+             4096^2.  The wide column pass, the three wide backward row
+             passes and the two wide row passes with V_j (rows 15 and 23)
+             beside their tile kernels at the same shapes, and every kernel of
+             each of the four routed passes timed in turns (three readings)
              at each row of kernels/panel_scan.PANEL_ROUTE, 256^2 to 4096^2 x
              1-8 waves, the wide ones held to the plain versions there (each
              row names the faster and whether the table picks it).  The streamed build's three passes at 256^2, 2048^2
@@ -543,7 +544,8 @@ OWN_KERNELS = ("row_pass_kernel", "col_pass_kernel", "bwd_tail_kernel", "scan_ke
                "wide_scan_store_kernel", "wide_scan_bwd_store_kernel",
                "scan_ck_kernel", "scan_bwd_ck_kernel", "panel_row_kernel", "panel_col_kernel",
                "panel_bwd_row_kernel", "panel_g_row_kernel", "panel_build_col_kernel",
-               "panel_vfused_row_kernel", "panel_wide_col_kernel", "panel_wide_bwd_row_kernel")
+               "panel_vfused_row_kernel", "panel_wide_col_kernel", "panel_wide_bwd_row_kernel",
+               "panel_wide_row_kernel")
 
 
 def own_kernels(kernels: dict[str, int]) -> dict[str, int]:
@@ -1153,31 +1155,57 @@ PANEL_SHAPES = ((256, (), False), (256, (2,), False), (256, (2,), True), (2048, 
 #: the info key (panel_kernel_info) of each kernel family
 PANEL_INFO_KEY = {"panel_row_kernel": "row", "panel_col_kernel": "col",
                   "panel_bwd_row_kernel": "bwd_row", "panel_wide_col_kernel": "wide_col",
-                  "panel_wide_bwd_row_kernel": "wide_bwd_row"}
+                  "panel_wide_bwd_row_kernel": "wide_bwd_row",
+                  "panel_wide_row_kernel": "wide_row"}
 
 
 def panel_routed(n: int, b: int) -> dict[str, str]:
-    """The launch-count keys (launch_counts) and kernels of the column and
-    backward row passes that kernels/panel_scan.PANEL_ROUTE picks for B waves
-    at n^2."""
+    """The launch-count keys (launch_counts) and kernels of the passes that
+    kernels/panel_scan.PANEL_ROUTE routes (column, backward row, row and
+    store row pass) for B waves at n^2."""
     from fdes_tpu_torch.kernels import panel_scan as ps
 
-    col, row = ps.panel_route(n, b, "col"), ps.panel_route(n, b, "bwd_row")
+    col, bwd, row, row_st = (ps.panel_route(n, b, k) for k in ps.KINDS)
     wide = {"tile": "", "wide": "wide_"}
     return {"colpass": f"panel_colpass[{col}]", "col_bwd": f"panel_col_bwd[{col}]",
             "col_kernel": f"panel_{wide[col]}col_kernel",
-            "row_bwd_loop": f"panel_row_bwd_loop[{row}]",
-            "row_bwd_last": f"panel_row_bwd_last[{row}]", "bwd_tail": f"panel_bwd_tail[{row}]",
-            "bwd_kernel": f"panel_{wide[row]}bwd_row_kernel"}
+            "row_bwd_loop": f"panel_row_bwd_loop[{bwd}]",
+            "row_bwd_last": f"panel_row_bwd_last[{bwd}]", "bwd_tail": f"panel_bwd_tail[{bwd}]",
+            "bwd_kernel": f"panel_{wide[bwd]}bwd_row_kernel",
+            "rowpass_stack": f"panel_rowpass_stack[{row}]",
+            "row_kernel": f"panel_{wide[row]}row_kernel",
+            "rowpass_stack_store": f"panel_rowpass_stack_store[{row_st}]",
+            "row_store_kernel": f"panel_{wide[row_st]}row_kernel"}
+
+
+def add_counts(*counts: dict[str, int]) -> dict[str, int]:
+    """The sum of kernel counts by name, no zero entries."""
+    out: dict[str, int] = {}
+    for c in counts:
+        for k, v in c.items():
+            out[k] = out.get(k, 0) + v
+    return {k: v for k, v in out.items() if v}
+
+
+def panel_loop_kernels(n: int, b: int, nslices: int, store: bool = False) -> dict[str, int]:
+    """The port's kernels of one rollout of nslices slices of B waves at n^2
+    (``store``: panel_scan_store's) on PANEL_ROUTE's kernels: init and final
+    on panel_row_kernel, the S column passes and the S - 1 row passes with
+    V_j on the routed kernels."""
+    routed = panel_routed(n, b)
+    return add_counts({"panel_row_kernel": 2, routed["col_kernel"]: nslices},
+                      {routed["row_store_kernel" if store else "row_kernel"]: nslices - 1})
 
 
 #: the (n, waves) of each panel pass on the main paths whose launches a run
 #: records: the column pass in config 5's run, inverse and streamed rollouts
-#: at 2048^2 and the streamed one at 4096^2; its conjugate and the backward
-#: row passes in config 5's inverse
+#: at 2048^2 and the streamed one at 4096^2; its conjugate, the backward row
+#: passes and the store row pass in config 5's inverse; the row pass with V_j
+#: in config 5's run
 PANEL_PATH_SHAPES = {"colpass": ((2048, 1), (4096, 1)), "col_bwd": ((2048, 1),),
                      "row_bwd_loop": ((2048, 1),), "row_bwd_last": ((2048, 1),),
-                     "bwd_tail": ((2048, 1),)}
+                     "bwd_tail": ((2048, 1),), "rowpass_stack": ((2048, 1),),
+                     "rowpass_stack_store": ((2048, 1),)}
 
 
 def unrouted_panel_kernels() -> tuple[str, ...]:
@@ -1192,15 +1220,16 @@ def unrouted_panel_kernels() -> tuple[str, ...]:
 
 @contextlib.contextmanager
 def panel_route_all(route: str):
-    """PANEL_ROUTE with every entry set to ``route`` for both passes, restored
-    after: the config-5 paths timed on one kernel family against the table."""
+    """PANEL_ROUTE with every entry set to ``route`` for every routed pass,
+    restored after: the config-5 paths timed on one kernel family against
+    the table."""
     from fdes_tpu_torch.kernels import panel_scan as ps
 
     saved = {n: dict(rows) for n, rows in ps.PANEL_ROUTE.items()}
     try:
         for rows in ps.PANEL_ROUTE.values():
             for b in rows:
-                rows[b] = (route, route)
+                rows[b] = (route,) * len(ps.KINDS)
         yield
     finally:
         ps.PANEL_ROUTE.update(saved)
@@ -1223,10 +1252,11 @@ PANEL_ROUTE_WAVES = (1, 2, 4, 8)
 def panel_route_rows(kind: str, checks: list, sigma: float) -> list[dict]:
     """Each kernel of a pass timed in turns (three readings of time_launches
     each) at every (n, waves) row of PANEL_ROUTE: the column pass (kind
-    "col", on a prepared P shared by the waves) or the backward row pass
-    ("bwd_row", kBwdLoop), on "tile" and "wide"; the wide kernels held to the
-    plain version at each row's shape.  Each row names the faster and whether
-    the table picks it, with the pass's bound beside."""
+    "col", on a prepared P shared by the waves), the backward row pass
+    ("bwd_row", kBwdLoop) or the row pass with V_j ("row", and "row_store"
+    with s_j), on "tile" and "wide"; the wide kernels held to the plain
+    version at each row's shape.  Each row names the faster and whether the
+    table picks it, with the pass's bound beside."""
     from fdes_tpu_torch.kernels import panel_scan as ps
 
     card = CardInputs(11)
@@ -1242,6 +1272,15 @@ def panel_route_rows(kind: str, checks: list, sigma: float) -> list[dict]:
                 fns = {r: (lambda r=r: ps._colpass(a, pp, route=r)) for r in ps.ROUTES}
                 # a and b of each wave, P (shared) once
                 cost = (plane * (b * (8 + 8) + 8), b * (2 * fx + 6 * plane))
+            elif kind in ("row", "row_store"):
+                store = kind == "row_store"
+                vs = card.real(2, n, n)
+                wrapper = ps.panel_rowpass_stack_store if store else ps.panel_rowpass_stack
+                plain = ps.panel_rowpass_stack_store_ref if store else ps.panel_rowpass_stack_ref
+                ref = plain(1, vs, a, sigma)
+                fns = {r: (lambda r=r: wrapper(1, vs, a, sigma, route=r)) for r in ps.ROUTES}
+                # b and a (and s) of each wave, V (shared) once
+                cost = (plane * (b * (24 if store else 16) + 4), b * (2 * fx + 9 * plane))
             else:
                 vs, s_b = card.real(2, n, n), card.cplx(b, 2, n, n)
                 ref = ps.panel_row_bwd_loop_ref(1, vs, s_b, a, sigma)
@@ -1268,14 +1307,16 @@ def panel_route_rows(kind: str, checks: list, sigma: float) -> list[dict]:
     return rows
 
 
-def panel_pass_rows(checks: list, passes, cost, replaces: dict,
-                    kernel_of: dict) -> tuple[dict, dict]:
+def panel_pass_rows(checks: list, passes, cost, replaces: dict, kernel_of: dict,
+                    info_keys: dict | None = None) -> tuple[dict, dict]:
     """The panel passes ``passes(n, lead, per_wave_p)`` returns ({name:
     (kernel, plain)}; the column passes on a prepared P, as the rollout runs
     them) held to their plain versions at PANEL_SHAPES, then each timed at
     2048^2 and 4096^2 (one wave) beside its bound from ``cost(n)`` ({name:
     (bytes, operations)}); ``kernel_of``: the kernel family of each name not
-    of panel_row_kernel.  Returns (table rows, kernel info by n)."""
+    of panel_row_kernel; ``info_keys``: the panel_kernel_info key of a name
+    whose family's (PANEL_INFO_KEY) is not its kernel's.  Returns (table
+    rows, kernel info by n)."""
     from fdes_tpu_torch.kernels import panel_scan as ps
 
     f32 = torch.float32
@@ -1289,6 +1330,8 @@ def panel_pass_rows(checks: list, passes, cost, replaces: dict,
                 errs[name] = err
         del cases
     family = {name: kernel_of.get(name, "panel_row_kernel") for name in replaces}
+    info_key = {name: (info_keys or {}).get(name, PANEL_INFO_KEY[family[name]])
+                for name in replaces}
     times, info = {}, {}
     for n in (2048, 4096):
         cases = passes(n, (), False)
@@ -1303,8 +1346,7 @@ def panel_pass_rows(checks: list, passes, cost, replaces: dict,
                 "bytes": nbytes, "operations": ops,
                 "kernels_per_call": expect_own_kernels(name, kern, {family[name]: 1}),
             }
-        info[n] = {k: ps.panel_kernel_info(n, k) for k in sorted(set(
-            PANEL_INFO_KEY[f] for f in family.values()))}
+        info[n] = {k: ps.panel_kernel_info(n, k) for k in sorted(set(info_key.values()))}
         del cases
     rows = {}
     for name in replaces:
@@ -1318,7 +1360,7 @@ def panel_pass_rows(checks: list, passes, cost, replaces: dict,
             "dtype": "complex64", "bytes": t["bytes"], "operations": t["operations"],
             "at_4096": {k: t4[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
             "kernels_per_call": t["kernels_per_call"],
-            "kernel": info[2048][PANEL_INFO_KEY[family[name]]],
+            "kernel": info[2048][info_key[name]],
         }
     return rows, info
 
@@ -1355,8 +1397,9 @@ def phase_kernels_panel() -> tuple[dict, dict]:
                            lambda: ps.panel_init_ref(vs[0], psi, sigma)),
             **{f"panel_colpass[{r}]": (lambda r=r: ps._colpass(a, pp, route=r),
                                        lambda: ps.panel_colpass_ref(a, pr)) for r in ps.ROUTES},
-            "panel_rowpass_stack": (lambda: ps.panel_rowpass_stack(2, vs, a, sigma),
-                                    lambda: ps.panel_rowpass_stack_ref(2, vs, a, sigma)),
+            **{f"panel_rowpass_stack[{r}]": (
+                lambda r=r: ps.panel_rowpass_stack(2, vs, a, sigma, route=r),
+                lambda: ps.panel_rowpass_stack_ref(2, vs, a, sigma)) for r in ps.ROUTES},
             "panel_rowpass": (lambda: ps.panel_rowpass(vs[1], a, sigma),
                               lambda: ps.panel_rowpass_ref(vs[1], a, sigma)),
             "panel_final": (lambda: ps.panel_final(a), lambda: ps.panel_final_ref(a)),
@@ -1373,7 +1416,8 @@ def phase_kernels_panel() -> tuple[dict, dict]:
             "panel_init": (plane * (8 + 4 + 8), fx + 9 * plane),
             **dict.fromkeys(("panel_colpass[tile]", "panel_colpass[wide]"),
                             (plane * (8 + 8 + 8), 2 * fx + 6 * plane)),
-            "panel_rowpass_stack": (plane * (8 + 4 + 8), 2 * fx + 9 * plane),
+            **dict.fromkeys(("panel_rowpass_stack[tile]", "panel_rowpass_stack[wide]"),
+                            (plane * (8 + 4 + 8), 2 * fx + 9 * plane)),
             "panel_rowpass": (plane * (8 + 4 + 8), 2 * fx + 9 * plane),
             "panel_final": (plane * (8 + 8), fx),
             "panel_init_abs": (plane * (8 + 4 + 4 + 8), fx + 13 * plane),
@@ -1384,7 +1428,8 @@ def phase_kernels_panel() -> tuple[dict, dict]:
         "panel_init": "fdes_tpu/pallas/panel_scan.py:82",
         "panel_colpass[tile]": "fdes_tpu/pallas/panel_scan.py:247",
         "panel_colpass[wide]": "fdes_tpu/pallas/panel_scan.py:247",
-        "panel_rowpass_stack": "fdes_tpu/pallas/panel_scan.py:125",
+        "panel_rowpass_stack[tile]": "fdes_tpu/pallas/panel_scan.py:125",
+        "panel_rowpass_stack[wide]": "fdes_tpu/pallas/panel_scan.py:125",
         "panel_rowpass": "fdes_tpu/pallas/panel_scan.py:101",
         "panel_final": "fdes_tpu/pallas/panel_scan.py:194",
         "panel_init_abs": "fdes_tpu/pallas/panel_scan.py:150",
@@ -1392,8 +1437,10 @@ def phase_kernels_panel() -> tuple[dict, dict]:
     }
     rows, info = panel_pass_rows(checks, passes, cost, replaces,
                                  {"panel_colpass[tile]": "panel_col_kernel",
-                                  "panel_colpass[wide]": "panel_wide_col_kernel"})
+                                  "panel_colpass[wide]": "panel_wide_col_kernel",
+                                  "panel_rowpass_stack[wide]": "panel_wide_row_kernel"})
     route_rows = panel_route_rows("col", checks, sigma)
+    row_route_rows = panel_route_rows("row", checks, sigma)
 
     # ---- the rollout: 2048^2 x 8 slices, real and absorptive V; 256^2 x 3
     # slices with two waves and a per-wave propagator
@@ -1408,12 +1455,12 @@ def phase_kernels_panel() -> tuple[dict, dict]:
     check_kernel(checks, "panel_scan", (2, 3, 256, 256), ps.panel_scan(psi_b, v_b, pr_b, sigma),
                  ps.panel_scan_ref(psi_b, v_b, pr_b, sigma), scan_tol(3), per_wave_p=True)
     rollout_kernels = expect_own_kernels(
-        "panel_scan", lambda: ps.panel_scan(psi0, vs, prop, sigma),
-        {"panel_row_kernel": 9, panel_routed(n, 1)["col_kernel"]: 8})
+        "panel_scan", lambda: ps.panel_scan(psi0, vs, prop, sigma), panel_loop_kernels(n, 1, 8))
     del psi0, vs, prop
 
     line = {"phase": "kernels_panel", "checks": checks, "rollout_kernels_per_call": rollout_kernels,
             "panel_kernel_info": info, "route_rows": route_rows,
+            "row_route_rows": row_route_rows,
             "scan_kernel_info": {n: fsc.scan_kernel_info(n) for n in (512, 1024)},
             "adjoint_kernel_info": {k: adj.adjoint_kernel_info(512, k) for k in SCAN_FOOTPRINT
                                     if k != "scan_kernel"}}
@@ -1458,12 +1505,12 @@ def phase_kernels_panel_grad() -> tuple[dict, dict]:
             "panel_rowfwd": (lambda: ps.panel_rowfwd(a), lambda: ps.panel_rowfwd_ref(a)),
             "panel_init_store": (lambda: ps.panel_init_store(vs[0], psi, sigma),
                                  lambda: ps.panel_init_store_ref(vs[0], psi, sigma)),
-            "panel_rowpass_stack_store": (
-                lambda: ps.panel_rowpass_stack_store(2, vs, a, sigma),
-                lambda: ps.panel_rowpass_stack_store_ref(2, vs, a, sigma)),
         }
         for r in ps.ROUTES:
             cases.update({
+                f"panel_rowpass_stack_store[{r}]": (
+                    lambda r=r: ps.panel_rowpass_stack_store(2, vs, a, sigma, route=r),
+                    lambda: ps.panel_rowpass_stack_store_ref(2, vs, a, sigma)),
                 f"panel_bwd_tail[{r}]": (
                     lambda r=r: ps.panel_bwd_tail(vs[1], psi, a, sigma, route=r),
                     lambda: ps.panel_bwd_tail_ref(vs[1], psi, a, sigma)),
@@ -1483,10 +1530,10 @@ def phase_kernels_panel_grad() -> tuple[dict, dict]:
         out = {
             "panel_rowfwd": (plane * (8 + 8), fx),
             "panel_init_store": (plane * (8 + 4 + 8 + 8), fx + 9 * plane),
-            "panel_rowpass_stack_store": (plane * (8 + 4 + 8 + 8), 2 * fx + 9 * plane),
         }
         for r in ("tile", "wide"):
             out.update({
+                f"panel_rowpass_stack_store[{r}]": (plane * (8 + 4 + 8 + 8), 2 * fx + 9 * plane),
                 f"panel_bwd_tail[{r}]": (plane * (8 + 8 + 4 + 8 + 4), fx + 22 * plane),
                 f"panel_col_bwd[{r}]": (plane * (8 + 8 + 8), 2 * fx + 6 * plane),
                 f"panel_row_bwd_loop[{r}]": (plane * (8 + 8 + 4 + 8 + 4), 2 * fx + 13 * plane),
@@ -1497,21 +1544,24 @@ def phase_kernels_panel_grad() -> tuple[dict, dict]:
     replaces = {
         "panel_rowfwd": "fdes_tpu/pallas/panel_scan.py:206",
         "panel_init_store": "fdes_tpu/pallas/panel_scan.py:582",
-        "panel_rowpass_stack_store": "fdes_tpu/pallas/panel_scan.py:603",
     }
     kernel_of = {}
     for r, w in (("tile", ""), ("wide", "wide_")):
         replaces.update({
+            f"panel_rowpass_stack_store[{r}]": "fdes_tpu/pallas/panel_scan.py:603",
             f"panel_bwd_tail[{r}]": "fdes_tpu/pallas/panel_scan.py:219",
             f"panel_col_bwd[{r}]": "fdes_tpu/pallas/panel_scan.py:626",
             f"panel_row_bwd_loop[{r}]": "fdes_tpu/pallas/panel_scan.py:650",
             f"panel_row_bwd_last[{r}]": "fdes_tpu/pallas/panel_scan.py:679",
         })
         kernel_of.update({f"panel_col_bwd[{r}]": f"panel_{w}col_kernel",
+                          f"panel_rowpass_stack_store[{r}]": f"panel_{w}row_kernel",
                           **{f"panel_{p}[{r}]": f"panel_{w}bwd_row_kernel"
                              for p in ("bwd_tail", "row_bwd_loop", "row_bwd_last")}})
-    rows, info = panel_pass_rows(checks, passes, cost, replaces, kernel_of)
+    rows, info = panel_pass_rows(checks, passes, cost, replaces, kernel_of,
+                                 {"panel_rowpass_stack_store[wide]": "wide_row_store"})
     route_rows = panel_route_rows("bwd_row", checks, sigma)
+    row_route_rows = panel_route_rows("row_store", checks, sigma)
 
     # ---- the store pair: 2048^2 x 8 slices, one wave; 256^2 x 3, two waves
     # with a per-wave propagator; dV and dpsi0 the same bits in two runs
@@ -1534,7 +1584,7 @@ def phase_kernels_panel_grad() -> tuple[dict, dict]:
             routed = panel_routed(n, b)
             store_kernels = expect_own_kernels(
                 "panel_scan_store", lambda: ps.panel_scan_store(psi0, vs, prop, sigma),
-                {"panel_row_kernel": nslices + 1, routed["col_kernel"]: nslices})
+                panel_loop_kernels(n, b, nslices, store=True))
             bwd_kernels = expect_own_kernels(
                 "panel_scan_bwd_store", lambda: ps.panel_scan_bwd_store(s, vs, prop, g, sigma),
                 {"panel_row_kernel": 1, routed["col_kernel"]: nslices,
@@ -1544,7 +1594,8 @@ def phase_kernels_panel_grad() -> tuple[dict, dict]:
         raise AssertionError(f"panel_scan_bwd_store: two runs differ: {bitwise}")
     line = {"phase": "kernels_panel_grad", "checks": checks, "dv_bitwise_equal": bitwise,
             "store_kernels_per_call": store_kernels, "bwd_kernels_per_call": bwd_kernels,
-            "panel_kernel_info": info, "route_rows": route_rows}
+            "panel_kernel_info": info, "route_rows": route_rows,
+            "row_route_rows": row_route_rows}
     return line, rows
 
 
@@ -2461,9 +2512,10 @@ C5_VARIANT_TOL = 2 * LONG_ROLLOUT_TOL
 def c5_expected_launches(zero: dict, nslices: int, absorptive: bool = False,
                          waves: int = 1) -> dict:
     """The panel wrappers' counts of one rollout of nslices slices of B
-    waves at 2048^2 (the column passes on the kernel PANEL_ROUTE picks)."""
+    waves at 2048^2 (the column passes, and the row passes of a real V, on
+    the kernels PANEL_ROUTE picks)."""
     init, row = (("panel_init_abs", "panel_rowpass_stack_abs") if absorptive
-                 else ("panel_init", "panel_rowpass_stack"))
+                 else ("panel_init", panel_routed(2048, waves)["rowpass_stack"]))
     return {**zero, "panel_scan": 1, init: 1, panel_routed(2048, waves)["colpass"]: nslices,
             row: nslices - 1, "panel_final": 1}
 
@@ -2538,9 +2590,7 @@ def phase_c5(tmp: str, gpu: str) -> tuple[dict, dict]:
     # one C call, 2S + 1 launches of the panel kernels, and no FFT library
     # kernel (counted where the profiler caught every launch)
     rollout_kernels = expect_own_kernels(
-        "c5 panel rollout", rollout,
-        {"panel_row_kernel": nslices + 1, panel_routed(n, 1)["col_kernel"]: nslices},
-        everything=True)
+        "c5 panel rollout", rollout, panel_loop_kernels(n, 1, nslices), everything=True)
     for e in ("panel", "xla", "pallas"):
         busy, n_kernels = device_busy_ms(
             lambda e=e: hrtem_defocus_series(sim.v_stack, sim.psi0, sim.propagator, sim.sigma,
@@ -2548,7 +2598,7 @@ def phase_c5(tmp: str, gpu: str) -> tuple[dict, dict]:
         runs[e]["device_busy_ms"] = busy
         runs[e]["kernels"] = n_kernels
         runs[e]["device_idle_share"] = max(0.0, 1.0 - busy / (runs[e]["run_s"] * 1e3))
-    # the series' busy time with every column pass on the tile kernel and on
+    # the series' busy time with every routed pass on the tile kernels and on
     # the table's, in turns
     series_busy_by_route = busy_by_route(
         lambda: hrtem_defocus_series(sim.v_stack, sim.psi0, sim.propagator, sim.sigma,
@@ -2616,13 +2666,13 @@ C5_GRAD_TOL = 2e-4
 def c5_invert_expected(zero: dict, nslices: int, iterations: int) -> dict:
     """The panel wrappers' counts of config 5's inverse on panel: the
     self-test series (one panel_scan), then per iteration the store pair,
-    each column and backward row pass on the kernel PANEL_ROUTE picks for one
-    wave at 2048^2."""
+    each column, backward row and row pass with V_j on the kernel PANEL_ROUTE
+    picks for one wave at 2048^2."""
     r = panel_routed(2048, 1)
-    return {**zero, "panel_scan": 1, "panel_init": 1, "panel_rowpass_stack": nslices - 1,
+    return {**zero, "panel_scan": 1, "panel_init": 1, r["rowpass_stack"]: nslices - 1,
             r["colpass"]: nslices * (1 + iterations), "panel_final": 1 + iterations,
             "panel_scan_store": iterations, "panel_init_store": iterations,
-            "panel_rowpass_stack_store": iterations * (nslices - 1),
+            r["rowpass_stack_store"]: iterations * (nslices - 1),
             "panel_scan_bwd_store": iterations, "panel_rowfwd": iterations,
             r["col_bwd"]: iterations * nslices,
             r["row_bwd_loop"]: iterations * (nslices - 1), r["row_bwd_last"]: iterations}
@@ -2737,7 +2787,8 @@ def phase_c5_invert(tmp: str, gpu: str) -> tuple[dict, dict]:
     routed = panel_routed(2048, 1)
     rollout_kernels_64 = expect_own_kernels(
         "c5 panel gradient, 64 slices", rollout_grad(64),
-        {"panel_row_kernel": 66, routed["col_kernel"]: 128, routed["bwd_kernel"]: 64},
+        add_counts(panel_loop_kernels(2048, 1, 64, store=True),
+                   {"panel_row_kernel": 1, routed["col_kernel"]: 64, routed["bwd_kernel"]: 64}),
         everything=True)
 
     # ---- the per-slice route (past the store cap) against the store route, 64 slices
@@ -3189,20 +3240,20 @@ ROW_PHASES = {
     "fused_scan_ck": ("grad_fscan_seg",),
     "fused_scan_bwd_ck": ("grad_fscan_seg",),
     "panel_init": ("c5",),
-    "panel_rowpass_stack": ("c5",),
     "panel_rowpass": ("c5",),
     "panel_final": ("c5",),
     "panel_init_abs": ("c5_absorptive",),
     "panel_rowpass_stack_abs": ("c5_absorptive",),
     "panel_rowfwd": ("c5_invert", "c5_invert_per_slice"),
     "panel_init_store": ("c5_invert",),
-    "panel_rowpass_stack_store": ("c5_invert",),
     "panel_g_rowpass": ("c5_streamed",),
     "panel_build_colpass": ("c5_streamed",),
     "panel_vfused_rowpass": ("c5_streamed",),
-    # the column and backward row passes run one of two kernels each, by the
-    # route table, counted as "<wrapper>[route]"
+    # the column, backward row and row passes with V_j run one of two kernels
+    # each, by the route table, counted as "<wrapper>[route]"
     **{f"{name}[{r}]": phases for name, phases in (
+        ("panel_rowpass_stack", ("c5",)),
+        ("panel_rowpass_stack_store", ("c5_invert",)),
         ("panel_colpass", ("c5", "c5_invert", "c5_streamed", "c5_streamed_4096")),
         ("panel_col_bwd", ("c5_invert", "c5_invert_per_slice")),
         ("panel_row_bwd_loop", ("c5_invert",)),

@@ -25,6 +25,8 @@
 //   panel_wide_col_kernel<L, C>             _col_kernel (:247) and _col_bwd_kernel (:626)
 //   panel_wide_bwd_row_kernel<L, MODE>      _row_bwd_loop_kernel (:650), _row_bwd_last_kernel
 //                                           (:679) and _row_bwd_tail_kernel (:219)
+//   panel_wide_row_kernel<L, kMid>          _row_mid_stack_kernel      (:125)
+//   panel_wide_row_kernel<L, kMidStore>     _row_mid_store_kernel      (:603)
 // (kernels/panel_scan.PANEL_ROUTE picks one kernel of each pair before the
 // launch, by size and waves; the entry points take the choice as `route`),
 // and the whole loops _run_single / _run_single_abs (the rollout),
@@ -133,6 +135,24 @@
 // before the inverse transform, 256 contiguous bytes a warp instruction, and
 // its 256-thread blocks (two row groups at 2048^2) walk over the rows, so a
 // wave fills whole rounds of resident blocks but the last row of a group.
+//
+// The wide forward row kernel redoes the row pass with V_j (bound 25 us at
+// 2048^2, 100 us at 4096^2: b and a of each wave and V once, 16 B + 4 B a
+// pixel of one wave) and its store form (35 and 140 us: + 8 B of s_j a
+// pixel).  The tile kernel ran them at 3.1x and 2.4x the bound: a block
+// barrier after every radix-2 stage of both transforms, the transmit as a
+// third sweep over the tile behind its own barrier, V loaded only after the
+// inverse transform (beside sincosf, so the loads wait one behind the
+// other), and V read and t formed once per wave.  Here a row is one group's
+// registers from load to store, two exchanges a transform; V's row is
+// loaded with b's, and t is formed once a row and kept through the waves
+// (at 4096 points, where it would not fit in 128 registers beside the row,
+// V is kept and t formed each wave); s_j is stored straight from the
+// registers after the transmit in natural order (layout 1).  Two blocks an
+// SM, so the barrier stalls of one group overlap another's loads.  b and a
+// also move in layout 1: a load in layout 3 (16-byte vectors, no exchange
+// before the inverse transform and after the forward one) was slower at
+// 2048^2 in development runs.
 //
 // Layout: PyTorch's interleaved complex64 (float2), C-contiguous, 16-byte
 // aligned; N in {256, 512, 1024, 2048, 4096}; planes are (nwaves, N, N);
@@ -615,12 +635,83 @@ panel_wide_bwd_row_kernel(const float2* src, float2* dst, const float2* s, int64
   }
 }
 
-// Dynamic shared memory of the backward row kernel: the staged twiddles and
-// one padded exchange buffer a row group.
+// Dynamic shared memory of the wide row kernels (backward and forward): the
+// staged twiddles and one padded exchange buffer a row group.
 template <int LOG2N>
 constexpr size_t wide_row_smem_bytes() {
   using X = Rounds<LOG2N>;
   return sizeof(float2) * (X::N + (kWideRowThreads / X::T) * X::kBuf);
+}
+
+// Rows 15 and 23 redesigned: the forward row pass a = Fx(t_j Fx^H(b)), t_j =
+// exp(i sigma V_j), of kMid, and with kMidStore also s_j = t_j Fx^H(b), one
+// row a group, the rows spread over the blocks as in the backward row kernel.
+// A group loads V's row with wave 0's row of b (layout 1, 256 contiguous
+// bytes a warp instruction), forms t = exp(i sigma V) once (full-precision
+// sincosf) and carries it in registers through the nwaves waves of the row:
+// per wave the exchange to layout 3, the inverse x transform, the transmit in
+// layout 1 (kMidStore: s_j's row stored from there, natural order), the
+// forward x transform, the exchange back and the store.  Two blocks an SM
+// (128 registers a thread); at 4096 points, where t would not fit beside the
+// row, the group keeps V and forms t again each wave.  src may be dst: a
+// group reads a row before it writes it, and no other group touches that row.
+template <int LOG2N, int MODE>
+__global__ void __launch_bounds__(kWideRowThreads, 2)
+panel_wide_row_kernel(const float2* src, float2* dst, const float* __restrict__ v, float2* s,
+                      int64_t s_wave_stride, float sigma, int64_t nwaves) {
+  static_assert(MODE == kMid || MODE == kMidStore, "the wide kernel runs rows 15 and 23");
+  using X = Rounds<LOG2N>;
+  constexpr int N = X::N;
+  constexpr int R = X::R;
+  constexpr int kGroups = kWideRowThreads / X::T;
+  constexpr int64_t kPlane = int64_t{1} << (2 * LOG2N);
+  constexpr bool kKeepT = LOG2N < 12;
+  extern __shared__ float4 wide_smem[];
+  float2* tw = reinterpret_cast<float2*>(wide_smem);
+  init_staged_twiddles<LOG2N, kWideRowThreads>(tw);
+  __syncthreads();
+  const int group = threadIdx.x / X::T;
+  const Group g{static_cast<int>(threadIdx.x % X::T), 1 + group, tw + N + group * X::kBuf};
+  const int64_t step = static_cast<int64_t>(gridDim.x) * kGroups;
+  for (int64_t y = blockIdx.x + static_cast<int64_t>(group) * gridDim.x; y < N; y += step) {
+    const int64_t r = y * N;
+    float2 x[R];
+    float2 t[R];  // V in .x, then t (kKeepT)
+#pragma unroll
+    for (int m = 0; m < R; ++m) {
+      const int p = rounds_pos<LOG2N, 1>(g.t, m);
+      x[m] = src[r + p];
+      t[m].x = __ldg(v + r + p);
+    }
+    if (kKeepT) {
+#pragma unroll
+      for (int m = 0; m < R; ++m) sincosf(sigma * t[m].x, &t[m].y, &t[m].x);
+    }
+    for (int64_t b = 0; b < nwaves; ++b) {
+      if (b > 0) {
+#pragma unroll
+        for (int m = 0; m < R; ++m) x[m] = src[b * kPlane + r + rounds_pos<LOG2N, 1>(g.t, m)];
+      }
+      rounds_exchange<LOG2N, 1, 3>(x, g);
+      rounds_inverse<LOG2N>(x, tw, g);
+#pragma unroll
+      for (int m = 0; m < R; ++m) {
+        float2 tm = t[m];
+        if (!kKeepT) sincosf(sigma * t[m].x, &tm.y, &tm.x);
+        x[m] = cmul(x[m], tm);
+      }
+      if (MODE == kMidStore) {
+        float2* sr = s + b * s_wave_stride + r;
+#pragma unroll
+        for (int m = 0; m < R; ++m) sr[rounds_pos<LOG2N, 1>(g.t, m)] = x[m];
+      }
+      rounds_forward<LOG2N>(x, tw, g);
+      rounds_exchange<LOG2N, 3, 1>(x, g);
+      float2* out = dst + b * kPlane + r;
+#pragma unroll
+      for (int m = 0; m < R; ++m) out[rounds_pos<LOG2N, 1>(g.t, m)] = x[m];
+    }
+  }
 }
 
 // Row 27: the forward x transform of nplanes real (N, N) planes g (the
@@ -833,12 +924,10 @@ int launch_col_route(int route, const float2* src, float2* dst, const float2* pr
   }
 }
 
-// The wide backward row pass: every resident block, at most one a row group.
-template <int LOG2N, int MODE>
-int launch_wide_bwd_row_m(const float2* src, float2* dst, const float2* s, int64_t s_wave_stride,
-                          const float* v, float* dv, float sigma, int64_t nwaves,
-                          cudaStream_t stream) {
-  auto* kernel = panel_wide_bwd_row_kernel<LOG2N, MODE>;
+// Blocks of a wide row kernel's launch (backward or forward): every resident
+// block, at most one a row group; sets the kernel's shared-memory attribute.
+template <int LOG2N, typename Kernel>
+int wide_row_blocks(Kernel* kernel, int* blocks) {
   constexpr size_t kBytes = wide_row_smem_bytes<LOG2N>();
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kBytes);
@@ -850,10 +939,48 @@ int launch_wide_bwd_row_m(const float2* src, float2* dst, const float2* s, int64
   if (resident < 1) return cudaErrorLaunchOutOfResources;
   constexpr int kGroups = kWideRowThreads / Rounds<LOG2N>::T;
   constexpr int kItems = ((1 << LOG2N) + kGroups - 1) / kGroups;
-  const int blocks = kItems < resident ? kItems : resident;
-  kernel<<<blocks, kWideRowThreads, kBytes, stream>>>(src, dst, s, s_wave_stride, v, dv, sigma,
-                                                      nwaves);
+  *blocks = kItems < resident ? kItems : resident;
+  return cudaSuccess;
+}
+
+template <int LOG2N, int MODE>
+int launch_wide_bwd_row_m(const float2* src, float2* dst, const float2* s, int64_t s_wave_stride,
+                          const float* v, float* dv, float sigma, int64_t nwaves,
+                          cudaStream_t stream) {
+  auto* kernel = panel_wide_bwd_row_kernel<LOG2N, MODE>;
+  int blocks = 0;
+  const int err = wide_row_blocks<LOG2N>(kernel, &blocks);
+  if (err != cudaSuccess) return err;
+  kernel<<<blocks, kWideRowThreads, wide_row_smem_bytes<LOG2N>(), stream>>>(
+      src, dst, s, s_wave_stride, v, dv, sigma, nwaves);
   return cudaGetLastError();
+}
+
+template <int LOG2N, int MODE>
+int launch_wide_row(const float2* src, float2* dst, const float* v, float2* s,
+                    int64_t s_wave_stride, float sigma, int64_t nwaves, cudaStream_t stream) {
+  auto* kernel = panel_wide_row_kernel<LOG2N, MODE>;
+  int blocks = 0;
+  const int err = wide_row_blocks<LOG2N>(kernel, &blocks);
+  if (err != cudaSuccess) return err;
+  kernel<<<blocks, kWideRowThreads, wide_row_smem_bytes<LOG2N>(), stream>>>(
+      src, dst, v, s, s_wave_stride, sigma, nwaves);
+  return cudaGetLastError();
+}
+
+// A forward row pass with V_j (kMid, or kMidStore with s) on its route.
+template <int LOG2N, int MODE>
+int launch_row_route(int route, const float2* src, float2* dst, const float* v, float2* s,
+                     int64_t s_wave_stride, float sigma, int64_t nwaves, cudaStream_t stream) {
+  switch (route) {
+    case kRouteTile:
+      return launch_row<LOG2N, MODE>(src, dst, v, nullptr, s, s_wave_stride, sigma, nwaves,
+                                     stream);
+    case kRouteWide:
+      return launch_wide_row<LOG2N, MODE>(src, dst, v, s, s_wave_stride, sigma, nwaves, stream);
+    default:
+      return cudaErrorInvalidValue;
+  }
 }
 
 template <int LOG2N>
@@ -896,14 +1023,17 @@ int launch_bwd_row(int mode, int route, const float2* src, float2* dst, const fl
 // The whole rollout: init, (S - 1) x [column pass, row pass with V_j],
 // column pass, final; every pass in place on out after the first.  STORE:
 // the row passes also store s_j of wave b at s + b * S * N^2 + j * N^2.
-// col_route: the column passes' kernel (Route).
+// col_route, row_route: the column passes' and the row passes' with V_j
+// kernels (Route); an absorptive V's row passes run the tile kernel
+// (row_route kRouteTile).
 template <int LOG2N, bool ABS, bool STORE = false>
 int launch_scan(const float2* psi0, const float* vr, const float* vi, const float2* prop,
                 float2* out, float2* s, float sigma, int64_t nwaves, int nslices,
-                int64_t p_wave_stride, int col_route, cudaStream_t stream) {
+                int64_t p_wave_stride, int col_route, int row_route, cudaStream_t stream) {
   constexpr int64_t kPlane = int64_t{1} << (2 * LOG2N);
   constexpr int kFirst = STORE ? kInitStore : kInit;
   constexpr int kNext = STORE ? kMidStore : kMid;
+  if (ABS && row_route != kRouteTile) return cudaErrorInvalidValue;
   const int64_t s_stride = STORE ? nslices * kPlane : 0;
   int err = launch_row<LOG2N, kFirst, ABS>(psi0, out, vr, vi, s, s_stride, sigma, nwaves, stream);
   for (int64_t j = 1; err == cudaSuccess && j <= nslices; ++j) {
@@ -911,10 +1041,14 @@ int launch_scan(const float2* psi0, const float* vr, const float* vi, const floa
                                   stream);
     if (err != cudaSuccess) break;
     if (j < nslices) {
-      err = launch_row<LOG2N, kNext, ABS>(out, out, vr + j * kPlane,
-                                          ABS ? vi + j * kPlane : nullptr,
-                                          STORE ? s + j * kPlane : nullptr, s_stride, sigma,
-                                          nwaves, stream);
+      float2* sj = STORE ? s + j * kPlane : nullptr;
+      if constexpr (ABS) {
+        err = launch_row<LOG2N, kNext, true>(out, out, vr + j * kPlane, vi + j * kPlane, sj,
+                                             s_stride, sigma, nwaves, stream);
+      } else {
+        err = launch_row_route<LOG2N, kNext>(row_route, out, out, vr + j * kPlane, sj, s_stride,
+                                             sigma, nwaves, stream);
+      }
     } else {
       err = launch_row<LOG2N, kFinal>(out, out, nullptr, nullptr, nullptr, 0, sigma, nwaves,
                                       stream);
@@ -984,6 +1118,12 @@ int kernel_info(int device, int which, int* out) {
     case 7:
       return info_of(panel_wide_bwd_row_kernel<LOG2N, kBwdLoop>, wide_row_smem_bytes<LOG2N>(),
                      device, out, kWideRowThreads);
+    case 8:
+      return info_of(panel_wide_row_kernel<LOG2N, kMid>, wide_row_smem_bytes<LOG2N>(), device,
+                     out, kWideRowThreads);
+    case 9:
+      return info_of(panel_wide_row_kernel<LOG2N, kMidStore>, wide_row_smem_bytes<LOG2N>(),
+                     device, out, kWideRowThreads);
     default:
       return cudaErrorInvalidValue;
   }
@@ -1041,20 +1181,21 @@ int fdes_panel_colpass_c64(int device, int n, const void* a, const void* prop, v
 
 // b -> a = Fx(t_j Fx^H(b)), V_j = slice j of the (S, n, n) stack (or, with
 // j = 0, one (n, n) plane).  s != nullptr: also s_j = t_j Fx^H(b) of wave b
-// at s + b * s_wave_stride.
+// at s + b * s_wave_stride.  route: the kernel (Route: 0 tile, 1 wide).
 int fdes_panel_rowpass_stack_c64(int device, int n, int64_t j, const void* v_stack, const void* b,
                                  void* out, void* s, int64_t s_wave_stride, double sigma,
-                                 int64_t nwaves, void* stream) {
+                                 int64_t nwaves, int route, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   const float* v = f1(v_stack) + j * static_cast<int64_t>(n) * n;
   const float f = static_cast<float>(sigma);
   if (s != nullptr) {
-    FDES_DISPATCH_PANEL_N(n, (launch_row<L, kMidStore>(c2(b), o2(out), v, nullptr, o2(s),
-                                                       s_wave_stride, f, nwaves, st(stream))))
+    FDES_DISPATCH_PANEL_N(n, (launch_row_route<L, kMidStore>(route, c2(b), o2(out), v, o2(s),
+                                                             s_wave_stride, f, nwaves,
+                                                             st(stream))))
   }
-  FDES_DISPATCH_PANEL_N(n, (launch_row<L, kMid>(c2(b), o2(out), v, nullptr, nullptr, 0, f, nwaves,
-                                                st(stream))))
+  FDES_DISPATCH_PANEL_N(n, (launch_row_route<L, kMid>(route, c2(b), o2(out), v, nullptr, 0, f,
+                                                      nwaves, st(stream))))
 }
 
 // The stack row pass with the damped transmit of slice j of vr + i vi.
@@ -1102,10 +1243,11 @@ int fdes_panel_bwd_row_c64(int device, int n, int mode, const void* bar, void* o
 
 // The whole rollout of nslices >= 1 slices: psi0 (nwaves, n, n) -> out, V
 // the real (S, n, n) stack vr (vi nullptr) or an absorptive vr + i vi;
-// col_route: the column passes' kernel (as fdes_panel_colpass_c64's route).
+// col_route, row_route: the column passes' and the row passes' with V_j
+// kernels (as the single passes' route; an absorptive V takes 0, tile).
 int fdes_panel_scan_c64(int device, int n, const void* psi0, const void* vr, const void* vi,
                         const void* prop, void* out, double sigma, int64_t nwaves, int nslices,
-                        int64_t p_wave_stride, int col_route, void* stream) {
+                        int64_t p_wave_stride, int col_route, int row_route, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   if (nslices < 1) return cudaErrorInvalidValue;
@@ -1113,25 +1255,26 @@ int fdes_panel_scan_c64(int device, int n, const void* psi0, const void* vr, con
   if (vi == nullptr) {
     FDES_DISPATCH_PANEL_N(n, (launch_scan<L, false>(c2(psi0), f1(vr), nullptr, c2(prop), o2(out),
                                                    nullptr, f, nwaves, nslices, p_wave_stride,
-                                                   col_route, st(stream))))
+                                                   col_route, row_route, st(stream))))
   }
   FDES_DISPATCH_PANEL_N(n, (launch_scan<L, true>(c2(psi0), f1(vr), f1(vi), c2(prop), o2(out),
                                                 nullptr, f, nwaves, nslices, p_wave_stride,
-                                                col_route, st(stream))))
+                                                col_route, row_route, st(stream))))
 }
 
 // The rollout under differentiation (a real V): as fdes_panel_scan_c64, and
-// every s_j into s (nwaves, S, n, n).
+// every s_j into s (nwaves, S, n, n); row_route: the store passes' kernel.
 int fdes_panel_scan_store_c64(int device, int n, const void* psi0, const void* v,
                               const void* prop, void* out, void* s, double sigma, int64_t nwaves,
-                              int nslices, int64_t p_wave_stride, int col_route, void* stream) {
+                              int nslices, int64_t p_wave_stride, int col_route, int row_route,
+                              void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   if (nslices < 1) return cudaErrorInvalidValue;
   FDES_DISPATCH_PANEL_N(n, (launch_scan<L, false, true>(c2(psi0), f1(v), nullptr, c2(prop),
                                                        o2(out), o2(s), static_cast<float>(sigma),
                                                        nwaves, nslices, p_wave_stride,
-                                                       col_route, st(stream))))
+                                                       col_route, row_route, st(stream))))
 }
 
 // The reverse loop: g (nwaves, n, n) -> dpsi (nwaves, n, n) and dv (S, n, n)
@@ -1186,7 +1329,8 @@ int fdes_panel_vfused_rowpass_c64(int device, int n, const void* vx, const void*
 // thread and blocks resident at once on the device, of the row kernel
 // (which 0), the column kernel (1), the backward row kernel (2), the g row
 // kernel (3), the build column kernel (4), the fused row kernel (5), the
-// wide column kernel (6) or the wide backward row kernel (7), for size n.
+// wide column kernel (6), the wide backward row kernel (7) or the wide row
+// kernel of row 15 (8) or of row 23 (9), for size n.
 int fdes_panel_kernel_info(int device, int n, int which, int* out) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;

@@ -62,18 +62,21 @@ slices is S launches each of the g row pass, the build column pass and the
 column pass, S - 1 fused row passes and three more (2 ``panel_final``, 1
 ``panel_init``).
 
-The column pass (and its conjugate) and the backward row passes run on one
-of two kernels each, picked before the launch by ``panel_route(n, B, kind)``
-from ``PANEL_ROUTE``, a table of rows measured on the H100: "tile"
-(``panel_col_kernel``, ``panel_bwd_row_kernel``: tiles through shared
-memory) or "wide" (``panel_wide_col_kernel``, ``panel_wide_bwd_row_kernel``:
-each 1-D transform in the registers of a group of threads, three rounds of
-radix-2 stages between two exchanges).  The whole loops take the choice into
-C with them.  ``_colpass`` and the backward row passes take ``route=`` to
-name a kernel for measurements; it is checked, and a launch the card refuses
-raises with nothing run in its place.  The five wrappers of these passes
-(``ROUTED``) count their launches in ``launches`` and by kernel in
-``launches_by_route`` ({"tile": n, "wide": m}).
+The column pass (and its conjugate), the backward row passes and the row
+passes with V_j of a real V (rows 15 and 23) run on one of two kernels each,
+picked before the launch by ``panel_route(n, B, kind)`` from ``PANEL_ROUTE``,
+a table of rows measured on the H100: "tile" (``panel_col_kernel``,
+``panel_bwd_row_kernel``, ``panel_row_kernel``: tiles through shared memory)
+or "wide" (``panel_wide_col_kernel``, ``panel_wide_bwd_row_kernel``,
+``panel_wide_row_kernel``: each 1-D transform in the registers of a group of
+threads, three rounds of radix-2 stages between two exchanges).  The other
+row passes (init, final, the seed, the absorptive ones, ``panel_rowpass``)
+run the tile kernel.  The whole loops take the choice into C with them.
+``_colpass``, the backward row passes and the two stack row passes take
+``route=`` to name a kernel for measurements; it is checked, and a launch
+the card refuses raises with nothing run in its place.  The seven wrappers
+of these passes (``ROUTED``) count their launches in ``launches`` and by
+kernel in ``launches_by_route`` ({"tile": n, "wide": m}).
 
 ``panel_diff_apply`` differentiates the loop: the store pair while the s
 stack (B*S*n*n*8 bytes) fits ``adjoint_scan.STORE_CAP_BYTES``, past it
@@ -124,13 +127,14 @@ _ARGTYPES = {
     "fdes_panel_init_c64": [_INT, _INT, _P, _P, _P, _P, _I64, _D, _I64, _P],
     "fdes_panel_init_abs_c64": [_INT, _INT, _P, _P, _P, _P, _D, _I64, _P],
     "fdes_panel_colpass_c64": [_INT, _INT, _P, _P, _P, _I64, _INT, _I64, _INT, _P],
-    "fdes_panel_rowpass_stack_c64": [_INT, _INT, _I64, _P, _P, _P, _P, _I64, _D, _I64, _P],
+    "fdes_panel_rowpass_stack_c64": [_INT, _INT, _I64, _P, _P, _P, _P, _I64, _D, _I64, _INT,
+                                     _P],
     "fdes_panel_rowpass_stack_abs_c64": [_INT, _INT, _I64, _P, _P, _P, _P, _D, _I64, _P],
     "fdes_panel_final_c64": [_INT, _INT, _P, _P, _INT, _I64, _P],
     "fdes_panel_bwd_row_c64": [_INT, _INT, _INT, _P, _P, _P, _I64, _P, _P, _D, _I64, _INT, _P],
-    "fdes_panel_scan_c64": [_INT, _INT, _P, _P, _P, _P, _P, _D, _I64, _INT, _I64, _INT, _P],
+    "fdes_panel_scan_c64": [_INT, _INT, _P, _P, _P, _P, _P, _D, _I64, _INT, _I64, _INT, _INT, _P],
     "fdes_panel_scan_store_c64": [
-        _INT, _INT, _P, _P, _P, _P, _P, _D, _I64, _INT, _I64, _INT, _P,
+        _INT, _INT, _P, _P, _P, _P, _P, _D, _I64, _INT, _I64, _INT, _INT, _P,
     ],
     "fdes_panel_scan_bwd_store_c64": [
         _INT, _INT, _P, _P, _P, _P, _P, _P, _D, _I64, _INT, _I64, _INT, _INT, _P,
@@ -144,40 +148,49 @@ _ARGTYPES = {
 _BWD_LOOP, _BWD_LAST, _BWD_TAIL = 0, 1, 2
 _entries: dict[str, object] = {}
 
-#: The kernels of the column pass (rows 14 and 24) and of the backward row
-#: pass (rows 25, 26, 21), by their code in csrc/panel_scan.cu's Route:
-#: "tile" (``panel_col_kernel``, ``panel_bwd_row_kernel``: tiles through
-#: shared memory) or "wide" (``panel_wide_col_kernel``: persistent blocks
-#: copying the next item while they transform this one;
-#: ``panel_wide_bwd_row_kernel``: each 1-D transform in the registers of a
-#: group of warps).
+#: The kernels of the column pass (rows 14 and 24), of the backward row pass
+#: (rows 25, 26, 21) and of the forward row pass with V_j (rows 15 and 23),
+#: by their code in csrc/panel_scan.cu's Route: "tile" (``panel_col_kernel``,
+#: ``panel_bwd_row_kernel``, ``panel_row_kernel``: tiles through shared
+#: memory) or "wide" (``panel_wide_col_kernel``: persistent blocks copying
+#: the next item while they transform this one; ``panel_wide_bwd_row_kernel``,
+#: ``panel_wide_row_kernel``: each 1-D transform in the registers of a group
+#: of warps).
 ROUTES = {"tile": 0, "wide": 1}
+#: the passes PANEL_ROUTE routes, in the order of its entries: the column
+#: pass, the backward row pass, the row pass (row 15) and the store row pass
+#: (row 23)
+KINDS = ("col", "bwd_row", "row", "row_store")
 
 #: The route of each pass by grid and waves a launch, {n: {waves: (column
-#: pass, backward row pass)}}: the faster kernel of each pass timed in turns
-#: on an NVIDIA H100 80GB HBM3 at 700 W (chip_smoke.py kernels_panel and
-#: kernels_panel_grad, ``route_rows``; PERF.md section 5).  A launch of B
-#: waves takes the row of the largest measured count not above B.  The wide
-#: column kernel loses at 4096^2, where an item is two columns (half a
-#: 32-byte sector a row) and a block spills, and at 512^2 from four waves.
+#: pass, backward row pass, row pass, store row pass)}}: the faster kernel of
+#: each pass timed in turns on an NVIDIA H100 80GB HBM3 at 700 W
+#: (chip_smoke.py kernels_panel and kernels_panel_grad, ``route_rows`` and
+#: ``row_route_rows``; PERF.md section 5).  A launch of B waves takes the row
+#: of the largest measured count not above B.  The wide column kernel loses
+#: at 4096^2, where an item is two columns (half a 32-byte sector a row) and
+#: a block spills, and at 512^2 from four waves; the wide row kernel at 256^2
+#: from four waves (the store form from eight), where a group carries its row
+#: through the waves one after the other and 256 rows fill 32 blocks.
 _W, _T = "wide", "tile"
 PANEL_ROUTE = {
-    256: {1: (_W, _W), 2: (_W, _W), 4: (_W, _W), 8: (_W, _W)},
-    512: {1: (_W, _W), 2: (_W, _W), 4: (_T, _W), 8: (_T, _W)},
-    1024: {1: (_W, _W), 2: (_W, _W), 4: (_W, _W), 8: (_W, _W)},
-    2048: {1: (_W, _W), 2: (_W, _W), 4: (_W, _W), 8: (_W, _W)},
-    4096: {1: (_T, _W), 2: (_T, _W), 4: (_T, _W), 8: (_T, _W)},
+    256: {1: (_W, _W, _W, _W), 2: (_W, _W, _W, _W), 4: (_W, _W, _T, _W), 8: (_W, _W, _T, _T)},
+    512: {1: (_W, _W, _W, _W), 2: (_W, _W, _W, _W), 4: (_T, _W, _W, _W), 8: (_T, _W, _W, _W)},
+    1024: {1: (_W, _W, _W, _W), 2: (_W, _W, _W, _W), 4: (_W, _W, _W, _W), 8: (_W, _W, _W, _W)},
+    2048: {1: (_W, _W, _W, _W), 2: (_W, _W, _W, _W), 4: (_W, _W, _W, _W), 8: (_W, _W, _W, _W)},
+    4096: {1: (_T, _W, _W, _W), 2: (_T, _W, _W, _W), 4: (_T, _W, _W, _W), 8: (_T, _W, _W, _W)},
 }
 
 
 def panel_route(n: int, b: int, kind: str) -> str:
-    """The route of ``kind`` ("col": the column pass, "bwd_row": the
-    backward row pass) for B waves of an n x n grid, from PANEL_ROUTE: a
-    function of (n, b) alone."""
-    if kind not in ("col", "bwd_row"):
-        raise ValueError(f"panel_route: kind must be 'col' or 'bwd_row', got {kind!r}")
+    """The route of ``kind`` (KINDS: "col" the column pass, "bwd_row" the
+    backward row pass, "row" the row pass with V_j, "row_store" the same
+    storing s_j) for B waves of an n x n grid, from PANEL_ROUTE: a function of
+    (n, b) alone."""
+    if kind not in KINDS:
+        raise ValueError(f"panel_route: kind must be one of {KINDS}, got {kind!r}")
     rows = PANEL_ROUTE[n]
-    return rows[max((k for k in rows if k <= b), default=min(rows))][kind == "bwd_row"]
+    return rows[max((k for k in rows if k <= b), default=min(rows))][KINDS.index(kind)]
 
 
 def _check_route(what: str, route: str | None) -> None:
@@ -217,9 +230,11 @@ def panel_kernel_info(n: int, kernel: str = "row", device: torch.device | str = 
     the row kernel (``kernel`` "row"), the column kernel ("col"), the
     backward row kernel ("bwd_row"), the streamed build's kernels ("g_row",
     "build_col", "vfused_row") or the wide kernels ("wide_col",
-    "wide_bwd_row"), for axis size n, as the CUDA runtime reports them."""
+    "wide_bwd_row", "wide_row" of row 15, "wide_row_store" of row 23), for
+    axis size n, as the CUDA runtime reports them."""
     which = {"row": 0, "col": 1, "bwd_row": 2, "g_row": 3, "build_col": 4,
-             "vfused_row": 5, "wide_col": 6, "wide_bwd_row": 7}[kernel]
+             "vfused_row": 5, "wide_col": 6, "wide_bwd_row": 7, "wide_row": 8,
+             "wide_row_store": 9}[kernel]
     dev = torch.device(device)
     if dev.index is None:
         dev = torch.device("cuda", torch.cuda.current_device())
@@ -607,9 +622,10 @@ def panel_col_bwd(bar: torch.Tensor, propagator: torch.Tensor) -> torch.Tensor:
 
 
 def _count(wrapper, k: int = 1, route: str | None = None) -> None:
-    """Add k launches to a wrapper's count (a routed pass's by route too)."""
+    """Add k launches to a wrapper's count, and a routed pass's (ROUTED) to
+    its count of ``route`` too."""
     wrapper.launches += k
-    if route is not None:
+    if wrapper in ROUTED:
         wrapper.launches_by_route[route] += k
 
 
@@ -630,48 +646,53 @@ def _colpass(a: torch.Tensor, prepared: torch.Tensor, conj: bool = False,
     return out.reshape(a.shape)
 
 
-def _rowpass(what, counter, v_stack, j, b, sigma, store):
+def _rowpass(what, counter, v_stack, j, b, sigma, store, route):
     """A stack row pass's launch (V_j of the stack, or j = 0 of one plane
-    viewed as a stack of one); with ``store`` also s_j."""
+    viewed as a stack of one); with ``store`` also s_j.  ``route`` names the
+    kernel (ROUTES, for measurements); None takes PANEL_ROUTE's."""
     flat, n = _wave(b, "b", what)
+    route, code = _route_code(what, route, n, flat.shape[0], "row_store" if store else "row")
     vs = _real(v_stack, (v_stack.shape[0], n, n), b.device, "v_stack", what)
     j = _slice_index(j, vs, what)
     out = torch.empty_like(flat)
     s = torch.empty_like(flat) if store else None
     _launch("fdes_panel_rowpass_stack_c64", b.device, n, j, vs.data_ptr(), flat.data_ptr(),
             out.data_ptr(), None if s is None else s.data_ptr(), n * n, float(sigma),
-            flat.shape[0])
-    counter.launches += 1
+            flat.shape[0], code)
+    _count(counter, route=route)
     return out.reshape(b.shape), None if s is None else s.reshape(b.shape)
 
 
 def panel_rowpass_stack(
-    j: int, v_stack: torch.Tensor, b: torch.Tensor, sigma: float
+    j: int, v_stack: torch.Tensor, b: torch.Tensor, sigma: float, *, route: str | None = None,
 ) -> torch.Tensor:
-    """a = Fx(t_j Fx^H(b)), V_j read from the (S, n, n) stack: the kernel on
-    CUDA, plain on the CPU."""
+    """a = Fx(t_j Fx^H(b)), V_j read from the (S, n, n) stack: on CUDA the
+    kernel that PANEL_ROUTE picks (or ``route`` names), plain on the CPU."""
+    what = "panel_rowpass_stack"
+    _check_route(what, route)
     if not b.is_cuda:
         return panel_rowpass_stack_ref(j, v_stack, b, sigma)
-    return _rowpass("panel_rowpass_stack", panel_rowpass_stack, v_stack, j, b, sigma, False)[0]
+    return _rowpass(what, panel_rowpass_stack, v_stack, j, b, sigma, False, route)[0]
 
 
 def panel_rowpass_stack_store(
-    j: int, v_stack: torch.Tensor, b: torch.Tensor, sigma: float
+    j: int, v_stack: torch.Tensor, b: torch.Tensor, sigma: float, *, route: str | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """(a = Fx(s_j), s_j = t_j Fx^H(b)), V_j read from the stack: the kernel
-    on CUDA, plain on the CPU."""
+    """(a = Fx(s_j), s_j = t_j Fx^H(b)), V_j read from the stack: on CUDA the
+    kernel that PANEL_ROUTE picks (or ``route`` names), plain on the CPU."""
+    what = "panel_rowpass_stack_store"
+    _check_route(what, route)
     if not b.is_cuda:
         return panel_rowpass_stack_store_ref(j, v_stack, b, sigma)
-    return _rowpass("panel_rowpass_stack_store", panel_rowpass_stack_store, v_stack, j, b, sigma,
-                    True)
+    return _rowpass(what, panel_rowpass_stack_store, v_stack, j, b, sigma, True, route)
 
 
 def panel_rowpass(v: torch.Tensor, b: torch.Tensor, sigma: float) -> torch.Tensor:
-    """a = Fx(t Fx^H(b)), V one (n, n) plane: the kernel on CUDA, plain on
-    the CPU."""
+    """a = Fx(t Fx^H(b)), V one (n, n) plane: the tile kernel on CUDA (on no
+    path, so not routed), plain on the CPU."""
     if not b.is_cuda:
         return panel_rowpass_ref(v, b, sigma)
-    return _rowpass("panel_rowpass", panel_rowpass, v[None], 0, b, sigma, False)[0]
+    return _rowpass("panel_rowpass", panel_rowpass, v[None], 0, b, sigma, False, "tile")[0]
 
 
 def panel_rowpass_stack_abs(
@@ -811,7 +832,8 @@ def _loop_operands(what, psi, v_stack, propagator, prepared):
 
 def _count_loop(nslices, first, col, row, last, col_route, row_route=None):
     """Add one loop's passes to the pass wrappers' counts: the column passes
-    on col_route, the row passes after the first on row_route when routed."""
+    on col_route, the row passes after the first on row_route where their
+    wrapper is routed."""
     _count(first)
     _count(col, nslices, col_route)
     _count(row, nslices - 1, row_route)
@@ -843,14 +865,17 @@ def panel_scan(
     pp = prepare_propagator(propagator)
     out = torch.empty_like(flat)
     col, code = _route_code("panel_scan", None, n, b, "col")
+    # an absorptive V's row passes run the tile kernel
+    row, row_code = ("tile", ROUTES["tile"]) if absorptive else _route_code(
+        "panel_scan", None, n, b, "row")
     _launch("fdes_panel_scan_c64", psi0.device, n, flat.data_ptr(), vr.data_ptr(),
             None if vi is None else vi.data_ptr(), pp.data_ptr(), out.data_ptr(), float(sigma),
-            b, s, n * n if pp.ndim == 3 else 0, code)
+            b, s, n * n if pp.ndim == 3 else 0, code, row_code)
     panel_scan.launches += 1
     if absorptive:
         _count_loop(s, panel_init_abs, panel_colpass, panel_rowpass_stack_abs, panel_final, col)
     else:
-        _count_loop(s, panel_init, panel_colpass, panel_rowpass_stack, panel_final, col)
+        _count_loop(s, panel_init, panel_colpass, panel_rowpass_stack, panel_final, col, row)
     return out if batched else out[0]
 
 
@@ -870,11 +895,13 @@ def panel_scan_store(
     out = torch.empty_like(psi0)
     s = torch.empty((b, nslices, n, n), dtype=psi0.dtype, device=psi0.device)
     col, code = _route_code("panel_scan_store", None, n, b, "col")
+    row, row_code = _route_code("panel_scan_store", None, n, b, "row_store")
     _launch("fdes_panel_scan_store_c64", psi0.device, n, psi0.data_ptr(), v32.data_ptr(),
-            pp.data_ptr(), out.data_ptr(), s.data_ptr(), float(sigma), b, nslices, p_stride, code)
+            pp.data_ptr(), out.data_ptr(), s.data_ptr(), float(sigma), b, nslices, p_stride, code,
+            row_code)
     panel_scan_store.launches += 1
     _count_loop(nslices, panel_init_store, panel_colpass, panel_rowpass_stack_store, panel_final,
-                col)
+                col, row)
     return out, s
 
 
@@ -1069,7 +1096,8 @@ WRAPPERS = (panel_init, panel_colpass, panel_rowpass_stack, panel_rowpass, panel
             panel_init_store, panel_rowpass_stack_store, panel_col_bwd, panel_row_bwd_loop,
             panel_row_bwd_last, panel_g_rowpass, panel_build_colpass, panel_vfused_rowpass)
 #: the pass wrappers whose kernel PANEL_ROUTE picks, with launches_by_route
-ROUTED = (panel_colpass, panel_col_bwd, panel_row_bwd_loop, panel_row_bwd_last, panel_bwd_tail)
+ROUTED = (panel_colpass, panel_col_bwd, panel_row_bwd_loop, panel_row_bwd_last, panel_bwd_tail,
+          panel_rowpass_stack, panel_rowpass_stack_store)
 #: the whole-loop calls, which count their calls and add their passes above
 #: (panel_streamed: its passes count themselves, one launch per wrapper call)
 LOOPS = (panel_scan, panel_scan_store, panel_scan_bwd_store, panel_streamed)

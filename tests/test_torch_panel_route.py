@@ -1,7 +1,8 @@
 """The wide panel kernels (``panel_wide_col_kernel``,
-``panel_wide_bwd_row_kernel`` in csrc/panel_scan.cu, and their three-round
-transform) as a numpy model of their index maps, and the route between them
-and the tile kernels (``kernels/panel_scan.PANEL_ROUTE``).
+``panel_wide_bwd_row_kernel`` and ``panel_wide_row_kernel`` in
+csrc/panel_scan.cu, and their three-round transform) as a numpy model of
+their index maps, and the route between them and the tile kernels
+(``kernels/panel_scan.PANEL_ROUTE``).
 
 The model follows the kernels' data: an N-point transform is held by a group
 of T = N/R threads (R = 8 values a thread up to 512 points, 16 above: one
@@ -16,8 +17,9 @@ bytes at a time into a staged panel (rows one after the other, the halves of
 a 4-column row swapped on every other group of four rows), read by column
 into the groups' registers and written back the same way; a row item is one
 row a group.  The model is held against ``np.fft`` in float64, and its
-column pass, its conjugate and its backward row pass against the JAX
-package's panel passes in interpret mode.  The kernels themselves are held
+column pass, its conjugate, its backward row pass and its forward row pass
+(with and without the store of s_j) against the JAX package's panel passes
+in interpret mode.  The kernels themselves are held
 against the plain versions on the card (the last test here, and
 chip_smoke.py's kernels_panel and kernels_panel_grad phases)."""
 
@@ -235,6 +237,24 @@ def _bwd_row_pass(bar, s, v, sigma, forward=True, from_psi=False):
     return (_rows_forward(out) if forward else out), sigma * acc
 
 
+def _row_pass(b, v, sigma, store=False):
+    """panel_wide_row_kernel: a = Fx(t Fx^H(b)) of the waves b (B, n, n) with
+    V (n, n), and with ``store`` also s = t Fx^H(b).  Per row: b's row in
+    layout 1, exchanged to layout 3, the inverse transform, the transmit by t
+    = exp(i sigma V) (formed once a row for all the waves) at the positions of
+    layout 1, where s is stored, the forward transform, and a's row exchanged
+    from layout 3 to layout 1 and stored."""
+    n = b.shape[-1]
+    rows1 = _pos(n, 1)
+    x = _inverse(n, _exchange(n, b[..., rows1], 1, 3))
+    x = x * np.exp(1j * sigma * v)[:, rows1]  # (n rows, T, R), shared by the waves
+    s = np.empty(b.shape, dtype=complex)
+    s[..., rows1] = x
+    a = np.empty(b.shape, dtype=complex)
+    a[..., rows1] = _exchange(n, _forward(n, x), 3, 1)
+    return (a, s) if store else a
+
+
 # ---- the transform and the layouts against np.fft -------------------------------
 
 
@@ -351,6 +371,24 @@ def test_model_passes_are_the_plain_passes(n):
     assert np.abs(dv_t - ref_dv_t.numpy()).max() <= 1e-10 * np.abs(ref_dv_t.numpy()).max()
 
 
+@pytest.mark.parametrize("n,waves", [(256, 2), (1024, 1), (2048, 1)])
+def test_model_row_pass_is_the_plain_pass(n, waves):
+    """The model's forward row pass, a and s_j, against panel_rowpass_stack_ref
+    and panel_rowpass_stack_store_ref in complex128; with two waves t is
+    formed once for both."""
+    rng = np.random.default_rng(n + 7)
+    b = _cplx(rng, waves, n, n)
+    v = rng.uniform(0, 2000, (2, n, n))
+    a, s = _row_pass(b, v[1], SIGMA, store=True)
+    vt, bt = torch.as_tensor(v), torch.as_tensor(b)
+    ref = ps.panel_rowpass_stack_ref(1, vt, bt, SIGMA).numpy()
+    ref_a, ref_s = (z.numpy() for z in ps.panel_rowpass_stack_store_ref(1, vt, bt, SIGMA))
+    assert np.abs(a - ref).max() <= EXACT * np.abs(ref).max()
+    assert np.abs(a - ref_a).max() <= EXACT * np.abs(ref_a).max()
+    assert np.abs(s - ref_s).max() <= EXACT * np.abs(ref_s).max()
+    assert np.array_equal(_row_pass(b, v[1], SIGMA), a)
+
+
 # ---- the model's passes against the JAX package ---------------------------------
 
 
@@ -364,7 +402,8 @@ def _jax_order(n: int) -> np.ndarray:
 def jax_passes():
     """The JAX panel passes at 256^2 in interpret mode, the panel extents
     patched to 64 rows and 128 columns (as tests/test_torch_panel_grad.py
-    runs them): colpass, col_bwd and row_bwd_loop on one plane."""
+    runs them): colpass, col_bwd, row_bwd_loop and the forward row passes
+    (panel_rowpass_stack, _panel_rowpass_mid_store) on one plane."""
     import fdes_tpu.pallas.panel_scan as jps
 
     tabs = jps._tables(N_JAX)
@@ -386,7 +425,14 @@ def jax_passes():
             jnp.asarray(bar.real), jnp.asarray(bar.imag), tabs, SIGMA, prec, True)
         return np.asarray(re) + 1j * np.asarray(im), np.asarray(dv)
 
-    yield {"col": col, "row_bwd_loop": row_bwd_loop}
+    def row(b, v_stack, j, store):
+        fn = jps._panel_rowpass_mid_store if store else jps.panel_rowpass_stack
+        outs = [np.asarray(z) for z in fn(j, jnp.asarray(v_stack), jnp.asarray(b.real),
+                                          jnp.asarray(b.imag), tabs, SIGMA, prec, True)]
+        a = outs[0] + 1j * outs[1]
+        return (a, outs[2] + 1j * outs[3]) if store else a
+
+    yield {"col": col, "row_bwd_loop": row_bwd_loop, "row": row}
     mp.undo()
 
 
@@ -459,6 +505,34 @@ def test_model_backward_row_pass_equals_jax(jax_passes, jax_fields, waves):
     _close(got_dv, want_dv)
 
 
+@pytest.mark.parametrize("waves", [1, 2])
+@pytest.mark.parametrize("store", [False, True])
+def test_model_row_pass_equals_jax(jax_passes, jax_fields, waves, store):
+    """The model's forward row pass against JAX's panel_rowpass_stack (row 15)
+    and, with the store of s_j, _panel_rowpass_mid_store (row 23), a wave at a
+    time on V_1 of a two-slice stack: a in each package's x-spectrum order,
+    s_j in natural order in both."""
+    f = jax_fields
+    n = N_JAX
+    br, jo = _bitrev(n), _jax_order(n)
+    x = f["x"][:waves]
+    v_stack = np.stack([0.5 * f["v"], f["v"]])
+    want_a, want_s = [], []
+    for k in range(waves):
+        got = jax_passes["row"](x[k][:, jo], v_stack, 1, store)
+        out, s = got if store else (got, None)
+        nat = np.empty_like(out)
+        nat[:, jo] = out
+        want_a.append(nat[:, br])
+        want_s.append(s)
+    got = _row_pass(x[..., br].astype(np.complex128), v_stack[1].astype(np.float64), SIGMA,
+                    store)
+    got_a, got_s = got if store else (got, None)
+    _close(got_a, np.stack(want_a))
+    if store:
+        _close(got_s, np.stack(want_s))
+
+
 # ---- the route ---------------------------------------------------------------
 
 
@@ -469,26 +543,30 @@ def test_panel_route_is_the_table():
     entry names a route of the C entry points, whose codes match their
     enums, and each route's kernel is one the library builds."""
     assert set(ps.PANEL_ROUTE) == set(ps.SIZES)
+    assert ps.KINDS == ("col", "bwd_row", "row", "row_store")
     for n, rows in ps.PANEL_ROUTE.items():
         measured = sorted(rows)
         assert measured == [1, 2, 4, 8]
-        for k, kind in enumerate(("col", "bwd_row")):
+        assert all(len(entry) == len(ps.KINDS) for entry in rows.values())
+        for k, kind in enumerate(ps.KINDS):
             for b in range(1, 20):
                 want = rows[max(m for m in measured if m <= b)][k]
                 assert ps.panel_route(n, b, kind) == want and want in ps.ROUTES
-    with pytest.raises(ValueError, match="kind must be"):
-        ps.panel_route(2048, 1, "row")
+    for bad in ("fwd_row", "rows", "store"):
+        with pytest.raises(ValueError, match="kind must be"):
+            ps.panel_route(2048, 1, bad)
     src = (_build.SRC_DIR / "panel_scan.cu").read_text()
     enum = re.search(r"enum Route \{ kRouteTile = (\d), kRouteWide = (\d) \}", src)
     assert enum and [int(g) for g in enum.groups()] == [ps.ROUTES[k] for k in ("tile", "wide")]
     for kernel in ("panel_col_kernel", "panel_wide_col_kernel", "panel_bwd_row_kernel",
-                   "panel_wide_bwd_row_kernel"):
+                   "panel_wide_bwd_row_kernel", "panel_row_kernel", "panel_wide_row_kernel"):
         assert re.search(rf"__global__ void __launch_bounds__\([^)]*\)\s*{kernel}\(", src)
     assert "panel_scan" in _build.sources()
 
 
 def test_route_argument_is_checked():
-    """route= takes "tile" or "wide" and nothing else, on the CPU too."""
+    """route= takes "tile" or "wide" and nothing else, on the CPU too: the
+    column, backward row and stack row passes."""
     n = 256
     a = torch.zeros((1, n, n), dtype=torch.complex64)
     pp = torch.ones((n, n), dtype=torch.complex64)
@@ -502,6 +580,10 @@ def test_route_argument_is_checked():
             ps.panel_row_bwd_last(v[0], a, a, SIGMA, route=bad)
         with pytest.raises(ValueError, match="route must be"):
             ps.panel_bwd_tail(v[0], a, a, SIGMA, route=bad)
+        with pytest.raises(ValueError, match="route must be"):
+            ps.panel_rowpass_stack(1, v, a, SIGMA, route=bad)
+        with pytest.raises(ValueError, match="route must be"):
+            ps.panel_rowpass_stack_store(1, v, a, SIGMA, route=bad)
 
 
 def test_wide_wrappers_count_their_own_launches():
@@ -527,12 +609,44 @@ def test_wide_wrappers_count_their_own_launches():
              ps.panel_row_bwd_last_ref(v[0], s[0], a, SIGMA)),
             (ps.panel_bwd_tail(v[1], s[1], a, SIGMA, route=route),
              ps.panel_bwd_tail_ref(v[1], s[1], a, SIGMA)),
+            (ps.panel_rowpass_stack(1, v, a, SIGMA, route=route),
+             ps.panel_rowpass_stack_ref(1, v, a, SIGMA)),
+            (ps.panel_rowpass_stack_store(1, v, s, SIGMA, route=route),
+             ps.panel_rowpass_stack_store_ref(1, v, s, SIGMA)),
         ]
     for got, want in pairs:
         got, want = (got, want) if isinstance(got, tuple) else ((got,), (want,))
         assert all(torch.equal(x, y) for x, y in zip(got, want))
     assert all(w.launches == 0 for w in (*ps.WRAPPERS, *ps.LOOPS))
     assert all(w.launches_by_route == {"tile": 0, "wide": 0} for w in ps.ROUTED)
+
+
+@pytest.mark.parametrize("row_route", ["tile", "wide"])
+def test_loops_count_row_passes_by_route(row_route):
+    """A whole loop's count (_count_loop, as panel_scan, panel_scan_store and
+    panel_scan_bwd_store add their passes on the card): the S - 1 row passes
+    with V_j on the row route, the column passes on the column route, init
+    and final in all alone; an absorptive loop's row passes (the tile kernel)
+    and panel_rowpass are not routed."""
+    assert ps.panel_rowpass_stack in ps.ROUTED and ps.panel_rowpass_stack_store in ps.ROUTED
+    assert ps.panel_rowpass not in ps.ROUTED and ps.panel_rowpass_stack_abs not in ps.ROUTED
+    ps.reset_launches()
+    try:
+        ps._count_loop(8, ps.panel_init, ps.panel_colpass, ps.panel_rowpass_stack,
+                       ps.panel_final, "wide", row_route)
+        ps._count_loop(8, ps.panel_init_store, ps.panel_colpass, ps.panel_rowpass_stack_store,
+                       ps.panel_final, "tile", row_route)
+        ps._count_loop(4, ps.panel_init_abs, ps.panel_colpass, ps.panel_rowpass_stack_abs,
+                       ps.panel_final, "tile")
+        other = "tile" if row_route == "wide" else "wide"
+        for w in (ps.panel_rowpass_stack, ps.panel_rowpass_stack_store):
+            assert w.launches == 7 and w.launches_by_route == {row_route: 7, other: 0}
+        assert ps.panel_colpass.launches_by_route == {"tile": 12, "wide": 8}
+        assert (ps.panel_init.launches, ps.panel_init_store.launches,
+                ps.panel_init_abs.launches, ps.panel_final.launches,
+                ps.panel_rowpass_stack_abs.launches) == (1, 1, 1, 3, 3)
+    finally:
+        ps.reset_launches()
 
 
 # ---- on the card -------------------------------------------------------------
@@ -579,4 +693,28 @@ def test_wide_kernels_match_plain_on_card(cuda):
                 assert float((x - y).abs().max()) <= 2 * tol * float(y.abs().max())
             assert all(torch.equal(x, y) for x, y in zip(got, again))
         assert all(w.launches_by_route == {"tile": 0, "wide": w.launches} for w in ps.ROUTED)
-        assert [w.launches for w in ps.ROUTED] == [1, 1, 2, 2, 2]
+        assert [w.launches for w in ps.ROUTED] == [1, 1, 2, 2, 2, 0, 0]
+
+
+def test_wide_row_kernel_matches_plain_on_card(cuda):
+    """The wide forward row pass (row 15) and its store form (row 23, s_j
+    included) against the plain versions at every size, one and two waves,
+    in place as the rollout runs it too; each launch counted on its wrapper
+    under "wide"."""
+    tol = 2e-6
+    for n in ps.SIZES:
+        for waves in (1, 2):
+            rng = np.random.default_rng(n + waves)
+            b = torch.as_tensor(_cplx(rng, waves, n, n).astype(np.complex64)).to(cuda)
+            v = torch.as_tensor(rng.uniform(0, 2000, (3, n, n)).astype(np.float32)).to(cuda)
+            ps.reset_launches()
+            want_a, want_s = ps.panel_rowpass_stack_store_ref(2, v, b, SIGMA)
+            got = ps.panel_rowpass_stack(2, v, b, SIGMA, route="wide")
+            got_a, got_s = ps.panel_rowpass_stack_store(2, v, b, SIGMA, route="wide")
+            for x, y in ((got, want_a), (got_a, want_a), (got_s, want_s)):
+                assert float((x - y).abs().max()) <= tol * float(y.abs().max())
+            flat = b.clone()
+            ps._launch("fdes_panel_rowpass_stack_c64", cuda, n, 2, v.data_ptr(), flat.data_ptr(),
+                       flat.data_ptr(), None, n * n, SIGMA, waves, ps.ROUTES["wide"])
+            assert torch.equal(flat, got)
+            assert [w.launches_by_route for w in ps.ROUTED[-2:]] == [{"tile": 0, "wide": 1}] * 2
