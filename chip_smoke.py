@@ -60,10 +60,14 @@ Phases, each printing one JSON line:
              1-8 waves, the wide ones held to the plain versions there (each
              row names the faster and whether the table picks it).  The streamed build's three passes at 256^2, 2048^2
              and 4096^2 (one species and two; the fused row pass with one
-             wave and two), the whole streamed rollout of two species at
-             2048^2 x 8 slices against its plain passes and against the
-             per-slice streamed body, each pass timed at 2048^2 and 4096^2
-             beside the cuFFT build of one slice.  ``--only kernels_slice``
+             wave and two; the build column and fused row passes on both of
+             their kernels, "tile" and "wide"), the whole streamed rollout of
+             two species at 2048^2 x 8 slices against its plain passes and
+             against the per-slice streamed body, each pass timed at 2048^2
+             and 4096^2 beside the cuFFT build of one slice, and both
+             kernels of the build column and fused row passes timed in turns
+             at each row of PANEL_ROUTE (1-8 species or waves), the wide ones
+             held to the plain versions there.  ``--only kernels_slice``
              (or ``kernels_fused``, ``kernels_adjoint``, ``kernels_panel``,
              ``kernels_panel_grad``, ``kernels_panel_stream``) runs one of
              the six groups alone.
@@ -155,7 +159,10 @@ Phases, each printing one JSON line:
              complex128 rollout (c5's tolerance) and against "xla"'s; setup,
              run, device busy time, idle share and peak memory; then
              4096^2 x 512 slices on "panel" and "xla" (a stack of 32 GiB
-             that is never built) and a 4-tilt series at 2048^2 x 64 slices.
+             that is never built) and a 4-tilt series at 2048^2 x 64 slices;
+             the panel rollout's device busy and wall time at each of the
+             three shapes with every routed panel pass on the tile kernels
+             and on PANEL_ROUTE's, in turns.
 13. phonon — frozen phonons through the CLI: config 2 in mode hrtem with 4
              configurations on the defaults ("auto" resolves to "fscan": 4
              whole-loop launches, asserted) against "xla" at <= 1e-5, and a
@@ -1161,13 +1168,20 @@ PANEL_INFO_KEY = {"panel_row_kernel": "row", "panel_col_kernel": "col",
 
 def panel_routed(n: int, b: int) -> dict[str, str]:
     """The launch-count keys (launch_counts) and kernels of the passes that
-    kernels/panel_scan.PANEL_ROUTE routes (column, backward row, row and
-    store row pass) for B waves at n^2."""
+    kernels/panel_scan.PANEL_ROUTE routes (column, backward row, row, store
+    row, build column and fused row pass) for a launch of lead count B at n^2
+    (the waves; for the build column pass the species)."""
     from fdes_tpu_torch.kernels import panel_scan as ps
 
-    col, bwd, row, row_st = (ps.panel_route(n, b, k) for k in ps.KINDS)
+    col, bwd, row, row_st, build, vfused = (ps.panel_route(n, b, k) for k in ps.KINDS)
     wide = {"tile": "", "wide": "wide_"}
-    return {"colpass": f"panel_colpass[{col}]", "col_bwd": f"panel_col_bwd[{col}]",
+    return {"build_colpass": f"panel_build_colpass[{build}]",
+            "build_col_kernel": {"tile": "panel_build_col_kernel",
+                                 "wide": "panel_wide_col_kernel"}[build],
+            "vfused_rowpass": f"panel_vfused_rowpass[{vfused}]",
+            "vfused_kernel": {"tile": "panel_vfused_row_kernel",
+                              "wide": "panel_wide_row_kernel"}[vfused],
+            "colpass": f"panel_colpass[{col}]", "col_bwd": f"panel_col_bwd[{col}]",
             "col_kernel": f"panel_{wide[col]}col_kernel",
             "row_bwd_loop": f"panel_row_bwd_loop[{bwd}]",
             "row_bwd_last": f"panel_row_bwd_last[{bwd}]", "bwd_tail": f"panel_bwd_tail[{bwd}]",
@@ -1197,15 +1211,19 @@ def panel_loop_kernels(n: int, b: int, nslices: int, store: bool = False) -> dic
                       {routed["row_store_kernel" if store else "row_kernel"]: nslices - 1})
 
 
-#: the (n, waves) of each panel pass on the main paths whose launches a run
-#: records: the column pass in config 5's run, inverse and streamed rollouts
-#: at 2048^2 and the streamed one at 4096^2; its conjugate, the backward row
-#: passes and the store row pass in config 5's inverse; the row pass with V_j
-#: in config 5's run
+#: the (n, lead count) of each panel pass on the main paths whose launches a
+#: run records: the column pass in config 5's run, inverse and streamed
+#: rollouts at 2048^2 and the streamed one at 4096^2; its conjugate, the
+#: backward row passes and the store row pass in config 5's inverse; the row
+#: pass with V_j in config 5's run; the build column pass (one species) and
+#: the fused row pass in the streamed rollouts at 2048^2 and 4096^2, the
+#: latter also in the 4-tilt streamed series
 PANEL_PATH_SHAPES = {"colpass": ((2048, 1), (4096, 1)), "col_bwd": ((2048, 1),),
                      "row_bwd_loop": ((2048, 1),), "row_bwd_last": ((2048, 1),),
                      "bwd_tail": ((2048, 1),), "rowpass_stack": ((2048, 1),),
-                     "rowpass_stack_store": ((2048, 1),)}
+                     "rowpass_stack_store": ((2048, 1),),
+                     "build_colpass": ((2048, 1), (4096, 1)),
+                     "vfused_rowpass": ((2048, 1), (4096, 1), (2048, 4))}
 
 
 def unrouted_panel_kernels() -> tuple[str, ...]:
@@ -1245,18 +1263,36 @@ def busy_by_route(fn) -> dict[str, list[float]]:
     return out
 
 
-#: the wave counts of PANEL_ROUTE's rows
+def wall_by_route(fn) -> dict[str, list[float]]:
+    """Wall ms of fn (host clock, synchronised before and after) with every
+    panel pass on the tile kernels and on the table's kernels, in turns
+    (tile, table, table, tile)."""
+    out: dict[str, list[float]] = {"tile": [], "table": []}
+    for which in ("tile", "table", "table", "tile"):
+        with panel_route_all("tile") if which == "tile" else contextlib.nullcontext():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            out[which].append((time.perf_counter() - t0) * 1e3)
+    return out
+
+
+#: the lead counts of PANEL_ROUTE's rows (waves; species of the build
+#: column pass)
 PANEL_ROUTE_WAVES = (1, 2, 4, 8)
 
 
 def panel_route_rows(kind: str, checks: list, sigma: float) -> list[dict]:
     """Each kernel of a pass timed in turns (three readings of time_launches
-    each) at every (n, waves) row of PANEL_ROUTE: the column pass (kind
+    each) at every (n, lead count) row of PANEL_ROUTE: the column pass (kind
     "col", on a prepared P shared by the waves), the backward row pass
-    ("bwd_row", kBwdLoop) or the row pass with V_j ("row", and "row_store"
-    with s_j), on "tile" and "wide"; the wide kernels held to the plain
-    version at each row's shape.  Each row names the faster and whether the
-    table picks it, with the pass's bound beside."""
+    ("bwd_row", kBwdLoop), the row pass with V_j ("row", and "row_store"
+    with s_j), the build column pass ("build_col", the count its species) or
+    the fused row pass ("vfused_row", one vx shared by the waves), on "tile"
+    and "wide"; the wide kernels held to the plain version at each row's
+    shape.  Each row names the faster and whether the table picks it, with
+    the pass's bound beside."""
     from fdes_tpu_torch.kernels import panel_scan as ps
 
     card = CardInputs(11)
@@ -1281,6 +1317,20 @@ def panel_route_rows(kind: str, checks: list, sigma: float) -> list[dict]:
                 fns = {r: (lambda r=r: wrapper(1, vs, a, sigma, route=r)) for r in ps.ROUTES}
                 # b and a (and s) of each wave, V (shared) once
                 cost = (plane * (b * (24 if store else 16) + 4), b * (2 * fx + 9 * plane))
+            elif kind == "build_col":
+                gx, fp = card.cplx(b, n, n), card.real(b, n, n, top=1.0)
+                ref = ps.panel_build_colpass_ref(gx, fp)
+                fns = {r: (lambda r=r: ps.panel_build_colpass(gx, fp, route=r))
+                       for r in ps.ROUTES}
+                # gx and the factors of each species, the one plane out
+                cost = (plane * (b * (8 + 4) + 8), b * (fx + 2 * plane) + fx)
+            elif kind == "vfused_row":
+                vx = ps.panel_g_rowpass_ref(card.real(n, n)) / n  # V in [0, 2000)
+                ref = ps.panel_vfused_rowpass_ref(vx, a, sigma)
+                fns = {r: (lambda r=r: ps.panel_vfused_rowpass(vx, a, sigma, route=r))
+                       for r in ps.ROUTES}
+                # b and a of each wave, vx (shared) once
+                cost = (plane * (b * 16 + 8), fx + b * (2 * fx + 9 * plane))
             else:
                 vs, s_b = card.real(2, n, n), card.cplx(b, 2, n, n)
                 ref = ps.panel_row_bwd_loop_ref(1, vs, s_b, a, sigma)
@@ -1625,14 +1675,16 @@ def streamed_specimen(n: int, nslices: int, natoms: int, seed: int = 3):
 
 
 def phase_kernels_panel_stream() -> tuple[dict, dict]:
-    """The streamed build's passes (rows 27-29) against their plain versions
-    at 256^2, 2048^2 and 4096^2, one species and two (row 29 with one wave
-    and two); the whole panel_streamed (two species) at 2048^2 x 8 slices
-    against panel_streamed_ref and multislice_streamed on xla, its kernels
-    counted; per-pass times at 2048^2 and 4096^2 (one species, one wave)
-    beside their bounds, and the cuFFT build of one slice (slice_potential:
-    scatter, rfft2, product, irfft2) beside them; returns (phase line,
-    table rows)."""
+    """The streamed build's passes (rows 27-29; rows 28 and 29 on both of
+    their kernels, "tile" and "wide") against their plain versions at 256^2,
+    2048^2 and 4096^2, one species and two (row 29 with one wave and two);
+    the whole panel_streamed (two species) at 2048^2 x 8 slices against
+    panel_streamed_ref and multislice_streamed on xla, its kernels counted;
+    per-pass times at 2048^2 and 4096^2 (one species, one wave) beside their
+    bounds, and the cuFFT build of one slice (slice_potential: scatter,
+    rfft2, product, irfft2) beside them; both kernels of rows 28 and 29 in
+    turns at every row of PANEL_ROUTE (kinds "build_col", "vfused_row");
+    returns (phase line, table rows)."""
     from fdes_tpu_torch.kernels import panel_scan as ps
     from fdes_tpu_torch.potential import slice_potential
     from fdes_tpu_torch.propagate import multislice_streamed
@@ -1642,16 +1694,19 @@ def phase_kernels_panel_stream() -> tuple[dict, dict]:
     checks, f32 = [], torch.float32
 
     def passes(n, nsp, nwaves):
-        """{name: (kernel, plain)} of rows 27-29 on one set of inputs."""
+        """{name: (kernel, plain)} of rows 27-29 on one set of inputs, rows 28
+        and 29 on each of their kernels."""
         g, gx, fp = card.real(nsp, n, n, top=1.0), card.cplx(nsp, n, n), card.real(nsp, n, n)
         vx = ps.panel_g_rowpass_ref(card.real(n, n)) / n  # V's x spectrum, V in [0, 2000)
         b = card.cplx(*((nwaves,) if nwaves > 1 else ()), n, n)
         return {
             "panel_g_rowpass": (lambda: ps.panel_g_rowpass(g), lambda: ps.panel_g_rowpass_ref(g)),
-            "panel_build_colpass": (lambda: ps.panel_build_colpass(gx, fp),
-                                    lambda: ps.panel_build_colpass_ref(gx, fp)),
-            "panel_vfused_rowpass": (lambda: ps.panel_vfused_rowpass(vx, b, sigma),
-                                     lambda: ps.panel_vfused_rowpass_ref(vx, b, sigma)),
+            **{f"panel_build_colpass[{r}]": (
+                lambda r=r: ps.panel_build_colpass(gx, fp, route=r),
+                lambda: ps.panel_build_colpass_ref(gx, fp)) for r in ps.ROUTES},
+            **{f"panel_vfused_rowpass[{r}]": (
+                lambda r=r: ps.panel_vfused_rowpass(vx, b, sigma, route=r),
+                lambda: ps.panel_vfused_rowpass_ref(vx, b, sigma)) for r in ps.ROUTES},
         }
 
     errs = {}
@@ -1659,7 +1714,7 @@ def phase_kernels_panel_stream() -> tuple[dict, dict]:
         for nsp, nwaves in ((1, 1), (2, 2)):
             cases = passes(n, nsp, nwaves)
             for name, (kern, ref) in cases.items():
-                lead = nwaves if name == "panel_vfused_rowpass" else nsp
+                lead = nwaves if name.startswith("panel_vfused_rowpass") else nsp
                 err = check_kernel(checks, name, (lead, n, n), kern(), ref(), FUSED_TOL,
                                    nspecies=nsp, nwaves=nwaves)
                 if n == 2048 and nsp == 1:
@@ -1670,15 +1725,21 @@ def phase_kernels_panel_stream() -> tuple[dict, dict]:
         plane, fx = panel_cost(n)
         return {
             "panel_g_rowpass": (plane * (4 + 8), fx),
-            "panel_build_colpass": (plane * (8 + 4 + 8), 2 * fx + 2 * plane),
-            "panel_vfused_rowpass": (plane * (8 + 8 + 8), 3 * fx + 9 * plane),
+            **dict.fromkeys(("panel_build_colpass[tile]", "panel_build_colpass[wide]"),
+                            (plane * (8 + 4 + 8), 2 * fx + 2 * plane)),
+            **dict.fromkeys(("panel_vfused_rowpass[tile]", "panel_vfused_rowpass[wide]"),
+                            (plane * (8 + 8 + 8), 3 * fx + 9 * plane)),
         }
 
     kernel_of = {"panel_g_rowpass": "panel_g_row_kernel",
-                 "panel_build_colpass": "panel_build_col_kernel",
-                 "panel_vfused_rowpass": "panel_vfused_row_kernel"}
-    info_key = {"panel_g_rowpass": "g_row", "panel_build_colpass": "build_col",
-                "panel_vfused_rowpass": "vfused_row"}
+                 "panel_build_colpass[tile]": "panel_build_col_kernel",
+                 "panel_build_colpass[wide]": "panel_wide_col_kernel",
+                 "panel_vfused_rowpass[tile]": "panel_vfused_row_kernel",
+                 "panel_vfused_rowpass[wide]": "panel_wide_row_kernel"}
+    info_key = {"panel_g_rowpass": "g_row", "panel_build_colpass[tile]": "build_col",
+                "panel_build_colpass[wide]": "wide_build_col",
+                "panel_vfused_rowpass[tile]": "vfused_row",
+                "panel_vfused_rowpass[wide]": "wide_vfused_row"}
     times, info, cufft_build = {}, {}, {}
     for n in (2048, 4096):
         cases = passes(n, 1, 1)
@@ -1693,7 +1754,8 @@ def phase_kernels_panel_stream() -> tuple[dict, dict]:
                 "bytes": nbytes, "operations": ops,
                 "kernels_per_call": expect_own_kernels(name, kern, {kernel_of[name]: 1}),
             }
-        info[n] = {k: ps.panel_kernel_info(n, k) for k in info_key.values()}
+        info[n] = {k: ps.panel_kernel_info(n, k) for k in (*info_key.values(),
+                                                           "wide_build_col_sum")}
         del cases
         # the cuFFT build of one slice of ~2,000 atoms of two species, for comparison
         atoms, ff, grid, _ = streamed_specimen(n, 1, 2000)
@@ -1711,10 +1773,7 @@ def phase_kernels_panel_stream() -> tuple[dict, dict]:
     reset_launches()
     got = ps.panel_streamed(psi0, atoms, ff, prop, sigma, **kw)
     counted = {k: c for k, c in launch_counts().items() if c}
-    routed = panel_routed(n, 1)
-    want_counts = {"panel_streamed": 1, "panel_g_rowpass": nslices,
-                   "panel_build_colpass": nslices, routed["colpass"]: nslices,
-                   "panel_vfused_rowpass": nslices - 1, "panel_final": 2, "panel_init": 1}
+    want_counts = c5_streamed_expected({}, nslices, n, nsp=2)
     if counted != want_counts:
         raise AssertionError(f"panel_streamed launches {counted}, expected {want_counts}")
     check_kernel(checks, "panel_streamed", (nslices, n, n), got,
@@ -1727,19 +1786,21 @@ def phase_kernels_panel_stream() -> tuple[dict, dict]:
                    "rel_norm": vs_xla, "tol": GATE, "ok": vs_xla <= GATE})
     if not vs_xla <= GATE:
         raise AssertionError(f"panel_streamed vs xla's streamed rollout: {vs_xla:.3e}")
-    streamed_kernels = expect_own_kernels(
+    rollout_kernels = expect_own_kernels(
         "panel_streamed", lambda: ps.panel_streamed(psi0, atoms, ff, prop, sigma, **kw),
-        {"panel_row_kernel": 3, routed["col_kernel"]: nslices, "panel_g_row_kernel": nslices,
-         "panel_build_col_kernel": nslices, "panel_vfused_row_kernel": nslices - 1},
-        everything=True)
-    if any("fft" in k.lower() for k in streamed_kernels):
-        raise AssertionError(f"panel_streamed kernels: {streamed_kernels}")
+        streamed_kernels(n, nslices, nsp=2), everything=True)
+    if any("fft" in k.lower() for k in rollout_kernels):
+        raise AssertionError(f"panel_streamed kernels: {rollout_kernels}")
     del atoms, ff, prop, psi0, got, xla
+    stream_route_rows = {k: panel_route_rows(k, checks, sigma)
+                         for k in ("build_col", "vfused_row")}
 
     replaces = {
         "panel_g_rowpass": "fdes_tpu/pallas/panel_scan.py:1045",
-        "panel_build_colpass": "fdes_tpu/pallas/panel_scan.py:1058",
-        "panel_vfused_rowpass": "fdes_tpu/pallas/panel_scan.py:1086",
+        **dict.fromkeys(("panel_build_colpass[tile]", "panel_build_colpass[wide]"),
+                        "fdes_tpu/pallas/panel_scan.py:1058"),
+        **dict.fromkeys(("panel_vfused_rowpass[tile]", "panel_vfused_rowpass[wide]"),
+                        "fdes_tpu/pallas/panel_scan.py:1086"),
     }
     rows = {}
     for name in replaces:
@@ -1756,7 +1817,8 @@ def phase_kernels_panel_stream() -> tuple[dict, dict]:
             "kernel": info[2048][info_key[name]],
         }
     line = {"phase": "kernels_panel_stream", "checks": checks, "panel_kernel_info": info,
-            "streamed_kernels_per_call": streamed_kernels,
+            "streamed_kernels_per_call": rollout_kernels,
+            "stream_route_rows": stream_route_rows,
             # not one PyTorch call, so a note beside the rows, not their library column
             "cufft_slice_build_ms": cufft_build}
     return line, rows
@@ -2852,15 +2914,27 @@ C5_STREAMED_PEAK = 4 * 2**30
 C5_STREAMED_TOL = 2e-4
 
 
-def c5_streamed_expected(zero: dict, nslices: int, n: int = 2048, waves: int = 1) -> dict:
+def c5_streamed_expected(zero: dict, nslices: int, n: int = 2048, waves: int = 1,
+                         nsp: int = 1) -> dict:
     """The panel wrappers' counts of one streamed rollout of nslices slices
-    of B waves at n^2: per slice the g row pass, the build column pass and
-    the column pass (on the kernel PANEL_ROUTE picks), the fused row pass for
-    every slice after the first; slice 0's V by panel_final, panel_init, and
-    the closing panel_final."""
+    of B waves and nsp species at n^2: per slice the g row pass, the build
+    column pass and the column pass, the fused row pass for every slice after
+    the first (the last three on the kernels PANEL_ROUTE picks); slice 0's V
+    by panel_final, panel_init, and the closing panel_final."""
+    routed = panel_routed(n, waves)
     return {**zero, "panel_streamed": 1, "panel_g_rowpass": nslices,
-            "panel_build_colpass": nslices, panel_routed(n, waves)["colpass"]: nslices,
-            "panel_vfused_rowpass": nslices - 1, "panel_final": 2, "panel_init": 1}
+            panel_routed(n, nsp)["build_colpass"]: nslices, routed["colpass"]: nslices,
+            routed["vfused_rowpass"]: nslices - 1, "panel_final": 2, "panel_init": 1}
+
+
+def streamed_kernels(n: int, nslices: int, waves: int = 1, nsp: int = 1) -> dict[str, int]:
+    """The port's kernels of that rollout: init and both finals on
+    panel_row_kernel, the g row passes on panel_g_row_kernel, the column,
+    build column and fused row passes on the kernels PANEL_ROUTE picks."""
+    routed, build = panel_routed(n, waves), panel_routed(n, nsp)
+    return add_counts({"panel_row_kernel": 3, "panel_g_row_kernel": nslices},
+                      {routed["col_kernel"]: nslices}, {build["build_col_kernel"]: nslices},
+                      {routed["vfused_kernel"]: nslices - 1})
 
 
 def streamed_cli_run(tmp: str, tag: str, *extra: str) -> tuple[np.ndarray, dict, dict]:
@@ -2881,6 +2955,40 @@ def streamed_cli_run(tmp: str, tag: str, *extra: str) -> tuple[np.ndarray, dict,
     if not np.isfinite(wave).all():
         raise AssertionError(f"{tag}: exit wave not finite")
     return wave, timing, counts
+
+
+#: the four tilts of config 5's streamed tilt series (rad)
+TILTS4 = "[[0.0,0.0],[0.002,-0.001],[-0.001,0.002],[0.001,0.001]]"
+
+
+def streamed_by_route(settings: list[str], run: dict) -> dict[str, dict[str, list[float]]]:
+    """Config 5 streamed with ``settings`` (config-file overrides, mode
+    forward, one defocus) as one panel rollout on the card: its device busy
+    and wall ms with every routed pass on tile and on the table, in turns;
+    the median busy ms on the table goes into ``run`` (the CLI run's
+    timing) with the idle share of that run's wall time."""
+    from fdes_tpu_torch.config import apply_overrides, load_config
+    from fdes_tpu_torch.pipeline import setup, streamed_inputs
+    from fdes_tpu_torch.propagate import make_slice_step, multislice_streamed
+
+    cfg = apply_overrides(load_config(CONFIG), [*settings, "mode=forward", "sim.streamed=true",
+                                                "optics.defoci_A=[0.0]"])
+    sim = setup(cfg, device="cuda")
+    atoms, ff = streamed_inputs(sim)
+    step = make_slice_step("panel", shape=sim.grid.shape, grad=False)
+    psi0, prop = ((sim.psi0_stack, sim.prop_stack) if sim.psi0_stack is not None
+                  else (sim.psi0, sim.propagator))
+
+    def rollout():
+        return multislice_streamed(psi0, atoms, ff, prop, sim.sigma, shape=sim.grid.shape,
+                                   pixel=(sim.grid.py, sim.grid.px), slice_step=step)
+
+    by_route = {"busy_ms": busy_by_route(rollout), "wall_ms": wall_by_route(rollout)}
+    busy = statistics.median(by_route["busy_ms"]["table"])
+    run.update(device_busy_ms=busy, device_idle_share=max(0.0, 1.0 - busy / (run["run_s"] * 1e3)))
+    del sim, atoms, ff, psi0, prop
+    torch.cuda.empty_cache()
+    return by_route
 
 
 def phase_c5_streamed(tmp: str, gpu: str) -> tuple[dict, dict]:
@@ -2938,11 +3046,8 @@ def phase_c5_streamed(tmp: str, gpu: str) -> tuple[dict, dict]:
 
     # counted exactly on a 32-slice rollout (~230 kernels): the profiler
     # drops events of long traces; the 512-slice profile is read for names
-    kernels_32 = expect_own_kernels(
-        "c5_streamed rollout (32 slices)", lambda: rollout(32),
-        {"panel_row_kernel": 3, panel_routed(2048, 1)["col_kernel"]: 32,
-         "panel_g_row_kernel": 32, "panel_build_col_kernel": 32, "panel_vfused_row_kernel": 31},
-        everything=True)
+    kernels_32 = expect_own_kernels("c5_streamed rollout (32 slices)", lambda: rollout(32),
+                                    streamed_kernels(2048, 32), everything=True)
     kernels_512 = device_kernels(rollout)
     if any("fft" in k.lower() for k in (*kernels_32, *kernels_512)):
         raise AssertionError(f"c5_streamed rollout kernels: {kernels_512}")
@@ -2955,7 +3060,7 @@ def phase_c5_streamed(tmp: str, gpu: str) -> tuple[dict, dict]:
         runs[e]["device_busy_ms"] = busy
         runs[e]["kernels"] = n_kernels
         runs[e]["device_idle_share"] = max(0.0, 1.0 - busy / (runs[e]["run_s"] * 1e3))
-    rollout_busy_by_route = busy_by_route(rollout)
+    rollout_by_route = {"busy_ms": busy_by_route(rollout), "wall_ms": wall_by_route(rollout)}
     del sim, atoms, ff
 
     # the materialised complex128 rollout of the same specimen, grid and slices
@@ -2984,18 +3089,24 @@ def phase_c5_streamed(tmp: str, gpu: str) -> tuple[dict, dict]:
                 raise AssertionError(f"c5_streamed 4096^2 on panel: launches {big[e]['launches']}")
     err["4096_panel_vs_xla"] = rel_norm(torch.as_tensor(waves.pop("4096_panel"), device="cuda"),
                                         torch.as_tensor(waves.pop("4096_xla"), device="cuda"))
+    by_route_4096 = streamed_by_route([*c5_settings, "sim.ny=4096", "sim.nx=4096"],
+                                      big["panel"])
 
     # ---- a 4-tilt series at 2048^2 x 64 slices: B waves, V built once a slice
     tilt = (*C5_STREAMED[:4], "--set", "sim.nslices=64", *C5_STREAMED[6:], "--set",
-            "sim.tilt_series_rad=[[0.0,0.0],[0.002,-0.001],[-0.001,0.002],[0.001,0.001]]")
+            f"sim.tilt_series_rad={TILTS4}")
     tilts = {}
     for e in ("panel", "xla"):
         waves[f"tilt_{e}"], tilts[e], cnt = streamed_cli_run(tmp, f"c5s_tilt_{e}", *tilt,
                                                              "--set", f"sim.engine={e}")
-        if e == "panel" and cnt != c5_streamed_expected(zero, 64, 2048, 4):
-            raise AssertionError(f"c5_streamed tilt on panel: launches {tilts[e]['launches']}")
+        if e == "panel":
+            counts["tilt"] = cnt
+            if cnt != c5_streamed_expected(zero, 64, 2048, 4):
+                raise AssertionError(f"c5_streamed tilt: launches {tilts[e]['launches']}")
     err["tilt4_panel_vs_xla"] = rel_norm(torch.as_tensor(waves["tilt_panel"], device="cuda"),
                                          torch.as_tensor(waves["tilt_xla"], device="cuda"))
+    by_route_tilt = streamed_by_route(
+        [*c5_settings, "sim.nslices=64", f"sim.tilt_series_rad={TILTS4}"], tilts["panel"])
     line = {
         "phase": "c5_streamed",
         "config": "examples/si110_hrtem.toml " + " ".join(C5_STREAMED[1::2]),
@@ -3004,7 +3115,9 @@ def phase_c5_streamed(tmp: str, gpu: str) -> tuple[dict, dict]:
         "variant_tol": C5_VARIANT_TOL, "peak_limit_bytes": C5_STREAMED_PEAK,
         "rollout_kernels_32": own_kernels(kernels_32),
         "rollout_kernels_512": own_kernels(kernels_512),
-        "rollout_busy_ms_by_route": rollout_busy_by_route, "gpu": gpu,
+        "rollout_by_route": rollout_by_route, "rollout_4096_by_route": by_route_4096,
+        "rollout_tilt4_by_route": by_route_tilt,
+        "gpu": gpu,
     }
     if waves["tilt_panel"].shape != (4, 2048, 2048) or waves["panel"].shape != (2048, 2048):
         raise AssertionError(f"c5_streamed exit waves {waves['panel'].shape}, "
@@ -3019,7 +3132,7 @@ def phase_c5_streamed(tmp: str, gpu: str) -> tuple[dict, dict]:
             and err["4096_panel_vs_xla"] <= C5_STREAMED_TOL
             and err["tilt4_panel_vs_xla"] <= C5_VARIANT_TOL):
         raise AssertionError(f"c5_streamed exit waves: {err}")
-    return line, {"2048": counts["panel"], "4096": counts["4096"]}
+    return line, {"2048": counts["panel"], "4096": counts["4096"], "tilt": counts["tilt"]}
 
 
 def phase_phonon(tmp: str, gpu: str) -> dict:
@@ -3247,10 +3360,9 @@ ROW_PHASES = {
     "panel_rowfwd": ("c5_invert", "c5_invert_per_slice"),
     "panel_init_store": ("c5_invert",),
     "panel_g_rowpass": ("c5_streamed",),
-    "panel_build_colpass": ("c5_streamed",),
-    "panel_vfused_rowpass": ("c5_streamed",),
-    # the column, backward row and row passes with V_j run one of two kernels
-    # each, by the route table, counted as "<wrapper>[route]"
+    # the column, backward row, row passes with V_j and the streamed build's
+    # column and fused row passes run one of two kernels each, by the route
+    # table, counted as "<wrapper>[route]"
     **{f"{name}[{r}]": phases for name, phases in (
         ("panel_rowpass_stack", ("c5",)),
         ("panel_rowpass_stack_store", ("c5_invert",)),
@@ -3258,7 +3370,10 @@ ROW_PHASES = {
         ("panel_col_bwd", ("c5_invert", "c5_invert_per_slice")),
         ("panel_row_bwd_loop", ("c5_invert",)),
         ("panel_row_bwd_last", ("c5_invert",)),
-        ("panel_bwd_tail", ("c5_invert_per_slice",))) for r in ("tile", "wide")},
+        ("panel_bwd_tail", ("c5_invert_per_slice",)),
+        ("panel_build_colpass", ("c5_streamed", "c5_streamed_4096", "c5_streamed_tilt")),
+        ("panel_vfused_rowpass", ("c5_streamed", "c5_streamed_4096", "c5_streamed_tilt")))
+        for r in ("tile", "wide")},
 }
 #: kernels on no path, exempt from the check that each kernel of a path was
 #: launched there: _row_mid_kernel has no caller in fdes_tpu (a building
@@ -3365,7 +3480,8 @@ def main(argv=None) -> int:
             emit(line)
         if "c5_streamed" in phases:
             line, by_size = timed(phase_c5_streamed, tmp, gpu)
-            path_launches.update(c5_streamed=by_size["2048"], c5_streamed_4096=by_size["4096"])
+            path_launches.update(c5_streamed=by_size["2048"], c5_streamed_4096=by_size["4096"],
+                                 c5_streamed_tilt=by_size["tilt"])
             emit(line)
         if "phonon" in phases:
             emit(timed(phase_phonon, tmp, gpu))

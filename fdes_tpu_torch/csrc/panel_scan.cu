@@ -27,6 +27,9 @@
 //                                           (:679) and _row_bwd_tail_kernel (:219)
 //   panel_wide_row_kernel<L, kMid>          _row_mid_stack_kernel      (:125)
 //   panel_wide_row_kernel<L, kMidStore>     _row_mid_store_kernel      (:603)
+//   panel_wide_col_kernel<L, C, kColBuild>  _col_build_kernel          (:1058) and
+//   panel_wide_col_kernel<L, C, kColBuildSum>
+//   panel_wide_row_kernel<L, kVfused>       _row_vfused_kernel         (:1086)
 // (kernels/panel_scan.PANEL_ROUTE picks one kernel of each pair before the
 // launch, by size and waves; the entry points take the choice as `route`),
 // and the whole loops _run_single / _run_single_abs (the rollout),
@@ -154,6 +157,18 @@
 // before the inverse transform and after the forward one) was slower at
 // 2048^2 in development runs.
 //
+// The streamed build's pair, rows 28 and 29, goes the same way (bounds 25
+// and 30 us at 2048^2, 100 and 120 us at 4096^2; the tile kernels ran them at
+// 3.8x and 3.6x).  Row 28 is a mode of the wide column kernel: an item of
+// each species in turn copied ahead into the second stage, the factor read
+// with the item (4 bytes a value, the rows of layout 3), and the species'
+// products summed in registers, so the tile kernel's running sum in device
+// memory (16 bytes a pixel a species past the first) goes; one inverse
+// transform of the sum.  Row 29 is a mode of the wide forward row kernel:
+// vx's row loaded with b's, through the exchange and the inverse x transform
+// in the group's registers, its real part V kept in layout 1 (where b's row
+// leaves its own inverse transform) and t formed from it once a row.
+//
 // Layout: PyTorch's interleaved complex64 (float2), C-contiguous, 16-byte
 // aligned; N in {256, 512, 1024, 2048, 4096}; planes are (nwaves, N, N);
 // offsets of waves and slices are 64-bit (a 4096^2 x 512 stack holds
@@ -167,11 +182,17 @@ namespace {
 
 // Row passes: kInit transmit, forward x; kMid inverse x, transmit, forward x;
 // kFinal inverse x; kFwd forward x; kInitStore, kMidStore as kInit, kMid,
-// storing s = t psi on the way.  Backward row passes (bwd_row_tile): kBwdLoop
-// inverse x, dV, * conj(t), forward x; kBwdLast the same without the forward
-// x; kBwdTail as kBwdLast with s formed from psi.
-enum RowMode { kInit = 0, kMid = 1, kFinal = 2, kFwd = 3, kInitStore = 4, kMidStore = 5 };
+// storing s = t psi on the way; kVfused (the wide row kernel only) as kMid
+// with V built from its x spectrum.  Backward row passes (bwd_row_tile):
+// kBwdLoop inverse x, dV, * conj(t), forward x; kBwdLast the same without the
+// forward x; kBwdTail as kBwdLast with s formed from psi.
+enum RowMode {
+  kInit = 0, kMid = 1, kFinal = 2, kFwd = 3, kInitStore = 4, kMidStore = 5, kVfused = 6
+};
 enum BwdMode { kBwdLoop = 0, kBwdLast = 1, kBwdTail = 2 };
+// The wide column kernel's passes: kColProp the column pass with P (rows 14,
+// 24); kColBuild row 28 of one species, kColBuildSum of several.
+enum ColMode { kColProp = 0, kColBuild = 1, kColBuildSum = 2 };
 
 // Columns of a column panel: 4 at 2048 and 4096 (a row of the panel is one
 // whole 32-byte sector; chosen by a sweep of 1 to 8 columns on an H100, see
@@ -487,29 +508,58 @@ __device__ __forceinline__ void wide_col_fetch(float2* stage, const float2* src,
   }
 }
 
-// Rows 14 and 24 redesigned: the column pass b = Fy^H(P / N^2 * Fy(a)) (or
-// with conj(P), conj_p) over every item of C adjacent columns of nwaves
-// planes, group g of the block transforming column g of the item.  Per item:
-// this thread's values of P (the rows of layout 3) by __ldg, in flight with
-// the item, except at 4096 points, where they would push the 512-thread
-// block past its 128 registers into local memory and are loaded after the
-// forward transform; the item from its stage into the groups' registers
-// (layout 1); the forward y transform, the multiply, the inverse y transform,
-// each group exchanging through its buffer in the stage; the item back to the
-// stage in rows and out with 16-byte stores.  A block walks over items
-// gridDim.x apart (gridDim.x = the resident blocks) and copies the next item
-// into the other of two stages while it transforms this one.  src may be dst:
-// a block reads an item before it writes it, and no other block touches it.
-template <int LOG2N, int C>
+// This thread's multipliers of a column item, at the rows of layout 3 of
+// column pointer pc (P, complex) or fc (a build's real factor, into .x).
+template <int LOG2N, bool REAL>
+__device__ __forceinline__ void load_col_mult(float2 (&p)[Rounds<LOG2N>::R], const float2* pc,
+                                              const float* fc, int t) {
+#pragma unroll
+  for (int m = 0; m < Rounds<LOG2N>::R; ++m) {
+    const int64_t at = static_cast<int64_t>(rounds_pos<LOG2N, 3>(t, m)) << LOG2N;
+    if (REAL) {
+      p[m].x = __ldg(fc + at);
+    } else {
+      p[m] = __ldg(pc + at);
+    }
+  }
+}
+
+// Rows 14 and 24 redesigned (kColProp): the column pass b = Fy^H(P / N^2 *
+// Fy(a)) (or with conj(P), conj_p) over every item of C adjacent columns of
+// nplanes planes, group g of the block transforming column g of the item.
+// Per item: this thread's values of P (the rows of layout 3) by __ldg, in
+// flight with the item, except at 4096 points, where they would push the
+// 512-thread block past its 128 registers into local memory and are loaded
+// after the forward transform; the item from its stage into the groups'
+// registers (layout 1); the forward y transform, the multiply, the inverse y
+// transform, each group exchanging through its buffer in the stage; the item
+// back to the stage in rows and out with 16-byte stores.  A block walks over
+// items gridDim.x apart (gridDim.x = the resident blocks) and copies the next
+// item into the other of two stages while it transforms this one.  src may be
+// dst: a block reads an item before it writes it, and no other block touches
+// it.
+//
+// Row 28 redesigned (kColBuild, kColBuildSum): the build column pass dst =
+// Fy^H(sum_s F_s * Fy(gx_s)) of the nplanes species planes src = gx into one
+// plane, fp the species' real factors; prop, p_wave_stride and conj_p unused.
+// An output item takes the species' items in turn, each copied ahead like
+// the column pass's next item, its factors (4 bytes a value) in flight with
+// it; the products are summed in registers (kColBuildSum: acc), and the sum
+// goes through the one inverse transform.  With several species the factors
+// are loaded after the forward transform, as P at 4096 points: acc, the item
+// and the factors would not fit in 128 registers together.
+template <int LOG2N, int C, int MODE>
 __global__ void __launch_bounds__(kWideColThreads<LOG2N, C>)
 panel_wide_col_kernel(const float2* src, float2* dst, const float2* __restrict__ prop,
-                      int64_t p_wave_stride, bool conj_p, int64_t nwaves) {
+                      const float* __restrict__ fp, int64_t p_wave_stride, bool conj_p,
+                      int64_t nplanes) {
   using X = Rounds<LOG2N>;
   constexpr int N = X::N;
   constexpr int R = X::R;
   constexpr int kBlock = kWideColThreads<LOG2N, C>;
   constexpr int kStage = C * X::kBuf;
-  constexpr bool kLateP = LOG2N == 12;
+  constexpr bool kBuild = MODE != kColProp;
+  constexpr bool kLate = kBuild ? MODE == kColBuildSum : LOG2N == 12;
   constexpr int64_t kPlane = int64_t{1} << (2 * LOG2N);
   constexpr int64_t kItems = N / C;
   extern __shared__ float4 wide_smem[];
@@ -518,41 +568,55 @@ panel_wide_col_kernel(const float2* src, float2* dst, const float2* __restrict__
   init_staged_twiddles<LOG2N, kBlock>(tw);
   const int col = threadIdx.x / X::T;
   Group g{static_cast<int>(threadIdx.x % X::T), 1 + col, nullptr};
-  const int64_t items = nwaves * kItems;
+  // output items, and the input items (species) each sums
+  const int64_t items = kBuild ? kItems : nplanes * kItems;
+  const int parts = kBuild ? static_cast<int>(nplanes) : 1;
   const float scale = 1.0f / (static_cast<float>(N) * static_cast<float>(N));
   const float sign = conj_p ? -scale : scale;
-  int64_t item = blockIdx.x;
+  int64_t item = blockIdx.x, next = 0;
+  int part = 0, next_part = 0;
   if (item < items) wide_col_fetch<LOG2N, C>(stages, src, item);
-  for (int k = 0; item < items; item += gridDim.x, ++k) {
+  float2 acc[R];  // kColBuildSum: the sum over the species of this item so far
+  for (int k = 0; item < items; ++k, item = next, part = next_part) {
     float2* stage = stages + ((k & 1) ? kStage : 0);
     const int64_t b = item / kItems;
     const int c0 = static_cast<int>(item % kItems) * C;
-    const float2* pc = prop + b * p_wave_stride + c0 + col;
-    float2 p[R];
-    if (!kLateP) {  // in flight with the item: a load after the transform waits a round trip
-#pragma unroll
-      for (int m = 0; m < R; ++m) {
-        p[m] = __ldg(pc + static_cast<int64_t>(rounds_pos<LOG2N, 3>(g.t, m)) * N);
-      }
-    }
+    const float2* pc = kBuild ? nullptr : prop + b * p_wave_stride + c0 + col;
+    const float* fc = kBuild ? fp + part * kPlane + c0 + col : nullptr;
+    float2 p[R];  // P, or the factor in .x
+    // in flight with the item: a load after the transform waits a round trip
+    if (!kLate) load_col_mult<LOG2N, kBuild>(p, pc, fc, g.t);
     cp_async_wait_all();
     __syncthreads();  // the item has landed; the other stage's readers are done
-    const int64_t next = item + gridDim.x;
-    if (next < items) wide_col_fetch<LOG2N, C>(stages + ((k & 1) ? 0 : kStage), src, next);
+    const bool last = part == parts - 1;
+    next = last ? item + gridDim.x : item;
+    next_part = last ? 0 : part + 1;
+    if (next < items) {
+      wide_col_fetch<LOG2N, C>(stages + ((k & 1) ? 0 : kStage), src, next + next_part * kItems);
+    }
     float2 x[R];
 #pragma unroll
     for (int m = 0; m < R; ++m) x[m] = stage[stage_at<C>(rounds_pos<LOG2N, 1>(g.t, m), col)];
     __syncthreads();  // the item is in registers: the stage holds the groups' buffers
     g.buf = stage + col * X::kBuf;
     rounds_forward<LOG2N>(x, tw, g);
-    if (kLateP) {
+    if (kLate) load_col_mult<LOG2N, kBuild>(p, pc, fc, g.t);
 #pragma unroll
-      for (int m = 0; m < R; ++m) {
-        p[m] = __ldg(pc + static_cast<int64_t>(rounds_pos<LOG2N, 3>(g.t, m)) * N);
+    for (int m = 0; m < R; ++m) {
+      if (!kBuild) {
+        x[m] = cmul(x[m], make_float2(p[m].x * scale, p[m].y * sign));
+      } else if (MODE == kColBuild) {
+        x[m] = make_float2(x[m].x * p[m].x, x[m].y * p[m].x);
+      } else {
+        const float2 z = make_float2(x[m].x * p[m].x, x[m].y * p[m].x);
+        acc[m] = part == 0 ? z : cadd(acc[m], z);
       }
     }
+    if (MODE == kColBuildSum) {
+      if (!last) continue;
 #pragma unroll
-    for (int m = 0; m < R; ++m) x[m] = cmul(x[m], make_float2(p[m].x * scale, p[m].y * sign));
+      for (int m = 0; m < R; ++m) x[m] = acc[m];
+    }
     rounds_inverse<LOG2N>(x, tw, g);
     __syncthreads();  // every group's last exchange is read
 #pragma unroll
@@ -655,11 +719,21 @@ constexpr size_t wide_row_smem_bytes() {
 // (128 registers a thread); at 4096 points, where t would not fit beside the
 // row, the group keeps V and forms t again each wave.  src may be dst: a
 // group reads a row before it writes it, and no other group touches that row.
+//
+// Row 29 redesigned (kVfused): the same pass with V = Re(Fx^H(vx)), vx (N, N)
+// V's x spectrum from row 28 (bit-reversed x, natural y; v unused).  The
+// group loads vx's row with wave 0's row of b (layout 1), takes it through the
+// exchange to layout 3 and the inverse x transform in the registers t will
+// hold, and keeps its real part in layout 1, the layout in which b's row
+// leaves its own inverse transform, so V needs no exchange of its own; then
+// as kMid.  vx is read and transformed once a row for all the waves.
 template <int LOG2N, int MODE>
 __global__ void __launch_bounds__(kWideRowThreads, 2)
-panel_wide_row_kernel(const float2* src, float2* dst, const float* __restrict__ v, float2* s,
-                      int64_t s_wave_stride, float sigma, int64_t nwaves) {
-  static_assert(MODE == kMid || MODE == kMidStore, "the wide kernel runs rows 15 and 23");
+panel_wide_row_kernel(const float2* src, float2* dst, const float* __restrict__ v,
+                      const float2* __restrict__ vx, float2* s, int64_t s_wave_stride, float sigma,
+                      int64_t nwaves) {
+  static_assert(MODE == kMid || MODE == kMidStore || MODE == kVfused,
+                "the wide kernel runs rows 15, 23 and 29");
   using X = Rounds<LOG2N>;
   constexpr int N = X::N;
   constexpr int R = X::R;
@@ -676,12 +750,20 @@ panel_wide_row_kernel(const float2* src, float2* dst, const float* __restrict__ 
   for (int64_t y = blockIdx.x + static_cast<int64_t>(group) * gridDim.x; y < N; y += step) {
     const int64_t r = y * N;
     float2 x[R];
-    float2 t[R];  // V in .x, then t (kKeepT)
+    float2 t[R];  // V in .x (kVfused: vx, then V = Re(Fx^H(vx))), then t (kKeepT)
 #pragma unroll
     for (int m = 0; m < R; ++m) {
       const int p = rounds_pos<LOG2N, 1>(g.t, m);
       x[m] = src[r + p];
-      t[m].x = __ldg(v + r + p);
+      if (MODE == kVfused) {
+        t[m] = __ldg(vx + r + p);
+      } else {
+        t[m].x = __ldg(v + r + p);
+      }
+    }
+    if (MODE == kVfused) {
+      rounds_exchange<LOG2N, 1, 3>(t, g);
+      rounds_inverse<LOG2N>(t, tw, g);
     }
     if (kKeepT) {
 #pragma unroll
@@ -885,12 +967,13 @@ int resident_blocks_here(const void* kernel, int threads, size_t bytes, int* blo
   return resident_blocks_of(kernel, device, blocks, threads, bytes);
 }
 
-// The wide column pass: one block a resident slot, at most one an item.
-template <int LOG2N>
-int launch_wide_col(const float2* src, float2* dst, const float2* prop, int64_t p_wave_stride,
-                    bool conj_p, int64_t nwaves, cudaStream_t stream) {
+// A wide column kernel's pass (MODE: ColMode): one block a resident slot, at
+// most one an output item; nplanes the waves (kColProp) or the species.
+template <int LOG2N, int MODE = kColProp>
+int launch_wide_col(const float2* src, float2* dst, const float2* prop, const float* fp,
+                    int64_t p_wave_stride, bool conj_p, int64_t nplanes, cudaStream_t stream) {
   constexpr int C = kWideCols<LOG2N>;
-  auto* kernel = panel_wide_col_kernel<LOG2N, C>;
+  auto* kernel = panel_wide_col_kernel<LOG2N, C, MODE>;
   constexpr int kBlock = kWideColThreads<LOG2N, C>;
   constexpr size_t kBytes = wide_col_smem_bytes<LOG2N, C>();
   cudaError_t err =
@@ -901,14 +984,14 @@ int launch_wide_col(const float2* src, float2* dst, const float2* prop, int64_t 
       resident_blocks_here(reinterpret_cast<const void*>(kernel), kBlock, kBytes, &resident));
   if (err != cudaSuccess) return err;
   if (resident < 1) return cudaErrorLaunchOutOfResources;
-  const int64_t items = nwaves * ((1 << LOG2N) / C);
+  const int64_t items = (MODE == kColProp ? nplanes : 1) * ((1 << LOG2N) / C);
   const int blocks = static_cast<int>(items < resident ? items : resident);
-  kernel<<<blocks, kBlock, kBytes, stream>>>(src, dst, prop, p_wave_stride, conj_p, nwaves);
+  kernel<<<blocks, kBlock, kBytes, stream>>>(src, dst, prop, fp, p_wave_stride, conj_p, nplanes);
   return cudaGetLastError();
 }
 
-// The routes of the column pass and of the backward row pass (PANEL_ROUTE in
-// kernels/panel_scan.py): the tile kernel or the wide kernel.
+// The routes of the routed passes (PANEL_ROUTE in kernels/panel_scan.py): the
+// tile kernel or the wide kernel.
 enum Route { kRouteTile = 0, kRouteWide = 1 };
 
 template <int LOG2N>
@@ -918,7 +1001,8 @@ int launch_col_route(int route, const float2* src, float2* dst, const float2* pr
     case kRouteTile:
       return launch_col<LOG2N>(src, dst, prop, p_wave_stride, conj_p, nwaves, stream);
     case kRouteWide:
-      return launch_wide_col<LOG2N>(src, dst, prop, p_wave_stride, conj_p, nwaves, stream);
+      return launch_wide_col<LOG2N>(src, dst, prop, nullptr, p_wave_stride, conj_p, nwaves,
+                                    stream);
     default:
       return cudaErrorInvalidValue;
   }
@@ -957,14 +1041,14 @@ int launch_wide_bwd_row_m(const float2* src, float2* dst, const float2* s, int64
 }
 
 template <int LOG2N, int MODE>
-int launch_wide_row(const float2* src, float2* dst, const float* v, float2* s,
+int launch_wide_row(const float2* src, float2* dst, const float* v, const float2* vx, float2* s,
                     int64_t s_wave_stride, float sigma, int64_t nwaves, cudaStream_t stream) {
   auto* kernel = panel_wide_row_kernel<LOG2N, MODE>;
   int blocks = 0;
   const int err = wide_row_blocks<LOG2N>(kernel, &blocks);
   if (err != cudaSuccess) return err;
   kernel<<<blocks, kWideRowThreads, wide_row_smem_bytes<LOG2N>(), stream>>>(
-      src, dst, v, s, s_wave_stride, sigma, nwaves);
+      src, dst, v, vx, s, s_wave_stride, sigma, nwaves);
   return cudaGetLastError();
 }
 
@@ -977,7 +1061,43 @@ int launch_row_route(int route, const float2* src, float2* dst, const float* v, 
       return launch_row<LOG2N, MODE>(src, dst, v, nullptr, s, s_wave_stride, sigma, nwaves,
                                      stream);
     case kRouteWide:
-      return launch_wide_row<LOG2N, MODE>(src, dst, v, s, s_wave_stride, sigma, nwaves, stream);
+      return launch_wide_row<LOG2N, MODE>(src, dst, v, nullptr, s, s_wave_stride, sigma, nwaves,
+                                          stream);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
+// Row 28 on its route: the tile kernel, or the wide column kernel's build
+// mode (one species, or the sum of several).
+template <int LOG2N>
+int launch_build_col_route(int route, const float2* gx, const float* fp, float2* out, int nsp,
+                           cudaStream_t stream) {
+  switch (route) {
+    case kRouteTile:
+      return launch(panel_build_col_kernel<LOG2N>, (1 << LOG2N) / kPanelCols<LOG2N>,
+                    col_smem_bytes<LOG2N>(), stream, gx, fp, out, nsp);
+    case kRouteWide:
+      if (nsp == 1) {
+        return launch_wide_col<LOG2N, kColBuild>(gx, out, nullptr, fp, 0, false, 1, stream);
+      }
+      return launch_wide_col<LOG2N, kColBuildSum>(gx, out, nullptr, fp, 0, false, nsp, stream);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
+// Row 29 on its route: the tile kernel or the wide row kernel's kVfused.
+template <int LOG2N>
+int launch_vfused_route(int route, const float2* vx, const float2* src, float2* dst, float sigma,
+                        int64_t nwaves, cudaStream_t stream) {
+  switch (route) {
+    case kRouteTile:
+      return launch(panel_vfused_row_kernel<LOG2N>, kTilesPerWave<LOG2N>,
+                    vfused_smem_bytes<LOG2N>(), stream, vx, src, dst, sigma, nwaves);
+    case kRouteWide:
+      return launch_wide_row<LOG2N, kVfused>(src, dst, nullptr, vx, nullptr, 0, sigma, nwaves,
+                                             stream);
     default:
       return cudaErrorInvalidValue;
   }
@@ -1112,7 +1232,7 @@ int kernel_info(int device, int which, int* out) {
     case 5:
       return info_of(panel_vfused_row_kernel<LOG2N>, vfused_smem_bytes<LOG2N>(), device, out);
     case 6:
-      return info_of(panel_wide_col_kernel<LOG2N, kWideCols<LOG2N>>,
+      return info_of(panel_wide_col_kernel<LOG2N, kWideCols<LOG2N>, kColProp>,
                      wide_col_smem_bytes<LOG2N, kWideCols<LOG2N>>(), device, out,
                      kWideColThreads<LOG2N, kWideCols<LOG2N>>);
     case 7:
@@ -1124,6 +1244,17 @@ int kernel_info(int device, int which, int* out) {
     case 9:
       return info_of(panel_wide_row_kernel<LOG2N, kMidStore>, wide_row_smem_bytes<LOG2N>(),
                      device, out, kWideRowThreads);
+    case 10:
+      return info_of(panel_wide_col_kernel<LOG2N, kWideCols<LOG2N>, kColBuild>,
+                     wide_col_smem_bytes<LOG2N, kWideCols<LOG2N>>(), device, out,
+                     kWideColThreads<LOG2N, kWideCols<LOG2N>>);
+    case 11:
+      return info_of(panel_wide_row_kernel<LOG2N, kVfused>, wide_row_smem_bytes<LOG2N>(), device,
+                     out, kWideRowThreads);
+    case 12:
+      return info_of(panel_wide_col_kernel<LOG2N, kWideCols<LOG2N>, kColBuildSum>,
+                     wide_col_smem_bytes<LOG2N, kWideCols<LOG2N>>(), device, out,
+                     kWideColThreads<LOG2N, kWideCols<LOG2N>>);
     default:
       return cudaErrorInvalidValue;
   }
@@ -1304,33 +1435,36 @@ int fdes_panel_g_rowpass_c64(int device, int n, const void* g, void* out, int64_
 }
 
 // Row 28: gx (nsp, n, n) -> out (n, n) = Fy^H(sum_s fp_s * Fy(gx_s)), fp the
-// (nsp, n, n) real factor panels; out must not overlap gx or fp.
+// (nsp, n, n) real factor panels; out must not overlap gx or fp; route: the
+// kernel (Route: 0 tile, 1 wide).
 int fdes_panel_build_colpass_c64(int device, int n, const void* gx, const void* fp, void* out,
-                                 int nsp, void* stream) {
+                                 int nsp, int route, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   if (nsp < 1) return cudaErrorInvalidValue;
-  FDES_DISPATCH_PANEL_N(n, launch(panel_build_col_kernel<L>, (1 << L) / kPanelCols<L>,
-                                  col_smem_bytes<L>(), st(stream), c2(gx), f1(fp), o2(out), nsp))
+  FDES_DISPATCH_PANEL_N(n, launch_build_col_route<L>(route, c2(gx), f1(fp), o2(out), nsp,
+                                                     st(stream)))
 }
 
 // Row 29: b (nwaves, n, n) -> out = Fx(exp(i sigma V) Fx^H(b)) (out may be
-// b), V = Re(Fx^H(vx)) of the (n, n) plane vx, shared by the waves.
+// b), V = Re(Fx^H(vx)) of the (n, n) plane vx, shared by the waves; route:
+// the kernel (Route: 0 tile, 1 wide).
 int fdes_panel_vfused_rowpass_c64(int device, int n, const void* vx, const void* b, void* out,
-                                  double sigma, int64_t nwaves, void* stream) {
+                                  double sigma, int64_t nwaves, int route, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
-  FDES_DISPATCH_PANEL_N(n, launch(panel_vfused_row_kernel<L>, kTilesPerWave<L>,
-                                  vfused_smem_bytes<L>(), st(stream), c2(vx), c2(b), o2(out),
-                                  static_cast<float>(sigma), nwaves))
+  FDES_DISPATCH_PANEL_N(n, launch_vfused_route<L>(route, c2(vx), c2(b), o2(out),
+                                                  static_cast<float>(sigma), nwaves, st(stream)))
 }
 
 // out[0..3] = registers per thread, dynamic shared bytes, local bytes per
 // thread and blocks resident at once on the device, of the row kernel
 // (which 0), the column kernel (1), the backward row kernel (2), the g row
 // kernel (3), the build column kernel (4), the fused row kernel (5), the
-// wide column kernel (6), the wide backward row kernel (7) or the wide row
-// kernel of row 15 (8) or of row 23 (9), for size n.
+// wide column kernel (6), the wide backward row kernel (7), the wide row
+// kernel of row 15 (8) or of row 23 (9), the wide column kernel's build of
+// one species (10) or of several (12), or the wide row kernel of row 29
+// (11), for size n.
 int fdes_panel_kernel_info(int device, int n, int which, int* out) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;

@@ -51,32 +51,37 @@ the atoms are scattered as per-species delta planes g_s (tensor code), then
 
 * ``panel_g_rowpass(g)`` -> Fx(g_s) for all species in one launch  (``_row_g_kernel``);
 * ``panel_build_colpass(gx, factors)`` -> Vx = Fy^H(sum_s F_s Fy(gx_s)), V in
-  x spectrum  (``_col_build_kernel``); ``prepare_factors`` gathers the
-  full-grid form factors F_s as the transforms leave the spectrum and scales
-  them by 1/(py px n^2);
+  x spectrum  (``_col_build_kernel``; routed); ``prepare_factors`` gathers
+  the full-grid form factors F_s as the transforms leave the spectrum and
+  scales them by 1/(py px n^2);
 * ``panel_vfused_rowpass(vx, b, sigma)`` -> Fx(t Fx^H(b)), V = Re(Fx^H(vx))
-  built in the same launch  (``_row_vfused_kernel``).
+  built in the same launch  (``_row_vfused_kernel``; routed).
 
 Slice 0's V goes through ``panel_final`` and ``panel_init``; a rollout of S
 slices is S launches each of the g row pass, the build column pass and the
 column pass, S - 1 fused row passes and three more (2 ``panel_final``, 1
 ``panel_init``).
 
-The column pass (and its conjugate), the backward row passes and the row
-passes with V_j of a real V (rows 15 and 23) run on one of two kernels each,
-picked before the launch by ``panel_route(n, B, kind)`` from ``PANEL_ROUTE``,
-a table of rows measured on the H100: "tile" (``panel_col_kernel``,
-``panel_bwd_row_kernel``, ``panel_row_kernel``: tiles through shared memory)
-or "wide" (``panel_wide_col_kernel``, ``panel_wide_bwd_row_kernel``,
+The column pass (and its conjugate), the backward row passes, the row
+passes with V_j of a real V (rows 15 and 23) and the streamed build's column
+and fused row passes (rows 28 and 29) run on one of two kernels each, picked
+before the launch by ``panel_route(n, B, kind)`` from ``PANEL_ROUTE``, a
+table of rows measured on the H100 (B the waves, for the build column pass
+the species): "tile" (``panel_col_kernel``, ``panel_bwd_row_kernel``,
+``panel_row_kernel``, ``panel_build_col_kernel``,
+``panel_vfused_row_kernel``: tiles through shared memory) or "wide"
+(``panel_wide_col_kernel``, ``panel_wide_bwd_row_kernel``,
 ``panel_wide_row_kernel``: each 1-D transform in the registers of a group of
-threads, three rounds of radix-2 stages between two exchanges).  The other
-row passes (init, final, the seed, the absorptive ones, ``panel_rowpass``)
-run the tile kernel.  The whole loops take the choice into C with them.
-``_colpass``, the backward row passes and the two stack row passes take
-``route=`` to name a kernel for measurements; it is checked, and a launch
-the card refuses raises with nothing run in its place.  The seven wrappers
-of these passes (``ROUTED``) count their launches in ``launches`` and by
-kernel in ``launches_by_route`` ({"tile": n, "wide": m}).
+threads, three rounds of radix-2 stages between two exchanges; rows 28 and
+29 are modes of the wide column and row kernels).  The other row passes
+(init, final, the seed, the absorptive ones, ``panel_rowpass``, row 27) run
+the tile kernel.  The whole loops take the choice into C with them.
+``_colpass``, the backward row passes, the two stack row passes and rows 28
+and 29 take ``route=`` to name a kernel for measurements; it is checked,
+and a launch the card refuses raises with nothing run in its place.  The
+nine wrappers of these passes (``ROUTED``) count their launches in
+``launches`` and by kernel in ``launches_by_route`` ({"tile": n, "wide":
+m}).
 
 ``panel_diff_apply`` differentiates the loop: the store pair while the s
 stack (B*S*n*n*8 bytes) fits ``adjoint_scan.STORE_CAP_BYTES``, past it
@@ -140,8 +145,8 @@ _ARGTYPES = {
         _INT, _INT, _P, _P, _P, _P, _P, _P, _D, _I64, _INT, _I64, _INT, _INT, _P,
     ],
     "fdes_panel_g_rowpass_c64": [_INT, _INT, _P, _P, _I64, _P],
-    "fdes_panel_build_colpass_c64": [_INT, _INT, _P, _P, _P, _INT, _P],
-    "fdes_panel_vfused_rowpass_c64": [_INT, _INT, _P, _P, _P, _D, _I64, _P],
+    "fdes_panel_build_colpass_c64": [_INT, _INT, _P, _P, _P, _INT, _INT, _P],
+    "fdes_panel_vfused_rowpass_c64": [_INT, _INT, _P, _P, _P, _D, _I64, _INT, _P],
     "fdes_panel_kernel_info": [_INT, _INT, _INT, _P],
 }
 #: modes of fdes_panel_bwd_row_c64 (csrc/panel_scan.cu BwdMode)
@@ -149,44 +154,59 @@ _BWD_LOOP, _BWD_LAST, _BWD_TAIL = 0, 1, 2
 _entries: dict[str, object] = {}
 
 #: The kernels of the column pass (rows 14 and 24), of the backward row pass
-#: (rows 25, 26, 21) and of the forward row pass with V_j (rows 15 and 23),
-#: by their code in csrc/panel_scan.cu's Route: "tile" (``panel_col_kernel``,
-#: ``panel_bwd_row_kernel``, ``panel_row_kernel``: tiles through shared
-#: memory) or "wide" (``panel_wide_col_kernel``: persistent blocks copying
-#: the next item while they transform this one; ``panel_wide_bwd_row_kernel``,
-#: ``panel_wide_row_kernel``: each 1-D transform in the registers of a group
-#: of warps).
+#: (rows 25, 26, 21), of the forward row pass with V_j (rows 15 and 23) and
+#: of the streamed build's column and fused row passes (rows 28 and 29), by
+#: their code in csrc/panel_scan.cu's Route: "tile" (``panel_col_kernel``,
+#: ``panel_bwd_row_kernel``, ``panel_row_kernel``, ``panel_build_col_kernel``,
+#: ``panel_vfused_row_kernel``: tiles through shared memory) or "wide"
+#: (``panel_wide_col_kernel``, also in its build modes: persistent blocks
+#: copying the next item while they transform this one;
+#: ``panel_wide_bwd_row_kernel``, ``panel_wide_row_kernel``, also in its mode
+#: kVfused: each 1-D transform in the registers of a group of warps).
 ROUTES = {"tile": 0, "wide": 1}
 #: the passes PANEL_ROUTE routes, in the order of its entries: the column
-#: pass, the backward row pass, the row pass (row 15) and the store row pass
-#: (row 23)
-KINDS = ("col", "bwd_row", "row", "row_store")
+#: pass, the backward row pass, the row pass (row 15), the store row pass
+#: (row 23), the build column pass (row 28) and the fused row pass (row 29)
+KINDS = ("col", "bwd_row", "row", "row_store", "build_col", "vfused_row")
 
-#: The route of each pass by grid and waves a launch, {n: {waves: (column
-#: pass, backward row pass, row pass, store row pass)}}: the faster kernel of
-#: each pass timed in turns on an NVIDIA H100 80GB HBM3 at 700 W
-#: (chip_smoke.py kernels_panel and kernels_panel_grad, ``route_rows`` and
-#: ``row_route_rows``; PERF.md section 5).  A launch of B waves takes the row
-#: of the largest measured count not above B.  The wide column kernel loses
-#: at 4096^2, where an item is two columns (half a 32-byte sector a row) and
-#: a block spills, and at 512^2 from four waves; the wide row kernel at 256^2
-#: from four waves (the store form from eight), where a group carries its row
-#: through the waves one after the other and 256 rows fill 32 blocks.
+#: The route of each pass by grid and the launch's lead count, {n: {count:
+#: (column pass, backward row pass, row pass, store row pass, build column
+#: pass, fused row pass)}}, the count the waves of a launch (the species of a
+#: build column pass): the faster kernel of each pass timed in turns on an
+#: NVIDIA H100 80GB HBM3 at 700 W (chip_smoke.py kernels_panel,
+#: kernels_panel_grad and kernels_panel_stream, ``route_rows``,
+#: ``row_route_rows`` and ``stream_route_rows``; PERF.md section 5).  A
+#: launch takes the row of the largest measured count not above its own.
+#: The wide column kernel loses at 4096^2, where an item is two columns (half
+#: a 32-byte sector a row) and a block spills, and at 512^2 from four waves;
+#: its build mode at 4096^2 with one species, by 2 %, and wins from two
+#: (the tile kernel's sum goes through device memory); the wide row kernel
+#: at 256^2 from four waves (the store form from eight), where a group
+#: carries its row through the waves one after the other and 256 rows fill
+#: 32 blocks, but not in its fused mode: row 29's tile kernel carries each
+#: row tile through the waves in one block, 16 blocks at 256^2.
 _W, _T = "wide", "tile"
 PANEL_ROUTE = {
-    256: {1: (_W, _W, _W, _W), 2: (_W, _W, _W, _W), 4: (_W, _W, _T, _W), 8: (_W, _W, _T, _T)},
-    512: {1: (_W, _W, _W, _W), 2: (_W, _W, _W, _W), 4: (_T, _W, _W, _W), 8: (_T, _W, _W, _W)},
-    1024: {1: (_W, _W, _W, _W), 2: (_W, _W, _W, _W), 4: (_W, _W, _W, _W), 8: (_W, _W, _W, _W)},
-    2048: {1: (_W, _W, _W, _W), 2: (_W, _W, _W, _W), 4: (_W, _W, _W, _W), 8: (_W, _W, _W, _W)},
-    4096: {1: (_T, _W, _W, _W), 2: (_T, _W, _W, _W), 4: (_T, _W, _W, _W), 8: (_T, _W, _W, _W)},
+    256: {1: (_W, _W, _W, _W, _W, _W), 2: (_W, _W, _W, _W, _W, _W),
+          4: (_W, _W, _T, _W, _W, _W), 8: (_W, _W, _T, _T, _W, _W)},
+    512: {1: (_W, _W, _W, _W, _W, _W), 2: (_W, _W, _W, _W, _W, _W),
+          4: (_T, _W, _W, _W, _W, _W), 8: (_T, _W, _W, _W, _W, _W)},
+    1024: {1: (_W, _W, _W, _W, _W, _W), 2: (_W, _W, _W, _W, _W, _W),
+           4: (_W, _W, _W, _W, _W, _W), 8: (_W, _W, _W, _W, _W, _W)},
+    2048: {1: (_W, _W, _W, _W, _W, _W), 2: (_W, _W, _W, _W, _W, _W),
+           4: (_W, _W, _W, _W, _W, _W), 8: (_W, _W, _W, _W, _W, _W)},
+    4096: {1: (_T, _W, _W, _W, _T, _W), 2: (_T, _W, _W, _W, _W, _W),
+           4: (_T, _W, _W, _W, _W, _W), 8: (_T, _W, _W, _W, _W, _W)},
 }
 
 
 def panel_route(n: int, b: int, kind: str) -> str:
     """The route of ``kind`` (KINDS: "col" the column pass, "bwd_row" the
     backward row pass, "row" the row pass with V_j, "row_store" the same
-    storing s_j) for B waves of an n x n grid, from PANEL_ROUTE: a function of
-    (n, b) alone."""
+    storing s_j, "build_col" the build column pass, "vfused_row" the fused
+    row pass) for a launch of lead count b on an n x n grid, from
+    PANEL_ROUTE: a function of (n, b) alone.  b is the launch's waves, and
+    for "build_col" its species (the planes that one output sums)."""
     if kind not in KINDS:
         raise ValueError(f"panel_route: kind must be one of {KINDS}, got {kind!r}")
     rows = PANEL_ROUTE[n]
@@ -230,11 +250,14 @@ def panel_kernel_info(n: int, kernel: str = "row", device: torch.device | str = 
     the row kernel (``kernel`` "row"), the column kernel ("col"), the
     backward row kernel ("bwd_row"), the streamed build's kernels ("g_row",
     "build_col", "vfused_row") or the wide kernels ("wide_col",
-    "wide_bwd_row", "wide_row" of row 15, "wide_row_store" of row 23), for
-    axis size n, as the CUDA runtime reports them."""
+    "wide_bwd_row", "wide_row" of row 15, "wide_row_store" of row 23,
+    "wide_build_col" of row 28 with one species and "wide_build_col_sum"
+    with several, "wide_vfused_row" of row 29), for axis size n, as the CUDA
+    runtime reports them."""
     which = {"row": 0, "col": 1, "bwd_row": 2, "g_row": 3, "build_col": 4,
              "vfused_row": 5, "wide_col": 6, "wide_bwd_row": 7, "wide_row": 8,
-             "wide_row_store": 9}[kernel]
+             "wide_row_store": 9, "wide_build_col": 10, "wide_vfused_row": 11,
+             "wide_build_col_sum": 12}[kernel]
     dev = torch.device(device)
     if dev.index is None:
         dev = torch.device("cuda", torch.cuda.current_device())
@@ -945,36 +968,45 @@ def panel_g_rowpass(g: torch.Tensor) -> torch.Tensor:
     return out.reshape(g.shape)
 
 
-def panel_build_colpass(gx: torch.Tensor, factors: torch.Tensor) -> torch.Tensor:
+def panel_build_colpass(
+    gx: torch.Tensor, factors: torch.Tensor, *, route: str | None = None
+) -> torch.Tensor:
     """Vx = Fy^H(sum_s F_s * Fy(gx_s)) (n, n) of gx (nsp, n, n), ``factors``
-    from prepare_factors: the kernel on CUDA, plain on the CPU."""
+    from prepare_factors: on CUDA the kernel that PANEL_ROUTE picks for nsp
+    species (or ``route`` names), plain on the CPU."""
+    what = "panel_build_colpass"
+    _check_route(what, route)
     if not gx.is_cuda:
         return panel_build_colpass_ref(gx, factors)
-    what = "panel_build_colpass"
     if gx.ndim != 3:
         raise ValueError(f"{what}: gx must be (nsp, n, n), got {tuple(gx.shape)}")
     flat, n = _wave(gx, "gx", what)
+    route, code = _route_code(what, route, n, flat.shape[0], "build_col")
     fp = _real(factors, tuple(gx.shape), gx.device, "factors", what)
     out = torch.empty((n, n), dtype=torch.complex64, device=gx.device)
     _launch("fdes_panel_build_colpass_c64", gx.device, n, flat.data_ptr(), fp.data_ptr(),
-            out.data_ptr(), flat.shape[0])
-    panel_build_colpass.launches += 1
+            out.data_ptr(), flat.shape[0], code)
+    _count(panel_build_colpass, route=route)
     return out
 
 
-def panel_vfused_rowpass(vx: torch.Tensor, b: torch.Tensor, sigma: float) -> torch.Tensor:
+def panel_vfused_rowpass(
+    vx: torch.Tensor, b: torch.Tensor, sigma: float, *, route: str | None = None
+) -> torch.Tensor:
     """a = Fx(t Fx^H(b)), t = exp(i sigma V), V = Re(Fx^H(vx)) of the (n, n)
-    plane vx shared by the waves b ((n, n) or (B, n, n)): the kernel on CUDA,
-    plain on the CPU."""
+    plane vx shared by the waves b ((n, n) or (B, n, n)): on CUDA the kernel
+    that PANEL_ROUTE picks (or ``route`` names), plain on the CPU."""
+    what = "panel_vfused_rowpass"
+    _check_route(what, route)
     if not b.is_cuda:
         return panel_vfused_rowpass_ref(vx, b, sigma)
-    what = "panel_vfused_rowpass"
     flat, n = _wave(b, "b", what)
+    route, code = _route_code(what, route, n, flat.shape[0], "vfused_row")
     v = _like(vx, (n, n), b.device, "vx", what)
     out = torch.empty_like(flat)
     _launch("fdes_panel_vfused_rowpass_c64", b.device, n, v.data_ptr(), flat.data_ptr(),
-            out.data_ptr(), float(sigma), flat.shape[0])
-    panel_vfused_rowpass.launches += 1
+            out.data_ptr(), float(sigma), flat.shape[0], code)
+    _count(panel_vfused_rowpass, route=route)
     return out.reshape(b.shape)
 
 
@@ -1097,7 +1129,8 @@ WRAPPERS = (panel_init, panel_colpass, panel_rowpass_stack, panel_rowpass, panel
             panel_row_bwd_last, panel_g_rowpass, panel_build_colpass, panel_vfused_rowpass)
 #: the pass wrappers whose kernel PANEL_ROUTE picks, with launches_by_route
 ROUTED = (panel_colpass, panel_col_bwd, panel_row_bwd_loop, panel_row_bwd_last, panel_bwd_tail,
-          panel_rowpass_stack, panel_rowpass_stack_store)
+          panel_rowpass_stack, panel_rowpass_stack_store, panel_build_colpass,
+          panel_vfused_rowpass)
 #: the whole-loop calls, which count their calls and add their passes above
 #: (panel_streamed: its passes count themselves, one launch per wrapper call)
 LOOPS = (panel_scan, panel_scan_store, panel_scan_bwd_store, panel_streamed)

@@ -1,8 +1,8 @@
-"""The wide panel kernels (``panel_wide_col_kernel``,
-``panel_wide_bwd_row_kernel`` and ``panel_wide_row_kernel`` in
-csrc/panel_scan.cu, and their three-round transform) as a numpy model of
-their index maps, and the route between them and the tile kernels
-(``kernels/panel_scan.PANEL_ROUTE``).
+"""The wide panel kernels (``panel_wide_col_kernel``, also in its build modes
+(row 28), ``panel_wide_bwd_row_kernel`` and ``panel_wide_row_kernel``, also in
+its mode kVfused (row 29), in csrc/panel_scan.cu, and their three-round
+transform) as a numpy model of their index maps, and the route between them
+and the tile kernels (``kernels/panel_scan.PANEL_ROUTE``).
 
 The model follows the kernels' data: an N-point transform is held by a group
 of T = N/R threads (R = 8 values a thread up to 512 points, 16 above: one
@@ -17,11 +17,13 @@ bytes at a time into a staged panel (rows one after the other, the halves of
 a 4-column row swapped on every other group of four rows), read by column
 into the groups' registers and written back the same way; a row item is one
 row a group.  The model is held against ``np.fft`` in float64, and its
-column pass, its conjugate, its backward row pass and its forward row pass
-(with and without the store of s_j) against the JAX package's panel passes
-in interpret mode.  The kernels themselves are held
-against the plain versions on the card (the last test here, and
-chip_smoke.py's kernels_panel and kernels_panel_grad phases)."""
+column pass, its conjugate, its backward row pass, its forward row pass
+(with and without the store of s_j), its build column pass (the species'
+products summed in registers) and its fused row pass (V's row through one
+more inverse transform) against the JAX package's panel passes in interpret
+mode.  The kernels themselves are held against the plain versions on the
+card (the last tests here, and chip_smoke.py's kernels_panel,
+kernels_panel_grad and kernels_panel_stream phases)."""
 
 import re
 
@@ -255,6 +257,55 @@ def _row_pass(b, v, sigma, store=False):
     return (a, s) if store else a
 
 
+def _build_col_pass(gx, fp, chunk: int = 64):
+    """panel_wide_col_kernel's build modes: Fy^H(sum_s F_s Fy(gx_s)) of the
+    species planes gx (nsp, n, n) with the real factors fp (nsp, n, n) in
+    prepare_factors' layout, into one plane.  Per item of C columns (``chunk``
+    items at a time here) the species in turn: its item copied into a stage,
+    group g's column read into registers (layout 1), the forward transform,
+    times the factor at the rows of layout 3, added to the running sum in
+    registers; then one inverse transform of the sum, written to the stage
+    and stored."""
+    nsp, n = gx.shape[0], gx.shape[-1]
+    cols = _cols(n)
+    y, c, at = _fetch_map(n, cols)
+    rows1, rows3 = _pos(n, 1), _pos(n, 3)
+    out = np.empty((n, n), dtype=complex)
+    for first in range(0, n // cols, chunk):
+        c0 = cols * np.arange(first, min(first + chunk, n // cols))[:, None]
+        acc = None
+        for sp in range(nsp):
+            stage = np.full((len(c0), cols * n), np.nan, dtype=complex)
+            stage[:, at] = gx[sp][y, c0 + c]
+            stage[:, at + 1] = gx[sp][y, c0 + c + 1]
+            assert not np.isnan(stage).any()
+            x = np.stack([stage[:, _stage_at(rows1, g, cols)] for g in range(cols)], axis=1)
+            f = np.stack([fp[sp][rows3, (c0 + g)[:, :, None]] for g in range(cols)], axis=1)
+            z = _forward(n, x) * f
+            acc = z if acc is None else acc + z
+        x = _inverse(n, acc)
+        for g in range(cols):
+            stage[:, _stage_at(rows1, g, cols)] = x[:, g]
+        out[y, c0 + c] = stage[:, at]
+        out[y, c0 + c + 1] = stage[:, at + 1]
+    return out
+
+
+def _vfused_row_pass(vx, b, sigma):
+    """panel_wide_row_kernel's kVfused: a = Fx(t Fx^H(b)) of the waves b (B,
+    n, n), t = exp(i sigma V), V = Re(Fx^H(vx)).  Per row: vx's row in
+    layout 1, exchanged to layout 3 and through the inverse transform, its
+    real part kept in layout 1 and t formed once for all the waves; then
+    b's row as in the row pass."""
+    n = b.shape[-1]
+    rows1 = _pos(n, 1)
+    v = _inverse(n, _exchange(n, vx[:, rows1], 1, 3)).real  # (n rows, T, R)
+    x = _inverse(n, _exchange(n, b[..., rows1], 1, 3)) * np.exp(1j * sigma * v)
+    a = np.empty(b.shape, dtype=complex)
+    a[..., rows1] = _exchange(n, _forward(n, x), 3, 1)
+    return a
+
+
 # ---- the transform and the layouts against np.fft -------------------------------
 
 
@@ -389,6 +440,31 @@ def test_model_row_pass_is_the_plain_pass(n, waves):
     assert np.array_equal(_row_pass(b, v[1], SIGMA), a)
 
 
+@pytest.mark.parametrize("n,nsp", [(256, 1), (256, 2), (2048, 1), (2048, 2)])
+def test_model_build_col_pass_is_the_plain_pass(n, nsp):
+    """The model's build column pass against panel_build_colpass_ref in
+    complex128, one species (kColBuild) and two summed in registers
+    (kColBuildSum)."""
+    rng = np.random.default_rng(n + nsp)
+    gx, fp = _cplx(rng, nsp, n, n), rng.uniform(0, 1, (nsp, n, n))
+    got = _build_col_pass(gx, fp)
+    ref = ps.panel_build_colpass_ref(torch.as_tensor(gx), torch.as_tensor(fp)).numpy()
+    assert np.abs(got - ref).max() <= EXACT * np.abs(ref).max()
+
+
+@pytest.mark.parametrize("n,waves", [(256, 1), (256, 2), (2048, 1), (2048, 2)])
+def test_model_vfused_row_pass_is_the_plain_pass(n, waves):
+    """The model's fused row pass against panel_vfused_rowpass_ref in
+    complex128, V's x spectrum of a potential in [0, 2000) (phases up to 1.3
+    rad); with two waves V is built and t formed once for both."""
+    rng = np.random.default_rng(n + 11 * waves)
+    b = _cplx(rng, waves, n, n)
+    vx = np.fft.fft(rng.uniform(0, 2000, (n, n)), axis=-1)[:, _bitrev(n)] / n
+    got = _vfused_row_pass(vx, b, SIGMA)
+    ref = ps.panel_vfused_rowpass_ref(torch.as_tensor(vx), torch.as_tensor(b), SIGMA).numpy()
+    assert np.abs(got - ref).max() <= EXACT * np.abs(ref).max()
+
+
 # ---- the model's passes against the JAX package ---------------------------------
 
 
@@ -402,8 +478,10 @@ def _jax_order(n: int) -> np.ndarray:
 def jax_passes():
     """The JAX panel passes at 256^2 in interpret mode, the panel extents
     patched to 64 rows and 128 columns (as tests/test_torch_panel_grad.py
-    runs them): colpass, col_bwd, row_bwd_loop and the forward row passes
-    (panel_rowpass_stack, _panel_rowpass_mid_store) on one plane."""
+    runs them): colpass, col_bwd, row_bwd_loop, the forward row passes
+    (panel_rowpass_stack, _panel_rowpass_mid_store) on one plane, and the
+    streamed build's column pass (_panel_build_colpass, the species' planes
+    at once) and fused row pass (_panel_vfused_rowpass, one plane)."""
     import fdes_tpu.pallas.panel_scan as jps
 
     tabs = jps._tables(N_JAX)
@@ -432,7 +510,19 @@ def jax_passes():
         a = outs[0] + 1j * outs[1]
         return (a, outs[2] + 1j * outs[3]) if store else a
 
-    yield {"col": col, "row_bwd_loop": row_bwd_loop, "row": row}
+    def build_col(gx, ffp):
+        re, im = jps._panel_build_colpass(jnp.asarray(gx.real), jnp.asarray(gx.imag),
+                                          jnp.asarray(ffp), tabs, prec, True)
+        return np.asarray(re) + 1j * np.asarray(im)
+
+    def vfused_row(vx, b):
+        re, im = jps._panel_vfused_rowpass(jnp.asarray(vx.real), jnp.asarray(vx.imag),
+                                           jnp.asarray(b.real), jnp.asarray(b.imag), tabs, SIGMA,
+                                           prec, True)
+        return np.asarray(re) + 1j * np.asarray(im)
+
+    yield {"col": col, "row_bwd_loop": row_bwd_loop, "row": row, "build_col": build_col,
+           "vfused_row": vfused_row}
     mp.undo()
 
 
@@ -448,7 +538,9 @@ def jax_fields():
                       for t in ((0.02, 0.01), (-0.01, 0.03))]).astype(np.complex64)
     return {"x": _cplx(rng, 2, n, n).astype(np.complex64),
             "s": _cplx(rng, 2, n, n).astype(np.complex64),
-            "v": (rng.normal(size=(n, n)) * 25.0).astype(np.float32), "props": props}
+            "v": (rng.normal(size=(n, n)) * 25.0).astype(np.float32), "props": props,
+            "f": rng.uniform(0, 1, (2, n, n)).astype(np.float32),
+            "vx": (np.fft.fft(rng.uniform(0, 2000, (n, n)), axis=-1) / n).astype(np.complex64)}
 
 
 def _close(got, want, tol=ATOL):
@@ -533,6 +625,46 @@ def test_model_row_pass_equals_jax(jax_passes, jax_fields, waves, store):
         _close(got_s, np.stack(want_s))
 
 
+@pytest.mark.parametrize("nsp", [1, 2])
+def test_model_build_col_pass_equals_jax(jax_passes, jax_fields, nsp):
+    """The model's build column pass against JAX's _panel_build_colpass on
+    the same natural-order x spectra of nsp species and the same real factors
+    (natural in both axes), each placed in its package's order: x spectra and
+    the output's columns bit-reversed here and in JAX's digit order there,
+    the factors in both axes so (as prepare_factors' and _permuted_factors'
+    panels, tests/test_torch_streamed.py)."""
+    f = jax_fields
+    n = N_JAX
+    br, jo = _bitrev(n), _jax_order(n)
+    gx, fac = f["x"][:nsp], f["f"][:nsp]
+    out = jax_passes["build_col"](gx[..., jo], fac[:, jo[:, None], jo[None, :]])
+    nat = np.empty_like(out)
+    nat[:, jo] = out
+    got = _build_col_pass(gx[..., br].astype(np.complex128),
+                          fac[:, br[:, None], br[None, :]].astype(np.float64))
+    _close(got, nat[:, br])
+
+
+@pytest.mark.parametrize("waves", [1, 2])
+def test_model_vfused_row_pass_equals_jax(jax_passes, jax_fields, waves):
+    """The model's fused row pass against JAX's _panel_vfused_rowpass, a wave
+    at a time, V's x spectrum and the waves in each package's x-spectrum
+    order."""
+    f = jax_fields
+    n = N_JAX
+    br, jo = _bitrev(n), _jax_order(n)
+    x, vx = f["x"][:waves], f["vx"]
+    want = []
+    for k in range(waves):
+        out = jax_passes["vfused_row"](vx[:, jo], x[k][:, jo])
+        nat = np.empty_like(out)
+        nat[:, jo] = out
+        want.append(nat[:, br])
+    got = _vfused_row_pass(vx[:, br].astype(np.complex128), x[..., br].astype(np.complex128),
+                           SIGMA)
+    _close(got, np.stack(want))
+
+
 # ---- the route ---------------------------------------------------------------
 
 
@@ -543,7 +675,7 @@ def test_panel_route_is_the_table():
     entry names a route of the C entry points, whose codes match their
     enums, and each route's kernel is one the library builds."""
     assert set(ps.PANEL_ROUTE) == set(ps.SIZES)
-    assert ps.KINDS == ("col", "bwd_row", "row", "row_store")
+    assert ps.KINDS == ("col", "bwd_row", "row", "row_store", "build_col", "vfused_row")
     for n, rows in ps.PANEL_ROUTE.items():
         measured = sorted(rows)
         assert measured == [1, 2, 4, 8]
@@ -552,21 +684,25 @@ def test_panel_route_is_the_table():
             for b in range(1, 20):
                 want = rows[max(m for m in measured if m <= b)][k]
                 assert ps.panel_route(n, b, kind) == want and want in ps.ROUTES
-    for bad in ("fwd_row", "rows", "store"):
+    for bad in ("fwd_row", "rows", "store", "build", "vfused"):
         with pytest.raises(ValueError, match="kind must be"):
             ps.panel_route(2048, 1, bad)
     src = (_build.SRC_DIR / "panel_scan.cu").read_text()
     enum = re.search(r"enum Route \{ kRouteTile = (\d), kRouteWide = (\d) \}", src)
     assert enum and [int(g) for g in enum.groups()] == [ps.ROUTES[k] for k in ("tile", "wide")]
     for kernel in ("panel_col_kernel", "panel_wide_col_kernel", "panel_bwd_row_kernel",
-                   "panel_wide_bwd_row_kernel", "panel_row_kernel", "panel_wide_row_kernel"):
+                   "panel_wide_bwd_row_kernel", "panel_row_kernel", "panel_wide_row_kernel",
+                   "panel_build_col_kernel", "panel_vfused_row_kernel"):
         assert re.search(rf"__global__ void __launch_bounds__\([^)]*\)\s*{kernel}\(", src)
+    for mode in ("kColBuild", "kColBuildSum", "kVfused"):
+        assert re.search(rf"launch_wide_(col|row)<LOG2N, {mode}>", src)
     assert "panel_scan" in _build.sources()
 
 
 def test_route_argument_is_checked():
     """route= takes "tile" or "wide" and nothing else, on the CPU too: the
-    column, backward row and stack row passes."""
+    column, backward row and stack row passes and the streamed build's column
+    and fused row passes."""
     n = 256
     a = torch.zeros((1, n, n), dtype=torch.complex64)
     pp = torch.ones((n, n), dtype=torch.complex64)
@@ -584,6 +720,10 @@ def test_route_argument_is_checked():
             ps.panel_rowpass_stack(1, v, a, SIGMA, route=bad)
         with pytest.raises(ValueError, match="route must be"):
             ps.panel_rowpass_stack_store(1, v, a, SIGMA, route=bad)
+        with pytest.raises(ValueError, match="route must be"):
+            ps.panel_build_colpass(a, v[:1], route=bad)
+        with pytest.raises(ValueError, match="route must be"):
+            ps.panel_vfused_rowpass(a[0], a, SIGMA, route=bad)
 
 
 def test_wide_wrappers_count_their_own_launches():
@@ -613,6 +753,9 @@ def test_wide_wrappers_count_their_own_launches():
              ps.panel_rowpass_stack_ref(1, v, a, SIGMA)),
             (ps.panel_rowpass_stack_store(1, v, s, SIGMA, route=route),
              ps.panel_rowpass_stack_store_ref(1, v, s, SIGMA)),
+            (ps.panel_build_colpass(s, v, route=route), ps.panel_build_colpass_ref(s, v)),
+            (ps.panel_vfused_rowpass(a, s, SIGMA, route=route),
+             ps.panel_vfused_rowpass_ref(a, s, SIGMA)),
         ]
     for got, want in pairs:
         got, want = (got, want) if isinstance(got, tuple) else ((got,), (want,))
@@ -693,7 +836,7 @@ def test_wide_kernels_match_plain_on_card(cuda):
                 assert float((x - y).abs().max()) <= 2 * tol * float(y.abs().max())
             assert all(torch.equal(x, y) for x, y in zip(got, again))
         assert all(w.launches_by_route == {"tile": 0, "wide": w.launches} for w in ps.ROUTED)
-        assert [w.launches for w in ps.ROUTED] == [1, 1, 2, 2, 2, 0, 0]
+        assert [w.launches for w in ps.ROUTED] == [1, 1, 2, 2, 2, 0, 0, 0, 0]
 
 
 def test_wide_row_kernel_matches_plain_on_card(cuda):
@@ -717,4 +860,38 @@ def test_wide_row_kernel_matches_plain_on_card(cuda):
             ps._launch("fdes_panel_rowpass_stack_c64", cuda, n, 2, v.data_ptr(), flat.data_ptr(),
                        flat.data_ptr(), None, n * n, SIGMA, waves, ps.ROUTES["wide"])
             assert torch.equal(flat, got)
-            assert [w.launches_by_route for w in ps.ROUTED[-2:]] == [{"tile": 0, "wide": 1}] * 2
+            assert [w.launches_by_route for w in (ps.panel_rowpass_stack,
+                                                   ps.panel_rowpass_stack_store)] == [
+                {"tile": 0, "wide": 1}] * 2
+
+
+def test_wide_stream_kernels_match_plain_on_card(cuda):
+    """The wide build column pass (one species: kColBuild; two and four summed
+    in registers: kColBuildSum) and the wide fused row pass (one and two
+    waves, in place as the streamed rollout runs it too) against the plain
+    versions at every size; each launch counted on its wrapper under
+    "wide"."""
+    tol = 2e-6
+    for n in ps.SIZES:
+        rng = np.random.default_rng(n + 3)
+        for nsp in (1, 2, 4):
+            gx = torch.as_tensor(_cplx(rng, nsp, n, n).astype(np.complex64)).to(cuda)
+            fp = torch.as_tensor(rng.uniform(0, 1, (nsp, n, n)).astype(np.float32)).to(cuda)
+            ps.reset_launches()
+            want = ps.panel_build_colpass_ref(gx, fp)
+            got = ps.panel_build_colpass(gx, fp, route="wide")
+            assert float((got - want).abs().max()) <= tol * float(want.abs().max())
+            assert ps.panel_build_colpass.launches_by_route == {"tile": 0, "wide": 1}
+        vx = torch.as_tensor((np.fft.fft(rng.uniform(0, 2000, (n, n)), axis=-1)[:, _bitrev(n)]
+                              / n).astype(np.complex64)).to(cuda)
+        for waves in (1, 2):
+            b = torch.as_tensor(_cplx(rng, waves, n, n).astype(np.complex64)).to(cuda)
+            ps.reset_launches()
+            want = ps.panel_vfused_rowpass_ref(vx, b, SIGMA)
+            got = ps.panel_vfused_rowpass(vx, b, SIGMA, route="wide")
+            assert float((got - want).abs().max()) <= tol * float(want.abs().max())
+            flat = b.clone()
+            ps._launch("fdes_panel_vfused_rowpass_c64", cuda, n, vx.data_ptr(), flat.data_ptr(),
+                       flat.data_ptr(), SIGMA, waves, ps.ROUTES["wide"])
+            assert torch.equal(flat, got)
+            assert ps.panel_vfused_rowpass.launches_by_route == {"tile": 0, "wide": 1}
