@@ -74,11 +74,20 @@ __device__ __forceinline__ float2 transmit(float2 p, float phase, float damp) {
   return make_float2(p.x * c - p.y * s, p.x * s + p.y * c);
 }
 // a, b (elements 2i, 2i + 1) times exp(i sigma v), damped by exp(-sigma vi)
-// when ABS; v and vi point at element 2i's potentials.
-template <bool ABS>
+// when ABS; v and vi point at element 2i's potentials.  VC: v points at
+// element 2i of a complex plane (float2 values, 4i floats in), whose real
+// parts are the potentials.
+template <bool ABS, bool VC = false>
 __device__ __forceinline__ void transmit_pair(float2* a, float2* b, const float* __restrict__ v,
                                               const float* __restrict__ vi, float sigma) {
-  const float2 vv = *reinterpret_cast<const float2*>(v);
+  static_assert(!(ABS && VC), "a complex plane's real part is a real potential");
+  float2 vv;
+  if constexpr (VC) {
+    const float4 z = *reinterpret_cast<const float4*>(v);
+    vv = make_float2(z.x, z.z);
+  } else {
+    vv = *reinterpret_cast<const float2*>(v);
+  }
   if constexpr (ABS) {
     const float2 ww = *reinterpret_cast<const float2*>(vi);
     *a = transmit(*a, sigma * vv.x, sigma * ww.x);
@@ -282,18 +291,20 @@ __device__ __forceinline__ void store_pair(float2* p, float2 a, float2 b) {
 // order between the inverse and the forward x transform, and only there;
 // pre != nullptr receives it before the transmit (a checkpoint of psi_j),
 // post != nullptr after it (s_j = t_j * psi_j), and dst == nullptr skips the
-// final store.
-template <int LOG2N, bool STORES = false, bool ABS = false>
+// final store.  VC: v is a complex plane whose real parts are the
+// potentials (the streamed build's V_0, transmit_pair).
+template <int LOG2N, bool STORES = false, bool ABS = false, bool VC = false>
 __device__ void row_tile(float2* tile, const float2* tw, const float2* src, float2* dst,
                          const float* __restrict__ v, float sigma, bool inverse, bool forward,
                          float2* pre = nullptr, float2* post = nullptr,
                          const float* __restrict__ vi = nullptr) {
+  constexpr int kVPair = VC ? 4 : 2;  // floats of v between elements 2i and 2i + 2
   const bool transmit_on_load = v != nullptr && !inverse;
   for (int i = threadIdx.x; i < kTile / 2; i += kThreads) {
     float2 a, b;
     load_pair(src + 2 * i, &a, &b);
     if (STORES && !inverse && pre != nullptr) store_pair(pre + 2 * i, a, b);
-    if (transmit_on_load) transmit_pair<ABS>(&a, &b, v + 2 * i, vi + 2 * i, sigma);
+    if (transmit_on_load) transmit_pair<ABS, VC>(&a, &b, v + kVPair * i, vi + 2 * i, sigma);
     if (STORES && !inverse && post != nullptr) store_pair(post + 2 * i, a, b);
     tile[pad(2 * i)] = a;
     tile[pad(2 * i + 1)] = b;
@@ -307,7 +318,7 @@ __device__ void row_tile(float2* tile, const float2* tw, const float2* src, floa
         float2 b = tile[pad(2 * i + 1)];
         if (STORES && pre != nullptr) store_pair(pre + 2 * i, a, b);
         if (v != nullptr) {
-          transmit_pair<ABS>(&a, &b, v + 2 * i, vi + 2 * i, sigma);
+          transmit_pair<ABS, VC>(&a, &b, v + kVPair * i, vi + 2 * i, sigma);
           tile[pad(2 * i)] = a;
           tile[pad(2 * i + 1)] = b;
         }

@@ -18,7 +18,7 @@
 //   panel_col_kernel<L> (conj_p true)       _col_bwd_kernel            (:626)
 //   panel_bwd_row_kernel<L, kBwdLoop>       _row_bwd_loop_kernel       (:650)
 //   panel_bwd_row_kernel<L, kBwdLast>       _row_bwd_last_kernel       (:679)
-//   panel_g_row_kernel<L>                   _row_g_kernel              (:1045)
+//   panel_wide_g_row_kernel<L>              _row_g_kernel              (:1045)
 //   panel_build_col_kernel<L>               _col_build_kernel          (:1058)
 //   panel_vfused_row_kernel<L>              _row_vfused_kernel         (:1086)
 // and, redesigned for the H100 beside the first kernels of those rows,
@@ -33,11 +33,14 @@
 // (kernels/panel_scan.PANEL_ROUTE picks one kernel of each pair before the
 // launch, by size and waves; the entry points take the choice as `route`),
 // and the whole loops _run_single / _run_single_abs (the rollout),
-// _panel_loop_fwd and _panel_loop_bwd (the store-s gradient) as
-// fdes_panel_scan_c64, fdes_panel_scan_store_c64 and
-// fdes_panel_scan_bwd_store_c64, which issue every pass of a loop from C on
-// the caller's stream.  The streamed rollout (panel_streamed) is a Python
-// loop over slices: its scatter of atoms is tensor code between the passes.
+// _panel_loop_fwd and _panel_loop_bwd (the store-s gradient) and
+// multislice_panel_streamed's scan (the streamed rollout, :1245-1255) as
+// fdes_panel_scan_c64, fdes_panel_scan_store_c64,
+// fdes_panel_scan_bwd_store_c64 and fdes_panel_streamed_c64, which issue
+// every pass of a loop from C on the caller's stream.  The streamed
+// rollout's scatter of atoms (fdes_tpu/potential.py scatter_slice_deltas, an
+// XLA scatter-add there) is panel_scatter_kernel, behind a cudaMemsetAsync of
+// the delta planes.
 //
 // The field stays x-transformed between slices (panel_scan.py:16-34): with
 // a_j = Fx(t_j psi_j), the x spectrum in bit-reversed order,
@@ -91,7 +94,8 @@
 // bits.  No grid-wide barrier: the stream orders the passes.
 //
 // The streamed build (panel_streamed): V_j never exists as a stack.  From
-// the real per-species delta planes g_s of slice j (the scatter of its atoms)
+// the real per-species delta planes g_s of slice j (the scatter of its atoms,
+// panel_scatter_kernel)
 //
 //   row 27     G_s  = Fx(g_s)                                  g row pass, all species
 //   row 28     Vx   = Fy^H(sum_s F_s * Fy(G_s))                build column pass
@@ -169,6 +173,14 @@
 // in the group's registers, its real part V kept in layout 1 (where b's row
 // leaves its own inverse transform) and t formed from it once a row.
 //
+// Row 27 (bound 15 us at 2048^2, 60 us at 4096^2: 4 bytes in and 8 out a
+// pixel a species) is a sibling of the wide row kernel: the reals of a row
+// loaded in layout 1, the transform in the group's registers, one exchange
+// back to layout 1.  It replaced a kernel of shared-memory tiles that ran at
+// 3.2x and 2.9x the bound (a block barrier after every radix-2 stage, a zero
+// imaginary part written into the tile) and was slower at every measured
+// size and species count.
+//
 // Layout: PyTorch's interleaved complex64 (float2), C-contiguous, 16-byte
 // aligned; N in {256, 512, 1024, 2048, 4096}; planes are (nwaves, N, N);
 // offsets of waves and slices are 64-bit (a 4096^2 x 512 stack holds
@@ -220,9 +232,10 @@ int blocks_for(int64_t ntiles) {
 // A row pass over every tile of nwaves planes (fused_fft.cuh's row_tile).
 // vr, vi: one (N, N) plane of potentials shared by the waves (the wrapper
 // points them at slice j of a stack); unused by kFinal and kFwd, vi unused
-// unless ABS.  s: the store modes' s plane of wave 0, s_wave_stride elements
-// to the next wave's.
-template <int LOG2N, int MODE, bool ABS>
+// unless ABS.  VC: vr is a complex (N, N) plane (float2), its real parts the
+// potentials (the streamed rollout's init from V_0 = Fx^H(vx)).  s: the store
+// modes' s plane of wave 0, s_wave_stride elements to the next wave's.
+template <int LOG2N, int MODE, bool ABS, bool VC = false>
 __global__ void __launch_bounds__(kThreads)
 panel_row_kernel(const float2* src, float2* dst, const float* __restrict__ vr,
                  const float* __restrict__ vi, float2* s, int64_t s_wave_stride, float sigma,
@@ -238,10 +251,11 @@ panel_row_kernel(const float2* src, float2* dst, const float* __restrict__ vr,
   __syncthreads();
   for (int64_t t = blockIdx.x; t < nwaves * kTiles; t += gridDim.x) {
     const int64_t r = (t % kTiles) * kTile;
-    row_tile<LOG2N, kStore, ABS>(tile, tw, src + t * kTile, dst + t * kTile,
-                                 kTransmit ? vr + r : nullptr, sigma, kInverse, MODE != kFinal,
-                                 nullptr, kStore ? s + (t / kTiles) * s_wave_stride + r : nullptr,
-                                 ABS ? vi + r : nullptr);
+    row_tile<LOG2N, kStore, ABS, VC>(tile, tw, src + t * kTile, dst + t * kTile,
+                                     kTransmit ? vr + (VC ? 2 : 1) * r : nullptr, sigma, kInverse,
+                                     MODE != kFinal, nullptr,
+                                     kStore ? s + (t / kTiles) * s_wave_stride + r : nullptr,
+                                     ABS ? vi + r : nullptr);
   }
 }
 
@@ -796,31 +810,77 @@ panel_wide_row_kernel(const float2* src, float2* dst, const float* __restrict__ 
   }
 }
 
-// Row 27: the forward x transform of nplanes real (N, N) planes g (the
-// species' delta planes of one slice) into complex dst, x in bit-reversed
-// order; the imaginary parts are never loaded.
+// Row 27: the forward x transform of the real rows of nplanes (N, N)
+// planes (the species' delta planes of one slice) into complex dst, x in
+// bit-reversed order (the build column pass's input), one row a group,
+// the rows of all the planes spread over the blocks as in the row kernels
+// above.  A group holds its row's reals in layout 1 (4 bytes a value, 128
+// contiguous bytes a warp instruction), sets the imaginary parts to 0 in
+// registers, runs the forward transform and the exchange from layout 3 back
+// to layout 1, and stores 8 bytes a value (256 contiguous bytes a warp
+// instruction): one exchange past the transform's two, no transmit, no V.
+// The reals of the group's next row are loaded before the transform of this
+// one, so that their loads are in flight while it runs.
 template <int LOG2N>
-__global__ void __launch_bounds__(kThreads)
-panel_g_row_kernel(const float* __restrict__ g, float2* dst, int64_t nplanes) {
-  extern __shared__ float2 smem[];
-  float2* tile = smem;
-  float2* tw = smem + kTilePadded;
-  init_twiddles<LOG2N>(tw);
+__global__ void __launch_bounds__(kWideRowThreads, 2)
+panel_wide_g_row_kernel(const float* __restrict__ planes, float2* dst, int64_t nplanes) {
+  using X = Rounds<LOG2N>;
+  constexpr int N = X::N;
+  constexpr int R = X::R;
+  constexpr int kGroups = kWideRowThreads / X::T;
+  extern __shared__ float4 wide_smem[];
+  float2* tw = reinterpret_cast<float2*>(wide_smem);
+  init_staged_twiddles<LOG2N, kWideRowThreads>(tw);
   __syncthreads();
-  for (int64_t t = blockIdx.x; t < nplanes * kTilesPerWave<LOG2N>; t += gridDim.x) {
-    const float* src = g + t * kTile;
-    for (int i = threadIdx.x; i < kTile / 2; i += kThreads) {
-      const float2 z = *reinterpret_cast<const float2*>(src + 2 * i);
-      tile[pad(2 * i)] = make_float2(z.x, 0.0f);
-      tile[pad(2 * i + 1)] = make_float2(z.y, 0.0f);
+  const int group = threadIdx.x / X::T;
+  const Group g{static_cast<int>(threadIdx.x % X::T), 1 + group, tw + N + group * X::kBuf};
+  const int64_t rows = nplanes * N;
+  const int64_t step = static_cast<int64_t>(gridDim.x) * kGroups;
+  int64_t y = blockIdx.x + static_cast<int64_t>(group) * gridDim.x;
+  float re[R];  // the reals of row y, loaded one iteration ahead
+  if (y < rows) {
+#pragma unroll
+    for (int m = 0; m < R; ++m) re[m] = __ldg(planes + y * N + rounds_pos<LOG2N, 1>(g.t, m));
+  }
+  for (; y < rows; y += step) {
+    float2 x[R];
+#pragma unroll
+    for (int m = 0; m < R; ++m) x[m] = make_float2(re[m], 0.0f);
+    if (y + step < rows) {
+#pragma unroll
+      for (int m = 0; m < R; ++m) {
+        re[m] = __ldg(planes + (y + step) * N + rounds_pos<LOG2N, 1>(g.t, m));
+      }
     }
-    __syncthreads();
-    fft_forward<LOG2N, true>(tile, tw);
-    float2* out = dst + t * kTile;
-    for (int i = threadIdx.x; i < kTile / 2; i += kThreads) {
-      store_pair(out + 2 * i, tile[pad(2 * i)], tile[pad(2 * i + 1)]);
+    rounds_forward<LOG2N>(x, tw, g);
+    rounds_exchange<LOG2N, 3, 1>(x, g);
+    float2* out = dst + y * N;
+#pragma unroll
+    for (int m = 0; m < R; ++m) out[rounds_pos<LOG2N, 1>(g.t, m)] = x[m];
+  }
+}
+
+// The streamed build's scatter: g[idx[k]] += val[k] for the count corners of
+// one slice (the atoms' bilinear corners, potential.bilinear_corners), one
+// thread a corner, by atomicAdd into g, which the caller zeroes first
+// (cudaMemsetAsync).  Corners that meet on a pixel add in no fixed order.
+// An index outside the g_elems of g (a species index past the planes: the
+// corners wrap in x and y) is not written: it sets g[0] to NaN, so that the
+// planes and every pass after them come out NaN, checked on the card with
+// no synchronisation of the host.
+// Bound: the zeroed planes (4 bytes a pixel a species) and 12 bytes a corner.
+__global__ void __launch_bounds__(kThreads)
+panel_scatter_kernel(const int64_t* __restrict__ idx, const float* __restrict__ val, float* g,
+                     int64_t count, int64_t g_elems) {
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * kThreads;
+  for (int64_t k = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x; k < count;
+       k += stride) {
+    const int64_t i = __ldg(idx + k);
+    if (i >= 0 && i < g_elems) {
+      atomicAdd(g + i, __ldg(val + k));
+    } else {
+      atomicExch(g, __int_as_float(0x7fc00000));  // a quiet NaN; NaN + x stays NaN
     }
-    __syncthreads();  // the next tile reuses the shared memory
   }
 }
 
@@ -943,10 +1003,10 @@ int launch(Kernel* kernel, int64_t ntiles, size_t bytes, cudaStream_t stream, Ar
   return cudaGetLastError();
 }
 
-template <int LOG2N, int MODE, bool ABS = false>
+template <int LOG2N, int MODE, bool ABS = false, bool VC = false>
 int launch_row(const float2* src, float2* dst, const float* vr, const float* vi, float2* s,
                int64_t s_wave_stride, float sigma, int64_t nwaves, cudaStream_t stream) {
-  return launch(panel_row_kernel<LOG2N, MODE, ABS>, nwaves * kTilesPerWave<LOG2N>,
+  return launch(panel_row_kernel<LOG2N, MODE, ABS, VC>, nwaves * kTilesPerWave<LOG2N>,
                 row_smem_bytes<LOG2N>(), stream, src, dst, vr, vi, s, s_wave_stride, sigma,
                 nwaves);
 }
@@ -1008,10 +1068,11 @@ int launch_col_route(int route, const float2* src, float2* dst, const float2* pr
   }
 }
 
-// Blocks of a wide row kernel's launch (backward or forward): every resident
-// block, at most one a row group; sets the kernel's shared-memory attribute.
+// Blocks of a wide row kernel's launch over `rows` rows (backward or forward;
+// N, one plane, by default): every resident block, at most one a row group;
+// sets the kernel's shared-memory attribute.
 template <int LOG2N, typename Kernel>
-int wide_row_blocks(Kernel* kernel, int* blocks) {
+int wide_row_blocks(Kernel* kernel, int* blocks, int64_t rows = int64_t{1} << LOG2N) {
   constexpr size_t kBytes = wide_row_smem_bytes<LOG2N>();
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kBytes);
@@ -1022,8 +1083,8 @@ int wide_row_blocks(Kernel* kernel, int* blocks) {
   if (err != cudaSuccess) return err;
   if (resident < 1) return cudaErrorLaunchOutOfResources;
   constexpr int kGroups = kWideRowThreads / Rounds<LOG2N>::T;
-  constexpr int kItems = ((1 << LOG2N) + kGroups - 1) / kGroups;
-  *blocks = kItems < resident ? kItems : resident;
+  const int64_t items = (rows + kGroups - 1) / kGroups;
+  *blocks = static_cast<int>(items < resident ? items : resident);
   return cudaSuccess;
 }
 
@@ -1101,6 +1162,28 @@ int launch_vfused_route(int route, const float2* vx, const float2* src, float2* 
     default:
       return cudaErrorInvalidValue;
   }
+}
+
+// Row 27: the g row kernel over the rows of all nplanes planes.
+template <int LOG2N>
+int launch_g_row(const float* g, float2* out, int64_t nplanes, cudaStream_t stream) {
+  auto* kernel = panel_wide_g_row_kernel<LOG2N>;
+  int blocks = 0;
+  const int err = wide_row_blocks<LOG2N>(kernel, &blocks, nplanes << LOG2N);
+  if (err != cudaSuccess) return err;
+  kernel<<<blocks, kWideRowThreads, wide_row_smem_bytes<LOG2N>(), stream>>>(g, out, nplanes);
+  return cudaGetLastError();
+}
+
+// The scatter of one slice: g (g_elems floats) zeroed, then count corners
+// added (at least one block, so that every call launches the kernel once).
+int launch_scatter(const int64_t* idx, const float* val, int64_t count, float* g, int64_t g_elems,
+                   cudaStream_t stream) {
+  cudaError_t err = cudaMemsetAsync(g, 0, g_elems * sizeof(float), stream);
+  if (err != cudaSuccess) return err;
+  const int blocks = count > 0 ? blocks_for((count + kThreads - 1) / kThreads) : 1;
+  panel_scatter_kernel<<<blocks, kThreads, 0, stream>>>(idx, val, g, count, g_elems);
+  return cudaGetLastError();
 }
 
 template <int LOG2N>
@@ -1199,6 +1282,55 @@ int launch_scan_bwd(const float2* s, const float* v, const float2* prop, const f
   return err;
 }
 
+// The streamed rollout (panel_streamed, a real V): per slice j the scatter of
+// its corners (idx, val + j * corners) into the nsp delta planes g, row 27
+// into gx, row 28 into vx; slice 0's V_0 = Re(Fx^H(vx)) as a final row pass
+// into gx's first plane and the init reading its real parts; for j > 0 the
+// column pass and row 29 (the vx of slice j), every pass in place on out;
+// then the closing column pass and final.  The routes: row 28's, the column
+// pass's and row 29's kernels (Route).
+template <int LOG2N>
+int launch_streamed(const float2* psi0, const int64_t* idx, const float* val, int64_t corners,
+                    int nslices, const float* fp, int nsp, const float2* prop, float2* out,
+                    float* g, float2* gx, float2* vx, float sigma, int64_t nwaves,
+                    int64_t p_wave_stride, int build_route, int col_route, int vfused_route,
+                    cudaStream_t stream) {
+  constexpr int64_t kPlane = int64_t{1} << (2 * LOG2N);
+  auto build = [&](int64_t j) {
+    int err = launch_scatter(idx + j * corners, val + j * corners, corners, g, nsp * kPlane,
+                             stream);
+    if (err == cudaSuccess) err = launch_g_row<LOG2N>(g, gx, nsp, stream);
+    if (err == cudaSuccess) {
+      err = launch_build_col_route<LOG2N>(build_route, gx, fp, vx, nsp, stream);
+    }
+    return err;
+  };
+  int err = build(0);
+  if (err == cudaSuccess) {
+    err = launch_row<LOG2N, kFinal>(vx, gx, nullptr, nullptr, nullptr, 0, 0.0f, 1, stream);
+  }
+  if (err == cudaSuccess) {
+    err = launch_row<LOG2N, kInit, false, true>(psi0, out, reinterpret_cast<const float*>(gx),
+                                                nullptr, nullptr, 0, sigma, nwaves, stream);
+  }
+  for (int64_t j = 1; err == cudaSuccess && j < nslices; ++j) {
+    err = launch_col_route<LOG2N>(col_route, out, out, prop, p_wave_stride, false, nwaves,
+                                  stream);
+    if (err == cudaSuccess) err = build(j);
+    if (err == cudaSuccess) {
+      err = launch_vfused_route<LOG2N>(vfused_route, vx, out, out, sigma, nwaves, stream);
+    }
+  }
+  if (err == cudaSuccess) {
+    err = launch_col_route<LOG2N>(col_route, out, out, prop, p_wave_stride, false, nwaves,
+                                  stream);
+  }
+  if (err == cudaSuccess) {
+    err = launch_row<LOG2N, kFinal>(out, out, nullptr, nullptr, nullptr, 0, 0.0f, nwaves, stream);
+  }
+  return err;
+}
+
 // Registers, dynamic shared bytes, local bytes and resident blocks of a
 // kernel launched with `threads` a block and `bytes` of dynamic shared memory.
 template <typename Kernel>
@@ -1225,8 +1357,6 @@ int kernel_info(int device, int which, int* out) {
       return info_of(panel_col_kernel<LOG2N>, col_smem_bytes<LOG2N>(), device, out);
     case 2:
       return info_of(panel_bwd_row_kernel<LOG2N, kBwdLoop>, row_smem_bytes<LOG2N>(), device, out);
-    case 3:
-      return info_of(panel_g_row_kernel<LOG2N>, row_smem_bytes<LOG2N>(), device, out);
     case 4:
       return info_of(panel_build_col_kernel<LOG2N>, col_smem_bytes<LOG2N>(), device, out);
     case 5:
@@ -1255,6 +1385,9 @@ int kernel_info(int device, int which, int* out) {
       return info_of(panel_wide_col_kernel<LOG2N, kWideCols<LOG2N>, kColBuildSum>,
                      wide_col_smem_bytes<LOG2N, kWideCols<LOG2N>>(), device, out,
                      kWideColThreads<LOG2N, kWideCols<LOG2N>>);
+    case 13:
+      return info_of(panel_wide_g_row_kernel<LOG2N>, wide_row_smem_bytes<LOG2N>(), device, out,
+                     kWideRowThreads);
     default:
       return cudaErrorInvalidValue;
   }
@@ -1430,8 +1563,45 @@ int fdes_panel_g_rowpass_c64(int device, int n, const void* g, void* out, int64_
                              void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
-  FDES_DISPATCH_PANEL_N(n, launch(panel_g_row_kernel<L>, nplanes * kTilesPerWave<L>,
-                                  row_smem_bytes<L>(), st(stream), f1(g), o2(out), nplanes))
+  FDES_DISPATCH_PANEL_N(n, launch_g_row<L>(f1(g), o2(out), nplanes, st(stream)))
+}
+
+// The streamed build's scatter: g (g_elems floats) = 0, then g[idx[k]] +=
+// val[k] for k < count (int64 indices, float32 weights; an index outside g
+// makes g[0] NaN).
+int fdes_panel_scatter_c64(int device, const void* idx, const void* val, int64_t count, void* g,
+                           int64_t g_elems, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  return launch_scatter(static_cast<const int64_t*>(idx), f1(val), count, static_cast<float*>(g),
+                        g_elems, st(stream));
+}
+
+// The streamed rollout of nslices >= 1 slices: psi0 (nwaves, n, n) -> out,
+// V_j built per slice from idx, val (nslices, corners) (flat indices into nsp
+// (n, n) delta planes, and weights) and fp (nsp, n, n) (prepare_factors);
+// prop (n, n) or one per wave (p_wave_stride n^2); scratch g (nsp n^2
+// floats), gx (nsp, n, n) and vx (n, n) complex.  build_route, col_route,
+// vfused_route: row 28's, the column pass's and row 29's kernels (Route: 0
+// tile, 1 wide).
+int fdes_panel_streamed_c64(int device, int n, const void* psi0, const void* idx,
+                            const void* val, int64_t corners, int nslices, const void* fp, int nsp,
+                            const void* prop, void* out, void* g, void* gx, void* vx,
+                            double sigma, int64_t nwaves, int64_t p_wave_stride,
+                            int build_route, int col_route, int vfused_route, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  if (nslices < 1 || nsp < 1 || corners < 0) return cudaErrorInvalidValue;
+  const int routes[] = {build_route, col_route, vfused_route};
+  for (int route : routes) {
+    if (route != kRouteTile && route != kRouteWide) return cudaErrorInvalidValue;
+  }
+  FDES_DISPATCH_PANEL_N(n, launch_streamed<L>(c2(psi0), static_cast<const int64_t*>(idx), f1(val),
+                                              corners, nslices, f1(fp), nsp, c2(prop), o2(out),
+                                              static_cast<float*>(g), o2(gx), o2(vx),
+                                              static_cast<float>(sigma), nwaves, p_wave_stride,
+                                              build_route, col_route, vfused_route,
+                                              st(stream)))
 }
 
 // Row 28: gx (nsp, n, n) -> out (n, n) = Fy^H(sum_s fp_s * Fy(gx_s)), fp the
@@ -1459,12 +1629,12 @@ int fdes_panel_vfused_rowpass_c64(int device, int n, const void* vx, const void*
 
 // out[0..3] = registers per thread, dynamic shared bytes, local bytes per
 // thread and blocks resident at once on the device, of the row kernel
-// (which 0), the column kernel (1), the backward row kernel (2), the g row
-// kernel (3), the build column kernel (4), the fused row kernel (5), the
+// (which 0), the column kernel (1), the backward row kernel (2), the build
+// column kernel (4), the fused row kernel (5), the
 // wide column kernel (6), the wide backward row kernel (7), the wide row
 // kernel of row 15 (8) or of row 23 (9), the wide column kernel's build of
-// one species (10) or of several (12), or the wide row kernel of row 29
-// (11), for size n.
+// one species (10) or of several (12), the wide row kernel of row 29 (11)
+// or the wide g row kernel (13), for size n.
 int fdes_panel_kernel_info(int device, int n, int which, int* out) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;

@@ -47,8 +47,10 @@ with s_j = t_j psi_j kept by the forward.  Its passes:
 
 The streamed build (``panel_streamed``, forward only): V is built slice by
 slice between the passes and the (S, n, n) stack never exists.  Per slice
-the atoms are scattered as per-species delta planes g_s (tensor code), then
 
+* ``panel_scatter(idx, val, nsp, n)`` -> the per-species delta planes g_s: the
+  atoms' bilinear corners added into zeroed planes  (the XLA scatter-add of
+  ``fdes_tpu.potential.scatter_slice_deltas``; no Pallas kernel there);
 * ``panel_g_rowpass(g)`` -> Fx(g_s) for all species in one launch  (``_row_g_kernel``);
 * ``panel_build_colpass(gx, factors)`` -> Vx = Fy^H(sum_s F_s Fy(gx_s)), V in
   x spectrum  (``_col_build_kernel``; routed); ``prepare_factors`` gathers
@@ -57,31 +59,33 @@ the atoms are scattered as per-species delta planes g_s (tensor code), then
 * ``panel_vfused_rowpass(vx, b, sigma)`` -> Fx(t Fx^H(b)), V = Re(Fx^H(vx))
   built in the same launch  (``_row_vfused_kernel``; routed).
 
-Slice 0's V goes through ``panel_final`` and ``panel_init``; a rollout of S
-slices is S launches each of the g row pass, the build column pass and the
-column pass, S - 1 fused row passes and three more (2 ``panel_final``, 1
-``panel_init``).
+Slice 0's V goes through ``panel_final`` and ``panel_init`` (reading the
+real part of its complex plane); a rollout of S slices is S launches each of
+the scatter, the g row pass, the build column pass and the column pass, S - 1
+fused row passes and three more (2 ``panel_final``, 1 ``panel_init``), all
+issued from C in one call on the card (``fdes_panel_streamed_c64``).
 
 The column pass (and its conjugate), the backward row passes, the row
-passes with V_j of a real V (rows 15 and 23) and the streamed build's column
-and fused row passes (rows 28 and 29) run on one of two kernels each, picked
-before the launch by ``panel_route(n, B, kind)`` from ``PANEL_ROUTE``, a
-table of rows measured on the H100 (B the waves, for the build column pass
-the species): "tile" (``panel_col_kernel``, ``panel_bwd_row_kernel``,
-``panel_row_kernel``, ``panel_build_col_kernel``,
+passes with V_j of a real V (rows 15 and 23) and the streamed build's
+column and fused row passes (rows 28 and 29) run on one of two kernels
+each, picked before the launch by ``panel_route(n, B, kind)`` from
+``PANEL_ROUTE``, a table of rows measured on the H100 (B the waves, for the
+build column pass the species): "tile" (``panel_col_kernel``,
+``panel_bwd_row_kernel``, ``panel_row_kernel``, ``panel_build_col_kernel``,
 ``panel_vfused_row_kernel``: tiles through shared memory) or "wide"
 (``panel_wide_col_kernel``, ``panel_wide_bwd_row_kernel``,
-``panel_wide_row_kernel``: each 1-D transform in the registers of a group of
-threads, three rounds of radix-2 stages between two exchanges; rows 28 and
-29 are modes of the wide column and row kernels).  The other row passes
-(init, final, the seed, the absorptive ones, ``panel_rowpass``, row 27) run
-the tile kernel.  The whole loops take the choice into C with them.
-``_colpass``, the backward row passes, the two stack row passes and rows 28
-and 29 take ``route=`` to name a kernel for measurements; it is checked,
-and a launch the card refuses raises with nothing run in its place.  The
-nine wrappers of these passes (``ROUTED``) count their launches in
-``launches`` and by kernel in ``launches_by_route`` ({"tile": n, "wide":
-m}).
+``panel_wide_row_kernel``: each 1-D transform in the registers of a group
+of threads, three rounds of radix-2 stages between two exchanges; rows 28
+and 29 are modes of the wide column and row kernels).  The g row pass (row
+27) has one kernel, ``panel_wide_g_row_kernel``, on the same transform.
+The other row passes (init, final, the seed, the absorptive ones,
+``panel_rowpass``) run the tile kernel.  The whole loops take the choice
+into C with them.  ``_colpass``, the backward row passes, the two stack row
+passes and rows 28 and 29 take ``route=`` to name a kernel for
+measurements; it is checked, and a launch the card refuses raises with
+nothing run in its place.  The nine wrappers of these passes (``ROUTED``)
+count their launches in ``launches`` and by kernel in
+``launches_by_route`` ({"tile": n, "wide": m}).
 
 ``panel_diff_apply`` differentiates the loop: the store pair while the s
 stack (B*S*n*n*8 bytes) fits ``adjoint_scan.STORE_CAP_BYTES``, past it
@@ -103,9 +107,9 @@ goes to the plain PyTorch version (``<wrapper>_ref``: ``torch.fft`` in the
 same layout, any complex dtype); a CUDA tensor goes to the kernel or the
 wrapper raises; complex128 on the card raises ``TypeError``.
 ``<wrapper>.launches`` counts the kernel launches a wrapper made on the card:
-one per call of a pass wrapper; ``panel_scan``, ``panel_scan_store`` and
-``panel_scan_bwd_store`` add their loops' passes to the pass wrappers' counts
-and count their own calls.
+one per call of a pass wrapper; ``panel_scan``, ``panel_scan_store``,
+``panel_scan_bwd_store`` and ``panel_streamed`` add their loops' passes to the
+pass wrappers' counts and count their own calls.
 """
 
 from __future__ import annotations
@@ -145,6 +149,11 @@ _ARGTYPES = {
         _INT, _INT, _P, _P, _P, _P, _P, _P, _D, _I64, _INT, _I64, _INT, _INT, _P,
     ],
     "fdes_panel_g_rowpass_c64": [_INT, _INT, _P, _P, _I64, _P],
+    "fdes_panel_scatter_c64": [_INT, _P, _P, _I64, _P, _I64, _P],
+    "fdes_panel_streamed_c64": [
+        _INT, _INT, _P, _P, _P, _I64, _INT, _P, _INT, _P, _P, _P, _P, _P, _D, _I64, _I64, _INT,
+        _INT, _INT, _P,
+    ],
     "fdes_panel_build_colpass_c64": [_INT, _INT, _P, _P, _P, _INT, _INT, _P],
     "fdes_panel_vfused_rowpass_c64": [_INT, _INT, _P, _P, _P, _D, _I64, _INT, _P],
     "fdes_panel_kernel_info": [_INT, _INT, _INT, _P],
@@ -171,9 +180,9 @@ KINDS = ("col", "bwd_row", "row", "row_store", "build_col", "vfused_row")
 
 #: The route of each pass by grid and the launch's lead count, {n: {count:
 #: (column pass, backward row pass, row pass, store row pass, build column
-#: pass, fused row pass)}}, the count the waves of a launch (the species of a
-#: build column pass): the faster kernel of each pass timed in turns on an
-#: NVIDIA H100 80GB HBM3 at 700 W (chip_smoke.py kernels_panel,
+#: pass, fused row pass)}}, the count the waves of a launch (the species of
+#: a build column pass): the faster kernel of each pass
+#: timed in turns on an NVIDIA H100 80GB HBM3 at 700 W (chip_smoke.py kernels_panel,
 #: kernels_panel_grad and kernels_panel_stream, ``route_rows``,
 #: ``row_route_rows`` and ``stream_route_rows``; PERF.md section 5).  A
 #: launch takes the row of the largest measured count not above its own.
@@ -205,8 +214,8 @@ def panel_route(n: int, b: int, kind: str) -> str:
     backward row pass, "row" the row pass with V_j, "row_store" the same
     storing s_j, "build_col" the build column pass, "vfused_row" the fused
     row pass) for a launch of lead count b on an n x n grid, from
-    PANEL_ROUTE: a function of (n, b) alone.  b is the launch's waves, and
-    for "build_col" its species (the planes that one output sums)."""
+    PANEL_ROUTE: a function of (n, b) alone.  b is the launch's waves, for
+    "build_col" its species (the planes that one output sums)."""
     if kind not in KINDS:
         raise ValueError(f"panel_route: kind must be one of {KINDS}, got {kind!r}")
     rows = PANEL_ROUTE[n]
@@ -248,16 +257,16 @@ def _launch(name: str, device: torch.device, *args) -> None:
 def panel_kernel_info(n: int, kernel: str = "row", device: torch.device | str = "cuda") -> dict:
     """Registers, dynamic shared memory, local memory and resident blocks of
     the row kernel (``kernel`` "row"), the column kernel ("col"), the
-    backward row kernel ("bwd_row"), the streamed build's kernels ("g_row",
-    "build_col", "vfused_row") or the wide kernels ("wide_col",
+    backward row kernel ("bwd_row"), the streamed build's tile kernels
+    ("build_col", "vfused_row") or the wide kernels ("wide_col",
     "wide_bwd_row", "wide_row" of row 15, "wide_row_store" of row 23,
     "wide_build_col" of row 28 with one species and "wide_build_col_sum"
-    with several, "wide_vfused_row" of row 29), for axis size n, as the CUDA
-    runtime reports them."""
-    which = {"row": 0, "col": 1, "bwd_row": 2, "g_row": 3, "build_col": 4,
+    with several, "wide_vfused_row" of row 29, "wide_g_row" of row 27), for
+    axis size n, as the CUDA runtime reports them."""
+    which = {"row": 0, "col": 1, "bwd_row": 2, "build_col": 4,
              "vfused_row": 5, "wide_col": 6, "wide_bwd_row": 7, "wide_row": 8,
              "wide_row_store": 9, "wide_build_col": 10, "wide_vfused_row": 11,
-             "wide_build_col_sum": 12}[kernel]
+             "wide_build_col_sum": 12, "wide_g_row": 13}[kernel]
     dev = torch.device(device)
     if dev.index is None:
         dev = torch.device("cuda", torch.cuda.current_device())
@@ -435,6 +444,16 @@ def panel_g_rowpass_ref(g: torch.Tensor) -> torch.Tensor:
     """Fx(g) of real (nsp, n, n) planes in plain PyTorch (complex64 for
     float32 planes, complex128 for float64)."""
     return _fx(g.to(torch.complex64 if g.dtype == torch.float32 else torch.complex128))
+
+
+def panel_scatter_ref(idx: torch.Tensor, val: torch.Tensor, nsp: int, n: int) -> torch.Tensor:
+    """The (nsp, n, n) delta planes of one slice in plain PyTorch: zeros of
+    val's dtype, then the corners' weights ``val`` added at their flat
+    indices ``idx`` (``index_add_``; ``potential.bilinear_corners`` of the
+    slice's atoms)."""
+    g = torch.zeros(nsp * n * n, dtype=val.dtype, device=val.device)
+    g.index_add_(0, idx, val)
+    return g.view(nsp, n, n)
 
 
 def panel_build_colpass_ref(gx: torch.Tensor, factors: torch.Tensor) -> torch.Tensor:
@@ -968,6 +987,41 @@ def panel_g_rowpass(g: torch.Tensor) -> torch.Tensor:
     return out.reshape(g.shape)
 
 
+def _corners(idx: torch.Tensor, val: torch.Tensor, device: torch.device, what: str):
+    """The corners' flat indices (int64) and weights (float32) as the
+    scatter kernel reads them: of one shape on ``device``, contiguous.  Their
+    range is checked on the card, with no synchronisation: the kernel writes
+    no index outside the planes and makes the planes NaN for one."""
+    if idx.dtype != torch.int64 or val.dtype != torch.float32 or idx.shape != val.shape:
+        raise TypeError(f"{what}: the corners must be int64 indices and float32 weights of one "
+                        f"shape, got {idx.dtype} {tuple(idx.shape)} and {val.dtype} "
+                        f"{tuple(val.shape)}")
+    if idx.device != device or val.device != device:
+        raise ValueError(f"{what}: corner indices on {idx.device}, weights on {val.device}, "
+                         f"the planes on {device}")
+    return idx.contiguous(), val.contiguous()
+
+
+def panel_scatter(idx: torch.Tensor, val: torch.Tensor, nsp: int, n: int) -> torch.Tensor:
+    """The (nsp, n, n) delta planes of one slice: zeros, then the weights
+    ``val`` added at the flat indices ``idx`` (1-D, one entry a corner):
+    on CUDA a memset and the scatter kernel (atomics, so corners that meet
+    on a pixel add in no fixed order; an index outside the planes makes them
+    NaN), plain on the CPU (which raises for such an index)."""
+    if not val.is_cuda:
+        return panel_scatter_ref(idx, val, nsp, n)
+    what = "panel_scatter"
+    check_size(n, n, what)
+    if idx.ndim != 1:
+        raise ValueError(f"{what}: the corners must be 1-D, got {tuple(idx.shape)}")
+    idx, val = _corners(idx, val, val.device, what)
+    g = torch.empty((nsp, n, n), dtype=torch.float32, device=val.device)
+    _launch("fdes_panel_scatter_c64", val.device, idx.data_ptr(), val.data_ptr(), idx.numel(),
+            g.data_ptr(), g.numel())
+    panel_scatter.launches += 1
+    return g
+
+
 def panel_build_colpass(
     gx: torch.Tensor, factors: torch.Tensor, *, route: str | None = None
 ) -> torch.Tensor:
@@ -1014,8 +1068,8 @@ def panel_vfused_rowpass(
 
 
 def _streamed(psi0, atoms_xyspw, ff_full, propagator, sigma, shape, pixel, plain):
-    """The streamed rollout of panel_streamed (``plain``: its plain passes,
-    also on the card)."""
+    """The streamed rollout of panel_streamed: on the card one C call
+    (``plain``: the chain of its plain passes, on any device)."""
     from ..potential import bilinear_corners
 
     what = "panel_streamed_ref" if plain else "panel_streamed"
@@ -1036,38 +1090,70 @@ def _streamed(psi0, atoms_xyspw, ff_full, propagator, sigma, shape, pixel, plain
         raise ValueError(f"{what}: the atoms must be padded (S, M) arrays with S >= 1, got "
                          f"{tuple(x.shape)}")
     nsp = ff_full.shape[0]
+    card = psi0.is_cuda and not plain
     # float32 for the kernels, the working dtype for the plain passes
-    factors = prepare_factors(ff_full, pixel,
-                              dtype=torch.float32 if psi0.is_cuda and not plain else rdt)
-    # every slice's flat corner indices and weights at once; per slice the
-    # reused delta planes are zeroed and added into
+    factors = prepare_factors(ff_full, pixel, dtype=torch.float32 if card else rdt)
+    # every slice's flat corner indices and weights at once, (S, 4M) each
     idx, val = bilinear_corners(x, y, sp, w, shape=tuple(shape), pixel=pixel, rdt=rdt)
-    g = torch.zeros(nsp * n * n, dtype=rdt, device=device)
-    if plain:
-        g_row, build, vfused = (panel_g_rowpass_ref, panel_build_colpass_ref,
-                                panel_vfused_rowpass_ref)
-        init, final = panel_init_ref, panel_final_ref
-
-        def col(a):
-            return panel_colpass_ref(a, propagator)
-    else:
-        g_row, build, vfused = panel_g_rowpass, panel_build_colpass, panel_vfused_rowpass
-        init, final = panel_init, panel_final
-        prepared = prepare_propagator(propagator) if psi0.is_cuda else None
-
-        def col(a):
-            return _col(a, propagator, prepared)
+    if card:
+        return _streamed_on_card(psi, idx, val, factors, propagator, sigma)
 
     def build_vx(j):
-        g.zero_()
-        g.index_add_(0, idx[j], val[j])
-        return build(g_row(g.view(nsp, n, n)), factors)
+        g = panel_scatter_ref(idx[j], val[j], nsp, n)
+        return panel_build_colpass_ref(panel_g_rowpass_ref(g), factors)
 
-    v0 = final(build_vx(0)).real.contiguous()
-    a = init(v0, psi.contiguous(), sigma)
+    def col(a):
+        return panel_colpass_ref(a, propagator)
+
+    v0 = panel_final_ref(build_vx(0)).real.contiguous()
+    a = panel_init_ref(v0, psi.contiguous(), sigma)
     for j in range(1, x.shape[0]):
-        a = vfused(build_vx(j), col(a), sigma)
-    return final(col(a))
+        a = panel_vfused_rowpass_ref(build_vx(j), col(a), sigma)
+    return panel_final_ref(col(a))
+
+
+def _streamed_on_card(psi, idx, val, factors, propagator, sigma):
+    """The whole streamed rollout issued from C in one call
+    (``fdes_panel_streamed_c64``): psi as the rollout carries it, idx and val
+    the (S, 4M) corners, factors prepare_factors' float32 panel.  The scratch
+    planes (the nsp delta planes, their x spectra, one V spectrum) are
+    allocated once a call; every pass runs in place on the output."""
+    what = "panel_streamed"
+    flat, n = _wave(psi.contiguous(), "psi0", what)
+    b, nsp = flat.shape[0], factors.shape[0]
+    fp = _real(factors, (nsp, n, n), psi.device, "factors", what)
+    idx, val = _corners(idx, val, psi.device, what)
+    if propagator.device != psi.device:
+        raise ValueError(f"{what}: propagator on {propagator.device}, psi0 on {psi.device}")
+    pp = prepare_propagator(propagator)
+    routes = {kind: _route_code(what, None, n, count, kind)
+              for kind, count in (("build_col", nsp), ("col", b), ("vfused_row", b))}
+    out = torch.empty_like(flat)
+    g = torch.empty(nsp * n * n, dtype=torch.float32, device=psi.device)
+    gx = torch.empty((nsp, n, n), dtype=torch.complex64, device=psi.device)
+    vx = torch.empty((n, n), dtype=torch.complex64, device=psi.device)
+    nslices, corners = idx.shape
+    _launch("fdes_panel_streamed_c64", psi.device, n, flat.data_ptr(), idx.data_ptr(),
+            val.data_ptr(), corners, nslices, fp.data_ptr(), nsp, pp.data_ptr(),
+            out.data_ptr(), g.data_ptr(), gx.data_ptr(), vx.data_ptr(), float(sigma), b,
+            n * n if pp.ndim == 3 else 0, *(code for _, code in routes.values()))
+    _count_streamed(nslices, *(route for route, _ in routes.values()))
+    return out.reshape(psi.shape)
+
+
+def _count_streamed(nslices, build_route, col_route, vfused_route):
+    """Add one streamed rollout's passes to the pass wrappers' counts, as
+    fdes_panel_streamed_c64 issues them: per slice the scatter, the g row
+    pass, and the build column pass and the column pass on their routes, the
+    fused row pass for every slice after the first on its route, slice 0's
+    final and init and the closing final."""
+    _count(panel_scatter, nslices)
+    _count(panel_g_rowpass, nslices)
+    _count(panel_build_colpass, nslices, build_route)
+    _count(panel_colpass, nslices, col_route)
+    _count(panel_vfused_rowpass, nslices - 1, vfused_route)
+    _count(panel_final, 2)
+    _count(panel_init)
 
 
 def panel_streamed(
@@ -1088,10 +1174,10 @@ def panel_streamed(
     full-grid (nsp, n, n) factors (``potential.species_factors_full``; the
     rfft2 half-grid is refused rather than rebuilt by symmetry); the
     propagator (n, n) or one per wave (B, n, n), each slice's V built once for
-    all the waves.  Per slice: the scatter (``zero_`` and ``index_add_`` on
-    reused delta planes; the corners of every slice computed once per call),
-    then the g row pass, the build column pass, the column pass and the fused
-    row pass, each one launch on the card (plain passes on the CPU).
+    all the waves.  Per slice: the scatter (the corners of every slice
+    computed once per call), then the g row pass, the build column pass, the
+    column pass and the fused row pass, each one launch on the card, all
+    issued from C in one call (the plain passes on the CPU).
     Forward only: it raises when autograd records and psi0, the propagator or
     the factors require a gradient.
     """
@@ -1126,13 +1212,13 @@ def panel_streamed_ref(
 WRAPPERS = (panel_init, panel_colpass, panel_rowpass_stack, panel_rowpass, panel_final,
             panel_init_abs, panel_rowpass_stack_abs, panel_rowfwd, panel_bwd_tail,
             panel_init_store, panel_rowpass_stack_store, panel_col_bwd, panel_row_bwd_loop,
-            panel_row_bwd_last, panel_g_rowpass, panel_build_colpass, panel_vfused_rowpass)
+            panel_row_bwd_last, panel_scatter, panel_g_rowpass, panel_build_colpass,
+            panel_vfused_rowpass)
 #: the pass wrappers whose kernel PANEL_ROUTE picks, with launches_by_route
 ROUTED = (panel_colpass, panel_col_bwd, panel_row_bwd_loop, panel_row_bwd_last, panel_bwd_tail,
           panel_rowpass_stack, panel_rowpass_stack_store, panel_build_colpass,
           panel_vfused_rowpass)
 #: the whole-loop calls, which count their calls and add their passes above
-#: (panel_streamed: its passes count themselves, one launch per wrapper call)
 LOOPS = (panel_scan, panel_scan_store, panel_scan_bwd_store, panel_streamed)
 
 

@@ -1,8 +1,9 @@
 """The wide panel kernels (``panel_wide_col_kernel``, also in its build modes
-(row 28), ``panel_wide_bwd_row_kernel`` and ``panel_wide_row_kernel``, also in
-its mode kVfused (row 29), in csrc/panel_scan.cu, and their three-round
-transform) as a numpy model of their index maps, and the route between them
-and the tile kernels (``kernels/panel_scan.PANEL_ROUTE``).
+(row 28), ``panel_wide_bwd_row_kernel``, ``panel_wide_row_kernel``, also in
+its mode kVfused (row 29), and ``panel_wide_g_row_kernel`` (row 27), in
+csrc/panel_scan.cu, and their three-round transform) as a numpy model of
+their index maps, and the route between them and the tile kernels
+(``kernels/panel_scan.PANEL_ROUTE``).
 
 The model follows the kernels' data: an N-point transform is held by a group
 of T = N/R threads (R = 8 values a thread up to 512 points, 16 above: one
@@ -19,9 +20,9 @@ into the groups' registers and written back the same way; a row item is one
 row a group.  The model is held against ``np.fft`` in float64, and its
 column pass, its conjugate, its backward row pass, its forward row pass
 (with and without the store of s_j), its build column pass (the species'
-products summed in registers) and its fused row pass (V's row through one
-more inverse transform) against the JAX package's panel passes in interpret
-mode.  The kernels themselves are held against the plain versions on the
+products summed in registers), its fused row pass (V's row through one
+more inverse transform) and its g row pass (real rows through one forward
+transform) against the JAX package's panel passes in interpret mode.  The kernels themselves are held against the plain versions on the
 card (the last tests here, and chip_smoke.py's kernels_panel,
 kernels_panel_grad and kernels_panel_stream phases)."""
 
@@ -306,6 +307,19 @@ def _vfused_row_pass(vx, b, sigma):
     return a
 
 
+def _g_row_pass(g):
+    """panel_wide_g_row_kernel: Fx of the real rows of planes g (nsp, n, n).
+    Per row: the reals in layout 1, the imaginary parts 0 in registers, the
+    forward transform (to layout 3), the exchange from layout 3 to layout 1
+    and the store at the positions of layout 1."""
+    n = g.shape[-1]
+    rows1 = _pos(n, 1)
+    x = g[..., rows1].astype(complex)
+    out = np.empty(g.shape, dtype=complex)
+    out[..., rows1] = _exchange(n, _forward(n, x), 3, 1)
+    return out
+
+
 # ---- the transform and the layouts against np.fft -------------------------------
 
 
@@ -465,6 +479,17 @@ def test_model_vfused_row_pass_is_the_plain_pass(n, waves):
     assert np.abs(got - ref).max() <= EXACT * np.abs(ref).max()
 
 
+@pytest.mark.parametrize("n,nsp", [(256, 1), (256, 2), (2048, 1), (2048, 2)])
+def test_model_g_row_pass_is_the_plain_pass(n, nsp):
+    """The model's g row pass against panel_g_rowpass_ref in complex128, one
+    plane (one species) and two, the rows of both in one launch."""
+    rng = np.random.default_rng(n + 13 * nsp)
+    g = rng.uniform(0, 1, (nsp, n, n))
+    got = _g_row_pass(g)
+    ref = ps.panel_g_rowpass_ref(torch.as_tensor(g)).numpy()
+    assert np.abs(got - ref).max() <= EXACT * np.abs(ref).max()
+
+
 # ---- the model's passes against the JAX package ---------------------------------
 
 
@@ -480,8 +505,9 @@ def jax_passes():
     patched to 64 rows and 128 columns (as tests/test_torch_panel_grad.py
     runs them): colpass, col_bwd, row_bwd_loop, the forward row passes
     (panel_rowpass_stack, _panel_rowpass_mid_store) on one plane, and the
-    streamed build's column pass (_panel_build_colpass, the species' planes
-    at once) and fused row pass (_panel_vfused_rowpass, one plane)."""
+    streamed build's g row and column passes (_panel_g_rowpass,
+    _panel_build_colpass, the species' planes at once) and fused row pass
+    (_panel_vfused_rowpass, one plane)."""
     import fdes_tpu.pallas.panel_scan as jps
 
     tabs = jps._tables(N_JAX)
@@ -515,6 +541,10 @@ def jax_passes():
                                           jnp.asarray(ffp), tabs, prec, True)
         return np.asarray(re) + 1j * np.asarray(im)
 
+    def g_row(g):
+        re, im = jps._panel_g_rowpass(jnp.asarray(g), tabs, prec, True)
+        return np.asarray(re) + 1j * np.asarray(im)
+
     def vfused_row(vx, b):
         re, im = jps._panel_vfused_rowpass(jnp.asarray(vx.real), jnp.asarray(vx.imag),
                                            jnp.asarray(b.real), jnp.asarray(b.imag), tabs, SIGMA,
@@ -522,7 +552,7 @@ def jax_passes():
         return np.asarray(re) + 1j * np.asarray(im)
 
     yield {"col": col, "row_bwd_loop": row_bwd_loop, "row": row, "build_col": build_col,
-           "vfused_row": vfused_row}
+           "vfused_row": vfused_row, "g_row": g_row}
     mp.undo()
 
 
@@ -665,6 +695,20 @@ def test_model_vfused_row_pass_equals_jax(jax_passes, jax_fields, waves):
     _close(got, np.stack(want))
 
 
+@pytest.mark.parametrize("nsp", [1, 2])
+def test_model_g_row_pass_equals_jax(jax_passes, jax_fields, nsp):
+    """The model's g row pass against JAX's _panel_g_rowpass on the same real
+    planes (the species' delta planes, natural order), the x spectrum in each
+    package's order: bit-reversed here, JAX's digit order there."""
+    n = N_JAX
+    br, jo = _bitrev(n), _jax_order(n)
+    g = jax_fields["f"][:nsp]
+    out = jax_passes["g_row"](g)
+    nat = np.empty_like(out)
+    nat[..., jo] = out
+    _close(_g_row_pass(g.astype(np.float64)), nat[..., br])
+
+
 # ---- the route ---------------------------------------------------------------
 
 
@@ -684,7 +728,7 @@ def test_panel_route_is_the_table():
             for b in range(1, 20):
                 want = rows[max(m for m in measured if m <= b)][k]
                 assert ps.panel_route(n, b, kind) == want and want in ps.ROUTES
-    for bad in ("fwd_row", "rows", "store", "build", "vfused"):
+    for bad in ("fwd_row", "rows", "store", "build", "vfused", "g_row"):
         with pytest.raises(ValueError, match="kind must be"):
             ps.panel_route(2048, 1, bad)
     src = (_build.SRC_DIR / "panel_scan.cu").read_text()
@@ -692,10 +736,13 @@ def test_panel_route_is_the_table():
     assert enum and [int(g) for g in enum.groups()] == [ps.ROUTES[k] for k in ("tile", "wide")]
     for kernel in ("panel_col_kernel", "panel_wide_col_kernel", "panel_bwd_row_kernel",
                    "panel_wide_bwd_row_kernel", "panel_row_kernel", "panel_wide_row_kernel",
-                   "panel_build_col_kernel", "panel_vfused_row_kernel"):
+                   "panel_build_col_kernel", "panel_vfused_row_kernel",
+                   "panel_wide_g_row_kernel"):
         assert re.search(rf"__global__ void __launch_bounds__\([^)]*\)\s*{kernel}\(", src)
     for mode in ("kColBuild", "kColBuildSum", "kVfused"):
         assert re.search(rf"launch_wide_(col|row)<LOG2N, {mode}>", src)
+    # row 27 has one kernel, not routed, which the streamed rollout launches
+    assert re.search(r"launch_g_row<LOG2N>\(g, gx, nsp", src)
     assert "panel_scan" in _build.sources()
 
 
@@ -757,6 +804,7 @@ def test_wide_wrappers_count_their_own_launches():
             (ps.panel_vfused_rowpass(a, s, SIGMA, route=route),
              ps.panel_vfused_rowpass_ref(a, s, SIGMA)),
         ]
+    pairs.append((ps.panel_g_rowpass(v), ps.panel_g_rowpass_ref(v)))
     for got, want in pairs:
         got, want = (got, want) if isinstance(got, tuple) else ((got,), (want,))
         assert all(torch.equal(x, y) for x, y in zip(got, want))
@@ -867,10 +915,10 @@ def test_wide_row_kernel_matches_plain_on_card(cuda):
 
 def test_wide_stream_kernels_match_plain_on_card(cuda):
     """The wide build column pass (one species: kColBuild; two and four summed
-    in registers: kColBuildSum) and the wide fused row pass (one and two
-    waves, in place as the streamed rollout runs it too) against the plain
-    versions at every size; each launch counted on its wrapper under
-    "wide"."""
+    in registers: kColBuildSum), the g row pass (one, two and four planes)
+    and the wide fused row pass (one and two waves, in place as the streamed
+    rollout runs it too) against the plain versions at every size; each
+    launch counted on its wrapper (under "wide" where it is routed)."""
     tol = 2e-6
     for n in ps.SIZES:
         rng = np.random.default_rng(n + 3)
@@ -882,6 +930,11 @@ def test_wide_stream_kernels_match_plain_on_card(cuda):
             got = ps.panel_build_colpass(gx, fp, route="wide")
             assert float((got - want).abs().max()) <= tol * float(want.abs().max())
             assert ps.panel_build_colpass.launches_by_route == {"tile": 0, "wide": 1}
+            g = torch.as_tensor(rng.uniform(0, 1, (nsp, n, n)).astype(np.float32)).to(cuda)
+            want = ps.panel_g_rowpass_ref(g)
+            got = ps.panel_g_rowpass(g)
+            assert float((got - want).abs().max()) <= tol * float(want.abs().max())
+            assert ps.panel_g_rowpass.launches == 1
         vx = torch.as_tensor((np.fft.fft(rng.uniform(0, 2000, (n, n)), axis=-1)[:, _bitrev(n)]
                               / n).astype(np.complex64)).to(cuda)
         for waves in (1, 2):

@@ -249,6 +249,52 @@ def _natural(a):
     return a[..., fs.bit_reversal(a.shape[-1]).numpy()]
 
 
+@pytest.mark.parametrize("j", [0, 2])
+def test_plain_scatter_equals_jax(two_species, j):
+    """The streamed build's scatter in plain PyTorch (panel_scatter_ref of
+    bilinear_corners, as panel_streamed runs it on the CPU, and the wrapper on
+    the CPU) against the JAX package's scatter_slice_deltas of the same
+    slice's padded atoms, float32; the planes' sum is the slice's atoms'
+    weights."""
+    d = two_species
+    grid = d["grid"]
+    kw = dict(shape=grid.shape, pixel=(grid.py, grid.px))
+    x, y, sp, w = (a[j] for a in d["atoms"])
+    want = np.asarray(jpot.scatter_slice_deltas(jnp.asarray(x), jnp.asarray(y), jnp.asarray(sp),
+                                                jnp.asarray(w), nspecies=2,
+                                                rdt=jnp.dtype(jnp.float32), **kw))
+    idx, val = tpot.bilinear_corners(_t(x), _t(y), _t(sp), _t(w), rdt=torch.float32, **kw)
+    got = ps.panel_scatter_ref(idx, val, 2, grid.nx)
+    assert got.shape == (2, *grid.shape) and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), want, atol=1e-6 * np.abs(want).max(), rtol=0)
+    assert torch.equal(ps.panel_scatter(idx, val, 2, grid.nx), got)
+    assert abs(float(got.sum()) - float(w.sum())) <= 1e-4 * float(w.sum())
+
+
+@pytest.mark.parametrize("routes", [("wide", "wide", "wide"), ("tile", "tile", "wide")])
+def test_streamed_count_adds_passes_by_route(routes):
+    """The count of one streamed rollout on the card (_count_streamed, as
+    panel_streamed adds the passes of its C call): S scatters and g row
+    passes, S build column and column passes and S - 1 fused row passes on
+    their routes, two finals and one init, and nothing else."""
+    build_route, col_route, vfused_route = routes
+    ps.reset_launches()
+    try:
+        ps._count_streamed(8, *routes)
+        ps._count_streamed(3, *routes)
+        counts = {w.__name__: w.launches for w in (*ps.WRAPPERS, *ps.LOOPS) if w.launches}
+        assert counts == {"panel_scatter": 11, "panel_g_rowpass": 11, "panel_build_colpass": 11,
+                          "panel_colpass": 11, "panel_vfused_rowpass": 9, "panel_final": 4,
+                          "panel_init": 2}
+        for w, route, k in ((ps.panel_build_colpass, build_route, 11),
+                            (ps.panel_colpass, col_route, 11),
+                            (ps.panel_vfused_rowpass, vfused_route, 9)):
+            assert w.launches_by_route == {"tile": 0, "wide": 0, route: k}
+        assert ps.panel_scatter not in ps.ROUTED and ps.panel_g_rowpass not in ps.ROUTED
+    finally:
+        ps.reset_launches()
+
+
 def test_plain_g_rowpass_equals_numpy(planes):
     g = planes["g"]
     got = ps.panel_g_rowpass_ref(_t(g))
@@ -328,9 +374,13 @@ def test_streamed_refusals(two_species):
 
 
 def test_wrapper_counts_stay_zero_on_the_cpu(two_species):
+    """On the CPU the streamed rollout is its plain passes: no wrapper counts a
+    launch, the scatter's and the routed ones' included."""
     ps.reset_launches()
     _port_streamed(two_species, "panel")
     assert all(w.launches == 0 for w in (*ps.WRAPPERS, *ps.LOOPS))
+    assert all(w.launches_by_route == {"tile": 0, "wide": 0} for w in ps.ROUTED)
+    assert ps.panel_scatter in ps.WRAPPERS
 
 
 # ---- on the card -------------------------------------------------------------
@@ -356,9 +406,34 @@ def test_streamed_build_kernels_match_plain_on_card(two_species, planes, cuda):
         assert float((got - want).abs().max()) <= 4e-6 * float(want.abs().max())
     d = two_species
     grid = d["grid"]
+    x, y, sp, w = (_t(a[1]).to(cuda) for a in d["atoms"])
+    idx, val = tpot.bilinear_corners(x, y, sp, w, shape=grid.shape, pixel=(grid.py, grid.px),
+                                     rdt=torch.float32)
+    want = ps.panel_scatter_ref(idx, val, 2, grid.nx)
+    got = ps.panel_scatter(idx, val, 2, grid.nx)
+    assert float((got - want).abs().max()) <= 1e-6 * float(want.abs().max())
+    # an index past the planes is not written: it makes the planes NaN
+    bad = ps.panel_scatter(idx + 2 * grid.nx * grid.ny, val, 2, grid.nx).view(-1)
+    assert bool(torch.isnan(bad[0])) and float(bad[1:].abs().sum()) == 0
     args = (torch.ones(grid.shape, dtype=torch.complex64, device=cuda),
             tuple(_t(a).to(cuda) for a in d["atoms"]), _t(d["ff_full"]).to(cuda),
             _t(d["prop"]).to(cuda), SIGMA)
     kw = dict(shape=grid.shape, pixel=(grid.py, grid.px))
-    got, want = ps.panel_streamed(*args, **kw), ps.panel_streamed_ref(*args, **kw)
+    ps.reset_launches()
+    got = ps.panel_streamed(*args, **kw)
+    # one C call: its passes counted as it issues them
+    nslices = d["atoms"][0].shape[0]
+    assert ps.panel_streamed.launches == 1 and ps.panel_scatter.launches == nslices
+    assert ps.panel_vfused_rowpass.launches == nslices - 1
+    want = ps.panel_streamed_ref(*args, **kw)
     assert float((got - want).abs().max()) <= TOL * float(want.abs().max())
+    # factors on the CPU are refused before the C call
+    with pytest.raises(ValueError, match="factors on cpu"):
+        ps.panel_streamed(args[0], args[1], _t(d["ff_full"]), *args[3:], **kw)
+    # a species index past the factors' planes: the exit wave NaN, the card
+    # still sound for the next call
+    x, y, sp, w = args[1]
+    assert bool(torch.isnan(ps.panel_streamed(args[0], (x, y, sp + 2, w), *args[2:],
+                                              **kw)).all())
+    again = ps.panel_streamed(*args, **kw)
+    assert float((again - want).abs().max()) <= TOL * float(want.abs().max())
