@@ -53,24 +53,26 @@ Phases, each printing one JSON line:
              pair at 2048^2 x 8 slices and 256^2 x 2 waves x 3 slices (dV
              bitwise equal over two runs), each pass timed at 2048^2 and
              4096^2.  The wide column pass, the three wide backward row
-             passes and the two wide row passes with V_j (rows 15 and 23)
+             passes, the two wide row passes with V_j (rows 15 and 23) and
+             the two absorptive ones (rows 19 and 18: the wide row kernel's
+             kMidAbs and kInitAbs, V's .real and .imag read in place as one
+             complex plane, also at 512^2, 1024^2 and 4096^2 x 2 waves)
              beside their tile kernels at the same shapes, and every kernel of
-             each of the four routed passes timed in turns (three readings)
+             each of the five routed passes timed in turns (three readings)
              at each row of kernels/panel_scan.PANEL_ROUTE, 256^2 to 4096^2 x
              1-8 waves, the wide ones held to the plain versions there (each
              row names the faster and whether the table picks it).  The
              streamed build's three passes at 256^2, 2048^2 and 4096^2 (one
-             species and two; the fused row pass with one wave and two; the
-             build column and fused row passes on both of their kernels,
+             species and two; the fused row pass, its one kernel, with one
+             wave and two; the build column pass on both of its kernels,
              "tile" and "wide") and its scatter
              (atomics, beside index_add_), the whole streamed rollout of two
              species at 2048^2 x 8 slices (one C call) against its plain
              passes and against the per-slice streamed body, each pass timed
              at 2048^2 and 4096^2 beside the cuFFT build of one slice (the g
              row pass in turns with torch.fft.fft), and both kernels of the
-             build column and fused row passes timed in turns at each
-             row of PANEL_ROUTE (1-8 species or waves), the wide ones held to
-             the plain versions there.  ``--only kernels_slice``
+             build column pass timed in turns at each row of PANEL_ROUTE (1-8
+             species), the wide ones held to the plain versions there.  ``--only kernels_slice``
              (or ``kernels_fused``, ``kernels_adjoint``, ``kernels_panel``,
              ``kernels_panel_grad``, ``kernels_panel_stream``) runs one of
              the six groups alone.
@@ -141,7 +143,18 @@ Phases, each printing one JSON line:
              kernels and on PANEL_ROUTE's, in turns; then a 4-tilt series and
              the absorptive series (first defocus only) and a 2x2 STEM raster
              at 64 slices, "panel" against "xla".
-11. c5_invert — config 5's inverse at full width: ``fdes_tpu_torch.cli.main
+11. c5_absorptive — config 5 with an absorptive potential
+             (sim.absorptive_factor=0.1, a complex64 V of 16 GiB) at 2048^2 x
+             512 slices, one defocus, through the CLI on the defaults ("auto"
+             resolves to "panel": one panel_scan call, its init and 511 row
+             passes on the kernel PANEL_ROUTE's row_abs names, asserted),
+             "panel" and "xla"; the panel_scan call alone: its peak above the
+             V it is handed (at most 1 GiB: V read in place), its kernels and
+             wall, the absorptive row passes (and every routed pass) on the
+             tile kernels against the table's, in turns, and the time of the
+             float32 copies of V the call no longer makes; the exit wave
+             against a complex128 rollout, the images against "xla".
+12. c5_invert — config 5's inverse at full width: ``fdes_tpu_torch.cli.main
              --mode invert`` at 2048^2, 512 slices, 8 defoci, 20 adam
              iterations on engine "panel" (one panel_scan for the self-test
              series, then 2,050 panel passes per iteration, asserted); one
@@ -152,7 +165,7 @@ Phases, each printing one JSON line:
              gradient free of FFT library kernels (its kernels counted at 64
              slices); the per-slice route (the store cap patched) against the
              store route at 64 slices.
-12. c5_streamed — config 5 with the potential streamed: ``fdes_tpu_torch.cli.main
+13. c5_streamed — config 5 with the potential streamed: ``fdes_tpu_torch.cli.main
              --mode forward --set sim.streamed=true`` at 2048^2, 512 slices
              (one defocus: forward mode reads no CTF) on "panel" (one C
              call issuing 2,050 panel passes and 512 scatters, asserted by
@@ -167,12 +180,12 @@ Phases, each printing one JSON line:
              the panel rollout's device busy and wall time at each of the
              three shapes with every routed panel pass on the tile kernels
              and on PANEL_ROUTE's, in turns.
-13. phonon — frozen phonons through the CLI: config 2 in mode hrtem with 4
+14. phonon — frozen phonons through the CLI: config 2 in mode hrtem with 4
              configurations on the defaults ("auto" resolves to "fscan": 4
              whole-loop launches, asserted) against "xla" at <= 1e-5, and a
              2x2 STEM raster of config 4 with 2 configurations on "fscan"
              against "xla".
-14. engines — wall time of a 32-slice rollout and of one gradient evaluation
+15. engines — wall time of a 32-slice rollout and of one gradient evaluation
              per engine at 128^2 to 1024^2, one wave and 16, and on "panel",
              "pallas" and "xla" at 2048^2 (1 and 4 waves) and 4096^2: the
              rows that
@@ -207,7 +220,7 @@ import torch
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 PHASES = ("build", "kernels", "golden", "hrtem", "absorptive", "grad", "invert", "stem",
-          "stem4d", "c5", "c5_invert", "c5_streamed", "phonon", "engines")
+          "stem4d", "c5", "c5_absorptive", "c5_invert", "c5_streamed", "phonon", "engines")
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 PEAK_OPS_PER_S = {torch.float32: 67e12, torch.float64: 34e12}  # non-tensor-core FP32 / FP64
 KERNEL_TOL = {torch.complex64: 2e-6, torch.complex128: 1e-12}  # max|k - ref| / max|ref|
@@ -554,8 +567,8 @@ OWN_KERNELS = ("row_pass_kernel", "col_pass_kernel", "bwd_tail_kernel", "scan_ke
                "cluster_scan_kernel", "scan_store_kernel", "scan_bwd_store_kernel",
                "wide_scan_store_kernel", "wide_scan_bwd_store_kernel",
                "scan_ck_kernel", "scan_bwd_ck_kernel", "panel_row_kernel", "panel_col_kernel",
-               "panel_bwd_row_kernel", "panel_build_col_kernel",
-               "panel_vfused_row_kernel", "panel_wide_col_kernel", "panel_wide_bwd_row_kernel",
+               "panel_bwd_row_kernel", "panel_build_col_kernel", "panel_wide_col_kernel",
+               "panel_wide_bwd_row_kernel",
                "panel_wide_row_kernel", "panel_wide_g_row_kernel", "panel_scatter_kernel")
 
 
@@ -1185,18 +1198,18 @@ PANEL_INFO_KEY = {"panel_row_kernel": "row", "panel_col_kernel": "col",
 def panel_routed(n: int, b: int) -> dict[str, str]:
     """The launch-count keys (launch_counts) and kernels of the passes that
     kernels/panel_scan.PANEL_ROUTE routes (column, backward row, row, store
-    row, build column and fused row pass) for a launch of lead count B at
-    n^2 (the waves; for the build column pass the species)."""
+    row, build column and absorptive row pass with its init) for a launch of
+    lead count B at n^2 (the waves; for the build column pass the species)."""
     from fdes_tpu_torch.kernels import panel_scan as ps
 
-    col, bwd, row, row_st, build, vfused = (ps.panel_route(n, b, k) for k in ps.KINDS)
+    col, bwd, row, row_st, build, row_abs = (ps.panel_route(n, b, k) for k in ps.KINDS)
     wide = {"tile": "", "wide": "wide_"}
     return {"build_colpass": f"panel_build_colpass[{build}]",
             "build_col_kernel": {"tile": "panel_build_col_kernel",
                                  "wide": "panel_wide_col_kernel"}[build],
-            "vfused_rowpass": f"panel_vfused_rowpass[{vfused}]",
-            "vfused_kernel": {"tile": "panel_vfused_row_kernel",
-                              "wide": "panel_wide_row_kernel"}[vfused],
+            "rowpass_stack_abs": f"panel_rowpass_stack_abs[{row_abs}]",
+            "init_abs": f"panel_init_abs[{row_abs}]",
+            "row_abs_kernel": f"panel_{wide[row_abs]}row_kernel",
             "colpass": f"panel_colpass[{col}]", "col_bwd": f"panel_col_bwd[{col}]",
             "col_kernel": f"panel_{wide[col]}col_kernel",
             "row_bwd_loop": f"panel_row_bwd_loop[{bwd}]",
@@ -1217,29 +1230,32 @@ def add_counts(*counts: dict[str, int]) -> dict[str, int]:
     return {k: v for k, v in out.items() if v}
 
 
-def panel_loop_kernels(n: int, b: int, nslices: int, store: bool = False) -> dict[str, int]:
+def panel_loop_kernels(n: int, b: int, nslices: int, store: bool = False,
+                       absorptive: bool = False) -> dict[str, int]:
     """The port's kernels of one rollout of nslices slices of B waves at n^2
     (``store``: panel_scan_store's) on PANEL_ROUTE's kernels: init and final
     on panel_row_kernel, the S column passes and the S - 1 row passes with
-    V_j on the routed kernels."""
+    V_j on the routed kernels; an ``absorptive`` V's init and row passes on
+    the absorptive row pass's."""
     routed = panel_routed(n, b)
-    return add_counts({"panel_row_kernel": 2, routed["col_kernel"]: nslices},
-                      {routed["row_store_kernel" if store else "row_kernel"]: nslices - 1})
+    row = ("row_abs_kernel" if absorptive else "row_store_kernel" if store else "row_kernel")
+    return add_counts({"panel_row_kernel": 1 if absorptive else 2, routed["col_kernel"]: nslices},
+                      {routed[row]: nslices if absorptive else nslices - 1})
 
 
 #: the (n, lead count) of each panel pass on the main paths whose launches a
 #: run records: the column pass in config 5's run, inverse and streamed
 #: rollouts at 2048^2 and the streamed one at 4096^2; its conjugate, the
 #: backward row passes and the store row pass in config 5's inverse; the row
-#: pass with V_j in config 5's run; the build column pass (one species) and
-#: the fused row pass in the streamed rollouts at 2048^2 and 4096^2, the
-#: latter also in the 4-tilt streamed series
+#: pass with V_j in config 5's run; the absorptive row pass and its init in
+#: config 5's absorptive run; the build column pass (one species) in the
+#: streamed rollouts at 2048^2 and 4096^2
 PANEL_PATH_SHAPES = {"colpass": ((2048, 1), (4096, 1)), "col_bwd": ((2048, 1),),
                      "row_bwd_loop": ((2048, 1),), "row_bwd_last": ((2048, 1),),
                      "bwd_tail": ((2048, 1),), "rowpass_stack": ((2048, 1),),
                      "rowpass_stack_store": ((2048, 1),),
-                     "build_colpass": ((2048, 1), (4096, 1)),
-                     "vfused_rowpass": ((2048, 1), (4096, 1), (2048, 4))}
+                     "rowpass_stack_abs": ((2048, 1),), "init_abs": ((2048, 1),),
+                     "build_colpass": ((2048, 1), (4096, 1))}
 
 
 def unrouted_panel_kernels() -> tuple[str, ...]:
@@ -1253,39 +1269,41 @@ def unrouted_panel_kernels() -> tuple[str, ...]:
 
 
 @contextlib.contextmanager
-def panel_route_all(route: str):
-    """PANEL_ROUTE with every entry set to ``route`` for every routed pass,
-    restored after: the config-5 paths timed on one kernel family against
-    the table."""
+def panel_route_all(route: str, kinds: tuple[str, ...] | None = None):
+    """PANEL_ROUTE with every entry of ``kinds`` (every routed pass by
+    default) set to ``route``, restored after: the config-5 paths timed on
+    one kernel family against the table."""
     from fdes_tpu_torch.kernels import panel_scan as ps
 
     saved = {n: dict(rows) for n, rows in ps.PANEL_ROUTE.items()}
     try:
         for rows in ps.PANEL_ROUTE.values():
-            for b in rows:
-                rows[b] = (route,) * len(ps.KINDS)
+            for b, entry in rows.items():
+                rows[b] = tuple(route if kinds is None or kind in kinds else r
+                                for kind, r in zip(ps.KINDS, entry))
         yield
     finally:
         ps.PANEL_ROUTE.update(saved)
 
 
-def busy_by_route(fn) -> dict[str, list[float]]:
-    """Device busy ms of fn with every panel pass on the tile kernels and on
-    the table's kernels, in turns (tile, table, table, tile)."""
+def busy_by_route(fn, kinds: tuple[str, ...] | None = None) -> dict[str, list[float]]:
+    """Device busy ms of fn with every panel pass (of ``kinds``) on the tile
+    kernels and on the table's kernels, in turns (tile, table, table,
+    tile)."""
     out: dict[str, list[float]] = {"tile": [], "table": []}
     for which in ("tile", "table", "table", "tile"):
-        with panel_route_all("tile") if which == "tile" else contextlib.nullcontext():
+        with panel_route_all("tile", kinds) if which == "tile" else contextlib.nullcontext():
             out[which].append(device_busy_ms(fn)[0])
     return out
 
 
-def wall_by_route(fn) -> dict[str, list[float]]:
+def wall_by_route(fn, kinds: tuple[str, ...] | None = None) -> dict[str, list[float]]:
     """Wall ms of fn (host clock, synchronised before and after) with every
-    panel pass on the tile kernels and on the table's kernels, in turns
-    (tile, table, table, tile)."""
+    panel pass (of ``kinds``) on the tile kernels and on the table's
+    kernels, in turns (tile, table, table, tile)."""
     out: dict[str, list[float]] = {"tile": [], "table": []}
     for which in ("tile", "table", "table", "tile"):
-        with panel_route_all("tile") if which == "tile" else contextlib.nullcontext():
+        with panel_route_all("tile", kinds) if which == "tile" else contextlib.nullcontext():
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             fn()
@@ -1305,10 +1323,10 @@ def panel_route_rows(kind: str, checks: list, sigma: float) -> list[dict]:
     "col", on a prepared P shared by the waves), the backward row pass
     ("bwd_row", kBwdLoop), the row pass with V_j ("row", and "row_store"
     with s_j), the build column pass ("build_col", the count its species) or
-    the fused row pass ("vfused_row", one vx shared by the waves), on "tile"
-    and "wide"; the wide kernels held to the plain version at each row's
-    shape.  Each row names the faster and whether the table picks it, with
-    the pass's bound beside."""
+    the absorptive row pass ("row_abs", one complex V_j shared by the waves,
+    Vi = 0.1 |Vr|, read in place), on "tile" and "wide"; the wide kernels
+    held to the plain version at each row's shape.  Each row names the
+    faster and whether the table picks it, with the pass's bound beside."""
     from fdes_tpu_torch.kernels import panel_scan as ps
 
     card = CardInputs(11)
@@ -1340,13 +1358,16 @@ def panel_route_rows(kind: str, checks: list, sigma: float) -> list[dict]:
                        for r in ps.ROUTES}
                 # gx and the factors of each species, the one plane out
                 cost = (plane * (b * (8 + 4) + 8), b * (fx + 2 * plane) + fx)
-            elif kind == "vfused_row":
-                vx = ps.panel_g_rowpass_ref(card.real(n, n)) / n  # V in [0, 2000)
-                ref = ps.panel_vfused_rowpass_ref(vx, a, sigma)
-                fns = {r: (lambda r=r: ps.panel_vfused_rowpass(vx, a, sigma, route=r))
+            elif kind == "row_abs":
+                vr = card.real(2, n, n)
+                vc = torch.complex(vr, 0.1 * vr)
+                del vr
+                ref = ps.panel_rowpass_stack_abs_ref(1, vc.real, vc.imag, a, sigma)
+                fns = {r: (lambda r=r: ps.panel_rowpass_stack_abs(1, vc.real, vc.imag, a, sigma,
+                                                                   route=r))
                        for r in ps.ROUTES}
-                # b and a of each wave, vx (shared) once
-                cost = (plane * (b * 16 + 8), fx + b * (2 * fx + 9 * plane))
+                # b and a of each wave, the complex V_j (shared) once
+                cost = (plane * (b * 16 + 8), b * (2 * fx + 13 * plane))
             else:
                 vs, s_b = card.real(2, n, n), card.cplx(b, 2, n, n)
                 ref = ps.panel_row_bwd_loop_ref(1, vs, s_b, a, sigma)
@@ -1455,7 +1476,8 @@ def phase_kernels_panel() -> tuple[dict, dict]:
         pass on one set of inputs (the column passes on P gathered once, each
         on its own kernel)."""
         psi, a = card.cplx(*lead, n, n), card.cplx(*lead, n, n)
-        vs, vi = card.real(3, n, n), card.real(3, n, n, top=200.0)
+        vs = card.real(3, n, n)
+        vc = torch.complex(vs, card.real(3, n, n, top=200.0))  # read in place: .real, .imag
         pr = card.phases(*(lead if per_wave_p else ()), n, n)
         pp = ps.prepare_propagator(pr)
         return {
@@ -1469,11 +1491,14 @@ def phase_kernels_panel() -> tuple[dict, dict]:
             "panel_rowpass": (lambda: ps.panel_rowpass(vs[1], a, sigma),
                               lambda: ps.panel_rowpass_ref(vs[1], a, sigma)),
             "panel_final": (lambda: ps.panel_final(a), lambda: ps.panel_final_ref(a)),
-            "panel_init_abs": (lambda: ps.panel_init_abs(vs[0], vi[0], psi, sigma),
-                               lambda: ps.panel_init_abs_ref(vs[0], vi[0], psi, sigma)),
-            "panel_rowpass_stack_abs": (
-                lambda: ps.panel_rowpass_stack_abs(1, vs, vi, a, sigma),
-                lambda: ps.panel_rowpass_stack_abs_ref(1, vs, vi, a, sigma)),
+            **{f"panel_init_abs[{r}]": (
+                lambda r=r: ps.panel_init_abs(vc[0].real, vc[0].imag, psi, sigma, route=r),
+                lambda: ps.panel_init_abs_ref(vc[0].real, vc[0].imag, psi, sigma))
+               for r in ps.ROUTES},
+            **{f"panel_rowpass_stack_abs[{r}]": (
+                lambda r=r: ps.panel_rowpass_stack_abs(1, vc.real, vc.imag, a, sigma, route=r),
+                lambda: ps.panel_rowpass_stack_abs_ref(1, vc.real, vc.imag, a, sigma))
+               for r in ps.ROUTES},
         }
 
     def cost(n):  # name: (bytes, operations): each input read once, each output written once
@@ -1486,8 +1511,11 @@ def phase_kernels_panel() -> tuple[dict, dict]:
                             (plane * (8 + 4 + 8), 2 * fx + 9 * plane)),
             "panel_rowpass": (plane * (8 + 4 + 8), 2 * fx + 9 * plane),
             "panel_final": (plane * (8 + 8), fx),
-            "panel_init_abs": (plane * (8 + 4 + 4 + 8), fx + 13 * plane),
-            "panel_rowpass_stack_abs": (plane * (8 + 4 + 4 + 8), 2 * fx + 13 * plane),
+            # psi (b) and a, the complex V once
+            **dict.fromkeys(("panel_init_abs[tile]", "panel_init_abs[wide]"),
+                            (plane * (8 + 8 + 8), fx + 13 * plane)),
+            **dict.fromkeys(("panel_rowpass_stack_abs[tile]", "panel_rowpass_stack_abs[wide]"),
+                            (plane * (8 + 8 + 8), 2 * fx + 13 * plane)),
         }
 
     replaces = {
@@ -1498,15 +1526,32 @@ def phase_kernels_panel() -> tuple[dict, dict]:
         "panel_rowpass_stack[wide]": "fdes_tpu/pallas/panel_scan.py:125",
         "panel_rowpass": "fdes_tpu/pallas/panel_scan.py:101",
         "panel_final": "fdes_tpu/pallas/panel_scan.py:194",
-        "panel_init_abs": "fdes_tpu/pallas/panel_scan.py:150",
-        "panel_rowpass_stack_abs": "fdes_tpu/pallas/panel_scan.py:171",
+        **dict.fromkeys(("panel_init_abs[tile]", "panel_init_abs[wide]"),
+                        "fdes_tpu/pallas/panel_scan.py:150"),
+        **dict.fromkeys(("panel_rowpass_stack_abs[tile]", "panel_rowpass_stack_abs[wide]"),
+                        "fdes_tpu/pallas/panel_scan.py:171"),
     }
     rows, info = panel_pass_rows(checks, passes, cost, replaces,
                                  {"panel_colpass[tile]": "panel_col_kernel",
                                   "panel_colpass[wide]": "panel_wide_col_kernel",
-                                  "panel_rowpass_stack[wide]": "panel_wide_row_kernel"})
+                                  "panel_rowpass_stack[wide]": "panel_wide_row_kernel",
+                                  "panel_init_abs[wide]": "panel_wide_row_kernel",
+                                  "panel_rowpass_stack_abs[wide]": "panel_wide_row_kernel"},
+                                 {"panel_init_abs[tile]": "row_abs",
+                                  "panel_rowpass_stack_abs[tile]": "row_abs",
+                                  "panel_init_abs[wide]": "wide_init_abs",
+                                  "panel_rowpass_stack_abs[wide]": "wide_row_abs"})
+    # rows 18 and 19 at the sizes and waves PANEL_SHAPES leaves out, both
+    # kernels (the route rows hold row 19's wide kernel up to 8 waves too)
+    for n, waves in ((512, 1), (512, 2), (1024, 1), (1024, 2), (4096, 2)):
+        cases = passes(n, (waves,) if waves > 1 else (), False)
+        for name, (kern, ref) in cases.items():
+            if "_abs[" in name:
+                check_kernel(checks, name, (waves, n, n), kern(), ref(), FUSED_TOL)
+        del cases
     route_rows = panel_route_rows("col", checks, sigma)
     row_route_rows = panel_route_rows("row", checks, sigma)
+    abs_route_rows = panel_route_rows("row_abs", checks, sigma)
 
     # ---- the rollout: 2048^2 x 8 slices, real and absorptive V; 256^2 x 3
     # slices with two waves and a per-wave propagator
@@ -1517,6 +1562,11 @@ def phase_kernels_panel() -> tuple[dict, dict]:
         check_kernel(checks, "panel_scan", (8, n, n), ps.panel_scan(psi0, v, prop, sigma),
                      ps.panel_scan_ref(psi0, v, prop, sigma), scan_tol(8),
                      absorptive=v.is_complex())
+    vc = torch.complex(vs, 0.1 * vs)
+    abs_rollout_kernels = expect_own_kernels(
+        "panel_scan absorptive", lambda: ps.panel_scan(psi0, vc, prop, sigma),
+        panel_loop_kernels(n, 1, 8, absorptive=True))
+    del vc
     psi_b, pr_b, v_b = card.cplx(2, 256, 256), card.phases(2, 256, 256), card.real(3, 256, 256)
     check_kernel(checks, "panel_scan", (2, 3, 256, 256), ps.panel_scan(psi_b, v_b, pr_b, sigma),
                  ps.panel_scan_ref(psi_b, v_b, pr_b, sigma), scan_tol(3), per_wave_p=True)
@@ -1525,8 +1575,9 @@ def phase_kernels_panel() -> tuple[dict, dict]:
     del psi0, vs, prop
 
     line = {"phase": "kernels_panel", "checks": checks, "rollout_kernels_per_call": rollout_kernels,
+            "abs_rollout_kernels_per_call": abs_rollout_kernels,
             "panel_kernel_info": info, "route_rows": route_rows,
-            "row_route_rows": row_route_rows,
+            "row_route_rows": row_route_rows, "abs_route_rows": abs_route_rows,
             "scan_kernel_info": {n: fsc.scan_kernel_info(n) for n in (512, 1024)},
             "adjoint_kernel_info": {k: adj.adjoint_kernel_info(512, k) for k in SCAN_FOOTPRINT
                                     if k != "scan_kernel"}}
@@ -1740,8 +1791,8 @@ def scatter_rows(checks: list, n: int) -> dict:
 
 
 def phase_kernels_panel_stream() -> tuple[dict, dict]:
-    """The streamed build's passes (row 27 on its one kernel, rows 28 and 29
-    each on both of theirs, "tile" and "wide") against their plain versions
+    """The streamed build's passes (rows 27 and 29 on their one kernel each,
+    row 28 on both of its, "tile" and "wide") against their plain versions
     at 256^2, 2048^2 and 4096^2, one species and two (row 29 with one wave
     and two), and its scatter at 2048^2 and 4096^2 (one species and two);
     the whole panel_streamed (two species, one C call) at 2048^2 x 8 slices
@@ -1750,9 +1801,8 @@ def phase_kernels_panel_stream() -> tuple[dict, dict]:
     beside their bounds, row 27's kernel in turns with torch.fft.fft (its
     library time: x in natural order), the scatter beside index_add_, and
     the cuFFT build of one slice (slice_potential: scatter, rfft2, product,
-    irfft2) beside them; both kernels of rows 28 and 29 in turns at every
-    row of PANEL_ROUTE (kinds "build_col", "vfused_row"); returns (phase
-    line, table rows)."""
+    irfft2) beside them; both kernels of row 28 in turns at every row of
+    PANEL_ROUTE (kind "build_col"); returns (phase line, table rows)."""
     from fdes_tpu_torch.kernels import panel_scan as ps
     from fdes_tpu_torch.potential import slice_potential
     from fdes_tpu_torch.propagate import multislice_streamed
@@ -1762,8 +1812,8 @@ def phase_kernels_panel_stream() -> tuple[dict, dict]:
     checks, f32 = [], torch.float32
 
     def passes(n, nsp, nwaves):
-        """{name: (kernel, plain)} of rows 27-29 on one set of inputs, rows 28
-        and 29 on both of their kernels."""
+        """{name: (kernel, plain)} of rows 27-29 on one set of inputs, row 28
+        on both of its kernels."""
         g, gx, fp = card.real(nsp, n, n, top=1.0), card.cplx(nsp, n, n), card.real(nsp, n, n)
         vx = ps.panel_g_rowpass_ref(card.real(n, n)) / n  # V's x spectrum, V in [0, 2000)
         b = card.cplx(*((nwaves,) if nwaves > 1 else ()), n, n)
@@ -1772,9 +1822,8 @@ def phase_kernels_panel_stream() -> tuple[dict, dict]:
             **{f"panel_build_colpass[{r}]": (
                 lambda r=r: ps.panel_build_colpass(gx, fp, route=r),
                 lambda: ps.panel_build_colpass_ref(gx, fp)) for r in ps.ROUTES},
-            **{f"panel_vfused_rowpass[{r}]": (
-                lambda r=r: ps.panel_vfused_rowpass(vx, b, sigma, route=r),
-                lambda: ps.panel_vfused_rowpass_ref(vx, b, sigma)) for r in ps.ROUTES},
+            "panel_vfused_rowpass": (lambda: ps.panel_vfused_rowpass(vx, b, sigma),
+                                     lambda: ps.panel_vfused_rowpass_ref(vx, b, sigma)),
         }
 
     errs = {}
@@ -1795,20 +1844,17 @@ def phase_kernels_panel_stream() -> tuple[dict, dict]:
             "panel_g_rowpass": (plane * (4 + 8), fx),
             **dict.fromkeys(("panel_build_colpass[tile]", "panel_build_colpass[wide]"),
                             (plane * (8 + 4 + 8), 2 * fx + 2 * plane)),
-            **dict.fromkeys(("panel_vfused_rowpass[tile]", "panel_vfused_rowpass[wide]"),
-                            (plane * (8 + 8 + 8), 3 * fx + 9 * plane)),
+            "panel_vfused_rowpass": (plane * (8 + 8 + 8), 3 * fx + 9 * plane),
         }
 
     kernel_of = {"panel_g_rowpass": "panel_wide_g_row_kernel",
                  "panel_build_colpass[tile]": "panel_build_col_kernel",
                  "panel_build_colpass[wide]": "panel_wide_col_kernel",
-                 "panel_vfused_rowpass[tile]": "panel_vfused_row_kernel",
-                 "panel_vfused_rowpass[wide]": "panel_wide_row_kernel"}
+                 "panel_vfused_rowpass": "panel_wide_row_kernel"}
     info_key = {"panel_g_rowpass": "wide_g_row",
                 "panel_build_colpass[tile]": "build_col",
                 "panel_build_colpass[wide]": "wide_build_col",
-                "panel_vfused_rowpass[tile]": "vfused_row",
-                "panel_vfused_rowpass[wide]": "wide_vfused_row"}
+                "panel_vfused_rowpass": "wide_vfused_row"}
     times, info, cufft_build, g_turns, scatter = {}, {}, {}, {}, {}
     for n in (2048, 4096):
         cases = passes(n, 1, 1)
@@ -1869,14 +1915,13 @@ def phase_kernels_panel_stream() -> tuple[dict, dict]:
     if library_kernels(rollout_kernels):
         raise AssertionError(f"panel_streamed kernels: {rollout_kernels}")
     del atoms, ff, prop, psi0, got, xla
-    stream_route_rows = {k: panel_route_rows(k, checks, sigma) for k in ("build_col", "vfused_row")}
+    stream_route_rows = {"build_col": panel_route_rows("build_col", checks, sigma)}
 
     replaces = {
         "panel_g_rowpass": "fdes_tpu/pallas/panel_scan.py:1045",
         **dict.fromkeys(("panel_build_colpass[tile]", "panel_build_colpass[wide]"),
                         "fdes_tpu/pallas/panel_scan.py:1058"),
-        **dict.fromkeys(("panel_vfused_rowpass[tile]", "panel_vfused_rowpass[wide]"),
-                        "fdes_tpu/pallas/panel_scan.py:1086"),
+        "panel_vfused_rowpass": "fdes_tpu/pallas/panel_scan.py:1086",
     }
     rows = {}
     for name in replaces:
@@ -2662,12 +2707,13 @@ C5_VARIANT_TOL = 2 * LONG_ROLLOUT_TOL
 def c5_expected_launches(zero: dict, nslices: int, absorptive: bool = False,
                          waves: int = 1) -> dict:
     """The panel wrappers' counts of one rollout of nslices slices of B
-    waves at 2048^2 (the column passes, and the row passes of a real V, on
-    the kernels PANEL_ROUTE picks)."""
-    init, row = (("panel_init_abs", "panel_rowpass_stack_abs") if absorptive
-                 else ("panel_init", panel_routed(2048, waves)["rowpass_stack"]))
-    return {**zero, "panel_scan": 1, init: 1, panel_routed(2048, waves)["colpass"]: nslices,
-            row: nslices - 1, "panel_final": 1}
+    waves at 2048^2 (the column passes, the row passes, and an absorptive
+    V's init, on the kernels PANEL_ROUTE picks)."""
+    routed = panel_routed(2048, waves)
+    init, row = ((routed["init_abs"], routed["rowpass_stack_abs"]) if absorptive
+                 else ("panel_init", routed["rowpass_stack"]))
+    return {**zero, "panel_scan": 1, init: 1, routed["colpass"]: nslices, row: nslices - 1,
+            "panel_final": 1}
 
 
 def phase_c5(tmp: str, gpu: str) -> tuple[dict, dict]:
@@ -2800,6 +2846,124 @@ def phase_c5(tmp: str, gpu: str) -> tuple[dict, dict]:
                 or not err <= C5_VARIANT_TOL):
             raise AssertionError(f"c5 {name}: {line['variants'][name]}")
     return line, launches
+
+
+#: config 5 with an absorptive potential (Vi = 0.1 |Vr|: a complex64 stack
+#: of 16 GiB), one defocus
+C5_ABS = (*C5, "--set", "sim.absorptive_factor=0.1", "--set", "optics.defoci_A=[-400.0]")
+#: the panel_scan call's own allocations above the V it is handed: its
+#: output, the prepared propagator and psi0 (32 MiB each at 2048^2); a
+#: float32 copy of V's parts would be 16 GiB
+C5_ABS_CALL_PEAK = 2**30
+
+
+def phase_c5_absorptive(tmp: str, gpu: str) -> tuple[dict, dict]:
+    """Config 5 with an absorptive potential at 2048^2 x 512 slices, one
+    defocus, through cli.main in mode hrtem on "auto" (resolves to "panel"),
+    "panel" and "xla": launches exact by route (one panel_scan call, its
+    init and 511 row passes on the kernel PANEL_ROUTE's "row_abs" names),
+    setup, run and peak memory; then on the same stack the panel_scan call
+    alone: its peak above the complex V it is handed (no float32 copy of V),
+    its kernels counted (no FFT library kernel), its busy and wall ms with
+    the absorptive row passes on the tile kernel and on the table's, and
+    with every routed pass on the tile kernels, in turns; the time of the
+    two float32 copies of V's parts that the call made before this slice;
+    the exit wave against a complex128 rollout (min(1e-4, 1.5 x xla's
+    distance)), the images against xla's (2e-4).  Returns (line, launches
+    of the "auto" run)."""
+    from fdes_tpu_torch.config import apply_overrides, load_config
+    from fdes_tpu_torch.kernels import panel_scan as ps
+    from fdes_tpu_torch.pipeline import setup
+    from fdes_tpu_torch.propagate import make_slice_step, multislice
+
+    zero = dict.fromkeys(launch_counts(), 0)
+    runs, imgs, launches = {}, {}, {}
+    for engine in ("auto", "panel", "xla"):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        out, timing = run_cli(tmp, f"c5abs_{engine}", *C5_ABS, "--set", f"sim.engine={engine}")
+        launches[engine] = launch_counts()
+        timing["peak_bytes"] = torch.cuda.max_memory_allocated()
+        timing["launches"] = {k: c for k, c in launches[engine].items() if c}
+        imgs[engine] = np.load(os.path.join(out, "images.npy"))
+        runs[engine] = timing
+    want = c5_expected_launches(zero, C5_SLICES, absorptive=True)
+    for e in ("auto", "panel"):
+        if launches[e] != want:
+            raise AssertionError(f"c5_absorptive on {e}: launches {runs[e]['launches']}")
+        if runs[e]["engine_kind"] != "panel":
+            raise AssertionError(f"c5_absorptive on {e}: timing.json {runs[e]}")
+    if not np.array_equal(imgs["auto"], imgs["panel"]):
+        raise AssertionError("c5_absorptive: images on the defaults differ from those on panel")
+    for e, im in imgs.items():
+        if im.shape != (1, 2048, 2048) or not np.isfinite(im).all() or not (im > 0).all():
+            raise AssertionError(f"c5_absorptive {e}: images.npy {im.shape} not finite, positive")
+    img_err = float(np.linalg.norm(imgs["panel"] - imgs["xla"]) / np.linalg.norm(imgs["xla"]))
+    del imgs
+
+    torch.cuda.empty_cache()
+    cfg = apply_overrides(load_config(CONFIG), [a for a in C5_ABS if a != "--set"])
+    sim = setup(cfg, device="cuda")
+    v = sim.v_stack
+    if v.dtype != torch.complex64 or not v.is_contiguous() or v.shape[0] != C5_SLICES:
+        raise AssertionError(f"c5_absorptive: V {v.dtype} {tuple(v.shape)}")
+
+    def rollout():
+        return ps.panel_scan(sim.psi0, v, sim.propagator, sim.sigma)
+
+    rollout()  # the library and its first launches, outside the readings
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    wave = rollout()
+    torch.cuda.synchronize()
+    call_wall_ms = (time.perf_counter() - t0) * 1e3
+    call_peak = torch.cuda.max_memory_allocated() - base
+    # the copies that panel_scan made of an absorptive V before this slice
+    # (V's real and imaginary parts as two contiguous float32 stacks)
+    copy_ms = time_launches(lambda: (v.real.contiguous(), v.imag.contiguous()), n=3, warmup=1)
+    torch.cuda.empty_cache()
+    rollout_kernels = expect_own_kernels(
+        "c5_absorptive rollout", rollout,
+        panel_loop_kernels(2048, 1, C5_SLICES, absorptive=True), everything=True)
+    busy, n_kernels = device_busy_ms(rollout)
+    by_route = {"row_abs": {"busy_ms": busy_by_route(rollout, ("row_abs",)),
+                            "wall_ms": wall_by_route(rollout, ("row_abs",))},
+                "all": {"busy_ms": busy_by_route(rollout), "wall_ms": wall_by_route(rollout)}}
+
+    # the exit wave against complex128: the plain engine, V cast 64 slices at
+    # a time (the whole stack in complex128 would be 32 GiB)
+    c128 = torch.complex128
+    xla = make_slice_step("xla", shape=sim.grid.shape, grad=False)
+    with torch.no_grad():
+        wave_xla = multislice(sim.psi0, v, sim.propagator, sim.sigma, slice_step=xla)
+        exact, prop = sim.psi0.to(c128), sim.propagator.to(c128)
+        for j in range(0, C5_SLICES, 64):
+            exact = multislice(exact, v[j:j + 64].to(c128), prop, sim.sigma)
+    dist = {"panel": rel_norm(wave, exact), "xla": rel_norm(wave_xla, exact)}
+    wave_tol = min(1e-4, 1.5 * dist["xla"])
+    del sim, v, wave, wave_xla, exact, prop
+    torch.cuda.empty_cache()
+    line = {
+        "phase": "c5_absorptive", "config": "examples/si110_hrtem.toml " + " ".join(C5_ABS[1::2]),
+        "runs": runs, "call": {"wall_ms": call_wall_ms, "busy_ms": busy, "kernels": n_kernels,
+                               "peak_above_v_bytes": call_peak,
+                               "peak_limit_bytes": C5_ABS_CALL_PEAK},
+        "v_copy_ms": copy_ms, "rollout_kernels": rollout_kernels, "by_route": by_route,
+        "rel_norm_vs_complex128": dist, "wave_tol": wave_tol,
+        "images_rel_err_vs_xla": img_err, "img_tol": 2e-4, "gpu": gpu,
+    }
+    if library_kernels(rollout_kernels):
+        raise AssertionError(f"c5_absorptive rollout kernels: {rollout_kernels}")
+    if not call_peak <= C5_ABS_CALL_PEAK:
+        raise AssertionError(f"c5_absorptive: panel_scan allocated {call_peak} B above V")
+    if not dist["panel"] <= wave_tol:
+        raise AssertionError(f"c5_absorptive exit wave vs complex128: {dist}, tol {wave_tol:.2e}")
+    if not img_err <= 2e-4:
+        raise AssertionError(f"c5_absorptive images vs xla: {img_err:.3e}")
+    return line, launches["auto"]
 
 
 C5_SLICES = 512
@@ -3012,26 +3176,26 @@ def c5_streamed_expected(zero: dict, nslices: int, n: int = 2048, waves: int = 1
     """The panel wrappers' counts of one streamed rollout (one C call) of
     nslices slices of B waves and nsp species at n^2: per slice the scatter,
     the g row pass, the build column pass and the column pass, the fused row
-    pass for every slice after the first (the last three on the kernels
-    PANEL_ROUTE picks); slice 0's V by panel_final, panel_init, and the
-    closing panel_final."""
+    pass for every slice after the first (the build column and column passes
+    on the kernels PANEL_ROUTE picks); slice 0's V by panel_final,
+    panel_init, and the closing panel_final."""
     routed, species = panel_routed(n, waves), panel_routed(n, nsp)
     return {**zero, "panel_streamed": 1, "panel_scatter": nslices,
             "panel_g_rowpass": nslices, species["build_colpass"]: nslices,
-            routed["colpass"]: nslices, routed["vfused_rowpass"]: nslices - 1, "panel_final": 2,
+            routed["colpass"]: nslices, "panel_vfused_rowpass": nslices - 1, "panel_final": 2,
             "panel_init": 1}
 
 
 def streamed_kernels(n: int, nslices: int, waves: int = 1, nsp: int = 1) -> dict[str, int]:
     """The port's kernels of that rollout: init and both finals on
     panel_row_kernel, the scatters on panel_scatter_kernel, the g row passes
-    on panel_wide_g_row_kernel, the column, build column and fused row
-    passes on the kernels PANEL_ROUTE picks."""
+    on panel_wide_g_row_kernel, the fused row passes on panel_wide_row_kernel,
+    the column and build column passes on the kernels PANEL_ROUTE picks."""
     routed, species = panel_routed(n, waves), panel_routed(n, nsp)
     return add_counts({"panel_row_kernel": 3, "panel_scatter_kernel": nslices,
                        "panel_wide_g_row_kernel": nslices}, {routed["col_kernel"]: nslices},
                       {species["build_col_kernel"]: nslices},
-                      {routed["vfused_kernel"]: nslices - 1})
+                      {"panel_wide_row_kernel": nslices - 1})
 
 
 def streamed_cli_run(tmp: str, tag: str, *extra: str) -> tuple[np.ndarray, dict, dict]:
@@ -3452,25 +3616,25 @@ ROW_PHASES = {
     "panel_init": ("c5",),
     "panel_rowpass": ("c5",),
     "panel_final": ("c5",),
-    "panel_init_abs": ("c5_absorptive",),
-    "panel_rowpass_stack_abs": ("c5_absorptive",),
     "panel_rowfwd": ("c5_invert", "c5_invert_per_slice"),
     "panel_init_store": ("c5_invert",),
     "panel_scatter": ("c5_streamed", "c5_streamed_4096", "c5_streamed_tilt"),
     "panel_g_rowpass": ("c5_streamed", "c5_streamed_4096", "c5_streamed_tilt"),
-    # the column, backward row, row passes with V_j and the streamed build's
-    # column and fused row passes run one of two kernels each, by the route
-    # table, counted as "<wrapper>[route]"
+    "panel_vfused_rowpass": ("c5_streamed", "c5_streamed_4096", "c5_streamed_tilt"),
+    # the column, backward row, row passes with V_j, the absorptive row
+    # passes and the streamed build's column pass run one of two kernels
+    # each, by the route table, counted as "<wrapper>[route]"
     **{f"{name}[{r}]": phases for name, phases in (
         ("panel_rowpass_stack", ("c5",)),
+        ("panel_init_abs", ("c5_absorptive", "c5_absorptive_64")),
+        ("panel_rowpass_stack_abs", ("c5_absorptive", "c5_absorptive_64")),
         ("panel_rowpass_stack_store", ("c5_invert",)),
         ("panel_colpass", ("c5", "c5_invert", "c5_streamed", "c5_streamed_4096")),
         ("panel_col_bwd", ("c5_invert", "c5_invert_per_slice")),
         ("panel_row_bwd_loop", ("c5_invert",)),
         ("panel_row_bwd_last", ("c5_invert",)),
         ("panel_bwd_tail", ("c5_invert_per_slice",)),
-        ("panel_build_colpass", ("c5_streamed", "c5_streamed_4096", "c5_streamed_tilt")),
-        ("panel_vfused_rowpass", ("c5_streamed", "c5_streamed_4096", "c5_streamed_tilt")))
+        ("panel_build_colpass", ("c5_streamed", "c5_streamed_4096", "c5_streamed_tilt")))
         for r in ("tile", "wide")},
 }
 #: kernels on no path, exempt from the check that each kernel of a path was
@@ -3569,7 +3733,10 @@ def main(argv=None) -> int:
             emit(timed(phase_stem4d, tmp, gpu))
         if "c5" in phases:
             line, by_run = timed(phase_c5, tmp, gpu)
-            path_launches.update(c5=by_run["panel"], c5_absorptive=by_run["absorptive"])
+            path_launches.update(c5=by_run["panel"], c5_absorptive_64=by_run["absorptive"])
+            emit(line)
+        if "c5_absorptive" in phases:
+            line, path_launches["c5_absorptive"] = timed(phase_c5_absorptive, tmp, gpu)
             emit(line)
         if "c5_invert" in phases:
             line, by_run = timed(phase_c5_invert, tmp, gpu)

@@ -73,26 +73,25 @@ __device__ __forceinline__ float2 transmit(float2 p, float phase, float damp) {
   c *= d;
   return make_float2(p.x * c - p.y * s, p.x * s + p.y * c);
 }
-// a, b (elements 2i, 2i + 1) times exp(i sigma v), damped by exp(-sigma vi)
-// when ABS; v and vi point at element 2i's potentials.  VC: v points at
-// element 2i of a complex plane (float2 values, 4i floats in), whose real
-// parts are the potentials.
+// a, b (elements 2i, 2i + 1) times exp(i sigma v).  VC: v points at element
+// 2i of a complex plane (float2 values, 4i floats in), whose real parts are
+// the potentials; with ABS that plane is an absorptive potential vr + i vi,
+// whose imaginary parts damp by exp(-sigma vi).
 template <bool ABS, bool VC = false>
 __device__ __forceinline__ void transmit_pair(float2* a, float2* b, const float* __restrict__ v,
-                                              const float* __restrict__ vi, float sigma) {
-  static_assert(!(ABS && VC), "a complex plane's real part is a real potential");
-  float2 vv;
+                                              float sigma) {
+  static_assert(!ABS || VC, "an absorptive potential is read as one complex plane");
   if constexpr (VC) {
     const float4 z = *reinterpret_cast<const float4*>(v);
-    vv = make_float2(z.x, z.z);
+    if constexpr (ABS) {
+      *a = transmit(*a, sigma * z.x, sigma * z.y);
+      *b = transmit(*b, sigma * z.z, sigma * z.w);
+    } else {
+      *a = transmit(*a, sigma * z.x);
+      *b = transmit(*b, sigma * z.z);
+    }
   } else {
-    vv = *reinterpret_cast<const float2*>(v);
-  }
-  if constexpr (ABS) {
-    const float2 ww = *reinterpret_cast<const float2*>(vi);
-    *a = transmit(*a, sigma * vv.x, sigma * ww.x);
-    *b = transmit(*b, sigma * vv.y, sigma * ww.y);
-  } else {
+    const float2 vv = *reinterpret_cast<const float2*>(v);
     *a = transmit(*a, sigma * vv.x);
     *b = transmit(*b, sigma * vv.y);
   }
@@ -282,8 +281,7 @@ __device__ __forceinline__ void store_pair(float2* p, float2 a, float2 b) {
 // One row tile: 4096 contiguous elements (4096/N rows) at src, written to dst
 // (dst may be src).  inverse: undo the x transform of the previous step first.
 // v != nullptr: multiply by exp(i*sigma*v) (v points at the tile's 4096
-// potentials), damped by exp(-sigma*vi) when ABS (an absorptive potential v +
-// i vi, vi at the tile's imaginary parts).  forward: transform along x.  src
+// potentials).  forward: transform along x.  src
 // may have been written by other blocks before the last barrier, so it is
 // read with plain loads.
 //
@@ -292,19 +290,19 @@ __device__ __forceinline__ void store_pair(float2* p, float2 a, float2 b) {
 // pre != nullptr receives it before the transmit (a checkpoint of psi_j),
 // post != nullptr after it (s_j = t_j * psi_j), and dst == nullptr skips the
 // final store.  VC: v is a complex plane whose real parts are the
-// potentials (the streamed build's V_0, transmit_pair).
+// potentials (the streamed build's V_0); with ABS its imaginary parts damp
+// (an absorptive potential, transmit_pair).
 template <int LOG2N, bool STORES = false, bool ABS = false, bool VC = false>
 __device__ void row_tile(float2* tile, const float2* tw, const float2* src, float2* dst,
                          const float* __restrict__ v, float sigma, bool inverse, bool forward,
-                         float2* pre = nullptr, float2* post = nullptr,
-                         const float* __restrict__ vi = nullptr) {
+                         float2* pre = nullptr, float2* post = nullptr) {
   constexpr int kVPair = VC ? 4 : 2;  // floats of v between elements 2i and 2i + 2
   const bool transmit_on_load = v != nullptr && !inverse;
   for (int i = threadIdx.x; i < kTile / 2; i += kThreads) {
     float2 a, b;
     load_pair(src + 2 * i, &a, &b);
     if (STORES && !inverse && pre != nullptr) store_pair(pre + 2 * i, a, b);
-    if (transmit_on_load) transmit_pair<ABS, VC>(&a, &b, v + kVPair * i, vi + 2 * i, sigma);
+    if (transmit_on_load) transmit_pair<ABS, VC>(&a, &b, v + kVPair * i, sigma);
     if (STORES && !inverse && post != nullptr) store_pair(post + 2 * i, a, b);
     tile[pad(2 * i)] = a;
     tile[pad(2 * i + 1)] = b;
@@ -318,7 +316,7 @@ __device__ void row_tile(float2* tile, const float2* tw, const float2* src, floa
         float2 b = tile[pad(2 * i + 1)];
         if (STORES && pre != nullptr) store_pair(pre + 2 * i, a, b);
         if (v != nullptr) {
-          transmit_pair<ABS, VC>(&a, &b, v + kVPair * i, vi + 2 * i, sigma);
+          transmit_pair<ABS, VC>(&a, &b, v + kVPair * i, sigma);
           tile[pad(2 * i)] = a;
           tile[pad(2 * i + 1)] = b;
         }
@@ -516,7 +514,7 @@ __device__ void cluster_load_rows(float2* tile, const float2* src, const float* 
     const int64_t g = static_cast<int64_t>(S::C * (e >> LOG2N) + rank) * S::N + (e & (S::N - 1));
     float2 a, b;
     load_pair(src + g, &a, &b);
-    transmit_pair<false>(&a, &b, vrows + e, nullptr, sigma);
+    transmit_pair<false>(&a, &b, vrows + e, sigma);
     tile[pad(e)] = a;
     tile[pad(e + 1)] = b;
   }

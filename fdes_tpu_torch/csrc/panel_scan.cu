@@ -9,8 +9,8 @@
 //   panel_row_kernel<L, kMid, false>        _row_mid_stack_kernel      (:125) and
 //                                           _row_mid_kernel            (:101)
 //   panel_row_kernel<L, kFinal, false>      _row_final_kernel          (:194)
-//   panel_row_kernel<L, kInit, true>        _row_init_abs_kernel       (:150)
-//   panel_row_kernel<L, kMid, true>         _row_mid_stack_abs_kernel  (:171)
+//   panel_row_kernel<L, kInit, true, true>  _row_init_abs_kernel       (:150)
+//   panel_row_kernel<L, kMid, true, true>   _row_mid_stack_abs_kernel  (:171)
 //   panel_row_kernel<L, kFwd, false>        _row_fwd_kernel            (:206)
 //   panel_bwd_row_kernel<L, kBwdTail>       _row_bwd_tail_kernel       (:219)
 //   panel_row_kernel<L, kInitStore, false>  _row_init_store_kernel     (:582)
@@ -20,7 +20,6 @@
 //   panel_bwd_row_kernel<L, kBwdLast>       _row_bwd_last_kernel       (:679)
 //   panel_wide_g_row_kernel<L>              _row_g_kernel              (:1045)
 //   panel_build_col_kernel<L>               _col_build_kernel          (:1058)
-//   panel_vfused_row_kernel<L>              _row_vfused_kernel         (:1086)
 // and, redesigned for the H100 beside the first kernels of those rows,
 //   panel_wide_col_kernel<L, C>             _col_kernel (:247) and _col_bwd_kernel (:626)
 //   panel_wide_bwd_row_kernel<L, MODE>      _row_bwd_loop_kernel (:650), _row_bwd_last_kernel
@@ -29,9 +28,13 @@
 //   panel_wide_row_kernel<L, kMidStore>     _row_mid_store_kernel      (:603)
 //   panel_wide_col_kernel<L, C, kColBuild>  _col_build_kernel          (:1058) and
 //   panel_wide_col_kernel<L, C, kColBuildSum>
-//   panel_wide_row_kernel<L, kVfused>       _row_vfused_kernel         (:1086)
+//   panel_wide_row_kernel<L, kInitAbs>      _row_init_abs_kernel       (:150)
+//   panel_wide_row_kernel<L, kMidAbs>       _row_mid_stack_abs_kernel  (:171)
 // (kernels/panel_scan.PANEL_ROUTE picks one kernel of each pair before the
 // launch, by size and waves; the entry points take the choice as `route`),
+// and with no tile kernel beside it (deleted once the wide one won every
+// measured row)
+//   panel_wide_row_kernel<L, kVfused>       _row_vfused_kernel         (:1086)
 // and the whole loops _run_single / _run_single_abs (the rollout),
 // _panel_loop_fwd and _panel_loop_bwd (the store-s gradient) and
 // multislice_panel_streamed's scan (the streamed rollout, :1245-1255) as
@@ -51,10 +54,11 @@
 //   final      psi_S   = Fx^H(b_{S-1})                        row pass
 //
 // with t = exp(i sigma V), or exp(-sigma Vi) exp(i sigma Vr) for an
-// absorptive potential (the damped transmit, full-precision sincosf and
-// expf), and Fx^H, Fy^H the unscaled inverse transforms: the 1/N^2 rides on
-// the propagator, which the caller hands in bit-reversed order in both axes
-// (P_br[a][b] = P[bitrev a][bitrev b]).  So b_j = Fx(psi_{j+1}) / N.  A slice
+// absorptive potential V = Vr + i Vi (the damped transmit, full-precision
+// sincosf and expf; V read in place as one complex64 plane), and Fx^H, Fy^H
+// the unscaled inverse transforms: the 1/N^2 rides on the propagator, which
+// the caller hands in bit-reversed order in both axes (P_br[a][b] =
+// P[bitrev a][bitrev b]).  So b_j = Fx(psi_{j+1}) / N.  A slice
 // costs one column pass and one row pass, 2S + 1 launches a rollout.  Under
 // differentiation the row passes also store s_j = t_j psi_j in natural order
 // (kInitStore, kMidStore: row_tile's `post`), for the B waves a stack
@@ -111,9 +115,9 @@
 // resident at 2048^2 and does not fit beside a 4096-point panel of 4
 // columns (2 x 136 KB), and no narrower panel; nsp = 1 (Si) moves no extra
 // byte, each further species 16 bytes a pixel.  Row 29 transforms V's row
-// tile, keeps its real part in shared memory (4 B a point) and carries the
-// tile of each wave through the inverse transform, transmit and forward
-// transform, so V is transformed once per tile for all the waves.
+// in a row group's registers, keeps its real part there and carries the row
+// of each wave through the inverse transform, transmit and forward
+// transform, so V is transformed once per row for all the waves.
 //
 // Bounds (H100 SXM: 3.35 TB/s, 67 TFLOP/s FP32): at 2048^2 a complex64
 // plane is 32 MiB and the planes do not stay in the 50 MB L2 between
@@ -171,7 +175,9 @@
 // transform of the sum.  Row 29 is a mode of the wide forward row kernel:
 // vx's row loaded with b's, through the exchange and the inverse x transform
 // in the group's registers, its real part V kept in layout 1 (where b's row
-// leaves its own inverse transform) and t formed from it once a row.
+// leaves its own inverse transform) and t formed from it once a row.  Its
+// tile kernel (V's real part through a shared-memory tile) lost every
+// measured row and was deleted.
 //
 // Row 27 (bound 15 us at 2048^2, 60 us at 4096^2: 4 bytes in and 8 out a
 // pixel a species) is a sibling of the wide row kernel: the reals of a row
@@ -180,6 +186,19 @@
 // 3.2x and 2.9x the bound (a block barrier after every radix-2 stage, a zero
 // imaginary part written into the tile) and was slower at every measured
 // size and species count.
+//
+// The absorptive row passes, rows 19 and 18 (bounds 30 us at 2048^2 and 120
+// us at 4096^2: b and a of each wave 16 bytes a pixel, the complex V once 8),
+// are the wide row kernel's modes kMidAbs and kInitAbs.  The tile kernels
+// ran them at 2.7x and 2.2x the bound, behind the same block barriers as row
+// 15's, and the wrapper first copied V's real and imaginary parts into two
+// float32 stacks (16 GiB beside the 16 GiB complex stack at 2048^2 x 512).
+// Here V is read in place: a group loads V_j's complex row (8 bytes a value,
+// 256 contiguous bytes a warp instruction) with b's, forms t = exp(-sigma
+// Vi) exp(i sigma Vr) once a row and keeps it in the registers kMid keeps V
+// in; at 4096 points too, since (Vr, Vi) would take the same two registers a
+// value.  kInitAbs transmits psi's row as it is loaded (natural order,
+// layout 1) and runs the forward transform alone.
 //
 // Layout: PyTorch's interleaved complex64 (float2), C-contiguous, 16-byte
 // aligned; N in {256, 512, 1024, 2048, 4096}; planes are (nwaves, N, N);
@@ -194,12 +213,14 @@ namespace {
 
 // Row passes: kInit transmit, forward x; kMid inverse x, transmit, forward x;
 // kFinal inverse x; kFwd forward x; kInitStore, kMidStore as kInit, kMid,
-// storing s = t psi on the way; kVfused (the wide row kernel only) as kMid
-// with V built from its x spectrum.  Backward row passes (bwd_row_tile):
+// storing s = t psi on the way; the wide row kernel's kVfused as kMid with
+// V built from its x spectrum, and kInitAbs, kMidAbs as kInit, kMid with
+// the damped transmit of a complex V.  Backward row passes (bwd_row_tile):
 // kBwdLoop inverse x, dV, * conj(t), forward x; kBwdLast the same without the
 // forward x; kBwdTail as kBwdLast with s formed from psi.
 enum RowMode {
-  kInit = 0, kMid = 1, kFinal = 2, kFwd = 3, kInitStore = 4, kMidStore = 5, kVfused = 6
+  kInit = 0, kMid = 1, kFinal = 2, kFwd = 3, kInitStore = 4, kMidStore = 5, kVfused = 6,
+  kInitAbs = 7, kMidAbs = 8
 };
 enum BwdMode { kBwdLoop = 0, kBwdLast = 1, kBwdTail = 2 };
 // The wide column kernel's passes: kColProp the column pass with P (rows 14,
@@ -230,16 +251,16 @@ int blocks_for(int64_t ntiles) {
 }
 
 // A row pass over every tile of nwaves planes (fused_fft.cuh's row_tile).
-// vr, vi: one (N, N) plane of potentials shared by the waves (the wrapper
-// points them at slice j of a stack); unused by kFinal and kFwd, vi unused
-// unless ABS.  VC: vr is a complex (N, N) plane (float2), its real parts the
-// potentials (the streamed rollout's init from V_0 = Fx^H(vx)).  s: the store
-// modes' s plane of wave 0, s_wave_stride elements to the next wave's.
+// v: one (N, N) plane of potentials shared by the waves (the wrapper points
+// it at slice j of a stack); unused by kFinal and kFwd.  VC: v is a complex
+// (N, N) plane (float2), its real parts the potentials (the streamed
+// rollout's init from V_0 = Fx^H(vx)); with ABS an absorptive potential,
+// its imaginary parts damping.  s: the store modes' s plane of wave 0,
+// s_wave_stride elements to the next wave's.
 template <int LOG2N, int MODE, bool ABS, bool VC = false>
 __global__ void __launch_bounds__(kThreads)
-panel_row_kernel(const float2* src, float2* dst, const float* __restrict__ vr,
-                 const float* __restrict__ vi, float2* s, int64_t s_wave_stride, float sigma,
-                 int64_t nwaves) {
+panel_row_kernel(const float2* src, float2* dst, const float* __restrict__ v, float2* s,
+                 int64_t s_wave_stride, float sigma, int64_t nwaves) {
   constexpr bool kStore = MODE == kInitStore || MODE == kMidStore;
   constexpr bool kInverse = MODE == kMid || MODE == kMidStore || MODE == kFinal;
   constexpr bool kTransmit = MODE != kFinal && MODE != kFwd;
@@ -252,10 +273,9 @@ panel_row_kernel(const float2* src, float2* dst, const float* __restrict__ vr,
   for (int64_t t = blockIdx.x; t < nwaves * kTiles; t += gridDim.x) {
     const int64_t r = (t % kTiles) * kTile;
     row_tile<LOG2N, kStore, ABS, VC>(tile, tw, src + t * kTile, dst + t * kTile,
-                                     kTransmit ? vr + (VC ? 2 : 1) * r : nullptr, sigma, kInverse,
+                                     kTransmit ? v + (VC ? 2 : 1) * r : nullptr, sigma, kInverse,
                                      MODE != kFinal, nullptr,
-                                     kStore ? s + (t / kTiles) * s_wave_stride + r : nullptr,
-                                     ABS ? vi + r : nullptr);
+                                     kStore ? s + (t / kTiles) * s_wave_stride + r : nullptr);
   }
 }
 
@@ -734,26 +754,38 @@ constexpr size_t wide_row_smem_bytes() {
 // row, the group keeps V and forms t again each wave.  src may be dst: a
 // group reads a row before it writes it, and no other group touches that row.
 //
-// Row 29 redesigned (kVfused): the same pass with V = Re(Fx^H(vx)), vx (N, N)
+// Row 29 redesigned (kVfused): the same pass with V = Re(Fx^H(vc)), vc (N, N)
 // V's x spectrum from row 28 (bit-reversed x, natural y; v unused).  The
-// group loads vx's row with wave 0's row of b (layout 1), takes it through the
+// group loads vc's row with wave 0's row of b (layout 1), takes it through the
 // exchange to layout 3 and the inverse x transform in the registers t will
 // hold, and keeps its real part in layout 1, the layout in which b's row
 // leaves its own inverse transform, so V needs no exchange of its own; then
-// as kMid.  vx is read and transformed once a row for all the waves.
+// as kMid.  vc is read and transformed once a row for all the waves.
+//
+// Rows 19 and 18 redesigned (kMidAbs, kInitAbs): the pass with the damped
+// transmit t = exp(-sigma Vi) exp(i sigma Vr) of an absorptive potential, vc
+// the complex (N, N) plane Vr + i Vi of slice j (v unused).  kMidAbs is kMid
+// with V's complex row loaded with b's and t formed once a row at every size;
+// kInitAbs (a = Fx(t_0 psi), src psi) skips the exchange and the inverse
+// transform in front of the transmit.
 template <int LOG2N, int MODE>
 __global__ void __launch_bounds__(kWideRowThreads, 2)
 panel_wide_row_kernel(const float2* src, float2* dst, const float* __restrict__ v,
-                      const float2* __restrict__ vx, float2* s, int64_t s_wave_stride, float sigma,
+                      const float2* __restrict__ vc, float2* s, int64_t s_wave_stride, float sigma,
                       int64_t nwaves) {
-  static_assert(MODE == kMid || MODE == kMidStore || MODE == kVfused,
-                "the wide kernel runs rows 15, 23 and 29");
+  static_assert(MODE == kMid || MODE == kMidStore || MODE == kVfused || MODE == kInitAbs ||
+                    MODE == kMidAbs,
+                "the wide kernel runs rows 15, 23, 29, 19 and 18");
   using X = Rounds<LOG2N>;
   constexpr int N = X::N;
   constexpr int R = X::R;
   constexpr int kGroups = kWideRowThreads / X::T;
   constexpr int64_t kPlane = int64_t{1} << (2 * LOG2N);
-  constexpr bool kKeepT = LOG2N < 12;
+  constexpr bool kAbs = MODE == kInitAbs || MODE == kMidAbs;
+  constexpr bool kInverse = MODE != kInitAbs;  // b arrives as an x spectrum
+  // t takes two registers a value; a real V, kept in place of t at 4096
+  // points, one
+  constexpr bool kKeepT = LOG2N < 12 || kAbs;
   extern __shared__ float4 wide_smem[];
   float2* tw = reinterpret_cast<float2*>(wide_smem);
   init_staged_twiddles<LOG2N, kWideRowThreads>(tw);
@@ -764,13 +796,14 @@ panel_wide_row_kernel(const float2* src, float2* dst, const float* __restrict__ 
   for (int64_t y = blockIdx.x + static_cast<int64_t>(group) * gridDim.x; y < N; y += step) {
     const int64_t r = y * N;
     float2 x[R];
-    float2 t[R];  // V in .x (kVfused: vx, then V = Re(Fx^H(vx))), then t (kKeepT)
+    // V in .x (kVfused: vc, then V = Re(Fx^H(vc)); kAbs: (Vr, Vi)), then t (kKeepT)
+    float2 t[R];
 #pragma unroll
     for (int m = 0; m < R; ++m) {
       const int p = rounds_pos<LOG2N, 1>(g.t, m);
       x[m] = src[r + p];
-      if (MODE == kVfused) {
-        t[m] = __ldg(vx + r + p);
+      if (MODE == kVfused || kAbs) {
+        t[m] = __ldg(vc + r + p);
       } else {
         t[m].x = __ldg(v + r + p);
       }
@@ -781,15 +814,26 @@ panel_wide_row_kernel(const float2* src, float2* dst, const float* __restrict__ 
     }
     if (kKeepT) {
 #pragma unroll
-      for (int m = 0; m < R; ++m) sincosf(sigma * t[m].x, &t[m].y, &t[m].x);
+      for (int m = 0; m < R; ++m) {
+        float sn, cs;
+        sincosf(sigma * t[m].x, &sn, &cs);
+        if (kAbs) {
+          const float d = expf(-sigma * t[m].y);
+          sn *= d;
+          cs *= d;
+        }
+        t[m] = make_float2(cs, sn);
+      }
     }
     for (int64_t b = 0; b < nwaves; ++b) {
       if (b > 0) {
 #pragma unroll
         for (int m = 0; m < R; ++m) x[m] = src[b * kPlane + r + rounds_pos<LOG2N, 1>(g.t, m)];
       }
-      rounds_exchange<LOG2N, 1, 3>(x, g);
-      rounds_inverse<LOG2N>(x, tw, g);
+      if (kInverse) {
+        rounds_exchange<LOG2N, 1, 3>(x, g);
+        rounds_inverse<LOG2N>(x, tw, g);
+      }
 #pragma unroll
       for (int m = 0; m < R; ++m) {
         float2 tm = t[m];
@@ -950,48 +994,6 @@ panel_build_col_kernel(const float2* __restrict__ gx, const float* __restrict__ 
   }
 }
 
-template <int LOG2N>
-constexpr size_t vfused_smem_bytes() {
-  return row_smem_bytes<LOG2N>() + sizeof(float) * kTile;
-}
-
-// Row 29: per row tile, V = Re(Fx^H(vx)) of the tile into shared memory
-// (vx (N, N): V in x spectrum, natural y, from row 28), then for each of the
-// nwaves waves a = Fx(exp(i sigma V) Fx^H(b)) (row_tile, src to dst; dst
-// may be src).
-template <int LOG2N>
-__global__ void __launch_bounds__(kThreads)
-panel_vfused_row_kernel(const float2* __restrict__ vx, const float2* src, float2* dst,
-                        float sigma, int64_t nwaves) {
-  extern __shared__ float2 smem[];
-  constexpr int64_t kPlane = int64_t{1} << (2 * LOG2N);
-  float2* tile = smem;
-  float2* tw = smem + kTilePadded;
-  float* v = reinterpret_cast<float*>(tw + kTwiddlesOf<LOG2N>);
-  init_twiddles<LOG2N>(tw);
-  __syncthreads();
-  for (int64_t t = blockIdx.x; t < kTilesPerWave<LOG2N>; t += gridDim.x) {
-    const int64_t r = t * kTile;
-    for (int i = threadIdx.x; i < kTile / 2; i += kThreads) {
-      float2 a, b;
-      load_pair(vx + r + 2 * i, &a, &b);
-      tile[pad(2 * i)] = a;
-      tile[pad(2 * i + 1)] = b;
-    }
-    __syncthreads();
-    fft_inverse<LOG2N, true>(tile, tw);
-    for (int i = threadIdx.x; i < kTile / 2; i += kThreads) {
-      *reinterpret_cast<float2*>(v + 2 * i) =
-          make_float2(tile[pad(2 * i)].x, tile[pad(2 * i + 1)].x);
-    }
-    __syncthreads();
-    for (int64_t b = 0; b < nwaves; ++b) {
-      row_tile<LOG2N>(tile, tw, src + b * kPlane + r, dst + b * kPlane + r, v, sigma, true,
-                      true);
-    }
-  }
-}
-
 // Launch a pass over ntiles tiles (grid-stride, at most kMaxBlocks blocks)
 // with `bytes` of dynamic shared memory.
 template <typename Kernel, typename... Args>
@@ -1004,11 +1006,10 @@ int launch(Kernel* kernel, int64_t ntiles, size_t bytes, cudaStream_t stream, Ar
 }
 
 template <int LOG2N, int MODE, bool ABS = false, bool VC = false>
-int launch_row(const float2* src, float2* dst, const float* vr, const float* vi, float2* s,
-               int64_t s_wave_stride, float sigma, int64_t nwaves, cudaStream_t stream) {
+int launch_row(const float2* src, float2* dst, const float* v, float2* s, int64_t s_wave_stride,
+               float sigma, int64_t nwaves, cudaStream_t stream) {
   return launch(panel_row_kernel<LOG2N, MODE, ABS, VC>, nwaves * kTilesPerWave<LOG2N>,
-                row_smem_bytes<LOG2N>(), stream, src, dst, vr, vi, s, s_wave_stride, sigma,
-                nwaves);
+                row_smem_bytes<LOG2N>(), stream, src, dst, v, s, s_wave_stride, sigma, nwaves);
 }
 
 template <int LOG2N>
@@ -1102,14 +1103,14 @@ int launch_wide_bwd_row_m(const float2* src, float2* dst, const float2* s, int64
 }
 
 template <int LOG2N, int MODE>
-int launch_wide_row(const float2* src, float2* dst, const float* v, const float2* vx, float2* s,
+int launch_wide_row(const float2* src, float2* dst, const float* v, const float2* vc, float2* s,
                     int64_t s_wave_stride, float sigma, int64_t nwaves, cudaStream_t stream) {
   auto* kernel = panel_wide_row_kernel<LOG2N, MODE>;
   int blocks = 0;
   const int err = wide_row_blocks<LOG2N>(kernel, &blocks);
   if (err != cudaSuccess) return err;
   kernel<<<blocks, kWideRowThreads, wide_row_smem_bytes<LOG2N>(), stream>>>(
-      src, dst, v, vx, s, s_wave_stride, sigma, nwaves);
+      src, dst, v, vc, s, s_wave_stride, sigma, nwaves);
   return cudaGetLastError();
 }
 
@@ -1119,8 +1120,7 @@ int launch_row_route(int route, const float2* src, float2* dst, const float* v, 
                      int64_t s_wave_stride, float sigma, int64_t nwaves, cudaStream_t stream) {
   switch (route) {
     case kRouteTile:
-      return launch_row<LOG2N, MODE>(src, dst, v, nullptr, s, s_wave_stride, sigma, nwaves,
-                                     stream);
+      return launch_row<LOG2N, MODE>(src, dst, v, s, s_wave_stride, sigma, nwaves, stream);
     case kRouteWide:
       return launch_wide_row<LOG2N, MODE>(src, dst, v, nullptr, s, s_wave_stride, sigma, nwaves,
                                           stream);
@@ -1148,20 +1148,31 @@ int launch_build_col_route(int route, const float2* gx, const float* fp, float2*
   }
 }
 
-// Row 29 on its route: the tile kernel or the wide row kernel's kVfused.
-template <int LOG2N>
-int launch_vfused_route(int route, const float2* vx, const float2* src, float2* dst, float sigma,
-                        int64_t nwaves, cudaStream_t stream) {
+// An absorptive row pass (kInit: row 18, a = Fx(t_0 psi); kMid: row 19) on
+// its route, vc the complex (N, N) plane Vr + i Vi: the tile kernel reading
+// it as a complex plane, or the wide row kernel's kInitAbs / kMidAbs.
+template <int LOG2N, int MODE>
+int launch_row_abs_route(int route, const float2* src, float2* dst, const float2* vc,
+                         float sigma, int64_t nwaves, cudaStream_t stream) {
+  static_assert(MODE == kInit || MODE == kMid, "rows 18 and 19");
   switch (route) {
     case kRouteTile:
-      return launch(panel_vfused_row_kernel<LOG2N>, kTilesPerWave<LOG2N>,
-                    vfused_smem_bytes<LOG2N>(), stream, vx, src, dst, sigma, nwaves);
+      return launch_row<LOG2N, MODE, true, true>(src, dst, reinterpret_cast<const float*>(vc),
+                                                 nullptr, 0, sigma, nwaves, stream);
     case kRouteWide:
-      return launch_wide_row<LOG2N, kVfused>(src, dst, nullptr, vx, nullptr, 0, sigma, nwaves,
-                                             stream);
+      return launch_wide_row<LOG2N, MODE == kInit ? kInitAbs : kMidAbs>(
+          src, dst, nullptr, vc, nullptr, 0, sigma, nwaves, stream);
     default:
       return cudaErrorInvalidValue;
   }
+}
+
+// Row 29: the wide row kernel's kVfused, V = Re(Fx^H(vx)).
+template <int LOG2N>
+int launch_vfused(const float2* vx, const float2* src, float2* dst, float sigma, int64_t nwaves,
+                  cudaStream_t stream) {
+  return launch_wide_row<LOG2N, kVfused>(src, dst, nullptr, vx, nullptr, 0, sigma, nwaves,
+                                         stream);
 }
 
 // Row 27: the g row kernel over the rows of all nplanes planes.
@@ -1224,21 +1235,28 @@ int launch_bwd_row(int mode, int route, const float2* src, float2* dst, const fl
 }
 
 // The whole rollout: init, (S - 1) x [column pass, row pass with V_j],
-// column pass, final; every pass in place on out after the first.  STORE:
-// the row passes also store s_j of wave b at s + b * S * N^2 + j * N^2.
-// col_route, row_route: the column passes' and the row passes' with V_j
-// kernels (Route); an absorptive V's row passes run the tile kernel
-// (row_route kRouteTile).
+// column pass, final; every pass in place on out after the first.  v: the
+// real (S, N, N) stack, or with ABS the complex one (float2, read in place).
+// STORE (a real V): the row passes also store s_j of wave b at s + b * S *
+// N^2 + j * N^2.  col_route, row_route: the column passes' and the row
+// passes' with V_j kernels (Route); with ABS row_route also runs the init.
 template <int LOG2N, bool ABS, bool STORE = false>
-int launch_scan(const float2* psi0, const float* vr, const float* vi, const float2* prop,
-                float2* out, float2* s, float sigma, int64_t nwaves, int nslices,
-                int64_t p_wave_stride, int col_route, int row_route, cudaStream_t stream) {
+int launch_scan(const float2* psi0, const void* v, const float2* prop, float2* out, float2* s,
+                float sigma, int64_t nwaves, int nslices, int64_t p_wave_stride, int col_route,
+                int row_route, cudaStream_t stream) {
+  static_assert(!(ABS && STORE), "the store pair takes a real V");
   constexpr int64_t kPlane = int64_t{1} << (2 * LOG2N);
   constexpr int kFirst = STORE ? kInitStore : kInit;
   constexpr int kNext = STORE ? kMidStore : kMid;
-  if (ABS && row_route != kRouteTile) return cudaErrorInvalidValue;
+  [[maybe_unused]] const float* vr = static_cast<const float*>(v);
+  [[maybe_unused]] const float2* vc = static_cast<const float2*>(v);
   const int64_t s_stride = STORE ? nslices * kPlane : 0;
-  int err = launch_row<LOG2N, kFirst, ABS>(psi0, out, vr, vi, s, s_stride, sigma, nwaves, stream);
+  int err;
+  if constexpr (ABS) {
+    err = launch_row_abs_route<LOG2N, kInit>(row_route, psi0, out, vc, sigma, nwaves, stream);
+  } else {
+    err = launch_row<LOG2N, kFirst>(psi0, out, vr, s, s_stride, sigma, nwaves, stream);
+  }
   for (int64_t j = 1; err == cudaSuccess && j <= nslices; ++j) {
     err = launch_col_route<LOG2N>(col_route, out, out, prop, p_wave_stride, false, nwaves,
                                   stream);
@@ -1246,15 +1264,14 @@ int launch_scan(const float2* psi0, const float* vr, const float* vi, const floa
     if (j < nslices) {
       float2* sj = STORE ? s + j * kPlane : nullptr;
       if constexpr (ABS) {
-        err = launch_row<LOG2N, kNext, true>(out, out, vr + j * kPlane, vi + j * kPlane, sj,
-                                             s_stride, sigma, nwaves, stream);
+        err = launch_row_abs_route<LOG2N, kMid>(row_route, out, out, vc + j * kPlane, sigma,
+                                                nwaves, stream);
       } else {
         err = launch_row_route<LOG2N, kNext>(row_route, out, out, vr + j * kPlane, sj, s_stride,
                                              sigma, nwaves, stream);
       }
     } else {
-      err = launch_row<LOG2N, kFinal>(out, out, nullptr, nullptr, nullptr, 0, sigma, nwaves,
-                                      stream);
+      err = launch_row<LOG2N, kFinal>(out, out, nullptr, nullptr, 0, sigma, nwaves, stream);
     }
   }
   return err;
@@ -1269,7 +1286,7 @@ int launch_scan_bwd(const float2* s, const float* v, const float2* prop, const f
                     float2* dpsi, float* dv, float sigma, int64_t nwaves, int nslices,
                     int64_t p_wave_stride, int col_route, int row_route, cudaStream_t stream) {
   constexpr int64_t kPlane = int64_t{1} << (2 * LOG2N);
-  int err = launch_row<LOG2N, kFwd>(g, dpsi, nullptr, nullptr, nullptr, 0, sigma, nwaves, stream);
+  int err = launch_row<LOG2N, kFwd>(g, dpsi, nullptr, nullptr, 0, sigma, nwaves, stream);
   for (int64_t j = nslices - 1; err == cudaSuccess && j >= 0; --j) {
     err = launch_col_route<LOG2N>(col_route, dpsi, dpsi, prop, p_wave_stride, true, nwaves,
                                   stream);
@@ -1287,14 +1304,13 @@ int launch_scan_bwd(const float2* s, const float* v, const float2* prop, const f
 // into gx, row 28 into vx; slice 0's V_0 = Re(Fx^H(vx)) as a final row pass
 // into gx's first plane and the init reading its real parts; for j > 0 the
 // column pass and row 29 (the vx of slice j), every pass in place on out;
-// then the closing column pass and final.  The routes: row 28's, the column
-// pass's and row 29's kernels (Route).
+// then the closing column pass and final.  The routes: row 28's and the
+// column pass's kernels (Route).
 template <int LOG2N>
 int launch_streamed(const float2* psi0, const int64_t* idx, const float* val, int64_t corners,
                     int nslices, const float* fp, int nsp, const float2* prop, float2* out,
                     float* g, float2* gx, float2* vx, float sigma, int64_t nwaves,
-                    int64_t p_wave_stride, int build_route, int col_route, int vfused_route,
-                    cudaStream_t stream) {
+                    int64_t p_wave_stride, int build_route, int col_route, cudaStream_t stream) {
   constexpr int64_t kPlane = int64_t{1} << (2 * LOG2N);
   auto build = [&](int64_t j) {
     int err = launch_scatter(idx + j * corners, val + j * corners, corners, g, nsp * kPlane,
@@ -1307,18 +1323,18 @@ int launch_streamed(const float2* psi0, const int64_t* idx, const float* val, in
   };
   int err = build(0);
   if (err == cudaSuccess) {
-    err = launch_row<LOG2N, kFinal>(vx, gx, nullptr, nullptr, nullptr, 0, 0.0f, 1, stream);
+    err = launch_row<LOG2N, kFinal>(vx, gx, nullptr, nullptr, 0, 0.0f, 1, stream);
   }
   if (err == cudaSuccess) {
     err = launch_row<LOG2N, kInit, false, true>(psi0, out, reinterpret_cast<const float*>(gx),
-                                                nullptr, nullptr, 0, sigma, nwaves, stream);
+                                                nullptr, 0, sigma, nwaves, stream);
   }
   for (int64_t j = 1; err == cudaSuccess && j < nslices; ++j) {
     err = launch_col_route<LOG2N>(col_route, out, out, prop, p_wave_stride, false, nwaves,
                                   stream);
     if (err == cudaSuccess) err = build(j);
     if (err == cudaSuccess) {
-      err = launch_vfused_route<LOG2N>(vfused_route, vx, out, out, sigma, nwaves, stream);
+      err = launch_vfused<LOG2N>(vx, out, out, sigma, nwaves, stream);
     }
   }
   if (err == cudaSuccess) {
@@ -1326,7 +1342,7 @@ int launch_streamed(const float2* psi0, const int64_t* idx, const float* val, in
                                   stream);
   }
   if (err == cudaSuccess) {
-    err = launch_row<LOG2N, kFinal>(out, out, nullptr, nullptr, nullptr, 0, 0.0f, nwaves, stream);
+    err = launch_row<LOG2N, kFinal>(out, out, nullptr, nullptr, 0, 0.0f, nwaves, stream);
   }
   return err;
 }
@@ -1357,10 +1373,11 @@ int kernel_info(int device, int which, int* out) {
       return info_of(panel_col_kernel<LOG2N>, col_smem_bytes<LOG2N>(), device, out);
     case 2:
       return info_of(panel_bwd_row_kernel<LOG2N, kBwdLoop>, row_smem_bytes<LOG2N>(), device, out);
+    case 3:
+      return info_of(panel_row_kernel<LOG2N, kMid, true, true>, row_smem_bytes<LOG2N>(), device,
+                     out);
     case 4:
       return info_of(panel_build_col_kernel<LOG2N>, col_smem_bytes<LOG2N>(), device, out);
-    case 5:
-      return info_of(panel_vfused_row_kernel<LOG2N>, vfused_smem_bytes<LOG2N>(), device, out);
     case 6:
       return info_of(panel_wide_col_kernel<LOG2N, kWideCols<LOG2N>, kColProp>,
                      wide_col_smem_bytes<LOG2N, kWideCols<LOG2N>>(), device, out,
@@ -1388,6 +1405,12 @@ int kernel_info(int device, int which, int* out) {
     case 13:
       return info_of(panel_wide_g_row_kernel<LOG2N>, wide_row_smem_bytes<LOG2N>(), device, out,
                      kWideRowThreads);
+    case 14:
+      return info_of(panel_wide_row_kernel<LOG2N, kMidAbs>, wide_row_smem_bytes<LOG2N>(), device,
+                     out, kWideRowThreads);
+    case 15:
+      return info_of(panel_wide_row_kernel<LOG2N, kInitAbs>, wide_row_smem_bytes<LOG2N>(), device,
+                     out, kWideRowThreads);
     default:
       return cudaErrorInvalidValue;
   }
@@ -1414,21 +1437,22 @@ int fdes_panel_init_c64(int device, int n, const void* psi, const void* v0, void
   if (err != cudaSuccess) return err;
   const float f = static_cast<float>(sigma);
   if (s != nullptr) {
-    FDES_DISPATCH_PANEL_N(n, (launch_row<L, kInitStore>(c2(psi), o2(out), f1(v0), nullptr, o2(s),
+    FDES_DISPATCH_PANEL_N(n, (launch_row<L, kInitStore>(c2(psi), o2(out), f1(v0), o2(s),
                                                         s_wave_stride, f, nwaves, st(stream))))
   }
-  FDES_DISPATCH_PANEL_N(n, (launch_row<L, kInit>(c2(psi), o2(out), f1(v0), nullptr, nullptr, 0, f,
-                                                 nwaves, st(stream))))
+  FDES_DISPATCH_PANEL_N(n, (launch_row<L, kInit>(c2(psi), o2(out), f1(v0), nullptr, 0, f, nwaves,
+                                                 st(stream))))
 }
 
-// The same with the damped transmit of an absorptive potential vr0 + i vi0.
-int fdes_panel_init_abs_c64(int device, int n, const void* psi, const void* vr0, const void* vi0,
-                            void* out, double sigma, int64_t nwaves, void* stream) {
+// The same with the damped transmit of an absorptive potential, v0 its
+// complex (n, n) plane Vr + i Vi; route: the kernel (Route: 0 tile, 1 wide).
+int fdes_panel_init_abs_c64(int device, int n, const void* psi, const void* v0, void* out,
+                            double sigma, int64_t nwaves, int route, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
-  FDES_DISPATCH_PANEL_N(n, (launch_row<L, kInit, true>(c2(psi), o2(out), f1(vr0), f1(vi0),
-                                                      nullptr, 0, static_cast<float>(sigma),
-                                                      nwaves, st(stream))))
+  FDES_DISPATCH_PANEL_N(n, (launch_row_abs_route<L, kInit>(route, c2(psi), o2(out), c2(v0),
+                                                           static_cast<float>(sigma), nwaves,
+                                                           st(stream))))
 }
 
 // a (nwaves, n, n) -> b = Fy^H(P/n^2 * Fy(a)) (out may be a), or with
@@ -1462,17 +1486,18 @@ int fdes_panel_rowpass_stack_c64(int device, int n, int64_t j, const void* v_sta
                                                       nwaves, st(stream))))
 }
 
-// The stack row pass with the damped transmit of slice j of vr + i vi.
-int fdes_panel_rowpass_stack_abs_c64(int device, int n, int64_t j, const void* vr_stack,
-                                     const void* vi_stack, const void* b, void* out, double sigma,
-                                     int64_t nwaves, void* stream) {
+// The stack row pass with the damped transmit of slice j of the complex
+// (S, n, n) stack Vr + i Vi (out may be b); route: the kernel (Route: 0
+// tile, 1 wide).
+int fdes_panel_rowpass_stack_abs_c64(int device, int n, int64_t j, const void* v_stack,
+                                     const void* b, void* out, double sigma, int64_t nwaves,
+                                     int route, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
-  const int64_t plane = static_cast<int64_t>(n) * n;
-  FDES_DISPATCH_PANEL_N(n, (launch_row<L, kMid, true>(c2(b), o2(out), f1(vr_stack) + j * plane,
-                                                     f1(vi_stack) + j * plane, nullptr, 0,
-                                                     static_cast<float>(sigma), nwaves,
-                                                     st(stream))))
+  const float2* v = c2(v_stack) + j * static_cast<int64_t>(n) * n;
+  FDES_DISPATCH_PANEL_N(n, (launch_row_abs_route<L, kMid>(route, c2(b), o2(out), v,
+                                                          static_cast<float>(sigma), nwaves,
+                                                          st(stream))))
 }
 
 // b -> psi = Fx^H(b): the exit wave; or, forward != 0, a -> Fx(a): the
@@ -1482,11 +1507,11 @@ int fdes_panel_final_c64(int device, int n, const void* b, void* out, int forwar
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   if (forward) {
-    FDES_DISPATCH_PANEL_N(n, (launch_row<L, kFwd>(c2(b), o2(out), nullptr, nullptr, nullptr, 0,
-                                                  0.0f, nwaves, st(stream))))
+    FDES_DISPATCH_PANEL_N(n, (launch_row<L, kFwd>(c2(b), o2(out), nullptr, nullptr, 0, 0.0f,
+                                                  nwaves, st(stream))))
   }
-  FDES_DISPATCH_PANEL_N(n, (launch_row<L, kFinal>(c2(b), o2(out), nullptr, nullptr, nullptr, 0,
-                                                  0.0f, nwaves, st(stream))))
+  FDES_DISPATCH_PANEL_N(n, (launch_row<L, kFinal>(c2(b), o2(out), nullptr, nullptr, 0, 0.0f,
+                                                  nwaves, st(stream))))
 }
 
 // A backward row pass (mode 0 kBwdLoop, 1 kBwdLast, 2 kBwdTail): bar
@@ -1506,24 +1531,25 @@ int fdes_panel_bwd_row_c64(int device, int n, int mode, const void* bar, void* o
 }
 
 // The whole rollout of nslices >= 1 slices: psi0 (nwaves, n, n) -> out, V
-// the real (S, n, n) stack vr (vi nullptr) or an absorptive vr + i vi;
-// col_route, row_route: the column passes' and the row passes' with V_j
-// kernels (as the single passes' route; an absorptive V takes 0, tile).
-int fdes_panel_scan_c64(int device, int n, const void* psi0, const void* vr, const void* vi,
+// the real float32 (S, n, n) stack v, or with absorptive != 0 the complex64
+// one (Vr + i Vi, read in place); col_route, row_route: the column passes'
+// and the row passes' with V_j kernels (as the single passes' route; an
+// absorptive V's init takes row_route too).
+int fdes_panel_scan_c64(int device, int n, const void* psi0, const void* v, int absorptive,
                         const void* prop, void* out, double sigma, int64_t nwaves, int nslices,
                         int64_t p_wave_stride, int col_route, int row_route, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   if (nslices < 1) return cudaErrorInvalidValue;
   const float f = static_cast<float>(sigma);
-  if (vi == nullptr) {
-    FDES_DISPATCH_PANEL_N(n, (launch_scan<L, false>(c2(psi0), f1(vr), nullptr, c2(prop), o2(out),
-                                                   nullptr, f, nwaves, nslices, p_wave_stride,
-                                                   col_route, row_route, st(stream))))
+  if (!absorptive) {
+    FDES_DISPATCH_PANEL_N(n, (launch_scan<L, false>(c2(psi0), v, c2(prop), o2(out), nullptr, f,
+                                                   nwaves, nslices, p_wave_stride, col_route,
+                                                   row_route, st(stream))))
   }
-  FDES_DISPATCH_PANEL_N(n, (launch_scan<L, true>(c2(psi0), f1(vr), f1(vi), c2(prop), o2(out),
-                                                nullptr, f, nwaves, nslices, p_wave_stride,
-                                                col_route, row_route, st(stream))))
+  FDES_DISPATCH_PANEL_N(n, (launch_scan<L, true>(c2(psi0), v, c2(prop), o2(out), nullptr, f,
+                                                nwaves, nslices, p_wave_stride, col_route,
+                                                row_route, st(stream))))
 }
 
 // The rollout under differentiation (a real V): as fdes_panel_scan_c64, and
@@ -1535,10 +1561,10 @@ int fdes_panel_scan_store_c64(int device, int n, const void* psi0, const void* v
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   if (nslices < 1) return cudaErrorInvalidValue;
-  FDES_DISPATCH_PANEL_N(n, (launch_scan<L, false, true>(c2(psi0), f1(v), nullptr, c2(prop),
-                                                       o2(out), o2(s), static_cast<float>(sigma),
-                                                       nwaves, nslices, p_wave_stride,
-                                                       col_route, row_route, st(stream))))
+  FDES_DISPATCH_PANEL_N(n, (launch_scan<L, false, true>(c2(psi0), v, c2(prop), o2(out), o2(s),
+                                                       static_cast<float>(sigma), nwaves, nslices,
+                                                       p_wave_stride, col_route, row_route,
+                                                       st(stream))))
 }
 
 // The reverse loop: g (nwaves, n, n) -> dpsi (nwaves, n, n) and dv (S, n, n)
@@ -1581,18 +1607,17 @@ int fdes_panel_scatter_c64(int device, const void* idx, const void* val, int64_t
 // V_j built per slice from idx, val (nslices, corners) (flat indices into nsp
 // (n, n) delta planes, and weights) and fp (nsp, n, n) (prepare_factors);
 // prop (n, n) or one per wave (p_wave_stride n^2); scratch g (nsp n^2
-// floats), gx (nsp, n, n) and vx (n, n) complex.  build_route, col_route,
-// vfused_route: row 28's, the column pass's and row 29's kernels (Route: 0
-// tile, 1 wide).
+// floats), gx (nsp, n, n) and vx (n, n) complex.  build_route, col_route:
+// row 28's and the column pass's kernels (Route: 0 tile, 1 wide).
 int fdes_panel_streamed_c64(int device, int n, const void* psi0, const void* idx,
                             const void* val, int64_t corners, int nslices, const void* fp, int nsp,
                             const void* prop, void* out, void* g, void* gx, void* vx,
                             double sigma, int64_t nwaves, int64_t p_wave_stride,
-                            int build_route, int col_route, int vfused_route, void* stream) {
+                            int build_route, int col_route, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   if (nslices < 1 || nsp < 1 || corners < 0) return cudaErrorInvalidValue;
-  const int routes[] = {build_route, col_route, vfused_route};
+  const int routes[] = {build_route, col_route};
   for (int route : routes) {
     if (route != kRouteTile && route != kRouteWide) return cudaErrorInvalidValue;
   }
@@ -1600,8 +1625,7 @@ int fdes_panel_streamed_c64(int device, int n, const void* psi0, const void* idx
                                               corners, nslices, f1(fp), nsp, c2(prop), o2(out),
                                               static_cast<float*>(g), o2(gx), o2(vx),
                                               static_cast<float>(sigma), nwaves, p_wave_stride,
-                                              build_route, col_route, vfused_route,
-                                              st(stream)))
+                                              build_route, col_route, st(stream)))
 }
 
 // Row 28: gx (nsp, n, n) -> out (n, n) = Fy^H(sum_s fp_s * Fy(gx_s)), fp the
@@ -1617,24 +1641,23 @@ int fdes_panel_build_colpass_c64(int device, int n, const void* gx, const void* 
 }
 
 // Row 29: b (nwaves, n, n) -> out = Fx(exp(i sigma V) Fx^H(b)) (out may be
-// b), V = Re(Fx^H(vx)) of the (n, n) plane vx, shared by the waves; route:
-// the kernel (Route: 0 tile, 1 wide).
+// b), V = Re(Fx^H(vx)) of the (n, n) plane vx, shared by the waves.
 int fdes_panel_vfused_rowpass_c64(int device, int n, const void* vx, const void* b, void* out,
-                                  double sigma, int64_t nwaves, int route, void* stream) {
+                                  double sigma, int64_t nwaves, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
-  FDES_DISPATCH_PANEL_N(n, launch_vfused_route<L>(route, c2(vx), c2(b), o2(out),
-                                                  static_cast<float>(sigma), nwaves, st(stream)))
+  FDES_DISPATCH_PANEL_N(n, launch_vfused<L>(c2(vx), c2(b), o2(out), static_cast<float>(sigma),
+                                            nwaves, st(stream)))
 }
 
 // out[0..3] = registers per thread, dynamic shared bytes, local bytes per
 // thread and blocks resident at once on the device, of the row kernel
-// (which 0), the column kernel (1), the backward row kernel (2), the build
-// column kernel (4), the fused row kernel (5), the
-// wide column kernel (6), the wide backward row kernel (7), the wide row
-// kernel of row 15 (8) or of row 23 (9), the wide column kernel's build of
-// one species (10) or of several (12), the wide row kernel of row 29 (11)
-// or the wide g row kernel (13), for size n.
+// (which 0), the column kernel (1), the backward row kernel (2), the row
+// kernel of row 19 (3), the build column kernel (4), the wide column kernel
+// (6), the wide backward row kernel (7), the wide row kernel of row 15 (8),
+// of row 23 (9), of row 29 (11), of row 19 (14) or of row 18 (15), the wide
+// column kernel's build of one species (10) or of several (12), or the wide
+// g row kernel (13), for size n.
 int fdes_panel_kernel_info(int device, int n, int which, int* out) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;

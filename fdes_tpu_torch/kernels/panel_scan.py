@@ -15,9 +15,12 @@ ordinary launch of ``csrc/panel_scan.cu``:
 * ``panel_final(b)`` -> psi = Fx^H(b), the exit wave  (``_row_final_kernel``);
 * ``panel_init_abs``, ``panel_rowpass_stack_abs``: the init and stack row
   passes with the damped transmit of an absorptive V = Vr + i Vi
-  (``_row_init_abs_kernel``, ``_row_mid_stack_abs_kernel``);
+  (``_row_init_abs_kernel``, ``_row_mid_stack_abs_kernel``; routed), which
+  the kernels read as one complex64 plane (``absorptive_v``: no copy when
+  Vr and Vi are the ``.real`` and ``.imag`` of one);
 * ``panel_scan(psi0, v_stack, propagator, sigma)``: the whole rollout, all
-  2S + 1 passes issued from C in one call (``_run_single``/``_run_single_abs``).
+  2S + 1 passes issued from C in one call (``_run_single``/``_run_single_abs``;
+  a complex V read in place).
 
 The gradient (PyTorch's convention: g = dL/dRe + i dL/dIm of the exit wave,
 the conjugate of the cotangent JAX hands a ``custom_vjp``).  Fx^H is the
@@ -57,7 +60,7 @@ slice between the passes and the (S, n, n) stack never exists.  Per slice
   the full-grid form factors F_s as the transforms leave the spectrum and
   scales them by 1/(py px n^2);
 * ``panel_vfused_rowpass(vx, b, sigma)`` -> Fx(t Fx^H(b)), V = Re(Fx^H(vx))
-  built in the same launch  (``_row_vfused_kernel``; routed).
+  built in the same launch  (``_row_vfused_kernel``).
 
 Slice 0's V goes through ``panel_final`` and ``panel_init`` (reading the
 real part of its complex plane); a rollout of S slices is S launches each of
@@ -66,24 +69,25 @@ fused row passes and three more (2 ``panel_final``, 1 ``panel_init``), all
 issued from C in one call on the card (``fdes_panel_streamed_c64``).
 
 The column pass (and its conjugate), the backward row passes, the row
-passes with V_j of a real V (rows 15 and 23) and the streamed build's
-column and fused row passes (rows 28 and 29) run on one of two kernels
-each, picked before the launch by ``panel_route(n, B, kind)`` from
-``PANEL_ROUTE``, a table of rows measured on the H100 (B the waves, for the
-build column pass the species): "tile" (``panel_col_kernel``,
-``panel_bwd_row_kernel``, ``panel_row_kernel``, ``panel_build_col_kernel``,
-``panel_vfused_row_kernel``: tiles through shared memory) or "wide"
-(``panel_wide_col_kernel``, ``panel_wide_bwd_row_kernel``,
-``panel_wide_row_kernel``: each 1-D transform in the registers of a group
-of threads, three rounds of radix-2 stages between two exchanges; rows 28
-and 29 are modes of the wide column and row kernels).  The g row pass (row
-27) has one kernel, ``panel_wide_g_row_kernel``, on the same transform.
-The other row passes (init, final, the seed, the absorptive ones,
-``panel_rowpass``) run the tile kernel.  The whole loops take the choice
-into C with them.  ``_colpass``, the backward row passes, the two stack row
-passes and rows 28 and 29 take ``route=`` to name a kernel for
+passes with V_j of a real V (rows 15 and 23), the absorptive row passes
+(rows 19 and 18) and the streamed build's column pass (row 28) run on one
+of two kernels each, picked before the launch by ``panel_route(n, B,
+kind)`` from ``PANEL_ROUTE``, a table of rows measured on the H100 (B the
+waves, for the build column pass the species): "tile" (``panel_col_kernel``,
+``panel_bwd_row_kernel``, ``panel_row_kernel``, ``panel_build_col_kernel``:
+tiles through shared memory) or "wide" (``panel_wide_col_kernel``,
+``panel_wide_bwd_row_kernel``, ``panel_wide_row_kernel``: each 1-D
+transform in the registers of a group of threads, three rounds of radix-2
+stages between two exchanges; row 28 is a mode of the wide column kernel,
+rows 19 and 18 modes of the wide row kernel).  The g row pass (row 27) and
+the fused row pass (row 29) have one kernel each, ``panel_wide_g_row_kernel``
+and the wide row kernel's mode kVfused, on the same transform.  The other
+row passes (init and final of a real V, the seed, ``panel_rowpass``) run
+the tile kernel.  The whole loops take the choice into C with them.
+``_colpass``, the backward row passes, the stack row passes, the
+absorptive init and row 28 take ``route=`` to name a kernel for
 measurements; it is checked, and a launch the card refuses raises with
-nothing run in its place.  The nine wrappers of these passes (``ROUTED``)
+nothing run in its place.  The ten wrappers of these passes (``ROUTED``)
 count their launches in ``launches`` and by kernel in
 ``launches_by_route`` ({"tile": n, "wide": m}).
 
@@ -100,7 +104,7 @@ propagator are in natural order; ``prepare_propagator`` gathers P in
 bit-reversed order in both axes, once per call.
 
 psi is complex64 (n, n) or (B, n, n), V real (or, in the absorptive passes,
-two float32 planes) and shared by the waves, the propagator (n, n) or one per
+complex: Vr + i Vi) and shared by the waves, the propagator (n, n) or one per
 wave (B, n, n) (a tilt series); n in SIZES.  dV is float32, summed over the
 waves in a fixed order: two calls give the same bits.  A tensor on the CPU
 goes to the plain PyTorch version (``<wrapper>_ref``: ``torch.fft`` in the
@@ -134,14 +138,16 @@ _INT = ctypes.c_int
 _D = ctypes.c_double
 _ARGTYPES = {
     "fdes_panel_init_c64": [_INT, _INT, _P, _P, _P, _P, _I64, _D, _I64, _P],
-    "fdes_panel_init_abs_c64": [_INT, _INT, _P, _P, _P, _P, _D, _I64, _P],
+    "fdes_panel_init_abs_c64": [_INT, _INT, _P, _P, _P, _D, _I64, _INT, _P],
     "fdes_panel_colpass_c64": [_INT, _INT, _P, _P, _P, _I64, _INT, _I64, _INT, _P],
     "fdes_panel_rowpass_stack_c64": [_INT, _INT, _I64, _P, _P, _P, _P, _I64, _D, _I64, _INT,
                                      _P],
-    "fdes_panel_rowpass_stack_abs_c64": [_INT, _INT, _I64, _P, _P, _P, _P, _D, _I64, _P],
+    "fdes_panel_rowpass_stack_abs_c64": [_INT, _INT, _I64, _P, _P, _P, _D, _I64, _INT, _P],
     "fdes_panel_final_c64": [_INT, _INT, _P, _P, _INT, _I64, _P],
     "fdes_panel_bwd_row_c64": [_INT, _INT, _INT, _P, _P, _P, _I64, _P, _P, _D, _I64, _INT, _P],
-    "fdes_panel_scan_c64": [_INT, _INT, _P, _P, _P, _P, _P, _D, _I64, _INT, _I64, _INT, _INT, _P],
+    "fdes_panel_scan_c64": [
+        _INT, _INT, _P, _P, _INT, _P, _P, _D, _I64, _INT, _I64, _INT, _INT, _P,
+    ],
     "fdes_panel_scan_store_c64": [
         _INT, _INT, _P, _P, _P, _P, _P, _D, _I64, _INT, _I64, _INT, _INT, _P,
     ],
@@ -152,10 +158,10 @@ _ARGTYPES = {
     "fdes_panel_scatter_c64": [_INT, _P, _P, _I64, _P, _I64, _P],
     "fdes_panel_streamed_c64": [
         _INT, _INT, _P, _P, _P, _I64, _INT, _P, _INT, _P, _P, _P, _P, _P, _D, _I64, _I64, _INT,
-        _INT, _INT, _P,
+        _INT, _P,
     ],
     "fdes_panel_build_colpass_c64": [_INT, _INT, _P, _P, _P, _INT, _INT, _P],
-    "fdes_panel_vfused_rowpass_c64": [_INT, _INT, _P, _P, _P, _D, _I64, _INT, _P],
+    "fdes_panel_vfused_rowpass_c64": [_INT, _INT, _P, _P, _P, _D, _I64, _P],
     "fdes_panel_kernel_info": [_INT, _INT, _INT, _P],
 }
 #: modes of fdes_panel_bwd_row_c64 (csrc/panel_scan.cu BwdMode)
@@ -163,41 +169,42 @@ _BWD_LOOP, _BWD_LAST, _BWD_TAIL = 0, 1, 2
 _entries: dict[str, object] = {}
 
 #: The kernels of the column pass (rows 14 and 24), of the backward row pass
-#: (rows 25, 26, 21), of the forward row pass with V_j (rows 15 and 23) and
-#: of the streamed build's column and fused row passes (rows 28 and 29), by
-#: their code in csrc/panel_scan.cu's Route: "tile" (``panel_col_kernel``,
-#: ``panel_bwd_row_kernel``, ``panel_row_kernel``, ``panel_build_col_kernel``,
-#: ``panel_vfused_row_kernel``: tiles through shared memory) or "wide"
-#: (``panel_wide_col_kernel``, also in its build modes: persistent blocks
-#: copying the next item while they transform this one;
-#: ``panel_wide_bwd_row_kernel``, ``panel_wide_row_kernel``, also in its mode
-#: kVfused: each 1-D transform in the registers of a group of warps).
+#: (rows 25, 26, 21), of the forward row pass with V_j (rows 15 and 23), of
+#: the streamed build's column pass (row 28) and of the absorptive row
+#: passes (rows 19 and 18), by their code in csrc/panel_scan.cu's Route:
+#: "tile" (``panel_col_kernel``, ``panel_bwd_row_kernel``,
+#: ``panel_row_kernel``, ``panel_build_col_kernel``: tiles through shared
+#: memory) or "wide" (``panel_wide_col_kernel``, also in its build modes:
+#: persistent blocks copying the next item while they transform this one;
+#: ``panel_wide_bwd_row_kernel``, ``panel_wide_row_kernel``, also in its
+#: modes kInitAbs and kMidAbs: each 1-D transform in the registers of a
+#: group of warps).
 ROUTES = {"tile": 0, "wide": 1}
 #: the passes PANEL_ROUTE routes, in the order of its entries: the column
 #: pass, the backward row pass, the row pass (row 15), the store row pass
-#: (row 23), the build column pass (row 28) and the fused row pass (row 29)
-KINDS = ("col", "bwd_row", "row", "row_store", "build_col", "vfused_row")
+#: (row 23), the build column pass (row 28) and the absorptive row pass (row
+#: 19, and the init, row 18, on the same route)
+KINDS = ("col", "bwd_row", "row", "row_store", "build_col", "row_abs")
 
 #: The route of each pass by grid and the launch's lead count, {n: {count:
 #: (column pass, backward row pass, row pass, store row pass, build column
-#: pass, fused row pass)}}, the count the waves of a launch (the species of
-#: a build column pass): the faster kernel of each pass
+#: pass, absorptive row pass)}}, the count the waves of a launch (the
+#: species of a build column pass): the faster kernel of each pass
 #: timed in turns on an NVIDIA H100 80GB HBM3 at 700 W (chip_smoke.py kernels_panel,
 #: kernels_panel_grad and kernels_panel_stream, ``route_rows``,
-#: ``row_route_rows`` and ``stream_route_rows``; PERF.md section 5).  A
-#: launch takes the row of the largest measured count not above its own.
-#: The wide column kernel loses at 4096^2, where an item is two columns (half
-#: a 32-byte sector a row) and a block spills, and at 512^2 from four waves;
-#: its build mode at 4096^2 with one species, by 2 %, and wins from two
-#: (the tile kernel's sum goes through device memory); the wide row kernel
-#: at 256^2 from four waves (the store form from eight), where a group
-#: carries its row through the waves one after the other and 256 rows fill
-#: 32 blocks, but not in its fused mode: row 29's tile kernel carries each
-#: row tile through the waves in one block, 16 blocks at 256^2.
+#: ``row_route_rows``, ``abs_route_rows`` and ``stream_route_rows``; PERF.md
+#: section 5).  A launch takes the row of the largest measured count not
+#: above its own.  The wide column kernel loses at 4096^2, where an item is
+#: two columns (half a 32-byte sector a row) and a block spills, and at
+#: 512^2 from four waves; its build mode at 4096^2 with one species, by 2 %,
+#: and wins from two (the tile kernel's sum goes through device memory); the
+#: wide row kernel at 256^2 from four waves (the store form from eight, the
+#: absorptive modes from four, by 4 % and 30 %), where a group carries its
+#: row through the waves one after the other and 256 rows fill 32 blocks.
 _W, _T = "wide", "tile"
 PANEL_ROUTE = {
     256: {1: (_W, _W, _W, _W, _W, _W), 2: (_W, _W, _W, _W, _W, _W),
-          4: (_W, _W, _T, _W, _W, _W), 8: (_W, _W, _T, _T, _W, _W)},
+          4: (_W, _W, _T, _W, _W, _T), 8: (_W, _W, _T, _T, _W, _T)},
     512: {1: (_W, _W, _W, _W, _W, _W), 2: (_W, _W, _W, _W, _W, _W),
           4: (_T, _W, _W, _W, _W, _W), 8: (_T, _W, _W, _W, _W, _W)},
     1024: {1: (_W, _W, _W, _W, _W, _W), 2: (_W, _W, _W, _W, _W, _W),
@@ -212,8 +219,8 @@ PANEL_ROUTE = {
 def panel_route(n: int, b: int, kind: str) -> str:
     """The route of ``kind`` (KINDS: "col" the column pass, "bwd_row" the
     backward row pass, "row" the row pass with V_j, "row_store" the same
-    storing s_j, "build_col" the build column pass, "vfused_row" the fused
-    row pass) for a launch of lead count b on an n x n grid, from
+    storing s_j, "build_col" the build column pass, "row_abs" the
+    absorptive row pass and its init) for a launch of lead count b on an n x n grid, from
     PANEL_ROUTE: a function of (n, b) alone.  b is the launch's waves, for
     "build_col" its species (the planes that one output sums)."""
     if kind not in KINDS:
@@ -256,17 +263,18 @@ def _launch(name: str, device: torch.device, *args) -> None:
 
 def panel_kernel_info(n: int, kernel: str = "row", device: torch.device | str = "cuda") -> dict:
     """Registers, dynamic shared memory, local memory and resident blocks of
-    the row kernel (``kernel`` "row"), the column kernel ("col"), the
-    backward row kernel ("bwd_row"), the streamed build's tile kernels
-    ("build_col", "vfused_row") or the wide kernels ("wide_col",
-    "wide_bwd_row", "wide_row" of row 15, "wide_row_store" of row 23,
-    "wide_build_col" of row 28 with one species and "wide_build_col_sum"
-    with several, "wide_vfused_row" of row 29, "wide_g_row" of row 27), for
-    axis size n, as the CUDA runtime reports them."""
-    which = {"row": 0, "col": 1, "bwd_row": 2, "build_col": 4,
-             "vfused_row": 5, "wide_col": 6, "wide_bwd_row": 7, "wide_row": 8,
-             "wide_row_store": 9, "wide_build_col": 10, "wide_vfused_row": 11,
-             "wide_build_col_sum": 12, "wide_g_row": 13}[kernel]
+    the row kernel (``kernel`` "row", "row_abs" of row 19), the column kernel
+    ("col"), the backward row kernel ("bwd_row"), the streamed build's tile
+    kernel ("build_col") or the wide kernels ("wide_col", "wide_bwd_row",
+    "wide_row" of row 15, "wide_row_store" of row 23, "wide_row_abs" of row
+    19, "wide_init_abs" of row 18, "wide_build_col" of row 28 with one
+    species and "wide_build_col_sum" with several, "wide_vfused_row" of row
+    29, "wide_g_row" of row 27), for axis size n, as the CUDA runtime reports
+    them."""
+    which = {"row": 0, "col": 1, "bwd_row": 2, "row_abs": 3, "build_col": 4,
+             "wide_col": 6, "wide_bwd_row": 7, "wide_row": 8, "wide_row_store": 9,
+             "wide_build_col": 10, "wide_vfused_row": 11, "wide_build_col_sum": 12,
+             "wide_g_row": 13, "wide_row_abs": 14, "wide_init_abs": 15}[kernel]
     dev = torch.device(device)
     if dev.index is None:
         dev = torch.device("cuda", torch.cuda.current_device())
@@ -572,18 +580,39 @@ def _like(z: torch.Tensor, shape: tuple, device: torch.device, name: str, what: 
     return z
 
 
-def _real(v: torch.Tensor, shape: tuple, device: torch.device, name: str, what: str):
-    """A float32 potential (plane or stack) of ``shape`` on ``device``: V
-    itself when it is float32 and contiguous (no copy of a large stack)."""
-    if v.is_complex() or tuple(v.shape) != shape:
-        raise ValueError(f"{what}: {name} must be a real {shape} potential, got {v.dtype} "
+def _potential(v: torch.Tensor, shape: tuple, device: torch.device, name: str, what: str,
+               dtype: torch.dtype = torch.float32):
+    """A potential (plane or stack) of ``shape`` on ``device`` as the kernels
+    read it: float32, or complex64 (``dtype``) for an absorptive one; V
+    itself when it is of that dtype and contiguous (no copy of a large
+    stack), else converted once."""
+    kind = "complex" if dtype.is_complex else "real"
+    if v.is_complex() != dtype.is_complex or tuple(v.shape) != shape:
+        raise ValueError(f"{what}: {name} must be a {kind} {shape} potential, got {v.dtype} "
                          f"{tuple(v.shape)}")
     if v.device != device:
         raise ValueError(f"{what}: {name} on {v.device}, the wave on {device}")
-    v = v.to(torch.float32).contiguous()
+    v = v.to(dtype).contiguous()
     if v.data_ptr() % 16:
         raise ValueError(f"{what}: {name} must be 16-byte aligned")
     return v
+
+
+def absorptive_v(vr: torch.Tensor, vi: torch.Tensor) -> torch.Tensor:
+    """Vr + i Vi as the kernels read an absorptive potential: one complex64
+    tensor.  When vr and vi are the ``.real`` and ``.imag`` views of one
+    contiguous complex64 tensor, that tensor's storage (no copy); otherwise
+    the two planes packed once (``torch.complex``)."""
+    f32 = torch.float32
+    if (vr.dtype == f32 and vi.dtype == f32 and vr.shape == vi.shape and vr.ndim > 0
+            and vr.device == vi.device and vr.stride() == vi.stride()
+            and vr.untyped_storage().data_ptr() == vi.untyped_storage().data_ptr()
+            and vi.storage_offset() == vr.storage_offset() + 1
+            and vr.storage_offset() % 2 == 0 and all(st % 2 == 0 for st in vr.stride())):
+        c = torch.view_as_complex(vr.as_strided((*vr.shape, 2), (*vr.stride(), 1)))
+        if c.is_contiguous():
+            return c
+    return torch.complex(vr.to(f32), vi.to(f32)).contiguous()
 
 
 def _slice_index(j: int, v_stack: torch.Tensor, what: str) -> int:
@@ -594,7 +623,7 @@ def _slice_index(j: int, v_stack: torch.Tensor, what: str) -> int:
 
 def _init(what, counter, v0, psi, sigma, store):
     flat, n = _wave(psi, "psi", what)
-    v = _real(v0, (n, n), psi.device, "v0", what)
+    v = _potential(v0, (n, n), psi.device, "v0", what)
     out = torch.empty_like(flat)
     s = torch.empty_like(flat) if store else None
     _launch("fdes_panel_init_c64", psi.device, n, flat.data_ptr(), v.data_ptr(), out.data_ptr(),
@@ -620,19 +649,25 @@ def panel_init_store(
 
 
 def panel_init_abs(
-    vr0: torch.Tensor, vi0: torch.Tensor, psi: torch.Tensor, sigma: float
+    vr0: torch.Tensor, vi0: torch.Tensor, psi: torch.Tensor, sigma: float,
+    *, route: str | None = None,
 ) -> torch.Tensor:
-    """a = Fx(t_0 psi) with the damped transmit: the kernel on CUDA, plain on
-    the CPU."""
+    """a = Fx(t_0 psi) with the damped transmit of Vr0 + i Vi0 (read as one
+    complex plane: ``absorptive_v``): on CUDA the kernel that PANEL_ROUTE
+    picks for the absorptive row pass (or ``route`` names), plain on the
+    CPU."""
+    what = "panel_init_abs"
+    _check_route(what, route)
     if not psi.is_cuda:
         return panel_init_abs_ref(vr0, vi0, psi, sigma)
-    flat, n = _wave(psi, "psi", "panel_init_abs")
-    vr = _real(vr0, (n, n), psi.device, "vr0", "panel_init_abs")
-    vi = _real(vi0, (n, n), psi.device, "vi0", "panel_init_abs")
+    flat, n = _wave(psi, "psi", what)
+    route, code = _route_code(what, route, n, flat.shape[0], "row_abs")
+    v = _potential(absorptive_v(vr0, vi0), (n, n), psi.device, "vr0 + i vi0", what,
+                   torch.complex64)
     out = torch.empty_like(flat)
-    _launch("fdes_panel_init_abs_c64", psi.device, n, flat.data_ptr(), vr.data_ptr(),
-            vi.data_ptr(), out.data_ptr(), float(sigma), flat.shape[0])
-    panel_init_abs.launches += 1
+    _launch("fdes_panel_init_abs_c64", psi.device, n, flat.data_ptr(), v.data_ptr(),
+            out.data_ptr(), float(sigma), flat.shape[0], code)
+    _count(panel_init_abs, route=route)
     return out.reshape(psi.shape)
 
 
@@ -694,7 +729,7 @@ def _rowpass(what, counter, v_stack, j, b, sigma, store, route):
     kernel (ROUTES, for measurements); None takes PANEL_ROUTE's."""
     flat, n = _wave(b, "b", what)
     route, code = _route_code(what, route, n, flat.shape[0], "row_store" if store else "row")
-    vs = _real(v_stack, (v_stack.shape[0], n, n), b.device, "v_stack", what)
+    vs = _potential(v_stack, (v_stack.shape[0], n, n), b.device, "v_stack", what)
     j = _slice_index(j, vs, what)
     out = torch.empty_like(flat)
     s = torch.empty_like(flat) if store else None
@@ -738,22 +773,25 @@ def panel_rowpass(v: torch.Tensor, b: torch.Tensor, sigma: float) -> torch.Tenso
 
 
 def panel_rowpass_stack_abs(
-    j: int, vr_stack: torch.Tensor, vi_stack: torch.Tensor, b: torch.Tensor, sigma: float
+    j: int, vr_stack: torch.Tensor, vi_stack: torch.Tensor, b: torch.Tensor, sigma: float,
+    *, route: str | None = None,
 ) -> torch.Tensor:
-    """The stack row pass with the damped transmit of Vr_j + i Vi_j: the
-    kernel on CUDA, plain on the CPU."""
+    """The stack row pass with the damped transmit of Vr_j + i Vi_j (the
+    stacks read as one complex stack: ``absorptive_v``): on CUDA the kernel
+    that PANEL_ROUTE picks (or ``route`` names), plain on the CPU."""
+    what = "panel_rowpass_stack_abs"
+    _check_route(what, route)
     if not b.is_cuda:
         return panel_rowpass_stack_abs_ref(j, vr_stack, vi_stack, b, sigma)
-    what = "panel_rowpass_stack_abs"
     flat, n = _wave(b, "b", what)
-    shape = (vr_stack.shape[0], n, n)
-    vr = _real(vr_stack, shape, b.device, "vr_stack", what)
-    vi = _real(vi_stack, shape, b.device, "vi_stack", what)
-    j = _slice_index(j, vr, what)
+    route, code = _route_code(what, route, n, flat.shape[0], "row_abs")
+    v = _potential(absorptive_v(vr_stack, vi_stack), (vr_stack.shape[0], n, n), b.device,
+                   "vr_stack + i vi_stack", what, torch.complex64)
+    j = _slice_index(j, v, what)
     out = torch.empty_like(flat)
-    _launch("fdes_panel_rowpass_stack_abs_c64", b.device, n, j, vr.data_ptr(), vi.data_ptr(),
-            flat.data_ptr(), out.data_ptr(), float(sigma), flat.shape[0])
-    panel_rowpass_stack_abs.launches += 1
+    _launch("fdes_panel_rowpass_stack_abs_c64", b.device, n, j, v.data_ptr(), flat.data_ptr(),
+            out.data_ptr(), float(sigma), flat.shape[0], code)
+    _count(panel_rowpass_stack_abs, route=route)
     return out.reshape(b.shape)
 
 
@@ -786,7 +824,7 @@ def _bwd_row(what, counter, mode, bar, s, s_wave_stride, v, sigma, route):
     names the kernel (ROUTES, for measurements); None takes PANEL_ROUTE's."""
     flat, n = _wave(bar, "bar", what)
     route, code = _route_code(what, route, n, flat.shape[0], "bwd_row")
-    vv = _real(v, (n, n), bar.device, "v", what)
+    vv = _potential(v, (n, n), bar.device, "v", what)
     out = torch.empty_like(flat)
     dv = torch.empty((n, n), dtype=torch.float32, device=bar.device)
     _launch("fdes_panel_bwd_row_c64", bar.device, n, mode, flat.data_ptr(), out.data_ptr(),
@@ -862,7 +900,7 @@ def _loop_operands(what, psi, v_stack, propagator, prepared):
         raise TypeError(f"{what}: v_stack must be real; the engine routes a complex "
                         "(absorptive) potential through the per-slice kernels")
     nslices = v_stack.shape[0]
-    v32 = _real(v_stack, (nslices, n, n), psi.device, "v_stack", what)
+    v32 = _potential(v_stack, (nslices, n, n), psi.device, "v_stack", what)
     if propagator.device != psi.device:
         raise ValueError(f"{what}: propagator on {propagator.device}, the waves on {psi.device}")
     pp = prepare_propagator(propagator) if prepared is None else prepared
@@ -874,9 +912,9 @@ def _loop_operands(what, psi, v_stack, propagator, prepared):
 
 def _count_loop(nslices, first, col, row, last, col_route, row_route=None):
     """Add one loop's passes to the pass wrappers' counts: the column passes
-    on col_route, the row passes after the first on row_route where their
+    on col_route, the row passes (the first too) on row_route where their
     wrapper is routed."""
-    _count(first)
+    _count(first, 1, row_route)
     _count(col, nslices, col_route)
     _count(row, nslices - 1, row_route)
     _count(last, 1, row_route)
@@ -897,25 +935,22 @@ def panel_scan(
     flat, n = _wave(psi, "psi0", "panel_scan")
     s = v_stack.shape[0]
     absorptive = v_stack.is_complex()
-    if absorptive:
-        vr = _real(v_stack.real, (s, n, n), psi0.device, "v_stack.real", "panel_scan")
-        vi = _real(v_stack.imag, (s, n, n), psi0.device, "v_stack.imag", "panel_scan")
-    else:
-        vr, vi = _real(v_stack, (s, n, n), psi0.device, "v_stack", "panel_scan"), None
+    # a complex V read in place (complex128 converted once), a real one as float32
+    v = _potential(v_stack, (s, n, n), psi0.device, "v_stack", "panel_scan",
+                   torch.complex64 if absorptive else torch.float32)
     if propagator.device != psi0.device:
         raise ValueError(f"panel_scan: propagator on {propagator.device}, psi0 on {psi0.device}")
     pp = prepare_propagator(propagator)
     out = torch.empty_like(flat)
     col, code = _route_code("panel_scan", None, n, b, "col")
-    # an absorptive V's row passes run the tile kernel
-    row, row_code = ("tile", ROUTES["tile"]) if absorptive else _route_code(
-        "panel_scan", None, n, b, "row")
-    _launch("fdes_panel_scan_c64", psi0.device, n, flat.data_ptr(), vr.data_ptr(),
-            None if vi is None else vi.data_ptr(), pp.data_ptr(), out.data_ptr(), float(sigma),
-            b, s, n * n if pp.ndim == 3 else 0, code, row_code)
+    row, row_code = _route_code("panel_scan", None, n, b, "row_abs" if absorptive else "row")
+    _launch("fdes_panel_scan_c64", psi0.device, n, flat.data_ptr(), v.data_ptr(),
+            int(absorptive), pp.data_ptr(), out.data_ptr(), float(sigma), b, s,
+            n * n if pp.ndim == 3 else 0, code, row_code)
     panel_scan.launches += 1
     if absorptive:
-        _count_loop(s, panel_init_abs, panel_colpass, panel_rowpass_stack_abs, panel_final, col)
+        _count_loop(s, panel_init_abs, panel_colpass, panel_rowpass_stack_abs, panel_final, col,
+                    row)
     else:
         _count_loop(s, panel_init, panel_colpass, panel_rowpass_stack, panel_final, col, row)
     return out if batched else out[0]
@@ -1036,7 +1071,7 @@ def panel_build_colpass(
         raise ValueError(f"{what}: gx must be (nsp, n, n), got {tuple(gx.shape)}")
     flat, n = _wave(gx, "gx", what)
     route, code = _route_code(what, route, n, flat.shape[0], "build_col")
-    fp = _real(factors, tuple(gx.shape), gx.device, "factors", what)
+    fp = _potential(factors, tuple(gx.shape), gx.device, "factors", what)
     out = torch.empty((n, n), dtype=torch.complex64, device=gx.device)
     _launch("fdes_panel_build_colpass_c64", gx.device, n, flat.data_ptr(), fp.data_ptr(),
             out.data_ptr(), flat.shape[0], code)
@@ -1044,23 +1079,19 @@ def panel_build_colpass(
     return out
 
 
-def panel_vfused_rowpass(
-    vx: torch.Tensor, b: torch.Tensor, sigma: float, *, route: str | None = None
-) -> torch.Tensor:
+def panel_vfused_rowpass(vx: torch.Tensor, b: torch.Tensor, sigma: float) -> torch.Tensor:
     """a = Fx(t Fx^H(b)), t = exp(i sigma V), V = Re(Fx^H(vx)) of the (n, n)
-    plane vx shared by the waves b ((n, n) or (B, n, n)): on CUDA the kernel
-    that PANEL_ROUTE picks (or ``route`` names), plain on the CPU."""
+    plane vx shared by the waves b ((n, n) or (B, n, n)): the kernel on CUDA
+    (the wide row kernel's kVfused), plain on the CPU."""
     what = "panel_vfused_rowpass"
-    _check_route(what, route)
     if not b.is_cuda:
         return panel_vfused_rowpass_ref(vx, b, sigma)
     flat, n = _wave(b, "b", what)
-    route, code = _route_code(what, route, n, flat.shape[0], "vfused_row")
     v = _like(vx, (n, n), b.device, "vx", what)
     out = torch.empty_like(flat)
     _launch("fdes_panel_vfused_rowpass_c64", b.device, n, v.data_ptr(), flat.data_ptr(),
-            out.data_ptr(), float(sigma), flat.shape[0], code)
-    _count(panel_vfused_rowpass, route=route)
+            out.data_ptr(), float(sigma), flat.shape[0])
+    panel_vfused_rowpass.launches += 1
     return out.reshape(b.shape)
 
 
@@ -1121,13 +1152,13 @@ def _streamed_on_card(psi, idx, val, factors, propagator, sigma):
     what = "panel_streamed"
     flat, n = _wave(psi.contiguous(), "psi0", what)
     b, nsp = flat.shape[0], factors.shape[0]
-    fp = _real(factors, (nsp, n, n), psi.device, "factors", what)
+    fp = _potential(factors, (nsp, n, n), psi.device, "factors", what)
     idx, val = _corners(idx, val, psi.device, what)
     if propagator.device != psi.device:
         raise ValueError(f"{what}: propagator on {propagator.device}, psi0 on {psi.device}")
     pp = prepare_propagator(propagator)
     routes = {kind: _route_code(what, None, n, count, kind)
-              for kind, count in (("build_col", nsp), ("col", b), ("vfused_row", b))}
+              for kind, count in (("build_col", nsp), ("col", b))}
     out = torch.empty_like(flat)
     g = torch.empty(nsp * n * n, dtype=torch.float32, device=psi.device)
     gx = torch.empty((nsp, n, n), dtype=torch.complex64, device=psi.device)
@@ -1141,17 +1172,17 @@ def _streamed_on_card(psi, idx, val, factors, propagator, sigma):
     return out.reshape(psi.shape)
 
 
-def _count_streamed(nslices, build_route, col_route, vfused_route):
+def _count_streamed(nslices, build_route, col_route):
     """Add one streamed rollout's passes to the pass wrappers' counts, as
     fdes_panel_streamed_c64 issues them: per slice the scatter, the g row
     pass, and the build column pass and the column pass on their routes, the
-    fused row pass for every slice after the first on its route, slice 0's
-    final and init and the closing final."""
+    fused row pass for every slice after the first, slice 0's final and init
+    and the closing final."""
     _count(panel_scatter, nslices)
     _count(panel_g_rowpass, nslices)
     _count(panel_build_colpass, nslices, build_route)
     _count(panel_colpass, nslices, col_route)
-    _count(panel_vfused_rowpass, nslices - 1, vfused_route)
+    _count(panel_vfused_rowpass, nslices - 1)
     _count(panel_final, 2)
     _count(panel_init)
 
@@ -1216,8 +1247,8 @@ WRAPPERS = (panel_init, panel_colpass, panel_rowpass_stack, panel_rowpass, panel
             panel_vfused_rowpass)
 #: the pass wrappers whose kernel PANEL_ROUTE picks, with launches_by_route
 ROUTED = (panel_colpass, panel_col_bwd, panel_row_bwd_loop, panel_row_bwd_last, panel_bwd_tail,
-          panel_rowpass_stack, panel_rowpass_stack_store, panel_build_colpass,
-          panel_vfused_rowpass)
+          panel_rowpass_stack, panel_rowpass_stack_store, panel_build_colpass, panel_init_abs,
+          panel_rowpass_stack_abs)
 #: the whole-loop calls, which count their calls and add their passes above
 LOOPS = (panel_scan, panel_scan_store, panel_scan_bwd_store, panel_streamed)
 

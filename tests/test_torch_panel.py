@@ -417,3 +417,27 @@ def test_panel_kernels_match_plain_on_card(fields, cuda):
         ps.panel_scan(psi.to(torch.complex128), v, props, SIGMA)
     with pytest.raises(ValueError, match="lazy conj"):
         ps.panel_final(psi.conj())
+
+
+def test_absorptive_rollout_reads_v_in_place_on_card(fields, cuda):
+    """panel_scan of a complex64 V on the card: its init and row passes on
+    the kernel PANEL_ROUTE's ``row_abs`` names, counted there, the exit waves
+    held to the plain rollout; V is read in place, so the call allocates its
+    output and the prepared propagator and no float32 copy of V's parts."""
+    f = fields
+    psi, props = _t(f["psi_b"]).to(cuda), _t(f["props"]).to(cuda)
+    v = _t(f["v_abs"]).to(cuda)
+    prepared = ps.prepare_propagator(props)
+    ps.reset_launches()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    got = ps.panel_scan(psi, v, props, SIGMA)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - before
+    want = ps.panel_scan_ref(psi, v, props, SIGMA)
+    assert float((got - want).abs().max()) <= 4e-6 * float(want.abs().max())
+    route = ps.panel_route(N, 2, "row_abs")
+    assert ps.panel_init_abs.launches_by_route[route] == 1
+    assert ps.panel_rowpass_stack_abs.launches_by_route[route] == v.shape[0] - 1
+    assert peak <= got.nbytes + prepared.nbytes + 65536 < got.nbytes + prepared.nbytes + v.nbytes

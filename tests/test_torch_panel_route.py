@@ -1,9 +1,9 @@
 """The wide panel kernels (``panel_wide_col_kernel``, also in its build modes
 (row 28), ``panel_wide_bwd_row_kernel``, ``panel_wide_row_kernel``, also in
-its mode kVfused (row 29), and ``panel_wide_g_row_kernel`` (row 27), in
-csrc/panel_scan.cu, and their three-round transform) as a numpy model of
-their index maps, and the route between them and the tile kernels
-(``kernels/panel_scan.PANEL_ROUTE``).
+its modes kVfused (row 29), kMidAbs and kInitAbs (rows 19 and 18), and
+``panel_wide_g_row_kernel`` (row 27), in csrc/panel_scan.cu, and their
+three-round transform) as a numpy model of their index maps, and the route
+between them and the tile kernels (``kernels/panel_scan.PANEL_ROUTE``).
 
 The model follows the kernels' data: an N-point transform is held by a group
 of T = N/R threads (R = 8 values a thread up to 512 points, 16 above: one
@@ -21,10 +21,12 @@ row a group.  The model is held against ``np.fft`` in float64, and its
 column pass, its conjugate, its backward row pass, its forward row pass
 (with and without the store of s_j), its build column pass (the species'
 products summed in registers), its fused row pass (V's row through one
-more inverse transform) and its g row pass (real rows through one forward
-transform) against the JAX package's panel passes in interpret mode.  The kernels themselves are held against the plain versions on the
-card (the last tests here, and chip_smoke.py's kernels_panel,
-kernels_panel_grad and kernels_panel_stream phases)."""
+more inverse transform), its absorptive row pass and init (the damped
+transmit of a complex V) and its g row pass (real rows through one forward
+transform) against the JAX package's panel passes in interpret mode.  The
+kernels themselves are held against the plain versions on the card (the
+last tests here, and chip_smoke.py's kernels_panel, kernels_panel_grad and
+kernels_panel_stream phases)."""
 
 import re
 
@@ -258,6 +260,26 @@ def _row_pass(b, v, sigma, store=False):
     return (a, s) if store else a
 
 
+def _row_abs_pass(b, vr, vi, sigma, init=False):
+    """panel_wide_row_kernel's kMidAbs: a = Fx(t Fx^H(b)) of the waves b (B,
+    n, n), t = exp(-sigma Vi) exp(i sigma Vr) of the absorptive V = Vr + i Vi
+    (n, n); with ``init`` its kInitAbs: a = Fx(t psi), b the waves psi in
+    natural order.  Per row: V's complex row loaded with b's in layout 1 and
+    t formed there once for all the waves; b's row exchanged to layout 3 and
+    through the inverse transform (kMidAbs) or transmitted as loaded
+    (kInitAbs); the transmit at the positions of layout 1, the forward
+    transform, and a's row exchanged from layout 3 to layout 1 and stored."""
+    n = b.shape[-1]
+    rows1 = _pos(n, 1)
+    x = b[..., rows1]
+    if not init:
+        x = _inverse(n, _exchange(n, x, 1, 3))
+    t = np.exp(-sigma * vi[:, rows1]) * np.exp(1j * sigma * vr[:, rows1])  # shared by the waves
+    a = np.empty(b.shape, dtype=complex)
+    a[..., rows1] = _exchange(n, _forward(n, x * t), 3, 1)
+    return a
+
+
 def _build_col_pass(gx, fp, chunk: int = 64):
     """panel_wide_col_kernel's build modes: Fy^H(sum_s F_s Fy(gx_s)) of the
     species planes gx (nsp, n, n) with the real factors fp (nsp, n, n) in
@@ -454,6 +476,28 @@ def test_model_row_pass_is_the_plain_pass(n, waves):
     assert np.array_equal(_row_pass(b, v[1], SIGMA), a)
 
 
+@pytest.mark.parametrize("init", [False, True])
+@pytest.mark.parametrize("n,waves", [(256, 1), (256, 2), (2048, 1), (2048, 2)])
+def test_model_row_abs_pass_is_the_plain_pass(n, waves, init):
+    """The model's absorptive row pass (kMidAbs) against
+    panel_rowpass_stack_abs_ref on V_1 of a two-slice stack, and its init
+    (kInitAbs) against panel_init_abs_ref, in complex128: Vr in [0, 2000)
+    (phases up to 1.3 rad), Vi = 0.1 |Vr| (the absorptive factor of
+    sim.absorptive_factor=0.1); with two waves t is formed once for both."""
+    rng = np.random.default_rng(n + 17 * waves + int(init))
+    b = _cplx(rng, waves, n, n)
+    vr = rng.uniform(0, 2000, (2, n, n))
+    vi = 0.1 * np.abs(vr)
+    vrt, vit, bt = torch.as_tensor(vr), torch.as_tensor(vi), torch.as_tensor(b)
+    if init:
+        got = _row_abs_pass(b, vr[0], vi[0], SIGMA, init=True)
+        ref = ps.panel_init_abs_ref(vrt[0], vit[0], bt, SIGMA).numpy()
+    else:
+        got = _row_abs_pass(b, vr[1], vi[1], SIGMA)
+        ref = ps.panel_rowpass_stack_abs_ref(1, vrt, vit, bt, SIGMA).numpy()
+    assert np.abs(got - ref).max() <= EXACT * np.abs(ref).max()
+
+
 @pytest.mark.parametrize("n,nsp", [(256, 1), (256, 2), (2048, 1), (2048, 2)])
 def test_model_build_col_pass_is_the_plain_pass(n, nsp):
     """The model's build column pass against panel_build_colpass_ref in
@@ -507,7 +551,8 @@ def jax_passes():
     (panel_rowpass_stack, _panel_rowpass_mid_store) on one plane, and the
     streamed build's g row and column passes (_panel_g_rowpass,
     _panel_build_colpass, the species' planes at once) and fused row pass
-    (_panel_vfused_rowpass, one plane)."""
+    (_panel_vfused_rowpass, one plane), and the absorptive row pass and init
+    (_panel_rowpass_stack_abs, _panel_init_abs, one plane)."""
     import fdes_tpu.pallas.panel_scan as jps
 
     tabs = jps._tables(N_JAX)
@@ -551,8 +596,19 @@ def jax_passes():
                                            prec, True)
         return np.asarray(re) + 1j * np.asarray(im)
 
+    def row_abs(b, vr_stack, vi_stack, j):
+        re, im = jps._panel_rowpass_stack_abs(j, jnp.asarray(vr_stack), jnp.asarray(vi_stack),
+                                              jnp.asarray(b.real), jnp.asarray(b.imag), tabs,
+                                              SIGMA, prec, True)
+        return np.asarray(re) + 1j * np.asarray(im)
+
+    def init_abs(psi, vr0, vi0):
+        re, im = jps._panel_init_abs(jnp.asarray(vr0), jnp.asarray(vi0), jnp.asarray(psi.real),
+                                     jnp.asarray(psi.imag), tabs, SIGMA, prec, True)
+        return np.asarray(re) + 1j * np.asarray(im)
+
     yield {"col": col, "row_bwd_loop": row_bwd_loop, "row": row, "build_col": build_col,
-           "vfused_row": vfused_row, "g_row": g_row}
+           "vfused_row": vfused_row, "g_row": g_row, "row_abs": row_abs, "init_abs": init_abs}
     mp.undo()
 
 
@@ -655,6 +711,58 @@ def test_model_row_pass_equals_jax(jax_passes, jax_fields, waves, store):
         _close(got_s, np.stack(want_s))
 
 
+@pytest.mark.parametrize("waves", [1, 2])
+@pytest.mark.parametrize("init", [False, True])
+def test_model_row_abs_pass_equals_jax(jax_passes, jax_fields, waves, init):
+    """The model's absorptive row pass against JAX's _panel_rowpass_stack_abs
+    (row 19) on V_1 of a two-slice stack, and its init against
+    _panel_init_abs (row 18) on V_0, a wave at a time, Vi = 0.1 |Vr|: b in
+    each package's x-spectrum order (the init's psi natural in both), a in
+    each package's order."""
+    f = jax_fields
+    n = N_JAX
+    br, jo = _bitrev(n), _jax_order(n)
+    x = f["x"][:waves]
+    vr = np.stack([0.5 * f["v"], f["v"]])
+    vi = 0.1 * np.abs(vr)
+    want = []
+    for k in range(waves):
+        out = (jax_passes["init_abs"](x[k], vr[0], vi[0]) if init
+               else jax_passes["row_abs"](x[k][:, jo], vr, vi, 1))
+        nat = np.empty_like(out)
+        nat[:, jo] = out
+        want.append(nat[:, br])
+    j = 0 if init else 1
+    b = x if init else x[..., br]
+    got = _row_abs_pass(b.astype(np.complex128), vr[j].astype(np.float64),
+                        vi[j].astype(np.float64), SIGMA, init=init)
+    _close(got, np.stack(want))
+
+
+def test_absorptive_v_reads_a_complex_stack_in_place():
+    """absorptive_v hands the kernels a complex64 V's own storage when Vr and
+    Vi are its .real and .imag views (the stack, or one slice of it: equal
+    data_ptr, no copy), and packs any other pair of planes once, exactly
+    (separate float32 planes, float64 ones, strided or swapped views)."""
+    rng = np.random.default_rng(3)
+    v = torch.as_tensor(_cplx(rng, 3, 8, 8).astype(np.complex64))
+    for z in (v, v[1]):
+        got = ps.absorptive_v(z.real, z.imag)
+        assert got.data_ptr() == z.data_ptr() and got.dtype == torch.complex64
+        assert got.is_contiguous() and torch.equal(got, z)
+    vr, vi = v.real.clone(), v.imag.clone()
+    packed = ps.absorptive_v(vr, vi)
+    assert packed.data_ptr() not in (v.data_ptr(), vr.data_ptr(), vi.data_ptr())
+    assert packed.is_contiguous() and torch.equal(packed, v)
+    for a, b in ((v.imag, v.real), (v.real[:, ::2], v.imag[:, ::2]),
+                 (v.real.double(), v.imag.double()), (v.real.transpose(1, 2),
+                                                       v.imag.transpose(1, 2))):
+        got = ps.absorptive_v(a, b)
+        assert got.dtype == torch.complex64 and got.is_contiguous()
+        assert torch.equal(got, torch.complex(a.float(), b.float()))
+        assert got.data_ptr() != v.data_ptr()
+
+
 @pytest.mark.parametrize("nsp", [1, 2])
 def test_model_build_col_pass_equals_jax(jax_passes, jax_fields, nsp):
     """The model's build column pass against JAX's _panel_build_colpass on
@@ -719,7 +827,7 @@ def test_panel_route_is_the_table():
     entry names a route of the C entry points, whose codes match their
     enums, and each route's kernel is one the library builds."""
     assert set(ps.PANEL_ROUTE) == set(ps.SIZES)
-    assert ps.KINDS == ("col", "bwd_row", "row", "row_store", "build_col", "vfused_row")
+    assert ps.KINDS == ("col", "bwd_row", "row", "row_store", "build_col", "row_abs")
     for n, rows in ps.PANEL_ROUTE.items():
         measured = sorted(rows)
         assert measured == [1, 2, 4, 8]
@@ -728,7 +836,7 @@ def test_panel_route_is_the_table():
             for b in range(1, 20):
                 want = rows[max(m for m in measured if m <= b)][k]
                 assert ps.panel_route(n, b, kind) == want and want in ps.ROUTES
-    for bad in ("fwd_row", "rows", "store", "build", "vfused", "g_row"):
+    for bad in ("fwd_row", "rows", "store", "build", "vfused", "vfused_row", "g_row", "abs"):
         with pytest.raises(ValueError, match="kind must be"):
             ps.panel_route(2048, 1, bad)
     src = (_build.SRC_DIR / "panel_scan.cu").read_text()
@@ -736,20 +844,25 @@ def test_panel_route_is_the_table():
     assert enum and [int(g) for g in enum.groups()] == [ps.ROUTES[k] for k in ("tile", "wide")]
     for kernel in ("panel_col_kernel", "panel_wide_col_kernel", "panel_bwd_row_kernel",
                    "panel_wide_bwd_row_kernel", "panel_row_kernel", "panel_wide_row_kernel",
-                   "panel_build_col_kernel", "panel_vfused_row_kernel",
-                   "panel_wide_g_row_kernel"):
+                   "panel_build_col_kernel", "panel_wide_g_row_kernel"):
         assert re.search(rf"__global__ void __launch_bounds__\([^)]*\)\s*{kernel}\(", src)
     for mode in ("kColBuild", "kColBuildSum", "kVfused"):
         assert re.search(rf"launch_wide_(col|row)<LOG2N, {mode}>", src)
-    # row 27 has one kernel, not routed, which the streamed rollout launches
+    # rows 19 and 18: the tile kernel on the complex plane, or the wide modes
+    assert re.search(r"launch_row<LOG2N, MODE, true, true>", src)
+    assert re.search(r"launch_wide_row<LOG2N, MODE == kInit \? kInitAbs : kMidAbs>", src)
+    # rows 27 and 29 have one kernel each, not routed, which the streamed
+    # rollout launches; row 29's tile kernel is gone
     assert re.search(r"launch_g_row<LOG2N>\(g, gx, nsp", src)
+    assert re.search(r"launch_vfused<LOG2N>\(vx, out, out", src)
+    assert "panel_vfused_row_kernel" not in src
     assert "panel_scan" in _build.sources()
 
 
 def test_route_argument_is_checked():
     """route= takes "tile" or "wide" and nothing else, on the CPU too: the
-    column, backward row and stack row passes and the streamed build's column
-    and fused row passes."""
+    column, backward row and stack row passes, the absorptive row pass and
+    its init, and the streamed build's column pass."""
     n = 256
     a = torch.zeros((1, n, n), dtype=torch.complex64)
     pp = torch.ones((n, n), dtype=torch.complex64)
@@ -770,7 +883,9 @@ def test_route_argument_is_checked():
         with pytest.raises(ValueError, match="route must be"):
             ps.panel_build_colpass(a, v[:1], route=bad)
         with pytest.raises(ValueError, match="route must be"):
-            ps.panel_vfused_rowpass(a[0], a, SIGMA, route=bad)
+            ps.panel_rowpass_stack_abs(1, v, v, a, SIGMA, route=bad)
+        with pytest.raises(ValueError, match="route must be"):
+            ps.panel_init_abs(v[0], v[1], a, SIGMA, route=bad)
 
 
 def test_wide_wrappers_count_their_own_launches():
@@ -801,10 +916,13 @@ def test_wide_wrappers_count_their_own_launches():
             (ps.panel_rowpass_stack_store(1, v, s, SIGMA, route=route),
              ps.panel_rowpass_stack_store_ref(1, v, s, SIGMA)),
             (ps.panel_build_colpass(s, v, route=route), ps.panel_build_colpass_ref(s, v)),
-            (ps.panel_vfused_rowpass(a, s, SIGMA, route=route),
-             ps.panel_vfused_rowpass_ref(a, s, SIGMA)),
+            (ps.panel_rowpass_stack_abs(1, v, 0.1 * v, s, SIGMA, route=route),
+             ps.panel_rowpass_stack_abs_ref(1, v, 0.1 * v, s, SIGMA)),
+            (ps.panel_init_abs(v[0], 0.1 * v[0], s, SIGMA, route=route),
+             ps.panel_init_abs_ref(v[0], 0.1 * v[0], s, SIGMA)),
         ]
-    pairs.append((ps.panel_g_rowpass(v), ps.panel_g_rowpass_ref(v)))
+    pairs += [(ps.panel_g_rowpass(v), ps.panel_g_rowpass_ref(v)),
+              (ps.panel_vfused_rowpass(a, s, SIGMA), ps.panel_vfused_rowpass_ref(a, s, SIGMA))]
     for got, want in pairs:
         got, want = (got, want) if isinstance(got, tuple) else ((got,), (want,))
         assert all(torch.equal(x, y) for x, y in zip(got, want))
@@ -817,10 +935,11 @@ def test_loops_count_row_passes_by_route(row_route):
     """A whole loop's count (_count_loop, as panel_scan, panel_scan_store and
     panel_scan_bwd_store add their passes on the card): the S - 1 row passes
     with V_j on the row route, the column passes on the column route, init
-    and final in all alone; an absorptive loop's row passes (the tile kernel)
-    and panel_rowpass are not routed."""
+    and final of a real V in all alone; an absorptive loop's init and row
+    passes on the row route; panel_rowpass is not routed."""
     assert ps.panel_rowpass_stack in ps.ROUTED and ps.panel_rowpass_stack_store in ps.ROUTED
-    assert ps.panel_rowpass not in ps.ROUTED and ps.panel_rowpass_stack_abs not in ps.ROUTED
+    assert ps.panel_rowpass_stack_abs in ps.ROUTED and ps.panel_init_abs in ps.ROUTED
+    assert ps.panel_rowpass not in ps.ROUTED and ps.panel_init not in ps.ROUTED
     ps.reset_launches()
     try:
         ps._count_loop(8, ps.panel_init, ps.panel_colpass, ps.panel_rowpass_stack,
@@ -828,10 +947,12 @@ def test_loops_count_row_passes_by_route(row_route):
         ps._count_loop(8, ps.panel_init_store, ps.panel_colpass, ps.panel_rowpass_stack_store,
                        ps.panel_final, "tile", row_route)
         ps._count_loop(4, ps.panel_init_abs, ps.panel_colpass, ps.panel_rowpass_stack_abs,
-                       ps.panel_final, "tile")
+                       ps.panel_final, "tile", row_route)
         other = "tile" if row_route == "wide" else "wide"
         for w in (ps.panel_rowpass_stack, ps.panel_rowpass_stack_store):
             assert w.launches == 7 and w.launches_by_route == {row_route: 7, other: 0}
+        assert ps.panel_rowpass_stack_abs.launches_by_route == {row_route: 3, other: 0}
+        assert ps.panel_init_abs.launches_by_route == {row_route: 1, other: 0}
         assert ps.panel_colpass.launches_by_route == {"tile": 12, "wide": 8}
         assert (ps.panel_init.launches, ps.panel_init_store.launches,
                 ps.panel_init_abs.launches, ps.panel_final.launches,
@@ -884,7 +1005,7 @@ def test_wide_kernels_match_plain_on_card(cuda):
                 assert float((x - y).abs().max()) <= 2 * tol * float(y.abs().max())
             assert all(torch.equal(x, y) for x, y in zip(got, again))
         assert all(w.launches_by_route == {"tile": 0, "wide": w.launches} for w in ps.ROUTED)
-        assert [w.launches for w in ps.ROUTED] == [1, 1, 2, 2, 2, 0, 0, 0, 0]
+        assert [w.launches for w in ps.ROUTED] == [1, 1, 2, 2, 2, 0, 0, 0, 0, 0]
 
 
 def test_wide_row_kernel_matches_plain_on_card(cuda):
@@ -916,9 +1037,10 @@ def test_wide_row_kernel_matches_plain_on_card(cuda):
 def test_wide_stream_kernels_match_plain_on_card(cuda):
     """The wide build column pass (one species: kColBuild; two and four summed
     in registers: kColBuildSum), the g row pass (one, two and four planes)
-    and the wide fused row pass (one and two waves, in place as the streamed
-    rollout runs it too) against the plain versions at every size; each
-    launch counted on its wrapper (under "wide" where it is routed)."""
+    and the fused row pass (kVfused, its one kernel: one and two waves, in
+    place as the streamed rollout runs it too) against the plain versions at
+    every size; each launch counted on its wrapper (under "wide" where it is
+    routed)."""
     tol = 2e-6
     for n in ps.SIZES:
         rng = np.random.default_rng(n + 3)
@@ -941,10 +1063,38 @@ def test_wide_stream_kernels_match_plain_on_card(cuda):
             b = torch.as_tensor(_cplx(rng, waves, n, n).astype(np.complex64)).to(cuda)
             ps.reset_launches()
             want = ps.panel_vfused_rowpass_ref(vx, b, SIGMA)
-            got = ps.panel_vfused_rowpass(vx, b, SIGMA, route="wide")
+            got = ps.panel_vfused_rowpass(vx, b, SIGMA)
             assert float((got - want).abs().max()) <= tol * float(want.abs().max())
             flat = b.clone()
             ps._launch("fdes_panel_vfused_rowpass_c64", cuda, n, vx.data_ptr(), flat.data_ptr(),
-                       flat.data_ptr(), SIGMA, waves, ps.ROUTES["wide"])
+                       flat.data_ptr(), SIGMA, waves)
             assert torch.equal(flat, got)
-            assert ps.panel_vfused_rowpass.launches_by_route == {"tile": 0, "wide": 1}
+            assert ps.panel_vfused_rowpass.launches == 1
+
+
+def test_wide_abs_row_kernel_matches_plain_on_card(cuda):
+    """The wide absorptive row pass (kMidAbs, row 19) and its init (kInitAbs,
+    row 18) against the plain versions at every size, one and two waves, V
+    the .real and .imag of one complex64 stack (read in place), the row pass
+    in place as the rollout runs it too; each launch counted under "wide"."""
+    tol = 2e-6
+    for n in ps.SIZES:
+        for waves in (1, 2):
+            rng = np.random.default_rng(n + 5 * waves)
+            b = torch.as_tensor(_cplx(rng, waves, n, n).astype(np.complex64)).to(cuda)
+            vr = rng.uniform(0, 2000, (3, n, n))
+            v = torch.as_tensor((vr + 0.1j * vr).astype(np.complex64)).to(cuda)
+            ps.reset_launches()
+            want = ps.panel_rowpass_stack_abs_ref(2, v.real, v.imag, b, SIGMA)
+            got = ps.panel_rowpass_stack_abs(2, v.real, v.imag, b, SIGMA, route="wide")
+            assert float((got - want).abs().max()) <= tol * float(want.abs().max())
+            want = ps.panel_init_abs_ref(v[0].real, v[0].imag, b, SIGMA)
+            got_init = ps.panel_init_abs(v[0].real, v[0].imag, b, SIGMA, route="wide")
+            assert float((got_init - want).abs().max()) <= tol * float(want.abs().max())
+            flat = b.clone()
+            ps._launch("fdes_panel_rowpass_stack_abs_c64", cuda, n, 2, v.data_ptr(),
+                       flat.data_ptr(), flat.data_ptr(), SIGMA, waves, ps.ROUTES["wide"])
+            assert torch.equal(flat, got)
+            assert [w.launches_by_route for w in (ps.panel_rowpass_stack_abs,
+                                                   ps.panel_init_abs)] == [
+                {"tile": 0, "wide": 1}] * 2
