@@ -52,7 +52,10 @@ Phases, each printing one JSON line:
              The panel gradient's seven passes at the same shapes, its store
              pair at 2048^2 x 8 slices and 256^2 x 2 waves x 3 slices (dV
              bitwise equal over two runs), each pass timed at 2048^2 and
-             4096^2.  The wide column pass, the three wide backward row
+             4096^2; the final pass and the seed (rows 17 and 20, the
+             transform-only kernel) timed in turns with torch.fft.ifft /
+             torch.fft.fft along x at 2048^2 and 4096^2, one and four
+             waves.  The wide column pass, the three wide backward row
              passes, the two wide row passes with V_j (rows 15 and 23) and
              the two absorptive ones (rows 19 and 18: the wide row kernel's
              kMidAbs and kInitAbs, V's .real and .imag read in place as one
@@ -165,7 +168,14 @@ Phases, each printing one JSON line:
              gradient free of FFT library kernels (its kernels counted at 64
              slices); the per-slice route (the store cap patched) against the
              store route at 64 slices.
-13. c5_streamed — config 5 with the potential streamed: ``fdes_tpu_torch.cli.main
+13. c5_tilt_invert — the gradient of config 5's 4-tilt series loss at 2048^2
+             x 512 slices on "panel": four waves' s stack (64 GiB) is past
+             the store cap, so the per-slice route runs unpatched; wall of
+             three evaluations after a warm-up, device busy time by kernel,
+             peak memory, launches asserted (rows 13 and 17 twice a slice,
+             row 20 once), loss and dV finite; at 64 slices the per-slice
+             route (cap patched) against the store route.
+14. c5_streamed — config 5 with the potential streamed: ``fdes_tpu_torch.cli.main
              --mode forward --set sim.streamed=true`` at 2048^2, 512 slices
              (one defocus: forward mode reads no CTF) on "panel" (one C
              call issuing 2,050 panel passes and 512 scatters, asserted by
@@ -180,12 +190,12 @@ Phases, each printing one JSON line:
              the panel rollout's device busy and wall time at each of the
              three shapes with every routed panel pass on the tile kernels
              and on PANEL_ROUTE's, in turns.
-14. phonon — frozen phonons through the CLI: config 2 in mode hrtem with 4
+15. phonon — frozen phonons through the CLI: config 2 in mode hrtem with 4
              configurations on the defaults ("auto" resolves to "fscan": 4
              whole-loop launches, asserted) against "xla" at <= 1e-5, and a
              2x2 STEM raster of config 4 with 2 configurations on "fscan"
              against "xla".
-15. engines — wall time of a 32-slice rollout and of one gradient evaluation
+16. engines — wall time of a 32-slice rollout and of one gradient evaluation
              per engine at 128^2 to 1024^2, one wave and 16, and on "panel",
              "pallas" and "xla" at 2048^2 (1 and 4 waves) and 4096^2: the
              rows that
@@ -220,7 +230,8 @@ import torch
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 PHASES = ("build", "kernels", "golden", "hrtem", "absorptive", "grad", "invert", "stem",
-          "stem4d", "c5", "c5_absorptive", "c5_invert", "c5_streamed", "phonon", "engines")
+          "stem4d", "c5", "c5_absorptive", "c5_invert", "c5_tilt_invert", "c5_streamed",
+          "phonon", "engines")
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 PEAK_OPS_PER_S = {torch.float32: 67e12, torch.float64: 34e12}  # non-tensor-core FP32 / FP64
 KERNEL_TOL = {torch.complex64: 2e-6, torch.complex128: 1e-12}  # max|k - ref| / max|ref|
@@ -569,7 +580,8 @@ OWN_KERNELS = ("row_pass_kernel", "col_pass_kernel", "bwd_tail_kernel", "scan_ke
                "scan_ck_kernel", "scan_bwd_ck_kernel", "panel_row_kernel", "panel_col_kernel",
                "panel_bwd_row_kernel", "panel_build_col_kernel", "panel_wide_col_kernel",
                "panel_wide_bwd_row_kernel",
-               "panel_wide_row_kernel", "panel_wide_g_row_kernel", "panel_scatter_kernel")
+               "panel_wide_row_kernel", "panel_wide_g_row_kernel", "panel_wide_x_row_kernel",
+               "panel_scatter_kernel")
 
 
 def own_kernels(kernels: dict[str, int]) -> dict[str, int]:
@@ -1192,7 +1204,7 @@ PANEL_SHAPES = ((256, (), False), (256, (2,), False), (256, (2,), True), (2048, 
 PANEL_INFO_KEY = {"panel_row_kernel": "row", "panel_col_kernel": "col",
                   "panel_bwd_row_kernel": "bwd_row", "panel_wide_col_kernel": "wide_col",
                   "panel_wide_bwd_row_kernel": "wide_bwd_row",
-                  "panel_wide_row_kernel": "wide_row"}
+                  "panel_wide_row_kernel": "wide_row", "panel_wide_x_row_kernel": "wide_final"}
 
 
 def panel_routed(n: int, b: int) -> dict[str, str]:
@@ -1233,26 +1245,30 @@ def add_counts(*counts: dict[str, int]) -> dict[str, int]:
 def panel_loop_kernels(n: int, b: int, nslices: int, store: bool = False,
                        absorptive: bool = False) -> dict[str, int]:
     """The port's kernels of one rollout of nslices slices of B waves at n^2
-    (``store``: panel_scan_store's) on PANEL_ROUTE's kernels: init and final
-    on panel_row_kernel, the S column passes and the S - 1 row passes with
-    V_j on the routed kernels; an ``absorptive`` V's init and row passes on
-    the absorptive row pass's."""
+    (``store``: panel_scan_store's) on PANEL_ROUTE's kernels: the init of a
+    real V on panel_row_kernel, the final on panel_wide_x_row_kernel, the S
+    column passes and the S - 1 row passes with V_j on the routed kernels;
+    an ``absorptive`` V's init and row passes on the absorptive row
+    pass's."""
     routed = panel_routed(n, b)
     row = ("row_abs_kernel" if absorptive else "row_store_kernel" if store else "row_kernel")
-    return add_counts({"panel_row_kernel": 1 if absorptive else 2, routed["col_kernel"]: nslices},
+    return add_counts({"panel_row_kernel": 0 if absorptive else 1, "panel_wide_x_row_kernel": 1},
+                      {routed["col_kernel"]: nslices},
                       {routed[row]: nslices if absorptive else nslices - 1})
 
 
 #: the (n, lead count) of each panel pass on the main paths whose launches a
 #: run records: the column pass in config 5's run, inverse and streamed
 #: rollouts at 2048^2 and the streamed one at 4096^2; its conjugate, the
-#: backward row passes and the store row pass in config 5's inverse; the row
+#: backward row passes and the store row pass in config 5's inverse (the
+#: column passes and the tail also in the 4-tilt gradient); the row
 #: pass with V_j in config 5's run; the absorptive row pass and its init in
 #: config 5's absorptive run; the build column pass (one species) in the
 #: streamed rollouts at 2048^2 and 4096^2
-PANEL_PATH_SHAPES = {"colpass": ((2048, 1), (4096, 1)), "col_bwd": ((2048, 1),),
+PANEL_PATH_SHAPES = {"colpass": ((2048, 1), (4096, 1), (2048, 4)),
+                     "col_bwd": ((2048, 1), (2048, 4)),
                      "row_bwd_loop": ((2048, 1),), "row_bwd_last": ((2048, 1),),
-                     "bwd_tail": ((2048, 1),), "rowpass_stack": ((2048, 1),),
+                     "bwd_tail": ((2048, 1), (2048, 4)), "rowpass_stack": ((2048, 1),),
                      "rowpass_stack_store": ((2048, 1),),
                      "rowpass_stack_abs": ((2048, 1),), "init_abs": ((2048, 1),),
                      "build_colpass": ((2048, 1), (4096, 1))}
@@ -1458,6 +1474,52 @@ def panel_cost(n: int) -> tuple[int, float]:
     return n * n, 5.0 * n * n * np.log2(n)
 
 
+def xform_library_turns(checks: list, card: CardInputs, inverse: bool) -> dict:
+    """Row 17 (``inverse``: panel_final, psi = Fx^H(b), b's x spectrum
+    bit-reversed) or row 20 (panel_rowfwd, Fx(g), g natural) held to its
+    plain version and timed in turns with one PyTorch call of the same
+    transform along x on the same values, x in natural order
+    (torch.fft.ifft(..., norm="forward") of b's spectrum in natural order,
+    or torch.fft.fft of g), three readings each: held at 256^2 to 4096^2
+    with 1, 2, 4 and 8 waves, timed at 2048^2 and 4096^2 beside the bound
+    (16 bytes a value).  Returns {"<n>x<waves>": {"ms": {"kernel": ...,
+    "library": ...}, "readings": ..., "bound_ms": ...}} of the timed ones."""
+    from fdes_tpu_torch.kernels import panel_scan as ps
+
+    name = "panel_final" if inverse else "panel_rowfwd"
+    kernel, plain = ((ps.panel_final, ps.panel_final_ref) if inverse
+                     else (ps.panel_rowfwd, ps.panel_rowfwd_ref))
+    out = {}
+    for n in ps.SIZES:
+        for waves in PANEL_ROUTE_WAVES:
+            z = card.cplx(waves, n, n)
+            check_kernel(checks, name, (waves, n, n), kernel(z), plain(z), FUSED_TOL)
+            if n < 2048:
+                continue
+            if inverse:
+                z_nat = z[..., ps._perm(n, z.device)].contiguous()  # natural order
+                library = functools.partial(torch.fft.ifft, z_nat, dim=-1, norm="forward")
+            else:
+                library = functools.partial(torch.fft.fft, z, dim=-1)
+            med, readings = interleaved_ms({"kernel": lambda: kernel(z), "library": library},
+                                           rounds=3, n=20, warmup=3)
+            out[f"{n}x{waves}"] = {"ms": med, "readings": readings,
+                                   "bound_ms": 16 * waves * n * n / HBM_BYTES_PER_S * 1e3}
+            del z, library
+            torch.cuda.empty_cache()
+    return out
+
+
+def add_library_times(row: dict, turns: dict, call: str) -> None:
+    """Row 17's or 20's library time (and the kernel's from the same turns)
+    at 2048^2 and 4096^2, one wave, into its table row."""
+    row["library_ms"] = turns["2048x1"]["ms"]["library"]
+    row["library_note"] = f"{call}, x in natural order, in turns with the kernel"
+    row["ms_in_turns"] = turns["2048x1"]["ms"]["kernel"]
+    row["at_4096"].update(library_ms=turns["4096x1"]["ms"]["library"],
+                          ms_in_turns=turns["4096x1"]["ms"]["kernel"])
+
+
 def phase_kernels_panel() -> tuple[dict, dict]:
     """The panel passes (rows 13-19) against their plain versions at 256^2,
     2048^2 (one wave and two, shared and per-wave P) and 4096^2 (one wave),
@@ -1536,11 +1598,15 @@ def phase_kernels_panel() -> tuple[dict, dict]:
                                   "panel_colpass[wide]": "panel_wide_col_kernel",
                                   "panel_rowpass_stack[wide]": "panel_wide_row_kernel",
                                   "panel_init_abs[wide]": "panel_wide_row_kernel",
-                                  "panel_rowpass_stack_abs[wide]": "panel_wide_row_kernel"},
+                                  "panel_rowpass_stack_abs[wide]": "panel_wide_row_kernel",
+                                  "panel_final": "panel_wide_x_row_kernel"},
                                  {"panel_init_abs[tile]": "row_abs",
                                   "panel_rowpass_stack_abs[tile]": "row_abs",
                                   "panel_init_abs[wide]": "wide_init_abs",
                                   "panel_rowpass_stack_abs[wide]": "wide_row_abs"})
+    # row 17 in turns with cuFFT's inverse transform along x
+    final_turns = xform_library_turns(checks, card, inverse=True)
+    add_library_times(rows["panel_final"], final_turns, 'torch.fft.ifft(b, dim=-1, norm="forward")')
     # rows 18 and 19 at the sizes and waves PANEL_SHAPES leaves out, both
     # kernels (the route rows hold row 19's wide kernel up to 8 waves too)
     for n, waves in ((512, 1), (512, 2), (1024, 1), (1024, 2), (4096, 2)):
@@ -1578,6 +1644,7 @@ def phase_kernels_panel() -> tuple[dict, dict]:
             "abs_rollout_kernels_per_call": abs_rollout_kernels,
             "panel_kernel_info": info, "route_rows": route_rows,
             "row_route_rows": row_route_rows, "abs_route_rows": abs_route_rows,
+            "final_library_turns": final_turns,
             "scan_kernel_info": {n: fsc.scan_kernel_info(n) for n in (512, 1024)},
             "adjoint_kernel_info": {k: adj.adjoint_kernel_info(512, k) for k in SCAN_FOOTPRINT
                                     if k != "scan_kernel"}}
@@ -1662,7 +1729,7 @@ def phase_kernels_panel_grad() -> tuple[dict, dict]:
         "panel_rowfwd": "fdes_tpu/pallas/panel_scan.py:206",
         "panel_init_store": "fdes_tpu/pallas/panel_scan.py:582",
     }
-    kernel_of = {}
+    kernel_of = {"panel_rowfwd": "panel_wide_x_row_kernel"}
     for r, w in (("tile", ""), ("wide", "wide_")):
         replaces.update({
             f"panel_rowpass_stack_store[{r}]": "fdes_tpu/pallas/panel_scan.py:603",
@@ -1676,7 +1743,11 @@ def phase_kernels_panel_grad() -> tuple[dict, dict]:
                           **{f"panel_{p}[{r}]": f"panel_{w}bwd_row_kernel"
                              for p in ("bwd_tail", "row_bwd_loop", "row_bwd_last")}})
     rows, info = panel_pass_rows(checks, passes, cost, replaces, kernel_of,
-                                 {"panel_rowpass_stack_store[wide]": "wide_row_store"})
+                                 {"panel_rowpass_stack_store[wide]": "wide_row_store",
+                                  "panel_rowfwd": "wide_rowfwd"})
+    # row 20 in turns with cuFFT's forward transform along x
+    rowfwd_turns = xform_library_turns(checks, card, inverse=False)
+    add_library_times(rows["panel_rowfwd"], rowfwd_turns, "torch.fft.fft(g, dim=-1)")
     route_rows = panel_route_rows("bwd_row", checks, sigma)
     row_route_rows = panel_route_rows("row_store", checks, sigma)
 
@@ -1704,15 +1775,15 @@ def phase_kernels_panel_grad() -> tuple[dict, dict]:
                 panel_loop_kernels(n, b, nslices, store=True))
             bwd_kernels = expect_own_kernels(
                 "panel_scan_bwd_store", lambda: ps.panel_scan_bwd_store(s, vs, prop, g, sigma),
-                {"panel_row_kernel": 1, routed["col_kernel"]: nslices,
-                 routed["bwd_kernel"]: nslices})
+                add_counts({"panel_wide_x_row_kernel": 1}, {routed["col_kernel"]: nslices},
+                           {routed["bwd_kernel"]: nslices}))
         del psi0, vs, g, prop, out, s, got, again
     if not all(bitwise.values()):
         raise AssertionError(f"panel_scan_bwd_store: two runs differ: {bitwise}")
     line = {"phase": "kernels_panel_grad", "checks": checks, "dv_bitwise_equal": bitwise,
             "store_kernels_per_call": store_kernels, "bwd_kernels_per_call": bwd_kernels,
             "panel_kernel_info": info, "route_rows": route_rows,
-            "row_route_rows": row_route_rows}
+            "row_route_rows": row_route_rows, "rowfwd_library_turns": rowfwd_turns}
     return line, rows
 
 
@@ -3107,7 +3178,8 @@ def phase_c5_invert(tmp: str, gpu: str) -> tuple[dict, dict]:
     rollout_kernels_64 = expect_own_kernels(
         "c5 panel gradient, 64 slices", rollout_grad(64),
         add_counts(panel_loop_kernels(2048, 1, 64, store=True),
-                   {"panel_row_kernel": 1, routed["col_kernel"]: 64, routed["bwd_kernel"]: 64}),
+                   {"panel_wide_x_row_kernel": 1}, {routed["col_kernel"]: 64},
+                   {routed["bwd_kernel"]: 64}),
         everything=True)
 
     # ---- the per-slice route (past the store cap) against the store route, 64 slices
@@ -3123,8 +3195,7 @@ def phase_c5_invert(tmp: str, gpu: str) -> tuple[dict, dict]:
         launches["per_slice"] = launch_counts()
     finally:
         adj.STORE_CAP_BYTES = cap
-    per_slice_expect = {**zero, "panel_init": 128, routed["colpass"]: 128, "panel_final": 128,
-                        "panel_rowfwd": 64, routed["col_bwd"]: 64, routed["bwd_tail"]: 64}
+    per_slice_expect = c5_per_slice_expected(zero, 64, 1)
     per_slice_err = {"dv": rel_norm(dv_r, dv_s),
                      "loss": abs(float(loss_r) - float(loss_s)) / abs(float(loss_s))}
     del sim, v_half, i_obs, obs64, dv_s, dv_r
@@ -3160,6 +3231,129 @@ def phase_c5_invert(tmp: str, gpu: str) -> tuple[dict, dict]:
     return line, launches
 
 
+def c5_per_slice_expected(zero: dict, nslices: int, waves: int) -> dict:
+    """The panel wrappers' counts of one gradient on the per-slice route:
+    per slice the forward's init, column and final passes twice (the
+    checkpoint's run and its recompute), then the seed, the conjugate column
+    pass and the tail, on the kernels PANEL_ROUTE picks for the waves."""
+    r = panel_routed(2048, waves)
+    return {**zero, "panel_init": 2 * nslices, r["colpass"]: 2 * nslices,
+            "panel_final": 2 * nslices, "panel_rowfwd": nslices, r["col_bwd"]: nslices,
+            r["bwd_tail"]: nslices}
+
+
+def kernel_busy_ms(kernels: list[tuple[str, float]]) -> dict[str, float]:
+    """Summed ms by kernel of profiled_kernels' result: the port's own
+    kernels (OWN_KERNELS) by name and template arguments, any other by name."""
+    out: dict[str, float] = {}
+    for name, us in kernels:
+        short = name.replace("(anonymous namespace)::", "").removeprefix("void ").split("(")[0]
+        if short.split("<")[0] not in OWN_KERNELS:
+            short = short.split("<")[0]
+        out[short] = out.get(short, 0.0) + us / 1e3
+    return dict(sorted(out.items(), key=lambda kv: -kv[1]))
+
+
+def phase_c5_tilt_invert(gpu: str) -> tuple[dict, dict]:
+    """The gradient of config 5's tilt-series loss (make_loss over
+    hrtem_tilt_series, the four tilts TILTS4, 2048^2 x 512 slices, 8 defoci,
+    engine panel) at V = V_true / 2.  Its four waves' s stack (64 GiB) is past
+    adjoint_scan.STORE_CAP_BYTES, so panel_diff_apply runs the per-slice route,
+    nothing patched.  One warm-up evaluation, then three timed (wall, host
+    clock, synchronised), its device busy time by kernel (torch.profiler) and
+    its peak; its launches asserted (rows 13 and 17 twice a slice, row 20
+    once, the column, conjugate column and tail passes on PANEL_ROUTE's
+    kernels for four waves), a finite loss and dV.  Then the same inputs cut
+    to 64 slices, the cap patched to 0, against the store route: dV within
+    C5_GRAD_TOL.  Returns (line, launches of one 512-slice evaluation)."""
+    from fdes_tpu_torch.config import apply_overrides, load_config
+    from fdes_tpu_torch.forward import hrtem_tilt_series
+    from fdes_tpu_torch.kernels import adjoint_scan as adj
+    from fdes_tpu_torch.loss import make_loss
+    from fdes_tpu_torch.pipeline import setup
+    from fdes_tpu_torch.propagate import make_slice_step, pick_remat_chunk
+
+    zero = dict.fromkeys(launch_counts(), 0)
+    settings = [a for a in C5 if a != "--set"] + [f"sim.tilt_series_rad={TILTS4}"]
+    sim = setup(apply_overrides(load_config(CONFIG), settings), device="cuda")
+    waves, n = sim.psi0_stack.shape[0], sim.grid.ny
+    if waves * C5_SLICES * n * n * 8 <= adj.STORE_CAP_BYTES:
+        raise AssertionError("c5_tilt_invert: the s stack fits the store cap")
+    step = make_slice_step("panel", shape=sim.grid.shape, grad=True)
+
+    def fwd(v):
+        return hrtem_tilt_series(v, sim.psi0_stack, sim.prop_stack, sim.sigma, sim.ctf_stack[0],
+                                 weights=sim.ctf_weights,
+                                 remat_chunk=pick_remat_chunk(v.shape[0]), slice_step=step)
+
+    def grad(v, i_obs):
+        def run():
+            vv = v.detach().requires_grad_(True)
+            loss = make_loss(fwd, i_obs)(vv)
+            loss.backward()
+            return loss.detach(), vv.grad
+        return run
+
+    with torch.no_grad():
+        i_obs = fwd(sim.v_stack)
+    v_half = 0.5 * sim.v_stack
+    run = grad(v_half, i_obs)
+    run()  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    walls = []
+    for i in range(3):
+        reset_launches()
+        t0 = time.perf_counter()
+        loss, dv = run()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+        if i == 0:
+            launches = launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    finite = all_finite((loss, dv)) and float(dv.abs().max()) > 0
+    del loss, dv
+    kernels = profiled_kernels(run)
+    busy = sum(us for _, us in kernels) / 1e3
+
+    # ---- 64 slices: the per-slice route (cap patched) against the store route
+    with torch.no_grad():
+        obs64 = fwd(sim.v_stack[:64])
+    loss_s, dv_s = grad(v_half[:64], obs64)()
+    cap = adj.STORE_CAP_BYTES
+    adj.STORE_CAP_BYTES = 0
+    try:
+        reset_launches()
+        loss_r, dv_r = grad(v_half[:64], obs64)()
+        torch.cuda.synchronize()
+        launches_64 = launch_counts()
+    finally:
+        adj.STORE_CAP_BYTES = cap
+    err_64 = {"dv": rel_norm(dv_r, dv_s),
+              "loss": abs(float(loss_r) - float(loss_s)) / abs(float(loss_s))}
+    del sim, v_half, i_obs, obs64, dv_s, dv_r
+    torch.cuda.empty_cache()
+    line = {
+        "phase": "c5_tilt_invert",
+        "config": "examples/si110_hrtem.toml " + " ".join(settings) + " (make_loss, panel)",
+        "waves": waves, "slices": C5_SLICES, "wall_ms": walls,
+        "busy_ms": busy, "kernels": len(kernels), "busy_ms_by_kernel": kernel_busy_ms(kernels),
+        "device_idle_share": max(0.0, 1.0 - busy / statistics.median(walls)),
+        "peak_gib": peak / 2**30, "launches": {k: c for k, c in launches.items() if c},
+        "per_slice_vs_store_64": err_64, "tol": C5_GRAD_TOL, "gpu": gpu,
+    }
+    want = c5_per_slice_expected(zero, C5_SLICES, waves)
+    if launches != want:
+        raise AssertionError(f"c5_tilt_invert launches {line['launches']}, expected {want}")
+    if launches_64 != c5_per_slice_expected(zero, 64, waves):
+        raise AssertionError(f"c5_tilt_invert launches at 64 slices {launches_64}")
+    if not finite:
+        raise AssertionError("c5_tilt_invert: loss or dV not finite, or dV zero")
+    if not all(e <= C5_GRAD_TOL for e in err_64.values()):
+        raise AssertionError(f"c5_tilt_invert per-slice vs store route at 64 slices: {err_64}")
+    return line, launches
+
+
 #: config 5 in mode forward with the potential streamed: exit wave only, so
 #: one defocus (forward mode reads no CTF; the host builds the stack anyway)
 C5_STREAMED = (*C5, "--mode", "forward", "--set", "sim.streamed=true",
@@ -3187,12 +3381,14 @@ def c5_streamed_expected(zero: dict, nslices: int, n: int = 2048, waves: int = 1
 
 
 def streamed_kernels(n: int, nslices: int, waves: int = 1, nsp: int = 1) -> dict[str, int]:
-    """The port's kernels of that rollout: init and both finals on
-    panel_row_kernel, the scatters on panel_scatter_kernel, the g row passes
-    on panel_wide_g_row_kernel, the fused row passes on panel_wide_row_kernel,
-    the column and build column passes on the kernels PANEL_ROUTE picks."""
+    """The port's kernels of that rollout: the init on panel_row_kernel,
+    both finals on panel_wide_x_row_kernel, the scatters on
+    panel_scatter_kernel, the g row passes on panel_wide_g_row_kernel, the
+    fused row passes on panel_wide_row_kernel, the column and build column
+    passes on the kernels PANEL_ROUTE picks."""
     routed, species = panel_routed(n, waves), panel_routed(n, nsp)
-    return add_counts({"panel_row_kernel": 3, "panel_scatter_kernel": nslices,
+    return add_counts({"panel_row_kernel": 1, "panel_wide_x_row_kernel": 2,
+                       "panel_scatter_kernel": nslices,
                        "panel_wide_g_row_kernel": nslices}, {routed["col_kernel"]: nslices},
                       {species["build_col_kernel"]: nslices},
                       {"panel_wide_row_kernel": nslices - 1})
@@ -3613,10 +3809,10 @@ ROW_PHASES = {
     "wide_scan_bwd_store": ("invert_auto", "invert_fscan", "grad_fscan"),
     "fused_scan_ck": ("grad_fscan_seg",),
     "fused_scan_bwd_ck": ("grad_fscan_seg",),
-    "panel_init": ("c5",),
+    "panel_init": ("c5", "c5_tilt_invert"),
     "panel_rowpass": ("c5",),
-    "panel_final": ("c5",),
-    "panel_rowfwd": ("c5_invert", "c5_invert_per_slice"),
+    "panel_final": ("c5", "c5_tilt_invert"),
+    "panel_rowfwd": ("c5_invert", "c5_invert_per_slice", "c5_tilt_invert"),
     "panel_init_store": ("c5_invert",),
     "panel_scatter": ("c5_streamed", "c5_streamed_4096", "c5_streamed_tilt"),
     "panel_g_rowpass": ("c5_streamed", "c5_streamed_4096", "c5_streamed_tilt"),
@@ -3629,11 +3825,12 @@ ROW_PHASES = {
         ("panel_init_abs", ("c5_absorptive", "c5_absorptive_64")),
         ("panel_rowpass_stack_abs", ("c5_absorptive", "c5_absorptive_64")),
         ("panel_rowpass_stack_store", ("c5_invert",)),
-        ("panel_colpass", ("c5", "c5_invert", "c5_streamed", "c5_streamed_4096")),
-        ("panel_col_bwd", ("c5_invert", "c5_invert_per_slice")),
+        ("panel_colpass", ("c5", "c5_invert", "c5_streamed", "c5_streamed_4096",
+                           "c5_tilt_invert")),
+        ("panel_col_bwd", ("c5_invert", "c5_invert_per_slice", "c5_tilt_invert")),
         ("panel_row_bwd_loop", ("c5_invert",)),
         ("panel_row_bwd_last", ("c5_invert",)),
-        ("panel_bwd_tail", ("c5_invert_per_slice",)),
+        ("panel_bwd_tail", ("c5_invert_per_slice", "c5_tilt_invert")),
         ("panel_build_colpass", ("c5_streamed", "c5_streamed_4096", "c5_streamed_tilt")))
         for r in ("tile", "wide")},
 }
@@ -3742,6 +3939,9 @@ def main(argv=None) -> int:
             line, by_run = timed(phase_c5_invert, tmp, gpu)
             path_launches.update(c5_invert=by_run["panel"],
                                  c5_invert_per_slice=by_run["per_slice"])
+            emit(line)
+        if "c5_tilt_invert" in phases:
+            line, path_launches["c5_tilt_invert"] = timed(phase_c5_tilt_invert, gpu)
             emit(line)
         if "c5_streamed" in phases:
             line, by_size = timed(phase_c5_streamed, tmp, gpu)

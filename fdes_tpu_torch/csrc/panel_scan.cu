@@ -8,10 +8,8 @@
 //   panel_col_kernel<L> (conj_p false)      _col_kernel                (:247)
 //   panel_row_kernel<L, kMid, false>        _row_mid_stack_kernel      (:125) and
 //                                           _row_mid_kernel            (:101)
-//   panel_row_kernel<L, kFinal, false>      _row_final_kernel          (:194)
 //   panel_row_kernel<L, kInit, true, true>  _row_init_abs_kernel       (:150)
 //   panel_row_kernel<L, kMid, true, true>   _row_mid_stack_abs_kernel  (:171)
-//   panel_row_kernel<L, kFwd, false>        _row_fwd_kernel            (:206)
 //   panel_bwd_row_kernel<L, kBwdTail>       _row_bwd_tail_kernel       (:219)
 //   panel_row_kernel<L, kInitStore, false>  _row_init_store_kernel     (:582)
 //   panel_row_kernel<L, kMidStore, false>   _row_mid_store_kernel      (:603)
@@ -32,9 +30,11 @@
 //   panel_wide_row_kernel<L, kMidAbs>       _row_mid_stack_abs_kernel  (:171)
 // (kernels/panel_scan.PANEL_ROUTE picks one kernel of each pair before the
 // launch, by size and waves; the entry points take the choice as `route`),
-// and with no tile kernel beside it (deleted once the wide one won every
+// and with no tile kernel beside them (deleted once the wide one won every
 // measured row)
 //   panel_wide_row_kernel<L, kVfused>       _row_vfused_kernel         (:1086)
+//   panel_wide_x_row_kernel<L, kFinal>      _row_final_kernel          (:194)
+//   panel_wide_x_row_kernel<L, kFwd>        _row_fwd_kernel            (:206)
 // and the whole loops _run_single / _run_single_abs (the rollout),
 // _panel_loop_fwd and _panel_loop_bwd (the store-s gradient) and
 // multislice_panel_streamed's scan (the streamed rollout, :1245-1255) as
@@ -200,6 +200,15 @@
 // value.  kInitAbs transmits psi's row as it is loaded (natural order,
 // layout 1) and runs the forward transform alone.
 //
+// The transform-only row passes, rows 17 and 20 (bound 20 us at 2048^2 and
+// 80 us at 4096^2 a wave: 16 bytes a complex value, read once and written
+// once), are panel_wide_x_row_kernel, a sibling of the g row kernel on
+// complex rows.  The tile kernel ran them at 2.4x and 2.5x the bound, behind
+// a block barrier after every radix-2 stage of a 4096-element tile, slower
+// than cuFFT's batched 1-D transform of the same rows (1.5-1.8x on an H100
+// 80GB HBM3 at 700 W) and than this kernel at every measured size and wave
+// count.
+//
 // Layout: PyTorch's interleaved complex64 (float2), C-contiguous, 16-byte
 // aligned; N in {256, 512, 1024, 2048, 4096}; planes are (nwaves, N, N);
 // offsets of waves and slices are 64-bit (a 4096^2 x 512 stack holds
@@ -212,12 +221,13 @@
 namespace {
 
 // Row passes: kInit transmit, forward x; kMid inverse x, transmit, forward x;
-// kFinal inverse x; kFwd forward x; kInitStore, kMidStore as kInit, kMid,
-// storing s = t psi on the way; the wide row kernel's kVfused as kMid with
-// V built from its x spectrum, and kInitAbs, kMidAbs as kInit, kMid with
-// the damped transmit of a complex V.  Backward row passes (bwd_row_tile):
-// kBwdLoop inverse x, dV, * conj(t), forward x; kBwdLast the same without the
-// forward x; kBwdTail as kBwdLast with s formed from psi.
+// kInitStore, kMidStore as kInit, kMid, storing s = t psi on the way; the
+// wide row kernel's kVfused as kMid with V built from its x spectrum, and
+// kInitAbs, kMidAbs as kInit, kMid with the damped transmit of a complex V;
+// the transform-only kernel's kFinal inverse x and kFwd forward x.
+// Backward row passes (bwd_row_tile): kBwdLoop inverse x, dV, * conj(t),
+// forward x; kBwdLast the same without the forward x; kBwdTail as kBwdLast
+// with s formed from psi.
 enum RowMode {
   kInit = 0, kMid = 1, kFinal = 2, kFwd = 3, kInitStore = 4, kMidStore = 5, kVfused = 6,
   kInitAbs = 7, kMidAbs = 8
@@ -252,7 +262,7 @@ int blocks_for(int64_t ntiles) {
 
 // A row pass over every tile of nwaves planes (fused_fft.cuh's row_tile).
 // v: one (N, N) plane of potentials shared by the waves (the wrapper points
-// it at slice j of a stack); unused by kFinal and kFwd.  VC: v is a complex
+// it at slice j of a stack).  VC: v is a complex
 // (N, N) plane (float2), its real parts the potentials (the streamed
 // rollout's init from V_0 = Fx^H(vx)); with ABS an absorptive potential,
 // its imaginary parts damping.  s: the store modes' s plane of wave 0,
@@ -261,9 +271,10 @@ template <int LOG2N, int MODE, bool ABS, bool VC = false>
 __global__ void __launch_bounds__(kThreads)
 panel_row_kernel(const float2* src, float2* dst, const float* __restrict__ v, float2* s,
                  int64_t s_wave_stride, float sigma, int64_t nwaves) {
+  static_assert(MODE == kInit || MODE == kMid || MODE == kInitStore || MODE == kMidStore,
+                "the tile row kernel runs rows 13, 15, 16, 18, 19, 22 and 23");
   constexpr bool kStore = MODE == kInitStore || MODE == kMidStore;
-  constexpr bool kInverse = MODE == kMid || MODE == kMidStore || MODE == kFinal;
-  constexpr bool kTransmit = MODE != kFinal && MODE != kFwd;
+  constexpr bool kInverse = MODE == kMid || MODE == kMidStore;
   extern __shared__ float2 smem[];
   float2* tile = smem;
   float2* tw = smem + kTilePadded;
@@ -273,8 +284,7 @@ panel_row_kernel(const float2* src, float2* dst, const float* __restrict__ v, fl
   for (int64_t t = blockIdx.x; t < nwaves * kTiles; t += gridDim.x) {
     const int64_t r = (t % kTiles) * kTile;
     row_tile<LOG2N, kStore, ABS, VC>(tile, tw, src + t * kTile, dst + t * kTile,
-                                     kTransmit ? v + (VC ? 2 : 1) * r : nullptr, sigma, kInverse,
-                                     MODE != kFinal, nullptr,
+                                     v + (VC ? 2 : 1) * r, sigma, kInverse, true, nullptr,
                                      kStore ? s + (t / kTiles) * s_wave_stride + r : nullptr);
   }
 }
@@ -904,6 +914,60 @@ panel_wide_g_row_kernel(const float* __restrict__ planes, float2* dst, int64_t n
   }
 }
 
+// Rows 17 and 20 (kFinal, kFwd): the transform-only row passes psi = Fx^H(b)
+// (the exit wave; in the streamed rollout also slice 0's V) and Fx(g) (the
+// adjoint's seed), one row a group, the rows of all nwaves planes one flat
+// range (rows = nwaves N) spread over the blocks as in the g row kernel.  A
+// group holds its row in layout 1 from load to store (256 contiguous bytes a
+// warp instruction each way); kFwd runs the forward transform and the
+// exchange from layout 3 back to layout 1, kFinal the exchange to layout 3
+// and the inverse transform.  With no V, no t and no sincosf, the registers
+// the row kernel spends on them hold the group's next row, loaded before
+// this one's transform, so that its loads are in flight while it runs.  src
+// may be dst: a group reads a row before it writes it, and no other group
+// touches that row.
+template <int LOG2N, int MODE>
+__global__ void __launch_bounds__(kWideRowThreads, 2)
+panel_wide_x_row_kernel(const float2* src, float2* dst, int64_t rows) {
+  static_assert(MODE == kFwd || MODE == kFinal, "the transform-only kernel runs rows 20 and 17");
+  using X = Rounds<LOG2N>;
+  constexpr int N = X::N;
+  constexpr int R = X::R;
+  constexpr int kGroups = kWideRowThreads / X::T;
+  extern __shared__ float4 wide_smem[];
+  float2* tw = reinterpret_cast<float2*>(wide_smem);
+  init_staged_twiddles<LOG2N, kWideRowThreads>(tw);
+  __syncthreads();
+  const int group = threadIdx.x / X::T;
+  const Group g{static_cast<int>(threadIdx.x % X::T), 1 + group, tw + N + group * X::kBuf};
+  const int64_t step = static_cast<int64_t>(gridDim.x) * kGroups;
+  int64_t y = blockIdx.x + static_cast<int64_t>(group) * gridDim.x;
+  float2 next[R];  // row y, loaded one iteration ahead
+  if (y < rows) {
+#pragma unroll
+    for (int m = 0; m < R; ++m) next[m] = src[y * N + rounds_pos<LOG2N, 1>(g.t, m)];
+  }
+  for (; y < rows; y += step) {
+    float2 x[R];
+#pragma unroll
+    for (int m = 0; m < R; ++m) x[m] = next[m];
+    if (y + step < rows) {
+#pragma unroll
+      for (int m = 0; m < R; ++m) next[m] = src[(y + step) * N + rounds_pos<LOG2N, 1>(g.t, m)];
+    }
+    if (MODE == kFwd) {
+      rounds_forward<LOG2N>(x, tw, g);
+      rounds_exchange<LOG2N, 3, 1>(x, g);
+    } else {
+      rounds_exchange<LOG2N, 1, 3>(x, g);
+      rounds_inverse<LOG2N>(x, tw, g);
+    }
+    float2* out = dst + y * N;
+#pragma unroll
+    for (int m = 0; m < R; ++m) out[rounds_pos<LOG2N, 1>(g.t, m)] = x[m];
+  }
+}
+
 // The streamed build's scatter: g[idx[k]] += val[k] for the count corners of
 // one slice (the atoms' bilinear corners, potential.bilinear_corners), one
 // thread a corner, by atomicAdd into g, which the caller zeroes first
@@ -1186,6 +1250,18 @@ int launch_g_row(const float* g, float2* out, int64_t nplanes, cudaStream_t stre
   return cudaGetLastError();
 }
 
+// Rows 17 and 20: the transform-only kernel over the rows of nwaves planes.
+template <int LOG2N, int MODE>
+int launch_x_row(const float2* src, float2* dst, int64_t nwaves, cudaStream_t stream) {
+  auto* kernel = panel_wide_x_row_kernel<LOG2N, MODE>;
+  const int64_t rows = nwaves << LOG2N;
+  int blocks = 0;
+  const int err = wide_row_blocks<LOG2N>(kernel, &blocks, rows);
+  if (err != cudaSuccess) return err;
+  kernel<<<blocks, kWideRowThreads, wide_row_smem_bytes<LOG2N>(), stream>>>(src, dst, rows);
+  return cudaGetLastError();
+}
+
 // The scatter of one slice: g (g_elems floats) zeroed, then count corners
 // added (at least one block, so that every call launches the kernel once).
 int launch_scatter(const int64_t* idx, const float* val, int64_t count, float* g, int64_t g_elems,
@@ -1271,7 +1347,7 @@ int launch_scan(const float2* psi0, const void* v, const float2* prop, float2* o
                                              sigma, nwaves, stream);
       }
     } else {
-      err = launch_row<LOG2N, kFinal>(out, out, nullptr, nullptr, 0, sigma, nwaves, stream);
+      err = launch_x_row<LOG2N, kFinal>(out, out, nwaves, stream);
     }
   }
   return err;
@@ -1286,7 +1362,7 @@ int launch_scan_bwd(const float2* s, const float* v, const float2* prop, const f
                     float2* dpsi, float* dv, float sigma, int64_t nwaves, int nslices,
                     int64_t p_wave_stride, int col_route, int row_route, cudaStream_t stream) {
   constexpr int64_t kPlane = int64_t{1} << (2 * LOG2N);
-  int err = launch_row<LOG2N, kFwd>(g, dpsi, nullptr, nullptr, 0, sigma, nwaves, stream);
+  int err = launch_x_row<LOG2N, kFwd>(g, dpsi, nwaves, stream);
   for (int64_t j = nslices - 1; err == cudaSuccess && j >= 0; --j) {
     err = launch_col_route<LOG2N>(col_route, dpsi, dpsi, prop, p_wave_stride, true, nwaves,
                                   stream);
@@ -1322,9 +1398,7 @@ int launch_streamed(const float2* psi0, const int64_t* idx, const float* val, in
     return err;
   };
   int err = build(0);
-  if (err == cudaSuccess) {
-    err = launch_row<LOG2N, kFinal>(vx, gx, nullptr, nullptr, 0, 0.0f, 1, stream);
-  }
+  if (err == cudaSuccess) err = launch_x_row<LOG2N, kFinal>(vx, gx, 1, stream);
   if (err == cudaSuccess) {
     err = launch_row<LOG2N, kInit, false, true>(psi0, out, reinterpret_cast<const float*>(gx),
                                                 nullptr, 0, sigma, nwaves, stream);
@@ -1341,9 +1415,7 @@ int launch_streamed(const float2* psi0, const int64_t* idx, const float* val, in
     err = launch_col_route<LOG2N>(col_route, out, out, prop, p_wave_stride, false, nwaves,
                                   stream);
   }
-  if (err == cudaSuccess) {
-    err = launch_row<LOG2N, kFinal>(out, out, nullptr, nullptr, 0, 0.0f, nwaves, stream);
-  }
+  if (err == cudaSuccess) err = launch_x_row<LOG2N, kFinal>(out, out, nwaves, stream);
   return err;
 }
 
@@ -1410,6 +1482,12 @@ int kernel_info(int device, int which, int* out) {
                      out, kWideRowThreads);
     case 15:
       return info_of(panel_wide_row_kernel<LOG2N, kInitAbs>, wide_row_smem_bytes<LOG2N>(), device,
+                     out, kWideRowThreads);
+    case 16:
+      return info_of(panel_wide_x_row_kernel<LOG2N, kFinal>, wide_row_smem_bytes<LOG2N>(),
+                     device, out, kWideRowThreads);
+    case 17:
+      return info_of(panel_wide_x_row_kernel<LOG2N, kFwd>, wide_row_smem_bytes<LOG2N>(), device,
                      out, kWideRowThreads);
     default:
       return cudaErrorInvalidValue;
@@ -1501,17 +1579,15 @@ int fdes_panel_rowpass_stack_abs_c64(int device, int n, int64_t j, const void* v
 }
 
 // b -> psi = Fx^H(b): the exit wave; or, forward != 0, a -> Fx(a): the
-// adjoint's seed.
+// adjoint's seed (out may be b).
 int fdes_panel_final_c64(int device, int n, const void* b, void* out, int forward, int64_t nwaves,
                          void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   if (forward) {
-    FDES_DISPATCH_PANEL_N(n, (launch_row<L, kFwd>(c2(b), o2(out), nullptr, nullptr, 0, 0.0f,
-                                                  nwaves, st(stream))))
+    FDES_DISPATCH_PANEL_N(n, (launch_x_row<L, kFwd>(c2(b), o2(out), nwaves, st(stream))))
   }
-  FDES_DISPATCH_PANEL_N(n, (launch_row<L, kFinal>(c2(b), o2(out), nullptr, nullptr, 0, 0.0f,
-                                                  nwaves, st(stream))))
+  FDES_DISPATCH_PANEL_N(n, (launch_x_row<L, kFinal>(c2(b), o2(out), nwaves, st(stream))))
 }
 
 // A backward row pass (mode 0 kBwdLoop, 1 kBwdLast, 2 kBwdTail): bar
@@ -1656,8 +1732,9 @@ int fdes_panel_vfused_rowpass_c64(int device, int n, const void* vx, const void*
 // kernel of row 19 (3), the build column kernel (4), the wide column kernel
 // (6), the wide backward row kernel (7), the wide row kernel of row 15 (8),
 // of row 23 (9), of row 29 (11), of row 19 (14) or of row 18 (15), the wide
-// column kernel's build of one species (10) or of several (12), or the wide
-// g row kernel (13), for size n.
+// column kernel's build of one species (10) or of several (12), the wide
+// g row kernel (13), or the transform-only kernel of row 17 (16) or row 20
+// (17), for size n.
 int fdes_panel_kernel_info(int device, int n, int which, int* out) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;

@@ -12,7 +12,8 @@ ordinary launch of ``csrc/panel_scan.cu``:
 * ``panel_rowpass_stack(j, v_stack, b, sigma)`` -> a = Fx(t_j Fx^H(b)), V_j read
   from the stack  (``_row_mid_stack_kernel``);
 * ``panel_rowpass(v, b, sigma)``: the same with one V plane  (``_row_mid_kernel``);
-* ``panel_final(b)`` -> psi = Fx^H(b), the exit wave  (``_row_final_kernel``);
+* ``panel_final(b)`` -> psi = Fx^H(b), the exit wave  (``_row_final_kernel``;
+  on ``panel_wide_x_row_kernel``);
 * ``panel_init_abs``, ``panel_rowpass_stack_abs``: the init and stack row
   passes with the damped transmit of an absorptive V = Vr + i Vi
   (``_row_init_abs_kernel``, ``_row_mid_stack_abs_kernel``; routed), which
@@ -34,7 +35,8 @@ bar = Fx(g) at the start and, per slice j = S-1 .. 0,
 
 with s_j = t_j psi_j kept by the forward.  Its passes:
 
-* ``panel_rowfwd(g)`` -> Fx(g), the seed  (``_row_fwd_kernel``);
+* ``panel_rowfwd(g)`` -> Fx(g), the seed  (``_row_fwd_kernel``; on
+  ``panel_wide_x_row_kernel``);
 * ``panel_init_store``, ``panel_rowpass_stack_store``: the init and stack row
   passes that also return s_j  (``_row_init_store_kernel``, ``_row_mid_store_kernel``);
 * ``panel_col_bwd(bar, propagator)``: the column pass with conj(P)
@@ -79,11 +81,13 @@ tiles through shared memory) or "wide" (``panel_wide_col_kernel``,
 ``panel_wide_bwd_row_kernel``, ``panel_wide_row_kernel``: each 1-D
 transform in the registers of a group of threads, three rounds of radix-2
 stages between two exchanges; row 28 is a mode of the wide column kernel,
-rows 19 and 18 modes of the wide row kernel).  The g row pass (row 27) and
-the fused row pass (row 29) have one kernel each, ``panel_wide_g_row_kernel``
-and the wide row kernel's mode kVfused, on the same transform.  The other
-row passes (init and final of a real V, the seed, ``panel_rowpass``) run
-the tile kernel.  The whole loops take the choice into C with them.
+rows 19 and 18 modes of the wide row kernel).  The g row pass (row 27), the
+fused row pass (row 29) and the final and seed (rows 17 and 20) have one
+kernel each, ``panel_wide_g_row_kernel``, the wide row kernel's mode kVfused
+and ``panel_wide_x_row_kernel`` (transform only, the rows of all the waves
+one flat range), on the same transform.  The other row passes (the init of
+a real V and its store form, ``panel_rowpass``) run the tile kernel.  The
+whole loops take the choice into C with them.
 ``_colpass``, the backward row passes, the stack row passes, the
 absorptive init and row 28 take ``route=`` to name a kernel for
 measurements; it is checked, and a launch the card refuses raises with
@@ -269,12 +273,13 @@ def panel_kernel_info(n: int, kernel: str = "row", device: torch.device | str = 
     "wide_row" of row 15, "wide_row_store" of row 23, "wide_row_abs" of row
     19, "wide_init_abs" of row 18, "wide_build_col" of row 28 with one
     species and "wide_build_col_sum" with several, "wide_vfused_row" of row
-    29, "wide_g_row" of row 27), for axis size n, as the CUDA runtime reports
-    them."""
+    29, "wide_g_row" of row 27, "wide_final" and "wide_rowfwd" of rows 17
+    and 20), for axis size n, as the CUDA runtime reports them."""
     which = {"row": 0, "col": 1, "bwd_row": 2, "row_abs": 3, "build_col": 4,
              "wide_col": 6, "wide_bwd_row": 7, "wide_row": 8, "wide_row_store": 9,
              "wide_build_col": 10, "wide_vfused_row": 11, "wide_build_col_sum": 12,
-             "wide_g_row": 13, "wide_row_abs": 14, "wide_init_abs": 15}[kernel]
+             "wide_g_row": 13, "wide_row_abs": 14, "wide_init_abs": 15, "wide_final": 16,
+             "wide_rowfwd": 17}[kernel]
     dev = torch.device(device)
     if dev.index is None:
         dev = torch.device("cuda", torch.cuda.current_device())
@@ -805,14 +810,14 @@ def _xpass(what, counter, b, forward):
 
 
 def panel_final(b: torch.Tensor) -> torch.Tensor:
-    """psi = Fx^H(b): the kernel on CUDA, plain on the CPU."""
+    """psi = Fx^H(b): the transform-only kernel on CUDA, plain on the CPU."""
     if not b.is_cuda:
         return panel_final_ref(b)
     return _xpass("panel_final", panel_final, b, False)
 
 
 def panel_rowfwd(g: torch.Tensor) -> torch.Tensor:
-    """Fx(g): the kernel on CUDA, plain on the CPU."""
+    """Fx(g): the transform-only kernel on CUDA, plain on the CPU."""
     if not g.is_cuda:
         return panel_rowfwd_ref(g)
     return _xpass("panel_rowfwd", panel_rowfwd, g, True)

@@ -1,9 +1,10 @@
 """The wide panel kernels (``panel_wide_col_kernel``, also in its build modes
 (row 28), ``panel_wide_bwd_row_kernel``, ``panel_wide_row_kernel``, also in
-its modes kVfused (row 29), kMidAbs and kInitAbs (rows 19 and 18), and
-``panel_wide_g_row_kernel`` (row 27), in csrc/panel_scan.cu, and their
-three-round transform) as a numpy model of their index maps, and the route
-between them and the tile kernels (``kernels/panel_scan.PANEL_ROUTE``).
+its modes kVfused (row 29), kMidAbs and kInitAbs (rows 19 and 18),
+``panel_wide_g_row_kernel`` (row 27) and ``panel_wide_x_row_kernel`` (rows 17
+and 20), in csrc/panel_scan.cu, and their three-round transform) as a numpy
+model of their index maps, and the route between them and the tile kernels
+(``kernels/panel_scan.PANEL_ROUTE``).
 
 The model follows the kernels' data: an N-point transform is held by a group
 of T = N/R threads (R = 8 values a thread up to 512 points, 16 above: one
@@ -22,8 +23,10 @@ column pass, its conjugate, its backward row pass, its forward row pass
 (with and without the store of s_j), its build column pass (the species'
 products summed in registers), its fused row pass (V's row through one
 more inverse transform), its absorptive row pass and init (the damped
-transmit of a complex V) and its g row pass (real rows through one forward
-transform) against the JAX package's panel passes in interpret mode.  The
+transmit of a complex V), its g row pass (real rows through one forward
+transform) and its transform-only row pass (the final and the seed: complex
+rows of all the waves through one transform) against the JAX package's
+panel passes in interpret mode.  The
 kernels themselves are held against the plain versions on the card (the
 last tests here, and chip_smoke.py's kernels_panel, kernels_panel_grad and
 kernels_panel_stream phases)."""
@@ -342,6 +345,36 @@ def _g_row_pass(g):
     return out
 
 
+def _x_row_pass(z, inverse):
+    """panel_wide_x_row_kernel: the transform-only row pass over the rows of
+    the waves z (B, n, n).  Per row: the row in layout 1; kFinal (``inverse``)
+    the exchange to layout 3 and the inverse transform, natural order out
+    (psi = Fx^H(b), b's x spectrum bit-reversed); kFwd the forward transform
+    and the exchange from layout 3 back to layout 1 (Fx(g), the spectrum
+    bit-reversed at its positions); the row stored from layout 1."""
+    n = z.shape[-1]
+    rows1 = _pos(n, 1)
+    out = np.empty(z.shape, dtype=complex)
+    if inverse:
+        out[..., rows1] = _inverse(n, _exchange(n, z[..., rows1], 1, 3))
+    else:
+        out[..., rows1] = _exchange(n, _forward(n, z[..., rows1]), 3, 1)
+    return out
+
+
+def _flat_rows(n: int, waves: int, resident: int):
+    """The rows each group of the transform-only kernel takes, in order (the
+    g row kernel's walk over a flat range of waves * n rows): blocks =
+    min(resident, ceil(rows / groups a block)), group j of block k starts at
+    row k + j * blocks and steps blocks * groups rows.  {(block, group):
+    rows}."""
+    groups = ROW_THREADS // _shape(n)[2]
+    rows = waves * n
+    blocks = min(resident, -(-rows // groups))
+    return {(k, j): list(range(k + j * blocks, rows, blocks * groups))
+            for k in range(blocks) for j in range(groups)}
+
+
 # ---- the transform and the layouts against np.fft -------------------------------
 
 
@@ -426,6 +459,35 @@ def test_row_item_covers_its_row_once(n):
     for m in range(rows1.shape[1]):
         assert np.array_equal(np.diff(rows1[:32, m]), np.ones(31, dtype=int))
     assert ROW_THREADS % tt == 0 and ROW_THREADS // tt >= 1
+
+
+@pytest.mark.parametrize("n,waves", [(256, 1), (256, 8), (2048, 1), (2048, 4), (4096, 4)])
+def test_flat_rows_cover_each_row_once(n, waves):
+    """The transform-only kernel's groups (two 256-thread blocks an SM on 132
+    SMs, at most one block a group's worth of rows) take every row of the
+    waves once, so in place (src = dst) a row is read and written by one
+    group alone, which reads it (a row ahead) before it writes it; four
+    waves at 2048^2 give every resident group a row."""
+    walk = _flat_rows(n, waves, 2 * 132)
+    taken = sorted(y for rows in walk.values() for y in rows)
+    assert taken == list(range(waves * n))
+    busy = sum(1 for rows in walk.values() if rows)
+    if (n, waves) == (2048, 4):
+        assert busy == len(walk) == 2 * 132 * 2
+
+
+@pytest.mark.parametrize("inverse", [False, True])
+@pytest.mark.parametrize("n,waves", [(256, 1), (256, 4), (1024, 2), (2048, 1)])
+def test_model_x_row_pass_is_the_plain_pass(n, waves, inverse):
+    """The model's transform-only row pass against panel_final_ref (kFinal:
+    psi = Fx^H(b)) and panel_rowfwd_ref (kFwd: Fx(g)) in complex128, the rows
+    of all the waves alike."""
+    rng = np.random.default_rng(n + 19 * waves + int(inverse))
+    z = _cplx(rng, waves, n, n)
+    plain = ps.panel_final_ref if inverse else ps.panel_rowfwd_ref
+    ref = plain(torch.as_tensor(z)).numpy()
+    got = _x_row_pass(z, inverse)
+    assert np.abs(got - ref).max() <= EXACT * np.abs(ref).max()
 
 
 @pytest.mark.parametrize("n", [256, 2048])
@@ -551,8 +613,9 @@ def jax_passes():
     (panel_rowpass_stack, _panel_rowpass_mid_store) on one plane, and the
     streamed build's g row and column passes (_panel_g_rowpass,
     _panel_build_colpass, the species' planes at once) and fused row pass
-    (_panel_vfused_rowpass, one plane), and the absorptive row pass and init
-    (_panel_rowpass_stack_abs, _panel_init_abs, one plane)."""
+    (_panel_vfused_rowpass, one plane), the absorptive row pass and init
+    (_panel_rowpass_stack_abs, _panel_init_abs, one plane), and the final
+    pass and the seed (panel_final, panel_rowfwd, one plane)."""
     import fdes_tpu.pallas.panel_scan as jps
 
     tabs = jps._tables(N_JAX)
@@ -602,13 +665,19 @@ def jax_passes():
                                               SIGMA, prec, True)
         return np.asarray(re) + 1j * np.asarray(im)
 
+    def xform(z, inverse):
+        fn = jps.panel_final if inverse else jps.panel_rowfwd
+        re, im = fn(jnp.asarray(z.real), jnp.asarray(z.imag), tabs, prec, True)
+        return np.asarray(re) + 1j * np.asarray(im)
+
     def init_abs(psi, vr0, vi0):
         re, im = jps._panel_init_abs(jnp.asarray(vr0), jnp.asarray(vi0), jnp.asarray(psi.real),
                                      jnp.asarray(psi.imag), tabs, SIGMA, prec, True)
         return np.asarray(re) + 1j * np.asarray(im)
 
     yield {"col": col, "row_bwd_loop": row_bwd_loop, "row": row, "build_col": build_col,
-           "vfused_row": vfused_row, "g_row": g_row, "row_abs": row_abs, "init_abs": init_abs}
+           "vfused_row": vfused_row, "g_row": g_row, "row_abs": row_abs, "init_abs": init_abs,
+           "xform": xform}
     mp.undo()
 
 
@@ -817,6 +886,28 @@ def test_model_g_row_pass_equals_jax(jax_passes, jax_fields, nsp):
     _close(_g_row_pass(g.astype(np.float64)), nat[..., br])
 
 
+@pytest.mark.parametrize("waves", [1, 2])
+@pytest.mark.parametrize("inverse", [False, True])
+def test_model_x_row_pass_equals_jax(jax_passes, jax_fields, waves, inverse):
+    """The model's transform-only row pass against JAX's panel_final (row 17:
+    the x spectrum in each package's order in, psi natural out) and
+    panel_rowfwd (row 20: g natural in, the x spectrum in each package's
+    order out), a wave at a time."""
+    n = N_JAX
+    br, jo = _bitrev(n), _jax_order(n)
+    x = jax_fields["x"][:waves]
+    want = []
+    for k in range(waves):
+        if inverse:
+            want.append(jax_passes["xform"](x[k][:, jo], True))
+        else:
+            nat = np.empty_like(x[k])
+            nat[:, jo] = jax_passes["xform"](x[k], False)
+            want.append(nat[:, br])
+    got = _x_row_pass((x[..., br] if inverse else x).astype(np.complex128), inverse)
+    _close(got, np.stack(want))
+
+
 # ---- the route ---------------------------------------------------------------
 
 
@@ -836,7 +927,8 @@ def test_panel_route_is_the_table():
             for b in range(1, 20):
                 want = rows[max(m for m in measured if m <= b)][k]
                 assert ps.panel_route(n, b, kind) == want and want in ps.ROUTES
-    for bad in ("fwd_row", "rows", "store", "build", "vfused", "vfused_row", "g_row", "abs"):
+    for bad in ("fwd_row", "rows", "store", "build", "vfused", "vfused_row", "g_row", "abs",
+                "xform_row", "final"):
         with pytest.raises(ValueError, match="kind must be"):
             ps.panel_route(2048, 1, bad)
     src = (_build.SRC_DIR / "panel_scan.cu").read_text()
@@ -844,7 +936,7 @@ def test_panel_route_is_the_table():
     assert enum and [int(g) for g in enum.groups()] == [ps.ROUTES[k] for k in ("tile", "wide")]
     for kernel in ("panel_col_kernel", "panel_wide_col_kernel", "panel_bwd_row_kernel",
                    "panel_wide_bwd_row_kernel", "panel_row_kernel", "panel_wide_row_kernel",
-                   "panel_build_col_kernel", "panel_wide_g_row_kernel"):
+                   "panel_build_col_kernel", "panel_wide_g_row_kernel", "panel_wide_x_row_kernel"):
         assert re.search(rf"__global__ void __launch_bounds__\([^)]*\)\s*{kernel}\(", src)
     for mode in ("kColBuild", "kColBuildSum", "kVfused"):
         assert re.search(rf"launch_wide_(col|row)<LOG2N, {mode}>", src)
@@ -856,6 +948,12 @@ def test_panel_route_is_the_table():
     assert re.search(r"launch_g_row<LOG2N>\(g, gx, nsp", src)
     assert re.search(r"launch_vfused<LOG2N>\(vx, out, out", src)
     assert "panel_vfused_row_kernel" not in src
+    # rows 17 and 20 have one kernel, the transform-only one, in every loop
+    # and in their entry point; the tile kernel's forms of them are gone
+    for call in (r"kFinal>\(out, out, nwaves", r"kFwd>\(g, dpsi, nwaves", r"kFinal>\(vx, gx, 1",
+                 r"kFinal>\(c2\(b\)", r"kFwd>\(c2\(b\)"):
+        assert re.search(rf"launch_x_row<(LOG2N|L), {call}", src)
+    assert not re.search(r"launch_row<(LOG2N|L), k(Final|Fwd)>", src)
     assert "panel_scan" in _build.sources()
 
 
@@ -886,6 +984,11 @@ def test_route_argument_is_checked():
             ps.panel_rowpass_stack_abs(1, v, v, a, SIGMA, route=bad)
         with pytest.raises(ValueError, match="route must be"):
             ps.panel_init_abs(v[0], v[1], a, SIGMA, route=bad)
+    # the final and the seed have one kernel: no route to name
+    for wrapper in (ps.panel_final, ps.panel_rowfwd):
+        assert wrapper not in ps.ROUTED
+        with pytest.raises(TypeError):
+            wrapper(a, route="wide")
 
 
 def test_wide_wrappers_count_their_own_launches():
@@ -922,7 +1025,9 @@ def test_wide_wrappers_count_their_own_launches():
              ps.panel_init_abs_ref(v[0], 0.1 * v[0], s, SIGMA)),
         ]
     pairs += [(ps.panel_g_rowpass(v), ps.panel_g_rowpass_ref(v)),
-              (ps.panel_vfused_rowpass(a, s, SIGMA), ps.panel_vfused_rowpass_ref(a, s, SIGMA))]
+              (ps.panel_vfused_rowpass(a, s, SIGMA), ps.panel_vfused_rowpass_ref(a, s, SIGMA)),
+              (ps.panel_final(s), ps.panel_final_ref(s)),
+              (ps.panel_rowfwd(s), ps.panel_rowfwd_ref(s))]
     for got, want in pairs:
         got, want = (got, want) if isinstance(got, tuple) else ((got,), (want,))
         assert all(torch.equal(x, y) for x, y in zip(got, want))
@@ -1098,3 +1203,25 @@ def test_wide_abs_row_kernel_matches_plain_on_card(cuda):
             assert [w.launches_by_route for w in (ps.panel_rowpass_stack_abs,
                                                    ps.panel_init_abs)] == [
                 {"tile": 0, "wide": 1}] * 2
+
+
+def test_x_row_kernel_matches_plain_on_card(cuda):
+    """The transform-only kernel, rows 17 (panel_final) and 20
+    (panel_rowfwd), against the plain versions at 256^2 to 1024^2 with one,
+    two and four waves (the rows of all the waves one flat range), in place
+    as the rollouts run it too; each launch counted on its wrapper."""
+    tol = 2e-6
+    for n in (256, 512, 1024):
+        for waves in (1, 2, 4):
+            rng = np.random.default_rng(n + 23 * waves)
+            z = torch.as_tensor(_cplx(rng, waves, n, n).astype(np.complex64)).to(cuda)
+            ps.reset_launches()
+            for forward, wrapper, plain in ((0, ps.panel_final, ps.panel_final_ref),
+                                            (1, ps.panel_rowfwd, ps.panel_rowfwd_ref)):
+                want, got = plain(z), wrapper(z)
+                assert float((got - want).abs().max()) <= tol * float(want.abs().max())
+                flat = z.clone()
+                ps._launch("fdes_panel_final_c64", cuda, n, flat.data_ptr(), flat.data_ptr(),
+                           forward, waves)
+                assert torch.equal(flat, got)
+            assert (ps.panel_final.launches, ps.panel_rowfwd.launches) == (1, 1)
