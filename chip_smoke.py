@@ -56,15 +56,19 @@ Phases, each printing one JSON line:
              transform-only kernel) timed in turns with torch.fft.ifft /
              torch.fft.fft along x at 2048^2 and 4096^2, one and four
              waves.  The wide column pass, the three wide backward row
-             passes, the two wide row passes with V_j (rows 15 and 23) and
-             the two absorptive ones (rows 19 and 18: the wide row kernel's
+             passes, the two wide row passes with V_j (rows 15 and 23), the
+             two absorptive ones (rows 19 and 18: the wide row kernel's
              kMidAbs and kInitAbs, V's .real and .imag read in place as one
-             complex plane, also at 512^2, 1024^2 and 4096^2 x 2 waves)
-             beside their tile kernels at the same shapes, and every kernel of
-             each of the five routed passes timed in turns (three readings)
-             at each row of kernels/panel_scan.PANEL_ROUTE, 256^2 to 4096^2 x
-             1-8 waves, the wide ones held to the plain versions there (each
-             row names the faster and whether the table picks it).  The
+             complex plane, also at 512^2, 1024^2 and 4096^2 x 2 waves) and
+             the init of a real V (row 13: kInit; its streamed form kInitVc,
+             V_0 the real parts of a complex plane, at every size with one
+             and four waves) beside their tile kernels at the same shapes,
+             and every kernel of each of the six routed passes timed in
+             turns (three readings) at each row of
+             kernels/panel_scan.PANEL_ROUTE, 256^2 to 4096^2 x 1-8 waves,
+             the wide ones (and both of row 13's) held to the plain versions
+             there (each row names the faster and whether the table picks
+             it).  The
              streamed build's three passes at 256^2, 2048^2 and 4096^2 (one
              species and two; the fused row pass, its one kernel, with one
              wave and two; the build column pass on both of its kernels,
@@ -171,10 +175,13 @@ Phases, each printing one JSON line:
 13. c5_tilt_invert — the gradient of config 5's 4-tilt series loss at 2048^2
              x 512 slices on "panel": four waves' s stack (64 GiB) is past
              the store cap, so the per-slice route runs unpatched; wall of
-             three evaluations after a warm-up, device busy time by kernel,
-             peak memory, launches asserted (rows 13 and 17 twice a slice,
-             row 20 once), loss and dV finite; at 64 slices the per-slice
-             route (cap patched) against the store route.
+             three evaluations after a warm-up, device busy time by kernel
+             and of PyTorch's elementwise kernels by name, peak memory,
+             launches asserted (rows 13 and 17 twice a slice, row 20 once),
+             loss and dV finite; one reading (wall, busy, peak, dV) of the
+             chunks handed over as slices of V, as the route ran before V
+             was split once; at 64 slices the per-slice route (cap patched)
+             against the store route.
 14. c5_streamed — config 5 with the potential streamed: ``fdes_tpu_torch.cli.main
              --mode forward --set sim.streamed=true`` at 2048^2, 512 slices
              (one defocus: forward mode reads no CTF) on "panel" (one C
@@ -1210,13 +1217,15 @@ PANEL_INFO_KEY = {"panel_row_kernel": "row", "panel_col_kernel": "col",
 def panel_routed(n: int, b: int) -> dict[str, str]:
     """The launch-count keys (launch_counts) and kernels of the passes that
     kernels/panel_scan.PANEL_ROUTE routes (column, backward row, row, store
-    row, build column and absorptive row pass with its init) for a launch of
-    lead count B at n^2 (the waves; for the build column pass the species)."""
+    row, build column and absorptive row pass with its init, and the init of
+    a real V) for a launch of lead count B at n^2 (the waves; for the build
+    column pass the species)."""
     from fdes_tpu_torch.kernels import panel_scan as ps
 
-    col, bwd, row, row_st, build, row_abs = (ps.panel_route(n, b, k) for k in ps.KINDS)
+    col, bwd, row, row_st, build, row_abs, init = (ps.panel_route(n, b, k) for k in ps.KINDS)
     wide = {"tile": "", "wide": "wide_"}
-    return {"build_colpass": f"panel_build_colpass[{build}]",
+    return {"init": f"panel_init[{init}]", "init_kernel": f"panel_{wide[init]}row_kernel",
+            "build_colpass": f"panel_build_colpass[{build}]",
             "build_col_kernel": {"tile": "panel_build_col_kernel",
                                  "wide": "panel_wide_col_kernel"}[build],
             "rowpass_stack_abs": f"panel_rowpass_stack_abs[{row_abs}]",
@@ -1246,14 +1255,14 @@ def panel_loop_kernels(n: int, b: int, nslices: int, store: bool = False,
                        absorptive: bool = False) -> dict[str, int]:
     """The port's kernels of one rollout of nslices slices of B waves at n^2
     (``store``: panel_scan_store's) on PANEL_ROUTE's kernels: the init of a
-    real V on panel_row_kernel, the final on panel_wide_x_row_kernel, the S
-    column passes and the S - 1 row passes with V_j on the routed kernels;
-    an ``absorptive`` V's init and row passes on the absorptive row
-    pass's."""
+    real V on its routed kernel (the store form's on panel_row_kernel), the
+    final on panel_wide_x_row_kernel, the S column passes and the S - 1 row
+    passes with V_j on the routed kernels; an ``absorptive`` V's init and row
+    passes on the absorptive row pass's."""
     routed = panel_routed(n, b)
     row = ("row_abs_kernel" if absorptive else "row_store_kernel" if store else "row_kernel")
-    return add_counts({"panel_row_kernel": 0 if absorptive else 1, "panel_wide_x_row_kernel": 1},
-                      {routed["col_kernel"]: nslices},
+    first = {} if absorptive else {"panel_row_kernel" if store else routed["init_kernel"]: 1}
+    return add_counts(first, {"panel_wide_x_row_kernel": 1}, {routed["col_kernel"]: nslices},
                       {routed[row]: nslices if absorptive else nslices - 1})
 
 
@@ -1264,8 +1273,10 @@ def panel_loop_kernels(n: int, b: int, nslices: int, store: bool = False,
 #: column passes and the tail also in the 4-tilt gradient); the row
 #: pass with V_j in config 5's run; the absorptive row pass and its init in
 #: config 5's absorptive run; the build column pass (one species) in the
-#: streamed rollouts at 2048^2 and 4096^2
-PANEL_PATH_SHAPES = {"colpass": ((2048, 1), (4096, 1), (2048, 4)),
+#: streamed rollouts at 2048^2 and 4096^2; the init of a real V in config
+#: 5's run, the streamed rollout at 4096^2 and the 4-tilt gradient
+PANEL_PATH_SHAPES = {"init": ((2048, 1), (4096, 1), (2048, 4)),
+                     "colpass": ((2048, 1), (4096, 1), (2048, 4)),
                      "col_bwd": ((2048, 1), (2048, 4)),
                      "row_bwd_loop": ((2048, 1),), "row_bwd_last": ((2048, 1),),
                      "bwd_tail": ((2048, 1), (2048, 4)), "rowpass_stack": ((2048, 1),),
@@ -1338,11 +1349,13 @@ def panel_route_rows(kind: str, checks: list, sigma: float) -> list[dict]:
     each) at every (n, lead count) row of PANEL_ROUTE: the column pass (kind
     "col", on a prepared P shared by the waves), the backward row pass
     ("bwd_row", kBwdLoop), the row pass with V_j ("row", and "row_store"
-    with s_j), the build column pass ("build_col", the count its species) or
+    with s_j), the build column pass ("build_col", the count its species),
     the absorptive row pass ("row_abs", one complex V_j shared by the waves,
-    Vi = 0.1 |Vr|, read in place), on "tile" and "wide"; the wide kernels
-    held to the plain version at each row's shape.  Each row names the
-    faster and whether the table picks it, with the pass's bound beside."""
+    Vi = 0.1 |Vr|, read in place) or the init of a real V ("init", V_0 shared
+    by the waves), on "tile" and "wide"; the wide kernels (and both of the
+    init's) held to the plain version at each row's shape.  Each row names
+    the faster and whether the table picks it, with the pass's bound
+    beside."""
     from fdes_tpu_torch.kernels import panel_scan as ps
 
     card = CardInputs(11)
@@ -1384,6 +1397,12 @@ def panel_route_rows(kind: str, checks: list, sigma: float) -> list[dict]:
                        for r in ps.ROUTES}
                 # b and a of each wave, the complex V_j (shared) once
                 cost = (plane * (b * 16 + 8), b * (2 * fx + 13 * plane))
+            elif kind == "init":
+                v0 = card.real(n, n)
+                ref = ps.panel_init_ref(v0, a, sigma)
+                fns = {r: (lambda r=r: ps.panel_init(v0, a, sigma, route=r)) for r in ps.ROUTES}
+                # psi and a of each wave, V_0 (shared) once
+                cost = (plane * (b * 16 + 4), b * (fx + 9 * plane))
             else:
                 vs, s_b = card.real(2, n, n), card.cplx(b, 2, n, n)
                 ref = ps.panel_row_bwd_loop_ref(1, vs, s_b, a, sigma)
@@ -1392,7 +1411,7 @@ def panel_route_rows(kind: str, checks: list, sigma: float) -> list[dict]:
                 # bar, s and out of each wave, V and dV once
                 cost = (plane * (b * (8 + 8 + 8) + 4 + 4), b * (2 * fx + 13 * plane))
             for route, fn in fns.items():
-                if route != "tile":
+                if route != "tile" or kind == "init":
                     check_kernel(checks, f"{kind} route {route}", (b, n, n), fn(), ref, FUSED_TOL,
                                  route_row=True)
             del ref
@@ -1520,6 +1539,27 @@ def add_library_times(row: dict, turns: dict, call: str) -> None:
                           ms_in_turns=turns["4096x1"]["ms"]["kernel"])
 
 
+def init_vc_checks(checks: list, card: CardInputs, sigma: float) -> None:
+    """Row 13's streamed form (the streamed rollout's init: V_0 the real
+    parts of a complex plane, read in place) through fdes_panel_init_c64 on
+    both kernels, held to panel_init_ref of those real parts at every size
+    with one and four waves."""
+    from fdes_tpu_torch.kernels import panel_scan as ps
+
+    for n in ps.SIZES:
+        for waves in (1, 4):
+            psi, vc = card.cplx(waves, n, n), torch.complex(card.real(n, n), card.real(n, n))
+            want = ps.panel_init_ref(vc.real, psi, sigma)
+            for route, code in ps.ROUTES.items():
+                out = torch.empty_like(psi)
+                ps._launch("fdes_panel_init_c64", psi.device, n, psi.data_ptr(), vc.data_ptr(), 1,
+                           out.data_ptr(), None, 0, float(sigma), waves, code)
+                check_kernel(checks, f"panel_init streamed form [{route}]", (waves, n, n), out,
+                             want, FUSED_TOL)
+            del psi, vc, want, out
+            torch.cuda.empty_cache()
+
+
 def phase_kernels_panel() -> tuple[dict, dict]:
     """The panel passes (rows 13-19) against their plain versions at 256^2,
     2048^2 (one wave and two, shared and per-wave P) and 4096^2 (one wave),
@@ -1534,17 +1574,18 @@ def phase_kernels_panel() -> tuple[dict, dict]:
     checks = []
 
     def passes(n, lead, per_wave_p):
-        """{name: (kernel, plain)} of the seven passes and the wide column
-        pass on one set of inputs (the column passes on P gathered once, each
-        on its own kernel)."""
+        """{name: (kernel, plain)} of the seven passes on one set of inputs,
+        each routed pass on each of its kernels (the column passes on P
+        gathered once)."""
         psi, a = card.cplx(*lead, n, n), card.cplx(*lead, n, n)
         vs = card.real(3, n, n)
         vc = torch.complex(vs, card.real(3, n, n, top=200.0))  # read in place: .real, .imag
         pr = card.phases(*(lead if per_wave_p else ()), n, n)
         pp = ps.prepare_propagator(pr)
         return {
-            "panel_init": (lambda: ps.panel_init(vs[0], psi, sigma),
-                           lambda: ps.panel_init_ref(vs[0], psi, sigma)),
+            **{f"panel_init[{r}]": (lambda r=r: ps.panel_init(vs[0], psi, sigma, route=r),
+                                    lambda: ps.panel_init_ref(vs[0], psi, sigma))
+               for r in ps.ROUTES},
             **{f"panel_colpass[{r}]": (lambda r=r: ps._colpass(a, pp, route=r),
                                        lambda: ps.panel_colpass_ref(a, pr)) for r in ps.ROUTES},
             **{f"panel_rowpass_stack[{r}]": (
@@ -1566,7 +1607,8 @@ def phase_kernels_panel() -> tuple[dict, dict]:
     def cost(n):  # name: (bytes, operations): each input read once, each output written once
         plane, fx = panel_cost(n)
         return {
-            "panel_init": (plane * (8 + 4 + 8), fx + 9 * plane),
+            **dict.fromkeys(("panel_init[tile]", "panel_init[wide]"),
+                            (plane * (8 + 4 + 8), fx + 9 * plane)),
             **dict.fromkeys(("panel_colpass[tile]", "panel_colpass[wide]"),
                             (plane * (8 + 8 + 8), 2 * fx + 6 * plane)),
             **dict.fromkeys(("panel_rowpass_stack[tile]", "panel_rowpass_stack[wide]"),
@@ -1581,7 +1623,8 @@ def phase_kernels_panel() -> tuple[dict, dict]:
         }
 
     replaces = {
-        "panel_init": "fdes_tpu/pallas/panel_scan.py:82",
+        **dict.fromkeys(("panel_init[tile]", "panel_init[wide]"),
+                        "fdes_tpu/pallas/panel_scan.py:82"),
         "panel_colpass[tile]": "fdes_tpu/pallas/panel_scan.py:247",
         "panel_colpass[wide]": "fdes_tpu/pallas/panel_scan.py:247",
         "panel_rowpass_stack[tile]": "fdes_tpu/pallas/panel_scan.py:125",
@@ -1596,11 +1639,13 @@ def phase_kernels_panel() -> tuple[dict, dict]:
     rows, info = panel_pass_rows(checks, passes, cost, replaces,
                                  {"panel_colpass[tile]": "panel_col_kernel",
                                   "panel_colpass[wide]": "panel_wide_col_kernel",
+                                  "panel_init[wide]": "panel_wide_row_kernel",
                                   "panel_rowpass_stack[wide]": "panel_wide_row_kernel",
                                   "panel_init_abs[wide]": "panel_wide_row_kernel",
                                   "panel_rowpass_stack_abs[wide]": "panel_wide_row_kernel",
                                   "panel_final": "panel_wide_x_row_kernel"},
-                                 {"panel_init_abs[tile]": "row_abs",
+                                 {"panel_init[wide]": "wide_init",
+                                  "panel_init_abs[tile]": "row_abs",
                                   "panel_rowpass_stack_abs[tile]": "row_abs",
                                   "panel_init_abs[wide]": "wide_init_abs",
                                   "panel_rowpass_stack_abs[wide]": "wide_row_abs"})
@@ -1618,6 +1663,11 @@ def phase_kernels_panel() -> tuple[dict, dict]:
     route_rows = panel_route_rows("col", checks, sigma)
     row_route_rows = panel_route_rows("row", checks, sigma)
     abs_route_rows = panel_route_rows("row_abs", checks, sigma)
+    # row 13 on both kernels in turns at every row (V_0 real), and its
+    # streamed form (V_0 the real parts of a complex plane) held on both
+    init_route_rows = panel_route_rows("init", checks, sigma)
+    init_vc_checks(checks, card, sigma)
+    info["wide_init_vc"] = {n: ps.panel_kernel_info(n, "wide_init_vc") for n in (2048, 4096)}
 
     # ---- the rollout: 2048^2 x 8 slices, real and absorptive V; 256^2 x 3
     # slices with two waves and a per-wave propagator
@@ -1644,7 +1694,7 @@ def phase_kernels_panel() -> tuple[dict, dict]:
             "abs_rollout_kernels_per_call": abs_rollout_kernels,
             "panel_kernel_info": info, "route_rows": route_rows,
             "row_route_rows": row_route_rows, "abs_route_rows": abs_route_rows,
-            "final_library_turns": final_turns,
+            "init_route_rows": init_route_rows, "final_library_turns": final_turns,
             "scan_kernel_info": {n: fsc.scan_kernel_info(n) for n in (512, 1024)},
             "adjoint_kernel_info": {k: adj.adjoint_kernel_info(512, k) for k in SCAN_FOOTPRINT
                                     if k != "scan_kernel"}}
@@ -2782,7 +2832,7 @@ def c5_expected_launches(zero: dict, nslices: int, absorptive: bool = False,
     V's init, on the kernels PANEL_ROUTE picks)."""
     routed = panel_routed(2048, waves)
     init, row = ((routed["init_abs"], routed["rowpass_stack_abs"]) if absorptive
-                 else ("panel_init", routed["rowpass_stack"]))
+                 else (routed["init"], routed["rowpass_stack"]))
     return {**zero, "panel_scan": 1, init: 1, routed["colpass"]: nslices, row: nslices - 1,
             "panel_final": 1}
 
@@ -3053,7 +3103,7 @@ def c5_invert_expected(zero: dict, nslices: int, iterations: int) -> dict:
     each column, backward row and row pass with V_j on the kernel PANEL_ROUTE
     picks for one wave at 2048^2."""
     r = panel_routed(2048, 1)
-    return {**zero, "panel_scan": 1, "panel_init": 1, r["rowpass_stack"]: nslices - 1,
+    return {**zero, "panel_scan": 1, r["init"]: 1, r["rowpass_stack"]: nslices - 1,
             r["colpass"]: nslices * (1 + iterations), "panel_final": 1 + iterations,
             "panel_scan_store": iterations, "panel_init_store": iterations,
             r["rowpass_stack_store"]: iterations * (nslices - 1),
@@ -3237,7 +3287,7 @@ def c5_per_slice_expected(zero: dict, nslices: int, waves: int) -> dict:
     checkpoint's run and its recompute), then the seed, the conjugate column
     pass and the tail, on the kernels PANEL_ROUTE picks for the waves."""
     r = panel_routed(2048, waves)
-    return {**zero, "panel_init": 2 * nslices, r["colpass"]: 2 * nslices,
+    return {**zero, r["init"]: 2 * nslices, r["colpass"]: 2 * nslices,
             "panel_final": 2 * nslices, "panel_rowfwd": nslices, r["col_bwd"]: nslices,
             r["bwd_tail"]: nslices}
 
@@ -3254,6 +3304,43 @@ def kernel_busy_ms(kernels: list[tuple[str, float]]) -> dict[str, float]:
     return dict(sorted(out.items(), key=lambda kv: -kv[1]))
 
 
+def elementwise_busy_ms(kernels: list[tuple[str, float]]) -> dict[str, float]:
+    """Summed ms of PyTorch's elementwise kernels (fills, copies, adds) among
+    profiled_kernels' result, by name with their template arguments (the
+    functor)."""
+    out: dict[str, float] = {}
+    for name, us in kernels:
+        if "elementwise_kernel" in name:
+            short = name.replace("(anonymous namespace)::", "").removeprefix("void ").split("(")[0]
+            out[short] = out.get(short, 0.0) + us / 1e3
+    return dict(sorted(out.items(), key=lambda kv: -kv[1]))
+
+
+def per_chunk_slices(psi_b, v_stack, propagator, sigma):
+    """kernels/panel_scan._per_slice as it stood before V was split once: each
+    checkpointed chunk handed the slice v_stack[j : j + chunk], whose
+    backward fills a zeroed (S, n, n) dV for every chunk and adds it into
+    V's.  The before of c5_tilt_invert's before/after pair."""
+    from torch.utils.checkpoint import checkpoint
+
+    from fdes_tpu_torch.kernels import panel_scan as ps
+    from fdes_tpu_torch.propagate import pick_remat_chunk
+
+    prepared = ps.prepare_propagator(propagator)
+
+    def run(psi, v_chunk):
+        for v in v_chunk:
+            psi = ps.panel_slice_step(psi, v, propagator, sigma, prepared)
+        return psi
+
+    nslices = v_stack.shape[0]
+    chunk = pick_remat_chunk(nslices)
+    psi = psi_b
+    for j in range(0, nslices, chunk):
+        psi = checkpoint(run, psi, v_stack[j : j + chunk], use_reentrant=False)
+    return psi
+
+
 def phase_c5_tilt_invert(gpu: str) -> tuple[dict, dict]:
     """The gradient of config 5's tilt-series loss (make_loss over
     hrtem_tilt_series, the four tilts TILTS4, 2048^2 x 512 slices, 8 defoci,
@@ -3263,12 +3350,17 @@ def phase_c5_tilt_invert(gpu: str) -> tuple[dict, dict]:
     clock, synchronised), its device busy time by kernel (torch.profiler) and
     its peak; its launches asserted (rows 13 and 17 twice a slice, row 20
     once, the column, conjugate column and tail passes on PANEL_ROUTE's
-    kernels for four waves), a finite loss and dV.  Then the same inputs cut
-    to 64 slices, the cap patched to 0, against the store route: dV within
-    C5_GRAD_TOL.  Returns (line, launches of one 512-slice evaluation)."""
+    kernels for four waves), a finite loss and dV, and the busy ms of
+    PyTorch's elementwise kernels by name.  One more reading (wall, busy,
+    peak) with V's chunks handed over as slices of V (per_chunk_slices, the
+    route before V was split once), its dV held to the split's.  Then the
+    same inputs cut to 64 slices, the cap patched to 0, against the store
+    route: dV within C5_GRAD_TOL.  Returns (line, launches of one 512-slice
+    evaluation)."""
     from fdes_tpu_torch.config import apply_overrides, load_config
     from fdes_tpu_torch.forward import hrtem_tilt_series
     from fdes_tpu_torch.kernels import adjoint_scan as adj
+    from fdes_tpu_torch.kernels import panel_scan as ps
     from fdes_tpu_torch.loss import make_loss
     from fdes_tpu_torch.pipeline import setup
     from fdes_tpu_torch.propagate import make_slice_step, pick_remat_chunk
@@ -3312,9 +3404,32 @@ def phase_c5_tilt_invert(gpu: str) -> tuple[dict, dict]:
             launches = launch_counts()
     peak = torch.cuda.max_memory_allocated()
     finite = all_finite((loss, dv)) and float(dv.abs().max()) > 0
-    del loss, dv
+    del loss
     kernels = profiled_kernels(run)
     busy = sum(us for _, us in kernels) / 1e3
+
+    # ---- one reading of the chunks handed over as slices of V
+    split_route = ps._per_slice
+    ps._per_slice = per_chunk_slices
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        loss_old, dv_old = run()
+        torch.cuda.synchronize()
+        old_wall = (time.perf_counter() - t0) * 1e3
+        old_peak = torch.cuda.max_memory_allocated()
+        old_kernels = profiled_kernels(run)
+    finally:
+        ps._per_slice = split_route
+    old_dv_err, old_dv_equal = rel_norm_by_slice(dv_old, dv), torch.equal(dv_old, dv)
+    old_busy = sum(us for _, us in old_kernels) / 1e3
+    per_chunk = {"wall_ms": old_wall, "busy_ms": old_busy, "kernels": len(old_kernels),
+                 "peak_gib": old_peak / 2**30, "dv_rel_err_vs_split": old_dv_err,
+                 "dv_equal_to_split": old_dv_equal,
+                 "elementwise_busy_ms": elementwise_busy_ms(old_kernels),
+                 "busy_ms_by_kernel": kernel_busy_ms(old_kernels)}
+    del loss_old, dv_old, dv
 
     # ---- 64 slices: the per-slice route (cap patched) against the store route
     with torch.no_grad():
@@ -3338,8 +3453,10 @@ def phase_c5_tilt_invert(gpu: str) -> tuple[dict, dict]:
         "config": "examples/si110_hrtem.toml " + " ".join(settings) + " (make_loss, panel)",
         "waves": waves, "slices": C5_SLICES, "wall_ms": walls,
         "busy_ms": busy, "kernels": len(kernels), "busy_ms_by_kernel": kernel_busy_ms(kernels),
+        "elementwise_busy_ms": elementwise_busy_ms(kernels),
         "device_idle_share": max(0.0, 1.0 - busy / statistics.median(walls)),
         "peak_gib": peak / 2**30, "launches": {k: c for k, c in launches.items() if c},
+        "per_chunk_slices": per_chunk,
         "per_slice_vs_store_64": err_64, "tol": C5_GRAD_TOL, "gpu": gpu,
     }
     want = c5_per_slice_expected(zero, C5_SLICES, waves)
@@ -3349,6 +3466,9 @@ def phase_c5_tilt_invert(gpu: str) -> tuple[dict, dict]:
         raise AssertionError(f"c5_tilt_invert launches at 64 slices {launches_64}")
     if not finite:
         raise AssertionError("c5_tilt_invert: loss or dV not finite, or dV zero")
+    if not old_dv_err <= C5_GRAD_TOL:
+        raise AssertionError(f"c5_tilt_invert: dV of the per-chunk slices {old_dv_err:.3e} from "
+                             "the split's")
     if not all(e <= C5_GRAD_TOL for e in err_64.values()):
         raise AssertionError(f"c5_tilt_invert per-slice vs store route at 64 slices: {err_64}")
     return line, launches
@@ -3372,22 +3492,22 @@ def c5_streamed_expected(zero: dict, nslices: int, n: int = 2048, waves: int = 1
     the g row pass, the build column pass and the column pass, the fused row
     pass for every slice after the first (the build column and column passes
     on the kernels PANEL_ROUTE picks); slice 0's V by panel_final,
-    panel_init, and the closing panel_final."""
+    panel_init (on its route), and the closing panel_final."""
     routed, species = panel_routed(n, waves), panel_routed(n, nsp)
     return {**zero, "panel_streamed": 1, "panel_scatter": nslices,
             "panel_g_rowpass": nslices, species["build_colpass"]: nslices,
             routed["colpass"]: nslices, "panel_vfused_rowpass": nslices - 1, "panel_final": 2,
-            "panel_init": 1}
+            routed["init"]: 1}
 
 
 def streamed_kernels(n: int, nslices: int, waves: int = 1, nsp: int = 1) -> dict[str, int]:
-    """The port's kernels of that rollout: the init on panel_row_kernel,
-    both finals on panel_wide_x_row_kernel, the scatters on
-    panel_scatter_kernel, the g row passes on panel_wide_g_row_kernel, the
-    fused row passes on panel_wide_row_kernel, the column and build column
-    passes on the kernels PANEL_ROUTE picks."""
+    """The port's kernels of that rollout: both finals on
+    panel_wide_x_row_kernel, the scatters on panel_scatter_kernel, the g row
+    passes on panel_wide_g_row_kernel, the fused row passes on
+    panel_wide_row_kernel, the init, the column and build column passes on
+    the kernels PANEL_ROUTE picks."""
     routed, species = panel_routed(n, waves), panel_routed(n, nsp)
-    return add_counts({"panel_row_kernel": 1, "panel_wide_x_row_kernel": 2,
+    return add_counts({routed["init_kernel"]: 1, "panel_wide_x_row_kernel": 2,
                        "panel_scatter_kernel": nslices,
                        "panel_wide_g_row_kernel": nslices}, {routed["col_kernel"]: nslices},
                       {species["build_col_kernel"]: nslices},
@@ -3809,7 +3929,6 @@ ROW_PHASES = {
     "wide_scan_bwd_store": ("invert_auto", "invert_fscan", "grad_fscan"),
     "fused_scan_ck": ("grad_fscan_seg",),
     "fused_scan_bwd_ck": ("grad_fscan_seg",),
-    "panel_init": ("c5", "c5_tilt_invert"),
     "panel_rowpass": ("c5",),
     "panel_final": ("c5", "c5_tilt_invert"),
     "panel_rowfwd": ("c5_invert", "c5_invert_per_slice", "c5_tilt_invert"),
@@ -3817,10 +3936,11 @@ ROW_PHASES = {
     "panel_scatter": ("c5_streamed", "c5_streamed_4096", "c5_streamed_tilt"),
     "panel_g_rowpass": ("c5_streamed", "c5_streamed_4096", "c5_streamed_tilt"),
     "panel_vfused_rowpass": ("c5_streamed", "c5_streamed_4096", "c5_streamed_tilt"),
-    # the column, backward row, row passes with V_j, the absorptive row
-    # passes and the streamed build's column pass run one of two kernels
-    # each, by the route table, counted as "<wrapper>[route]"
+    # the init, the column, backward row, row passes with V_j, the
+    # absorptive row passes and the streamed build's column pass run one of
+    # two kernels each, by the route table, counted as "<wrapper>[route]"
     **{f"{name}[{r}]": phases for name, phases in (
+        ("panel_init", ("c5", "c5_tilt_invert", "c5_streamed", "c5_streamed_4096")),
         ("panel_rowpass_stack", ("c5",)),
         ("panel_init_abs", ("c5_absorptive", "c5_absorptive_64")),
         ("panel_rowpass_stack_abs", ("c5_absorptive", "c5_absorptive_64")),

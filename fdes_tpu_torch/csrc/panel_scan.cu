@@ -28,6 +28,7 @@
 //   panel_wide_col_kernel<L, C, kColBuildSum>
 //   panel_wide_row_kernel<L, kInitAbs>      _row_init_abs_kernel       (:150)
 //   panel_wide_row_kernel<L, kMidAbs>       _row_mid_stack_abs_kernel  (:171)
+//   panel_wide_row_kernel<L, kInit>         _row_init_kernel           (:82)
 // (kernels/panel_scan.PANEL_ROUTE picks one kernel of each pair before the
 // launch, by size and waves; the entry points take the choice as `route`),
 // and with no tile kernel beside them (deleted once the wide one won every
@@ -209,6 +210,18 @@
 // 80GB HBM3 at 700 W) and than this kernel at every measured size and wave
 // count.
 //
+// The init of a real V, row 13 (bound 25 us at 2048^2 and 100 us at 4096^2 a
+// wave: psi and a 16 bytes a pixel a wave, V_0 4 bytes once), is the wide row
+// kernel's mode kInit, kInitAbs without the damping.  The tile kernel ran it at
+// 2.3x and 2.0x the bound (the transmit a sweep over the tile behind its own
+// barrier, a block barrier after every radix-2 stage, V read and t formed once
+// a wave), and it launches 2S times, with four waves, in a per-slice gradient
+// of a tilt series.  Here a group loads psi's row in natural order (layout 1)
+// with V_0's real row, forms t once a row and keeps it through the waves (at
+// 4096 points V_0, as kMid), transmits the row as loaded and runs the forward
+// transform alone.  kInitVc is the same with V_0 the real parts of a complex
+// plane (the streamed rollout's init, its V_0 = Fx^H(vx) from the final pass).
+//
 // Layout: PyTorch's interleaved complex64 (float2), C-contiguous, 16-byte
 // aligned; N in {256, 512, 1024, 2048, 4096}; planes are (nwaves, N, N);
 // offsets of waves and slices are 64-bit (a 4096^2 x 512 stack holds
@@ -222,15 +235,16 @@ namespace {
 
 // Row passes: kInit transmit, forward x; kMid inverse x, transmit, forward x;
 // kInitStore, kMidStore as kInit, kMid, storing s = t psi on the way; the
-// wide row kernel's kVfused as kMid with V built from its x spectrum, and
-// kInitAbs, kMidAbs as kInit, kMid with the damped transmit of a complex V;
-// the transform-only kernel's kFinal inverse x and kFwd forward x.
+// wide row kernel's kVfused as kMid with V built from its x spectrum,
+// kInitAbs, kMidAbs as kInit, kMid with the damped transmit of a complex V,
+// and kInitVc as kInit with V the real parts of a complex plane; the
+// transform-only kernel's kFinal inverse x and kFwd forward x.
 // Backward row passes (bwd_row_tile): kBwdLoop inverse x, dV, * conj(t),
 // forward x; kBwdLast the same without the forward x; kBwdTail as kBwdLast
 // with s formed from psi.
 enum RowMode {
   kInit = 0, kMid = 1, kFinal = 2, kFwd = 3, kInitStore = 4, kMidStore = 5, kVfused = 6,
-  kInitAbs = 7, kMidAbs = 8
+  kInitAbs = 7, kMidAbs = 8, kInitVc = 9
 };
 enum BwdMode { kBwdLoop = 0, kBwdLast = 1, kBwdTail = 2 };
 // The wide column kernel's passes: kColProp the column pass with P (rows 14,
@@ -778,21 +792,29 @@ constexpr size_t wide_row_smem_bytes() {
 // with V's complex row loaded with b's and t formed once a row at every size;
 // kInitAbs (a = Fx(t_0 psi), src psi) skips the exchange and the inverse
 // transform in front of the transmit.
+//
+// Row 13 redesigned (kInit, kInitVc): a = Fx(t_0 psi), src psi in natural
+// order, as kInitAbs with t = exp(i sigma V_0), V_0 read from v (kInit) or as
+// the real parts of the complex plane vc (kInitVc, v unused); t kept as in
+// kMid (V_0 at 4096 points).
 template <int LOG2N, int MODE>
 __global__ void __launch_bounds__(kWideRowThreads, 2)
 panel_wide_row_kernel(const float2* src, float2* dst, const float* __restrict__ v,
                       const float2* __restrict__ vc, float2* s, int64_t s_wave_stride, float sigma,
                       int64_t nwaves) {
   static_assert(MODE == kMid || MODE == kMidStore || MODE == kVfused || MODE == kInitAbs ||
-                    MODE == kMidAbs,
-                "the wide kernel runs rows 15, 23, 29, 19 and 18");
+                    MODE == kMidAbs || MODE == kInit || MODE == kInitVc,
+                "the wide kernel runs rows 15, 23, 29, 19, 18 and 13");
   using X = Rounds<LOG2N>;
   constexpr int N = X::N;
   constexpr int R = X::R;
   constexpr int kGroups = kWideRowThreads / X::T;
   constexpr int64_t kPlane = int64_t{1} << (2 * LOG2N);
   constexpr bool kAbs = MODE == kInitAbs || MODE == kMidAbs;
-  constexpr bool kInverse = MODE != kInitAbs;  // b arrives as an x spectrum
+  // b arrives as an x spectrum; the inits take psi in natural order
+  constexpr bool kInverse = MODE != kInitAbs && MODE != kInit && MODE != kInitVc;
+  // V read from the complex plane vc
+  constexpr bool kVc = MODE == kVfused || kAbs || MODE == kInitVc;
   // t takes two registers a value; a real V, kept in place of t at 4096
   // points, one
   constexpr bool kKeepT = LOG2N < 12 || kAbs;
@@ -812,7 +834,7 @@ panel_wide_row_kernel(const float2* src, float2* dst, const float* __restrict__ 
     for (int m = 0; m < R; ++m) {
       const int p = rounds_pos<LOG2N, 1>(g.t, m);
       x[m] = src[r + p];
-      if (MODE == kVfused || kAbs) {
+      if (kVc) {
         t[m] = __ldg(vc + r + p);
       } else {
         t[m].x = __ldg(v + r + p);
@@ -1231,6 +1253,26 @@ int launch_row_abs_route(int route, const float2* src, float2* dst, const float2
   }
 }
 
+// Row 13 (a = Fx(t_0 psi), a real V_0 shared by the waves) on its route: the
+// tile kernel or the wide row kernel's kInit; with VC, v the complex (N, N)
+// plane whose real parts are V_0 (the streamed rollout's init: the tile
+// kernel's VC form or kInitVc).
+template <int LOG2N, bool VC = false>
+int launch_init_route(int route, const float2* src, float2* dst, const void* v, float sigma,
+                      int64_t nwaves, cudaStream_t stream) {
+  switch (route) {
+    case kRouteTile:
+      return launch_row<LOG2N, kInit, false, VC>(src, dst, static_cast<const float*>(v), nullptr,
+                                                 0, sigma, nwaves, stream);
+    case kRouteWide:
+      return launch_wide_row<LOG2N, VC ? kInitVc : kInit>(
+          src, dst, VC ? nullptr : static_cast<const float*>(v),
+          VC ? static_cast<const float2*>(v) : nullptr, nullptr, 0, sigma, nwaves, stream);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
 // Row 29: the wide row kernel's kVfused, V = Re(Fx^H(vx)).
 template <int LOG2N>
 int launch_vfused(const float2* vx, const float2* src, float2* dst, float sigma, int64_t nwaves,
@@ -1314,15 +1356,15 @@ int launch_bwd_row(int mode, int route, const float2* src, float2* dst, const fl
 // column pass, final; every pass in place on out after the first.  v: the
 // real (S, N, N) stack, or with ABS the complex one (float2, read in place).
 // STORE (a real V): the row passes also store s_j of wave b at s + b * S *
-// N^2 + j * N^2.  col_route, row_route: the column passes' and the row
-// passes' with V_j kernels (Route); with ABS row_route also runs the init.
+// N^2 + j * N^2.  col_route, row_route, init_route: the column passes', the
+// row passes' with V_j and the init's kernels (Route); with ABS row_route
+// also runs the init; STORE's init (row 22) has one kernel.
 template <int LOG2N, bool ABS, bool STORE = false>
 int launch_scan(const float2* psi0, const void* v, const float2* prop, float2* out, float2* s,
                 float sigma, int64_t nwaves, int nslices, int64_t p_wave_stride, int col_route,
-                int row_route, cudaStream_t stream) {
+                int row_route, int init_route, cudaStream_t stream) {
   static_assert(!(ABS && STORE), "the store pair takes a real V");
   constexpr int64_t kPlane = int64_t{1} << (2 * LOG2N);
-  constexpr int kFirst = STORE ? kInitStore : kInit;
   constexpr int kNext = STORE ? kMidStore : kMid;
   [[maybe_unused]] const float* vr = static_cast<const float*>(v);
   [[maybe_unused]] const float2* vc = static_cast<const float2*>(v);
@@ -1330,8 +1372,10 @@ int launch_scan(const float2* psi0, const void* v, const float2* prop, float2* o
   int err;
   if constexpr (ABS) {
     err = launch_row_abs_route<LOG2N, kInit>(row_route, psi0, out, vc, sigma, nwaves, stream);
+  } else if constexpr (STORE) {
+    err = launch_row<LOG2N, kInitStore>(psi0, out, vr, s, s_stride, sigma, nwaves, stream);
   } else {
-    err = launch_row<LOG2N, kFirst>(psi0, out, vr, s, s_stride, sigma, nwaves, stream);
+    err = launch_init_route<LOG2N>(init_route, psi0, out, v, sigma, nwaves, stream);
   }
   for (int64_t j = 1; err == cudaSuccess && j <= nslices; ++j) {
     err = launch_col_route<LOG2N>(col_route, out, out, prop, p_wave_stride, false, nwaves,
@@ -1380,13 +1424,14 @@ int launch_scan_bwd(const float2* s, const float* v, const float2* prop, const f
 // into gx, row 28 into vx; slice 0's V_0 = Re(Fx^H(vx)) as a final row pass
 // into gx's first plane and the init reading its real parts; for j > 0 the
 // column pass and row 29 (the vx of slice j), every pass in place on out;
-// then the closing column pass and final.  The routes: row 28's and the
-// column pass's kernels (Route).
+// then the closing column pass and final.  The routes: row 28's, the
+// column pass's and the init's kernels (Route).
 template <int LOG2N>
 int launch_streamed(const float2* psi0, const int64_t* idx, const float* val, int64_t corners,
                     int nslices, const float* fp, int nsp, const float2* prop, float2* out,
                     float* g, float2* gx, float2* vx, float sigma, int64_t nwaves,
-                    int64_t p_wave_stride, int build_route, int col_route, cudaStream_t stream) {
+                    int64_t p_wave_stride, int build_route, int col_route, int init_route,
+                    cudaStream_t stream) {
   constexpr int64_t kPlane = int64_t{1} << (2 * LOG2N);
   auto build = [&](int64_t j) {
     int err = launch_scatter(idx + j * corners, val + j * corners, corners, g, nsp * kPlane,
@@ -1400,8 +1445,7 @@ int launch_streamed(const float2* psi0, const int64_t* idx, const float* val, in
   int err = build(0);
   if (err == cudaSuccess) err = launch_x_row<LOG2N, kFinal>(vx, gx, 1, stream);
   if (err == cudaSuccess) {
-    err = launch_row<LOG2N, kInit, false, true>(psi0, out, reinterpret_cast<const float*>(gx),
-                                                nullptr, 0, sigma, nwaves, stream);
+    err = launch_init_route<LOG2N, true>(init_route, psi0, out, gx, sigma, nwaves, stream);
   }
   for (int64_t j = 1; err == cudaSuccess && j < nslices; ++j) {
     err = launch_col_route<LOG2N>(col_route, out, out, prop, p_wave_stride, false, nwaves,
@@ -1489,6 +1533,12 @@ int kernel_info(int device, int which, int* out) {
     case 17:
       return info_of(panel_wide_x_row_kernel<LOG2N, kFwd>, wide_row_smem_bytes<LOG2N>(), device,
                      out, kWideRowThreads);
+    case 18:
+      return info_of(panel_wide_row_kernel<LOG2N, kInit>, wide_row_smem_bytes<LOG2N>(), device,
+                     out, kWideRowThreads);
+    case 19:
+      return info_of(panel_wide_row_kernel<LOG2N, kInitVc>, wide_row_smem_bytes<LOG2N>(), device,
+                     out, kWideRowThreads);
     default:
       return cudaErrorInvalidValue;
   }
@@ -1507,18 +1557,27 @@ const char* fdes_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-// psi (nwaves, n, n) -> a = Fx(t_0 psi), v0 (n, n) shared by the waves.
-// s != nullptr: also s_0 = t_0 psi of wave b at s + b * s_wave_stride.
-int fdes_panel_init_c64(int device, int n, const void* psi, const void* v0, void* out, void* s,
-                        int64_t s_wave_stride, double sigma, int64_t nwaves, void* stream) {
+// psi (nwaves, n, n) -> a = Fx(t_0 psi), v0 (n, n) shared by the waves: real
+// float32, or with v0_complex != 0 the real parts of a complex64 plane; route:
+// the kernel (Route: 0 tile, 1 wide).  s != nullptr: also s_0 = t_0 psi of
+// wave b at s + b * s_wave_stride, on the one kernel of row 22 (a real v0,
+// route unused).
+int fdes_panel_init_c64(int device, int n, const void* psi, const void* v0, int v0_complex,
+                        void* out, void* s, int64_t s_wave_stride, double sigma, int64_t nwaves,
+                        int route, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   const float f = static_cast<float>(sigma);
   if (s != nullptr) {
+    if (v0_complex) return cudaErrorInvalidValue;
     FDES_DISPATCH_PANEL_N(n, (launch_row<L, kInitStore>(c2(psi), o2(out), f1(v0), o2(s),
                                                         s_wave_stride, f, nwaves, st(stream))))
   }
-  FDES_DISPATCH_PANEL_N(n, (launch_row<L, kInit>(c2(psi), o2(out), f1(v0), nullptr, 0, f, nwaves,
+  if (v0_complex) {
+    FDES_DISPATCH_PANEL_N(n, (launch_init_route<L, true>(route, c2(psi), o2(out), v0, f, nwaves,
+                                                         st(stream))))
+  }
+  FDES_DISPATCH_PANEL_N(n, (launch_init_route<L>(route, c2(psi), o2(out), v0, f, nwaves,
                                                  st(stream))))
 }
 
@@ -1608,12 +1667,13 @@ int fdes_panel_bwd_row_c64(int device, int n, int mode, const void* bar, void* o
 
 // The whole rollout of nslices >= 1 slices: psi0 (nwaves, n, n) -> out, V
 // the real float32 (S, n, n) stack v, or with absorptive != 0 the complex64
-// one (Vr + i Vi, read in place); col_route, row_route: the column passes'
-// and the row passes' with V_j kernels (as the single passes' route; an
-// absorptive V's init takes row_route too).
+// one (Vr + i Vi, read in place); col_route, row_route, init_route: the
+// column passes', the row passes' with V_j and a real V's init's kernels (as
+// the single passes' route; an absorptive V's init takes row_route).
 int fdes_panel_scan_c64(int device, int n, const void* psi0, const void* v, int absorptive,
                         const void* prop, void* out, double sigma, int64_t nwaves, int nslices,
-                        int64_t p_wave_stride, int col_route, int row_route, void* stream) {
+                        int64_t p_wave_stride, int col_route, int row_route, int init_route,
+                        void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   if (nslices < 1) return cudaErrorInvalidValue;
@@ -1621,11 +1681,11 @@ int fdes_panel_scan_c64(int device, int n, const void* psi0, const void* v, int 
   if (!absorptive) {
     FDES_DISPATCH_PANEL_N(n, (launch_scan<L, false>(c2(psi0), v, c2(prop), o2(out), nullptr, f,
                                                    nwaves, nslices, p_wave_stride, col_route,
-                                                   row_route, st(stream))))
+                                                   row_route, init_route, st(stream))))
   }
   FDES_DISPATCH_PANEL_N(n, (launch_scan<L, true>(c2(psi0), v, c2(prop), o2(out), nullptr, f,
                                                 nwaves, nslices, p_wave_stride, col_route,
-                                                row_route, st(stream))))
+                                                row_route, init_route, st(stream))))
 }
 
 // The rollout under differentiation (a real V): as fdes_panel_scan_c64, and
@@ -1640,7 +1700,7 @@ int fdes_panel_scan_store_c64(int device, int n, const void* psi0, const void* v
   FDES_DISPATCH_PANEL_N(n, (launch_scan<L, false, true>(c2(psi0), v, c2(prop), o2(out), o2(s),
                                                        static_cast<float>(sigma), nwaves, nslices,
                                                        p_wave_stride, col_route, row_route,
-                                                       st(stream))))
+                                                       kRouteTile, st(stream))))
 }
 
 // The reverse loop: g (nwaves, n, n) -> dpsi (nwaves, n, n) and dv (S, n, n)
@@ -1683,17 +1743,18 @@ int fdes_panel_scatter_c64(int device, const void* idx, const void* val, int64_t
 // V_j built per slice from idx, val (nslices, corners) (flat indices into nsp
 // (n, n) delta planes, and weights) and fp (nsp, n, n) (prepare_factors);
 // prop (n, n) or one per wave (p_wave_stride n^2); scratch g (nsp n^2
-// floats), gx (nsp, n, n) and vx (n, n) complex.  build_route, col_route:
-// row 28's and the column pass's kernels (Route: 0 tile, 1 wide).
+// floats), gx (nsp, n, n) and vx (n, n) complex.  build_route, col_route,
+// init_route: row 28's, the column pass's and the init's kernels (Route: 0
+// tile, 1 wide).
 int fdes_panel_streamed_c64(int device, int n, const void* psi0, const void* idx,
                             const void* val, int64_t corners, int nslices, const void* fp, int nsp,
                             const void* prop, void* out, void* g, void* gx, void* vx,
                             double sigma, int64_t nwaves, int64_t p_wave_stride,
-                            int build_route, int col_route, void* stream) {
+                            int build_route, int col_route, int init_route, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   if (nslices < 1 || nsp < 1 || corners < 0) return cudaErrorInvalidValue;
-  const int routes[] = {build_route, col_route};
+  const int routes[] = {build_route, col_route, init_route};
   for (int route : routes) {
     if (route != kRouteTile && route != kRouteWide) return cudaErrorInvalidValue;
   }
@@ -1701,7 +1762,7 @@ int fdes_panel_streamed_c64(int device, int n, const void* psi0, const void* idx
                                               corners, nslices, f1(fp), nsp, c2(prop), o2(out),
                                               static_cast<float*>(g), o2(gx), o2(vx),
                                               static_cast<float>(sigma), nwaves, p_wave_stride,
-                                              build_route, col_route, st(stream)))
+                                              build_route, col_route, init_route, st(stream)))
 }
 
 // Row 28: gx (nsp, n, n) -> out (n, n) = Fy^H(sum_s fp_s * Fy(gx_s)), fp the
@@ -1731,10 +1792,10 @@ int fdes_panel_vfused_rowpass_c64(int device, int n, const void* vx, const void*
 // (which 0), the column kernel (1), the backward row kernel (2), the row
 // kernel of row 19 (3), the build column kernel (4), the wide column kernel
 // (6), the wide backward row kernel (7), the wide row kernel of row 15 (8),
-// of row 23 (9), of row 29 (11), of row 19 (14) or of row 18 (15), the wide
-// column kernel's build of one species (10) or of several (12), the wide
-// g row kernel (13), or the transform-only kernel of row 17 (16) or row 20
-// (17), for size n.
+// of row 23 (9), of row 29 (11), of row 19 (14), of row 18 (15) or of row
+// 13 (18; 19 its streamed form), the wide column kernel's build of one
+// species (10) or of several (12), the wide g row kernel (13), or the
+// transform-only kernel of row 17 (16) or row 20 (17), for size n.
 int fdes_panel_kernel_info(int device, int n, int which, int* out) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;

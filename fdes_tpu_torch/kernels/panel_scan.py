@@ -7,7 +7,8 @@ x-transformed between slices (a_j = Fx(t_j psi_j)): a rollout is an init row
 pass, per slice a column pass and a row pass, and a final row pass, each an
 ordinary launch of ``csrc/panel_scan.cu``:
 
-* ``panel_init(v0, psi, sigma)`` -> a = Fx(t_0 psi)  (replaces ``_row_init_kernel``);
+* ``panel_init(v0, psi, sigma)`` -> a = Fx(t_0 psi)  (replaces ``_row_init_kernel``;
+  routed);
 * ``panel_colpass(a, propagator)`` -> b = Fy^H(P / n^2 * Fy(a))  (``_col_kernel``);
 * ``panel_rowpass_stack(j, v_stack, b, sigma)`` -> a = Fx(t_j Fx^H(b)), V_j read
   from the stack  (``_row_mid_stack_kernel``);
@@ -72,33 +73,34 @@ issued from C in one call on the card (``fdes_panel_streamed_c64``).
 
 The column pass (and its conjugate), the backward row passes, the row
 passes with V_j of a real V (rows 15 and 23), the absorptive row passes
-(rows 19 and 18) and the streamed build's column pass (row 28) run on one
-of two kernels each, picked before the launch by ``panel_route(n, B,
-kind)`` from ``PANEL_ROUTE``, a table of rows measured on the H100 (B the
-waves, for the build column pass the species): "tile" (``panel_col_kernel``,
-``panel_bwd_row_kernel``, ``panel_row_kernel``, ``panel_build_col_kernel``:
-tiles through shared memory) or "wide" (``panel_wide_col_kernel``,
-``panel_wide_bwd_row_kernel``, ``panel_wide_row_kernel``: each 1-D
-transform in the registers of a group of threads, three rounds of radix-2
-stages between two exchanges; row 28 is a mode of the wide column kernel,
-rows 19 and 18 modes of the wide row kernel).  The g row pass (row 27), the
-fused row pass (row 29) and the final and seed (rows 17 and 20) have one
-kernel each, ``panel_wide_g_row_kernel``, the wide row kernel's mode kVfused
-and ``panel_wide_x_row_kernel`` (transform only, the rows of all the waves
-one flat range), on the same transform.  The other row passes (the init of
-a real V and its store form, ``panel_rowpass``) run the tile kernel.  The
-whole loops take the choice into C with them.
-``_colpass``, the backward row passes, the stack row passes, the
-absorptive init and row 28 take ``route=`` to name a kernel for
-measurements; it is checked, and a launch the card refuses raises with
-nothing run in its place.  The ten wrappers of these passes (``ROUTED``)
+(rows 19 and 18), the streamed build's column pass (row 28) and the init of
+a real V (row 13) run on one of two kernels each, picked before the launch
+by ``panel_route(n, B, kind)`` from ``PANEL_ROUTE``, a table of rows
+measured on the H100 (B the waves, for the build column pass the species):
+"tile" (``panel_col_kernel``, ``panel_bwd_row_kernel``,
+``panel_row_kernel``, ``panel_build_col_kernel``: tiles through shared
+memory) or "wide" (``panel_wide_col_kernel``, ``panel_wide_bwd_row_kernel``,
+``panel_wide_row_kernel``: each 1-D transform in the registers of a group of
+threads, three rounds of radix-2 stages between two exchanges; row 28 is a
+mode of the wide column kernel, rows 19, 18 and 13 modes of the wide row
+kernel).  The g row pass (row 27), the fused row pass (row 29) and the
+final and seed (rows 17 and 20) have one kernel each,
+``panel_wide_g_row_kernel``, the wide row kernel's mode kVfused and
+``panel_wide_x_row_kernel`` (transform only, the rows of all the waves one
+flat range), on the same transform.  The other row passes (the init's store
+form, row 22, and ``panel_rowpass``) run the tile kernel.  The whole loops
+take the choice into C with them.  ``_colpass``, the backward row passes,
+the stack row passes, the inits and row 28 take ``route=`` to name a kernel
+for measurements; it is checked, and a launch the card refuses raises with
+nothing run in its place.  The eleven wrappers of these passes (``ROUTED``)
 count their launches in ``launches`` and by kernel in
 ``launches_by_route`` ({"tile": n, "wide": m}).
 
 ``panel_diff_apply`` differentiates the loop: the store pair while the s
 stack (B*S*n*n*8 bytes) fits ``adjoint_scan.STORE_CAP_BYTES``, past it
 ``panel_slice_step`` per slice (forward init, column, final; backward seed,
-conjugate column, tail) under ``torch.utils.checkpoint``.
+conjugate column, tail) under ``torch.utils.checkpoint``, V split into its
+chunks once.
 
 Layout between passes, the kernels' own: Fx is the forward x transform
 with its spectrum in bit-reversed order (a[..., k] = FFT_x[..., bitrev(k)]),
@@ -141,7 +143,7 @@ _I64 = ctypes.c_int64
 _INT = ctypes.c_int
 _D = ctypes.c_double
 _ARGTYPES = {
-    "fdes_panel_init_c64": [_INT, _INT, _P, _P, _P, _P, _I64, _D, _I64, _P],
+    "fdes_panel_init_c64": [_INT, _INT, _P, _P, _INT, _P, _P, _I64, _D, _I64, _INT, _P],
     "fdes_panel_init_abs_c64": [_INT, _INT, _P, _P, _P, _D, _I64, _INT, _P],
     "fdes_panel_colpass_c64": [_INT, _INT, _P, _P, _P, _I64, _INT, _I64, _INT, _P],
     "fdes_panel_rowpass_stack_c64": [_INT, _INT, _I64, _P, _P, _P, _P, _I64, _D, _I64, _INT,
@@ -150,7 +152,7 @@ _ARGTYPES = {
     "fdes_panel_final_c64": [_INT, _INT, _P, _P, _INT, _I64, _P],
     "fdes_panel_bwd_row_c64": [_INT, _INT, _INT, _P, _P, _P, _I64, _P, _P, _D, _I64, _INT, _P],
     "fdes_panel_scan_c64": [
-        _INT, _INT, _P, _P, _INT, _P, _P, _D, _I64, _INT, _I64, _INT, _INT, _P,
+        _INT, _INT, _P, _P, _INT, _P, _P, _D, _I64, _INT, _I64, _INT, _INT, _INT, _P,
     ],
     "fdes_panel_scan_store_c64": [
         _INT, _INT, _P, _P, _P, _P, _P, _D, _I64, _INT, _I64, _INT, _INT, _P,
@@ -162,7 +164,7 @@ _ARGTYPES = {
     "fdes_panel_scatter_c64": [_INT, _P, _P, _I64, _P, _I64, _P],
     "fdes_panel_streamed_c64": [
         _INT, _INT, _P, _P, _P, _I64, _INT, _P, _INT, _P, _P, _P, _P, _P, _D, _I64, _I64, _INT,
-        _INT, _P,
+        _INT, _INT, _P,
     ],
     "fdes_panel_build_colpass_c64": [_INT, _INT, _P, _P, _P, _INT, _INT, _P],
     "fdes_panel_vfused_rowpass_c64": [_INT, _INT, _P, _P, _P, _D, _I64, _P],
@@ -174,49 +176,51 @@ _entries: dict[str, object] = {}
 
 #: The kernels of the column pass (rows 14 and 24), of the backward row pass
 #: (rows 25, 26, 21), of the forward row pass with V_j (rows 15 and 23), of
-#: the streamed build's column pass (row 28) and of the absorptive row
-#: passes (rows 19 and 18), by their code in csrc/panel_scan.cu's Route:
-#: "tile" (``panel_col_kernel``, ``panel_bwd_row_kernel``,
-#: ``panel_row_kernel``, ``panel_build_col_kernel``: tiles through shared
-#: memory) or "wide" (``panel_wide_col_kernel``, also in its build modes:
-#: persistent blocks copying the next item while they transform this one;
-#: ``panel_wide_bwd_row_kernel``, ``panel_wide_row_kernel``, also in its
-#: modes kInitAbs and kMidAbs: each 1-D transform in the registers of a
-#: group of warps).
+#: the streamed build's column pass (row 28), of the absorptive row passes
+#: (rows 19 and 18) and of the init of a real V (row 13), by their code in
+#: csrc/panel_scan.cu's Route: "tile" (``panel_col_kernel``,
+#: ``panel_bwd_row_kernel``, ``panel_row_kernel``, ``panel_build_col_kernel``:
+#: tiles through shared memory) or "wide" (``panel_wide_col_kernel``, also
+#: in its build modes: persistent blocks copying the next item while they
+#: transform this one; ``panel_wide_bwd_row_kernel``,
+#: ``panel_wide_row_kernel``, also in its modes kInitAbs, kMidAbs and kInit:
+#: each 1-D transform in the registers of a group of warps).
 ROUTES = {"tile": 0, "wide": 1}
 #: the passes PANEL_ROUTE routes, in the order of its entries: the column
 #: pass, the backward row pass, the row pass (row 15), the store row pass
-#: (row 23), the build column pass (row 28) and the absorptive row pass (row
-#: 19, and the init, row 18, on the same route)
-KINDS = ("col", "bwd_row", "row", "row_store", "build_col", "row_abs")
+#: (row 23), the build column pass (row 28), the absorptive row pass (row
+#: 19, and the init, row 18, on the same route) and the init of a real V
+#: (row 13, also the streamed rollout's)
+KINDS = ("col", "bwd_row", "row", "row_store", "build_col", "row_abs", "init")
 
 #: The route of each pass by grid and the launch's lead count, {n: {count:
 #: (column pass, backward row pass, row pass, store row pass, build column
-#: pass, absorptive row pass)}}, the count the waves of a launch (the
+#: pass, absorptive row pass, init)}}, the count the waves of a launch (the
 #: species of a build column pass): the faster kernel of each pass
 #: timed in turns on an NVIDIA H100 80GB HBM3 at 700 W (chip_smoke.py kernels_panel,
 #: kernels_panel_grad and kernels_panel_stream, ``route_rows``,
-#: ``row_route_rows``, ``abs_route_rows`` and ``stream_route_rows``; PERF.md
-#: section 5).  A launch takes the row of the largest measured count not
-#: above its own.  The wide column kernel loses at 4096^2, where an item is
-#: two columns (half a 32-byte sector a row) and a block spills, and at
-#: 512^2 from four waves; its build mode at 4096^2 with one species, by 2 %,
-#: and wins from two (the tile kernel's sum goes through device memory); the
-#: wide row kernel at 256^2 from four waves (the store form from eight, the
-#: absorptive modes from four, by 4 % and 30 %), where a group carries its
-#: row through the waves one after the other and 256 rows fill 32 blocks.
+#: ``row_route_rows``, ``abs_route_rows``, ``init_route_rows`` and
+#: ``stream_route_rows``; PERF.md section 5).  A launch takes the row of the
+#: largest measured count not above its own.  The wide column kernel loses at
+#: 4096^2, where an item is two columns (half a 32-byte sector a row) and a
+#: block spills, and at 512^2 from four waves; its build mode at 4096^2 with
+#: one species, by 2 %, and wins from two (the tile kernel's sum goes through
+#: device memory); the wide row kernel at 256^2 from four waves (the store
+#: form and the init from eight, the absorptive modes from four, by 4 % and
+#: 30 %; the init by 17 %), where a group carries its row through the waves
+#: one after the other and 256 rows fill 32 blocks.
 _W, _T = "wide", "tile"
 PANEL_ROUTE = {
-    256: {1: (_W, _W, _W, _W, _W, _W), 2: (_W, _W, _W, _W, _W, _W),
-          4: (_W, _W, _T, _W, _W, _T), 8: (_W, _W, _T, _T, _W, _T)},
-    512: {1: (_W, _W, _W, _W, _W, _W), 2: (_W, _W, _W, _W, _W, _W),
-          4: (_T, _W, _W, _W, _W, _W), 8: (_T, _W, _W, _W, _W, _W)},
-    1024: {1: (_W, _W, _W, _W, _W, _W), 2: (_W, _W, _W, _W, _W, _W),
-           4: (_W, _W, _W, _W, _W, _W), 8: (_W, _W, _W, _W, _W, _W)},
-    2048: {1: (_W, _W, _W, _W, _W, _W), 2: (_W, _W, _W, _W, _W, _W),
-           4: (_W, _W, _W, _W, _W, _W), 8: (_W, _W, _W, _W, _W, _W)},
-    4096: {1: (_T, _W, _W, _W, _T, _W), 2: (_T, _W, _W, _W, _W, _W),
-           4: (_T, _W, _W, _W, _W, _W), 8: (_T, _W, _W, _W, _W, _W)},
+    256: {1: (_W, _W, _W, _W, _W, _W, _W), 2: (_W, _W, _W, _W, _W, _W, _W),
+          4: (_W, _W, _T, _W, _W, _T, _W), 8: (_W, _W, _T, _T, _W, _T, _T)},
+    512: {1: (_W, _W, _W, _W, _W, _W, _W), 2: (_W, _W, _W, _W, _W, _W, _W),
+          4: (_T, _W, _W, _W, _W, _W, _W), 8: (_T, _W, _W, _W, _W, _W, _W)},
+    1024: {1: (_W, _W, _W, _W, _W, _W, _W), 2: (_W, _W, _W, _W, _W, _W, _W),
+           4: (_W, _W, _W, _W, _W, _W, _W), 8: (_W, _W, _W, _W, _W, _W, _W)},
+    2048: {1: (_W, _W, _W, _W, _W, _W, _W), 2: (_W, _W, _W, _W, _W, _W, _W),
+           4: (_W, _W, _W, _W, _W, _W, _W), 8: (_W, _W, _W, _W, _W, _W, _W)},
+    4096: {1: (_T, _W, _W, _W, _T, _W, _W), 2: (_T, _W, _W, _W, _W, _W, _W),
+           4: (_T, _W, _W, _W, _W, _W, _W), 8: (_T, _W, _W, _W, _W, _W, _W)},
 }
 
 
@@ -224,8 +228,9 @@ def panel_route(n: int, b: int, kind: str) -> str:
     """The route of ``kind`` (KINDS: "col" the column pass, "bwd_row" the
     backward row pass, "row" the row pass with V_j, "row_store" the same
     storing s_j, "build_col" the build column pass, "row_abs" the
-    absorptive row pass and its init) for a launch of lead count b on an n x n grid, from
-    PANEL_ROUTE: a function of (n, b) alone.  b is the launch's waves, for
+    absorptive row pass and its init, "init" the init of a real V) for a
+    launch of lead count b on an n x n grid, from PANEL_ROUTE: a function of
+    (n, b) alone.  b is the launch's waves, for
     "build_col" its species (the planes that one output sums)."""
     if kind not in KINDS:
         raise ValueError(f"panel_route: kind must be one of {KINDS}, got {kind!r}")
@@ -274,12 +279,13 @@ def panel_kernel_info(n: int, kernel: str = "row", device: torch.device | str = 
     19, "wide_init_abs" of row 18, "wide_build_col" of row 28 with one
     species and "wide_build_col_sum" with several, "wide_vfused_row" of row
     29, "wide_g_row" of row 27, "wide_final" and "wide_rowfwd" of rows 17
-    and 20), for axis size n, as the CUDA runtime reports them."""
+    and 20, "wide_init" of row 13 and "wide_init_vc" of its streamed form),
+    for axis size n, as the CUDA runtime reports them."""
     which = {"row": 0, "col": 1, "bwd_row": 2, "row_abs": 3, "build_col": 4,
              "wide_col": 6, "wide_bwd_row": 7, "wide_row": 8, "wide_row_store": 9,
              "wide_build_col": 10, "wide_vfused_row": 11, "wide_build_col_sum": 12,
              "wide_g_row": 13, "wide_row_abs": 14, "wide_init_abs": 15, "wide_final": 16,
-             "wide_rowfwd": 17}[kernel]
+             "wide_rowfwd": 17, "wide_init": 18, "wide_init_vc": 19}[kernel]
     dev = torch.device(device)
     if dev.index is None:
         dev = torch.device("cuda", torch.cuda.current_device())
@@ -626,28 +632,38 @@ def _slice_index(j: int, v_stack: torch.Tensor, what: str) -> int:
     return int(j)
 
 
-def _init(what, counter, v0, psi, sigma, store):
+def _init(what, counter, v0, psi, sigma, store, route=None):
+    """The init's launch (row 13 on the kernel PANEL_ROUTE's "init" picks, or
+    ``route`` names); with ``store`` also s_0 (row 22, its one kernel)."""
     flat, n = _wave(psi, "psi", what)
     v = _potential(v0, (n, n), psi.device, "v0", what)
     out = torch.empty_like(flat)
     s = torch.empty_like(flat) if store else None
-    _launch("fdes_panel_init_c64", psi.device, n, flat.data_ptr(), v.data_ptr(), out.data_ptr(),
-            None if s is None else s.data_ptr(), n * n, float(sigma), flat.shape[0])
-    counter.launches += 1
+    route, code = (None, ROUTES["tile"]) if store else _route_code(what, route, n, flat.shape[0],
+                                                                   "init")
+    _launch("fdes_panel_init_c64", psi.device, n, flat.data_ptr(), v.data_ptr(), 0,
+            out.data_ptr(), None if s is None else s.data_ptr(), n * n, float(sigma),
+            flat.shape[0], code)
+    _count(counter, route=route)
     return out.reshape(psi.shape), None if s is None else s.reshape(psi.shape)
 
 
-def panel_init(v0: torch.Tensor, psi: torch.Tensor, sigma: float) -> torch.Tensor:
-    """a = Fx(t_0 psi): the kernel on CUDA, plain on the CPU."""
+def panel_init(
+    v0: torch.Tensor, psi: torch.Tensor, sigma: float, *, route: str | None = None
+) -> torch.Tensor:
+    """a = Fx(t_0 psi): on CUDA the kernel that PANEL_ROUTE picks (or
+    ``route`` names), plain on the CPU."""
+    _check_route("panel_init", route)
     if not psi.is_cuda:
         return panel_init_ref(v0, psi, sigma)
-    return _init("panel_init", panel_init, v0, psi, sigma, False)[0]
+    return _init("panel_init", panel_init, v0, psi, sigma, False, route)[0]
 
 
 def panel_init_store(
     v0: torch.Tensor, psi: torch.Tensor, sigma: float
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """(a = Fx(s_0), s_0 = t_0 psi): the kernel on CUDA, plain on the CPU."""
+    """(a = Fx(s_0), s_0 = t_0 psi): the tile kernel on CUDA (row 22, not
+    routed), plain on the CPU."""
     if not psi.is_cuda:
         return panel_init_store_ref(v0, psi, sigma)
     return _init("panel_init_store", panel_init_store, v0, psi, sigma, True)
@@ -915,11 +931,11 @@ def _loop_operands(what, psi, v_stack, propagator, prepared):
     return n, b, nslices, v32, pp, (n * n if pp.ndim == 3 else 0)
 
 
-def _count_loop(nslices, first, col, row, last, col_route, row_route=None):
+def _count_loop(nslices, first, col, row, last, col_route, row_route=None, first_route=None):
     """Add one loop's passes to the pass wrappers' counts: the column passes
-    on col_route, the row passes (the first too) on row_route where their
-    wrapper is routed."""
-    _count(first, 1, row_route)
+    on col_route, the row passes on row_route and the first on first_route
+    (row_route when None) where their wrapper is routed."""
+    _count(first, 1, first_route or row_route)
     _count(col, nslices, col_route)
     _count(row, nslices - 1, row_route)
     _count(last, 1, row_route)
@@ -949,15 +965,17 @@ def panel_scan(
     out = torch.empty_like(flat)
     col, code = _route_code("panel_scan", None, n, b, "col")
     row, row_code = _route_code("panel_scan", None, n, b, "row_abs" if absorptive else "row")
+    init, init_code = _route_code("panel_scan", None, n, b, "init")
     _launch("fdes_panel_scan_c64", psi0.device, n, flat.data_ptr(), v.data_ptr(),
             int(absorptive), pp.data_ptr(), out.data_ptr(), float(sigma), b, s,
-            n * n if pp.ndim == 3 else 0, code, row_code)
+            n * n if pp.ndim == 3 else 0, code, row_code, init_code)
     panel_scan.launches += 1
     if absorptive:
         _count_loop(s, panel_init_abs, panel_colpass, panel_rowpass_stack_abs, panel_final, col,
                     row)
     else:
-        _count_loop(s, panel_init, panel_colpass, panel_rowpass_stack, panel_final, col, row)
+        _count_loop(s, panel_init, panel_colpass, panel_rowpass_stack, panel_final, col, row,
+                    init)
     return out if batched else out[0]
 
 
@@ -1163,7 +1181,7 @@ def _streamed_on_card(psi, idx, val, factors, propagator, sigma):
         raise ValueError(f"{what}: propagator on {propagator.device}, psi0 on {psi.device}")
     pp = prepare_propagator(propagator)
     routes = {kind: _route_code(what, None, n, count, kind)
-              for kind, count in (("build_col", nsp), ("col", b))}
+              for kind, count in (("build_col", nsp), ("col", b), ("init", b))}
     out = torch.empty_like(flat)
     g = torch.empty(nsp * n * n, dtype=torch.float32, device=psi.device)
     gx = torch.empty((nsp, n, n), dtype=torch.complex64, device=psi.device)
@@ -1177,19 +1195,19 @@ def _streamed_on_card(psi, idx, val, factors, propagator, sigma):
     return out.reshape(psi.shape)
 
 
-def _count_streamed(nslices, build_route, col_route):
+def _count_streamed(nslices, build_route, col_route, init_route):
     """Add one streamed rollout's passes to the pass wrappers' counts, as
     fdes_panel_streamed_c64 issues them: per slice the scatter, the g row
     pass, and the build column pass and the column pass on their routes, the
     fused row pass for every slice after the first, slice 0's final and init
-    and the closing final."""
+    (on its route) and the closing final."""
     _count(panel_scatter, nslices)
     _count(panel_g_rowpass, nslices)
     _count(panel_build_colpass, nslices, build_route)
     _count(panel_colpass, nslices, col_route)
     _count(panel_vfused_rowpass, nslices - 1)
     _count(panel_final, 2)
-    _count(panel_init)
+    _count(panel_init, 1, init_route)
 
 
 def panel_streamed(
@@ -1253,7 +1271,7 @@ WRAPPERS = (panel_init, panel_colpass, panel_rowpass_stack, panel_rowpass, panel
 #: the pass wrappers whose kernel PANEL_ROUTE picks, with launches_by_route
 ROUTED = (panel_colpass, panel_col_bwd, panel_row_bwd_loop, panel_row_bwd_last, panel_bwd_tail,
           panel_rowpass_stack, panel_rowpass_stack_store, panel_build_colpass, panel_init_abs,
-          panel_rowpass_stack_abs)
+          panel_rowpass_stack_abs, panel_init)
 #: the whole-loop calls, which count their calls and add their passes above
 LOOPS = (panel_scan, panel_scan_store, panel_scan_bwd_store, panel_streamed)
 
@@ -1340,7 +1358,11 @@ def panel_slice_step(
 def _per_slice(psi_b, v_stack, propagator, sigma):
     """The loop as panel_slice_step per slice, under torch.utils.checkpoint
     in chunks of pick_remat_chunk(S) slices (the adjoint keeps one wave per
-    chunk and one chunk's slices at a time)."""
+    chunk and one chunk's slices at a time).  V is split into its chunks
+    once, as the JAX engine scans its (S/K, K, n, n) reshape: the split's
+    backward gathers the chunks' dV into one (S, n, n) tensor, where a slice
+    of V per chunk would have autograd fill a zeroed full-size dV for each
+    chunk and add it into V's."""
     from ..propagate import pick_remat_chunk
 
     prepared = prepare_propagator(propagator) if psi_b.is_cuda else None
@@ -1350,11 +1372,9 @@ def _per_slice(psi_b, v_stack, propagator, sigma):
             psi = panel_slice_step(psi, v, propagator, sigma, prepared)
         return psi
 
-    nslices = v_stack.shape[0]
-    chunk = pick_remat_chunk(nslices)
     psi = psi_b
-    for j in range(0, nslices, chunk):
-        psi = checkpoint(run, psi, v_stack[j : j + chunk], use_reentrant=False)
+    for v_chunk in torch.split(v_stack, pick_remat_chunk(v_stack.shape[0])):
+        psi = checkpoint(run, psi, v_chunk, use_reentrant=False)
     return psi
 
 

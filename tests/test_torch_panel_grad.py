@@ -320,6 +320,97 @@ def test_engine_batch_equals_per_wave_gradients(fields, monkeypatch, route):
         _close(dpsi[b], singles[b][2], 1e-6)
 
 
+# ---- the per-slice route's chunks ---------------------------------------------
+
+S_LONG = 16  # four checkpointed chunks of pick_remat_chunk(16) = 4 slices
+
+
+@pytest.fixture(scope="module")
+def long_v():
+    """A 16-slice potential at 256^2 (numpy, from a seed)."""
+    rng = np.random.default_rng(37)
+    return (rng.normal(size=(S_LONG, N, N)) * 25.0).astype(np.float32)
+
+
+@pytest.fixture(scope="module")
+def jax_long_grads(fields, long_v):
+    """fdes_tpu's panel grad engine past its store cap (patched to 1 byte:
+    the per-slice VJP under jax.checkpoint over V's (S/K, K, n, n) reshape)
+    on the 16-slice potential, each wave of the two-tilt pair with its own
+    propagator: (dV summed over the waves, dpsi0 of each wave)."""
+    import fdes_tpu.pallas.adjoint_scan as jadj
+    import fdes_tpu.pallas.panel_scan as jps
+
+    f = fields
+    dv, dpsi = 0.0, []
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jps, "_ROWS", 64)
+        mp.setattr(jps, "_COLS", 128)
+        mp.setattr(jadj, "_STORE_CAP_BYTES", 1)
+        step = jprop.make_slice_step("panel", shape=(N, N), dtype=jnp.complex64, grad=True)
+        for b in range(2):
+            def loss(v, p0, _b=b):
+                return _jax_loss(jprop.multislice(p0, v, jnp.asarray(f["props"][_b]), SIGMA,
+                                                  slice_step=step))
+
+            gv, gp = jax.grad(loss, argnums=(0, 1))(jnp.asarray(long_v),
+                                                    jnp.asarray(f["psi_b"][b]))
+            dv = dv + np.asarray(gv)
+            dpsi.append(np.asarray(gp))
+    return dv, np.stack(dpsi)
+
+
+def test_per_slice_chunks_equal_store_route_and_jax(fields, long_v, jax_long_grads, monkeypatch):
+    """Two waves (one tilted propagator each) through 16 slices: dV and dpsi0
+    of the per-slice route (the store cap patched to 0: four checkpointed
+    chunks) equal the store route's, and JAX's per-slice engine's (dV as it
+    is, dpsi0 the conjugate of JAX's)."""
+    f = fields
+    grads = {}
+    for route in ("store", "per_slice"):
+        if route == "per_slice":
+            monkeypatch.setattr(adj, "STORE_CAP_BYTES", 0)
+        grads[route] = _port_grads(f, psi=f["psi_b"], v=long_v, prop=f["props"])[1:]
+    for got, want in zip(grads["per_slice"], grads["store"]):
+        _close(got, want)
+    j_dv, j_dpsi = jax_long_grads
+    _close(grads["per_slice"][0], j_dv)
+    _close(grads["per_slice"][1], np.conj(j_dpsi))
+
+
+def _graph(out: torch.Tensor, leaf: torch.Tensor) -> tuple[list[str], list[str]]:
+    """(the kinds of the nodes reachable from out's grad_fn, the kinds of the
+    nodes that hand their gradient to ``leaf``'s accumulator)."""
+    kinds, into_leaf, seen, todo = [], [], set(), [out.grad_fn]
+    while todo:
+        node = todo.pop()
+        if node is None or id(node) in seen:
+            continue
+        seen.add(id(node))
+        kinds.append(type(node).__name__)
+        for nxt, _ in node.next_functions:
+            if nxt is not None and getattr(nxt, "variable", None) is leaf:
+                into_leaf.append(type(node).__name__)
+            todo.append(nxt)
+    return kinds, into_leaf
+
+
+def test_per_slice_route_splits_v_once(fields, long_v, monkeypatch):
+    """On the per-slice route V reaches the checkpointed chunks through one
+    split: the graph between V and the exit waves holds one SplitBackward0,
+    the only node that hands V its gradient, and no SliceBackward0 (a slice
+    of V per chunk, whose backward fills a zeroed full-size dV for each
+    chunk)."""
+    monkeypatch.setattr(adj, "STORE_CAP_BYTES", 0)
+    f = fields
+    v = _t(long_v).requires_grad_(True)
+    out = ps.panel_diff_apply(_t(f["psi_b"]), v, _t(f["props"]), SIGMA)
+    kinds, into_v = _graph(out, v)
+    assert "SliceBackward0" not in kinds
+    assert kinds.count("SplitBackward0") == 1 and into_v == ["SplitBackward0"]
+    assert kinds.count("_PanelStepBackward") == S_LONG
+
+
 # ---- refusals and other potentials -------------------------------------------
 
 

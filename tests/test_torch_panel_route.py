@@ -1,6 +1,7 @@
 """The wide panel kernels (``panel_wide_col_kernel``, also in its build modes
 (row 28), ``panel_wide_bwd_row_kernel``, ``panel_wide_row_kernel``, also in
-its modes kVfused (row 29), kMidAbs and kInitAbs (rows 19 and 18),
+its modes kVfused (row 29), kMidAbs and kInitAbs (rows 19 and 18), kInit and
+kInitVc (row 13),
 ``panel_wide_g_row_kernel`` (row 27) and ``panel_wide_x_row_kernel`` (rows 17
 and 20), in csrc/panel_scan.cu, and their three-round transform) as a numpy
 model of their index maps, and the route between them and the tile kernels
@@ -23,7 +24,8 @@ column pass, its conjugate, its backward row pass, its forward row pass
 (with and without the store of s_j), its build column pass (the species'
 products summed in registers), its fused row pass (V's row through one
 more inverse transform), its absorptive row pass and init (the damped
-transmit of a complex V), its g row pass (real rows through one forward
+transmit of a complex V), its init of a real V (and of V taken from a
+complex plane's real parts), its g row pass (real rows through one forward
 transform) and its transform-only row pass (the final and the seed: complex
 rows of all the waves through one transform) against the JAX package's
 panel passes in interpret mode.  The
@@ -280,6 +282,22 @@ def _row_abs_pass(b, vr, vi, sigma, init=False):
     t = np.exp(-sigma * vi[:, rows1]) * np.exp(1j * sigma * vr[:, rows1])  # shared by the waves
     a = np.empty(b.shape, dtype=complex)
     a[..., rows1] = _exchange(n, _forward(n, x * t), 3, 1)
+    return a
+
+
+def _init_pass(psi, v0, sigma):
+    """panel_wide_row_kernel's kInit (row 13): a = Fx(t psi) of the waves psi
+    (B, n, n) in natural order, t = exp(i sigma V_0) of a real V_0 (n, n);
+    with a complex ``v0`` its kInitVc, V_0 the plane's real parts (the
+    streamed rollout's init).  Per row: V_0's row loaded with psi's in layout
+    1 and t formed there once for all the waves; psi's row transmitted as
+    loaded, the forward transform, and a's row exchanged from layout 3 to
+    layout 1 and stored."""
+    n = psi.shape[-1]
+    rows1 = _pos(n, 1)
+    t = np.exp(1j * sigma * np.real(v0)[:, rows1])  # shared by the waves
+    a = np.empty(psi.shape, dtype=complex)
+    a[..., rows1] = _exchange(n, _forward(n, psi[..., rows1] * t), 3, 1)
     return a
 
 
@@ -560,6 +578,22 @@ def test_model_row_abs_pass_is_the_plain_pass(n, waves, init):
     assert np.abs(got - ref).max() <= EXACT * np.abs(ref).max()
 
 
+@pytest.mark.parametrize("vc", [False, True])
+@pytest.mark.parametrize("n,waves", [(256, 1), (256, 2), (2048, 1), (2048, 2)])
+def test_model_init_pass_is_the_plain_pass(n, waves, vc):
+    """The model's init of a real V (kInit) against panel_init_ref in
+    complex128, V_0 in [0, 2000) (phases up to 1.3 rad); with ``vc`` V_0 the
+    real parts of a complex plane (kInitVc: the imaginary parts ignored); with
+    two waves t is formed once for both."""
+    rng = np.random.default_rng(n + 29 * waves + int(vc))
+    psi = _cplx(rng, waves, n, n)
+    v0 = rng.uniform(0, 2000, (n, n))
+    plane = v0 + 1j * rng.uniform(-2000, 2000, (n, n)) if vc else v0
+    ref = ps.panel_init_ref(torch.as_tensor(v0), torch.as_tensor(psi), SIGMA).numpy()
+    got = _init_pass(psi, plane, SIGMA)
+    assert np.abs(got - ref).max() <= EXACT * np.abs(ref).max()
+
+
 @pytest.mark.parametrize("n,nsp", [(256, 1), (256, 2), (2048, 1), (2048, 2)])
 def test_model_build_col_pass_is_the_plain_pass(n, nsp):
     """The model's build column pass against panel_build_colpass_ref in
@@ -614,8 +648,9 @@ def jax_passes():
     streamed build's g row and column passes (_panel_g_rowpass,
     _panel_build_colpass, the species' planes at once) and fused row pass
     (_panel_vfused_rowpass, one plane), the absorptive row pass and init
-    (_panel_rowpass_stack_abs, _panel_init_abs, one plane), and the final
-    pass and the seed (panel_final, panel_rowfwd, one plane)."""
+    (_panel_rowpass_stack_abs, _panel_init_abs, one plane), the init of a
+    real V (panel_init, one plane), and the final pass and the seed
+    (panel_final, panel_rowfwd, one plane)."""
     import fdes_tpu.pallas.panel_scan as jps
 
     tabs = jps._tables(N_JAX)
@@ -675,9 +710,14 @@ def jax_passes():
                                      jnp.asarray(psi.imag), tabs, SIGMA, prec, True)
         return np.asarray(re) + 1j * np.asarray(im)
 
+    def init(psi, v0):
+        re, im = jps.panel_init(jnp.asarray(v0), jnp.asarray(psi.real), jnp.asarray(psi.imag),
+                                tabs, SIGMA, prec, True)
+        return np.asarray(re) + 1j * np.asarray(im)
+
     yield {"col": col, "row_bwd_loop": row_bwd_loop, "row": row, "build_col": build_col,
            "vfused_row": vfused_row, "g_row": g_row, "row_abs": row_abs, "init_abs": init_abs,
-           "xform": xform}
+           "init": init, "xform": xform}
     mp.undo()
 
 
@@ -808,6 +848,28 @@ def test_model_row_abs_pass_equals_jax(jax_passes, jax_fields, waves, init):
     _close(got, np.stack(want))
 
 
+@pytest.mark.parametrize("waves", [1, 2])
+@pytest.mark.parametrize("vc", [False, True])
+def test_model_init_pass_equals_jax(jax_passes, jax_fields, waves, vc):
+    """The model's init of a real V (row 13) against JAX's panel_init, a wave
+    at a time: psi natural in both, a in each package's x-spectrum order;
+    with ``vc`` the model reads V_0 as the real parts of a complex plane (the
+    streamed rollout's init), JAX its real V_0."""
+    f = jax_fields
+    n = N_JAX
+    br, jo = _bitrev(n), _jax_order(n)
+    x, v0 = f["x"][:waves], f["v"]
+    want = []
+    for k in range(waves):
+        nat = np.empty_like(x[k])
+        nat[:, jo] = jax_passes["init"](x[k], v0)
+        want.append(nat[:, br])
+    plane = v0 + 1j * f["s"][0].real if vc else v0
+    got = _init_pass(x.astype(np.complex128), plane.astype(np.complex128 if vc else np.float64),
+                     SIGMA)
+    _close(got, np.stack(want))
+
+
 def test_absorptive_v_reads_a_complex_stack_in_place():
     """absorptive_v hands the kernels a complex64 V's own storage when Vr and
     Vi are its .real and .imag views (the stack, or one slice of it: equal
@@ -918,7 +980,7 @@ def test_panel_route_is_the_table():
     entry names a route of the C entry points, whose codes match their
     enums, and each route's kernel is one the library builds."""
     assert set(ps.PANEL_ROUTE) == set(ps.SIZES)
-    assert ps.KINDS == ("col", "bwd_row", "row", "row_store", "build_col", "row_abs")
+    assert ps.KINDS == ("col", "bwd_row", "row", "row_store", "build_col", "row_abs", "init")
     for n, rows in ps.PANEL_ROUTE.items():
         measured = sorted(rows)
         assert measured == [1, 2, 4, 8]
@@ -943,6 +1005,14 @@ def test_panel_route_is_the_table():
     # rows 19 and 18: the tile kernel on the complex plane, or the wide modes
     assert re.search(r"launch_row<LOG2N, MODE, true, true>", src)
     assert re.search(r"launch_wide_row<LOG2N, MODE == kInit \? kInitAbs : kMidAbs>", src)
+    # row 13: the tile kernel or the wide kInit (kInitVc reading a complex
+    # plane's real parts), on its route in the rollout, the streamed rollout
+    # and its entry point
+    assert re.search(r"launch_row<LOG2N, kInit, false, VC>", src)
+    assert re.search(r"launch_wide_row<LOG2N, VC \? kInitVc : kInit>", src)
+    for call in (r"<LOG2N>\(init_route, psi0, out, v,", r"<LOG2N, true>\(init_route, psi0, out, gx,",
+                 r"<L, true>\(route, c2\(psi\)", r"<L>\(route, c2\(psi\)"):
+        assert re.search(rf"launch_init_route{call}", src)
     # rows 27 and 29 have one kernel each, not routed, which the streamed
     # rollout launches; row 29's tile kernel is gone
     assert re.search(r"launch_g_row<LOG2N>\(g, gx, nsp", src)
@@ -960,7 +1030,7 @@ def test_panel_route_is_the_table():
 def test_route_argument_is_checked():
     """route= takes "tile" or "wide" and nothing else, on the CPU too: the
     column, backward row and stack row passes, the absorptive row pass and
-    its init, and the streamed build's column pass."""
+    its init, the init of a real V, and the streamed build's column pass."""
     n = 256
     a = torch.zeros((1, n, n), dtype=torch.complex64)
     pp = torch.ones((n, n), dtype=torch.complex64)
@@ -984,6 +1054,8 @@ def test_route_argument_is_checked():
             ps.panel_rowpass_stack_abs(1, v, v, a, SIGMA, route=bad)
         with pytest.raises(ValueError, match="route must be"):
             ps.panel_init_abs(v[0], v[1], a, SIGMA, route=bad)
+        with pytest.raises(ValueError, match="route must be"):
+            ps.panel_init(v[0], a, SIGMA, route=bad)
     # the final and the seed have one kernel: no route to name
     for wrapper in (ps.panel_final, ps.panel_rowfwd):
         assert wrapper not in ps.ROUTED
@@ -1023,6 +1095,7 @@ def test_wide_wrappers_count_their_own_launches():
              ps.panel_rowpass_stack_abs_ref(1, v, 0.1 * v, s, SIGMA)),
             (ps.panel_init_abs(v[0], 0.1 * v[0], s, SIGMA, route=route),
              ps.panel_init_abs_ref(v[0], 0.1 * v[0], s, SIGMA)),
+            (ps.panel_init(v[0], s, SIGMA, route=route), ps.panel_init_ref(v[0], s, SIGMA)),
         ]
     pairs += [(ps.panel_g_rowpass(v), ps.panel_g_rowpass_ref(v)),
               (ps.panel_vfused_rowpass(a, s, SIGMA), ps.panel_vfused_rowpass_ref(a, s, SIGMA)),
@@ -1039,25 +1112,28 @@ def test_wide_wrappers_count_their_own_launches():
 def test_loops_count_row_passes_by_route(row_route):
     """A whole loop's count (_count_loop, as panel_scan, panel_scan_store and
     panel_scan_bwd_store add their passes on the card): the S - 1 row passes
-    with V_j on the row route, the column passes on the column route, init
-    and final of a real V in all alone; an absorptive loop's init and row
-    passes on the row route; panel_rowpass is not routed."""
+    with V_j on the row route, the column passes on the column route, the
+    init of a real V on its own route, its store form and the final in all
+    alone; an absorptive loop's init and row passes on the row route;
+    panel_rowpass is not routed."""
     assert ps.panel_rowpass_stack in ps.ROUTED and ps.panel_rowpass_stack_store in ps.ROUTED
     assert ps.panel_rowpass_stack_abs in ps.ROUTED and ps.panel_init_abs in ps.ROUTED
-    assert ps.panel_rowpass not in ps.ROUTED and ps.panel_init not in ps.ROUTED
+    assert ps.panel_init in ps.ROUTED
+    assert ps.panel_rowpass not in ps.ROUTED and ps.panel_init_store not in ps.ROUTED
+    other = "tile" if row_route == "wide" else "wide"
     ps.reset_launches()
     try:
         ps._count_loop(8, ps.panel_init, ps.panel_colpass, ps.panel_rowpass_stack,
-                       ps.panel_final, "wide", row_route)
+                       ps.panel_final, "wide", row_route, other)
         ps._count_loop(8, ps.panel_init_store, ps.panel_colpass, ps.panel_rowpass_stack_store,
                        ps.panel_final, "tile", row_route)
         ps._count_loop(4, ps.panel_init_abs, ps.panel_colpass, ps.panel_rowpass_stack_abs,
                        ps.panel_final, "tile", row_route)
-        other = "tile" if row_route == "wide" else "wide"
         for w in (ps.panel_rowpass_stack, ps.panel_rowpass_stack_store):
             assert w.launches == 7 and w.launches_by_route == {row_route: 7, other: 0}
         assert ps.panel_rowpass_stack_abs.launches_by_route == {row_route: 3, other: 0}
         assert ps.panel_init_abs.launches_by_route == {row_route: 1, other: 0}
+        assert ps.panel_init.launches_by_route == {row_route: 0, other: 1}
         assert ps.panel_colpass.launches_by_route == {"tile": 12, "wide": 8}
         assert (ps.panel_init.launches, ps.panel_init_store.launches,
                 ps.panel_init_abs.launches, ps.panel_final.launches,
@@ -1110,7 +1186,7 @@ def test_wide_kernels_match_plain_on_card(cuda):
                 assert float((x - y).abs().max()) <= 2 * tol * float(y.abs().max())
             assert all(torch.equal(x, y) for x, y in zip(got, again))
         assert all(w.launches_by_route == {"tile": 0, "wide": w.launches} for w in ps.ROUTED)
-        assert [w.launches for w in ps.ROUTED] == [1, 1, 2, 2, 2, 0, 0, 0, 0, 0]
+        assert [w.launches for w in ps.ROUTED] == [1, 1, 2, 2, 2, 0, 0, 0, 0, 0, 0]
 
 
 def test_wide_row_kernel_matches_plain_on_card(cuda):
@@ -1203,6 +1279,35 @@ def test_wide_abs_row_kernel_matches_plain_on_card(cuda):
             assert [w.launches_by_route for w in (ps.panel_rowpass_stack_abs,
                                                    ps.panel_init_abs)] == [
                 {"tile": 0, "wide": 1}] * 2
+
+
+def test_wide_init_row_kernel_matches_plain_on_card(cuda):
+    """Row 13 on both of its kernels (the tile kernel and the wide row
+    kernel's kInit) against panel_init_ref at every size with 1, 2, 4 and 8
+    waves, and its streamed form (V_0 the real parts of a complex plane: the
+    tile kernel's VC form and kInitVc) through the entry point; each wrapper
+    launch counted under its route."""
+    tol = 2e-6
+    for n in ps.SIZES:
+        for waves in (1, 2, 4, 8):
+            rng = np.random.default_rng(n + 31 * waves)
+            psi = torch.as_tensor(_cplx(rng, waves, n, n).astype(np.complex64)).to(cuda)
+            vr = rng.uniform(0, 2000, (n, n))
+            vc = torch.as_tensor((vr + 1j * rng.uniform(-2000, 2000, (n, n))).astype(
+                np.complex64)).to(cuda)
+            v0 = vc.real.contiguous()
+            want = ps.panel_init_ref(v0, psi, SIGMA)
+            ps.reset_launches()
+            for route, code in ps.ROUTES.items():
+                got = ps.panel_init(v0, psi, SIGMA, route=route)
+                assert float((got - want).abs().max()) <= tol * float(want.abs().max())
+                streamed = torch.empty_like(psi)
+                ps._launch("fdes_panel_init_c64", cuda, n, psi.data_ptr(), vc.data_ptr(), 1,
+                           streamed.data_ptr(), None, 0, SIGMA, waves, code)
+                assert float((streamed - want).abs().max()) <= tol * float(want.abs().max())
+            assert ps.panel_init.launches_by_route == {"tile": 1, "wide": 1}
+            del psi, vc, v0, want, got, streamed
+            torch.cuda.empty_cache()
 
 
 def test_x_row_kernel_matches_plain_on_card(cuda):

@@ -271,14 +271,15 @@ def test_plain_scatter_equals_jax(two_species, j):
     assert abs(float(got.sum()) - float(w.sum())) <= 1e-4 * float(w.sum())
 
 
-@pytest.mark.parametrize("routes", [("wide", "wide"), ("tile", "tile")])
+@pytest.mark.parametrize("routes", [("wide", "wide", "wide"), ("tile", "tile", "tile"),
+                                    ("wide", "tile", "wide")])
 def test_streamed_count_adds_passes_by_route(routes):
     """The count of one streamed rollout on the card (_count_streamed, as
     panel_streamed adds the passes of its C call): S scatters and g row
     passes, S build column and column passes on their routes, S - 1 fused
-    row passes (one kernel, not routed), two finals and one init, and
-    nothing else."""
-    build_route, col_route = routes
+    row passes (one kernel, not routed), two finals and one init on its
+    route, and nothing else."""
+    build_route, col_route, init_route = routes
     ps.reset_launches()
     try:
         ps._count_streamed(8, *routes)
@@ -288,7 +289,7 @@ def test_streamed_count_adds_passes_by_route(routes):
                           "panel_colpass": 11, "panel_vfused_rowpass": 9, "panel_final": 4,
                           "panel_init": 2}
         for w, route, k in ((ps.panel_build_colpass, build_route, 11),
-                            (ps.panel_colpass, col_route, 11)):
+                            (ps.panel_colpass, col_route, 11), (ps.panel_init, init_route, 2)):
             assert w.launches_by_route == {"tile": 0, "wide": 0, route: k}
         assert all(w not in ps.ROUTED for w in (ps.panel_scatter, ps.panel_g_rowpass,
                                                 ps.panel_vfused_rowpass))
