@@ -15,6 +15,11 @@ Phases, each printing one JSON line:
              computing the same function.  The slice step's five elementwise
              kernels at 512^2 and (8, 512, 512), in complex64 and complex128
              (the batched case checks the adjoints' batch-summed dV); the
+             absorptive transmit and its adjoint (rows 4 and 5, V read as one
+             complex plane) also at 512^2 (1 and 8 planes), 2048^2 (1 and 4
+             waves) and 4096^2 in complex64, each held to and timed in turns
+             with its plain version beside its byte bound (the table rows
+             carry the 2048^2 and 4096^2 one-wave times); the
              Fresnel multiply also on odd planes (511^2), batches of 1, 3 and
              16 and both values of conj_b, and timed in turns with torch.mul;
              the fused step and its adjoint at 512^2 and (8, 512, 512)
@@ -112,7 +117,13 @@ Phases, each printing one JSON line:
              backward launch per evaluation on the kernels STORE_ROUTE picks
              for one wave (asserted by wrapper counts, with and without
              remat_chunk, and by profile), and past its store budget the
-             checkpointed segment pair, one launch each.
+             checkpointed segment pair, one launch each.  No fill, add or
+             copy of V's size (torch.profiler's host events and their input
+             shapes) in one "pallas" evaluation, with and without remat and
+             with the absorptive V; the "pallas" gradient (no remat) in turns
+             with V handed over as a select of V per slice (the loop before V
+             was unbound once), wall, busy and elementwise busy time, dV the
+             same bits.
 7. invert  — the inverse at full width: ``fdes_tpu_torch.cli.main --mode
              invert`` on examples/si110_hrtem.toml (config 3), 20 iterations on
              engines "pallas", "xla", "fused" and "fscan" and on the defaults
@@ -124,7 +135,17 @@ Phases, each printing one JSON line:
              finite; then three iterations each of a two-tilt inverse and of a
              4x4 stem4d inverse (config 4's potential, two chunks of 8 probes)
              on "fscan" against "xla".
-8. stem    — the STEM raster at full width: ``fdes_tpu_torch.cli.main`` on
+8. invert_absorptive — config 3's absorptive inverse: ``fdes_tpu_torch.cli.main
+             --mode invert --set sim.absorptive_factor=0.1``, 20 iterations on
+             the defaults ("auto" resolves to "fscan", whose complex-V
+             fallback runs the slice step's kernels slice by slice): launches
+             asserted (per iteration 64 of rows 4 and 5, 128 of row 3), first
+             loss against "xla" at <= 1e-5, the recovered V against "xla" in
+             complex128 (as near as "xla" in complex64 comes), median step,
+             it/s and peak memory, two runs; one gradient evaluation: its
+             launches, kernels by name and busy time (no copy or pack kernel
+             once a slice, asserted), and the idle share of a step.
+9. stem    — the STEM raster at full width: ``fdes_tpu_torch.cli.main`` on
              examples/si110_stem.toml (config 4: 512^2, 128 slices, 32x32 =
              1,024 probes, BF + ADF) on engine "fscan" at probe chunk 16 (one
              whole-loop kernel launch per chunk on the routed kernel, asserted,
@@ -137,9 +158,9 @@ Phases, each printing one JSON line:
              detector at <= 1e-4 (two float32 rollouts of 128 slices);
              slice-propagations per second and the device's idle share per
              engine.
-9. stem4d  — a 4x4 scan in mode stem4d (cbed.npy, "fscan" against "xla") and
+10. stem4d  — a 4x4 scan in mode stem4d (cbed.npy, "fscan" against "xla") and
              in mode stem with stem.compute_com=true (stem_com.npy).
-10. c5      — config 5 at full width: ``fdes_tpu_torch.cli.main`` in mode
+11. c5      — config 5 at full width: ``fdes_tpu_torch.cli.main`` in mode
              hrtem on examples/si110_hrtem.toml at 2048^2, 512 slices,
              Si[110] 24x16x64, 8 defoci, on engines "panel" (one panel_scan
              call, 1,025 launches, asserted; no FFT library kernel in the
@@ -150,7 +171,7 @@ Phases, each printing one JSON line:
              kernels and on PANEL_ROUTE's, in turns; then a 4-tilt series and
              the absorptive series (first defocus only) and a 2x2 STEM raster
              at 64 slices, "panel" against "xla".
-11. c5_absorptive — config 5 with an absorptive potential
+12. c5_absorptive — config 5 with an absorptive potential
              (sim.absorptive_factor=0.1, a complex64 V of 16 GiB) at 2048^2 x
              512 slices, one defocus, through the CLI on the defaults ("auto"
              resolves to "panel": one panel_scan call, its init and 511 row
@@ -160,8 +181,12 @@ Phases, each printing one JSON line:
              wall, the absorptive row passes (and every routed pass) on the
              tile kernels against the table's, in turns, and the time of the
              float32 copies of V the call no longer makes; the exit wave
-             against a complex128 rollout, the images against "xla".
-12. c5_invert — config 5's inverse at full width: ``fdes_tpu_torch.cli.main
+             against a complex128 rollout, the images against "xla".  Then
+             one absorptive gradient at 2048^2 x 64 slices on "auto" (the
+             panel engine's complex-V fallback, slice by slice): wall, busy
+             ms by kernel, launches asserted, the peak above its inputs at 64
+             and 32 slices and that line run out to 512 slices.
+13. c5_invert — config 5's inverse at full width: ``fdes_tpu_torch.cli.main
              --mode invert`` at 2048^2, 512 slices, 8 defoci, 20 adam
              iterations on engine "panel" (one panel_scan for the self-test
              series, then 2,050 panel passes per iteration, asserted); one
@@ -172,7 +197,7 @@ Phases, each printing one JSON line:
              gradient free of FFT library kernels (its kernels counted at 64
              slices); the per-slice route (the store cap patched) against the
              store route at 64 slices.
-13. c5_tilt_invert — the gradient of config 5's 4-tilt series loss at 2048^2
+14. c5_tilt_invert — the gradient of config 5's 4-tilt series loss at 2048^2
              x 512 slices on "panel": four waves' s stack (64 GiB) is past
              the store cap, so the per-slice route runs unpatched; wall of
              three evaluations after a warm-up, device busy time by kernel
@@ -182,7 +207,7 @@ Phases, each printing one JSON line:
              chunks handed over as slices of V, as the route ran before V
              was split once; at 64 slices the per-slice route (cap patched)
              against the store route.
-14. c5_streamed — config 5 with the potential streamed: ``fdes_tpu_torch.cli.main
+15. c5_streamed — config 5 with the potential streamed: ``fdes_tpu_torch.cli.main
              --mode forward --set sim.streamed=true`` at 2048^2, 512 slices
              (one defocus: forward mode reads no CTF) on "panel" (one C
              call issuing 2,050 panel passes and 512 scatters, asserted by
@@ -197,12 +222,12 @@ Phases, each printing one JSON line:
              the panel rollout's device busy and wall time at each of the
              three shapes with every routed panel pass on the tile kernels
              and on PANEL_ROUTE's, in turns.
-15. phonon — frozen phonons through the CLI: config 2 in mode hrtem with 4
+16. phonon — frozen phonons through the CLI: config 2 in mode hrtem with 4
              configurations on the defaults ("auto" resolves to "fscan": 4
              whole-loop launches, asserted) against "xla" at <= 1e-5, and a
              2x2 STEM raster of config 4 with 2 configurations on "fscan"
              against "xla".
-16. engines — wall time of a 32-slice rollout and of one gradient evaluation
+17. engines — wall time of a 32-slice rollout and of one gradient evaluation
              per engine at 128^2 to 1024^2, one wave and 16, and on "panel",
              "pallas" and "xla" at 2048^2 (1 and 4 waves) and 4096^2: the
              rows that
@@ -236,9 +261,9 @@ import numpy as np
 import torch
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
-PHASES = ("build", "kernels", "golden", "hrtem", "absorptive", "grad", "invert", "stem",
-          "stem4d", "c5", "c5_absorptive", "c5_invert", "c5_tilt_invert", "c5_streamed",
-          "phonon", "engines")
+PHASES = ("build", "kernels", "golden", "hrtem", "absorptive", "grad", "invert",
+          "invert_absorptive", "stem", "stem4d", "c5", "c5_absorptive", "c5_invert",
+          "c5_tilt_invert", "c5_streamed", "phonon", "engines")
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 PEAK_OPS_PER_S = {torch.float32: 67e12, torch.float64: 34e12}  # non-tensor-core FP32 / FP64
 KERNEL_TOL = {torch.complex64: 2e-6, torch.complex128: 1e-12}  # max|k - ref| / max|ref|
@@ -415,14 +440,14 @@ def phase_kernels(sigma: float) -> tuple[dict, dict]:
             psi, b = cplx(shape), cplx(shape[-2:])  # b (the propagator) broadcast
             g = cplx(shape)  # an upstream gradient
             v = torch.as_tensor(v64, device="cuda").to(rdt)
-            va = 0.1 * v
+            vc = torch.complex(v, 0.1 * v)  # the absorptive V, one complex plane
             cases = {
                 "transmit": (lambda: ks.transmit(psi, v, sigma),
                              lambda: ks.transmit_ref(psi, v, sigma), None,
                              [v, psi], [psi]),
-                "transmit_abs": (lambda: ks.transmit_abs(psi, v, va, sigma),
-                                 lambda: ks.transmit_abs_ref(psi, v, va, sigma), None,
-                                 [v, va, psi], [psi]),
+                "transmit_abs": (lambda: ks.transmit_abs(psi, vc, sigma),
+                                 lambda: ks.transmit_abs_ref(psi, vc, sigma), None,
+                                 [vc, psi], [psi]),
                 "cmul": (lambda: ks.cmul(psi, b),
                          lambda: ks.cmul_ref(psi, b),
                          lambda: torch.mul(psi, b),
@@ -430,9 +455,9 @@ def phase_kernels(sigma: float) -> tuple[dict, dict]:
                 "transmit_bwd": (lambda: ks.transmit_bwd(psi, v, g, sigma),
                                  lambda: ks.transmit_bwd_ref(psi, v, g, sigma), None,
                                  [v, psi, g], [psi, v]),
-                "transmit_abs_bwd": (lambda: ks.transmit_abs_bwd(psi, v, va, g, sigma),
-                                     lambda: ks.transmit_abs_bwd_ref(psi, v, va, g, sigma), None,
-                                     [v, va, psi, g], [psi, v, va]),
+                "transmit_abs_bwd": (lambda: ks.transmit_abs_bwd(psi, vc, g, sigma),
+                                     lambda: ks.transmit_abs_bwd_ref(psi, vc, g, sigma), None,
+                                     [vc, psi, g], [psi, vc]),
             }
             for name, (kern, ref, lib, ins, outs) in cases.items():
                 got, want = kern(), ref()
@@ -489,7 +514,9 @@ def phase_kernels(sigma: float) -> tuple[dict, dict]:
                         "operations": ops,
                     }
     cmul_line = cmul_checks(checks, rng, rows["cmul"], lambda shp: cplx_of(rng, shp))
-    return {"phase": "kernels", "checks": checks, "cmul": cmul_line}, rows
+    abs_line = absorptive_sizes(checks, rows, v64, sigma)
+    return {"phase": "kernels", "checks": checks, "cmul": cmul_line,
+            "absorptive_sizes": abs_line}, rows
 
 
 def cplx_of(rng, shape) -> torch.Tensor:
@@ -528,6 +555,53 @@ def cmul_checks(checks: list, rng, row: dict, cplx) -> dict:
     row["ms"], row["library_ms"] = pair["cmul"], pair["torch.mul"]
     row["timed_in_turns_with_torch_mul"] = times
     return times
+
+
+#: (leading batch, n) of rows 4 and 5's sizes: one and 8 planes at 512^2,
+#: one and four waves at 2048^2, one at 4096^2
+ABS_SHAPES = (((), 512), ((8,), 512), ((), 2048), ((4,), 2048), ((), 4096))
+
+
+def absorptive_sizes(checks: list, rows: dict, v64: np.ndarray, sigma: float) -> dict:
+    """Rows 4 and 5 (transmit_abs, transmit_abs_bwd) at ABS_SHAPES in
+    complex64, V = Vr + 0.1i Vr one complex plane (config 2's slice tiled to
+    the grid): each held to its plain version within KERNEL_TOL and timed in
+    turns with it (three readings), beside its byte bound (24 and 40 B a
+    pixel: V, psi and out; V, psi, g, dpsi and dV).  The table rows take the
+    2048^2 and 4096^2 one-wave times as ``by_shape``."""
+    from fdes_tpu_torch.kernels import slice_step as ks
+
+    rng = np.random.default_rng(4)
+    out = {}
+    for lead, n in ABS_SHAPES:
+        shape = (*lead, n, n)
+        reps = n // v64.shape[0]
+        v = torch.as_tensor(np.tile(v64, (reps, reps)), device="cuda").to(torch.float32)
+        vc = torch.complex(v, 0.1 * v)
+        psi, g = cplx_of(rng, shape), cplx_of(rng, shape)
+        pixels, planes = n * n, psi.numel() // (n * n)
+        fns = {
+            "transmit_abs": (lambda: ks.transmit_abs(psi, vc, sigma),
+                             lambda: ks.transmit_abs_ref(psi, vc, sigma),
+                             8 * pixels * (1 + 2 * planes)),
+            "transmit_abs_bwd": (lambda: ks.transmit_abs_bwd(psi, vc, g, sigma),
+                                 lambda: ks.transmit_abs_bwd_ref(psi, vc, g, sigma),
+                                 8 * pixels * (2 + 3 * planes)),
+        }
+        key = "x".join(map(str, shape))
+        for name, (kern, ref, nbytes) in fns.items():
+            abs_err, rel = check_kernel(checks, name, list(shape), kern(), ref(),
+                                        KERNEL_TOL[torch.complex64])
+            med, every = interleaved_ms({"kernel": kern, "plain": ref})
+            res = {"ms": med["kernel"], "plain_ms": med["plain"], "readings": every,
+                   "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+                   "max_abs_err": abs_err, "max_rel_err": rel}
+            out.setdefault(name, {})[key] = res
+            if not lead and n > 512:
+                rows[name].setdefault("by_shape", {})[key] = res
+        del psi, g, v, vc
+        torch.cuda.empty_cache()
+    return out
 
 
 #: Throwaway sleep kernels that open each profile (profiled_kernels).
@@ -2488,7 +2562,92 @@ def phase_grad(gpu: str) -> tuple[dict, dict]:
         for e in ("pallas", "xla", "fused", "fscan", "fscan_seg", "fscan_seg", "fscan", "fused",
                   "xla", "pallas")
     ]
+
+    # the per-slice loop hands each slice of V over once: no fill, add or
+    # copy of V's size in one pallas evaluation, with and without remat
+    def leaf_grad(engine, remat, v):
+        loss_fn = make_loss(fwd_for(engine, remat), i_obs)
+        vv = v.detach().clone().requires_grad_(True)
+
+        def run():
+            vv.grad = None
+            loss_fn(vv).backward()
+        return run
+
+    line["v_sized_ops"] = {
+        label: v_sized_ops(leaf_grad(engine, remat, v), v.shape)
+        for label, (engine, remat, v) in (("pallas", ("pallas", None, v_real)),
+                                          ("pallas_remat", ("pallas", chunk, v_real)),
+                                          ("abs_pallas_remat", ("pallas", chunk, v_abs)))}
+    if any(line["v_sized_ops"].values()):
+        raise AssertionError(f"grad: ops of V's size in one evaluation {line['v_sized_ops']}")
+    # before and after: the gradient on pallas (no remat) with V handed over
+    # as a select of V per slice, as multislice did before it unbound V once
+    from fdes_tpu_torch import forward
+
+    split = forward.multislice
+    turns = {"split": [], "sliced": []}
+    try:
+        for label in ("split", "sliced", "split", "sliced"):
+            forward.multislice = sliced_multislice if label == "sliced" else split
+            run = grad_fn("pallas", None, v_real)
+            t = grad_times(run, "pallas")
+            t["elementwise_busy_ms"] = elementwise_busy_ms(profiled_kernels(run))
+            if label == "sliced":
+                t["dv_equal_to_split"] = torch.equal(run()[1], out["pallas"][1])
+            turns[label].append(t)
+    finally:
+        forward.multislice = split
+    line["pallas_split_vs_sliced"] = turns
     return line, launches
+
+
+def sliced_multislice(psi0, v_stack, propagator, sigma, *, remat_chunk=None, slice_step=None):
+    """propagate.multislice's per-slice loop as it stood before V was split
+    and unbound once: a slice of V per checkpointed chunk and a select of it
+    per step, whose backward zero-fills a full-size dV for each and adds it
+    into V's.  The before of phase grad's before/after pair."""
+    from torch.utils.checkpoint import checkpoint
+
+    from fdes_tpu_torch.propagate import default_slice_step
+
+    step = slice_step or default_slice_step
+
+    def run(psi, v_chunk):
+        for j in range(v_chunk.shape[0]):
+            psi = step(psi, v_chunk[j], propagator, sigma)
+        return psi
+
+    s = v_stack.shape[0]
+    if not remat_chunk or remat_chunk >= s:
+        return run(psi0, v_stack)
+    psi = psi0
+    for j in range(0, s, remat_chunk):
+        psi = checkpoint(run, psi, v_stack[j : j + remat_chunk], use_reentrant=False)
+    return psi
+
+
+#: PyTorch ops whose work on a tensor of V's size would be a dV filled,
+#: added or copied whole for one slice's gradient
+V_SIZED_OPS = ("fill_", "zero_", "add", "copy_", "clone")
+
+
+def v_sized_ops(fn, shape) -> list[str]:
+    """The ops of one call of fn (torch.profiler, host events with their
+    input shapes) among V_SIZED_OPS that take a tensor of ``shape``: a
+    select or slice of V whose backward zero-fills (FillFunctor) a full-size
+    dV, the add (CUDAFunctor_add) that sums it into V's, or a copy of V."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()  # warm-up outside the profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU], record_shapes=True) as prof:
+        fn()
+        torch.cuda.synchronize()
+    want = list(shape)
+    return [ev.name for ev in prof.events()
+            if any(k in ev.name for k in V_SIZED_OPS)
+            and any(list(sh) == want for sh in (ev.input_shapes or []))]
 
 
 def read_losses(out: str, iterations: int = INVERT_ITERS) -> list[float]:
@@ -2568,6 +2727,145 @@ def phase_invert(tmp: str, gpu: str, grad_busy_ms: dict) -> tuple[dict, dict]:
             raise AssertionError(f"invert {e}: reconstructed.npy {v.shape} not finite")
     line["other_modalities"] = invert_other_modalities(tmp)
     return line, launches
+
+
+#: config 3 with the absorptive potential (sim.absorptive_factor=0.1: V0 and
+#: the recovered V complex64), 20 iterations on the defaults
+INVERT_ABS = ("--mode", "invert", "--set", "sim.absorptive_factor=0.1",
+              "--set", f"recon.iterations={INVERT_ITERS}")
+
+
+def per_slice_kernels(kernels: list[tuple[str, float]], nslices: int) -> dict[str, int]:
+    """PyTorch's copy kernels and torch.complex's pack (elementwise kernels
+    named "...copy..." and "...complex_kernel...") among profiled_kernels'
+    result that ran at least once a slice, with their counts."""
+    counts: dict[str, int] = {}
+    for name, _ in kernels:
+        counts[name] = counts.get(name, 0) + 1
+    return {k: c for k, c in counts.items() if c >= nslices and "elementwise_kernel" in k
+            and ("copy" in k or "complex_kernel" in k)}
+
+
+def phase_invert_absorptive(tmp: str, gpu: str) -> tuple[dict, dict]:
+    """Config 3's absorptive inverse through cli.main --mode invert --set
+    sim.absorptive_factor=0.1, 20 iterations on the defaults ("auto" resolves
+    to "fscan", whose complex-V fallback runs pallas_slice_step slice by
+    slice), twice: launches asserted (one whole-loop launch for the
+    self-test series of the real V, then per iteration S of rows 4 and 5 and
+    2S of row 3), first loss against the same run on "xla" (GATE), the
+    recovered V against the run on "xla" in complex128 (as near as "xla" in
+    complex64 comes, or GATE), losses finite and falling; median step, it/s
+    and peak memory.  One gradient evaluation of the same loss in process:
+    its launches asserted, its kernels by name and busy ms (no copy or pack
+    kernel once a slice, asserted); the idle share of a step.  Returns
+    (line, launches of the first run)."""
+    from fdes_tpu_torch.config import apply_overrides, load_config
+    from fdes_tpu_torch.forward import hrtem_defocus_series
+    from fdes_tpu_torch.loss import make_loss
+    from fdes_tpu_torch.pipeline import setup
+    from fdes_tpu_torch.propagate import make_slice_step
+
+    zero = dict.fromkeys(launch_counts(), 0)
+    runs, outs, launches = {}, {}, {}
+    for label in ("auto", "auto_again", "xla", "xla_c128"):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        engine = {"xla": ("--set", "sim.engine=xla"),
+                  "xla_c128": ("--set", "sim.engine=xla", "--set", "sim.dtype=complex128"),
+                  }.get(label, ())
+        outs[label], runs[label] = run_cli(tmp, f"invabs_{label}", *INVERT_ABS, *engine)
+        launches[label] = launch_counts()
+        runs[label]["peak_bytes"] = torch.cuda.max_memory_allocated()
+        runs[label]["launches"] = {k: c for k, c in launches[label].items() if c}
+    n = INVERT_ITERS
+    losses = {k: read_losses(o) for k, o in outs.items()}
+    v_rec = {k: np.load(os.path.join(o, "reconstructed.npy")) for k, o in outs.items()}
+    s = v_rec["auto"].shape[0]
+    want = {**zero, scan_wrapper(1): 1, "transmit_abs": n * s, "transmit_abs_bwd": n * s,
+            "cmul": 2 * n * s}
+
+    # one gradient evaluation in process, on both paths
+    cfg = apply_overrides(load_config(CONFIG), ["sim.absorptive_factor=0.1"])
+    sim = setup(cfg, device="cuda")
+    step = make_slice_step("auto", shape=sim.grid.shape, dtype=sim.cdtype, grad=True)
+
+    def fwd(v):
+        return hrtem_defocus_series(v, sim.psi0, sim.propagator, sim.sigma, sim.ctf_stack,
+                                    weights=sim.ctf_weights, slice_step=step)
+
+    with torch.no_grad():
+        i_obs = fwd(sim.v_stack.real.contiguous())
+    loss_fn = make_loss(fwd, i_obs)
+    v_half = 0.5 * sim.v_stack
+
+    def run():
+        vv = v_half.detach().requires_grad_(True)
+        loss_fn(vv).backward()
+        return vv.grad
+
+    run()
+    torch.cuda.synchronize()
+    reset_launches()
+    run()
+    torch.cuda.synchronize()
+    counts = {k: c for k, c in launch_counts().items() if c}
+    kernels = profiled_kernels(run)
+    busy = sum(us for _, us in kernels) / 1e3
+    step_ms = statistics.median(runs[k]["median_step_s"] for k in ("auto", "auto_again")) * 1e3
+    evaluation = {"launches": counts, "kernels": len(kernels), "busy_ms": busy,
+                  "busy_ms_by_kernel": kernel_busy_ms(kernels),
+                  "elementwise_busy_ms": elementwise_busy_ms(kernels),
+                  "copy_or_pack_kernels_once_a_slice": per_slice_kernels(kernels, s),
+                  "device_idle_share": max(0.0, 1.0 - busy / step_ms)}
+    del sim, v_half, i_obs
+    torch.cuda.empty_cache()
+    kernels_runs = ("auto", "auto_again")
+    v_err = {k: float(np.linalg.norm(v_rec[k] - v_rec["xla"]) / np.linalg.norm(v_rec["xla"]))
+             for k in kernels_runs}
+    # twenty adam steps scale each pixel's update by its own gradient's size,
+    # so float32 round-off in small gradients grows past the gradient's own
+    # distance: the recovered V is held to the complex128 run, as near as
+    # the plain float32 run comes to it
+    exact = v_rec["xla_c128"]
+    v_c128 = {k: float(np.linalg.norm(v_rec[k] - exact) / np.linalg.norm(exact))
+              for k in (*kernels_runs, "xla")}
+    v_tol = max(GATE, 1.5 * v_c128["xla"])
+    first_err = {k: abs(losses[k][0] - losses["xla"][0]) / abs(losses["xla"][0])
+                 for k in kernels_runs}
+    line = {
+        "phase": "invert_absorptive",
+        "config": "examples/si110_hrtem.toml " + " ".join(INVERT_ABS),
+        "iterations": n, "runs": runs, "losses": losses,
+        "median_step_ms": {k: r["median_step_s"] * 1e3 for k, r in runs.items()},
+        "it_per_s": {k: 1.0 / r["median_step_s"] for k, r in runs.items()},
+        "peak_gib": {k: r["peak_bytes"] / 2**30 for k, r in runs.items()},
+        "first_loss_rel_err_vs_xla": first_err, "reconstruction_rel_diff_vs_xla": v_err,
+        "reconstruction_rel_diff_vs_complex128": v_c128, "reconstruction_tol": v_tol,
+        "gate": GATE, "eval": evaluation, "gpu": gpu,
+    }
+    for k in ("auto", "auto_again"):
+        if launches[k] != want:
+            raise AssertionError(f"invert_absorptive {k}: launches {runs[k]['launches']}")
+        if (runs[k]["engine"], runs[k]["engine_kind"]) != ("auto", "fscan"):
+            raise AssertionError(f"invert_absorptive {k}: timing.json {runs[k]}")
+    if launches["xla"] != zero or launches["xla_c128"] != zero:
+        raise AssertionError(f"invert_absorptive launches {line['runs']}")
+    if evaluation["launches"] != {"transmit_abs": s, "transmit_abs_bwd": s, "cmul": 2 * s}:
+        raise AssertionError(f"invert_absorptive: one evaluation launched {evaluation}")
+    if evaluation["copy_or_pack_kernels_once_a_slice"]:
+        raise AssertionError(f"invert_absorptive: per-slice copies {evaluation}")
+    for k, ls in losses.items():
+        v, cdt = v_rec[k], np.complex128 if k == "xla_c128" else np.complex64
+        if not (np.isfinite(ls).all() and ls[-1] < ls[0]):
+            raise AssertionError(f"invert_absorptive {k}: losses not finite and falling: {ls}")
+        if v.shape != (s, 512, 512) or v.dtype != cdt or not np.isfinite(v).all():
+            raise AssertionError(f"invert_absorptive {k}: reconstructed.npy {v.shape} {v.dtype}")
+    if not all(e <= GATE for e in first_err.values()):
+        raise AssertionError(f"invert_absorptive first loss vs xla: {first_err}")
+    if not all(v_c128[k] <= v_tol for k in kernels_runs):
+        raise AssertionError(f"invert_absorptive V vs complex128: {v_c128}, tol {v_tol:.2e}")
+    return line, launches["auto"]
 
 
 def invert_other_modalities(tmp: str) -> dict:
@@ -3067,6 +3365,7 @@ def phase_c5_absorptive(tmp: str, gpu: str) -> tuple[dict, dict]:
     wave_tol = min(1e-4, 1.5 * dist["xla"])
     del sim, v, wave, wave_xla, exact, prop
     torch.cuda.empty_cache()
+    gradient = c5_absorptive_gradient(zero)
     line = {
         "phase": "c5_absorptive", "config": "examples/si110_hrtem.toml " + " ".join(C5_ABS[1::2]),
         "runs": runs, "call": {"wall_ms": call_wall_ms, "busy_ms": busy, "kernels": n_kernels,
@@ -3074,7 +3373,7 @@ def phase_c5_absorptive(tmp: str, gpu: str) -> tuple[dict, dict]:
                                "peak_limit_bytes": C5_ABS_CALL_PEAK},
         "v_copy_ms": copy_ms, "rollout_kernels": rollout_kernels, "by_route": by_route,
         "rel_norm_vs_complex128": dist, "wave_tol": wave_tol,
-        "images_rel_err_vs_xla": img_err, "img_tol": 2e-4, "gpu": gpu,
+        "images_rel_err_vs_xla": img_err, "img_tol": 2e-4, "gradient": gradient, "gpu": gpu,
     }
     if library_kernels(rollout_kernels):
         raise AssertionError(f"c5_absorptive rollout kernels: {rollout_kernels}")
@@ -3085,6 +3384,98 @@ def phase_c5_absorptive(tmp: str, gpu: str) -> tuple[dict, dict]:
     if not img_err <= 2e-4:
         raise AssertionError(f"c5_absorptive images vs xla: {img_err:.3e}")
     return line, launches["auto"]
+
+
+def c5_absorptive_gradient(zero: dict) -> dict:
+    """One gradient of the absorptive loss (make_loss over
+    hrtem_defocus_series, config 5's grid and specimen cut to 64 slices, one
+    defocus, V = V_abs / 2 complex64) on "auto", which resolves to "panel":
+    a complex V under a gradient goes slice by slice through
+    pallas_slice_step, with no checkpoint.  Wall of three evaluations after a
+    warm-up, busy ms by kernel, launches asserted (64 of rows 4 and 5, 128
+    of row 3), loss and dV finite; the peak above the inputs at 64 and 32
+    slices (V a view of the 64-slice stack), its growth per slice, and that
+    line run out to 512 slices with V's own 16 GiB beside it."""
+    from fdes_tpu_torch.config import apply_overrides, load_config
+    from fdes_tpu_torch.forward import hrtem_defocus_series
+    from fdes_tpu_torch.loss import make_loss
+    from fdes_tpu_torch.pipeline import setup
+    from fdes_tpu_torch.propagate import make_slice_step
+
+    settings = [a for a in (*C5_64, *C5_ABS[len(C5):]) if a != "--set"]
+    sim = setup(apply_overrides(load_config(CONFIG), settings), device="cuda")
+    step = make_slice_step("auto", shape=sim.grid.shape, dtype=sim.cdtype, grad=True)
+
+    def fwd(v):
+        return hrtem_defocus_series(v, sim.psi0, sim.propagator, sim.sigma, sim.ctf_stack,
+                                    weights=sim.ctf_weights, slice_step=step)
+
+    with torch.no_grad():
+        i_obs = fwd(sim.v_stack.real.contiguous())
+    loss_fn = make_loss(fwd, i_obs)
+    v_half = 0.5 * sim.v_stack
+
+    def grad_at(depth):
+        def run():
+            vv = v_half[:depth].detach().requires_grad_(True)
+            loss = loss_fn(vv)
+            loss.backward()
+            return loss.detach(), vv.grad
+        return run
+
+    def reading(depth):
+        run = grad_at(depth)
+        run()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        reset_launches()
+        t0 = time.perf_counter()
+        loss, dv = run()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        peak = torch.cuda.max_memory_allocated() - base
+        return {"wall_ms": wall, "peak_above_inputs_bytes": peak, "launches": launch_counts(),
+                "finite": all_finite((loss, dv)) and float(dv.abs().max()) > 0}
+
+    def walls(run):
+        run()
+        torch.cuda.synchronize()
+        out = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            run()
+            torch.cuda.synchronize()
+            out.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    out = {"settings": settings, "depths": {}}
+    for depth in (64, 32):
+        out["depths"][depth] = reading(depth)
+    run = grad_at(64)
+    wall = walls(run)
+    kernels = profiled_kernels(run)
+    per_slice = ((out["depths"][64]["peak_above_inputs_bytes"]
+                  - out["depths"][32]["peak_above_inputs_bytes"]) / 32)
+    v_512 = C5_SLICES * v_half[0].numel() * v_half.element_size()
+    out.update({
+        "wall_ms": wall, "busy_ms": sum(us for _, us in kernels) / 1e3,
+        "kernels": len(kernels), "busy_ms_by_kernel": kernel_busy_ms(kernels),
+        "elementwise_busy_ms": elementwise_busy_ms(kernels),
+        "peak_per_slice_bytes": per_slice,
+        "peak_above_inputs_512_bytes": (out["depths"][64]["peak_above_inputs_bytes"]
+                                        + (C5_SLICES - 64) * per_slice),
+        "v_512_bytes": v_512,
+    })
+    out["peak_512_gib"] = (out["peak_above_inputs_512_bytes"] + v_512) / 2**30
+    for depth, r in out["depths"].items():
+        want = {**zero, "transmit_abs": depth, "transmit_abs_bwd": depth, "cmul": 2 * depth}
+        if r.pop("launches") != want or not r["finite"]:
+            raise AssertionError(f"c5_absorptive gradient at {depth} slices: {r}")
+    del sim, v_half, i_obs, run
+    torch.cuda.empty_cache()
+    return out
 
 
 C5_SLICES = 512
@@ -3914,9 +4305,9 @@ def store_vs_segments() -> list[dict]:
 ROW_PHASES = {
     "transmit": ("invert", "hrtem", "grad"),
     "cmul": ("invert", "hrtem", "grad"),
-    "transmit_abs": ("absorptive", "grad_absorptive"),
+    "transmit_abs": ("absorptive", "invert_absorptive", "grad_absorptive"),
     "transmit_bwd": ("invert", "grad"),
-    "transmit_abs_bwd": ("grad_absorptive",),
+    "transmit_abs_bwd": ("invert_absorptive", "grad_absorptive"),
     "fused_step": ("grad_fused",),
     "fused_step_bwd": ("grad_fused",),
     # the whole-loop forward runs one of two kernels, by the route table
@@ -4041,6 +4432,9 @@ def main(argv=None) -> int:
             line, by_engine = timed(phase_invert, tmp, gpu, grad_busy_ms)
             path_launches.update(invert=by_engine["pallas"], invert_fscan=by_engine["fscan"],
                                  invert_auto=by_engine["auto"])
+            emit(line)
+        if "invert_absorptive" in phases:
+            line, path_launches["invert_absorptive"] = timed(phase_invert_absorptive, tmp, gpu)
             emit(line)
         if "stem" in phases:
             line, path_launches["stem"] = timed(phase_stem, tmp, gpu)

@@ -335,7 +335,8 @@ def _invert(cfg, sim, slice_step, out, probe_chunk):
         i_obs = to_device(obs, sim.rdtype, sim.device)
     else:
         # self-test: invert a series synthesised from the config's specimen
-        real_v = sim.v_stack.real if sim.v_stack.is_complex() else sim.v_stack
+        # a dense copy of an absorptive V's real part: the kernels read V as it lies
+        real_v = sim.v_stack.real.contiguous() if sim.v_stack.is_complex() else sim.v_stack
         with torch.no_grad():
             i_obs = fwd(real_v, *fwd_args)
         if cfg.recon.loss == "poisson":

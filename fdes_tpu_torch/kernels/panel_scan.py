@@ -134,7 +134,7 @@ from torch.utils.checkpoint import checkpoint
 from . import _build
 from . import fused_step as fs
 from .fused_scan import WholeScanEngine, _batching
-from .slice_step import _check_dense, _dense, pallas_slice_step, transmit_abs_ref, transmit_ref
+from .slice_step import _check_dense, _dense, _transmit_abs_parts, pallas_slice_step, transmit_ref
 
 SIZES = (256, 512, 1024, 2048, 4096)
 LIB = "panel_scan"
@@ -362,7 +362,7 @@ def panel_init_abs_ref(
     vr0: torch.Tensor, vi0: torch.Tensor, psi: torch.Tensor, sigma: float
 ) -> torch.Tensor:
     """a = Fx(t_0 psi), t_0 = exp(-sigma Vi) exp(i sigma Vr), in plain PyTorch."""
-    return _fx(transmit_abs_ref(psi, vr0, vi0, sigma))
+    return _fx(_transmit_abs_parts(psi, vr0, vi0, sigma))
 
 
 def panel_colpass_ref(a: torch.Tensor, propagator: torch.Tensor) -> torch.Tensor:
@@ -389,7 +389,7 @@ def panel_rowpass_stack_abs_ref(
     j: int, vr_stack: torch.Tensor, vi_stack: torch.Tensor, b: torch.Tensor, sigma: float
 ) -> torch.Tensor:
     """The stack row pass with the damped transmit, in plain PyTorch."""
-    return _fx(transmit_abs_ref(_fx_inv(b), vr_stack[j], vi_stack[j], sigma))
+    return _fx(_transmit_abs_parts(_fx_inv(b), vr_stack[j], vi_stack[j], sigma))
 
 
 def panel_final_ref(b: torch.Tensor) -> torch.Tensor:

@@ -6,19 +6,24 @@ Pallas kernels around the library FFT; here they are CUDA C++ kernels
 
 * ``transmit(psi, v, sigma)``: psi * exp(1j*sigma*V), V real
   (replaces ``_transmit_fwd_kernel``);
-* ``transmit_abs(psi, v_re, v_abs, sigma)``: psi * exp(1j*sigma*Vr -
-  sigma*Va), the absorptive channel (replaces ``_transmit_abs_fwd_kernel``);
+* ``transmit_abs(psi, v, sigma)``: psi * exp(1j*sigma*Vr - sigma*Va), the
+  absorptive channel, V = Vr + 1j*Va one complex plane read in place
+  (replaces ``_transmit_abs_fwd_kernel``);
 * ``cmul(a, b, conj_b=False)``: a * b or a * conj(b), the Fresnel multiply
   and its adjoint (replaces ``_cmul_kernel``);
 * ``transmit_bwd(psi, v, g, sigma)``: (dpsi, dV) of the transmit
   (replaces ``_transmit_bwd_kernel``);
-* ``transmit_abs_bwd(psi, v_re, v_abs, g, sigma)``: (dpsi, dVr, dVa) of the
-  absorptive transmit (replaces ``_transmit_abs_bwd_kernel``).
+* ``transmit_abs_bwd(psi, v, g, sigma)``: (dpsi, dV) of the absorptive
+  transmit, dV = dVr + 1j*dVa one complex plane (replaces
+  ``_transmit_abs_bwd_kernel``).
 
 Each wrapper takes complex64 or complex128 ``psi``/``a`` (and ``g``) with any
 leading batch dimensions (..., ny, nx); V and b are broadcast over them (they
-match the trailing dimensions), and a gradient of V is summed over them.  V
-is cast to psi's real dtype, as the TPU wrapper does.  A tensor on the CPU
+match the trailing dimensions), and a gradient of V is summed over them.  A
+real V is cast to psi's real dtype, as the TPU wrapper does; the absorptive
+wrappers take a complex V of psi's own dtype, contiguous and not a lazy
+conj/neg view, on every device, and refuse any other (the caller casts, as
+``_TransmitAbs``'s caller does).  A tensor on the CPU
 goes to the plain PyTorch version beside each wrapper (``transmit_ref`` and
 so on); a CUDA tensor goes to the kernel or the wrapper raises.  Each wrapper
 counts its kernel launches in ``<wrapper>.launches``.
@@ -32,7 +37,9 @@ copied: for out = t * psi with upstream gradient g,
     dpsi = g * conj(t),   dV = sigma * Im(g * conj(t * psi)),
     dVa = -sigma * Re(g * conj(t * psi))     (absorptive t = e^{i s Vr - s Va}),
 
-which gives the same dV as ``jax.grad`` and the conjugate of its dpsi.
+which gives the same dV as ``jax.grad`` and the conjugate of its dpsi; the
+absorptive dV = dVr + 1j*dVa is the conjugate of ``jax.grad``'s for the
+complex V.
 
 The engine ``pallas_slice_step`` is one ``torch.autograd.Function`` per
 elementwise stage, with the FFTs between them left to PyTorch's autograd:
@@ -53,16 +60,14 @@ _SUFFIX = {torch.complex64: "c64", torch.complex128: "c128"}
 _P = ctypes.c_void_p
 _ARGTYPES = {
     "transmit": [ctypes.c_int, _P, _P, _P, ctypes.c_double, ctypes.c_int64, ctypes.c_int64, _P],
-    "transmit_abs": [
-        ctypes.c_int, _P, _P, _P, _P, ctypes.c_double, ctypes.c_int64, ctypes.c_int64, _P
-    ],
+    "transmit_abs": [ctypes.c_int, _P, _P, _P, ctypes.c_double, ctypes.c_int64, ctypes.c_int64,
+                     _P],
     "cmul": [ctypes.c_int, _P, _P, _P, ctypes.c_int, ctypes.c_int64, ctypes.c_int64, _P],
     "transmit_bwd": [
         ctypes.c_int, _P, _P, _P, _P, _P, ctypes.c_double, ctypes.c_int64, ctypes.c_int64, _P
     ],
     "transmit_abs_bwd": [
-        ctypes.c_int, _P, _P, _P, _P, _P, _P, _P, ctypes.c_double, ctypes.c_int64,
-        ctypes.c_int64, _P,
+        ctypes.c_int, _P, _P, _P, _P, _P, ctypes.c_double, ctypes.c_int64, ctypes.c_int64, _P
     ],
 }
 _entries: dict[str, object] = {}
@@ -136,6 +141,15 @@ def _real_operand(v: torch.Tensor, psi: torch.Tensor, name: str, what: str) -> t
     return v.to(psi.real.dtype)
 
 
+def _complex_operand(v: torch.Tensor, psi: torch.Tensor, what: str) -> None:
+    """The absorptive V as its kernel reads it, one complex plane in place:
+    psi's dtype, contiguous, not a lazy conj/neg view.  Checked on every
+    device, so that the CPU keeps the card's contract."""
+    if v.dtype != psi.dtype:
+        raise TypeError(f"{what}: v is {v.dtype}, psi is {psi.dtype}; cast V to psi's dtype")
+    _check_dense(v, "v", what)
+
+
 # ---- plain versions --------------------------------------------------------
 
 
@@ -145,14 +159,19 @@ def transmit_ref(psi: torch.Tensor, v: torch.Tensor, sigma: float) -> torch.Tens
     return psi * torch.complex(torch.cos(phase), torch.sin(phase))
 
 
-def transmit_abs_ref(
+def _transmit_abs_parts(
     psi: torch.Tensor, v_re: torch.Tensor, v_abs: torch.Tensor, sigma: float
 ) -> torch.Tensor:
-    """psi * exp(1j*sigma*Vr - sigma*Va) in plain PyTorch."""
+    """psi * exp(1j*sigma*Vr - sigma*Va) in plain PyTorch, Vr and Va real."""
     rdt = psi.real.dtype
     phase = v_re.to(rdt) * sigma
     damp = torch.exp(v_abs.to(rdt) * -sigma)
     return psi * torch.complex(damp * torch.cos(phase), damp * torch.sin(phase))
+
+
+def transmit_abs_ref(psi: torch.Tensor, v: torch.Tensor, sigma: float) -> torch.Tensor:
+    """psi * exp(1j*sigma*Re V - sigma*Im V) in plain PyTorch, V complex."""
+    return _transmit_abs_parts(psi, v.real, v.imag, sigma)
 
 
 def cmul_ref(a: torch.Tensor, b: torch.Tensor, conj_b: bool = False) -> torch.Tensor:
@@ -180,21 +199,17 @@ def transmit_bwd_ref(
 
 
 def transmit_abs_bwd_ref(
-    psi: torch.Tensor, v_re: torch.Tensor, v_abs: torch.Tensor, g: torch.Tensor, sigma: float
-) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """(dpsi, dVr, dVa) of psi * exp(1j*sigma*Vr - sigma*Va) in plain PyTorch:
-    dVr = sigma*Im(w), dVa = -sigma*Re(w), w = g*conj(t*psi), summed over
-    psi's leading dimensions."""
+    psi: torch.Tensor, v: torch.Tensor, g: torch.Tensor, sigma: float
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """(dpsi, dV) of psi * exp(1j*sigma*Re V - sigma*Im V) in plain PyTorch:
+    dV = dVr + 1j*dVa, dVr = sigma*Im(w), dVa = -sigma*Re(w), w = g*conj(t*psi),
+    summed over psi's leading dimensions."""
     rdt = psi.real.dtype
-    phase = v_re.to(rdt) * sigma
-    damp = torch.exp(v_abs.to(rdt) * -sigma)
+    phase = v.real.to(rdt) * sigma
+    damp = torch.exp(v.imag.to(rdt) * -sigma)
     t = torch.complex(damp * torch.cos(phase), damp * torch.sin(phase))
     w = g * (t * psi).conj()
-    return (
-        g * t.conj(),
-        _sum_batch(sigma * w.imag, v_re.ndim),
-        _sum_batch(-sigma * w.real, v_re.ndim),
-    )
+    return g * t.conj(), _sum_batch(torch.complex(sigma * w.imag, -sigma * w.real), v.ndim)
 
 
 # ---- kernel wrappers -------------------------------------------------------
@@ -216,20 +231,18 @@ def transmit(psi: torch.Tensor, v: torch.Tensor, sigma: float) -> torch.Tensor:
     return out
 
 
-def transmit_abs(
-    psi: torch.Tensor, v_re: torch.Tensor, v_abs: torch.Tensor, sigma: float
-) -> torch.Tensor:
-    """psi * exp(1j*sigma*Vr - sigma*Va): the absorptive transmit kernel."""
-    v_re = _real_operand(v_re, psi, "v_re", "transmit_abs")
-    v_abs = _real_operand(v_abs, psi, "v_abs", "transmit_abs")
-    plane, batch = _check(psi, {"v_re": v_re, "v_abs": v_abs}, "transmit_abs")
+def transmit_abs(psi: torch.Tensor, v: torch.Tensor, sigma: float) -> torch.Tensor:
+    """psi * exp(1j*sigma*Re V - sigma*Im V): the absorptive transmit kernel,
+    V one complex plane read in place."""
+    _complex_operand(v, psi, "transmit_abs")
+    plane, batch = _check(psi, {"v": v}, "transmit_abs")
     if not psi.is_cuda:
-        return transmit_abs_ref(psi, v_re, v_abs, sigma)
+        return transmit_abs_ref(psi, v, sigma)
     out = torch.empty_like(psi)
     if plane:
         _launch(
-            "transmit_abs", psi, psi.data_ptr(), v_re.data_ptr(), v_abs.data_ptr(),
-            out.data_ptr(), float(sigma), plane, batch,
+            "transmit_abs", psi, psi.data_ptr(), v.data_ptr(), out.data_ptr(), float(sigma),
+            plane, batch,
         )
         transmit_abs.launches += 1
     return out
@@ -283,26 +296,24 @@ def transmit_bwd(
 
 
 def transmit_abs_bwd(
-    psi: torch.Tensor, v_re: torch.Tensor, v_abs: torch.Tensor, g: torch.Tensor, sigma: float
-) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """(dpsi, dVr, dVa) of the absorptive transmit for upstream gradient g:
-    the transmit_abs_bwd kernel on CUDA.  dVr and dVa are summed over psi's
-    batch."""
-    v_re = _real_operand(v_re, psi, "v_re", "transmit_abs_bwd")
-    v_abs = _real_operand(v_abs, psi, "v_abs", "transmit_abs_bwd")
-    plane, batch = _check(psi, {"v_re": v_re, "v_abs": v_abs}, "transmit_abs_bwd")
+    psi: torch.Tensor, v: torch.Tensor, g: torch.Tensor, sigma: float
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """(dpsi, dV) of the absorptive transmit for upstream gradient g: the
+    transmit_abs_bwd kernel on CUDA, V read and dV = dVr + 1j*dVa written as
+    one complex plane each.  dV is summed over psi's batch."""
+    _complex_operand(v, psi, "transmit_abs_bwd")
+    plane, batch = _check(psi, {"v": v}, "transmit_abs_bwd")
     _check_grad(g, psi, "transmit_abs_bwd")
     if not psi.is_cuda:
-        return transmit_abs_bwd_ref(psi, v_re, v_abs, g, sigma)
-    dpsi, dv_re, dv_abs = torch.empty_like(psi), torch.empty_like(v_re), torch.empty_like(v_abs)
+        return transmit_abs_bwd_ref(psi, v, g, sigma)
+    dpsi, dv = torch.empty_like(psi), torch.empty_like(v)
     if plane:
         _launch(
-            "transmit_abs_bwd", psi, psi.data_ptr(), v_re.data_ptr(), v_abs.data_ptr(),
-            g.data_ptr(), dpsi.data_ptr(), dv_re.data_ptr(), dv_abs.data_ptr(), float(sigma),
-            plane, batch,
+            "transmit_abs_bwd", psi, psi.data_ptr(), v.data_ptr(), g.data_ptr(),
+            dpsi.data_ptr(), dv.data_ptr(), float(sigma), plane, batch,
         )
         transmit_abs_bwd.launches += 1
-    return dpsi, dv_re, dv_abs
+    return dpsi, dv
 
 
 transmit.launches = 0
@@ -338,24 +349,26 @@ class _Transmit(torch.autograd.Function):
 
 
 class _TransmitAbs(torch.autograd.Function):
-    """psi * exp(1j*sigma*Re V - sigma*Im V), V complex (absorptive).
+    """psi * exp(1j*sigma*Re V - sigma*Im V), V complex (absorptive) and of
+    psi's dtype: the kernels read V's complex plane as it lies, so the slice
+    is saved as given, with no copy.
 
     The gradient of the complex V is dVr + i dVa, PyTorch's convention for a
-    complex tensor (the conjugate of what ``jax.grad`` returns).
+    complex tensor (the conjugate of what ``jax.grad`` returns), which the
+    adjoint kernel writes as one complex plane.
     """
 
     @staticmethod
     def forward(ctx, psi, v, sigma):
-        v_re, v_abs = v.real.contiguous(), v.imag.contiguous()
-        ctx.sigma, ctx.v_dtype = sigma, v.dtype
-        ctx.save_for_backward(psi, v_re, v_abs)
-        return transmit_abs(psi, v_re, v_abs, sigma)
+        ctx.sigma = sigma
+        ctx.save_for_backward(psi, v)
+        return transmit_abs(psi, v, sigma)
 
     @staticmethod
     def backward(ctx, g):
-        psi, v_re, v_abs = ctx.saved_tensors
-        dpsi, dv_re, dv_abs = transmit_abs_bwd(psi, v_re, v_abs, _dense(g), ctx.sigma)
-        return dpsi, torch.complex(dv_re, dv_abs).to(ctx.v_dtype), None
+        psi, v = ctx.saved_tensors
+        dpsi, dv = transmit_abs_bwd(psi, v, _dense(g), ctx.sigma)
+        return dpsi, dv, None
 
 
 class _PropagatorMultiply(torch.autograd.Function):
@@ -393,7 +406,9 @@ def pallas_slice_step(
             "engine 'xla' to differentiate with respect to P"
         )
     if v_slice.is_complex():
-        psi = _TransmitAbs.apply(psi, v_slice, sigma)
+        # a no-op for a dense slice of psi's dtype; else one cast or copy,
+        # whose gradient autograd casts back
+        psi = _TransmitAbs.apply(psi, _dense(v_slice.to(psi.dtype)), sigma)
     else:
         psi = _Transmit.apply(psi, v_slice, sigma)
     psi_hat = torch.fft.fft2(psi)

@@ -44,7 +44,7 @@ def transmit(psi: torch.Tensor, v_slice: torch.Tensor, sigma: float) -> torch.Te
     (SURVEY.md Appendix B item 3).
     """
     if v_slice.is_complex():
-        return transmit_abs_ref(psi, v_slice.real, v_slice.imag, sigma)
+        return transmit_abs_ref(psi, v_slice, sigma)
     return transmit_ref(psi, v_slice, sigma)
 
 
@@ -341,6 +341,13 @@ def multislice(
     grad-capable one accepts and ignores remat_chunk (its adjoint bounds its
     own memory: checkpointed segments inside the kernel, or per-slice
     checkpoints past the panel store's cap), a forward-only one rejects it.
+    A complex (absorptive) V under a gradient on a whole-loop engine goes
+    slice by slice through the "pallas" step with no checkpoint, as the JAX
+    package's engines do, so its adjoint memory is O(S): one saved wave and
+    one slice of dV per slice and wave until the dV is gathered, 64 MiB a
+    slice for one complex64 wave at 2048^2 (NVIDIA H100, chip_smoke.py phase
+    c5_absorptive: 4 GiB above the inputs at 64 slices, 2 GiB at 32; 48 GiB
+    with V at 512).
     """
     step = slice_step or default_slice_step
     if hasattr(step, "whole_scan"):
@@ -357,9 +364,13 @@ def multislice(
             )
         return step.whole_scan(psi0, v_stack, propagator, sigma)
 
+    # V reaches the steps through one split into chunks and one unbind of
+    # each, as JAX scans over V: each slice's dV then lands once (one stack a
+    # chunk, one cat of the chunks), where a slice of V per step or chunk has
+    # autograd zero-fill a full-size dV for each and add it into V's
     def run(psi, v_chunk):
-        for j in range(v_chunk.shape[0]):
-            psi = step(psi, v_chunk[j], propagator, sigma)
+        for v_slice in v_chunk.unbind(0):
+            psi = step(psi, v_slice, propagator, sigma)
         return psi
 
     s = v_stack.shape[0]
@@ -368,8 +379,8 @@ def multislice(
     if s % remat_chunk != 0:
         raise ValueError(f"remat_chunk {remat_chunk} must divide nslices {s}")
     psi = psi0
-    for j in range(0, s, remat_chunk):
-        psi = checkpoint(run, psi, v_stack[j : j + remat_chunk], use_reentrant=False)
+    for v_chunk in torch.split(v_stack, remat_chunk):
+        psi = checkpoint(run, psi, v_chunk, use_reentrant=False)
     return psi
 
 
@@ -394,13 +405,14 @@ def multislice_thickness_series(
     psi = psi0
     out = []
     if hasattr(step, "whole_scan"):
-        # whole-loop engine: one kernel launch per ``every``-slice chunk
-        for j in range(0, s, every):
-            psi = step.whole_scan(psi, v_stack[j : j + every], propagator, sigma)
+        # whole-loop engine: one kernel launch per ``every``-slice chunk, the
+        # chunks from one split of V
+        for v_chunk in torch.split(v_stack, every):
+            psi = step.whole_scan(psi, v_chunk, propagator, sigma)
             out.append(psi)
         return torch.stack(out)
-    for j in range(s):
-        psi = step(psi, v_stack[j], propagator, sigma)
+    for j, v_slice in enumerate(v_stack.unbind(0)):  # one unbind: each dV lands once
+        psi = step(psi, v_slice, propagator, sigma)
         if (j + 1) % every == 0:
             out.append(psi)
     return torch.stack(out)

@@ -375,6 +375,50 @@ def test_cli_invert_on_fscan_equals_xla(tmp_path, case):
     assert timing["engine"] == timing["engine_kind"] == "fscan" and timing["iterations"] == 3
 
 
+def test_cli_absorptive_invert_on_fscan_equals_xla(tmp_path):
+    """--mode invert with sim.absorptive_factor=0.1 on sim.engine=fscan (128^2,
+    4 slices, 3 sgd iterations): the self-test series of V's real part is one
+    whole-loop rollout handed a dense V (the kernel reads V as it lies; a
+    view of the complex V's real parts is refused on the card), and the
+    complex V's gradients go slice by slice (no store pair); losses and the
+    recovered complex V equal engine xla's."""
+    from fdes_tpu_torch.kernels import adjoint_scan as adj
+
+    cfg = _cfg(tmp_path / "c.toml")
+    args = ("--mode", "invert", "--set", "sim.nslices=4", "--set", "recon.optimizer=sgd",
+            "--set", "recon.iterations=3", "--set", "recon.lr=2000.0",
+            "--set", "sim.absorptive_factor=0.1")
+    seen = []
+    real = {"fused_scan": adj.fused_scan, "fused_scan_store": adj.fused_scan_store}
+
+    def recorded(name):
+        def call(psi0, v_stack, *a, **k):
+            seen.append((name, v_stack.is_contiguous()))
+            return real[name](psi0, v_stack, *a, **k)
+        return call
+
+    for name in real:
+        setattr(adj, name, recorded(name))
+    try:
+        _run_port_cli(cfg, str(tmp_path / "fscan"), *args, "--set", "sim.engine=fscan")
+    finally:
+        for name, fn in real.items():
+            setattr(adj, name, fn)
+    assert seen == [("fused_scan", True)]
+    _run_port_cli(cfg, str(tmp_path / "xla"), *args, "--set", "sim.engine=xla")
+
+    def losses(side):
+        with open(tmp_path / side / "metrics.jsonl") as fh:
+            return [json.loads(line)["loss"] for line in fh]
+
+    np.testing.assert_allclose(losses("fscan"), losses("xla"), rtol=GATE)
+    got = np.load(tmp_path / "fscan" / "reconstructed.npy")
+    want = np.load(tmp_path / "xla" / "reconstructed.npy")
+    assert got.dtype == np.complex64 and got.shape == (4, 128, 128)
+    assert np.abs(want).max() > 1e-3  # V moved
+    assert _rel(got, want) <= GATE
+
+
 def test_cli_hrtem_on_panel_equals_xla(tmp_path):
     """Mode hrtem on sim.engine=panel at 256^2, 4 slices: one panel_scan call
     for the rollout (its plain passes here), timing.json names the engine,

@@ -176,6 +176,95 @@ def test_multislice_grad_equals_jax(small_inputs, si110_small, engine, absorptiv
     assert _rel(got_p.numpy(), np.conj(want_p)) <= 1e-10
 
 
+def _graph_kinds(out: torch.Tensor, leaf: torch.Tensor) -> tuple[list[str], list[str]]:
+    """(the kinds of the nodes reachable from out's grad_fn, the kinds of the
+    nodes that hand their gradient to ``leaf``'s accumulator).  A select or
+    slice counts by its input's shape, ``SelectBackward0 of (8, 64, 64)``:
+    ``.real``/``.imag`` of a complex slice are selects too."""
+    kinds, into_leaf, seen, todo = [], [], set(), [out.grad_fn]
+    while todo:
+        node = todo.pop()
+        if node is None or id(node) in seen:
+            continue
+        seen.add(id(node))
+        kind = type(node).__name__
+        if kind in ("SelectBackward0", "SliceBackward0"):
+            kind += f" of {tuple(node._saved_self_sym_sizes)}"
+        kinds.append(kind)
+        for nxt, _ in node.next_functions:
+            if nxt is not None and getattr(nxt, "variable", None) is leaf:
+                into_leaf.append(type(node).__name__)
+            todo.append(nxt)
+    return kinds, into_leaf
+
+
+def _sliced_multislice(psi0, v_stack, propagator, sigma, remat_chunk, step):
+    """multislice's per-slice loop as it stood before V was split once: a
+    slice of V per chunk and a select of it per step (each one's backward
+    zero-fills a full-size dV and adds it into V's)."""
+    def run(psi, v_chunk):
+        for j in range(v_chunk.shape[0]):
+            psi = step(psi, v_chunk[j], propagator, sigma)
+        return psi
+
+    s = v_stack.shape[0]
+    if not remat_chunk:
+        return run(psi0, v_stack)
+    psi = psi0
+    for j in range(0, s, remat_chunk):
+        psi = torch.utils.checkpoint.checkpoint(run, psi, v_stack[j : j + remat_chunk],
+                                                use_reentrant=False)
+    return psi
+
+
+@pytest.mark.parametrize("absorptive", [False, True])
+@pytest.mark.parametrize("remat", [None, 2])
+@pytest.mark.parametrize("engine", ["xla", "pallas"])
+def test_per_slice_loop_hands_v_over_once(small_inputs, engine, remat, absorptive):
+    """V reaches the per-slice steps through one unbind (and, with remat, one
+    split into chunks): no SelectBackward0 or SliceBackward0 on V's path,
+    each slice's dV lands once, and dV is the same bits as the old slicing's."""
+    v, prop = small_inputs
+    if absorptive:
+        v = v + 1j * 0.1 * np.abs(v)
+    step = tprop.make_slice_step(engine) or tprop.default_slice_step
+    rng = np.random.default_rng(7)
+    psi0 = torch.as_tensor(np.exp(1j * rng.uniform(0, 0.3, size=v.shape[1:])))
+    pt = torch.as_tensor(prop)
+    w = torch.linspace(0.5, 1.5, psi0.numel(), dtype=torch.float64).reshape(psi0.shape)
+    grads, graphs = [], []
+    for rollout in (
+        lambda vv: tprop.multislice(psi0, vv, pt, SIGMA, remat_chunk=remat, slice_step=step),
+        lambda vv: _sliced_multislice(psi0, vv, pt, SIGMA, remat, step),
+    ):
+        v_t = torch.as_tensor(v).requires_grad_(True)
+        out = rollout(v_t)
+        graphs.append(_graph_kinds(out, v_t))
+        (out.abs() ** 2 * w).sum().backward()
+        grads.append(v_t.grad)
+    (kinds, into_v), (old_kinds, _) = graphs
+    of_v = [f"{k} of {v.shape}" for k in ("SelectBackward0", "SliceBackward0")]
+    assert not [k for k in kinds if k in of_v]
+    assert into_v == ["SplitBackward0" if remat else "UnbindBackward0"]
+    assert kinds.count("UnbindBackward0") == (v.shape[0] // remat if remat else 1)
+    # the old slicing, for contrast: a select of V per slice, or a slice of V
+    # per chunk
+    assert old_kinds.count(of_v[1] if remat else of_v[0]) == v.shape[0] // (remat or 1)
+    assert grads[0].dtype == grads[1].dtype and torch.equal(grads[0], grads[1])
+
+
+def test_thickness_series_hands_v_over_once(small_inputs):
+    """The per-slice thickness series unbinds V once too: one node hands V
+    its gradient."""
+    v, prop = small_inputs
+    v_t = torch.as_tensor(v + 1j * 0.1 * np.abs(v)).requires_grad_(True)
+    series = tprop.multislice_thickness_series(
+        torch.ones(v.shape[1:], dtype=torch.complex128), v_t, torch.as_tensor(prop), SIGMA,
+        every=2, slice_step=tprop.make_slice_step("pallas"))
+    kinds, into_v = _graph_kinds(series, v_t)
+    assert f"SelectBackward0 of {v.shape}" not in kinds and into_v == ["UnbindBackward0"]
+
+
 @pytest.mark.parametrize("nslices", [1, 2, 4, 7, 12, 16, 64, 100])
 def test_pick_remat_chunk_equals_jax(nslices):
     assert tprop.pick_remat_chunk(nslices) == jprop.pick_remat_chunk(nslices)

@@ -62,15 +62,17 @@ def test_transmit_ref_equals_pallas(planes, cdt):
 
 @pytest.mark.parametrize("cdt", [np.complex64, np.complex128])
 def test_transmit_abs_ref_equals_pallas(planes, cdt):
+    """The port takes V = Vr + 1j*Va as one complex plane, the TPU kernel
+    its two real parts."""
     psi, _, v, va, _ = planes
     rdt = REAL[cdt]
-    got = ks.transmit_abs_ref(_t(psi[0], cdt), _t(v, rdt), _t(va, rdt), SIGMA)
+    got = ks.transmit_abs_ref(_t(psi[0], cdt), _t(v + 1j * va, cdt), SIGMA)
     want = jss.pallas_transmit_abs(
         jnp.asarray(psi[0].astype(cdt)), jnp.asarray(v.astype(rdt)),
         jnp.asarray(va.astype(rdt)), SIGMA, True,
     )
     assert _rel_max(got.numpy(), want) <= TOL[cdt]
-    assert torch.equal(ks.transmit_abs(_t(psi[0], cdt), _t(v, rdt), _t(va, rdt), SIGMA), got)
+    assert torch.equal(ks.transmit_abs(_t(psi[0], cdt), _t(v + 1j * va, cdt), SIGMA), got)
 
 
 @pytest.mark.parametrize("conj_b", [False, True])
@@ -87,7 +89,7 @@ def test_batched_psi_broadcasts_v_and_b(planes):
     psi, b, v, va, _ = planes
     cdt, rdt = np.complex64, np.float32
     out = ks.transmit(_t(psi, cdt), _t(v, rdt), SIGMA)
-    out_abs = ks.transmit_abs(_t(psi, cdt), _t(v, rdt), _t(va, rdt), SIGMA)
+    out_abs = ks.transmit_abs(_t(psi, cdt), _t(v + 1j * va, cdt), SIGMA)
     out_mul = ks.cmul(_t(psi, cdt), _t(b, cdt))
     for i in range(psi.shape[0]):
         p = jnp.asarray(psi[i].astype(cdt))
@@ -123,16 +125,16 @@ def test_transmit_bwd_refs_equal_jax_vjp(planes, cdt, absorptive):
     rdt = REAL[cdt]
     p, g = psi[0].astype(cdt), b.astype(cdt)  # b serves as the upstream gradient
     if absorptive:
-        got = ks.transmit_abs_bwd_ref(_t(p, cdt), _t(v, rdt), _t(va, rdt), _t(g, cdt), SIGMA)
+        vc = _t(v + 1j * va, cdt)
+        dpsi, dv = ks.transmit_abs_bwd_ref(_t(p, cdt), vc, _t(g, cdt), SIGMA)
+        assert dv.dtype == vc.dtype and dv.shape == vc.shape
+        got = (dpsi, dv.real, dv.imag)  # dV = dVr + 1j*dVa, one complex plane
         _, vjp = jax.vjp(
             lambda pp, vr, vab: jss.pallas_transmit_abs(pp, vr, vab, SIGMA, True),
             jnp.asarray(p), jnp.asarray(v.astype(rdt)), jnp.asarray(va.astype(rdt)),
         )
         want = vjp(jnp.conj(jnp.asarray(g)))
-        assert torch.equal(
-            ks.transmit_abs_bwd(_t(p, cdt), _t(v, rdt), _t(va, rdt), _t(g, cdt), SIGMA)[2],
-            got[2],
-        )
+        assert torch.equal(ks.transmit_abs_bwd(_t(p, cdt), vc, _t(g, cdt), SIGMA)[1], dv)
     else:
         got = ks.transmit_bwd_ref(_t(p, cdt), _t(v, rdt), _t(g, cdt), SIGMA)
         _, vjp = jax.vjp(lambda pp, vv: jss.pallas_transmit(pp, vv, SIGMA, True),
@@ -152,9 +154,9 @@ def test_transmit_bwd_batch_sums_dv(planes, absorptive):
     cdt, rdt = np.complex128, np.float64
     g = np.conj(psi[::-1]).copy()
     if absorptive:
-        got = ks.transmit_abs_bwd(_t(psi, cdt), _t(v, rdt), _t(va, rdt), _t(g, cdt), SIGMA)
-        each = [ks.transmit_abs_bwd(_t(psi[i], cdt), _t(v, rdt), _t(va, rdt), _t(g[i], cdt),
-                                    SIGMA) for i in range(3)]
+        got = ks.transmit_abs_bwd(_t(psi, cdt), _t(v + 1j * va, cdt), _t(g, cdt), SIGMA)
+        each = [ks.transmit_abs_bwd(_t(psi[i], cdt), _t(v + 1j * va, cdt), _t(g[i], cdt), SIGMA)
+                for i in range(3)]
     else:
         got = ks.transmit_bwd(_t(psi, cdt), _t(v, rdt), _t(g, cdt), SIGMA)
         each = [ks.transmit_bwd(_t(psi[i], cdt), _t(v, rdt), _t(g[i], cdt), SIGMA)
@@ -193,6 +195,63 @@ def test_engine_backward_raises(planes):
         ks.pallas_slice_step(_t(psi[0], cdt), _t(v, np.float64), p_req, SIGMA)
 
 
+def test_transmit_abs_saves_v_in_place_and_returns_complex_dv(planes):
+    """The absorptive step saves the complex slice it is handed (V's own
+    storage: no copy of its real and imaginary parts is made or saved), and
+    its dV is one complex tensor, the conjugate of JAX's VJP for the complex V."""
+    psi, b, v, va, prop = planes
+    cdt = np.complex128
+    v_stack = _t(np.stack([v + 1j * va, 0.5 * v + 1j * va]), cdt).requires_grad_(True)
+    p_t = _t(psi[0], cdt).requires_grad_(True)
+    saved = []
+    with torch.autograd.graph.saved_tensors_hooks(lambda t: saved.append(t) or t, lambda t: t):
+        out = p_t
+        for v_slice in v_stack.unbind(0):
+            out = ks.pallas_slice_step(out, v_slice, _t(prop, cdt), SIGMA)
+    base = v_stack.untyped_storage().data_ptr()
+    v_saved = [t for t in saved if t.shape == v.shape and t.untyped_storage().data_ptr() == base]
+    assert len(v_saved) == 2 and all(t.dtype == v_stack.dtype for t in v_saved)
+    # nothing else of V's shape is saved but psi and the propagator
+    assert not [t for t in saved if t.shape == v.shape and not t.is_complex()]
+    out.backward(_t(b, cdt))
+    assert v_stack.grad.dtype == v_stack.dtype
+
+    def jax_rollout(pp, vs):
+        for j in range(2):
+            pp = jss.pallas_slice_step(pp, vs[j], jnp.asarray(prop), SIGMA, interpret=True)
+        return pp
+
+    _, vjp = jax.vjp(jax_rollout, jnp.asarray(psi[0].astype(cdt)),
+                     jnp.asarray(v_stack.detach().numpy()))
+    d_psi, d_v = vjp(jnp.conj(jnp.asarray(b.astype(cdt))))
+    assert _rel_max(v_stack.grad.numpy(), np.conj(d_v)) <= 1e-11
+    assert _rel_max(p_t.grad.numpy(), np.conj(d_psi)) <= 1e-11
+
+
+@pytest.mark.parametrize("wrapper", ["transmit_abs", "transmit_abs_bwd"])
+@pytest.mark.parametrize("case", ["strided", "conj", "neg", "dtype"])
+def test_absorptive_wrappers_refuse_v_not_read_in_place(planes, wrapper, case):
+    """The absorptive kernels read V's complex plane as it lies: a V that is
+    not contiguous, a lazy conj or neg view, or not of psi's dtype is
+    refused on every device, not copied."""
+    psi, b, v, va, _ = planes
+    p = _t(psi[0], np.complex64)
+    vc = _t(v + 1j * va, np.complex64)
+    bad = {
+        "strided": vc.t(),
+        "conj": vc.conj(),
+        "neg": torch._neg_view(vc),
+        "dtype": vc.to(torch.complex128),
+    }[case]
+    call = {"transmit_abs": lambda vv: ks.transmit_abs(p, vv, SIGMA),
+            "transmit_abs_bwd": lambda vv: ks.transmit_abs_bwd(p, vv, p, SIGMA)}[wrapper]
+    call(vc)  # the dense V of psi's dtype goes through
+    with pytest.raises(TypeError if case == "dtype" else ValueError,
+                       match={"strided": "contiguous", "conj": "conj", "neg": "neg",
+                              "dtype": "dtype"}[case]):
+        call(bad)
+
+
 @pytest.mark.parametrize(
     "case",
     ["int_psi", "real_psi", "complex_v", "v_shape", "b_shape", "b_dtype", "abs_shapes",
@@ -203,14 +262,14 @@ def test_wrappers_raise_on_bad_input(planes, case):
     p, vv, bb = _t(psi[0], np.complex64), _t(v, np.float32), _t(b, np.complex64)
     call = {
         "g_shape": lambda: ks.transmit_bwd(p, vv, _t(psi, np.complex64), SIGMA),
-        "g_dtype": lambda: ks.transmit_abs_bwd(p, vv, vv, bb.to(torch.complex128), SIGMA),
+        "g_dtype": lambda: ks.transmit_abs_bwd(p, bb, bb.to(torch.complex128), SIGMA),
         "int_psi": lambda: ks.transmit(torch.ones(128, 128, dtype=torch.int32), vv, SIGMA),
         "real_psi": lambda: ks.cmul(vv, vv),
         "complex_v": lambda: ks.transmit(p, bb, SIGMA),
         "v_shape": lambda: ks.transmit(p, vv[:64], SIGMA),
         "b_shape": lambda: ks.cmul(p, bb[:, :64]),
         "b_dtype": lambda: ks.cmul(p, bb.to(torch.complex128)),
-        "abs_shapes": lambda: ks.transmit_abs(_t(psi, np.complex64), vv, vv[None], SIGMA),
+        "abs_shapes": lambda: ks.transmit_abs(_t(psi, np.complex64), bb[None], SIGMA),
     }[case]
     with pytest.raises((TypeError, ValueError)):
         call()
@@ -221,10 +280,11 @@ def test_cpu_calls_launch_nothing(planes):
     p, vv = _t(psi, np.complex64), _t(v, np.float32)
     ks.reset_launches()
     ks.transmit(p, vv, SIGMA)
-    ks.transmit_abs(p, vv, vv, SIGMA)
-    ks.cmul(p, _t(b, np.complex64))
+    vc = _t(b, np.complex64)
+    ks.transmit_abs(p, vc, SIGMA)
+    ks.cmul(p, vc)
     ks.transmit_bwd(p, vv, p, SIGMA)
-    ks.transmit_abs_bwd(p, vv, vv, p, SIGMA)
+    ks.transmit_abs_bwd(p, vc, p, SIGMA)
     assert len(ks.WRAPPERS) == 5
     assert [w.launches for w in ks.WRAPPERS] == [0] * 5
 
@@ -240,19 +300,29 @@ def cuda():
 def test_kernels_match_plain_on_card(planes, cuda, cdt):
     psi, b, v, va, prop = planes
     rdt = REAL[cdt]
-    p, vv, vva, bb = (_t(a, d).to(cuda) for a, d in ((psi, cdt), (v, rdt), (va, rdt), (b, cdt)))
+    p, vv, vc, bb = (_t(a, d).to(cuda)
+                     for a, d in ((psi, cdt), (v, rdt), (v + 1j * va, cdt), (b, cdt)))
     g = p.flip(0).conj().resolve_conj()
     ks.reset_launches()
     pairs = [
         (ks.transmit(p, vv, SIGMA), ks.transmit_ref(p, vv, SIGMA)),
-        (ks.transmit_abs(p, vv, vva, SIGMA), ks.transmit_abs_ref(p, vv, vva, SIGMA)),
+        (ks.transmit_abs(p, vc, SIGMA), ks.transmit_abs_ref(p, vc, SIGMA)),
         (ks.cmul(p, bb, True), ks.cmul_ref(p, bb, True)),
         *zip(ks.transmit_bwd(p, vv, g, SIGMA), ks.transmit_bwd_ref(p, vv, g, SIGMA)),
-        *zip(ks.transmit_abs_bwd(p, vv, vva, g, SIGMA),
-             ks.transmit_abs_bwd_ref(p, vv, vva, g, SIGMA)),
+        *zip(ks.transmit_abs_bwd(p, vc, g, SIGMA), ks.transmit_abs_bwd_ref(p, vc, g, SIGMA)),
+        # one plane, and an odd plane (8-byte accesses)
+        (ks.transmit_abs(p[0], vc, SIGMA), ks.transmit_abs_ref(p[0], vc, SIGMA)),
+        (ks.transmit_abs(p[:, 1:, 1:].contiguous(), vc[1:, 1:].contiguous(), SIGMA),
+         ks.transmit_abs_ref(p[:, 1:, 1:], vc[1:, 1:], SIGMA)),
+        *zip(ks.transmit_abs_bwd(p[:, 1:, 1:].contiguous(), vc[1:, 1:].contiguous(),
+                                 g[:, 1:, 1:].contiguous(), SIGMA),
+             ks.transmit_abs_bwd_ref(p[:, 1:, 1:], vc[1:, 1:], g[:, 1:, 1:], SIGMA)),
     ]
     torch.cuda.synchronize()
-    assert [w.launches for w in ks.WRAPPERS] == [1] * 5
+    assert [w.launches for w in ks.WRAPPERS] == [1, 3, 1, 1, 2]
+    # dV summed over the batch in a fixed order: the same bits twice
+    assert torch.equal(ks.transmit_abs_bwd(p, vc, g, SIGMA)[1],
+                       ks.transmit_abs_bwd(p, vc, g, SIGMA)[1])
     tol = {np.complex64: 2e-6, np.complex128: 1e-12}[cdt]
     for got, want in pairs:
         assert _rel_max(got.cpu().numpy(), want.cpu().numpy()) <= tol
