@@ -22,9 +22,18 @@ Phases, each printing one JSON line:
              carry the 2048^2 and 4096^2 one-wave times); the
              Fresnel multiply also on odd planes (511^2), batches of 1, 3 and
              16 and both values of conj_b, and timed in turns with torch.mul;
-             the fused step and its adjoint at 512^2 and (8, 512, 512)
-             complex64; the whole-loop scan (scan_kernel) at (16 waves, 8
-             slices, 512^2), at 128^2 and 1024^2 (2 waves, 3 slices, shared
+             the fused step (row 6) on both routes, "tile" (three ordinary
+             launches) and "wide" (one cooperative launch on the wide
+             transform), and its adjoint (row 7, one cooperative launch),
+             at 128^2 to 1024^2 with 1, 3 and 8 waves of a shared P and 3
+             waves of one P each, and on config 4's potential at 512^2 (1
+             and 8 waves), dV bitwise equal over two runs; the step's routes
+             timed in turns at one 512^2 wave (the table rows) and at every
+             row of fused_step.STEP_ROUTE, there with the adjoint checked
+             (each row names the faster route and whether the table picks
+             it); the
+             whole-loop scan (scan_kernel) at (16 waves, 8 slices, 512^2),
+             at 128^2 and 1024^2 (2 waves, 3 slices, shared
              and per-wave V and P); the cluster kernel at 128^2, 256^2 and
              512^2 with 1, 3, 16 and 64 waves, shared and per-wave V and P,
              and a refused cluster launch raising; both at the STEM raster's
@@ -107,12 +116,23 @@ Phases, each printing one JSON line:
              the absorptive transmit kernel, against "xla" at <= 1e-5, on
              "pallas" and on the defaults (the whole-loop engine sends a
              complex potential through the same kernels, asserted).
-6. grad    — the config-3 loss (make_loss over hrtem_defocus_series, 512^2,
+6. streamed — config 2 with the potential streamed: ``fdes_tpu_torch.cli.main
+             --mode forward --set sim.streamed=true`` (512^2, 64 slices, one
+             wave) on the defaults ("auto" resolves to the per-slice fused
+             step: 64 launches of row 6 on the route STEP_ROUTE picks,
+             asserted), on "xla" and on "xla" in complex128, and a 4-tilt
+             series (four waves, one propagator each) on the defaults and
+             "xla": the exit waves against xla's (<= 1e-5) and the one-wave
+             run against complex128 (<= 5e-5); setup, run, device busy time,
+             idle share and peak memory; the rollout alone with the step on
+             each route, busy and wall ms in turns.
+7. grad    — the config-3 loss (make_loss over hrtem_defocus_series, 512^2,
              64 slices, 8 defoci, complex64) and dL/dV at V = 0.5 V_true:
              engines "pallas" and "fused" against "xla", remat_chunk 8 against
              none, and the absorptive potential (the absorptive adjoint
              kernel), each at <= 1e-5, with the launches of one gradient
-             evaluation asserted and its wall and device time measured; and
+             evaluation asserted and its wall and device time measured
+             ("fused" also with the step on each route, in turns); and
              engine "fscan", the whole-loop adjoint: one store-forward and one
              backward launch per evaluation on the kernels STORE_ROUTE picks
              for one wave (asserted by wrapper counts, with and without
@@ -124,9 +144,10 @@ Phases, each printing one JSON line:
              with V handed over as a select of V per slice (the loop before V
              was unbound once), wall, busy and elementwise busy time, dV the
              same bits.
-7. invert  — the inverse at full width: ``fdes_tpu_torch.cli.main --mode
+8. invert  — the inverse at full width: ``fdes_tpu_torch.cli.main --mode
              invert`` on examples/si110_hrtem.toml (config 3), 20 iterations on
-             engines "pallas", "xla", "fused" and "fscan" and on the defaults
+             engines "pallas", "xla", "fused" (twice on each route of the
+             step, in turns) and "fscan" and on the defaults
              ("auto" resolves to "fscan"; one whole-loop launch for the
              self-test series, then 20 x (1 + 1) on the store pair's routed
              kernels, and the route reported): launches
@@ -135,7 +156,7 @@ Phases, each printing one JSON line:
              finite; then three iterations each of a two-tilt inverse and of a
              4x4 stem4d inverse (config 4's potential, two chunks of 8 probes)
              on "fscan" against "xla".
-8. invert_absorptive — config 3's absorptive inverse: ``fdes_tpu_torch.cli.main
+9. invert_absorptive — config 3's absorptive inverse: ``fdes_tpu_torch.cli.main
              --mode invert --set sim.absorptive_factor=0.1``, 20 iterations on
              the defaults ("auto" resolves to "fscan", whose complex-V
              fallback runs the slice step's kernels slice by slice): launches
@@ -145,7 +166,7 @@ Phases, each printing one JSON line:
              it/s and peak memory, two runs; one gradient evaluation: its
              launches, kernels by name and busy time (no copy or pack kernel
              once a slice, asserted), and the idle share of a step.
-9. stem    — the STEM raster at full width: ``fdes_tpu_torch.cli.main`` on
+10. stem    — the STEM raster at full width: ``fdes_tpu_torch.cli.main`` on
              examples/si110_stem.toml (config 4: 512^2, 128 slices, 32x32 =
              1,024 probes, BF + ADF) on engine "fscan" at probe chunk 16 (one
              whole-loop kernel launch per chunk on the routed kernel, asserted,
@@ -158,9 +179,9 @@ Phases, each printing one JSON line:
              detector at <= 1e-4 (two float32 rollouts of 128 slices);
              slice-propagations per second and the device's idle share per
              engine.
-10. stem4d  — a 4x4 scan in mode stem4d (cbed.npy, "fscan" against "xla") and
+11. stem4d  — a 4x4 scan in mode stem4d (cbed.npy, "fscan" against "xla") and
              in mode stem with stem.compute_com=true (stem_com.npy).
-11. c5      — config 5 at full width: ``fdes_tpu_torch.cli.main`` in mode
+12. c5      — config 5 at full width: ``fdes_tpu_torch.cli.main`` in mode
              hrtem on examples/si110_hrtem.toml at 2048^2, 512 slices,
              Si[110] 24x16x64, 8 defoci, on engines "panel" (one panel_scan
              call, 1,025 launches, asserted; no FFT library kernel in the
@@ -171,7 +192,7 @@ Phases, each printing one JSON line:
              kernels and on PANEL_ROUTE's, in turns; then a 4-tilt series and
              the absorptive series (first defocus only) and a 2x2 STEM raster
              at 64 slices, "panel" against "xla".
-12. c5_absorptive — config 5 with an absorptive potential
+13. c5_absorptive — config 5 with an absorptive potential
              (sim.absorptive_factor=0.1, a complex64 V of 16 GiB) at 2048^2 x
              512 slices, one defocus, through the CLI on the defaults ("auto"
              resolves to "panel": one panel_scan call, its init and 511 row
@@ -186,7 +207,7 @@ Phases, each printing one JSON line:
              panel engine's complex-V fallback, slice by slice): wall, busy
              ms by kernel, launches asserted, the peak above its inputs at 64
              and 32 slices and that line run out to 512 slices.
-13. c5_invert — config 5's inverse at full width: ``fdes_tpu_torch.cli.main
+14. c5_invert — config 5's inverse at full width: ``fdes_tpu_torch.cli.main
              --mode invert`` at 2048^2, 512 slices, 8 defoci, 20 adam
              iterations on engine "panel" (one panel_scan for the self-test
              series, then 2,050 panel passes per iteration, asserted); one
@@ -197,7 +218,7 @@ Phases, each printing one JSON line:
              gradient free of FFT library kernels (its kernels counted at 64
              slices); the per-slice route (the store cap patched) against the
              store route at 64 slices.
-14. c5_tilt_invert — the gradient of config 5's 4-tilt series loss at 2048^2
+15. c5_tilt_invert — the gradient of config 5's 4-tilt series loss at 2048^2
              x 512 slices on "panel": four waves' s stack (64 GiB) is past
              the store cap, so the per-slice route runs unpatched; wall of
              three evaluations after a warm-up, device busy time by kernel
@@ -207,7 +228,7 @@ Phases, each printing one JSON line:
              chunks handed over as slices of V, as the route ran before V
              was split once; at 64 slices the per-slice route (cap patched)
              against the store route.
-15. c5_streamed — config 5 with the potential streamed: ``fdes_tpu_torch.cli.main
+16. c5_streamed — config 5 with the potential streamed: ``fdes_tpu_torch.cli.main
              --mode forward --set sim.streamed=true`` at 2048^2, 512 slices
              (one defocus: forward mode reads no CTF) on "panel" (one C
              call issuing 2,050 panel passes and 512 scatters, asserted by
@@ -222,12 +243,12 @@ Phases, each printing one JSON line:
              the panel rollout's device busy and wall time at each of the
              three shapes with every routed panel pass on the tile kernels
              and on PANEL_ROUTE's, in turns.
-16. phonon — frozen phonons through the CLI: config 2 in mode hrtem with 4
+17. phonon — frozen phonons through the CLI: config 2 in mode hrtem with 4
              configurations on the defaults ("auto" resolves to "fscan": 4
              whole-loop launches, asserted) against "xla" at <= 1e-5, and a
              2x2 STEM raster of config 4 with 2 configurations on "fscan"
              against "xla".
-17. engines — wall time of a 32-slice rollout and of one gradient evaluation
+18. engines — wall time of a 32-slice rollout and of one gradient evaluation
              per engine at 128^2 to 1024^2, one wave and 16, and on "panel",
              "pallas" and "xla" at 2048^2 (1 and 4 waves) and 4096^2: the
              rows that
@@ -261,7 +282,7 @@ import numpy as np
 import torch
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
-PHASES = ("build", "kernels", "golden", "hrtem", "absorptive", "grad", "invert",
+PHASES = ("build", "kernels", "golden", "hrtem", "absorptive", "streamed", "grad", "invert",
           "invert_absorptive", "stem", "stem4d", "c5", "c5_absorptive", "c5_invert",
           "c5_tilt_invert", "c5_streamed", "phonon", "engines")
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
@@ -655,7 +676,8 @@ def device_kernels(fn) -> dict[str, int]:
     return names
 
 
-OWN_KERNELS = ("row_pass_kernel", "col_pass_kernel", "bwd_tail_kernel", "scan_kernel",
+OWN_KERNELS = ("row_pass_kernel", "col_pass_kernel", "wide_step_kernel",
+               "wide_step_bwd_kernel", "scan_kernel",
                "cluster_scan_kernel", "scan_store_kernel", "scan_bwd_store_kernel",
                "wide_scan_store_kernel", "wide_scan_bwd_store_kernel",
                "scan_ck_kernel", "scan_bwd_ck_kernel", "panel_row_kernel", "panel_col_kernel",
@@ -747,48 +769,79 @@ def phase_kernels_fused() -> tuple[dict, dict]:
     probes = probe_from_stencil(stencil, qy, qx, positions[:64])  # the first 64 of the scan
     checks, rows = [], {}
 
-    # ---- the step and its adjoint, one wave and a batch (dV summed over it)
+    def props_of(shape):  # one random unit-modulus propagator per wave
+        return torch.polar(torch.ones(shape, device="cuda"),
+                           torch.as_tensor(rng.uniform(0, 6.28, shape), device="cuda", dtype=f32))
+
+    def step_cases(psi, vv, pr, g, **more):
+        """The step on both routes and its adjoint against the plain
+        versions, the adjoint's dV the same bits over two runs; returns the
+        errors by table row."""
+        errs = {}
+        want = fs.fused_slice_step_ref(psi, vv, pr, sigma)
+        for r in fs.ROUTES:
+            errs[f"fused_step[{r}]"] = check(f"fused_step[{r}]", psi.shape,
+                                             fs.fused_step(psi, vv, pr, sigma, route=r), want,
+                                             FUSED_TOL, **more)
+        back = fs.fused_step_bwd(psi, vv, g, pr, sigma)
+        again = fs.fused_step_bwd(psi, vv, g, pr, sigma)
+        errs["fused_step_bwd"] = check("fused_step_bwd", psi.shape, back,
+                                       fs.fused_step_bwd_ref(psi, vv, g, pr, sigma), FUSED_TOL,
+                                       **more)
+        if not torch.equal(back[1], again[1]):
+            raise AssertionError(f"fused_step_bwd {tuple(psi.shape)} {more}: dV differs "
+                                 "between two runs on the same inputs")
+        checks[-1]["dv_bitwise_equal_over_two_runs"] = True
+        return errs
+
+    # ---- the step on both routes and its adjoint: every size at 1, 3 and 8
+    # waves of a shared P and 3 waves of one P each (dV summed over the waves)
+    for m in fs.SIZES:
+        vm = torch.as_tensor(rng.uniform(0, 2000, (m, m)), device="cuda", dtype=f32)
+        for b, per_wave in ((1, False), (3, False), (3, True), (8, False)):
+            step_cases(cplx(b, m, m), vm, props_of((b, m, m) if per_wave else (m, m)),
+                       cplx(b, m, m), per_wave_p=per_wave)
+    # ---- config 4's potential and propagator, one wave (the table's rows)
+    # and eight
+    psi, g = cplx(n, n), cplx(n, n)
+    errs = step_cases(psi, v, prop, g, config4_v=True)
+    step_cases(cplx(8, n, n), v, prop, cplx(8, n, n), config4_v=True)
     prepared = fs.prepare_propagator(prop)
-    for shape in ((n, n), (8, n, n)):
-        psi, g = cplx(*shape), cplx(*shape)
-        step_err = check("fused_step", shape, fs.fused_step(psi, v, prop, sigma),
-                         fs.fused_slice_step_ref(psi, v, prop, sigma), FUSED_TOL)
-        bwd_err = check("fused_step_bwd", shape, fs.fused_step_bwd(psi, v, g, prop, sigma),
-                        fs.fused_step_bwd_ref(psi, v, g, prop, sigma), FUSED_TOL)
-        if len(shape) == 3:  # one propagator per wave (a tilt series)
-            props = prop * torch.polar(torch.ones(shape, device="cuda"),
-                                       torch.as_tensor(rng.uniform(0, 6.28, shape), device="cuda",
-                                                       dtype=f32))
-            check("fused_step", shape, fs.fused_step(psi, v, props, sigma),
-                  fs.fused_slice_step_ref(psi, v, props, sigma), FUSED_TOL, per_wave_p=True)
-            continue
-        plane = n * n
-        for name, err, kern, ref, nbytes, ops in (
-            ("fused_step", step_err,
-             lambda: fs.fused_step(psi, v, prop, sigma, prepared=prepared),
-             lambda: fs.fused_slice_step_ref(psi, v, prop, sigma),
-             plane * (8 + 4 + 8 + 8), 2 * fft2_ops(n) + (9 + 6) * plane),
-            ("fused_step_bwd", bwd_err,
-             lambda: fs.fused_step_bwd(psi, v, g, prop, sigma, prepared=prepared),
-             lambda: fs.fused_step_bwd_ref(psi, v, g, prop, sigma),
-             plane * (8 + 4 + 8 + 8 + 8 + 4), 2 * fft2_ops(n) + (6 + 20) * plane),
-        ):
-            t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / PEAK_OPS_PER_S[f32] * 1e3
-            rows[name] = {
-                "name": name, "route": "cuda", "source": "fdes_tpu_torch/csrc/fused_step.cu",
+    plane = n * n
+    plain = {"fused_step": lambda: fs.fused_slice_step_ref(psi, v, prop, sigma),
+             "fused_step_bwd": lambda: fs.fused_step_bwd_ref(psi, v, g, prop, sigma)}
+    # the step by route, the adjoint on its one kernel (route None)
+    kern = {"fused_step": lambda r: fs.fused_step(psi, v, prop, sigma, prepared=prepared, route=r),
+            "fused_step_bwd": lambda r: fs.fused_step_bwd(psi, v, g, prop, sigma,
+                                                          prepared=prepared)}
+    cost = {"fused_step": (plane * (8 + 4 + 8 + 8), 2 * fft2_ops(n) + (9 + 6) * plane),
+            "fused_step_bwd": (plane * (8 + 4 + 8 + 8 + 8 + 4), 2 * fft2_ops(n) + (6 + 20) * plane)}
+    own = {"fused_step": {"tile": {"row_pass_kernel": 2, "col_pass_kernel": 1},
+                          "wide": {"wide_step_kernel": 1}},
+           "fused_step_bwd": {None: {"wide_step_bwd_kernel": 1}}}
+    for name in ("fused_step", "fused_step_bwd"):
+        turns = interleaved_ms({r: (lambda r=r: kern[name](r)) for r in own[name]})[1]
+        plain_ms = time_launches(plain[name])
+        nbytes, ops = cost[name]
+        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / PEAK_OPS_PER_S[f32] * 1e3
+        for r in own[name]:
+            key = name if r is None else f"{name}[{r}]"
+            rows[key] = {
+                "name": key, "route": "cuda", "source": "fdes_tpu_torch/csrc/fused_step.cu",
                 "replaces": {"fused_step": "fdes_tpu/pallas/fused_step.py:297",
                              "fused_step_bwd": "fdes_tpu/pallas/fused_step.py:314"}[name],
-                "launches": None, "max_abs_err": err[0], "max_rel_err": err[1],
-                "ms": time_launches(kern), "plain_ms": time_launches(ref),
+                "launches": None, "max_abs_err": errs[key][0], "max_rel_err": errs[key][1],
+                "ms": statistics.median(turns[r]), "ms_in_turns": turns[r], "plain_ms": plain_ms,
                 "bound_ms": max(t_bytes, t_ops),
                 "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-                "library_ms": None, "shape": list(shape), "dtype": "complex64",
-                "bytes": nbytes, "operations": ops,
-                "kernels_per_call": expect_own_kernels(
-                    name, kern,
-                    {"row_pass_kernel": 2, "col_pass_kernel": 1} if name == "fused_step" else
-                    {"row_pass_kernel": 1, "col_pass_kernel": 1, "bwd_tail_kernel": 1}),
+                "library_ms": None, "shape": [n, n], "dtype": "complex64",
+                "bytes": nbytes, "operations": ops, "step_route": r,
+                "kernels_per_call": expect_own_kernels(key, lambda r=r: kern[name](r),
+                                                       own[name][r]),
             }
+            if r != "tile":
+                rows[key]["kernel"] = fs.wide_step_info(n, "step" if name == "fused_step"
+                                                        else "step_bwd")
 
     # ---- the scan: small cases at every size, shared and per-wave V and P
     for m, b, ns in ((128, 2, 3), (1024, 2, 3), (256, 2, 3), (n, 16, 8)):
@@ -879,8 +932,9 @@ def phase_kernels_fused() -> tuple[dict, dict]:
         "bytes": nbytes, "operations": ops, "rel_norm_vs_complex128": f64_err,
         "kernel": fsc.scan_kernel_info(n),
         "kernels_per_call": expect_own_kernels("fused_scan", scan(psi0), {"scan_kernel": 1}),
-        # the same rollout as S calls of fused_step (3 S launches, one rollout
-        # per sleep: the launch queue holds about a thousand), and other batches
+        # the same rollout as S calls of fused_step (on the route STEP_ROUTE
+        # picks; one rollout per sleep: the launch queue holds about a
+        # thousand), and other batches
         "ms_as_fused_step_loop": statistics.median(
             time_launches(step_by_step, n=1, warmup=0) for _ in range(5)),
         "ms_64_waves": time_launches(scan(probes), n=5, warmup=1),
@@ -898,13 +952,65 @@ def phase_kernels_fused() -> tuple[dict, dict]:
         "ms_1_wave_64_slices": time_launches(scan(psi0[:1], v_stack[:64], "cluster"), n=10,
                                              warmup=2),
     }
+    t_rows = time.perf_counter()
     route_rows = scan_route_rows(probes, v_stack, prop, sigma, rng)
+    t_step_rows = time.perf_counter()
+    step_rows = step_route_rows(checks, sigma)
+    t_end = time.perf_counter()
     line = {"phase": "kernels_fused", "checks": checks, "fused_scan_vs_complex128": f64_err,
             "cluster_kernel": {m: fsc.cluster_kernel_info(m) for m in fsc.CLUSTER_CTAS},
             "scan_kernel": {m: fsc.scan_kernel_info(m) for m in fs.SIZES},
+            "wide_step_kernel": {m: {k: fs.wide_step_info(m, k) for k in fs.KERNELS}
+                                 for m in fs.SIZES},
             "route_rows": route_rows,
-            "route_is_the_faster": all(r["route_is_the_faster"] for r in route_rows)}
+            "route_is_the_faster": all(r["route_is_the_faster"] for r in route_rows),
+            "step_route_rows": step_rows,
+            "step_route_is_the_faster": all(r["route_is_the_faster"] for r in step_rows),
+            # the phase's two sets of route rows, host seconds each
+            "seconds_route_rows": {"scan": t_step_rows - t_rows, "step": t_end - t_step_rows}}
     return line, rows
+
+
+def step_route_rows(checks: list, sigma: float) -> list[dict]:
+    """Both routes of the step timed in turns (interleaved_ms: three
+    readings of 10 calls each) at every row of fused_step.STEP_ROUTE (128^2
+    to 1024^2, 1 to 64 waves; V, psi, g and a shared P random, made on the
+    card from a seed), the wide step and the adjoint held to the plain
+    versions there; each row gives the step's bound (its bytes: psi, out
+    and the shared V and P, against its operations), names the faster
+    route, and whether the table picks it."""
+    from fdes_tpu_torch.kernels import fused_step as fs
+
+    card = CardInputs(18)
+    f32 = torch.float32
+    rows = []
+    for m, table in fs.STEP_ROUTE.items():
+        v = card.real(m, m)
+        pr = card.phases(m, m)
+        pp = fs.prepare_propagator(pr)
+        plane = m * m
+        for b in sorted(table):
+            psi, g = card.cplx(b, m, m), card.cplx(b, m, m)
+            check_kernel(checks, "fused_step[wide]", (b, m, m),
+                         fs.fused_step(psi, v, pr, sigma, prepared=pp, route="wide"),
+                         fs.fused_slice_step_ref(psi, v, pr, sigma), FUSED_TOL, route_row=True)
+            check_kernel(checks, "fused_step_bwd", (b, m, m),
+                         fs.fused_step_bwd(psi, v, g, pr, sigma, prepared=pp),
+                         fs.fused_step_bwd_ref(psi, v, g, pr, sigma), FUSED_TOL, route_row=True)
+            ms = interleaved_ms({r: (lambda r=r: fs.fused_step(psi, v, pr, sigma, prepared=pp,
+                                                               route=r))
+                                 for r in fs.ROUTES}, n=10, warmup=2)[1]
+            t_bytes = plane * (b * (8 + 8) + 4 + 8) / HBM_BYTES_PER_S * 1e3
+            t_ops = b * (2 * fft2_ops(m) + 15 * plane) / PEAK_OPS_PER_S[f32] * 1e3
+            faster = min(ms, key=lambda r: statistics.median(ms[r]))
+            route = fs.step_route(m, b)
+            rows.append({"n": m, "waves": b, "ms": ms,
+                         "bound": {"ms": max(t_bytes, t_ops),
+                                   "by": "bytes" if t_bytes >= t_ops else "operations"},
+                         "faster": faster, "route": route, "route_is_the_faster": route == faster})
+            del psi, g
+        torch.cuda.empty_cache()
+    return rows
 
 
 def scan_route_rows(probes, v_stack, prop, sigma, rng) -> list[dict]:
@@ -2422,6 +2528,154 @@ def phase_absorptive(tmp: str, gpu: str) -> tuple[dict, dict]:
     return line, launches
 
 
+@contextlib.contextmanager
+def step_route_all(route: str):
+    """fused_step.STEP_ROUTE with every entry set to ``route``, restored
+    after: a path on the fused step timed on one route against the other."""
+    from fdes_tpu_torch.kernels import fused_step as fs
+
+    saved = {n: dict(rows) for n, rows in fs.STEP_ROUTE.items()}
+    try:
+        for rows in fs.STEP_ROUTE.values():
+            for b in rows:
+                rows[b] = route
+        yield
+    finally:
+        fs.STEP_ROUTE.update(saved)
+
+
+def step_counters(b: int, n: int = 512, steps: int = 0, bwd: int = 0,
+                  route: str | None = None) -> dict[str, int]:
+    """The launch counts that ``steps`` fused steps and ``bwd`` adjoints of
+    b waves at n^2 add, the steps on the kernel STEP_ROUTE picks (or on
+    ``route``)."""
+    from fdes_tpu_torch.kernels.fused_step import step_route
+
+    out = {}
+    if steps:
+        out[f"fused_step[{route or step_route(n, b)}]"] = steps
+    if bwd:
+        out["fused_step_bwd"] = bwd
+    return out
+
+
+def unrouted_step_kernels() -> tuple[str, ...]:
+    """The step's table rows ("fused_step[route]") whose route STEP_ROUTE
+    picks at no shape of the main path (512^2, one wave and the 4-tilt
+    series): on no path of this run, exempt like OFF_PATH; their rows keep
+    their times."""
+    routed = {}
+    for b in (1, 4):
+        routed.update(step_counters(b, steps=1))
+    return tuple(f"fused_step[{r}]" for r in ("tile", "wide") if f"fused_step[{r}]" not in routed)
+
+
+#: config 2 streamed: mode forward with the potential built slice by slice
+#: (512^2, 64 slices, one wave; forward mode reads no CTF)
+STREAMED = ("--mode", "forward", "--set", "sim.streamed=true")
+
+
+def streamed_rollout(settings: list[str], engine: str = "auto"):
+    """(rollout, sim) of config 2 streamed with ``settings``: the rollout
+    that cli.main runs on ``engine`` (cli._streamed_step's engine), alone,
+    on the card."""
+    from fdes_tpu_torch import cli
+    from fdes_tpu_torch.config import apply_overrides, load_config
+    from fdes_tpu_torch.pipeline import setup, streamed_inputs
+    from fdes_tpu_torch.propagate import make_slice_step, multislice_streamed
+
+    cfg = apply_overrides(load_config(CONFIG), [*settings, "mode=forward", "sim.streamed=true",
+                                                f"sim.engine={engine}"])
+    sim = setup(cfg, device="cuda")
+    atoms, ff = streamed_inputs(sim)
+    waves = sim.psi0_stack.shape[0] if sim.psi0_stack is not None else 1
+    step = cli._streamed_step(cfg, sim, make_slice_step(
+        engine, shape=sim.grid.shape, dtype=sim.cdtype, grad=False, batch=waves))
+    psi0, prop = ((sim.psi0_stack, sim.prop_stack) if sim.psi0_stack is not None
+                  else (sim.psi0, sim.propagator))
+
+    def rollout():
+        with torch.no_grad():
+            return multislice_streamed(psi0, atoms, ff, prop, sim.sigma, shape=sim.grid.shape,
+                                       pixel=(sim.grid.py, sim.grid.px), slice_step=step)
+
+    return rollout, sim
+
+
+def step_routes_in_turns(fn) -> dict[str, dict[str, list[float]]]:
+    """Device busy ms (torch.profiler's summed kernels) and wall ms (host
+    clock around a synchronised call) of fn with the fused step on each
+    route, in turns (tile, wide, wide, tile)."""
+    out = {"busy_ms": {"tile": [], "wide": []}, "wall_ms": {"tile": [], "wide": []}}
+    for route in ("tile", "wide", "wide", "tile"):
+        with step_route_all(route):
+            fn()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            out["wall_ms"][route].append((time.perf_counter() - t0) * 1e3)
+            out["busy_ms"][route].append(device_busy_ms(fn)[0])
+    return out
+
+
+def phase_streamed(tmp: str, gpu: str) -> tuple[dict, dict]:
+    """Config 2 through cli.main --mode forward with sim.streamed=true (the
+    potential built slice by slice): on the defaults ("auto" resolves to
+    the per-slice fused step there: 64 launches of row 6 on the kernel
+    STEP_ROUTE picks, asserted) and on "xla", then in complex128 on "xla";
+    the exit wave against xla's (GATE, 64 slices) and the complex128 run
+    (LONG_ROLLOUT_TOL); setup, run, device busy time, idle share and peak
+    memory; the rollout alone with the step on each route, in turns; the
+    same for a 4-tilt series (four waves, one propagator each) against
+    xla's.  Returns (line, launches of the one-wave and 4-tilt runs on
+    auto)."""
+    zero = dict.fromkeys(launch_counts(), 0)
+    nslices = 64
+    # the kernels and cuFFT's plans loaded first, on a two-slice run per engine
+    for e in ("auto", "xla"):
+        streamed_cli_run(tmp, f"s2_warm_{e}", *STREAMED, "--set", "sim.nslices=2", "--set",
+                         f"sim.engine={e}")
+    tilt = ("--set", f"sim.tilt_series_rad={TILTS4}")
+    runs, waves, counts = {}, {}, {}
+    for tag, extra in (("auto", ()), ("xla", ("--set", "sim.engine=xla")),
+                       ("xla_c128", ("--set", "sim.engine=xla", "--set", "sim.dtype=complex128")),
+                       ("tilt4_auto", tilt), ("tilt4_xla", (*tilt, "--set", "sim.engine=xla"))):
+        waves[tag], runs[tag], counts[tag] = streamed_cli_run(tmp, f"s2_{tag}", *STREAMED, *extra)
+    for tag, b in (("auto", 1), ("tilt4_auto", 4)):
+        want = {**zero, **step_counters(b, steps=nslices)}
+        if counts[tag] != want:
+            raise AssertionError(f"streamed {tag}: launches {runs[tag]['launches']}, expected "
+                                 f"{ {k: c for k, c in want.items() if c} }")
+    w = {tag: torch.as_tensor(a, device="cuda") for tag, a in waves.items()}
+    err = {"auto_vs_xla": rel_norm(w["auto"], w["xla"]),
+           "tilt4_auto_vs_xla": rel_norm(w["tilt4_auto"], w["tilt4_xla"]),
+           "auto_vs_complex128": rel_norm(w["auto"], w["xla_c128"]),
+           "xla_vs_complex128": rel_norm(w["xla"], w["xla_c128"])}
+    by_route = {}
+    for tag, settings in (("auto", []), ("tilt4_auto", [f"sim.tilt_series_rad={TILTS4}"])):
+        rollout, sim = streamed_rollout(settings)
+        busy, n_kernels = device_busy_ms(rollout)
+        runs[tag].update(device_busy_ms=busy, kernels=n_kernels,
+                         device_idle_share=max(0.0, 1.0 - busy / (runs[tag]["run_s"] * 1e3)),
+                         own_kernels=own_kernels(device_kernels(rollout)))
+        by_route[tag] = step_routes_in_turns(rollout)
+        del rollout, sim
+        torch.cuda.empty_cache()
+    line = {"phase": "streamed", "config": "examples/si110_hrtem.toml " + " ".join(STREAMED[1::2]),
+            "slices": nslices, "runs": runs, "rel_err": err,
+            "tol_vs_xla": GATE, "tol_vs_complex128": LONG_ROLLOUT_TOL,
+            "step_route": {b: step_counters(b, steps=1) for b in (1, 4)},
+            "rollout_by_route": by_route, "gpu": gpu}
+    if w["auto"].shape != (512, 512) or w["tilt4_auto"].shape != (4, 512, 512):
+        raise AssertionError(f"streamed exit waves {tuple(w['auto'].shape)}, "
+                             f"{tuple(w['tilt4_auto'].shape)}")
+    if not (err["auto_vs_xla"] <= GATE and err["tilt4_auto_vs_xla"] <= GATE
+            and err["auto_vs_complex128"] <= LONG_ROLLOUT_TOL):
+        raise AssertionError(f"streamed exit waves: {err}")
+    return line, {"auto": counts["auto"], "tilt4": counts["tilt4_auto"]}
+
+
 def device_busy_ms(fn) -> tuple[float, int]:
     """(summed duration in ms, count) of the CUDA kernels of one call of fn:
     the device's busy time, free of host gaps."""
@@ -2498,8 +2752,7 @@ def phase_grad(gpu: str) -> tuple[dict, dict]:
                    {**zero, "transmit": s, "cmul": 2 * s, "transmit_bwd": s}),
         "xla_remat": ("xla", chunk, v_real, zero),
         # forward and recompute on the fused step, backward on its adjoint
-        "fused_remat": ("fused", chunk, v_real,
-                        {**zero, "fused_step": 2 * s, "fused_step_bwd": s}),
+        "fused_remat": ("fused", chunk, v_real, {**zero, **step_counters(1, steps=2 * s, bwd=s)}),
         "abs_pallas_remat": ("pallas", chunk, v_abs,
                              {**zero, "transmit_abs": 2 * s, "cmul": 3 * s,
                               "transmit_abs_bwd": s}),
@@ -2562,6 +2815,26 @@ def phase_grad(gpu: str) -> tuple[dict, dict]:
         for e in ("pallas", "xla", "fused", "fscan", "fscan_seg", "fscan_seg", "fscan", "fused",
                   "xla", "pallas")
     ]
+    # the fused engine's gradient with the step on each route, in turns; dV
+    # and the loss held to xla's as above
+    by_route = {"tile": [], "wide": []}
+    for route in ("tile", "wide", "wide", "tile"):
+        with step_route_all(route):
+            run = grad_fn("fused", chunk, v_real)
+            reset_launches()
+            loss, dv = run()
+            torch.cuda.synchronize()
+            counted = {k: c for k, c in launch_counts().items() if c}
+            t = grad_times(run, f"fused[{route}]")
+            t["launches"] = counted
+            t["dv_vs_xla"] = rel_norm(dv, out["xla_remat"][1])
+            t["loss_vs_xla"] = rel_norm(loss, out["xla_remat"][0])
+            by_route[route].append(t)
+        if not max(t["dv_vs_xla"], t["loss_vs_xla"]) <= GATE:
+            raise AssertionError(f"grad fused on route {route}: {t}")
+        if t["launches"] != step_counters(1, steps=2 * s, bwd=s, route=route):
+            raise AssertionError(f"grad fused on route {route}: launches {t['launches']}")
+    line["fused_by_route"] = by_route
 
     # the per-slice loop hands each slice of V over once: no fill, add or
     # copy of V's size in one pallas evaluation, with and without remat
@@ -2667,12 +2940,17 @@ def phase_invert(tmp: str, gpu: str, grad_busy_ms: dict) -> tuple[dict, dict]:
 
     cfg = load_config(CONFIG)
     args = ("--mode", "invert", "--set", f"recon.iterations={INVERT_ITERS}")
-    engines = ("pallas", "xla", "fused", "fscan", "auto")
+    # "fused" runs with the step on each route in turns: fused (its table's
+    # route, wide), fused_tile, fused_tile_2, fused_2
+    engines = ("pallas", "xla", "fused", "fused_tile", "fscan", "auto", "fused_tile_2",
+               "fused_2")
     outs, timings, launches, losses, v_rec = {}, {}, {}, {}, {}
     for e in engines:
         reset_launches()
-        engine = () if e == "auto" else ("--set", f"sim.engine={e}")  # auto: the file's default
-        outs[e], timings[e] = run_cli(tmp, f"inv_{e}", *args, *engine)
+        base = e.removesuffix("_2").removesuffix("_tile")
+        engine = () if e == "auto" else ("--set", f"sim.engine={base}")  # auto: the default
+        with step_route_all("tile") if "_tile" in e else contextlib.nullcontext():
+            outs[e], timings[e] = run_cli(tmp, f"inv_{e}", *args, *engine)
         launches[e] = launch_counts()
         losses[e] = read_losses(outs[e])
         v_rec[e] = np.load(os.path.join(outs[e], "reconstructed.npy"))
@@ -2685,12 +2963,14 @@ def phase_invert(tmp: str, gpu: str, grad_busy_ms: dict) -> tuple[dict, dict]:
         "pallas": {**zero, "transmit": s + n * 2 * s, "cmul": s + n * 3 * s,
                    "transmit_bwd": n * s},
         "xla": zero,
-        "fused": {**zero, "fused_step": s + n * 2 * s, "fused_step_bwd": n * s},
+        "fused": {**zero, **step_counters(1, steps=s + n * 2 * s, bwd=n * s)},
+        "fused_tile": {**zero, **step_counters(1, steps=s + n * 2 * s, bwd=n * s, route="tile")},
         # the self-test series in one launch (nothing asks for a gradient),
         # then per iteration one store-forward and one backward launch
         "fscan": {**zero, scan_wrapper(1): 1, **store_wrappers(1, calls=n)},
     }
     expect["auto"] = expect["fscan"]
+    expect["fused_2"], expect["fused_tile_2"] = expect["fused"], expect["fused_tile"]
     first_err = {e: abs(losses[e][0] - losses["xla"][0]) / abs(losses["xla"][0])
                  for e in engines}
     from fdes_tpu_torch.kernels.adjoint_scan import store_route
@@ -2704,6 +2984,10 @@ def phase_invert(tmp: str, gpu: str, grad_busy_ms: dict) -> tuple[dict, dict]:
             e: float(np.linalg.norm(v_rec[e] - v_rec["xla"]) / np.linalg.norm(v_rec["xla"]))
             for e in engines},
         "timing": timings,
+        # the 20 iterations on "fused" with the step on each route, in turns
+        "fused_median_step_ms_by_route": {
+            "wide": [timings[e]["median_step_s"] * 1e3 for e in ("fused", "fused_2")],
+            "tile": [timings[e]["median_step_s"] * 1e3 for e in ("fused_tile", "fused_tile_2")]},
         # the busy time of one gradient evaluation (phase grad) against the
         # steady-state wall of one iteration
         "device_idle_share": {
@@ -4308,8 +4592,11 @@ ROW_PHASES = {
     "transmit_abs": ("absorptive", "invert_absorptive", "grad_absorptive"),
     "transmit_bwd": ("invert", "grad"),
     "transmit_abs_bwd": ("invert_absorptive", "grad_absorptive"),
-    "fused_step": ("grad_fused",),
-    "fused_step_bwd": ("grad_fused",),
+    # the step runs one of two kernels, by the route table, counted as
+    # "fused_step[route]"
+    **{f"fused_step[{r}]": ("streamed", "streamed_tilt4", "grad_fused", "invert_fused")
+       for r in ("tile", "wide")},
+    "fused_step_bwd": ("grad_fused", "invert_fused"),
     # the whole-loop forward runs one of two kernels, by the route table
     "fused_scan": ("stem", "stem_auto", "hrtem_auto"),
     "cluster_scan": ("stem", "stem_auto", "hrtem_auto"),
@@ -4419,6 +4706,10 @@ def main(argv=None) -> int:
         if "absorptive" in phases:
             line, path_launches["absorptive"] = timed(phase_absorptive, tmp, gpu)
             emit(line)
+        if "streamed" in phases:
+            line, by_run = timed(phase_streamed, tmp, gpu)
+            path_launches.update(streamed=by_run["auto"], streamed_tilt4=by_run["tilt4"])
+            emit(line)
         if "grad" in phases:
             line, by_case = timed(phase_grad, gpu)
             path_launches.update(grad=by_case["pallas_remat"], grad_fused=by_case["fused_remat"],
@@ -4431,7 +4722,7 @@ def main(argv=None) -> int:
         if "invert" in phases:
             line, by_engine = timed(phase_invert, tmp, gpu, grad_busy_ms)
             path_launches.update(invert=by_engine["pallas"], invert_fscan=by_engine["fscan"],
-                                 invert_auto=by_engine["auto"])
+                                 invert_auto=by_engine["auto"], invert_fused=by_engine["fused"])
             emit(line)
         if "invert_absorptive" in phases:
             line, path_launches["invert_absorptive"] = timed(phase_invert_absorptive, tmp, gpu)
@@ -4474,7 +4765,8 @@ def main(argv=None) -> int:
         if ph is not None:
             row["launches"], row["launches_phase"] = path_launches[ph][name], ph
     if set(PHASES) <= set(phases):
-        off_path = OFF_PATH + unrouted_store_kernels() + unrouted_panel_kernels()
+        off_path = (OFF_PATH + unrouted_store_kernels() + unrouted_panel_kernels()
+                    + unrouted_step_kernels())
         idle = [name for name, row in rows.items()
                 if name not in off_path and not row["launches"]]
         if idle:

@@ -151,25 +151,6 @@ __device__ void forward_sweep(cg::grid_group& grid, float2* tile, const float2* 
   }
 }
 
-// dv = the sum of the ngroups partial planes at part, in the order 0, 1, ...
-template <int LOG2N>
-__device__ void reduce_partials(const float* part, float* dv, int ngroups) {
-  constexpr int64_t kPlane = int64_t{1} << (2 * LOG2N);
-  const int64_t stride = static_cast<int64_t>(gridDim.x) * kThreads;
-  for (int64_t i = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x; i < kPlane / 4;
-       i += stride) {
-    float4 sum = reinterpret_cast<const float4*>(part)[i];
-    for (int g = 1; g < ngroups; ++g) {
-      const float4 p = reinterpret_cast<const float4*>(part + g * kPlane)[i];
-      sum.x += p.x;
-      sum.y += p.y;
-      sum.z += p.z;
-      sum.w += p.w;
-    }
-    reinterpret_cast<float4*>(dv)[i] = sum;
-  }
-}
-
 struct GroupArgs {
   float* part;      // (ngroups, N, N) partial dV planes; unused when ngroups == 1
   int ngroups;      // wave groups of the backward row passes
@@ -315,64 +296,8 @@ __global__ void __launch_bounds__(kThreads) scan_bwd_ck_kernel(BwdArgs a) {
 // ---- the wide kernels: rows 9 and 10 redesigned ------------------------------
 //
 // Row items are one row a pair of warps, column items four columns a block
-// (fused_fft.cuh, "the wide transform").  Item u of a row pass goes to block
-// u % G, pair (u / G) % 4 of the G blocks, so that the rows of one wave
-// spread over every block before any block takes a second row per pair.
-
-// One row of the forward sweep in a pair: src (the bit-reversed x spectrum
-// when inverse, else natural psi0) -> inverse x -> times t = exp(i sigma v),
-// stored to s -> forward x -> dst.  v == nullptr: the last row pass (the exit
-// wave, natural order, into dst).
-template <int LOG2N>
-__device__ __forceinline__ void wide_fwd_row(const float2* tw, const float2* src, float2* dst,
-                                             float2* s, const float* __restrict__ v, float sigma,
-                                             bool inverse, const WidePlace& t) {
-  using W = Wide<LOG2N>;
-  float2 x[W::R];
-  float vv[W::R];
-  wide_load_row<LOG2N>(x, src, t);
-  if (v != nullptr) {
-    // in flight with the row: loaded beside sincosf (a branch each), one
-    // load would wait for the other
-#pragma unroll
-    for (int m = 0; m < W::R; ++m) vv[m] = __ldg(v + W::H * t.w + t.lane + 32 * m);
-  }
-  if (inverse) wide_fft_inverse<LOG2N>(x, tw, t);
-  if (v != nullptr) {
-#pragma unroll
-    for (int m = 0; m < W::R; ++m) x[m] = transmit(x[m], sigma * vv[m]);
-    wide_store_row<LOG2N>(x, s, t);
-    wide_fft_forward<LOG2N>(x, tw, t);
-  }
-  wide_store_row<LOG2N>(x, dst, t);
-}
-
-// One wave's row of the reverse sweep in a pair: src (the bit-reversed x
-// spectrum of bar) -> inverse x: bar_s; acc += Im(bar_s * conj(s)); times
-// conj(t), t = exp(i sigma v) (vv: this thread's potentials of the row) ->
-// forward x (forward), or natural (dpsi0) -> dst.  Register m of the thread
-// holds element (N/2) w + l + 32 m of the row throughout.
-template <int LOG2N>
-__device__ __forceinline__ void wide_bwd_row(const float2* tw, const float2* src, float2* dst,
-                                             const float2* s, const float (&vv)[Wide<LOG2N>::R],
-                                             float sigma, bool forward,
-                                             float (&acc)[Wide<LOG2N>::R], const WidePlace& t) {
-  using W = Wide<LOG2N>;
-  float2 x[W::R];
-  float2 u[W::R];  // s, in flight with the row
-  wide_load_row<LOG2N>(x, src, t);
-  wide_load_row<LOG2N>(u, s, t);
-  wide_fft_inverse<LOG2N>(x, tw, t);
-#pragma unroll
-  for (int m = 0; m < W::R; ++m) {
-    acc[m] += x[m].y * u[m].x - x[m].x * u[m].y;
-    float sn, cs;
-    sincosf(sigma * vv[m], &sn, &cs);
-    x[m] = cmul_conj(x[m], make_float2(cs, sn));
-  }
-  if (forward) wide_fft_forward<LOG2N>(x, tw, t);
-  wide_store_row<LOG2N>(x, dst, t);
-}
+// (fused_fft.cuh, "the wide transform"); the row functions wide_fwd_row and
+// wide_bwd_row are fused_fft.cuh's, shared with fused_step.cu's step kernels.
 
 // The store forward (row 9): scan_store_kernel's function, S slices of two
 // passes and two grid barriers, then the last inverse row pass.
@@ -507,19 +432,6 @@ __global__ void __launch_bounds__(kThreads) grid_barrier_kernel(unsigned int* co
     }
     __syncthreads();
   }
-}
-
-template <typename Args>
-int launch_cooperative(const void* kernel, int device, Args a, int64_t nwaves,
-                       int64_t tiles_per_wave, cudaStream_t stream) {
-  int resident = 0;
-  int err = resident_blocks_of(kernel, device, &resident);
-  if (err != cudaSuccess) return err;
-  if (resident < 1) return cudaErrorLaunchOutOfResources;
-  const int64_t ntiles = nwaves * tiles_per_wave;
-  const int blocks = static_cast<int>(ntiles < resident ? ntiles : resident);
-  void* args[] = {&a};
-  return cudaLaunchCooperativeKernel(kernel, dim3(blocks), dim3(kThreads), args, 0, stream);
 }
 
 template <int LOG2N>

@@ -15,7 +15,11 @@
 // order.  fused_step.cu's head comment has the whole design.  The end of the
 // file holds the in-cluster transform of fused_step.cu's cluster_scan_kernel,
 // which keeps a whole 128^2 to 512^2 plane in a thread-block cluster's shared
-// memory instead of passing it through global memory between tiles.
+// memory instead of passing it through global memory between tiles.  "The
+// wide transform" holds one 1-D transform in the registers of a pair of
+// warps; its row functions (wide_fwd_row, wide_bwd_row), the ordered sum of
+// partial dV planes and the cooperative launch serve adjoint_scan.cu's wide
+// store pair and fused_step.cu's wide step and adjoint alike.
 //
 // Everything here lives in an unnamed namespace: each library that includes
 // the header compiles its own copy.
@@ -833,6 +837,98 @@ __device__ void wide_col_item(float2* tile, const float2* tw, float2* plane, int
   __syncthreads();  // the next item reuses the tile
 }
 
+// The row items of the wide kernels (adjoint_scan.cu's store pair, rows 9
+// and 10; fused_step.cu's step and its adjoint, rows 6 and 7).  Item u of a
+// row pass goes to block u % G, pair (u / G) % 4 of the G blocks, so that
+// the rows of one wave spread over every block before any block takes a
+// second row per pair.
+
+// One row of a forward pass in a pair: src (the bit-reversed x spectrum
+// when inverse, else natural psi) -> inverse x -> times t = exp(i sigma v),
+// stored to s (STORE_S; the store forward) -> forward x -> dst.  v ==
+// nullptr: the last row pass (natural order, into dst).
+template <int LOG2N, bool STORE_S = true>
+__device__ __forceinline__ void wide_fwd_row(const float2* tw, const float2* src, float2* dst,
+                                             float2* s, const float* __restrict__ v, float sigma,
+                                             bool inverse, const WidePlace& t) {
+  using W = Wide<LOG2N>;
+  float2 x[W::R];
+  float vv[W::R];
+  wide_load_row<LOG2N>(x, src, t);
+  if (v != nullptr) {
+    // in flight with the row: loaded beside sincosf (a branch each), one
+    // load would wait for the other
+#pragma unroll
+    for (int m = 0; m < W::R; ++m) vv[m] = __ldg(v + W::H * t.w + t.lane + 32 * m);
+  }
+  if (inverse) wide_fft_inverse<LOG2N>(x, tw, t);
+  if (v != nullptr) {
+#pragma unroll
+    for (int m = 0; m < W::R; ++m) x[m] = transmit(x[m], sigma * vv[m]);
+    if constexpr (STORE_S) wide_store_row<LOG2N>(x, s, t);
+    wide_fft_forward<LOG2N>(x, tw, t);
+  }
+  wide_store_row<LOG2N>(x, dst, t);
+}
+
+// One wave's row of a reverse pass in a pair: src (the bit-reversed x
+// spectrum of bar) -> inverse x: bar_s; acc += Im(bar_s * conj(s)); times
+// conj(t), t = exp(i sigma v) (vv: this thread's potentials of the row) ->
+// forward x (forward), or natural (dpsi) -> dst.  Register m of the thread
+// holds element (N/2) w + l + 32 m of the row throughout.  s points at the
+// row of s = t psi (the store pair), or with FROM_PSI at psi's row, and s
+// is formed here (the step's adjoint).
+template <int LOG2N, bool FROM_PSI = false>
+__device__ __forceinline__ void wide_bwd_row(const float2* tw, const float2* src, float2* dst,
+                                             const float2* s, const float (&vv)[Wide<LOG2N>::R],
+                                             float sigma, bool forward,
+                                             float (&acc)[Wide<LOG2N>::R], const WidePlace& t) {
+  using W = Wide<LOG2N>;
+  float2 x[W::R];
+  float2 u[W::R];  // s or psi, in flight with the row
+  wide_load_row<LOG2N>(x, src, t);
+  wide_load_row<LOG2N>(u, s, t);
+  wide_fft_inverse<LOG2N>(x, tw, t);
+#pragma unroll
+  for (int m = 0; m < W::R; ++m) {
+    if constexpr (FROM_PSI) {
+      float sn, cs;
+      sincosf(sigma * vv[m], &sn, &cs);
+      const float2 tm = make_float2(cs, sn);
+      u[m] = cmul(u[m], tm);
+      acc[m] += x[m].y * u[m].x - x[m].x * u[m].y;
+      x[m] = cmul_conj(x[m], tm);
+    } else {
+      acc[m] += x[m].y * u[m].x - x[m].x * u[m].y;
+      float sn, cs;
+      sincosf(sigma * vv[m], &sn, &cs);
+      x[m] = cmul_conj(x[m], make_float2(cs, sn));
+    }
+  }
+  if (forward) wide_fft_forward<LOG2N>(x, tw, t);
+  wide_store_row<LOG2N>(x, dst, t);
+}
+
+// dv = the sum of the ngroups partial planes at part, in the order 0, 1, ...
+// (a reverse pass's wave groups, after the grid barrier that follows it).
+template <int LOG2N>
+__device__ void reduce_partials(const float* part, float* dv, int ngroups) {
+  constexpr int64_t kPlane = int64_t{1} << (2 * LOG2N);
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * kThreads;
+  for (int64_t i = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x; i < kPlane / 4;
+       i += stride) {
+    float4 sum = reinterpret_cast<const float4*>(part)[i];
+    for (int g = 1; g < ngroups; ++g) {
+      const float4 p = reinterpret_cast<const float4*>(part + g * kPlane)[i];
+      sum.x += p.x;
+      sum.y += p.y;
+      sum.z += p.z;
+      sum.w += p.w;
+    }
+    reinterpret_cast<float4*>(dv)[i] = sum;
+  }
+}
+
 // Blocks of `kernel` (`threads` a block, `bytes` of dynamic shared memory;
 // a cooperative kernel's defaults) that can be resident at once on this device.
 inline int resident_blocks_of(const void* kernel, int device, int* blocks, int threads = kThreads,
@@ -846,6 +942,22 @@ inline int resident_blocks_of(const void* kernel, int device, int* blocks, int t
   if (err != cudaSuccess) return err;
   *blocks = per_sm * sms;
   return cudaSuccess;
+}
+
+// One cooperative launch of `kernel` (kThreads a block, its one argument a)
+// on min(resident blocks, nwaves * tiles_per_wave) blocks.  A launch the card
+// refuses returns its error; nothing else runs in its place.
+template <typename Args>
+int launch_cooperative(const void* kernel, int device, Args a, int64_t nwaves,
+                       int64_t tiles_per_wave, cudaStream_t stream) {
+  int resident = 0;
+  int err = resident_blocks_of(kernel, device, &resident);
+  if (err != cudaSuccess) return err;
+  if (resident < 1) return cudaErrorLaunchOutOfResources;
+  const int64_t ntiles = nwaves * tiles_per_wave;
+  const int blocks = static_cast<int>(ntiles < resident ? ntiles : resident);
+  void* args[] = {&a};
+  return cudaLaunchCooperativeKernel(kernel, dim3(blocks), dim3(kThreads), args, 0, stream);
 }
 
 }  // namespace

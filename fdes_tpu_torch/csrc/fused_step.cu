@@ -38,20 +38,41 @@
 // float32, once per block; the library is built without --use_fast_math.
 //
 // The adjoint (PyTorch's convention: g is dL/dRe + i dL/dIm of the output):
-//   bar_s = IFFT2[ conj(P) * FFT2[ g ] ]   (the same passes with conj(P)),
+//   bar_s = IFFT2[ conj(P) * FFT2[ g ] ],
 //   dpsi = bar_s * conj(t),   dV = sigma * Im(bar_s * conj(t * psi)),
-// dV summed over the waves that share V, in registers, by the block that owns
-// the rows: no atomics.
+// dV summed over the waves that share V, in registers, by the pair of warps
+// that owns the row: no atomics.
 //
 // Bounds at 512^2 complex64 (H100 SXM: 3.35 TB/s, 67 TFLOP/s FP32): one step
 // moves psi in, V, P, psi out = 7 MiB, 2.2 us by bytes, against 0.75 us for
 // its ~50 MFLOP, so the step is bound by bytes.  In the scan only V_j is new
 // per slice (1 MiB, shared by the waves), so a wave-slice is bound by its
 // operations, 0.75 us.  scan_kernel is far from either (measured on an H100
-// 80GB HBM3 at 700 W by chip_smoke.py: 29 us per step at one wave, 7.4 us per
-// wave-slice in a 16-wave scan): radix-2 stages through shared memory, panels
-// of 8 columns (64-byte rows), two round trips through L2 per slice and two
-// grid-wide barriers per slice.
+// 80GB HBM3 at 700 W by chip_smoke.py: 7.4 us per wave-slice in a 16-wave
+// scan): radix-2 stages through shared memory, panels of 8 columns (64-byte
+// rows), two round trips through L2 per slice and two grid-wide barriers
+// per slice.
+//
+// The step runs on one of two routes, picked by
+// kernels/fused_step.STEP_ROUTE from H100 rows before the launch:
+//  * "tile": three ordinary launches of the tile passes (row pass, column
+//    pass, row pass).  One block a 4,096-element tile gives one wave 4, 16,
+//    64 and 256 blocks at 128^2 to 1024^2: 28.8 us at one 512^2 wave.  It
+//    keeps the rows where the wide kernel's second round of column items
+//    costs more than two launches (PERF.md section 6).
+//  * "wide" (wide_step_kernel): one cooperative launch on the wide transform
+//    of fused_fft.cuh, the store pair's design (adjoint_scan.cu) at one slice
+//    without the store of s: every resident block, a pair of warps a row and
+//    a block four columns, the 1-D transforms in registers with two
+//    exchanges, three phases between two grid barriers.  18.0 us at one
+//    512^2 wave, in turns with the tile route (80 registers, 3 blocks an SM).
+// The adjoint has one kernel, wide_step_bwd_kernel, of the same design: its
+// last row phase spreads the rows of wave groups over the grid (V's row
+// loaded once for the group, dV summed in registers, partial planes added in
+// a fixed order after one more barrier); 17.9 us at one 512^2 wave (128
+// registers, 2 blocks an SM).  Its tile form (a row pass, a column pass and
+// a tail kernel that walked the waves in turn on one wave's blocks) won no
+// row that mattered and was removed; PERF.md keeps its times.
 //
 // cluster_scan_kernel (128^2 to 512^2) removes the round trips and the grid
 // barriers: one thread-block cluster carries one wave through all S slices
@@ -220,66 +241,6 @@ __global__ void __launch_bounds__(kClusterThreads, 1) cluster_scan_kernel(ScanAr
   }
 }
 
-// The tail of the step's adjoint.  bar holds, per wave, the x spectrum of
-// bar_s (after the row and column passes on g with conj(P)); this pass undoes
-// the x transform and forms dpsi = bar_s * conj(t) (written over bar) and
-// dV = sigma * Im(bar_s * conj(t * psi)) summed over the waves.  A block owns
-// a row tile for every wave, so the sum stays in its registers.
-template <int LOG2N>
-__global__ void __launch_bounds__(kThreads)
-bwd_tail_kernel(float2* bar, const float2* __restrict__ psi, const float* __restrict__ v,
-                float* __restrict__ dv, float sigma, int64_t nwaves) {
-  __shared__ float2 tile[kTilePadded];
-  __shared__ float2 tw[kMaxTwiddles];
-  constexpr int64_t kTilesPerWave = (int64_t{1} << (2 * LOG2N)) / kTile;
-  constexpr int kPerThread = kTile / 2 / kThreads;  // pairs per thread
-  init_twiddles<LOG2N>(tw);
-  __syncthreads();
-  for (int64_t r = blockIdx.x; r < kTilesPerWave; r += gridDim.x) {
-    float2 acc[kPerThread];
-#pragma unroll
-    for (int m = 0; m < kPerThread; ++m) acc[m] = make_float2(0.0f, 0.0f);
-    for (int64_t b = 0; b < nwaves; ++b) {
-      float2* bt = bar + (b * kTilesPerWave + r) * kTile;
-      const float2* pt = psi + (b * kTilesPerWave + r) * kTile;
-      for (int i = threadIdx.x; i < kTile / 2; i += kThreads) {
-        float2 x, y;
-        load_pair(bt + 2 * i, &x, &y);
-        tile[pad(2 * i)] = x;
-        tile[pad(2 * i + 1)] = y;
-      }
-      __syncthreads();
-      fft_inverse<LOG2N, true>(tile, tw);
-#pragma unroll
-      for (int m = 0; m < kPerThread; ++m) {
-        const int i = threadIdx.x + m * kThreads;
-        const float2 vv = *reinterpret_cast<const float2*>(v + r * kTile + 2 * i);
-        float2 p0, p1;
-        load_pair(pt + 2 * i, &p0, &p1);
-        const float2 s0 = tile[pad(2 * i)];
-        const float2 s1 = tile[pad(2 * i + 1)];
-        float sn, cs;
-        sincosf(sigma * vv.x, &sn, &cs);
-        const float2 t0 = make_float2(cs, sn);
-        const float2 u0 = cmul(p0, t0);
-        sincosf(sigma * vv.y, &sn, &cs);
-        const float2 t1 = make_float2(cs, sn);
-        const float2 u1 = cmul(p1, t1);
-        store_pair(bt + 2 * i, cmul_conj(s0, t0), cmul_conj(s1, t1));
-        acc[m].x += s0.y * u0.x - s0.x * u0.y;  // Im(s * conj(u))
-        acc[m].y += s1.y * u1.x - s1.x * u1.y;
-      }
-      __syncthreads();
-    }
-#pragma unroll
-    for (int m = 0; m < kPerThread; ++m) {
-      const int i = threadIdx.x + m * kThreads;
-      *reinterpret_cast<float2*>(dv + r * kTile + 2 * i) =
-          make_float2(sigma * acc[m].x, sigma * acc[m].y);
-    }
-  }
-}
-
 int blocks_for(int64_t ntiles) {
   return static_cast<int>(ntiles < kMaxBlocks ? ntiles : kMaxBlocks);
 }
@@ -299,21 +260,157 @@ int launch_step(const float2* psi, const float* v, const float2* prop, float2* o
   return cudaGetLastError();
 }
 
+// ---- the wide step and its adjoint: rows 6 and 7 redesigned --------------
+//
+// One cooperative launch each, on the wide transform of fused_fft.cuh (one
+// 1-D transform in the registers of a pair of warps): row items are one row
+// a pair, column items four columns a block, spread over min(resident, B N
+// / 4) blocks, with a grid barrier between the phases.
+
+struct StepArgs {
+  const float2* psi;    // (B, N, N)
+  const float* v;       // (N, N), shared by the waves
+  const float2* prop;   // bit-reversed, (N, N) or (B, N, N) with p_wave_stride = N*N
+  const float2* g;      // the adjoint: the upstream gradient (B, N, N)
+  float2* out;          // the step: the next wave; the adjoint: dpsi (B, N, N)
+  float* dv;            // the adjoint: (N, N), summed over the waves
+  float* part;          // the adjoint: (ngroups, N, N) partial dV planes when ngroups > 1
+  int64_t p_wave_stride;
+  int64_t nwaves;
+  int ngroups;          // the adjoint's wave groups
+  int per_group;        // waves per group (the last group may hold fewer)
+  float sigma;
+};
+
+// The column phase of a step: every column item of the B planes at buf, in
+// place, with P (conj_p: its conjugate).
 template <int LOG2N>
-int launch_step_bwd(const float2* psi, const float* v, const float2* g, const float2* prop,
-                    float2* dpsi, float* dv, float sigma, int64_t nwaves, int64_t p_wave_stride,
-                    cudaStream_t stream) {
-  constexpr int64_t kTilesPerWave = (int64_t{1} << (2 * LOG2N)) / kTile;
-  const int blocks = blocks_for(nwaves * kTilesPerWave);
-  row_pass_kernel<LOG2N><<<blocks, kThreads, 0, stream>>>(g, dpsi, nullptr, sigma, 0, 1, nwaves);
-  cudaError_t err = cudaGetLastError();
+__device__ __forceinline__ void wide_col_phase(float2* tile, const float2* tw, float2* buf,
+                                               const StepArgs& a, bool conj_p,
+                                               const WidePlace& t) {
+  using W = Wide<LOG2N>;
+  constexpr int N = W::N;
+  constexpr int64_t kPlane = int64_t{1} << (2 * LOG2N);
+  const int64_t items = a.nwaves * (N / W::kCols);
+  for (int64_t i = blockIdx.x; i < items; i += gridDim.x) {
+    const int64_t b = i / (N / W::kCols);
+    const int c0 = static_cast<int>(i % (N / W::kCols)) * W::kCols;
+    wide_col_item<LOG2N>(tile, tw, buf + b * kPlane, c0, a.prop + b * a.p_wave_stride, conj_p, t);
+  }
+}
+
+// Row 6: out = IFFT2[ P * FFT2[ t * psi ] ] in three phases: rows [transmit
+// | forward x], barrier, columns [forward y | * P / N^2 | inverse y],
+// barrier, rows [inverse x].
+template <int LOG2N>
+__global__ void __launch_bounds__(kThreads) wide_step_kernel(StepArgs a) {
+  using W = Wide<LOG2N>;
+  constexpr int N = W::N;
+  __shared__ float2 tile[W::kCols * W::kColStride];
+  __shared__ float2 tw[N];  // the staged table: N - 1 entries
+  cg::grid_group grid = cg::this_grid();
+  init_staged_twiddles<LOG2N, kThreads>(tw);
+  __syncthreads();
+  const WidePlace t = wide_place(tile, W::kColStride);
+  const int64_t rows = a.nwaves * N;
+  const int64_t first = blockIdx.x + static_cast<int64_t>(threadIdx.x >> 6) * gridDim.x;
+  const int64_t step = static_cast<int64_t>(gridDim.x) * kWidePairs;
+  for (int64_t u = first; u < rows; u += step) {  // u = b N + y
+    wide_fwd_row<LOG2N, false>(tw, a.psi + u * N, a.out + u * N, nullptr,
+                               a.v + (u & (N - 1)) * N, a.sigma, false, t);
+  }
+  grid.sync();
+  wide_col_phase<LOG2N>(tile, tw, a.out, a, false, t);
+  grid.sync();
+  for (int64_t u = first; u < rows; u += step) {
+    wide_fwd_row<LOG2N, false>(tw, a.out + u * N, a.out + u * N, nullptr, nullptr, a.sigma, true,
+                               t);
+  }
+}
+
+// Row 7: the step's adjoint.  Rows [forward x of g], barrier, columns with
+// conj(P), barrier, rows: a pair takes row y for the waves of its wave
+// group, loads V's row once, and per wave undoes the x transform (bar_s),
+// forms t, writes dpsi = bar_s * conj(t) and adds Im(bar_s * conj(t psi))
+// to its registers (t kept in float2 registers across the waves was slower:
+// more live registers through the transform, PERF.md section 6); the
+// group's sum goes to dv (one group) or to its partial
+// plane, and after one more barrier the partials are added in the order 0,
+// 1, ...: no atomics, the same bits from run to run.
+template <int LOG2N>
+__global__ void __launch_bounds__(kThreads) wide_step_bwd_kernel(StepArgs a) {
+  using W = Wide<LOG2N>;
+  constexpr int N = W::N;
+  constexpr int64_t kPlane = int64_t{1} << (2 * LOG2N);
+  __shared__ float2 tile[W::kCols * W::kColStride];
+  __shared__ float2 tw[N];
+  cg::grid_group grid = cg::this_grid();
+  init_staged_twiddles<LOG2N, kThreads>(tw);
+  __syncthreads();
+  const WidePlace t = wide_place(tile, W::kColStride);
+  const int64_t rows = a.nwaves * N;
+  const int64_t first = blockIdx.x + static_cast<int64_t>(threadIdx.x >> 6) * gridDim.x;
+  const int64_t step = static_cast<int64_t>(gridDim.x) * kWidePairs;
+  for (int64_t u = first; u < rows; u += step) {
+    float2 x[W::R];
+    wide_load_row<LOG2N>(x, a.g + u * N, t);
+    wide_fft_forward<LOG2N>(x, tw, t);
+    wide_store_row<LOG2N>(x, a.out + u * N, t);
+  }
+  grid.sync();
+  wide_col_phase<LOG2N>(tile, tw, a.out, a, true, t);
+  grid.sync();
+  const bool partial = a.ngroups > 1;
+  const int64_t group_rows = static_cast<int64_t>(a.ngroups) * N;
+  for (int64_t u = first; u < group_rows; u += step) {  // u = group N + y
+    const int64_t gi = u >> LOG2N;
+    const int64_t y = u & (N - 1);
+    const int64_t b0 = gi * a.per_group;
+    const int64_t b1 = b0 + a.per_group < a.nwaves ? b0 + a.per_group : a.nwaves;
+    float acc[W::R];
+    float vv[W::R];  // the row's potentials, loaded once for the group's waves
+#pragma unroll
+    for (int m = 0; m < W::R; ++m) {
+      acc[m] = 0.0f;
+      vv[m] = __ldg(a.v + y * N + W::H * t.w + t.lane + 32 * m);
+    }
+    for (int64_t b = b0; b < b1; ++b) {
+      float2* row = a.out + (b * N + y) * N;
+      wide_bwd_row<LOG2N, true>(tw, row, row, a.psi + (b * N + y) * N, vv, a.sigma, false, acc,
+                                t);
+    }
+    float* o = (partial ? a.part + gi * kPlane : a.dv) + y * N;
+#pragma unroll
+    for (int m = 0; m < W::R; ++m) o[W::H * t.w + t.lane + 32 * m] = a.sigma * acc[m];
+  }
+  if (partial) {
+    grid.sync();
+    reduce_partials<LOG2N>(a.part, a.dv, a.ngroups);
+  }
+}
+
+// The wide kernels over B waves: every resident block, at most one a column
+// item (B N / 4: the row items then take four a block).
+template <int LOG2N>
+int launch_wide_step(int device, StepArgs a, bool adjoint, cudaStream_t stream) {
+  const void* kernel = adjoint ? reinterpret_cast<const void*>(wide_step_bwd_kernel<LOG2N>)
+                               : reinterpret_cast<const void*>(wide_step_kernel<LOG2N>);
+  return launch_cooperative(kernel, device, a, a.nwaves, (1 << LOG2N) / kWidePairs, stream);
+}
+
+// out[0..3] = registers per thread, static shared bytes, local bytes per
+// thread and resident blocks of the wide step (adjoint == 0) or its adjoint.
+template <int LOG2N>
+int wide_step_info(int device, int adjoint, int* out) {
+  const void* kernel = adjoint ? reinterpret_cast<const void*>(wide_step_bwd_kernel<LOG2N>)
+                               : reinterpret_cast<const void*>(wide_step_kernel<LOG2N>);
+  cudaFuncAttributes attr;
+  cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
   if (err != cudaSuccess) return err;
-  col_pass_kernel<LOG2N><<<blocks, kThreads, 0, stream>>>(dpsi, prop, p_wave_stride, 1, nwaves);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  bwd_tail_kernel<LOG2N><<<blocks_for(kTilesPerWave), kThreads, 0, stream>>>(dpsi, psi, v, dv,
-                                                                            sigma, nwaves);
-  return cudaGetLastError();
+  out[0] = attr.numRegs;
+  out[1] = static_cast<int>(attr.sharedSizeBytes);
+  out[2] = static_cast<int>(attr.localSizeBytes);
+  return resident_blocks_of(kernel, device, &out[3]);
 }
 
 // Blocks of scan_kernel that can be resident at once on this device.
@@ -324,16 +421,8 @@ int resident_blocks(int device, int* blocks) {
 
 template <int LOG2N>
 int launch_scan(int device, ScanArgs a, cudaStream_t stream) {
-  constexpr int64_t kTilesPerWave = (int64_t{1} << (2 * LOG2N)) / kTile;
-  const int64_t ntiles = a.nwaves * kTilesPerWave;
-  int resident = 0;
-  int err = resident_blocks<LOG2N>(device, &resident);
-  if (err != cudaSuccess) return err;
-  if (resident < 1) return cudaErrorLaunchOutOfResources;
-  const int blocks = static_cast<int>(ntiles < resident ? ntiles : resident);
-  void* args[] = {&a};
-  return cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(scan_kernel<LOG2N>),
-                                     dim3(blocks), dim3(kThreads), args, 0, stream);
+  return launch_cooperative(reinterpret_cast<const void*>(scan_kernel<LOG2N>), device, a,
+                            a.nwaves, (int64_t{1} << (2 * LOG2N)) / kTile, stream);
 }
 
 // The cluster kernel's launch configuration for `clusters` clusters; the
@@ -428,19 +517,61 @@ int fdes_fused_step_c64(int device, int n, const void* psi, const void* v, const
                                     static_cast<cudaStream_t>(stream)))
 }
 
-// The step's adjoint: g (nwaves, n, n) -> dpsi (nwaves, n, n), dv (n, n)
-// summed over the waves.
-int fdes_fused_step_bwd_c64(int device, int n, const void* psi, const void* v, const void* g,
-                            const void* prop, void* dpsi, void* dv, double sigma,
-                            int64_t nwaves, int64_t p_wave_stride, void* stream) {
+// One slice step on wide_step_kernel: as fdes_fused_step_c64, in one
+// cooperative launch.
+int fdes_wide_step_c64(int device, int n, const void* psi, const void* v, const void* prop,
+                       void* out, double sigma, int64_t nwaves, int64_t p_wave_stride,
+                       void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
-  FDES_DISPATCH_N(
-      n, launch_step_bwd<L>(static_cast<const float2*>(psi), static_cast<const float*>(v),
-                            static_cast<const float2*>(g), static_cast<const float2*>(prop),
-                            static_cast<float2*>(dpsi), static_cast<float*>(dv),
-                            static_cast<float>(sigma), nwaves, p_wave_stride,
-                            static_cast<cudaStream_t>(stream)))
+  if (nwaves < 1) return cudaErrorInvalidValue;
+  StepArgs a{};
+  a.psi = static_cast<const float2*>(psi);
+  a.v = static_cast<const float*>(v);
+  a.prop = static_cast<const float2*>(prop);
+  a.out = static_cast<float2*>(out);
+  a.p_wave_stride = p_wave_stride;
+  a.nwaves = nwaves;
+  a.ngroups = 1;
+  a.per_group = 1;
+  a.sigma = static_cast<float>(sigma);
+  FDES_DISPATCH_N(n, launch_wide_step<L>(device, a, false, static_cast<cudaStream_t>(stream)))
+}
+
+// The step's adjoint on wide_step_bwd_kernel, in one cooperative launch:
+// g (nwaves, n, n) -> dpsi (nwaves, n, n), dv (n, n) summed over the waves;
+// part: (ngroups, n, n) float32 scratch when ngroups > 1.
+int fdes_wide_step_bwd_c64(int device, int n, const void* psi, const void* v, const void* g,
+                           const void* prop, void* dpsi, void* dv, void* part, double sigma,
+                           int64_t nwaves, int ngroups, int64_t p_wave_stride, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  if (nwaves < 1 || ngroups < 1 || ngroups > nwaves || (ngroups > 1 && part == nullptr)) {
+    return cudaErrorInvalidValue;
+  }
+  StepArgs a{};
+  a.psi = static_cast<const float2*>(psi);
+  a.v = static_cast<const float*>(v);
+  a.prop = static_cast<const float2*>(prop);
+  a.g = static_cast<const float2*>(g);
+  a.out = static_cast<float2*>(dpsi);
+  a.dv = static_cast<float*>(dv);
+  a.part = static_cast<float*>(part);
+  a.p_wave_stride = p_wave_stride;
+  a.nwaves = nwaves;
+  a.per_group = static_cast<int>((nwaves + ngroups - 1) / ngroups);
+  a.ngroups = static_cast<int>((nwaves + a.per_group - 1) / a.per_group);
+  a.sigma = static_cast<float>(sigma);
+  FDES_DISPATCH_N(n, launch_wide_step<L>(device, a, true, static_cast<cudaStream_t>(stream)))
+}
+
+// out[0..3] = registers per thread, static shared bytes, local bytes per
+// thread and resident blocks of wide_step_kernel (adjoint == 0) or
+// wide_step_bwd_kernel (adjoint == 1) for size n.
+int fdes_wide_step_info(int device, int n, int adjoint, int* out) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  FDES_DISPATCH_N(n, wide_step_info<L>(device, adjoint, out))
 }
 
 // The whole loop: psi0 (nwaves, n, n) through nslices slices -> out, in one

@@ -107,10 +107,8 @@ STORE_CAP_BYTES = 32 * 1024**3
 KERNELS = ("scan_store_kernel", "scan_bwd_store_kernel", "scan_ck_kernel", "scan_bwd_ck_kernel",
            "wide_scan_store_kernel", "wide_scan_bwd_store_kernel")
 
-#: Pairs of warps a block of the wide kernels (csrc/fused_fft.cuh,
-#: kWidePairs): a row item is one row a pair, a column item
-#: ``PAIRS_PER_BLOCK`` columns a block.
-PAIRS_PER_BLOCK = 4
+#: Pairs of warps a block of the wide kernels (fused_step.PAIRS_PER_BLOCK).
+PAIRS_PER_BLOCK = fs.PAIRS_PER_BLOCK
 
 #: The kernel each of the store pair runs on, by grid and waves a launch:
 #: "tile" (``scan_store_kernel`` / ``scan_bwd_store_kernel``, 4,096-element
@@ -119,7 +117,8 @@ PAIRS_PER_BLOCK = 4
 #: {waves: (forward, backward)}: the faster of both kernels timed in turns on
 #: an NVIDIA H100 80GB HBM3 at 700 W, 16 random slices a row (chip_smoke.py
 #: kernels_adjoint, ``store_route_rows``; PERF.md section 5).  A launch of B
-#: waves takes the row of the largest measured count not above B.  The wide
+#: waves takes the row of the largest measured count not above B
+#: (``fused_step.route_row``).  The wide
 #: kernels give one wave B n / 4 column items and B n row pairs, the tile
 #: kernels B n^2 / 4096 tiles; at 64 waves both fill the card and stand within
 #: a few per cent of each other.
@@ -166,14 +165,9 @@ def adjoint_kernel_info(n: int, kernel: str, device: torch.device | str = "cuda"
             "resident_blocks": out[3]}
 
 
-_resident: dict[tuple, int] = {}
-
-
 def _resident_blocks(n: int, kernel: str, device: torch.device) -> int:
-    key = (n, kernel, device.index)
-    if key not in _resident:
-        _resident[key] = adjoint_kernel_info(n, kernel, device)["resident_blocks"]
-    return _resident[key]
+    return fs.resident_blocks((kernel, n, device.index),
+                              lambda: adjoint_kernel_info(n, kernel, device))
 
 
 def wave_groups(b: int, n: int, kernel: str, device: torch.device) -> int:
@@ -185,10 +179,8 @@ def wave_groups(b: int, n: int, kernel: str, device: torch.device) -> int:
     dV sum is fixed."""
     resident = _resident_blocks(n, kernel, device)
     if kernel.startswith("wide_"):
-        slots, items_per_wave = resident * PAIRS_PER_BLOCK, n
-    else:
-        slots, items_per_wave = resident, n * n // 4096
-    return max(1, min(b, slots // items_per_wave))
+        return fs.wide_wave_groups(b, n, resident)
+    return max(1, min(b, resident // (n * n // 4096)))
 
 
 def wide_grid_blocks(n: int, b: int, kernel: str, device: torch.device | str = "cuda") -> int:
@@ -207,13 +199,7 @@ def store_route(n: int, b: int, kernel: str) -> str:
     STORE_ROUTE: a function of (n, b) alone."""
     if kernel not in ("store", "bwd_store"):
         raise ValueError(f"store_route: kernel must be 'store' or 'bwd_store', got {kernel!r}")
-    rows = STORE_ROUTE[n]
-    return rows[max((k for k in rows if k <= b), default=min(rows))][kernel == "bwd_store"]
-
-
-def _check_route(what: str, route: str | None) -> None:
-    if route not in (None, *ROUTES):
-        raise ValueError(f"{what}: route must be one of {ROUTES}, got {route!r}")
+    return fs.route_row(STORE_ROUTE[n], b)[kernel == "bwd_store"]
 
 
 def grid_barrier(blocks: int, rounds: int, light: bool = False,
@@ -382,7 +368,7 @@ def fused_scan_store(
     ``store_route`` picks (``route`` names one instead: "tile" or "wide"),
     plain on the CPU.  No graph: ``scan_diff_apply`` is the differentiable
     form."""
-    _check_route("fused_scan_store", route)
+    fs.check_route("fused_scan_store", route)
     if not psi0.is_cuda:
         _operands("fused_scan_store", psi0, v_stack, propagator, None, 0)
         return fused_scan_store_ref(psi0, v_stack, propagator, sigma)
@@ -472,7 +458,7 @@ def fused_scan_bwd_store(
     picks (``route`` names one instead: "tile" or "wide").  ``groups``
     overrides the number of wave groups (``wave_groups``), for
     measurements."""
-    _check_route("fused_scan_bwd_store", route)
+    fs.check_route("fused_scan_bwd_store", route)
     if not g.is_cuda:
         _check_backward_cpu("fused_scan_bwd_store", s, v_stack, propagator, g, 0)
         return fused_scan_bwd_store_ref(s, v_stack, propagator, g, sigma)

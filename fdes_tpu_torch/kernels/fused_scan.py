@@ -134,7 +134,7 @@ def scan_route(n: int, b: int, nslices: int = 1) -> str | None:
     rows = SCAN_ROUTE.get(n)
     if rows is None:
         return "scan"
-    return rows[max((k for k in rows if k <= b), default=min(rows))]
+    return fs.route_row(rows, b)
 
 
 @functools.lru_cache(maxsize=None)

@@ -17,11 +17,21 @@ psi is complex64 (..., n, n) with any leading batch dimensions, V a real
 entry (psi's shape), in natural order and unscaled; n in {128, 256, 512,
 1024}.  A tensor on the CPU goes to the plain PyTorch version
 (``fused_slice_step_ref``: transmit and ``torch.fft``, its backward by
-autograd); a CUDA tensor goes to the kernels (``csrc/fused_step.cu``) or the
-wrapper raises; complex128 on the card raises ``TypeError``.  Each wrapper
-counts its calls that reached the card in ``<wrapper>.launches`` (one call is
-three kernel launches inside one C entry point: row pass, column pass, row
-pass).
+autograd), whatever the route; a CUDA tensor goes to the kernels
+(``csrc/fused_step.cu``) or the wrapper raises; complex128 on the card raises
+``TypeError``.
+
+The step runs on one of two routes, picked before the launch by
+``step_route(n, B)`` from ``STEP_ROUTE``, a table of rows measured on the
+H100: "tile" (three ordinary launches from one C entry point over
+4,096-element tiles: ``row_pass_kernel``, ``col_pass_kernel``,
+``row_pass_kernel``) or "wide" (``wide_step_kernel``: one cooperative launch
+on the wide transform, one 1-D transform a pair of warps).  The adjoint has
+one kernel, ``wide_step_bwd_kernel``, also one cooperative launch.
+``route=`` names the step's route for measurements; it is checked, and a
+launch the card refuses raises with nothing run in its place.  Each wrapper
+counts its calls that reached the card in ``<wrapper>.launches``, and the
+step also by route in ``fused_step.launches_by_route``.
 
 The kernels leave the spectrum in bit-reversed order in both axes (a forward
 decimation-in-frequency transform, undone by a decimation-in-time inverse),
@@ -61,9 +71,14 @@ _ARGTYPES = {
     "fdes_fused_step_c64": [
         ctypes.c_int, ctypes.c_int, _P, _P, _P, _P, ctypes.c_double, _I64, _I64, _P,
     ],
-    "fdes_fused_step_bwd_c64": [
-        ctypes.c_int, ctypes.c_int, _P, _P, _P, _P, _P, _P, ctypes.c_double, _I64, _I64, _P,
+    "fdes_wide_step_c64": [
+        ctypes.c_int, ctypes.c_int, _P, _P, _P, _P, ctypes.c_double, _I64, _I64, _P,
     ],
+    "fdes_wide_step_bwd_c64": [
+        ctypes.c_int, ctypes.c_int, _P, _P, _P, _P, _P, _P, _P, ctypes.c_double, _I64,
+        ctypes.c_int, _I64, _P,
+    ],
+    "fdes_wide_step_info": [ctypes.c_int, ctypes.c_int, ctypes.c_int, _P],
     "fdes_fused_scan_c64": [
         ctypes.c_int, ctypes.c_int, _P, _P, _P, _P, ctypes.c_double, _I64, ctypes.c_int,
         _I64, _I64, _P,
@@ -76,6 +91,47 @@ _ARGTYPES = {
     "fdes_cluster_scan_info": [ctypes.c_int, ctypes.c_int, _P],
 }
 _entries: dict[str, object] = {}
+
+#: Pairs of warps a block of the wide kernels (csrc/fused_fft.cuh,
+#: kWidePairs): a row item is one row a pair, a column item
+#: ``PAIRS_PER_BLOCK`` columns a block.
+PAIRS_PER_BLOCK = 4
+
+#: The kernel the step runs on, by grid and waves a launch: "tile"
+#: (``row_pass_kernel``, ``col_pass_kernel``, ``row_pass_kernel``) or "wide"
+#: (``wide_step_kernel``), as {waves: route}: the faster of both routes timed
+#: in turns on an NVIDIA H100 80GB HBM3 at 700 W, three readings of 10 calls
+#: a row (chip_smoke.py kernels_fused, ``step_route_rows``; PERF.md section
+#: 6).  A launch of B waves takes the row of the largest measured count not
+#: above B (``route_row``).  The wide kernel spreads one wave over B n row
+#: pairs and B n / 4 column items, the tile kernels over B n^2 / 4096 tiles:
+#: the wide kernel wins every row from one wave to 16 but 512^2 x 4 (the
+#: 4-tilt series, 44.5 against 45.4 us: 512 column items on 396 resident
+#: blocks take a second round); at 64 waves both fill the card and the tile
+#: kernels win at 256^2 and 512^2 by 3-7 %.
+_W, _T = "wide", "tile"
+STEP_ROUTE = {
+    128: {1: _W, 3: _W, 4: _W, 8: _W, 16: _W, 64: _W},
+    256: {1: _W, 3: _W, 4: _W, 8: _W, 16: _W, 64: _T},
+    512: {1: _W, 3: _W, 4: _T, 8: _W, 16: _W, 64: _T},
+    1024: {1: _W, 3: _W, 4: _W, 8: _W, 16: _W, 64: _W},
+}
+ROUTES = ("tile", "wide")
+KERNELS = ("step", "step_bwd")
+
+
+def route_row(rows: dict, b: int):
+    """The entry of a route table's rows ({measured count: entry}) for a
+    launch of count b: the row of the largest measured count not above b,
+    the first row below them all.  Shared by every route table of the
+    port."""
+    return rows[max((k for k in rows if k <= b), default=min(rows))]
+
+
+def check_route(what: str, route: str | None, routes=ROUTES) -> None:
+    """Refuse a ``route=`` that is neither None nor one of ``routes``."""
+    if route is not None and route not in routes:
+        raise ValueError(f"{what}: route must be one of {tuple(routes)}, got {route!r}")
 
 
 def launch(name: str, device: torch.device, *args) -> None:
@@ -93,6 +149,55 @@ def launch(name: str, device: torch.device, *args) -> None:
     else:
         status = fn(device.index, *args, torch.cuda.current_stream(device).cuda_stream)
     _build.check(lib, status, name)
+
+
+def step_route(n: int, b: int) -> str:
+    """The route ("tile" or "wide") of the step for B waves of an n x n
+    grid, from STEP_ROUTE: a function of (n, b) alone."""
+    return route_row(STEP_ROUTE[n], b)
+
+
+def wide_step_info(n: int, kernel: str, device: torch.device | str = "cuda") -> dict:
+    """Registers, shared and local memory and resident blocks of the wide
+    kernel of ``kernel`` ("step" or "step_bwd") for axis size n, as the CUDA
+    runtime reports them."""
+    if kernel not in KERNELS:
+        raise ValueError(f"wide_step_info: kernel must be one of {KERNELS}, got {kernel!r}")
+    dev = torch.device(device)
+    if dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    out = (ctypes.c_int * 4)()
+    launch("fdes_wide_step_info", dev, n, KERNELS.index(kernel), ctypes.cast(out, _P))
+    return {"registers": out[0], "shared_bytes": out[1], "local_bytes": out[2],
+            "resident_blocks": out[3]}
+
+
+_resident: dict[tuple, int] = {}
+
+
+def resident_blocks(key: tuple, info: Callable[[], dict]) -> int:
+    """Resident blocks of the kernel that ``key`` names (its size, kernel
+    and card), from ``info()`` on first use: the wide kernels' launches and
+    wave groups read it on every call."""
+    if key not in _resident:
+        _resident[key] = info()["resident_blocks"]
+    return _resident[key]
+
+
+def wide_wave_groups(b: int, n: int, resident: int) -> int:
+    """Wave groups of a wide adjoint's last row phase (``wide_step_bwd_kernel``,
+    ``wide_scan_bwd_store_kernel``): one pair of warps carries a row through
+    the waves of its group and sums their dV in registers, so the groups are
+    as many as fill the ``resident`` blocks' pairs, at most one per wave.  A
+    function of (b, n, card) alone: the order of the dV sum is fixed."""
+    return max(1, min(b, resident * PAIRS_PER_BLOCK // n))
+
+
+def step_wave_groups(b: int, n: int, device: torch.device) -> int:
+    """``wide_wave_groups`` of ``wide_step_bwd_kernel`` on ``device``."""
+    resident = resident_blocks(("step_bwd", n, device.index),
+                               lambda: wide_step_info(n, "step_bwd", device))
+    return wide_wave_groups(b, n, resident)
 
 
 def check_size(ny: int, nx: int, what: str) -> None:
@@ -201,20 +306,26 @@ def fused_step_bwd_ref(
 
 def fused_step(
     psi: torch.Tensor, v: torch.Tensor, propagator: torch.Tensor, sigma: float,
-    *, prepared: torch.Tensor | None = None,
+    *, prepared: torch.Tensor | None = None, route: str | None = None,
 ) -> torch.Tensor:
-    """One slice step: the fused kernels on CUDA, plain on the CPU.  No graph:
-    ``fused_slice_step`` is the differentiable form."""
+    """One slice step: on CUDA the kernel that ``step_route`` picks
+    (``route`` names one instead: "tile" or "wide"), plain on the CPU.  No
+    graph: ``fused_slice_step`` is the differentiable form."""
+    check_route("fused_step", route)
     if not psi.is_cuda:
         return fused_slice_step_ref(psi, v, propagator, sigma)
     flat, v32, pp, p_stride = _operands(psi, v, propagator, prepared, "fused_step")
     out = torch.empty_like(flat)
-    if flat.shape[0]:
+    b, n = flat.shape[0], flat.shape[-1]
+    if b:
+        route = route or step_route(n, b)
         launch(
-            "fdes_fused_step_c64", psi.device, flat.shape[-1], flat.data_ptr(), v32.data_ptr(),
-            pp.data_ptr(), out.data_ptr(), float(sigma), flat.shape[0], p_stride,
+            "fdes_wide_step_c64" if route == "wide" else "fdes_fused_step_c64", psi.device, n,
+            flat.data_ptr(), v32.data_ptr(), pp.data_ptr(), out.data_ptr(), float(sigma), b,
+            p_stride,
         )
         fused_step.launches += 1
+        fused_step.launches_by_route[route] += 1
     return out.reshape(psi.shape)
 
 
@@ -222,8 +333,9 @@ def fused_step_bwd(
     psi: torch.Tensor, v: torch.Tensor, g: torch.Tensor, propagator: torch.Tensor, sigma: float,
     *, prepared: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """(dpsi, dV) of the step for upstream gradient g: the adjoint kernels on
-    CUDA, plain on the CPU.  dV is float32 (n, n), summed over psi's batch."""
+    """(dpsi, dV) of the step for upstream gradient g: on CUDA
+    ``wide_step_bwd_kernel``, plain on the CPU.  dV is float32 (n, n),
+    summed over psi's batch in a fixed order."""
     if g.dtype != psi.dtype or g.shape != psi.shape or g.device != psi.device:
         raise ValueError(
             f"fused_step_bwd: g is {g.dtype} {tuple(g.shape)} on {g.device}, psi is "
@@ -236,26 +348,29 @@ def fused_step_bwd(
     if g.data_ptr() % 16:
         raise ValueError("fused_step_bwd: g must be 16-byte aligned")
     dpsi, dv = torch.empty_like(flat), torch.empty_like(v32)
-    if flat.shape[0]:
-        launch(
-            "fdes_fused_step_bwd_c64", psi.device, flat.shape[-1], flat.data_ptr(),
-            v32.data_ptr(), g.data_ptr(), pp.data_ptr(), dpsi.data_ptr(), dv.data_ptr(),
-            float(sigma), flat.shape[0], p_stride,
-        )
-        fused_step_bwd.launches += 1
-    else:
-        dv.zero_()
+    b, n = flat.shape[0], flat.shape[-1]
+    if not b:
+        return dpsi.reshape(psi.shape), dv.zero_()
+    groups = step_wave_groups(b, n, psi.device)
+    part = torch.empty((groups, n, n), dtype=torch.float32, device=psi.device) \
+        if groups > 1 else None
+    launch("fdes_wide_step_bwd_c64", psi.device, n, flat.data_ptr(), v32.data_ptr(),
+           g.data_ptr(), pp.data_ptr(), dpsi.data_ptr(), dv.data_ptr(),
+           part.data_ptr() if part is not None else None, float(sigma), b, groups, p_stride)
+    fused_step_bwd.launches += 1
     return dpsi.reshape(psi.shape), dv
 
 
-fused_step.launches = 0
-fused_step_bwd.launches = 0
 WRAPPERS = (fused_step, fused_step_bwd)
 
 
 def reset_launches() -> None:
     for w in WRAPPERS:
         w.launches = 0
+    fused_step.launches_by_route = dict.fromkeys(ROUTES, 0)
+
+
+reset_launches()
 
 
 # ---- the engine ------------------------------------------------------------

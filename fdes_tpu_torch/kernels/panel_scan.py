@@ -234,19 +234,13 @@ def panel_route(n: int, b: int, kind: str) -> str:
     "build_col" its species (the planes that one output sums)."""
     if kind not in KINDS:
         raise ValueError(f"panel_route: kind must be one of {KINDS}, got {kind!r}")
-    rows = PANEL_ROUTE[n]
-    return rows[max((k for k in rows if k <= b), default=min(rows))][KINDS.index(kind)]
-
-
-def _check_route(what: str, route: str | None) -> None:
-    if route is not None and route not in ROUTES:
-        raise ValueError(f"{what}: route must be one of {tuple(ROUTES)}, got {route!r}")
+    return fs.route_row(PANEL_ROUTE[n], b)[KINDS.index(kind)]
 
 
 def _route_code(what: str, route: str | None, n: int, b: int, kind: str) -> tuple[str, int]:
     """(route name, its code in the C entry points) of a pass: ``route``
     checked, or PANEL_ROUTE's when None."""
-    _check_route(what, route)
+    fs.check_route(what, route, ROUTES)
     name = route or panel_route(n, b, kind)
     return name, ROUTES[name]
 
@@ -653,7 +647,7 @@ def panel_init(
 ) -> torch.Tensor:
     """a = Fx(t_0 psi): on CUDA the kernel that PANEL_ROUTE picks (or
     ``route`` names), plain on the CPU."""
-    _check_route("panel_init", route)
+    fs.check_route("panel_init", route, ROUTES)
     if not psi.is_cuda:
         return panel_init_ref(v0, psi, sigma)
     return _init("panel_init", panel_init, v0, psi, sigma, False, route)[0]
@@ -678,7 +672,7 @@ def panel_init_abs(
     picks for the absorptive row pass (or ``route`` names), plain on the
     CPU."""
     what = "panel_init_abs"
-    _check_route(what, route)
+    fs.check_route(what, route, ROUTES)
     if not psi.is_cuda:
         return panel_init_abs_ref(vr0, vi0, psi, sigma)
     flat, n = _wave(psi, "psi", what)
@@ -767,7 +761,7 @@ def panel_rowpass_stack(
     """a = Fx(t_j Fx^H(b)), V_j read from the (S, n, n) stack: on CUDA the
     kernel that PANEL_ROUTE picks (or ``route`` names), plain on the CPU."""
     what = "panel_rowpass_stack"
-    _check_route(what, route)
+    fs.check_route(what, route, ROUTES)
     if not b.is_cuda:
         return panel_rowpass_stack_ref(j, v_stack, b, sigma)
     return _rowpass(what, panel_rowpass_stack, v_stack, j, b, sigma, False, route)[0]
@@ -779,7 +773,7 @@ def panel_rowpass_stack_store(
     """(a = Fx(s_j), s_j = t_j Fx^H(b)), V_j read from the stack: on CUDA the
     kernel that PANEL_ROUTE picks (or ``route`` names), plain on the CPU."""
     what = "panel_rowpass_stack_store"
-    _check_route(what, route)
+    fs.check_route(what, route, ROUTES)
     if not b.is_cuda:
         return panel_rowpass_stack_store_ref(j, v_stack, b, sigma)
     return _rowpass(what, panel_rowpass_stack_store, v_stack, j, b, sigma, True, route)
@@ -801,7 +795,7 @@ def panel_rowpass_stack_abs(
     stacks read as one complex stack: ``absorptive_v``): on CUDA the kernel
     that PANEL_ROUTE picks (or ``route`` names), plain on the CPU."""
     what = "panel_rowpass_stack_abs"
-    _check_route(what, route)
+    fs.check_route(what, route, ROUTES)
     if not b.is_cuda:
         return panel_rowpass_stack_abs_ref(j, vr_stack, vi_stack, b, sigma)
     flat, n = _wave(b, "b", what)
@@ -863,7 +857,7 @@ def panel_row_bwd_loop(
     for (B, n, n) waves, (B, S, n, n)) stack of the forward: on CUDA the
     kernel that PANEL_ROUTE picks (or ``route`` names), plain on the CPU."""
     what = "panel_row_bwd_loop"
-    _check_route(what, route)
+    fs.check_route(what, route, ROUTES)
     if not bar.is_cuda:
         return panel_row_bwd_loop_ref(j, v_stack, s, bar, sigma)
     nslices, n = v_stack.shape[0], bar.shape[-1]
@@ -879,7 +873,7 @@ def panel_row_bwd_last(
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """(dpsi0 = bar_s * conj(t_0), dV_0), s0 of bar's shape: on CUDA the
     kernel that PANEL_ROUTE picks (or ``route`` names), plain on the CPU."""
-    _check_route("panel_row_bwd_last", route)
+    fs.check_route("panel_row_bwd_last", route, ROUTES)
     if not bar.is_cuda:
         return panel_row_bwd_last_ref(v0, s0, bar, sigma)
     n = bar.shape[-1]
@@ -895,7 +889,7 @@ def panel_bwd_tail(
     """(dpsi = bar_s * conj(t), dV), s = t psi formed from psi (bar's shape):
     on CUDA the kernel that PANEL_ROUTE picks (or ``route`` names), plain on
     the CPU."""
-    _check_route("panel_bwd_tail", route)
+    fs.check_route("panel_bwd_tail", route, ROUTES)
     if not bar.is_cuda:
         return panel_bwd_tail_ref(v, psi, bar, sigma)
     n = bar.shape[-1]
@@ -1087,7 +1081,7 @@ def panel_build_colpass(
     from prepare_factors: on CUDA the kernel that PANEL_ROUTE picks for nsp
     species (or ``route`` names), plain on the CPU."""
     what = "panel_build_colpass"
-    _check_route(what, route)
+    fs.check_route(what, route, ROUTES)
     if not gx.is_cuda:
         return panel_build_colpass_ref(gx, factors)
     if gx.ndim != 3:
