@@ -25,13 +25,14 @@ Phases, each printing one JSON line:
              the fused step (row 6) on both routes, "tile" (three ordinary
              launches) and "wide" (one cooperative launch on the wide
              transform), and its adjoint (row 7, one cooperative launch),
-             at 128^2 to 1024^2 with 1, 3 and 8 waves of a shared P and 3
-             waves of one P each, and on config 4's potential at 512^2 (1
-             and 8 waves), dV bitwise equal over two runs; the step's routes
-             timed in turns at one 512^2 wave (the table rows) and at every
-             row of fused_step.STEP_ROUTE, there with the adjoint checked
-             (each row names the faster route and whether the table picks
-             it); the
+             at 128^2 to 1024^2 with 1, 3 and 8 waves of a shared P, at
+             512^2 also 3 waves of one P each, and on config 4's potential
+             at 512^2 (1 and 8 waves), dV bitwise equal over two runs; the
+             step's routes timed in turns at one 512^2 wave (the table rows)
+             and at the rows of fused_step.STEP_ROUTE whose choice is open
+             (STEP_ROWS_OPEN), the wide step and the adjoint checked at
+             every row (each timed row names the faster route and whether
+             the table picks it); the
              whole-loop scan (scan_kernel) at (16 waves, 8 slices, 512^2),
              at 128^2 and 1024^2 (2 waves, 3 slices, shared
              and per-wave V and P); the cluster kernel at 128^2, 256^2 and
@@ -43,20 +44,29 @@ Phases, each printing one JSON line:
              fused_scan's route table and at config 2's and config 4's shapes
              (each row names the faster and whether the table picks it); the
              kernels one call of each wrapper launches are counted with
-             torch.profiler.  The whole-loop adjoint's six kernels: the
-             store pair's two routes ("tile", the kernels of PR 4, and
-             "wide", one 1-D transform a pair of warps) and the segment
-             pair, at 128^2 and 1024^2 (2 waves, 4 slices), at 512^2 (1 and
-             8 waves, 8 slices), the wide kernels at 128^2 to 1024^2 with 1,
-             3 and 8 waves (4 slices), each with a shared and a per-wave
-             propagator, and at config 3's own shape (1 wave, 64 slices,
-             512^2), dV bitwise equal over two runs; both routes timed in
-             turns there, at 8, 16 and 64 waves of that stack, at one wave
-             of 256^2 x 16 slices and at the rows of the route table
-             adjoint_scan.STORE_ROUTE (each row names the faster of each
-             kernel and whether the table picks it); the wide kernels'
-             registers and memory; the grid barrier alone (cg and an arrive
-             counter) at the wide kernels' grid and its share of a slice.
+             torch.profiler.  The whole-loop adjoint's eight kernels: the
+             store pair and the segment pair, each on two routes ("tile",
+             the tile passes, and "wide", one 1-D transform a pair of
+             warps), the tile kernels at 128^2 and 1024^2 (2 waves, 4
+             slices) and at 512^2 (1 and 8 waves, 8 slices), the wide store
+             pair at 128^2 to 1024^2 with 1, 3 and 8 waves (4 slices), each
+             with a shared and a per-wave propagator, the wide segment pair
+             at 128^2 to 1024^2 with 1 and 3 waves of 16 slices in segments
+             of 1, 4 and 16 and 3 waves of one P each (its exit waves, dV and
+             dpsi0 the wide store pair's bits), the segment pair on the
+             kernels SEG_ROUTE names for 128 waves (the deep stem4d cell's
+             probe chunk) at 512^2 x 32 slices in segments of 4 and 16 and
+             at 1024^2 x 16 slices in segments of 4, and all eight at config
+             3's own shape (1 wave, 64 slices, 512^2), dV bitwise equal over
+             two runs, each launch counted on its kernel's wrapper; both routes of each pair timed in turns there, the
+             store pair at 8, 16 and 64 waves of that stack and at one wave
+             of 256^2 x 16 slices, and each pair at the rows of its route
+             table, adjoint_scan.STORE_ROUTE and SEG_ROUTE (each row names
+             the faster of each kernel and whether the table picks it;
+             SEG_ROUTE's must, or stand within 1 %: asserted); the wide
+             kernels' registers and memory; the grid barrier alone (cg and
+             an arrive counter) at the wide kernels' grid and its share of a
+             slice.
              The panel scan's seven passes at 256^2 and 2048^2 (1 and
              2 waves, shared and per-wave P) and 4096^2 (1 wave), the rollout
              at 2048^2 x 8 slices (real and absorptive V) and 256^2 x 3 (2
@@ -137,7 +147,8 @@ Phases, each printing one JSON line:
              backward launch per evaluation on the kernels STORE_ROUTE picks
              for one wave (asserted by wrapper counts, with and without
              remat_chunk, and by profile), and past its store budget the
-             checkpointed segment pair, one launch each.  No fill, add or
+             checkpointed segment pair, one launch each on the kernels
+             SEG_ROUTE picks for one wave.  No fill, add or
              copy of V's size (torch.profiler's host events and their input
              shapes) in one "pallas" evaluation, with and without remat and
              with the absorptive V; the "pallas" gradient (no remat) in turns
@@ -181,6 +192,18 @@ Phases, each printing one JSON line:
              engine.
 11. stem4d  — a 4x4 scan in mode stem4d (cbed.npy, "fscan" against "xla") and
              in mode stem with stem.compute_com=true (stem_com.npy).
+11b. stem4d_invert_deep — the first cell past the store cap, nothing
+             patched: ``fdes_tpu_torch.cli.main --mode invert`` on
+             examples/si110_stem.toml with recon.modality=stem4d at twice
+             config 4's depth (512^2, 256 slices, Si[110] 6x4x24), a 16x16
+             scan in two chunks of 128 probes (64 GiB of s a chunk), 3
+             iterations on the defaults ("auto" resolves to "fscan", the
+             segment pair on SEG_ROUTE's kernels, launches asserted): setup,
+             it/s, peak; one gradient of its loss at V_true / 2 (wall, busy
+             ms by kernel, idle share, peak, launches asserted), the segment
+             pair on each route in turns, and dV against the store pair's
+             (chunks of 64 probes, 32 GiB of s each, on the cap) within
+             2e-4.
 12. c5      — config 5 at full width: ``fdes_tpu_torch.cli.main`` in mode
              hrtem on examples/si110_hrtem.toml at 2048^2, 512 slices,
              Si[110] 24x16x64, 8 defoci, on engines "panel" (one panel_scan
@@ -253,9 +276,10 @@ Phases, each printing one JSON line:
              "pallas" and "xla" at 2048^2 (1 and 4 waves) and 4096^2: the
              rows that
              ``make_slice_step("auto")`` picks its engine from; and the two
-             whole-loop adjoints (stored s_j against checkpointed segments)
-             at 512^2 over 64-512 slices and 1-64 waves, wall and peak memory:
-             the rows the store budget is set from.
+             whole-loop adjoints (stored s_j against checkpointed segments,
+             each kernel on its table's route) at 512^2 over 64-512 slices
+             and 1-64 waves, wall and peak memory: the rows the store budget
+             is set from.
 
 Each phase line carries its wall seconds.  Then it prints the kernel table
 as one JSON line, the card's name and power limit (nvidia-smi), and as the
@@ -283,8 +307,8 @@ import torch
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 PHASES = ("build", "kernels", "golden", "hrtem", "absorptive", "streamed", "grad", "invert",
-          "invert_absorptive", "stem", "stem4d", "c5", "c5_absorptive", "c5_invert",
-          "c5_tilt_invert", "c5_streamed", "phonon", "engines")
+          "invert_absorptive", "stem", "stem4d", "stem4d_invert_deep", "c5", "c5_absorptive",
+          "c5_invert", "c5_tilt_invert", "c5_streamed", "phonon", "engines")
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 PEAK_OPS_PER_S = {torch.float32: 67e12, torch.float64: 34e12}  # non-tensor-core FP32 / FP64
 KERNEL_TOL = {torch.complex64: 2e-6, torch.complex128: 1e-12}  # max|k - ref| / max|ref|
@@ -380,19 +404,20 @@ def reset_launches() -> None:
             w.launches_by_route = dict.fromkeys(w.launches_by_route, 0)
 
 
-def time_launches(fn, n: int = TIMED, warmup: int = 5) -> float:
+def time_launches(fn, n: int = TIMED, warmup: int = 5, sleep_cycles: int = 200_000_000) -> float:
     """Median device milliseconds of one call of ``fn`` over ``n`` calls.
 
-    A sleep kernel first keeps the card busy while the calls are enqueued,
-    so each (start, end) event pair brackets the call's kernels alone and not
-    the host's launch overhead.
+    A sleep kernel of ``sleep_cycles`` clock cycles (200 M: ~0.1 s) first
+    keeps the card busy while the calls are enqueued, so each (start, end)
+    event pair brackets the call's kernels alone and not the host's launch
+    overhead.
     """
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     ev = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
           for _ in range(n)]
-    torch.cuda._sleep(200_000_000)
+    torch.cuda._sleep(sleep_cycles)
     for start, end in ev:
         start.record()
         fn()
@@ -625,8 +650,11 @@ def absorptive_sizes(checks: list, rows: dict, v64: np.ndarray, sigma: float) ->
     return out
 
 
-#: Throwaway sleep kernels that open each profile (profiled_kernels).
-LEAD_IN = 32
+#: Throwaway sleep kernels that open each profile (profiled_kernels): more
+#: than the profiler has been seen to lose from a trace's start (at least 34
+#: events in each of 30 profiles in a row of a 275-kernel call, on the H100),
+#: ~7 ms a profile.
+LEAD_IN = 128
 
 
 def profiled_kernels(fn, attempts: int = 3) -> list[tuple[str, float]]:
@@ -680,7 +708,8 @@ OWN_KERNELS = ("row_pass_kernel", "col_pass_kernel", "wide_step_kernel",
                "wide_step_bwd_kernel", "scan_kernel",
                "cluster_scan_kernel", "scan_store_kernel", "scan_bwd_store_kernel",
                "wide_scan_store_kernel", "wide_scan_bwd_store_kernel",
-               "scan_ck_kernel", "scan_bwd_ck_kernel", "panel_row_kernel", "panel_col_kernel",
+               "scan_ck_kernel", "scan_bwd_ck_kernel", "wide_scan_ck_kernel",
+               "wide_scan_bwd_ck_kernel", "panel_row_kernel", "panel_col_kernel",
                "panel_bwd_row_kernel", "panel_build_col_kernel", "panel_wide_col_kernel",
                "panel_wide_bwd_row_kernel",
                "panel_wide_row_kernel", "panel_wide_g_row_kernel", "panel_wide_x_row_kernel",
@@ -795,10 +824,14 @@ def phase_kernels_fused() -> tuple[dict, dict]:
         return errs
 
     # ---- the step on both routes and its adjoint: every size at 1, 3 and 8
-    # waves of a shared P and 3 waves of one P each (dV summed over the waves)
+    # waves of a shared P, and 3 waves of one P each (dV summed over the
+    # waves) at config 4's size: a per-wave P only moves the column items'
+    # pointer, the same code at every size
     for m in fs.SIZES:
         vm = torch.as_tensor(rng.uniform(0, 2000, (m, m)), device="cuda", dtype=f32)
         for b, per_wave in ((1, False), (3, False), (3, True), (8, False)):
+            if per_wave and m != n:
+                continue
             step_cases(cplx(b, m, m), vm, props_of((b, m, m) if per_wave else (m, m)),
                        cplx(b, m, m), per_wave_p=per_wave)
     # ---- config 4's potential and propagator, one wave (the table's rows)
@@ -971,14 +1004,20 @@ def phase_kernels_fused() -> tuple[dict, dict]:
     return line, rows
 
 
+#: the rows of fused_step.STEP_ROUTE whose choice is still open: the two
+#: routes stood within 10 % of each other there on the H100 (PERF.md section
+#: 6); every other row was won by 15-150 % and is checked, not timed
+STEP_ROWS_OPEN = {128: (64,), 256: (16, 64), 512: (4, 8, 16, 64)}
+
+
 def step_route_rows(checks: list, sigma: float) -> list[dict]:
-    """Both routes of the step timed in turns (interleaved_ms: three
-    readings of 10 calls each) at every row of fused_step.STEP_ROUTE (128^2
-    to 1024^2, 1 to 64 waves; V, psi, g and a shared P random, made on the
-    card from a seed), the wide step and the adjoint held to the plain
-    versions there; each row gives the step's bound (its bytes: psi, out
-    and the shared V and P, against its operations), names the faster
-    route, and whether the table picks it."""
+    """The wide step and the adjoint held to the plain versions at every row
+    of fused_step.STEP_ROUTE (128^2 to 1024^2, 1 to 64 waves; V, psi, g and
+    a shared P random, made on the card from a seed), and both routes of
+    the step timed in turns (interleaved_ms: three readings of 10 calls
+    each) at the rows STEP_ROWS_OPEN names; each timed row gives the step's
+    bound (its bytes: psi, out and the shared V and P, against its
+    operations), names the faster route, and whether the table picks it."""
     from fdes_tpu_torch.kernels import fused_step as fs
 
     card = CardInputs(18)
@@ -997,6 +1036,9 @@ def step_route_rows(checks: list, sigma: float) -> list[dict]:
             check_kernel(checks, "fused_step_bwd", (b, m, m),
                          fs.fused_step_bwd(psi, v, g, pr, sigma, prepared=pp),
                          fs.fused_step_bwd_ref(psi, v, g, pr, sigma), FUSED_TOL, route_row=True)
+            if b not in STEP_ROWS_OPEN.get(m, ()):
+                del psi, g
+                continue
             ms = interleaved_ms({r: (lambda r=r: fs.fused_step(psi, v, pr, sigma, prepared=pp,
                                                                route=r))
                                  for r in fs.ROUTES}, n=10, warmup=2)[1]
@@ -1055,22 +1097,40 @@ def scan_route_rows(probes, v_stack, prop, sigma, rng) -> list[dict]:
 
 #: The store pair's two wrappers (forward, backward) by route, each named by
 #: the launch count it adds to: "tile" the kernels of PR 4, "wide" those of
-#: the wide transform.
+#: the wide transform; the segment pair's the same way.
 STORE_PAIRS = {"tile": ("fused_scan_store", "fused_scan_bwd_store"),
                "wide": ("wide_scan_store", "wide_scan_bwd_store")}
-STORE_KERNELS = {"fused_scan_store": "scan_store_kernel",
-                 "fused_scan_bwd_store": "scan_bwd_store_kernel",
-                 "wide_scan_store": "wide_scan_store_kernel",
-                 "wide_scan_bwd_store": "wide_scan_bwd_store_kernel"}
+SEG_PAIRS = {"tile": ("fused_scan_ck", "fused_scan_bwd_ck"),
+             "wide": ("wide_scan_ck", "wide_scan_bwd_ck")}
+#: the kernel of each wrapper of the whole-loop adjoint
+ADJOINT_KERNELS = {"fused_scan_store": "scan_store_kernel",
+                   "fused_scan_bwd_store": "scan_bwd_store_kernel",
+                   "wide_scan_store": "wide_scan_store_kernel",
+                   "wide_scan_bwd_store": "wide_scan_bwd_store_kernel",
+                   "fused_scan_ck": "scan_ck_kernel", "fused_scan_bwd_ck": "scan_bwd_ck_kernel",
+                   "wide_scan_ck": "wide_scan_ck_kernel",
+                   "wide_scan_bwd_ck": "wide_scan_bwd_ck_kernel"}
+#: the segments of the segment pair's route rows (16 slices)
+SEG_ROW_SEG = 4
+#: the sleep before each reading of the adjoint's route rows (~10 ms): three
+#: calls of one cooperative launch each take well under a millisecond to
+#: enqueue, and the full sleep made up most of the rows' time
+ROW_SLEEP_CYCLES = 20_000_000
+#: two routes whose medians stand within this share of each other are a tie,
+#: which the spread between calls can turn either way (a route row of
+#: SEG_ROUTE stood 0.5 % apart on the H100)
+ROUTE_TIE = 0.01
 
 
 def phase_kernels_adjoint() -> tuple[dict, dict]:
-    """The whole-loop adjoint's six kernels against their plain versions;
+    """The whole-loop adjoint's eight kernels against their plain versions;
     returns (phase line, table rows).  The rows' shape is config 3's own: one
-    512^2 wave through 64 slices; there the store pair's two routes are
-    timed in turns.  Then both routes in turns at the rows of
-    adjoint_scan.STORE_ROUTE and at 8, 16 and 64 waves of config 3's stack,
-    the wide kernels' registers and memory, and the grid barrier alone."""
+    512^2 wave through 64 slices; there each pair's two routes are timed in
+    turns.  The wide segment pair's outputs are held to the wide store
+    pair's bit for bit.  Then both routes in turns at the rows of
+    adjoint_scan.STORE_ROUTE and SEG_ROUTE and at 8, 16 and 64 waves of
+    config 3's stack, the wide kernels' registers and memory, and the grid
+    barrier alone."""
     from fdes_tpu_torch.config import load_config
     from fdes_tpu_torch.kernels import adjoint_scan as adj
     from fdes_tpu_torch.pipeline import setup
@@ -1083,24 +1143,31 @@ def phase_kernels_adjoint() -> tuple[dict, dict]:
         z = rng.standard_normal(shape) + 1j * rng.standard_normal(shape)
         return torch.as_tensor(z.astype(np.complex64), device="cuda")
 
-    def pair(seg, route="tile"):
+    def pair(seg, m, b, route="tile"):
         """(forward, backward, their plain versions, extra arguments, the two
-        wrappers' names) for the store pair on ``route`` (seg 0) or the
-        segment pair."""
+        wrappers' names) for the store pair (seg 0) or the segment pair on
+        ``route``; None: the route its table names for b waves of m^2."""
         if seg == 0:
+            names = (STORE_PAIRS[route] if route else
+                     tuple(STORE_PAIRS[adj.store_route(m, b, k)][i]
+                           for i, k in enumerate(("store", "bwd_store"))))
             return (functools.partial(adj.fused_scan_store, route=route),
                     functools.partial(adj.fused_scan_bwd_store, route=route),
-                    adj.fused_scan_store_ref, adj.fused_scan_bwd_store_ref, (),
-                    STORE_PAIRS[route])
-        return (adj.fused_scan_ck, adj.fused_scan_bwd_ck, adj.fused_scan_ck_ref,
-                adj.fused_scan_bwd_ck_ref, (seg,), ("fused_scan_ck", "fused_scan_bwd_ck"))
+                    adj.fused_scan_store_ref, adj.fused_scan_bwd_store_ref, (), names)
+        names = (SEG_PAIRS[route] if route else
+                 tuple(SEG_PAIRS[adj.seg_route(m, b, k)][i] for i, k in enumerate(("ck", "bwd_ck"))))
+        return (functools.partial(adj.fused_scan_ck, route=route),
+                functools.partial(adj.fused_scan_bwd_ck, route=route), adj.fused_scan_ck_ref,
+                adj.fused_scan_bwd_ck_ref, (seg,), names)
 
     def check_case(psi0, vs, pr, g, sigma, seg, route="tile", **more):
         """Both kernels of a pair at one shape: exit waves, kept waves, dV and
-        dpsi0 against the plain versions, dV bitwise equal over two runs."""
-        fwd, bwd, fwd_ref, bwd_ref, extra, names = pair(seg, route)
+        dpsi0 against the plain versions, dV bitwise equal over two runs, each
+        launch counted on its kernel's wrapper."""
         b, ns, m = psi0.shape[0], vs.shape[0], psi0.shape[-1]
+        fwd, bwd, fwd_ref, bwd_ref, extra, names = pair(seg, m, b, route)
         tol = scan_tol(ns)
+        before = launch_counts()
         got, want = fwd(psi0, vs, pr, sigma, *extra), fwd_ref(psi0, vs, pr, sigma, *extra)
         # the backward kernel and its plain version on the same kept waves
         # (the plain forward's): its own round-off alone
@@ -1108,6 +1175,11 @@ def phase_kernels_adjoint() -> tuple[dict, dict]:
         again = bwd(want[1], vs, pr, g, sigma, *extra)
         back_want = bwd_ref(want[1], vs, pr, g, sigma, *extra)
         torch.cuda.synchronize()
+        after = launch_counts()
+        ran = {k: after[k] - before[k] for k in after if after[k] != before[k]}
+        if ran != {names[0]: 1, names[1]: 2}:
+            raise AssertionError(f"{names} {(b, ns, m, m)} seg {seg} route {route}: launches "
+                                 f"{ran}")
         errs = {}
         for name, a, w in ((names[0], got, want), (names[1], back, back_want)):
             errs[name] = max_errors(a, w)
@@ -1123,6 +1195,23 @@ def phase_kernels_adjoint() -> tuple[dict, dict]:
                                  "two runs on the same inputs")
         checks[-1]["dv_bitwise_equal_over_two_runs"] = True
         return errs
+
+    def wide_pairs_agree(psi0, vs, pr, g, sigma, seg):
+        """The wide segment pair runs the wide store pair's arithmetic: on the
+        same inputs and wave groups its exit waves, dV and dpsi0 are the wide
+        store pair's bits."""
+        groups = min(psi0.shape[0], 2)
+        out_s, s = adj.wide_scan_store(psi0, vs, pr, sigma)
+        back_s = adj.wide_scan_bwd_store(s, vs, pr, g, sigma, groups=groups)
+        del s
+        out_c, ck = adj.wide_scan_ck(psi0, vs, pr, sigma, seg)
+        back_c = adj.wide_scan_bwd_ck(ck, vs, pr, g, sigma, seg, groups=groups)
+        same = all(torch.equal(a, b) for a, b in zip((out_s, *back_s), (out_c, *back_c)))
+        checks.append({"kernel": "wide_scan_bwd_ck", "shape": list(psi0.shape[:1]) + list(vs.shape),
+                       "seg": seg, "groups": groups, "bits_of_the_wide_store_pair": same})
+        if not same:
+            raise AssertionError(f"the wide segment pair {tuple(psi0.shape)} x {vs.shape[0]} seg "
+                                 f"{seg}: not the wide store pair's bits")
 
     def random_case(m, b, ns, per_wave_p):
         lead = (b,) if per_wave_p else ()
@@ -1140,13 +1229,34 @@ def phase_kernels_adjoint() -> tuple[dict, dict]:
             case = random_case(m, b, ns, per_wave_p)
             for seg in segs:
                 check_case(*case, sigma, seg, per_wave_p=per_wave_p)
-    # the wide kernels at every size and at 1, 3 and 8 waves (STORE_ROUTE's
-    # rows up to 8; one wave group, and several)
+    # the wide kernels at every size: the store pair at 1, 3 and 8 waves
+    # (STORE_ROUTE's rows up to 8; one wave group, and several), the segment
+    # pair at 1 and 3 waves of 16 slices in segments of 1, 4 and 16, and 3
+    # waves of one P each; the segment pair's bits against the store pair's
     for m in sorted(adj.STORE_ROUTE):
         for b in (1, 3, 8):
             for per_wave_p in (False, True):
                 check_case(*random_case(m, b, 4, per_wave_p), sigma, 0, route="wide",
                            per_wave_p=per_wave_p)
+        for b, per_wave_p in ((1, False), (3, False), (3, True)):
+            case = random_case(m, b, 16, per_wave_p)
+            for seg in (1, 4, 16) if not per_wave_p else (4,):
+                check_case(*case, sigma, seg, route="wide", per_wave_p=per_wave_p)
+            wide_pairs_agree(*case, sigma, 4)
+            del case
+        torch.cuda.empty_cache()
+
+    # the segment pair on the kernels SEG_ROUTE names for a probe chunk of
+    # DEEP_CHUNK waves, with several segments: at 512^2 (the deep stem4d
+    # cell's grid, wave groups and segment of 16) and at 1024^2
+    for m, ns, segs in ((512, 32, (4, 16)), (1024, 16, (4,))):
+        inp = CardInputs(m)
+        case = (inp.cplx(DEEP_CHUNK, m, m), inp.real(ns, m, m), inp.phases(m, m),
+                inp.cplx(DEEP_CHUNK, m, m))
+        for seg in segs:
+            check_case(*case, sigma, seg, route=None, routed=True)
+        del case
+        torch.cuda.empty_cache()
 
     # ---- config 3's own shape: one wave, 64 slices, 512^2
     v_stack, prop = sim.v_stack, sim.propagator
@@ -1155,7 +1265,8 @@ def phase_kernels_adjoint() -> tuple[dict, dict]:
     seg = adj.pick_seg(s, n)
     errs = {**check_case(psi0, v_stack, prop, g, sigma, 0),
             **check_case(psi0, v_stack, prop, g, sigma, 0, route="wide"),
-            **check_case(psi0, v_stack, prop, g, sigma, seg)}
+            **check_case(psi0, v_stack, prop, g, sigma, seg),
+            **check_case(psi0, v_stack, prop, g, sigma, seg, route="wide")}
     plane = n * n
     _, kept_s = adj.fused_scan_store_ref(psi0, v_stack, prop, sigma)
     _, kept_ck = adj.fused_scan_ck(psi0, v_stack, prop, sigma, seg)
@@ -1167,6 +1278,11 @@ def phase_kernels_adjoint() -> tuple[dict, dict]:
                  io_fwd + s * plane * 8, fwd_ops, "fdes_tpu/pallas/adjoint_scan.py:230")
     store_bwd = (lambda: adj.fused_scan_bwd_store_ref(kept_s, v_stack, prop, g, sigma),
                  io_bwd + s * plane * 8, bwd_ops, "fdes_tpu/pallas/adjoint_scan.py:262")
+    seg_fwd = (lambda: adj.fused_scan_ck_ref(psi0, v_stack, prop, sigma, seg),
+               io_fwd + (s // seg) * plane * 8, fwd_ops, "fdes_tpu/pallas/adjoint_scan.py:105")
+    seg_bwd = (lambda: adj.fused_scan_bwd_ck_ref(kept_ck, v_stack, prop, g, sigma, seg),
+               io_bwd + (s // seg) * plane * 8, fwd_ops + bwd_ops,
+               "fdes_tpu/pallas/adjoint_scan.py:136")
     # P gathered once, as scan_diff_apply hands it to both launches: the
     # gather and its host-to-device index copies are not the kernel's time
     pp = adj.fs.prepare_propagator(prop)
@@ -1178,33 +1294,29 @@ def phase_kernels_adjoint() -> tuple[dict, dict]:
         **{STORE_PAIRS[r][1]: (lambda r=r: adj.fused_scan_bwd_store(
             kept_s, v_stack, prop, g, sigma, prepared=pp, route=r), *store_bwd)
            for r in STORE_PAIRS},
-        "fused_scan_ck": (
-            lambda: adj.fused_scan_ck(psi0, v_stack, prop, sigma, seg, prepared=pp),
-            lambda: adj.fused_scan_ck_ref(psi0, v_stack, prop, sigma, seg),
-            io_fwd + (s // seg) * plane * 8, fwd_ops, "fdes_tpu/pallas/adjoint_scan.py:105"),
-        "fused_scan_bwd_ck": (
-            lambda: adj.fused_scan_bwd_ck(kept_ck, v_stack, prop, g, sigma, seg, prepared=pp),
-            lambda: adj.fused_scan_bwd_ck_ref(kept_ck, v_stack, prop, g, sigma, seg),
-            io_bwd + (s // seg) * plane * 8, fwd_ops + bwd_ops,
-            "fdes_tpu/pallas/adjoint_scan.py:136"),
+        **{SEG_PAIRS[r][0]: (lambda r=r: adj.fused_scan_ck(psi0, v_stack, prop, sigma, seg,
+                                                           prepared=pp, route=r), *seg_fwd)
+           for r in SEG_PAIRS},
+        **{SEG_PAIRS[r][1]: (lambda r=r: adj.fused_scan_bwd_ck(
+            kept_ck, v_stack, prop, g, sigma, seg, prepared=pp, route=r), *seg_bwd)
+           for r in SEG_PAIRS},
     }
-    kernel_names = {**STORE_KERNELS, "fused_scan_ck": "scan_ck_kernel",
-                    "fused_scan_bwd_ck": "scan_bwd_ck_kernel"}
-    # the store pair's two routes in turns
+    # each pair's two routes in turns
     turns = {}
-    for k in (0, 1):
-        tile, wide = STORE_PAIRS["tile"][k], STORE_PAIRS["wide"][k]
-        turns.update(interleaved_ms({tile: cases[tile][0], wide: cases[wide][0]}, n=10,
-                                    warmup=2)[1])
+    for pairs in (STORE_PAIRS, SEG_PAIRS):
+        for k in (0, 1):
+            tile, wide = pairs["tile"][k], pairs["wide"][k]
+            turns.update(interleaved_ms({tile: cases[tile][0], wide: cases[wide][0]}, n=10,
+                                        warmup=2)[1])
     for name, (kern, ref, nbytes, ops, replaces) in cases.items():
         t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / PEAK_OPS_PER_S[f32] * 1e3
-        kernel = kernel_names[name]
+        kernel = ADJOINT_KERNELS[name]
+        pairs = STORE_PAIRS if "store" in name else SEG_PAIRS
         rows[name] = {
             "name": name, "route": "cuda", "source": "fdes_tpu_torch/csrc/adjoint_scan.cu",
             "replaces": replaces, "launches": None,
             "max_abs_err": errs[name][0], "max_rel_err": errs[name][1],
-            "ms": (statistics.median(turns[name]) if name in turns
-                   else time_launches(kern, n=10, warmup=2)),
+            "ms": statistics.median(turns[name]), "ms_in_turns": turns[name],
             "plain_ms": time_launches(ref, n=5, warmup=1),
             "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
@@ -1212,10 +1324,8 @@ def phase_kernels_adjoint() -> tuple[dict, dict]:
             "seg": seg if "ck" in name else 0, "bytes": nbytes, "operations": ops,
             "kernel": adj.adjoint_kernel_info(n, kernel),
             "kernels_per_call": expect_own_kernels(name, kern, {kernel: 1}),
+            "adjoint_route": next(r for r, p in pairs.items() if name in p),
         }
-        if name in turns:
-            rows[name]["ms_in_turns"] = turns[name]
-            rows[name]["store_route"] = next(r for r, p in STORE_PAIRS.items() if name in p)
 
     # ---- eight waves through the same stack: the dV sum in one group of waves
     # per row tile against partial sums over wave groups
@@ -1247,31 +1357,52 @@ def phase_kernels_adjoint() -> tuple[dict, dict]:
         raise AssertionError("a refused wide_scan_store launch did not raise")
     if launch_counts() != before:
         raise AssertionError("a refused wide_scan_store launch was counted")
+    t_rows = time.perf_counter()
+    store_rows = adjoint_route_rows(adj.STORE_ROUTE, adj.store_route, sigma, 0)
+    t_seg_rows = time.perf_counter()
+    seg_rows = adjoint_route_rows(adj.SEG_ROUTE, adj.seg_route, sigma, SEG_ROW_SEG)
+    t_end = time.perf_counter()
     line = {"phase": "kernels_adjoint", "checks": checks, "refused_launch_raises": refused,
             "store_turns": store_turns(v_stack, prop, sigma, rng),
-            "store_route_rows": store_route_rows(sigma, rng),
-            "wide_kernel_info": {m: {k: adj.adjoint_kernel_info(m, STORE_KERNELS[k])
-                                     for k in STORE_PAIRS["wide"]}
+            "store_route_rows": store_rows,
+            "store_route_is_the_faster": all(r["route_is_the_faster"] for r in store_rows),
+            "seg_route_rows": seg_rows,
+            "seg_route_is_the_faster": all(r["route_is_the_faster"] for r in seg_rows),
+            "seg_route_is_the_faster_or_a_tie": all(r["route_is_the_faster_or_a_tie"]
+                                                    for r in seg_rows),
+            "seconds_route_rows": {"store": t_seg_rows - t_rows, "seg": t_end - t_seg_rows},
+            "wide_kernel_info": {m: {k: adj.adjoint_kernel_info(m, ADJOINT_KERNELS[k])
+                                     for k in (*STORE_PAIRS["wide"], *SEG_PAIRS["wide"])}
                                  for m in sorted(adj.STORE_ROUTE)},
             "barrier": barrier_times(n, s, rows)}
+    if not line["seg_route_is_the_faster_or_a_tie"]:
+        raise AssertionError("SEG_ROUTE names a slower kernel: " + json.dumps(
+            [r for r in seg_rows if not r["route_is_the_faster_or_a_tie"]]))
     return line, rows
 
 
-def store_pair_turns(psi0, v, prop, g, sigma, reps: int = 3) -> dict:
-    """Both routes of each kernel of the store pair on the same inputs, in
-    turns (interleaved_ms), ``reps`` calls a reading: {kernel: {route: [ms,
-    ms, ms]}}, the backward on the wide forward's s."""
+def adjoint_pair_turns(psi0, v, prop, g, sigma, seg: int = 0, reps: int = 3) -> dict:
+    """Both routes of each kernel of the store pair (seg 0) or of the
+    segment pair (seg > 0) on the same inputs, in turns (interleaved_ms),
+    ``reps`` calls a reading: {kernel: {route: [ms, ms, ms]}}, the backward
+    on the wide forward's kept waves."""
     from fdes_tpu_torch.kernels import adjoint_scan as adj
 
     prepared = adj.fs.prepare_propagator(prop)
-    _, kept = adj.fused_scan_store(psi0, v, prop, sigma, prepared=prepared, route="wide")
+    if seg:
+        fwd = functools.partial(adj.fused_scan_ck, seg=seg)
+        bwd = functools.partial(adj.fused_scan_bwd_ck, seg=seg)
+        names = ("ck", "bwd_ck")
+    else:
+        fwd, bwd, names = adj.fused_scan_store, adj.fused_scan_bwd_store, ("store", "bwd_store")
+    _, kept = fwd(psi0, v, prop, sigma, prepared=prepared, route="wide")
     out = {
-        "store": interleaved_ms({r: (lambda r=r: adj.fused_scan_store(
+        names[0]: interleaved_ms({r: (lambda r=r: fwd(
             psi0, v, prop, sigma, prepared=prepared, route=r)) for r in adj.ROUTES},
-            n=reps, warmup=1)[1],
-        "bwd_store": interleaved_ms({r: (lambda r=r: adj.fused_scan_bwd_store(
+            n=reps, warmup=1, sleep_cycles=ROW_SLEEP_CYCLES)[1],
+        names[1]: interleaved_ms({r: (lambda r=r: bwd(
             kept, v, prop, g, sigma, prepared=prepared, route=r)) for r in adj.ROUTES},
-            n=reps, warmup=1)[1],
+            n=reps, warmup=1, sleep_cycles=ROW_SLEEP_CYCLES)[1],
     }
     del kept
     torch.cuda.empty_cache()
@@ -1293,36 +1424,44 @@ def store_turns(v_stack, prop, sigma, rng) -> list[dict]:
                                              dtype=torch.float32))
         z = rng.standard_normal((2, b, m, m)) + 1j * rng.standard_normal((2, b, m, m))
         psi0, g = torch.as_tensor(z.astype(np.complex64), device="cuda").unbind(0)
-        ms = store_pair_turns(psi0.contiguous(), vs, pr, g.contiguous(), sigma)
+        ms = adjoint_pair_turns(psi0.contiguous(), vs, pr, g.contiguous(), sigma)
         rows.append({"shape": [b, vs.shape[0], m, m], "ms": ms,
                      "faster": {k: min(t, key=lambda r: statistics.median(t[r]))
                                 for k, t in ms.items()}})
     return rows
 
 
-def store_route_rows(sigma, rng, nslices: int = 16) -> list[dict]:
-    """Both routes of the store pair in turns at the rows of
-    adjoint_scan.STORE_ROUTE (128^2 to 1024^2, 1 to 64 waves, 16 random
-    slices); each row names the faster of each kernel and whether the table
-    picks it."""
+def adjoint_route_rows(table: dict, route_of, sigma, seg: int,
+                       nslices: int = 16) -> list[dict]:
+    """Both routes of a pair of the adjoint in turns (adjoint_pair_turns) at
+    the rows of its route table (``table``: STORE_ROUTE with seg 0, SEG_ROUTE
+    with seg > 0; 128^2 to 1024^2, 1 to 128 waves, 16 random slices, the
+    inputs made on the card); each
+    row names the faster of each kernel and whether the table
+    (``route_of(n, b, kernel)``) picks it, a segment row also the fewest
+    slices at which its waves pass the store cap (adjoint_scan.seg_depth)."""
     from fdes_tpu_torch.kernels import adjoint_scan as adj
 
     rows = []
-    for m, table in adj.STORE_ROUTE.items():
-        vs = torch.as_tensor(rng.uniform(0, 2000, (nslices, m, m)), device="cuda",
-                             dtype=torch.float32)
-        pr = torch.polar(torch.ones((m, m), device="cuda"),
-                         torch.as_tensor(rng.uniform(0, 6.28, (m, m)), device="cuda",
-                                         dtype=torch.float32))
-        for b in sorted(table):
-            z = rng.standard_normal((2, b, m, m)) + 1j * rng.standard_normal((2, b, m, m))
-            psi0, g = torch.as_tensor(z.astype(np.complex64), device="cuda").unbind(0)
-            ms = store_pair_turns(psi0.contiguous(), vs, pr, g.contiguous(), sigma)
-            faster = {k: min(t, key=lambda r: statistics.median(t[r])) for k, t in ms.items()}
-            route = {k: adj.store_route(m, b, k) for k in ms}
-            rows.append({"n": m, "waves": b, "slices": nslices, "ms": ms, "faster": faster,
-                         "route": route,
-                         "route_is_the_faster": all(route[k] == faster[k] for k in ms)})
+    for m, waves in table.items():
+        inp = CardInputs(m + seg)
+        vs, pr = inp.real(nslices, m, m), inp.phases(m, m)
+        for b in sorted(waves):
+            psi0, g = inp.cplx(b, m, m), inp.cplx(b, m, m)
+            ms = adjoint_pair_turns(psi0, vs, pr, g, sigma, seg)
+            del psi0, g
+            med = {k: {r: statistics.median(t[r]) for r in t} for k, t in ms.items()}
+            faster = {k: min(t, key=t.get) for k, t in med.items()}
+            route = {k: route_of(m, b, k) for k in ms}
+            # a tie: the table's route within ROUTE_TIE of the faster
+            tie = all(med[k][route[k]] <= (1 + ROUTE_TIE) * med[k][faster[k]] for k in ms)
+            depth = {"past_the_cap_from_slices": adj.seg_depth(m, b)} if seg else {}
+            rows.append({"n": m, "waves": b, "slices": nslices, "seg": seg, **depth, "ms": ms,
+                         "faster": faster, "route": route,
+                         "route_is_the_faster": all(route[k] == faster[k] for k in ms),
+                         "route_is_the_faster_or_a_tie": tie})
+        del vs, pr
+        torch.cuda.empty_cache()
     return rows
 
 
@@ -2375,6 +2514,16 @@ def store_wrappers(b: int, n: int = 512, calls: int = 1) -> dict[str, int]:
     return {fwd: calls, bwd: calls}
 
 
+def seg_wrappers(b: int, n: int = 512, calls: int = 1) -> dict[str, int]:
+    """The launch counts that ``calls`` segment-pair gradients of b waves at
+    n^2 add: one forward and one backward each, on the wrappers of the
+    kernels adjoint_scan.SEG_ROUTE picks."""
+    from fdes_tpu_torch.kernels.adjoint_scan import seg_route
+
+    fwd, bwd = (SEG_PAIRS[seg_route(n, b, k)][i] for i, k in enumerate(("ck", "bwd_ck")))
+    return {fwd: calls, bwd: calls}
+
+
 def scan_kernel_name(b: int, n: int = 512) -> str:
     return {"cluster_scan": "cluster_scan_kernel", "fused_scan": "scan_kernel"}[scan_wrapper(b, n)]
 
@@ -2758,11 +2907,11 @@ def phase_grad(gpu: str) -> tuple[dict, dict]:
                               "transmit_abs_bwd": s}),
         "abs_xla_remat": ("xla", chunk, v_abs, zero),
         # the whole-loop adjoint: one store-forward and one backward launch,
-        # with remat_chunk given (and ignored) or not
+        # with remat_chunk given (and ignored) or not; past the store cap one
+        # launch of each of the segment pair, on SEG_ROUTE's kernels
         "fscan": ("fscan", None, v_real, {**zero, **store_wrappers(1)}),
         "fscan_remat": ("fscan", chunk, v_real, {**zero, **store_wrappers(1)}),
-        "fscan_seg": ("fscan_seg", None, v_real,
-                      {**zero, "fused_scan_ck": 1, "fused_scan_bwd_ck": 1}),
+        "fscan_seg": ("fscan_seg", None, v_real, {**zero, **seg_wrappers(1)}),
     }
     out, launches = {}, {}
     for label, (engine, remat, v, expect) in cases.items():
@@ -2793,6 +2942,7 @@ def phase_grad(gpu: str) -> tuple[dict, dict]:
         # the kernels of the store pair that config 3's one wave takes
         "store_route": {k: adj.store_route(sim.grid.shape[0], 1, k)
                         for k in ("store", "bwd_store")},
+        "seg_route": {k: adj.seg_route(sim.grid.shape[0], 1, k) for k in ("ck", "bwd_ck")},
         "remat_chunk": chunk, "losses": {k: float(v[0]) for k, v in out.items()},
         "rel_err": errs, "gate": GATE, "launches_per_eval": launches, "gpu": gpu,
     }
@@ -2805,7 +2955,7 @@ def phase_grad(gpu: str) -> tuple[dict, dict]:
     seen: dict[str, int] = {}
     for name, _ in profiled_kernels(grad_fn("fscan", None, v_real)):
         seen[name] = seen.get(name, 0) + 1
-    want = {STORE_KERNELS[w]: c for w, c in store_wrappers(1).items()}
+    want = {ADJOINT_KERNELS[w]: c for w, c in store_wrappers(1).items()}
     line["fscan_own_kernels_per_eval"] = own_kernels(seen)
     if line["fscan_own_kernels_per_eval"] != want:
         raise AssertionError(f"grad fscan: own kernels {line['fscan_own_kernels_per_eval']} of "
@@ -3393,6 +3543,228 @@ def phase_stem4d(tmp: str, gpu: str) -> dict:
     if not (line["cbed_rel_err_fscan_vs_xla"] <= cbed_tol and com_err <= 1e-5):
         raise AssertionError(f"stem4d gates failed: {line}")
     return line
+
+
+#: config 4's file stacked twice as deep (512^2, 256 slices, Si[110] 6x4x24,
+#: the 20 mrad probe), its scan cut from 64x64 to 16x16 probes: a 4D-STEM
+#: inverse in chunks of DEEP_CHUNK probes, each chunk's s stack (128 x 256 x
+#: 2 MiB = 64 GiB) past adjoint_scan.STORE_CAP_BYTES
+DEEP = ("--set", "recon.modality=stem4d", "--set", "sim.nslices=256",
+        "--set", "specimen.reps=[6,4,24]", "--set", "stem.scan_ny=16", "--set", "stem.scan_nx=16")
+DEEP_CHUNK = 128
+#: the store pair's chunk on the same inputs: 64 x 256 x 2 MiB = 32 GiB, on
+#: the cap, so the store pair runs unpatched
+DEEP_STORE_CHUNK = 64
+DEEP_ITERS = 3
+
+
+@contextlib.contextmanager
+def seg_route_all(route: str):
+    """Every row of adjoint_scan.SEG_ROUTE names ``route`` for both kernels
+    inside the block."""
+    from fdes_tpu_torch.kernels import adjoint_scan as adj
+
+    table = adj.SEG_ROUTE
+    adj.SEG_ROUTE = {n: dict.fromkeys(rows, (route, route)) for n, rows in table.items()}
+    try:
+        yield
+    finally:
+        adj.SEG_ROUTE = table
+
+
+def phase_stem4d_invert_deep(tmp: str, gpu: str) -> tuple[dict, dict]:
+    """The first cell past the store cap with nothing patched: a 4D-STEM
+    inverse of config 4's file at twice its depth (DEEP: 512^2, 256 slices, a
+    16x16 scan in two chunks of 128 probes) on the defaults ("auto" resolves
+    to "fscan").  The CLI with DEEP_ITERS iterations (setup, median step,
+    it/s, peak, launches asserted: two whole-loop forwards for the
+    self-test, then two of each segment wrapper an iteration on SEG_ROUTE's
+    kernels); then one gradient of the same loss (make_loss over
+    stem_raster_4d) at V = V_true / 2: one warm-up and three timed (wall,
+    busy ms by kernel, idle share, peak, launches asserted); the gradient
+    with the segment pair on "tile" and on "wide", in turns (wall, busy ms
+    by kernel, peak); and its dV held to the store pair's on the same
+    inputs within C5_GRAD_TOL, the store pair run at DEEP_STORE_CHUNK
+    probes a chunk, one chunk a backward (the loss is a sum over the probes,
+    so the chunks' gradients add up to the whole loss's; all four chunks'
+    s stacks at once would not fit the card).  Returns (line, launches of
+    the CLI run)."""
+    from fdes_tpu_torch.config import apply_overrides, load_config
+    from fdes_tpu_torch.forward import stem_raster_4d
+    from fdes_tpu_torch.kernels import adjoint_scan as adj
+    from fdes_tpu_torch.loss import make_loss
+    from fdes_tpu_torch.pipeline import setup, stem_setup
+    from fdes_tpu_torch.propagate import make_slice_step, pick_remat_chunk
+
+    chunk_set = ("--set", f"stem.probe_chunk={DEEP_CHUNK}")
+    cfg = apply_overrides(load_config(CONFIG_STEM),
+                          [a for a in (*DEEP, *chunk_set) if a != "--set"])
+    n, nslices = cfg.sim.ny, cfg.sim.nslices
+    stored = DEEP_CHUNK * nslices * n * n * 8
+    if not stored > adj.STORE_CAP_BYTES:
+        raise AssertionError(f"stem4d_invert_deep: a chunk's s stack {stored} B is not past the "
+                             f"cap {adj.STORE_CAP_BYTES} B")
+    zero = dict.fromkeys(launch_counts(), 0)
+
+    # ---- the CLI on the defaults
+    reset_launches()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    out, timing = run_cli(tmp, "deep", "--mode", "invert", *DEEP, *chunk_set,
+                          "--set", f"recon.iterations={DEEP_ITERS}", config=CONFIG_STEM)
+    cli_peak = torch.cuda.max_memory_allocated()
+    cli_launches = launch_counts()
+    with open(os.path.join(out, "metrics.jsonl")) as fh:
+        losses = [json.loads(row)["loss"] for row in fh]
+    v_rec = np.load(os.path.join(out, "reconstructed.npy"))
+    want_cli = {**zero, scan_wrapper(DEEP_CHUNK): 2, **seg_wrappers(DEEP_CHUNK,
+                                                                    calls=2 * DEEP_ITERS)}
+    if cli_launches != want_cli:
+        raise AssertionError(f"stem4d_invert_deep CLI launches {cli_launches}, expected "
+                             f"{want_cli}")
+    if not (len(losses) == DEEP_ITERS and np.isfinite(losses).all() and losses[-1] < losses[0]
+            and v_rec.shape == (nslices, n, n) and np.isfinite(v_rec).all()):
+        raise AssertionError(f"stem4d_invert_deep CLI: losses {losses}, V {v_rec.shape}")
+    del v_rec
+
+    # ---- one gradient of the same loss
+    sim = setup(cfg, device="cuda")
+    stencil, qy, qx, positions, _ = stem_setup(sim)
+    step = make_slice_step("auto", shape=sim.grid.shape, dtype=sim.cdtype, grad=True,
+                           batch=DEEP_CHUNK)
+    if step.kind != "fscan":
+        raise AssertionError(f"stem4d_invert_deep: auto resolved to {step.kind}, not fscan")
+    remat = pick_remat_chunk(nslices)
+
+    def fwd_for(pos, probe_chunk):
+        return lambda v: stem_raster_4d(v, stencil, qy, qx, pos, sim.propagator, sim.sigma,
+                                        probe_chunk=probe_chunk, remat_chunk=remat,
+                                        slice_step=step)
+
+    with torch.no_grad():
+        i_obs = fwd_for(positions, DEEP_CHUNK)(sim.v_stack)
+    v_half = 0.5 * sim.v_stack
+
+    def grad(pos, obs, probe_chunk):
+        loss_fn = make_loss(fwd_for(pos, probe_chunk), obs)
+
+        def run():
+            vv = v_half.detach().requires_grad_(True)
+            loss = loss_fn(vv)
+            loss.backward()
+            return loss.detach(), vv.grad
+        return run
+
+    run = grad(positions, i_obs, DEEP_CHUNK)
+    run()  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    walls = []
+    for i in range(3):
+        reset_launches()
+        t0 = time.perf_counter()
+        loss, dv = run()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+        if i == 0:
+            launches = launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    want = {**zero, **seg_wrappers(DEEP_CHUNK, calls=2)}
+    if launches != want:
+        raise AssertionError(f"stem4d_invert_deep gradient launches {launches}, expected {want}")
+    if not (all_finite((loss, dv)) and float(dv.abs().max()) > 0):
+        raise AssertionError("stem4d_invert_deep: loss or dV not finite, or dV zero")
+    kernels = profiled_kernels(run)
+    busy = sum(us for _, us in kernels) / 1e3
+
+    # ---- the segment pair on each route, in turns
+    by_route = {"tile": [], "wide": []}
+    for route in ("tile", "wide", "wide", "tile"):
+        with seg_route_all(route):
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            reset_launches()
+            t0 = time.perf_counter()
+            run()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+            counted = {k: c for k, c in launch_counts().items() if c}
+            route_peak = torch.cuda.max_memory_allocated()
+            route_kernels = profiled_kernels(run, attempts=1)
+        if counted != dict.fromkeys(SEG_PAIRS[route], 2):
+            raise AssertionError(f"stem4d_invert_deep on route {route}: launches {counted}")
+        seg_ms: dict[str, float] = {}  # the segment pair's kernels, template arguments dropped
+        for name, ms in kernel_busy_ms(route_kernels).items():
+            short = name.split("<")[0]
+            if short in ADJOINT_KERNELS.values():
+                seg_ms[short] = seg_ms.get(short, 0.0) + ms
+        by_route[route].append({
+            "wall_ms": wall, "busy_ms": sum(us for _, us in route_kernels) / 1e3,
+            "kernels": len(route_kernels), "peak_gib": route_peak / 2**30,
+            "seg_kernels_busy_ms": seg_ms})
+    # each kernel's faster route (busy ms, the readings whose profile kept
+    # it), against the table's choice
+    faster = {}
+    for i, kind in enumerate(("ck", "bwd_ck")):
+        ms = {}
+        for r, turns in by_route.items():
+            seen = [t["seg_kernels_busy_ms"][k] for t in turns
+                    if (k := ADJOINT_KERNELS[SEG_PAIRS[r][i]]) in t["seg_kernels_busy_ms"]]
+            ms[r] = statistics.median(seen) if seen else None
+        known = {r: t for r, t in ms.items() if t is not None}
+        faster[kind] = {"busy_ms": ms, "faster": min(known, key=known.get) if known else None,
+                        "route": adj.seg_route(n, DEEP_CHUNK, kind)}
+
+    # ---- the store pair's dV on the same inputs, one chunk of 64 at a time
+    del run
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    dv_store = torch.zeros_like(dv)
+    loss_store = 0.0
+    reset_launches()
+    for j in range(0, positions.shape[0], DEEP_STORE_CHUNK):
+        part = slice(j, j + DEEP_STORE_CHUNK)
+        loss_j, dv_j = grad(positions[part], i_obs[part], DEEP_STORE_CHUNK)()
+        dv_store += dv_j
+        loss_store += float(loss_j)
+        del dv_j
+    torch.cuda.synchronize()
+    store_peak = torch.cuda.max_memory_allocated()
+    chunks = positions.shape[0] // DEEP_STORE_CHUNK
+    store_launches = launch_counts()
+    if store_launches != {**zero, **store_wrappers(DEEP_STORE_CHUNK, calls=chunks)}:
+        raise AssertionError(f"stem4d_invert_deep store pair launches {store_launches}")
+    err = {"dv": rel_norm(dv, dv_store), "loss": abs(float(loss) - loss_store) / loss_store}
+    del sim, v_half, i_obs, dv, dv_store
+    torch.cuda.empty_cache()
+    line = {
+        "phase": "stem4d_invert_deep",
+        "config": "examples/si110_stem.toml --mode invert " + " ".join(
+            a for a in (*DEEP, *chunk_set) if a != "--set"),
+        "cut": "scan 64x64 -> 16x16 probes (two chunks of 128)",
+        "stored_bytes_per_chunk": stored, "store_cap_bytes": adj.STORE_CAP_BYTES,
+        "seg": adj.pick_seg(nslices, n),
+        "seg_route": {k: adj.seg_route(n, DEEP_CHUNK, k) for k in ("ck", "bwd_ck")},
+        "cli": {"setup_s": timing["setup_s"], "run_s": timing["run_s"],
+                "median_step_s": timing["median_step_s"],
+                "it_per_s": 1.0 / timing["median_step_s"], "iters_per_s": timing["iters_per_s"],
+                "peak_gib": cli_peak / 2**30, "losses": losses,
+                "launches": {k: c for k, c in cli_launches.items() if c}},
+        "gradient": {"wall_ms": walls, "busy_ms": busy, "kernels": len(kernels),
+                     "busy_ms_by_kernel": kernel_busy_ms(kernels),
+                     "device_idle_share": max(0.0, 1.0 - busy / statistics.median(walls)),
+                     "peak_gib": peak / 2**30,
+                     "launches": {k: c for k, c in launches.items() if c}},
+        "by_route": by_route, "faster_by_kernel": faster,
+        "store_pair": {"probe_chunk": DEEP_STORE_CHUNK, "chunks": chunks,
+                       "peak_gib": store_peak / 2**30, "rel_err_vs_seg": err},
+        "tol": C5_GRAD_TOL, "gpu": gpu,
+    }
+    if not all(e <= C5_GRAD_TOL for e in err.values()):
+        raise AssertionError(f"stem4d_invert_deep: the segment pair's gradient against the store "
+                             f"pair's {err}")
+    return line, cli_launches
 
 
 #: config 5 (BASELINE.json configs[4]): the config-2 file at 2048^2 x 512
@@ -4533,8 +4905,8 @@ def store_vs_segments() -> list[dict]:
     """The two whole-loop adjoints side by side at 512^2, over horizons of 64
     to 512 slices and 1 to 64 waves, up to 32 GiB of stored s_j: wall ms of a
     synchronised forward + backward (median of 3, each pair measured twice in
-    turns) and peak device memory.  The rows that adjoint_scan.STORE_CAP_BYTES
-    is set from."""
+    turns, each kernel on the route its table names) and peak device memory.
+    The rows that adjoint_scan.STORE_CAP_BYTES is set from."""
     from fdes_tpu_torch.constants import interaction_sigma, wavelength_A
     from fdes_tpu_torch.grids import Grid, fresnel_propagator
     from fdes_tpu_torch.kernels import adjoint_scan as adj
@@ -4565,7 +4937,9 @@ def store_vs_segments() -> list[dict]:
         seg = adj.pick_seg(nslices, n)
         row = {"n": n, "slices": nslices, "waves": batch, "seg": seg,
                "stored_bytes": batch * nslices * n * n * 8, "wall_ms": {"store": [], "seg": []},
-               "peak_bytes": {}}
+               "peak_bytes": {},
+               "routes": {k: (adj.store_route if k in ("store", "bwd_store") else adj.seg_route)(
+                   n, batch, k) for k in ("store", "bwd_store", "ck", "bwd_ck")}}
         for label in ("store", "seg", "seg", "store"):
             k = 0 if label == "store" else seg
             torch.cuda.empty_cache()
@@ -4581,6 +4955,7 @@ def store_vs_segments() -> list[dict]:
                 walls.append((time.perf_counter() - t0) * 1e3)
             row["wall_ms"][label].append(statistics.median(walls))
         row["faster"] = min(row["wall_ms"], key=lambda k: min(row["wall_ms"][k]))
+        row["seg_over_store"] = min(row["wall_ms"]["seg"]) / min(row["wall_ms"]["store"])
         rows.append(row)
     return rows
 
@@ -4605,8 +4980,8 @@ ROW_PHASES = {
     "fused_scan_bwd_store": ("invert_auto", "invert_fscan", "grad_fscan"),
     "wide_scan_store": ("invert_auto", "invert_fscan", "grad_fscan"),
     "wide_scan_bwd_store": ("invert_auto", "invert_fscan", "grad_fscan"),
-    "fused_scan_ck": ("grad_fscan_seg",),
-    "fused_scan_bwd_ck": ("grad_fscan_seg",),
+    # so does the segment pair, past the store cap
+    **{w: ("stem4d_invert_deep", "grad_fscan_seg") for pair in SEG_PAIRS.values() for w in pair},
     "panel_rowpass": ("c5",),
     "panel_final": ("c5", "c5_tilt_invert"),
     "panel_rowfwd": ("c5_invert", "c5_invert_per_slice", "c5_tilt_invert"),
@@ -4639,15 +5014,20 @@ ROW_PHASES = {
 OFF_PATH = ("panel_rowpass",)
 
 
-def unrouted_store_kernels() -> tuple[str, ...]:
-    """The store pair's wrappers whose kernel adjoint_scan.STORE_ROUTE picks
-    at no shape of the main path's gradients (config 3's one wave, and the
-    inverse's two-tilt and 8-probe shapes at 512^2): on no path of this run,
-    exempt like OFF_PATH; their rows keep their times."""
+def unrouted_adjoint_kernels() -> tuple[str, ...]:
+    """The adjoint's wrappers whose kernel adjoint_scan.STORE_ROUTE or
+    SEG_ROUTE picks at no shape of the main path's gradients (the store
+    pair: config 3's one wave, and the inverse's two-tilt and 8-probe shapes
+    at 512^2; the segment pair: config 3's one wave past the cap and the
+    deep stem4d inverse's 128 probes): on no path of this run, exempt like
+    OFF_PATH; their rows keep their times."""
     routed = {}
     for b in (1, 2, 8):
         routed.update(store_wrappers(b))
-    return tuple(w for pair in STORE_PAIRS.values() for w in pair if w not in routed)
+    for b in (1, DEEP_CHUNK):
+        routed.update(seg_wrappers(b))
+    return tuple(w for pairs in (STORE_PAIRS, SEG_PAIRS) for pair in pairs.values()
+                 for w in pair if w not in routed)
 
 
 def timed(fn, *args):
@@ -4733,6 +5113,10 @@ def main(argv=None) -> int:
             emit(line)
         if "stem4d" in phases:
             emit(timed(phase_stem4d, tmp, gpu))
+        if "stem4d_invert_deep" in phases:
+            line, path_launches["stem4d_invert_deep"] = timed(phase_stem4d_invert_deep, tmp,
+                                                              gpu)
+            emit(line)
         if "c5" in phases:
             line, by_run = timed(phase_c5, tmp, gpu)
             path_launches.update(c5=by_run["panel"], c5_absorptive_64=by_run["absorptive"])
@@ -4765,7 +5149,7 @@ def main(argv=None) -> int:
         if ph is not None:
             row["launches"], row["launches_phase"] = path_launches[ph][name], ph
     if set(PHASES) <= set(phases):
-        off_path = (OFF_PATH + unrouted_store_kernels() + unrouted_panel_kernels()
+        off_path = (OFF_PATH + unrouted_adjoint_kernels() + unrouted_panel_kernels()
                     + unrouted_step_kernels())
         idle = [name for name, row in rows.items()
                 if name not in off_path and not row["launches"]]

@@ -1,4 +1,4 @@
-// The whole-loop adjoint of the multislice scan, for Hopper (sm_90a): six
+// The whole-loop adjoint of the multislice scan, for Hopper (sm_90a): eight
 // cooperative kernels that compute their own 2-D FFT (no cuFFT), and one
 // that times grid barriers alone (grid_barrier_kernel, on no path).  Four
 // are built from the row and column tile passes of fused_fft.cuh:
@@ -14,19 +14,27 @@
 //                         s_k from its checkpoint, then the reverse loop over
 //                         them (replaces ::_bwd_scan_kernel).
 //
-// Two compute the store pair's functions again on the wide transform of
+// Four compute the same functions again on the wide transform of
 // fused_fft.cuh (one 1-D transform a pair of warps), so that one wave fills
-// the card:
+// the card; two sweeps (wide_forward_sweep, wide_reverse_sweep) carry the
+// loops of all four:
 //
 //   wide_scan_store_kernel     scan_store_kernel's function (also replaces
 //                              ::_sfwd_kernel);
 //   wide_scan_bwd_store_kernel scan_bwd_store_kernel's (also replaces
-//                              ::_bwd_store_kernel).
+//                              ::_bwd_store_kernel);
+//   wide_scan_ck_kernel        scan_ck_kernel's (also replaces ::_ck_kernel);
+//   wide_scan_bwd_ck_kernel    scan_bwd_ck_kernel's (also replaces
+//                              ::_bwd_scan_kernel); its carry stays in the row
+//                              phases' order across segment boundaries, where
+//                              the tile kernel takes it back to natural order
+//                              and out again (one row pass and one barrier more
+//                              a segment).
 //
-// kernels/adjoint_scan.STORE_ROUTE picks "tile" or "wide" for each of the
-// pair by (n, waves) from H100 rows, before the launch.  What held the tile
-// kernels back at config 3's one wave of 512^2, and what the wide kernels do
-// about it:
+// kernels/adjoint_scan.STORE_ROUTE and SEG_ROUTE pick "tile" or "wide" for
+// each kernel of a pair by (n, waves) from H100 rows, before the launch.  What
+// held the tile kernels back at config 3's one wave of 512^2, and what the
+// wide kernels do about it:
 //  1. Half the card idle: a 4,096-element tile a block of 256 threads gives
 //     64 blocks a 512^2 wave.  Here a row item is one row a pair of warps
 //     and a column item four columns a block of four pairs: one wave is 512
@@ -293,95 +301,118 @@ __global__ void __launch_bounds__(kThreads) scan_bwd_ck_kernel(BwdArgs a) {
   }
 }
 
-// ---- the wide kernels: rows 9 and 10 redesigned ------------------------------
+// ---- the wide kernels: rows 9 to 12 redesigned -----------------------------
 //
 // Row items are one row a pair of warps, column items four columns a block
 // (fused_fft.cuh, "the wide transform"); the row functions wide_fwd_row and
 // wide_bwd_row are fused_fft.cuh's, shared with fused_step.cu's step kernels.
+// The two sweeps below are the wide counterparts of forward_sweep and
+// reverse_sweep; the four kernels are thin callers of them.
 
-// The store forward (row 9): scan_store_kernel's function, S slices of two
-// passes and two grid barriers, then the last inverse row pass.
-template <int LOG2N>
-__global__ void __launch_bounds__(kThreads) wide_scan_store_kernel(FwdArgs a) {
+// The wide forward loop over nsl slices from v0, in place in work (B, N, N).
+// in: the incoming waves, in_wave_stride elements apart.  keep (may be
+// nullptr with neither flag): with STORE_S the s_k of every slice, at keep +
+// b * keep_wave_stride + k * plane; with STORE_IN the wave entering every
+// slice k with k % seg == 0, at keep + b * keep_wave_stride + (k / seg) *
+// plane.  finish: run the last slice's column phase and the final inverse
+// row phase, so work holds the exit wave in natural order; otherwise stop
+// after the last slice's s is stored (STORE_S: a recompute needs no more),
+// leaving work undefined.  Barriers: 2 per slice and none after the last row
+// phase (2 * nsl when finish, 2 * (nsl - 1) otherwise).
+template <int LOG2N, bool STORE_S, bool STORE_IN>
+__device__ void wide_forward_sweep(cg::grid_group& grid, float2* tile, const float2* tw,
+                                   const WidePlace& t, const SweepArgs& sw, const float2* in,
+                                   int64_t in_wave_stride, float2* work, int v0, int nsl,
+                                   float2* keep, int64_t keep_wave_stride, int seg, bool finish) {
   using W = Wide<LOG2N>;
   constexpr int N = W::N;
   constexpr int64_t kPlane = int64_t{1} << (2 * LOG2N);
-  __shared__ float2 tile[W::kCols * W::kColStride];
-  __shared__ float2 tw[N];  // the staged table: N - 1 entries
-  cg::grid_group grid = cg::this_grid();
-  init_staged_twiddles<LOG2N, kThreads>(tw);
-  __syncthreads();
-  const SweepArgs& sw = a.sweep;
-  const WidePlace t = wide_place(tile, W::kColStride);
   const int64_t rows = sw.nwaves * N;
   const int64_t items = sw.nwaves * (N / W::kCols);
   const int64_t first = blockIdx.x + static_cast<int64_t>(threadIdx.x >> 6) * gridDim.x;
   const int64_t step = static_cast<int64_t>(gridDim.x) * kWidePairs;
-  for (int k = 0; k <= a.nslices; ++k) {
-    const bool last = k == a.nslices;
+  const int last = finish ? nsl : nsl - 1;  // the last row phase
+  for (int k = 0; k <= last; ++k) {
+    const bool tail = k == nsl;  // the final inverse row phase
     for (int64_t u = first; u < rows; u += step) {  // u = b N + y
       const int64_t b = u >> LOG2N;
       const int64_t y = u & (N - 1);
-      float2* s = last ? nullptr : a.keep + (b * a.nslices + k) * kPlane + y * N;
-      const float* v = last ? nullptr : sw.v + k * kPlane + y * N;
-      wide_fwd_row<LOG2N>(tw, (k == 0 ? a.psi0 : a.out) + u * N, a.out + u * N, s, v, sw.sigma,
-                          k > 0, t);
+      const float2* src = k == 0 ? in + b * in_wave_stride + y * N : work + u * N;
+      float2* kept = nullptr;
+      if (STORE_S && !tail) kept = keep + b * keep_wave_stride + k * kPlane + y * N;
+      if (STORE_IN && !tail && k % seg == 0) {
+        kept = keep + b * keep_wave_stride + (k / seg) * kPlane + y * N;
+      }
+      const float* v = tail ? nullptr : sw.v + (v0 + k) * kPlane + y * N;
+      float2* dst = finish || k < nsl - 1 ? work + u * N : nullptr;
+      wide_fwd_row<LOG2N, STORE_S, STORE_IN>(tw, src, dst, kept, v, sw.sigma, k > 0, t);
     }
-    if (last) break;
+    if (k == last) break;
     grid.sync();
     for (int64_t i = blockIdx.x; i < items; i += gridDim.x) {
       const int64_t b = i / (N / W::kCols);
       const int c0 = static_cast<int>(i % (N / W::kCols)) * W::kCols;
-      wide_col_item<LOG2N>(tile, tw, a.out + b * kPlane, c0, sw.prop + b * sw.p_wave_stride,
+      wide_col_item<LOG2N>(tile, tw, work + b * kPlane, c0, sw.prop + b * sw.p_wave_stride,
                            false, t);
     }
     grid.sync();
   }
 }
 
-// The reverse loop over the stored s (row 10): scan_bwd_store_kernel's
-// function.  A pair carries one row through the waves of its wave group and
-// sums their dV in registers; with G > 1 groups each writes a partial plane,
-// added in the order 0, 1, ... after the next barrier (reverse_sweep's rule).
+// bar = forward x of g, row by row (natural in, each row's bit-reversed x
+// spectrum out): the carry's order inside the wide reverse loop.
 template <int LOG2N>
-__global__ void __launch_bounds__(kThreads) wide_scan_bwd_store_kernel(BwdArgs a) {
+__device__ void wide_seed_rows(const float2* tw, const WidePlace& t, const float2* g, float2* bar,
+                               int64_t nwaves) {
+  using W = Wide<LOG2N>;
+  constexpr int N = W::N;
+  const int64_t rows = nwaves * N;
+  const int64_t first = blockIdx.x + static_cast<int64_t>(threadIdx.x >> 6) * gridDim.x;
+  const int64_t step = static_cast<int64_t>(gridDim.x) * kWidePairs;
+  for (int64_t u = first; u < rows; u += step) {
+    float2 x[W::R];
+    wide_load_row<LOG2N>(x, g + u * N, t);
+    wide_fft_forward<LOG2N>(x, tw, t);
+    wide_store_row<LOG2N>(x, bar + u * N, t);
+  }
+}
+
+// The wide reverse loop over the nsl slices from v0, last to first, on the
+// carry bar (B, N, N), which enters and leaves in the row phases' order
+// (each row's x spectrum, bit-reversed), or leaves in natural order when v0
+// == 0 (dpsi0): no pass of its own at a segment boundary.  A pair carries
+// one row through the waves of its wave group and sums their dV in
+// registers; with G > 1 groups each writes a partial plane, added in the
+// order 0, 1, ... after the next barrier (reverse_sweep's rule), those of
+// slice v0 after the last barrier.  s_k of slice v0 + k at s + b *
+// s_wave_stride + k * plane; dV of slice v0 + k at dv + (v0 + k) * plane.
+// Barriers: 2 * nsl, the last after the last row phase.
+template <int LOG2N>
+__device__ void wide_reverse_sweep(cg::grid_group& grid, float2* tile, const float2* tw,
+                                   const WidePlace& t, const SweepArgs& sw, const GroupArgs& ga,
+                                   float2* bar, int v0, int nsl, const float2* s,
+                                   int64_t s_wave_stride, float* dv) {
   using W = Wide<LOG2N>;
   constexpr int N = W::N;
   constexpr int64_t kPlane = int64_t{1} << (2 * LOG2N);
-  __shared__ float2 tile[W::kCols * W::kColStride];
-  __shared__ float2 tw[N];
-  cg::grid_group grid = cg::this_grid();
-  init_staged_twiddles<LOG2N, kThreads>(tw);
-  __syncthreads();
-  const SweepArgs& sw = a.sweep;
-  const GroupArgs& ga = a.groups;
-  const WidePlace t = wide_place(tile, W::kColStride);
-  const int64_t rows = sw.nwaves * N;
   const int64_t items = sw.nwaves * (N / W::kCols);
   const int64_t first = blockIdx.x + static_cast<int64_t>(threadIdx.x >> 6) * gridDim.x;
   const int64_t step = static_cast<int64_t>(gridDim.x) * kWidePairs;
-  for (int64_t u = first; u < rows; u += step) {  // bar = forward x of g
-    float2 x[W::R];
-    wide_load_row<LOG2N>(x, a.g + u * N, t);
-    wide_fft_forward<LOG2N>(x, tw, t);
-    wide_store_row<LOG2N>(x, a.dpsi + u * N, t);
-  }
-  grid.sync();
   const bool partial = ga.ngroups > 1;
   const int64_t group_rows = static_cast<int64_t>(ga.ngroups) * N;
-  for (int k = a.nslices - 1; k >= 0; --k) {
+  for (int k = nsl - 1; k >= 0; --k) {
     for (int64_t i = blockIdx.x; i < items; i += gridDim.x) {
       const int64_t b = i / (N / W::kCols);
       const int c0 = static_cast<int>(i % (N / W::kCols)) * W::kCols;
-      wide_col_item<LOG2N>(tile, tw, a.dpsi + b * kPlane, c0, sw.prop + b * sw.p_wave_stride,
-                           true, t);
+      wide_col_item<LOG2N>(tile, tw, bar + b * kPlane, c0, sw.prop + b * sw.p_wave_stride, true,
+                           t);
     }
-    if (partial && k < a.nslices - 1) {
-      reduce_partials<LOG2N>(ga.part, a.dv + (k + 1) * kPlane, ga.ngroups);
+    if (partial && k < nsl - 1) {
+      reduce_partials<LOG2N>(ga.part, dv + (v0 + k + 1) * kPlane, ga.ngroups);
     }
     grid.sync();
-    const float* vk = sw.v + k * kPlane;
-    float* out = partial ? ga.part : a.dv + k * kPlane;
+    const float* vk = sw.v + (v0 + k) * kPlane;
+    float* out = partial ? ga.part : dv + (v0 + k) * kPlane;
     for (int64_t u = first; u < group_rows; u += step) {  // u = group N + y
       const int64_t gi = u >> LOG2N;
       const int64_t y = u & (N - 1);
@@ -395,9 +426,9 @@ __global__ void __launch_bounds__(kThreads) wide_scan_bwd_store_kernel(BwdArgs a
         vv[m] = __ldg(vk + y * N + W::H * t.w + t.lane + 32 * m);
       }
       for (int64_t b = b0; b < b1; ++b) {
-        float2* row = a.dpsi + (b * N + y) * N;
-        wide_bwd_row<LOG2N>(tw, row, row, a.keep + (b * a.nslices + k) * kPlane + y * N, vv,
-                            sw.sigma, k > 0, acc, t);
+        float2* row = bar + (b * N + y) * N;
+        wide_bwd_row<LOG2N>(tw, row, row, s + b * s_wave_stride + k * kPlane + y * N, vv,
+                            sw.sigma, v0 + k > 0, acc, t);
       }
       float* o = out + (partial ? gi * kPlane : 0) + y * N;
 #pragma unroll
@@ -405,7 +436,87 @@ __global__ void __launch_bounds__(kThreads) wide_scan_bwd_store_kernel(BwdArgs a
     }
     grid.sync();
   }
-  if (partial) reduce_partials<LOG2N>(ga.part, a.dv, ga.ngroups);
+  if (partial) reduce_partials<LOG2N>(ga.part, dv + v0 * kPlane, ga.ngroups);
+}
+
+// The store forward (row 9): scan_store_kernel's function, S slices of two
+// passes and two grid barriers, then the last inverse row pass.
+template <int LOG2N>
+__global__ void __launch_bounds__(kThreads) wide_scan_store_kernel(FwdArgs a) {
+  using W = Wide<LOG2N>;
+  constexpr int64_t kPlane = int64_t{1} << (2 * LOG2N);
+  __shared__ float2 tile[W::kCols * W::kColStride];
+  __shared__ float2 tw[W::N];  // the staged table: N - 1 entries
+  cg::grid_group grid = cg::this_grid();
+  init_staged_twiddles<LOG2N, kThreads>(tw);
+  __syncthreads();
+  const WidePlace t = wide_place(tile, W::kColStride);
+  wide_forward_sweep<LOG2N, true, false>(grid, tile, tw, t, a.sweep, a.psi0, kPlane, a.out, 0,
+                                         a.nslices, a.keep, a.nslices * kPlane, 1, true);
+}
+
+// The reverse loop over the stored s (row 10): scan_bwd_store_kernel's
+// function: the forward x of g, a barrier, the reverse loop over all S.
+template <int LOG2N>
+__global__ void __launch_bounds__(kThreads) wide_scan_bwd_store_kernel(BwdArgs a) {
+  using W = Wide<LOG2N>;
+  constexpr int64_t kPlane = int64_t{1} << (2 * LOG2N);
+  __shared__ float2 tile[W::kCols * W::kColStride];
+  __shared__ float2 tw[W::N];
+  cg::grid_group grid = cg::this_grid();
+  init_staged_twiddles<LOG2N, kThreads>(tw);
+  __syncthreads();
+  const WidePlace t = wide_place(tile, W::kColStride);
+  wide_seed_rows<LOG2N>(tw, t, a.g, a.dpsi, a.sweep.nwaves);
+  grid.sync();
+  wide_reverse_sweep<LOG2N>(grid, tile, tw, t, a.sweep, a.groups, a.dpsi, 0, a.nslices, a.keep,
+                            a.nslices * kPlane, a.dv);
+}
+
+// The checkpointed forward (row 11): scan_ck_kernel's function, the store
+// forward's loop keeping the wave entering every seg-th slice instead of s.
+template <int LOG2N>
+__global__ void __launch_bounds__(kThreads) wide_scan_ck_kernel(FwdArgs a) {
+  using W = Wide<LOG2N>;
+  constexpr int64_t kPlane = int64_t{1} << (2 * LOG2N);
+  __shared__ float2 tile[W::kCols * W::kColStride];
+  __shared__ float2 tw[W::N];
+  cg::grid_group grid = cg::this_grid();
+  init_staged_twiddles<LOG2N, kThreads>(tw);
+  __syncthreads();
+  const WidePlace t = wide_place(tile, W::kColStride);
+  wide_forward_sweep<LOG2N, false, true>(grid, tile, tw, t, a.sweep, a.psi0, kPlane, a.out, 0,
+                                         a.nslices, a.keep, (a.nslices / a.seg) * kPlane, a.seg,
+                                         true);
+}
+
+// The reverse loop over the checkpoints (row 12): scan_bwd_ck_kernel's
+// function.  Per segment i, last to first: its s_k recomputed from ck[:, i]
+// into sbuf (the forward x of g shares the last segment's first row phase:
+// they touch no common plane), a barrier, then the reverse loop over the
+// segment.  The carry stays in dpsi in the row phases' order across the
+// segment boundaries; slice 0's last row phase leaves it natural.  Barriers
+// per segment: 2 seg - 1 + 2 seg.
+template <int LOG2N>
+__global__ void __launch_bounds__(kThreads) wide_scan_bwd_ck_kernel(BwdArgs a) {
+  using W = Wide<LOG2N>;
+  constexpr int64_t kPlane = int64_t{1} << (2 * LOG2N);
+  __shared__ float2 tile[W::kCols * W::kColStride];
+  __shared__ float2 tw[W::N];
+  cg::grid_group grid = cg::this_grid();
+  init_staged_twiddles<LOG2N, kThreads>(tw);
+  __syncthreads();
+  const WidePlace t = wide_place(tile, W::kColStride);
+  wide_seed_rows<LOG2N>(tw, t, a.g, a.dpsi, a.sweep.nwaves);
+  const int nseg = a.nslices / a.seg;
+  for (int i = nseg - 1; i >= 0; --i) {
+    wide_forward_sweep<LOG2N, true, false>(grid, tile, tw, t, a.sweep, a.keep + i * kPlane,
+                                           nseg * kPlane, a.work, i * a.seg, a.seg, a.sbuf,
+                                           a.seg * kPlane, 1, false);
+    grid.sync();
+    wide_reverse_sweep<LOG2N>(grid, tile, tw, t, a.sweep, a.groups, a.dpsi, i * a.seg, a.seg,
+                              a.sbuf, a.seg * kPlane, a.dv);
+  }
 }
 
 // The grid barriers alone, for measurements (on no path): `rounds` barriers
@@ -453,21 +564,25 @@ int launch_bwd(int device, BwdArgs a, bool checkpoints, cudaStream_t stream) {
 // A wide kernel over B waves: every resident block, at most one a column
 // item (B N / 4: the row items then take four a block).
 template <int LOG2N>
-int launch_wide_fwd(int device, FwdArgs a, cudaStream_t stream) {
-  return launch_cooperative(reinterpret_cast<const void*>(wide_scan_store_kernel<LOG2N>), device,
-                            a, a.sweep.nwaves, (1 << LOG2N) / kWidePairs, stream);
+int launch_wide_fwd(int device, FwdArgs a, bool checkpoints, cudaStream_t stream) {
+  const void* kernel = checkpoints
+                           ? reinterpret_cast<const void*>(wide_scan_ck_kernel<LOG2N>)
+                           : reinterpret_cast<const void*>(wide_scan_store_kernel<LOG2N>);
+  return launch_cooperative(kernel, device, a, a.sweep.nwaves, (1 << LOG2N) / kWidePairs, stream);
 }
 
 template <int LOG2N>
-int launch_wide_bwd(int device, BwdArgs a, cudaStream_t stream) {
-  return launch_cooperative(reinterpret_cast<const void*>(wide_scan_bwd_store_kernel<LOG2N>),
-                            device, a, a.sweep.nwaves, (1 << LOG2N) / kWidePairs, stream);
+int launch_wide_bwd(int device, BwdArgs a, bool checkpoints, cudaStream_t stream) {
+  const void* kernel = checkpoints
+                           ? reinterpret_cast<const void*>(wide_scan_bwd_ck_kernel<LOG2N>)
+                           : reinterpret_cast<const void*>(wide_scan_bwd_store_kernel<LOG2N>);
+  return launch_cooperative(kernel, device, a, a.sweep.nwaves, (1 << LOG2N) / kWidePairs, stream);
 }
 
 // out[0..3] = registers per thread, static shared bytes, local bytes per
 // thread and resident blocks of kernel `which` (0 store, 1 backward over the
 // store, 2 checkpoints, 3 backward over the checkpoints, 4 and 5 the wide
-// kernels of the store pair).
+// kernels of the store pair, 6 and 7 those of the segment pair).
 template <int LOG2N>
 int kernel_info(int device, int which, int* out) {
   const void* kernels[] = {reinterpret_cast<const void*>(scan_store_kernel<LOG2N>),
@@ -475,8 +590,10 @@ int kernel_info(int device, int which, int* out) {
                            reinterpret_cast<const void*>(scan_ck_kernel<LOG2N>),
                            reinterpret_cast<const void*>(scan_bwd_ck_kernel<LOG2N>),
                            reinterpret_cast<const void*>(wide_scan_store_kernel<LOG2N>),
-                           reinterpret_cast<const void*>(wide_scan_bwd_store_kernel<LOG2N>)};
-  if (which < 0 || which > 5) return cudaErrorInvalidValue;
+                           reinterpret_cast<const void*>(wide_scan_bwd_store_kernel<LOG2N>),
+                           reinterpret_cast<const void*>(wide_scan_ck_kernel<LOG2N>),
+                           reinterpret_cast<const void*>(wide_scan_bwd_ck_kernel<LOG2N>)};
+  if (which < 0 || which > 7) return cudaErrorInvalidValue;
   cudaFuncAttributes attr;
   cudaError_t err = cudaFuncGetAttributes(&attr, kernels[which]);
   if (err != cudaSuccess) return err;
@@ -569,7 +686,7 @@ int fdes_wide_scan_store_c64(int device, int n, const void* psi0, const void* v,
   a.keep = static_cast<float2*>(keep);
   a.nslices = nslices;
   a.seg = 1;
-  FDES_DISPATCH_N(n, launch_wide_fwd<L>(device, a, static_cast<cudaStream_t>(stream)))
+  FDES_DISPATCH_N(n, launch_wide_fwd<L>(device, a, false, static_cast<cudaStream_t>(stream)))
 }
 
 int fdes_wide_scan_bwd_store_c64(int device, int n, const void* keep, const void* v,
@@ -594,7 +711,52 @@ int fdes_wide_scan_bwd_store_c64(int device, int n, const void* keep, const void
   a.sbuf = nullptr;
   a.nslices = nslices;
   a.seg = 1;
-  FDES_DISPATCH_N(n, launch_wide_bwd<L>(device, a, static_cast<cudaStream_t>(stream)))
+  FDES_DISPATCH_N(n, launch_wide_bwd<L>(device, a, false, static_cast<cudaStream_t>(stream)))
+}
+
+// The segment pair on the wide kernels: the forward as fdes_scan_fwd_keep_c64
+// with seg > 0 (keep = the checkpoints), the backward as fdes_scan_bwd_c64
+// with seg > 0 (work and sbuf its scratch).
+int fdes_wide_scan_ck_c64(int device, int n, const void* psi0, const void* v, const void* prop,
+                          void* out, void* ck, double sigma, int64_t nwaves, int nslices, int seg,
+                          int64_t p_wave_stride, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  if (nslices < 1 || nwaves < 1 || seg < 1 || nslices % seg != 0) return cudaErrorInvalidValue;
+  FwdArgs a;
+  a.sweep = sweep_args(v, prop, p_wave_stride, nwaves, sigma);
+  a.psi0 = static_cast<const float2*>(psi0);
+  a.out = static_cast<float2*>(out);
+  a.keep = static_cast<float2*>(ck);
+  a.nslices = nslices;
+  a.seg = seg;
+  FDES_DISPATCH_N(n, launch_wide_fwd<L>(device, a, true, static_cast<cudaStream_t>(stream)))
+}
+
+int fdes_wide_scan_bwd_ck_c64(int device, int n, const void* ck, const void* v, const void* prop,
+                              const void* g, void* dpsi, void* dv, void* part, void* work,
+                              void* sbuf, double sigma, int64_t nwaves, int nslices, int seg,
+                              int ngroups, int64_t p_wave_stride, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  if (nslices < 1 || nwaves < 1 || seg < 1 || nslices % seg != 0 || ngroups < 1 ||
+      ngroups > nwaves) {
+    return cudaErrorInvalidValue;
+  }
+  BwdArgs a;
+  a.sweep = sweep_args(v, prop, p_wave_stride, nwaves, sigma);
+  a.groups.part = static_cast<float*>(part);
+  a.groups.per_group = static_cast<int>((nwaves + ngroups - 1) / ngroups);
+  a.groups.ngroups = static_cast<int>((nwaves + a.groups.per_group - 1) / a.groups.per_group);
+  a.keep = static_cast<const float2*>(ck);
+  a.g = static_cast<const float2*>(g);
+  a.dpsi = static_cast<float2*>(dpsi);
+  a.dv = static_cast<float*>(dv);
+  a.work = static_cast<float2*>(work);
+  a.sbuf = static_cast<float2*>(sbuf);
+  a.nslices = nslices;
+  a.seg = seg;
+  FDES_DISPATCH_N(n, launch_wide_bwd<L>(device, a, true, static_cast<cudaStream_t>(stream)))
 }
 
 // `rounds` grid barriers over `blocks` blocks of the wide kernels' size, by

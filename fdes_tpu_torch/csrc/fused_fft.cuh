@@ -846,11 +846,15 @@ __device__ void wide_col_item(float2* tile, const float2* tw, float2* plane, int
 // One row of a forward pass in a pair: src (the bit-reversed x spectrum
 // when inverse, else natural psi) -> inverse x -> times t = exp(i sigma v),
 // stored to s (STORE_S; the store forward) -> forward x -> dst.  v ==
-// nullptr: the last row pass (natural order, into dst).
-template <int LOG2N, bool STORE_S = true>
+// nullptr: the last row pass (natural order, into dst).  STORE_IN (the
+// checkpointed forward): s != nullptr takes the row entering the slice
+// instead, natural psi before the transmit.  With STORE_S a dst of nullptr
+// ends the row after the s store (a recompute's last slice).
+template <int LOG2N, bool STORE_S = true, bool STORE_IN = false>
 __device__ __forceinline__ void wide_fwd_row(const float2* tw, const float2* src, float2* dst,
                                              float2* s, const float* __restrict__ v, float sigma,
                                              bool inverse, const WidePlace& t) {
+  static_assert(!(STORE_S && STORE_IN), "a row stores s or its input, not both");
   using W = Wide<LOG2N>;
   float2 x[W::R];
   float vv[W::R];
@@ -862,10 +866,16 @@ __device__ __forceinline__ void wide_fwd_row(const float2* tw, const float2* src
     for (int m = 0; m < W::R; ++m) vv[m] = __ldg(v + W::H * t.w + t.lane + 32 * m);
   }
   if (inverse) wide_fft_inverse<LOG2N>(x, tw, t);
+  if constexpr (STORE_IN) {
+    if (s != nullptr) wide_store_row<LOG2N>(x, s, t);
+  }
   if (v != nullptr) {
 #pragma unroll
     for (int m = 0; m < W::R; ++m) x[m] = transmit(x[m], sigma * vv[m]);
-    if constexpr (STORE_S) wide_store_row<LOG2N>(x, s, t);
+    if constexpr (STORE_S) {
+      wide_store_row<LOG2N>(x, s, t);
+      if (dst == nullptr) return;
+    }
     wide_fft_forward<LOG2N>(x, tw, t);
   }
   wide_store_row<LOG2N>(x, dst, t);

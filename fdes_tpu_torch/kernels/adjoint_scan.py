@@ -17,17 +17,20 @@ version beside it:
   dpsi0): per segment, last to first, the s_k recomputed from the checkpoint
   and the reverse loop over them (replaces ``_bwd_scan_kernel``).
 
-The store pair runs on one of two kernels each, picked before the launch by
-``store_route(n, B, kernel)`` from ``STORE_ROUTE``, a table of rows measured
-on the H100: "tile" (``scan_store_kernel``, ``scan_bwd_store_kernel``: the
+Each of the four runs on one of two kernels, picked before the launch from
+a table of rows measured on the H100 (``store_route(n, B, kernel)`` from
+``STORE_ROUTE`` for the store pair, ``seg_route(n, B, kernel)`` from
+``SEG_ROUTE`` for the segment pair): "tile" (``scan_store_kernel``,
+``scan_bwd_store_kernel``, ``scan_ck_kernel``, ``scan_bwd_ck_kernel``: the
 tile passes of ``csrc/fused_fft.cuh``, 4,096 elements a block) or "wide"
-(``wide_scan_store_kernel``, ``wide_scan_bwd_store_kernel``: one 1-D
-transform a pair of warps, so that one wave fills the card).  ``route=``
-names one for measurements; it is checked, and a launch the card refuses
-raises with nothing run in its place.  ``fused_scan_store.launches`` and
-``fused_scan_bwd_store.launches`` count the tile kernels' launches,
-``wide_scan_store.launches`` and ``wide_scan_bwd_store.launches`` the wide
-kernels'.
+(``wide_scan_store_kernel``, ``wide_scan_bwd_store_kernel``,
+``wide_scan_ck_kernel``, ``wide_scan_bwd_ck_kernel``: one 1-D transform a
+pair of warps, so that one wave fills the card).  ``route=`` names one for
+measurements; it is checked, and a launch the card refuses raises with
+nothing run in its place.  ``fused_scan_store.launches`` and the three
+others count the tile kernels' launches, ``wide_scan_store.launches``,
+``wide_scan_bwd_store.launches``, ``wide_scan_ck.launches`` and
+``wide_scan_bwd_ck.launches`` the wide kernels'.
 
 psi0 and g are (B, n, n) complex64, v_stack (S, n, n) real and shared by the
 waves, the propagator (n, n) or one per wave (B, n, n) (a tilt series), in
@@ -88,24 +91,38 @@ _ARGTYPES = {
     "fdes_wide_scan_bwd_store_c64": [
         _INT, _INT, _P, _P, _P, _P, _P, _P, _P, ctypes.c_double, _I64, _INT, _INT, _I64, _P,
     ],
+    "fdes_wide_scan_ck_c64": [_INT, _INT, _P, _P, _P, _P, _P, ctypes.c_double, _I64, _INT, _INT,
+                              _I64, _P],
+    "fdes_wide_scan_bwd_ck_c64": [
+        _INT, _INT, _P, _P, _P, _P, _P, _P, _P, _P, _P, ctypes.c_double, _I64, _INT, _INT, _INT,
+        _I64, _P,
+    ],
     "fdes_grid_barrier": [_INT, _INT, _INT, _INT, _P, _P],
     "fdes_adjoint_scan_info": [_INT, _INT, _INT, _P],
 }
 _entries: dict[str, object] = {}
 
 #: Past this many bytes of stored s_j (B*S*n*n*8) ``scan_diff_apply`` keeps
-#: checkpoints and recomputes instead.  Set from both pairs timed on one
-#: NVIDIA H100 80GB HBM3 at 700 W (chip_smoke.py phase engines, rows
-#: ``store_vs_segments``; PERF.md section 5): at 512^2 over 64-512 slices and
-#: 1-64 waves the segment pair took 1.40-1.51 times the store pair's time in
-#: all eleven rows, and the store pair's peak memory was its stack plus
-#: 0.9-1.7 GiB.  So the store pair runs whenever its stack fits; 32 GiB is
-#: the largest stack measured, and leaves the rest of the card's 80 GB to V,
-#: dV, the optimizer's state and the caller's other tensors.
+#: checkpoints and recomputes instead.  Set by memory: the segment pair runs
+#: every slice's forward once more, so it is never the faster.  Both pairs
+#: timed on one NVIDIA H100 80GB HBM3 at 700 W (chip_smoke.py phase engines,
+#: rows ``store_vs_segments``, 512^2, 64-512 slices, 1-64 waves; PERF.md
+#: section 5): with the store pair on its wide kernels and the segment pair
+#: on its tile kernels the segment pair took 1.54-2.7 times the store pair's
+#: time (2.2-2.7 at one wave); with the segment pair on its wide kernels
+#: up to 16 waves, 1.44-1.48 times in all eleven rows; with each kernel on
+#: its table's route (the segment pair's forward on the tile kernel at 512^2,
+#: as SEG_ROUTE's rows there say), 1.44-1.99 times (1.84-1.99 at one wave,
+#: which passes the cap only past 16,384 slices).  The store pair's peak memory was
+#: its stack plus 0.9-1.7 GiB.  So the store pair runs whenever its stack
+#: fits; 32 GiB is the largest stack measured, and leaves the rest of the
+#: card's 80 GB to V, dV, the optimizer's state and the caller's other
+#: tensors.
 STORE_CAP_BYTES = 32 * 1024**3
 
 KERNELS = ("scan_store_kernel", "scan_bwd_store_kernel", "scan_ck_kernel", "scan_bwd_ck_kernel",
-           "wide_scan_store_kernel", "wide_scan_bwd_store_kernel")
+           "wide_scan_store_kernel", "wide_scan_bwd_store_kernel", "wide_scan_ck_kernel",
+           "wide_scan_bwd_ck_kernel")
 
 #: Pairs of warps a block of the wide kernels (fused_step.PAIRS_PER_BLOCK).
 PAIRS_PER_BLOCK = fs.PAIRS_PER_BLOCK
@@ -129,6 +146,30 @@ STORE_ROUTE = {
     512: {1: (_W, _W), 3: (_W, _W), 8: (_W, _W), 16: (_W, _W), 64: (_T, _W)},
     1024: {1: (_W, _W), 3: (_W, _W), 8: (_W, _W), 16: (_W, _W), 64: (_W, _W)},
 }
+#: The kernel each of the segment pair runs on ("tile": ``scan_ck_kernel`` /
+#: ``scan_bwd_ck_kernel``; "wide": ``wide_scan_ck_kernel`` /
+#: ``wide_scan_bwd_ck_kernel``), as {waves: (forward, backward)}, read as
+#: STORE_ROUTE is: the faster of both kernels timed in turns on an NVIDIA
+#: H100 80GB HBM3 at 700 W, 16 random slices in segments of 4 a row
+#: (chip_smoke.py kernels_adjoint, ``seg_route_rows``; PERF.md section 6).
+#: The pair runs only past STORE_CAP_BYTES, so a row is kept only where its
+#: count of waves passes the cap within SEG_DEPTH slices (``seg_depth``):
+#: 1024^2 from 8 waves (513 slices; a tilt series of 8, or a probe chunk),
+#: 512^2 from 64 (257); every size has a row at 128 waves, the stem4d
+#: inverse's probe chunk (pick_probe_chunk), which 256^2 passes from 513
+#: slices and 128^2 only from 2,049.  Fewer waves than a size's first row
+#: take that row (fused_step.route_row).  The wide kernels win at 1024^2
+#: (forward 2-11 %, backward 10-15 %), the wide backward at 512^2 (6-7 %)
+#: and the wide forward at 128^2 (7 %); the tile kernels the rest, by 1-8 %.
+SEG_ROUTE = {
+    128: {128: (_W, _T)},
+    256: {128: (_T, _T)},
+    512: {64: (_T, _W), 128: (_T, _W)},
+    1024: {8: (_W, _W), 16: (_W, _W), 64: (_W, _W), 128: (_W, _W)},
+}
+#: The deepest stack for which SEG_ROUTE keeps rows: twice config 5's 512
+#: slices, the deepest configuration of the repo.
+SEG_DEPTH = 1024
 ROUTES = ("tile", "wide")
 
 
@@ -202,6 +243,21 @@ def store_route(n: int, b: int, kernel: str) -> str:
     return fs.route_row(STORE_ROUTE[n], b)[kernel == "bwd_store"]
 
 
+def seg_route(n: int, b: int, kernel: str) -> str:
+    """The route ("tile" or "wide") of ``kernel`` ("ck": the checkpointed
+    forward, "bwd_ck": its backward) for B waves of an n x n grid, from
+    SEG_ROUTE: a function of (n, b) alone."""
+    if kernel not in ("ck", "bwd_ck"):
+        raise ValueError(f"seg_route: kernel must be 'ck' or 'bwd_ck', got {kernel!r}")
+    return fs.route_row(SEG_ROUTE[n], b)[kernel == "bwd_ck"]
+
+
+def seg_depth(n: int, b: int) -> int:
+    """The fewest slices at which B waves of an n x n grid take the segment
+    pair: their s stack, B*S*n*n*8 bytes, past STORE_CAP_BYTES."""
+    return STORE_CAP_BYTES // (b * n * n * 8) + 1
+
+
 def grid_barrier(blocks: int, rounds: int, light: bool = False,
                  device: torch.device | str = "cuda") -> None:
     """``rounds`` grid barriers over ``blocks`` blocks of the wide kernels'
@@ -222,9 +278,11 @@ def pick_seg(nslices: int, n: int | None = None) -> int:
     that keeps the fewest planes per wave, S/K checkpoints and K recomputed
     s_k (least near sqrt(S)); of two that keep as many, the longer.
 
-    The segment pair is what runs when memory is short, so memory decides.  A
-    longer segment saves one row pass and three grid barriers per segment of
-    the 2S passes, a few per cent: that only breaks ties.  ``n`` is taken for
+    The segment pair is what runs when memory is short, so memory decides.  On
+    the tile kernel a longer segment saves one row pass and three grid
+    barriers per segment of the 2S passes, a few per cent; the wide backward
+    keeps its carry in the row phases' order across segments and saves one
+    grid barrier per segment.  Either way that only breaks ties.  ``n`` is taken for
     the JAX package's signature; the kernels put no cap of their own on K at
     any size.
     """
@@ -348,7 +406,12 @@ def _forward_keep(what, counter, psi0, v_stack, propagator, sigma, seg, prepared
     keep = torch.empty((b, nslices // seg if seg else nslices, n, n), dtype=psi0.dtype,
                        device=psi0.device)
     pointers = (psi0.data_ptr(), v32.data_ptr(), pp.data_ptr(), out.data_ptr(), keep.data_ptr())
-    if not seg and (route or store_route(n, b, "store")) == "wide":
+    route = route or (seg_route(n, b, "ck") if seg else store_route(n, b, "store"))
+    if route == "wide" and seg:
+        _launch("fdes_wide_scan_ck_c64", psi0.device, n, *pointers, float(sigma), b, nslices,
+                seg, p_stride)
+        wide_scan_ck.launches += 1
+    elif route == "wide":
         _launch("fdes_wide_scan_store_c64", psi0.device, n, *pointers, float(sigma), b, nslices,
                 p_stride)
         wide_scan_store.launches += 1
@@ -387,18 +450,29 @@ def wide_scan_store(
 
 def fused_scan_ck(
     psi0: torch.Tensor, v_stack: torch.Tensor, propagator: torch.Tensor, sigma: float, seg: int,
-    *, prepared: torch.Tensor | None = None,
+    *, prepared: torch.Tensor | None = None, route: str | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """All S slices for all B waves in one launch, keeping the wave that
     enters every ``seg``-th slice: (exit waves, ck (B, S/seg, n, n)).  seg
-    must divide S."""
+    must divide S.  On CUDA the kernel that ``seg_route`` picks (``route``
+    names one instead: "tile" or "wide"), plain on the CPU."""
+    fs.check_route("fused_scan_ck", route)
     if seg < 1:
         raise ValueError(f"fused_scan_ck: seg must be at least 1, got {seg}")
     if not psi0.is_cuda:
         _operands("fused_scan_ck", psi0, v_stack, propagator, None, seg)
         return fused_scan_ck_ref(psi0, v_stack, propagator, sigma, seg)
     return _forward_keep("fused_scan_ck", fused_scan_ck, psi0, v_stack, propagator, sigma, seg,
-                         prepared)
+                         prepared, route)
+
+
+def wide_scan_ck(
+    psi0: torch.Tensor, v_stack: torch.Tensor, propagator: torch.Tensor, sigma: float, seg: int,
+    *, prepared: torch.Tensor | None = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """``fused_scan_ck`` on ``wide_scan_ck_kernel`` whatever the route table
+    says; plain on the CPU."""
+    return fused_scan_ck(psi0, v_stack, propagator, sigma, seg, prepared=prepared, route="wide")
 
 
 def _backward(what, counter, kernel, keep, v_stack, propagator, g, sigma, seg, prepared, groups,
@@ -409,9 +483,11 @@ def _backward(what, counter, kernel, keep, v_stack, propagator, g, sigma, seg, p
     if keep.dtype != g.dtype or tuple(keep.shape) != (b, kept_planes, n, n):
         raise ValueError(f"{what}: the kept waves are {keep.dtype} {tuple(keep.shape)}, expected "
                          f"{g.dtype} {(b, kept_planes, n, n)}")
-    wide = not seg and (route or store_route(n, b, "bwd_store")) == "wide"
+    route = route or (seg_route(n, b, "bwd_ck") if seg else store_route(n, b, "bwd_store"))
+    wide = route == "wide"
     if wide:
-        counter, kernel = wide_scan_bwd_store, "wide_scan_bwd_store_kernel"
+        counter, kernel = ((wide_scan_bwd_ck, "wide_scan_bwd_ck_kernel") if seg
+                           else (wide_scan_bwd_store, "wide_scan_bwd_store_kernel"))
     if groups is None:
         groups = wave_groups(b, n, kernel, g.device)
     if not 1 <= groups <= b:
@@ -425,7 +501,11 @@ def _backward(what, counter, kernel, keep, v_stack, propagator, g, sigma, seg, p
     sbuf = torch.empty((b, seg, n, n), dtype=g.dtype, device=dev) if seg else None
     pointers = (keep.data_ptr(), v32.data_ptr(), pp.data_ptr(), g.data_ptr(), dpsi.data_ptr(),
                 dv.data_ptr())
-    if wide:
+    if wide and seg:
+        _launch("fdes_wide_scan_bwd_ck_c64", dev, n, *pointers,
+                *(t.data_ptr() if t is not None else None for t in (part, work, sbuf)),
+                float(sigma), b, nslices, seg, groups, p_stride)
+    elif wide:
         _launch("fdes_wide_scan_bwd_store_c64", dev, n, *pointers,
                 part.data_ptr() if part is not None else None, float(sigma), b, nslices, groups,
                 p_stride)
@@ -479,21 +559,35 @@ def wide_scan_bwd_store(
 def fused_scan_bwd_ck(
     ck: torch.Tensor, v_stack: torch.Tensor, propagator: torch.Tensor, g: torch.Tensor,
     sigma: float, seg: int, *, prepared: torch.Tensor | None = None, groups: int | None = None,
+    route: str | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """(dV, dpsi0) of the whole loop from the checkpoints of
-    ``fused_scan_ck``, in one launch: every segment's slices run forward
-    once more, into scratch the wrapper allocates (B*(seg + 1) planes)."""
+    ``fused_scan_ck``, in one launch of the kernel that ``seg_route`` picks
+    (``route`` names one instead: "tile" or "wide"): every segment's slices
+    run forward once more, into scratch the wrapper allocates (B*(seg + 1)
+    planes).  ``groups`` as in ``fused_scan_bwd_store``."""
+    fs.check_route("fused_scan_bwd_ck", route)
     if seg < 1:
         raise ValueError(f"fused_scan_bwd_ck: seg must be at least 1, got {seg}")
     if not g.is_cuda:
         _check_backward_cpu("fused_scan_bwd_ck", ck, v_stack, propagator, g, seg)
         return fused_scan_bwd_ck_ref(ck, v_stack, propagator, g, sigma, seg)
     return _backward("fused_scan_bwd_ck", fused_scan_bwd_ck, "scan_bwd_ck_kernel", ck, v_stack,
-                     propagator, g, sigma, seg, prepared, groups)
+                     propagator, g, sigma, seg, prepared, groups, route)
+
+
+def wide_scan_bwd_ck(
+    ck: torch.Tensor, v_stack: torch.Tensor, propagator: torch.Tensor, g: torch.Tensor,
+    sigma: float, seg: int, *, prepared: torch.Tensor | None = None, groups: int | None = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """``fused_scan_bwd_ck`` on ``wide_scan_bwd_ck_kernel`` whatever the
+    route table says; plain on the CPU."""
+    return fused_scan_bwd_ck(ck, v_stack, propagator, g, sigma, seg, prepared=prepared,
+                             groups=groups, route="wide")
 
 
 WRAPPERS = (fused_scan_store, fused_scan_bwd_store, fused_scan_ck, fused_scan_bwd_ck,
-            wide_scan_store, wide_scan_bwd_store)
+            wide_scan_store, wide_scan_bwd_store, wide_scan_ck, wide_scan_bwd_ck)
 for _w in WRAPPERS:
     _w.launches = 0
 

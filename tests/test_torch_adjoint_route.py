@@ -1,7 +1,8 @@
-"""The wide kernels of the whole-loop adjoint's store pair
-(``wide_scan_store_kernel``, ``wide_scan_bwd_store_kernel`` in
+"""The wide kernels of the whole-loop adjoint (the store pair
+``wide_scan_store_kernel``, ``wide_scan_bwd_store_kernel`` and the segment
+pair ``wide_scan_ck_kernel``, ``wide_scan_bwd_ck_kernel`` in
 csrc/adjoint_scan.cu, their transform in csrc/fused_fft.cuh) as a plain-torch
-model of their index maps, and the route between them and the tile kernels.
+model of their index maps, and the routes between them and the tile kernels.
 
 The model follows the kernels' data: warp w of a pair, lane l and register m
 hold element l + 32 m + (n/2) w of a row or column; the stage of half size
@@ -11,11 +12,15 @@ thread computing its own half of a butterfly from its partner's value (the
 other warp's, or lane l ^ h's), with twiddles read from the staged table as
 the kernels build it; a column item is four columns of a plane, loaded into
 a padded shared tile by the kernels' thread map.  It is held against
-``torch.fft.fft2`` in complex128, and its store recursion (forward with the
-s stack, reverse with dV summed over wave groups) in complex64 against the
-JAX package's store pair in interpret mode.  The kernels themselves are held
-against the plain versions on the card (the last test here, and
-chip_smoke.py's kernels_adjoint phase)."""
+``torch.fft.fft2`` in complex128, and its recursions in complex64 against the
+JAX package's kernels in interpret mode: the store pair (forward with the s
+stack, reverse with dV summed over wave groups) and the segment pair (the
+forward keeping the wave entering every seg-th slice; per segment, last to
+first, the s_k recomputed from the checkpoint into a buffer of seg planes,
+then the reverse loop over them, the carry kept in the row phases' order
+across segment boundaries).  The kernels themselves are held against the
+plain versions on the card (the last test here, and chip_smoke.py's
+kernels_adjoint phase)."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -29,6 +34,7 @@ from fdes_tpu.pallas import adjoint_scan as jadj  # noqa: E402
 from fdes_tpu_torch.kernels import _build  # noqa: E402
 from fdes_tpu_torch.kernels import adjoint_scan as adj  # noqa: E402
 from fdes_tpu_torch.kernels import fused_step as fs  # noqa: E402
+from fdes_tpu_torch.propagate import PROBE_CHUNK_TARGET  # noqa: E402
 
 SIGMA = interaction_sigma(300e3)
 EXACT = 1e-12  # complex128: the model against torch.fft, max |d| / max |ref|
@@ -217,41 +223,90 @@ def _model_store(psi0, v_stack, prepared, sigma):
     """wide_scan_store_kernel: (exit waves, s (B, S, n, n)).  The plane between
     passes is what the kernel keeps in its output: x spectrum bit-reversed
     after a row pass, y too inside a column item."""
-    n = psi0.shape[-1]
-    tw = _staged_twiddles(n, psi0.dtype)
-    work, kept = psi0, []
+    tw = _staged_twiddles(psi0.shape[-1], psi0.dtype)
+    return _model_forward_sweep(psi0, v_stack, prepared, sigma, tw, keep_s=True)
+
+
+def _model_forward_sweep(work, v_stack, prepared, sigma, tw, keep_s=False, seg=0, finish=True):
+    """wide_forward_sweep over the slices of v_stack from the incoming waves
+    ``work`` (natural order): (work, kept).  kept: with ``keep_s`` the s_k of
+    every slice (B, len, n, n); with ``seg`` the wave entering every seg-th
+    slice, natural psi before the transmit.  ``finish``: the last column
+    phase and the final inverse row phase run, work is the exit wave; else
+    the sweep stops after the last s_k (work is then None)."""
+    kept = []
     for k, v in enumerate(v_stack):
         psi = _rows_inverse(work, tw) if k else work
+        if seg and k % seg == 0:
+            kept.append(psi)
         s = _transmit(psi, v, sigma)
-        kept.append(s)
-        work = _col_pass(_rows_forward(s, tw), prepared, False, tw)
-    return _rows_inverse(work, tw), torch.stack(kept, dim=1)
+        if keep_s:
+            kept.append(s)
+        work = None
+        if finish or k < v_stack.shape[0] - 1:
+            work = _col_pass(_rows_forward(s, tw), prepared, False, tw)
+    out = _rows_inverse(work, tw) if finish else None
+    return out, torch.stack(kept, dim=1)
 
 
-def _model_bwd_store(s, v_stack, prepared, g, sigma, groups):
-    """wide_scan_bwd_store_kernel: (dV, dpsi0), dV summed over the waves of
-    each of ``groups`` wave groups in order, then over the groups in order."""
-    b, nslices, n = s.shape[0], s.shape[1], s.shape[-1]
-    tw = _staged_twiddles(n, g.dtype)
+def _model_ck(psi0, v_stack, prepared, sigma, seg):
+    """wide_scan_ck_kernel: (exit waves, ck (B, S/seg, n, n))."""
+    tw = _staged_twiddles(psi0.shape[-1], psi0.dtype)
+    return _model_forward_sweep(psi0, v_stack, prepared, sigma, tw, seg=seg)
+
+
+def _model_reverse_sweep(bar, s, v_stack, v0, prepared, sigma, groups, dv, tw):
+    """wide_reverse_sweep over the slices v0 .. v0 + len(s) - 1 of v_stack,
+    last to first, on the carry ``bar`` in the row phases' order (each row's
+    bit-reversed x spectrum); returns the carry in that order, or natural
+    after slice 0.  dV of each slice, summed over the waves of each of
+    ``groups`` wave groups in order, then over the groups in order, goes to
+    dv[v0 + k]."""
+    b, nsl, n = s.shape[0], s.shape[1], s.shape[-1]
     per = -(-b // groups)
-    bar = _rows_forward(g, tw)
-    dv = torch.empty(v_stack.shape, dtype=g.real.dtype)
-    for k in range(nslices - 1, -1, -1):
+    for k in range(nsl - 1, -1, -1):
         bar = _col_pass(bar, prepared, True, tw)
         bar_s = _rows_inverse(bar, tw)
         parts = []
         for g0 in range(0, b, per):
-            acc = torch.zeros(n, n, dtype=g.real.dtype)
+            acc = torch.zeros(n, n, dtype=bar.real.dtype)
             for w in range(g0, min(g0 + per, b)):
                 acc = acc + (bar_s[w] * s[w, k].conj()).imag
             parts.append(sigma * acc)
         total = parts[0]
         for part in parts[1:]:
             total = total + part
-        dv[k] = total
-        bar = _transmit(bar_s, v_stack[k], sigma, conj=True)
-        if k:
+        dv[v0 + k] = total
+        bar = _transmit(bar_s, v_stack[v0 + k], sigma, conj=True)
+        if v0 + k:
             bar = _rows_forward(bar, tw)
+    return bar
+
+
+def _model_bwd_store(s, v_stack, prepared, g, sigma, groups):
+    """wide_scan_bwd_store_kernel: (dV, dpsi0): the forward x of g, then the
+    reverse loop over every slice."""
+    tw = _staged_twiddles(s.shape[-1], g.dtype)
+    dv = torch.empty(v_stack.shape, dtype=g.real.dtype)
+    bar = _model_reverse_sweep(_rows_forward(g, tw), s, v_stack, 0, prepared, sigma, groups, dv,
+                               tw)
+    return dv, bar
+
+
+def _model_bwd_ck(ck, v_stack, prepared, g, sigma, seg, groups):
+    """wide_scan_bwd_ck_kernel: (dV, dpsi0).  The forward x of g; then per
+    segment, last to first, its s_k recomputed from ck[:, i] into sbuf (B,
+    seg, n, n; no column phase after the last) and the reverse loop over the
+    segment.  The carry crosses each boundary in the row phases' order: no
+    pass of its own there."""
+    tw = _staged_twiddles(ck.shape[-1], g.dtype)
+    dv = torch.empty(v_stack.shape, dtype=g.real.dtype)
+    bar = _rows_forward(g, tw)
+    for i in range(ck.shape[1] - 1, -1, -1):
+        _, sbuf = _model_forward_sweep(ck[:, i], v_stack[i * seg:(i + 1) * seg], prepared, sigma,
+                                       tw, keep_s=True, finish=False)
+        assert tuple(sbuf.shape) == (ck.shape[0], seg, *ck.shape[2:])
+        bar = _model_reverse_sweep(bar, sbuf, v_stack, i * seg, prepared, sigma, groups, dv, tw)
     return dv, bar
 
 
@@ -386,73 +441,197 @@ def test_wide_model_store_pair_equals_jax(b, per_wave_p, groups):
         np.testing.assert_allclose(got.numpy(), want, atol=ATOL * np.abs(want).max(), rtol=0)
 
 
-# ---- the route ---------------------------------------------------------------
+@pytest.mark.parametrize("b,seg,per_wave_p,groups", [
+    (1, 1, False, 1), (1, 2, False, 1), (1, 4, True, 1), (3, 1, True, 3), (3, 2, False, 2),
+    (3, 4, False, 2),
+])
+def test_wide_model_segment_pair_equals_jax(b, seg, per_wave_p, groups):
+    """complex64 through the model of the wide segment pair: exit waves and
+    checkpoints of its forward, dV (summed over wave groups in order) and
+    dpsi0 of its backward (the s_k recomputed per segment, the carry kept in
+    the row phases' order across the boundaries), against JAX's
+    _run_forward_ck and _run_backward (interpret mode) on the same inputs,
+    per wave where the propagator is per wave (dV then summed over the
+    waves).  4 slices: seg 1, 2 and 4 give four, two and one segments."""
+    n, nslices = 128, 4
+    psi, v, prop = _fields(n, b, nslices, seed=5 * b + seg, dtype=np.complex64)
+    rng = np.random.default_rng(23)
+    g = (rng.normal(size=(b, n, n)) + 1j * rng.normal(size=(b, n, n))).astype(np.complex64)
+    props = (np.stack([prop * np.exp(0.3j * i) for i in range(b)]).astype(np.complex64)
+             if per_wave_p else None)
+    calls = [(slice(i, i + 1), props[i]) for i in range(b)] if per_wave_p else [(slice(0, b),
+                                                                                  prop)]
+    want_out, want_ck, want_dpsi = [], [], []
+    want_dv = np.zeros((nslices, n, n), np.float32)
+    for waves, p in calls:
+        jp = jnp.asarray(p)
+        out, ckr, cki = jadj._run_forward_ck(jnp.asarray(psi[waves]), jnp.asarray(v), jp, SIGMA,
+                                             None, seg)
+        dv, dpsi = jadj._run_backward(ckr, cki, jnp.asarray(v), jp,
+                                      jnp.asarray(np.conj(g[waves])), SIGMA, None, seg)
+        want_out.append(np.asarray(out))
+        want_ck.append(np.asarray(ckr) + 1j * np.asarray(cki))
+        want_dpsi.append(np.conj(np.asarray(dpsi)))
+        want_dv += np.asarray(dv)
+    p_t = torch.as_tensor(np.ascontiguousarray(props if per_wave_p else prop))
+    prepared = fs.prepare_propagator(p_t)
+    out, ck = _model_ck(torch.as_tensor(psi), torch.as_tensor(v), prepared, SIGMA, seg)
+    assert tuple(ck.shape) == (b, nslices // seg, n, n)
+    assert torch.equal(ck[:, 0], torch.as_tensor(psi))  # the incoming wave itself
+    dv, dpsi = _model_bwd_ck(ck, torch.as_tensor(v), prepared, torch.as_tensor(g), SIGMA, seg,
+                             groups)
+    assert out.dtype == torch.complex64 and dv.dtype == torch.float32
+    for got, want in ((out, want_out), (ck, want_ck), (dpsi, want_dpsi), (dv, [want_dv])):
+        want = np.concatenate(want)
+        np.testing.assert_allclose(got.numpy(), want, atol=ATOL * np.abs(want).max(), rtol=0)
 
 
-def test_store_route_is_the_table():
-    """STORE_ROUTE covers the kernels' sizes and the measured wave counts;
-    store_route reads it by (n, b) alone: a measured count takes its row, a
-    count between rows the row below, one above the last the last, one
-    below the first the first; every entry names a route the library
-    launches, and each route's kernels are ones it builds."""
-    assert set(adj.STORE_ROUTE) == set(fs.SIZES)
-    for n, rows in adj.STORE_ROUTE.items():
+@pytest.mark.parametrize("seg", [1, 2, 3, 6])
+def test_wide_model_segment_pair_is_the_store_pair(seg):
+    """The wide segment pair runs the wide store pair's arithmetic, only
+    split into segments: through the model, on the same inputs and wave
+    groups, its exit waves, recomputed s_k, dV and dpsi0 are the store
+    pair's, bit for bit (complex128; chip_smoke.py holds the kernels to the
+    same on the card)."""
+    n, b, nslices = 128, 2, 6
+    psi, v, prop = (torch.as_tensor(a) for a in _fields(n, b, nslices, seed=40 + seg))
+    g = torch.as_tensor(_fields(n, b, 1, seed=50)[0])
+    prepared = prop[fs.bit_reversal(n)[:, None], fs.bit_reversal(n)[None, :]]  # in complex128
+    out_s, s = _model_store(psi, v, prepared, SIGMA)
+    dv_s, dpsi_s = _model_bwd_store(s, v, prepared, g, SIGMA, 2)
+    out_c, ck = _model_ck(psi, v, prepared, SIGMA, seg)
+    dv_c, dpsi_c = _model_bwd_ck(ck, v, prepared, g, SIGMA, seg, 2)
+    assert torch.equal(out_c, out_s)
+    assert torch.equal(dv_c, dv_s) and torch.equal(dpsi_c, dpsi_s)
+    # each checkpoint is the wave the store forward transmitted into s there
+    phase = v[::seg].to(torch.float64) * SIGMA
+    assert torch.allclose(ck * torch.polar(torch.ones_like(phase), phase), s[:, ::seg],
+                          rtol=0, atol=1e-12 * float(s.abs().max()))
+
+
+# ---- the routes --------------------------------------------------------------
+
+#: pair: (route table, its reader, the reader's two kernel names, the measured
+#: wave counts by size, the four wrappers (forward, backward, wide forward,
+#: wide backward), the tile and wide kernels)
+PAIRS = {
+    "store": (adj.STORE_ROUTE, adj.store_route, ("store", "bwd_store"),
+              dict.fromkeys(fs.SIZES, [1, 3, 8, 16, 64]),
+              (adj.fused_scan_store, adj.fused_scan_bwd_store, adj.wide_scan_store,
+               adj.wide_scan_bwd_store),
+              ("scan_store_kernel", "scan_bwd_store_kernel", "wide_scan_store_kernel",
+               "wide_scan_bwd_store_kernel")),
+    "seg": (adj.SEG_ROUTE, adj.seg_route, ("ck", "bwd_ck"),
+            {128: [128], 256: [128], 512: [64, 128], 1024: [8, 16, 64, 128]},
+            (adj.fused_scan_ck, adj.fused_scan_bwd_ck, adj.wide_scan_ck, adj.wide_scan_bwd_ck),
+            ("scan_ck_kernel", "scan_bwd_ck_kernel", "wide_scan_ck_kernel",
+             "wide_scan_bwd_ck_kernel")),
+}
+
+
+@pytest.mark.parametrize("pair", sorted(PAIRS))
+def test_store_route_is_the_table(pair):
+    """Each pair's route table (STORE_ROUTE, SEG_ROUTE) covers the kernels'
+    sizes and the measured wave counts; its reader takes (n, b) alone: a
+    measured count takes its row, a count between rows the row below, one
+    above the last the last, one below the first the first; every entry
+    names a route the library launches, each route's kernels are ones it
+    builds, and the reader refuses the other pair's kernel names."""
+    table, route_of, names, counts, _, kernels = PAIRS[pair]
+    assert set(table) == set(fs.SIZES)
+    for n, rows in table.items():
         measured = sorted(rows)
-        assert measured == [1, 3, 8, 16, 64]
-        for k, kernel in enumerate(("store", "bwd_store")):
+        assert measured == counts[n]
+        for k, kernel in enumerate(names):
             for b in measured:
-                assert adj.store_route(n, b, kernel) == rows[b][k]
+                assert route_of(n, b, kernel) == rows[b][k]
             for lo, hi in zip(measured, measured[1:]):
-                assert all(adj.store_route(n, b, kernel) == rows[lo][k] for b in range(lo, hi))
-            assert adj.store_route(n, 10 * measured[-1], kernel) == rows[measured[-1]][k]
-            assert adj.store_route(n, 0, kernel) == rows[measured[0]][k]
+                assert all(route_of(n, b, kernel) == rows[lo][k] for b in range(lo, hi))
+            assert route_of(n, 10 * measured[-1], kernel) == rows[measured[-1]][k]
+            assert route_of(n, 0, kernel) == rows[measured[0]][k]
         assert all(set(entry) <= set(adj.ROUTES) and len(entry) == 2 for entry in rows.values())
-    with pytest.raises(ValueError, match="kernel must be"):
-        adj.store_route(512, 1, "ck")
+    other = PAIRS["seg" if pair == "store" else "store"][2]
+    for kernel in other:
+        with pytest.raises(ValueError, match="kernel must be"):
+            route_of(512, 1, kernel)
     src = (_build.SRC_DIR / "adjoint_scan.cu").read_text()
-    for kernel in ("scan_store_kernel", "scan_bwd_store_kernel", "wide_scan_store_kernel",
-                   "wide_scan_bwd_store_kernel"):
+    for kernel in kernels:
         assert kernel in adj.KERNELS
         assert f"__global__ void __launch_bounds__(kThreads) {kernel}(" in src
     assert "adjoint_scan" in _build.sources()
 
 
-def test_route_argument_is_checked():
+def test_seg_route_rows_pass_the_cap():
+    """SEG_ROUTE keeps a row only where its count of waves passes the store
+    cap within SEG_DEPTH slices (seg_depth: the fewest slices past it), and
+    every size has a row at the stem4d inverse's probe chunk."""
+    for n, rows in adj.SEG_ROUTE.items():
+        assert PROBE_CHUNK_TARGET in rows
+        for b in rows:
+            depth = adj.seg_depth(n, b)
+            assert b * (depth - 1) * n * n * 8 <= adj.STORE_CAP_BYTES < b * depth * n * n * 8
+            assert depth <= adj.SEG_DEPTH or list(rows) == [PROBE_CHUNK_TARGET]
+    # the deep stem4d cell: 128 probes of 512^2 pass the cap from 129 slices
+    assert (adj.seg_depth(512, 128), adj.seg_depth(1024, 128), adj.seg_depth(1024, 8)) == (
+        129, 33, 513)
+
+
+def _pair_calls(pair, psi, v, prop, sigma, seg=2):
+    """(forward(route), backward(kept, g, route), the plain forward, the
+    plain backward(kept, g), the wide wrappers' forward and backward) of a
+    pair, with the segment length bound for the segment pair."""
+    fwd, bwd, wfwd, wbwd = PAIRS[pair][4]
+    extra = (seg,) if pair == "seg" else ()
+    refs = ((adj.fused_scan_ck_ref, adj.fused_scan_bwd_ck_ref) if pair == "seg"
+            else (adj.fused_scan_store_ref, adj.fused_scan_bwd_store_ref))
+    return (lambda route: fwd(psi, v, prop, sigma, *extra, route=route),
+            lambda kept, g, route: bwd(kept, v, prop, g, sigma, *extra, route=route),
+            lambda: refs[0](psi, v, prop, sigma, *extra),
+            lambda kept, g: refs[1](kept, v, prop, g, sigma, *extra),
+            lambda: wfwd(psi, v, prop, sigma, *extra),
+            lambda kept, g: wbwd(kept, v, prop, g, sigma, *extra))
+
+
+@pytest.mark.parametrize("pair", sorted(PAIRS))
+def test_route_argument_is_checked(pair):
     """route= takes "tile" or "wide" and nothing else, on the CPU too (where
-    both give the plain version); sizes outside the kernels' raise whatever
-    the route."""
+    both give the plain version), for both kernels of each pair; sizes
+    outside the kernels' raise whatever the route."""
     psi, v, prop = (torch.as_tensor(a) for a in _fields(128, 2, 2, seed=6, dtype=np.complex64))
     g = psi.flip(0).contiguous()
-    want = adj.fused_scan_store_ref(psi, v, prop, SIGMA)
-    want_b = adj.fused_scan_bwd_store_ref(want[1], v, prop, g, SIGMA)
+    fwd, bwd, fwd_ref, bwd_ref, wfwd, wbwd = _pair_calls(pair, psi, v, prop, SIGMA)
+    want = fwd_ref()
+    want_b = bwd_ref(want[1], g)
     for route in adj.ROUTES:
-        got = adj.fused_scan_store(psi, v, prop, SIGMA, route=route)
-        assert all(torch.equal(a, b) for a, b in zip(got, want))
-        got_b = adj.fused_scan_bwd_store(want[1], v, prop, g, SIGMA, route=route)
-        assert all(torch.equal(a, b) for a, b in zip(got_b, want_b))
-    assert all(torch.equal(a, b) for a, b in zip(adj.wide_scan_store(psi, v, prop, SIGMA), want))
-    assert all(torch.equal(a, b)
-               for a, b in zip(adj.wide_scan_bwd_store(want[1], v, prop, g, SIGMA), want_b))
+        assert all(torch.equal(a, b) for a, b in zip(fwd(route), want))
+        assert all(torch.equal(a, b) for a, b in zip(bwd(want[1], g, route), want_b))
+    assert all(torch.equal(a, b) for a, b in zip(wfwd(), want))
+    assert all(torch.equal(a, b) for a, b in zip(wbwd(want[1], g), want_b))
     for bad in ("cluster", "scan", ""):
         with pytest.raises(ValueError, match="route must be"):
-            adj.fused_scan_store(psi, v, prop, SIGMA, route=bad)
+            fwd(bad)
         with pytest.raises(ValueError, match="route must be"):
-            adj.fused_scan_bwd_store(want[1], v, prop, g, SIGMA, route=bad)
+            bwd(want[1], g, bad)
     for m in (64, 2048):
         z = torch.zeros(1, m, m, dtype=torch.complex64)
         for route in adj.ROUTES:
             with pytest.raises(ValueError, match="axis sizes|at most 1024"):
-                adj.fused_scan_store(z, torch.zeros(1, m, m), z[0], SIGMA, route=route)
+                _pair_calls(pair, z, torch.zeros(1, m, m), z[0], SIGMA, seg=1)[0](route)
 
 
 def test_wide_wrappers_count_their_own_launches():
     """The wide wrappers are kernel wrappers of their own (WRAPPERS), with a
     launch count that only a launch on the card moves."""
-    assert adj.wide_scan_store in adj.WRAPPERS and adj.wide_scan_bwd_store in adj.WRAPPERS
+    wide = (adj.wide_scan_store, adj.wide_scan_bwd_store, adj.wide_scan_ck, adj.wide_scan_bwd_ck)
+    assert all(w in adj.WRAPPERS for w in wide)
+    assert len(set(adj.WRAPPERS)) == len(adj.WRAPPERS) == 8
     psi, v, prop = (torch.as_tensor(a) for a in _fields(128, 1, 2, seed=7, dtype=np.complex64))
-    before = (adj.wide_scan_store.launches, adj.fused_scan_store.launches)
-    adj.wide_scan_store(psi, v, prop, SIGMA)
-    assert (adj.wide_scan_store.launches, adj.fused_scan_store.launches) == before
+    before = [w.launches for w in adj.WRAPPERS]
+    _, s = adj.wide_scan_store(psi, v, prop, SIGMA)
+    adj.wide_scan_bwd_store(s, v, prop, psi, SIGMA)
+    _, ck = adj.wide_scan_ck(psi, v, prop, SIGMA, 1)
+    adj.wide_scan_bwd_ck(ck, v, prop, psi, SIGMA, 1)
+    assert [w.launches for w in adj.WRAPPERS] == before
     with pytest.raises(ValueError, match="CUDA card"):
         adj.grid_barrier(4, 1, device="cpu")
 
@@ -468,25 +647,34 @@ def cuda():
 
 
 def test_wide_kernels_match_plain_on_card(cuda):
-    """Both wide kernels against the plain versions at 128^2 and 512^2, one
-    and three waves, shared and per-wave P; dV bitwise equal over two runs;
-    each launch counted on its own wrapper."""
+    """The four wide kernels against the plain versions at 128^2 and 512^2,
+    one and three waves, shared and per-wave P, the segment pair in segments
+    of 1 and 4; dV bitwise equal over two runs; each launch counted on its
+    own wrapper; the segment pair's outputs the store pair's bits."""
     tol = 2e-6 * 4 ** 0.5
     for n, b in ((128, 3), (512, 1)):
         psi, v, prop = (torch.as_tensor(a).to(cuda)
                         for a in _fields(n, b, 4, seed=n + b, dtype=np.complex64))
         for pr in (prop, torch.stack([prop * np.exp(0.1j * i) for i in range(b)])):
             g = psi.flip(0).contiguous()
-            before = (adj.wide_scan_store.launches, adj.wide_scan_bwd_store.launches)
-            got = adj.wide_scan_store(psi, v, pr, SIGMA)
-            want = adj.fused_scan_store_ref(psi, v, pr, SIGMA)
-            back = adj.wide_scan_bwd_store(want[1], v, pr, g, SIGMA)
-            again = adj.wide_scan_bwd_store(want[1], v, pr, g, SIGMA)
-            back_want = adj.fused_scan_bwd_store_ref(want[1], v, pr, g, SIGMA)
-            assert (adj.wide_scan_store.launches, adj.wide_scan_bwd_store.launches) == (
-                before[0] + 1, before[1] + 2)
-            for a, w in zip((*got, *back), (*want, *back_want)):
-                assert float((a - w).abs().max()) <= tol * float(w.abs().max())
-            assert torch.equal(back[0], again[0])
+            for pair, seg in (("store", 0), ("seg", 1), ("seg", 4)):
+                _, _, fwd_ref, bwd_ref, wfwd, wbwd = _pair_calls(pair, psi, v, pr, SIGMA, seg)
+                counters = PAIRS[pair][4][2:]
+                before = [w.launches for w in counters]
+                got, want = wfwd(), fwd_ref()
+                back, again = wbwd(want[1], g), wbwd(want[1], g)
+                back_want = bwd_ref(want[1], g)
+                assert [w.launches for w in counters] == [before[0] + 1, before[1] + 2]
+                for a, w in zip((*got, *back), (*want, *back_want)):
+                    assert float((a - w).abs().max()) <= tol * float(w.abs().max())
+                assert torch.equal(back[0], again[0])
+            out_s, s = adj.wide_scan_store(psi, v, pr, SIGMA)
+            out_c, ck = adj.wide_scan_ck(psi, v, pr, SIGMA, 2)
+            assert torch.equal(out_s, out_c)
+            for a, w in zip(adj.wide_scan_bwd_ck(ck, v, pr, g, SIGMA, 2, groups=1),
+                            adj.wide_scan_bwd_store(s, v, pr, g, SIGMA, groups=1)):
+                assert torch.equal(a, w)
     with pytest.raises(TypeError, match="complex64"):
         adj.wide_scan_store(psi.to(torch.complex128), v, prop, SIGMA)
+    with pytest.raises(TypeError, match="complex64"):
+        adj.wide_scan_ck(psi.to(torch.complex128), v, prop, SIGMA, 2)

@@ -388,18 +388,18 @@ def test_adjoint_kernels_match_plain_on_card(fields, cuda):
     v, pr = _t(v_stack).to(cuda), _t(prop).to(cuda)
     g = p.flip(0).contiguous()
     tol = 2e-6 * S ** 0.5
-    for seg in (0, 4):
+    for seg, route in ((0, "tile"), (0, "wide"), (4, "tile"), (4, "wide")):
         if seg == 0:
-            got = adj.fused_scan_store(p, v, pr, SIGMA)
+            got = adj.fused_scan_store(p, v, pr, SIGMA, route=route)
             want = adj.fused_scan_store_ref(p, v, pr, SIGMA)
-            back = adj.fused_scan_bwd_store(got[1], v, pr, g, SIGMA)
-            again = adj.fused_scan_bwd_store(got[1], v, pr, g, SIGMA)
+            back = adj.fused_scan_bwd_store(got[1], v, pr, g, SIGMA, route=route)
+            again = adj.fused_scan_bwd_store(got[1], v, pr, g, SIGMA, route=route)
             back_want = adj.fused_scan_bwd_store_ref(want[1], v, pr, g, SIGMA)
         else:
-            got = adj.fused_scan_ck(p, v, pr, SIGMA, seg)
+            got = adj.fused_scan_ck(p, v, pr, SIGMA, seg, route=route)
             want = adj.fused_scan_ck_ref(p, v, pr, SIGMA, seg)
-            back = adj.fused_scan_bwd_ck(got[1], v, pr, g, SIGMA, seg)
-            again = adj.fused_scan_bwd_ck(got[1], v, pr, g, SIGMA, seg)
+            back = adj.fused_scan_bwd_ck(got[1], v, pr, g, SIGMA, seg, route=route)
+            again = adj.fused_scan_bwd_ck(got[1], v, pr, g, SIGMA, seg, route=route)
             back_want = adj.fused_scan_bwd_ck_ref(want[1], v, pr, g, SIGMA, seg)
         for a, b in zip((*got, *back), (*want, *back_want)):
             assert float((a - b).abs().max()) <= tol * float(b.abs().max())
