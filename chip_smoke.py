@@ -15,11 +15,15 @@ Phases, each printing one JSON line:
              computing the same function.  The slice step's five elementwise
              kernels at 512^2 and (8, 512, 512), in complex64 and complex128
              (the batched case checks the adjoints' batch-summed dV); the
+             transmit and its adjoint (rows 1 and 2) also at 512^2 (1, 4 and
+             8 planes), 1536^2, 2048^2 and 4096^2 in complex64 and 512^2 in
+             complex128, and on an odd 511^2 plane (8-byte accesses); the
              absorptive transmit and its adjoint (rows 4 and 5, V read as one
-             complex plane) also at 512^2 (1 and 8 planes), 2048^2 (1 and 4
-             waves) and 4096^2 in complex64, each held to and timed in turns
-             with its plain version beside its byte bound (the table rows
-             carry the 2048^2 and 4096^2 one-wave times); the
+             complex plane) at 512^2 (1 and 8 planes), 2048^2 (1 and 4
+             waves) and 4096^2 in complex64; each held to and timed in turns
+             with its plain version beside its byte bound, each adjoint's dV
+             the same bits twice (the table rows carry every other shape's
+             times as by_shape); the
              Fresnel multiply also on odd planes (511^2), batches of 1, 3 and
              16 and both values of conj_b, and timed in turns with torch.mul;
              the fused step (row 6) on both routes, "tile" (three ordinary
@@ -177,6 +181,17 @@ Phases, each printing one JSON line:
              it/s and peak memory, two runs; one gradient evaluation: its
              launches, kernels by name and busy time (no copy or pack kernel
              once a slice, asserted), and the idle share of a step.
+9b. pallas_auto — the two cases where the defaults ("auto") resolve to
+             "pallas" (rows 1-3), through cli.main with no sim.engine:
+             config 3's inverse in complex128 (--mode invert --set
+             sim.dtype=complex128, 20 iterations), held to the same run on
+             "xla" in complex128 (losses and recovered V within 1e-9, one
+             gradient's dV within 1e-10); and config 2's file at 1536^2
+             (--set sim.ny=1536 sim.nx=1536 specimen.reps=[18,12,6]: the
+             same 0.045 A pixel over a field three times as wide, 64 slices,
+             8 defoci), its images held to "xla"'s at 1e-5.  Launches of
+             rows 1-3 asserted; busy ms by kernel, wall and idle share of one
+             gradient and of one rollout; peak memory of each CLI run.
 10. stem    — the STEM raster at full width: ``fdes_tpu_torch.cli.main`` on
              examples/si110_stem.toml (config 4: 512^2, 128 slices, 32x32 =
              1,024 probes, BF + ADF) on engine "fscan" at probe chunk 16 (one
@@ -307,8 +322,8 @@ import torch
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 PHASES = ("build", "kernels", "golden", "hrtem", "absorptive", "streamed", "grad", "invert",
-          "invert_absorptive", "stem", "stem4d", "stem4d_invert_deep", "c5", "c5_absorptive",
-          "c5_invert", "c5_tilt_invert", "c5_streamed", "phonon", "engines")
+          "invert_absorptive", "pallas_auto", "stem", "stem4d", "stem4d_invert_deep", "c5",
+          "c5_absorptive", "c5_invert", "c5_tilt_invert", "c5_streamed", "phonon", "engines")
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 PEAK_OPS_PER_S = {torch.float32: 67e12, torch.float64: 34e12}  # non-tensor-core FP32 / FP64
 KERNEL_TOL = {torch.complex64: 2e-6, torch.complex128: 1e-12}  # max|k - ref| / max|ref|
@@ -560,9 +575,8 @@ def phase_kernels(sigma: float) -> tuple[dict, dict]:
                         "operations": ops,
                     }
     cmul_line = cmul_checks(checks, rng, rows["cmul"], lambda shp: cplx_of(rng, shp))
-    abs_line = absorptive_sizes(checks, rows, v64, sigma)
     return {"phase": "kernels", "checks": checks, "cmul": cmul_line,
-            "absorptive_sizes": abs_line}, rows
+            "sizes": slice_sizes(checks, rows, v64, sigma)}, rows
 
 
 def cplx_of(rng, shape) -> torch.Tensor:
@@ -603,50 +617,120 @@ def cmul_checks(checks: list, rng, row: dict, cplx) -> dict:
     return times
 
 
-#: (leading batch, n) of rows 4 and 5's sizes: one and 8 planes at 512^2,
-#: one and four waves at 2048^2, one at 4096^2
-ABS_SHAPES = (((), 512), ((8,), 512), ((), 2048), ((4,), 2048), ((), 4096))
+#: (leading batch, n, dtype) of rows 1 and 2's sizes: 512^2 with 1, 4 (the
+#: tilt series), 8 and 16 planes (16: phase stem's raster chunk on
+#: ``pallas``), the 1536^2 wide field (phase pallas_auto), 2048^2 and 4096^2,
+#: and 512^2 in complex128 (the accuracy tier), one plane and 128 (config
+#: 4's probe chunk, which ``auto`` runs on ``pallas`` in complex128)
+TRANSMIT_SHAPES = (((), 512, torch.complex64), ((4,), 512, torch.complex64),
+                   ((8,), 512, torch.complex64), ((16,), 512, torch.complex64),
+                   ((), 1536, torch.complex64), ((), 2048, torch.complex64),
+                   ((), 4096, torch.complex64), ((), 512, torch.complex128),
+                   ((128,), 512, torch.complex128))
+#: rows 4 and 5's: one and 8 planes at 512^2, one and four waves at 2048^2,
+#: one at 4096^2
+ABS_SHAPES = (((), 512, torch.complex64), ((8,), 512, torch.complex64),
+              ((), 2048, torch.complex64), ((4,), 2048, torch.complex64),
+              ((), 4096, torch.complex64))
 
 
-def absorptive_sizes(checks: list, rows: dict, v64: np.ndarray, sigma: float) -> dict:
-    """Rows 4 and 5 (transmit_abs, transmit_abs_bwd) at ABS_SHAPES in
-    complex64, V = Vr + 0.1i Vr one complex plane (config 2's slice tiled to
-    the grid): each held to its plain version within KERNEL_TOL and timed in
-    turns with it (three readings), beside its byte bound (24 and 40 B a
-    pixel: V, psi and out; V, psi, g, dpsi and dV).  The table rows take the
-    2048^2 and 4096^2 one-wave times as ``by_shape``."""
+#: the planes a block row that slice_sizes times row 1 at, beside the whole batch
+TRANSMIT_ROWS_TRIED = (2, 4, 8, 16, 32)
+
+
+def transmit_rows_turns(checks: list, psi, v, sigma: float) -> dict:
+    """Row 1 on psi at every ``rows`` of TRANSMIT_ROWS_TRIED below its batch
+    and at the whole batch: each held to the plain version within
+    KERNEL_TOL, then timed in turns."""
+    from fdes_tpu_torch.kernels import slice_step as ks
+
+    planes = psi.numel() // v.numel()
+    want = ks.transmit_ref(psi, v, sigma)
+    fns = {r: functools.partial(ks.transmit, psi, v, sigma, rows=r)
+           for r in (*(r for r in TRANSMIT_ROWS_TRIED if r < planes), planes)}
+    for r, fn in fns.items():
+        check_kernel(checks, f"transmit/rows={r}", list(psi.shape), fn(), want,
+                     KERNEL_TOL[psi.dtype], dtype=str(psi.dtype).split(".")[-1])
+    med, every = interleaved_ms(fns)
+    return {"rows": ks.transmit_rows(planes, psi.dtype), "rows_ms": med, "rows_readings": every}
+
+
+def slice_sizes(checks: list, rows: dict, v64: np.ndarray, sigma: float, other=None) -> dict:
+    """Rows 1 and 2 (transmit, transmit_bwd) at TRANSMIT_SHAPES and rows 4
+    and 5 (transmit_abs, transmit_abs_bwd) at ABS_SHAPES, V config 2's slice
+    tiled to the grid (the absorptive V = Vr + 0.1i Vr, one complex plane):
+    each held to its plain version within KERNEL_TOL and timed in turns with
+    it (three readings), beside its byte bound (real bytes r a pixel: V, psi
+    and out r(1 + 4 planes); V, psi, g, dpsi and dV r(2 + 6 planes); the
+    absorptive V and dV twice V's), and each adjoint's dV the same bits
+    twice.  Rows 1 and 2 are also held to their plain versions on an odd
+    plane (511^2, one and three planes: 8-byte accesses).  The table rows
+    take every shape but their own (512^2, one complex64 plane) as
+    ``by_shape``.  Row 1 at each batch above one is also held to its plain
+    version, and timed in turns, at every ``rows`` of TRANSMIT_ROWS_TRIED
+    below the batch and at the whole batch (``rows_ms``, beside the table's
+    choice ``rows``).  ``other[name](fn)``, where given, runs fn on another
+    build of the kernels (scripts/against_checkout.py): that version is held
+    to the plain one too and timed in the same turns (``other_ms``)."""
     from fdes_tpu_torch.kernels import slice_step as ks
 
     rng = np.random.default_rng(4)
+    cases = {
+        "transmit": (TRANSMIT_SHAPES, lambda p, v, g, vc: ks.transmit(p, v, sigma),
+                     lambda p, v, g, vc: ks.transmit_ref(p, v, sigma), (1, 4)),
+        "transmit_bwd": (TRANSMIT_SHAPES, lambda p, v, g, vc: ks.transmit_bwd(p, v, g, sigma),
+                         lambda p, v, g, vc: ks.transmit_bwd_ref(p, v, g, sigma), (2, 6)),
+        "transmit_abs": (ABS_SHAPES, lambda p, v, g, vc: ks.transmit_abs(p, vc, sigma),
+                         lambda p, v, g, vc: ks.transmit_abs_ref(p, vc, sigma), (2, 4)),
+        "transmit_abs_bwd": (ABS_SHAPES,
+                             lambda p, v, g, vc: ks.transmit_abs_bwd(p, vc, g, sigma),
+                             lambda p, v, g, vc: ks.transmit_abs_bwd_ref(p, vc, g, sigma),
+                             (4, 6)),
+    }
     out = {}
-    for lead, n in ABS_SHAPES:
-        shape = (*lead, n, n)
+    for lead, n, cdt in dict.fromkeys(TRANSMIT_SHAPES + ABS_SHAPES):
+        shape, rdt = (*lead, n, n), torch.float32 if cdt == torch.complex64 else torch.float64
         reps = n // v64.shape[0]
-        v = torch.as_tensor(np.tile(v64, (reps, reps)), device="cuda").to(torch.float32)
+        v = torch.as_tensor(np.tile(v64, (reps, reps)), device="cuda").to(rdt)
         vc = torch.complex(v, 0.1 * v)
-        psi, g = cplx_of(rng, shape), cplx_of(rng, shape)
-        pixels, planes = n * n, psi.numel() // (n * n)
-        fns = {
-            "transmit_abs": (lambda: ks.transmit_abs(psi, vc, sigma),
-                             lambda: ks.transmit_abs_ref(psi, vc, sigma),
-                             8 * pixels * (1 + 2 * planes)),
-            "transmit_abs_bwd": (lambda: ks.transmit_abs_bwd(psi, vc, g, sigma),
-                                 lambda: ks.transmit_abs_bwd_ref(psi, vc, g, sigma),
-                                 8 * pixels * (2 + 3 * planes)),
-        }
-        key = "x".join(map(str, shape))
-        for name, (kern, ref, nbytes) in fns.items():
-            abs_err, rel = check_kernel(checks, name, list(shape), kern(), ref(),
-                                        KERNEL_TOL[torch.complex64])
-            med, every = interleaved_ms({"kernel": kern, "plain": ref})
+        psi, g = cplx_of(rng, shape).to(cdt), cplx_of(rng, shape).to(cdt)
+        pixels, planes, r = n * n, psi.numel() // (n * n), v.element_size()
+        key = "x".join(map(str, shape)) + ("" if cdt == torch.complex64 else "/complex128")
+        for name, (shapes, kern, ref, (per_pixel, per_plane)) in cases.items():
+            if (lead, n, cdt) not in shapes:
+                continue
+            kern_fn, ref_fn = (functools.partial(f, psi, v, g, vc) for f in (kern, ref))
+            abs_err, rel = check_kernel(checks, name, list(shape), kern_fn(), ref_fn(),
+                                        KERNEL_TOL[cdt], dtype=str(cdt).split(".")[-1])
+            if name.endswith("_bwd") and not torch.equal(kern_fn()[1], kern_fn()[1]):
+                raise AssertionError(f"{name} {key}: dV differs between two runs")
+            fns = {"kernel": kern_fn, "plain": ref_fn}
+            if other and name in other:
+                fns["other"] = functools.partial(other[name], kern_fn)
+                check_kernel(checks, f"{name}/other", list(shape), fns["other"](), ref_fn(),
+                             KERNEL_TOL[cdt], dtype=str(cdt).split(".")[-1])
+            med, every = interleaved_ms(fns)
+            nbytes = r * pixels * (per_pixel + per_plane * planes)
             res = {"ms": med["kernel"], "plain_ms": med["plain"], "readings": every,
                    "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
                    "max_abs_err": abs_err, "max_rel_err": rel}
+            if "other" in med:
+                res["other_ms"] = med["other"]
+            if name == "transmit" and planes > 1:
+                res.update(transmit_rows_turns(checks, psi, v, sigma))
             out.setdefault(name, {})[key] = res
-            if not lead and n > 512:
+            if key != "512x512":
                 rows[name].setdefault("by_shape", {})[key] = res
         del psi, g, v, vc
         torch.cuda.empty_cache()
+    # an odd plane: rows 1 and 2 on 8-byte accesses
+    v = torch.as_tensor(np.ascontiguousarray(v64[1:, 1:]), device="cuda").to(torch.float32)
+    for lead in ((), (3,)):
+        psi, g = cplx_of(rng, (*lead, 511, 511)), cplx_of(rng, (*lead, 511, 511))
+        for name in ("transmit", "transmit_bwd"):
+            _, kern, ref, _ = cases[name]
+            check_kernel(checks, name, [*lead, 511, 511], kern(psi, v, g, None),
+                         ref(psi, v, g, None), KERNEL_TOL[torch.complex64])
     return out
 
 
@@ -3302,6 +3386,173 @@ def phase_invert_absorptive(tmp: str, gpu: str) -> tuple[dict, dict]:
     return line, launches["auto"]
 
 
+#: config 3 in complex128, the accuracy tier, on the defaults
+C128_INVERT = ("--mode", "invert", "--set", f"recon.iterations={INVERT_ITERS}",
+               "--set", "sim.dtype=complex128")
+#: config 2's file over a field three times as wide at its 0.045 A pixel
+WIDE_1536 = ("--set", "sim.ny=1536", "--set", "sim.nx=1536", "--set", "specimen.reps=[18,12,6]")
+#: the complex128 inverse on the defaults against the same run on "xla": its
+#: losses and recovered V (relative), and one gradient's dV (relative norm).
+#: Both sides are float64 arithmetic through cuFFT, in other orders; stated
+#: before the first reading
+C128_INVERT_TOL = 1e-9
+C128_GRAD_TOL = 1e-10
+
+
+def phase_pallas_auto(tmp: str, gpu: str) -> tuple[dict, dict]:
+    """The two cases where ``auto`` resolves to "pallas" (rows 1-3), both
+    through cli.main on the defaults (no sim.engine): config 3's inverse in
+    complex128 (``c128_invert``: 20 iterations, rows 1, 2 and 3 in
+    complex128), held to the same run on "xla" in complex128 (losses and
+    recovered V within C128_INVERT_TOL) with one gradient's dV within
+    C128_GRAD_TOL of "xla"'s; and config 2's file at 1536^2, the same pixel
+    over a field three times as wide (``wide_field_1536``: 64 slices, 8
+    defoci, rows 1 and 3 in complex64), its images held to "xla"'s at GATE.
+    Each: launches by kernel (asserted), busy ms by kernel and wall (one
+    gradient evaluation; one rollout), idle share, peak GiB of the CLI run.
+    Returns (line, launches of each case's run on the defaults)."""
+    from fdes_tpu_torch.config import apply_overrides, load_config
+    from fdes_tpu_torch.forward import hrtem_defocus_series
+    from fdes_tpu_torch.loss import make_loss
+    from fdes_tpu_torch.pipeline import setup
+    from fdes_tpu_torch.propagate import make_slice_step, multislice, pick_remat_chunk
+
+    zero = dict.fromkeys(launch_counts(), 0)
+    runs, outs, launches = {}, {}, {}
+    for label, args in (("c128_invert", C128_INVERT),
+                        ("c128_invert_xla", (*C128_INVERT, "--set", "sim.engine=xla")),
+                        ("wide_field_1536", WIDE_1536),
+                        ("wide_field_1536_xla", (*WIDE_1536, "--set", "sim.engine=xla")),
+                        # a first run at 1536^2 pays for cuFFT's plans
+                        ("wide_field_1536_again", WIDE_1536)):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        outs[label], runs[label] = run_cli(tmp, label, *args)
+        launches[label] = launch_counts()
+        runs[label]["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        runs[label]["launches"] = {k: c for k, c in launches[label].items() if c}
+    line = {"phase": "pallas_auto", "runs": runs, "gpu": gpu}
+
+    # c128_invert: the inverse against xla's, then one gradient in process
+    s, n = 64, INVERT_ITERS
+    losses = {k: read_losses(outs[k]) for k in ("c128_invert", "c128_invert_xla")}
+    v_rec = {k: np.load(os.path.join(outs[k], "reconstructed.npy"))
+             for k in ("c128_invert", "c128_invert_xla")}
+    loss_err = max(abs(a - b) / abs(b) for a, b in zip(*losses.values()))
+    v_err = float(np.linalg.norm(v_rec["c128_invert"] - v_rec["c128_invert_xla"])
+                  / np.linalg.norm(v_rec["c128_invert_xla"]))
+    cfg = apply_overrides(load_config(CONFIG), ["sim.dtype=complex128"])
+    sim = setup(cfg, device="cuda")
+    chunk = pick_remat_chunk(s)  # the CLI's
+
+    def series(engine):
+        step = make_slice_step(engine, shape=sim.grid.shape, dtype=sim.cdtype, grad=True)
+        return lambda v: hrtem_defocus_series(v, sim.psi0, sim.propagator, sim.sigma,
+                                              sim.ctf_stack, weights=sim.ctf_weights,
+                                              remat_chunk=chunk, slice_step=step)
+
+    with torch.no_grad():
+        i_obs = series("xla")(sim.v_stack)
+    v_half = 0.5 * sim.v_stack
+
+    def gradient(engine):
+        loss_fn = make_loss(series(engine), i_obs)
+
+        def run():
+            vv = v_half.detach().requires_grad_(True)
+            loss_fn(vv).backward()
+            return vv.grad
+        return run
+
+    run_auto = gradient("auto")
+    dv_auto, dv_xla = run_auto(), gradient("xla")()
+    torch.cuda.synchronize()
+    reset_launches()
+    run_auto()
+    torch.cuda.synchronize()
+    grad_counts = {k: c for k, c in launch_counts().items() if c}
+    kernels = profiled_kernels(run_auto)
+    busy = sum(us for _, us in kernels) / 1e3
+    wall, _ = wall_and_device_ms(run_auto, 3)
+    step_ms = runs["c128_invert"]["median_step_s"] * 1e3
+    line["c128_invert"] = {
+        "config": "examples/si110_hrtem.toml " + " ".join(C128_INVERT),
+        "engine_resolved": "pallas", "losses": losses, "loss_max_rel_err_vs_xla": loss_err,
+        "reconstruction_rel_diff_vs_xla": v_err, "tol": C128_INVERT_TOL,
+        "median_step_ms": {k: runs[k]["median_step_s"] * 1e3
+                           for k in ("c128_invert", "c128_invert_xla")},
+        "peak_gib": runs["c128_invert"]["peak_gib"],
+        "gradient": {"dv_rel_err_vs_xla": rel_norm(dv_auto, dv_xla), "tol": C128_GRAD_TOL,
+                     "launches": grad_counts, "kernels": len(kernels), "busy_ms": busy,
+                     "busy_ms_by_kernel": kernel_busy_ms(kernels), "wall_ms": wall,
+                     "device_idle_share": max(0.0, 1.0 - busy / wall),
+                     "step_idle_share": max(0.0, 1.0 - busy / step_ms)},
+    }
+    del sim, v_half, i_obs, dv_auto, dv_xla
+    torch.cuda.empty_cache()
+
+    # wide_field_1536: the images against xla's, then one rollout in process
+    imgs, imgs_x = (np.load(os.path.join(outs[k], "images.npy"))
+                    for k in ("wide_field_1536", "wide_field_1536_xla"))
+    sim = setup(apply_overrides(load_config(CONFIG), [a for a in WIDE_1536 if a != "--set"]),
+                device="cuda")
+    step = make_slice_step("auto", shape=sim.grid.shape, dtype=sim.cdtype, grad=False)
+
+    def rollout():
+        return multislice(sim.psi0, sim.v_stack, sim.propagator, sim.sigma, slice_step=step)
+
+    rollout()
+    kernels = profiled_kernels(rollout)
+    busy = sum(us for _, us in kernels) / 1e3
+    wall, _ = wall_and_device_ms(rollout, 5)
+    line["wide_field_1536"] = {
+        "config": "examples/si110_hrtem.toml " + " ".join(WIDE_1536),
+        "engine_resolved": "pallas", "shape": list(imgs.shape),
+        "rel_err_vs_xla": float(np.linalg.norm(imgs - imgs_x) / np.linalg.norm(imgs_x)),
+        "gate": GATE, "run_s": {k: runs[k]["run_s"] for k in (
+            "wide_field_1536", "wide_field_1536_xla", "wide_field_1536_again")},
+        "peak_gib": runs["wide_field_1536"]["peak_gib"],
+        "rollout": {"kernels": len(kernels), "busy_ms": busy,
+                    "busy_ms_by_kernel": kernel_busy_ms(kernels), "wall_ms": wall,
+                    "device_idle_share": max(0.0, 1.0 - busy / wall),
+                    "slice_props_per_s": s / (wall / 1e3)},
+    }
+    del sim
+    torch.cuda.empty_cache()
+
+    want = {"c128_invert": {**zero, "transmit": s + n * 2 * s, "cmul": s + n * 3 * s,
+                            "transmit_bwd": n * s},
+            "wide_field_1536": {**zero, "transmit": s, "cmul": s}}
+    want["wide_field_1536_again"] = want["wide_field_1536"]
+    for k, w in want.items():
+        if launches[k] != w:
+            raise AssertionError(f"pallas_auto {k}: launches {runs[k]['launches']}")
+        if (runs[k]["engine"], runs[k]["engine_kind"]) != ("auto", None):
+            raise AssertionError(f"pallas_auto {k}: timing.json {runs[k]}")
+    for k in ("c128_invert_xla", "wide_field_1536_xla"):
+        if launches[k] != zero:
+            raise AssertionError(f"pallas_auto {k}: launches {runs[k]['launches']}")
+    if grad_counts != {"transmit": 2 * s, "cmul": 3 * s, "transmit_bwd": s}:
+        raise AssertionError(f"pallas_auto c128 gradient launched {grad_counts}")
+    for k, ls in losses.items():
+        v = v_rec[k]
+        if not (np.isfinite(ls).all() and ls[-1] < ls[0]):
+            raise AssertionError(f"pallas_auto {k}: losses not finite and falling: {ls}")
+        if v.shape != (s, 512, 512) or v.dtype != np.float64 or not np.isfinite(v).all():
+            raise AssertionError(f"pallas_auto {k}: reconstructed.npy {v.shape} {v.dtype}")
+    c128 = line["c128_invert"]
+    if not (loss_err <= C128_INVERT_TOL and v_err <= C128_INVERT_TOL
+            and c128["gradient"]["dv_rel_err_vs_xla"] <= C128_GRAD_TOL):
+        raise AssertionError(f"pallas_auto c128_invert against xla: {c128}")
+    wide = line["wide_field_1536"]
+    if imgs.shape != (8, 1536, 1536) or not np.isfinite(imgs).all() or not (imgs > 0).all():
+        raise AssertionError(f"pallas_auto wide_field_1536: images {imgs.shape} not finite")
+    if wide["rel_err_vs_xla"] > GATE:
+        raise AssertionError(f"pallas_auto wide_field_1536 against xla: {wide}")
+    return line, {k: launches[k] for k in ("c128_invert", "wide_field_1536")}
+
+
 def invert_other_modalities(tmp: str) -> dict:
     """The whole-loop adjoint under the inverse's other two shapes, three
     iterations each, fscan against xla: a two-tilt series (one propagator per
@@ -3428,8 +3679,11 @@ def phase_stem(tmp: str, gpu: str) -> tuple[dict, dict]:
                                ("stem_xla_b", "xla", 16), ("stem_pallas_b", "pallas", 16),
                                ("stem_fscan128_b", "fscan", 128),
                                ("stem_fscan64_b", "fscan", 64), ("stem_fscan_b", "fscan", 16)):
+        reset_launches()
         o, t = run(tag, engine, chunk)
         runs.append({"engine": engine, "chunk": chunk, **t})
+        if engine == "pallas":  # rows 1 and 3 at the chunk's batch
+            runs[-1]["launches"] = launch_counts()
         if engine == "fscan":
             runs[-1]["route"] = scan_wrapper(chunk)
         if tag == "stem_xla":
@@ -4962,10 +5216,12 @@ def store_vs_segments() -> list[dict]:
 
 #: the phases whose main-path run gives each kernel's launches, first found first
 ROW_PHASES = {
-    "transmit": ("invert", "hrtem", "grad"),
-    "cmul": ("invert", "hrtem", "grad"),
+    # rows 1-3 as auto runs them (complex128, an off-grid field), then on "pallas"
+    "transmit": ("pallas_auto_c128", "pallas_auto_1536", "invert", "hrtem", "grad",
+                 "stem_pallas"),
+    "cmul": ("pallas_auto_c128", "pallas_auto_1536", "invert", "hrtem", "grad", "stem_pallas"),
     "transmit_abs": ("absorptive", "invert_absorptive", "grad_absorptive"),
-    "transmit_bwd": ("invert", "grad"),
+    "transmit_bwd": ("pallas_auto_c128", "invert", "grad"),
     "transmit_abs_bwd": ("invert_absorptive", "grad_absorptive"),
     # the step runs one of two kernels, by the route table, counted as
     # "fused_step[route]"
@@ -5107,9 +5363,16 @@ def main(argv=None) -> int:
         if "invert_absorptive" in phases:
             line, path_launches["invert_absorptive"] = timed(phase_invert_absorptive, tmp, gpu)
             emit(line)
+        if "pallas_auto" in phases:
+            line, by_case = timed(phase_pallas_auto, tmp, gpu)
+            path_launches.update(pallas_auto_c128=by_case["c128_invert"],
+                                 pallas_auto_1536=by_case["wide_field_1536"])
+            emit(line)
         if "stem" in phases:
             line, path_launches["stem"] = timed(phase_stem, tmp, gpu)
             path_launches["stem_auto"] = line["launches_auto"]
+            path_launches["stem_pallas"] = next(r["launches"] for r in line["runs"]
+                                                if r["engine"] == "pallas")
             emit(line)
         if "stem4d" in phases:
             emit(timed(phase_stem4d, tmp, gpu))

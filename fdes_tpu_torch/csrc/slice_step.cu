@@ -22,8 +22,8 @@
 // absorptive V is one complex plane, read as it lies.  Each thread reads the
 // broadcast operand once, computes the transmission once, and applies it to
 // the batch entries it covers, neighbouring threads on neighbouring
-// addresses: rows 1 and 2 walk a grid-stride loop with 8- or 16-byte loads;
-// the Fresnel multiply and rows 4 and 5 take 16-byte vectors (cmul_kernel).
+// addresses: 16-byte vectors of psi (cmul_kernel's shape; 8-byte ones on an
+// odd or unaligned plane), but for row 2, a pixel a thread.
 // The adjoints sum dV over the whole batch in one thread, in registers: each
 // pixel's sum belongs to one thread, in a fixed order, with no atomics.
 //
@@ -69,38 +69,6 @@ __device__ __forceinline__ C rotate(C p, R c, R s) {
 }
 
 constexpr int kThreads = 256;
-
-int blocks_for(int64_t plane) {
-  // Enough blocks to fill 132 SMs several times over; the grid-stride loop
-  // covers the rest.
-  const int64_t cap = 132 * 16;
-  int64_t b = (plane + kThreads - 1) / kThreads;
-  if (b < 1) b = 1;
-  return static_cast<int>(b < cap ? b : cap);
-}
-
-// Replaces fdes_tpu/pallas/slice_step.py::_transmit_fwd_kernel (via
-// _transmit_fwd).  Bound: bytes.  Per 512^2 c64 plane it moves V + psi in +
-// psi out = 5 MiB, ~1.6 us at 3.35 TB/s; at the config-2 shape a launch costs
-// about as much, so launch overhead is what the card sees.  Making it fast is
-// later work: folding the transmit into cuFFT's load callback, or a CUDA graph
-// over the slice loop.
-template <typename R>
-__global__ void transmit_kernel(const typename Complex<R>::T* __restrict__ psi,
-                                const R* __restrict__ v,
-                                typename Complex<R>::T* __restrict__ out, R sigma,
-                                int64_t plane, int64_t batch) {
-  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
-  for (int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x; i < plane;
-       i += stride) {
-    R s, c;
-    sin_cos(sigma * v[i], &s, &c);
-    for (int64_t b = 0; b < batch; ++b) {
-      const int64_t k = b * plane + i;
-      out[k] = rotate(psi[k], c, s);
-    }
-  }
-}
 
 // Replaces fdes_tpu/pallas/slice_step.py::_cmul_kernel (via _cmul): a * b, or
 // a * conj(b), b one plane broadcast over the batch.  Bound: bytes.  Per
@@ -332,47 +300,148 @@ transmit_abs_bwd_vec_kernel(const typename Vec<R, W>::T* __restrict__ psi,
   dv[i] = pack(o);
 }
 
-// Replaces fdes_tpu/pallas/slice_step.py::_transmit_bwd_kernel (via
-// _pallas_transmit_bwd), re-derived for PyTorch's adjoint convention (top of
-// file).  With u = t*psi (recomputed: cheaper than saving it through the
-// FFTs), Im(g * conj(u)) = g.y*u.x - g.x*u.y.  Bound: bytes.  Per 512^2 c64
-// plane it moves V + psi + g in, dpsi + dV out = 8 MiB, ~2.5 us at 3.35 TB/s;
-// at the config-3 shape a launch costs about as much.  Making it fast is later
-// work: a CUDA graph over the backward loop, or fusing into cuFFT callbacks.
+// Real vectors of V: the W reals under a Vec<R, W> of psi.
+template <typename R, int W>
+struct RVec;
+template <>
+struct RVec<float, 1> {
+  using T = float;
+};
+template <>
+struct RVec<float, 2> {
+  using T = float2;
+};
+template <>
+struct RVec<double, 1> {
+  using T = double;
+};
+
+__device__ __forceinline__ float rlane(float2 v, int k) { return k == 0 ? v.x : v.y; }
 template <typename R>
-__global__ void transmit_bwd_kernel(const typename Complex<R>::T* __restrict__ psi,
-                                    const R* __restrict__ v,
-                                    const typename Complex<R>::T* __restrict__ g,
-                                    typename Complex<R>::T* __restrict__ dpsi,
-                                    R* __restrict__ dv, R sigma, int64_t plane,
-                                    int64_t batch) {
-  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
-  for (int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x; i < plane;
-       i += stride) {
+__device__ __forceinline__ R rlane(R v, int) {
+  return v;
+}
+
+// Rows 1 and 2 by precision, from H100 turns (scripts/against_checkout.py):
+// row 1's planes whose loads are in flight together in one thread, and row
+// 2's blocks of kThreads an SM that the compiler is asked to fit (8: at most
+// 32 registers; 6: 40).
+template <typename R>
+constexpr int kFwdPlanes = sizeof(R) == 4 ? 2 : 1;
+template <typename R>
+constexpr int kBwdBlocks = sizeof(R) == 4 ? 8 : 6;
+// complex128 row 2 from this batch on: no register cap (70 registers; at 128
+// x 512^2 560.8 against 569.4 us with the cap, in turns; at one plane the cap
+// leads, 7.74 against 8.16 us; 2-127 planes not measured)
+constexpr int64_t kBwdUncappedFrom = 128;
+
+// Replaces fdes_tpu/pallas/slice_step.py::_transmit_fwd_kernel (via
+// _transmit_fwd), redesigned for the H100: psi * t, t = exp(i sigma V), V
+// real.  Bound: bytes, 4 + 16 a complex64 pixel and plane (V; psi in, out):
+// 1.57 us at 512^2, 14.1 at 1536^2, 25.0 at 2048^2, 100.2 at 4096^2.  The
+// first version (a grid-stride loop capped at 132 x 16 blocks, 8-byte
+// accesses, the batch walked one plane after another) took 6.66, 23.7, 37.8
+// and 130.5 us there.  This one: psi and out as 16-byte vectors (W = 2
+// complex64 pixels, or one complex128), V's W reals as one word, t formed
+// once a block row and kept in registers, the loads of kFwdPlanes planes
+// issued before their products, and at most 32 registers, so that 8 blocks
+// of 256 threads fill each SM and every vector of a plane is in flight at
+// once: 6.59, 20.1, 33.0 and 114.1 us (H100, scripts/against_checkout.py,
+// in turns).  A block row (blockIdx.y) covers `rows` planes, which the
+// caller picks by batch (kernels/slice_step.py TRANSMIT_ROWS): the whole
+// batch in one row forms t once a pixel; more rows put more threads on a
+// large batch (16 x 512^2: 28.2 against 28.6 us; 128 x 512^2 complex128, two
+// planes a row: 368.6 against 380.5).  A row of a few planes (cmul_kernel's
+// grid, a row of 4) lost at 8 x 512^2 (12.4 against 10.9 us) and from 1536^2
+// up.  Measured and not kept: four planes in flight (50 registers: 130.6 us
+// at 4096^2), two in complex128 (7.6 against 7.0 us at 512^2), four pixels a
+// thread (slower at 4-8 planes), and the streaming hints __ldcs/__stcs
+// (faster alone at 1536^2, where repeated timing keeps V in L2, slower at 4-8
+// planes; within 1-3 % in a rollout).  An odd complex64 plane, or an operand
+// not 16-byte aligned, takes W = 1.  No shared memory: a streaming pass.
+template <typename R, int W, bool kRows>
+__global__ void __launch_bounds__(kThreads, 8)
+transmit_vec_kernel(const typename Vec<R, W>::T* __restrict__ psi,
+                    const typename RVec<R, W>::T* __restrict__ v,
+                    typename Vec<R, W>::T* __restrict__ out, R sigma, int64_t nvec,
+                    int64_t batch, int64_t rows) {
+  using C = typename Complex<R>::T;
+  using V = typename Vec<R, W>::T;
+  constexpr int U = kFwdPlanes<R>;
+  const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (i >= nvec) return;
+  const typename RVec<R, W>::T vi = v[i];
+  C t[W];
+#pragma unroll
+  for (int k = 0; k < W; ++k) {
     R s, c;
-    sin_cos(sigma * v[i], &s, &c);
-    R acc = 0;
-    for (int64_t b = 0; b < batch; ++b) {
-      const int64_t k = b * plane + i;
-      const typename Complex<R>::T gk = g[k];
-      const typename Complex<R>::T u = rotate(psi[k], c, s);
-      dpsi[k] = rotate_conj(gk, c, s);
-      acc += gk.y * u.x - gk.x * u.y;
+    sin_cos(sigma * rlane(vi, k), &s, &c);
+    t[k].x = c;
+    t[k].y = s;
+  }
+  // kRows: this block row's planes, the pointers moved once; else the whole
+  // batch, with none of that arithmetic (it cost 1-2 % at one plane)
+  int64_t count = batch;
+  if constexpr (kRows) {
+    const int64_t first = static_cast<int64_t>(blockIdx.y) * rows;
+    count = batch - first < rows ? batch - first : rows;
+    psi += first * nvec;
+    out += first * nvec;
+  }
+  for (int64_t j0 = 0; j0 < count; j0 += U) {
+    V pv[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      if (j0 + u < count) pv[u] = psi[(j0 + u) * nvec + i];
     }
-    dv[i] = sigma * acc;
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      if (j0 + u >= count) break;
+      C o[W];
+#pragma unroll
+      for (int k = 0; k < W; ++k) o[k] = rotate(lane<R>(pv[u], k), t[k].x, t[k].y);
+      out[(j0 + u) * nvec + i] = pack(o);
+    }
   }
 }
 
-template <typename R>
-int launch_transmit(int device, const void* psi, const void* v, void* out, double sigma,
-                    int64_t plane, int64_t batch, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return err;
+// Replaces fdes_tpu/pallas/slice_step.py::_transmit_bwd_kernel (via
+// _pallas_transmit_bwd), re-derived for PyTorch's adjoint convention (top of
+// file) and redesigned for the H100.  With u = t*psi (recomputed: cheaper
+// than saving it through the FFTs), dpsi = g*conj(t) and dV = sigma *
+// Im(g*conj(u)) = sigma * (g.y*u.x - g.x*u.y) summed over the batch.  Bound:
+// bytes, 8 + 24 a complex64 pixel and plane (V, psi, g in; dpsi, dV out):
+// 2.50 us at 512^2, 8.14 at 4 x 512^2, 40.1 at 2048^2, 160.3 at 4096^2.  The
+// first version (the grid-stride form of row 1) took 6.59, 8.69, 51.8 and
+// 197.0 us there.  This one: a pixel a thread, t formed once and kept in
+// registers, the whole batch in one thread, one plane after another, and at
+// most 32 registers in complex64 (40 in complex128 below kBwdUncappedFrom
+// planes): 6.58, 8.70, 49.7 and 182.6 us (H100, scripts/against_checkout.py,
+// in turns).  Measured and not kept: two complex64 pixels a thread (16-byte
+// accesses, 40-48 registers: 1-2 % faster from 1536^2 up, but behind the
+// first version at 4 x 512^2); two planes' loads in flight (a tie in
+// complex128 at 128 x 512^2).  The whole batch stays in one thread so that
+// each pixel's dV is summed in a fixed order (plane 0 first), with no
+// atomics: the same bits from run to run.
+template <typename R, int Blocks>
+__global__ void __launch_bounds__(kThreads, Blocks)
+transmit_bwd_pixel_kernel(const typename Complex<R>::T* __restrict__ psi,
+                          const R* __restrict__ v, const typename Complex<R>::T* __restrict__ g,
+                          typename Complex<R>::T* __restrict__ dpsi, R* __restrict__ dv,
+                          R sigma, int64_t plane, int64_t batch) {
   using C = typename Complex<R>::T;
-  transmit_kernel<R><<<blocks_for(plane), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const C*>(psi), static_cast<const R*>(v), static_cast<C*>(out),
-      static_cast<R>(sigma), plane, batch);
-  return cudaGetLastError();
+  const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (i >= plane) return;
+  R s, c;
+  sin_cos(sigma * v[i], &s, &c);
+  R acc = 0;
+  for (int64_t j = 0; j < batch; ++j) {
+    const C gk = g[j * plane + i];
+    const C uk = rotate(psi[j * plane + i], c, s);
+    dpsi[j * plane + i] = rotate_conj(gk, c, s);
+    acc += gk.y * uk.x - gk.x * uk.y;
+  }
+  dv[i] = sigma * acc;
 }
 
 // complex64: two pixels a 16-byte vector where the plane is even and every
@@ -382,6 +451,38 @@ bool two_a_vector(int64_t plane, std::initializer_list<const void*> ptrs) {
   uintptr_t any = 0;
   for (const void* p : ptrs) any |= reinterpret_cast<uintptr_t>(p);
   return sizeof(R) == 4 && plane % 2 == 0 && any % 16 == 0;
+}
+
+template <typename R, int W>
+int launch_transmit_vec(const void* psi, const void* v, void* out, R sigma, int64_t plane,
+                        int64_t batch, int64_t rows, cudaStream_t stream) {
+  using V = typename Vec<R, W>::T;
+  using RV = typename RVec<R, W>::T;
+  const int64_t nvec = plane / W;
+  const int64_t fewest = (batch + 65534) / 65535;  // gridDim.y's limit
+  if (rows < fewest) rows = fewest;
+  const dim3 grid(static_cast<unsigned>((nvec + kThreads - 1) / kThreads),
+                  static_cast<unsigned>((batch + rows - 1) / rows));
+  const auto kernel =
+      grid.y > 1 ? transmit_vec_kernel<R, W, true> : transmit_vec_kernel<R, W, false>;
+  kernel<<<grid, kThreads, 0, stream>>>(static_cast<const V*>(psi), static_cast<const RV*>(v),
+                                        static_cast<V*>(out), sigma, nvec, batch, rows);
+  return cudaGetLastError();
+}
+
+template <typename R>
+int launch_transmit(int device, const void* psi, const void* v, void* out, double sigma,
+                    int64_t plane, int64_t batch, int64_t rows, void* stream) {
+  if (rows < 1) return cudaErrorInvalidValue;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  const auto s = static_cast<cudaStream_t>(stream);
+  const R sg = static_cast<R>(sigma);
+  if (two_a_vector<R>(plane, {psi, v, out})) {
+    return launch_transmit_vec<R, sizeof(R) == 4 ? 2 : 1>(psi, v, out, sg, plane, batch, rows,
+                                                          s);
+  }
+  return launch_transmit_vec<R, 1>(psi, v, out, sg, plane, batch, rows, s);
 }
 
 template <typename R>
@@ -396,16 +497,31 @@ int launch_cmul(int device, const void* a, const void* b, void* out, int conj_b,
   return launch_cmul_vec<R, 1>(a, b, out, conj_b, plane, batch, s);
 }
 
+template <typename R, int Blocks>
+int launch_transmit_bwd_pixel(const void* psi, const void* v, const void* g, void* dpsi,
+                              void* dv, R sigma, int64_t plane, int64_t batch,
+                              cudaStream_t stream) {
+  using C = typename Complex<R>::T;
+  transmit_bwd_pixel_kernel<R, Blocks>
+      <<<static_cast<unsigned>((plane + kThreads - 1) / kThreads), kThreads, 0, stream>>>(
+          static_cast<const C*>(psi), static_cast<const R*>(v), static_cast<const C*>(g),
+          static_cast<C*>(dpsi), static_cast<R*>(dv), sigma, plane, batch);
+  return cudaGetLastError();
+}
+
 template <typename R>
 int launch_transmit_bwd(int device, const void* psi, const void* v, const void* g, void* dpsi,
                         void* dv, double sigma, int64_t plane, int64_t batch, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
-  using C = typename Complex<R>::T;
-  transmit_bwd_kernel<R><<<blocks_for(plane), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const C*>(psi), static_cast<const R*>(v), static_cast<const C*>(g),
-      static_cast<C*>(dpsi), static_cast<R*>(dv), static_cast<R>(sigma), plane, batch);
-  return cudaGetLastError();
+  const auto s = static_cast<cudaStream_t>(stream);
+  const R sg = static_cast<R>(sigma);
+  if constexpr (sizeof(R) == 8) {
+    if (batch >= kBwdUncappedFrom) {
+      return launch_transmit_bwd_pixel<R, 1>(psi, v, g, dpsi, dv, sg, plane, batch, s);
+    }
+  }
+  return launch_transmit_bwd_pixel<R, kBwdBlocks<R>>(psi, v, g, dpsi, dv, sg, plane, batch, s);
 }
 
 template <typename R, int W>
@@ -471,14 +587,15 @@ const char* fdes_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
+// rows: the planes a block row covers (at least 1)
 int fdes_transmit_c64(int device, const void* psi, const void* v, void* out, double sigma,
-                      int64_t plane, int64_t batch, void* stream) {
-  return launch_transmit<float>(device, psi, v, out, sigma, plane, batch, stream);
+                      int64_t plane, int64_t batch, int64_t rows, void* stream) {
+  return launch_transmit<float>(device, psi, v, out, sigma, plane, batch, rows, stream);
 }
 
 int fdes_transmit_c128(int device, const void* psi, const void* v, void* out, double sigma,
-                       int64_t plane, int64_t batch, void* stream) {
-  return launch_transmit<double>(device, psi, v, out, sigma, plane, batch, stream);
+                       int64_t plane, int64_t batch, int64_t rows, void* stream) {
+  return launch_transmit<double>(device, psi, v, out, sigma, plane, batch, rows, stream);
 }
 
 int fdes_cmul_c64(int device, const void* a, const void* b, void* out, int conj_b, int64_t plane,

@@ -4,8 +4,9 @@ Counterpart of ``fdes_tpu/pallas/slice_step.py``.  The TPU engine runs
 Pallas kernels around the library FFT; here they are CUDA C++ kernels
 (``csrc/slice_step.cu``) around cuFFT:
 
-* ``transmit(psi, v, sigma)``: psi * exp(1j*sigma*V), V real
-  (replaces ``_transmit_fwd_kernel``);
+* ``transmit(psi, v, sigma, rows=None)``: psi * exp(1j*sigma*V), V real
+  (replaces ``_transmit_fwd_kernel``; ``rows``, the planes a block row, from
+  ``TRANSMIT_ROWS`` by batch);
 * ``transmit_abs(psi, v, sigma)``: psi * exp(1j*sigma*Vr - sigma*Va), the
   absorptive channel, V = Vr + 1j*Va one complex plane read in place
   (replaces ``_transmit_abs_fwd_kernel``);
@@ -59,7 +60,8 @@ from . import _build
 _SUFFIX = {torch.complex64: "c64", torch.complex128: "c128"}
 _P = ctypes.c_void_p
 _ARGTYPES = {
-    "transmit": [ctypes.c_int, _P, _P, _P, ctypes.c_double, ctypes.c_int64, ctypes.c_int64, _P],
+    "transmit": [ctypes.c_int, _P, _P, _P, ctypes.c_double, ctypes.c_int64, ctypes.c_int64,
+                 ctypes.c_int64, _P],
     "transmit_abs": [ctypes.c_int, _P, _P, _P, ctypes.c_double, ctypes.c_int64, ctypes.c_int64,
                      _P],
     "cmul": [ctypes.c_int, _P, _P, _P, ctypes.c_int, ctypes.c_int64, ctypes.c_int64, _P],
@@ -215,17 +217,42 @@ def transmit_abs_bwd_ref(
 # ---- kernel wrappers -------------------------------------------------------
 
 
-def transmit(psi: torch.Tensor, v: torch.Tensor, sigma: float) -> torch.Tensor:
-    """psi * exp(1j*sigma*V): the transmit kernel on CUDA, plain on CPU."""
+#: The transmit kernel's planes a block row, by psi's dtype and batch: rows
+#: of measured batches (fused_step.route_row: the row of the largest measured
+#: batch not above the launch's), 0 for the whole batch in one block row (t
+#: formed once a pixel).  From H100 turns of every choice at each row
+#: (chip_smoke.slice_sizes, PERF.md section 6).
+TRANSMIT_ROWS = {
+    torch.complex64: {1: 0, 4: 2, 8: 0, 16: 8},
+    torch.complex128: {1: 0, 128: 2},
+}
+
+
+def transmit_rows(batch: int, dtype: torch.dtype) -> int:
+    """The planes a block row that TRANSMIT_ROWS gives a transmit of
+    ``batch`` planes of ``dtype``, at least 1 and at most the batch."""
+    from .fused_step import route_row
+
+    rows = route_row(TRANSMIT_ROWS[dtype], batch)
+    return max(1, batch if rows == 0 else min(rows, batch))
+
+
+def transmit(psi: torch.Tensor, v: torch.Tensor, sigma: float,
+             rows: int | None = None) -> torch.Tensor:
+    """psi * exp(1j*sigma*V): the transmit kernel on CUDA, plain on CPU.
+    ``rows``: the planes a block row, ``transmit_rows``' choice when None
+    (checked before the CPU dispatch)."""
     v = _real_operand(v, psi, "v", "transmit")
     plane, batch = _check(psi, {"v": v}, "transmit")
+    if rows is not None and (type(rows) is not int or rows < 1):
+        raise ValueError(f"transmit: rows must be a positive int or None, got {rows!r}")
     if not psi.is_cuda:
         return transmit_ref(psi, v, sigma)
     out = torch.empty_like(psi)
     if plane:
         _launch(
             "transmit", psi, psi.data_ptr(), v.data_ptr(), out.data_ptr(),
-            float(sigma), plane, batch,
+            float(sigma), plane, batch, rows or transmit_rows(batch, psi.dtype),
         )
         transmit.launches += 1
     return out

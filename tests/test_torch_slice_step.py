@@ -289,6 +289,32 @@ def test_cpu_calls_launch_nothing(planes):
     assert [w.launches for w in ks.WRAPPERS] == [0] * 5
 
 
+def test_transmit_rows_is_the_table():
+    """Row 1's planes a block row: TRANSMIT_ROWS' entry for the largest
+    measured batch not above the launch's (0: the whole batch), never more
+    than the batch, at least 1."""
+    for cdt, rows in ks.TRANSMIT_ROWS.items():
+        measured = sorted(rows)
+        assert measured[0] == 1 and rows[1] == 0
+        for b in range(0, 2 * measured[-1] + 1):
+            entry = rows[max(k for k in measured if k <= max(b, 1))]
+            assert ks.transmit_rows(b, cdt) == max(1, b if entry == 0 else min(entry, b))
+
+
+@pytest.mark.parametrize("rows", [0, -1, 2.0, True, "4"])
+def test_transmit_rows_argument_is_checked(planes, rows):
+    """rows= takes a positive int or None, checked before the CPU dispatch;
+    on the CPU any valid rows gives the plain version and launches nothing."""
+    psi, _, v, _, _ = planes
+    p, vv = _t(psi, np.complex64), _t(v, np.float32)
+    with pytest.raises(ValueError, match="rows"):
+        ks.transmit(p, vv, SIGMA, rows=rows)
+    ks.reset_launches()
+    for ok in (None, 1, 2, 64):
+        assert torch.equal(ks.transmit(p, vv, SIGMA, rows=ok), ks.transmit_ref(p, vv, SIGMA))
+    assert ks.transmit.launches == 0
+
+
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
@@ -303,9 +329,23 @@ def test_kernels_match_plain_on_card(planes, cuda, cdt):
     p, vv, vc, bb = (_t(a, d).to(cuda)
                      for a, d in ((psi, cdt), (v, rdt), (v + 1j * va, cdt), (b, cdt)))
     g = p.flip(0).conj().resolve_conj()
+    rng = np.random.default_rng(12)
+    p8, g8 = (_t(rng.normal(size=(8, *v.shape)) + 1j * rng.normal(size=(8, *v.shape)), cdt)
+              .to(cuda) for _ in range(2))
+    odd = [t[..., 1:, 1:].contiguous() for t in (p, vv, g)]  # 127^2: 8-byte accesses
     ks.reset_launches()
     pairs = [
         (ks.transmit(p, vv, SIGMA), ks.transmit_ref(p, vv, SIGMA)),
+        # rows 1 and 2 at batches 1 and 8 (3 above and below), and on an odd plane
+        (ks.transmit(p[0], vv, SIGMA), ks.transmit_ref(p[0], vv, SIGMA)),
+        (ks.transmit(p8, vv, SIGMA), ks.transmit_ref(p8, vv, SIGMA)),
+        # block rows of 3 planes (the last row short) and of one
+        (ks.transmit(p8, vv, SIGMA, rows=3), ks.transmit_ref(p8, vv, SIGMA)),
+        (ks.transmit(p8, vv, SIGMA, rows=1), ks.transmit_ref(p8, vv, SIGMA)),
+        (ks.transmit(odd[0], odd[1], SIGMA), ks.transmit_ref(*odd[:2], SIGMA)),
+        *zip(ks.transmit_bwd(p[0], vv, g[0], SIGMA), ks.transmit_bwd_ref(p[0], vv, g[0], SIGMA)),
+        *zip(ks.transmit_bwd(p8, vv, g8, SIGMA), ks.transmit_bwd_ref(p8, vv, g8, SIGMA)),
+        *zip(ks.transmit_bwd(*odd, SIGMA), ks.transmit_bwd_ref(*odd, SIGMA)),
         (ks.transmit_abs(p, vc, SIGMA), ks.transmit_abs_ref(p, vc, SIGMA)),
         (ks.cmul(p, bb, True), ks.cmul_ref(p, bb, True)),
         *zip(ks.transmit_bwd(p, vv, g, SIGMA), ks.transmit_bwd_ref(p, vv, g, SIGMA)),
@@ -319,10 +359,11 @@ def test_kernels_match_plain_on_card(planes, cuda, cdt):
              ks.transmit_abs_bwd_ref(p[:, 1:, 1:], vc[1:, 1:], g[:, 1:, 1:], SIGMA)),
     ]
     torch.cuda.synchronize()
-    assert [w.launches for w in ks.WRAPPERS] == [1, 3, 1, 1, 2]
+    assert [w.launches for w in ks.WRAPPERS] == [6, 3, 1, 4, 2]
     # dV summed over the batch in a fixed order: the same bits twice
     assert torch.equal(ks.transmit_abs_bwd(p, vc, g, SIGMA)[1],
                        ks.transmit_abs_bwd(p, vc, g, SIGMA)[1])
+    assert torch.equal(ks.transmit_bwd(p8, vv, g8, SIGMA)[1], ks.transmit_bwd(p8, vv, g8, SIGMA)[1])
     tol = {np.complex64: 2e-6, np.complex128: 1e-12}[cdt]
     for got, want in pairs:
         assert _rel_max(got.cpu().numpy(), want.cpu().numpy()) <= tol
