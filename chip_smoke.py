@@ -96,7 +96,9 @@ Phases, each printing one JSON line:
              kernels/panel_scan.PANEL_ROUTE, 256^2 to 4096^2 x 1-8 waves,
              the wide ones (and both of row 13's) held to the plain versions
              there (each row names the faster and whether the table picks
-             it).  The
+             it); row 16 (panel_rowpass, one V plane on row 15's kind) the
+             same, both kernels held, and in more turns at one wave of
+             2048^2 and 4096^2.  The
              streamed build's three passes at 256^2, 2048^2 and 4096^2 (one
              species and two; the fused row pass, its one kernel, with one
              wave and two; the build column pass on both of its kernels,
@@ -207,6 +209,20 @@ Phases, each printing one JSON line:
              engine.
 11. stem4d  — a 4x4 scan in mode stem4d (cbed.npy, "fscan" against "xla") and
              in mode stem with stem.compute_com=true (stem_com.npy).
+11a. prism  — stem.method = "prism" through ``fdes_tpu_torch.cli.main`` on
+             examples/si110_stem.toml (config 4, on the PRISM probe-chunk
+             target), gated: (a) interp 1 at phase stem's 32x32 probes
+             against its exact signals on the defaults; (b) interp 2 on the
+             defaults against interp 2 on "xla"; (c) mode stem4d at 16x16
+             against the exact CBED; (d) two frozen-phonon configurations
+             against the exact mean; (e) one launch of the whole-loop kernel
+             a beam chunk (3,253 beams in one at interp 1; interp 4 in 7
+             chunks of 29); (f) the exact raster and PRISM at interp 1 and
+             2 over config 4's 4,096 probes in turns (S-matrix and synthesis
+             seconds, peak memory), busy time by kernel and idle share from
+             torch.profiler; (g) the synthesis at probe chunks 64-512 in
+             turns; and the five float32 products pinned against TF32 (the
+             same bits with torch.backends.cuda.matmul.allow_tf32 on).
 11b. stem4d_invert_deep — the first cell past the store cap, nothing
              patched: ``fdes_tpu_torch.cli.main --mode invert`` on
              examples/si110_stem.toml with recon.modality=stem4d at twice
@@ -322,8 +338,9 @@ import torch
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 PHASES = ("build", "kernels", "golden", "hrtem", "absorptive", "streamed", "grad", "invert",
-          "invert_absorptive", "pallas_auto", "stem", "stem4d", "stem4d_invert_deep", "c5",
-          "c5_absorptive", "c5_invert", "c5_tilt_invert", "c5_streamed", "phonon", "engines")
+          "invert_absorptive", "pallas_auto", "stem", "stem4d", "prism", "stem4d_invert_deep",
+          "c5", "c5_absorptive", "c5_invert", "c5_tilt_invert", "c5_streamed", "phonon",
+          "engines")
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 PEAK_OPS_PER_S = {torch.float32: 67e12, torch.float64: 34e12}  # non-tensor-core FP32 / FP64
 KERNEL_TOL = {torch.complex64: 2e-6, torch.complex128: 1e-12}  # max|k - ref| / max|ref|
@@ -1196,9 +1213,10 @@ ADJOINT_KERNELS = {"fused_scan_store": "scan_store_kernel",
                    "wide_scan_bwd_ck": "wide_scan_bwd_ck_kernel"}
 #: the segments of the segment pair's route rows (16 slices)
 SEG_ROW_SEG = 4
-#: the sleep before each reading of the adjoint's route rows (~10 ms): three
-#: calls of one cooperative launch each take well under a millisecond to
-#: enqueue, and the full sleep made up most of the rows' time
+#: the sleep before each reading of the adjoint's and the panel passes' route
+#: rows (~10 ms): three calls of one cooperative launch, or ten of one panel
+#: pass, take well under a millisecond to enqueue, and the full sleep made up
+#: most of the rows' time
 ROW_SLEEP_CYCLES = 20_000_000
 #: two routes whose medians stand within this share of each other are a tie,
 #: which the spread between calls can turn either way (a route row of
@@ -1755,12 +1773,15 @@ def panel_route_rows(kind: str, checks: list, sigma: float) -> list[dict]:
     with s_j), the build column pass ("build_col", the count its species),
     the absorptive row pass ("row_abs", one complex V_j shared by the waves,
     Vi = 0.1 |Vr|, read in place) or the init of a real V ("init", V_0 shared
-    by the waves), on "tile" and "wide"; the wide kernels (and both of the
-    init's) held to the plain version at each row's shape.  Each row names
-    the faster and whether the table picks it, with the pass's bound
-    beside."""
+    by the waves) or row 16 ("row_plane": panel_rowpass, one V plane shared
+    by the waves, on row 15's kind "row"), on "tile" and "wide"; the wide
+    kernels (and both of the init's and of row 16's) held to the plain
+    version at each row's shape.  Each row names the faster and whether the
+    table picks it, with the pass's bound beside."""
     from fdes_tpu_torch.kernels import panel_scan as ps
 
+    # row 16's one plane ("row_plane") takes row 15's kind
+    table_kind = "row" if kind == "row_plane" else kind
     card = CardInputs(11)
     rows = []
     for n in ps.SIZES:
@@ -1774,6 +1795,13 @@ def panel_route_rows(kind: str, checks: list, sigma: float) -> list[dict]:
                 fns = {r: (lambda r=r: ps._colpass(a, pp, route=r)) for r in ps.ROUTES}
                 # a and b of each wave, P (shared) once
                 cost = (plane * (b * (8 + 8) + 8), b * (2 * fx + 6 * plane))
+            elif kind == "row_plane":
+                v1 = card.real(n, n)
+                ref = ps.panel_rowpass_ref(v1, a, sigma)
+                fns = {r: (lambda r=r: ps.panel_rowpass(v1, a, sigma, route=r))
+                       for r in ps.ROUTES}
+                # b and a of each wave, the V plane (shared) once
+                cost = (plane * (b * 16 + 4), b * (2 * fx + 9 * plane))
             elif kind in ("row", "row_store"):
                 store = kind == "row_store"
                 vs = card.real(2, n, n)
@@ -1814,17 +1842,18 @@ def panel_route_rows(kind: str, checks: list, sigma: float) -> list[dict]:
                 # bar, s and out of each wave, V and dV once
                 cost = (plane * (b * (8 + 8 + 8) + 4 + 4), b * (2 * fx + 13 * plane))
             for route, fn in fns.items():
-                if route != "tile" or kind == "init":
+                if route != "tile" or kind in ("init", "row_plane"):
                     check_kernel(checks, f"{kind} route {route}", (b, n, n), fn(), ref, FUSED_TOL,
                                  route_row=True)
             del ref
-            med, readings = interleaved_ms(fns, rounds=3, n=10, warmup=2)
+            med, readings = interleaved_ms(fns, rounds=3, n=10, warmup=2,
+                                           sleep_cycles=ROW_SLEEP_CYCLES)
             t_bytes = cost[0] / HBM_BYTES_PER_S * 1e3
             t_ops = cost[1] / PEAK_OPS_PER_S[torch.float32] * 1e3
             faster = min(med, key=med.get)
+            table = ps.panel_route(n, b, table_kind)
             rows.append({"n": n, "waves": b, "ms": med, "readings": readings, "faster": faster,
-                         "table": ps.panel_route(n, b, kind),
-                         "table_picks_faster": ps.panel_route(n, b, kind) == faster,
+                         "table": table, "table_picks_faster": table == faster,
                          "bound_ms": max(t_bytes, t_ops),
                          "bound_by": "bytes" if t_bytes >= t_ops else "operations"})
             del a, fns
@@ -1963,6 +1992,25 @@ def init_vc_checks(checks: list, card: CardInputs, sigma: float) -> None:
             torch.cuda.empty_cache()
 
 
+def rowpass_plane_turns(card: CardInputs, sigma: float) -> dict:
+    """Row 16 (panel_rowpass, one V plane) on both kernels in turns, three
+    readings each, at one wave of 2048^2 and 4096^2, beside its bound (b
+    and a, 8 bytes a value each, V 4): {"<n>x1": {"ms": {"tile": ...,
+    "wide": ...}, "readings": ..., "bound_ms": ...}}."""
+    from fdes_tpu_torch.kernels import panel_scan as ps
+
+    out = {}
+    for n in (2048, 4096):
+        a, v = card.cplx(n, n), card.real(n, n)
+        med, readings = interleaved_ms(
+            {r: (lambda r=r: ps.panel_rowpass(v, a, sigma, route=r)) for r in ps.ROUTES},
+            rounds=3, n=20, warmup=3)
+        out[f"{n}x1"] = {"ms": med, "readings": readings,
+                         "bound_ms": 20 * n * n / HBM_BYTES_PER_S * 1e3}
+        del a, v
+    return out
+
+
 def phase_kernels_panel() -> tuple[dict, dict]:
     """The panel passes (rows 13-19) against their plain versions at 256^2,
     2048^2 (one wave and two, shared and per-wave P) and 4096^2 (one wave),
@@ -1994,8 +2042,9 @@ def phase_kernels_panel() -> tuple[dict, dict]:
             **{f"panel_rowpass_stack[{r}]": (
                 lambda r=r: ps.panel_rowpass_stack(2, vs, a, sigma, route=r),
                 lambda: ps.panel_rowpass_stack_ref(2, vs, a, sigma)) for r in ps.ROUTES},
-            "panel_rowpass": (lambda: ps.panel_rowpass(vs[1], a, sigma),
-                              lambda: ps.panel_rowpass_ref(vs[1], a, sigma)),
+            **{f"panel_rowpass[{r}]": (lambda r=r: ps.panel_rowpass(vs[1], a, sigma, route=r),
+                                       lambda: ps.panel_rowpass_ref(vs[1], a, sigma))
+               for r in ps.ROUTES},
             "panel_final": (lambda: ps.panel_final(a), lambda: ps.panel_final_ref(a)),
             **{f"panel_init_abs[{r}]": (
                 lambda r=r: ps.panel_init_abs(vc[0].real, vc[0].imag, psi, sigma, route=r),
@@ -2016,7 +2065,8 @@ def phase_kernels_panel() -> tuple[dict, dict]:
                             (plane * (8 + 8 + 8), 2 * fx + 6 * plane)),
             **dict.fromkeys(("panel_rowpass_stack[tile]", "panel_rowpass_stack[wide]"),
                             (plane * (8 + 4 + 8), 2 * fx + 9 * plane)),
-            "panel_rowpass": (plane * (8 + 4 + 8), 2 * fx + 9 * plane),
+            **dict.fromkeys(("panel_rowpass[tile]", "panel_rowpass[wide]"),
+                            (plane * (8 + 4 + 8), 2 * fx + 9 * plane)),
             "panel_final": (plane * (8 + 8), fx),
             # psi (b) and a, the complex V once
             **dict.fromkeys(("panel_init_abs[tile]", "panel_init_abs[wide]"),
@@ -2032,7 +2082,8 @@ def phase_kernels_panel() -> tuple[dict, dict]:
         "panel_colpass[wide]": "fdes_tpu/pallas/panel_scan.py:247",
         "panel_rowpass_stack[tile]": "fdes_tpu/pallas/panel_scan.py:125",
         "panel_rowpass_stack[wide]": "fdes_tpu/pallas/panel_scan.py:125",
-        "panel_rowpass": "fdes_tpu/pallas/panel_scan.py:101",
+        **dict.fromkeys(("panel_rowpass[tile]", "panel_rowpass[wide]"),
+                        "fdes_tpu/pallas/panel_scan.py:101"),
         "panel_final": "fdes_tpu/pallas/panel_scan.py:194",
         **dict.fromkeys(("panel_init_abs[tile]", "panel_init_abs[wide]"),
                         "fdes_tpu/pallas/panel_scan.py:150"),
@@ -2044,6 +2095,7 @@ def phase_kernels_panel() -> tuple[dict, dict]:
                                   "panel_colpass[wide]": "panel_wide_col_kernel",
                                   "panel_init[wide]": "panel_wide_row_kernel",
                                   "panel_rowpass_stack[wide]": "panel_wide_row_kernel",
+                                  "panel_rowpass[wide]": "panel_wide_row_kernel",
                                   "panel_init_abs[wide]": "panel_wide_row_kernel",
                                   "panel_rowpass_stack_abs[wide]": "panel_wide_row_kernel",
                                   "panel_final": "panel_wide_x_row_kernel"},
@@ -2065,6 +2117,14 @@ def phase_kernels_panel() -> tuple[dict, dict]:
         del cases
     route_rows = panel_route_rows("col", checks, sigma)
     row_route_rows = panel_route_rows("row", checks, sigma)
+    # row 16: row 15's pass on one V plane, on both kernels in turns at every
+    # row of row 15's kind, and at one wave of 2048^2 and 4096^2 in more turns
+    row_plane_route_rows = panel_route_rows("row_plane", checks, sigma)
+    rowpass_turns = rowpass_plane_turns(card, sigma)
+    for r in ps.ROUTES:
+        row = rows[f"panel_rowpass[{r}]"]
+        row["ms_in_turns"] = rowpass_turns["2048x1"]["ms"][r]
+        row["at_4096"]["ms_in_turns"] = rowpass_turns["4096x1"]["ms"][r]
     abs_route_rows = panel_route_rows("row_abs", checks, sigma)
     # row 13 on both kernels in turns at every row (V_0 real), and its
     # streamed form (V_0 the real parts of a complex plane) held on both
@@ -2096,7 +2156,8 @@ def phase_kernels_panel() -> tuple[dict, dict]:
     line = {"phase": "kernels_panel", "checks": checks, "rollout_kernels_per_call": rollout_kernels,
             "abs_rollout_kernels_per_call": abs_rollout_kernels,
             "panel_kernel_info": info, "route_rows": route_rows,
-            "row_route_rows": row_route_rows, "abs_route_rows": abs_route_rows,
+            "row_route_rows": row_route_rows, "row_plane_route_rows": row_plane_route_rows,
+            "rowpass_turns": rowpass_turns, "abs_route_rows": abs_route_rows,
             "init_route_rows": init_route_rows, "final_library_turns": final_turns,
             "scan_kernel_info": {n: fsc.scan_kernel_info(n) for n in (512, 1024)},
             "adjoint_kernel_info": {k: adj.adjoint_kernel_info(512, k) for k in SCAN_FOOTPRINT
@@ -5049,6 +5110,292 @@ def phase_phonon(tmp: str, gpu: str) -> dict:
     return line
 
 
+#: stem.method = "prism" on the PRISM probe-chunk target (config 4's file
+#: names probe_chunk = 64 for the exact raster)
+PRISM = ("--set", "stem.method=prism", "--set", "stem.probe_chunk=0")
+#: config 4's full raster: 64x64 = 4,096 probes
+SCAN_4096 = ("--set", "stem.scan_ny=64", "--set", "stem.scan_nx=64")
+#: the probe chunks of a PRISM synthesis timed in turns (pick_probe_chunk's
+#: PRISM target)
+PRISM_CHUNKS = (64, 128, 256, 512)
+
+
+def per_detector(a: np.ndarray, b: np.ndarray) -> dict[str, float]:
+    """Relative norm of a against b per detector (first axis)."""
+    return {f"detector_{d}": float(np.linalg.norm(a[d] - b[d]) / np.linalg.norm(b[d]))
+            for d in range(a.shape[0])}
+
+
+def prism_api_case(interp: int) -> dict:
+    """Config 4 at 64x64 probes through the PRISM functions (not the CLI), on
+    the engine auto picks for its beams: the plan, the state, the step."""
+    from fdes_tpu_torch.config import apply_overrides, load_config
+    from fdes_tpu_torch.pipeline import prism_setup, setup, stem_setup
+    from fdes_tpu_torch.propagate import make_slice_step
+
+    cfg = apply_overrides(load_config(CONFIG_STEM), [*SCAN_4096[1::2],
+                                                     f"stem.prism_interp={interp}"])
+    sim = setup(cfg, device="cuda")
+    plan = prism_setup(sim)
+    _, _, _, positions, masks = stem_setup(sim)
+    step = make_slice_step("auto", shape=sim.grid.shape, dtype=sim.cdtype, grad=False,
+                           batch=plan.nbeams)
+    return {"sim": sim, "plan": plan, "positions": positions, "masks": masks, "step": step}
+
+
+def prism_smatrix_of(case: dict) -> torch.Tensor:
+    from fdes_tpu_torch.prism import prism_smatrix
+
+    sim = case["sim"]
+    with torch.no_grad():
+        return prism_smatrix(case["plan"], sim.v_stack, sim.propagator, sim.sigma,
+                             slice_step=case["step"], dtype=sim.cdtype)
+
+
+def prism_profile(case: dict, chunk: int) -> dict:
+    """Device busy ms of one S-matrix and one 4,096-probe synthesis (chunks of
+    ``chunk``) from torch.profiler, by kernel, with the wall of the same
+    call: the idle share."""
+    from fdes_tpu_torch.prism import prism_raster
+
+    def fn():
+        smat = prism_smatrix_of(case)
+        with torch.no_grad():
+            prism_raster(smat, case["plan"], case["positions"], case["masks"],
+                         probe_chunk=chunk)
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    kernels = profiled_kernels(fn, attempts=2)
+    busy = sum(us for _, us in kernels) / 1e3
+    return {"wall_ms": wall, "device_busy_ms": busy, "kernels": len(kernels),
+            "device_idle_share": max(0.0, 1.0 - busy / wall),
+            "busy_ms_by_kernel": {k: v for k, v in kernel_busy_ms(kernels).items() if v >= 0.05}}
+
+
+def prism_chunk_rows(case: dict, smat: torch.Tensor) -> dict:
+    """The 4,096-probe synthesis (prism_raster) of one S-matrix at each probe
+    chunk of PRISM_CHUNKS in turns, three rounds: wall ms (synchronised host
+    clock) and device ms (CUDA events behind a sleep kernel)."""
+    from fdes_tpu_torch.prism import prism_raster
+
+    fns = {c: (lambda c=c: prism_raster(smat, case["plan"], case["positions"], case["masks"],
+                                        probe_chunk=c)) for c in PRISM_CHUNKS}
+    walls = {c: [] for c in PRISM_CHUNKS}
+    with torch.no_grad():
+        for fn in fns.values():
+            fn()
+        for _ in range(3):
+            for c, fn in fns.items():
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                walls[c].append((time.perf_counter() - t0) * 1e3)
+        dev, readings = interleaved_ms(fns, rounds=3, n=3, warmup=1)
+    wall = {c: statistics.median(w) for c, w in walls.items()}
+    return {"wall_ms": wall, "wall_readings": walls, "device_ms": dev,
+            "device_readings": readings, "fastest_wall": min(wall, key=wall.get)}
+
+
+def tf32_checks(case: dict, smat: torch.Tensor) -> dict:
+    """PRISM's two products and the three other float32 products of the port
+    (the detector readout, the coherence sum, the exact potential build) on
+    the card with torch.backends.cuda.matmul.allow_tf32 off and on: the same
+    bits (precision.full_fp32), the caller's setting kept; beside them the
+    synthesis product alone, unpinned, under TF32 (what the pin prevents)."""
+    from fdes_tpu_torch.detector import detector_signal
+    from fdes_tpu_torch.grids import Grid
+    from fdes_tpu_torch.imaging import hrtem_incoherent
+    from fdes_tpu_torch.potential import build_potential_exact
+    from fdes_tpu_torch.prism import _coeffs, _plan_tensors, prism_raster, prism_raster_4d
+    from fdes_tpu_torch.specimen import make_si110_supercell, slice_specimen
+
+    plan, pos, masks = case["plan"], case["positions"][:256], case["masks"]
+    card = CardInputs(21)
+    waves = card.cplx(16, 512, 512)
+    ctf = torch.polar(torch.ones(3, 512, 512, device="cuda"), card.real(3, 512, 512, top=6.28))
+    weights = torch.tensor([0.2, 0.5, 0.3], device="cuda")
+    spec = make_si110_supercell(reps=(2, 2, 2))
+    grid = Grid(128, 128, float(spec.box[1]) / 128, float(spec.box[0]) / 128)
+    sliced = slice_specimen(spec, 4)
+    calls = {
+        "prism_raster": lambda: prism_raster(smat, plan, pos, masks),
+        "prism_raster_4d": lambda: prism_raster_4d(smat, plan, pos[:16]),
+        "detector_signal": lambda: detector_signal(waves, masks),
+        "hrtem_incoherent": lambda: hrtem_incoherent(waves[:4], ctf, weights),
+        "build_potential_exact": lambda: build_potential_exact(sliced, grid, device="cuda"),
+    }
+    a = _coeffs(_plan_tensors(plan, smat.dtype, smat.device), pos, torch.float32)
+    s2 = smat.reshape(smat.shape[0], -1)
+    out = {}
+    with torch.no_grad():
+        for name, fn in calls.items():
+            torch.backends.cuda.matmul.allow_tf32 = False
+            off = fn()
+            torch.backends.cuda.matmul.allow_tf32 = True
+            try:
+                on = fn()
+                kept = torch.backends.cuda.matmul.allow_tf32
+            finally:
+                torch.backends.cuda.matmul.allow_tf32 = False
+            out[name] = {"same_bits": bool(torch.equal(off, on)), "setting_kept": kept,
+                         "max_abs": float(off.abs().max())}
+        ref = a @ s2
+        torch.backends.cuda.matmul.allow_tf32 = True
+        try:
+            raw = a @ s2
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = False
+    out["synthesis_product_unpinned_under_tf32_rel_err"] = rel_norm(raw, ref)
+    bad = {k: v for k, v in out.items() if isinstance(v, dict)
+           and not (v["same_bits"] and v["setting_kept"])}
+    if bad:
+        raise AssertionError(f"TF32 moved a pinned product: {bad}")
+    return out
+
+
+def phase_prism(tmp: str, gpu: str) -> tuple[dict, dict]:
+    """PRISM (stem.method = "prism") through cli.main on config 4's file, held
+    to gates (a)-(g); returns (line, launches of the interp-1 raster at 32x32
+    probes on the defaults)."""
+    from fdes_tpu_torch.propagate import PRISM_PROBE_CHUNK_TARGET
+
+    def run(tag, *extra, engine="auto"):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        out, timing = run_cli(tmp, tag, "--set", f"sim.engine={engine}", *extra,
+                              config=CONFIG_STEM)
+        timing["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        return out, timing
+
+    tol = 2 * LONG_ROLLOUT_TOL  # a signal doubles its wave's error (phase stem)
+    line = {"phase": "prism", "config": "examples/si110_stem.toml", "tol": tol, "gpu": gpu,
+            "prism_probe_chunk_target": PRISM_PROBE_CHUNK_TARGET}
+    failed = []
+
+    # (a) interp 1 at phase stem's 32x32 probes against its exact signals on auto
+    exact_dir = os.path.join(tmp, "stem_auto")
+    if not os.path.exists(os.path.join(exact_dir, "stem.npy")):
+        exact_dir, _ = run("prism_exact_32", "--set", "stem.probe_chunk=0")
+    exact = np.load(os.path.join(exact_dir, "stem.npy"))
+    reset_launches()
+    o, t1 = run("prism_i1", *PRISM)
+    launches = launch_counts()
+    sig1 = np.load(os.path.join(o, "stem.npy"))
+    line["interp1_32x32"] = {"timing": t1, "rel_err_vs_exact": per_detector(sig1, exact),
+                             "launches": {k: c for k, c in launches.items() if c}}
+    # (e) row 8 carries all B beams in one launch (no beam chunk)
+    want = {**dict.fromkeys(launches, 0), scan_wrapper(t1["beams"]): 1}
+    if launches != want or t1["engine_kind"] != "fscan":
+        failed.append(f"(e) interp 1 launches {line['interp1_32x32']['launches']}")
+    if not (sig1.shape == exact.shape and np.isfinite(sig1).all()
+            and all(e <= tol for e in line["interp1_32x32"]["rel_err_vs_exact"].values())):
+        failed.append(f"(a) interp 1 vs exact {line['interp1_32x32']['rel_err_vs_exact']}")
+
+    # (b) interp 2 on auto against interp 2 on xla
+    i2 = ("--set", "stem.prism_interp=2")
+    o, t2 = run("prism_i2", *PRISM, *i2)
+    sig2 = np.load(os.path.join(o, "stem.npy"))
+    o, t2x = run("prism_i2_xla", *PRISM, *i2, engine="xla")
+    sig2x = np.load(os.path.join(o, "stem.npy"))
+    line["interp2_32x32"] = {"timing": t2, "timing_xla": t2x,
+                             "rel_err_vs_xla": per_detector(sig2, sig2x),
+                             "rel_err_vs_exact": per_detector(sig2, exact)}
+    if not (np.isfinite(sig2).all()
+            and all(e <= tol for e in line["interp2_32x32"]["rel_err_vs_xla"].values())):
+        failed.append(f"(b) interp 2 auto vs xla {line['interp2_32x32']['rel_err_vs_xla']}")
+
+    # (c) stem4d at 16x16 probes against the exact stem4d CBED
+    s16 = ("--mode", "stem4d", "--set", "stem.scan_ny=16", "--set", "stem.scan_nx=16")
+    o, t4 = run("prism_4d", *s16, *PRISM)
+    cbed = np.load(os.path.join(o, "cbed.npy"))
+    o, t4e = run("prism_4d_exact", *s16, "--set", "stem.probe_chunk=0")
+    cbed_e = np.load(os.path.join(o, "cbed.npy"))
+    line["stem4d_16x16"] = {"timing": t4, "timing_exact": t4e,
+                            "rel_err_vs_exact": rel_norm(torch.from_numpy(cbed),
+                                                         torch.from_numpy(cbed_e))}
+    del cbed_e
+    if not (cbed.shape == (16, 16, 512, 512) and np.isfinite(cbed).all()
+            and line["stem4d_16x16"]["rel_err_vs_exact"] <= tol):
+        failed.append(f"(c) stem4d {line['stem4d_16x16']['rel_err_vs_exact']}")
+    del cbed
+
+    # (d) two frozen-phonon configurations, one S-matrix each, against the
+    # exact raster's mean
+    ph = ("--set", "sim.phonon_configs=2", "--set", "stem.scan_ny=8", "--set", "stem.scan_nx=8")
+    reset_launches()
+    o, tp = run("prism_phonon", *ph, *PRISM)
+    tp["launches"] = {k: c for k, c in launch_counts().items() if c}
+    sigp = np.load(os.path.join(o, "stem.npy"))
+    o, tpe = run("prism_phonon_exact", *ph, "--set", "stem.probe_chunk=0")
+    sigpe = np.load(os.path.join(o, "stem.npy"))
+    line["phonon_8x8"] = {"timing": tp, "timing_exact": tpe,
+                          "rel_err_vs_exact": per_detector(sigp, sigpe)}
+    if tp["launches"] != {scan_wrapper(tp["beams"]): 2} or not (
+            np.isfinite(sigp).all()
+            and all(e <= tol for e in line["phonon_8x8"]["rel_err_vs_exact"].values())):
+        failed.append(f"(d) phonons {line['phonon_8x8']}")
+
+    # (e) beam chunks: interp 4 keeps 203 = 7 x 29 beams, one launch a chunk
+    i4 = ("--set", "stem.prism_interp=4", "--set", "stem.scan_ny=8", "--set", "stem.scan_nx=8")
+    reset_launches()
+    o, tc = run("prism_i4_chunks", *PRISM, *i4, "--set", "stem.beam_chunk=29")
+    tc["launches"] = {k: c for k, c in launch_counts().items() if c}
+    sigc = np.load(os.path.join(o, "stem.npy"))
+    o, tcw = run("prism_i4", *PRISM, *i4)
+    sigw = np.load(os.path.join(o, "stem.npy"))
+    line["interp4_beam_chunks"] = {"timing": tc, "timing_one_chunk": tcw,
+                                   "rel_err_vs_one_chunk": per_detector(sigc, sigw)}
+    chunks = tc["beams"] // 29
+    if tc["launches"] != {scan_wrapper(29): chunks} or chunks != 7 or not all(
+            e <= GATE for e in line["interp4_beam_chunks"]["rel_err_vs_one_chunk"].values()):
+        failed.append(f"(e) beam chunks {line['interp4_beam_chunks']}")
+
+    # (f) config 4's 4,096 probes: the exact raster, PRISM at interp 1 and 2,
+    # in turns
+    turns = {"exact": ("--set", "stem.probe_chunk=0"), "prism_i1": PRISM,
+             "prism_i2": (*PRISM, *i2)}
+    timed_runs = {k: [] for k in turns}
+    sig4096 = {}
+    for k in ("exact", "prism_i1", "prism_i2", "prism_i2", "prism_i1", "exact"):
+        o, t = run(f"t4096_{k}", *SCAN_4096, *turns[k])
+        timed_runs[k].append(t)
+        sig4096.setdefault(k, np.load(os.path.join(o, "stem.npy")))
+    line["turns_4096"] = timed_runs
+    line["turns_4096_rel_err_vs_exact"] = {k: per_detector(sig4096[k], sig4096["exact"])
+                                           for k in ("prism_i1", "prism_i2")}
+    if not all(e <= tol for e in line["turns_4096_rel_err_vs_exact"]["prism_i1"].values()):
+        failed.append(f"(f) interp 1 at 4096 probes {line['turns_4096_rel_err_vs_exact']}")
+
+    # busy time and idle share; (g) the probe-chunk rows at interp 2; TF32
+    for interp in (1, 2):
+        case = prism_api_case(interp)
+        line[f"profile_i{interp}"] = prism_profile(case, PRISM_PROBE_CHUNK_TARGET)
+        if interp == 2:
+            smat = prism_smatrix_of(case)
+            line["probe_chunk_rows"] = prism_chunk_rows(case, smat)
+            line["tf32"] = tf32_checks(case, smat)
+            del smat
+        del case
+        torch.cuda.empty_cache()
+    if line["probe_chunk_rows"]["fastest_wall"] != PRISM_PROBE_CHUNK_TARGET:
+        # the target is the fastest chunk, or within the spread of it
+        rows = line["probe_chunk_rows"]["wall_ms"]
+        if rows[PRISM_PROBE_CHUNK_TARGET] > 1.03 * min(rows.values()):
+            failed.append(f"(g) probe chunk rows {rows}: the target "
+                          f"{PRISM_PROBE_CHUNK_TARGET} is > 3 % behind the fastest")
+    line["failed"] = failed
+    if failed:
+        emit(line)
+        raise AssertionError(f"prism gates failed: {failed}")
+    return line, launches
+
+
 def phase_engines(gpu: str) -> dict:
     """Wall ms (host clock around a synchronised call, median of 3, each
     engine measured twice in turns) of a 32-slice rollout and of one gradient
@@ -5229,8 +5576,8 @@ ROW_PHASES = {
        for r in ("tile", "wide")},
     "fused_step_bwd": ("grad_fused", "invert_fused"),
     # the whole-loop forward runs one of two kernels, by the route table
-    "fused_scan": ("stem", "stem_auto", "hrtem_auto"),
-    "cluster_scan": ("stem", "stem_auto", "hrtem_auto"),
+    "fused_scan": ("stem", "stem_auto", "hrtem_auto", "prism"),
+    "cluster_scan": ("stem", "stem_auto", "hrtem_auto", "prism"),
     # the store pair runs one of two kernels each, by the route table
     "fused_scan_store": ("invert_auto", "invert_fscan", "grad_fscan"),
     "fused_scan_bwd_store": ("invert_auto", "invert_fscan", "grad_fscan"),
@@ -5238,7 +5585,7 @@ ROW_PHASES = {
     "wide_scan_bwd_store": ("invert_auto", "invert_fscan", "grad_fscan"),
     # so does the segment pair, past the store cap
     **{w: ("stem4d_invert_deep", "grad_fscan_seg") for pair in SEG_PAIRS.values() for w in pair},
-    "panel_rowpass": ("c5",),
+    **{f"panel_rowpass[{r}]": ("c5",) for r in ("tile", "wide")},
     "panel_final": ("c5", "c5_tilt_invert"),
     "panel_rowfwd": ("c5_invert", "c5_invert_per_slice", "c5_tilt_invert"),
     "panel_init_store": ("c5_invert",),
@@ -5266,8 +5613,9 @@ ROW_PHASES = {
 #: kernels on no path, exempt from the check that each kernel of a path was
 #: launched there: _row_mid_kernel has no caller in fdes_tpu (a building
 #: block; the rollout reads V from the stack), so panel_rowpass is checked and
-#: timed in kernels_panel, and its count on the c5 path is read like any other
-OFF_PATH = ("panel_rowpass",)
+#: timed on both of its kernels in kernels_panel, and its count on the c5
+#: path is read like any other
+OFF_PATH = ("panel_rowpass[tile]", "panel_rowpass[wide]")
 
 
 def unrouted_adjoint_kernels() -> tuple[str, ...]:
@@ -5376,6 +5724,9 @@ def main(argv=None) -> int:
             emit(line)
         if "stem4d" in phases:
             emit(timed(phase_stem4d, tmp, gpu))
+        if "prism" in phases:
+            line, path_launches["prism"] = timed(phase_prism, tmp, gpu)
+            emit(line)
         if "stem4d_invert_deep" in phases:
             line, path_launches["stem4d_invert_deep"] = timed(phase_stem4d_invert_deep, tmp,
                                                               gpu)

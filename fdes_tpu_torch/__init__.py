@@ -1,8 +1,9 @@
 """fdes_tpu_torch — the PyTorch/CUDA port of fdes_tpu for NVIDIA Hopper.
 
 Multislice simulation of TEM measurements (exit waves, HRTEM defocus and
-tilt series, STEM rasters, with the potential materialised or built slice
-by slice inside the rollout, and frozen-phonon averages) and the inverse
+tilt series, STEM rasters exact or by PRISM, with the potential
+materialised or built slice by slice inside the rollout, and frozen-phonon
+averages) and the inverse
 (the potential recovered from a defocus or tilt series by gradient descent:
 ``loss``, ``reconstruct``, ``calibrate``) in PyTorch, with the slice step,
 the whole slice loop, the streamed potential build and their adjoints
@@ -21,6 +22,7 @@ from .optics import Aberrations, ctf, ctf_series
 from .phonon import phonon_average, phonon_configs, phonon_sliced
 from .pipeline import Sim, setup, sim_from_arrays
 from .potential import build_potential, build_potential_exact
+from .prism import plan_prism, prism_raster, prism_raster_4d, prism_smatrix
 from .probe import plane_wave
 from .propagate import (
     make_slice_step,
@@ -66,7 +68,11 @@ __all__ = [
     "phonon_configs",
     "phonon_sliced",
     "pick_remat_chunk",
+    "plan_prism",
     "plane_wave",
+    "prism_raster",
+    "prism_raster_4d",
+    "prism_smatrix",
     "setup",
     "sim_from_arrays",
     "slice_specimen",

@@ -11,17 +11,21 @@ config, build the simulation state on the device, run the mode, and write
 ``hrtem`` simulate; ``stem`` rasters a focused probe over the scan and writes
 the detector signals (``stem.npy``, and ``stem_com.npy`` with
 ``stem.compute_com``), ``stem4d`` the full diffraction pattern per probe
-(``cbed.npy``); ``invert`` reconstructs the potential from a defocus or
-tilt series, or with ``recon.modality = "stem4d"`` from the diffraction
-patterns of a scan (``observed_path``, or a self-test series synthesised from
-the config's specimen) and writes ``reconstructed.npy``, ``metrics.jsonl`` and
-``checkpoint.npz``; ``--resume`` continues from that checkpoint.
-``sim.streamed`` (mode forward) builds the potential slice by slice inside
-the rollout and writes ``exit_wave.npy`` only; ``sim.phonon_configs`` > 0
-averages the intensities of hrtem, stem and stem4d over that many
-frozen-phonon configurations.  Settings that are not ported yet
-(``stem.method = "prism"`` and a ``[mesh]``) exit with code 2 and say so.
-Runs on ``cuda`` unless ``--device cpu`` is given.
+(``cbed.npy``); with ``stem.method = "prism"`` both build the PRISM
+scattering matrix of the probe's beams (every ``stem.prism_interp``-th, in
+chunks of ``stem.beam_chunk``) and synthesise the probes from it
+(prism.py), the first-moment raster staying exact; ``invert`` reconstructs
+the potential from a defocus or tilt series, or with ``recon.modality =
+"stem4d"`` from the diffraction patterns of a scan (``observed_path``, or a
+self-test series synthesised from the config's specimen) and writes
+``reconstructed.npy``, ``metrics.jsonl`` and ``checkpoint.npz``;
+``--resume`` continues from that checkpoint.  ``sim.streamed`` (mode
+forward) builds the potential slice by slice inside the rollout and writes
+``exit_wave.npy`` only; ``sim.phonon_configs`` > 0 averages the intensities
+of hrtem, stem and stem4d over that many frozen-phonon configurations, one
+S-matrix a configuration under PRISM.  Settings that are not ported yet (a
+``[mesh]``) exit with code 2 and say so.  Runs on ``cuda`` unless
+``--device cpu`` is given.
 """
 
 from __future__ import annotations
@@ -80,7 +84,7 @@ def main(argv: list[str] | None = None) -> int:
         print(f"unknown recon.modality {cfg.recon.modality!r}", file=sys.stderr)
         return 2
     stem = cfg.mode in ("stem", "stem4d")
-    if stem and cfg.stem.method != "multislice":
+    if stem and cfg.stem.method not in ("multislice", "prism"):
         print(f"unknown stem.method {cfg.stem.method!r}", file=sys.stderr)
         return 2
     device = resolve_device(args.device)
@@ -91,10 +95,20 @@ def main(argv: list[str] | None = None) -> int:
     t0 = time.perf_counter()
     sim = setup(cfg, device=device)
     # the engine's batch hint is the number of waves in one rollout: the
-    # resolved probe chunk of a raster, the tilts of a tilt series
+    # resolved probe chunk of a raster, the beams of a PRISM S-matrix (or its
+    # beam chunk), the tilts of a tilt series
     n_scan = cfg.stem.scan_ny * cfg.stem.scan_nx
-    probe_chunk = cfg.stem.probe_chunk or pick_probe_chunk(n_scan)
-    if stem:
+    prism = stem and cfg.stem.method == "prism"
+    probe_chunk = cfg.stem.probe_chunk or pick_probe_chunk(
+        n_scan, cfg.stem.method if stem else "multislice")
+    if prism:
+        from .pipeline import prism_setup
+
+        plan = prism_setup(sim)
+        beam_chunk = cfg.stem.beam_chunk or None
+        nwaves = plan.nbeams
+        batch_hint = min(beam_chunk or nwaves, nwaves)
+    elif stem:
         nwaves = n_scan
         batch_hint = min(probe_chunk, n_scan)
     else:
@@ -125,6 +139,23 @@ def main(argv: list[str] | None = None) -> int:
     os.makedirs(cfg.output_dir, exist_ok=True)
     out = lambda name: os.path.join(cfg.output_dir, name)  # noqa: E731
     rollouts = 1
+    prism_times = {"smatrix_s": 0.0, "synthesis_s": 0.0}
+
+    def prism_run(v, synthesis):
+        """synthesis(S) of the S-matrix of V, each part timed on the host
+        clock (synchronised) into prism_times."""
+        from .prism import prism_smatrix
+
+        t = time.perf_counter()
+        smat = prism_smatrix(plan, v, sim.propagator, sim.sigma, beam_chunk=beam_chunk,
+                             slice_step=slice_step, dtype=sim.cdtype)
+        _sync(device)
+        prism_times["smatrix_s"] += time.perf_counter() - t
+        t = time.perf_counter()
+        res = synthesis(smat)
+        _sync(device)
+        prism_times["synthesis_s"] += time.perf_counter() - t
+        return res
 
     t1 = time.perf_counter()
     if streamed:
@@ -171,11 +202,19 @@ def main(argv: list[str] | None = None) -> int:
         from .forward import stem_com_raster, stem_raster
 
         with torch.no_grad():
-            sig = _phonon_mean(cfg, sim, lambda v: stem_raster(v, *raster_args, masks,
-                                                               **raster_kw))
+            if prism:
+                from .prism import prism_raster
+
+                sig = _phonon_mean(cfg, sim, lambda v: prism_run(v, lambda s: prism_raster(
+                    s, plan, positions, masks, probe_chunk=probe_chunk)))
+            else:
+                sig = _phonon_mean(cfg, sim, lambda v: stem_raster(v, *raster_args, masks,
+                                                                   **raster_kw))
             outputs = {"stem.npy": sig.reshape(-1, cfg.stem.scan_ny, cfg.stem.scan_nx)}
             if cfg.stem.compute_com:
-                rollouts = 2  # the first-moment raster is a second pass over the scan
+                # the first-moment raster is a second, exact pass over the
+                # scan (under PRISM too, as in fdes_tpu)
+                rollouts = 2
                 com = _phonon_mean(cfg, sim, lambda v: stem_com_raster(v, *raster_args,
                                                                        **raster_kw))
                 outputs["stem_com.npy"] = com.reshape(cfg.stem.scan_ny, cfg.stem.scan_nx, 2)
@@ -183,7 +222,14 @@ def main(argv: list[str] | None = None) -> int:
         from .forward import stem_raster_4d
 
         with torch.no_grad():
-            cbed = _phonon_mean(cfg, sim, lambda v: stem_raster_4d(v, *raster_args, **raster_kw))
+            if prism:
+                from .prism import prism_raster_4d
+
+                cbed = _phonon_mean(cfg, sim, lambda v: prism_run(v, lambda s: prism_raster_4d(
+                    s, plan, positions, probe_chunk=probe_chunk)))
+            else:
+                cbed = _phonon_mean(cfg, sim, lambda v: stem_raster_4d(v, *raster_args,
+                                                                       **raster_kw))
         outputs = {
             "cbed.npy": cbed.reshape(cfg.stem.scan_ny, cfg.stem.scan_nx, *sim.grid.shape)
         }
@@ -231,9 +277,16 @@ def main(argv: list[str] | None = None) -> int:
     else:
         # a frozen-phonon mean runs every rollout once per configuration
         configs = cfg.sim.phonon_configs if phonons and cfg.mode != "forward" else 1
-        slice_props = sim.sliced.nslices * nwaves * rollouts * configs
+        # a PRISM raster propagates its beams once; its first-moment raster
+        # each probe
+        slice_props = sim.sliced.nslices * configs * (
+            nwaves + n_scan * (rollouts - 1) if prism else nwaves * rollouts)
         timing["slice_props"] = slice_props
-        if stem:
+        if prism:
+            timing.update(probes=n_scan, probe_chunk=min(probe_chunk, n_scan),
+                          beams=plan.nbeams, interp=plan.interp, beam_chunk=batch_hint,
+                          **prism_times)
+        elif stem:
             timing["probes"], timing["probe_chunk"] = n_scan, batch_hint
         timing["slice_props_per_s"] = slice_props / t_run if t_run > 0 else None
     with open(out("timing.json"), "w") as fh:

@@ -14,6 +14,7 @@ import numpy as np
 import torch
 
 from .grids import Grid
+from .precision import full_fp32
 
 
 def annular_mask(
@@ -43,7 +44,8 @@ def detector_signal(psi_exit: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     mask = mask.to(p.dtype)
     if mask.ndim == 2:
         return (p * mask).sum(dim=(-2, -1))
-    return torch.einsum("...yx,dyx->...d", p, mask)
+    with full_fp32():
+        return torch.einsum("...yx,dyx->...d", p, mask)
 
 
 def segmented_masks(

@@ -11,6 +11,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .precision import full_fp32
+
 
 def hrtem_image(psi_exit: torch.Tensor, ctf: torch.Tensor) -> torch.Tensor:
     """HRTEM intensity from the exit wave and a complex CTF grid.
@@ -40,7 +42,8 @@ def hrtem_incoherent(
     """
     spec = torch.fft.fft2(psi_exit).unsqueeze(-3)
     imgs = torch.fft.ifft2(spec * ctf_quad.to(spec.dtype)).abs() ** 2
-    return torch.einsum("k,...kyx->...yx", weights.to(imgs.dtype), imgs)
+    with full_fp32():
+        return torch.einsum("k,...kyx->...yx", weights.to(imgs.dtype), imgs)
 
 
 def apply_mtf(image: torch.Tensor, mtf: torch.Tensor) -> torch.Tensor:

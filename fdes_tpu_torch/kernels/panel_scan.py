@@ -72,7 +72,8 @@ fused row passes and three more (2 ``panel_final``, 1 ``panel_init``), all
 issued from C in one call on the card (``fdes_panel_streamed_c64``).
 
 The column pass (and its conjugate), the backward row passes, the row
-passes with V_j of a real V (rows 15 and 23), the absorptive row passes
+passes with V_j of a real V (rows 15 and 23, and row 16's one plane viewed
+as a stack of one, on row 15's kind), the absorptive row passes
 (rows 19 and 18), the streamed build's column pass (row 28) and the init of
 a real V (row 13) run on one of two kernels each, picked before the launch
 by ``panel_route(n, B, kind)`` from ``PANEL_ROUTE``, a table of rows
@@ -87,14 +88,13 @@ kernel).  The g row pass (row 27), the fused row pass (row 29) and the
 final and seed (rows 17 and 20) have one kernel each,
 ``panel_wide_g_row_kernel``, the wide row kernel's mode kVfused and
 ``panel_wide_x_row_kernel`` (transform only, the rows of all the waves one
-flat range), on the same transform.  The other row passes (the init's store
-form, row 22, and ``panel_rowpass``) run the tile kernel.  The whole loops
-take the choice into C with them.  ``_colpass``, the backward row passes,
-the stack row passes, the inits and row 28 take ``route=`` to name a kernel
-for measurements; it is checked, and a launch the card refuses raises with
-nothing run in its place.  The eleven wrappers of these passes (``ROUTED``)
-count their launches in ``launches`` and by kernel in
-``launches_by_route`` ({"tile": n, "wide": m}).
+flat range), on the same transform.  The other row pass (the init's store
+form, row 22) runs the tile kernel.  The whole loops take the choice into C
+with them.  ``_colpass``, the backward row passes, the row passes, the inits
+and row 28 take ``route=`` to name a kernel for measurements; it is checked,
+and a launch the card refuses raises with nothing run in its place.  The
+twelve wrappers of these passes (``ROUTED``) count their launches in
+``launches`` and by kernel in ``launches_by_route`` ({"tile": n, "wide": m}).
 
 ``panel_diff_apply`` differentiates the loop: the store pair while the s
 stack (B*S*n*n*8 bytes) fits ``adjoint_scan.STORE_CAP_BYTES``, past it
@@ -779,12 +779,17 @@ def panel_rowpass_stack_store(
     return _rowpass(what, panel_rowpass_stack_store, v_stack, j, b, sigma, True, route)
 
 
-def panel_rowpass(v: torch.Tensor, b: torch.Tensor, sigma: float) -> torch.Tensor:
-    """a = Fx(t Fx^H(b)), V one (n, n) plane: the tile kernel on CUDA (on no
-    path, so not routed), plain on the CPU."""
+def panel_rowpass(
+    v: torch.Tensor, b: torch.Tensor, sigma: float, *, route: str | None = None
+) -> torch.Tensor:
+    """a = Fx(t Fx^H(b)), V one (n, n) plane viewed as a stack of one: on CUDA
+    the kernel that PANEL_ROUTE picks for the row pass (or ``route`` names),
+    plain on the CPU."""
+    what = "panel_rowpass"
+    fs.check_route(what, route, ROUTES)
     if not b.is_cuda:
         return panel_rowpass_ref(v, b, sigma)
-    return _rowpass("panel_rowpass", panel_rowpass, v[None], 0, b, sigma, False, "tile")[0]
+    return _rowpass(what, panel_rowpass, v[None], 0, b, sigma, False, route)[0]
 
 
 def panel_rowpass_stack_abs(
@@ -1265,7 +1270,7 @@ WRAPPERS = (panel_init, panel_colpass, panel_rowpass_stack, panel_rowpass, panel
 #: the pass wrappers whose kernel PANEL_ROUTE picks, with launches_by_route
 ROUTED = (panel_colpass, panel_col_bwd, panel_row_bwd_loop, panel_row_bwd_last, panel_bwd_tail,
           panel_rowpass_stack, panel_rowpass_stack_store, panel_build_colpass, panel_init_abs,
-          panel_rowpass_stack_abs, panel_init)
+          panel_rowpass_stack_abs, panel_init, panel_rowpass)
 #: the whole-loop calls, which count their calls and add their passes above
 LOOPS = (panel_scan, panel_scan_store, panel_scan_bwd_store, panel_streamed)
 

@@ -10,7 +10,7 @@ arrays, so a run can start from state computed elsewhere (the JAX package's
 ``Sim``, a saved potential, or the padded atoms of a streamed run).
 ``stem_setup`` adds the STEM state (probe stencil, scan positions, detector
 masks) and ``stem_from_arrays`` is its sibling for arrays computed
-elsewhere.
+elsewhere; ``prism_setup`` the PRISM beam plan of the configured probe.
 
 Entry points run on ``cuda`` unless the caller asks for the CPU; asking for
 ``cuda`` where there is none raises instead of carrying on on the CPU.
@@ -114,8 +114,6 @@ def unported_settings(cfg: Config) -> list[str]:
     out = []
     if cfg.mode not in ("forward", "hrtem", "stem", "stem4d", "invert"):
         out.append(f"mode {cfg.mode!r} (no such mode)")
-    if cfg.mode in ("stem", "stem4d") and cfg.stem.method == "prism":
-        out.append("stem.method 'prism' (ROADMAP.md Queue 1 item 8)")
     if cfg.mesh != MeshParams():
         out.append("a [mesh] setting (ROADMAP.md Queue 1 item 11)")
     return out
@@ -376,3 +374,17 @@ def stem_from_arrays(
         to_device(arrays["positions"], rdt, dev),
         to_device(arrays["masks"], rdt, dev),
     )
+
+
+def prism_setup(sim: Sim):
+    """PRISM beam plan for the configured probe (stem.method = "prism").
+
+    Built from the exact probe stencil on the host, in complex128, before any
+    device cast, so that the interp = 1 plan reproduces stem_setup's probe;
+    ``stem.prism_interp`` below 1 means 1.
+    """
+    from .prism import plan_prism
+
+    st = sim.cfg.stem
+    stencil_host = probe_stencil(sim.grid, sim.wavelength_A, st.semiangle_rad, sim.aberrations)
+    return plan_prism(sim.grid, stencil_host, interp=max(st.prism_interp, 1))

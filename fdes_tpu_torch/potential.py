@@ -32,6 +32,7 @@ import numpy as np
 import torch
 
 from .grids import Grid
+from .precision import full_fp32
 from .scattering import ScatteringTable, species_form_factors
 from .specimen import SlicedAtoms
 
@@ -286,9 +287,9 @@ def build_potential_exact(
     plain matrix product, as the JAX package leaves it to XLA).  O(atoms N^2)
     operations: for sub-pixel fidelity at high q, where the default scatter
     and FFT build interpolates.  The phases q r are reduced mod 1 cycle in
-    the working precision before the trig.  Matrix products of a float32
-    call follow ``torch.backends.cuda.matmul.allow_tf32`` on the card; the
-    CLI turns TF32 off.
+    the working precision before the trig.  The product runs in full
+    float32 whatever ``torch.backends.cuda.matmul.allow_tf32`` says
+    (``precision.full_fp32``).
     """
     rdt = np.float32 if dtype == torch.float32 else np.float64
     cdt = torch.complex64 if dtype == torch.float32 else torch.complex128
@@ -310,6 +311,7 @@ def build_potential_exact(
     bx = ramp(xs[:, :, None] * qx[None, None, :])  # (S, M, nx)
     species = torch.arange(nsp, device=sps.device)
     wsp = ((sps[:, None, :] == species[None, :, None]).to(dtype) * ws[:, None, :]).to(cdt)
-    f = torch.einsum("sym,spm,smx->spyx", ay, wsp, bx)  # per-species structure factors
+    with full_fp32():
+        f = torch.einsum("sym,spm,smx->spyx", ay, wsp, bx)  # per-species structure factors
     vq = torch.sum(f * ff.to(cdt)[None], dim=1)
     return torch.fft.ifft2(vq).real * torch.tensor(1.0 / grid.pixel_area, dtype=dtype)

@@ -277,33 +277,45 @@ def make_slice_step(
 
 #: probes per rollout of a STEM raster (pick_probe_chunk's target)
 PROBE_CHUNK_TARGET = 128
+#: probes per synthesis of a PRISM raster (pick_probe_chunk's target for
+#: method "prism"): see pick_probe_chunk
+PRISM_PROBE_CHUNK_TARGET = 512
 
 
 def pick_probe_chunk(npos: int, method: str = "multislice") -> int:
-    """Probe batch for STEM rollouts: a DIVISOR of npos (stem_raster requires
-    divisibility) no larger than PROBE_CHUNK_TARGET, npos itself when it is
-    smaller.
+    """Probe batch for STEM rasters: a DIVISOR of npos (stem_raster and
+    prism_raster require divisibility) no larger than the method's target,
+    npos itself when it is smaller.  An unknown method raises ValueError.
 
-    The target comes from the config-4 raster (512^2, 128 slices, 1,024
-    probes) on one NVIDIA H100 80GB HBM3 at 700 W, on the kernel the
-    whole-loop route picks there (the cluster kernel, whose resident
-    clusters carry 7 waves at a time, so a chunk of 128 leaves less of its
-    last round idle than one of 64): 0.736-0.740 s at chunk 128 against
-    0.780-0.783 s at 64 and 0.939-0.953 s at 16, in turns (PERF.md section 5,
-    chip_smoke.py phase stem).  Other grid sizes and larger chunks are not
-    measured, so the grid's shape does not enter and the CLI warns of no
-    chunk.  The chunk also batches a stem4d inverse, whose whole-loop
-    adjoint then stores 128 probes' waves of every slice (32 GiB at config
-    4's shape, adjoint_scan.STORE_CAP_BYTES).
+    ``"multislice"``: PROBE_CHUNK_TARGET, from the config-4 raster (512^2,
+    128 slices, 1,024 probes) on one NVIDIA H100 80GB HBM3 at 700 W, on the
+    kernel the whole-loop route picks there (the cluster kernel, whose
+    resident clusters carry 7 waves at a time, so a chunk of 128 leaves less
+    of its last round idle than one of 64): 0.736-0.740 s at chunk 128
+    against 0.780-0.783 s at 64 and 0.939-0.953 s at 16, in turns (PERF.md
+    section 5, chip_smoke.py phase stem).  Other grid sizes and larger
+    chunks are not measured, so the grid's shape does not enter and the CLI
+    warns of no chunk.  The chunk also batches a stem4d inverse, whose
+    whole-loop adjoint then stores 128 probes' waves of every slice (32 GiB
+    at config 4's shape, adjoint_scan.STORE_CAP_BYTES).
+
+    ``"prism"``: PRISM_PROBE_CHUNK_TARGET, the probes of one synthesis (a
+    (P, B) x (B, ny nx) product and the readout; no multislice per probe),
+    from config 4's 4,096 probes at interp 2 (811 beams, 512^2) on one NVIDIA
+    H100 80GB HBM3 at 700 W, the synthesis of one S-matrix at each chunk in
+    turns (chip_smoke.py phase prism, ``probe_chunk_rows``; PERF.md section
+    5): 147.5-147.8 ms at 512 against 149.0-151.3 at 256, 152.7-156.3 at 128
+    and 157.9-162.9 at 64 (wall, three readings each).  A chunk holds P x ny
+    x nx x 12 bytes of waves and intensities (1.5 GiB at 512 x 512^2); other
+    grids and interps are not measured.
     """
-    if method != "multislice":
-        raise NotImplementedError(
-            f"stem.method {method!r} is not ported to fdes_tpu_torch yet "
-            "(ROADMAP.md Queue 1 item 8)"
-        )
-    if npos <= PROBE_CHUNK_TARGET:
+    targets = {"multislice": PROBE_CHUNK_TARGET, "prism": PRISM_PROBE_CHUNK_TARGET}
+    if method not in targets:
+        raise ValueError(f"unknown stem.method {method!r}: {tuple(targets)}")
+    target = targets[method]
+    if npos <= target:
         return npos
-    return max(d for d in range(1, PROBE_CHUNK_TARGET + 1) if npos % d == 0)
+    return max(d for d in range(1, target + 1) if npos % d == 0)
 
 
 def pick_remat_chunk(nslices: int) -> int:

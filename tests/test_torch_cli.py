@@ -210,9 +210,69 @@ def test_setup_on_cuda_raises_without_cuda(tmp_path):
     [
         ("--mode", "stem", "--set", "stem.method=prism"),
         ("--mode", "stem4d", "--set", "stem.method=prism"),
-        # PRISM's phonon mean comes with PRISM (Queue 1 item 8)
         ("--mode", "stem", "--set", "stem.method=prism", "--set", "sim.phonon_configs=2"),
         ("--mode", "stem4d", "--set", "stem.method=prism", "--set", "sim.phonon_configs=1"),
+        ("--mode", "stem", "--set", "stem.method=prism", "--set", "stem.prism_interp=2",
+         "--set", "stem.compute_com=true"),
+    ],
+)
+def test_cli_prism_equals_jax(tmp_path, extra):
+    """stem.method = "prism" (modes stem and stem4d, the frozen-phonon mean,
+    interp 2 with the exact first-moment raster beside it) on a 128^2,
+    8-slice config with a 4x4 scan: the port's outputs against fdes_tpu.cli's
+    on the same config; timing.json gives the beams and the S-matrix and
+    synthesis times."""
+    cfg = _cfg(tmp_path / "c.toml")
+    scan = ("--set", "stem.scan_ny=4", "--set", "stem.scan_nx=4",
+            "--set", "stem.detectors=[[0.0, 0.02], [0.05, 0.2]]")
+    _run_jax_cli(cfg, str(tmp_path / "jax"), *scan, *extra)
+    _run_port_cli(cfg, str(tmp_path / "port"), *scan, *extra)
+    mode = extra[1]
+    outputs = {"stem": ["stem.npy"], "stem4d": ["cbed.npy"]}[mode]
+    if "stem.compute_com=true" in extra:
+        outputs.append("stem_com.npy")
+    for name in outputs:
+        got = np.load(tmp_path / "port" / name)
+        want = np.load(tmp_path / "jax" / name)
+        assert got.shape == want.shape and got.dtype == want.dtype, name
+        if name == "stem_com.npy":  # as in test_cli_outputs_equal_jax
+            assert np.abs(got - want).max() <= 1e-6, name
+        else:
+            assert _rel(got, want) <= GATE, name
+    with open(tmp_path / "port" / "timing.json") as fh:
+        timing = json.load(fh)
+    interp = 2 if "stem.prism_interp=2" in extra else 1
+    tsim = tpipe.setup(tload(cfg), device="cpu")
+    beams = tpipe.prism_setup(tsim).nbeams if interp == 1 else None
+    assert timing["interp"] == interp and timing["probes"] == 16
+    assert timing["beams"] == (beams or timing["beams"]) and timing["beam_chunk"] == timing["beams"]
+    assert timing["smatrix_s"] > 0 and timing["synthesis_s"] > 0
+    configs = 2 if "sim.phonon_configs=2" in extra else 1
+    rasters = 2 if "stem.compute_com=true" in extra else 1
+    assert timing["slice_props"] == 8 * configs * (timing["beams"] + 16 * (rasters - 1))
+
+
+@pytest.mark.parametrize("engine", ["pallas", "fscan"])
+def test_cli_prism_interp1_is_the_exact_raster(tmp_path, engine):
+    """stem.method = "prism" at interp 1 reproduces the port's own exact
+    raster through the CLI (tests/test_io_config_cli.py's check), on the
+    per-slice kernels and on the whole-loop engine (both their plain
+    versions here)."""
+    cfg = _cfg(tmp_path / "c.toml", "stem")
+    scan = ("--set", "stem.scan_ny=3", "--set", "stem.scan_nx=2",
+            "--set", "stem.detectors=[[0.0, 0.02], [0.05, 0.2]]",
+            "--set", f"sim.engine={engine}")
+    sigs = {}
+    for method in ("multislice", "prism"):
+        out = tmp_path / method
+        _run_port_cli(cfg, str(out), *scan, "--set", f"stem.method={method}")
+        sigs[method] = np.load(out / "stem.npy")
+    np.testing.assert_allclose(sigs["prism"], sigs["multislice"], rtol=1e-4, atol=1e-6)
+
+
+@pytest.mark.parametrize(
+    "extra",
+    [
         # the grid-sharded streamed forward comes with sharding (Queue 1 item 11)
         ("--set", "sim.streamed=true", "--mode", "forward", "--set", 'mesh.axis_names=["grid"]',
          "--set", "mesh.shape=[1]"),

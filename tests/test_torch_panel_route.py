@@ -1056,11 +1056,36 @@ def test_route_argument_is_checked():
             ps.panel_init_abs(v[0], v[1], a, SIGMA, route=bad)
         with pytest.raises(ValueError, match="route must be"):
             ps.panel_init(v[0], a, SIGMA, route=bad)
+        with pytest.raises(ValueError, match="route must be"):
+            ps.panel_rowpass(v[0], a, SIGMA, route=bad)
     # the final and the seed have one kernel: no route to name
     for wrapper in (ps.panel_final, ps.panel_rowfwd):
         assert wrapper not in ps.ROUTED
         with pytest.raises(TypeError):
             wrapper(a, route="wide")
+
+
+@pytest.mark.parametrize("route", [None, "tile", "wide", "cluster", "Tile"])
+def test_rowpass_of_one_plane_takes_a_route(route):
+    """panel_rowpass (row 16: one V plane, row 15's kind "row" on a stack of
+    one) takes route= as the stack row pass does: on the CPU each valid
+    name (or none, the table's) is the plain version, one and two waves, and
+    no count moves; another name raises ValueError."""
+    rng = np.random.default_rng(16)
+    n = 256
+    v = torch.as_tensor(rng.uniform(0, 2000, (n, n)).astype(np.float32))
+    ps.reset_launches()
+    for lead in ((), (2,)):
+        b = torch.as_tensor(_cplx(rng, *lead, n, n).astype(np.complex64))
+        if route not in (None, *ps.ROUTES):
+            with pytest.raises(ValueError, match="route must be"):
+                ps.panel_rowpass(v, b, SIGMA, route=route)
+            continue
+        got = ps.panel_rowpass(v, b, SIGMA, route=route)
+        assert torch.equal(got, ps.panel_rowpass_ref(v, b, SIGMA))
+        assert torch.equal(got, ps.panel_rowpass_stack_ref(0, v[None], b, SIGMA))
+    assert ps.panel_rowpass.launches == 0
+    assert ps.panel_rowpass.launches_by_route == {"tile": 0, "wide": 0}
 
 
 def test_wide_wrappers_count_their_own_launches():
@@ -1096,6 +1121,7 @@ def test_wide_wrappers_count_their_own_launches():
             (ps.panel_init_abs(v[0], 0.1 * v[0], s, SIGMA, route=route),
              ps.panel_init_abs_ref(v[0], 0.1 * v[0], s, SIGMA)),
             (ps.panel_init(v[0], s, SIGMA, route=route), ps.panel_init_ref(v[0], s, SIGMA)),
+            (ps.panel_rowpass(v[1], s, SIGMA, route=route), ps.panel_rowpass_ref(v[1], s, SIGMA)),
         ]
     pairs += [(ps.panel_g_rowpass(v), ps.panel_g_rowpass_ref(v)),
               (ps.panel_vfused_rowpass(a, s, SIGMA), ps.panel_vfused_rowpass_ref(a, s, SIGMA)),
@@ -1115,11 +1141,11 @@ def test_loops_count_row_passes_by_route(row_route):
     with V_j on the row route, the column passes on the column route, the
     init of a real V on its own route, its store form and the final in all
     alone; an absorptive loop's init and row passes on the row route;
-    panel_rowpass is not routed."""
+    panel_rowpass (one V plane, in no loop) is routed on its own."""
     assert ps.panel_rowpass_stack in ps.ROUTED and ps.panel_rowpass_stack_store in ps.ROUTED
     assert ps.panel_rowpass_stack_abs in ps.ROUTED and ps.panel_init_abs in ps.ROUTED
-    assert ps.panel_init in ps.ROUTED
-    assert ps.panel_rowpass not in ps.ROUTED and ps.panel_init_store not in ps.ROUTED
+    assert ps.panel_init in ps.ROUTED and ps.panel_rowpass in ps.ROUTED
+    assert ps.panel_init_store not in ps.ROUTED
     other = "tile" if row_route == "wide" else "wide"
     ps.reset_launches()
     try:
@@ -1186,7 +1212,7 @@ def test_wide_kernels_match_plain_on_card(cuda):
                 assert float((x - y).abs().max()) <= 2 * tol * float(y.abs().max())
             assert all(torch.equal(x, y) for x, y in zip(got, again))
         assert all(w.launches_by_route == {"tile": 0, "wide": w.launches} for w in ps.ROUTED)
-        assert [w.launches for w in ps.ROUTED] == [1, 1, 2, 2, 2, 0, 0, 0, 0, 0, 0]
+        assert [w.launches for w in ps.ROUTED] == [1, 1, 2, 2, 2, 0, 0, 0, 0, 0, 0, 0]
 
 
 def test_wide_row_kernel_matches_plain_on_card(cuda):

@@ -343,5 +343,11 @@ def test_pick_probe_chunk_contract(shape, npos):
     if npos <= tprop.PROBE_CHUNK_TARGET:
         assert chunk == npos
     assert chunk == max(d for d in range(1, tprop.PROBE_CHUNK_TARGET + 1) if npos % d == 0)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-        tprop.pick_probe_chunk(npos, method="prism")
+    # PRISM's target, the port's own: the same contract with its own bound
+    prism = tprop.pick_probe_chunk(npos, method="prism")
+    target = tprop.PRISM_PROBE_CHUNK_TARGET
+    assert 1 <= prism <= npos and npos % prism == 0 and prism <= target
+    assert prism == (npos if npos <= target
+                     else max(d for d in range(1, target + 1) if npos % d == 0))
+    with pytest.raises(ValueError, match="unknown stem.method"):
+        tprop.pick_probe_chunk(npos, method="bloch")
