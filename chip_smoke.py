@@ -302,6 +302,25 @@ Phases, each printing one JSON line:
              whole-loop launches, asserted) against "xla" at <= 1e-5, and a
              2x2 STEM raster of config 4 with 2 configurations on "fscan"
              against "xla".
+17a. mesh   — the sharded paths (sharding.py, gridshard.py) on the one card,
+             the ranks sharing it through gloo (NCCL refuses two ranks on one
+             GPU; gloo moves CUDA tensors through the host, so these times say
+             nothing of NCCL across cards), started with torch.multiprocessing:
+             a world of 2 running cli.main on a 'data' axis (config 3's
+             20-iteration inverse, its 8 defoci over the ranks, on the
+             defaults: the store pair; config 4's raster, 512 probes a rank, on
+             the defaults: the whole-loop forward) and on a 'grid' axis at
+             config 5's width cut to 32 slices (a forward, an absorptive
+             forward and a streamed forward on rows 1, 4 and 3 over row and
+             column blocks) and the gradient of 2 defoci there (rows 1-3); a
+             world of 4 on ('data', 'grid') = 2 x 2 at config 3 (one
+             gradient, 3 iterations of the CLI inverse); then a 'grid'
+             forward at config 3 through NCCL at a world of 1 under
+             torchrun.  Each against the port's single process on the same
+             inputs (1e-5; the inverse's V within 1.5 x the single process's
+             distance from complex128), launches summed over the ranks and
+             asserted; wall, the collectives' share (rank 0, collective_clock)
+             and peak GiB a rank per case.
 18. engines — wall time of a 32-slice rollout and of one gradient evaluation
              per engine at 128^2 to 1024^2, one wave and 16, and on "panel",
              "pallas" and "xla" at 2048^2 (1 and 4 waves) and 4096^2: the
@@ -340,7 +359,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 PHASES = ("build", "kernels", "golden", "hrtem", "absorptive", "streamed", "grad", "invert",
           "invert_absorptive", "pallas_auto", "stem", "stem4d", "prism", "stem4d_invert_deep",
           "c5", "c5_absorptive", "c5_invert", "c5_tilt_invert", "c5_streamed", "phonon",
-          "engines")
+          "mesh", "engines")
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 PEAK_OPS_PER_S = {torch.float32: 67e12, torch.float64: 34e12}  # non-tensor-core FP32 / FP64
 KERNEL_TOL = {torch.complex64: 2e-6, torch.complex128: 1e-12}  # max|k - ref| / max|ref|
@@ -5110,6 +5129,376 @@ def phase_phonon(tmp: str, gpu: str) -> dict:
     return line
 
 
+# ---- phase mesh: the sharded paths -----------------------------------------
+
+
+def cli_sets(*kv: str) -> tuple[str, ...]:
+    """``--set`` arguments of cli.main for each "key=value"."""
+    return tuple(a for s in kv for a in ("--set", s))
+
+
+#: config 5's width with the depth cut to 32 slices, the specimen cut with
+#: it (Si[110] 24x16x4: the slice thickness of 512 slices of 24x16x64); one
+#: defocus in mode forward, which reads no CTF (the host builds the stack
+#: anyway, 4.5 s for 8 defoci), two for the gradient
+C5_32 = ("sim.ny=2048", "sim.nx=2048", "sim.nslices=32", "specimen.reps=[24,16,4]")
+C5_32_FWD = (*C5_32, "optics.defoci_A=[0.0]")
+C5_32_GRAD = (*C5_32, "optics.defoci_A=[-400.0,-300.0]")
+MESH_TIMEOUT_S = 300
+
+
+def mesh_sets(axes: list[str], shape: list[int]) -> tuple[str, ...]:
+    return cli_sets("mesh.distributed=true", f"mesh.axis_names={json.dumps(axes)}",
+                    f"mesh.shape={json.dumps(shape)}")
+
+
+def mesh_cli(folder: str, tag: str, *extra: str, config: str | None = None) -> dict:
+    """cli.main in a rank of a mesh world (config 2's file unless ``config``),
+    as a user runs it under torchrun (the rank already in its gloo group,
+    so cli.main joins none of its own); rank 0's timing.json."""
+    from fdes_tpu_torch.cli import main
+
+    out = os.path.join(folder, tag)
+    rc = main([config or CONFIG, "--set", f"output_dir={out}", *extra])
+    if rc != 0:
+        raise AssertionError(f"cli.main {extra} exited {rc}")
+    if not os.path.exists(os.path.join(out, "timing.json")):
+        return {}
+    with open(os.path.join(out, "timing.json")) as fh:
+        return {"timing": json.load(fh)}
+
+
+def mesh_gradient(overrides: list[str], defoci: int, mesh=None) -> tuple[float, torch.Tensor, float]:
+    """(loss, dV whole, seconds of one evaluation) of the config-3 loss
+    (make_loss over the defocus series of the first ``defoci`` defoci of the
+    config file with ``overrides``, remat_chunk as the CLI picks) at V =
+    V_true / 2, the data synthesised from V_true: in one process on the
+    "pallas" kernels (mesh None), or on this rank's blocks of the mesh
+    ('grid', and 'data' over the defoci when the mesh has it)."""
+    from fdes_tpu_torch.config import apply_overrides, load_config
+    from fdes_tpu_torch.forward import hrtem_defocus_series
+    from fdes_tpu_torch.gridshard import (col_block, gather_rows,
+                                          hrtem_defocus_series_gridsharded, row_block)
+    from fdes_tpu_torch.kernels.slice_step import pallas_slice_step
+    from fdes_tpu_torch.loss import make_loss
+    from fdes_tpu_torch.pipeline import setup
+    from fdes_tpu_torch.propagate import pick_remat_chunk
+    from fdes_tpu_torch.sharding import share
+
+    cfg = apply_overrides(load_config(CONFIG), overrides)
+    sim = setup(cfg, device="cuda")
+    ctfs = sim.ctf_stack[:defoci]
+    chunk = pick_remat_chunk(cfg.sim.nslices)
+    if mesh is None:
+        def fwd(v, p0, pr, c):
+            return hrtem_defocus_series(v, p0, pr, sim.sigma, c, remat_chunk=chunk,
+                                        slice_step=pallas_slice_step)
+
+        args, v_true, loss_kw = (sim.psi0, sim.propagator, ctfs), sim.v_stack, {}
+    else:
+        dax = "data" if "data" in mesh.axis_names else None
+        mine = share(defoci, mesh, (dax,)) if dax else slice(None)
+
+        def fwd(v, p0, pr, c):
+            return hrtem_defocus_series_gridsharded(v, p0, pr, sim.sigma, c, mesh, data_axis=dax,
+                                                    remat_chunk=chunk)
+
+        args = (row_block(sim.psi0, mesh), col_block(sim.propagator, mesh),
+                col_block(ctfs[mine], mesh))
+        v_true = row_block(sim.v_stack, mesh)
+        loss_kw = {"mesh": mesh, "grid_axis": "grid", "data_axes": (dax,) if dax else ()}
+    with torch.no_grad():
+        obs = fwd(v_true, *args)
+    v = (0.5 * v_true).requires_grad_(True)
+    loss_fn = make_loss(fwd, None, **loss_kw)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loss = loss_fn(v, obs, *args)
+    loss.backward()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    dv = v.grad if mesh is None else gather_rows(v.grad, mesh)
+    return loss.item(), dv, seconds
+
+
+def mesh_grad_case(folder: str, tag: str, overrides: list[str], defoci: int, axes, shape) -> dict:
+    from fdes_tpu_torch.sharding import make_mesh
+
+    mesh = make_mesh(axis_names=tuple(axes), shape=tuple(shape))
+    loss, dv, seconds = mesh_gradient(overrides, defoci, mesh)
+    if mesh.rank == 0:
+        np.save(os.path.join(folder, f"{tag}_dv.npy"), dv.cpu().numpy())
+    return {"loss": loss, "evaluation_s": seconds}
+
+
+#: the cases a mesh world runs: name -> (folder -> extra record)
+MESH_CASES = {
+    # config 3's inverse, the 8 defoci over 'data' (each rank: the whole
+    # rollout on the store pair, its 4 defoci's images)
+    "data_invert": lambda d: mesh_cli(d, "data_invert", "--mode", "invert", *cli_sets(
+        f"recon.iterations={INVERT_ITERS}"), *mesh_sets(["data"], [2])),
+    # config 4's raster, its 1,024 probes over 'data' (512 a rank)
+    "data_stem": lambda d: mesh_cli(d, "data_stem", *cli_sets("stem.probe_chunk=0"),
+                                    *mesh_sets(["data"], [2]), config=CONFIG_STEM),
+    # config 5's width over 'grid': rows 1 and 3 on (1024, 2048) row and
+    # (2048, 1024) column blocks; row 4 with the absorptive V
+    "grid_forward": lambda d: mesh_cli(d, "grid_forward", "--mode", "forward",
+                                       *cli_sets(*C5_32_FWD), *mesh_sets(["grid"], [2])),
+    "grid_absorptive": lambda d: mesh_cli(d, "grid_absorptive", "--mode", "forward", *cli_sets(
+        *C5_32_FWD, "sim.absorptive_factor=0.1"), *mesh_sets(["grid"], [2])),
+    "grid_streamed": lambda d: mesh_cli(d, "grid_streamed", "--mode", "forward", *cli_sets(
+        *C5_32_FWD, "sim.streamed=true"), *mesh_sets(["grid"], [2])),
+    # the gradient of 2 defoci over 'grid' (rows 1, 2, 3)
+    "grid_grad": lambda d: mesh_grad_case(d, "grid_grad", list(C5_32_GRAD), 2, ["grid"], [2]),
+    # ('data', 'grid') = 2 x 2 at config 3: one gradient, 3 iterations
+    "dg_grad": lambda d: mesh_grad_case(d, "dg_grad", [], 8, ["data", "grid"], [2, 2]),
+    "dg_invert": lambda d: mesh_cli(d, "dg_invert", "--mode", "invert", *cli_sets(
+        "recon.iterations=3"), *mesh_sets(["data", "grid"], [2, 2])),
+}
+
+
+def mesh_rank(rank: int, world: int, folder: str, cases: tuple[str, ...]) -> None:
+    """One rank of a mesh world (gloo on the one card): each case with the
+    launch counts at 0 before it, timed between barriers, its collectives
+    timed (collective_clock), the ranks' records gathered to rank 0's
+    <case>.json."""
+    sys.stdout = sys.stderr = open(os.path.join(folder, f"rank{rank}.log"), "w", buffering=1)
+    sys.path.insert(0, ROOT)
+    torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))  # the ranks share the host
+    import torch.distributed as dist
+
+    from fdes_tpu_torch._collectives import collective_clock
+    from fdes_tpu_torch.sharding import init_distributed
+
+    init_distributed(f"file://{os.path.join(folder, 'rendezvous')}", world, rank,
+                     backend="gloo", device="cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    for name in cases:
+        reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        dist.barrier()
+        t0 = time.perf_counter()
+        with collective_clock() as clock:
+            extra = MESH_CASES[name](folder) or {}
+        torch.cuda.synchronize()
+        dist.barrier()
+        rec = {"wall_s": time.perf_counter() - t0, "collective_s": clock["seconds"],
+               "collective_calls": clock["calls"],
+               "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+               "launches": launch_counts(), **extra}
+        recs = [None] * world
+        dist.all_gather_object(recs, rec)
+        if rank == 0:
+            with open(os.path.join(folder, f"{name}.json"), "w") as fh:
+                json.dump(recs, fh)
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def run_mesh_world(world: int, folder: str, cases: tuple[str, ...]) -> tuple[dict, float]:
+    """({case: the ranks' records}, wall s) of a world of gloo ranks on the
+    card, started with torch.multiprocessing (spawn) and stopped at its end
+    or at MESH_TIMEOUT_S."""
+    os.makedirs(folder, exist_ok=True)
+    ctx = torch.multiprocessing.get_context("spawn")
+    t0 = time.perf_counter()
+    procs = [ctx.Process(target=mesh_rank, args=(r, world, folder, cases)) for r in range(world)]
+    for p in procs:
+        p.start()
+    deadline = time.monotonic() + MESH_TIMEOUT_S
+    for p in procs:
+        p.join(max(0.0, deadline - time.monotonic()))
+    late = [p for p in procs if p.is_alive()]
+    for p in late:
+        p.kill()
+        p.join(30)
+    if late or any(p.exitcode != 0 for p in procs):
+        logs = ""
+        for r in range(world):
+            with open(os.path.join(folder, f"rank{r}.log")) as fh:
+                logs += f"--- rank {r}\n{fh.read()[-4000:]}"
+        raise AssertionError(f"mesh world of {world}: exit codes "
+                             f"{[p.exitcode for p in procs]}\n{logs}")
+    out = {}
+    for name in cases:
+        with open(os.path.join(folder, f"{name}.json")) as fh:
+            out[name] = json.load(fh)
+    return out, time.perf_counter() - t0
+
+
+def mesh_launch_sum(recs: list[dict]) -> dict[str, int]:
+    """Every wrapper's launches summed over the ranks."""
+    return {k: sum(r["launches"][k] for r in recs) for k in recs[0]["launches"]}
+
+
+def phase_mesh(tmp: str, gpu: str) -> tuple[dict, dict]:
+    """The sharded paths (sharding.py, gridshard.py) on the one card: ranks
+    share it through gloo (NCCL refuses two ranks on one GPU), so their
+    times say nothing of NCCL across cards.  Each case against the port's
+    own single process on the same inputs; then one 'grid' forward through
+    NCCL at a world of 1 under torchrun.  Returns (line, launches by case)."""
+    from fdes_tpu_torch.propagate import pick_probe_chunk
+
+    torch.cuda.empty_cache()  # the ranks share the card with this process
+    zero = dict.fromkeys(launch_counts(), 0)
+    # single-process references, the card to themselves
+    ref, ref_s, ref_timing = {}, {}, {}
+    t0 = time.perf_counter()
+    for tag, extra, config in (
+            ("inv_c64", ("--mode", "invert", *cli_sets(f"recon.iterations={INVERT_ITERS}")), CONFIG),
+            ("inv_c128", ("--mode", "invert", *cli_sets(f"recon.iterations={INVERT_ITERS}",
+                                                        "sim.dtype=complex128")), CONFIG),
+            ("stem", cli_sets("stem.probe_chunk=0"), CONFIG_STEM),
+            ("c5_forward", ("--mode", "forward", *cli_sets(*C5_32_FWD)), CONFIG),
+            ("c5_absorptive", ("--mode", "forward", *cli_sets(*C5_32_FWD,
+                                                            "sim.absorptive_factor=0.1")), CONFIG),
+            ("c5_streamed", ("--mode", "forward", *cli_sets(*C5_32_FWD, "sim.streamed=true")),
+             CONFIG),
+            ("c3_forward", ("--mode", "forward"), CONFIG)):
+        t = time.perf_counter()
+        ref[tag], ref_timing[tag] = run_cli(tmp, f"mesh_ref_{tag}", *extra, config=config)
+        ref_s[tag] = time.perf_counter() - t
+    grads = {}
+    for tag, overrides, defoci in (("grid_grad", list(C5_32_GRAD), 2), ("dg_grad", [], 8)):
+        loss, dv, seconds = mesh_gradient(overrides, defoci)
+        grads[tag] = (loss, dv.cpu().numpy())
+        ref_s[f"{tag}_evaluation"] = seconds
+    torch.cuda.empty_cache()
+    ref_wall = time.perf_counter() - t0
+
+    worlds = {}
+    recs, worlds["2"] = run_mesh_world(2, os.path.join(tmp, "mesh2"), (
+        "data_invert", "data_stem", "grid_forward", "grid_absorptive", "grid_streamed",
+        "grid_grad"))
+    recs4, worlds["4"] = run_mesh_world(4, os.path.join(tmp, "mesh4"), ("dg_grad", "dg_invert"))
+    recs.update(recs4)
+
+    # NCCL at a world of 1, as a user starts it: torchrun and the CLI, alone
+    # on the card after the worlds
+    out_nccl = os.path.join(tmp, "mesh_nccl")
+    t_nccl = time.perf_counter()
+    nccl = subprocess.Popen(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node", "1",
+         "-m", "fdes_tpu_torch.cli", CONFIG, "--mode", "forward", "--set",
+         f"output_dir={out_nccl}", *mesh_sets(["grid"], [1])],
+        cwd=ROOT, env={**os.environ, "PYTHONPATH": ROOT}, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True)
+    try:
+        nccl_log, _ = nccl.communicate(timeout=MESH_TIMEOUT_S)
+    finally:
+        nccl.kill()
+    nccl_s = time.perf_counter() - t_nccl
+    if nccl.returncode != 0:
+        raise AssertionError(f"torchrun NCCL forward exited {nccl.returncode}:\n"
+                             f"{nccl_log[-4000:]}")
+    with open(os.path.join(out_nccl, "timing.json")) as fh:
+        nccl_timing = json.load(fh)
+
+    def rel(a, b):
+        a, b = np.asarray(a), np.asarray(b)
+        return float(np.linalg.norm(a - b) / np.linalg.norm(b))
+
+    def load(d, tag, name):
+        return np.load(os.path.join(tmp, d, tag, name))
+
+    dist_ = {
+        "data_stem": rel(load("mesh2", "data_stem", "stem.npy"),
+                         np.load(os.path.join(ref["stem"], "stem.npy"))),
+        "grid_forward": rel(load("mesh2", "grid_forward", "exit_wave.npy"),
+                            np.load(os.path.join(ref["c5_forward"], "exit_wave.npy"))),
+        "grid_absorptive": rel(load("mesh2", "grid_absorptive", "exit_wave.npy"),
+                               np.load(os.path.join(ref["c5_absorptive"], "exit_wave.npy"))),
+        "grid_streamed": rel(load("mesh2", "grid_streamed", "exit_wave.npy"),
+                             np.load(os.path.join(ref["c5_streamed"], "exit_wave.npy"))),
+        "nccl_forward": rel(np.load(os.path.join(out_nccl, "exit_wave.npy")),
+                            np.load(os.path.join(ref["c3_forward"], "exit_wave.npy"))),
+    }
+    for tag in ("grid_grad", "dg_grad"):
+        loss, dv = grads[tag]
+        dist_[tag] = rel(np.load(os.path.join(tmp, "mesh2" if tag == "grid_grad" else "mesh4",
+                                              f"{tag}_dv.npy")), dv)
+        dist_[f"{tag}_loss"] = abs(recs[tag][0]["loss"] - loss) / abs(loss)
+    v_sh = load("mesh2", "data_invert", "reconstructed.npy")
+    v_1 = np.load(os.path.join(ref["inv_c64"], "reconstructed.npy"))
+    v_128 = np.load(os.path.join(ref["inv_c128"], "reconstructed.npy"))
+    inv = {"vs_single": rel(v_sh, v_1), "vs_c128": rel(v_sh, v_128),
+           "single_vs_c128": rel(v_1, v_128)}
+    losses = {"dg_invert": read_losses(os.path.join(tmp, "mesh4", "dg_invert"), 3),
+              "data_invert": read_losses(os.path.join(tmp, "mesh2", "data_invert"),
+                                         INVERT_ITERS),
+              "single": read_losses(ref["inv_c64"], INVERT_ITERS)}
+    dist_["dg_invert_first_loss"] = abs(losses["dg_invert"][0] - losses["single"][0]) / abs(
+        losses["single"][0])
+    dist_["data_invert_first_loss"] = abs(losses["data_invert"][0] - losses["single"][0]) / abs(
+        losses["single"][0])
+
+    s3, s5, n = 64, 32, INVERT_ITERS
+    expect = {
+        "data_invert": {scan_wrapper(1): 2, **{k: 2 * c for k, c in store_wrappers(
+            1, calls=n).items()}},
+        "data_stem": {scan_wrapper(pick_probe_chunk(1024)): 1024 // pick_probe_chunk(1024)},
+        "grid_forward": {"transmit": 2 * s5, "cmul": 2 * s5},
+        "grid_absorptive": {"transmit_abs": 2 * s5, "cmul": 2 * s5},
+        "grid_streamed": {"transmit": 2 * s5, "cmul": 2 * s5},
+        # per rank: the synthesised data, the loss, the recompute of every
+        # remat chunk, the backward
+        "grid_grad": {"transmit": 2 * 3 * s5, "cmul": 2 * 4 * s5, "transmit_bwd": 2 * s5},
+        "dg_grad": {"transmit": 4 * 3 * s3, "cmul": 4 * 4 * s3, "transmit_bwd": 4 * s3},
+        "dg_invert": {"transmit": 4 * 7 * s3, "cmul": 4 * 10 * s3, "transmit_bwd": 4 * 3 * s3},
+    }
+    launches = {name: mesh_launch_sum(r) for name, r in recs.items()}
+    cases = {}
+    for name, r in recs.items():
+        wall = max(x["wall_s"] for x in r)
+        cases[name] = {
+            "ranks": len(r), "backend": "gloo", "wall_s": wall,
+            "collective_s_rank0": r[0]["collective_s"], "collective_calls_rank0":
+                r[0]["collective_calls"],
+            "collective_share_of_wall": r[0]["collective_s"] / r[0]["wall_s"],
+            "peak_gib_per_rank": max(x["peak_gib"] for x in r),
+            "launches": {k: c for k, c in launches[name].items() if c},
+            **{k: r[0][k] for k in ("loss", "evaluation_s") if k in r[0]},
+        }
+        timing = r[0].get("timing")
+        if timing:
+            cases[name].update({k: timing[k] for k in ("setup_s", "run_s", "median_step_s")
+                                if k in timing})
+            cases[name]["collective_share_of_run"] = r[0]["collective_s"] / timing["run_s"]
+    cases["nccl_forward"] = {
+        "ranks": 1, "backend": nccl_timing.get("mesh", {}).get("backend"),
+        "wall_s": nccl_s,
+        "setup_s": nccl_timing["setup_s"], "run_s": nccl_timing["run_s"],
+        "collective_share_of_wall": "not measured", "peak_gib_per_rank": "not measured"}
+    line = {
+        "phase": "mesh", "gpu": gpu,
+        "note": "ranks share one card through gloo, which moves CUDA tensors through the host: "
+                "its times say nothing of NCCL across cards; each collective in a case sits "
+                "between two device synchronisations (collective_clock), which its times "
+                "include",
+        "reduced": {"grid_*": "config 5's width (2048^2) cut to 32 slices, Si[110] 24x16x4"},
+        "cases": cases, "distance_vs_single_process": dist_, "data_invert_v": inv,
+        "losses": losses, "reference_s": ref_s, "reference_wall_s": ref_wall,
+        "reference_timing": {k: {x: t[x] for x in ("setup_s", "run_s", "median_step_s") if x in t}
+                             for k, t in ref_timing.items()},
+        "world_wall_s": worlds, "tol": GATE,
+        "data_invert_tol": "1.5 x single_vs_c128",
+    }
+    bad = {k: e for k, e in dist_.items() if not e <= GATE}
+    if not inv["vs_c128"] <= 1.5 * inv["single_vs_c128"]:
+        bad["data_invert_v"] = inv
+    for name, want in expect.items():
+        if launches[name] != {**zero, **want}:
+            bad[f"{name}_launches"] = {k: c for k, c in launches[name].items() if c}
+    for name, ls in losses.items():
+        if not (np.isfinite(ls).all() and ls[-1] < ls[0]):
+            bad[f"{name}_losses"] = ls
+    if nccl_timing.get("mesh", {}).get("backend") != "nccl":
+        bad["nccl_backend"] = nccl_timing.get("mesh")
+    if bad:
+        raise AssertionError(f"mesh gates failed: {bad}")
+    return line, launches
+
+
 #: stem.method = "prism" on the PRISM probe-chunk target (config 4's file
 #: names probe_chunk = 64 for the exact raster)
 PRISM = ("--set", "stem.method=prism", "--set", "stem.probe_chunk=0")
@@ -5565,10 +5954,11 @@ def store_vs_segments() -> list[dict]:
 ROW_PHASES = {
     # rows 1-3 as auto runs them (complex128, an off-grid field), then on "pallas"
     "transmit": ("pallas_auto_c128", "pallas_auto_1536", "invert", "hrtem", "grad",
-                 "stem_pallas"),
-    "cmul": ("pallas_auto_c128", "pallas_auto_1536", "invert", "hrtem", "grad", "stem_pallas"),
-    "transmit_abs": ("absorptive", "invert_absorptive", "grad_absorptive"),
-    "transmit_bwd": ("pallas_auto_c128", "invert", "grad"),
+                 "stem_pallas", "mesh_grid", "mesh_grid_grad", "mesh_dg"),
+    "cmul": ("pallas_auto_c128", "pallas_auto_1536", "invert", "hrtem", "grad", "stem_pallas",
+             "mesh_grid", "mesh_grid_abs", "mesh_grid_grad", "mesh_dg"),
+    "transmit_abs": ("absorptive", "invert_absorptive", "grad_absorptive", "mesh_grid_abs"),
+    "transmit_bwd": ("pallas_auto_c128", "invert", "grad", "mesh_grid_grad", "mesh_dg"),
     "transmit_abs_bwd": ("invert_absorptive", "grad_absorptive"),
     # the step runs one of two kernels, by the route table, counted as
     # "fused_step[route]"
@@ -5576,13 +5966,11 @@ ROW_PHASES = {
        for r in ("tile", "wide")},
     "fused_step_bwd": ("grad_fused", "invert_fused"),
     # the whole-loop forward runs one of two kernels, by the route table
-    "fused_scan": ("stem", "stem_auto", "hrtem_auto", "prism"),
-    "cluster_scan": ("stem", "stem_auto", "hrtem_auto", "prism"),
+    "fused_scan": ("stem", "stem_auto", "hrtem_auto", "prism", "mesh_data_stem"),
+    "cluster_scan": ("stem", "stem_auto", "hrtem_auto", "prism", "mesh_data_stem"),
     # the store pair runs one of two kernels each, by the route table
-    "fused_scan_store": ("invert_auto", "invert_fscan", "grad_fscan"),
-    "fused_scan_bwd_store": ("invert_auto", "invert_fscan", "grad_fscan"),
-    "wide_scan_store": ("invert_auto", "invert_fscan", "grad_fscan"),
-    "wide_scan_bwd_store": ("invert_auto", "invert_fscan", "grad_fscan"),
+    **{w: ("invert_auto", "invert_fscan", "grad_fscan", "mesh_data_invert")
+       for w in STORE_PAIRS["tile"] + STORE_PAIRS["wide"]},
     # so does the segment pair, past the store cap
     **{w: ("stem4d_invert_deep", "grad_fscan_seg") for pair in SEG_PAIRS.values() for w in pair},
     **{f"panel_rowpass[{r}]": ("c5",) for r in ("tile", "wide")},
@@ -5753,6 +6141,13 @@ def main(argv=None) -> int:
             emit(line)
         if "phonon" in phases:
             emit(timed(phase_phonon, tmp, gpu))
+        if "mesh" in phases:
+            line, by_case = timed(phase_mesh, tmp, gpu)
+            path_launches.update(
+                mesh_data_invert=by_case["data_invert"], mesh_data_stem=by_case["data_stem"],
+                mesh_grid=by_case["grid_forward"], mesh_grid_abs=by_case["grid_absorptive"],
+                mesh_grid_grad=by_case["grid_grad"], mesh_dg=by_case["dg_grad"])
+            emit(line)
     if "engines" in phases:
         emit(timed(phase_engines, gpu))
     for name, row in rows.items():

@@ -149,7 +149,7 @@ class ReconParams:
 class MeshParams:
     axis_names: tuple[str, ...] = ("data",)
     shape: tuple[int, ...] = ()  # () = all devices, flat
-    distributed: bool = False  # multi-process run (not yet ported)
+    distributed: bool = False  # join the process group (sharding.init_distributed)
 
 
 @dataclasses.dataclass(frozen=True)

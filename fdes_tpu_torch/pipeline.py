@@ -11,6 +11,8 @@ arrays, so a run can start from state computed elsewhere (the JAX package's
 ``stem_setup`` adds the STEM state (probe stencil, scan positions, detector
 masks) and ``stem_from_arrays`` is its sibling for arrays computed
 elsewhere; ``prism_setup`` the PRISM beam plan of the configured probe.
+``build_mesh``, ``shard_series`` and ``shard_sim`` lay a sharded run out over
+its ranks (sharding.py), and ``gather_series`` brings the shares back.
 
 Entry points run on ``cuda`` unless the caller asks for the CPU; asking for
 ``cuda`` where there is none raises instead of carrying on on the CPU.
@@ -24,7 +26,7 @@ import numpy as np
 import torch
 
 from . import constants
-from .config import Config, MeshParams
+from .config import Config
 from .detector import annular_mask, segmented_masks
 from .grids import Grid, fresnel_propagator
 from .optics import Aberrations, ctf_quadrature_series, ctf_series
@@ -108,14 +110,23 @@ def make_table(cfg: Config) -> ScatteringTable:
     )
 
 
+#: the engines that transform whole planes in one kernel or one C call: they
+#: cannot run the distributed transform of a 'grid' mesh axis
+WHOLE_PLANE_ENGINES = ("fused", "fused_fast", "fscan", "fscan_fast", "fscan_draft", "panel",
+                       "panel_fast")
+
+
 def unported_settings(cfg: Config) -> list[str]:
-    """Settings of ``cfg`` that fdes_tpu_torch does not run yet, each with
-    the ROADMAP.md item that brings it (empty when the run is supported)."""
+    """Settings of ``cfg`` that fdes_tpu_torch does not run, each with the
+    reason (empty when the run is supported)."""
     out = []
     if cfg.mode not in ("forward", "hrtem", "stem", "stem4d", "invert"):
         out.append(f"mode {cfg.mode!r} (no such mode)")
-    if cfg.mesh != MeshParams():
-        out.append("a [mesh] setting (ROADMAP.md Queue 1 item 11)")
+    if "grid" in cfg.mesh.axis_names and cfg.sim.engine in WHOLE_PLANE_ENGINES:
+        out.append(
+            f"sim.engine {cfg.sim.engine!r} under a [mesh] 'grid' axis: a whole-plane engine "
+            "cannot run the distributed transform; use 'auto' or 'pallas' (the kernels) or "
+            "'xla' (ROADMAP.md, Differences made on purpose)")
     return out
 
 
@@ -133,9 +144,7 @@ def setup(cfg: Config, device: torch.device | str = "cuda") -> Sim:
     dev = resolve_device(device)
     bad = [s for s in unported_settings(cfg) if not s.startswith("mode ")]
     if bad:
-        raise NotImplementedError(
-            "not ported to fdes_tpu_torch yet: " + "; ".join(bad)
-        )
+        raise NotImplementedError("fdes_tpu_torch does not run " + "; ".join(bad))
     cdt, rdt = _dtypes(cfg.sim.dtype)
     spec = load_specimen(cfg)
     fy = cfg.sim.fov_y_A or float(spec.box[1])
@@ -388,3 +397,66 @@ def prism_setup(sim: Sim):
     st = sim.cfg.stem
     stencil_host = probe_stencil(sim.grid, sim.wavelength_A, st.semiangle_rad, sim.aberrations)
     return plan_prism(sim.grid, stencil_host, interp=max(st.prism_interp, 1))
+
+
+def build_mesh(cfg: Config):
+    """The run's process mesh from MeshParams, or None for a world of 1 with
+    no ``mesh.shape`` (the single-process run).  Every rank calls it."""
+    import torch.distributed as dist
+
+    from .sharding import make_mesh
+
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    if world <= 1 and not cfg.mesh.shape:
+        return None
+    return make_mesh(axis_names=tuple(cfg.mesh.axis_names),
+                     shape=tuple(cfg.mesh.shape) or None)
+
+
+def shard_series(mesh, *arrays):
+    """This rank's rows of (M, ...) arrays, M split over the whole mesh; the
+    arrays whole, with a line on stderr, when M does not divide (a 10-image
+    series on 8 ranks runs, replicated, rather than dying)."""
+    if mesh is None:
+        return arrays[0] if len(arrays) == 1 else arrays
+
+    from .sharding import data_axis_size, shard_measurements
+
+    n = data_axis_size(mesh)
+    if any(a.shape[0] % n for a in arrays):
+        import sys
+
+        print(
+            f"# mesh: series length {arrays[0].shape[0]} not divisible by "
+            f"{n} devices; running replicated (pad the series to shard)",
+            file=sys.stderr,
+        )
+        return arrays[0] if len(arrays) == 1 else arrays
+    return shard_measurements(mesh, *arrays)
+
+
+def shard_sim(sim: Sim, mesh) -> Sim:
+    """The Sim with this rank's share of its measurement series.
+
+    Defocus series: the ctf_stack's D axis; tilt series: the (psi0,
+    propagator) pairs.  The potential, propagator and incident wave stay
+    whole: a gradient's only collective is the sum over the mesh.
+    """
+    if mesh is None:
+        return sim
+    if sim.psi0_stack is not None:
+        sim.psi0_stack, sim.prop_stack = shard_series(mesh, sim.psi0_stack, sim.prop_stack)
+    elif sim.ctf_stack.ndim >= 3 and sim.ctf_stack.shape[0] > 1:
+        sim.ctf_stack = shard_series(mesh, sim.ctf_stack)
+    return sim
+
+
+def gather_series(x: torch.Tensor, total: int, mesh, dim: int = 0) -> torch.Tensor:
+    """The whole series of the shares shard_series gave: x itself when it is
+    already whole (``total`` entries along ``dim``, replicated or one
+    process), else the ranks' shares in order, on every rank."""
+    if mesh is None or x.shape[dim] == total:
+        return x
+    from ._collectives import all_gather
+
+    return all_gather(x, mesh.group(mesh.axis_names), dim=dim)

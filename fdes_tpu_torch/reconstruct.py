@@ -28,12 +28,15 @@ import dataclasses
 import functools
 import io
 import json
+import math
 import os
 import time
 from typing import Any, Callable
 
 import numpy as np
 import torch
+
+from ._collectives import all_gather, pmax, psum
 
 
 @dataclasses.dataclass
@@ -71,8 +74,15 @@ class LBFGS(torch.optim.Optimizer):
     HISTORY_SIZE = 10
     MAX_LS = 20
 
-    def __init__(self, params):
+    def __init__(self, params, group=None):
         super().__init__(params, {})
+        #: the process group over which the parameters are split (a row
+        #: block of V under a 'grid' mesh): dot products, norms and the line
+        #: search's scalars are then summed over it; None for whole ones
+        self.group = group
+
+    def _dot(self, a: torch.Tensor, b: torch.Tensor) -> float:
+        return float(psum(a.dot(b), self.group))
 
     def _params(self) -> list[torch.Tensor]:
         return [p for g in self.param_groups for p in g["params"]]
@@ -104,38 +114,53 @@ class LBFGS(torch.optim.Optimizer):
         mem = state.setdefault("memory", [])  # [(s, y, 1/y.s)], oldest first
         if "x" in state:
             s, y = x - state["x"], g - state["g"]
-            ys = float(y.dot(s))
+            ys = self._dot(y, s)
             if ys != 0.0:
                 mem.append((s, y, 1.0 / ys))
                 del mem[: -self.HISTORY_SIZE]
         q = g.neg()
         alphas = []
         for s, y, rho in reversed(mem):
-            a = rho * float(s.dot(q))
+            a = rho * self._dot(s, q)
             q.add_(y, alpha=-a)
             alphas.append(a)
         if mem:
             s, y, _ = mem[-1]
-            q.mul_(float(y.dot(s)) / float(y.dot(y)))
+            q.mul_(self._dot(y, s) / self._dot(y, y))
         else:
-            gnorm = float(g.norm())
+            gnorm = float(g.norm()) if self.group is None else math.sqrt(self._dot(g, g))
             q.mul_(1.0 / gnorm if gnorm > 1.0 else 1.0)
         for (s, y, rho), a in zip(mem, reversed(alphas)):
-            q.add_(s, alpha=a - rho * float(y.dot(q)))
+            q.add_(s, alpha=a - rho * self._dot(y, q))
         d = q
 
         x0 = [p.detach().clone() for p in self._params()]
 
-        def evaluate(x, t, d):
+        # The line search reads its vectors through d.abs().max() and
+        # g.dot(d) alone (so in PyTorch 2.11 and 2.13; the 'grid' LBFGS cases
+        # of tests/test_torch_gridshard.py and test_torch_cli.py hold it to
+        # one process).  Split over a group, it is handed one-element
+        # stand-ins that give the global values: d as [max |d|] and each
+        # gradient as [g.d / max |d|].
+        if self.group is None:
+            ls_d, ls_g, scale = d, g, None
+        else:
+            scale = float(pmax(d.abs().max(), self.group)) or 1.0
+            ls_d = d.new_tensor([scale])
+            ls_g = d.new_tensor([self._dot(g, d) / scale])
+
+        def evaluate(x, t, _):
             self._add(t, d)
             loss = float(closure())
             grad = self._flat_grad()
+            if scale is not None:
+                grad = d.new_tensor([self._dot(grad, d) / scale])
             for p, xp in zip(self._params(), x):
                 p.copy_(xp)
             return loss, grad
 
         _, _, t, _ = _strong_wolfe(
-            evaluate, x0, 1.0, d, float(orig_loss), g, g.dot(d), max_ls=self.MAX_LS
+            evaluate, x0, 1.0, ls_d, float(orig_loss), ls_g, ls_g.dot(ls_d), max_ls=self.MAX_LS
         )
         self._add(t, d)
         state["x"], state["g"] = x, g
@@ -233,6 +258,87 @@ class MetricsWriter:
             self._fh.close()
 
 
+#: the optimizers that run on this rank's rows of V under a 'grid' mesh:
+#: elementwise ones, and LBFGS with its dots over the grid; and the names of
+#: their per-parameter state of V's shape (LBFGS's are x, g and memory)
+_ROW_OPTIMIZERS = (torch.optim.SGD, torch.optim.Adam, torch.optim.AdamW, LBFGS)
+_ROW_STATE = ("exp_avg", "exp_avg_sq", "max_exp_avg_sq", "momentum_buffer")
+
+
+class _RowShare:
+    """V's split over a mesh's 'grid' axis: this rank's rows of every slice
+    (group None: V whole, in one process or replicated over the ranks)."""
+
+    def __init__(self, v: torch.Tensor, mesh):
+        grid = mesh is not None and "grid" in mesh.axis_names
+        self.mesh = mesh
+        self.group = mesh.group("grid") if grid else None
+        self.n = mesh.shape["grid"] if grid else 1
+        self.index = mesh.index("grid") if grid else 0
+        self.slices, self.device = v.shape[0], v.device
+
+    def norm(self, g: torch.Tensor) -> torch.Tensor:
+        n = torch.linalg.vector_norm(g)
+        return n if self.group is None else psum(n * n, self.group).sqrt()
+
+    def agree(self, exists: bool, path: str) -> bool:
+        """exists, the same on every rank: a checkpoint that some ranks see
+        and others do not would split their iteration counts."""
+        if self.mesh is None or self.mesh.group(self.mesh.axis_names) is None:
+            return exists
+        flag = torch.tensor(float(exists), device=self.device)
+        seen = int(psum(flag, self.mesh.group(self.mesh.axis_names)))
+        if 0 < seen < self.mesh.devices.size:
+            raise RuntimeError(f"checkpoint {path!r} is seen by {seen} of "
+                               f"{self.mesh.devices.size} ranks; put it on storage every rank "
+                               "reads")
+        return exists
+
+    def _map(self, state: dict, fn) -> dict:
+        """An optimizer's ``state_dict()`` with fn applied to each of its
+        tensors that holds V's rows, found by name: adam's and momentum's
+        buffers (V's shape), LBFGS's x, g and memory pairs (a flat view of
+        V's reals).  Any other entry has no known layout, and raises."""
+        out = {**state, "state": {}}
+        for key, entries in state["state"].items():
+            mapped = {}
+            for name, x in entries.items():
+                if name == "step":
+                    mapped[name] = x
+                elif name in _ROW_STATE or name in ("x", "g"):
+                    mapped[name] = None if x is None else fn(x)
+                elif name == "memory":
+                    mapped[name] = [(fn(s), fn(y), rho) for s, y, rho in x]
+                else:
+                    raise ValueError(f"optimizer state {name!r} has no known layout under a "
+                                     "'grid' mesh")
+            out["state"][key] = mapped
+        return out
+
+    def gather(self, t: torch.Tensor) -> torch.Tensor:
+        """The whole of a tensor of this rank's size: V's (S, ny/n, nx) rows,
+        or a flat view of their reals (slice-major, so each slice's rows are
+        one run)."""
+        if self.group is None:
+            return t
+        whole = all_gather(t.reshape(self.slices, -1), self.group, dim=1)
+        return whole.reshape(self.slices, -1, *t.shape[2:]) if t.ndim == 3 else whole.reshape(-1)
+
+    def take(self, t: torch.Tensor) -> torch.Tensor:
+        """This rank's share of a whole tensor (gather's inverse)."""
+        if self.group is None:
+            return t
+        mine = t.reshape(self.slices, -1).chunk(self.n, dim=1)[self.index]
+        return (mine.reshape(self.slices, -1, *t.shape[2:]) if t.ndim == 3
+                else mine.reshape(-1)).contiguous()
+
+    def gather_state(self, state: dict) -> dict:
+        return state if self.group is None else self._map(state, self.gather)
+
+    def take_state(self, state: dict) -> dict:
+        return state if self.group is None else self._map(state, self.take)
+
+
 def reconstruct(
     loss_fn: Callable[..., torch.Tensor],
     v0: torch.Tensor,
@@ -247,12 +353,23 @@ def reconstruct(
     metrics_every: int = 16,
     callback: Callable[[int, float, torch.Tensor], None] | None = None,
     project: Callable[[torch.Tensor], torch.Tensor] | None = None,
+    mesh=None,
 ) -> ReconResult:
     """Gradient-descent reconstruction of the potential stack.
 
     loss_fn(v, *loss_args): scalar loss of the (S, ny, nx) potential (see
     loss.make_loss).  optimizer: a make_optimizer factory (default adam,
     lr 1).  V lives on v0's device and dtype.
+
+    mesh: the sharding.Mesh of a sharded run, every rank calling with its
+    own share and loss_fn giving every rank the global loss and this rank's
+    gradient (loss.make_loss with the mesh).  Under a 'grid' axis v0 is this
+    rank's (S, ny/n, nx) rows of V: the optimizer's dot products and norms,
+    the gradient norm of the metrics and the line search run over the axis,
+    and the checkpoint and the result hold the whole V, gathered (the
+    checkpoint's file is the one a single process writes, and on resume
+    each rank reads its rows).  Rank 0 alone writes the metrics and the
+    checkpoint.
 
     project: optional constraint projection applied to V after each update
     (projected gradient descent), e.g. positive_projection.
@@ -265,15 +382,28 @@ def reconstruct(
     """
     v = v0.detach().clone().requires_grad_(True)
     opt = (optimizer or make_optimizer("adam", 1.0))([v])
+    rows = _RowShare(v, mesh)
+    if rows.group is not None and not isinstance(opt, _ROW_OPTIMIZERS):
+        raise ValueError(f"{type(opt).__name__} is not known to run on V's rows under a 'grid' "
+                         f"mesh; use one of {[o.__name__ for o in _ROW_OPTIMIZERS]}")
+    if isinstance(opt, LBFGS):
+        opt.group = rows.group
+    writer = mesh is None or mesh.rank == 0
 
     start = 0
-    if resume and checkpoint_path and os.path.exists(checkpoint_path):
+    if resume and checkpoint_path and rows.agree(os.path.exists(checkpoint_path),
+                                                  checkpoint_path):
         v_ck, opt_state, start = load_checkpoint(checkpoint_path, map_location=v.device)
         with torch.no_grad():
-            v.copy_(v_ck)
-        opt.load_state_dict(opt_state)
+            v.copy_(rows.take(v_ck))
+        opt.load_state_dict(rows.take_state(opt_state))
 
-    metrics = MetricsWriter(metrics_path)
+    def save(iteration: int) -> None:
+        v_all, state = rows.gather(v.detach()), rows.gather_state(opt.state_dict())
+        if writer:
+            save_checkpoint(checkpoint_path, v_all, state, iteration)
+
+    metrics = MetricsWriter(metrics_path if writer else None)
     losses: list[float] = []
     pending: list[tuple[int, torch.Tensor, torch.Tensor]] = []
     step_walls: list[float] = []
@@ -306,7 +436,7 @@ def reconstruct(
             loss = loss_fn(v, *loss_args)
             loss.backward()
             if not first:  # LBFGS evaluates again in its line search
-                first.append((loss.detach(), torch.linalg.vector_norm(v.grad.detach())))
+                first.append((loss.detach(), rows.norm(v.grad.detach())))
             return loss
 
         opt.step(closure)
@@ -323,7 +453,7 @@ def reconstruct(
                 flush()
             if checkpoint_path and (it + 1) % checkpoint_every == 0:
                 flush()  # metrics and callbacks precede their checkpoint
-                save_checkpoint(checkpoint_path, v, opt.state_dict(), it + 1)
+                save(it + 1)
         flush()
     except BaseException:
         # keep the metrics of the iterations that ran; the original error
@@ -334,10 +464,10 @@ def reconstruct(
     finally:
         metrics.close()
     if checkpoint_path:
-        save_checkpoint(checkpoint_path, v, opt.state_dict(), iterations)
+        save(iterations)
     walls = step_walls[1:] if len(step_walls) > 1 else step_walls
     return ReconResult(
-        v=v.detach().cpu().numpy(),
+        v=rows.gather(v.detach()).cpu().numpy(),
         losses=np.asarray(losses),
         iterations=iterations,
         wall_s=time.perf_counter() - t0,

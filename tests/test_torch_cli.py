@@ -270,20 +270,32 @@ def test_cli_prism_interp1_is_the_exact_raster(tmp_path, engine):
     np.testing.assert_allclose(sigs["prism"], sigs["multislice"], rtol=1e-4, atol=1e-6)
 
 
+GRID1 = ("--set", 'mesh.axis_names=["grid"]', "--set", "mesh.shape=[1]")
+
+
 @pytest.mark.parametrize(
-    "extra",
+    "extra,message",
     [
-        # the grid-sharded streamed forward comes with sharding (Queue 1 item 11)
-        ("--set", "sim.streamed=true", "--mode", "forward", "--set", 'mesh.axis_names=["grid"]',
-         "--set", "mesh.shape=[1]"),
-        ("--set", 'mesh.axis_names=["grid"]', "--set", "mesh.shape=[1]"),
+        # a tilted streamed forward on a 'grid' axis, refused as fdes_tpu does
+        (("--set", "sim.streamed=true", "--mode", "forward", *GRID1, "--set",
+          "sim.tilt_series_rad=[[0.0, 0.0], [0.001, 0.0]]"),
+         "gridshard streamed forward supports a single incident wave"),
+        # a whole-plane engine cannot run the distributed transform (a
+        # difference made on purpose: fdes_tpu ignores sim.engine there)
+        (("--mode", "forward", "--set", "sim.engine=fscan", *GRID1),
+         "cannot run the distributed transform"),
+        (GRID1, "mesh axis 'grid' supports modes forward/invert only (got 'hrtem')"),
+        (("--mode", "invert", "--set", "recon.modality=stem4d", *GRID1),
+         "recon.modality='stem4d' does not support the 'grid' mesh axis"),
     ],
 )
-def test_unported_modes_and_settings_exit_2(tmp_path, capsys, extra):
+def test_unported_modes_and_settings_exit_2(tmp_path, capsys, extra, message):
+    """The refusals of a [mesh] exit 2 with fdes_tpu.cli's messages, before
+    any output."""
     cfg = _cfg(tmp_path / "c.toml")
     rc = tcli.main([cfg, "--device", "cpu", "--set", f"output_dir={tmp_path}/o", *extra])
     assert rc == 2
-    assert "not yet ported" in capsys.readouterr().err
+    assert message in capsys.readouterr().err
     assert not (tmp_path / "o").exists()
 
 
@@ -555,7 +567,8 @@ def test_setup_rejects_unported_settings(tmp_path):
 
     cfg = tload(_cfg(tmp_path / "c.toml"))
     bad = dataclasses.replace(cfg, mesh=dataclasses.replace(cfg.mesh, axis_names=("grid",),
-                                                            shape=(1,)))
+                                                            shape=(1,)),
+                              sim=dataclasses.replace(cfg.sim, engine="panel"))
     with pytest.raises(NotImplementedError, match="mesh"):
         tpipe.setup(bad, device="cpu")
 
@@ -716,3 +729,179 @@ def test_cli_noise_and_tilt_hrtem_run(tmp_path):
                   "--set", "detector.dose_per_px=100.0")
     imgs = np.load(tmp_path / "o" / "images.npy")
     assert imgs.shape == (2, 128, 128) and np.all(np.isfinite(imgs)) and np.all(imgs >= 0)
+
+
+MESH_CFG = """
+mode = "hrtem"
+[sim]
+ny = 64
+nx = 64
+nslices = 4
+dtype = "complex128"
+engine = "pallas"
+[specimen]
+reps = [2, 2, 2]
+[optics]
+defoci_A = [-200.0, -50.0, 50.0, 200.0]
+cs_A = 1.2e7
+aperture_rad = 20e-3
+[recon]
+lr = 0.5
+"""
+
+
+@pytest.fixture(scope="module")
+def mesh_cli(tmp_path_factory):
+    """The CLI in a world of 2 gloo ranks (tests/torch_mesh_worker.py: an
+    hrtem run on a 'data' axis, a forward and an inverse on a 'grid' axis,
+    and the inverse stopped after 2 iterations and resumed to 3; the inverse
+    on adam and on lbfgs), and the same runs in this process with no mesh
+    while the world runs."""
+    import torch_mesh_worker
+
+    folder = tmp_path_factory.mktemp("mesh_cli")
+    (folder / "c.toml").write_text(MESH_CFG)
+    np.savez(folder / "inputs.npz", unused=np.zeros(1))
+    world = torch_mesh_worker.World(2, str(folder), "cli")
+    try:
+        cfg = str(folder / "c.toml")
+        invert = ("--mode", "invert", "--set", "recon.iterations=3", "--set",
+                  "recon.checkpoint_every=1")
+        for tag, extra in (("hrtem", ()), ("forward", ("--mode", "forward")),
+                           ("invert", invert),
+                           ("invert_lbfgs", (*invert, "--set", "recon.optimizer=lbfgs"))):
+            assert tcli.main([cfg, "--device", "cpu", "--set",
+                              f"output_dir={folder / ('single_' + tag)}", *extra]) == 0
+    finally:
+        results = world.join()
+    return folder, results
+
+
+@pytest.mark.parametrize(
+    "case,files",
+    [
+        ("hrtem", ("images.npy",)),
+        ("forward", ("exit_wave.npy", "potential.npy")),
+        ("invert", ("reconstructed.npy",)),
+        ("resume", ("reconstructed.npy",)),
+        ("invert_lbfgs", ("reconstructed.npy",)),
+        ("resume_lbfgs", ("reconstructed.npy",)),
+    ],
+)
+def test_cli_mesh_equals_single_process(mesh_cli, case, files):
+    """Rank 0 writes the single process's files (names, shapes, dtypes),
+    equal to 1e-10 in complex128, and the same metrics lines; rank 1 writes
+    nothing of its own."""
+    folder, results = mesh_cli
+    assert "error" not in results, results.get("error")
+    assert f"{case}.error" not in results, str(results[f"{case}.error"])
+    resumed = case.startswith("resume")
+    run = case.replace("resume", "invert") if resumed else case
+    got_dir = folder / (f"{run}_resume" if resumed else case)
+    want_dir = folder / f"single_{run}"
+    for name in files:
+        got, want = np.load(got_dir / name), np.load(want_dir / name)
+        assert got.shape == want.shape and got.dtype == want.dtype, name
+        assert _rel(got, want) <= 1e-10, (name, _rel(got, want))
+    if run.startswith("invert"):
+        rows = {}
+        for side, d in (("got", got_dir), ("want", want_dir)):
+            with open(d / "metrics.jsonl") as fh:
+                rows[side] = [json.loads(line) for line in fh]
+        assert [r["iter"] for r in rows["got"]] == [0, 1, 2]
+        for key in ("loss", "grad_norm"):
+            np.testing.assert_allclose([r[key] for r in rows["got"]],
+                                       [r[key] for r in rows["want"]], rtol=1e-10)
+    with open(got_dir / "timing.json") as fh:
+        timing = json.load(fh)
+    assert timing["mesh"]["shape"] == [2] and timing["mesh"]["backend"] == "gloo"
+    assert sorted(p.name for p in got_dir.iterdir()) == sorted(
+        p.name for p in want_dir.iterdir())
+
+
+def test_cli_mesh_checkpoint_loads_in_one_process(mesh_cli):
+    """The 'grid' inverse's checkpoint is the file one process writes: V and
+    adam's moments whole, read by load_checkpoint with no mesh."""
+    from fdes_tpu_torch.reconstruct import load_checkpoint
+
+    folder, results = mesh_cli
+    assert "error" not in results, results.get("error")
+    v, state, it = load_checkpoint(str(folder / "invert" / "checkpoint.npz"))
+    v1, state1, it1 = load_checkpoint(str(folder / "single_invert" / "checkpoint.npz"))
+    assert it == it1 == 3 and v.shape == v1.shape == (4, 64, 64)
+    assert _rel(v.numpy(), v1.numpy()) <= 1e-10
+    for key in ("exp_avg", "exp_avg_sq"):
+        a, b = state["state"][0][key], state1["state"][0][key]
+        assert a.shape == b.shape and _rel(a.numpy(), b.numpy()) <= 1e-10, key
+
+
+def test_cli_mesh_lbfgs_checkpoint_loads_in_one_process(mesh_cli):
+    """The 'grid' LBFGS inverse's checkpoint is the file one process writes:
+    V, the last x and g, and every memory pair whole."""
+    from fdes_tpu_torch.reconstruct import load_checkpoint
+
+    folder, results = mesh_cli
+    assert "error" not in results, results.get("error")
+    v, state, it = load_checkpoint(str(folder / "invert_lbfgs" / "checkpoint.npz"))
+    v1, state1, it1 = load_checkpoint(str(folder / "single_invert_lbfgs" / "checkpoint.npz"))
+    assert it == it1 == 3 and _rel(v.numpy(), v1.numpy()) <= 1e-10
+    got, want = state["state"][0], state1["state"][0]
+    for key in ("x", "g"):
+        assert got[key].shape == want[key].shape == (4 * 64 * 64,), key  # V real
+        assert _rel(got[key].numpy(), want[key].numpy()) <= 1e-10, key
+    assert len(got["memory"]) == len(want["memory"]) == 2
+    for (s, y, rho), (s1, y1, rho1) in zip(got["memory"], want["memory"]):
+        assert _rel(s.numpy(), s1.numpy()) <= 1e-10 and _rel(y.numpy(), y1.numpy()) <= 1e-10
+        assert rho == pytest.approx(rho1, rel=1e-10)
+
+
+@pytest.mark.parametrize(
+    "name,mapped",
+    [
+        ("adam", ["exp_avg", "exp_avg_sq"]),
+        ("momentum", ["momentum_buffer"]),
+        ("lbfgs", ["x", "g", "memory"]),
+        ("adagrad", None),
+    ],
+)
+def test_row_share_maps_optimizer_state_by_name(name, mapped):
+    """A 'grid' checkpoint gathers and splits the optimizer state that holds
+    V's rows by its name, keeps the step count, and raises on state it does
+    not know (adagrad's sum)."""
+    from fdes_tpu_torch.reconstruct import _RowShare, make_optimizer
+
+    v = torch.ones(2, 4, 3, dtype=torch.float64, requires_grad=True)
+    opt = (torch.optim.Adagrad([v]) if name == "adagrad" else make_optimizer(name, 0.1)([v]))
+
+    def closure():
+        opt.zero_grad()
+        loss = torch.sum((v - 2.0) ** 2)
+        loss.backward()
+        return loss
+
+    for _ in range(3):
+        opt.step(closure)
+    state = opt.state_dict()
+    seen = []
+
+    def fn(t):
+        seen.append(t.numel())
+        return t + 1.0
+
+    rows = _RowShare(v.detach(), None)
+    if mapped is None:
+        with pytest.raises(ValueError, match="'sum' has no known layout"):
+            rows._map(state, fn)
+        return
+    out = rows._map(state, fn)
+    entries = out["state"][0]
+    for key, x in state["state"][0].items():
+        if key in mapped and key != "memory":
+            assert torch.equal(entries[key], x + 1.0), key
+        elif key == "memory":
+            assert len(entries[key]) == len(x) == 2
+            assert all(torch.equal(s1, s + 1.0) and r1 == r
+                       for (s1, _, r1), (s, _, r) in zip(entries[key], x))
+        else:
+            assert entries[key] is x, key
+    assert set(seen) == {v.numel()} and out["param_groups"] == state["param_groups"]
