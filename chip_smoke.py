@@ -118,7 +118,10 @@ Phases, each printing one JSON line:
              and three HRTEM images at relative error <= 1e-5; and the
              config-1 exit wave (Si[110] 4x3x3, 256^2, 16 slices; the pack's
              64^2 is below the fused kernels' sizes) on engines "fscan" and
-             "fused" against an independent float64 NumPy multislice, <= 1e-5.
+             "fused" against an independent float64 NumPy multislice, and on
+             "fscan", "fused", "panel", "pallas" and "xla" against the port's
+             float64 golden (fdes_tpu_torch.golden.golden_multislice), each
+             <= 1e-5.
 4. hrtem   — the main path at full width: ``fdes_tpu_torch.cli.main`` on
              examples/si110_hrtem.toml (512^2, 64 slices, 8 defoci, engine
              "pallas"), launches counted, against the plain-torch engine
@@ -291,17 +294,34 @@ Phases, each printing one JSON line:
              "panel") and "xla" (the per-slice streamed body), each below
              4 GiB of device memory; the exit wave against the materialised
              complex128 rollout (c5's tolerance) and against "xla"'s; setup,
-             run, device busy time, idle share and peak memory; then
-             4096^2 x 512 slices on "panel" and "xla" (a stack of 32 GiB
-             that is never built) and a 4-tilt series at 2048^2 x 64 slices;
-             the panel rollout's device busy and wall time at each of the
-             three shapes with every routed panel pass on the tile kernels
-             and on PANEL_ROUTE's, in turns.
+             run and peak memory of each run, the panel rollout's device
+             busy time and idle share; then 4096^2 x 512 slices on "panel"
+             and "xla" (a stack of 32 GiB that is never built) and a 4-tilt
+             series at 2048^2 x 64 slices; the panel rollout's device busy
+             and wall time at 2048^2 with every routed panel pass on the
+             tile kernels and on PANEL_ROUTE's, in turns, and its busy time
+             at 4096^2 and in the tilt series on PANEL_ROUTE's (one
+             reading each); the seconds of each part.
 17. phonon — frozen phonons through the CLI: config 2 in mode hrtem with 4
              configurations on the defaults ("auto" resolves to "fscan": 4
              whole-loop launches, asserted) against "xla" at <= 1e-5, and a
              2x2 STEM raster of config 4 with 2 configurations on "fscan"
              against "xla".
+17b. matmul_engines — the matrix-product engines (dft.py: "mxu", "mxu4";
+             radix.py: "radix"; each with its "_fast" kind, the same code),
+             gated: (a) config 2 through cli.main on each kind, beside "xla"
+             and the defaults: images within 1e-4 of xla's, each _fast kind
+             the same bits, the run's wall and peak memory, and the series
+             alone on each engine and on "auto": wall, busy ms by
+             torch.profiler and idle share; (b) one gradient of config 3's
+             loss on "mxu" and "radix" (dV within 2e-4 of xla's) and three
+             iterations of --mode invert on "mxu" (exit 0, finite, the loss
+             falling); (c) each kind's 16-slice rollout and its dV the same
+             bits with torch.backends.cuda.matmul.allow_tf32 on, the setting
+             kept, beside one unpinned dense product under TF32; (d) config 1
+             on the three engines against the port's golden at 1e-5; (e) a
+             100,000-atom .xyz through load_xyz on the C++ reader (built with
+             g++) and on the Python parser: the same arrays, both times.
 17a. mesh   — the sharded paths (sharding.py, gridshard.py) on the one card,
              the ranks sharing it through gloo (NCCL refuses two ranks on one
              GPU; gloo moves CUDA tensors through the host, so these times say
@@ -322,7 +342,8 @@ Phases, each printing one JSON line:
              asserted; wall, the collectives' share (rank 0, collective_clock)
              and peak GiB a rank per case.
 18. engines — wall time of a 32-slice rollout and of one gradient evaluation
-             per engine at 128^2 to 1024^2, one wave and 16, and on "panel",
+             per engine at 128^2 to 1024^2, one wave and 16 (the matrix
+             engines at 1024^2 one wave only), and on "panel",
              "pallas" and "xla" at 2048^2 (1 and 4 waves) and 4096^2: the
              rows that
              ``make_slice_step("auto")`` picks its engine from; and the two
@@ -359,7 +380,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 PHASES = ("build", "kernels", "golden", "hrtem", "absorptive", "streamed", "grad", "invert",
           "invert_absorptive", "pallas_auto", "stem", "stem4d", "prism", "stem4d_invert_deep",
           "c5", "c5_absorptive", "c5_invert", "c5_tilt_invert", "c5_streamed", "phonon",
-          "mesh", "engines")
+          "matmul_engines", "mesh", "engines")
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 PEAK_OPS_PER_S = {torch.float32: 67e12, torch.float64: 34e12}  # non-tensor-core FP32 / FP64
 KERNEL_TOL = {torch.complex64: 2e-6, torch.complex128: 1e-12}  # max|k - ref| / max|ref|
@@ -2571,6 +2592,11 @@ SCAN_FOOTPRINT = {
 }
 
 
+#: the engines phase golden holds config 1 on against the port's golden (the
+#: matrix engines in phase matmul_engines)
+GOLDEN_ENGINES = ("fscan", "fused", "panel", "pallas", "xla")
+
+
 def phase_golden() -> dict:
     from fdes_tpu_torch.constants import interaction_sigma, wavelength_A
     from fdes_tpu_torch.grids import Grid, fresnel_propagator
@@ -2604,48 +2630,85 @@ def phase_golden() -> dict:
     imgs = hrtem_image(psi, torch.as_tensor(ctf.astype(np.complex64), device="cuda"))
     img_err = rel_norm(imgs, torch.as_tensor(img_gold, device="cuda"))
     line = {"phase": "golden", "exit_wave_rel_err": exit_err, "images_rel_err": img_err,
-            "gate": GATE, "config1_exit_wave_rel_err": config1_golden(kv)}
-    errs = (exit_err, img_err, *line["config1_exit_wave_rel_err"].values())
+            "gate": GATE}
+    case = config1_case(kv)
+    line.update(config1_exit_wave_rel_err=config1_golden(case, kv),
+                config1_vs_golden_multislice=config1_golden_multislice(case, kv, GOLDEN_ENGINES))
+    errs = (exit_err, img_err, *line["config1_exit_wave_rel_err"].values(),
+            *line["config1_vs_golden_multislice"].values())
     if not all(e <= GATE for e in errs):
         raise AssertionError(f"golden gate failed: {line}")
     return line
 
 
-def config1_golden(kv: float) -> dict:
-    """Config 1 (Si[110] 4x3x3, 256^2, 16 slices, plane wave) in complex64 on
-    the engines that compute their own FFT, against a float64 NumPy multislice
-    with its own propagator (phase -pi lambda q^2 dz, band limit at 2/3 of the
-    Nyquist frequency) on the float64 potential: relative norm per engine."""
+def config1_case(kv: float):
+    """Config 1 (Si[110] 4x3x3, 256^2, 16 slices, plane wave): (grid, sliced,
+    sigma, the float64 potential on the card, the complex64 propagator and
+    plane wave)."""
     from fdes_tpu_torch.constants import interaction_sigma, wavelength_A
     from fdes_tpu_torch.grids import Grid, fresnel_propagator
     from fdes_tpu_torch.potential import build_potential
     from fdes_tpu_torch.probe import plane_wave
-    from fdes_tpu_torch.propagate import make_slice_step, multislice
     from fdes_tpu_torch.specimen import make_si110_supercell, slice_specimen
 
-    sigma, lam = interaction_sigma(kv), wavelength_A(kv)
+    lam = wavelength_A(kv)
     spec = make_si110_supercell(reps=(4, 3, 3))
     lx, ly, _ = spec.box
     grid = Grid(ny=256, nx=256, py=ly / 256, px=lx / 256)
     sliced = slice_specimen(spec, nslices=16)
     v64 = build_potential(sliced, grid, dtype=torch.float64, device="cuda")
+    prop = torch.as_tensor(fresnel_propagator(grid, lam, sliced.dz).astype(np.complex64),
+                           device="cuda")
+    return (grid, sliced, interaction_sigma(kv), v64, prop,
+            plane_wave(grid, lam, dtype=torch.complex64, device="cuda"))
+
+
+def config1_engine_errors(case: tuple, gold: np.ndarray, engines) -> dict:
+    """Config 1's complex64 exit wave (``case``, config1_case's) on each
+    engine against ``gold`` (a float64 exit wave of the same case): relative
+    norm per engine."""
+    from fdes_tpu_torch.propagate import make_slice_step, multislice
+
+    grid, _, sigma, v64, prop, psi0 = case
+    want = torch.as_tensor(gold, device="cuda")
+    out = {}
+    for engine in engines:
+        step = make_slice_step(engine, shape=grid.shape, grad=False)
+        with torch.no_grad():
+            out[engine] = rel_norm(multislice(psi0, v64.float(), prop, sigma, slice_step=step),
+                                   want)
+    return out
+
+
+def config1_golden(case: tuple, kv: float) -> dict:
+    """Config 1 in complex64 on the engines that compute their own FFT,
+    against a float64 NumPy multislice with its own propagator (phase -pi
+    lambda q^2 dz, band limit at 2/3 of the Nyquist frequency) on the float64
+    potential (``case``, config1_case's): relative norm per engine."""
+    from fdes_tpu_torch.constants import wavelength_A
+
+    grid, sliced, sigma, v64, _, _ = case
     qy = np.fft.fftfreq(grid.ny, d=grid.py)[:, None]
     qx = np.fft.fftfreq(grid.nx, d=grid.px)[None, :]
     q2 = qy * qy + qx * qx
     qlim = (2.0 / 3.0) * min(0.5 / grid.py, 0.5 / grid.px)
-    prop64 = np.exp(-1j * np.pi * lam * q2 * sliced.dz) * (q2 <= qlim * qlim)
+    prop64 = np.exp(-1j * np.pi * wavelength_A(kv) * q2 * sliced.dz) * (q2 <= qlim * qlim)
     gold = np.ones(grid.shape, np.complex128)
     for v_slice in v64.cpu().numpy():
         gold = np.fft.ifft2(np.fft.fft2(np.exp(1j * sigma * v_slice) * gold) * prop64)
-    prop = torch.as_tensor(fresnel_propagator(grid, lam, sliced.dz).astype(np.complex64),
-                           device="cuda")
-    psi0 = plane_wave(grid, lam, dtype=torch.complex64, device="cuda")
-    out = {}
-    for engine in ("fscan", "fused"):
-        step = make_slice_step(engine, shape=grid.shape, grad=False)
-        psi = multislice(psi0, v64.float(), prop, sigma, slice_step=step)
-        out[engine] = rel_norm(psi, torch.as_tensor(gold, device="cuda"))
-    return out
+    return config1_engine_errors(case, gold, ("fscan", "fused"))
+
+
+def config1_golden_multislice(case: tuple, kv: float, engines) -> dict:
+    """Config 1 (``case``, config1_case's) in complex64 on ``engines`` against
+    the port's float64 golden (fdes_tpu_torch.golden.golden_multislice on
+    the float64 potential): relative norm per engine."""
+    from fdes_tpu_torch.golden import golden_multislice
+
+    grid, sliced, _, v64, _, _ = case
+    gold = golden_multislice(np.ones(grid.shape, np.complex128), v64.cpu().numpy(), grid, kv,
+                             sliced.dz)
+    return config1_engine_errors(case, gold, engines)
 
 
 def run_cli(tmp: str, tag: str, *extra: str, config: str = CONFIG) -> tuple[str, dict]:
@@ -4919,11 +4982,10 @@ def streamed_cli_run(tmp: str, tag: str, *extra: str) -> tuple[np.ndarray, dict,
 TILTS4 = "[[0.0,0.0],[0.002,-0.001],[-0.001,0.002],[0.001,0.001]]"
 
 
-def streamed_by_route(settings: list[str], run: dict) -> dict[str, dict[str, list[float]]]:
+def streamed_busy_ms(settings: list[str], run: dict) -> float:
     """Config 5 streamed with ``settings`` (config-file overrides, mode
     forward, one defocus) as one panel rollout on the card: its device busy
-    and wall ms with every routed pass on tile and on the table, in turns;
-    the median busy ms on the table goes into ``run`` (the CLI run's
+    ms on the table's routes, also written into ``run`` (the CLI run's
     timing) with the idle share of that run's wall time."""
     from fdes_tpu_torch.config import apply_overrides, load_config
     from fdes_tpu_torch.pipeline import setup, streamed_inputs
@@ -4941,12 +5003,11 @@ def streamed_by_route(settings: list[str], run: dict) -> dict[str, dict[str, lis
         return multislice_streamed(psi0, atoms, ff, prop, sim.sigma, shape=sim.grid.shape,
                                    pixel=(sim.grid.py, sim.grid.px), slice_step=step)
 
-    by_route = {"busy_ms": busy_by_route(rollout), "wall_ms": wall_by_route(rollout)}
-    busy = statistics.median(by_route["busy_ms"]["table"])
+    busy = device_busy_ms(rollout)[0]
     run.update(device_busy_ms=busy, device_idle_share=max(0.0, 1.0 - busy / (run["run_s"] * 1e3)))
     del sim, atoms, ff, psi0, prop
     torch.cuda.empty_cache()
-    return by_route
+    return busy
 
 
 def phase_c5_streamed(tmp: str, gpu: str) -> tuple[dict, dict]:
@@ -4954,17 +5015,24 @@ def phase_c5_streamed(tmp: str, gpu: str) -> tuple[dict, dict]:
     2048^2 x 512 slices on panel (2,050 panel passes, asserted), auto
     (resolves to panel) and xla, each below C5_STREAMED_PEAK; the exit wave
     against the materialised complex128 rollout (c5's tolerance) and against
-    xla's; the rollout's kernels (exact at 32 slices, no FFT library kernel
-    at 512) and device busy time; then 4096^2 x 512 slices on panel and xla
-    (the size whose stack does not fit), and a 4-tilt series at 2048^2 x 64
-    slices, panel against xla.  Returns (line, launches of the 2048^2 and
-    4096^2 panel runs)."""
+    xla's; the panel rollout's kernels (exact at 32 slices, no FFT library
+    kernel at 512) and device busy time; then 4096^2 x 512 slices on panel
+    and xla (the size whose stack does not fit), and a 4-tilt series at
+    2048^2 x 64 slices, panel against xla.  Returns (line, launches of the
+    2048^2 and 4096^2 panel runs)."""
     from fdes_tpu_torch.config import apply_overrides, load_config
     from fdes_tpu_torch.pipeline import setup, streamed_inputs
     from fdes_tpu_torch.propagate import make_slice_step, multislice, multislice_streamed
 
     zero = dict.fromkeys(launch_counts(), 0)
     nslices = C5_SLICES
+    parts, t_part = {}, time.perf_counter()
+
+    def part(name):  # the seconds of each part of the phase
+        nonlocal t_part
+        parts[name] = time.perf_counter() - t_part
+        t_part = time.perf_counter()
+
     # first, the streamed kernels at 2048^2 and 4096^2 and cuFFT's plans (two
     # slices per engine), so that no timed run pays for loading them
     for n in (2048, 4096):
@@ -4976,6 +5044,7 @@ def phase_c5_streamed(tmp: str, gpu: str) -> tuple[dict, dict]:
                                     pixel=(grid.py, grid.px),
                                     slice_step=make_slice_step(e, shape=grid.shape, grad=False))
         del atoms, ff, prop, psi
+    part("warmup")
     runs, waves, counts = {}, {}, {}
     for engine in ("panel", "auto", "xla"):
         waves[engine], runs[engine], counts[engine] = streamed_cli_run(
@@ -4988,6 +5057,7 @@ def phase_c5_streamed(tmp: str, gpu: str) -> tuple[dict, dict]:
     w = {e: torch.as_tensor(a, device="cuda") for e, a in waves.items()}
     err = {"auto_vs_panel": rel_norm(w["auto"], w["panel"]),
            "panel_vs_xla": rel_norm(w["panel"], w["xla"])}
+    part("cli_2048")
 
     # the rollout alone: its kernels and device busy time
     c5_settings = [a for a in C5 if a != "--set"]
@@ -5009,17 +5079,16 @@ def phase_c5_streamed(tmp: str, gpu: str) -> tuple[dict, dict]:
     kernels_512 = device_kernels(rollout)
     if library_kernels(kernels_32) or library_kernels(kernels_512):
         raise AssertionError(f"c5_streamed rollout kernels: {kernels_32}, {kernels_512}")
-    for e in ("panel", "xla"):
-        step_e = make_slice_step(e, shape=sim.grid.shape, grad=False)
-        busy, n_kernels = device_busy_ms(
-            lambda s=step_e: multislice_streamed(sim.psi0, atoms, ff, sim.propagator, sim.sigma,
-                                                 shape=sim.grid.shape,
-                                                 pixel=(sim.grid.py, sim.grid.px), slice_step=s))
-        runs[e]["device_busy_ms"] = busy
-        runs[e]["kernels"] = n_kernels
-        runs[e]["device_idle_share"] = max(0.0, 1.0 - busy / (runs[e]["run_s"] * 1e3))
+    part("rollout_kernels")
+    # the panel rollout's busy time; xla's per-slice body is not profiled
+    # (its three profiles took ~24 s of the phase), its run's wall is kept
+    busy, n_kernels = device_busy_ms(rollout)
+    runs["panel"].update(device_busy_ms=busy, kernels=n_kernels,
+                         device_idle_share=max(0.0, 1.0 - busy / (runs["panel"]["run_s"] * 1e3)))
+    part("busy_panel")
     rollout_by_route = {"busy_ms": busy_by_route(rollout), "wall_ms": wall_by_route(rollout)}
     del sim, atoms, ff
+    part("rollout_by_route")
 
     # the materialised complex128 rollout of the same specimen, grid and slices
     cfg_m = apply_overrides(load_config(CONFIG), [*c5_settings, "optics.defoci_A=[0.0]"])
@@ -5033,6 +5102,7 @@ def phase_c5_streamed(tmp: str, gpu: str) -> tuple[dict, dict]:
             **{e: rel_norm(w[e], exact) for e in ("panel", "xla")}}
     del sim_m, plain, exact, w
     wave_tol = min(1e-4, 1.5 * dist["plain_materialised"])
+    part("complex128")
 
     # ---- 4096^2 x 512 slices, the same specimen at the finer pixel
     c5_4096 = ("--set", "sim.ny=4096", "--set", "sim.nx=4096", *C5_STREAMED[4:])
@@ -5047,8 +5117,11 @@ def phase_c5_streamed(tmp: str, gpu: str) -> tuple[dict, dict]:
                 raise AssertionError(f"c5_streamed 4096^2 on panel: launches {big[e]['launches']}")
     err["4096_panel_vs_xla"] = rel_norm(torch.as_tensor(waves.pop("4096_panel"), device="cuda"),
                                         torch.as_tensor(waves.pop("4096_xla"), device="cuda"))
-    by_route_4096 = streamed_by_route([*c5_settings, "sim.ny=4096", "sim.nx=4096"],
-                                      big["panel"])
+    # one reading: PANEL_ROUTE runs the column and build column passes on the
+    # tile kernels at 4096^2, so the two sides of the turns differed in the
+    # one init launch (595.9 against 595.6 ms busy, PERF.md section 5)
+    busy_4096 = streamed_busy_ms([*c5_settings, "sim.ny=4096", "sim.nx=4096"], big["panel"])
+    part("4096")
 
     # ---- a 4-tilt series at 2048^2 x 64 slices: B waves, V built once a slice
     tilt = (*C5_STREAMED[:4], "--set", "sim.nslices=64", *C5_STREAMED[6:], "--set",
@@ -5063,8 +5136,9 @@ def phase_c5_streamed(tmp: str, gpu: str) -> tuple[dict, dict]:
                 raise AssertionError(f"c5_streamed tilt: launches {tilts[e]['launches']}")
     err["tilt4_panel_vs_xla"] = rel_norm(torch.as_tensor(waves["tilt_panel"], device="cuda"),
                                          torch.as_tensor(waves["tilt_xla"], device="cuda"))
-    by_route_tilt = streamed_by_route(
+    busy_tilt = streamed_busy_ms(
         [*c5_settings, "sim.nslices=64", f"sim.tilt_series_rad={TILTS4}"], tilts["panel"])
+    part("tilt")
     line = {
         "phase": "c5_streamed",
         "config": "examples/si110_hrtem.toml " + " ".join(C5_STREAMED[1::2]),
@@ -5073,8 +5147,9 @@ def phase_c5_streamed(tmp: str, gpu: str) -> tuple[dict, dict]:
         "variant_tol": C5_VARIANT_TOL, "peak_limit_bytes": C5_STREAMED_PEAK,
         "rollout_kernels_32": own_kernels(kernels_32),
         "rollout_kernels_512": own_kernels(kernels_512),
-        "rollout_by_route": rollout_by_route, "rollout_4096_by_route": by_route_4096,
-        "rollout_tilt4_by_route": by_route_tilt,
+        "rollout_by_route": rollout_by_route, "rollout_4096_busy_ms": busy_4096,
+        "rollout_tilt4_busy_ms": busy_tilt,
+        "part_seconds": parts,
         "gpu": gpu,
     }
     if waves["tilt_panel"].shape != (4, 2048, 2048) or waves["panel"].shape != (2048, 2048):
@@ -5785,18 +5860,285 @@ def phase_prism(tmp: str, gpu: str) -> tuple[dict, dict]:
     return line, launches
 
 
+#: the matrix-product engines (dft.py, radix.py); each has a _fast kind on the
+#: same code
+MATMUL = ("mxu", "mxu4", "radix")
+#: config 2's images on a matrix engine against xla's (relative norm): the
+#: JAX package's bound for these engines against xla (tests/test_pallas.py)
+MATMUL_IMAGE_TOL = 1e-4
+#: config 3's dV on a matrix engine against xla's (relative norm)
+MATMUL_GRAD_TOL = 2e-4
+MATMUL_INVERT_ITERS = 3
+NATIVE_ATOMS = 100_000
+
+
+def synced_wall_ms(fn, reps: int = 3) -> float:
+    """Median wall ms of fn (host clock, synchronised before and after),
+    after one call that is not timed."""
+    fn()
+    walls = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(walls)
+
+
+def matmul_config2(tmp: str, sim) -> dict:
+    """(a) Config 2 through cli.main on each matrix engine, its _fast kind,
+    xla and the defaults: images against xla's, the _fast kinds' bits, each
+    run's wall (timing.json) and peak; the series alone on each matrix engine
+    and on auto: wall, busy ms (torch.profiler) and idle share."""
+    from fdes_tpu_torch.forward import hrtem_defocus_series
+    from fdes_tpu_torch.propagate import make_slice_step
+
+    runs, imgs = {}, {}
+    for engine in ("xla", "auto", *MATMUL, *(f"{k}_fast" for k in MATMUL)):
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        out, timing = run_cli(tmp, f"mm_{engine}", "--set", f"sim.engine={engine}")
+        timing["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        imgs[engine] = np.load(os.path.join(out, "images.npy"))
+        shutil.rmtree(out)
+        runs[engine] = timing
+        if imgs[engine].shape != (8, 512, 512) or not np.isfinite(imgs[engine]).all():
+            raise AssertionError(f"config 2 on {engine}: images {imgs[engine].shape} not finite")
+    for engine in ("auto", *MATMUL):
+        step = make_slice_step(engine, shape=sim.grid.shape, dtype=sim.cdtype, grad=False)
+
+        def series(step=step):
+            with torch.no_grad():
+                return hrtem_defocus_series(sim.v_stack, sim.psi0, sim.propagator, sim.sigma,
+                                            sim.ctf_stack, weights=sim.ctf_weights,
+                                            slice_step=step)
+
+        wall = synced_wall_ms(series)
+        busy, n_kernels = device_busy_ms(series)
+        runs[engine].update(series_wall_ms=wall, series_busy_ms=busy, series_kernels=n_kernels,
+                            series_idle_share=max(0.0, 1.0 - busy / wall))
+    err = {e: float(np.linalg.norm(imgs[e] - imgs["xla"]) / np.linalg.norm(imgs["xla"]))
+           for e in imgs if e != "xla"}
+    same = {k: bool(np.array_equal(imgs[k], imgs[f"{k}_fast"])) for k in MATMUL}
+    res = {"runs": runs, "rel_err_vs_xla": err, "tol": MATMUL_IMAGE_TOL,
+           "fast_same_bits": same}
+    if not (all(err[e] <= MATMUL_IMAGE_TOL for e in err if e != "auto") and all(same.values())
+            and all(runs[e]["engine_kind"] == e for e in err if e != "auto")):
+        raise AssertionError(f"config 2 on the matrix engines: {res}")
+    return res
+
+
+def matmul_config3(tmp: str, sim) -> dict:
+    """(b) One gradient of config 3's loss at V_true / 2 on mxu and radix
+    against xla's (loss, dV; wall ms), then the CLI inverse on mxu
+    for MATMUL_INVERT_ITERS iterations: exit 0, finite, the loss falling."""
+    from fdes_tpu_torch.forward import hrtem_defocus_series
+    from fdes_tpu_torch.loss import make_loss
+    from fdes_tpu_torch.propagate import make_slice_step, pick_remat_chunk
+
+    chunk = pick_remat_chunk(sim.v_stack.shape[0])
+
+    def fwd_for(engine):
+        step = make_slice_step(engine, shape=sim.grid.shape, dtype=sim.cdtype, grad=True)
+        return lambda v: hrtem_defocus_series(v, sim.psi0, sim.propagator, sim.sigma,
+                                              sim.ctf_stack, remat_chunk=chunk, slice_step=step)
+
+    with torch.no_grad():
+        i_obs = fwd_for("xla")(sim.v_stack)
+    v_half = 0.5 * sim.v_stack
+    grads, times = {}, {}
+    for engine in ("xla", "mxu", "radix"):
+        loss_fn = make_loss(fwd_for(engine), i_obs)
+
+        def run(loss_fn=loss_fn):
+            vv = v_half.detach().clone().requires_grad_(True)
+            loss = loss_fn(vv)
+            loss.backward()
+            return loss.detach(), vv.grad
+
+        times[engine] = {"wall_ms": synced_wall_ms(run)}
+        grads[engine] = run()
+    loss_x, dv_x = grads.pop("xla")
+    res = {"gradient": times, "tol": MATMUL_GRAD_TOL,
+           "dv_rel_err_vs_xla": {e: rel_norm(g[1], dv_x) for e, g in grads.items()},
+           "loss_rel_err_vs_xla": {e: abs(float(g[0] / loss_x) - 1.0) for e, g in grads.items()}}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    out, timing = run_cli(tmp, "mm_invert", "--mode", "invert", "--set",
+                          f"recon.iterations={MATMUL_INVERT_ITERS}", "--set", "sim.engine=mxu")
+    timing["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    losses = read_losses(out, MATMUL_INVERT_ITERS)
+    v = np.load(os.path.join(out, "reconstructed.npy"))
+    shutil.rmtree(out)
+    res["invert_mxu"] = {"timing": timing, "losses": losses, "v_shape": list(v.shape)}
+    if not (all(e <= MATMUL_GRAD_TOL for e in res["dv_rel_err_vs_xla"].values())
+            and np.isfinite(losses).all() and losses[-1] < losses[0]
+            and v.shape == tuple(sim.v_stack.shape) and np.isfinite(v).all()):
+        raise AssertionError(f"config 3 on the matrix engines: {res}")
+    return res
+
+
+def matmul_tf32(sim) -> dict:
+    """(c) Each matrix engine's 16-slice rollout and its dV with the caller's
+    torch.backends.cuda.matmul.allow_tf32 off and on: the same bits, the
+    caller's setting kept; beside them one dense DFT product unpinned under
+    TF32 (what the pin prevents)."""
+    from fdes_tpu_torch.dft import dft_matrices
+    from fdes_tpu_torch.propagate import MATMUL_ENGINES, make_slice_step, multislice
+
+    v16 = sim.v_stack[:16]
+    w = torch.linspace(0.5, 1.5, sim.psi0.numel(), device="cuda").reshape(sim.psi0.shape)
+    out = {}
+    for engine in MATMUL_ENGINES:
+        step = make_slice_step(engine, shape=sim.grid.shape)
+
+        def roll(step=step):
+            vv = v16.detach().clone().requires_grad_(True)
+            psi = multislice(sim.psi0, vv, sim.propagator, sim.sigma, slice_step=step)
+            (psi.abs() ** 2 * w).sum().backward()
+            return psi.detach(), vv.grad
+
+        torch.backends.cuda.matmul.allow_tf32 = False
+        off = roll()
+        torch.backends.cuda.matmul.allow_tf32 = True
+        try:
+            on = roll()
+            kept = torch.backends.cuda.matmul.allow_tf32
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = False
+        out[engine] = {"same_bits": all(bool(torch.equal(a, b)) for a, b in zip(off, on)),
+                       "setting_kept": kept}
+    (fy, _), _ = dft_matrices(*sim.grid.shape, sim.cdtype, "cuda")
+    wave = torch.polar(torch.ones_like(v16[0]), v16[0] * sim.sigma)  # the first slice's t
+    ref = fy @ wave
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        raw = fy @ wave
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    out["dense_product_unpinned_under_tf32_rel_err"] = rel_norm(raw, ref)
+    bad = {k: v for k, v in out.items() if isinstance(v, dict)
+           and not (v["same_bits"] and v["setting_kept"])}
+    if bad:
+        raise AssertionError(f"TF32 moved a matrix engine: {bad}")
+    return out
+
+
+def native_parse(tmp: str) -> dict:
+    """(e) A written NATIVE_ATOMS-atom .xyz through load_xyz with the C++
+    reader (built with g++ here) and with the Python parser: the same arrays,
+    and the seconds of the build and of each parse."""
+    from fdes_tpu_torch import native
+    from fdes_tpu_torch.specimen import load_xyz
+
+    rng = np.random.default_rng(7)
+    syms = np.array(["Si", "O", "Au"])[rng.integers(0, 3, NATIVE_ATOMS)]
+    pos = rng.uniform(0.0, 200.0, (NATIVE_ATOMS, 3))
+    bo = rng.uniform(0.0, 1.0, (NATIVE_ATOMS, 2))
+    path = os.path.join(tmp, "atoms.xyz")
+    with open(path, "w") as fh:
+        fh.write(f"{NATIVE_ATOMS}\nrandom atoms, seed 7\n")
+        fh.writelines(f"{s} {p[0]:.6f} {p[1]:.6f} {p[2]:.6f} {b[0]:.4f} {b[1]:.4f}\n"
+                      for s, p, b in zip(syms, pos, bo))
+    t0 = time.perf_counter()
+    built = native.available()
+    t1 = time.perf_counter()
+    fast = load_xyz(path, (200.0, 200.0, 200.0), native=True)
+    t2 = time.perf_counter()
+    slow = load_xyz(path, (200.0, 200.0, 200.0), native=False)
+    t3 = time.perf_counter()
+    fields = ("positions", "numbers", "bfactors", "occupancies", "box")
+    same = all(np.array_equal(getattr(fast, f), getattr(slow, f)) for f in fields)
+    res = {"atoms": NATIVE_ATOMS, "built": built, "build_s": t1 - t0, "native_s": t2 - t1,
+           "python_s": t3 - t2, "same_arrays": same}
+    if not (built and same and fast.positions.shape == (NATIVE_ATOMS, 3)):
+        raise AssertionError(f"native parsing: {res}")
+    return res
+
+
+def phase_matmul_engines(tmp: str, gpu: str) -> dict:
+    """The matrix-product engines (mxu, mxu4, radix and their _fast kinds) on
+    the main path, gates (a)-(d), and the native reader (e)."""
+    from fdes_tpu_torch.config import load_config
+    from fdes_tpu_torch.pipeline import setup
+
+    sim = setup(load_config(CONFIG), device="cuda")
+    parts, line = {}, {"phase": "matmul_engines", "gpu": gpu}
+    for key, fn, args in (("config2", matmul_config2, (tmp, sim)),
+                          ("config3", matmul_config3, (tmp, sim)),
+                          ("tf32", matmul_tf32, (sim,)),
+                          ("config1_vs_golden_multislice",
+                           lambda: config1_golden_multislice(config1_case(300e3), 300e3, MATMUL),
+                           ()),
+                          ("native", native_parse, (tmp,))):
+        t0 = time.perf_counter()
+        line[key] = fn(*args)
+        parts[key] = time.perf_counter() - t0
+    line["part_seconds"] = parts
+    line["gate"] = GATE
+    if not all(e <= GATE for e in line["config1_vs_golden_multislice"].values()):
+        raise AssertionError(f"config 1 on the matrix engines against the golden: {line}")
+    return line
+
+
+def wall_turns(engines: tuple[str, ...], run_of) -> dict[str, list[float]]:
+    """Wall ms (host clock around a synchronised call, median of 3 after a
+    warm call) of ``run_of(engine)()`` per engine, each engine measured twice
+    in turns (in order, then reversed)."""
+    times: dict[str, list[float]] = {e: [] for e in engines}
+    for order in (engines, engines[::-1]):
+        for e in order:
+            run = run_of(e)
+            run()
+            torch.cuda.synchronize()
+            walls = []
+            for _ in range(3):
+                t0 = time.perf_counter()
+                run()
+                torch.cuda.synchronize()
+                walls.append((time.perf_counter() - t0) * 1e3)
+            times[e].append(statistics.median(walls))
+    return times
+
+
+def rollout_runs(n: int, batch: int, grad: bool, psi0, v, prop, w, sigma: float):
+    """run_of for wall_turns: engine -> a call of a rollout over v (no
+    gradient) or of one gradient of the weighted intensity with respect
+    to v, on that engine's slice step."""
+    from fdes_tpu_torch.propagate import make_slice_step, multislice
+
+    def run_of(engine):
+        step = make_slice_step(engine, shape=(n, n), grad=grad, batch=batch)
+
+        def run():
+            if not grad:
+                with torch.no_grad():
+                    return multislice(psi0, v, prop, sigma, slice_step=step)
+            vv = v.detach().requires_grad_(True)
+            out = multislice(psi0, vv, prop, sigma, slice_step=step)
+            (out.abs() ** 2 * w).sum().backward()
+            return vv.grad
+
+        return run
+
+    return run_of
+
+
 def phase_engines(gpu: str) -> dict:
-    """Wall ms (host clock around a synchronised call, median of 3, each
-    engine measured twice in turns) of a 32-slice rollout and of one gradient
+    """Wall ms (wall_turns) of a 32-slice rollout and of one gradient
     evaluation with respect to V, per grid size, batch of waves and engine:
-    the rows that make_slice_step's ``auto`` kinds are chosen from."""
+    the rows that make_slice_step's ``auto`` kinds are chosen from.  The
+    per-slice engines are timed in turns first, every row; the matrix
+    engines then in a pass of their own, so they run in no turn that times
+    the others."""
     from fdes_tpu_torch.constants import interaction_sigma, wavelength_A
     from fdes_tpu_torch.grids import Grid, fresnel_propagator
-    from fdes_tpu_torch.propagate import make_slice_step, multislice
 
     rng = np.random.default_rng(2)
     sigma, lam, nslices = interaction_sigma(300e3), wavelength_A(300e3), 32
-    rows = []
+    cases = []
     for n in (128, 256, 512, 1024):
         prop = torch.as_tensor(
             fresnel_propagator(Grid(ny=n, nx=n, py=0.1, px=0.1), lam, 2.0).astype(np.complex64),
@@ -5810,32 +6152,17 @@ def phase_engines(gpu: str) -> dict:
                                                dtype=torch.float32))
             w = torch.linspace(0.5, 1.5, psi0.numel(), device="cuda").reshape(shape)
             for grad in (False, True):
-                engines = ("fscan", "fused", "pallas", "xla")
-                times = {e: [] for e in engines}
-                for order in (engines, engines[::-1]):
-                    for e in order:
-                        step = make_slice_step(e, shape=(n, n), grad=grad, batch=batch)
-
-                        def run():
-                            if not grad:
-                                with torch.no_grad():
-                                    return multislice(psi0, v, prop, sigma, slice_step=step)
-                            vv = v.detach().requires_grad_(True)
-                            out = multislice(psi0, vv, prop, sigma, slice_step=step)
-                            (out.abs() ** 2 * w).sum().backward()
-                            return vv.grad
-
-                        run()
-                        torch.cuda.synchronize()
-                        walls = []
-                        for _ in range(3):
-                            t0 = time.perf_counter()
-                            run()
-                            torch.cuda.synchronize()
-                            walls.append((time.perf_counter() - t0) * 1e3)
-                        times[e].append(statistics.median(walls))
-                rows.append({"n": n, "batch": batch, "grad": grad, "slices": nslices,
-                             "wall_ms": times, "fastest": min(times, key=lambda e: min(times[e]))})
+                cases.append((n, batch, grad, rollout_runs(n, batch, grad, psi0, v, prop, w,
+                                                           sigma)))
+    rows = [{"n": n, "batch": batch, "grad": grad, "slices": nslices,
+             "wall_ms": wall_turns(("fscan", "fused", "pallas", "xla"), run_of)}
+            for n, batch, grad, run_of in cases]
+    for row, (n, batch, _, run_of) in zip(rows, cases):
+        if n < 1024 or batch == 1:
+            row["wall_ms"].update(wall_turns(MATMUL, run_of))
+    for row in rows:
+        row["fastest"] = min(row["wall_ms"], key=lambda e: min(row["wall_ms"][e]))
+    del cases
     rows += panel_engine_rows(sigma, lam, nslices)
     return {"phase": "engines", "rows": rows, "store_vs_segments": store_vs_segments(),
             "gpu": gpu}
@@ -5847,7 +6174,6 @@ def panel_engine_rows(sigma: float, lam: float, nslices: int) -> list[dict]:
     4096^2 (one wave), measured as the rows of phase_engines: the rows
     ``auto`` reads on those grids."""
     from fdes_tpu_torch.grids import Grid, fresnel_propagator
-    from fdes_tpu_torch.propagate import make_slice_step, multislice
 
     gen = torch.Generator(device="cuda").manual_seed(2)  # inputs made on the card
     rows = []
@@ -5861,30 +6187,8 @@ def panel_engine_rows(sigma: float, lam: float, nslices: int) -> list[dict]:
                            torch.rand(shape, generator=gen, device="cuda"))
         w = torch.linspace(0.5, 1.5, psi0.numel(), device="cuda").reshape(shape)
         for grad in (False, True):
-            engines = ("panel", "pallas", "xla")
-            times = {e: [] for e in engines}
-            for order in (engines, engines[::-1]):
-                for e in order:
-                    step = make_slice_step(e, shape=(n, n), grad=grad, batch=batch)
-
-                    def run():
-                        if not grad:
-                            with torch.no_grad():
-                                return multislice(psi0, v, prop, sigma, slice_step=step)
-                        vv = v.detach().requires_grad_(True)
-                        out = multislice(psi0, vv, prop, sigma, slice_step=step)
-                        (out.abs() ** 2 * w).sum().backward()
-                        return vv.grad
-
-                    run()
-                    torch.cuda.synchronize()
-                    walls = []
-                    for _ in range(3):
-                        t0 = time.perf_counter()
-                        run()
-                        torch.cuda.synchronize()
-                        walls.append((time.perf_counter() - t0) * 1e3)
-                    times[e].append(statistics.median(walls))
+            times = wall_turns(("panel", "pallas", "xla"),
+                               rollout_runs(n, batch, grad, psi0, v, prop, w, sigma))
             rows.append({"n": n, "batch": batch, "grad": grad, "slices": nslices,
                          "wall_ms": times, "fastest": min(times, key=lambda e: min(times[e]))})
         del v, psi0, prop, w
@@ -6141,6 +6445,8 @@ def main(argv=None) -> int:
             emit(line)
         if "phonon" in phases:
             emit(timed(phase_phonon, tmp, gpu))
+        if "matmul_engines" in phases:
+            emit(timed(phase_matmul_engines, tmp, gpu))
         if "mesh" in phases:
             line, by_case = timed(phase_mesh, tmp, gpu)
             path_launches.update(

@@ -3,11 +3,11 @@
 Usage:
     python -m fdes_tpu_torch.cli <config.toml> [--mode forward|hrtem|stem|stem4d|invert]
                                  [--set section.key=value ...] [--resume]
-                                 [--device cuda|cpu]
+                                 [--device cuda|cpu] [--debug-nans]
 
-Counterpart of ``fdes_tpu.cli`` for the modes ported so far: parse the
-config, build the simulation state on the device, run the mode, and write
-.npy outputs plus ``timing.json`` under ``output_dir``.  ``forward`` and
+Counterpart of ``fdes_tpu.cli``: parse the config, build the simulation
+state on the device, run the mode, and write .npy outputs plus
+``timing.json`` under ``output_dir``.  ``forward`` and
 ``hrtem`` simulate; ``stem`` rasters a focused probe over the scan and writes
 the detector signals (``stem.npy``, and ``stem_com.npy`` with
 ``stem.compute_com``), ``stem4d`` the full diffraction pattern per probe
@@ -25,6 +25,11 @@ forward) builds the potential slice by slice inside the rollout and writes
 of hrtem, stem and stem4d over that many frozen-phonon configurations, one
 S-matrix a configuration under PRISM.  Settings the port does not run exit
 with code 2 and say so.  Runs on ``cuda`` unless ``--device cpu`` is given.
+``--debug-nans`` runs with autograd's anomaly mode and its NaN check, checks
+every result before its file is written and reads each iteration's loss
+and gradient norm (reconstruct.py): the first non-finite value raises FloatingPointError
+naming its stage, at those stage boundaries (JAX's ``jax_debug_nans`` stops
+at the first primitive).
 
 A ``[mesh]`` runs the modes sharded over ranks, one process each (started by
 ``torchrun``, with ``mesh.distributed = true``): on a ``'data'`` axis (or any
@@ -72,8 +77,23 @@ def main(argv: list[str] | None = None) -> int:
     ap.add_argument(
         "--device", default="cuda", help="torch device (default cuda; cpu to run on the CPU)"
     )
+    ap.add_argument(
+        "--debug-nans",
+        action="store_true",
+        help="sanitizer tier (SURVEY.md §5): autograd's anomaly mode with its NaN check for "
+        "the run, every result checked before it is written and each iteration's loss and "
+        "gradient norm read: the first non-finite value raises FloatingPointError naming its "
+        "stage",
+    )
     args = ap.parse_args(argv)
+    if not args.debug_nans:
+        return _run(args)
+    # for the run, as fdes_tpu.cli sets jax_debug_nans through jax.config
+    with torch.autograd.set_detect_anomaly(True, check_nan=True):
+        return _run(args)
 
+
+def _run(args: argparse.Namespace) -> int:
     # The accuracy tier must not run on TF32 (hopper-kernels guide §6).
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -313,6 +333,8 @@ def main(argv: list[str] | None = None) -> int:
     if not rank0:
         return 0
     for name, arr in outputs.items():
+        if args.debug_nans:
+            _check_finite(arr, f"{cfg.mode}: {name}")
         io.write_npy(out(name), arr)
     timing = {
         "device": str(device),
@@ -352,6 +374,14 @@ def main(argv: list[str] | None = None) -> int:
         f"-> {cfg.output_dir}/"
     )
     return 0
+
+
+def _check_finite(arr, stage: str) -> None:
+    """--debug-nans: a result with a non-finite value raises
+    FloatingPointError naming its stage, before its file is written."""
+    t = torch.as_tensor(arr)
+    if not bool(torch.isfinite(torch.view_as_real(t) if t.is_complex() else t).all()):
+        raise FloatingPointError(f"{stage}: non-finite values")
 
 
 def _grid_refusal(cfg) -> str | None:

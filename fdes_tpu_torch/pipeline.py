@@ -32,6 +32,7 @@ from .grids import Grid, fresnel_propagator
 from .optics import Aberrations, ctf_quadrature_series, ctf_series
 from .potential import build_potential, pad_atoms_per_slice, species_factors_full
 from .probe import plane_wave, probe_stencil
+from .propagate import MATMUL_ENGINES
 from .scattering import ScatteringTable, load_kirkland_table
 from .specimen import Specimen, SlicedAtoms, load_xyz, make_si110_supercell, slice_specimen
 
@@ -110,10 +111,11 @@ def make_table(cfg: Config) -> ScatteringTable:
     )
 
 
-#: the engines that transform whole planes in one kernel or one C call: they
-#: cannot run the distributed transform of a 'grid' mesh axis
+#: the engines that transform whole planes (in one kernel, one C call or
+#: matrix products): they cannot run the distributed transform of a 'grid'
+#: mesh axis
 WHOLE_PLANE_ENGINES = ("fused", "fused_fast", "fscan", "fscan_fast", "fscan_draft", "panel",
-                       "panel_fast")
+                       "panel_fast", *MATMUL_ENGINES)
 
 
 def unported_settings(cfg: Config) -> list[str]:

@@ -131,16 +131,9 @@ def multislice_streamed(
     return psi
 
 
-#: Engines of the JAX package that are not ported yet, with the ROADMAP.md
-#: item that brings each.
-_NOT_PORTED = {
-    "mxu": "Queue 1 item 10 (dft.py matmul DFT engines)",
-    "mxu_fast": "Queue 1 item 10 (dft.py matmul DFT engines)",
-    "mxu4": "Queue 1 item 10 (dft.py four-step DFT engines)",
-    "mxu4_fast": "Queue 1 item 10 (dft.py four-step DFT engines)",
-    "radix": "Queue 1 item 10 (radix.py mixed-radix FFT engines)",
-    "radix_fast": "Queue 1 item 10 (radix.py mixed-radix FFT engines)",
-}
+#: the engines of matrix-product DFTs (dft.py, radix.py); each ``_fast`` kind
+#: runs the code of its accurate kind
+MATMUL_ENGINES = ("mxu", "mxu_fast", "mxu4", "mxu4_fast", "radix", "radix_fast")
 
 
 def _resolve_auto(shape: tuple[int, int], dtype: torch.dtype = torch.complex64) -> str:
@@ -175,6 +168,15 @@ def _resolve_auto(shape: tuple[int, int], dtype: torch.dtype = torch.complex64) 
       ``xla``);
     * any other grid, and complex128 (the fused and panel kernels are
       complex64): ``pallas``, the only kernel engine that takes them.
+
+    The matrix engines (``mxu``, ``mxu4``, ``radix``) come first in no row
+    of 128^2 to 512^2 at one wave and 16 or of 1024^2 at one wave, forward
+    or gradient: the host issues their many small operations, and ``mxu``'s
+    dense products grow as N^3 (a 32-slice rollout at 128^2, one wave:
+    7.4-11.3 ms on ``mxu`` against 0.73-0.91 on ``fscan``; one gradient at
+    512^2 x 16 waves: 94.3-95.0 ms on ``mxu``, 78.3-112.6 on ``mxu4``,
+    110.8-177.8 on ``radix`` against 8.0-8.7 on ``fscan``; two runs of the
+    phase), so ``auto`` takes none of them.
 
     Neither the number of waves in a rollout nor whether it is
     differentiated changed the order in any measured row, so neither enters
@@ -224,11 +226,20 @@ def make_slice_step(
                gradient (panel_scan.panel_diff_apply: 2S + 1 passes more for
                the backward, over the stored s_j); with ``grad=False`` it is
                forward only and raises on an input that requires a gradient;
-    'fused_fast', 'fscan_fast', 'fscan_draft', 'panel_fast' — the JAX
-               package's faster, less exact tiers of those three.  The port's
-               kernels compute in float32 throughout, so these kinds run the
-               same kernels as 'fused', 'fscan' and 'panel': more exact than
-               the tier asks for;
+    'mxu'    — both transforms as dense DFT matrix products on cuBLAS
+               (dft.py), needs ``shape``;
+    'mxu4'   — four-step factorised DFT products (dft.py), needs ``shape``
+               with no prime axis;
+    'radix'  — radix-2/4 butterflies on a 128-point DFT product (radix.py),
+               needs ``shape`` with axes of 128 * 2^m.  The three matrix
+               engines transform the whole plane, keep every product in full
+               float32 (precision.full_fp32, in the backward too) and
+               differentiate psi0, V and P;
+    'fused_fast', 'fscan_fast', 'fscan_draft', 'panel_fast', 'mxu_fast',
+    'mxu4_fast', 'radix_fast' — the JAX package's faster, less exact tiers
+               of those engines.  The port computes in float32 throughout,
+               so these kinds run the same code as their accurate kinds: more
+               exact than the tier asks for;
     'auto', 'auto_fast' — the engine measured fastest for ``shape`` and
                ``grad`` on the H100 (_resolve_auto: ``fscan`` up to 1024^2,
                ``panel`` at 2048^2 and 4096^2, else ``pallas``).  ``batch``, the number
@@ -236,10 +247,10 @@ def make_slice_step(
                taken for the callers of the JAX package's signature; no
                measured row depends on it yet.
 
-    ``shape`` is (ny, nx), needed by the fused, fscan, panel and auto kinds;
-    ``dtype`` the complex working type (default complex64).  Every other
-    kind of the JAX package raises NotImplementedError naming the ROADMAP.md
-    item that ports it.
+    ``shape`` is (ny, nx), needed by every kind but 'xla' and 'pallas';
+    ``dtype`` the complex working type (default complex64) of the kernel
+    engines; the matrix engines take their constants in the dtype and on
+    the device of the wave they are handed.
     """
     if kind in ("auto", "auto_fast"):
         if shape is None:
@@ -267,11 +278,17 @@ def make_slice_step(
         from .kernels.panel_scan import make_panel_scan
 
         return make_panel_scan(*shape, dtype=dtype or torch.complex64, kind=kind, grad=grad)
-    if kind in _NOT_PORTED:
-        raise NotImplementedError(
-            f"slice-step engine {kind!r} is not ported to fdes_tpu_torch yet "
-            f"(ROADMAP.md {_NOT_PORTED[kind]})"
-        )
+    if kind in MATMUL_ENGINES:
+        if shape is None:
+            raise ValueError(f"kind={kind!r} needs shape=(ny, nx)")
+        from .dft import make_mxu4_slice_step, make_mxu_slice_step
+        from .radix import make_radix_slice_step
+
+        make = {"mxu": make_mxu_slice_step, "mxu4": make_mxu4_slice_step,
+                "radix": make_radix_slice_step}[kind.removesuffix("_fast")]
+        step = make(*shape)
+        step.kind = kind
+        return step
     raise ValueError(f"unknown slice-step kind {kind!r}")
 
 

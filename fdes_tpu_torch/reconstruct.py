@@ -339,6 +339,21 @@ class _RowShare:
         return state if self.group is None else self._map(state, self.take)
 
 
+def _backward_checked(loss: torch.Tensor, it: int, grad_norm: Callable[[], torch.Tensor]) -> None:
+    """loss.backward() with the loss and the gradient's norm (``grad_norm()``,
+    the same on every rank) read on the host: a non-finite one raises
+    FloatingPointError naming iteration ``it``.  Anomaly mode's own NaN check
+    is off for this backward, since its error is a RuntimeError told apart
+    only by its text; the gradient is read instead."""
+    if not torch.isfinite(loss):
+        raise FloatingPointError(f"invert: loss {loss.item()} at iteration {it}")
+    with torch.autograd.set_detect_anomaly(True, check_nan=False):
+        loss.backward()
+    gn = grad_norm()
+    if not torch.isfinite(gn):
+        raise FloatingPointError(f"invert: gradient norm {gn.item()} at iteration {it}")
+
+
 def reconstruct(
     loss_fn: Callable[..., torch.Tensor],
     v0: torch.Tensor,
@@ -379,6 +394,13 @@ def reconstruct(
     receives the CURRENT v — the latest iterate, not the iterate of ``it``.
     That is the price of fetching the metrics in chunks; a callback that
     needs v at each iteration sets metrics_every=1 and pays a sync each.
+
+    Under autograd's anomaly mode with its NaN check
+    (``torch.autograd.set_detect_anomaly(True, check_nan=True)``, which the
+    CLI's ``--debug-nans`` turns on for its run, as the JAX package's sets
+    ``jax_debug_nans``), each iteration's loss and gradient norm are read on
+    the host, and a non-finite one raises FloatingPointError naming the
+    iteration.  Without it nothing is read.
     """
     v = v0.detach().clone().requires_grad_(True)
     opt = (optimizer or make_optimizer("adam", 1.0))([v])
@@ -428,13 +450,18 @@ def reconstruct(
                 callback(it, lv, v.detach())
         chunk_t0 = time.perf_counter()
 
-    def step() -> tuple[torch.Tensor, torch.Tensor]:
+    check_nans = torch.is_anomaly_enabled() and torch.is_anomaly_check_nan_enabled()
+
+    def step(it: int) -> tuple[torch.Tensor, torch.Tensor]:
         first: list[tuple[torch.Tensor, torch.Tensor]] = []
 
         def closure():
             opt.zero_grad()
             loss = loss_fn(v, *loss_args)
-            loss.backward()
+            if check_nans:
+                _backward_checked(loss, it, lambda: rows.norm(v.grad.detach()))
+            else:
+                loss.backward()
             if not first:  # LBFGS evaluates again in its line search
                 first.append((loss.detach(), rows.norm(v.grad.detach())))
             return loss
@@ -447,7 +474,7 @@ def reconstruct(
 
     try:
         for it in range(start, iterations):
-            loss, gnorm = step()
+            loss, gnorm = step(it)
             pending.append((it, loss, gnorm))
             if len(pending) >= max(metrics_every, 1):
                 flush()

@@ -11,6 +11,7 @@ of every slice in a single ``index_add_`` — no per-slice padding.
 from __future__ import annotations
 
 import dataclasses
+import warnings
 
 import numpy as np
 
@@ -170,25 +171,40 @@ def load_xyz(
 ) -> Specimen:
     """.xyz reader (symbol x y z [B [occ]]) — SURVEY.md C3 I/O.
 
-    The Python parser only: the C++ reader of ``fdes_tpu.native`` is not
-    ported yet (ROADMAP.md Queue 1 item 1), so ``native=True`` raises.
+    native=True reads with the C++ parser (fdes_tpu_torch.native, strtod
+    speed for tomography-scale atom counts) and raises NativeUnavailable
+    where it cannot be built; False reads with Python; None tries the C++
+    parser and, where it cannot be built, warns once with the compiler's
+    message and reads with Python (the JAX package falls back without a
+    word).  Both parsers give the same arrays, and both raise ValueError on
+    a malformed file.
     """
-    if native:
-        raise NotImplementedError(
-            "load_xyz(native=True): the C++ specimen reader is not ported to "
-            "fdes_tpu_torch yet (ROADMAP.md Queue 1 item 1, native/)"
-        )
+    if native is not False:
+        from . import native as native_mod
+
+        try:
+            pos, numbers, bf, occ = native_mod.parse_xyz(path, default_b=bfactor)
+        except native_mod.NativeUnavailable as e:
+            if native:
+                raise
+            if native_mod.first_fallback():
+                warnings.warn(f"load_xyz reads with Python: {e}", stacklevel=2)
+        else:
+            return Specimen(pos, numbers, bf, occ, np.asarray(box, dtype=np.float64))
     from .scattering import Z_OF_SYMBOL
 
     with open(path) as fh:
         lines = fh.read().split("\n")
-    n = int(lines[0].strip())
-    rows = [ln.split() for ln in lines[2 : 2 + n]]
-    pos = np.asarray([[float(r[1]), float(r[2]), float(r[3])] for r in rows])
-    numbers = np.asarray(
-        [Z_OF_SYMBOL[r[0]] if not r[0].isdigit() else int(r[0]) for r in rows],
-        dtype=np.int32,
-    )
+    try:
+        n = int(lines[0].strip())
+        rows = [ln.split() for ln in lines[2 : 2 + n]]
+        pos = np.asarray([[float(r[1]), float(r[2]), float(r[3])] for r in rows])
+        numbers = np.asarray(
+            [Z_OF_SYMBOL[r[0]] if not r[0].isdigit() else int(r[0]) for r in rows],
+            dtype=np.int32,
+        )
+    except (IndexError, KeyError) as e:
+        raise ValueError(f"{path}: malformed atom line ({e!r})") from None
     bf = np.asarray([float(r[4]) if len(r) > 4 else bfactor for r in rows])
     occ = np.asarray([float(r[5]) if len(r) > 5 else 1.0 for r in rows])
     return Specimen(pos, numbers, bf, occ, np.asarray(box, dtype=np.float64))

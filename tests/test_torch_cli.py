@@ -284,6 +284,8 @@ GRID1 = ("--set", 'mesh.axis_names=["grid"]', "--set", "mesh.shape=[1]")
         # difference made on purpose: fdes_tpu ignores sim.engine there)
         (("--mode", "forward", "--set", "sim.engine=fscan", *GRID1),
          "cannot run the distributed transform"),
+        (("--mode", "forward", "--set", "sim.engine=mxu", *GRID1),
+         "cannot run the distributed transform"),
         (GRID1, "mesh axis 'grid' supports modes forward/invert only (got 'hrtem')"),
         (("--mode", "invert", "--set", "recon.modality=stem4d", *GRID1),
          "recon.modality='stem4d' does not support the 'grid' mesh axis"),
@@ -297,6 +299,96 @@ def test_unported_modes_and_settings_exit_2(tmp_path, capsys, extra, message):
     assert rc == 2
     assert message in capsys.readouterr().err
     assert not (tmp_path / "o").exists()
+
+
+CONFIG2 = os.path.join(REPO, "examples", "si110_hrtem.toml")
+SMALL2 = ("--set", "sim.nslices=8", "--set", "specimen.reps=[2,2,2]")
+
+
+@pytest.mark.parametrize("engine,n", [("mxu", 64), ("mxu4", 64), ("radix", 128)])
+def test_cli_config2_on_matmul_engines_equals_xla(tmp_path, engine, n):
+    """Config 2's file cut to n^2 and 8 slices: images on a matrix engine
+    within 1e-5 of engine xla's, timing.json naming the engine."""
+    size = ("--set", f"sim.ny={n}", "--set", f"sim.nx={n}", *SMALL2)
+    for e in (engine, "xla"):
+        assert tcli.main([CONFIG2, "--device", "cpu", "--set", f"output_dir={tmp_path / e}",
+                          "--set", f"sim.engine={e}", *size]) == 0
+    got, want = np.load(tmp_path / engine / "images.npy"), np.load(tmp_path / "xla" / "images.npy")
+    assert got.shape == want.shape == (8, n, n)
+    assert _rel(got, want) <= GATE
+    with open(tmp_path / engine / "timing.json") as fh:
+        assert json.load(fh)["engine_kind"] == engine
+
+
+@pytest.mark.parametrize(
+    "extra,stage",
+    [
+        (("--set", "optics.defoci_A=[NaN, 0.0]"), "hrtem: images.npy: non-finite values"),
+        (("--mode", "forward", "--set", "sim.tilt_x_rad=NaN"),
+         "forward: exit_wave.npy: non-finite values"),
+        (("--mode", "invert", "--set", "recon.iterations=3", "--set", "recon.optimizer=sgd",
+          "--set", "recon.lr=NaN"), "invert: loss nan at iteration 1"),
+    ],
+)
+def test_debug_nans_raises_naming_the_stage(tmp_path, extra, stage):
+    """--debug-nans: the first non-finite value raises FloatingPointError
+    naming its stage, before any result is written; autograd's anomaly mode
+    is the run's alone."""
+    cfg = _cfg(tmp_path / "c.toml")
+    args = [cfg, "--device", "cpu", "--set", f"output_dir={tmp_path}/o", "--set", "sim.ny=64",
+            "--set", "sim.nx=64", *extra]
+    with pytest.raises(FloatingPointError, match=stage.replace("[", "\\[")):
+        tcli.main([*args, "--debug-nans"])
+    assert not torch.is_anomaly_enabled()
+    assert not (tmp_path / "o" / "images.npy").exists()
+    assert not (tmp_path / "o" / "exit_wave.npy").exists()
+    assert not (tmp_path / "o" / "reconstructed.npy").exists()
+
+
+def test_debug_nans_names_the_iteration_of_a_nan_gradient(tmp_path, monkeypatch):
+    """--debug-nans on an inverse whose loss stays finite while its gradient
+    is NaN (the loss patched with sqrt at 0): FloatingPointError naming the
+    iteration, no reconstruction written."""
+    import fdes_tpu_torch.loss as tloss
+
+    make = tloss.make_loss
+
+    def nan_grad_loss(*a, **k):
+        loss = make(*a, **k)
+        return lambda v, *args: loss(v, *args) + (v * 0).sum().sqrt()
+
+    monkeypatch.setattr(tloss, "make_loss", nan_grad_loss)
+    cfg = _cfg(tmp_path / "c.toml")
+    with pytest.raises(FloatingPointError, match="invert: gradient norm nan at iteration 0"):
+        tcli.main([cfg, "--device", "cpu", "--set", f"output_dir={tmp_path}/o", "--mode",
+                   "invert", "--set", "sim.ny=32", "--set", "sim.nx=32", "--set",
+                   "recon.iterations=3", "--debug-nans"])
+    assert not torch.is_anomaly_enabled()
+    assert not (tmp_path / "o" / "reconstructed.npy").exists()
+
+
+def test_debug_nans_exits_non_zero_as_a_script(tmp_path):
+    cfg = _cfg(tmp_path / "c.toml")
+    r = subprocess.run(
+        [sys.executable, "-m", "fdes_tpu_torch.cli", cfg, "--device", "cpu", "--debug-nans",
+         "--set", f"output_dir={tmp_path}/o", "--set", "sim.ny=32", "--set", "sim.nx=32",
+         "--set", "optics.defoci_A=[NaN]"],
+        env=dict(os.environ, PYTHONPATH=REPO), capture_output=True, text=True, timeout=300)
+    assert r.returncode != 0
+    assert "FloatingPointError: hrtem: images.npy" in r.stderr
+
+
+@pytest.mark.parametrize("mode", ["hrtem", "invert"])
+def test_debug_nans_clean_run_writes_the_same_bits(tmp_path, mode):
+    cfg = _cfg(tmp_path / "c.toml")
+    extra = ("--mode", mode, "--set", "sim.ny=32", "--set", "sim.nx=32", "--set",
+             "recon.iterations=3")
+    for tag, flag in (("plain", ()), ("debug", ("--debug-nans",))):
+        assert tcli.main([cfg, "--device", "cpu", "--set", f"output_dir={tmp_path / tag}",
+                          *extra, *flag]) == 0
+    name = "images.npy" if mode == "hrtem" else "reconstructed.npy"
+    np.testing.assert_array_equal(np.load(tmp_path / "debug" / name),
+                                  np.load(tmp_path / "plain" / name))
 
 
 INVERT = ("--mode", "invert", "--set", "sim.ny=32", "--set", "sim.nx=32", "--set",

@@ -95,15 +95,33 @@ def test_specimen_and_slicing_equal(jitter):
             assert a == b
 
 
-def test_load_xyz_equal_and_native_unported(tmp_path):
+def test_load_xyz_equal_native_and_python(tmp_path):
     p = tmp_path / "a.xyz"
     p.write_text("3\ncomment\nSi 0.0 0.5 1.0\nO 1.0 1.5 2.0 0.3\n14 2.0 2.5 3.0 0.4 0.5\n")
-    got = tspec.load_xyz(str(p), (5.0, 5.0, 5.0), bfactor=0.2)
+    got = tspec.load_xyz(str(p), (5.0, 5.0, 5.0), bfactor=0.2, native=False)
     want = jspec.load_xyz(str(p), (5.0, 5.0, 5.0), bfactor=0.2, native=False)
+    native = tspec.load_xyz(str(p), (5.0, 5.0, 5.0), bfactor=0.2, native=True)
+    default = tspec.load_xyz(str(p), (5.0, 5.0, 5.0), bfactor=0.2)
     for f in ("positions", "numbers", "bfactors", "occupancies", "box"):
         np.testing.assert_array_equal(getattr(got, f), getattr(want, f))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tspec.load_xyz(str(p), (5.0, 5.0, 5.0), native=True)
+        np.testing.assert_array_equal(getattr(native, f), getattr(got, f))
+        np.testing.assert_array_equal(getattr(default, f), getattr(got, f))
+
+
+#: names of fdes_tpu.__all__ that exist only for JAX (none is exported
+#: today: grids.host_cast and phonon.jax_tree_add/jax_tree_scale are module
+#: helpers)
+JAX_ONLY = {"host_cast", "jax_tree_add", "jax_tree_scale"}
+
+
+def test_package_exports_cover_fdes_tpu():
+    import fdes_tpu
+    import fdes_tpu_torch
+
+    assert not set(fdes_tpu.__all__) - JAX_ONLY - set(fdes_tpu_torch.__all__)
+    for name in fdes_tpu_torch.__all__:  # every name a class or function of the port
+        obj = getattr(fdes_tpu_torch, name)
+        assert callable(obj) and obj.__module__.startswith("fdes_tpu_torch."), name
 
 
 ABERRATIONS = dict(cs=1.2e7, c5=1e9, a1=30.0, a1_angle=0.3, b2=200.0, a2=150.0,

@@ -277,8 +277,10 @@ def test_make_slice_step_kinds():
     assert tprop.make_slice_step("pallas") is pallas_slice_step
     for kind in ("auto", "auto_fast"):  # a grid the fused kernels do not take
         assert tprop.make_slice_step(kind, shape=(96, 96)) is pallas_slice_step
-    for kind in ("mxu", "mxu_fast", "mxu4", "radix", "radix_fast"):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    for kind in ("mxu", "mxu_fast", "mxu4", "mxu4_fast", "radix", "radix_fast"):
+        step = tprop.make_slice_step(kind, shape=(128, 128))
+        assert callable(step) and step.kind == kind and not hasattr(step, "whole_scan")
+        with pytest.raises(ValueError, match="needs shape"):
             tprop.make_slice_step(kind)
     for kind in ("panel", "panel_fast"):
         step = tprop.make_slice_step(kind, shape=(256, 256))

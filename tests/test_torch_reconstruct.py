@@ -2,6 +2,7 @@
 (tests/test_inverse.py) on fdes_tpu_torch, checkpoint/resume, positivity,
 the optimizers against optax, and reconstruct against fdes_tpu's."""
 
+import importlib
 import json
 
 import jax
@@ -16,7 +17,6 @@ from fdes_tpu import forward as jfwd  # noqa: E402
 from fdes_tpu import loss as jloss  # noqa: E402
 from fdes_tpu.reconstruct import make_optimizer as jax_make_optimizer  # noqa: E402
 from fdes_tpu.reconstruct import reconstruct as jax_reconstruct  # noqa: E402
-from fdes_tpu_torch import reconstruct as trec  # noqa: E402
 from fdes_tpu_torch.constants import interaction_sigma, wavelength_A  # noqa: E402
 from fdes_tpu_torch.forward import hrtem_defocus_series, hrtem_tilt_series  # noqa: E402
 from fdes_tpu_torch.grids import Grid, fresnel_propagator  # noqa: E402
@@ -24,6 +24,9 @@ from fdes_tpu_torch.loss import make_loss  # noqa: E402
 from fdes_tpu_torch.optics import ctf_series  # noqa: E402
 from fdes_tpu_torch.probe import plane_wave  # noqa: E402
 from fdes_tpu_torch.propagate import multislice  # noqa: E402
+
+# the module: the package exports its function reconstruct under the same name
+trec = importlib.import_module("fdes_tpu_torch.reconstruct")
 
 KV = 300e3
 SIGMA = interaction_sigma(KV)
@@ -236,6 +239,24 @@ def test_positivity_projection_keeps_v_nonnegative(rng):
     assert res.losses[-1] < res.losses[0] * 1e-3
     vc = torch.tensor([[-1.0 + 1.0j, 2.0 - 3.0j]], dtype=torch.complex64)
     np.testing.assert_allclose(trec.positive_projection(vc).numpy(), [[0.0 + 1.0j, 2.0 + 0.0j]])
+
+
+@pytest.mark.parametrize("optimizer", ["sgd", "lbfgs"])
+def test_nan_gradient_under_anomaly_mode_names_the_iteration(optimizer):
+    """Under anomaly mode with its NaN check (the CLI's --debug-nans), a
+    finite loss whose gradient is NaN (sqrt at 0) raises FloatingPointError
+    naming the iteration; without the mode nothing is read and the run
+    ends."""
+    def loss_fn(v):
+        return (v ** 2).sum() + (v * 0).sum().sqrt()
+
+    v0 = torch.ones((2, 4, 4), dtype=torch.float64)
+    opt = trec.make_optimizer(optimizer, 0.1)
+    with torch.autograd.set_detect_anomaly(True, check_nan=True):
+        with pytest.raises(FloatingPointError, match="invert: gradient norm nan at iteration 0"):
+            trec.reconstruct(loss_fn, v0, iterations=3, optimizer=opt)
+    res = trec.reconstruct(loss_fn, v0, iterations=3, optimizer=trec.make_optimizer("sgd", 0.1))
+    assert len(res.losses) == 3 and np.isfinite(res.losses[0])
 
 
 @pytest.mark.parametrize("name", ["sgd", "momentum", "adam", "adamw"])
