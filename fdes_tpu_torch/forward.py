@@ -5,7 +5,8 @@ computation: the CTF stack of a defocus series, the (incident wave,
 propagator) pairs of a tilt series and the probes of a STEM raster are
 leading batch dimensions.  A raster runs in chunks of ``probe_chunk``
 probes, one batched rollout per chunk (with a whole-loop engine: one kernel
-launch per chunk).
+launch per chunk).  Each public forward is a span of ``profiling`` (its name
+``forward.<function>``), and each chunk of a raster a ``forward.chunk``.
 """
 
 from __future__ import annotations
@@ -17,6 +18,7 @@ import torch
 from .detector import cbed_pattern, com_signal, detector_signal
 from .imaging import hrtem_image, hrtem_incoherent
 from .probe import probe_from_stencil
+from .profiling import span
 from .propagate import multislice
 
 
@@ -40,13 +42,14 @@ def hrtem_defocus_series(
     (optics.ctf_quadrature_series) and each image is the explicit
     partial-coherence average over the K nodes (imaging.hrtem_incoherent).
     """
-    psi = multislice(
-        psi0, v_stack, propagator, sigma, remat_chunk=remat_chunk,
-        slice_step=slice_step,
-    )
-    if weights is not None:
-        return hrtem_incoherent(psi, ctf_stack, weights)
-    return hrtem_image(psi, ctf_stack)
+    with span("forward.hrtem_defocus_series"):
+        psi = multislice(
+            psi0, v_stack, propagator, sigma, remat_chunk=remat_chunk,
+            slice_step=slice_step,
+        )
+        if weights is not None:
+            return hrtem_incoherent(psi, ctf_stack, weights)
+        return hrtem_image(psi, ctf_stack)
 
 
 def hrtem_tilt_series(
@@ -79,23 +82,24 @@ def hrtem_tilt_series(
             return hrtem_incoherent(psi, ctf, weights)
         return hrtem_image(psi, ctf)
 
-    if sequential:
-        return torch.stack(
-            [
-                image(
-                    multislice(
-                        p0, v_stack, pr, sigma, remat_chunk=remat_chunk,
-                        slice_step=slice_step,
+    with span("forward.hrtem_tilt_series"):
+        if sequential:
+            return torch.stack(
+                [
+                    image(
+                        multislice(
+                            p0, v_stack, pr, sigma, remat_chunk=remat_chunk,
+                            slice_step=slice_step,
+                        )
                     )
-                )
-                for p0, pr in zip(psi0_stack, propagator_stack)
-            ]
+                    for p0, pr in zip(psi0_stack, propagator_stack)
+                ]
+            )
+        psi = multislice(
+            psi0_stack, v_stack, propagator_stack, sigma, remat_chunk=remat_chunk,
+            slice_step=slice_step,
         )
-    psi = multislice(
-        psi0_stack, v_stack, propagator_stack, sigma, remat_chunk=remat_chunk,
-        slice_step=slice_step,
-    )
-    return image(psi)
+        return image(psi)
 
 
 def _probe_rollouts(
@@ -120,13 +124,17 @@ def _probe_rollouts(
         raise ValueError(f"probe_chunk {probe_chunk} must divide npos {npos}")
     out = []
     for j in range(0, npos, max(probe_chunk, 1)):
-        psi0 = probe_from_stencil(
-            stencil, qy, qx, positions_yx[j : j + probe_chunk], dtype=stencil.dtype
-        )
-        psi = multislice(
-            psi0, v_stack, propagator, sigma, remat_chunk=remat_chunk, slice_step=slice_step,
-        )
-        out.append(readout(psi))
+        with span("forward.chunk"):
+            with span("forward.probe"):
+                psi0 = probe_from_stencil(
+                    stencil, qy, qx, positions_yx[j : j + probe_chunk], dtype=stencil.dtype
+                )
+            psi = multislice(
+                psi0, v_stack, propagator, sigma, remat_chunk=remat_chunk,
+                slice_step=slice_step,
+            )
+            with span("forward.readout"):
+                out.append(readout(psi))
     return torch.cat(out)
 
 
@@ -152,11 +160,12 @@ def stem_raster(
     chunked"); npos must be a multiple of probe_chunk (pad positions and
     drop, or choose a divisor).
     """
-    sig = _probe_rollouts(
-        lambda psi: detector_signal(psi, detector_masks), v_stack, stencil, qy, qx,
-        positions_yx, propagator, sigma, probe_chunk, remat_chunk, slice_step,
-    )
-    return sig.T  # (ndet, npos)
+    with span("forward.stem_raster"):
+        sig = _probe_rollouts(
+            lambda psi: detector_signal(psi, detector_masks), v_stack, stencil, qy, qx,
+            positions_yx, propagator, sigma, probe_chunk, remat_chunk, slice_step,
+        )
+        return sig.T  # (ndet, npos)
 
 
 def stem_raster_4d(
@@ -178,10 +187,11 @@ def stem_raster_4d(
     the same rollout.  Memory is npos*ny*nx floats — chunk the probe axis
     for large rasters.
     """
-    return _probe_rollouts(
-        cbed_pattern, v_stack, stencil, qy, qx, positions_yx, propagator, sigma,
-        probe_chunk, remat_chunk, slice_step,
-    )
+    with span("forward.stem_raster_4d"):
+        return _probe_rollouts(
+            cbed_pattern, v_stack, stencil, qy, qx, positions_yx, propagator, sigma,
+            probe_chunk, remat_chunk, slice_step,
+        )
 
 
 def stem_com_raster(
@@ -202,7 +212,8 @@ def stem_com_raster(
     Same rollout batch as stem_raster with detector.com_signal as the
     readout — the differentiable forward model for first-moment/DPC STEM.
     """
-    return _probe_rollouts(
-        lambda psi: com_signal(psi, qy, qx), v_stack, stencil, qy, qx, positions_yx,
-        propagator, sigma, probe_chunk, remat_chunk, slice_step,
-    )
+    with span("forward.stem_com_raster"):
+        return _probe_rollouts(
+            lambda psi: com_signal(psi, qy, qx), v_stack, stencil, qy, qx, positions_yx,
+            propagator, sigma, probe_chunk, remat_chunk, slice_step,
+        )

@@ -12,6 +12,7 @@ import numpy as np
 import torch
 
 from .precision import full_fp32
+from .profiling import span
 
 
 def hrtem_image(psi_exit: torch.Tensor, ctf: torch.Tensor) -> torch.Tensor:
@@ -20,8 +21,9 @@ def hrtem_image(psi_exit: torch.Tensor, ctf: torch.Tensor) -> torch.Tensor:
     Leading dimensions of either operand broadcast: a (D, ny, nx) CTF stack
     gives the (D, ny, nx) series from one FFT of the exit wave.
     """
-    psi_img = torch.fft.ifft2(torch.fft.fft2(psi_exit) * ctf.to(psi_exit.dtype))
-    return psi_img.abs() ** 2
+    with span("imaging.hrtem_image"):
+        psi_img = torch.fft.ifft2(torch.fft.fft2(psi_exit) * ctf.to(psi_exit.dtype))
+        return psi_img.abs() ** 2
 
 
 def hrtem_series(psi_exit: torch.Tensor, ctf_stack: torch.Tensor) -> torch.Tensor:
@@ -40,10 +42,11 @@ def hrtem_incoherent(
     quadrature series gives (D, ny, nx), a (T, ny, nx) batch of exit waves
     with one (K, ny, nx) pack gives (T, ny, nx).
     """
-    spec = torch.fft.fft2(psi_exit).unsqueeze(-3)
-    imgs = torch.fft.ifft2(spec * ctf_quad.to(spec.dtype)).abs() ** 2
-    with full_fp32():
-        return torch.einsum("k,...kyx->...yx", weights.to(imgs.dtype), imgs)
+    with span("imaging.hrtem_incoherent"):
+        spec = torch.fft.fft2(psi_exit).unsqueeze(-3)
+        imgs = torch.fft.ifft2(spec * ctf_quad.to(spec.dtype)).abs() ** 2
+        with full_fp32():
+            return torch.einsum("k,...kyx->...yx", weights.to(imgs.dtype), imgs)
 
 
 def apply_mtf(image: torch.Tensor, mtf: torch.Tensor) -> torch.Tensor:

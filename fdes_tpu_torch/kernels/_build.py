@@ -24,6 +24,8 @@ import os
 import subprocess
 from pathlib import Path
 
+from ..profiling import span
+
 _PKG = Path(__file__).resolve().parent.parent
 SRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
@@ -85,21 +87,23 @@ def sources() -> list[str]:
 
 def build_all() -> list[str]:
     """Compile every source in parallel; returns the library paths."""
-    jobs = {name: _start(name) for name in sources()}
-    for name, job in jobs.items():
-        _finish(name, job)
-    return [str(_target(name)) for name in jobs]
+    with span("setup.build_all"):
+        jobs = {name: _start(name) for name in sources()}
+        for name, job in jobs.items():
+            _finish(name, job)
+        return [str(_target(name)) for name in jobs]
 
 
 def load(name: str) -> ctypes.CDLL:
     """The loaded library of ``csrc/<name>.cu``, built on first use."""
     lib = _libs.get(name)
     if lib is None:
-        _finish(name, _start(name))
-        lib = ctypes.CDLL(str(_target(name)))
-        lib.fdes_error_string.argtypes = [ctypes.c_int]
-        lib.fdes_error_string.restype = ctypes.c_char_p
-        _libs[name] = lib
+        with span("setup.load"):
+            _finish(name, _start(name))
+            lib = ctypes.CDLL(str(_target(name)))
+            lib.fdes_error_string.argtypes = [ctypes.c_int]
+            lib.fdes_error_string.restype = ctypes.c_char_p
+            _libs[name] = lib
     return lib
 
 

@@ -69,7 +69,8 @@ import ctypes
 import torch
 from torch.autograd.function import once_differentiable
 
-from . import _build
+from ..profiling import span
+from . import _build, count_launches
 from . import fused_step as fs
 from .fused_scan import _batching, fused_scan
 from .slice_step import _check_dense, _dense, transmit_ref
@@ -588,8 +589,7 @@ def wide_scan_bwd_ck(
 
 WRAPPERS = (fused_scan_store, fused_scan_bwd_store, fused_scan_ck, fused_scan_bwd_ck,
             wide_scan_store, wide_scan_bwd_store, wide_scan_ck, wide_scan_bwd_ck)
-for _w in WRAPPERS:
-    _w.launches = 0
+count_launches(*WRAPPERS)
 
 
 # ---- the differentiable scan -----------------------------------------------
@@ -601,11 +601,14 @@ class _ScanDiff(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, psi_b, v_stack, propagator, sigma, seg):
-        prepared = fs.prepare_propagator(propagator) if psi_b.is_cuda else None
-        if seg == 0:
-            out, keep = fused_scan_store(psi_b, v_stack, propagator, sigma, prepared=prepared)
-        else:
-            out, keep = fused_scan_ck(psi_b, v_stack, propagator, sigma, seg, prepared=prepared)
+        with span("adjoint_scan.forward"):
+            prepared = fs.prepare_propagator(propagator) if psi_b.is_cuda else None
+            if seg == 0:
+                out, keep = fused_scan_store(psi_b, v_stack, propagator, sigma,
+                                             prepared=prepared)
+            else:
+                out, keep = fused_scan_ck(psi_b, v_stack, propagator, sigma, seg,
+                                          prepared=prepared)
         ctx.sigma, ctx.seg = sigma, seg
         ctx.save_for_backward(keep, v_stack, propagator, prepared)
         return out
@@ -614,13 +617,14 @@ class _ScanDiff(torch.autograd.Function):
     @once_differentiable
     def backward(ctx, g):
         keep, v_stack, propagator, prepared = ctx.saved_tensors
-        g = _dense(g)  # autograd may hand out a lazy conj view
-        if ctx.seg == 0:
-            dv, dpsi = fused_scan_bwd_store(keep, v_stack, propagator, g, ctx.sigma,
-                                            prepared=prepared)
-        else:
-            dv, dpsi = fused_scan_bwd_ck(keep, v_stack, propagator, g, ctx.sigma, ctx.seg,
-                                         prepared=prepared)
+        with span("adjoint_scan.backward"):  # on autograd's thread for CUDA tensors
+            g = _dense(g)  # autograd may hand out a lazy conj view
+            if ctx.seg == 0:
+                dv, dpsi = fused_scan_bwd_store(keep, v_stack, propagator, g, ctx.sigma,
+                                                prepared=prepared)
+            else:
+                dv, dpsi = fused_scan_bwd_ck(keep, v_stack, propagator, g, ctx.sigma, ctx.seg,
+                                             prepared=prepared)
         need_psi, need_v = ctx.needs_input_grad[:2]
         return (dpsi if need_psi else None, dv.to(v_stack.dtype) if need_v else None,
                 None, None, None)

@@ -51,6 +51,8 @@ import functools
 import numpy as np
 import torch
 
+from ..profiling import span
+from . import count_launches
 from . import fused_step as fs
 from .slice_step import _check_dense, pallas_slice_step, transmit_ref
 
@@ -219,11 +221,13 @@ def fused_scan(
     nslices = v_stack.shape[-3]
     route = route or scan_route(n, b, nslices)
     batched_out = psi0.ndim == 3 or v_batched or p_batched
-    psi = psi0 if psi0.ndim == 3 else psi0.expand(b, n, n)
-    if not psi.is_contiguous() and psi0.ndim == 2:
-        psi = psi.contiguous()  # a single wave broadcast over per-wave V or P
-    v32 = v_stack.to(torch.float32)
-    pp = (prepare_cluster_propagator if route == "cluster" else fs.prepare_propagator)(propagator)
+    with span("propagate.prepare"):
+        psi = psi0 if psi0.ndim == 3 else psi0.expand(b, n, n)
+        if not psi.is_contiguous() and psi0.ndim == 2:
+            psi = psi.contiguous()  # a single wave broadcast over per-wave V or P
+        v32 = v_stack.to(torch.float32)
+        pp = (prepare_cluster_propagator if route == "cluster"
+              else fs.prepare_propagator)(propagator)
     for name, t in (("psi0", psi), ("v_stack", v32), ("propagator", pp)):
         if t.device != psi0.device:
             raise ValueError(f"fused_scan: {name} on {t.device}, psi0 on {psi0.device}")
@@ -258,8 +262,7 @@ def cluster_scan(
     return fused_scan(psi0, v_stack, propagator, sigma, route="cluster")
 
 
-fused_scan.launches = 0
-cluster_scan.launches = 0
+count_launches(fused_scan, cluster_scan)
 
 
 def scan_kernel_info(n: int, device: torch.device | str = "cuda") -> dict:

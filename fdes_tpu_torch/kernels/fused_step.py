@@ -60,7 +60,7 @@ from typing import Callable
 import numpy as np
 import torch
 
-from . import _build
+from . import _build, count_launches, reset_launches  # noqa: F401 - reset_launches re-exported
 from .slice_step import _check_dense, _dense, _sum_batch, pallas_slice_step, transmit_ref
 
 SIZES = (128, 256, 512, 1024)
@@ -362,15 +362,8 @@ def fused_step_bwd(
 
 
 WRAPPERS = (fused_step, fused_step_bwd)
-
-
-def reset_launches() -> None:
-    for w in WRAPPERS:
-        w.launches = 0
-    fused_step.launches_by_route = dict.fromkeys(ROUTES, 0)
-
-
-reset_launches()
+count_launches(fused_step, routes=ROUTES)
+count_launches(fused_step_bwd)
 
 
 # ---- the engine ------------------------------------------------------------

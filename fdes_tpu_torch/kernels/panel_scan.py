@@ -131,7 +131,7 @@ import torch
 from torch.autograd.function import once_differentiable
 from torch.utils.checkpoint import checkpoint
 
-from . import _build
+from . import _build, count_launches, reset_launches  # noqa: F401 - reset_launches re-exported
 from . import fused_step as fs
 from .fused_scan import WholeScanEngine, _batching
 from .slice_step import _check_dense, _dense, _transmit_abs_parts, pallas_slice_step, transmit_ref
@@ -1275,14 +1275,9 @@ ROUTED = (panel_colpass, panel_col_bwd, panel_row_bwd_loop, panel_row_bwd_last, 
 LOOPS = (panel_scan, panel_scan_store, panel_scan_bwd_store, panel_streamed)
 
 
-def reset_launches() -> None:
-    for w in (*WRAPPERS, *LOOPS):
-        w.launches = 0
-    for w in ROUTED:
-        w.launches_by_route = dict.fromkeys(ROUTES, 0)
-
-
-reset_launches()
+count_launches(*WRAPPERS)
+count_launches(*ROUTED, routes=tuple(ROUTES))
+count_launches(*LOOPS, calls=True)
 
 
 # ---- the differentiable loop -----------------------------------------------

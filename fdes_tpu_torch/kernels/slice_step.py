@@ -55,7 +55,7 @@ import ctypes
 
 import torch
 
-from . import _build
+from . import _build, count_launches, reset_launches  # noqa: F401 - reset_launches re-exported
 
 _SUFFIX = {torch.complex64: "c64", torch.complex128: "c128"}
 _P = ctypes.c_void_p
@@ -343,17 +343,8 @@ def transmit_abs_bwd(
     return dpsi, dv
 
 
-transmit.launches = 0
-transmit_abs.launches = 0
-cmul.launches = 0
-transmit_bwd.launches = 0
-transmit_abs_bwd.launches = 0
 WRAPPERS = (transmit, transmit_abs, cmul, transmit_bwd, transmit_abs_bwd)
-
-
-def reset_launches() -> None:
-    for w in WRAPPERS:
-        w.launches = 0
+count_launches(*WRAPPERS)
 
 
 # ---- the engine ------------------------------------------------------------

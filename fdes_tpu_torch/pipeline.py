@@ -16,6 +16,10 @@ its ranks (sharding.py), and ``gather_series`` brings the shares back.
 
 Entry points run on ``cuda`` unless the caller asks for the CPU; asking for
 ``cuda`` where there is none raises instead of carrying on on the CPU.
+``setup`` and ``stem_setup`` are set-up spans of ``profiling``
+(``setup.pipeline``, with children ``setup.specimen``, ``setup.slicing``,
+``setup.build_potential``, ``setup.propagator``, ``setup.ctf`` and
+``setup.ctf_transfer``; ``setup.stem``).
 """
 
 from __future__ import annotations
@@ -32,6 +36,7 @@ from .grids import Grid, fresnel_propagator
 from .optics import Aberrations, ctf_quadrature_series, ctf_series
 from .potential import build_potential, pad_atoms_per_slice, species_factors_full
 from .probe import plane_wave, probe_stencil
+from .profiling import span
 from .propagate import MATMUL_ENGINES
 from .scattering import ScatteringTable, load_kirkland_table
 from .specimen import Specimen, SlicedAtoms, load_xyz, make_si110_supercell, slice_specimen
@@ -147,8 +152,14 @@ def setup(cfg: Config, device: torch.device | str = "cuda") -> Sim:
     bad = [s for s in unported_settings(cfg) if not s.startswith("mode ")]
     if bad:
         raise NotImplementedError("fdes_tpu_torch does not run " + "; ".join(bad))
+    with span("setup.pipeline"):
+        return _setup(cfg, dev)
+
+
+def _setup(cfg: Config, dev: torch.device) -> Sim:
     cdt, rdt = _dtypes(cfg.sim.dtype)
-    spec = load_specimen(cfg)
+    with span("setup.specimen"):
+        spec = load_specimen(cfg)
     fy = cfg.sim.fov_y_A or float(spec.box[1])
     fx = cfg.sim.fov_x_A or float(spec.box[0])
     if fy <= 0 or fx <= 0:
@@ -163,7 +174,8 @@ def setup(cfg: Config, device: torch.device | str = "cuda") -> Sim:
             "slice thickness is zero: set sim.dz_A or a positive specimen "
             "box_A[2]"
         )
-    sliced = slice_specimen(spec, cfg.sim.nslices, dz=dz)
+    with span("setup.slicing"):
+        sliced = slice_specimen(spec, cfg.sim.nslices, dz=dz)
 
     lam = constants.wavelength_A(cfg.sim.voltage_V)
     sigma = constants.interaction_sigma(cfg.sim.voltage_V)
@@ -190,15 +202,16 @@ def setup(cfg: Config, device: torch.device | str = "cuda") -> Sim:
             # absorptive (optical) potential: the imaginary part damps the wave
             v_stack = v_stack + 1j * cfg.sim.absorptive_factor * v_stack.abs()
     bandlimit = cfg.sim.bandlimit or None
-    prop = to_device(
-        fresnel_propagator(
-            grid, lam, sliced.dz,
-            tilt_xy_rad=(cfg.sim.tilt_x_rad, cfg.sim.tilt_y_rad),
-            bandlimit=bandlimit,
-        ),
-        cdt, dev,
-    )
-    psi0 = plane_wave(grid, lam, dtype=cdt, device=dev)
+    with span("setup.propagator"):
+        prop = to_device(
+            fresnel_propagator(
+                grid, lam, sliced.dz,
+                tilt_xy_rad=(cfg.sim.tilt_x_rad, cfg.sim.tilt_y_rad),
+                bandlimit=bandlimit,
+            ),
+            cdt, dev,
+        )
+        psi0 = plane_wave(grid, lam, dtype=cdt, device=dev)
 
     o = cfg.optics
     ab = Aberrations(
@@ -210,25 +223,27 @@ def setup(cfg: Config, device: torch.device | str = "cuda") -> Sim:
     defoci = np.asarray(o.defoci_A, dtype=np.float64)
     ctf_weights = None
     if o.coherence == "explicit":
-        quads, weights = ctf_quadrature_series(
-            grid, lam, defoci, base=ab,
-            aperture_semiangle_rad=o.aperture_rad,
-            defocus_spread_A=o.defocus_spread_A,
-            source_semiangle_rad=o.source_semiangle_rad,
-            n_defocus=o.quad_defocus, n_tilt=o.quad_tilt,
-        )
-        ctfs = to_device(quads, cdt, dev)
-        ctf_weights = to_device(weights, rdt, dev)
-    elif o.coherence == "envelope":
-        ctfs = to_device(
-            ctf_series(
+        with span("setup.ctf"):
+            quads, weights = ctf_quadrature_series(
                 grid, lam, defoci, base=ab,
                 aperture_semiangle_rad=o.aperture_rad,
                 defocus_spread_A=o.defocus_spread_A,
                 source_semiangle_rad=o.source_semiangle_rad,
-            ),
-            cdt, dev,
-        )
+                n_defocus=o.quad_defocus, n_tilt=o.quad_tilt,
+            )
+        with span("setup.ctf_transfer"):
+            ctfs = to_device(quads, cdt, dev)
+            ctf_weights = to_device(weights, rdt, dev)
+    elif o.coherence == "envelope":
+        with span("setup.ctf"):
+            host = ctf_series(
+                grid, lam, defoci, base=ab,
+                aperture_semiangle_rad=o.aperture_rad,
+                defocus_spread_A=o.defocus_spread_A,
+                source_semiangle_rad=o.source_semiangle_rad,
+            )
+        with span("setup.ctf_transfer"):
+            ctfs = to_device(host, cdt, dev)
     else:
         raise ValueError(
             f"optics.coherence must be 'envelope' or 'explicit', got "
@@ -338,6 +353,11 @@ def stem_setup(sim: Sim):
     """Probe stencil, scan positions and detector masks for STEM mode:
     (stencil (ny, nx) complex, qy (ny, 1), qx (1, nx), positions (npos, 2) in
     Å, row-major over the scan, masks (ndet, ny, nx)), on ``sim.device``."""
+    with span("setup.stem"):
+        return _stem_setup(sim)
+
+
+def _stem_setup(sim: Sim):
     st = sim.cfg.stem
     ly = st.scan_ly_A or sim.grid.extent[0]
     lx = st.scan_lx_A or sim.grid.extent[1]

@@ -33,6 +33,7 @@ import torch
 
 from .grids import Grid
 from .precision import full_fp32
+from .profiling import span
 from .scattering import ScatteringTable, species_form_factors
 from .specimen import SlicedAtoms
 
@@ -171,32 +172,34 @@ def build_potential(
     """Host-facing wrapper: SlicedAtoms -> (S, ny, nx) projected potential.
 
     Form factors are evaluated on the host in f64 (scattering.py) and cast;
-    the scatter + FFT pipeline runs on ``device``.
+    the scatter + FFT pipeline runs on ``device``.  A set-up span of
+    ``profiling``: ``setup.build_potential``.
     """
-    rdt = np.float32 if dtype == torch.float32 else np.float64
-    ff = species_factors_rfft(grid, sliced.species, table).astype(rdt)
+    with span("setup.build_potential"):
+        rdt = np.float32 if dtype == torch.float32 else np.float64
+        ff = species_factors_rfft(grid, sliced.species, table).astype(rdt)
 
-    def put(a):
-        return torch.as_tensor(a, device=device)
+        def put(a):
+            return torch.as_tensor(a, device=device)
 
-    deltas = scatter_deltas(
-        put(sliced.x.astype(rdt)),
-        put(sliced.y.astype(rdt)),
-        put(sliced.slice_idx),
-        put(sliced.species_idx),
-        put(sliced.weight.astype(rdt)),
-        nslices=sliced.nslices,
-        nspecies=len(sliced.species),
-        shape=grid.shape,
-        pixel=(grid.py, grid.px),
-    )
-    return deltas_to_potential(
-        deltas,
-        put(ff),
-        shape=grid.shape,
-        pixel=(grid.py, grid.px),
-        slice_chunk=slice_chunk,
-    )
+        deltas = scatter_deltas(
+            put(sliced.x.astype(rdt)),
+            put(sliced.y.astype(rdt)),
+            put(sliced.slice_idx),
+            put(sliced.species_idx),
+            put(sliced.weight.astype(rdt)),
+            nslices=sliced.nslices,
+            nspecies=len(sliced.species),
+            shape=grid.shape,
+            pixel=(grid.py, grid.px),
+        )
+        return deltas_to_potential(
+            deltas,
+            put(ff),
+            shape=grid.shape,
+            pixel=(grid.py, grid.px),
+            slice_chunk=slice_chunk,
+        )
 
 
 def pad_atoms_per_slice(sliced: SlicedAtoms, dtype=np.float32):

@@ -33,6 +33,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from .kernels.slice_step import pallas_slice_step, transmit_abs_ref, transmit_ref
+from .profiling import span
 
 
 def transmit(psi: torch.Tensor, v_slice: torch.Tensor, sigma: float) -> torch.Tensor:
@@ -378,7 +379,12 @@ def multislice(
     c5_absorptive: 4 GiB above the inputs at 64 slices, 2 GiB at 32; 48 GiB
     with V at 512).
     """
-    step = slice_step or default_slice_step
+    with span("propagate.multislice"):
+        return _multislice(psi0, v_stack, propagator, sigma, remat_chunk,
+                           slice_step or default_slice_step)
+
+
+def _multislice(psi0, v_stack, propagator, sigma, remat_chunk, step):
     if hasattr(step, "whole_scan"):
         # whole-loop engine (kernels/fused_scan.py, kernels/panel_scan.py):
         # the slice loop lives inside one kernel or one C call.  A

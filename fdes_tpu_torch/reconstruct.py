@@ -15,6 +15,14 @@ the optimizer's ``state_dict()`` and the iteration count go into one .npz,
 written to a temporary file and renamed into place, so a crash leaves the
 previous checkpoint whole; ``resume`` restarts from it.
 
+Spans of ``profiling``: ``setup.optimizer`` (V's copy and the optimizer's
+construction); ``reconstruct.step`` an iteration (the request of the
+inverse), inside it ``reconstruct.optimizer`` (the optimizer's step, its
+self time the update) and inside that the closure's ``reconstruct.loss``
+and ``reconstruct.backward``; ``reconstruct.flush`` and
+``reconstruct.result`` (the final V) with counter ``fetch_bytes``, and
+``reconstruct.checkpoint`` with counter ``checkpoint_bytes``.
+
 The optimizers are ``torch.optim``'s, set to the optax defaults the JAX
 package uses.  For a real V they take the same steps; for a complex
 (absorptive) V they do not: optax's adam keeps one second moment |g|^2 per
@@ -37,6 +45,7 @@ import numpy as np
 import torch
 
 from ._collectives import all_gather, pmax, psum
+from .profiling import count, span
 
 
 @dataclasses.dataclass
@@ -402,8 +411,9 @@ def reconstruct(
     the host, and a non-finite one raises FloatingPointError naming the
     iteration.  Without it nothing is read.
     """
-    v = v0.detach().clone().requires_grad_(True)
-    opt = (optimizer or make_optimizer("adam", 1.0))([v])
+    with span("setup.optimizer"):  # a first torch.optim optimizer imports torch._dynamo
+        v = v0.detach().clone().requires_grad_(True)
+        opt = (optimizer or make_optimizer("adam", 1.0))([v])
     rows = _RowShare(v, mesh)
     if rows.group is not None and not isinstance(opt, _ROW_OPTIMIZERS):
         raise ValueError(f"{type(opt).__name__} is not known to run on V's rows under a 'grid' "
@@ -421,9 +431,11 @@ def reconstruct(
         opt.load_state_dict(rows.take_state(opt_state))
 
     def save(iteration: int) -> None:
-        v_all, state = rows.gather(v.detach()), rows.gather_state(opt.state_dict())
-        if writer:
-            save_checkpoint(checkpoint_path, v_all, state, iteration)
+        with span("reconstruct.checkpoint"):
+            v_all, state = rows.gather(v.detach()), rows.gather_state(opt.state_dict())
+            if writer:
+                save_checkpoint(checkpoint_path, v_all, state, iteration)
+                count("checkpoint_bytes", os.path.getsize(checkpoint_path))
 
     metrics = MetricsWriter(metrics_path if writer else None)
     losses: list[float] = []
@@ -435,16 +447,18 @@ def reconstruct(
         nonlocal chunk_t0
         if not pending:
             return
-        # one device->host transfer for the whole chunk
-        values = torch.stack([x for _, lv, gn in pending for x in (lv, gn)]).cpu()
-        values = values.reshape(-1, 2).tolist()
-        its = [it for it, _, _ in pending]
-        pending.clear()
-        dt = (time.perf_counter() - chunk_t0) / len(its)
-        step_walls.append(dt)
-        for it, (lv, gn) in zip(its, values):
-            losses.append(lv)
-            metrics.write(iter=it, loss=lv, grad_norm=gn, step_s=dt)
+        with span("reconstruct.flush"):
+            # one device->host transfer for the whole chunk
+            stacked = torch.stack([x for _, lv, gn in pending for x in (lv, gn)])
+            count("fetch_bytes", stacked.numel() * stacked.element_size())
+            values = stacked.cpu().reshape(-1, 2).tolist()
+            its = [it for it, _, _ in pending]
+            pending.clear()
+            dt = (time.perf_counter() - chunk_t0) / len(its)
+            step_walls.append(dt)
+            for it, (lv, gn) in zip(its, values):
+                losses.append(lv)
+                metrics.write(iter=it, loss=lv, grad_norm=gn, step_s=dt)
         if callbacks and callback is not None:
             for it, (lv, _) in zip(its, values):
                 callback(it, lv, v.detach())
@@ -457,16 +471,19 @@ def reconstruct(
 
         def closure():
             opt.zero_grad()
-            loss = loss_fn(v, *loss_args)
-            if check_nans:
-                _backward_checked(loss, it, lambda: rows.norm(v.grad.detach()))
-            else:
-                loss.backward()
+            with span("reconstruct.loss"):
+                loss = loss_fn(v, *loss_args)
+            with span("reconstruct.backward"):
+                if check_nans:
+                    _backward_checked(loss, it, lambda: rows.norm(v.grad.detach()))
+                else:
+                    loss.backward()
             if not first:  # LBFGS evaluates again in its line search
                 first.append((loss.detach(), rows.norm(v.grad.detach())))
             return loss
 
-        opt.step(closure)
+        with span("reconstruct.optimizer"):
+            opt.step(closure)
         if project is not None:
             with torch.no_grad():
                 v.copy_(project(v))
@@ -474,7 +491,8 @@ def reconstruct(
 
     try:
         for it in range(start, iterations):
-            loss, gnorm = step(it)
+            with span("reconstruct.step"):
+                loss, gnorm = step(it)
             pending.append((it, loss, gnorm))
             if len(pending) >= max(metrics_every, 1):
                 flush()
@@ -493,8 +511,12 @@ def reconstruct(
     if checkpoint_path:
         save(iterations)
     walls = step_walls[1:] if len(step_walls) > 1 else step_walls
+    with span("reconstruct.result"):
+        v_all = rows.gather(v.detach())
+        count("fetch_bytes", v_all.numel() * v_all.element_size())
+        v_host = v_all.cpu().numpy()
     return ReconResult(
-        v=rows.gather(v.detach()).cpu().numpy(),
+        v=v_host,
         losses=np.asarray(losses),
         iterations=iterations,
         wall_s=time.perf_counter() - t0,

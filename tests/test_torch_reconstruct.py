@@ -4,6 +4,7 @@ the optimizers against optax, and reconstruct against fdes_tpu's."""
 
 import importlib
 import json
+import os
 
 import jax
 import jax.numpy as jnp
@@ -185,6 +186,49 @@ def test_checkpoint_roundtrip_and_resume(rng, tmp_path, name):
     trec.save_checkpoint(ck, v_true, state, 7)
     v2, s2, it = trec.load_checkpoint(ck)
     assert it == 7 and torch.equal(v2, v_true) and s2 == state
+
+
+def test_reconstruct_records_its_span_tree(rng, tmp_path):
+    """With the recorder on, each iteration is one reconstruct.step request
+    holding the optimizer's step, and inside it the closure's loss and
+    backward; the flushes and the final V count the bytes they fetched, the
+    checkpoint those it wrote; the optimizer's construction is set-up."""
+    from fdes_tpu_torch import profiling
+
+    prop, psi0, v_true, ctfs, i_obs = _tiny(rng)
+    loss_fn = make_loss(lambda v: hrtem_defocus_series(v, psi0, prop, SIGMA, ctfs), i_obs)
+    ck = str(tmp_path / "ck.npz")
+    profiling.reset()
+    profiling.enable()
+    try:
+        trec.reconstruct(loss_fn, torch.zeros_like(v_true), iterations=3, metrics_every=2,
+                         checkpoint_path=ck, checkpoint_every=3)
+        recs = profiling.records()
+    finally:
+        profiling.disable()
+        profiling.reset()
+    by_id = {r["id"]: r for r in recs}
+    steps = [r for r in recs if r["name"] == "reconstruct.step"]
+    assert len(steps) == 3 and all(r["parent"] is None for r in steps)
+    assert len({r["request"] for r in steps}) == 3
+    for st in steps:
+        opt = [r for r in recs if r["parent"] == st["id"]]
+        assert [r["name"] for r in opt] == ["reconstruct.optimizer"]
+        inner = [r["name"] for r in recs if r["parent"] == opt[0]["id"]]
+        assert inner == ["reconstruct.loss", "reconstruct.backward"]
+        under = [r for r in recs if r["request"] == st["id"]]
+        assert {"forward.hrtem_defocus_series", "propagate.multislice"} <= {
+            r["name"] for r in under}
+        assert all(by_id[r["parent"]]["request"] == st["id"] for r in under if r["parent"])
+    flushes = [r for r in recs if r["name"] == "reconstruct.flush"]
+    assert [r["counts"] for r in flushes] == [{"fetch_bytes": 2 * 2 * 8},
+                                             {"fetch_bytes": 2 * 8}]  # float64 loss, norm
+    assert [r["counts"] for r in recs if r["name"] == "reconstruct.result"] == [
+        {"fetch_bytes": v_true.numel() * 8}]
+    assert [r["parent"] for r in recs if r["name"] == "setup.optimizer"] == [None]
+    cks = [r for r in recs if r["name"] == "reconstruct.checkpoint"]
+    assert len(cks) == 2  # at iteration 3, and the final save
+    assert all(r["counts"] == {"checkpoint_bytes": os.path.getsize(ck)} for r in cks)
 
 
 def test_fault_injection_mid_run_then_resume(rng, tmp_path):
