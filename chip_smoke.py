@@ -452,8 +452,8 @@ def wrappers() -> tuple:
     from fdes_tpu_torch.kernels import panel_scan as ps
     from fdes_tpu_torch.kernels import slice_step as ks
 
-    return (*ks.WRAPPERS, *fs.WRAPPERS, fsc.fused_scan, fsc.cluster_scan, *adj.WRAPPERS,
-            *ps.WRAPPERS, *ps.LOOPS)
+    return (*ks.WRAPPERS, *fs.WRAPPERS, fsc.fused_scan, fsc.cluster_scan, fsc.wide_scan,
+            *adj.WRAPPERS, *ps.WRAPPERS, *ps.LOOPS)
 
 
 def launch_counts() -> dict:
@@ -846,7 +846,7 @@ def device_kernels(fn) -> dict[str, int]:
 
 
 OWN_KERNELS = ("row_pass_kernel", "col_pass_kernel", "wide_step_kernel",
-               "wide_step_bwd_kernel", "scan_kernel",
+               "wide_step_bwd_kernel", "scan_kernel", "wide_scan_kernel",
                "cluster_scan_kernel", "scan_store_kernel", "scan_bwd_store_kernel",
                "wide_scan_store_kernel", "wide_scan_bwd_store_kernel",
                "scan_ck_kernel", "scan_bwd_ck_kernel", "wide_scan_ck_kernel",
@@ -1052,6 +1052,25 @@ def phase_kernels_fused() -> tuple[dict, dict]:
                 check("cluster_scan", (b, ns, m, m), fsc.cluster_scan(psi0, vs, pr, sigma),
                       fsc.fused_scan_ref(psi0, vs, pr, sigma), scan_tol(ns),
                       per_wave_v_and_p=per_wave)
+    # ---- the wide kernel: every size, 1 and 3 waves (one wave the series, three
+    # a tilt series), shared and per-wave V and P, one slice and four; the same
+    # bits twice
+    for m in fs.SIZES:
+        for b in (1, 3):
+            for per_wave in (False, True):
+                for ns in (1, 4):
+                    lead = (b,) if per_wave else ()
+                    psi0 = cplx(b, m, m)
+                    vs = torch.as_tensor(rng.uniform(0, 2000, (*lead, ns, m, m)), device="cuda",
+                                         dtype=f32)
+                    pr = props_of((*lead, m, m))
+                    got = fsc.wide_scan(psi0, vs, pr, sigma)
+                    check("wide_scan", (b, ns, m, m), got, fsc.fused_scan_ref(psi0, vs, pr, sigma),
+                          scan_tol(ns), per_wave_v_and_p=per_wave)
+                    checks[-1]["bitwise_equal_over_two_runs"] = torch.equal(
+                        got, fsc.wide_scan(psi0, vs, pr, sigma))
+                    if not checks[-1]["bitwise_equal_over_two_runs"]:
+                        raise AssertionError(f"wide_scan {(b, ns, m, m)}: two runs differ")
     # a launch the card refuses raises: no other kernel runs in its place
     scratch = torch.empty_like(probes[:1])
     try:
@@ -1067,15 +1086,19 @@ def phase_kernels_fused() -> tuple[dict, dict]:
     psi0 = probes[:16].contiguous()
     got = fsc.fused_scan(psi0, v_stack, prop, sigma, route="scan")
     got_c = fsc.cluster_scan(psi0, v_stack, prop, sigma)
+    got_w = fsc.wide_scan(psi0, v_stack, prop, sigma)
     plain = fsc.fused_scan_ref(psi0, v_stack, prop, sigma)
     err = check("fused_scan", (16, s, n, n), got, plain, scan_tol(s))
     err_c = check("cluster_scan", (16, s, n, n), got_c, plain, scan_tol(s))
+    err_w = check("wide_scan", (16, s, n, n), got_w, plain, scan_tol(s))
     exact = fsc.fused_scan_ref(psi0.to(torch.complex128), v_stack.double(),
                                prop.to(torch.complex128), sigma)
     f64_err = {"kernel_vs_c128": rel_norm(got, exact), "plain_vs_c128": rel_norm(plain, exact),
-               "cluster_vs_c128": rel_norm(got_c, exact), "tol": LONG_ROLLOUT_TOL}
+               "cluster_vs_c128": rel_norm(got_c, exact), "wide_vs_c128": rel_norm(got_w, exact),
+               "tol": LONG_ROLLOUT_TOL}
     long_tol = min(LONG_ROLLOUT_TOL, 1.5 * f64_err["plain_vs_c128"])
-    if not max(f64_err["kernel_vs_c128"], f64_err["cluster_vs_c128"]) <= long_tol:
+    if not max(f64_err["kernel_vs_c128"], f64_err["cluster_vs_c128"],
+               f64_err["wide_vs_c128"]) <= long_tol:
         raise AssertionError(f"the scans against the complex128 rollout: {f64_err}")
     del exact
     plane = n * n
@@ -1126,6 +1149,17 @@ def phase_kernels_fused() -> tuple[dict, dict]:
         "ms_1_wave_64_slices": time_launches(scan(psi0[:1], v_stack[:64], "cluster"), n=10,
                                              warmup=2),
     }
+    rows["wide_scan"] = {
+        **rows["fused_scan"], "name": "wide_scan", "max_abs_err": err_w[0],
+        "max_rel_err": err_w[1], "ms": time_launches(scan(psi0, route="wide"), n=10, warmup=2),
+        "kernel": fsc.wide_scan_kernel_info(n),
+        "kernels_per_call": expect_own_kernels("wide_scan", scan(psi0, route="wide"),
+                                               {"wide_scan_kernel": 1}),
+        "ms_as_fused_step_loop": None,
+        "ms_64_waves": time_launches(scan(probes, route="wide"), n=5, warmup=1),
+        "ms_1_wave_64_slices": time_launches(scan(psi0[:1], v_stack[:64], "wide"), n=10,
+                                             warmup=2),
+    }
     t_rows = time.perf_counter()
     route_rows = scan_route_rows(probes, v_stack, prop, sigma, rng)
     t_step_rows = time.perf_counter()
@@ -1134,6 +1168,7 @@ def phase_kernels_fused() -> tuple[dict, dict]:
     line = {"phase": "kernels_fused", "checks": checks, "fused_scan_vs_complex128": f64_err,
             "cluster_kernel": {m: fsc.cluster_kernel_info(m) for m in fsc.CLUSTER_CTAS},
             "scan_kernel": {m: fsc.scan_kernel_info(m) for m in fs.SIZES},
+            "wide_scan_kernel": {m: fsc.wide_scan_kernel_info(m) for m in fs.SIZES},
             "wide_step_kernel": {m: {k: fs.wide_step_info(m, k) for k in fs.KERNELS}
                                  for m in fs.SIZES},
             "route_rows": route_rows,
@@ -1196,11 +1231,17 @@ def step_route_rows(checks: list, sigma: float) -> list[dict]:
     return rows
 
 
+#: the order of scan_route_rows' readings: five of each kernel, each kernel
+#: first, second and last in turn
+SCAN_TURNS = ("scan", "cluster", "wide", "wide", "cluster", "scan") * 2 + ("scan", "cluster",
+                                                                            "wide")
+
+
 def scan_route_rows(probes, v_stack, prop, sigma, rng) -> list[dict]:
-    """Both whole-loop kernels timed in turns (scan, cluster, cluster, scan
-    twice, then scan, cluster: five medians each) at the rows of fused_scan's
-    route table (128^2, 256^2 and 512^2, 1 to 64 waves, 32 random slices)
-    and at the main path's shapes at 512^2 (config 2's rollout, 1 wave x 64
+    """The three whole-loop kernels timed in turns (SCAN_TURNS: five medians
+    each; the cluster kernel at its sizes only) at the rows of fused_scan's
+    route table (128^2 to 1024^2, 1 to 64 waves, 32 random slices) and at
+    the main path's shapes at 512^2 (config 2's rollout, 1 wave x 64
     slices; config 4's chunk of 64 probes x 128 slices, on its own
     potential).  Each row names the faster kernel and whether the table
     picks it."""
@@ -1222,11 +1263,12 @@ def scan_route_rows(probes, v_stack, prop, sigma, rng) -> list[dict]:
     rows = []
     for name, psi0, vs, pr in cases:
         b, m = psi0.shape[0], psi0.shape[-1]
-        fns = {r: (lambda r=r: fsc.fused_scan(psi0, vs, pr, sigma, route=r))
-               for r in ("scan", "cluster")}
-        times = {"scan": [], "cluster": []}
-        for r in ("scan", "cluster", "cluster", "scan") * 2 + ("scan", "cluster"):
-            times[r].append(time_launches(fns[r], n=5, warmup=2))
+        kernels = [r for r in fsc.ROUTES if r != "cluster" or m in fsc.CLUSTER_CTAS]
+        fns = {r: (lambda r=r: fsc.fused_scan(psi0, vs, pr, sigma, route=r)) for r in kernels}
+        times = {r: [] for r in kernels}
+        for r in SCAN_TURNS:
+            if r in times:
+                times[r].append(time_launches(fns[r], n=5, warmup=2))
         faster = min(times, key=lambda r: statistics.median(times[r]))
         route = fsc.scan_route(m, b, vs.shape[-3])
         rows.append({"case": name, "n": m, "waves": b, "slices": vs.shape[-3], "ms": times,
@@ -2722,12 +2764,19 @@ def run_cli(tmp: str, tag: str, *extra: str, config: str = CONFIG) -> tuple[str,
         return out, json.load(fh)
 
 
+#: the whole-loop forward's wrapper by route of fused_scan.SCAN_ROUTE, and
+#: each wrapper's kernel
+SCAN_WRAPPERS = {"scan": "fused_scan", "cluster": "cluster_scan", "wide": "wide_scan"}
+SCAN_KERNELS = {"fused_scan": "scan_kernel", "cluster_scan": "cluster_scan_kernel",
+                "wide_scan": "wide_scan_kernel"}
+
+
 def scan_wrapper(b: int, n: int = 512) -> str:
     """The wrapper whose count a whole-loop rollout of b waves at n^2 adds
     to: the kernel fused_scan's route table picks for it."""
     from fdes_tpu_torch.kernels.fused_scan import scan_route
 
-    return "cluster_scan" if scan_route(n, b) == "cluster" else "fused_scan"
+    return SCAN_WRAPPERS[scan_route(n, b)]
 
 
 def store_wrappers(b: int, n: int = 512, calls: int = 1) -> dict[str, int]:
@@ -2752,7 +2801,7 @@ def seg_wrappers(b: int, n: int = 512, calls: int = 1) -> dict[str, int]:
 
 
 def scan_kernel_name(b: int, n: int = 512) -> str:
-    return {"cluster_scan": "cluster_scan_kernel", "fused_scan": "scan_kernel"}[scan_wrapper(b, n)]
+    return SCAN_KERNELS[scan_wrapper(b, n)]
 
 
 def wall_and_device_ms(fn, reps: int) -> tuple[float, float]:
@@ -6269,9 +6318,9 @@ ROW_PHASES = {
     **{f"fused_step[{r}]": ("streamed", "streamed_tilt4", "grad_fused", "invert_fused")
        for r in ("tile", "wide")},
     "fused_step_bwd": ("grad_fused", "invert_fused"),
-    # the whole-loop forward runs one of two kernels, by the route table
-    "fused_scan": ("stem", "stem_auto", "hrtem_auto", "prism", "mesh_data_stem"),
-    "cluster_scan": ("stem", "stem_auto", "hrtem_auto", "prism", "mesh_data_stem"),
+    # the whole-loop forward runs one of three kernels, by the route table
+    **{w: ("stem", "stem_auto", "hrtem_auto", "prism", "mesh_data_stem")
+       for w in SCAN_WRAPPERS.values()},
     # the store pair runs one of two kernels each, by the route table
     **{w: ("invert_auto", "invert_fscan", "grad_fscan", "mesh_data_invert")
        for w in STORE_PAIRS["tile"] + STORE_PAIRS["wide"]},
@@ -6308,6 +6357,16 @@ ROW_PHASES = {
 #: timed on both of its kernels in kernels_panel, and its count on the c5
 #: path is read like any other
 OFF_PATH = ("panel_rowpass[tile]", "panel_rowpass[wide]")
+
+
+def unrouted_scan_kernels() -> tuple[str, ...]:
+    """The whole-loop forward's wrappers whose kernel fused_scan.SCAN_ROUTE
+    picks at no shape of the main path's rollouts (512^2: a series' one wave,
+    a tilt pair, PRISM's beam chunks, the raster's chunks of 16 to 128
+    probes): on no path of this run, exempt like OFF_PATH; their rows keep
+    their times."""
+    routed = {scan_wrapper(b) for b in (1, 2, 8, 16, 29, 64, 128)}
+    return tuple(w for w in SCAN_WRAPPERS.values() if w not in routed)
 
 
 def unrouted_adjoint_kernels() -> tuple[str, ...]:
@@ -6464,8 +6523,8 @@ def main(argv=None) -> int:
         if ph is not None:
             row["launches"], row["launches_phase"] = path_launches[ph][name], ph
     if set(PHASES) <= set(phases):
-        off_path = (OFF_PATH + unrouted_adjoint_kernels() + unrouted_panel_kernels()
-                    + unrouted_step_kernels())
+        off_path = (OFF_PATH + unrouted_scan_kernels() + unrouted_adjoint_kernels()
+                    + unrouted_panel_kernels() + unrouted_step_kernels())
         idle = [name for name, row in rows.items()
                 if name not in off_path and not row["launches"]]
         if idle:

@@ -16,8 +16,9 @@
 //
 // Four compute the same functions again on the wide transform of
 // fused_fft.cuh (one 1-D transform a pair of warps), so that one wave fills
-// the card; two sweeps (wide_forward_sweep, wide_reverse_sweep) carry the
-// loops of all four:
+// the card; two sweeps (wide_forward_sweep, in fused_fft.cuh beside
+// fused_step.cu's wide_scan_kernel, which runs it without a store, and
+// wide_reverse_sweep) carry the loops of all four:
 //
 //   wide_scan_store_kernel     scan_store_kernel's function (also replaces
 //                              ::_sfwd_kernel);
@@ -104,14 +105,6 @@
 #include "fused_fft.cuh"
 
 namespace {
-
-struct SweepArgs {
-  const float* v;       // (S, N, N)
-  const float2* prop;   // bit-reversed, (N, N) or (B, N, N)
-  int64_t p_wave_stride;
-  int64_t nwaves;
-  float sigma;
-};
 
 // The forward loop over nsl slices from v, in place in work (B, N, N).  in:
 // the incoming waves, in_wave_stride elements apart.  s != nullptr: s_k of
@@ -306,58 +299,9 @@ __global__ void __launch_bounds__(kThreads) scan_bwd_ck_kernel(BwdArgs a) {
 // Row items are one row a pair of warps, column items four columns a block
 // (fused_fft.cuh, "the wide transform"); the row functions wide_fwd_row and
 // wide_bwd_row are fused_fft.cuh's, shared with fused_step.cu's step kernels.
-// The two sweeps below are the wide counterparts of forward_sweep and
-// reverse_sweep; the four kernels are thin callers of them.
-
-// The wide forward loop over nsl slices from v0, in place in work (B, N, N).
-// in: the incoming waves, in_wave_stride elements apart.  keep (may be
-// nullptr with neither flag): with STORE_S the s_k of every slice, at keep +
-// b * keep_wave_stride + k * plane; with STORE_IN the wave entering every
-// slice k with k % seg == 0, at keep + b * keep_wave_stride + (k / seg) *
-// plane.  finish: run the last slice's column phase and the final inverse
-// row phase, so work holds the exit wave in natural order; otherwise stop
-// after the last slice's s is stored (STORE_S: a recompute needs no more),
-// leaving work undefined.  Barriers: 2 per slice and none after the last row
-// phase (2 * nsl when finish, 2 * (nsl - 1) otherwise).
-template <int LOG2N, bool STORE_S, bool STORE_IN>
-__device__ void wide_forward_sweep(cg::grid_group& grid, float2* tile, const float2* tw,
-                                   const WidePlace& t, const SweepArgs& sw, const float2* in,
-                                   int64_t in_wave_stride, float2* work, int v0, int nsl,
-                                   float2* keep, int64_t keep_wave_stride, int seg, bool finish) {
-  using W = Wide<LOG2N>;
-  constexpr int N = W::N;
-  constexpr int64_t kPlane = int64_t{1} << (2 * LOG2N);
-  const int64_t rows = sw.nwaves * N;
-  const int64_t items = sw.nwaves * (N / W::kCols);
-  const int64_t first = blockIdx.x + static_cast<int64_t>(threadIdx.x >> 6) * gridDim.x;
-  const int64_t step = static_cast<int64_t>(gridDim.x) * kWidePairs;
-  const int last = finish ? nsl : nsl - 1;  // the last row phase
-  for (int k = 0; k <= last; ++k) {
-    const bool tail = k == nsl;  // the final inverse row phase
-    for (int64_t u = first; u < rows; u += step) {  // u = b N + y
-      const int64_t b = u >> LOG2N;
-      const int64_t y = u & (N - 1);
-      const float2* src = k == 0 ? in + b * in_wave_stride + y * N : work + u * N;
-      float2* kept = nullptr;
-      if (STORE_S && !tail) kept = keep + b * keep_wave_stride + k * kPlane + y * N;
-      if (STORE_IN && !tail && k % seg == 0) {
-        kept = keep + b * keep_wave_stride + (k / seg) * kPlane + y * N;
-      }
-      const float* v = tail ? nullptr : sw.v + (v0 + k) * kPlane + y * N;
-      float2* dst = finish || k < nsl - 1 ? work + u * N : nullptr;
-      wide_fwd_row<LOG2N, STORE_S, STORE_IN>(tw, src, dst, kept, v, sw.sigma, k > 0, t);
-    }
-    if (k == last) break;
-    grid.sync();
-    for (int64_t i = blockIdx.x; i < items; i += gridDim.x) {
-      const int64_t b = i / (N / W::kCols);
-      const int c0 = static_cast<int>(i % (N / W::kCols)) * W::kCols;
-      wide_col_item<LOG2N>(tile, tw, work + b * kPlane, c0, sw.prop + b * sw.p_wave_stride,
-                           false, t);
-    }
-    grid.sync();
-  }
-}
+// wide_forward_sweep (fused_fft.cuh) and wide_reverse_sweep below are the
+// wide counterparts of forward_sweep and reverse_sweep; the four kernels are
+// thin callers of them.
 
 // bar = forward x of g, row by row (natural in, each row's bit-reversed x
 // spectrum out): the carry's order inside the wide reverse loop.

@@ -19,7 +19,9 @@
 // wide transform" holds one 1-D transform in the registers of a pair of
 // warps; its row functions (wide_fwd_row, wide_bwd_row), the ordered sum of
 // partial dV planes and the cooperative launch serve adjoint_scan.cu's wide
-// store pair and fused_step.cu's wide step and adjoint alike.
+// store pair and fused_step.cu's wide step and adjoint alike, and its forward
+// sweep (wide_forward_sweep, the whole loop) adjoint_scan.cu's wide forward
+// kernels and fused_step.cu's wide_scan_kernel.
 //
 // Everything here lives in an unnamed namespace: each library that includes
 // the header compiles its own copy.
@@ -30,6 +32,7 @@
 #include <cuda_runtime.h>
 
 #include <cstdint>
+#include <type_traits>
 
 namespace cg = cooperative_groups;
 
@@ -792,21 +795,14 @@ __device__ __forceinline__ void wide_store_row(const float2 (&x)[Wide<LOG2N>::R]
 // transform, times the propagator (bit-reversed, conjugated for the
 // adjoint) over N^2, inverse y transform.  All threads of the block call
 // it; tile holds kCols * kColStride elements, pair j's column at j *
-// kColStride (t.buf).
+// kColStride (t.buf).  p: this thread's values of P, element W::H * t.w +
+// t.lane + 32 m of its column (wide_col_item loads them).
 template <int LOG2N>
-__device__ void wide_col_item(float2* tile, const float2* tw, float2* plane, int c0,
-                              const float2* __restrict__ prop, bool conj_p, const WidePlace& t) {
+__device__ __forceinline__ void wide_col_item_of(float2* tile, const float2* tw, float2* plane,
+                                                 int c0, const float2 (&p)[Wide<LOG2N>::R],
+                                                 bool conj_p, const WidePlace& t) {
   using W = Wide<LOG2N>;
   constexpr int N = W::N;
-  const int col = threadIdx.x >> 6;
-  // this thread's values of P, in flight with the panel's loads: a load that
-  // waits until after the forward transform costs a second round trip
-  const float2* pc = prop + c0 + col;
-  float2 p[W::R];
-#pragma unroll
-  for (int m = 0; m < W::R; ++m) {
-    p[m] = __ldg(pc + static_cast<int64_t>(W::H * t.w + t.lane + 32 * m) * N);
-  }
   // thread i: row i / 2, columns 2 (i % 2) and 2 (i % 2) + 1 of the item
   for (int i = threadIdx.x; i < 2 * N; i += kThreads) {
     const int y = i >> 1;
@@ -835,6 +831,23 @@ __device__ void wide_col_item(float2* tile, const float2* tw, float2* plane, int
                tile[(c + 1) * W::kColStride + y]);
   }
   __syncthreads();  // the next item reuses the tile
+}
+
+// wide_col_item_of with P read from prop (bit-reversed, N a row).
+template <int LOG2N>
+__device__ void wide_col_item(float2* tile, const float2* tw, float2* plane, int c0,
+                              const float2* __restrict__ prop, bool conj_p, const WidePlace& t) {
+  using W = Wide<LOG2N>;
+  const int col = threadIdx.x >> 6;
+  // this thread's values of P, in flight with the panel's loads: a load that
+  // waits until after the forward transform costs a second round trip
+  const float2* pc = prop + c0 + col;
+  float2 p[W::R];
+#pragma unroll
+  for (int m = 0; m < W::R; ++m) {
+    p[m] = __ldg(pc + static_cast<int64_t>(W::H * t.w + t.lane + 32 * m) * W::N);
+  }
+  wide_col_item_of<LOG2N>(tile, tw, plane, c0, p, conj_p, t);
 }
 
 // The row items of the wide kernels (adjoint_scan.cu's store pair, rows 9
@@ -917,6 +930,107 @@ __device__ __forceinline__ void wide_bwd_row(const float2* tw, const float2* src
   }
   if (forward) wide_fft_forward<LOG2N>(x, tw, t);
   wide_store_row<LOG2N>(x, dst, t);
+}
+
+// ---- the wide sweep --------------------------------------------------------
+//
+// The whole forward loop on the wide transform, shared by adjoint_scan.cu's
+// store and segment kernels (rows 9, 11, 12's recompute) and fused_step.cu's
+// wide_scan_kernel (row 8).
+
+// The operands of a sweep: V (S, N, N) shared by the waves, the propagator
+// bit-reversed, (N, N) or (B, N, N) with p_wave_stride = N*N.
+struct SweepArgs {
+  const float* v;       // (S, N, N)
+  const float2* prop;   // bit-reversed, (N, N) or (B, N, N)
+  int64_t p_wave_stride;
+  int64_t nwaves;
+  float sigma;
+};
+
+// The operands of wide_scan_kernel's sweep: V (B, S, N, N) with
+// v_wave_stride = S*N*N elements from one wave's stack to the next (0:
+// shared); pcols != nullptr when each block owns at most one column item,
+// the same one every slice, and holds that item's kCols columns of P there
+// (shared memory, column-major, N a column).
+struct ScanSweepArgs : SweepArgs {
+  int64_t v_wave_stride;
+  const float2* pcols;
+};
+
+// A column item of wide_scan_kernel's sweep whose P is held (sw.pcols).
+template <int LOG2N>
+__device__ __forceinline__ void held_col_item(float2* tile, const float2* tw, const WidePlace& t,
+                                              const ScanSweepArgs& sw, float2* plane, int c0) {
+  using W = Wide<LOG2N>;
+  const float2* pc = sw.pcols + (threadIdx.x >> 6) * W::N;
+  float2 p[W::R];
+#pragma unroll
+  for (int m = 0; m < W::R; ++m) p[m] = pc[W::H * t.w + t.lane + 32 * m];
+  wide_col_item_of<LOG2N>(tile, tw, plane, c0, p, false, t);
+}
+
+// The wide forward loop over nsl slices from v0, in place in work (B, N, N).
+// in: the incoming waves, in_wave_stride elements apart.  keep (may be
+// nullptr with neither flag): with STORE_S the s_k of every slice, at keep +
+// b * keep_wave_stride + k * plane; with STORE_IN the wave entering every
+// slice k with k % seg == 0, at keep + b * keep_wave_stride + (k / seg) *
+// plane.  finish: run the last slice's column phase and the final inverse
+// row phase, so work holds the exit wave in natural order; otherwise stop
+// after the last slice's s is stored (STORE_S: a recompute needs no more),
+// leaving work undefined.  Barriers: 2 per slice and none after the last row
+// phase (2 * nsl when finish, 2 * (nsl - 1) otherwise).  Sweep: SweepArgs
+// (the adjoint's kernels) or ScanSweepArgs (fused_step.cu's
+// wide_scan_kernel: V per wave, P's columns held).
+template <int LOG2N, bool STORE_S, bool STORE_IN, typename Sweep>
+__device__ void wide_forward_sweep(cg::grid_group& grid, float2* tile, const float2* tw,
+                                   const WidePlace& t, const Sweep& sw, const float2* in,
+                                   int64_t in_wave_stride, float2* work, int v0, int nsl,
+                                   float2* keep, int64_t keep_wave_stride, int seg, bool finish) {
+  using W = Wide<LOG2N>;
+  constexpr int N = W::N;
+  constexpr int64_t kPlane = int64_t{1} << (2 * LOG2N);
+  const int64_t rows = sw.nwaves * N;
+  const int64_t items = sw.nwaves * (N / W::kCols);
+  const int64_t first = blockIdx.x + static_cast<int64_t>(threadIdx.x >> 6) * gridDim.x;
+  const int64_t step = static_cast<int64_t>(gridDim.x) * kWidePairs;
+  // the scan's additions behind `if constexpr`: the adjoint's instantiations keep their code
+  constexpr bool kScan = std::is_same_v<Sweep, ScanSweepArgs>;
+  const int last = finish ? nsl : nsl - 1;  // the last row phase
+  for (int k = 0; k <= last; ++k) {
+    const bool tail = k == nsl;  // the final inverse row phase
+    for (int64_t u = first; u < rows; u += step) {  // u = b N + y
+      const int64_t b = u >> LOG2N;
+      const int64_t y = u & (N - 1);
+      const float2* src = k == 0 ? in + b * in_wave_stride + y * N : work + u * N;
+      float2* kept = nullptr;
+      if (STORE_S && !tail) kept = keep + b * keep_wave_stride + k * kPlane + y * N;
+      if (STORE_IN && !tail && k % seg == 0) {
+        kept = keep + b * keep_wave_stride + (k / seg) * kPlane + y * N;
+      }
+      const float* v = tail ? nullptr : sw.v + (v0 + k) * kPlane + y * N;
+      if constexpr (kScan) {
+        if (!tail) v += b * sw.v_wave_stride;
+      }
+      float2* dst = finish || k < nsl - 1 ? work + u * N : nullptr;
+      wide_fwd_row<LOG2N, STORE_S, STORE_IN>(tw, src, dst, kept, v, sw.sigma, k > 0, t);
+    }
+    if (k == last) break;
+    grid.sync();
+    for (int64_t i = blockIdx.x; i < items; i += gridDim.x) {
+      const int64_t b = i / (N / W::kCols);
+      const int c0 = static_cast<int>(i % (N / W::kCols)) * W::kCols;
+      if constexpr (kScan) {
+        if (sw.pcols != nullptr) {
+          held_col_item<LOG2N>(tile, tw, t, sw, work + b * kPlane, c0);
+          continue;
+        }
+      }
+      wide_col_item<LOG2N>(tile, tw, work + b * kPlane, c0, sw.prop + b * sw.p_wave_stride,
+                           false, t);
+    }
+    grid.sync();
+  }
 }
 
 // dv = the sum of the ngroups partial planes at part, in the order 0, 1, ...

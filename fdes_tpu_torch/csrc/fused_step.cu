@@ -80,8 +80,23 @@
 // fused_fft.cuh), clusters never wait on each other, and per wave-slice only
 // V_j (1 MiB) and P (2 MiB, from L2) are read.  One wave runs on C SMs (16 at
 // 512^2), so its own bound is 132/16 times the card's; the card's bound needs
-// as many waves as resident clusters.  The Python wrapper picks between the
-// two kernels by (N, B) from a table of measured rows.
+// as many waves as resident clusters.
+//
+// wide_scan_kernel (128^2 to 1024^2) is the third design of the whole loop,
+// and also replaces fdes_tpu/pallas/fused_scan.py::_scan_kernel: the wide
+// store forward's sweep (adjoint_scan.cu, row 9) with no store, one
+// cooperative launch.  Bound at 512^2: 0.76 us a wave-slice, by operations.
+// At one wave scan_kernel leaves the card half idle (64 tiles of 4,096
+// elements for 132 SMs, block barriers inside every transform, bank
+// conflicts of the plain twiddle table) and cluster_scan_kernel runs on 16
+// SMs; the wide transform gives one 512^2 wave 512 row pairs and 128 column
+// items, one block an SM, the stages in registers and shuffles, the staged
+// twiddle table, and two grid barriers a slice.  Where a block owns one
+// column item for the whole sweep it holds that item's columns of P in
+// shared memory.
+//
+// The Python wrapper picks among the three kernels by (N, B) from a table
+// of measured rows.
 //
 // The transforms, the tiles and the two tile passes live in fused_fft.cuh,
 // which adjoint_scan.cu (the whole-loop adjoint) shares.
@@ -182,6 +197,54 @@ __global__ void __launch_bounds__(kThreads) scan_kernel(ScanArgs a) {
     }
     grid.sync();
   }
+}
+
+// The whole slice loop on the wide transform (row 8 redesigned): the store
+// forward's sweep (fused_fft.cuh, wide_forward_sweep) with nothing kept.  Per
+// slice j: rows [inverse x of slice j-1 | transmit with V_j | forward x],
+// grid barrier, column items [forward y | * P / N^2 | inverse y], grid
+// barrier; then the rows' inverse x leaves the exit wave in out.  V per wave
+// through v_wave_stride (0: shared).  When the grid holds every column item
+// at once (one wave up to 512^2), each block owns one item for the whole
+// sweep and keeps its four columns of P in shared memory (16 KiB at 512^2),
+// read once instead of from L2 every slice.
+template <int LOG2N>
+__global__ void __launch_bounds__(kThreads) wide_scan_kernel(ScanArgs a) {
+  using W = Wide<LOG2N>;
+  constexpr int N = W::N;
+  constexpr int64_t kPlane = int64_t{1} << (2 * LOG2N);
+  constexpr bool kHoldP = LOG2N <= 9;  // 1024^2: 32 KiB more than the 48 KiB static
+  __shared__ float2 tile[W::kCols * W::kColStride];
+  __shared__ float2 tw[N];  // the staged table: N - 1 entries
+  __shared__ float2 pcols[kHoldP ? W::kCols * N : 1];
+  cg::grid_group grid = cg::this_grid();
+  init_staged_twiddles<LOG2N, kThreads>(tw);
+  ScanSweepArgs sw;
+  sw.v = a.v;
+  sw.prop = a.prop;
+  sw.p_wave_stride = a.p_wave_stride;
+  sw.nwaves = a.nwaves;
+  sw.sigma = a.sigma;
+  sw.v_wave_stride = a.v_wave_stride;
+  sw.pcols = nullptr;
+  const int64_t items = a.nwaves * (N / W::kCols);
+  if (kHoldP && items <= gridDim.x) {
+    if (blockIdx.x < items) {  // thread i: row i / 2, columns 2 (i % 2) and 2 (i % 2) + 1
+      const int c0 = static_cast<int>(blockIdx.x % (N / W::kCols)) * W::kCols;
+      const float2* pb = a.prop + (blockIdx.x / (N / W::kCols)) * a.p_wave_stride;
+      for (int i = threadIdx.x; i < 2 * N; i += kThreads) {
+        const int y = i >> 1;
+        const int c = 2 * (i & 1);
+        load_pair(pb + static_cast<int64_t>(y) * N + c0 + c, &pcols[c * N + y],
+                  &pcols[(c + 1) * N + y]);
+      }
+    }
+    sw.pcols = pcols;
+  }
+  __syncthreads();
+  const WidePlace t = wide_place(tile, W::kColStride);
+  wide_forward_sweep<LOG2N, false, false>(grid, tile, tw, t, sw, a.psi0, kPlane, a.out, 0,
+                                          a.nslices, nullptr, 0, 1, true);
 }
 
 // The whole slice loop with each wave's plane resident in one cluster's
@@ -399,11 +462,8 @@ int launch_wide_step(int device, StepArgs a, bool adjoint, cudaStream_t stream) 
 }
 
 // out[0..3] = registers per thread, static shared bytes, local bytes per
-// thread and resident blocks of the wide step (adjoint == 0) or its adjoint.
-template <int LOG2N>
-int wide_step_info(int device, int adjoint, int* out) {
-  const void* kernel = adjoint ? reinterpret_cast<const void*>(wide_step_bwd_kernel<LOG2N>)
-                               : reinterpret_cast<const void*>(wide_step_kernel<LOG2N>);
+// thread and resident blocks of a cooperative kernel.
+int cooperative_info(const void* kernel, int device, int* out) {
   cudaFuncAttributes attr;
   cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
   if (err != cudaSuccess) return err;
@@ -413,16 +473,37 @@ int wide_step_info(int device, int adjoint, int* out) {
   return resident_blocks_of(kernel, device, &out[3]);
 }
 
-// Blocks of scan_kernel that can be resident at once on this device.
+// cooperative_info of the wide step (adjoint == 0) or its adjoint.
 template <int LOG2N>
-int resident_blocks(int device, int* blocks) {
-  return resident_blocks_of(reinterpret_cast<const void*>(scan_kernel<LOG2N>), device, blocks);
+int wide_step_info(int device, int adjoint, int* out) {
+  const void* kernel = adjoint ? reinterpret_cast<const void*>(wide_step_bwd_kernel<LOG2N>)
+                               : reinterpret_cast<const void*>(wide_step_kernel<LOG2N>);
+  return cooperative_info(kernel, device, out);
 }
 
 template <int LOG2N>
 int launch_scan(int device, ScanArgs a, cudaStream_t stream) {
   return launch_cooperative(reinterpret_cast<const void*>(scan_kernel<LOG2N>), device, a,
                             a.nwaves, (int64_t{1} << (2 * LOG2N)) / kTile, stream);
+}
+
+// The wide scan over B waves: every resident block, at most one a column item
+// (B N / 4: the row items then take four a block).
+template <int LOG2N>
+int launch_wide_scan(int device, ScanArgs a, cudaStream_t stream) {
+  if (a.nslices < 1 || a.nwaves < 1) return cudaErrorInvalidValue;
+  int err = launch_cooperative(reinterpret_cast<const void*>(wide_scan_kernel<LOG2N>), device, a,
+                               a.nwaves, (1 << LOG2N) / kWidePairs, stream);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
+// cooperative_info of scan_kernel (wide == 0) or wide_scan_kernel.
+template <int LOG2N>
+int scan_info(int device, int wide, int* out) {
+  const void* kernel = wide ? reinterpret_cast<const void*>(wide_scan_kernel<LOG2N>)
+                            : reinterpret_cast<const void*>(scan_kernel<LOG2N>);
+  return cooperative_info(kernel, device, out);
 }
 
 // The cluster kernel's launch configuration for `clusters` clusters; the
@@ -485,15 +566,20 @@ int cluster_info(int* out) {
   return cudaOccupancyMaxActiveClusters(&out[5], cluster_scan_kernel<LOG2N>, &cfg);
 }
 
-template <int LOG2N>
-int kernel_info(int device, int* out) {
-  cudaFuncAttributes attr;
-  cudaError_t err = cudaFuncGetAttributes(&attr, scan_kernel<LOG2N>);
-  if (err != cudaSuccess) return err;
-  out[0] = attr.numRegs;
-  out[1] = static_cast<int>(attr.sharedSizeBytes);
-  out[2] = static_cast<int>(attr.localSizeBytes);
-  return resident_blocks<LOG2N>(device, &out[3]);
+// The arguments of the three whole-loop kernels, as their entry points take them.
+ScanArgs scan_args(const void* psi0, const void* v, const void* prop, void* out, double sigma,
+                   int64_t nwaves, int nslices, int64_t v_wave_stride, int64_t p_wave_stride) {
+  ScanArgs a;
+  a.psi0 = static_cast<const float2*>(psi0);
+  a.out = static_cast<float2*>(out);
+  a.v = static_cast<const float*>(v);
+  a.prop = static_cast<const float2*>(prop);
+  a.v_wave_stride = v_wave_stride;
+  a.p_wave_stride = p_wave_stride;
+  a.nwaves = nwaves;
+  a.nslices = nslices;
+  a.sigma = static_cast<float>(sigma);
+  return a;
 }
 
 }  // namespace
@@ -581,17 +667,29 @@ int fdes_fused_scan_c64(int device, int n, const void* psi0, const void* v, cons
                         int64_t v_wave_stride, int64_t p_wave_stride, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
-  ScanArgs a;
-  a.psi0 = static_cast<const float2*>(psi0);
-  a.out = static_cast<float2*>(out);
-  a.v = static_cast<const float*>(v);
-  a.prop = static_cast<const float2*>(prop);
-  a.v_wave_stride = v_wave_stride;
-  a.p_wave_stride = p_wave_stride;
-  a.nwaves = nwaves;
-  a.nslices = nslices;
-  a.sigma = static_cast<float>(sigma);
+  const ScanArgs a = scan_args(psi0, v, prop, out, sigma, nwaves, nslices, v_wave_stride,
+                               p_wave_stride);
   FDES_DISPATCH_N(n, launch_scan<L>(device, a, static_cast<cudaStream_t>(stream)))
+}
+
+// The whole loop on wide_scan_kernel: as fdes_fused_scan_c64 (the same prop,
+// bit-reversed), nwaves >= 1 and nslices >= 1.
+int fdes_wide_scan_c64(int device, int n, const void* psi0, const void* v, const void* prop,
+                       void* out, double sigma, int64_t nwaves, int nslices,
+                       int64_t v_wave_stride, int64_t p_wave_stride, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  const ScanArgs a = scan_args(psi0, v, prop, out, sigma, nwaves, nslices, v_wave_stride,
+                               p_wave_stride);
+  FDES_DISPATCH_N(n, launch_wide_scan<L>(device, a, static_cast<cudaStream_t>(stream)))
+}
+
+// out[0..3] = registers per thread, static shared bytes, local bytes per
+// thread, and resident blocks on the device, of wide_scan_kernel for size n.
+int fdes_wide_scan_info(int device, int n, int* out) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  FDES_DISPATCH_N(n, scan_info<L>(device, 1, out))
 }
 
 // The whole loop on cluster_scan_kernel: as fdes_fused_scan_c64, with prop
@@ -603,16 +701,8 @@ int fdes_cluster_scan_c64(int device, int n, const void* psi0, const void* v, co
                           void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
-  ScanArgs a;
-  a.psi0 = static_cast<const float2*>(psi0);
-  a.out = static_cast<float2*>(out);
-  a.v = static_cast<const float*>(v);
-  a.prop = static_cast<const float2*>(prop);
-  a.v_wave_stride = v_wave_stride;
-  a.p_wave_stride = p_wave_stride;
-  a.nwaves = nwaves;
-  a.nslices = nslices;
-  a.sigma = static_cast<float>(sigma);
+  const ScanArgs a = scan_args(psi0, v, prop, out, sigma, nwaves, nslices, v_wave_stride,
+                               p_wave_stride);
   FDES_DISPATCH_CLUSTER_N(n, launch_cluster_scan<L>(a, clusters,
                                                     static_cast<cudaStream_t>(stream)))
 }
@@ -632,7 +722,7 @@ int fdes_cluster_scan_info(int device, int n, int* out) {
 int fdes_fused_scan_info(int device, int n, int* out) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
-  FDES_DISPATCH_N(n, kernel_info<L>(device, out))
+  FDES_DISPATCH_N(n, scan_info<L>(device, 0, out))
 }
 
 }  // extern "C"

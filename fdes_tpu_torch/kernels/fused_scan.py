@@ -2,8 +2,8 @@
 
 Counterpart of ``fdes_tpu/pallas/fused_scan.py``.  ``fused_scan(psi0,
 v_stack, propagator, sigma)`` carries B waves through all S slices of a
-potential stack in one launch of one of two kernels of
-``csrc/fused_step.cu`` (both replace ``_scan_kernel``), picked by
+potential stack in one launch of one of three kernels of
+``csrc/fused_step.cu`` (each replaces ``_scan_kernel``), picked by
 ``scan_route`` from a table of rows measured on the H100:
 
 * ``scan_kernel`` (128^2 to 1024^2): a cooperative launch whose blocks meet
@@ -12,7 +12,12 @@ potential stack in one launch of one of two kernels of
 * ``cluster_scan_kernel`` (128^2 to 512^2): an ordinary launch of
   thread-block clusters, one wave per cluster at a time, the wave's plane
   resident in the cluster's shared memory from psi0 to the exit wave, no
-  grid barrier (``cluster_scan`` runs it alone).
+  grid barrier (``cluster_scan`` runs it alone);
+* ``wide_scan_kernel`` (128^2 to 1024^2): a cooperative launch on the wide
+  transform of ``csrc/fused_fft.cuh`` (one 1-D transform in the registers
+  of a pair of warps; a row item one row a pair, a column item four columns
+  a block), the whole-loop adjoint's store forward without its store, so
+  that one wave spreads over every SM (``wide_scan`` runs it alone).
 
 V is the only stream from device memory; the transform is computed in the
 kernels, and no cuFFT runs in the loop.  The route is fixed before the
@@ -29,8 +34,9 @@ A tensor on the CPU goes to the plain PyTorch version (``fused_scan_ref``:
 transmit and ``torch.fft`` in a loop, the same batching rules) whatever the
 route; a CUDA tensor goes to a kernel or the wrapper raises; complex128 on
 the card raises ``TypeError``.  ``fused_scan.launches`` counts the launches
-of ``scan_kernel`` and ``cluster_scan.launches`` those of
-``cluster_scan_kernel`` that reached the card.
+of ``scan_kernel``, ``cluster_scan.launches`` those of
+``cluster_scan_kernel`` and ``wide_scan.launches`` those of
+``wide_scan_kernel`` that reached the card.
 
 The raw kernel keeps no wave of the loop's inside and its output carries no
 graph, so ``fused_scan`` itself is forward-only.  The engine comes in two
@@ -112,25 +118,30 @@ def fused_scan_ref(
 #: (8 MiB) fits in no cluster of the H100 (at most 16 CTAs of 227 KB).
 CLUSTER_CTAS = {128: 1, 256: 4, 512: 16}
 
-#: The faster whole-loop kernel by grid and waves a launch, "cluster" or
-#: "scan", as measured on an NVIDIA H100 80GB HBM3 at 700 W by chip_smoke.py's
-#: kernels_fused phase (both kernels at each row, 32 slices, in turns;
-#: PERF.md section 5).  A launch of B waves takes the row of the largest
-#: measured count not above B.  The cluster kernel carries one wave per
-#: cluster and G clusters at once (7 at 512^2, 30 at 256^2, 132 at 128^2), so
-#: it takes ceil(B / G) rounds: the rows include one full round (7, 30).
-#: Grids outside CLUSTER_CTAS take "scan".
+#: The faster whole-loop kernel by grid and waves a launch, "scan",
+#: "cluster" or "wide", as measured on an NVIDIA H100 80GB HBM3 at 700 W by
+#: chip_smoke.py's kernels_fused phase (the three kernels at each row, 32
+#: slices, in turns; PERF.md section 6).  A launch of B waves takes the row
+#: of the largest measured count not above B.  The cluster kernel carries one
+#: wave per cluster and G clusters at once (7 at 512^2, 30 at 256^2, 132 at
+#: 128^2), so it takes ceil(B / G) rounds: the rows include one full round
+#: (7, 30).  The wide kernel spreads one wave over n row pairs and n / 4
+#: column items: it wins one and three waves at every size by 1.1-2.4 times
+#: (at 1024^2 x 3 a tie) and 16 at 128^2 and 512^2; scan_kernel keeps 128^2
+#: x 64 and 256^2 x 16.  "cluster" only at CLUSTER_CTAS sizes.
 SCAN_ROUTE = {
-    128: {1: "scan", 3: "scan", 16: "scan", 64: "scan"},
-    256: {1: "scan", 3: "scan", 16: "scan", 30: "cluster", 64: "cluster"},
-    512: {1: "scan", 3: "scan", 7: "cluster", 16: "cluster", 64: "cluster"},
+    128: {1: "wide", 3: "wide", 16: "wide", 64: "scan"},
+    256: {1: "wide", 3: "wide", 16: "scan", 30: "cluster", 64: "cluster"},
+    512: {1: "wide", 3: "wide", 7: "cluster", 16: "wide", 64: "cluster"},
+    1024: {1: "wide", 3: "wide", 16: "wide", 64: "wide"},
 }
+ROUTES = ("scan", "cluster", "wide")
 
 
 def scan_route(n: int, b: int, nslices: int = 1) -> str | None:
     """The kernel ``fused_scan`` launches for B waves through S slices of an
-    n x n grid: "cluster", "scan", or None when nothing is launched (B = 0,
-    or S = 0: the output is psi0)."""
+    n x n grid: "scan", "cluster" or "wide", or None when nothing is
+    launched (B = 0, or S = 0: the output is psi0)."""
     if b < 1 or nslices < 1:
         return None
     rows = SCAN_ROUTE.get(n)
@@ -204,14 +215,13 @@ def fused_scan(
     *, route: str | None = None,
 ) -> torch.Tensor:
     """All S slices for all B waves in one call: on CUDA the kernel that
-    ``scan_route`` picks (``route`` names one instead: "scan" or "cluster"),
-    plain on the CPU.  Forward only: the result carries no graph."""
+    ``scan_route`` picks (``route`` names one instead: "scan", "cluster" or
+    "wide"), plain on the CPU.  Forward only: the result carries no graph."""
     n, b, v_batched, p_batched = _batching(psi0, v_stack, propagator, "fused_scan")
     if v_stack.is_complex():
         raise TypeError("fused_scan: v_stack must be real; the engine routes a complex "
                         "(absorptive) potential through the per-slice kernels")
-    if route not in (None, "scan", "cluster"):
-        raise ValueError(f"fused_scan: route must be 'scan' or 'cluster', got {route!r}")
+    fs.check_route("fused_scan", route, ROUTES)
     if route == "cluster" and n not in CLUSTER_CTAS:
         raise ValueError(f"fused_scan: the cluster kernel takes {tuple(CLUSTER_CTAS)}, got {n}")
     if not psi0.is_cuda:
@@ -245,6 +255,12 @@ def fused_scan(
             pp.data_ptr(), out.data_ptr(), float(sigma), b, nslices, *strides, clusters,
         )
         cluster_scan.launches += 1
+    elif b and route == "wide":
+        fs.launch(
+            "fdes_wide_scan_c64", psi0.device, n, psi.data_ptr(), v32.data_ptr(), pp.data_ptr(),
+            out.data_ptr(), float(sigma), b, nslices, *strides,
+        )
+        wide_scan.launches += 1
     elif b:
         fs.launch(
             "fdes_fused_scan_c64", psi0.device, n, psi.data_ptr(), v32.data_ptr(), pp.data_ptr(),
@@ -262,19 +278,36 @@ def cluster_scan(
     return fused_scan(psi0, v_stack, propagator, sigma, route="cluster")
 
 
-count_launches(fused_scan, cluster_scan)
+def wide_scan(
+    psi0: torch.Tensor, v_stack: torch.Tensor, propagator: torch.Tensor, sigma: float
+) -> torch.Tensor:
+    """``fused_scan`` on the wide kernel whatever the route table says
+    (128^2 to 1024^2); plain on the CPU."""
+    return fused_scan(psi0, v_stack, propagator, sigma, route="wide")
+
+
+count_launches(fused_scan, cluster_scan, wide_scan)
+
+
+def _kernel_info(entry: str, n: int, device: torch.device | str) -> dict:
+    dev = torch.device(device)
+    if dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    out = (ctypes.c_int * 4)()
+    fs.launch(entry, dev, n, ctypes.cast(out, ctypes.c_void_p))
+    return {"registers": out[0], "shared_bytes": out[1], "local_bytes": out[2],
+            "resident_blocks": out[3]}
 
 
 def scan_kernel_info(n: int, device: torch.device | str = "cuda") -> dict:
     """Registers, shared and local memory and resident blocks of the scan
     kernel for axis size n, as the CUDA runtime reports them."""
-    dev = torch.device(device)
-    if dev.index is None:
-        dev = torch.device("cuda", torch.cuda.current_device())
-    out = (ctypes.c_int * 4)()
-    fs.launch("fdes_fused_scan_info", dev, n, ctypes.cast(out, ctypes.c_void_p))
-    return {"registers": out[0], "shared_bytes": out[1], "local_bytes": out[2],
-            "resident_blocks": out[3]}
+    return _kernel_info("fdes_fused_scan_info", n, device)
+
+
+def wide_scan_kernel_info(n: int, device: torch.device | str = "cuda") -> dict:
+    """The same of the wide scan kernel."""
+    return _kernel_info("fdes_wide_scan_info", n, device)
 
 
 class WholeScanEngine:

@@ -84,6 +84,11 @@ _ARGTYPES = {
         _I64, _I64, _P,
     ],
     "fdes_fused_scan_info": [ctypes.c_int, ctypes.c_int, _P],
+    "fdes_wide_scan_c64": [
+        ctypes.c_int, ctypes.c_int, _P, _P, _P, _P, ctypes.c_double, _I64, ctypes.c_int,
+        _I64, _I64, _P,
+    ],
+    "fdes_wide_scan_info": [ctypes.c_int, ctypes.c_int, _P],
     "fdes_cluster_scan_c64": [
         ctypes.c_int, ctypes.c_int, _P, _P, _P, _P, ctypes.c_double, _I64, ctypes.c_int,
         _I64, _I64, ctypes.c_int, _P,

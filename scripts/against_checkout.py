@@ -18,11 +18,12 @@ checkouts' entry points must take the same arguments.
 the other's kernel, each held to the plain version and timed in turns
 (``ms``, ``plain_ms``, ``other_ms``), beside the byte bound.
 
-``bits``: the kernels on the wide row functions of csrc/fused_fft.cuh (the
-whole-loop adjoint's store pair on both routes, the wide fused step and its
-adjoint) at five shapes, on inputs made with numpy from a seed: this
-checkout's outputs held to the other's bit for bit.  A change that only
-moves device code must keep them.
+``bits``: the kernels on the wide row functions and the wide sweep of
+csrc/fused_fft.cuh (the whole-loop adjoint's store pair on both routes, its
+segment pair on the wide kernels, the wide fused step and its adjoint) at
+five shapes, on inputs made with numpy from a seed: this checkout's outputs
+held to the other's bit for bit.  A change that only moves device code must
+keep them.
 
 Prints one JSON line (and writes it to ``--out`` when given); ``bits`` exits
 1 when a tensor differs.
@@ -58,6 +59,9 @@ class Checkout:
         path = os.path.join(root, "fdes_tpu_torch", "kernels", "_build.py")
         spec = importlib.util.spec_from_file_location("other_build", path)
         build = importlib.util.module_from_spec(spec)
+        # its relative imports (the span around a build) resolve to this
+        # checkout's package: only its sources and build directory are its own
+        build.__package__ = "fdes_tpu_torch.kernels"
         spec.loader.exec_module(build)
         self.root = root
         self.libs = {name: build.load(name) for name in libs}
@@ -110,8 +114,10 @@ def turns(other: Checkout, kernels=SLICE_KERNELS) -> dict:
 
 def wide_row_outputs() -> dict[str, torch.Tensor]:
     """{name: CPU tensor} of the store pair on both routes (the backward on
-    the plain forward's s, two wave groups where there are two waves) and of
-    the wide step and its adjoint at BITS_SHAPES."""
+    the plain forward's s, two wave groups where there are two waves), of
+    the segment pair's wide kernels (segments of half the slices, the
+    backward on the plain forward's checkpoints) and of the wide step and
+    its adjoint at BITS_SHAPES."""
     from fdes_tpu_torch.constants import interaction_sigma
     from fdes_tpu_torch.kernels import adjoint_scan as adj
     from fdes_tpu_torch.kernels import fused_step as fs
@@ -135,6 +141,12 @@ def wide_row_outputs() -> dict[str, torch.Tensor]:
             back = adj.fused_scan_bwd_store(s_ref, v, pr, g, sigma, groups=min(b, 2), route=r)
             for name, t in zip(("out", "s", "dv", "dpsi"), (*got, *back)):
                 out[f"{key}/{r}/{name}"] = t.cpu()
+        seg = ns // 2
+        _, ck_ref = adj.fused_scan_ck_ref(psi0, v, pr, sigma, seg)
+        got = adj.wide_scan_ck(psi0, v, pr, sigma, seg)
+        back = adj.wide_scan_bwd_ck(ck_ref, v, pr, g, sigma, seg, groups=min(b, 2))
+        for name, t in zip(("out", "ck", "dv", "dpsi"), (*got, *back)):
+            out[f"{key}/wide_seg/{name}"] = t.cpu()
         step = fs.fused_step(psi0, v[0], pr, sigma, route="wide")
         step_bwd = fs.fused_step_bwd(psi0, v[0], g, pr, sigma)
         for name, t in zip(("step", "step_dpsi", "step_dv"), (step, *step_bwd)):

@@ -259,18 +259,21 @@ def test_cluster_model_rollout_equals_jax(n, b, nslices, per_wave_p):
 
 
 def test_scan_route_is_the_table():
-    """1024^2 takes scan_kernel; each measured (n, B) takes its row; a B
-    between rows takes the row below it, one above the last row the last,
-    one below the first the first; B = 0 or S = 0 launches nothing."""
-    assert fsc.scan_route(1024, 1) == fsc.scan_route(1024, 64) == "scan"
+    """Every size of the kernels, 1024^2 too, has rows, 1024^2 without the
+    cluster kernel; a grid outside the table takes scan_kernel; each
+    measured (n, B) takes its row; a B between rows takes the row below it,
+    one above the last row the last, one below the first the first; B = 0
+    or S = 0 launches nothing."""
+    assert fsc.scan_route(1024, 1) == fsc.SCAN_ROUTE[1024][1]
+    assert "cluster" not in fsc.SCAN_ROUTE[1024].values()
     assert fsc.scan_route(2048, 4) == "scan"
-    assert set(fsc.SCAN_ROUTE) == set(fsc.CLUSTER_CTAS)
+    assert set(fsc.SCAN_ROUTE) == set(fs.SIZES)
     for n, rows in fsc.SCAN_ROUTE.items():
         measured = sorted(rows)
         for b in measured:
             assert fsc.scan_route(n, b) == rows[b]
             assert fsc.scan_route(n, b, nslices=128) == rows[b]
-            assert set(rows.values()) <= {"scan", "cluster"}
+            assert set(rows.values()) <= {"scan", "cluster", "wide"}
         for lo, hi in zip(measured, measured[1:]):
             assert all(fsc.scan_route(n, b) == rows[lo] for b in range(lo, hi))
         assert fsc.scan_route(n, 10 * measured[-1]) == rows[measured[-1]]
@@ -281,7 +284,7 @@ def test_fused_scan_without_slices_is_as_before():
     """S = 0 gives psi0 back whatever the route asks for (B = 0 launches
     nothing: scan_route gives None, above)."""
     psi, v, prop = (torch.as_tensor(a) for a in _fields(128, 2, 2, seed=5, dtype=np.complex64))
-    for route in (None, "scan", "cluster"):
+    for route in (None, "scan", "cluster", "wide"):
         assert torch.equal(fsc.fused_scan(psi, v[:0], prop, SIGMA, route=route), psi)
 
 
