@@ -120,6 +120,13 @@ wrapper raises; complex128 on the card raises ``TypeError``.
 one per call of a pass wrapper; ``panel_scan``, ``panel_scan_store``,
 ``panel_scan_bwd_store`` and ``panel_streamed`` add their loops' passes to the
 pass wrappers' counts and count their own calls.
+
+The whole loops are spans of ``profiling`` (``panel_scan.forward``,
+``panel_scan.streamed``, and ``panel_scan.forward_store`` and
+``panel_scan.backward`` of ``panel_diff_apply``'s store pair); no pass is
+one.  While the spans are on, each count of ``_count`` also goes to the
+innermost open span's counter ``launches.<wrapper>`` (``.<route>`` added for
+a routed pass).
 """
 
 from __future__ import annotations
@@ -131,6 +138,7 @@ import torch
 from torch.autograd.function import once_differentiable
 from torch.utils.checkpoint import checkpoint
 
+from ..profiling import count, span
 from . import _build, count_launches, reset_launches  # noqa: F401 - reset_launches re-exported
 from . import fused_step as fs
 from .fused_scan import WholeScanEngine, _batching
@@ -715,10 +723,14 @@ def panel_col_bwd(bar: torch.Tensor, propagator: torch.Tensor) -> torch.Tensor:
 
 def _count(wrapper, k: int = 1, route: str | None = None) -> None:
     """Add k launches to a wrapper's count, and a routed pass's (ROUTED) to
-    its count of ``route`` too."""
+    its count of ``route`` too; the same to the innermost open span's
+    counter ``launches.<wrapper>[.<route>]`` while the spans are on."""
     wrapper.launches += k
+    name = "launches." + wrapper.__name__
     if wrapper in ROUTED:
         wrapper.launches_by_route[route] += k
+        name += "." + route
+    count(name, k)
 
 
 def _colpass(a: torch.Tensor, prepared: torch.Tensor, conj: bool = False,
@@ -947,35 +959,39 @@ def panel_scan(
     call on CUDA, plain on the CPU.  psi0 (n, n) or (B, n, n); v_stack a real
     or complex (absorptive) (S, n, n) stack shared by the waves; propagator
     (n, n) or (B, n, n).  Returns psi0's shape, or (B, n, n) when a per-wave
-    propagator broadcasts a single psi0.  Forward only: no graph."""
-    psi, b, batched = _broadcast(psi0, v_stack, propagator, "panel_scan")
-    if not psi0.is_cuda:
-        return panel_scan_ref(psi0, v_stack, propagator, sigma)
-    psi = psi.contiguous()
-    flat, n = _wave(psi, "psi0", "panel_scan")
-    s = v_stack.shape[0]
-    absorptive = v_stack.is_complex()
-    # a complex V read in place (complex128 converted once), a real one as float32
-    v = _potential(v_stack, (s, n, n), psi0.device, "v_stack", "panel_scan",
-                   torch.complex64 if absorptive else torch.float32)
-    if propagator.device != psi0.device:
-        raise ValueError(f"panel_scan: propagator on {propagator.device}, psi0 on {psi0.device}")
-    pp = prepare_propagator(propagator)
-    out = torch.empty_like(flat)
-    col, code = _route_code("panel_scan", None, n, b, "col")
-    row, row_code = _route_code("panel_scan", None, n, b, "row_abs" if absorptive else "row")
-    init, init_code = _route_code("panel_scan", None, n, b, "init")
-    _launch("fdes_panel_scan_c64", psi0.device, n, flat.data_ptr(), v.data_ptr(),
-            int(absorptive), pp.data_ptr(), out.data_ptr(), float(sigma), b, s,
-            n * n if pp.ndim == 3 else 0, code, row_code, init_code)
-    panel_scan.launches += 1
-    if absorptive:
-        _count_loop(s, panel_init_abs, panel_colpass, panel_rowpass_stack_abs, panel_final, col,
-                    row)
-    else:
-        _count_loop(s, panel_init, panel_colpass, panel_rowpass_stack, panel_final, col, row,
-                    init)
-    return out if batched else out[0]
+    propagator broadcasts a single psi0.  Forward only: no graph.  The call
+    is the span ``panel_scan.forward`` of ``profiling`` (its launches the
+    2S + 1 passes, by pass and route in its counters)."""
+    with span("panel_scan.forward"):
+        psi, b, batched = _broadcast(psi0, v_stack, propagator, "panel_scan")
+        if not psi0.is_cuda:
+            return panel_scan_ref(psi0, v_stack, propagator, sigma)
+        psi = psi.contiguous()
+        flat, n = _wave(psi, "psi0", "panel_scan")
+        s = v_stack.shape[0]
+        absorptive = v_stack.is_complex()
+        # a complex V read in place (complex128 converted once), a real one as float32
+        v = _potential(v_stack, (s, n, n), psi0.device, "v_stack", "panel_scan",
+                       torch.complex64 if absorptive else torch.float32)
+        if propagator.device != psi0.device:
+            raise ValueError(f"panel_scan: propagator on {propagator.device}, "
+                             f"psi0 on {psi0.device}")
+        pp = prepare_propagator(propagator)
+        out = torch.empty_like(flat)
+        col, code = _route_code("panel_scan", None, n, b, "col")
+        row, row_code = _route_code("panel_scan", None, n, b, "row_abs" if absorptive else "row")
+        init, init_code = _route_code("panel_scan", None, n, b, "init")
+        _launch("fdes_panel_scan_c64", psi0.device, n, flat.data_ptr(), v.data_ptr(),
+                int(absorptive), pp.data_ptr(), out.data_ptr(), float(sigma), b, s,
+                n * n if pp.ndim == 3 else 0, code, row_code, init_code)
+        panel_scan.launches += 1
+        if absorptive:
+            _count_loop(s, panel_init_abs, panel_colpass, panel_rowpass_stack_abs, panel_final, col,
+                        row)
+        else:
+            _count_loop(s, panel_init, panel_colpass, panel_rowpass_stack, panel_final, col, row,
+                        init)
+        return out if batched else out[0]
 
 
 def panel_scan_store(
@@ -1232,7 +1248,8 @@ def panel_streamed(
     column pass and the fused row pass, each one launch on the card, all
     issued from C in one call (the plain passes on the CPU).
     Forward only: it raises when autograd records and psi0, the propagator or
-    the factors require a gradient.
+    the factors require a gradient.  The call is the span
+    ``panel_scan.streamed`` of ``profiling``.
     """
     if torch.is_grad_enabled() and any(
         t.requires_grad for t in (psi0, propagator, ff_full)
@@ -1242,9 +1259,11 @@ def panel_streamed(
             "torch.no_grad() or on detached tensors, or differentiate with respect to psi0 "
             "through a per-slice engine ('xla', 'pallas', 'fused')"
         )
-    if psi0.is_cuda:
-        panel_streamed.launches += 1  # its calls; the passes count their launches
-    return _streamed(psi0, atoms_xyspw, ff_full, propagator, float(sigma), shape, pixel, False)
+    with span("panel_scan.streamed"):
+        if psi0.is_cuda:
+            panel_streamed.launches += 1  # its calls; the passes count their launches
+        return _streamed(psi0, atoms_xyspw, ff_full, propagator, float(sigma), shape, pixel,
+                         False)
 
 
 def panel_streamed_ref(
@@ -1285,12 +1304,14 @@ count_launches(*LOOPS, calls=True)
 
 class _PanelScanDiff(torch.autograd.Function):
     """The whole loop and its adjoint over the stored s: 2S + 1 panel passes
-    each way, issued from C."""
+    each way, issued from C; the spans ``panel_scan.forward_store`` and
+    ``panel_scan.backward``."""
 
     @staticmethod
     def forward(ctx, psi_b, v_stack, propagator, sigma):
-        prepared = prepare_propagator(propagator) if psi_b.is_cuda else None
-        out, s = panel_scan_store(psi_b, v_stack, propagator, sigma, prepared=prepared)
+        with span("panel_scan.forward_store"):
+            prepared = prepare_propagator(propagator) if psi_b.is_cuda else None
+            out, s = panel_scan_store(psi_b, v_stack, propagator, sigma, prepared=prepared)
         ctx.sigma = sigma
         ctx.save_for_backward(s, v_stack, propagator, prepared)
         return out
@@ -1299,8 +1320,9 @@ class _PanelScanDiff(torch.autograd.Function):
     @once_differentiable
     def backward(ctx, g):
         s, v_stack, propagator, prepared = ctx.saved_tensors
-        dv, dpsi = panel_scan_bwd_store(s, v_stack, propagator, _dense(g), ctx.sigma,
-                                        prepared=prepared)
+        with span("panel_scan.backward"):  # on autograd's thread for CUDA tensors
+            dv, dpsi = panel_scan_bwd_store(s, v_stack, propagator, _dense(g), ctx.sigma,
+                                            prepared=prepared)
         need_psi, need_v = ctx.needs_input_grad[:2]
         return (dpsi if need_psi else None, dv.to(v_stack.dtype) if need_v else None, None,
                 None)

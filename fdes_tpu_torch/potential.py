@@ -37,6 +37,15 @@ from .profiling import span
 from .scattering import ScatteringTable, species_form_factors
 from .specimen import SlicedAtoms
 
+#: A stack of V above this many bytes is transformed in chunks of slices by
+#: ``build_potential`` when no ``slice_chunk`` is given: whole, its build
+#: holds the deltas, their spectra, the product and the inverse at once,
+#: ~5x the stack (~40 GiB beside an 8 GiB stack at 2048^2 x 512 slices)
+WHOLE_BUILD_BYTES = 4 * 2**30
+#: the bytes of delta planes (slices x species) a chunk of such a build
+#: transforms
+BUILD_CHUNK_BYTES = 2**30
+
 
 def rfft_q2(grid: Grid) -> np.ndarray:
     """|q|^2 on the rfft2 output grid (ny, nx//2 + 1), float64, 1/Å^2."""
@@ -142,7 +151,8 @@ def deltas_to_potential(
     """FFT * form-factor * IFFT: (S, nsp, ny, nx) deltas -> (S, ny, nx) V*Å.
 
     slice_chunk bounds peak memory by transforming groups of at most that
-    many slices at a time, for large S*N^2 (pod config, SURVEY.md §7).
+    many slices at a time, each written into the one (S, ny, nx) result, for
+    large S*N^2 (pod config, SURVEY.md §7).
     """
     ny, nx = shape
     py, px = pixel
@@ -156,9 +166,10 @@ def deltas_to_potential(
     s = deltas.shape[0]
     if slice_chunk is None or s <= slice_chunk:
         return one_chunk(deltas)
-    return torch.cat(
-        [one_chunk(deltas[i : i + slice_chunk]) for i in range(0, s, slice_chunk)]
-    )
+    out = torch.empty((s, ny, nx), dtype=deltas.dtype, device=deltas.device)
+    for i in range(0, s, slice_chunk):
+        out[i : i + slice_chunk] = one_chunk(deltas[i : i + slice_chunk])
+    return out
 
 
 def build_potential(
@@ -172,11 +183,16 @@ def build_potential(
     """Host-facing wrapper: SlicedAtoms -> (S, ny, nx) projected potential.
 
     Form factors are evaluated on the host in f64 (scattering.py) and cast;
-    the scatter + FFT pipeline runs on ``device``.  A set-up span of
-    ``profiling``: ``setup.build_potential``.
+    the scatter + FFT pipeline runs on ``device``.  ``slice_chunk`` None
+    transforms the stack whole up to WHOLE_BUILD_BYTES of V, and past it in
+    chunks of BUILD_CHUNK_BYTES.  A set-up span of ``profiling``:
+    ``setup.build_potential``.
     """
     with span("setup.build_potential"):
         rdt = np.float32 if dtype == torch.float32 else np.float64
+        plane = grid.shape[0] * grid.shape[1] * np.dtype(rdt).itemsize
+        if slice_chunk is None and sliced.nslices * plane > WHOLE_BUILD_BYTES:
+            slice_chunk = max(1, BUILD_CHUNK_BYTES // (plane * len(sliced.species)))
         ff = species_factors_rfft(grid, sliced.species, table).astype(rdt)
 
         def put(a):

@@ -63,6 +63,31 @@ def test_slice_chunk_equals_unchunked(si110_small, chunk):
     assert _rel_max(chunked.numpy(), full.numpy()) <= 1e-14
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_a_stack_past_the_bound_is_built_in_chunks(si110_small, monkeypatch, dtype):
+    """Without a slice_chunk, a stack of V above WHOLE_BUILD_BYTES is
+    transformed in chunks of BUILD_CHUNK_BYTES of delta planes (config 5's
+    8 GiB stack in 64-slice chunks), and one at or below it whole; the
+    result is the whole build's."""
+    c5_plane = 2048 * 2048 * 4  # float32; the benchmark's 512^2 stacks are 64-256 MiB
+    assert 256 * 512 * 512 * 4 <= tpot.WHOLE_BUILD_BYTES < 512 * c5_plane
+    assert tpot.BUILD_CHUNK_BYTES // c5_plane == 64
+    _, grid, sliced = si110_small
+    plane = grid.ny * grid.nx * torch.empty((), dtype=dtype).element_size()
+    full = tpot.build_potential(sliced, _tgrid(grid), dtype=dtype)
+    chunks = []
+    inner = tpot.deltas_to_potential
+    monkeypatch.setattr(tpot, "deltas_to_potential",
+                        lambda *a, **k: chunks.append(k["slice_chunk"]) or inner(*a, **k))
+    monkeypatch.setattr(tpot, "WHOLE_BUILD_BYTES", sliced.nslices * plane)
+    tpot.build_potential(sliced, _tgrid(grid), dtype=dtype)
+    monkeypatch.setattr(tpot, "WHOLE_BUILD_BYTES", sliced.nslices * plane - 1)
+    monkeypatch.setattr(tpot, "BUILD_CHUNK_BYTES", 3 * plane * len(sliced.species))
+    chunked = tpot.build_potential(sliced, _tgrid(grid), dtype=dtype)
+    assert chunks == [None, 3]
+    assert _rel_max(chunked.numpy(), full.numpy()) <= TOL[dtype] / 100
+
+
 def test_scatter_deltas_equals_jax(si110_small):
     _, grid, sliced = si110_small
     kw = dict(nslices=sliced.nslices, nspecies=len(sliced.species), shape=grid.shape,
