@@ -2030,7 +2030,7 @@ def xform_library_turns(checks: list, card: CardInputs, inverse: bool) -> dict:
             if n < 2048:
                 continue
             if inverse:
-                z_nat = z[..., ps._perm(n, z.device)].contiguous()  # natural order
+                z_nat = z[..., ps.fs.bit_reversal(n, z.device)].contiguous()  # natural order
                 library = functools.partial(torch.fft.ifft, z_nat, dim=-1, norm="forward")
             else:
                 library = functools.partial(torch.fft.fft, z, dim=-1)

@@ -388,7 +388,7 @@ def _operands(what, psi, v_stack, propagator, prepared, seg, **more):
     if psi.dtype != torch.complex64:
         raise TypeError(f"{what}: the CUDA kernel takes complex64, got {psi.dtype}")
     v32 = v_stack.to(torch.float32)
-    pp = fs.prepare_propagator(propagator) if prepared is None else prepared
+    pp = fs.prepared_propagator(propagator) if prepared is None else prepared
     if pp.dtype != torch.complex64 or pp.shape != propagator.shape:
         raise ValueError(f"{what}: prepared propagator {pp.dtype} {tuple(pp.shape)} does not "
                          f"match the propagator {tuple(propagator.shape)}")
@@ -602,7 +602,7 @@ class _ScanDiff(torch.autograd.Function):
     @staticmethod
     def forward(ctx, psi_b, v_stack, propagator, sigma, seg):
         with span("adjoint_scan.forward"):
-            prepared = fs.prepare_propagator(propagator) if psi_b.is_cuda else None
+            prepared = fs.prepared_propagator(propagator) if psi_b.is_cuda else None
             if seg == 0:
                 out, keep = fused_scan_store(psi_b, v_stack, propagator, sigma,
                                              prepared=prepared)

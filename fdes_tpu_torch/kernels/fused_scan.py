@@ -151,13 +151,13 @@ def scan_route(n: int, b: int, nslices: int = 1) -> str | None:
 
 
 @functools.lru_cache(maxsize=None)
-def _cluster_order_host(n: int) -> tuple[np.ndarray, np.ndarray]:
+def _cluster_rows_host(n: int) -> np.ndarray:
     c = CLUSTER_CTAS[n]
     r = n // c
     br_r, br_c = fs._bit_reversal_host(r), fs._bit_reversal_host(c)
     rows = (br_r[None, :] + r * br_c[:, None]).reshape(-1)
     rows.setflags(write=False)
-    return rows, fs._bit_reversal_host(n)
+    return rows
 
 
 def cluster_order(n: int, device: torch.device | str | None = None) -> tuple[torch.Tensor,
@@ -165,21 +165,23 @@ def cluster_order(n: int, device: torch.device | str | None = None) -> tuple[tor
     """(rows (n,), cols (n,)) int64: the frequencies (k_y, k_x) that the
     cluster kernel holds at row j R + r', column x' of its spectrum, with C
     CTAs a cluster and R = n / C: k_y = bitrev_R(r') + R bitrev_C(j) (r' the
-    R-point transform's output slot, j the C-point one's), k_x = bitrev_n(x')."""
-    rows, cols = _cluster_order_host(n)
-    return torch.from_numpy(rows.copy()).to(device), torch.from_numpy(cols.copy()).to(device)
+    R-point transform's output slot, j the C-point one's), k_x = bitrev_n(x').
+    Copied once per (n, device) and shared (``fused_step.device_index``)."""
+    return (fs.device_index(f"cluster_rows{n}", _cluster_rows_host(n), device),
+            fs.bit_reversal(n, device))
 
 
 def prepare_cluster_propagator(propagator: torch.Tensor) -> torch.Tensor:
     """The (..., n, n) propagator as the cluster kernel reads it: complex64,
     contiguous, P[..., rows[a], cols[b]] at [..., a, b] (``cluster_order``).
-    Unscaled: the kernel applies the inverse transform's 1/n^2 itself."""
+    Unscaled: the kernel applies the inverse transform's 1/n^2 itself.
+    Computed anew on every call; ``fused_scan`` reads the cached copy
+    (``fused_step.prepared_propagator``, layout "cluster")."""
     n = propagator.shape[-1]
     if propagator.shape[-2] != n or n not in CLUSTER_CTAS:
         raise ValueError(f"the cluster scan takes square grids of {tuple(CLUSTER_CTAS)}, got "
                          f"{tuple(propagator.shape[-2:])}")
-    rows, cols = cluster_order(n, propagator.device)
-    return propagator.to(torch.complex64)[..., rows[:, None], cols[None, :]].contiguous()
+    return fs._prepare(propagator, "cluster")
 
 
 _clusters: dict[tuple[int, int], dict] = {}
@@ -236,8 +238,7 @@ def fused_scan(
         if not psi.is_contiguous() and psi0.ndim == 2:
             psi = psi.contiguous()  # a single wave broadcast over per-wave V or P
         v32 = v_stack.to(torch.float32)
-        pp = (prepare_cluster_propagator if route == "cluster"
-              else fs.prepare_propagator)(propagator)
+        pp = fs.prepared_propagator(propagator, "cluster" if route == "cluster" else "bitrev")
     for name, t in (("psi0", psi), ("v_stack", v32), ("propagator", pp)):
         if t.device != psi0.device:
             raise ValueError(f"fused_scan: {name} on {t.device}, psi0 on {psi0.device}")

@@ -36,8 +36,10 @@ step also by route in ``fused_step.launches_by_route``.
 The kernels leave the spectrum in bit-reversed order in both axes (a forward
 decimation-in-frequency transform, undone by a decimation-in-time inverse),
 so they take the propagator in that order: ``prepare_propagator`` gathers
-P[bitrev(a), bitrev(b)] once, and every wrapper accepts the result as
-``prepared=`` so that a slice loop permutes P once, not per slice.
+P[bitrev(a), bitrev(b)], and every wrapper accepts the result as
+``prepared=``.  Without one, a wrapper reads ``prepared_propagator``, the
+package's one cache of gathered propagators on the device, so that a slice
+loop, or a series of calls on one unchanged propagator, permutes P once.
 
 The adjoint is re-derived for PyTorch's convention (the gradient of a complex
 z is dL/dRe z + i dL/dIm z), not transcribed from the TPU kernel, which runs
@@ -55,11 +57,14 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import threading
 from typing import Callable
 
 import numpy as np
 import torch
+from torch.utils.weak import WeakIdKeyDictionary
 
+from ..profiling import count
 from . import _build, count_launches, reset_launches  # noqa: F401 - reset_launches re-exported
 from .slice_step import _check_dense, _dense, _sum_batch, pallas_slice_step, transmit_ref
 
@@ -233,20 +238,99 @@ def _bit_reversal_host(n: int) -> np.ndarray:
     return out
 
 
+_index_copies: dict[tuple, torch.Tensor] = {}
+#: guards _index_copies and _prepared: any thread may prepare
+_cache_lock = threading.RLock()
+
+
+def device_index(name: str, host: np.ndarray, device: torch.device | str | None) -> torch.Tensor:
+    """The copy on ``device`` of the host index array ``name`` (a name that
+    fixes its values), made once per (name, device) and shared: read it,
+    never write it."""
+    dev = torch.device("cpu" if device is None else device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    key = (name, dev)
+    with _cache_lock:
+        out = _index_copies.get(key)
+        if out is None:
+            out = _index_copies[key] = torch.from_numpy(host.copy()).to(dev)
+    return out
+
+
 def bit_reversal(n: int, device: torch.device | str | None = None) -> torch.Tensor:
     """(n,) int64: the index whose log2(n) bits are those of i, reversed.
-    Built once per n on the host; one copy to ``device`` per call."""
-    return torch.from_numpy(_bit_reversal_host(n).copy()).to(device)
+    Built once per n on the host and copied once per (n, device); the copy
+    is shared (``device_index``)."""
+    return device_index(f"bitrev{n}", _bit_reversal_host(n), device)
 
 
 def prepare_propagator(propagator: torch.Tensor) -> torch.Tensor:
     """The (..., n, n) propagator as the kernels read it: complex64,
     contiguous, P[..., bitrev(a), bitrev(b)] at [..., a, b].  Unscaled: the
-    kernel applies the inverse transform's 1/n^2 itself."""
+    kernel applies the inverse transform's 1/n^2 itself.  Computed anew on
+    every call; the wrappers read ``prepared_propagator``'s cached copy."""
+    check_size(propagator.shape[-2], propagator.shape[-1], "the fused step")
+    return _prepare(propagator, "bitrev")
+
+
+LAYOUTS = ("bitrev", "cluster")
+#: propagator -> {layout: ((its _version, data_ptr, device, dtype, shape), prepared copy)}
+_prepared = WeakIdKeyDictionary()
+
+
+def prepared_propagator(propagator: torch.Tensor, layout: str = "bitrev") -> torch.Tensor:
+    """The square (..., n, n) propagator as a kernel reads it, from the
+    package's one cache of prepared propagators.  ``layout`` "bitrev" is
+    ``prepare_propagator``'s gather, which the fused step, the whole-loop
+    scan and its adjoint and the panel passes read; "cluster" is
+    ``fused_scan.prepare_cluster_propagator``'s.  The sizes are the
+    caller's to check.
+
+    An entry lives on the propagator's device for as long as the
+    propagator does (keyed by its identity) and holds while its
+    ``_version``, storage, device, dtype and shape do: a propagator changed
+    in place is prepared again.  The entry is shared, and no kernel writes
+    into it.  A propagator that requires a gradient while autograd records
+    (the gather would carry its graph), and any in inference mode (no
+    version to read), is prepared anew.  Counts ``prepare.hit``,
+    ``prepare.miss`` or ``prepare.bypass`` in the innermost open span."""
+    if layout not in LAYOUTS:
+        raise ValueError(f"prepared_propagator: layout must be one of {LAYOUTS}, got {layout!r}")
     n = propagator.shape[-1]
-    check_size(propagator.shape[-2], n, "the fused step")
-    idx = bit_reversal(n, propagator.device)
-    return propagator.to(torch.complex64)[..., idx[:, None], idx[None, :]].contiguous()
+    if propagator.ndim < 2 or propagator.shape[-2] != n:
+        raise ValueError(f"prepared_propagator: the propagator must be (..., n, n), got "
+                         f"{tuple(propagator.shape)}")
+    if (propagator.requires_grad and torch.is_grad_enabled()) or propagator.is_inference() \
+            or torch.is_inference_mode_enabled():
+        count("prepare.bypass")
+        return _prepare(propagator, layout)
+    key = (propagator._version, propagator.data_ptr(), propagator.device, propagator.dtype,
+           propagator.shape)
+    with _cache_lock:
+        entries = _prepared.get(propagator)
+        if entries is None:
+            entries = _prepared[propagator] = {}
+        entry = entries.get(layout)
+        if entry is not None and entry[0] == key:
+            count("prepare.hit")
+            return entry[1]
+        count("prepare.miss")
+        out = _prepare(propagator, layout)
+        entries[layout] = (key, out)
+    return out
+
+
+def _prepare(propagator: torch.Tensor, layout: str) -> torch.Tensor:
+    """The gather of ``layout`` (LAYOUTS), uncached and unchecked."""
+    n = propagator.shape[-1]
+    if layout == "cluster":
+        from .fused_scan import cluster_order
+
+        rows, cols = cluster_order(n, propagator.device)
+    else:
+        rows = cols = bit_reversal(n, propagator.device)
+    return propagator.to(torch.complex64)[..., rows[:, None], cols[None, :]].contiguous()
 
 
 def _operands(psi, v, propagator, prepared, what):
@@ -268,7 +352,7 @@ def _operands(psi, v, propagator, prepared, what):
             f"{what}: propagator {tuple(propagator.shape)} is neither ({n}, {n}) nor "
             f"psi's {tuple(psi.shape)}"
         )
-    pp = prepare_propagator(propagator) if prepared is None else prepared
+    pp = prepared_propagator(propagator) if prepared is None else prepared
     if pp.dtype != torch.complex64 or pp.shape != propagator.shape:
         raise ValueError(f"{what}: prepared propagator {pp.dtype} {tuple(pp.shape)} does not "
                          f"match the propagator {tuple(propagator.shape)}")
@@ -408,7 +492,7 @@ def fused_slice_step(
     if not psi.is_cuda:
         return fused_slice_step_ref(psi, v, propagator, sigma)
     if prepared is None:
-        prepared = prepare_propagator(propagator)
+        prepared = prepared_propagator(propagator)
     return _FusedStep.apply(psi, v, propagator, prepared, sigma)
 
 
@@ -419,21 +503,14 @@ def make_fused_slice_step(
 
     Square grids of 128, 256, 512 or 1024, real V.  A complex (absorptive) V
     goes through ``pallas_slice_step``, the kernels around cuFFT, at call
-    time.  The step keeps the bit-reversed copy of the last propagator it
-    saw, so a slice loop permutes P once.
+    time.  The step reads the propagator's bit-reversed copy from
+    ``prepared_propagator``'s cache, so a slice loop permutes P once.
     """
     check_size(ny, nx, "the fused step")
-    last: list = [None, None, None]  # the propagator, its version, its prepared copy
 
     def step(psi, v_slice, propagator, sigma):
         if v_slice.is_complex():
             return pallas_slice_step(psi, v_slice, propagator, sigma)
-        psi = psi.to(dtype)
-        prepared = None
-        if psi.is_cuda:
-            if last[0] is not propagator or last[1] != propagator._version:
-                last[:] = [propagator, propagator._version, prepare_propagator(propagator)]
-            prepared = last[2]
-        return fused_slice_step(psi, v_slice, propagator, sigma, prepared=prepared)
+        return fused_slice_step(psi.to(dtype), v_slice, propagator, sigma)
 
     return step

@@ -107,7 +107,9 @@ with its spectrum in bit-reversed order (a[..., k] = FFT_x[..., bitrev(k)]),
 Fx^H, Fy^H the unscaled inverse transforms, and the 1/n^2 rides on the
 column pass, so b = Fx(psi_next) / n.  At the boundary psi, V, s, dV and the
 propagator are in natural order; ``prepare_propagator`` gathers P in
-bit-reversed order in both axes, once per call.
+bit-reversed order in both axes, and the passes read that gather from the
+package's cache on the device (``fused_step.prepared_propagator``): once a
+propagator, not once a call.
 
 psi is complex64 (n, n) or (B, n, n), V real (or, in the absorptive passes,
 complex: Vr + i Vi) and shared by the waves, the propagator (n, n) or one per
@@ -132,7 +134,6 @@ a routed pass).
 from __future__ import annotations
 
 import ctypes
-import functools
 
 import torch
 from torch.autograd.function import once_differentiable
@@ -309,11 +310,18 @@ def check_size(ny: int, nx: int, what: str) -> None:
 
 def prepare_propagator(propagator: torch.Tensor) -> torch.Tensor:
     """The (..., n, n) propagator as the column pass reads it: complex64,
-    contiguous, P[..., bitrev(a), bitrev(b)] at [..., a, b], unscaled."""
-    n = propagator.shape[-1]
-    check_size(propagator.shape[-2], n, "the panel scan")
-    idx = fs.bit_reversal(n, propagator.device)
-    return propagator.to(torch.complex64)[..., idx[:, None], idx[None, :]].contiguous()
+    contiguous, P[..., bitrev(a), bitrev(b)] at [..., a, b], unscaled (the
+    fused step's layout).  Computed anew on every call; the passes read
+    ``_prepared``'s cached copy."""
+    check_size(propagator.shape[-2], propagator.shape[-1], "the panel scan")
+    return fs._prepare(propagator, "bitrev")
+
+
+def _prepared(propagator: torch.Tensor) -> torch.Tensor:
+    """``prepare_propagator``'s tensor from the package's cache
+    (``fused_step.prepared_propagator``, layout "bitrev")."""
+    check_size(propagator.shape[-2], propagator.shape[-1], "the panel scan")
+    return fs.prepared_propagator(propagator)
 
 
 def prepare_factors(
@@ -339,20 +347,15 @@ def prepare_factors(
 # ---- plain versions --------------------------------------------------------
 
 
-@functools.lru_cache(maxsize=None)
-def _perm(n: int, device: torch.device) -> torch.Tensor:
-    return fs.bit_reversal(n, device)
-
-
 def _fx(z: torch.Tensor) -> torch.Tensor:
     """Forward x transform, spectrum in bit-reversed order."""
-    return torch.fft.fft(z, dim=-1)[..., _perm(z.shape[-1], z.device)]
+    return torch.fft.fft(z, dim=-1)[..., fs.bit_reversal(z.shape[-1], z.device)]
 
 
 def _fx_inv(a: torch.Tensor) -> torch.Tensor:
     """Unscaled inverse x transform of a bit-reversed spectrum."""
     n = a.shape[-1]
-    return torch.fft.ifft(a[..., _perm(n, a.device)], dim=-1) * n
+    return torch.fft.ifft(a[..., fs.bit_reversal(n, a.device)], dim=-1) * n
 
 
 def panel_init_ref(v0: torch.Tensor, psi: torch.Tensor, sigma: float) -> torch.Tensor:
@@ -371,7 +374,7 @@ def panel_colpass_ref(a: torch.Tensor, propagator: torch.Tensor) -> torch.Tensor
     """b = Fy^H(P / n^2 * Fy(a)) in plain PyTorch, P in natural order (its
     columns taken in a's bit-reversed x order)."""
     n = a.shape[-1]
-    p = propagator.to(a.dtype)[..., _perm(n, a.device)]
+    p = propagator.to(a.dtype)[..., fs.bit_reversal(n, a.device)]
     return torch.fft.ifft(torch.fft.fft(a, dim=-2) * p, dim=-2) / n
 
 
@@ -482,7 +485,7 @@ def panel_build_colpass_ref(gx: torch.Tensor, factors: torch.Tensor) -> torch.Te
     bit-reversed x spectrum, ``factors`` prepare_factors' panel (its rows
     taken back to natural y order here)."""
     n = gx.shape[-1]
-    f = factors.to(gx.real.dtype)[:, _perm(n, gx.device), :]
+    f = factors.to(gx.real.dtype)[:, fs.bit_reversal(n, gx.device), :]
     return torch.fft.ifft(torch.sum(torch.fft.fft(gx, dim=-2) * f, dim=0), dim=-2) * n
 
 
@@ -709,7 +712,7 @@ def panel_colpass(a: torch.Tensor, propagator: torch.Tensor) -> torch.Tensor:
     if not a.is_cuda:
         return panel_colpass_ref(a, propagator)
     _check_propagator("panel_colpass", a, propagator)
-    return _colpass(a, prepare_propagator(propagator))
+    return _colpass(a, _prepared(propagator))
 
 
 def panel_col_bwd(bar: torch.Tensor, propagator: torch.Tensor) -> torch.Tensor:
@@ -718,7 +721,7 @@ def panel_col_bwd(bar: torch.Tensor, propagator: torch.Tensor) -> torch.Tensor:
     if not bar.is_cuda:
         return panel_col_bwd_ref(bar, propagator)
     _check_propagator("panel_col_bwd", bar, propagator)
-    return _colpass(bar, prepare_propagator(propagator), conj=True)
+    return _colpass(bar, _prepared(propagator), conj=True)
 
 
 def _count(wrapper, k: int = 1, route: str | None = None) -> None:
@@ -935,7 +938,7 @@ def _loop_operands(what, psi, v_stack, propagator, prepared):
     v32 = _potential(v_stack, (nslices, n, n), psi.device, "v_stack", what)
     if propagator.device != psi.device:
         raise ValueError(f"{what}: propagator on {propagator.device}, the waves on {psi.device}")
-    pp = prepare_propagator(propagator) if prepared is None else prepared
+    pp = _prepared(propagator) if prepared is None else prepared
     if pp.dtype != torch.complex64 or pp.shape != propagator.shape:
         raise ValueError(f"{what}: prepared propagator {pp.dtype} {tuple(pp.shape)} does not "
                          f"match the propagator {tuple(propagator.shape)}")
@@ -976,7 +979,7 @@ def panel_scan(
         if propagator.device != psi0.device:
             raise ValueError(f"panel_scan: propagator on {propagator.device}, "
                              f"psi0 on {psi0.device}")
-        pp = prepare_propagator(propagator)
+        pp = _prepared(propagator)
         out = torch.empty_like(flat)
         col, code = _route_code("panel_scan", None, n, b, "col")
         row, row_code = _route_code("panel_scan", None, n, b, "row_abs" if absorptive else "row")
@@ -1194,7 +1197,7 @@ def _streamed_on_card(psi, idx, val, factors, propagator, sigma):
     idx, val = _corners(idx, val, psi.device, what)
     if propagator.device != psi.device:
         raise ValueError(f"{what}: propagator on {propagator.device}, psi0 on {psi.device}")
-    pp = prepare_propagator(propagator)
+    pp = _prepared(propagator)
     routes = {kind: _route_code(what, None, n, count, kind)
               for kind, count in (("build_col", nsp), ("col", b), ("init", b))}
     out = torch.empty_like(flat)
@@ -1310,7 +1313,7 @@ class _PanelScanDiff(torch.autograd.Function):
     @staticmethod
     def forward(ctx, psi_b, v_stack, propagator, sigma):
         with span("panel_scan.forward_store"):
-            prepared = prepare_propagator(propagator) if psi_b.is_cuda else None
+            prepared = _prepared(propagator) if psi_b.is_cuda else None
             out, s = panel_scan_store(psi_b, v_stack, propagator, sigma, prepared=prepared)
         ctx.sigma = sigma
         ctx.save_for_backward(s, v_stack, propagator, prepared)
@@ -1367,7 +1370,7 @@ def panel_slice_step(
     backward.  ``prepared``: prepare_propagator(propagator), made once by a
     caller that steps through many slices (on the card)."""
     if prepared is None and psi.is_cuda:
-        prepared = prepare_propagator(propagator)
+        prepared = _prepared(propagator)
     return _PanelStep.apply(psi, v_slice, propagator, prepared, float(sigma))
 
 
@@ -1381,7 +1384,7 @@ def _per_slice(psi_b, v_stack, propagator, sigma):
     chunk and add it into V's."""
     from ..propagate import pick_remat_chunk
 
-    prepared = prepare_propagator(propagator) if psi_b.is_cuda else None
+    prepared = _prepared(propagator) if psi_b.is_cuda else None
 
     def run(psi, v_chunk):
         for v in v_chunk:

@@ -152,7 +152,8 @@ def test_panel_series_against_the_reference(bench, seed):
 def test_panel_scan_is_one_span_of_its_launches(recorder, monkeypatch, nslices):
     """With the spans on, one forward of the panel engine on the card is one
     ``panel_scan.forward`` span whose launches are the loop's 2S + 1 passes,
-    by pass and route in its counters.  The C call is stubbed, and tensors
+    by pass and route in its counters, beside its one prepare of the
+    propagator (a miss: the propagator is new).  The C call is stubbed, and tensors
     report themselves on the card, so that the wrapper takes its card path
     here."""
     n = 256
@@ -178,6 +179,7 @@ def test_panel_scan_is_one_span_of_its_launches(recorder, monkeypatch, nslices):
         f"launches.panel_colpass.{wide}": nslices,
         f"launches.panel_rowpass_stack.{ps.panel_route(n, 1, 'row')}": nslices - 1,
         "launches.panel_final": 1,
+        "prepare.miss": 1,  # the propagator's first gather, into the package's cache
     }
 
 

@@ -2,8 +2,10 @@
 tests/test_profiling.py: trace writes a torch.profiler trace into its logdir
 on the CPU, the program's spans in it, and nothing when disabled; the span
 recorder off and on (ids, parents, requests, self times, counters, the
-profiler's timeline); the kernels' launch registry; and the span trees that
-a series, a raster and pipeline.setup record."""
+profiler's timeline); the kernels' launch registry; the span trees that
+a series, a raster and pipeline.setup record; and the prepared propagator
+cache's counters (on the card: a warm whole-loop call that copies nothing
+from the host and gathers nothing)."""
 
 import importlib
 import json
@@ -278,3 +280,86 @@ def test_pipeline_setup_records_its_set_up_spans(recorder):
                   "setup.propagator", "setup.ctf", "setup.ctf_transfer"):
         assert [r["parent"] for r in by[child]] == [root[0]["id"]], child
     assert all(r["name"].startswith("setup.") for r in recorder.records())
+
+
+def test_the_propagator_cache_counts_hits_misses_and_bypasses(recorder):
+    from fdes_tpu_torch.kernels import fused_step as fs
+
+    p = torch.ones(128, 128, dtype=torch.complex64)
+    for q in (p, p, p.clone().requires_grad_()):
+        with recorder.span("propagate.prepare"):
+            fs.prepared_propagator(q)
+    assert [(r["name"], r["counts"]) for r in recorder.records()] == [
+        ("propagate.prepare", {"prepare.miss": 1}), ("propagate.prepare", {"prepare.hit": 1}),
+        ("propagate.prepare", {"prepare.bypass": 1})]
+
+
+def test_two_calls_of_a_whole_loop_engine_prepare_one_propagator_once(recorder, monkeypatch):
+    """Two series on the fscan engine with one unchanged propagator: one miss,
+    then one hit, each under ``propagate.prepare``.  The C call is stubbed,
+    and tensors report themselves on the card, so that the wrapper takes its
+    card path here."""
+    from fdes_tpu_torch.kernels import fused_scan as fsc
+    from fdes_tpu_torch.kernels import fused_step as fs
+
+    calls = []
+    monkeypatch.setattr(fs, "launch", lambda name, *args: calls.append(name))
+    monkeypatch.setattr(torch.Tensor, "is_cuda", property(lambda self: True))
+    n = 128
+    engine = fsc.make_fused_scan(n, n)
+    psi0 = torch.ones(n, n, dtype=torch.complex64)
+    v = torch.zeros(4, n, n)
+    prop = torch.ones(n, n, dtype=torch.complex64)
+    kernels.reset_launches()
+    try:
+        for _ in range(2):
+            engine.whole_scan(psi0, v, prop, 1e-3)
+    finally:
+        kernels.reset_launches()
+    assert calls == ["fdes_wide_scan_c64"] * 2
+    prepares = [r["counts"] for r in recorder.records() if r["name"] == "propagate.prepare"]
+    assert prepares == [{"prepare.miss": 1}, {"prepare.hit": 1}]
+
+
+def test_the_propagator_cache_records_nothing_while_off():
+    from fdes_tpu_torch.kernels import fused_step as fs
+
+    profiling.reset()
+    assert not profiling.enabled()
+    p = torch.ones(128, 128, dtype=torch.complex64)
+    with profiling.span("propagate.prepare"):
+        for _ in range(2):
+            fs.prepared_propagator(p)
+    assert profiling.records() == []
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the whole-loop kernels have no CPU form")
+    return torch.device("cuda", torch.cuda.current_device())
+
+
+def test_a_warm_fused_scan_copies_nothing_from_the_host_and_gathers_nothing_on_card(
+        cuda, recorder):
+    from torch.profiler import ProfilerActivity, profile
+
+    from fdes_tpu_torch.kernels import fused_scan as fsc
+
+    n, s = 512, 8
+    psi0 = torch.ones(n, n, dtype=torch.complex64, device=cuda)
+    v = 0.5 * torch.rand(s, n, n, device=cuda)
+    p = torch.exp(-1j * torch.rand(n, n, device=cuda)).to(torch.complex64)
+    first = fsc.fused_scan(psi0, v, p, 0.01)
+    warm = fsc.fused_scan(psi0, v, p, 0.01)
+    prepares = [r["counts"] for r in recorder.records() if r["name"] == "propagate.prepare"]
+    assert prepares == [{"prepare.miss": 1}, {"prepare.hit": 1}]
+    assert torch.equal(first, warm)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fsc.fused_scan(psi0, v, p, 0.01)
+        torch.cuda.synchronize()
+    names = {e.name for e in prof.events()}
+    assert "fdes.propagate.prepare" in names and fsc.scan_route(n, 1, s) == "wide"
+    assert "aten::index" not in names, sorted(names)
+    assert not any("HtoD" in name or "cudaMemcpy" in name for name in names), sorted(names)
