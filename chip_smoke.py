@@ -908,6 +908,7 @@ def phase_kernels_fused() -> tuple[dict, dict]:
     """The fused step, its adjoint and the whole-loop scan against their
     plain versions; returns (phase line, table rows)."""
     from fdes_tpu_torch.config import load_config
+    from fdes_tpu_torch.kernels import _runtime as rt
     from fdes_tpu_torch.kernels import fused_scan as fsc
     from fdes_tpu_torch.kernels import fused_step as fs
     from fdes_tpu_torch.pipeline import setup, stem_setup
@@ -980,7 +981,7 @@ def phase_kernels_fused() -> tuple[dict, dict]:
     psi, g = cplx(n, n), cplx(n, n)
     errs = step_cases(psi, v, prop, g, config4_v=True)
     step_cases(cplx(8, n, n), v, prop, cplx(8, n, n), config4_v=True)
-    prepared = fs.prepare_propagator(prop)
+    prepared = rt.prepare_propagator(prop)
     plane = n * n
     plain = {"fused_step": lambda: fs.fused_slice_step_ref(psi, v, prop, sigma),
              "fused_step_bwd": lambda: fs.fused_step_bwd_ref(psi, v, g, prop, sigma)}
@@ -1074,8 +1075,8 @@ def phase_kernels_fused() -> tuple[dict, dict]:
     # a launch the card refuses raises: no other kernel runs in its place
     scratch = torch.empty_like(probes[:1])
     try:
-        fs.launch("fdes_cluster_scan_c64", scratch.device, 512, *[scratch.data_ptr()] * 4, sigma,
-                  1, 1, 0, 0, 0)
+        fsc._launch("fdes_cluster_scan_c64", scratch.device, 512, *[scratch.data_ptr()] * 4,
+                    sigma, 1, 1, 0, 0, 0)
         refused = False
     except RuntimeError as exc:
         refused = "cudaErrorInvalidValue" in str(exc) or "invalid argument" in str(exc)
@@ -1194,6 +1195,7 @@ def step_route_rows(checks: list, sigma: float) -> list[dict]:
     each) at the rows STEP_ROWS_OPEN names; each timed row gives the step's
     bound (its bytes: psi, out and the shared V and P, against its
     operations), names the faster route, and whether the table picks it."""
+    from fdes_tpu_torch.kernels import _runtime as rt
     from fdes_tpu_torch.kernels import fused_step as fs
 
     card = CardInputs(18)
@@ -1202,7 +1204,7 @@ def step_route_rows(checks: list, sigma: float) -> list[dict]:
     for m, table in fs.STEP_ROUTE.items():
         v = card.real(m, m)
         pr = card.phases(m, m)
-        pp = fs.prepare_propagator(pr)
+        pp = rt.prepare_propagator(pr)
         plane = m * m
         for b in sorted(table):
             psi, g = card.cplx(b, m, m), card.cplx(b, m, m)
@@ -1316,6 +1318,7 @@ def phase_kernels_adjoint() -> tuple[dict, dict]:
     config 3's stack, the wide kernels' registers and memory, and the grid
     barrier alone."""
     from fdes_tpu_torch.config import load_config
+    from fdes_tpu_torch.kernels import _runtime as rt
     from fdes_tpu_torch.kernels import adjoint_scan as adj
     from fdes_tpu_torch.pipeline import setup
 
@@ -1469,7 +1472,7 @@ def phase_kernels_adjoint() -> tuple[dict, dict]:
                "fdes_tpu/pallas/adjoint_scan.py:136")
     # P gathered once, as scan_diff_apply hands it to both launches: the
     # gather and its host-to-device index copies are not the kernel's time
-    pp = adj.fs.prepare_propagator(prop)
+    pp = rt.prepare_propagator(prop)
     cases = {  # name: (kernel, plain, bytes, operations, TPU kernel)
         **{STORE_PAIRS[r][0]: (lambda r=r: adj.fused_scan_store(psi0, v_stack, prop, sigma,
                                                                  prepared=pp, route=r),
@@ -1570,9 +1573,10 @@ def adjoint_pair_turns(psi0, v, prop, g, sigma, seg: int = 0, reps: int = 3) -> 
     segment pair (seg > 0) on the same inputs, in turns (interleaved_ms),
     ``reps`` calls a reading: {kernel: {route: [ms, ms, ms]}}, the backward
     on the wide forward's kept waves."""
+    from fdes_tpu_torch.kernels import _runtime as rt
     from fdes_tpu_torch.kernels import adjoint_scan as adj
 
-    prepared = adj.fs.prepare_propagator(prop)
+    prepared = rt.prepare_propagator(prop)
     if seg:
         fwd = functools.partial(adj.fused_scan_ck, seg=seg)
         bwd = functools.partial(adj.fused_scan_bwd_ck, seg=seg)
@@ -1860,6 +1864,7 @@ def panel_route_rows(kind: str, checks: list, sigma: float) -> list[dict]:
     kernels (and both of the init's and of row 16's) held to the plain
     version at each row's shape.  Each row names the faster and whether the
     table picks it, with the pass's bound beside."""
+    from fdes_tpu_torch.kernels import _runtime as rt
     from fdes_tpu_torch.kernels import panel_scan as ps
 
     # row 16's one plane ("row_plane") takes row 15's kind
@@ -1872,7 +1877,7 @@ def panel_route_rows(kind: str, checks: list, sigma: float) -> list[dict]:
             a = card.cplx(b, n, n)
             if kind == "col":
                 pr = card.phases(n, n)
-                pp = ps.prepare_propagator(pr)
+                pp = rt.prepare_propagator(pr)
                 ref = ps.panel_colpass_ref(a, pr)
                 fns = {r: (lambda r=r: ps._colpass(a, pp, route=r)) for r in ps.ROUTES}
                 # a and b of each wave, P (shared) once
@@ -2017,6 +2022,7 @@ def xform_library_turns(checks: list, card: CardInputs, inverse: bool) -> dict:
     with 1, 2, 4 and 8 waves, timed at 2048^2 and 4096^2 beside the bound
     (16 bytes a value).  Returns {"<n>x<waves>": {"ms": {"kernel": ...,
     "library": ...}, "readings": ..., "bound_ms": ...}} of the timed ones."""
+    from fdes_tpu_torch.kernels import _runtime as rt
     from fdes_tpu_torch.kernels import panel_scan as ps
 
     name = "panel_final" if inverse else "panel_rowfwd"
@@ -2030,7 +2036,7 @@ def xform_library_turns(checks: list, card: CardInputs, inverse: bool) -> dict:
             if n < 2048:
                 continue
             if inverse:
-                z_nat = z[..., ps.fs.bit_reversal(n, z.device)].contiguous()  # natural order
+                z_nat = z[..., rt.bit_reversal(n, z.device)].contiguous()  # natural order
                 library = functools.partial(torch.fft.ifft, z_nat, dim=-1, norm="forward")
             else:
                 library = functools.partial(torch.fft.fft, z, dim=-1)
@@ -2098,6 +2104,7 @@ def phase_kernels_panel() -> tuple[dict, dict]:
     2048^2 (one wave and two, shared and per-wave P) and 4096^2 (one wave),
     the rollout at 2048^2 x 8 slices; per-pass times at 2048^2 and 4096^2
     (one wave) beside their bounds; returns (phase line, table rows)."""
+    from fdes_tpu_torch.kernels import _runtime as rt
     from fdes_tpu_torch.kernels import adjoint_scan as adj
     from fdes_tpu_torch.kernels import fused_scan as fsc
     from fdes_tpu_torch.kernels import panel_scan as ps
@@ -2114,7 +2121,7 @@ def phase_kernels_panel() -> tuple[dict, dict]:
         vs = card.real(3, n, n)
         vc = torch.complex(vs, card.real(3, n, n, top=200.0))  # read in place: .real, .imag
         pr = card.phases(*(lead if per_wave_p else ()), n, n)
-        pp = ps.prepare_propagator(pr)
+        pp = rt.prepare_propagator(pr)
         return {
             **{f"panel_init[{r}]": (lambda r=r: ps.panel_init(vs[0], psi, sigma, route=r),
                                     lambda: ps.panel_init_ref(vs[0], psi, sigma))
@@ -2266,6 +2273,7 @@ def phase_kernels_panel_grad() -> tuple[dict, dict]:
     per-wave P), dV and dpsi0 bitwise equal over two runs; per-pass times at
     2048^2 and 4096^2 (one wave) beside their bounds; returns (phase line,
     table rows)."""
+    from fdes_tpu_torch.kernels import _runtime as rt
     from fdes_tpu_torch.kernels import panel_scan as ps
 
     card = CardInputs(7)
@@ -2280,7 +2288,7 @@ def phase_kernels_panel_grad() -> tuple[dict, dict]:
         psi, a, s0 = card.cplx(*lead, n, n), card.cplx(*lead, n, n), card.cplx(*lead, n, n)
         vs, s = card.real(3, n, n), card.cplx(*lead, 3, n, n)
         pr = card.phases(*(lead if per_wave_p else ()), n, n)
-        pp = ps.prepare_propagator(pr)
+        pp = rt.prepare_propagator(pr)
         cases = {
             "panel_rowfwd": (lambda: ps.panel_rowfwd(a), lambda: ps.panel_rowfwd_ref(a)),
             "panel_init_store": (lambda: ps.panel_init_store(vs[0], psi, sigma),
@@ -4816,10 +4824,11 @@ def per_chunk_slices(psi_b, v_stack, propagator, sigma):
     V's.  The before of c5_tilt_invert's before/after pair."""
     from torch.utils.checkpoint import checkpoint
 
+    from fdes_tpu_torch.kernels import _runtime as rt
     from fdes_tpu_torch.kernels import panel_scan as ps
     from fdes_tpu_torch.propagate import pick_remat_chunk
 
-    prepared = ps.prepare_propagator(propagator)
+    prepared = rt.prepare_propagator(propagator)
 
     def run(psi, v_chunk):
         for v in v_chunk:

@@ -34,8 +34,8 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from ._collectives import all_gather, all_to_all, pvary, shift
+from .kernels._runtime import dense
 from .kernels.slice_step import (
-    _dense,
     _PropagatorMultiply,
     _Transmit,
     _TransmitAbs,
@@ -153,7 +153,7 @@ def _step(psi, v, prop_blk, sigma, group, kernels: bool):
     FFT, the propagator multiply on a column block, the inverse FFT."""
     if kernels:
         if v.is_complex():
-            psi = _TransmitAbs.apply(psi, _dense(v.to(psi.dtype)), sigma)
+            psi = _TransmitAbs.apply(psi, dense(v.to(psi.dtype)), sigma)
         else:
             psi = _Transmit.apply(psi, v, sigma)
     else:

@@ -1,5 +1,6 @@
 """The whole-loop adjoint: the multislice scan differentiated inside two
-kernel launches, and ``scan_diff_apply``, the grad-capable whole-loop entry.
+kernel launches, ``scan_diff_apply``, the grad-capable whole-loop entry, and
+``make_fused_scan``, the engines ``"fscan*"`` over it and ``fused_scan``.
 
 Counterpart of ``fdes_tpu/pallas/adjoint_scan.py``.  Four wrappers over the
 cooperative kernels of ``csrc/adjoint_scan.cu``, each with its plain PyTorch
@@ -65,15 +66,18 @@ pair runs at every size the kernels take.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 from torch.autograd.function import once_differentiable
 
 from ..profiling import span
-from . import _build, count_launches
-from . import fused_step as fs
-from .fused_scan import _batching, fused_scan
-from .slice_step import _check_dense, _dense, transmit_ref
+from . import _runtime, count_launches
+from ._runtime import (BLOCKS, PAIRS_PER_BLOCK, batching, card, check_dense, check_size, dense,
+                       pick_route, prepared_propagator, route_row, wide_wave_groups)
+from .fused_scan import WholeScanEngine, fused_scan
+from .fused_step import SIZES
+from .slice_step import pallas_slice_step, transmit_ref
 
 LIB = "adjoint_scan"
 _P = ctypes.c_void_p
@@ -101,7 +105,7 @@ _ARGTYPES = {
     "fdes_grid_barrier": [_INT, _INT, _INT, _INT, _P, _P],
     "fdes_adjoint_scan_info": [_INT, _INT, _INT, _P],
 }
-_entries: dict[str, object] = {}
+_launch = functools.partial(_runtime.launch, LIB, _ARGTYPES)
 
 #: Past this many bytes of stored s_j (B*S*n*n*8) ``scan_diff_apply`` keeps
 #: checkpoints and recomputes instead.  Set by memory: the segment pair runs
@@ -125,9 +129,6 @@ KERNELS = ("scan_store_kernel", "scan_bwd_store_kernel", "scan_ck_kernel", "scan
            "wide_scan_store_kernel", "wide_scan_bwd_store_kernel", "wide_scan_ck_kernel",
            "wide_scan_bwd_ck_kernel")
 
-#: Pairs of warps a block of the wide kernels (fused_step.PAIRS_PER_BLOCK).
-PAIRS_PER_BLOCK = fs.PAIRS_PER_BLOCK
-
 #: The kernel each of the store pair runs on, by grid and waves a launch:
 #: "tile" (``scan_store_kernel`` / ``scan_bwd_store_kernel``, 4,096-element
 #: tiles a block) or "wide" (``wide_scan_store_kernel`` /
@@ -136,7 +137,7 @@ PAIRS_PER_BLOCK = fs.PAIRS_PER_BLOCK
 #: an NVIDIA H100 80GB HBM3 at 700 W, 16 random slices a row (chip_smoke.py
 #: kernels_adjoint, ``store_route_rows``; PERF.md section 5).  A launch of B
 #: waves takes the row of the largest measured count not above B
-#: (``fused_step.route_row``).  The wide
+#: (``route_row``).  The wide
 #: kernels give one wave B n / 4 column items and B n row pairs, the tile
 #: kernels B n^2 / 4096 tiles; at 64 waves both fill the card and stand within
 #: a few per cent of each other.
@@ -159,7 +160,7 @@ STORE_ROUTE = {
 #: 512^2 from 64 (257); every size has a row at 128 waves, the stem4d
 #: inverse's probe chunk (pick_probe_chunk), which 256^2 passes from 513
 #: slices and 128^2 only from 2,049.  Fewer waves than a size's first row
-#: take that row (fused_step.route_row).  The wide kernels win at 1024^2
+#: take that row (route_row).  The wide kernels win at 1024^2
 #: (forward 2-11 %, backward 10-15 %), the wide backward at 512^2 (6-7 %)
 #: and the wide forward at 128^2 (7 %); the tile kernels the rest, by 1-8 %.
 SEG_ROUTE = {
@@ -174,42 +175,11 @@ SEG_DEPTH = 1024
 ROUTES = ("tile", "wide")
 
 
-def _entry(name: str):
-    lib = _build.load(LIB)
-    fn = _entries.get(name)
-    if fn is None:
-        fn = getattr(lib, name)
-        fn.argtypes = _ARGTYPES[name]
-        fn.restype = _INT
-        _entries[name] = fn
-    return lib, fn
-
-
-def _launch(name: str, device: torch.device, *args) -> None:
-    """Call a launching entry point of csrc/adjoint_scan.cu (built and bound
-    on first use) on ``device``'s current stream; raise on a CUDA error."""
-    lib, fn = _entry(name)
-    status = fn(device.index, *args, torch.cuda.current_stream(device).cuda_stream)
-    _build.check(lib, status, name)
-
-
 def adjoint_kernel_info(n: int, kernel: str, device: torch.device | str = "cuda") -> dict:
     """Registers, shared and local memory and resident blocks of one of
     KERNELS for axis size n, as the CUDA runtime reports them."""
-    dev = torch.device(device)
-    if dev.index is None:
-        dev = torch.device("cuda", torch.cuda.current_device())
-    out = (_INT * 4)()
-    lib, fn = _entry("fdes_adjoint_scan_info")
-    status = fn(dev.index, n, KERNELS.index(kernel), ctypes.cast(out, _P))
-    _build.check(lib, status, "fdes_adjoint_scan_info")
-    return {"registers": out[0], "shared_bytes": out[1], "local_bytes": out[2],
-            "resident_blocks": out[3]}
-
-
-def _resident_blocks(n: int, kernel: str, device: torch.device) -> int:
-    return fs.resident_blocks((kernel, n, device.index),
-                              lambda: adjoint_kernel_info(n, kernel, device))
+    return dict(_runtime.kernel_info(LIB, _ARGTYPES, "fdes_adjoint_scan_info", BLOCKS,
+                                     card(device), n, KERNELS.index(kernel)))
 
 
 def wave_groups(b: int, n: int, kernel: str, device: torch.device) -> int:
@@ -219,9 +189,10 @@ def wave_groups(b: int, n: int, kernel: str, device: torch.device) -> int:
     so the groups are as many as fill the resident blocks or pairs, at most
     one per wave.  A function of (b, n, kernel, card) alone: the order of the
     dV sum is fixed."""
-    resident = _resident_blocks(n, kernel, device)
+    resident = _runtime.kernel_info(LIB, _ARGTYPES, "fdes_adjoint_scan_info", BLOCKS, device, n,
+                                    KERNELS.index(kernel))["resident_blocks"]
     if kernel.startswith("wide_"):
-        return fs.wide_wave_groups(b, n, resident)
+        return wide_wave_groups(b, n, resident)
     return max(1, min(b, resident // (n * n // 4096)))
 
 
@@ -229,10 +200,8 @@ def wide_grid_blocks(n: int, b: int, kernel: str, device: torch.device | str = "
     """Blocks of one launch of a wide kernel for B waves of n^2: every
     resident block, at most one a column item (csrc/adjoint_scan.cu,
     launch_wide)."""
-    dev = torch.device(device)
-    if dev.index is None:
-        dev = torch.device("cuda", torch.cuda.current_device())
-    return min(_resident_blocks(n, kernel, dev), b * n // PAIRS_PER_BLOCK)
+    return min(adjoint_kernel_info(n, kernel, device)["resident_blocks"],
+               b * n // PAIRS_PER_BLOCK)
 
 
 def store_route(n: int, b: int, kernel: str) -> str:
@@ -241,7 +210,7 @@ def store_route(n: int, b: int, kernel: str) -> str:
     STORE_ROUTE: a function of (n, b) alone."""
     if kernel not in ("store", "bwd_store"):
         raise ValueError(f"store_route: kernel must be 'store' or 'bwd_store', got {kernel!r}")
-    return fs.route_row(STORE_ROUTE[n], b)[kernel == "bwd_store"]
+    return route_row(STORE_ROUTE[n], b)[kernel == "bwd_store"]
 
 
 def seg_route(n: int, b: int, kernel: str) -> str:
@@ -250,7 +219,7 @@ def seg_route(n: int, b: int, kernel: str) -> str:
     SEG_ROUTE: a function of (n, b) alone."""
     if kernel not in ("ck", "bwd_ck"):
         raise ValueError(f"seg_route: kernel must be 'ck' or 'bwd_ck', got {kernel!r}")
-    return fs.route_row(SEG_ROUTE[n], b)[kernel == "bwd_ck"]
+    return route_row(SEG_ROUTE[n], b)[kernel == "bwd_ck"]
 
 
 def seg_depth(n: int, b: int) -> int:
@@ -265,11 +234,9 @@ def grid_barrier(blocks: int, rounds: int, light: bool = False,
     size in one cooperative launch, nothing else: cg::grid_group::sync, or
     (light) an arrive counter and an acquire spin.  A measurement kernel, on
     no path (chip_smoke.py times it)."""
-    dev = torch.device(device)
-    if dev.type != "cuda":
+    if torch.device(device).type != "cuda":
         raise ValueError("grid_barrier runs on a CUDA card only")
-    if dev.index is None:
-        dev = torch.device("cuda", torch.cuda.current_device())
+    dev = card(device)
     counter = torch.zeros(1, dtype=torch.int32, device=dev)
     _launch("fdes_grid_barrier", dev, blocks, rounds, int(light), counter.data_ptr())
 
@@ -374,7 +341,7 @@ def _operands(what, psi, v_stack, propagator, prepared, seg, **more):
     B, S, V float32, the bit-reversed propagator, its stride between waves)."""
     if psi.ndim != 3:
         raise ValueError(f"{what}: the waves must be (B, n, n), got {tuple(psi.shape)}")
-    n, b, v_batched, p_batched = _batching(psi, v_stack, propagator, what)
+    n, b, v_batched, p_batched = batching(psi, v_stack, propagator, what, SIZES)
     if v_batched or v_stack.is_complex():
         raise ValueError(f"{what}: v_stack must be a real (S, {n}, {n}) stack shared by the "
                          f"waves, got {v_stack.dtype} {tuple(v_stack.shape)}")
@@ -388,14 +355,14 @@ def _operands(what, psi, v_stack, propagator, prepared, seg, **more):
     if psi.dtype != torch.complex64:
         raise TypeError(f"{what}: the CUDA kernel takes complex64, got {psi.dtype}")
     v32 = v_stack.to(torch.float32)
-    pp = fs.prepared_propagator(propagator) if prepared is None else prepared
+    pp = prepared_propagator(propagator) if prepared is None else prepared
     if pp.dtype != torch.complex64 or pp.shape != propagator.shape:
         raise ValueError(f"{what}: prepared propagator {pp.dtype} {tuple(pp.shape)} does not "
                          f"match the propagator {tuple(propagator.shape)}")
     for name, t in (("waves", psi), ("v_stack", v32), ("propagator", pp), *more.items()):
         if t.device != psi.device:
             raise ValueError(f"{what}: {name} on {t.device}, the waves on {psi.device}")
-        _check_dense(t, name, what)
+        check_dense(t, name, what)
         if t.data_ptr() % 16:
             raise ValueError(f"{what}: {name} must be 16-byte aligned")
     return n, b, nslices, v32, pp, (n * n if p_batched else 0)
@@ -432,7 +399,7 @@ def fused_scan_store(
     ``store_route`` picks (``route`` names one instead: "tile" or "wide"),
     plain on the CPU.  No graph: ``scan_diff_apply`` is the differentiable
     form."""
-    fs.check_route("fused_scan_store", route)
+    route = pick_route("fused_scan_store", route, ROUTES)
     if not psi0.is_cuda:
         _operands("fused_scan_store", psi0, v_stack, propagator, None, 0)
         return fused_scan_store_ref(psi0, v_stack, propagator, sigma)
@@ -457,7 +424,7 @@ def fused_scan_ck(
     enters every ``seg``-th slice: (exit waves, ck (B, S/seg, n, n)).  seg
     must divide S.  On CUDA the kernel that ``seg_route`` picks (``route``
     names one instead: "tile" or "wide"), plain on the CPU."""
-    fs.check_route("fused_scan_ck", route)
+    route = pick_route("fused_scan_ck", route, ROUTES)
     if seg < 1:
         raise ValueError(f"fused_scan_ck: seg must be at least 1, got {seg}")
     if not psi0.is_cuda:
@@ -539,7 +506,7 @@ def fused_scan_bwd_store(
     picks (``route`` names one instead: "tile" or "wide").  ``groups``
     overrides the number of wave groups (``wave_groups``), for
     measurements."""
-    fs.check_route("fused_scan_bwd_store", route)
+    route = pick_route("fused_scan_bwd_store", route, ROUTES)
     if not g.is_cuda:
         _check_backward_cpu("fused_scan_bwd_store", s, v_stack, propagator, g, 0)
         return fused_scan_bwd_store_ref(s, v_stack, propagator, g, sigma)
@@ -567,7 +534,7 @@ def fused_scan_bwd_ck(
     (``route`` names one instead: "tile" or "wide"): every segment's slices
     run forward once more, into scratch the wrapper allocates (B*(seg + 1)
     planes).  ``groups`` as in ``fused_scan_bwd_store``."""
-    fs.check_route("fused_scan_bwd_ck", route)
+    route = pick_route("fused_scan_bwd_ck", route, ROUTES)
     if seg < 1:
         raise ValueError(f"fused_scan_bwd_ck: seg must be at least 1, got {seg}")
     if not g.is_cuda:
@@ -602,7 +569,7 @@ class _ScanDiff(torch.autograd.Function):
     @staticmethod
     def forward(ctx, psi_b, v_stack, propagator, sigma, seg):
         with span("adjoint_scan.forward"):
-            prepared = fs.prepared_propagator(propagator) if psi_b.is_cuda else None
+            prepared = prepared_propagator(propagator) if psi_b.is_cuda else None
             if seg == 0:
                 out, keep = fused_scan_store(psi_b, v_stack, propagator, sigma,
                                              prepared=prepared)
@@ -618,7 +585,7 @@ class _ScanDiff(torch.autograd.Function):
     def backward(ctx, g):
         keep, v_stack, propagator, prepared = ctx.saved_tensors
         with span("adjoint_scan.backward"):  # on autograd's thread for CUDA tensors
-            g = _dense(g)  # autograd may hand out a lazy conj view
+            g = dense(g)  # autograd may hand out a lazy conj view
             if ctx.seg == 0:
                 dv, dpsi = fused_scan_bwd_store(keep, v_stack, propagator, g, ctx.sigma,
                                                 prepared=prepared)
@@ -657,7 +624,7 @@ def scan_diff_apply(
         )
     if not (recording and (psi0.requires_grad or v_stack.requires_grad)):
         return fused_scan(psi0, v_stack, propagator, float(sigma))
-    n, b, v_batched, p_batched = _batching(psi0, v_stack, propagator, "scan_diff_apply")
+    n, b, v_batched, p_batched = batching(psi0, v_stack, propagator, "scan_diff_apply", SIZES)
     if v_batched:
         raise NotImplementedError(
             "the whole-loop adjoint takes one (S, n, n) potential shared by the waves; a "
@@ -679,3 +646,59 @@ def scan_diff_apply(
         return psi_b if batched_out else psi_b[0]
     out = _ScanDiff.apply(psi_b.contiguous(), v_stack, propagator, float(sigma), seg)
     return out if batched_out else out[0]
+
+
+# ---- the engine ------------------------------------------------------------
+
+
+def make_fused_scan(
+    ny: int, nx: int, dtype: torch.dtype = torch.complex64, kind: str = "fscan",
+    grad: bool = False,
+) -> WholeScanEngine:
+    """A ``WholeScanEngine`` running the whole multislice loop in one kernel.
+
+    psi0 may be (n, n) or (B, n, n); a batch of probes, a per-wave potential
+    stack and a per-wave propagator all land on the kernel's batch axis.
+
+    ``grad=True``: the engine differentiates with respect to psi0 and a real
+    V through the whole-loop adjoint (``scan_diff_apply``: one
+    launch forward, one backward; the plain ``fused_scan`` when nothing
+    requires a gradient).  A propagator that requires a gradient raises, as
+    does a gradient through a per-wave V.  ``grad=False``: forward only, for
+    callers that never differentiate; ``whole_scan`` then raises when
+    autograd is recording and an input requires a gradient, because the raw
+    kernel's output carries no graph.
+
+    A complex (absorptive) V goes slice by slice through
+    ``pallas_slice_step``, the kernels around cuFFT, which differentiates, as
+    the per-slice fused engine does.
+    """
+    check_size(ny, nx, "the fused scan", SIZES)
+
+    def whole_scan(psi0, v_stack, propagator, sigma):
+        if not grad and torch.is_grad_enabled() and any(
+            t.requires_grad for t in (psi0, v_stack, propagator)
+        ):
+            raise RuntimeError(
+                f"engine {kind!r} was made with grad=False and is forward-only: its result "
+                "carries no graph, so a gradient through it would be silently zero; make "
+                "it with make_slice_step(..., grad=True) for the whole-loop adjoint, or "
+                "run it under torch.no_grad() or on detached tensors"
+            )
+        psi0 = psi0.to(dtype)
+        propagator = propagator.to(dtype)
+        if v_stack.is_complex():
+            if v_stack.ndim != 3:
+                raise ValueError(
+                    f"engine {kind!r}: a complex (absorptive) potential must be one "
+                    f"(S, n, n) stack shared by the waves, got {tuple(v_stack.shape)}"
+                )
+            psi = psi0
+            for v_slice in v_stack:
+                psi = pallas_slice_step(psi, v_slice, propagator, sigma)
+            return psi
+        if grad:
+            return scan_diff_apply(psi0, v_stack, propagator, float(sigma))
+        return fused_scan(psi0, v_stack, propagator, float(sigma))
+
+    return WholeScanEngine(whole_scan, kind, grad_capable=grad)

@@ -35,11 +35,12 @@ step also by route in ``fused_step.launches_by_route``.
 
 The kernels leave the spectrum in bit-reversed order in both axes (a forward
 decimation-in-frequency transform, undone by a decimation-in-time inverse),
-so they take the propagator in that order: ``prepare_propagator`` gathers
-P[bitrev(a), bitrev(b)], and every wrapper accepts the result as
-``prepared=``.  Without one, a wrapper reads ``prepared_propagator``, the
-package's one cache of gathered propagators on the device, so that a slice
-loop, or a series of calls on one unchanged propagator, permutes P once.
+so they take the propagator in that order: ``_runtime.prepare_propagator``
+gathers P[bitrev(a), bitrev(b)], and every wrapper accepts the result as
+``prepared=``.  Without one, a wrapper reads
+``_runtime.prepared_propagator``, the package's one cache of gathered
+propagators on the device, so that a slice loop, or a series of calls on
+one unchanged propagator, permutes P once.
 
 The adjoint is re-derived for PyTorch's convention (the gradient of a complex
 z is dL/dRe z + i dL/dIm z), not transcribed from the TPU kernel, which runs
@@ -57,16 +58,14 @@ from __future__ import annotations
 
 import ctypes
 import functools
-import threading
 from typing import Callable
 
-import numpy as np
 import torch
-from torch.utils.weak import WeakIdKeyDictionary
 
-from ..profiling import count
-from . import _build, count_launches, reset_launches  # noqa: F401 - reset_launches re-exported
-from .slice_step import _check_dense, _dense, _sum_batch, pallas_slice_step, transmit_ref
+from . import _runtime, count_launches, reset_launches  # noqa: F401 - reset_launches re-exported
+from ._runtime import (BLOCKS, card, check_dense, check_size, dense, pick_route,
+                       prepared_propagator, route_row, sum_batch, wide_wave_groups)
+from .slice_step import pallas_slice_step, transmit_ref
 
 SIZES = (128, 256, 512, 1024)
 LIB = "fused_step"
@@ -84,28 +83,8 @@ _ARGTYPES = {
         ctypes.c_int, _I64, _P,
     ],
     "fdes_wide_step_info": [ctypes.c_int, ctypes.c_int, ctypes.c_int, _P],
-    "fdes_fused_scan_c64": [
-        ctypes.c_int, ctypes.c_int, _P, _P, _P, _P, ctypes.c_double, _I64, ctypes.c_int,
-        _I64, _I64, _P,
-    ],
-    "fdes_fused_scan_info": [ctypes.c_int, ctypes.c_int, _P],
-    "fdes_wide_scan_c64": [
-        ctypes.c_int, ctypes.c_int, _P, _P, _P, _P, ctypes.c_double, _I64, ctypes.c_int,
-        _I64, _I64, _P,
-    ],
-    "fdes_wide_scan_info": [ctypes.c_int, ctypes.c_int, _P],
-    "fdes_cluster_scan_c64": [
-        ctypes.c_int, ctypes.c_int, _P, _P, _P, _P, ctypes.c_double, _I64, ctypes.c_int,
-        _I64, _I64, ctypes.c_int, _P,
-    ],
-    "fdes_cluster_scan_info": [ctypes.c_int, ctypes.c_int, _P],
 }
-_entries: dict[str, object] = {}
-
-#: Pairs of warps a block of the wide kernels (csrc/fused_fft.cuh,
-#: kWidePairs): a row item is one row a pair, a column item
-#: ``PAIRS_PER_BLOCK`` columns a block.
-PAIRS_PER_BLOCK = 4
+_launch = functools.partial(_runtime.launch, LIB, _ARGTYPES)
 
 #: The kernel the step runs on, by grid and waves a launch: "tile"
 #: (``row_pass_kernel``, ``col_pass_kernel``, ``row_pass_kernel``) or "wide"
@@ -130,37 +109,6 @@ ROUTES = ("tile", "wide")
 KERNELS = ("step", "step_bwd")
 
 
-def route_row(rows: dict, b: int):
-    """The entry of a route table's rows ({measured count: entry}) for a
-    launch of count b: the row of the largest measured count not above b,
-    the first row below them all.  Shared by every route table of the
-    port."""
-    return rows[max((k for k in rows if k <= b), default=min(rows))]
-
-
-def check_route(what: str, route: str | None, routes=ROUTES) -> None:
-    """Refuse a ``route=`` that is neither None nor one of ``routes``."""
-    if route is not None and route not in routes:
-        raise ValueError(f"{what}: route must be one of {tuple(routes)}, got {route!r}")
-
-
-def launch(name: str, device: torch.device, *args) -> None:
-    """Call the C entry point ``name`` of csrc/fused_step.cu (built and bound
-    on first use) on ``device``'s current stream; raise on a CUDA error."""
-    lib = _build.load(LIB)
-    fn = _entries.get(name)
-    if fn is None:
-        fn = getattr(lib, name)
-        fn.argtypes = _ARGTYPES[name]
-        fn.restype = ctypes.c_int
-        _entries[name] = fn
-    if name.endswith("_info"):
-        status = fn(device.index, *args)
-    else:
-        status = fn(device.index, *args, torch.cuda.current_stream(device).cuda_stream)
-    _build.check(lib, status, name)
-
-
 def step_route(n: int, b: int) -> str:
     """The route ("tile" or "wide") of the step for B waves of an n x n
     grid, from STEP_ROUTE: a function of (n, b) alone."""
@@ -173,164 +121,15 @@ def wide_step_info(n: int, kernel: str, device: torch.device | str = "cuda") -> 
     runtime reports them."""
     if kernel not in KERNELS:
         raise ValueError(f"wide_step_info: kernel must be one of {KERNELS}, got {kernel!r}")
-    dev = torch.device(device)
-    if dev.index is None:
-        dev = torch.device("cuda", torch.cuda.current_device())
-    out = (ctypes.c_int * 4)()
-    launch("fdes_wide_step_info", dev, n, KERNELS.index(kernel), ctypes.cast(out, _P))
-    return {"registers": out[0], "shared_bytes": out[1], "local_bytes": out[2],
-            "resident_blocks": out[3]}
-
-
-_resident: dict[tuple, int] = {}
-
-
-def resident_blocks(key: tuple, info: Callable[[], dict]) -> int:
-    """Resident blocks of the kernel that ``key`` names (its size, kernel
-    and card), from ``info()`` on first use: the wide kernels' launches and
-    wave groups read it on every call."""
-    if key not in _resident:
-        _resident[key] = info()["resident_blocks"]
-    return _resident[key]
-
-
-def wide_wave_groups(b: int, n: int, resident: int) -> int:
-    """Wave groups of a wide adjoint's last row phase (``wide_step_bwd_kernel``,
-    ``wide_scan_bwd_store_kernel``): one pair of warps carries a row through
-    the waves of its group and sums their dV in registers, so the groups are
-    as many as fill the ``resident`` blocks' pairs, at most one per wave.  A
-    function of (b, n, card) alone: the order of the dV sum is fixed."""
-    return max(1, min(b, resident * PAIRS_PER_BLOCK // n))
+    return dict(_runtime.kernel_info(LIB, _ARGTYPES, "fdes_wide_step_info", BLOCKS,
+                                     card(device), n, KERNELS.index(kernel)))
 
 
 def step_wave_groups(b: int, n: int, device: torch.device) -> int:
     """``wide_wave_groups`` of ``wide_step_bwd_kernel`` on ``device``."""
-    resident = resident_blocks(("step_bwd", n, device.index),
-                               lambda: wide_step_info(n, "step_bwd", device))
-    return wide_wave_groups(b, n, resident)
-
-
-def check_size(ny: int, nx: int, what: str) -> None:
-    """The sizes the in-kernel transform takes, as the TPU engine validates
-    them: square, and one of SIZES."""
-    if ny != nx:
-        raise ValueError(f"{what} needs a square grid, got ({ny}, {nx})")
-    if ny > 1024:
-        raise ValueError(
-            f"{what} transforms whole planes of at most 1024^2, got {ny}^2; use the "
-            "panel engine ('panel', up to 4096^2) or a per-slice engine ('pallas', 'xla') "
-            "there"
-        )
-    if ny not in SIZES:
-        raise ValueError(f"{what} supports axis sizes {SIZES}, got {ny}")
-
-
-@functools.lru_cache(maxsize=None)
-def _bit_reversal_host(n: int) -> np.ndarray:
-    bits = n.bit_length() - 1
-    if n < 1 or n != 1 << bits:
-        raise ValueError(f"bit_reversal needs a power of two, got {n}")
-    i = np.arange(n, dtype=np.int64)
-    out = np.zeros_like(i)
-    for b in range(bits):
-        out |= ((i >> b) & 1) << (bits - 1 - b)
-    out.setflags(write=False)
-    return out
-
-
-_index_copies: dict[tuple, torch.Tensor] = {}
-#: guards _index_copies and _prepared: any thread may prepare
-_cache_lock = threading.RLock()
-
-
-def device_index(name: str, host: np.ndarray, device: torch.device | str | None) -> torch.Tensor:
-    """The copy on ``device`` of the host index array ``name`` (a name that
-    fixes its values), made once per (name, device) and shared: read it,
-    never write it."""
-    dev = torch.device("cpu" if device is None else device)
-    if dev.type == "cuda" and dev.index is None:
-        dev = torch.device("cuda", torch.cuda.current_device())
-    key = (name, dev)
-    with _cache_lock:
-        out = _index_copies.get(key)
-        if out is None:
-            out = _index_copies[key] = torch.from_numpy(host.copy()).to(dev)
-    return out
-
-
-def bit_reversal(n: int, device: torch.device | str | None = None) -> torch.Tensor:
-    """(n,) int64: the index whose log2(n) bits are those of i, reversed.
-    Built once per n on the host and copied once per (n, device); the copy
-    is shared (``device_index``)."""
-    return device_index(f"bitrev{n}", _bit_reversal_host(n), device)
-
-
-def prepare_propagator(propagator: torch.Tensor) -> torch.Tensor:
-    """The (..., n, n) propagator as the kernels read it: complex64,
-    contiguous, P[..., bitrev(a), bitrev(b)] at [..., a, b].  Unscaled: the
-    kernel applies the inverse transform's 1/n^2 itself.  Computed anew on
-    every call; the wrappers read ``prepared_propagator``'s cached copy."""
-    check_size(propagator.shape[-2], propagator.shape[-1], "the fused step")
-    return _prepare(propagator, "bitrev")
-
-
-LAYOUTS = ("bitrev", "cluster")
-#: propagator -> {layout: ((its _version, data_ptr, device, dtype, shape), prepared copy)}
-_prepared = WeakIdKeyDictionary()
-
-
-def prepared_propagator(propagator: torch.Tensor, layout: str = "bitrev") -> torch.Tensor:
-    """The square (..., n, n) propagator as a kernel reads it, from the
-    package's one cache of prepared propagators.  ``layout`` "bitrev" is
-    ``prepare_propagator``'s gather, which the fused step, the whole-loop
-    scan and its adjoint and the panel passes read; "cluster" is
-    ``fused_scan.prepare_cluster_propagator``'s.  The sizes are the
-    caller's to check.
-
-    An entry lives on the propagator's device for as long as the
-    propagator does (keyed by its identity) and holds while its
-    ``_version``, storage, device, dtype and shape do: a propagator changed
-    in place is prepared again.  The entry is shared, and no kernel writes
-    into it.  A propagator that requires a gradient while autograd records
-    (the gather would carry its graph), and any in inference mode (no
-    version to read), is prepared anew.  Counts ``prepare.hit``,
-    ``prepare.miss`` or ``prepare.bypass`` in the innermost open span."""
-    if layout not in LAYOUTS:
-        raise ValueError(f"prepared_propagator: layout must be one of {LAYOUTS}, got {layout!r}")
-    n = propagator.shape[-1]
-    if propagator.ndim < 2 or propagator.shape[-2] != n:
-        raise ValueError(f"prepared_propagator: the propagator must be (..., n, n), got "
-                         f"{tuple(propagator.shape)}")
-    if (propagator.requires_grad and torch.is_grad_enabled()) or propagator.is_inference() \
-            or torch.is_inference_mode_enabled():
-        count("prepare.bypass")
-        return _prepare(propagator, layout)
-    key = (propagator._version, propagator.data_ptr(), propagator.device, propagator.dtype,
-           propagator.shape)
-    with _cache_lock:
-        entries = _prepared.get(propagator)
-        if entries is None:
-            entries = _prepared[propagator] = {}
-        entry = entries.get(layout)
-        if entry is not None and entry[0] == key:
-            count("prepare.hit")
-            return entry[1]
-        count("prepare.miss")
-        out = _prepare(propagator, layout)
-        entries[layout] = (key, out)
-    return out
-
-
-def _prepare(propagator: torch.Tensor, layout: str) -> torch.Tensor:
-    """The gather of ``layout`` (LAYOUTS), uncached and unchecked."""
-    n = propagator.shape[-1]
-    if layout == "cluster":
-        from .fused_scan import cluster_order
-
-        rows, cols = cluster_order(n, propagator.device)
-    else:
-        rows = cols = bit_reversal(n, propagator.device)
-    return propagator.to(torch.complex64)[..., rows[:, None], cols[None, :]].contiguous()
+    info = _runtime.kernel_info(LIB, _ARGTYPES, "fdes_wide_step_info", BLOCKS, device, n,
+                                KERNELS.index("step_bwd"))
+    return wide_wave_groups(b, n, info["resident_blocks"])
 
 
 def _operands(psi, v, propagator, prepared, what):
@@ -342,7 +141,7 @@ def _operands(psi, v, propagator, prepared, what):
     if psi.ndim < 2:
         raise ValueError(f"{what}: psi must be (..., n, n), got {tuple(psi.shape)}")
     n = psi.shape[-1]
-    check_size(psi.shape[-2], n, what)
+    check_size(psi.shape[-2], n, what, SIZES)
     if v.is_complex() or tuple(v.shape) != (n, n):
         raise ValueError(f"{what}: v must be a real ({n}, {n}) potential, got "
                          f"{v.dtype} {tuple(v.shape)}")
@@ -359,7 +158,7 @@ def _operands(psi, v, propagator, prepared, what):
     for name, t in (("psi", psi), ("v", v), ("propagator", pp)):
         if t.device != psi.device:
             raise ValueError(f"{what}: {name} on {t.device}, psi on {psi.device}")
-        _check_dense(t, name, what)
+        check_dense(t, name, what)
         if t.data_ptr() % 16:
             raise ValueError(f"{what}: {name} must be 16-byte aligned")
     p_stride = n * n if pp.ndim > 2 and psi.numel() > n * n else 0
@@ -387,7 +186,7 @@ def fused_step_bwd_ref(
     t = torch.complex(torch.cos(phase), torch.sin(phase))
     bar_s = torch.fft.ifft2(torch.fft.fft2(g) * propagator.to(g.dtype).conj())
     dv = sigma * (bar_s * (t * psi).conj()).imag
-    return bar_s * t.conj(), _sum_batch(dv, 2)
+    return bar_s * t.conj(), sum_batch(dv, 2)
 
 
 # ---- kernel wrappers -------------------------------------------------------
@@ -400,7 +199,7 @@ def fused_step(
     """One slice step: on CUDA the kernel that ``step_route`` picks
     (``route`` names one instead: "tile" or "wide"), plain on the CPU.  No
     graph: ``fused_slice_step`` is the differentiable form."""
-    check_route("fused_step", route)
+    route = pick_route("fused_step", route, ROUTES)
     if not psi.is_cuda:
         return fused_slice_step_ref(psi, v, propagator, sigma)
     flat, v32, pp, p_stride = _operands(psi, v, propagator, prepared, "fused_step")
@@ -408,7 +207,7 @@ def fused_step(
     b, n = flat.shape[0], flat.shape[-1]
     if b:
         route = route or step_route(n, b)
-        launch(
+        _launch(
             "fdes_wide_step_c64" if route == "wide" else "fdes_fused_step_c64", psi.device, n,
             flat.data_ptr(), v32.data_ptr(), pp.data_ptr(), out.data_ptr(), float(sigma), b,
             p_stride,
@@ -433,7 +232,7 @@ def fused_step_bwd(
     if not psi.is_cuda:
         return fused_step_bwd_ref(psi, v, g, propagator, sigma)
     flat, v32, pp, p_stride = _operands(psi, v, propagator, prepared, "fused_step_bwd")
-    _check_dense(g, "g", "fused_step_bwd")
+    check_dense(g, "g", "fused_step_bwd")
     if g.data_ptr() % 16:
         raise ValueError("fused_step_bwd: g must be 16-byte aligned")
     dpsi, dv = torch.empty_like(flat), torch.empty_like(v32)
@@ -443,9 +242,9 @@ def fused_step_bwd(
     groups = step_wave_groups(b, n, psi.device)
     part = torch.empty((groups, n, n), dtype=torch.float32, device=psi.device) \
         if groups > 1 else None
-    launch("fdes_wide_step_bwd_c64", psi.device, n, flat.data_ptr(), v32.data_ptr(),
-           g.data_ptr(), pp.data_ptr(), dpsi.data_ptr(), dv.data_ptr(),
-           part.data_ptr() if part is not None else None, float(sigma), b, groups, p_stride)
+    _launch("fdes_wide_step_bwd_c64", psi.device, n, flat.data_ptr(), v32.data_ptr(),
+            g.data_ptr(), pp.data_ptr(), dpsi.data_ptr(), dv.data_ptr(),
+            part.data_ptr() if part is not None else None, float(sigma), b, groups, p_stride)
     fused_step_bwd.launches += 1
     return dpsi.reshape(psi.shape), dv
 
@@ -470,7 +269,7 @@ class _FusedStep(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         psi, v, propagator, prepared = ctx.saved_tensors
-        dpsi, dv = fused_step_bwd(psi, v, _dense(g), propagator, ctx.sigma, prepared=prepared)
+        dpsi, dv = fused_step_bwd(psi, v, dense(g), propagator, ctx.sigma, prepared=prepared)
         return dpsi, dv.to(v.dtype), None, None, None
 
 
@@ -506,7 +305,7 @@ def make_fused_slice_step(
     time.  The step reads the propagator's bit-reversed copy from
     ``prepared_propagator``'s cache, so a slice loop permutes P once.
     """
-    check_size(ny, nx, "the fused step")
+    check_size(ny, nx, "the fused step", SIZES)
 
     def step(psi, v_slice, propagator, sigma):
         if v_slice.is_complex():

@@ -106,10 +106,10 @@ Layout between passes, the kernels' own: Fx is the forward x transform
 with its spectrum in bit-reversed order (a[..., k] = FFT_x[..., bitrev(k)]),
 Fx^H, Fy^H the unscaled inverse transforms, and the 1/n^2 rides on the
 column pass, so b = Fx(psi_next) / n.  At the boundary psi, V, s, dV and the
-propagator are in natural order; ``prepare_propagator`` gathers P in
-bit-reversed order in both axes, and the passes read that gather from the
-package's cache on the device (``fused_step.prepared_propagator``): once a
-propagator, not once a call.
+propagator are in natural order; ``_runtime.prepare_propagator`` gathers P
+in bit-reversed order in both axes, and the passes read that gather from
+the package's cache on the device (``_runtime.prepared_propagator``): once
+a propagator, not once a call.
 
 psi is complex64 (n, n) or (B, n, n), V real (or, in the absorptive passes,
 complex: Vr + i Vi) and shared by the waves, the propagator (n, n) or one per
@@ -134,16 +134,18 @@ a routed pass).
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 from torch.autograd.function import once_differentiable
 from torch.utils.checkpoint import checkpoint
 
 from ..profiling import count, span
-from . import _build, count_launches, reset_launches  # noqa: F401 - reset_launches re-exported
-from . import fused_step as fs
-from .fused_scan import WholeScanEngine, _batching
-from .slice_step import _check_dense, _dense, _transmit_abs_parts, pallas_slice_step, transmit_ref
+from . import _runtime, adjoint_scan, count_launches, reset_launches  # noqa: F401 - re-exported
+from ._runtime import (BLOCKS, batching, bit_reversal, card, check_dense, check_size, dense,
+                       pick_remat_chunk, pick_route, prepared_propagator, route_row)
+from .fused_scan import WholeScanEngine
+from .slice_step import pallas_slice_step, transmit_abs_parts_ref, transmit_ref
 
 SIZES = (256, 512, 1024, 2048, 4096)
 LIB = "panel_scan"
@@ -179,9 +181,9 @@ _ARGTYPES = {
     "fdes_panel_vfused_rowpass_c64": [_INT, _INT, _P, _P, _P, _D, _I64, _P],
     "fdes_panel_kernel_info": [_INT, _INT, _INT, _P],
 }
+_launch = functools.partial(_runtime.launch, LIB, _ARGTYPES)
 #: modes of fdes_panel_bwd_row_c64 (csrc/panel_scan.cu BwdMode)
 _BWD_LOOP, _BWD_LAST, _BWD_TAIL = 0, 1, 2
-_entries: dict[str, object] = {}
 
 #: The kernels of the column pass (rows 14 and 24), of the backward row pass
 #: (rows 25, 26, 21), of the forward row pass with V_j (rows 15 and 23), of
@@ -243,34 +245,16 @@ def panel_route(n: int, b: int, kind: str) -> str:
     "build_col" its species (the planes that one output sums)."""
     if kind not in KINDS:
         raise ValueError(f"panel_route: kind must be one of {KINDS}, got {kind!r}")
-    return fs.route_row(PANEL_ROUTE[n], b)[KINDS.index(kind)]
+    return route_row(PANEL_ROUTE[n], b)[KINDS.index(kind)]
 
 
-def _route_code(what: str, route: str | None, n: int, b: int, kind: str) -> tuple[str, int]:
-    """(route name, its code in the C entry points) of a pass: ``route``
-    checked, or PANEL_ROUTE's when None."""
-    fs.check_route(what, route, ROUTES)
-    name = route or panel_route(n, b, kind)
-    return name, ROUTES[name]
-
-
-def _entry(name: str):
-    lib = _build.load(LIB)
-    fn = _entries.get(name)
-    if fn is None:
-        fn = getattr(lib, name)
-        fn.argtypes = _ARGTYPES[name]
-        fn.restype = _INT
-        _entries[name] = fn
-    return lib, fn
-
-
-def _launch(name: str, device: torch.device, *args) -> None:
-    """Call a launching entry point of csrc/panel_scan.cu (built and bound on
-    first use) on ``device``'s current stream; raise on a CUDA error."""
-    lib, fn = _entry(name)
-    status = fn(device.index, *args, torch.cuda.current_stream(device).cuda_stream)
-    _build.check(lib, status, name)
+#: the kernels that panel_kernel_info reports on, by their code in
+#: fdes_panel_kernel_info (csrc/panel_scan.cu)
+INFO_KERNELS = {"row": 0, "col": 1, "bwd_row": 2, "row_abs": 3, "build_col": 4, "wide_col": 6,
+                "wide_bwd_row": 7, "wide_row": 8, "wide_row_store": 9, "wide_build_col": 10,
+                "wide_vfused_row": 11, "wide_build_col_sum": 12, "wide_g_row": 13,
+                "wide_row_abs": 14, "wide_init_abs": 15, "wide_final": 16, "wide_rowfwd": 17,
+                "wide_init": 18, "wide_init_vc": 19}
 
 
 def panel_kernel_info(n: int, kernel: str = "row", device: torch.device | str = "cuda") -> dict:
@@ -284,44 +268,8 @@ def panel_kernel_info(n: int, kernel: str = "row", device: torch.device | str = 
     29, "wide_g_row" of row 27, "wide_final" and "wide_rowfwd" of rows 17
     and 20, "wide_init" of row 13 and "wide_init_vc" of its streamed form),
     for axis size n, as the CUDA runtime reports them."""
-    which = {"row": 0, "col": 1, "bwd_row": 2, "row_abs": 3, "build_col": 4,
-             "wide_col": 6, "wide_bwd_row": 7, "wide_row": 8, "wide_row_store": 9,
-             "wide_build_col": 10, "wide_vfused_row": 11, "wide_build_col_sum": 12,
-             "wide_g_row": 13, "wide_row_abs": 14, "wide_init_abs": 15, "wide_final": 16,
-             "wide_rowfwd": 17, "wide_init": 18, "wide_init_vc": 19}[kernel]
-    dev = torch.device(device)
-    if dev.index is None:
-        dev = torch.device("cuda", torch.cuda.current_device())
-    out = (_INT * 4)()
-    lib, fn = _entry("fdes_panel_kernel_info")
-    _build.check(lib, fn(dev.index, n, which, ctypes.cast(out, _P)), "fdes_panel_kernel_info")
-    return {"registers": out[0], "shared_bytes": out[1], "local_bytes": out[2],
-            "resident_blocks": out[3]}
-
-
-def check_size(ny: int, nx: int, what: str) -> None:
-    """The sizes the panel kernels take: square, a power of two from 256 to
-    4096 (the JAX engine takes N = 128 * {2, 4, 8, 16, 32} and more)."""
-    if ny != nx:
-        raise ValueError(f"{what} needs a square grid, got ({ny}, {nx})")
-    if ny not in SIZES:
-        raise ValueError(f"{what} supports axis sizes {SIZES}, got {ny}")
-
-
-def prepare_propagator(propagator: torch.Tensor) -> torch.Tensor:
-    """The (..., n, n) propagator as the column pass reads it: complex64,
-    contiguous, P[..., bitrev(a), bitrev(b)] at [..., a, b], unscaled (the
-    fused step's layout).  Computed anew on every call; the passes read
-    ``_prepared``'s cached copy."""
-    check_size(propagator.shape[-2], propagator.shape[-1], "the panel scan")
-    return fs._prepare(propagator, "bitrev")
-
-
-def _prepared(propagator: torch.Tensor) -> torch.Tensor:
-    """``prepare_propagator``'s tensor from the package's cache
-    (``fused_step.prepared_propagator``, layout "bitrev")."""
-    check_size(propagator.shape[-2], propagator.shape[-1], "the panel scan")
-    return fs.prepared_propagator(propagator)
+    return dict(_runtime.kernel_info(LIB, _ARGTYPES, "fdes_panel_kernel_info", BLOCKS,
+                                     card(device), n, INFO_KERNELS[kernel]))
 
 
 def prepare_factors(
@@ -334,11 +282,11 @@ def prepare_factors(
     1/(py px n^2) (the pixel area of the irfft2 build and the two unscaled
     inverse transforms), computed in float64 and cast once."""
     n = ff_full.shape[-1]
-    check_size(ff_full.shape[-2], n, "the streamed panel build")
+    check_size(ff_full.shape[-2], n, "the streamed panel build", SIZES)
     if ff_full.is_complex() or ff_full.ndim != 3:
         raise ValueError(f"the streamed panel build takes real (nsp, n, n) factors, got "
                          f"{ff_full.dtype} {tuple(ff_full.shape)}")
-    idx = fs.bit_reversal(n, ff_full.device)
+    idx = bit_reversal(n, ff_full.device)
     scale = 1.0 / (pixel[0] * pixel[1] * n * n)
     return (ff_full.to(torch.float64)[:, idx[:, None], idx[None, :]] * scale).to(
         dtype).contiguous()
@@ -349,13 +297,13 @@ def prepare_factors(
 
 def _fx(z: torch.Tensor) -> torch.Tensor:
     """Forward x transform, spectrum in bit-reversed order."""
-    return torch.fft.fft(z, dim=-1)[..., fs.bit_reversal(z.shape[-1], z.device)]
+    return torch.fft.fft(z, dim=-1)[..., bit_reversal(z.shape[-1], z.device)]
 
 
 def _fx_inv(a: torch.Tensor) -> torch.Tensor:
     """Unscaled inverse x transform of a bit-reversed spectrum."""
     n = a.shape[-1]
-    return torch.fft.ifft(a[..., fs.bit_reversal(n, a.device)], dim=-1) * n
+    return torch.fft.ifft(a[..., bit_reversal(n, a.device)], dim=-1) * n
 
 
 def panel_init_ref(v0: torch.Tensor, psi: torch.Tensor, sigma: float) -> torch.Tensor:
@@ -367,14 +315,14 @@ def panel_init_abs_ref(
     vr0: torch.Tensor, vi0: torch.Tensor, psi: torch.Tensor, sigma: float
 ) -> torch.Tensor:
     """a = Fx(t_0 psi), t_0 = exp(-sigma Vi) exp(i sigma Vr), in plain PyTorch."""
-    return _fx(_transmit_abs_parts(psi, vr0, vi0, sigma))
+    return _fx(transmit_abs_parts_ref(psi, vr0, vi0, sigma))
 
 
 def panel_colpass_ref(a: torch.Tensor, propagator: torch.Tensor) -> torch.Tensor:
     """b = Fy^H(P / n^2 * Fy(a)) in plain PyTorch, P in natural order (its
     columns taken in a's bit-reversed x order)."""
     n = a.shape[-1]
-    p = propagator.to(a.dtype)[..., fs.bit_reversal(n, a.device)]
+    p = propagator.to(a.dtype)[..., bit_reversal(n, a.device)]
     return torch.fft.ifft(torch.fft.fft(a, dim=-2) * p, dim=-2) / n
 
 
@@ -394,7 +342,7 @@ def panel_rowpass_stack_abs_ref(
     j: int, vr_stack: torch.Tensor, vi_stack: torch.Tensor, b: torch.Tensor, sigma: float
 ) -> torch.Tensor:
     """The stack row pass with the damped transmit, in plain PyTorch."""
-    return _fx(_transmit_abs_parts(_fx_inv(b), vr_stack[j], vi_stack[j], sigma))
+    return _fx(transmit_abs_parts_ref(_fx_inv(b), vr_stack[j], vi_stack[j], sigma))
 
 
 def panel_final_ref(b: torch.Tensor) -> torch.Tensor:
@@ -485,7 +433,7 @@ def panel_build_colpass_ref(gx: torch.Tensor, factors: torch.Tensor) -> torch.Te
     bit-reversed x spectrum, ``factors`` prepare_factors' panel (its rows
     taken back to natural y order here)."""
     n = gx.shape[-1]
-    f = factors.to(gx.real.dtype)[:, fs.bit_reversal(n, gx.device), :]
+    f = factors.to(gx.real.dtype)[:, bit_reversal(n, gx.device), :]
     return torch.fft.ifft(torch.sum(torch.fft.fft(gx, dim=-2) * f, dim=0), dim=-2) * n
 
 
@@ -548,7 +496,7 @@ def panel_scan_bwd_store_ref(
 def _broadcast(psi0, v_stack, propagator, what):
     """(psi as the rollout carries it, B, whether the result is batched),
     validated: V is one (S, n, n) stack shared by the waves, with S >= 1."""
-    n, b, v_batched, p_batched = _batching(psi0, v_stack, propagator, what, check_size)
+    n, b, v_batched, p_batched = batching(psi0, v_stack, propagator, what, SIZES)
     if v_batched:
         raise ValueError(
             f"{what}: v_stack must be one (S, {n}, {n}) stack shared by the waves, got "
@@ -574,8 +522,8 @@ def _wave(
     if z.ndim not in (2, 3):
         raise ValueError(f"{what}: {name} must be (n, n) or (B, n, n), got {tuple(z.shape)}")
     n = z.shape[-1]
-    check_size(z.shape[-2], n, what)
-    _check_dense(z, name, what)
+    check_size(z.shape[-2], n, what, SIZES)
+    check_dense(z, name, what)
     if z.data_ptr() % 16:
         raise ValueError(f"{what}: {name} must be 16-byte aligned")
     return z.reshape(-1, n, n), n
@@ -590,7 +538,7 @@ def _like(z: torch.Tensor, shape: tuple, device: torch.device, name: str, what: 
         raise ValueError(f"{what}: {name} on {z.device}, the wave on {device}")
     if z.dtype != torch.complex64:
         raise TypeError(f"{what}: the CUDA kernel takes complex64, got {name} {z.dtype}")
-    _check_dense(z, name, what)
+    check_dense(z, name, what)
     if z.data_ptr() % 16:
         raise ValueError(f"{what}: {name} must be 16-byte aligned")
     return z
@@ -644,11 +592,11 @@ def _init(what, counter, v0, psi, sigma, store, route=None):
     v = _potential(v0, (n, n), psi.device, "v0", what)
     out = torch.empty_like(flat)
     s = torch.empty_like(flat) if store else None
-    route, code = (None, ROUTES["tile"]) if store else _route_code(what, route, n, flat.shape[0],
-                                                                   "init")
+    route = None if store else pick_route(what, route, ROUTES, panel_route, n, flat.shape[0],
+                                          "init")
     _launch("fdes_panel_init_c64", psi.device, n, flat.data_ptr(), v.data_ptr(), 0,
             out.data_ptr(), None if s is None else s.data_ptr(), n * n, float(sigma),
-            flat.shape[0], code)
+            flat.shape[0], ROUTES[route or "tile"])
     _count(counter, route=route)
     return out.reshape(psi.shape), None if s is None else s.reshape(psi.shape)
 
@@ -658,7 +606,7 @@ def panel_init(
 ) -> torch.Tensor:
     """a = Fx(t_0 psi): on CUDA the kernel that PANEL_ROUTE picks (or
     ``route`` names), plain on the CPU."""
-    fs.check_route("panel_init", route, ROUTES)
+    pick_route("panel_init", route, ROUTES)
     if not psi.is_cuda:
         return panel_init_ref(v0, psi, sigma)
     return _init("panel_init", panel_init, v0, psi, sigma, False, route)[0]
@@ -683,16 +631,16 @@ def panel_init_abs(
     picks for the absorptive row pass (or ``route`` names), plain on the
     CPU."""
     what = "panel_init_abs"
-    fs.check_route(what, route, ROUTES)
+    pick_route(what, route, ROUTES)
     if not psi.is_cuda:
         return panel_init_abs_ref(vr0, vi0, psi, sigma)
     flat, n = _wave(psi, "psi", what)
-    route, code = _route_code(what, route, n, flat.shape[0], "row_abs")
+    route = pick_route(what, route, ROUTES, panel_route, n, flat.shape[0], "row_abs")
     v = _potential(absorptive_v(vr0, vi0), (n, n), psi.device, "vr0 + i vi0", what,
                    torch.complex64)
     out = torch.empty_like(flat)
     _launch("fdes_panel_init_abs_c64", psi.device, n, flat.data_ptr(), v.data_ptr(),
-            out.data_ptr(), float(sigma), flat.shape[0], code)
+            out.data_ptr(), float(sigma), flat.shape[0], ROUTES[route])
     _count(panel_init_abs, route=route)
     return out.reshape(psi.shape)
 
@@ -712,7 +660,7 @@ def panel_colpass(a: torch.Tensor, propagator: torch.Tensor) -> torch.Tensor:
     if not a.is_cuda:
         return panel_colpass_ref(a, propagator)
     _check_propagator("panel_colpass", a, propagator)
-    return _colpass(a, _prepared(propagator))
+    return _colpass(a, prepared_propagator(propagator))
 
 
 def panel_col_bwd(bar: torch.Tensor, propagator: torch.Tensor) -> torch.Tensor:
@@ -721,7 +669,7 @@ def panel_col_bwd(bar: torch.Tensor, propagator: torch.Tensor) -> torch.Tensor:
     if not bar.is_cuda:
         return panel_col_bwd_ref(bar, propagator)
     _check_propagator("panel_col_bwd", bar, propagator)
-    return _colpass(bar, _prepared(propagator), conj=True)
+    return _colpass(bar, prepared_propagator(propagator), conj=True)
 
 
 def _count(wrapper, k: int = 1, route: str | None = None) -> None:
@@ -744,11 +692,11 @@ def _colpass(a: torch.Tensor, prepared: torch.Tensor, conj: bool = False,
     measurements); None takes PANEL_ROUTE's."""
     what = "panel_col_bwd" if conj else "panel_colpass"
     flat, n = _wave(a, "a", what)
-    route, code = _route_code(what, route, n, flat.shape[0], "col")
+    route = pick_route(what, route, ROUTES, panel_route, n, flat.shape[0], "col")
     p_stride = n * n if prepared.ndim == 3 and a.ndim == 3 else 0
     out = torch.empty_like(flat)
     _launch("fdes_panel_colpass_c64", a.device, n, flat.data_ptr(), prepared.data_ptr(),
-            out.data_ptr(), p_stride, int(conj), flat.shape[0], code)
+            out.data_ptr(), p_stride, int(conj), flat.shape[0], ROUTES[route])
     _count(panel_col_bwd if conj else panel_colpass, route=route)
     return out.reshape(a.shape)
 
@@ -758,14 +706,15 @@ def _rowpass(what, counter, v_stack, j, b, sigma, store, route):
     viewed as a stack of one); with ``store`` also s_j.  ``route`` names the
     kernel (ROUTES, for measurements); None takes PANEL_ROUTE's."""
     flat, n = _wave(b, "b", what)
-    route, code = _route_code(what, route, n, flat.shape[0], "row_store" if store else "row")
+    route = pick_route(what, route, ROUTES, panel_route, n, flat.shape[0],
+                       "row_store" if store else "row")
     vs = _potential(v_stack, (v_stack.shape[0], n, n), b.device, "v_stack", what)
     j = _slice_index(j, vs, what)
     out = torch.empty_like(flat)
     s = torch.empty_like(flat) if store else None
     _launch("fdes_panel_rowpass_stack_c64", b.device, n, j, vs.data_ptr(), flat.data_ptr(),
             out.data_ptr(), None if s is None else s.data_ptr(), n * n, float(sigma),
-            flat.shape[0], code)
+            flat.shape[0], ROUTES[route])
     _count(counter, route=route)
     return out.reshape(b.shape), None if s is None else s.reshape(b.shape)
 
@@ -776,7 +725,7 @@ def panel_rowpass_stack(
     """a = Fx(t_j Fx^H(b)), V_j read from the (S, n, n) stack: on CUDA the
     kernel that PANEL_ROUTE picks (or ``route`` names), plain on the CPU."""
     what = "panel_rowpass_stack"
-    fs.check_route(what, route, ROUTES)
+    pick_route(what, route, ROUTES)
     if not b.is_cuda:
         return panel_rowpass_stack_ref(j, v_stack, b, sigma)
     return _rowpass(what, panel_rowpass_stack, v_stack, j, b, sigma, False, route)[0]
@@ -788,7 +737,7 @@ def panel_rowpass_stack_store(
     """(a = Fx(s_j), s_j = t_j Fx^H(b)), V_j read from the stack: on CUDA the
     kernel that PANEL_ROUTE picks (or ``route`` names), plain on the CPU."""
     what = "panel_rowpass_stack_store"
-    fs.check_route(what, route, ROUTES)
+    pick_route(what, route, ROUTES)
     if not b.is_cuda:
         return panel_rowpass_stack_store_ref(j, v_stack, b, sigma)
     return _rowpass(what, panel_rowpass_stack_store, v_stack, j, b, sigma, True, route)
@@ -801,7 +750,7 @@ def panel_rowpass(
     the kernel that PANEL_ROUTE picks for the row pass (or ``route`` names),
     plain on the CPU."""
     what = "panel_rowpass"
-    fs.check_route(what, route, ROUTES)
+    pick_route(what, route, ROUTES)
     if not b.is_cuda:
         return panel_rowpass_ref(v, b, sigma)
     return _rowpass(what, panel_rowpass, v[None], 0, b, sigma, False, route)[0]
@@ -815,17 +764,17 @@ def panel_rowpass_stack_abs(
     stacks read as one complex stack: ``absorptive_v``): on CUDA the kernel
     that PANEL_ROUTE picks (or ``route`` names), plain on the CPU."""
     what = "panel_rowpass_stack_abs"
-    fs.check_route(what, route, ROUTES)
+    pick_route(what, route, ROUTES)
     if not b.is_cuda:
         return panel_rowpass_stack_abs_ref(j, vr_stack, vi_stack, b, sigma)
     flat, n = _wave(b, "b", what)
-    route, code = _route_code(what, route, n, flat.shape[0], "row_abs")
+    route = pick_route(what, route, ROUTES, panel_route, n, flat.shape[0], "row_abs")
     v = _potential(absorptive_v(vr_stack, vi_stack), (vr_stack.shape[0], n, n), b.device,
                    "vr_stack + i vi_stack", what, torch.complex64)
     j = _slice_index(j, v, what)
     out = torch.empty_like(flat)
     _launch("fdes_panel_rowpass_stack_abs_c64", b.device, n, j, v.data_ptr(), flat.data_ptr(),
-            out.data_ptr(), float(sigma), flat.shape[0], code)
+            out.data_ptr(), float(sigma), flat.shape[0], ROUTES[route])
     _count(panel_rowpass_stack_abs, route=route)
     return out.reshape(b.shape)
 
@@ -858,13 +807,13 @@ def _bwd_row(what, counter, mode, bar, s, s_wave_stride, v, sigma, route):
     (or psi) plane, s_wave_stride elements before the next wave's.  ``route``
     names the kernel (ROUTES, for measurements); None takes PANEL_ROUTE's."""
     flat, n = _wave(bar, "bar", what)
-    route, code = _route_code(what, route, n, flat.shape[0], "bwd_row")
+    route = pick_route(what, route, ROUTES, panel_route, n, flat.shape[0], "bwd_row")
     vv = _potential(v, (n, n), bar.device, "v", what)
     out = torch.empty_like(flat)
     dv = torch.empty((n, n), dtype=torch.float32, device=bar.device)
     _launch("fdes_panel_bwd_row_c64", bar.device, n, mode, flat.data_ptr(), out.data_ptr(),
             s.data_ptr(), s_wave_stride, vv.data_ptr(), dv.data_ptr(), float(sigma),
-            flat.shape[0], code)
+            flat.shape[0], ROUTES[route])
     _count(counter, route=route)
     return out.reshape(bar.shape), dv
 
@@ -877,7 +826,7 @@ def panel_row_bwd_loop(
     for (B, n, n) waves, (B, S, n, n)) stack of the forward: on CUDA the
     kernel that PANEL_ROUTE picks (or ``route`` names), plain on the CPU."""
     what = "panel_row_bwd_loop"
-    fs.check_route(what, route, ROUTES)
+    pick_route(what, route, ROUTES)
     if not bar.is_cuda:
         return panel_row_bwd_loop_ref(j, v_stack, s, bar, sigma)
     nslices, n = v_stack.shape[0], bar.shape[-1]
@@ -893,7 +842,7 @@ def panel_row_bwd_last(
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """(dpsi0 = bar_s * conj(t_0), dV_0), s0 of bar's shape: on CUDA the
     kernel that PANEL_ROUTE picks (or ``route`` names), plain on the CPU."""
-    fs.check_route("panel_row_bwd_last", route, ROUTES)
+    pick_route("panel_row_bwd_last", route, ROUTES)
     if not bar.is_cuda:
         return panel_row_bwd_last_ref(v0, s0, bar, sigma)
     n = bar.shape[-1]
@@ -909,7 +858,7 @@ def panel_bwd_tail(
     """(dpsi = bar_s * conj(t), dV), s = t psi formed from psi (bar's shape):
     on CUDA the kernel that PANEL_ROUTE picks (or ``route`` names), plain on
     the CPU."""
-    fs.check_route("panel_bwd_tail", route, ROUTES)
+    pick_route("panel_bwd_tail", route, ROUTES)
     if not bar.is_cuda:
         return panel_bwd_tail_ref(v, psi, bar, sigma)
     n = bar.shape[-1]
@@ -938,7 +887,7 @@ def _loop_operands(what, psi, v_stack, propagator, prepared):
     v32 = _potential(v_stack, (nslices, n, n), psi.device, "v_stack", what)
     if propagator.device != psi.device:
         raise ValueError(f"{what}: propagator on {propagator.device}, the waves on {psi.device}")
-    pp = _prepared(propagator) if prepared is None else prepared
+    pp = prepared_propagator(propagator) if prepared is None else prepared
     if pp.dtype != torch.complex64 or pp.shape != propagator.shape:
         raise ValueError(f"{what}: prepared propagator {pp.dtype} {tuple(pp.shape)} does not "
                          f"match the propagator {tuple(propagator.shape)}")
@@ -979,14 +928,14 @@ def panel_scan(
         if propagator.device != psi0.device:
             raise ValueError(f"panel_scan: propagator on {propagator.device}, "
                              f"psi0 on {psi0.device}")
-        pp = _prepared(propagator)
+        pp = prepared_propagator(propagator)
         out = torch.empty_like(flat)
-        col, code = _route_code("panel_scan", None, n, b, "col")
-        row, row_code = _route_code("panel_scan", None, n, b, "row_abs" if absorptive else "row")
-        init, init_code = _route_code("panel_scan", None, n, b, "init")
+        col = panel_route(n, b, "col")
+        row = panel_route(n, b, "row_abs" if absorptive else "row")
+        init = panel_route(n, b, "init")
         _launch("fdes_panel_scan_c64", psi0.device, n, flat.data_ptr(), v.data_ptr(),
                 int(absorptive), pp.data_ptr(), out.data_ptr(), float(sigma), b, s,
-                n * n if pp.ndim == 3 else 0, code, row_code, init_code)
+                n * n if pp.ndim == 3 else 0, ROUTES[col], ROUTES[row], ROUTES[init])
         panel_scan.launches += 1
         if absorptive:
             _count_loop(s, panel_init_abs, panel_colpass, panel_rowpass_stack_abs, panel_final, col,
@@ -1012,11 +961,10 @@ def panel_scan_store(
                                                       propagator, prepared)
     out = torch.empty_like(psi0)
     s = torch.empty((b, nslices, n, n), dtype=psi0.dtype, device=psi0.device)
-    col, code = _route_code("panel_scan_store", None, n, b, "col")
-    row, row_code = _route_code("panel_scan_store", None, n, b, "row_store")
+    col, row = panel_route(n, b, "col"), panel_route(n, b, "row_store")
     _launch("fdes_panel_scan_store_c64", psi0.device, n, psi0.data_ptr(), v32.data_ptr(),
-            pp.data_ptr(), out.data_ptr(), s.data_ptr(), float(sigma), b, nslices, p_stride, code,
-            row_code)
+            pp.data_ptr(), out.data_ptr(), s.data_ptr(), float(sigma), b, nslices, p_stride,
+            ROUTES[col], ROUTES[row])
     panel_scan_store.launches += 1
     _count_loop(nslices, panel_init_store, panel_colpass, panel_rowpass_stack_store, panel_final,
                 col, row)
@@ -1039,11 +987,10 @@ def panel_scan_bwd_store(
     s = _like(s, (b, nslices, n, n), g.device, "s", what)
     dpsi = torch.empty_like(g)
     dv = torch.empty((nslices, n, n), dtype=torch.float32, device=g.device)
-    col, col_code = _route_code(what, None, n, b, "col")
-    row, row_code = _route_code(what, None, n, b, "bwd_row")
+    col, row = panel_route(n, b, "col"), panel_route(n, b, "bwd_row")
     _launch("fdes_panel_scan_bwd_store_c64", g.device, n, s.data_ptr(), v32.data_ptr(),
             pp.data_ptr(), g.data_ptr(), dpsi.data_ptr(), dv.data_ptr(), float(sigma), b,
-            nslices, p_stride, col_code, row_code)
+            nslices, p_stride, ROUTES[col], ROUTES[row])
     panel_scan_bwd_store.launches += 1
     _count_loop(nslices, panel_rowfwd, panel_col_bwd, panel_row_bwd_loop, panel_row_bwd_last,
                 col, row)
@@ -1087,7 +1034,7 @@ def panel_scatter(idx: torch.Tensor, val: torch.Tensor, nsp: int, n: int) -> tor
     if not val.is_cuda:
         return panel_scatter_ref(idx, val, nsp, n)
     what = "panel_scatter"
-    check_size(n, n, what)
+    check_size(n, n, what, SIZES)
     if idx.ndim != 1:
         raise ValueError(f"{what}: the corners must be 1-D, got {tuple(idx.shape)}")
     idx, val = _corners(idx, val, val.device, what)
@@ -1105,17 +1052,17 @@ def panel_build_colpass(
     from prepare_factors: on CUDA the kernel that PANEL_ROUTE picks for nsp
     species (or ``route`` names), plain on the CPU."""
     what = "panel_build_colpass"
-    fs.check_route(what, route, ROUTES)
+    pick_route(what, route, ROUTES)
     if not gx.is_cuda:
         return panel_build_colpass_ref(gx, factors)
     if gx.ndim != 3:
         raise ValueError(f"{what}: gx must be (nsp, n, n), got {tuple(gx.shape)}")
     flat, n = _wave(gx, "gx", what)
-    route, code = _route_code(what, route, n, flat.shape[0], "build_col")
+    route = pick_route(what, route, ROUTES, panel_route, n, flat.shape[0], "build_col")
     fp = _potential(factors, tuple(gx.shape), gx.device, "factors", what)
     out = torch.empty((n, n), dtype=torch.complex64, device=gx.device)
     _launch("fdes_panel_build_colpass_c64", gx.device, n, flat.data_ptr(), fp.data_ptr(),
-            out.data_ptr(), flat.shape[0], code)
+            out.data_ptr(), flat.shape[0], ROUTES[route])
     _count(panel_build_colpass, route=route)
     return out
 
@@ -1197,9 +1144,9 @@ def _streamed_on_card(psi, idx, val, factors, propagator, sigma):
     idx, val = _corners(idx, val, psi.device, what)
     if propagator.device != psi.device:
         raise ValueError(f"{what}: propagator on {propagator.device}, psi0 on {psi.device}")
-    pp = _prepared(propagator)
-    routes = {kind: _route_code(what, None, n, count, kind)
-              for kind, count in (("build_col", nsp), ("col", b), ("init", b))}
+    pp = prepared_propagator(propagator)
+    routes = [panel_route(n, count, kind)
+              for kind, count in (("build_col", nsp), ("col", b), ("init", b))]
     out = torch.empty_like(flat)
     g = torch.empty(nsp * n * n, dtype=torch.float32, device=psi.device)
     gx = torch.empty((nsp, n, n), dtype=torch.complex64, device=psi.device)
@@ -1208,8 +1155,8 @@ def _streamed_on_card(psi, idx, val, factors, propagator, sigma):
     _launch("fdes_panel_streamed_c64", psi.device, n, flat.data_ptr(), idx.data_ptr(),
             val.data_ptr(), corners, nslices, fp.data_ptr(), nsp, pp.data_ptr(),
             out.data_ptr(), g.data_ptr(), gx.data_ptr(), vx.data_ptr(), float(sigma), b,
-            n * n if pp.ndim == 3 else 0, *(code for _, code in routes.values()))
-    _count_streamed(nslices, *(route for route, _ in routes.values()))
+            n * n if pp.ndim == 3 else 0, *(ROUTES[route] for route in routes))
+    _count_streamed(nslices, *routes)
     return out.reshape(psi.shape)
 
 
@@ -1313,7 +1260,7 @@ class _PanelScanDiff(torch.autograd.Function):
     @staticmethod
     def forward(ctx, psi_b, v_stack, propagator, sigma):
         with span("panel_scan.forward_store"):
-            prepared = _prepared(propagator) if psi_b.is_cuda else None
+            prepared = prepared_propagator(propagator) if psi_b.is_cuda else None
             out, s = panel_scan_store(psi_b, v_stack, propagator, sigma, prepared=prepared)
         ctx.sigma = sigma
         ctx.save_for_backward(s, v_stack, propagator, prepared)
@@ -1324,7 +1271,7 @@ class _PanelScanDiff(torch.autograd.Function):
     def backward(ctx, g):
         s, v_stack, propagator, prepared = ctx.saved_tensors
         with span("panel_scan.backward"):  # on autograd's thread for CUDA tensors
-            dv, dpsi = panel_scan_bwd_store(s, v_stack, propagator, _dense(g), ctx.sigma,
+            dv, dpsi = panel_scan_bwd_store(s, v_stack, propagator, dense(g), ctx.sigma,
                                             prepared=prepared)
         need_psi, need_v = ctx.needs_input_grad[:2]
         return (dpsi if need_psi else None, dv.to(v_stack.dtype) if need_v else None, None,
@@ -1354,7 +1301,7 @@ class _PanelStep(torch.autograd.Function):
     @once_differentiable
     def backward(ctx, g):
         psi, v_slice, propagator, prepared = ctx.saved_tensors
-        bar = _col(panel_rowfwd(_dense(g)), propagator, prepared, conj=True)
+        bar = _col(panel_rowfwd(dense(g)), propagator, prepared, conj=True)
         dpsi, dv = panel_bwd_tail(v_slice, psi, bar, ctx.sigma)
         need_psi, need_v = ctx.needs_input_grad[:2]
         return (dpsi if need_psi else None, dv.to(v_slice.dtype) if need_v else None, None, None,
@@ -1370,7 +1317,7 @@ def panel_slice_step(
     backward.  ``prepared``: prepare_propagator(propagator), made once by a
     caller that steps through many slices (on the card)."""
     if prepared is None and psi.is_cuda:
-        prepared = _prepared(propagator)
+        prepared = prepared_propagator(propagator)
     return _PanelStep.apply(psi, v_slice, propagator, prepared, float(sigma))
 
 
@@ -1382,9 +1329,7 @@ def _per_slice(psi_b, v_stack, propagator, sigma):
     backward gathers the chunks' dV into one (S, n, n) tensor, where a slice
     of V per chunk would have autograd fill a zeroed full-size dV for each
     chunk and add it into V's."""
-    from ..propagate import pick_remat_chunk
-
-    prepared = _prepared(propagator) if psi_b.is_cuda else None
+    prepared = prepared_propagator(propagator) if psi_b.is_cuda else None
 
     def run(psi, v_chunk):
         for v in v_chunk:
@@ -1415,8 +1360,6 @@ def panel_diff_apply(
     no gradient: one that requires it raises, as does a gradient through a
     per-wave (B, S, n, n) V.
     """
-    from . import adjoint_scan
-
     recording = torch.is_grad_enabled()
     if recording and propagator.requires_grad:
         raise NotImplementedError(
@@ -1425,7 +1368,7 @@ def panel_diff_apply(
         )
     if not (recording and (psi0.requires_grad or v_stack.requires_grad)):
         return panel_scan(psi0, v_stack, propagator, float(sigma))
-    n, b, v_batched, _ = _batching(psi0, v_stack, propagator, "panel_diff_apply", check_size)
+    n, b, v_batched, _ = batching(psi0, v_stack, propagator, "panel_diff_apply", SIZES)
     if v_batched:
         raise NotImplementedError(
             "the panel gradient takes one (S, n, n) potential shared by the waves; a "
@@ -1470,7 +1413,7 @@ def make_panel_scan(
     is recording and an input requires a gradient, because the rollout's
     output carries no graph.
     """
-    check_size(ny, nx, f"engine {kind!r}")
+    check_size(ny, nx, f"engine {kind!r}", SIZES)
 
     def whole_scan(psi0, v_stack, propagator, sigma):
         if not grad and torch.is_grad_enabled() and any(

@@ -55,43 +55,35 @@ import ctypes
 
 import torch
 
-from . import _build, count_launches, reset_launches  # noqa: F401 - reset_launches re-exported
+from . import _runtime, count_launches, reset_launches  # noqa: F401 - reset_launches re-exported
+from ._runtime import check_dense, dense, route_row, sum_batch
 
+LIB = "slice_step"
 _SUFFIX = {torch.complex64: "c64", torch.complex128: "c128"}
 _P = ctypes.c_void_p
+#: each kernel's C entry points fdes_<kernel>_<c64|c128>, one a dtype
 _ARGTYPES = {
-    "transmit": [ctypes.c_int, _P, _P, _P, ctypes.c_double, ctypes.c_int64, ctypes.c_int64,
-                 ctypes.c_int64, _P],
-    "transmit_abs": [ctypes.c_int, _P, _P, _P, ctypes.c_double, ctypes.c_int64, ctypes.c_int64,
-                     _P],
-    "cmul": [ctypes.c_int, _P, _P, _P, ctypes.c_int, ctypes.c_int64, ctypes.c_int64, _P],
-    "transmit_bwd": [
-        ctypes.c_int, _P, _P, _P, _P, _P, ctypes.c_double, ctypes.c_int64, ctypes.c_int64, _P
-    ],
-    "transmit_abs_bwd": [
-        ctypes.c_int, _P, _P, _P, _P, _P, ctypes.c_double, ctypes.c_int64, ctypes.c_int64, _P
-    ],
+    f"fdes_{kernel}_{suffix}": argtypes
+    for kernel, argtypes in {
+        "transmit": [ctypes.c_int, _P, _P, _P, ctypes.c_double, ctypes.c_int64, ctypes.c_int64,
+                     ctypes.c_int64, _P],
+        "transmit_abs": [ctypes.c_int, _P, _P, _P, ctypes.c_double, ctypes.c_int64,
+                         ctypes.c_int64, _P],
+        "cmul": [ctypes.c_int, _P, _P, _P, ctypes.c_int, ctypes.c_int64, ctypes.c_int64, _P],
+        "transmit_bwd": [
+            ctypes.c_int, _P, _P, _P, _P, _P, ctypes.c_double, ctypes.c_int64, ctypes.c_int64, _P
+        ],
+        "transmit_abs_bwd": [
+            ctypes.c_int, _P, _P, _P, _P, _P, ctypes.c_double, ctypes.c_int64, ctypes.c_int64, _P
+        ],
+    }.items()
+    for suffix in _SUFFIX.values()
 }
-_entries: dict[str, object] = {}
-
-
-def _entry(kernel: str, dtype: torch.dtype):
-    """The C entry point ``fdes_<kernel>_<c64|c128>``, built and bound once."""
-    name = f"fdes_{kernel}_{_SUFFIX[dtype]}"
-    fn = _entries.get(name)
-    if fn is None:
-        fn = getattr(_build.load("slice_step"), name)
-        fn.argtypes = _ARGTYPES[kernel]
-        fn.restype = ctypes.c_int
-        _entries[name] = fn
-    return fn
 
 
 def _launch(kernel: str, z: torch.Tensor, *args) -> None:
-    lib = _build.load("slice_step")
-    stream = torch.cuda.current_stream(z.device).cuda_stream
-    status = _entry(kernel, z.dtype)(z.device.index, *args, stream)
-    _build.check(lib, status, f"slice_step.{kernel}")
+    """Launch ``fdes_<kernel>_<c64|c128>`` of z's dtype on z's card."""
+    _runtime.launch(LIB, _ARGTYPES, f"fdes_{kernel}_{_SUFFIX[z.dtype]}", z.device, *args)
 
 
 def _check(z: torch.Tensor, others: dict[str, torch.Tensor], what: str) -> tuple[int, int]:
@@ -116,25 +108,11 @@ def _check(z: torch.Tensor, others: dict[str, torch.Tensor], what: str) -> tuple
         shape = t.shape
     if z.is_cuda:
         for name, t in {"psi": z, **others}.items():
-            _check_dense(t, name, what)
+            check_dense(t, name, what)
     plane = 1
     for d in shape:
         plane *= d
     return plane, (z.numel() // plane if plane else 0)
-
-
-def _check_dense(t: torch.Tensor, name: str, what: str) -> None:
-    """A kernel reads t's memory as it lies: it must be contiguous and not a
-    lazy conjugate or negative view, whose memory holds other values."""
-    if not t.is_contiguous():
-        raise ValueError(f"{what}: {name} must be contiguous")
-    if t.is_conj() or t.is_neg():
-        raise ValueError(f"{what}: {name} is a lazy conj/neg view; call resolve_conj()")
-
-
-def _dense(g: torch.Tensor) -> torch.Tensor:
-    """An upstream gradient as the kernels read it (see _check_dense)."""
-    return g.resolve_conj().resolve_neg().contiguous()
 
 
 def _real_operand(v: torch.Tensor, psi: torch.Tensor, name: str, what: str) -> torch.Tensor:
@@ -149,7 +127,7 @@ def _complex_operand(v: torch.Tensor, psi: torch.Tensor, what: str) -> None:
     device, so that the CPU keeps the card's contract."""
     if v.dtype != psi.dtype:
         raise TypeError(f"{what}: v is {v.dtype}, psi is {psi.dtype}; cast V to psi's dtype")
-    _check_dense(v, "v", what)
+    check_dense(v, "v", what)
 
 
 # ---- plain versions --------------------------------------------------------
@@ -161,7 +139,7 @@ def transmit_ref(psi: torch.Tensor, v: torch.Tensor, sigma: float) -> torch.Tens
     return psi * torch.complex(torch.cos(phase), torch.sin(phase))
 
 
-def _transmit_abs_parts(
+def transmit_abs_parts_ref(
     psi: torch.Tensor, v_re: torch.Tensor, v_abs: torch.Tensor, sigma: float
 ) -> torch.Tensor:
     """psi * exp(1j*sigma*Vr - sigma*Va) in plain PyTorch, Vr and Va real."""
@@ -173,19 +151,12 @@ def _transmit_abs_parts(
 
 def transmit_abs_ref(psi: torch.Tensor, v: torch.Tensor, sigma: float) -> torch.Tensor:
     """psi * exp(1j*sigma*Re V - sigma*Im V) in plain PyTorch, V complex."""
-    return _transmit_abs_parts(psi, v.real, v.imag, sigma)
+    return transmit_abs_parts_ref(psi, v.real, v.imag, sigma)
 
 
 def cmul_ref(a: torch.Tensor, b: torch.Tensor, conj_b: bool = False) -> torch.Tensor:
     """a * b, or a * conj(b), in plain PyTorch."""
     return a * (b.conj() if conj_b else b)
-
-
-def _sum_batch(x: torch.Tensor, ndim: int) -> torch.Tensor:
-    """Sum x over its leading dimensions down to its trailing ``ndim``."""
-    if x.ndim == ndim:
-        return x
-    return x.sum(dim=tuple(range(x.ndim - ndim)))
 
 
 def transmit_bwd_ref(
@@ -197,7 +168,7 @@ def transmit_bwd_ref(
     phase = v.to(psi.real.dtype) * sigma
     t = torch.complex(torch.cos(phase), torch.sin(phase))
     dv = sigma * (g * (t * psi).conj()).imag
-    return g * t.conj(), _sum_batch(dv, v.ndim)
+    return g * t.conj(), sum_batch(dv, v.ndim)
 
 
 def transmit_abs_bwd_ref(
@@ -211,14 +182,14 @@ def transmit_abs_bwd_ref(
     damp = torch.exp(v.imag.to(rdt) * -sigma)
     t = torch.complex(damp * torch.cos(phase), damp * torch.sin(phase))
     w = g * (t * psi).conj()
-    return g * t.conj(), _sum_batch(torch.complex(sigma * w.imag, -sigma * w.real), v.ndim)
+    return g * t.conj(), sum_batch(torch.complex(sigma * w.imag, -sigma * w.real), v.ndim)
 
 
 # ---- kernel wrappers -------------------------------------------------------
 
 
 #: The transmit kernel's planes a block row, by psi's dtype and batch: rows
-#: of measured batches (fused_step.route_row: the row of the largest measured
+#: of measured batches (route_row: the row of the largest measured
 #: batch not above the launch's), 0 for the whole batch in one block row (t
 #: formed once a pixel).  From H100 turns of every choice at each row
 #: (chip_smoke.slice_sizes, PERF.md section 6).
@@ -231,8 +202,6 @@ TRANSMIT_ROWS = {
 def transmit_rows(batch: int, dtype: torch.dtype) -> int:
     """The planes a block row that TRANSMIT_ROWS gives a transmit of
     ``batch`` planes of ``dtype``, at least 1 and at most the batch."""
-    from .fused_step import route_row
-
     rows = route_row(TRANSMIT_ROWS[dtype], batch)
     return max(1, batch if rows == 0 else min(rows, batch))
 
@@ -299,7 +268,7 @@ def _check_grad(g: torch.Tensor, psi: torch.Tensor, what: str) -> None:
             f"{psi.dtype} {tuple(psi.shape)} on {psi.device}"
         )
     if g.is_cuda:
-        _check_dense(g, "g", what)
+        check_dense(g, "g", what)
 
 
 def transmit_bwd(
@@ -362,7 +331,7 @@ class _Transmit(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         psi, v = ctx.saved_tensors
-        dpsi, dv = transmit_bwd(psi, v, _dense(g), ctx.sigma)
+        dpsi, dv = transmit_bwd(psi, v, dense(g), ctx.sigma)
         return dpsi, dv.to(v.dtype), None
 
 
@@ -385,7 +354,7 @@ class _TransmitAbs(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         psi, v = ctx.saved_tensors
-        dpsi, dv = transmit_abs_bwd(psi, v, _dense(g), ctx.sigma)
+        dpsi, dv = transmit_abs_bwd(psi, v, dense(g), ctx.sigma)
         return dpsi, dv, None
 
 
@@ -404,7 +373,7 @@ class _PropagatorMultiply(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         (propagator,) = ctx.saved_tensors
-        return cmul(_dense(g), propagator, conj_b=True), None
+        return cmul(dense(g), propagator, conj_b=True), None
 
 
 def pallas_slice_step(
@@ -426,7 +395,7 @@ def pallas_slice_step(
     if v_slice.is_complex():
         # a no-op for a dense slice of psi's dtype; else one cast or copy,
         # whose gradient autograd casts back
-        psi = _TransmitAbs.apply(psi, _dense(v_slice.to(psi.dtype)), sigma)
+        psi = _TransmitAbs.apply(psi, dense(v_slice.to(psi.dtype)), sigma)
     else:
         psi = _Transmit.apply(psi, v_slice, sigma)
     psi_hat = torch.fft.fft2(psi)

@@ -26,12 +26,12 @@ slice at a time inside the loop instead of reading a stack.
 
 from __future__ import annotations
 
-import math
 from typing import Callable
 
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from .kernels._runtime import pick_remat_chunk  # noqa: F401 - its public name
 from .kernels.slice_step import pallas_slice_step, transmit_abs_ref, transmit_ref
 from .profiling import span
 
@@ -270,7 +270,7 @@ def make_slice_step(
     if kind in ("fscan", "fscan_fast", "fscan_draft"):
         if shape is None:
             raise ValueError(f"kind={kind!r} needs shape=(ny, nx)")
-        from .kernels.fused_scan import make_fused_scan
+        from .kernels.adjoint_scan import make_fused_scan
 
         return make_fused_scan(*shape, dtype=dtype or torch.complex64, kind=kind, grad=grad)
     if kind in ("panel", "panel_fast"):
@@ -334,18 +334,6 @@ def pick_probe_chunk(npos: int, method: str = "multislice") -> int:
     if npos <= target:
         return npos
     return max(d for d in range(1, target + 1) if npos % d == 0)
-
-
-def pick_remat_chunk(nslices: int) -> int:
-    """Divisor of nslices nearest sqrt(nslices) (sqrt-S remat policy)."""
-    if nslices <= 4:
-        return nslices
-    target = math.sqrt(nslices)
-    best = 1
-    for d in range(1, nslices + 1):
-        if nslices % d == 0 and abs(d - target) < abs(best - target):
-            best = d
-    return best
 
 
 def multislice(

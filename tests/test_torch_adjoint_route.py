@@ -32,6 +32,7 @@ from fdes_tpu.constants import interaction_sigma, wavelength_A  # noqa: E402
 from fdes_tpu.grids import Grid, fresnel_propagator  # noqa: E402
 from fdes_tpu.pallas import adjoint_scan as jadj  # noqa: E402
 from fdes_tpu_torch.kernels import _build  # noqa: E402
+from fdes_tpu_torch.kernels import _runtime as rt  # noqa: E402
 from fdes_tpu_torch.kernels import adjoint_scan as adj  # noqa: E402
 from fdes_tpu_torch.kernels import fused_step as fs  # noqa: E402
 from fdes_tpu_torch.propagate import PROBE_CHUNK_TARGET  # noqa: E402
@@ -320,7 +321,7 @@ def test_wide_transforms_are_the_dft(n):
     psi = torch.as_tensor(_fields(n, 1, 1, seed=n)[0][0, :8])
     tw = _staged_twiddles(n, psi.dtype)
     got = _rows_forward(psi, tw)
-    want = torch.fft.fft(psi, dim=-1)[..., fs.bit_reversal(n)]
+    want = torch.fft.fft(psi, dim=-1)[..., rt.bit_reversal(n)]
     assert float((got - want).abs().max()) <= EXACT * float(want.abs().max())
     back = _rows_inverse(got, tw)
     assert float((back - n * psi).abs().max()) <= EXACT * n * float(psi.abs().max())
@@ -364,13 +365,13 @@ def test_wide_spectrum_and_step_are_fft2(n):
     psi, _, prop = _fields(n, 2, 1, seed=n + 1)
     s, p = torch.as_tensor(psi), torch.as_tensor(prop)
     tw = _staged_twiddles(n, s.dtype)
-    br = fs.bit_reversal(n)
+    br = rt.bit_reversal(n)
     rows = _rows_forward(s, tw)
     spectrum = _from_wide(_wide_forward(_to_wide(rows.transpose(-1, -2)), tw)).transpose(-1, -2)
     want = torch.fft.fft2(s)[..., br[:, None], br[None, :]]
     assert float((spectrum - want).abs().max()) <= EXACT * float(want.abs().max())
-    prepared = p[br[:, None], br[None, :]]  # fs.prepare_propagator's order, in complex128
-    assert torch.equal(fs.prepare_propagator(p), prepared.to(torch.complex64))
+    prepared = p[br[:, None], br[None, :]]  # rt.prepare_propagator's order, in complex128
+    assert torch.equal(rt.prepare_propagator(p), prepared.to(torch.complex64))
     got = _rows_inverse(_col_pass(rows, prepared, False, tw), tw)
     step = torch.fft.ifft2(torch.fft.fft2(s) * p)
     assert float((got - step).abs().max()) <= EXACT * float(step.abs().max())
@@ -431,7 +432,7 @@ def test_wide_model_store_pair_equals_jax(b, per_wave_p, groups):
         want_dpsi.append(np.conj(np.asarray(dpsi)[0]))
         want_dv += np.asarray(dv)
     p_t = torch.as_tensor(np.ascontiguousarray(props if per_wave_p else prop))
-    prepared = fs.prepare_propagator(p_t)
+    prepared = rt.prepare_propagator(p_t)
     out, s = _model_store(torch.as_tensor(psi), torch.as_tensor(v), prepared, SIGMA)
     dv, dpsi = _model_bwd_store(s, torch.as_tensor(v), prepared, torch.as_tensor(g), SIGMA,
                                 groups)
@@ -474,7 +475,7 @@ def test_wide_model_segment_pair_equals_jax(b, seg, per_wave_p, groups):
         want_dpsi.append(np.conj(np.asarray(dpsi)))
         want_dv += np.asarray(dv)
     p_t = torch.as_tensor(np.ascontiguousarray(props if per_wave_p else prop))
-    prepared = fs.prepare_propagator(p_t)
+    prepared = rt.prepare_propagator(p_t)
     out, ck = _model_ck(torch.as_tensor(psi), torch.as_tensor(v), prepared, SIGMA, seg)
     assert tuple(ck.shape) == (b, nslices // seg, n, n)
     assert torch.equal(ck[:, 0], torch.as_tensor(psi))  # the incoming wave itself
@@ -496,7 +497,7 @@ def test_wide_model_segment_pair_is_the_store_pair(seg):
     n, b, nslices = 128, 2, 6
     psi, v, prop = (torch.as_tensor(a) for a in _fields(n, b, nslices, seed=40 + seg))
     g = torch.as_tensor(_fields(n, b, 1, seed=50)[0])
-    prepared = prop[fs.bit_reversal(n)[:, None], fs.bit_reversal(n)[None, :]]  # in complex128
+    prepared = prop[rt.bit_reversal(n)[:, None], rt.bit_reversal(n)[None, :]]  # in complex128
     out_s, s = _model_store(psi, v, prepared, SIGMA)
     dv_s, dpsi_s = _model_bwd_store(s, v, prepared, g, SIGMA, 2)
     out_c, ck = _model_ck(psi, v, prepared, SIGMA, seg)

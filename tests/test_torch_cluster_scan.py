@@ -21,6 +21,7 @@ torch = pytest.importorskip("torch")
 from fdes_tpu import propagate as jprop  # noqa: E402
 from fdes_tpu.constants import interaction_sigma, wavelength_A  # noqa: E402
 from fdes_tpu.grids import Grid, fresnel_propagator  # noqa: E402
+from fdes_tpu_torch.kernels import _runtime as rt  # noqa: E402
 from fdes_tpu_torch.kernels import fused_scan as fsc  # noqa: E402
 from fdes_tpu_torch.kernels import fused_step as fs  # noqa: E402
 
@@ -39,7 +40,7 @@ def _one_thread():
 
 
 def _br(n: int) -> torch.Tensor:
-    return fs.bit_reversal(n)
+    return rt.bit_reversal(n)
 
 
 def _shape(n: int) -> tuple[int, int]:
@@ -158,7 +159,7 @@ def _model_step(s: torch.Tensor, prop_gathered: torch.Tensor) -> torch.Tensor:
 
 
 def _model_rollout(psi0, v_stack, prop, sigma):
-    pg = fsc.prepare_cluster_propagator(prop) if prop.dtype == torch.complex64 else _gather(prop)
+    pg = rt.prepare_propagator(prop, "cluster") if prop.dtype == torch.complex64 else _gather(prop)
     psi = psi0
     for v in v_stack:
         phase = v.to(psi.real.dtype) * sigma
@@ -167,7 +168,7 @@ def _model_rollout(psi0, v_stack, prop, sigma):
 
 
 def _gather(prop: torch.Tensor) -> torch.Tensor:
-    rows, cols = fsc.cluster_order(prop.shape[-1])
+    rows, cols = rt.cluster_order(prop.shape[-1])
     return prop[..., rows[:, None], cols[None, :]]
 
 
@@ -194,8 +195,8 @@ def test_cluster_step_with_the_gathered_propagator(n):
     want = torch.fft.ifft2(torch.fft.fft2(s) * p)
     got = _model_step(s, _gather(p))
     assert float((got - want).abs().max()) <= EXACT * float(want.abs().max())
-    rows, cols = fsc.cluster_order(n)
-    prepared = fsc.prepare_cluster_propagator(p)
+    rows, cols = rt.cluster_order(n)
+    prepared = rt.prepare_propagator(p, "cluster")
     assert prepared.dtype == torch.complex64 and prepared.is_contiguous()
     assert torch.equal(prepared, p.to(torch.complex64)[rows[:, None], cols[None, :]])
     c, r = _shape(n)
@@ -204,7 +205,7 @@ def test_cluster_step_with_the_gathered_propagator(n):
             assert int(rows[j * r + rp]) == int(_br(r)[rp]) + r * int(_br(c)[j])
     assert torch.equal(cols, _br(n))
     per_wave = torch.stack([p, 1j * p])
-    assert torch.equal(fsc.prepare_cluster_propagator(per_wave)[1], prepared * 1j)
+    assert torch.equal(rt.prepare_propagator(per_wave, "cluster")[1], prepared * 1j)
 
 
 @pytest.mark.parametrize("n", [128, 256, 512])
@@ -221,9 +222,9 @@ def test_cluster_rows_and_pairs_cover_the_plane_once(n):
 
 def test_cluster_order_refuses_other_grids():
     with pytest.raises(ValueError, match="cluster scan"):
-        fsc.prepare_cluster_propagator(torch.ones(1024, 1024, dtype=torch.complex64))
+        rt.prepare_propagator(torch.ones(1024, 1024, dtype=torch.complex64), "cluster")
     with pytest.raises(ValueError, match="cluster scan"):
-        fsc.prepare_cluster_propagator(torch.ones(256, 128, dtype=torch.complex64))
+        rt.prepare_propagator(torch.ones(256, 128, dtype=torch.complex64), "cluster")
 
 
 # ---- the model's rollout against the JAX package ------------------------------

@@ -21,6 +21,7 @@ from fdes_tpu import propagate as jprop  # noqa: E402
 from fdes_tpu.constants import interaction_sigma, wavelength_A  # noqa: E402
 from fdes_tpu.grids import Grid, fresnel_propagator  # noqa: E402
 from fdes_tpu_torch import propagate as tprop  # noqa: E402
+from fdes_tpu_torch.kernels import _runtime as rt  # noqa: E402
 from fdes_tpu_torch.kernels import fused_scan as fsc  # noqa: E402
 from fdes_tpu_torch.kernels import fused_step as fs  # noqa: E402
 
@@ -231,15 +232,15 @@ def test_prepared_propagator_is_what_the_kernel_transform_needs(fields):
     multiplying by prepare_propagator(P) / n^2 in between is IFFT2(P FFT2(x))."""
     psi, _, prop = fields
     psi = psi.astype(np.complex128)
-    idx = fs.bit_reversal(N).numpy()
+    idx = rt.bit_reversal(N).numpy()
     assert sorted(idx) == list(range(N)) and (idx[idx] == np.arange(N)).all()
     spectrum = _dif(_dif(psi).T).T  # along x, then along y
     np.testing.assert_allclose(spectrum, np.fft.fft2(psi)[np.ix_(idx, idx)], atol=1e-9)
-    pp = fs.prepare_propagator(_t(prop)).numpy()
+    pp = rt.prepare_propagator(_t(prop)).numpy()
     assert pp.dtype == np.complex64 and pp.flags.c_contiguous
     out = _dit_inverse(_dit_inverse((spectrum * pp / N**2).T).T)
     np.testing.assert_allclose(out, np.fft.ifft2(np.fft.fft2(psi) * prop), atol=1e-6)
-    stack = fs.prepare_propagator(_t(np.stack([prop, 2 * prop])))
+    stack = rt.prepare_propagator(_t(np.stack([prop, 2 * prop])))
     assert torch.equal(stack[1], 2 * stack[0]) and torch.equal(stack[0], _t(pp))
 
 

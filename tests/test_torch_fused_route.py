@@ -11,6 +11,7 @@ sends to the fused step.
 On the CPU every route gives the plain version; the kernels are held to it
 on the card (the last test here, and chip_smoke.py phase kernels_fused)."""
 
+import ctypes
 import types
 
 import jax
@@ -28,6 +29,7 @@ from fdes_tpu.specimen import SlicedAtoms  # noqa: E402
 from fdes_tpu_torch import cli as tcli  # noqa: E402
 from fdes_tpu_torch import propagate as tprop  # noqa: E402
 from fdes_tpu_torch.kernels import _build  # noqa: E402
+from fdes_tpu_torch.kernels import _runtime as rt  # noqa: E402
 from fdes_tpu_torch.kernels import fused_step as fs  # noqa: E402
 from fdes_tpu_torch.kernels.slice_step import pallas_slice_step  # noqa: E402
 
@@ -91,7 +93,7 @@ def test_step_route_is_the_table():
 
 @pytest.mark.parametrize("table", ["STEP_ROUTE", "STORE_ROUTE", "SCAN_ROUTE", "PANEL_ROUTE"])
 def test_every_route_table_reads_through_route_row(table):
-    """The four route tables' readers share fused_step.route_row: each
+    """The four route tables' readers share _runtime.route_row: each
     reader's answer at every count from 0 to past the last row is route_row's
     entry of the table's rows."""
     from fdes_tpu_torch.kernels import adjoint_scan as adj
@@ -109,7 +111,7 @@ def test_every_route_table_reads_through_route_row(table):
     rows_by_n, reader = tables[table]
     for n, rows in rows_by_n.items():
         for b in range(0, 2 * max(rows) + 1):
-            assert reader(n, b) == fs.route_row(rows, max(b, 1) if table == "SCAN_ROUTE" else b)
+            assert reader(n, b) == rt.route_row(rows, max(b, 1) if table == "SCAN_ROUTE" else b)
 
 
 def test_route_argument_is_checked(batch):
@@ -149,6 +151,89 @@ def test_wide_kernels_are_built_from_the_shared_rows():
         assert fn not in step and fn not in adjoint
     for text in (step, adjoint):
         assert '#include "fused_fft.cuh"' in text
+
+
+# ---- the runtime: one binding, one kernel query ------------------------------
+
+
+class _FakeEntry:
+    """A stand-in for a ctypes entry point: records its calls, fills a
+    query's int array with 10, 11, ... and returns ``status``."""
+
+    def __init__(self, status=0):
+        self.calls, self.status = [], status
+
+    def __call__(self, *args):
+        self.calls.append(args)
+        if isinstance(args[-1], ctypes.c_void_p):
+            out = ctypes.cast(args[-1], ctypes.POINTER(ctypes.c_int))
+            for i in range(4):
+                out[i] = 10 + i
+        return self.status
+
+
+class _FakeLibrary:
+    def __init__(self, status=0):
+        self.fdes_fake_c64 = _FakeEntry(status)
+        self.fdes_fake_info = _FakeEntry()
+        self.loads = 0
+
+    def fdes_error_string(self, status):
+        return b"fake error"
+
+
+@pytest.fixture
+def fake_library(monkeypatch):
+    lib = _FakeLibrary()
+
+    def load(name):
+        assert name == "fake"
+        lib.loads += 1
+        return lib
+
+    monkeypatch.setattr(rt._build, "load", load)
+    monkeypatch.setattr(rt, "_bound", {})
+    monkeypatch.setattr(rt, "_infos", {})
+    return lib
+
+
+def test_a_launch_binds_once_and_passes_the_card_and_its_stream(fake_library, monkeypatch):
+    """The runtime's one binding: an entry point is bound to its argtypes
+    once, called as (device index, *args, the current stream), and a
+    non-zero status raises with the library's message."""
+    argtypes = {"fdes_fake_c64": [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]}
+    streams = []
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda device: streams.append(device) or types.SimpleNamespace(
+                            cuda_stream=1234))
+    dev = torch.device("cuda", 3)
+    for k in range(2):
+        rt.launch("fake", argtypes, "fdes_fake_c64", dev, k)
+    entry = fake_library.fdes_fake_c64
+    assert entry.calls == [(3, 0, 1234), (3, 1, 1234)] and streams == [dev, dev]
+    assert fake_library.loads == 1 and entry.argtypes == argtypes["fdes_fake_c64"]
+    entry.status = 7
+    with pytest.raises(RuntimeError, match=r"fdes_fake_c64: CUDA error 7 \(fake error\)"):
+        rt.launch("fake", argtypes, "fdes_fake_c64", dev, 2)
+
+
+def test_a_kernel_query_is_read_once_per_entry_card_and_arguments(fake_library):
+    """The runtime's one kernel query: the entry point's int array read into
+    named fields, queried once per (entry point, card, arguments) and
+    shared; no stream is passed."""
+    argtypes = {"fdes_fake_info": [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]}
+    query = fake_library.fdes_fake_info
+    first = rt.kernel_info("fake", argtypes, "fdes_fake_info", rt.BLOCKS, torch.device("cuda", 0),
+                           512)
+    assert first == {"registers": 10, "shared_bytes": 11, "local_bytes": 12,
+                     "resident_blocks": 13}
+    assert rt.kernel_info("fake", argtypes, "fdes_fake_info", rt.BLOCKS,
+                          torch.device("cuda", 0), 512) is first
+    assert len(query.calls) == 1 and query.calls[0][:2] == (0, 512)
+    rt.kernel_info("fake", argtypes, "fdes_fake_info", rt.BLOCKS, torch.device("cuda", 1), 512)
+    rt.kernel_info("fake", argtypes, "fdes_fake_info", rt.BLOCKS, torch.device("cuda", 0), 256)
+    assert [c[:2] for c in query.calls] == [(0, 512), (1, 512), (0, 256)]
+    assert fake_library.loads == 1
 
 
 # ---- the fused engine on a batch with one propagator per wave ---------------

@@ -239,3 +239,47 @@ def test_sources_import_no_jax_or_fdes_tpu():
         for mod in _imported_modules(path):
             top = mod.split(".")[0]
             assert top not in ("jax", "jaxlib", "fdes_tpu", "optax"), (path, mod)
+
+
+#: The kernel layer in the order it imports: each module imports only from
+#: those before it.
+KERNEL_CHAIN = ("__init__", "_build", "_runtime", "slice_step", "fused_step", "fused_scan",
+                "adjoint_scan", "panel_scan")
+
+
+@pytest.mark.parametrize("module", KERNEL_CHAIN)
+def test_kernel_modules_import_only_downward(module):
+    """A module of fdes_tpu_torch/kernels/ imports, at module or at function
+    level, no kernel module after it in KERNEL_CHAIN, no underscore name of
+    another module (nor reads one through a module it imported), and nothing
+    of propagate."""
+    kernels = os.path.join(REPO, "fdes_tpu_torch", "kernels")
+    assert sorted(KERNEL_CHAIN) == sorted(n[:-3] for n in os.listdir(kernels) if n.endswith(".py"))
+    below = KERNEL_CHAIN[:KERNEL_CHAIN.index(module)]
+    tree = ast.parse(open(os.path.join(kernels, f"{module}.py")).read())
+    modules = set()  # the names this module binds to kernel modules
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            assert not any(a.name.startswith("fdes_tpu_torch") for a in node.names), module
+        if not isinstance(node, ast.ImportFrom):
+            continue
+        where = (node.level, node.module)
+        if node.level == 0:
+            assert not (node.module or "").startswith("fdes_tpu_torch"), (module, where)
+        elif node.level == 2:  # a module of the package beside kernels/
+            assert "propagate" not in (node.module or "").split(".") + [a.name for a in
+                                                                       node.names], module
+        elif node.module is None:  # from . import ...
+            for a in node.names:
+                if a.name in KERNEL_CHAIN:
+                    assert a.name in below, (module, a.name)
+                    modules.add(a.asname or a.name)
+                else:  # a name of the package's __init__
+                    assert not a.name.startswith("_"), (module, a.name)
+        else:
+            assert node.module.split(".")[0] in below, (module, where)
+            assert not any(a.name.startswith("_") for a in node.names), (module, where)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Attribute) and isinstance(node.value, ast.Name) \
+                and node.value.id in modules:
+            assert not node.attr.startswith("_"), (module, node.value.id, node.attr)

@@ -20,8 +20,8 @@ from fdes_tpu import propagate as jprop  # noqa: E402
 from fdes_tpu.constants import interaction_sigma, wavelength_A  # noqa: E402
 from fdes_tpu.grids import Grid, fresnel_propagator  # noqa: E402
 from fdes_tpu_torch import propagate as tprop  # noqa: E402
+from fdes_tpu_torch.kernels import _runtime as rt  # noqa: E402
 from fdes_tpu_torch.kernels import fused_scan as fsc  # noqa: E402
-from fdes_tpu_torch.kernels import fused_step as fs  # noqa: E402
 from fdes_tpu_torch.kernels import panel_scan as ps  # noqa: E402
 
 KV = 300e3
@@ -173,7 +173,7 @@ def c128():
 
 def _natural(a):
     """An x spectrum in bit-reversed order, in natural order."""
-    return a[..., fs.bit_reversal(a.shape[-1]).numpy()]
+    return a[..., rt.bit_reversal(a.shape[-1]).numpy()]
 
 
 def _close(got, want):
@@ -286,7 +286,7 @@ def test_plain_layout_is_the_kernels_transform(c128):
     d = c128
     psi, v, p, a = d["psi"][0], d["v"][0], d["prop"], d["a"][0]
     _close(ps.panel_init_ref(_t(v), _t(psi), SIGMA), _dif(_t_np(v) * psi))
-    pp = ps.prepare_propagator(_t(p)).numpy().astype(np.complex128)
+    pp = rt.prepare_propagator(_t(p)).numpy().astype(np.complex128)
     col = _dit_inverse((_dif(a.T) * pp.T / N**2)).T
     # the kernel multiplies by the complex64 propagator: compare with it
     _close(ps.panel_colpass_ref(_t(a), _t(p.astype(np.complex64))), col)
@@ -295,13 +295,12 @@ def test_plain_layout_is_the_kernels_transform(c128):
 
 def test_prepare_propagator_is_bit_reversed_in_both_axes(fields):
     p = _t(fields["prop"])
-    idx = fs.bit_reversal(N)
-    pp = ps.prepare_propagator(p)
+    idx = rt.bit_reversal(N)
+    pp = rt.prepare_propagator(p)
     assert pp.dtype == torch.complex64 and pp.is_contiguous()
     assert torch.equal(pp, p[idx[:, None], idx[None, :]])
-    assert torch.equal(pp, fs.prepare_propagator(p))
     with pytest.raises(ValueError, match="supports axis sizes"):
-        ps.prepare_propagator(p[:128, :128])
+        rt.prepare_propagator(p[:64, :64])
 
 
 # ---- the engine's forms and refusals ---------------------------------------
@@ -427,7 +426,7 @@ def test_absorptive_rollout_reads_v_in_place_on_card(fields, cuda):
     f = fields
     psi, props = _t(f["psi_b"]).to(cuda), _t(f["props"]).to(cuda)
     v = _t(f["v_abs"]).to(cuda)
-    prepared = ps.prepare_propagator(props)
+    prepared = rt.prepare_propagator(props)
     ps.reset_launches()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()

@@ -26,8 +26,8 @@ from fdes_tpu import propagate as jprop  # noqa: E402
 from fdes_tpu.constants import interaction_sigma, wavelength_A  # noqa: E402
 from fdes_tpu.grids import Grid, fresnel_propagator  # noqa: E402
 from fdes_tpu_torch import propagate as tprop  # noqa: E402
+from fdes_tpu_torch.kernels import _runtime as rt  # noqa: E402
 from fdes_tpu_torch.kernels import adjoint_scan as adj  # noqa: E402
-from fdes_tpu_torch.kernels import fused_step as fs  # noqa: E402
 from fdes_tpu_torch.kernels import panel_scan as ps  # noqa: E402
 
 KV = 300e3
@@ -192,7 +192,7 @@ def c128():
 
 def _natural(a):
     """An x spectrum in bit-reversed order, in natural order."""
-    return a[..., fs.bit_reversal(a.shape[-1]).numpy()]
+    return a[..., rt.bit_reversal(a.shape[-1]).numpy()]
 
 
 def _exact(got, want):

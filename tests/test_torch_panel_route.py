@@ -45,7 +45,7 @@ torch = pytest.importorskip("torch")
 from fdes_tpu.constants import interaction_sigma, wavelength_A  # noqa: E402
 from fdes_tpu.grids import Grid, fresnel_propagator  # noqa: E402
 from fdes_tpu_torch.kernels import _build  # noqa: E402
-from fdes_tpu_torch.kernels import fused_step as fs  # noqa: E402
+from fdes_tpu_torch.kernels import _runtime as rt  # noqa: E402
 from fdes_tpu_torch.kernels import panel_scan as ps  # noqa: E402
 
 SIGMA = interaction_sigma(300e3)
@@ -69,7 +69,7 @@ def _cols(n: int) -> int:
 
 
 def _bitrev(n: int) -> np.ndarray:
-    return fs.bit_reversal(n).numpy()
+    return rt.bit_reversal(n).numpy()
 
 
 def _cplx(rng, *shape) -> np.ndarray:
@@ -1175,7 +1175,7 @@ def test_loops_count_row_passes_by_route(row_route):
 def cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the wide panel kernels have no CPU form")
-    return torch.device("cuda")
+    return torch.device("cuda", torch.cuda.current_device())
 
 
 def test_wide_kernels_match_plain_on_card(cuda):
@@ -1192,7 +1192,7 @@ def test_wide_kernels_match_plain_on_card(cuda):
         prop = torch.polar(torch.ones(2, n, n, device=cuda),
                            torch.as_tensor(rng.uniform(0, 6.28, (2, n, n)),
                                            dtype=torch.float32).to(cuda))
-        pp = ps.prepare_propagator(prop)
+        pp = rt.prepare_propagator(prop)
         ps.reset_launches()
         for conj in (False, True):
             want = (ps.panel_col_bwd_ref if conj else ps.panel_colpass_ref)(a, prop)

@@ -1,10 +1,10 @@
 """The package's one cache of prepared propagators
-(fdes_tpu_torch.kernels.fused_step.prepared_propagator): a hit is the same
+(fdes_tpu_torch.kernels._runtime.prepared_propagator): a hit is the same
 tensor, an in-place change or a new tensor misses and gathers exactly what
-the uncached preparations gather, the bit-reversed entry is one for the
-fused and the panel callers, an entry dies with its propagator, a propagator
-that requires a gradient bypasses the cache, and the index copies are made
-once per (n, device)."""
+the uncached gather (prepare_propagator) gathers, the bit-reversed entry is
+the one the fused and the panel callers hand their kernels, an entry dies
+with its propagator, a propagator that requires a gradient bypasses the
+cache, and the index copies are made once per (n, device)."""
 
 import gc
 import os
@@ -16,6 +16,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from fdes_tpu_torch.kernels import _runtime as rt  # noqa: E402
 from fdes_tpu_torch.kernels import fused_scan as fsc  # noqa: E402
 from fdes_tpu_torch.kernels import fused_step as fs  # noqa: E402
 from fdes_tpu_torch.kernels import panel_scan as ps  # noqa: E402
@@ -29,63 +30,67 @@ def _prop(n, waves=(), seed=0):
     return torch.complex(torch.randn(shape, generator=g), torch.randn(shape, generator=g))
 
 
-def _uncached(p, layout):
-    """Every uncached preparation of ``layout`` that takes p's size."""
-    n = p.shape[-1]
-    if layout == "cluster":
-        return [fsc.prepare_cluster_propagator(p)]
-    return [fs.prepare_propagator(p)] + ([ps.prepare_propagator(p)] if n in ps.SIZES else [])
-
-
 @pytest.mark.parametrize("layout,n", CASES)
 @pytest.mark.parametrize("waves", [(), (3,)])
 def test_a_hit_returns_the_same_tensor(layout, n, waves):
     p = _prop(n, waves)
-    first = fs.prepared_propagator(p, layout)
-    assert fs.prepared_propagator(p, layout) is first
+    first = rt.prepared_propagator(p, layout)
+    assert rt.prepared_propagator(p, layout) is first
     assert first.dtype == torch.complex64 and first.is_contiguous()
-    for want in _uncached(p, layout):
-        assert torch.equal(first, want)
+    assert torch.equal(first, rt.prepare_propagator(p, layout))
 
 
 @pytest.mark.parametrize("layout,n", CASES)
 def test_an_in_place_change_and_a_new_tensor_miss(layout, n):
     p = _prop(n)
-    first = fs.prepared_propagator(p, layout)
+    first = rt.prepared_propagator(p, layout)
     p.mul_(1j)  # bumps p._version
-    changed = fs.prepared_propagator(p, layout)
+    changed = rt.prepared_propagator(p, layout)
     assert changed is not first
-    for want in _uncached(p, layout):
-        assert torch.equal(changed, want)
+    assert torch.equal(changed, rt.prepare_propagator(p, layout))
     q = p.clone()
-    fresh = fs.prepared_propagator(q, layout)
+    fresh = rt.prepared_propagator(q, layout)
     assert fresh is not changed and torch.equal(fresh, changed)
-    assert fs.prepared_propagator(p, layout) is changed  # q's entry left p's alone
+    assert rt.prepared_propagator(p, layout) is changed  # q's entry left p's alone
 
 
 def test_a_complex128_propagator_is_prepared_in_complex64():
     p = _prop(128).to(torch.complex128)
-    got = fs.prepared_propagator(p)
-    assert got.dtype == torch.complex64 and fs.prepared_propagator(p) is got
-    assert torch.equal(got, fs.prepare_propagator(p))
+    got = rt.prepared_propagator(p)
+    assert got.dtype == torch.complex64 and rt.prepared_propagator(p) is got
+    assert torch.equal(got, rt.prepare_propagator(p))
 
 
 @pytest.mark.parametrize("n", [256, 512])
-def test_the_bitrev_entry_is_shared_by_the_fused_and_panel_callers(n):
+def test_the_bitrev_entry_is_shared_by_the_fused_and_panel_callers(monkeypatch, n):
+    """The fused step and the panel column pass hand their kernels the one
+    bit-reversed entry.  The C calls are stubbed, and tensors report
+    themselves on the card, so that the wrappers take their card paths
+    here."""
     p = _prop(n)
-    fused = fs.prepared_propagator(p)
-    assert ps._prepared(p) is fused
-    assert fs.prepared_propagator(p, "bitrev") is fused
-    cluster = fs.prepared_propagator(p, "cluster")  # an entry of its own
+    fused = rt.prepared_propagator(p)
+    read = []  # the propagator pointer of each launch
+    monkeypatch.setattr(fs, "_launch", lambda name, device, n, *args: read.append(args[2]))
+    monkeypatch.setattr(ps, "_launch", lambda name, device, n, *args: read.append(args[1]))
+    monkeypatch.setattr(torch.Tensor, "is_cuda", property(lambda self: True))
+    psi = torch.ones(n, n, dtype=torch.complex64)
+    try:
+        fs.fused_step(psi, torch.zeros(n, n), p, 0.01)
+        ps.panel_colpass(psi, p)
+    finally:
+        fs.reset_launches()
+    assert read == [fused.data_ptr()] * 2
+    assert rt.prepared_propagator(p, "bitrev") is fused
+    cluster = rt.prepared_propagator(p, "cluster")  # an entry of its own
     assert cluster is not fused and not torch.equal(cluster, fused)
-    assert fs.prepared_propagator(p) is fused
+    assert rt.prepared_propagator(p) is fused
 
 
 @pytest.mark.parametrize("layout,n", CASES)
 def test_an_entry_dies_with_its_propagator(layout, n):
     p = _prop(n)
-    entry = weakref.ref(fs.prepared_propagator(p, layout))
-    assert p in fs._prepared
+    entry = weakref.ref(rt.prepared_propagator(p, layout))
+    assert p in rt._prepared
     del p
     gc.collect()
     assert entry() is None
@@ -94,62 +99,62 @@ def test_an_entry_dies_with_its_propagator(layout, n):
 @pytest.mark.parametrize("layout,n", CASES)
 def test_a_propagator_that_requires_grad_bypasses_the_cache(layout, n):
     p = _prop(n).requires_grad_()
-    first = fs.prepared_propagator(p, layout)
-    second = fs.prepared_propagator(p, layout)
-    assert first is not second and p not in fs._prepared
+    first = rt.prepared_propagator(p, layout)
+    second = rt.prepared_propagator(p, layout)
+    assert first is not second and p not in rt._prepared
     assert first.requires_grad  # the gather carries the graph: never kept
-    assert torch.equal(first.detach(), _uncached(p.detach(), layout)[0])
+    assert torch.equal(first.detach(), rt.prepare_propagator(p.detach(), layout))
     with torch.no_grad():  # no graph to carry: cached
-        kept = fs.prepared_propagator(p, layout)
-        assert fs.prepared_propagator(p, layout) is kept and not kept.requires_grad
+        kept = rt.prepared_propagator(p, layout)
+        assert rt.prepared_propagator(p, layout) is kept and not kept.requires_grad
 
 
 def test_inference_mode_bypasses_the_cache():
     p = _prop(128)
     with torch.inference_mode():
-        first = fs.prepared_propagator(p)
-        assert fs.prepared_propagator(p) is not first
+        first = rt.prepared_propagator(p)
+        assert rt.prepared_propagator(p) is not first
         q = _prop(128)
-    assert p not in fs._prepared
-    assert fs.prepared_propagator(q) is not fs.prepared_propagator(q)  # an inference tensor
-    assert torch.equal(first, fs.prepare_propagator(p))
+    assert p not in rt._prepared
+    assert rt.prepared_propagator(q) is not rt.prepared_propagator(q)  # an inference tensor
+    assert torch.equal(first, rt.prepare_propagator(p))
 
 
 def test_a_layout_and_a_shape_are_checked():
     with pytest.raises(ValueError, match="layout"):
-        fs.prepared_propagator(_prop(128), "natural")
+        rt.prepared_propagator(_prop(128), "natural")
     with pytest.raises(ValueError, match=r"\(\.\.\., n, n\)"):
-        fs.prepared_propagator(torch.ones(128, 256, dtype=torch.complex64))
+        rt.prepared_propagator(torch.ones(128, 256, dtype=torch.complex64))
 
 
 @pytest.mark.parametrize("layout,n", CASES)
 def test_index_copies_are_made_once_per_size_and_device(monkeypatch, layout, n):
-    monkeypatch.setattr(fs, "_index_copies", {})
+    monkeypatch.setattr(rt, "_index_copies", {})
     copies = []
     from_numpy = torch.from_numpy
     monkeypatch.setattr(torch, "from_numpy", lambda a: copies.append(a.shape) or from_numpy(a))
-    assert fs.bit_reversal(n) is fs.bit_reversal(n, "cpu")
-    rows, cols = fsc.cluster_order(n)
-    again = fsc.cluster_order(n, torch.device("cpu"))
-    assert again[0] is rows and again[1] is cols and cols is fs.bit_reversal(n)
+    assert rt.bit_reversal(n) is rt.bit_reversal(n, "cpu")
+    rows, cols = rt.cluster_order(n)
+    again = rt.cluster_order(n, torch.device("cpu"))
+    assert again[0] is rows and again[1] is cols and cols is rt.bit_reversal(n)
     assert copies == [(n,), (n,)]  # bitrev n, then the cluster rows
     for seed in range(3):  # three misses: no host copy
-        fs.prepared_propagator(_prop(n, seed=seed), layout)
+        rt.prepared_propagator(_prop(n, seed=seed), layout)
     assert copies == [(n,), (n,)]
-    assert fs.bit_reversal(n).tolist() == fs._bit_reversal_host(n).tolist()
+    assert rt.bit_reversal(n).tolist() == rt._bit_reversal_host(n).tolist()
 
 
 def test_threads_share_one_entry_a_propagator():
     shared = [_prop(128, seed=s) for s in range(4)]
-    want = [fs.prepare_propagator(p) for p in shared]
+    want = [rt.prepare_propagator(p) for p in shared]
     got, errors = [[] for _ in shared], []
 
     def work(k):
         try:
             for i in range(40):
                 j = (k + i) % len(shared)
-                got[j].append(fs.prepared_propagator(shared[j]))
-                fs.prepared_propagator(_prop(128, seed=100 + k), "cluster")  # a miss
+                got[j].append(rt.prepared_propagator(shared[j]))
+                rt.prepared_propagator(_prop(128, seed=100 + k), "cluster")  # a miss
         except Exception as e:  # noqa: BLE001 - handed to the main thread
             errors.append(e)
 
@@ -188,11 +193,11 @@ def _card_fields(n, s, b, cuda, seed=3):
 
 def _twice(run, p):
     """run(p) on a miss (p new to the cache) and then on a hit."""
-    assert p not in fs._prepared
+    assert p not in rt._prepared
     miss = run(p)
-    entry = fs.prepared_propagator(p)
+    entry = rt.prepared_propagator(p)
     hit = run(p)
-    assert fs.prepared_propagator(p) is entry
+    assert rt.prepared_propagator(p) is entry
     return miss, hit
 
 

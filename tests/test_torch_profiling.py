@@ -283,12 +283,12 @@ def test_pipeline_setup_records_its_set_up_spans(recorder):
 
 
 def test_the_propagator_cache_counts_hits_misses_and_bypasses(recorder):
-    from fdes_tpu_torch.kernels import fused_step as fs
+    from fdes_tpu_torch.kernels import _runtime as rt
 
     p = torch.ones(128, 128, dtype=torch.complex64)
     for q in (p, p, p.clone().requires_grad_()):
         with recorder.span("propagate.prepare"):
-            fs.prepared_propagator(q)
+            rt.prepared_propagator(q)
     assert [(r["name"], r["counts"]) for r in recorder.records()] == [
         ("propagate.prepare", {"prepare.miss": 1}), ("propagate.prepare", {"prepare.hit": 1}),
         ("propagate.prepare", {"prepare.bypass": 1})]
@@ -299,14 +299,14 @@ def test_two_calls_of_a_whole_loop_engine_prepare_one_propagator_once(recorder, 
     then one hit, each under ``propagate.prepare``.  The C call is stubbed,
     and tensors report themselves on the card, so that the wrapper takes its
     card path here."""
+    from fdes_tpu_torch.kernels import adjoint_scan as adj
     from fdes_tpu_torch.kernels import fused_scan as fsc
-    from fdes_tpu_torch.kernels import fused_step as fs
 
     calls = []
-    monkeypatch.setattr(fs, "launch", lambda name, *args: calls.append(name))
+    monkeypatch.setattr(fsc, "_launch", lambda name, *args: calls.append(name))
     monkeypatch.setattr(torch.Tensor, "is_cuda", property(lambda self: True))
     n = 128
-    engine = fsc.make_fused_scan(n, n)
+    engine = adj.make_fused_scan(n, n)
     psi0 = torch.ones(n, n, dtype=torch.complex64)
     v = torch.zeros(4, n, n)
     prop = torch.ones(n, n, dtype=torch.complex64)
@@ -322,14 +322,14 @@ def test_two_calls_of_a_whole_loop_engine_prepare_one_propagator_once(recorder, 
 
 
 def test_the_propagator_cache_records_nothing_while_off():
-    from fdes_tpu_torch.kernels import fused_step as fs
+    from fdes_tpu_torch.kernels import _runtime as rt
 
     profiling.reset()
     assert not profiling.enabled()
     p = torch.ones(128, 128, dtype=torch.complex64)
     with profiling.span("propagate.prepare"):
         for _ in range(2):
-            fs.prepared_propagator(p)
+            rt.prepared_propagator(p)
     assert profiling.records() == []
 
 

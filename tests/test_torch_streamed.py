@@ -23,7 +23,7 @@ from fdes_tpu.specimen import SlicedAtoms  # noqa: E402
 from fdes_tpu_torch import potential as tpot  # noqa: E402
 from fdes_tpu_torch import propagate as tprop  # noqa: E402
 from fdes_tpu_torch.grids import Grid as TGrid  # noqa: E402
-from fdes_tpu_torch.kernels import fused_step as fs  # noqa: E402
+from fdes_tpu_torch.kernels import _runtime as rt  # noqa: E402
 from fdes_tpu_torch.kernels import panel_scan as ps  # noqa: E402
 
 KV = 300e3
@@ -223,7 +223,7 @@ def test_prepare_factors_equals_jax_hermitian_reconstruction():
     # the TPU layout puts element a * r + b of an axis at b * BASE + a
     natural = np.argsort(np.arange(n).reshape(BASE, n // BASE).T.ravel())
     jax_full = jax_panel[:, natural[:, None], natural[None, :]]
-    idx = fs.bit_reversal(n).numpy()
+    idx = rt.bit_reversal(n).numpy()
     assert _rel_max(got, jax_full[:, idx[:, None], idx[None, :]]) <= 1e-15
     f32 = ps.prepare_factors(_t(jpot.species_factors_full(grid, species)), (grid.py, grid.px))
     assert f32.dtype == torch.float32 and f32.is_contiguous()
@@ -246,7 +246,7 @@ def planes():
 
 def _natural(a):
     """An x spectrum in bit-reversed order, in natural order."""
-    return a[..., fs.bit_reversal(a.shape[-1]).numpy()]
+    return a[..., rt.bit_reversal(a.shape[-1]).numpy()]
 
 
 @pytest.mark.parametrize("j", [0, 2])
@@ -309,7 +309,7 @@ def test_plain_build_colpass_equals_numpy(planes):
     layout the kernels read (rows and columns bit-reversed)."""
     gx, f = planes["gx"], planes["f"]
     n = gx.shape[-1]
-    idx = fs.bit_reversal(n).numpy()
+    idx = rt.bit_reversal(n).numpy()
     f_panel = f[:, idx[:, None], idx[None, :]]
     got = ps.panel_build_colpass_ref(_t(gx), _t(f_panel)).numpy()
     # gx holds x-spectrum columns in bit-reversed order: column c is frequency idx[c]
